@@ -22,6 +22,20 @@
    version's ms and torch.mv's ms (the matvec alone, a yardstick); and the
    main path's whole network step timed on the device alone, which with
    the end-to-end step gives the device's idle share.
+7. train_kernel_check: the int8 matvecs (bit for bit) and the fused adam +
+   requantize kernel (rtol 1e-6; wq equal away from rounding boundaries)
+   against their plain versions at the training path's shapes.
+8. train_path: bench.py's north-star training (QIF SpikeResetNet, N =
+   10,000, T = 500, dt = 5e-3, int8_master coupling, adam lr 1e-4, 16
+   epochs) through Network.fit_bptt with RECTIPY_FUSED_ADAM=on: one warm
+   fit and two timed fits; the launch counts must be 16 adam_requant and
+   8,000 of each int8 matvec per fit, the losses finite.
+9. train_split_vs_fused: 4 epochs with RECTIPY_FUSED_ADAM=off and =on on
+   fresh networks: epoch 0's loss equal, later ones within rtol 1e-4.
+10. train_timing: one epoch split by CUDA events into the forward loop, the
+   backward loop, the dW matmul and the optimizer tail; the device's idle
+   share over one epoch from torch.profiler; each training kernel's ms,
+   bound and plain ms.
 
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
@@ -34,6 +48,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,8 +60,13 @@ PLAIN_STEPS = 2_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 QIF_SFA = "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa"
+QIF = "rectipy_tpu_torch.models.spiking_neurons.qif.qif"
 KERNEL_SOURCE = "rectipy_tpu_torch/csrc/qif_sfa_step.cu"
 TPU_KERNEL = "rectipy_tpu/ops/kernels.py:53"
+SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant")
+# the training path: bench.py:331-370
+T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 16, 1e-4
+SPLIT_VS_FUSED_RTOL = 1e-4
 # kernel vs plain on the card, (rtol, atol), for the two input cases of the
 # kernel check; W is the main path's in both.  Both W types take the same
 # tolerance: f32 does the same f32 arithmetic, summed in another order over
@@ -100,6 +120,273 @@ def bench_inputs(steps: int) -> np.ndarray:
     return inp
 
 
+def bench_training_data(n: int):
+    """bench.py's north-star training data (bench.py:334-338), seed 2."""
+    rng = np.random.default_rng(2)
+    W = (rng.random((n, n)) < 0.1) * (1.0 / (0.1 * n))
+    etas = -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, n + 1) - n - 1) / (n + 1))
+    inp = rng.normal(size=(T_TRAIN, n))
+    tgt = rng.normal(size=(T_TRAIN, n))
+    return W, etas, inp, tgt
+
+
+def build_train_net(W, etas, device=None):
+    from rectipy_tpu_torch import Network
+
+    net = Network(DT_TRAIN, device=device)  # default: the current CUDA device; float32
+    net.add_diffeq_node("qif", QIF, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="qif_op", spike_var="spike",
+                        spike_def="v", spike_threshold=1e2, spike_reset=-1e2,
+                        node_vars={"all/qif_op/eta": etas}, coupling_dtype="int8_master",
+                        train_params=["weights"])
+    net.compile()
+    return net
+
+
+def fit(net, inp_d, tgt_d, epochs: int, mode: str):
+    """One fit_bptt of ``epochs`` epochs; returns (seconds, losses)."""
+    os.environ["RECTIPY_FUSED_ADAM"] = mode
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs = net.fit_bptt([inp_d] * epochs, [tgt_d] * epochs, optimizer="adam", lr=LR,
+                       verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in obs["epoch_loss"]]
+    if len(losses) != epochs or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"fit_bptt ({mode}): bad losses {losses}")
+    return seconds, losses
+
+
+def profile_device_time(fn):
+    """(device busy ms, top device ops) of one call of ``fn`` under
+    torch.profiler; (None, reason) when the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies, fills): a CPU op that
+        # launches a kernel through ctypes also reports that kernel's time
+        # as its own "self" device time, which would count it twice
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((ev.key, dev_us, ev.count))
+    if not rows:
+        return None, "torch.profiler recorded no device time"
+    rows.sort(key=lambda r: -r[1])
+    top = [{"op": k[:80], "ms": us / 1e3, "count": c} for k, us, c in rows[:12]]
+    return sum(r[1] for r in rows) / 1e3, top
+
+
+def train_phases(dev) -> list:
+    """Phases 7-10: the training path and its three kernels.  Returns their
+    entries of the ``kernels`` line."""
+    from rectipy_tpu_torch.ops import bptt
+    from rectipy_tpu_torch.ops.fused_opt import (adam_requant, adam_requant_plain,
+                                                 bias_corrections)
+    from rectipy_tpu_torch.ops.quant import (int8_dot_plain, int8_dot_t_plain, int8_mv,
+                                             int8_mv_t, quant_vec, quantize_rows)
+
+    from rectipy_tpu_torch.testing import ADAM_KW, ADAM_RTOL, adam_inputs, check_adam_requant
+
+    t0 = time.perf_counter()
+    W_np, etas, inp, tgt = bench_training_data(N)
+    data_s = time.perf_counter() - t0
+
+    # ------------------------------------------------ 7. train kernel check
+    W = torch.as_tensor(W_np, dtype=torch.float32, device=dev)
+    wq, ws = quantize_rows(W)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xq, xs = quant_vec(torch.randn(N, generator=gen, device=dev))
+    vq, vs = quant_vec(torch.randn(N, generator=gen, device=dev) * 1e-3)
+    mv, mv_ref = int8_mv(wq, xq, ws, xs), (int8_dot_plain(wq, xq) * ws) * xs
+    mv_t, mv_t_ref = int8_mv_t(wq, vq, vs), int8_dot_t_plain(wq, vq) * vs
+    torch.cuda.synchronize()
+    if not (torch.equal(mv, mv_ref) and torch.equal(mv_t, mv_t_ref)):
+        raise AssertionError("an int8 matvec kernel differs from its plain version")
+    if not (bool((mv != 0).any()) and bool((mv_t != 0).any())):
+        raise AssertionError("the int8 check is vacuous: all outputs are zero")
+    emit({"phase": "train_kernel_check", "kernel": "int8_mv/int8_mv_t", "n": N,
+          "bit_identical": True, "wq_nonzero": int((wq != 0).sum()), "data_s": data_s})
+    adam_err = 0.0
+    for count in (1, 7):
+        w, m, v, g, bc1, bc2, lr = adam_inputs(N, N, count, 5, dev)
+        got = adam_requant(w, m, v, g, bc1, bc2, lr, **ADAM_KW)
+        torch.cuda.synchronize()
+        ref = adam_requant_plain(w, m, v, g, bc1, bc2, lr, **ADAM_KW)
+        rel, at_boundary, margin = check_adam_requant(got, ref, w)
+        err = max(float((a - b).abs().max()) for a, b in zip(got[:3] + (got[4],),
+                                                              ref[:3] + (ref[4],)))
+        adam_err = max(adam_err, err)
+        emit({"phase": "train_kernel_check", "kernel": "adam_requant", "shape": [N, N],
+              "count": count, "max_abs_err": err, "max_rel_err": rel, "rtol": ADAM_RTOL,
+              "wq_differ": int((got[3] != ref[3]).sum()), "wq_at_rounding_boundary": at_boundary,
+              "min_update_over_tolerance": margin})
+        del got, ref, w, m, v, g
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------ 8. train path
+    inp_d = torch.as_tensor(inp, dtype=torch.float32, device=dev)
+    tgt_d = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    net = build_train_net(W_np, etas)
+    build_s = time.perf_counter() - t0
+    warm_s, warm_losses = fit(net, inp_d, tgt_d, EPOCHS, "on")
+    runs, counts = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        int8_mv.launches = int8_mv_t.launches = adam_requant.launches = 0
+        seconds, losses = fit(net, inp_d, tgt_d, EPOCHS, "on")
+        counts.append((adam_requant.launches, int8_mv.launches, int8_mv_t.launches))
+        runs.append((seconds, losses))
+    for c in counts:
+        if c != (EPOCHS, EPOCHS * T_TRAIN, EPOCHS * T_TRAIN):
+            raise AssertionError(f"launch counts (adam_requant, int8_mv, int8_mv_t) {c}; "
+                                 f"expected ({EPOCHS}, {EPOCHS * T_TRAIN}, {EPOCHS * T_TRAIN})")
+    if net.last_fit != {"trajectory": "chain", "fused_adam": True}:
+        raise AssertionError(f"the fit did not take the fused path: {net.last_fit}")
+    best = min(r[0] for r in runs) / EPOCHS
+    launches = {"adam_requant": counts[0][0], "int8_mv": counts[0][1], "int8_mv_t": counts[0][2]}
+    emit({"phase": "train_path", "n": N, "T": T_TRAIN, "epochs": EPOCHS, "coupling": "int8_master",
+          "fused_adam": "on", "build_s": build_s, "warm_fit_s": warm_s,
+          "fit_s": [r[0] for r in runs], "ms_per_epoch": best * 1e3,
+          "trained_neuron_updates_per_s": T_TRAIN * N / best, "launches_per_fit": launches,
+          "first_loss": warm_losses[0], "last_loss": runs[-1][1][-1],
+          "losses_last_fit": runs[-1][1],
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+
+    # ----------------------------------------------- 9. split vs fused
+    del net
+    torch.cuda.empty_cache()
+    sv = {}
+    for mode in ("off", "on"):
+        net = build_train_net(W_np, etas)
+        seconds, losses = fit(net, inp_d, tgt_d, 4, mode)
+        sv[mode] = (seconds / 4, losses)
+        del net
+        torch.cuda.empty_cache()
+    l_off, l_fused = np.asarray(sv["off"][1]), np.asarray(sv["on"][1])
+    if l_off[0] != l_fused[0]:
+        raise AssertionError(f"epoch 0 losses differ: {l_off[0]} vs {l_fused[0]}")
+    dev_rel = float(np.max(np.abs(l_fused - l_off) / np.abs(l_off)))
+    if dev_rel > SPLIT_VS_FUSED_RTOL:
+        raise AssertionError(f"split vs fused losses differ by {dev_rel} (rtol "
+                             f"{SPLIT_VS_FUSED_RTOL})")
+    emit({"phase": "train_split_vs_fused", "epochs": 4, "losses_off": list(l_off),
+          "losses_on": list(l_fused), "max_rel_deviation": dev_rel,
+          "rtol": SPLIT_VS_FUSED_RTOL, "ms_per_epoch_off": sv["off"][0] * 1e3,
+          "ms_per_epoch_on": sv["on"][0] * 1e3})
+
+    # ------------------------------------------------------ 10. timing
+    net = build_train_net(W_np, etas)
+    node = net.get_node("qif")
+    traj_p, wkeys, preps = bptt.make_coupled_traj_prepped(node)
+    p = bptt._node_pieces(node)
+    args = {k: v for k, v in node.args.items() if k not in wkeys}
+    Wm = node.args["weights"]
+    wp = (preps[0](Wm),)
+    y0 = node.y
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    # the epoch as fit_bptt runs it: the trajectory's forward, then its
+    # backward (the reverse loop and the dW matmul) called by the autograd
+    # engine; the dW matmul is timed again alone at the same shapes, and the
+    # optimizer tail is the fused kernel
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    W_leaf = Wm.detach().requires_grad_(True)
+    with torch.enable_grad():
+        ev[0].record()
+        _, outs = traj_p(wp, {"weights": W_leaf}, args, y0, inp_d)
+        ev[1].record()
+        (gW,) = torch.autograd.grad(torch.mean((outs - tgt_d) ** 2), W_leaf)
+        ev[2].record()
+    deltas = torch.randn((T_TRAIN, N), device=dev)
+    ev[3].record()
+    p.grad_ws[0](deltas, deltas)
+    ev[4].record()
+    bc1, bc2 = bias_corrections(1, 0.9, 0.999)
+    zeros = torch.zeros_like(Wm)
+    adam_requant(Wm, zeros, zeros, gW, bc1, bc2, LR, **ADAM_KW)
+    ev[5].record()
+    torch.cuda.synchronize()
+    split_wall_s = time.perf_counter() - t0
+    fwd, bwd_all, dw = (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                        ev[3].elapsed_time(ev[4]))
+    parts = [fwd, bwd_all - dw, dw, ev[4].elapsed_time(ev[5])]
+    del outs, gW, deltas, zeros
+    busy_ms, top = profile_device_time(lambda: fit(net, inp_d, tgt_d, 1, "on"))
+    epoch_ms = best * 1e3
+    emit({"phase": "train_timing_top_device_ops", "top": top})
+    emit({"phase": "train_timing", "epoch_split_ms": dict(zip(
+        ("forward_loop", "backward_loop", "dW_matmul", "optimizer_tail"), parts)),
+        "split_wall_s": split_wall_s, "profiled_device_busy_ms": busy_ms,
+        "ms_per_epoch": epoch_ms,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / epoch_ms})
+
+    # per-kernel times at the training shapes
+    w, m, v, g, bc1, bc2, lr = adam_inputs(N, N, 7, 5, dev)
+    entries = []
+    specs = [
+        ("int8_mv", "rectipy_tpu_torch/csrc/int8_matvec.cu", "rectipy_tpu/ops/quant.py:65",
+         lambda: int8_mv(wq, xq, ws, xs), lambda: (int8_dot_plain(wq, xq) * ws) * xs,
+         N * N + N + 4 * N + 4 + 4 * N, 2 * N * N + 2 * N, 1979e12, 0.0),
+        ("int8_mv_t", "rectipy_tpu_torch/csrc/int8_matvec.cu", "rectipy_tpu/ops/quant.py:73",
+         lambda: int8_mv_t(wq, vq, vs), lambda: int8_dot_t_plain(wq, vq) * vs,
+         N * N + N + 4 + 4 * N, 2 * N * N + N, 1979e12, 0.0),
+        ("adam_requant", "rectipy_tpu_torch/csrc/adam_requant.cu",
+         "rectipy_tpu/ops/fused_opt.py:88",
+         lambda: adam_requant(w, m, v, g, bc1, bc2, lr, **ADAM_KW),
+         lambda: adam_requant_plain(w, m, v, g, bc1, bc2, lr, **ADAM_KW),
+         29 * N * N + 4 * N, 15 * N * N + 3 * N, F32_FLOPS, adam_err),
+    ]
+    for name, source, replaces, fn, plain, n_bytes, n_ops, peak, err in specs:
+        ms = cuda_ms(fn, reps=50 if name == "adam_requant" else 200)
+        plain_ms = cuda_ms(plain, reps=5)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+        entries.append(entry)
+        emit({"phase": "train_timing", **entry, "bytes": n_bytes, "ops": n_ops,
+              "launches_per_epoch": launches[name] // EPOCHS,
+              "library_ms_reason": "no single PyTorch call computes this function",
+              "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+    return entries
+
+
+def unported_bounds() -> dict:
+    """The H100 bound of each TPU kernel not ported yet, from its shapes
+    (bytes each input read once and each output written once, over
+    HBM_BYTES_PER_S; the operations over the peak of their type)."""
+    # rectipy_tpu/ops/generic_fused.py:46 at the bench's N = 10,000 with one
+    # bf16 coupling and the qif_sfa template: W, the three state rows and
+    # eta/inp in, three state rows out (the TPU kernel's 512-tile padding is
+    # not work the function needs)
+    g_bytes = 2 * N * N + (3 + 2) * 4 * N + 3 * 4 * N
+    g_ops = 2 * N * N + 20 * N
+    # benchmarks/i4pack_microbench.py:95 at its default N = 14,336: the
+    # packed (N/2, N) uint8 coupling, x_even/x_odd (N/2 f32 each), y (N f32);
+    # the products run in bf16 on the tensor cores (989e12/s)
+    n4 = 14_336
+    i_bytes = n4 // 2 * n4 + 2 * 4 * (n4 // 2) + 4 * n4
+    i_ops = 2 * n4 * n4
+    out = {"phase": "unported_bounds"}
+    for name, n_bytes, n_ops, peak in (("generic_fused", g_bytes, g_ops, F32_FLOPS),
+                                       ("i4pack_matvec", i_bytes, i_ops, 989e12)):
+        t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+        out[name] = {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b >= t_o else "operations"}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -120,10 +407,14 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    built = build("qif_sfa_step")
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_seconds": built.seconds,
-          "library": os.path.basename(built.path), "ptxas": ptxas})
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, together
+        builds = dict(zip(SOURCES, pool.map(build, SOURCES)))
+    for name, built in builds.items():
+        ptxas = [ln.strip() for ln in built.log.splitlines()
+                 if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        emit({"phase": "build", "source": f"rectipy_tpu_torch/csrc/{name}.cu",
+              "seconds": time.perf_counter() - t0, "nvcc_seconds": built.seconds,
+              "library": os.path.basename(built.path), "ptxas": ptxas})
 
     # ------------------------------------------------------ 3. kernel check
     rng = np.random.default_rng(0)
@@ -294,6 +585,11 @@ def main() -> int:
               "device_step_ms": device_step_ms,
               "device_idle_share": 1.0 - device_step_ms / step_ms[name],
               "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+
+    del nets, fused, Ws, W32, W, s_w, step, state, net_params, cases, v, s, x, eta, inp
+    torch.cuda.empty_cache()
+    kernels += train_phases(dev)
+    emit(unported_bounds())
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -48,7 +48,10 @@ def _unpad_state(y: np.ndarray, n_state: int, jax_node_params: dict) -> np.ndarr
 def load_jax_params(net, params: dict, state: dict = None) -> None:
     """Write a JAX network's ``parameters_pytree()`` (and optionally its
     ``init_state()``), as nested dicts of numpy arrays, into the port
-    network ``net`` built the same way.
+    network ``net`` built the same way.  That covers quantized couplings
+    (the float master ``weights`` of an ``int8_master`` node; the int8
+    ``weights`` and their ``weights__scale`` of a frozen ``int8`` node) and
+    trainable ``Linear`` edges.
 
     Keys the port does not have raise ``KeyError``.  The padded copies of a
     JAX network with a fused step attached (``__wt_pad__``,

@@ -8,11 +8,21 @@ axis.  The result is ``f(t, y, args) -> dy`` on torch tensors, with the same
 ``read_var`` and ``alg_vars`` as the JAX lowering, so parameters and states
 carry across one to one (``rectipy_tpu_torch.convert``).
 
-Couplings: dense float32/float64 (``w @ src``) and reduced-precision dense
+Couplings: dense float32/float64 (``w @ src``); reduced-precision dense
 float16/bfloat16, where both W and the source are cast to the coupling type
-and the products are summed in float32.  The int8/int4, ``*_master`` and
-block-sparse couplings of the JAX package are not ported yet (ROADMAP,
-Queue 1 items 5 and 10) and raise ``NotImplementedError``.
+and the products are summed in float32; ``'int8_master'`` (a float master
+under ``weights``, quantized per row once per run or trajectory, int8
+matvecs with STE gradients, ``ops/quant.py``); and frozen ``int8`` (the
+weights quantized at build into ``weights`` (int8) and ``weights__scale``).
+The int4, ``bfloat16_master`` and block-sparse couplings of the JAX package
+are not ported yet (ROADMAP Queue 1 items 5 and 10) and raise
+``NotImplementedError``.
+
+Besides ``func``, the lowering gives the deferred-gradient trajectories
+(``ops/bptt.py``) ``tile_func`` (the vector field with the coupling results
+supplied from outside), ``state_order``, ``make_tile_reader`` and
+``coupling_cast``, and the inference runs ``prep_args`` (the once-per-run
+requantization of an ``int8_master`` coupling).
 """
 
 from __future__ import annotations
@@ -26,8 +36,9 @@ import torch
 from .expr import CONSTANTS, evaluate, free_symbols, split_equation
 from .parser import NodeTemplate, OperatorTemplate, TemplateError, _strip_node_prefix
 
-_QUANT_TODO = ("ROADMAP Queue 1 item 5 (quantized and master-weight couplings) is not "
-               "ported yet; use coupling_dtype=None, 'float32' or 'bfloat16'.")
+_QUANT_TODO = ("ROADMAP Queue 1 item 5 (the int4 and bfloat16_master couplings) is not "
+               "ported yet; use coupling_dtype=None, 'float32', 'bfloat16', 'int8' or "
+               "'int8_master'.")
 
 
 @dataclass
@@ -63,7 +74,14 @@ class VectorField:
     target_var: Optional[str] = None
     read_var: Optional[Callable] = None  # read_var(qname, y, args) -> (N,) value
     alg_vars: List[str] = field(default_factory=list)  # algebraic (non-state) variables
+    # tile_func(states, args, ext) -> {state qname: derivative}: the vector
+    # field with the coupling contributions supplied in ``ext``
+    tile_func: Optional[Callable] = None
+    state_order: List[str] = field(default_factory=list)  # state var qnames, y layout order
+    make_tile_reader: Optional[Callable] = None
     couplings: List[Tuple[str, str, str]] = field(default_factory=list)  # (src, tgt, wkey)
+    coupling_cast: Optional[str] = None  # 'int8' for int8_master couplings
+    prep_args: Optional[Callable] = None  # once-per-run prep of int8_master couplings
 
 
 def _qualify(name: str, ops: List[OperatorTemplate]) -> str:
@@ -82,7 +100,7 @@ def _qualify(name: str, ops: List[OperatorTemplate]) -> str:
     return f"{matches[0]}/{name}"
 
 
-def _coupling_matvec(w: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+def _float_matvec(w: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """``w @ src``.  A float16/bfloat16 coupling casts BOTH operands to its
     type and sums the products in float32 (the JAX lowering's
     ``dot_general(..., preferred_element_type=float32)``): the upcast
@@ -95,6 +113,24 @@ def _coupling_matvec(w: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(w.dtype, src.dtype)
         return torch.mv(w.to(dt), src.to(dt))
     return torch.mv(w, src)
+
+
+def _frozen_int8_matvec(wq: torch.Tensor, scale: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Frozen int8 coupling (the JAX lowering's int8 branch): the source is
+    scaled by ``max|src|/127`` in its own dtype and rounded to int8, the int8
+    product sums exactly, and the result is ``(float32(sum) * scale) * s_scale``
+    with the last product in the source's dtype.  Inference only: the JAX
+    package's straight-through gradient for the source is not ported."""
+    from ..ops.quant import int8_mv
+
+    if torch.is_grad_enabled() and src.requires_grad:
+        raise NotImplementedError(
+            "Gradients through a frozen int8 coupling are not ported yet (ROADMAP Queue 1 "
+            "item 5); train with coupling_dtype=None, 'float32' or 'int8_master'.")
+    s_scale = torch.clamp_min(src.abs().amax(), 1e-30) / 127.0
+    xq = torch.clamp(torch.round(src / s_scale), -127, 127).to(torch.int8)
+    one = torch.ones((), dtype=torch.float32, device=src.device)
+    return int8_mv(wq, xq, scale, one).to(src.dtype) * s_scale
 
 
 def _broadcast(value, n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -158,11 +194,11 @@ def lower(
     if not ops:
         raise TemplateError(f"Node template {node.name!r} has no operators")
 
-    if isinstance(coupling_dtype, str) and coupling_dtype in (
-            "bfloat16_master", "bf16_master", "int8_master", "int4_master", "int4"):
+    master_int8 = coupling_dtype == "int8_master"
+    if isinstance(coupling_dtype, str) and not master_int8:
         raise NotImplementedError(f"coupling_dtype={coupling_dtype!r}: {_QUANT_TODO}")
-    if coupling_dtype is not None and coupling_dtype not in (
-            torch.float32, torch.float64, torch.float16, torch.bfloat16):
+    if not master_int8 and coupling_dtype is not None and coupling_dtype not in (
+            torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int8):
         raise NotImplementedError(f"coupling_dtype={coupling_dtype!r}: {_QUANT_TODO}")
 
     def _as_matrix(w):
@@ -294,10 +330,69 @@ def lower(
                 args[qname] = _vectorize(base, lv.default).expand(n).contiguous()
             keys.append(qname)
             input_vars.append(qname)
-    w_dtype = coupling_dtype or dtype
+    # 'int8_master': a float master (the network's dtype) is stored and
+    # trained; the int8 quantization happens once per run (prep_args) or per
+    # trajectory (ops/bptt.py).  Frozen 'int8': quantized here, once.
+    w_dtype = dtype if master_int8 else (coupling_dtype or dtype)
+    int8_coupling = w_dtype == torch.int8
+    master_dense_keys: List[str] = []
+
+    def _check_int8_fan_in(n_in: int, wkey: str):
+        # int8 x int8 accumulates in int32: worst case 127*127*n_in per output
+        from ..ops.quant import INT8_DOT_MAX_FAN_IN
+
+        if n_in >= INT8_DOT_MAX_FAN_IN:
+            raise ValueError(
+                f"Dense int8 coupling {wkey!r} has fan-in {n_in} >= "
+                f"{INT8_DOT_MAX_FAN_IN}, which can overflow the int32 "
+                f"accumulator in the worst case. Use bfloat16/float32 at this size.")
+
     for _, _, W, wkey in all_edges:
+        if int8_coupling:
+            from ..ops.quant import quantize_rows
+
+            _check_int8_fan_in(int(W.shape[1]), wkey)
+            args[wkey], args[wkey + "__scale"] = quantize_rows(_tensor(W, torch.float32))
+            keys.extend([wkey, wkey + "__scale"])
+            continue
+        if master_int8:
+            _check_int8_fan_in(int(W.shape[1]), wkey)
+            master_dense_keys.append(wkey)
         args[wkey] = _tensor(W, w_dtype)
         keys.append(wkey)
+
+    # int8_master inference prep: requantize the float master ONCE per run
+    # (Network.run applies it before the time loop through the node's
+    # prep_params); the (wq, scale) pairs ride along in args under reserved
+    # "__q"/"__qs" keys that _coupling_matvec picks up.  The plain-autograd
+    # training path keeps the per-step STE matvec (the deferred trajectories
+    # prep inside ops/bptt.py).
+    prep_args = None
+    if master_dense_keys:
+
+        def prep_args(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            from ..ops.quant import quantize_rows
+
+            a = dict(a)
+            for wk in master_dense_keys:
+                a[wk + "__q"], a[wk + "__qs"] = quantize_rows(a[wk].detach())
+            return a
+
+    def _coupling_matvec(w, src, a, wkey):
+        if master_int8 and wkey + "__q" in a:
+            # prepped int8_master path (inference runs): the same numerics as
+            # the per-step STE matvec's forward
+            from ..ops.quant import _mv_prepped
+
+            return _mv_prepped((a[wkey + "__q"], a[wkey + "__qs"]), src)
+        if master_int8:
+            # plain-autograd training: the per-step STE matvec
+            from ..ops.quant import int8_master_matvec
+
+            return int8_master_matvec(w, src).to(src.dtype)
+        if w.dtype == torch.int8:
+            return _frozen_int8_matvec(w, a[wkey + "__scale"], src)
+        return _float_matvec(w, src)
 
     # initial state, contiguous per-variable blocks
     y0_parts = []
@@ -384,7 +479,7 @@ def lower(
                 if qname in wiring:
                     val = val + env[wiring[qname]]
                 for esv, wkey in edge_by_target.get(qname, []):
-                    val = val + _coupling_matvec(a[wkey], env[esv])
+                    val = val + _coupling_matvec(a[wkey], env[esv], a, wkey)
                 env[qname] = val
         return env
 
@@ -398,6 +493,84 @@ def lower(
         return torch.cat(dy_parts) if dy_parts else torch.zeros_like(y)
 
     alg_names = [q for q in schedule if lowered[q].kind == "algebraic"]
+
+    # ---- coupling-free variant (for the deferred-gradient trajectories) -----
+    # Evaluates the same schedule with every coupling contribution supplied
+    # precomputed via ``ext`` (the matvec happens outside).  The trajectories
+    # evaluate it on the full population, so population reductions
+    # (mean/sum/min/max over neurons) are exact.
+    def tile_func(states: Dict[str, torch.Tensor], a_tile: Dict[str, torch.Tensor],
+                  ext: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        env: Dict[str, torch.Tensor] = dict(states)
+        for k in keys:
+            if k in a_tile:
+                env[k] = a_tile[k]
+        for qname in schedule:
+            lv = lowered[qname]
+            if lv.kind == "algebraic":
+                rhs_ast, opname = alg_items[qname]
+                env[qname] = evaluate(rhs_ast, _op_env(env, opname))
+            else:
+                val = env.get(qname, lv.default)
+                if qname in wiring:
+                    val = val + env[wiring[qname]]
+                if qname in ext:
+                    val = val + ext[qname]
+                env[qname] = val
+        first = next(iter(states.values()))
+        return {qname: _broadcast(evaluate(rhs_ast, _op_env(env, opname)), first.shape[0],
+                                  first.dtype, first.device)
+                for qname, rhs_ast, opname in ode_rhs}
+
+    def make_tile_reader(qname: str):
+        """Reader ``(states, args) -> value`` of a state or algebraic
+        variable that depends (transitively) only on states and parameters;
+        ``None`` when it reads a coupling-driven input."""
+        if qname in var_map:
+            return lambda states, a_tile: states[qname]
+        if qname not in lowered or lowered[qname].kind != "algebraic":
+            return None
+
+        def deps_ok(q, seen=()):
+            lv = lowered[q]
+            if lv.kind in ("state", "param"):
+                return True
+            if lv.kind == "input":
+                if q in edge_by_target:
+                    return False  # coupling-driven: needs the global matvec
+                if q in wiring:
+                    return deps_ok(wiring[q], seen + (q,))
+                return True  # pure external placeholder
+            for sym in free_symbols(lv.rhs_ast):
+                if sym in CONSTANTS and f"{lv.op}/{sym}" not in lowered:
+                    continue
+                dep = f"{lv.op}/{sym}"
+                if dep in seen:
+                    continue
+                if not deps_ok(dep, seen + (q,)):
+                    return False
+            return True
+
+        if not deps_ok(qname):
+            return None
+
+        def reader(states: Dict[str, torch.Tensor], a_tile: Dict[str, torch.Tensor]):
+            env: Dict[str, torch.Tensor] = dict(states)
+            for k in keys:
+                if k in a_tile:
+                    env[k] = a_tile[k]
+            for q in schedule:
+                lv = lowered[q]
+                if lv.kind == "algebraic":
+                    rhs_ast, opname = alg_items[q]
+                    env[q] = evaluate(rhs_ast, _op_env(env, opname))
+                elif lv.kind == "input" and q in wiring:
+                    env[q] = env.get(q, lv.default) + env[wiring[q]]
+                if q == qname:
+                    break
+            return env[qname]
+
+        return reader
 
     def read_var(qname: str, y, a: Dict[str, torch.Tensor]):
         """Read the current value of a state, algebraic, or input variable.
@@ -449,5 +622,10 @@ def lower(
         target_var=_qualify(target_var, ops) if target_var else None,
         read_var=read_var,
         alg_vars=alg_names,
+        tile_func=tile_func,
+        state_order=list(state_order),
+        make_tile_reader=make_tile_reader,
         couplings=[(esv, etv, wkey) for esv, etv, _, wkey in all_edges],
+        coupling_cast="int8" if master_int8 else None,
+        prep_args=prep_args,
     )

@@ -1,24 +1,29 @@
-"""Network: graph container, step composition and the simulation loop.
+"""Network: graph container, step composition, simulation and BPTT training.
 
-Counterpart of the simulation subset of ``rectipy_tpu/network.py``.
-``compile()`` resolves the graph once into an evaluation order;
-``make_step()`` composes the node and edge steps into one network step
-``step(state, params, x) -> (state', out, taps)``; ``run`` drives it in a
-Python loop over time steps with the JAX package's windowed recording
-semantics.
+Counterpart of the simulation and epoch-mode training subset of
+``rectipy_tpu/network.py``.  ``compile()`` resolves the graph once into an
+evaluation order; ``make_step()`` composes the node and edge steps into one
+network step ``step(state, params, x) -> (state', out, taps)``; ``run``
+drives it in a Python loop over time steps with the JAX package's windowed
+recording semantics; ``fit_bptt`` (epoch mode) trains through the
+deferred-gradient trajectory of ``ops/bptt.py`` on chain networks and through
+plain autograd otherwise.
 
-On the device: the inputs move to the device once, the records accumulate
-on the device, and nothing inside the loop synchronises with the host; the
-records cross to the host once, after the last step.
+On the device: the inputs move to the device once, the records and epoch
+losses stay on the device, and nothing inside the loops synchronises with
+the host; they cross to the host once, at the end.
 
-Not ported yet (ROADMAP Queue 1 items 6-14): the trainers (``fit_*``),
-``run_batch``, ``FeedbackNetwork``, the edge classes beyond ``Linear``,
-heterogeneous circuits, on-device input specs, spike rasters and meshes.
+Not ported yet (ROADMAP Queue 1 items 7-14): ``fit_bptt`` step mode,
+``remat_steps`` and ``mesh=``, the other trainers, ``run_batch``,
+``FeedbackNetwork``, the edge classes beyond ``Linear``, heterogeneous
+circuits, on-device input specs and spike rasters.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple, Union
+import os
+from time import perf_counter
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import networkx as nx
 import numpy as np
@@ -28,7 +33,9 @@ from networkx import DiGraph
 from .edges import Linear
 from .nodes import InstantNode, RateNet, SpikeResetNet, resolve_device, resolve_dtype
 from .observer import Observer
-from .utility import add_op_name
+from .train import get_loss_function, get_optimizer
+from .train.optimizers import tree_map
+from .utility import add_op_name, retrieve_from_dict
 
 __all__ = ["Network"]
 
@@ -39,6 +46,40 @@ def _ekey(u: str, v: str) -> str:
 
 def _todo(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item}).")
+
+
+# RECTIPY_FUSED_ADAM: 'off' = the split optimizer (optax formulas), 'on' = the
+# one-pass adam + requantize of ops/fused_opt.adam_requant (the CUDA kernel on
+# the card, its plain version on CPU tensors)
+FUSED_ADAM_MODES = ("off", "on")
+
+
+def fused_adam_mode() -> str:
+    """The ``RECTIPY_FUSED_ADAM`` mode (default ``'off'``); any other value
+    raises ``ValueError``."""
+    mode = os.environ.get("RECTIPY_FUSED_ADAM", "off")
+    if mode not in FUSED_ADAM_MODES:
+        raise ValueError(f"RECTIPY_FUSED_ADAM={mode!r} is not a valid mode; valid modes are "
+                         f"{', '.join(FUSED_ADAM_MODES)}.")
+    return mode
+
+
+def _flatten(tree: dict) -> Tuple[list, list]:
+    """Paths ``(kind, label, key)`` and leaves of a params tree."""
+    paths, leaves = [], []
+    for kind in sorted(tree):
+        for label in sorted(tree[kind]):
+            for key in sorted(tree[kind][label]):
+                paths.append((kind, label, key))
+                leaves.append(tree[kind][label][key])
+    return paths, leaves
+
+
+def _unflatten(paths: list, leaves: list) -> dict:
+    tree = {"nodes": {}, "edges": {}}
+    for (kind, label, key), leaf in zip(paths, leaves):
+        tree[kind].setdefault(label, {})[key] = leaf
+    return tree
 
 
 class Network:
@@ -62,6 +103,7 @@ class Network:
         self._out_node: Optional[str] = None
         self._compiled = None
         self._step_cache: Dict[tuple, Callable] = {}
+        self.last_fit: Optional[dict] = None  # the paths the last fit_bptt took
 
     # ------------------------------------------------------------- container
     def __getitem__(self, item):
@@ -369,13 +411,73 @@ class Network:
                 params["edges"][_ekey(u, n)] = dict(self.get_edge(u, n).params)
         return params
 
-    def _write_back(self, state: dict):
-        """Push the state after a run back into the node wrappers."""
-        for n in self._compiled["order"]:
-            node = self.get_node(n)
-            ns = state["nodes"].get(n)
-            if ns is not None and hasattr(node, "set_state"):
-                node.set_state(ns)
+    def trainable_paths(self) -> List[tuple]:
+        """Paths ``(kind, label, key)`` of trainable leaves in the params tree."""
+        if self._compiled is None:
+            self.compile()
+        paths = []
+        order = self._compiled["order"]
+        for n in order:
+            for k in getattr(self.get_node(n), "train_keys", []):
+                paths.append(("nodes", n, k))
+        for n in order:
+            for u in self.graph.predecessors(n):
+                for k in self.get_edge(u, n).train_keys:
+                    paths.append(("edges", _ekey(u, n), k))
+        return paths
+
+    @staticmethod
+    def _partition(params: dict, paths: List[tuple]) -> Tuple[dict, dict]:
+        """Split the params tree into (trainable, frozen) sub-trees."""
+        train = {"nodes": {}, "edges": {}}
+        frozen = {"nodes": {k: dict(v) for k, v in params["nodes"].items()},
+                  "edges": {k: dict(v) for k, v in params["edges"].items()}}
+        for kind, label, key in paths:
+            train[kind].setdefault(label, {})[key] = frozen[kind][label].pop(key)
+        return train, frozen
+
+    @staticmethod
+    def _combine(train: dict, frozen: dict) -> dict:
+        params = {"nodes": {k: dict(v) for k, v in frozen["nodes"].items()},
+                  "edges": {k: dict(v) for k, v in frozen["edges"].items()}}
+        for kind in ("nodes", "edges"):
+            for label, sub in train[kind].items():
+                params[kind].setdefault(label, {}).update(sub)
+        return params
+
+    def _prep_params(self, params: dict) -> dict:
+        """Once-per-run parameter prep of each node (the int8_master
+        requantization, ``nodes.py`` ``prep_params``), applied before the
+        time loop of ``run``, so it costs one pass per run, not per step.
+        The training paths never use it (the trajectories prep inside; plain
+        autograd needs the per-step STE matvec)."""
+        nodes, changed = {}, False
+        for n, sub in params["nodes"].items():
+            prep = getattr(self.get_node(n), "prep_params", None)
+            nodes[n] = prep(sub) if prep is not None else sub
+            changed = changed or nodes[n] is not sub
+        return {**params, "nodes": nodes} if changed else params
+
+    def _write_back(self, state: dict = None, params: dict = None):
+        """Push a state after a run, or trained parameters, back into the
+        node and edge wrappers."""
+        order = self._compiled["order"]
+        if state is not None:
+            for n in order:
+                node = self.get_node(n)
+                ns = state["nodes"].get(n)
+                if ns is not None and hasattr(node, "set_state"):
+                    node.set_state(ns)
+        if params is not None:
+            for n, sub in params["nodes"].items():
+                node = self.get_node(n)
+                for key, val in sub.items():
+                    node._args[key] = val.detach() if isinstance(val, torch.Tensor) else val
+            for k, sub in params["edges"].items():
+                u, v = k.split("->")
+                edge = self.get_edge(u, v)
+                for key, val in sub.items():
+                    edge.params[key] = val.detach()
 
     # ------------------------------------------------------------ simulation
     def forward(self, x):
@@ -386,7 +488,7 @@ class Network:
             state, out, _ = step(self.init_state(), self.parameters_pytree(),
                                  torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                                                  else x).to(self.device, self.dtype))
-        self._write_back(state)
+        self._write_back(state=state)
         return out
 
     def _resolve_record_vars(self, obs: Observer) -> list:
@@ -465,8 +567,8 @@ class Network:
         rec_info = self._resolve_record_vars(obs)
         with torch.no_grad():
             state, rec0, recs = self._run_windowed(
-                self.init_state(), self.parameters_pytree(), inputs, s, cutoff, rec_info,
-                obs.record_output)
+                self.init_state(), self._prep_params(self.parameters_pytree()), inputs, s,
+                cutoff, rec_info, obs.record_output)
         self._write_back(state)
 
         rec_steps_all = [t for t in range(steps) if t % s == 0]
@@ -561,3 +663,325 @@ class Network:
 
     def _relabel_var(self, var: str) -> str:
         return self._var_map.get(var, var)
+
+    # -------------------------------------------------------------- training
+    def fit_bptt(self, inputs, targets, optimizer: str = "sgd", optimizer_kwargs: dict = None,
+                 loss: str = "mse", loss_kwargs: dict = None, lr: float = 1e-3,
+                 sampling_steps: int = 1, update_steps: int = 100, verbose: bool = True,
+                 **kwargs) -> Observer:
+        """Backpropagation through time, epoch mode: ``inputs`` and
+        ``targets`` are lists (or 3-D arrays ``(epochs, T, m)``); each epoch
+        runs the trajectory from the pre-training state, takes the loss over
+        its (downsampled) outputs and makes one optimizer update.
+
+        ``fused_bptt`` (default ``'auto'``): chain networks ``[instants] ->
+        population -> [instants]`` train through the deferred-gradient
+        trajectory of ``ops/bptt.py`` (the stateless pre/post stages run
+        outside the time loop, as one batched product each); anything else
+        takes plain autograd through ``make_step``.  ``True`` raises where the
+        chain trajectory does not apply; ``False`` always takes plain
+        autograd.  (The JAX package's multi-population graph trajectory is
+        not ported; plain autograd gives the same gradients.)
+
+        ``RECTIPY_FUSED_ADAM`` picks the optimizer tail of a plain-adam fit
+        of one trained dense ``int8_master`` coupling on a chain: ``off``
+        (default: the split optax-formula optimizer) or ``on`` (one pass of
+        adam + requantization through ``ops.fused_opt.adam_requant``, the
+        CUDA kernel on the card).  Any other value raises ``ValueError``.
+
+        Not ported yet: step mode (2-D inputs, ROADMAP Queue 1 item 9),
+        ``remat_steps`` (item 7) and ``mesh=`` (item 14).
+        """
+        self.compile()
+        loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
+        opt = get_optimizer(optimizer, lr, optimizer_kwargs=optimizer_kwargs)
+        retrieve_from_dict(["closure", "retain_graph"], kwargs)  # torch.optim-only knobs
+        obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("fit_bptt(mesh=)", "14")
+        if int(kwargs.pop("remat_steps", 0)) > 1:
+            raise _todo("fit_bptt(remat_steps=)", "7")
+        fused_bptt = kwargs.pop("fused_bptt", "auto")
+        if kwargs:
+            raise TypeError(f"fit_bptt() got unexpected keyword arguments {sorted(kwargs)}")
+        epoch_mode = isinstance(inputs, list) or getattr(inputs, "ndim", 0) == 3
+        if not epoch_mode:
+            raise _todo("fit_bptt step mode (2-D inputs)", "9")
+        if len(inputs) != len(targets):
+            raise ValueError(
+                "Wrong dimensions of input and target output. Please make sure that "
+                "`inputs` and `targets` agree in the first dimension (epochs)."
+            )
+        mode = fused_adam_mode()
+        obs = Observer(dt=self.dt, **obs_kwargs)
+        paths = self.trainable_paths()
+        if not paths:
+            raise ValueError("No trainable parameters in the network; pass `train_params` "
+                             "to add_diffeq_node or train='gd' to add_edge.")
+        train, frozen = self._partition(self.parameters_pytree(), paths)
+        train = tree_map(lambda t: t.detach(), train)
+        opt_state = opt.init(train)
+        state0 = self.init_state()
+
+        # plain adam (only b1/b2/eps overrides, a scalar lr) may take the fused
+        # adam + requantize tail (decided per network in _build_fused_adam)
+        fused_cfg = None
+        okw = dict(optimizer_kwargs or {})
+        if (optimizer == "adam" and not callable(lr) and mode != "off"
+                and set(okw) <= {"b1", "b2", "eps"}
+                and all(isinstance(v, (int, float)) for v in okw.values())):
+            fused_cfg = {k: float(okw.get(k, d))
+                         for k, d in (("b1", 0.9), ("b2", 0.999), ("eps", 1e-8))}
+
+        t0 = perf_counter()
+        *programs, self.last_fit = self._build_epoch_programs(
+            loss_fn, opt, fused_bptt, sampling_steps, fused_cfg, paths)
+
+        def epochs(tr, os_, ins, tgts):
+            return self._bptt_epochs(programs, tr, frozen, os_, state0, ins, tgts, verbose)
+
+        # the returned Observer records the LAST epoch's run (the weights
+        # after K-1 updates, from the initial state), as in the reference;
+        # that extra forward runs only when recording is asked for
+        if obs_kwargs.get("record_vars") or obs_kwargs.get("record_output", False):
+            losses = []
+            if len(inputs) > 1:
+                train, opt_state, losses = epochs(train, opt_state, list(inputs[:-1]),
+                                                  list(targets[:-1]))
+            self._write_back(params=self._combine(train, frozen))
+            run_kw = {k: v for k, v in obs_kwargs.items() if k in ("record_output", "record_vars")}
+            obs = self.run(inputs[-1], sampling_steps=sampling_steps, verbose=False, **run_kw)
+            self._write_back(state=state0)  # the reference resets per epoch
+            train, opt_state, last = epochs(train, opt_state, [inputs[-1]], [targets[-1]])
+            losses = list(losses) + list(last)
+        else:
+            train, opt_state, losses = epochs(train, opt_state, list(inputs), list(targets))
+        obs.save("epoch_loss", losses)
+        obs.save("epochs", np.arange(len(losses)))
+        self._write_back(params=self._combine(train, frozen))
+        if verbose:
+            print(f"Finished optimization after {perf_counter() - t0} s.")
+        return obs
+
+    def fit_bptt_batch(self, *args, **kwargs):
+        """Batched-trial BPTT: not ported yet."""
+        raise _todo("fit_bptt_batch", "11")
+
+    def _chain_decompose(self):
+        """Decompose a chain network ``[instants...] -> population ->
+        [instants...]`` (stateless ``Linear`` edges) into ``(label,
+        apply_prefix, apply_suffix)``; ``None`` when the topology does not
+        qualify.  The stateless pre/post stages move outside the time loop:
+        each becomes one batched product over the ``(T, n)`` series."""
+        order = self._compiled["order"]
+        if len(order) == 1:
+            return order[0], None, None
+        diffeq = [n for n in order if self[n].get("node_type") == "diff_eq"]
+        if len(diffeq) != 1:
+            return None
+        label = diffeq[0]
+        for i, nname in enumerate(order):
+            preds = sorted(self.graph.predecessors(nname))
+            if preds != ([] if i == 0 else [order[i - 1]]):
+                return None  # not a simple chain
+            if nname != label and not isinstance(self.get_node(nname), InstantNode):
+                return None
+        pre_ops, post_ops = [], []
+        side_ops = pre_ops
+        for i, nname in enumerate(order):
+            if nname == label:
+                side_ops = post_ops
+            else:
+                side_ops.append(("node", None, self.get_node(nname).make_step()))
+            if i + 1 < len(order):
+                edge = self.get_edge(nname, order[i + 1])
+                if edge.init_state() is not None:
+                    return None  # stateful edge: no chain trajectory
+                side_ops.append(("edge", _ekey(nname, order[i + 1]), edge.make_step()))
+
+        def apply(ops, params, H):
+            for kind, key, fn in ops:
+                p = params["edges"][key] if kind == "edge" else {}
+                H = torch.func.vmap(lambda h, p=p, fn=fn: fn(None, p, h)[1])(H)
+            return H
+
+        return (label, lambda params, xs: apply(pre_ops, params, xs),
+                lambda params, outs: apply(post_ops, params, outs))
+
+    def _build_epoch_programs(self, loss_fn, opt, fused_bptt, sampling_steps, fused_cfg,
+                              paths):
+        """``(update, init_opt, pack, info)``: the per-epoch update
+        ``update(train, frozen, opt_state, y0, inp, tgt) -> (train',
+        opt_state', loss)``, the optimizer-state initializer of the fused
+        adam path (else ``None``), the initial-state packer, and which paths
+        the fit takes (``{"trajectory": "chain"|"autograd", "fused_adam":
+        bool}``)."""
+        combine = self._combine
+        step = self.make_step()
+        traj = chain = None
+        if fused_bptt in ("auto", True):
+            chain = self._chain_decompose()
+            if chain is not None:
+                from .ops.bptt import make_coupled_traj
+
+                try:
+                    traj, traj_wkeys = make_coupled_traj(self.get_node(chain[0]))
+                except (ValueError, AttributeError, KeyError):
+                    if fused_bptt is True:
+                        raise
+            elif fused_bptt is True:
+                raise ValueError("fused_bptt=True needs a chain network [instants] -> "
+                                 "population -> [instants]; the graph trajectory is not "
+                                 "ported yet (ROADMAP Queue 1 item 10).")
+
+        def downsample(outs):
+            if sampling_steps > 1:
+                n_keep = outs.shape[0] // sampling_steps
+                outs = outs[: n_keep * sampling_steps]
+                outs = outs.reshape(n_keep, sampling_steps, -1).mean(dim=1)
+            return outs
+
+        if traj is not None:
+            label, apply_prefix, apply_suffix = chain
+
+            def pack(state0):
+                return state0["nodes"][label]
+
+            def epoch_loss(train, frozen, y0, inp, tgt, traj_fn=None, wp=None):
+                params = combine(train, frozen)
+                nargs = params["nodes"][label]
+                W = {k: nargs[k] for k in traj_wkeys}
+                rest = {k: v for k, v in nargs.items() if k not in traj_wkeys}
+                xs = apply_prefix(params, inp) if apply_prefix is not None else inp
+                if traj_fn is None:
+                    _, outs = traj(W, rest, y0, xs)
+                else:
+                    _, outs = traj_fn((wp,), W, rest, y0, xs)
+                if apply_suffix is not None:
+                    outs = apply_suffix(params, outs)
+                return loss_fn(downsample(outs), tgt)
+
+            fused = self._build_fused_adam(label, traj_wkeys, epoch_loss, fused_cfg, paths)
+            if fused is not None:
+                return fused + (pack, {"trajectory": "chain", "fused_adam": True})
+        else:
+            def pack(state0):
+                return state0
+
+            def epoch_loss(train, frozen, state0, inp, tgt):
+                params = combine(train, frozen)
+                state, outs = state0, []
+                for x in inp.unbind(0):
+                    state, out, _ = step(state, params, x)
+                    outs.append(out)
+                return loss_fn(downsample(torch.stack(outs)), tgt)
+
+        def update(train, frozen, opt_state, y0, inp, tgt):
+            lval, grads = _value_and_grad(epoch_loss, train, frozen, y0, inp, tgt)
+            train, opt_state = opt.update(grads, opt_state, train)
+            return tree_map(lambda t: t.detach(), train), opt_state, lval
+
+        return update, None, pack, {"trajectory": "chain" if traj is not None else "autograd",
+                                    "fused_adam": False}
+
+    def _build_fused_adam(self, label, traj_wkeys, epoch_loss, fused_cfg, paths):
+        """The fused adam + requantize update, or ``None`` when the fit does
+        not qualify: plain adam (``fused_cfg`` given), one dense
+        ``int8_master`` coupling on the chain, and that coupling trained.
+        The ``(wq, scale)`` pair rides in the optimizer state into the next
+        epoch's trajectory."""
+        if fused_cfg is None or len(traj_wkeys) != 1:
+            return None
+        wkey = traj_wkeys[0]
+        node = self.get_node(label)
+        if ("nodes", label, wkey) not in paths or node._vf.coupling_cast != "int8" \
+                or node._args[wkey].dim() != 2:
+            return None
+        from .ops.bptt import make_coupled_traj_prepped
+        from .ops.fused_opt import adam_leaf, adam_requant, bias_corrections
+
+        traj_p, _, preps = make_coupled_traj_prepped(node)
+        b1, b2, eps = fused_cfg["b1"], fused_cfg["b2"], fused_cfg["eps"]
+
+        def update(train, frozen, osf, y0, inp, tgt):
+            lval, grads = _value_and_grad(
+                lambda tr, fr, y, i, t: epoch_loss(tr, fr, y, i, t, traj_fn=traj_p,
+                                                   wp=osf["wp"]),
+                train, frozen, y0, inp, tgt)
+            count = osf["count"] + 1
+            bc1, bc2 = bias_corrections(count, b1, b2)
+            lr = osf["lr"]
+            mu, nu, new = {}, {}, {}
+            paths_, leaves = _flatten(train)
+            g_leaves, m_leaves, v_leaves = (_flatten(t)[1] for t in (grads, osf["mu"], osf["nu"]))
+            wp = osf["wp"]
+            for path, w, g, m, v in zip(paths_, leaves, g_leaves, m_leaves, v_leaves):
+                if path == ("nodes", label, wkey):
+                    w2, m2, v2, wq, scale = adam_requant(w, m, v, g, bc1, bc2, lr, b1=b1, b2=b2,
+                                                         eps=eps)
+                    wp = (wq, scale)
+                else:
+                    w2, m2, v2 = adam_leaf(w, m, v, g, bc1, bc2, lr, b1, b2, eps)
+                new[path], mu[path], nu[path] = w2, m2, v2
+            osf = {"count": count, "lr": lr, "wp": wp,
+                   "mu": _unflatten(paths_, [mu[p] for p in paths_]),
+                   "nu": _unflatten(paths_, [nu[p] for p in paths_])}
+            return _unflatten(paths_, [new[p] for p in paths_]), osf, lval
+
+        def init_opt(train, opt_state):
+            # lr from the optimizer's injected hyperparameters; fresh moments;
+            # the first quantization of the current master
+            return {"count": 0, "lr": float(opt_state["hyperparams"]["learning_rate"]),
+                    "mu": tree_map(torch.zeros_like, train),
+                    "nu": tree_map(torch.zeros_like, train),
+                    "wp": preps[0](train["nodes"][label][wkey])}
+
+        return update, init_opt
+
+    def _bptt_epochs(self, programs, train, frozen, opt_state, state0, inputs, targets,
+                     verbose):
+        update, init_opt, pack = programs
+        if init_opt is not None and "hyperparams" in opt_state:
+            # the fused carry replaces the optimizer state; an opt_state
+            # without hyperparams is already a fused carry from an earlier
+            # call of the same fit (the recording path splits one fit)
+            opt_state = init_opt(train, opt_state)
+        y0 = pack(state0)
+        # stage each distinct input/target array on the device once; the
+        # cache holds the source object too, so an id() is never reused
+        staged: Dict[int, tuple] = {}
+
+        def stage(x):
+            hit = staged.get(id(x))
+            if hit is None:
+                if isinstance(x, torch.Tensor):
+                    arr = x.to(device=self.device, dtype=self.dtype)
+                else:
+                    arr = torch.as_tensor(np.asarray(x)).to(device=self.device, dtype=self.dtype)
+                hit = staged[id(x)] = (x, arr)
+            return hit[1]
+
+        losses = []
+        for epoch in range(len(inputs)):
+            inp, tgt = stage(inputs[epoch]), stage(targets[epoch])
+            train, opt_state, lval = update(train, frozen, opt_state, y0, inp, tgt)
+            losses.append(lval.detach())  # stays on the device until the end
+            if verbose:
+                print(f"Progress: {epoch + 1}/{len(inputs)} training epochs finished.")
+                print(f"Epoch loss: {float(lval)}.")
+                print("")
+        if losses:
+            losses = [float(x) for x in torch.stack(losses).cpu().tolist()]
+        return train, opt_state, losses
+
+
+def _value_and_grad(loss_fn, train, frozen, y0, inp, tgt):
+    """``(loss, grads)`` of ``loss_fn(train, ...)`` with respect to every leaf
+    of ``train``; a leaf the loss does not reach gets a zero gradient."""
+    paths, leaves = _flatten(train)
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        lval = loss_fn(_unflatten(paths, leaves), frozen, y0, inp, tgt)
+        grads = torch.autograd.grad(lval, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+    return lval.detach(), _unflatten(paths, grads)

@@ -258,6 +258,13 @@ class RateNet:
                 self.train_keys.append(self._param_map[p])
             except KeyError:
                 raise KeyError(f"Train parameter {p!r} was not found on the node.")
+        for k in self.train_keys:
+            val = self._args.get(k)
+            if isinstance(val, torch.Tensor) and val.dtype == torch.int8:
+                raise ValueError(
+                    f"Parameter {k!r} is stored frozen-quantized (coupling_dtype='int8') "
+                    f"and cannot be trained directly; train with float32 or an "
+                    f"'int8_master' coupling instead.")
 
         self._step_fn = None  # cached step of forward(); attach resets it
         self._step_version = 0
@@ -402,6 +409,18 @@ class RateNet:
             return y_new, out
 
         return step
+
+    def prep_params(self, args: dict) -> dict:
+        """Once-per-run parameter prep: an ``int8_master`` coupling is
+        quantized here, before the time loop, instead of every step.  The
+        prepped pairs ride along in the args under reserved keys that the
+        lowered matvec picks up (``dsl/lower.py``).  Identity for every other
+        coupling, and with a fused kernel attached.  Inference only: the
+        training paths bypass it."""
+        prep = getattr(self._vf, "prep_args", None)
+        if prep is None or getattr(self, "_fused_attached", False):
+            return args
+        return prep(args)
 
     def _make_out_reader(self) -> Callable:
         if self._out_alg is not None:

@@ -33,7 +33,8 @@ class Built(NamedTuple):
 
 
 _built: Dict[str, Built] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -62,10 +63,13 @@ def _digest() -> str:
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless a build of the current sources
     exists, load it, and return it.  A failed compile raises
-    ``RuntimeError`` with nvcc's output."""
+    ``RuntimeError`` with nvcc's output.  Builds of different sources may
+    run at the same time from several threads (one ``nvcc`` each)."""
     src = os.path.join(CSRC_DIR, name + ".cu")
     path = os.path.join(BUILD_DIR, f"lib{name}_{_digest()}.so")
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(path, threading.Lock())
+    with lock:
         if path in _built:
             return _built[path]
         log, seconds = "", 0.0

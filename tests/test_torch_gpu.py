@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 The ``gpu``-marked tests need a CUDA device and skip without one.  The file
 imports neither JAX nor the JAX package, so it also runs where only PyTorch
@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from rectipy_tpu_torch import Network, attach_fused_qif_step
+from rectipy_tpu_torch.ops.fused_opt import adam_requant, adam_requant_plain
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
+from rectipy_tpu_torch.ops.quant import (int8_dot_plain, int8_dot_t_plain, int8_mv,
+                                         int8_mv_t, quant_vec, quantize_rows)
+from rectipy_tpu_torch.testing import ADAM_KW, adam_inputs, check_adam_requant
 
 PARAMS = dict(dt=1e-4, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05,
               thresh=10.0, v_reset=-10.0)
@@ -156,3 +160,133 @@ def test_fused_network_on_card_matches_plain_network_on_cpu(cuda, coupling):
     np.testing.assert_allclose(b.to_numpy("out"), a.to_numpy("out"), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(b.to_numpy(("qif", "v")), a.to_numpy(("qif", "v")),
                                rtol=1e-4, atol=1e-3)
+
+
+# ------------------------------------------------------ int8 matvecs
+def _int8_inputs(n_out, n_in, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    W = torch.randn((n_out, n_in), generator=gen, device=device) * (
+        torch.rand((n_out, n_in), generator=gen, device=device) < 0.3)
+    wq, ws = quantize_rows(W)
+    xq, xs = quant_vec(torch.randn(n_in, generator=gen, device=device))
+    vq, vs = quant_vec(torch.randn(n_out, generator=gen, device=device))
+    return wq, ws, xq, xs, vq, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_out,n_in", [(37, 37), (1000, 1000), (1003, 1003), (64, 1003),
+                                        (1003, 64)])
+def test_int8_matvecs_bit_identical_to_plain(cuda, n_out, n_in):
+    # integer sums are exact in any order, so the kernels must agree bit for
+    # bit with the float64-summed plain version, epilogue included
+    wq, ws, xq, xs, vq, vs = _int8_inputs(n_out, n_in, 11, cuda)
+    before = (int8_mv.launches, int8_mv_t.launches)
+    out = int8_mv(wq, xq, ws, xs)
+    out_t = int8_mv_t(wq, vq, vs)
+    torch.cuda.synchronize()
+    assert (int8_mv.launches, int8_mv_t.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, (int8_dot_plain(wq, xq) * ws) * xs)
+    assert torch.equal(out_t, int8_dot_t_plain(wq, vq) * vs)
+    assert bool((out != 0).any()) and bool((out_t != 0).any())
+
+
+@pytest.mark.gpu
+def test_int8_matvec_misaligned_vector_takes_the_scalar_loop(cuda):
+    wq, ws, xq, xs, vq, vs = _int8_inputs(256, 1024, 12, cuda)
+    x_off = torch.cat((torch.zeros(1, dtype=torch.int8, device=cuda), xq))[1:]
+    assert x_off.data_ptr() % 16 != 0
+    assert torch.equal(int8_mv(wq, x_off, ws, xs), (int8_dot_plain(wq, xq) * ws) * xs)
+
+
+@pytest.mark.gpu
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    wq, ws, xq, xs, vq, vs = _int8_inputs(64, 64, 13, cuda)
+    with pytest.raises(ValueError, match="int8 matrix"):
+        int8_mv(wq.float(), xq, ws, xs)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_mv(wq.t(), xq, ws, xs)
+    with pytest.raises(ValueError, match="vector"):
+        int8_mv(wq, xq[:-1], ws, xs)
+    with pytest.raises(ValueError, match="row scale"):
+        int8_mv(wq, xq, ws.double(), xs)
+    with pytest.raises(ValueError, match="vector"):
+        int8_mv_t(wq, vq.cpu(), vs)
+    with pytest.raises(ValueError, match="activation scale"):
+        int8_mv_t(wq, vq, vs.cpu())
+
+
+# ---------------------------------------------------- fused adam + requant
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(37, 1003), (1000, 1000), (16, 38)])
+@pytest.mark.parametrize("count", [1, 7])
+def test_adam_requant_kernel_matches_plain(cuda, shape, count):
+    w, m, v, g, bc1, bc2, lr = adam_inputs(*shape, count, 21, cuda)
+    before = adam_requant.launches
+    got = adam_requant(w, m, v, g, bc1, bc2, lr, **ADAM_KW)
+    torch.cuda.synchronize()
+    assert adam_requant.launches == before + 1
+    ref = adam_requant_plain(w, m, v, g, bc1, bc2, lr, **ADAM_KW)
+    check_adam_requant(got, ref, w)
+
+
+@pytest.mark.gpu
+def test_adam_requant_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    w, m, v, g, bc1, bc2, lr = adam_inputs(8, 16, 1, 22, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        adam_requant(w.double(), m, v, g, bc1, bc2, lr, **ADAM_KW)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam_requant(w, m.t().contiguous().t(), v, g, bc1, bc2, lr, **ADAM_KW)
+    with pytest.raises(ValueError, match="on cpu"):
+        adam_requant(w, m, v, g.cpu(), bc1, bc2, lr, **ADAM_KW)
+    with pytest.raises(TypeError, match="Python number"):
+        adam_requant(w, m, v, g, torch.tensor(bc1), bc2, lr, **ADAM_KW)
+
+
+@pytest.mark.gpu
+def test_fit_bptt_on_card_matches_plain_fit_on_cpu(cuda, monkeypatch):
+    # the training path on the card (int8 kernels every step, the fused adam
+    # kernel every epoch) against the same float32 fit on the CPU through the
+    # plain versions.  The int8 sums are exact on both sides; the float32
+    # means and the dW matmul sum in other orders, which can flip an int8
+    # rounding now and then: losses within rtol 1e-4
+    n, T = 64, 120
+    rng = np.random.default_rng(30)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    etas = rng.uniform(5.0, 15.0, n)
+    inp, tgt = rng.normal(size=(T, 1)) * 5 + 10, rng.normal(size=(T, n)) * 0.1
+    res = {}
+    monkeypatch.setenv("RECTIPY_FUSED_ADAM", "on")
+    for device in (cuda, "cpu"):
+        net = Network(5e-3, device=device)
+        net.add_diffeq_node(
+            "rnn", "rectipy_tpu_torch.models.spiking_neurons.qif.qif", weights=W,
+            input_var="I_ext", output_var="s", source_var="s", target_var="s_in", op="qif_op",
+            spike_var="spike", spike_def="v", spike_threshold=100.0, spike_reset=-100.0,
+            node_vars={"all/qif_op/eta": etas}, coupling_dtype="int8_master",
+            train_params=["weights"])
+        before = (adam_requant.launches, int8_mv.launches, int8_mv_t.launches)
+        obs = net.fit_bptt([inp] * 3, [tgt] * 3, optimizer="adam", lr=1e-2, verbose=False)
+        after = (adam_requant.launches, int8_mv.launches, int8_mv_t.launches)
+        assert net.last_fit == {"trajectory": "chain", "fused_adam": True}
+        res[str(device)] = (np.asarray(obs["epoch_loss"]), net.get_node("rnn")["weights"].cpu().numpy(),
+                     tuple(a - b for a, b in zip(after, before)))
+    card = res[str(cuda)]
+    assert card[2] == (3, 3 * T, 3 * T) and res["cpu"][2] == (0, 0, 0)
+    np.testing.assert_allclose(card[0], res["cpu"][0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], res["cpu"][1], rtol=1e-3, atol=1e-4)
+    assert not np.array_equal(card[1], W.astype(np.float32)), "nothing trained"
+
+
+@pytest.mark.parametrize("fault", ["no_bias_correction", "no_update"])
+def test_adam_check_fails_a_kernel_that_drops_part_of_the_step(fault):
+    # needs no card: the plain version against a faulty copy of itself; the
+    # check the card's kernel is held to must refuse it
+    w, m, v, g, bc1, bc2, lr = adam_inputs(16, 38, 7, 23, "cpu")
+    ref = adam_requant_plain(w, m, v, g, bc1, bc2, lr, **ADAM_KW)
+    if fault == "no_bias_correction":
+        bad = adam_requant_plain(w, m, v, g, 1.0, 1.0, lr, **ADAM_KW)
+    else:
+        bad = adam_requant_plain(w, m, v, g, bc1, bc2, 0.0, **ADAM_KW)
+    check_adam_requant(ref, ref, w)
+    with pytest.raises(AssertionError):
+        check_adam_requant(bad, ref, w)
