@@ -4,8 +4,11 @@
     python3 chip_smoke.py
 
 1. device: the card's name and power limit (nvidia-smi), PyTorch and CUDA.
-2. build: compiles the CUDA kernel from rectipy_tpu_torch/csrc/ with nvcc
-   (sm_90a) and prints the compile time and ptxas's register report.
+2. build: compiles the CUDA kernels from rectipy_tpu_torch/csrc/ and the
+   generic fused step's generated sources (one per template structure this
+   script attaches, into rectipy_tpu_torch/_build/gen/) with nvcc (sm_90a),
+   one nvcc per source, all started together, and prints the compile times
+   and ptxas's register report.
 3. kernel_check: the fused QIF+SFA step kernel against its plain PyTorch
    version on the same card, at N = 10,000 with the main path's coupling,
    in f32 and bf16: once with v across the threshold (the reset) and once
@@ -37,6 +40,28 @@
    share over one epoch from torch.profiler; each training kernel's ms,
    bound and plain ms.
 
+Phases 11-14 (run after phase 6, while the main path's networks exist):
+
+11. generic_kernel_check and generic_timing: one step of the generic fused
+   step kernel against its plain version at N = 10,000 with the main
+   path's coupling, in f32 and bf16 W, for every case of
+   rectipy_tpu_torch.testing.GENERIC_CASES (qif_sfa, lif, ik
+   MultiSpikeResetNet, qif_reset SpikeNet, the tanh RateNet in Heun's
+   derivative mode, two couplings one of which targets the input); the
+   qif_sfa case also on inputs where the coupling sets v' (the lost-eighth
+   margin must exceed 1); then each instance's ms, bound, plain ms and
+   torch.mv ms (the matvecs alone).
+12. generic_path: examples/fused_kernels.py's LIF network (bf16 coupling)
+   with attach_generic_fused_step and Network.run over 20,000 steps; one
+   launch per step, finite records, neuron-updates/s from the best of 3.
+13. generic_vs_specialized: the main path's bf16 network with the generic
+   kernel in place of attach_fused_qif_step over 2,000 steps, in turns
+   with the specialized one; the records must agree under fused_vs_plain's
+   rule.
+14. generic_ei_path: examples/ei_circuit_multi_coupling.py's E/I circuit
+   (two f32 couplings through CircuitTemplate) over 2,000 steps.
+The kernels line lists the instances that phases 12-14 ran.
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -61,9 +86,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 QIF_SFA = "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa"
 QIF = "rectipy_tpu_torch.models.spiking_neurons.qif.qif"
+LIF = "rectipy_tpu_torch.models.spiking_neurons.lif.lif"
+TANH = "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh"
 KERNEL_SOURCE = "rectipy_tpu_torch/csrc/qif_sfa_step.cu"
 TPU_KERNEL = "rectipy_tpu/ops/kernels.py:53"
 SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant")
+GENERIC_SOURCE = "rectipy_tpu_torch/csrc/generic_fused_step.cuh"
+GENERIC_TPU_KERNEL = "rectipy_tpu/ops/generic_fused.py:46"
 # the training path: bench.py:331-370
 T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 16, 1e-4
 SPLIT_VS_FUSED_RTOL = 1e-4
@@ -81,6 +110,13 @@ SPLIT_VS_FUSED_RTOL = 1e-4
 #   s_in, 1.2e-5 of it; one term of a row averages 5e-4 (a W entry is 1e-3),
 #   and the check asserts that losing every eighth term fails on every row.
 TOL = {"reset": (1e-5, 1e-4), "coupling": (1e-5, 1e-6)}
+# The generic kernel is held to rectipy_tpu_torch.testing.GENERIC_TOL, which
+# the GPU tests share: "reset" (rtol 1e-5, atol 1e-5 of each output row's
+# largest entry), because the f32 sums run in another order and nvcc
+# contracts a*b + c into FMAs in the tail and the update where the plain
+# version rounds the product first (a few ulps of values up to ~1e4);
+# "coupling" (rtol 1e-5, atol 1e-6) on the qif_sfa inputs where v' = s_in +
+# O(1e-3), as TOL["coupling"] above, held to a lost-eighth margin above 1.
 
 
 def emit(obj):
@@ -362,16 +398,296 @@ def train_phases(dev) -> list:
     return entries
 
 
+def lif_net(n: int, device):
+    """examples/fused_kernels.py's network at width n: a LIF SpikeResetNet
+    with a bf16 coupling W = |normal| * 0.5/n and per-neuron tau ~ U(10, 15)
+    from seed 0, eta 10, tau_s 5, threshold +-10, dt 1e-2; the generic
+    kernel attached."""
+    from rectipy_tpu_torch import Network, attach_generic_fused_step
+
+    rng = np.random.default_rng(0)
+    W = np.abs(rng.normal(size=(n, n))) * (0.5 / n)
+    tau = rng.uniform(10.0, 15.0, size=n)
+    net = Network(1e-2, device=device)
+    net.add_diffeq_node("lif", LIF, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="lif_op", spike_var="spike",
+                        reset_var="v", spike_threshold=10.0, spike_reset=-10.0,
+                        node_vars={"eta": 10.0, "tau": tau, "tau_s": 5.0},
+                        coupling_dtype="bfloat16")
+    net.compile()
+    attach_generic_fused_step(net.get_node("lif"))
+    return net
+
+
+def ei_net(n: int, device):
+    """examples/ei_circuit_multi_coupling.py's circuit at width n: a tanh
+    leaky integrator population with two f32 couplings into li_op/r_in,
+    excitatory (fixed fan-in 10%, rows summing to 2) and inhibitory
+    (-|normal| * 1.5/n), from seed 0, built through CircuitTemplate; the
+    generic kernel attached.  Returns (net, seconds making W, seconds
+    building the network)."""
+    from rectipy_tpu_torch import (CircuitTemplate, Network, NodeTemplate,
+                                   attach_generic_fused_step, random_connectivity)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    W_exc = random_connectivity(n, n, 0.1, normalize=True, rng=rng) * 2.0
+    W_inh = -np.abs(rng.normal(size=(n, n))) * (1.5 / n)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tmpl = NodeTemplate.from_yaml(TANH)
+    circuit = CircuitTemplate("ei", {f"p{i}": tmpl for i in range(n)})
+    circuit.add_edges_from_matrix("tanh_op/r", "li_op/r_in", weight=W_exc)
+    circuit.add_edges_from_matrix("tanh_op/r", "li_op/r_in", weight=W_inh)
+    net = Network(1e-2, device=device)
+    net.add_diffeq_node("ei", circuit, input_var="li_op/I_ext", output_var="tanh_op/r")
+    net.compile()
+    attach_generic_fused_step(net.get_node("ei"))
+    return net, data_s, time.perf_counter() - t0
+
+
+def generic_sources() -> list:
+    """The generated source of every generic-kernel network of this script,
+    from the same builders on CPU tensors at n = 16 (the source depends on
+    the template, the node class and which parameters are per-neuron, not on
+    n), so that the build phase compiles them beside the csrc/ sources."""
+    from rectipy_tpu_torch.testing import GENERIC_CASES, generic_case_net
+
+    W = np.full((16, 16), 1.0 / 16)
+    nodes = [generic_case_net(case, W, "cpu")[1] for case in GENERIC_CASES]
+    nodes += [lif_net(16, "cpu").get_node("lif"), ei_net(16, "cpu")[0].get_node("ei")]
+    return sorted({node._fused_cfg["step"].source for node in nodes})
+
+
+def tail_ops(program) -> int:
+    """Arithmetic operations and function calls of one neuron's tail."""
+    def count(ast) -> int:
+        if ast[0] in ("num", "var"):
+            return 0
+        if ast[0] == "neg":
+            return 1 + count(ast[1])
+        if ast[0] == "bin":
+            return 1 + count(ast[2]) + count(ast[3])
+        return 1 + sum(count(a) for a in ast[2])
+
+    # each input placeholder adds its wiring and its external slot
+    return (sum(count(ast) for ast, _ in program.algebraic.values())
+            + sum(count(ast) for _, ast, _ in program.odes) + 2 * len(program.input_defaults))
+
+
+def generic_instance(name: str, node, w_dtype, seed: int, launches: int, case: str = "reset",
+                     report: dict = None):
+    """Hold one instance of the generic kernel (a node's attached step, W in
+    w_dtype) to its plain version on inputs from ``generic_inputs`` (see
+    GENERIC_TOL), then time it: the kernel, the plain version and torch.mv
+    of the same W (the matvecs alone).  Prints one ``generic_timing`` line
+    and returns the instance's ``kernels`` entry (the coupling case is
+    checked only, and returns None)."""
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fused_step_plain
+    from rectipy_tpu_torch.testing import (GENERIC_TOL, check_generic, generic_inputs,
+                                           lost_eighth_margin)
+
+    step, srcs, drive, states, vecs = generic_inputs(node, seed, coupling=case == "coupling")
+    K, V, n = len(step.targets), len(step.state_order), node._fused_cfg["n"]
+    Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(K)]
+    before = generic_fused_step.launches
+    got = generic_fused_step(step, srcs, Ws, drive, states, vecs)
+    torch.cuda.synchronize()
+    if generic_fused_step.launches != before + 1:
+        raise AssertionError(f"{name}: the kernel check did not launch the kernel")
+    ref = generic_fused_step_plain(step, srcs, Ws, drive, states, vecs)
+    err, resets = check_generic(got, ref, step, case)
+    rtol, atol = GENERIC_TOL[case]
+    line = {"phase": "generic_kernel_check", "instance": name, "case": case, "n": n,
+            "max_abs_err": err, "rtol": rtol,
+            "atol": atol if case == "coupling" else f"{atol} x row max",
+            "reset_neurons": resets, **(report or {})}
+    hard = any(h for _, _, h, _ in step.spike_specs) and not step.derivative
+    if case == "reset" and hard and resets == 0:
+        raise AssertionError(f"{name}: no neuron was reset")
+    if case == "coupling":
+        margin = lost_eighth_margin(step, srcs, Ws, drive, states, vecs, ref)
+        if resets or margin <= 1.0:
+            raise AssertionError(f"{name}: the coupling case reset neurons or would pass a "
+                                 f"lost eighth of the row sums (margin {margin})")
+        line["lost_eighth_min_margin"] = margin
+    emit(line)
+    if case == "coupling":
+        return None
+    ms = cuda_ms(lambda: generic_fused_step(step, srcs, Ws, drive, states, vecs), reps=200)
+    plain_ms = cuda_ms(lambda: generic_fused_step_plain(step, srcs, Ws, drive, states, vecs),
+                       reps=10)
+    s_w = [s.to(w_dtype) for s in srcs]
+    library_ms = cuda_ms(lambda: [torch.mv(W, s) for W, s in zip(Ws, s_w)], reps=200)
+    # W once, the K sources, drive, V states and P per-neuron rows in, V rows out
+    n_bytes = K * n * n * Ws[0].element_size() + 4 * n * (K + 1 + 2 * V + len(vecs))
+    n_ops = 2 * K * n * n + n * tail_ops(node._vf.tile_program)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
+    entry = {"name": f"generic_fused_step[{name}]", "route": "cuda", "source": GENERIC_SOURCE,
+             "replaces": GENERIC_TPU_KERNEL, "launches": launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}
+    emit({"phase": "generic_timing", **entry, "bytes": n_bytes, "ops": n_ops,
+          "library_call": f"torch.mv x {K} (the matvecs alone)",
+          "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+    return entry
+
+
+def device_step_ms(net, x) -> float:
+    """The network's whole step with input ``x`` timed on the device alone
+    (no host gaps), as phase 6 times the main path's; 50 steps, so that the
+    host queues them within cuda_ms's spin even at 1 ms of host time each."""
+    step = net.make_step()
+    state, params = net.init_state(), net.parameters_pytree()
+    with torch.no_grad():
+        return cuda_ms(lambda: step(state, params, x), reps=50)
+
+
+def generic_phases(W_np, build_net, spec_net) -> list:
+    """Phases 11-14: the generic fused step.  ``W_np`` is the main path's
+    coupling, ``build_net`` builds the main path's network and ``spec_net``
+    is its bf16 network with the specialized kernel.  Returns the entries of
+    the ``kernels`` line: one per instance a path ran."""
+    from rectipy_tpu_torch import attach_generic_fused_step
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+    from rectipy_tpu_torch.testing import GENERIC_CASES, generic_case_net
+
+    dev = torch.device("cuda", 0)
+    # ------------------------------------------- 11. generic kernel check
+    # every node class and mode at N with the main path's coupling, the
+    # kernel in f32 and in bf16 W; timed per instance (phase generic_timing)
+    for case in GENERIC_CASES:
+        t0 = time.perf_counter()
+        _, node = generic_case_net(case, W_np, dev)
+        build_s = time.perf_counter() - t0
+        for w_name, w_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            generic_instance(f"{case},{w_name}", node, w_dtype, 11, 0,
+                             report={"build_s": build_s})
+            if case == "qif_sfa":
+                generic_instance(f"{case},{w_name}", node, w_dtype, 12, 0, case="coupling")
+        del node
+        torch.cuda.empty_cache()
+    entries = []
+
+    # --------------------------------------------------- 12. generic path
+    t0 = time.perf_counter()
+    net = lif_net(N, None)
+    build_s = time.perf_counter() - t0
+    run_kw = dict(record_output=False, record_vars=[("lif", "s", True)], sampling_steps=100,
+                  verbose=False)
+    inputs = np.zeros((STEPS, 1), dtype=np.float32)  # the example's zero drive, broadcast
+    generic_fused_step.launches = 0
+    t0 = time.perf_counter()
+    obs = net.run(inputs, **run_kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = generic_fused_step.launches
+    if launches != STEPS:
+        raise AssertionError(f"generic_path: {launches} kernel launches for {STEPS} steps")
+    rec = obs.to_numpy(("lif", "s"))
+    if rec.shape != (STEPS // 100,) or not np.all(np.isfinite(rec)) or not rec.max() > 0.0:
+        raise AssertionError(f"generic_path: bad records (shape {rec.shape}, max {rec.max()})")
+    times = []
+    for _ in range(3):
+        net.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = net.run(inputs, **run_kw).to_numpy(("lif", "s"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not np.all(np.isfinite(rec)):
+            raise AssertionError("generic_path: non-finite records in a timed run")
+    best = min(times)
+    dev_ms = device_step_ms(net, torch.zeros(1, device=net.device))
+    emit({"phase": "generic_path", "template": "lif", "coupling": "bfloat16", "n": N,
+          "steps": STEPS, "kernel_launches": launches, "build_s": build_s,
+          "first_run_s": first_s, "run_s": times, "best_s": best,
+          "ms_per_step": best / STEPS * 1e3, "neuron_updates_per_s": STEPS * N / best,
+          "device_step_ms": dev_ms, "device_idle_share": 1.0 - dev_ms / (best / STEPS * 1e3),
+          "mean_s_range": [float(rec.min()), float(rec.max())]})
+    entries.append(generic_instance("lif,bfloat16,generic_path", net.get_node("lif"),
+                                    torch.bfloat16, 13, launches))
+    del net, obs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ 13. generic vs specialized
+    t0 = time.perf_counter()
+    gen_net = build_net("bfloat16", fused=False)
+    attach_generic_fused_step(gen_net.get_node("qif"))
+    build_s = time.perf_counter() - t0
+    cmp_kw = dict(record_output=False, record_vars=[("qif", "s", True)], sampling_steps=10,
+                  verbose=False)
+    short = bench_inputs(PLAIN_STEPS)
+    recs, secs, counts = {}, {"specialized": [], "generic": []}, {}
+    for name, net in (("specialized", spec_net), ("generic", gen_net), ("generic", gen_net),
+                      ("specialized", spec_net)):
+        net.reset()
+        qif_sfa_step.launches = generic_fused_step.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = net.run(short, **cmp_kw).to_numpy(("qif", "s"))
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+        recs.setdefault(name, rec)
+        counts[name] = (qif_sfa_step.launches, generic_fused_step.launches)
+    if counts != {"specialized": (PLAIN_STEPS, 0), "generic": (0, PLAIN_STEPS)}:
+        raise AssertionError(f"generic_vs_specialized: launches (qif_sfa_step, "
+                             f"generic_fused_step) {counts}")
+    ref, got = recs["specialized"], recs["generic"]
+    max_diff = float(np.abs(got - ref).max())
+    corr = float(np.corrcoef(got, ref)[0, 1]) if ref.std() > 0 else float("nan")
+    if not (corr >= 0.999 and max_diff <= 1e-2 * float(np.abs(ref).max())):
+        raise AssertionError(f"generic vs specialized: corr {corr}, max|diff| {max_diff}")
+    emit({"phase": "generic_vs_specialized", "coupling": "bfloat16", "n": N,
+          "steps": PLAIN_STEPS, "records": int(ref.shape[0]), "corr": corr,
+          "max_abs_diff": max_diff, "max_abs_ref": float(np.abs(ref).max()),
+          "build_s": build_s, "run_s": secs,
+          "ms_per_step": {k: min(v) / PLAIN_STEPS * 1e3 for k, v in secs.items()}})
+    entries.append(generic_instance("qif_sfa,bfloat16,generic_vs_specialized",
+                                    gen_net.get_node("qif"), torch.bfloat16, 14, PLAIN_STEPS))
+    del gen_net
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- 14. generic E/I path
+    net, data_s, build_s = ei_net(N, None)
+    inp = (np.random.default_rng(1).normal(size=(PLAIN_STEPS, N)) * 0.1).astype(np.float32)
+    ei_kw = dict(record_output=True, sampling_steps=20, verbose=False)
+    runs = []
+    for _ in range(2):
+        net.reset()
+        generic_fused_step.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net.run(inp, **ei_kw).to_numpy("out")
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        launches = generic_fused_step.launches
+        if launches != PLAIN_STEPS:
+            raise AssertionError(f"generic_ei_path: {launches} launches for {PLAIN_STEPS} steps")
+        if out.shape != (PLAIN_STEPS // 20, N) or not np.all(np.isfinite(out)):
+            raise AssertionError(f"generic_ei_path: bad records, shape {out.shape}")
+    dev_ms = device_step_ms(net, torch.as_tensor(inp[0], device=net.device))
+    emit({"phase": "generic_ei_path", "couplings": 2, "coupling": "float32", "n": N,
+          "steps": PLAIN_STEPS, "kernel_launches": launches, "w_data_s": data_s,
+          "build_s": build_s, "run_s": runs, "ms_per_step": min(runs) / PLAIN_STEPS * 1e3,
+          "device_step_ms": dev_ms,
+          "device_idle_share": 1.0 - dev_ms / (min(runs) / PLAIN_STEPS * 1e3),
+          "neuron_updates_per_s": PLAIN_STEPS * N / min(runs),
+          "rate_range": [float(out.min()), float(out.max())],
+          "mean_abs_rate": float(np.abs(out).mean())})
+    entries.append(generic_instance("ei,float32,generic_ei_path", net.get_node("ei"),
+                                    torch.float32, 15, launches))
+    del net
+    torch.cuda.empty_cache()
+    return entries
+
+
 def unported_bounds() -> dict:
     """The H100 bound of each TPU kernel not ported yet, from its shapes
     (bytes each input read once and each output written once, over
     HBM_BYTES_PER_S; the operations over the peak of their type)."""
-    # rectipy_tpu/ops/generic_fused.py:46 at the bench's N = 10,000 with one
-    # bf16 coupling and the qif_sfa template: W, the three state rows and
-    # eta/inp in, three state rows out (the TPU kernel's 512-tile padding is
-    # not work the function needs)
-    g_bytes = 2 * N * N + (3 + 2) * 4 * N + 3 * 4 * N
-    g_ops = 2 * N * N + 20 * N
     # benchmarks/i4pack_microbench.py:95 at its default N = 14,336: the
     # packed (N/2, N) uint8 coupling, x_even/x_odd (N/2 f32 each), y (N f32);
     # the products run in bf16 on the tensor cores (989e12/s)
@@ -379,8 +695,7 @@ def unported_bounds() -> dict:
     i_bytes = n4 // 2 * n4 + 2 * 4 * (n4 // 2) + 4 * n4
     i_ops = 2 * n4 * n4
     out = {"phase": "unported_bounds"}
-    for name, n_bytes, n_ops, peak in (("generic_fused", g_bytes, g_ops, F32_FLOPS),
-                                       ("i4pack_matvec", i_bytes, i_ops, 989e12)):
+    for name, n_bytes, n_ops, peak in (("i4pack_matvec", i_bytes, i_ops, 989e12),):
         t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / peak
         out[name] = {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_b, t_o) * 1e3,
                      "bound_by": "bytes" if t_b >= t_o else "operations"}
@@ -393,7 +708,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rectipy_tpu_torch import Network, attach_fused_qif_step, random_connectivity
-    from rectipy_tpu_torch.ops._build import build
+    from rectipy_tpu_torch.ops._build import build, build_generated
     from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -407,12 +722,16 @@ def main() -> int:
 
     # ------------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, together
-        builds = dict(zip(SOURCES, pool.map(build, SOURCES)))
-    for name, built in builds.items():
+    gen_sources = generic_sources()  # the generic kernel's generated sources
+    jobs = [(f"rectipy_tpu_torch/csrc/{name}.cu", build, (name,)) for name in SOURCES] + [
+        (f"rectipy_tpu_torch/_build/gen/ ({GENERIC_SOURCE} + a generated tail)",
+         build_generated, ("generic_fused_step", src)) for src in gen_sources]
+    with ThreadPoolExecutor(len(jobs)) as pool:  # one nvcc per source, together
+        builds = list(pool.map(lambda job: job[1](*job[2]), jobs))
+    for (source, _, _), built in zip(jobs, builds):
         ptxas = [ln.strip() for ln in built.log.splitlines()
                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-        emit({"phase": "build", "source": f"rectipy_tpu_torch/csrc/{name}.cu",
+        emit({"phase": "build", "source": source,
               "seconds": time.perf_counter() - t0, "nvcc_seconds": built.seconds,
               "library": os.path.basename(built.path), "ptxas": ptxas})
 
@@ -586,7 +905,9 @@ def main() -> int:
               "device_idle_share": 1.0 - device_step_ms / step_ms[name],
               "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
 
-    del nets, fused, Ws, W32, W, s_w, step, state, net_params, cases, v, s, x, eta, inp
+    del Ws, W32, W, s_w, step, state, net_params, cases, v, s, x, eta, inp
+    kernels += generic_phases(W_np, build_net, nets["bfloat16"])
+    del nets, fused
     torch.cuda.empty_cache()
     kernels += train_phases(dev)
     emit(unported_bounds())

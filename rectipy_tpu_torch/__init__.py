@@ -18,8 +18,9 @@ from .convert import load_jax_params
 from .dsl import CircuitTemplate, NodeTemplate, OperatorTemplate, clear_frontend_caches, lower
 from .edges import Linear
 from .network import Network
-from .nodes import InstantNode, RateNet, SpikeResetNet
+from .nodes import InstantNode, MultiSpikeResetNet, RateNet, SpikeNet, SpikeResetNet
 from .observer import Observer
+from .ops.generic_fused import attach_generic_fused_step
 from .ops.kernels import attach_fused_qif_step
 from .utility import (
     circular_connectivity,
@@ -34,13 +35,16 @@ __all__ = [
     "CircuitTemplate",
     "InstantNode",
     "Linear",
+    "MultiSpikeResetNet",
     "Network",
     "NodeTemplate",
     "Observer",
     "OperatorTemplate",
     "RateNet",
+    "SpikeNet",
     "SpikeResetNet",
     "attach_fused_qif_step",
+    "attach_generic_fused_step",
     "circular_connectivity",
     "clear_frontend_caches",
     "input_connections",

@@ -15,9 +15,16 @@ import torch
 
 __all__ = ["load_jax_params"]
 
-# keys the JAX package derives from 'weights'/'eta' when a fused Pallas step
-# is attached (transposed, tile-padded copies); rebuilt here, never copied
+# keys the JAX package derives from the couplings and per-neuron parameters
+# when a fused Pallas step is attached (transposed, tile-padded copies):
+# '__wt_pad__'/'__eta_pad__' (the QIF step), '__wt_pad_{c}__'/'__row_{k}__'
+# (the generic step); rebuilt here, never copied
 _JAX_DERIVED = ("__wt_pad__", "__eta_pad__")
+_JAX_DERIVED_PREFIXES = ("__wt_pad_", "__row_")
+
+
+def _jax_derived(key: str) -> bool:
+    return key in _JAX_DERIVED or key.startswith(_JAX_DERIVED_PREFIXES)
 
 
 def _numpy(val) -> np.ndarray:
@@ -35,11 +42,22 @@ def _like(val, old):
 
 
 def _unpad_state(y: np.ndarray, n_state: int, jax_node_params: dict) -> np.ndarray:
-    """A JAX fused node keeps its state padded, ``[v | s | x]`` blocks of
-    ``n_pad`` each; return the unpadded ``(V*n,)`` vector."""
-    if y.shape[0] == n_state or "__eta_pad__" not in jax_node_params:
+    """A JAX fused node keeps its state padded, one block of ``n_pad`` per
+    state variable; return the unpadded ``(V*n,)`` vector.  ``n_pad`` is
+    the length of ``__eta_pad__`` (the QIF step) or of a ``__row_*__`` or
+    ``__wt_pad_0__`` copy (the generic step)."""
+    if y.shape[0] == n_state:
         return y
-    n_pad = np.shape(jax_node_params["__eta_pad__"])[0]
+    if "__eta_pad__" in jax_node_params:
+        n_pad = np.shape(jax_node_params["__eta_pad__"])[0]
+    else:
+        rows = [k for k in jax_node_params if k.startswith("__row_")]
+        if rows:
+            n_pad = np.shape(jax_node_params[rows[0]])[-1]
+        elif "__wt_pad_0__" in jax_node_params:
+            n_pad = np.shape(jax_node_params["__wt_pad_0__"])[0]
+        else:
+            return y
     n_vars = y.shape[0] // n_pad
     n = n_state // n_vars
     return np.concatenate([y[i * n_pad:i * n_pad + n] for i in range(n_vars)])
@@ -54,10 +72,10 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
     trainable ``Linear`` edges.
 
     Keys the port does not have raise ``KeyError``.  The padded copies of a
-    JAX network with a fused step attached (``__wt_pad__``,
-    ``__eta_pad__``) are not copied: a port node with the fused kernel
-    attached rebuilds its own copies from ``weights``/``eta``.  A padded
-    fused state is unpadded.
+    JAX network with a fused step attached (``__wt_pad__``, ``__eta_pad__``,
+    ``__wt_pad_{c}__``, ``__row_{k}__``) are not copied: a port node with a
+    fused kernel attached rebuilds its own copies from the couplings and
+    parameters.  A padded fused state is unpadded.
     """
     net.compile()
     for label, sub in params.get("nodes", {}).items():
@@ -66,7 +84,7 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
         node = net.get_node(label)
         args = node.args
         for key, val in sub.items():
-            if key in _JAX_DERIVED:
+            if _jax_derived(key):
                 continue
             if key not in args:
                 raise KeyError(f"Node {label!r} has no parameter {key!r} in the port.")

@@ -30,7 +30,8 @@
 //   W byte is read once in full 128-byte lines.  W is loaded with the
 //   streaming hint (it is used once per step); s (40 KB at N = 10,000) is
 //   shared by all rows and is read through the read-only cache.  The loop is
-//   unrolled so each thread keeps several loads in flight.
+//   unrolled so each thread keeps several loads in flight (row_dot.cuh, which
+//   the generic fused step shares).
 // - The row sum reduces by warp shuffles, then across the block's warps in
 //   shared memory; thread 0 runs the QIF+SFA epilogue for neuron i.
 // - When n is not a multiple of the vector width, or W or s is not 16-byte
@@ -44,7 +45,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "row_dot.cuh"
 
 namespace {
 
@@ -55,68 +56,6 @@ struct StepParams {
   float dt, inv_dt, inv_tau, inv_tau_s, inv_tau_x, k, alpha, thresh, v_reset;
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// bf16 -> f32 is a 16-bit shift; a 32-bit word holds element 2c in its low
-// half and element 2c + 1 in its high half (little endian).
-__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
-
-// This thread's share of sum_j w[j] * s[j] over one row of length n.
-template <typename WT, bool kVec>
-__device__ __forceinline__ float partial_dot(const WT* __restrict__ w,
-                                             const float* __restrict__ s, int n) {
-  constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
-  float acc = 0.f;
-  if constexpr (kVec && !kBf16) {
-    const float4* w4 = reinterpret_cast<const float4*>(w);
-    const float4* s4 = reinterpret_cast<const float4*>(s);
-    const int nv = n / 4;
-#pragma unroll 4
-    for (int c = threadIdx.x; c < nv; c += kThreads) {
-      const float4 a = __ldcs(w4 + c);
-      const float4 b = __ldg(s4 + c);
-      acc = fmaf(a.x, b.x, acc);
-      acc = fmaf(a.y, b.y, acc);
-      acc = fmaf(a.z, b.z, acc);
-      acc = fmaf(a.w, b.w, acc);
-    }
-  } else if constexpr (kVec && kBf16) {
-    const uint4* w8 = reinterpret_cast<const uint4*>(w);
-    const float4* s4 = reinterpret_cast<const float4*>(s);
-    const int nv = n / 8;
-#pragma unroll 4
-    for (int c = threadIdx.x; c < nv; c += kThreads) {
-      const uint4 a = __ldcs(w8 + c);
-      const float4 b0 = __ldg(s4 + 2 * c);
-      const float4 b1 = __ldg(s4 + 2 * c + 1);
-      acc = fmaf(bf16_lo(a.x), bf16_round(b0.x), acc);
-      acc = fmaf(bf16_hi(a.x), bf16_round(b0.y), acc);
-      acc = fmaf(bf16_lo(a.y), bf16_round(b0.z), acc);
-      acc = fmaf(bf16_hi(a.y), bf16_round(b0.w), acc);
-      acc = fmaf(bf16_lo(a.z), bf16_round(b1.x), acc);
-      acc = fmaf(bf16_hi(a.z), bf16_round(b1.y), acc);
-      acc = fmaf(bf16_lo(a.w), bf16_round(b1.z), acc);
-      acc = fmaf(bf16_hi(a.w), bf16_round(b1.w), acc);
-    }
-  } else if constexpr (kBf16) {
-    const unsigned short* wu = reinterpret_cast<const unsigned short*>(w);
-#pragma unroll 4
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-      const float a = __uint_as_float(static_cast<uint32_t>(__ldg(wu + c)) << 16);
-      acc = fmaf(a, bf16_round(__ldg(s + c)), acc);
-    }
-  } else {
-#pragma unroll 4
-    for (int c = threadIdx.x; c < n; c += kThreads) {
-      acc = fmaf(__ldcs(w + c), __ldg(s + c), acc);
-    }
-  }
-  return acc;
-}
-
 template <typename WT, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 qif_sfa_step_kernel(const WT* __restrict__ W, const float* __restrict__ v,
@@ -126,7 +65,7 @@ qif_sfa_step_kernel(const WT* __restrict__ W, const float* __restrict__ v,
                     float* __restrict__ x_out, int n, StepParams p) {
   __shared__ float warp_sums[kWarps];
   const int i = blockIdx.x;
-  float acc = partial_dot<WT, kVec>(W + static_cast<size_t>(i) * n, s, n);
+  float acc = rowdot::partial_dot<WT, kVec, kThreads>(W + static_cast<size_t>(i) * n, s, n);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
   if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;

@@ -19,10 +19,13 @@ are not ported yet (ROADMAP Queue 1 items 5 and 10) and raise
 ``NotImplementedError``.
 
 Besides ``func``, the lowering gives the deferred-gradient trajectories
-(``ops/bptt.py``) ``tile_func`` (the vector field with the coupling results
-supplied from outside), ``state_order``, ``make_tile_reader`` and
-``coupling_cast``, and the inference runs ``prep_args`` (the once-per-run
-requantization of an ``int8_master`` coupling).
+(``ops/bptt.py``) and the generic fused step (``ops/generic_fused.py``)
+``tile_func`` (the vector field with the coupling results supplied from
+outside), ``tile_local`` (no population reductions), ``tile_program`` (the
+same field as plain data, for the CUDA emitter ``dsl/cuda.py``),
+``state_order``, ``make_tile_reader`` and ``coupling_cast``, and the
+inference runs ``prep_args`` (the once-per-run requantization of an
+``int8_master`` coupling).
 """
 
 from __future__ import annotations
@@ -56,6 +59,20 @@ class LoweredVar:
         return f"{self.op}/{self.var}"
 
 
+@dataclass(frozen=True)
+class TileProgram:
+    """``tile_func`` as plain data.  Each AST's symbols resolve in its
+    operator's scope (``op/sym``), else in ``CONSTANTS``."""
+
+    state_order: Tuple[str, ...]  # state qnames, y layout order
+    keys: Tuple[str, ...]  # args keys: parameters and input placeholders
+    schedule: Tuple[Tuple[str, str], ...]  # (qname, 'algebraic' | 'input'), evaluation order
+    algebraic: Dict[str, Tuple[tuple, str]]  # qname -> (rhs AST, operator)
+    wiring: Dict[str, str]  # input qname -> the output variable it adds
+    input_defaults: Dict[str, float]  # input qname -> template default
+    odes: Tuple[Tuple[str, tuple, str], ...]  # (state qname, rhs AST, operator), state_order
+
+
 @dataclass
 class VectorField:
     """A lowered neuron population: the vector field plus its metadata."""
@@ -77,6 +94,11 @@ class VectorField:
     # tile_func(states, args, ext) -> {state qname: derivative}: the vector
     # field with the coupling contributions supplied in ``ext``
     tile_func: Optional[Callable] = None
+    # False when an equation reduces over the population (mean/sum/min/max):
+    # tile_func is then right only on the whole population, and the fused
+    # kernels, which evaluate it per neuron, must refuse the node
+    tile_local: bool = True
+    tile_program: Optional[TileProgram] = None
     state_order: List[str] = field(default_factory=list)  # state var qnames, y layout order
     make_tile_reader: Optional[Callable] = None
     couplings: List[Tuple[str, str, str]] = field(default_factory=list)  # (src, tgt, wkey)
@@ -494,11 +516,26 @@ def lower(
 
     alg_names = [q for q in schedule if lowered[q].kind == "algebraic"]
 
-    # ---- coupling-free variant (for the deferred-gradient trajectories) -----
+    # ---- coupling-free variant (trajectories and fused kernels) -------------
     # Evaluates the same schedule with every coupling contribution supplied
     # precomputed via ``ext`` (the matvec happens outside).  The trajectories
     # evaluate it on the full population, so population reductions
-    # (mean/sum/min/max over neurons) are exact.
+    # (mean/sum/min/max over neurons) are exact there; the fused kernels
+    # evaluate it per neuron and refuse templates with reductions
+    # (``tile_local``).
+    def _uses_reduction(ast) -> bool:
+        tag = ast[0]
+        if tag == "call":
+            return ast[1] in ("mean", "sum", "min", "max") or any(
+                _uses_reduction(x) for x in ast[2])
+        if tag == "neg":
+            return _uses_reduction(ast[1])
+        if tag == "bin":
+            return _uses_reduction(ast[2]) or _uses_reduction(ast[3])
+        return False
+
+    tile_local = not any(lv.rhs_ast is not None and _uses_reduction(lv.rhs_ast)
+                         for lv in lowered.values())
     def tile_func(states: Dict[str, torch.Tensor], a_tile: Dict[str, torch.Tensor],
                   ext: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         env: Dict[str, torch.Tensor] = dict(states)
@@ -522,10 +559,14 @@ def lower(
                                   first.dtype, first.device)
                 for qname, rhs_ast, opname in ode_rhs}
 
-    def make_tile_reader(qname: str):
+    def make_tile_reader(qname: str, allow_global: bool = False):
         """Reader ``(states, args) -> value`` of a state or algebraic
         variable that depends (transitively) only on states and parameters;
-        ``None`` when it reads a coupling-driven input."""
+        ``None`` when it reads a coupling-driven input.  Templates with
+        population reductions give ``None`` too, unless ``allow_global``
+        (the trajectories, which evaluate on the whole population)."""
+        if not tile_local and not allow_global:
+            return None
         if qname in var_map:
             return lambda states, a_tile: states[qname]
         if qname not in lowered or lowered[qname].kind != "algebraic":
@@ -623,6 +664,16 @@ def lower(
         read_var=read_var,
         alg_vars=alg_names,
         tile_func=tile_func,
+        tile_local=tile_local,
+        tile_program=TileProgram(
+            state_order=tuple(state_order),
+            keys=tuple(keys),
+            schedule=tuple((q, lowered[q].kind) for q in schedule),
+            algebraic=dict(alg_items),
+            wiring=dict(wiring),
+            input_defaults={q: float(lowered[q].default) for q in input_vars},
+            odes=tuple(ode_rhs),
+        ),
         state_order=list(state_order),
         make_tile_reader=make_tile_reader,
         couplings=[(esv, etv, wkey) for esv, etv, _, wkey in all_edges],

@@ -31,7 +31,7 @@ import torch
 from networkx import DiGraph
 
 from .edges import Linear
-from .nodes import InstantNode, RateNet, SpikeResetNet, resolve_device, resolve_dtype
+from .nodes import InstantNode, RateNet, SpikeNet, SpikeResetNet, resolve_device, resolve_dtype
 from .observer import Observer
 from .train import get_loss_function, get_optimizer
 from .train.optimizers import tree_map
@@ -250,12 +250,12 @@ class Network:
                 "the name of the variable that should be reset after a spike occurred "
                 "(`reset_var`)."
             )
-        elif not reset:
-            raise _todo("SpikeNet (reset=False)", "3")
         else:
+            # a list spike_var makes SpikeResetNet.from_pyrates build a
+            # MultiSpikeResetNet
             build_kwargs["spike_var"] = var_dict["spike"]
             build_kwargs["reset_var"] = var_dict["reset"]
-            NodeClass = SpikeResetNet
+            NodeClass = SpikeResetNet if reset else SpikeNet
         kwargs.update(build_kwargs)
         node_instance = NodeClass.from_pyrates(*args, **kwargs)
         self.add_node(label, node=node_instance, node_type="diff_eq", op=op)

@@ -8,13 +8,17 @@ thin wrapper holding the current ``y`` tensor and ``args`` dict.
 functional: they return new tensors and never write their inputs in place.
 
 Semantics (as in the JAX package and RectiPy):
-- ``RateNet.forward``: one explicit-Euler step, returns the *pre-update*
+- ``RateNet.forward``: one explicit-Euler step (or a Heun/RK4 step with
+  ``integrator='heun'|'rk4'``, RateNet only), returns the *pre-update*
   output slice.
 - ``SpikeResetNet``: surrogate spikes from the reset-variable slice, spikes
   scaled by 1/dt into the spike input, detached hard reset of the slice.
-
-Not ported yet (ROADMAP Queue 1 item 3): ``SpikeNet``,
-``MultiSpikeResetNet`` and the Heun/RK4 integrators.
+- ``SpikeNet``: spikes/dt into the spike input and, detached, into the
+  reset input; no hard reset (the equations implement it); returns the
+  *post-update* output.
+- ``MultiSpikeResetNet``: one spike input and one hard-reset segment per
+  entry of a list ``spike_var``/``reset_var``; returns the *post-update*
+  output.
 
 Devices: every node lives on one device.  ``device=None`` means CUDA and
 raises when no CUDA device is present; the CPU must be asked for with
@@ -33,13 +37,13 @@ from .ops.surrogate import default_spike_slope, make_spike_fn
 
 __all__ = [
     "InstantNode",
+    "MultiSpikeResetNet",
     "RateNet",
+    "SpikeNet",
     "SpikeResetNet",
     "resolve_dtype",
     "resolve_device",
 ]
-
-_NODES_TODO = "is not ported yet (ROADMAP Queue 1 item 3)"
 
 
 def resolve_dtype(dtype) -> torch.dtype:
@@ -158,7 +162,8 @@ class InstantNode:
 
 
 class RateNet:
-    """ODE population node: explicit-Euler integration of a lowered vector field.
+    """ODE population node: explicit-Euler (or Heun/RK4) integration of a
+    lowered vector field.
 
     - ``RateNet(func, args_tuple, var_map, param_map_with_indices)`` with a
       hand-written ``func(t, y, *args)`` -- used for runtime tests decoupled
@@ -186,9 +191,15 @@ class RateNet:
         self.dtype = resolve_dtype(dtype)
         self.device = resolve_device(device)
         self._vf = vf
+        # 'euler' (the reference's scheme), 'heun' (RK2) or 'rk4'; RateNet
+        # only: the spiking wrappers need the Euler update/reset interleaving
         self.integrator = str(kwargs.pop("integrator", "euler"))
-        if self.integrator != "euler":
-            raise NotImplementedError(f"integrator={self.integrator!r} {_NODES_TODO}")
+        if self.integrator not in ("euler", "heun", "rk4"):
+            raise ValueError(
+                f"Unknown integrator {self.integrator!r}; use 'euler', 'heun' or 'rk4'")
+        if self.integrator != "euler" and type(self).__name__ != "RateNet":
+            raise ValueError(
+                f"integrator={self.integrator!r} is only supported on RateNet nodes")
 
         if isinstance(rnn_args, (tuple, list)):
             # raw mode: args[0] is the initial state, the rest are positional
@@ -401,6 +412,30 @@ class RateNet:
         func, dt, inp_key = self.func, self.dt, self._inp_key
         reader = self._make_out_reader()
 
+        if self.integrator == "heun":
+            def step(y, args, x):
+                a = dict(args)
+                a[inp_key] = x
+                out = reader(y, a)
+                k1 = func(0.0, y, a)
+                k2 = func(0.0, y + dt * k1, a)
+                return y + (dt * 0.5) * (k1 + k2), out
+
+            return step
+
+        if self.integrator == "rk4":
+            def step(y, args, x):
+                a = dict(args)
+                a[inp_key] = x
+                out = reader(y, a)
+                k1 = func(0.0, y, a)
+                k2 = func(0.0, y + (dt * 0.5) * k1, a)
+                k3 = func(0.0, y + (dt * 0.5) * k2, a)
+                k4 = func(0.0, y + dt * k3, a)
+                return y + (dt / 6.0) * (k1 + 2.0 * (k2 + k3) + k4), out
+
+            return step
+
         def step(y, args, x):
             a = dict(args)
             a[inp_key] = x
@@ -482,10 +517,11 @@ class RateNet:
         """Set the value of a node parameter.
 
         With a fused kernel attached, the kernel reads its own copies of the
-        parameters: the per-neuron ``eta`` and the coupling are refreshed
-        here; the scalar parameters are kernel arguments fixed at attach
-        time, and setting one raises (rebuild the node to change it --
-        keeping the stale value would corrupt the simulation)."""
+        parameters: the per-neuron parameters and the couplings are
+        refreshed here; the scalar parameters are baked into the kernel's
+        arguments at attach time, and setting one raises (rebuild the node
+        to change it -- keeping the stale value would corrupt the
+        simulation)."""
         try:
             key = self._param_map[param]
         except KeyError:
@@ -498,11 +534,12 @@ class RateNet:
 
     def _refresh_fused_param(self, key: str):
         """Propagate a parameter update into the attached fused kernel's
-        copies (registered by ``ops.kernels.attach_fused_qif_step``)."""
+        copies (registered by ``ops.kernels.attach_fused_qif_step`` and
+        ``ops.generic_fused.attach_generic_fused_step``)."""
         refresh = getattr(self, "_fused_refresh", {}).get(key)
         if refresh is None:
             raise ValueError(
-                f"Parameter {key!r} is a scalar fixed in the attached fused "
+                f"Parameter {key!r} is a scalar baked into the attached fused "
                 f"kernel at attach time; rebuild the node (fresh add_diffeq_node "
                 f"+ attach) to change it.")
         refresh()
@@ -510,6 +547,64 @@ class RateNet:
     def set_state(self, y):
         """State setter used by the Network's run loop."""
         self.y = y
+
+
+class SpikeNet(RateNet):
+    """Spiking node with an intrinsic (in-equation) reset: surrogate spikes
+    are injected into ``spike_var`` and detached spike events into
+    ``reset_var`` every step; the equations implement the reset (e.g.
+    ``-2*reset*v`` in ``qif_reset_op``).  The spike condition is read from
+    the state variable ``spike_def`` (default ``v``)."""
+
+    def __init__(self, rnn_func, rnn_args, var_map, param_map, spike_threshold: float = 1e2,
+                 spike_reset: float = -1e2, **kwargs):
+        spike_center = float(kwargs.pop("spike_center", 1.0))
+        spike_slope = float(kwargs.pop("spike_slope", default_spike_slope(spike_threshold, spike_reset)))
+        spike_def = kwargs.pop("spike_def", None)
+        super().__init__(rnn_func, rnn_args, var_map, param_map, **kwargs)
+        self.spike = make_spike_fn(spike_slope, spike_center)
+        self._spike_key = self._param_map["spike_var"]
+        self._reset_key = self._param_map["reset_var"]
+        self._thresh = float(spike_threshold)
+        spike_def = spike_def or self._find_spike_def()
+        spec = self._var_map.get(spike_def)
+        if not isinstance(spec, tuple):
+            raise KeyError(f"spike_def variable {spike_def!r} is not a state variable of the node")
+        self._spike_lo, self._spike_hi = int(spec[0]), int(spec[-1])
+
+    def _find_spike_def(self) -> str:
+        for cand in ("v", *[k for k in self._var_map if k.endswith("/v")]):
+            if isinstance(self._var_map.get(cand), tuple):
+                return cand
+        raise KeyError("Could not infer the spike-condition state variable; pass `spike_def`")
+
+    @classmethod
+    def from_pyrates(cls, node, input_var, output_var, weights=None, source_var=None,
+                     target_var=None, spike_var: str = "spike", reset_var: str = "reset",
+                     train_params=None, **kwargs):
+        kwargs["param_mapping"] = {"spike_var": spike_var, "reset_var": reset_var}
+        return super().from_pyrates(node, input_var, output_var, weights, source_var,
+                                    target_var, train_params=train_params, **kwargs)
+
+    from_template = from_pyrates
+
+    def make_step(self) -> Callable:
+        func, dt, inp_key = self.func, self.dt, self._inp_key
+        spike_fn, thresh = self.spike, self._thresh
+        skey, rkey = self._spike_key, self._reset_key
+        lo, hi = self._spike_lo, self._spike_hi
+        reader = self._make_out_reader()
+
+        def step(y, args, x):
+            spikes = spike_fn(y[lo:hi] - thresh) / dt
+            a = dict(args)
+            a[skey] = spikes
+            a[rkey] = spikes.detach()
+            a[inp_key] = x
+            y_new = y + dt * func(0.0, y, a)
+            return y_new, reader(y_new, a)  # post-update output
+
+        return step
 
 
 class SpikeResetNet(RateNet):
@@ -536,7 +631,9 @@ class SpikeResetNet(RateNet):
                      target_var=None, spike_var: str = "spike", reset_var: str = "v",
                      train_params=None, **kwargs):
         if isinstance(spike_var, list):
-            raise NotImplementedError(f"MultiSpikeResetNet (a list of spike_var) {_NODES_TODO}")
+            return MultiSpikeResetNet.from_pyrates(node, input_var, output_var, weights,
+                                                   source_var, target_var, spike_var,
+                                                   reset_var, train_params, **kwargs)
         kwargs["param_mapping"] = {"spike_var": spike_var}
         var_mapping = dict(kwargs.pop("var_mapping", {}))
         var_mapping["reset_var"] = reset_var
@@ -564,6 +661,65 @@ class SpikeResetNet(RateNet):
             y_new = y + dt * func(0.0, y, a)
             seg = y_new[lo:hi] * (1.0 - reset) + reset * v_reset
             return torch.cat((y_new[:lo], seg, y_new[hi:])), out
+
+        return step
+
+
+class MultiSpikeResetNet(RateNet):
+    """Hard spike reset applied to a *list* of state-variable segments
+    (multi-compartment models): spike input ``spike_var_i`` and reset
+    segment ``spike_reset_i`` per list entry.  Built through
+    ``SpikeResetNet.from_pyrates`` with a list ``spike_var``."""
+
+    def __init__(self, rnn_func, rnn_args, var_map, param_map, spike_threshold: float = 1e2,
+                 spike_reset: float = -1e2, **kwargs):
+        spike_center = float(kwargs.pop("spike_center", 1.0))
+        spike_slope = float(kwargs.pop("spike_slope", default_spike_slope(spike_threshold, spike_reset)))
+        super().__init__(rnn_func, rnn_args, var_map, param_map, **kwargs)
+        self.spike = make_spike_fn(spike_slope, spike_center)
+        self._thresh = float(spike_threshold)
+        self._reset_val = float(spike_reset)
+        self._spike_keys: List[str] = []
+        while f"spike_var_{len(self._spike_keys)}" in self._param_map:
+            self._spike_keys.append(self._param_map[f"spike_var_{len(self._spike_keys)}"])
+        self._segments: List[Tuple[int, int]] = []
+        for j in range(len(self._spike_keys)):
+            lo, hi = self._var_map[f"spike_reset_{j}"]
+            self._segments.append((int(lo), int(hi)))
+
+    @classmethod
+    def from_pyrates(cls, node, input_var, output_var, weights=None, source_var=None,
+                     target_var=None, spike_var=("spike",), reset_var=("v",),
+                     train_params=None, **kwargs):
+        kwargs["param_mapping"] = {f"spike_var_{i}": sv for i, sv in enumerate(spike_var)}
+        var_mapping = dict(kwargs.pop("var_mapping", {}))
+        var_mapping.update({f"spike_reset_{i}": rv for i, rv in enumerate(reset_var)})
+        kwargs["var_mapping"] = var_mapping
+        return super(MultiSpikeResetNet, cls).from_pyrates(node, input_var, output_var, weights,
+                                                           source_var, target_var,
+                                                           train_params=train_params, **kwargs)
+
+    from_template = from_pyrates
+
+    def make_step(self) -> Callable:
+        func, dt, inp_key = self.func, self.dt, self._inp_key
+        spike_fn, thresh, v_reset = self.spike, self._thresh, self._reset_val
+        skeys, segments = self._spike_keys, self._segments
+        reader = self._make_out_reader()
+
+        def step(y, args, x):
+            a = dict(args)
+            resets = []
+            for k, (lo, hi) in zip(skeys, segments):
+                spikes = spike_fn(y[lo:hi] - thresh)
+                resets.append(spikes.detach())
+                a[k] = spikes / dt
+            a[inp_key] = x
+            y_new = y + dt * func(0.0, y, a)
+            for (lo, hi), reset in zip(segments, resets):
+                seg = torch.where(reset > 0.0, v_reset, y_new[lo:hi])
+                y_new = torch.cat((y_new[:lo], seg, y_new[hi:]))
+            return y_new, reader(y_new, a)  # post-update output
 
         return step
 

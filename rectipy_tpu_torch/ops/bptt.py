@@ -100,14 +100,14 @@ def _node_pieces(node):
                              "or int8_master coupling")
     src_readers = []
     for src, _tgt, _wk in vf.couplings:
-        rd = vf.make_tile_reader(src)
+        rd = vf.make_tile_reader(src, allow_global=True)
         if rd is None:
             raise ValueError("Deferred-gradient BPTT requires every coupling source to be a "
                              "state variable or an algebraic of states/params only.")
         src_readers.append(rd)
     out_reader_alg = None
     if node._out_alg is not None:
-        out_reader_alg = vf.make_tile_reader(node._out_alg)
+        out_reader_alg = vf.make_tile_reader(node._out_alg, allow_global=True)
         if out_reader_alg is None:
             raise ValueError("Deferred-gradient BPTT requires an algebraic output to depend "
                              "on states/params only.")

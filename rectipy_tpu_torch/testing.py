@@ -1,20 +1,31 @@
-"""Inputs and checks that hold the fused adam + requantize kernel to its plain
-version; ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` both use them.
+"""Inputs and checks that hold the port's kernels to their plain versions;
+``chip_smoke.py`` and ``tests/test_torch_gpu.py`` both use them.
 
-W', m', v' and scale must agree within rtol ``ADAM_RTOL`` with an atol of
-``ADAM_RTOL`` times each tensor's largest entry (the plain version's kernels
+The fused adam + requantize kernel: W', m', v' and scale must agree within
+rtol ``ADAM_RTOL`` with an atol of ``ADAM_RTOL`` times each tensor's
+largest entry (the plain version's kernels
 may round a division by a host scalar through its reciprocal: an ulp of the
 update, which is large against a W' that nearly cancels); wq must be equal
 except where the plain W'/scale lies within 1e-4 of a .5 rounding boundary.
+
+The generic fused step: one node of each class and mode
+(``GENERIC_CASES``), built through the public API with the kernel attached,
+and inputs for one step of it (``generic_inputs``); ``check_generic`` holds
+the kernel's rows to the plain version's (see ``GENERIC_TOL``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from .ops.fused_opt import bias_corrections
 
-__all__ = ["ADAM_KW", "ADAM_RTOL", "adam_inputs", "check_adam_requant"]
+__all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "adam_inputs",
+           "check_adam_requant", "check_generic", "generic_case_net", "generic_inputs",
+           "lost_eighth_margin"]
 
 ADAM_RTOL = 1e-6
 ADAM_KW = dict(b1=0.9, b2=0.999, eps=1e-8)
@@ -60,3 +71,141 @@ def check_adam_requant(got, ref, w):
     if margin < 1e3:
         raise AssertionError(f"the adam update is only {margin}x the W' tolerance")
     return rel, int(boundary.sum()), margin
+
+
+# ---------------------------------------------------------------- generic step
+_SPIKING = dict(input_var="I_ext", output_var="s", source_var="s", target_var="s_in")
+# name -> (template, add_diffeq_node keywords); each with the generic kernel
+GENERIC_CASES = {
+    "qif_sfa": ("rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa", dict(
+        _SPIKING, op="qif_sfa_op", spike_var="spike", spike_def="v", spike_threshold=1e2,
+        spike_reset=-1e2, node_vars={"alpha": 0.05, "k": 15.0}, per_neuron="eta", dt=1e-4)),
+    "lif": ("rectipy_tpu_torch.models.spiking_neurons.lif.lif", dict(
+        _SPIKING, op="lif_op", spike_var="spike", reset_var="v", spike_threshold=10.0,
+        spike_reset=-10.0, node_vars={"eta": 10.0, "tau_s": 5.0}, per_neuron="tau", dt=1e-2)),
+    "qif_reset": ("rectipy_tpu_torch.models.spiking_neurons.qif.qif_reset", dict(
+        _SPIKING, op="qif_reset_op", spike_var="spike", reset_var="reset", reset=False,
+        spike_threshold=10.0, spike_reset=-10.0, node_vars={}, per_neuron="eta", dt=1e-3)),
+    "ik": ("rectipy_tpu_torch.models.spiking_neurons.ik.ik", dict(
+        _SPIKING, op="ik_op", spike_var=["spike"], reset_var=["v"], spike_threshold=40.0,
+        spike_reset=-60.0, node_vars={}, per_neuron="eta", dt=1e-2)),
+    "tanh_heun": ("rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh", dict(
+        input_var="li_op/I_ext", output_var="li_op/v", source_var="tanh_op/r",
+        target_var="li_op/r_in", integrator="heun", node_vars={"all/li_op/eta": 1.0},
+        per_neuron="all/li_op/tau", dt=1e-2)),
+    # a second coupling into the input variable itself, as a circuit
+    "two_couplings": ("rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh", dict(
+        input_var="li_op/I_ext", output_var="li_op/v", node_vars={}, per_neuron=None,
+        dt=1e-2)),
+}
+# Kernel against plain version on the card, (rtol, atol relative to each
+# row's largest entry).  The f32 sums run in another order over n terms, and
+# nvcc contracts a*b + c in the tail and the update into FMAs where the plain
+# version rounds the product first: differences of a few ulps of the
+# intermediate values, so 1e-5 of each row's scale.  The coupling case
+# (qif_sfa with k = 1/dt and v, x, eta, drive of order 1e-3, so that
+# v' = s_in + O(1e-3) with s_in ~ 0.5) takes the QIF kernel's (1e-5, 1e-6):
+# about 6e-6 on s_in, far below a lost eighth of the row sum
+# (``lost_eighth_margin``).
+GENERIC_TOL = {"reset": (1e-5, 1e-5), "coupling": (1e-5, 1e-6)}
+
+
+def generic_case_net(case: str, W: np.ndarray, device, seed: int = 0,
+                     coupling_dtype: str = "float32", attach: bool = True):
+    """The network of ``GENERIC_CASES[case]`` at ``n = len(W)`` on ``device``
+    (coupling ``W`` in ``coupling_dtype``; per-neuron values of one
+    parameter from ``seed``), with the generic kernel attached unless
+    ``attach=False``; returns ``(net, node)``."""
+    from .network import Network
+    from .ops.generic_fused import attach_generic_fused_step
+
+    template, kw = GENERIC_CASES[case]
+    kw = dict(kw)
+    n = W.shape[0]
+    rng = np.random.default_rng(seed)
+    per_neuron, node_vars = kw.pop("per_neuron"), dict(kw.pop("node_vars"))
+    if per_neuron is not None:
+        node_vars[per_neuron] = rng.uniform(5.0, 15.0, n)
+    net = Network(kw.pop("dt"), device=device)
+    if case == "two_couplings":
+        from .dsl.parser import CircuitTemplate, NodeTemplate
+
+        tmpl = NodeTemplate.from_yaml(template)
+        circuit = CircuitTemplate("c", {f"p{i}": tmpl for i in range(n)})
+        circuit.add_edges_from_matrix("tanh_op/r", "li_op/r_in", weight=W)
+        circuit.add_edges_from_matrix("tanh_op/r", "li_op/I_ext", weight=W)
+        net.add_diffeq_node("pop", circuit, node_vars=node_vars, coupling_dtype=coupling_dtype,
+                            **kw)
+    else:
+        net.add_diffeq_node("pop", template, weights=W, node_vars=node_vars,
+                            coupling_dtype=coupling_dtype, **kw)
+    net.compile()
+    node = net.get_node("pop")
+    if attach:
+        attach_generic_fused_step(node)
+    return net, node
+
+
+def generic_inputs(node, seed: int, coupling: bool = False):
+    """``(step, srcs, drive, states, vecs)`` for one kernel launch of the
+    node's attached step.  By default every spike-tested state spreads
+    across its threshold (the reset case); ``coupling=True`` (qif_sfa only)
+    gives the coupling case of ``GENERIC_TOL``."""
+    step = node._fused_cfg["step"]
+    n, dev = node._fused_cfg["n"], node.device
+    rng = np.random.default_rng(seed)
+
+    def row(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev).contiguous()
+
+    spike_rows = {vidx for _, vidx, _, _ in step.spike_specs}
+    spread = 0.5 * max(abs(step.thresh - step.reset_val), 1.0)
+    states = [row(step.thresh + rng.normal(size=n) * spread) if v in spike_rows
+              else row(rng.random(n)) for v in range(len(step.state_order))]
+    vecs = [node.args[f"__row_{k}__"] for k in step.vec_keys]
+    srcs = [row(rng.random(n)) for _ in step.targets]
+    drive = row(rng.normal(size=n))
+    if coupling:
+        small = {"qif_sfa_op/v", "qif_sfa_op/x"}
+        states = [row(rng.normal(size=n) * 1e-3) if q in small else st
+                  for q, st in zip(step.state_order, states)]
+        vecs = [row(rng.normal(size=n) * 1e-3) if k == "qif_sfa_op/eta" else r
+                for k, r in zip(step.vec_keys, vecs)]
+        drive = row(rng.normal(size=n) * 1e-3)
+        step = dataclasses.replace(step, scalars={**step.scalars, "qif_sfa_op/k": 1.0 / step.dt})
+    return step, srcs, drive, states, vecs
+
+
+def check_generic(got, ref, step, case: str = "reset"):
+    """Hold the kernel's rows ``got`` to the plain version's ``ref`` under
+    ``GENERIC_TOL[case]``; hard-reset masks must be equal.  Returns (max abs
+    error, number of hard-reset neurons)."""
+    rtol, atol = GENERIC_TOL[case]
+    for v in range(ref.shape[0]):
+        row_atol = atol if case == "coupling" else atol * float(ref[v].abs().max())
+        torch.testing.assert_close(got[v], ref[v], rtol=rtol, atol=row_atol)
+    resets = 0
+    if not step.derivative:
+        for _, vidx, hard, _ in step.spike_specs:
+            if hard:
+                mask, ref_mask = got[vidx] == step.reset_val, ref[vidx] == step.reset_val
+                if not torch.equal(mask, ref_mask):
+                    raise AssertionError("the kernel's reset mask differs from the plain version's")
+                resets += int(ref_mask.sum())
+    return float((got - ref).abs().max()), resets
+
+
+def lost_eighth_margin(step, srcs, Ws, drive, states, vecs, ref) -> float:
+    """The coupling check's power: the plain step with every eighth term of
+    each row sum lost (as a kernel that dropped one of its eight warps'
+    partial sums would lose it), over the coupling tolerance on the
+    spike-tested row; above 1 on every row means the check would fail it."""
+    from .ops.generic_fused import generic_fused_step_plain
+
+    rtol, atol = GENERIC_TOL["coupling"]
+    cut_srcs = [s.clone() for s in srcs]
+    for s in cut_srcs:
+        s[::8] = 0.0
+    cut = generic_fused_step_plain(step, cut_srcs, Ws, drive, states, vecs)
+    v = step.spike_specs[0][1]
+    return float(((cut[v] - ref[v]).abs() / (atol + rtol * ref[v].abs())).min())

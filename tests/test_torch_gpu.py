@@ -7,16 +7,21 @@ is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from rectipy_tpu_torch import Network, attach_fused_qif_step
 from rectipy_tpu_torch.ops.fused_opt import adam_requant, adam_requant_plain
+from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fused_step_plain
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
 from rectipy_tpu_torch.ops.quant import (int8_dot_plain, int8_dot_t_plain, int8_mv,
                                          int8_mv_t, quant_vec, quantize_rows)
-from rectipy_tpu_torch.testing import ADAM_KW, adam_inputs, check_adam_requant
+from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
+                                       check_generic, generic_case_net, generic_inputs,
+                                       lost_eighth_margin)
 
 PARAMS = dict(dt=1e-4, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05,
               thresh=10.0, v_reset=-10.0)
@@ -290,3 +295,142 @@ def test_adam_check_fails_a_kernel_that_drops_part_of_the_step(fault):
     check_adam_requant(ref, ref, w)
     with pytest.raises(AssertionError):
         check_adam_requant(bad, ref, w)
+
+
+# ------------------------------------------------------ generic fused step
+def _generic_node(case, n, device, coupling_dtype="float32", attach=True):
+    """``GENERIC_CASES[case]`` at n with a dense row-normalised W, so that a
+    coupling sum averages its source (about 0.5 for a U(0, 1) source)."""
+    rng = np.random.default_rng(40)
+    W = rng.random((n, n))
+    W /= W.sum(axis=1, keepdims=True)
+    return generic_case_net(case, W, device, coupling_dtype=coupling_dtype, attach=attach)
+
+
+def _generic_launch(node, w_dtype, inputs):
+    """The kernel (or, on CPU tensors, its plain version) and the plain
+    version on the same inputs, with W in ``w_dtype``."""
+    step, srcs, drive, states, vecs = inputs
+    Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(len(step.targets))]
+    before = generic_fused_step.launches
+    got = generic_fused_step(step, srcs, Ws, drive, states, vecs)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+        assert generic_fused_step.launches == before + 1
+    ref = generic_fused_step_plain(step, srcs, Ws, drive, states, vecs)
+    return got, ref, Ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1000, 1003, 37])  # 16-byte vector loop / scalar loop
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GENERIC_CASES))
+def test_generic_kernel_matches_plain_version(cuda, case, n, w_dtype):
+    # every node class and mode: spike-tested states spread across the
+    # threshold, so the reset masks must be equal and some neurons reset
+    _, node = _generic_node(case, n, cuda)
+    inputs = generic_inputs(node, seed=1)
+    got, ref, _ = _generic_launch(node, w_dtype, inputs)
+    _, resets = check_generic(got, ref, inputs[0])
+    if any(hard for _, _, hard, _ in inputs[0].spike_specs):
+        assert resets > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1000, 1003, 37])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_generic_kernel_coupling_case(cuda, n, w_dtype):
+    # v' = s_in + O(1e-3): the check sees the matvec
+    _, node = _generic_node("qif_sfa", n, cuda)
+    inputs = generic_inputs(node, seed=2, coupling=True)
+    got, ref, Ws = _generic_launch(node, w_dtype, inputs)
+    check_generic(got, ref, inputs[0], case="coupling")
+    assert lost_eighth_margin(*inputs[:2], Ws, *inputs[2:], ref) > 1.0
+
+
+@pytest.mark.parametrize("n", [1000, 1003, 37])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_generic_coupling_tolerance_fails_a_lost_eighth_of_the_row_sum(n, w_dtype):
+    # needs no card: the plain version on CPU tensors; the coupling case's
+    # tolerance must fail every row if every eighth term of the sums is lost
+    _, node = _generic_node("qif_sfa", n, "cpu")
+    inputs = generic_inputs(node, seed=2, coupling=True)
+    got, ref, Ws = _generic_launch(node, w_dtype, inputs)
+    check_generic(got, ref, inputs[0], case="coupling")
+    assert lost_eighth_margin(*inputs[:2], Ws, *inputs[2:], ref) > 1.0
+
+
+@pytest.mark.parametrize("fault", ["reset_value", "no_drive", "no_coupling"])
+def test_generic_check_fails_a_kernel_that_drops_part_of_the_step(fault):
+    # needs no card: a faulty copy of the plain step must fail the check
+    _, node = _generic_node("lif", 64, "cpu")
+    step, srcs, drive, states, vecs = generic_inputs(node, seed=5)
+    Ws = [node.args["__w_fused_0__"]]
+    ref = generic_fused_step_plain(step, srcs, Ws, drive, states, vecs)
+    if fault == "reset_value":
+        bad_step = dataclasses.replace(step, reset_val=step.reset_val + 1.0)
+        bad = generic_fused_step_plain(bad_step, srcs, Ws, drive, states, vecs)
+    elif fault == "no_drive":
+        bad = generic_fused_step_plain(step, srcs, Ws, torch.zeros_like(drive), states, vecs)
+    else:
+        bad = generic_fused_step_plain(step, [torch.zeros_like(srcs[0])], Ws, drive, states,
+                                       vecs)
+    check_generic(ref, ref, step)
+    with pytest.raises(AssertionError):
+        check_generic(bad, ref, step)
+
+
+@pytest.mark.gpu
+def test_generic_kernel_misaligned_source_takes_the_scalar_loop(cuda):
+    _, node = _generic_node("qif_sfa", 1000, cuda)
+    step, srcs, drive, states, vecs = generic_inputs(node, seed=3, coupling=True)
+    off = torch.cat((torch.zeros(1, device=cuda), srcs[0]))[1:]  # 4 bytes past an aligned base
+    assert off.data_ptr() % 16 != 0
+    Ws = [node.args["__w_fused_0__"]]
+    got = generic_fused_step(step, [off], Ws, drive, states, vecs)
+    ref = generic_fused_step_plain(step, srcs, Ws, drive, states, vecs)
+    check_generic(got, ref, step, case="coupling")
+
+
+@pytest.mark.gpu
+def test_generic_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    _, node = _generic_node("lif", 64, cuda)
+    step, srcs, drive, states, vecs = generic_inputs(node, seed=4)
+    W = node.args["__w_fused_0__"]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        generic_fused_step(step, srcs, [W.double()], drive, states, vecs)
+    with pytest.raises(ValueError, match="contiguous"):
+        generic_fused_step(step, srcs, [W.t()], drive, states, vecs)
+    with pytest.raises(ValueError, match="shape"):
+        generic_fused_step(step, [srcs[0][:-1]], [W], drive, states, vecs)
+    with pytest.raises(ValueError, match="on cpu"):
+        generic_fused_step(step, srcs, [W], drive, [states[0].cpu()] + states[1:], vecs)
+    with pytest.raises(ValueError, match="float32"):
+        generic_fused_step(step, srcs, [W], drive.double(), states, vecs)
+    with pytest.raises(ValueError, match="expected 1 couplings"):
+        generic_fused_step(step, srcs * 2, [W, W], drive, states, vecs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupling", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["lif", "tanh_heun"])
+def test_generic_fused_network_on_card_matches_plain_network_on_cpu(cuda, case, coupling):
+    # 300 steps through Network.run: the kernel on the card against the
+    # plain lowered step on the CPU (f32 sums in other orders); a spiking
+    # case and Heun's two derivative-mode launches per step
+    n, steps = 128, 300
+    inp = np.random.default_rng(41).normal(size=(steps, n))
+    outs = {}
+    for device in (cuda, "cpu"):
+        net, node = _generic_node(case, n, device, coupling_dtype=coupling,
+                                  attach=device is cuda)
+        before = generic_fused_step.launches
+        obs = net.run(inp, sampling_steps=10, record_output=True, verbose=False)
+        launches = generic_fused_step.launches - before
+        assert launches == (0 if device == "cpu" else steps * (2 if case == "tanh_heun" else 1))
+        outs[str(device)] = (obs.to_numpy("out"), node.y.cpu().numpy())
+    card, cpu = outs[str(cuda)], outs["cpu"]
+    if case == "lif":
+        assert cpu[0].max() > 0.0, "no spikes -- weak test"
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4, atol=1e-3)

@@ -178,6 +178,11 @@ def test_unported_network_features_raise():
         tnet.add_edge("inp", "qif", train="rls")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnet.run(np.zeros((5, 1)), truncate_steps=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.add_diffeq_node("q2", QIF_SFA, input_var="I_ext", output_var="s", N=4,
-                             spike_var="spike", reset_var="v", reset=False)
+    # SpikeNet (reset=False) is ported; a circuit of mixed templates is not
+    from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate
+
+    mixed = CircuitTemplate("c", {"a": NodeTemplate.from_yaml(QIF_SFA),
+                                  "b": NodeTemplate.from_yaml(QIF_SFA.replace("qif_sfa", "qif"))})
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        tnet.add_diffeq_node("q2", mixed, input_var="I_ext", output_var="s",
+                             spike_var="spike", reset_var="v")

@@ -179,12 +179,17 @@ def test_set_param_and_getitem():
 
 
 def test_unported_node_features_raise():
+    # Heun/RK4 and MultiSpikeResetNet are ported (test_torch_nodes_spiking.py);
+    # on these paths the int4 and bfloat16_master couplings still raise
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RateNet.from_pyrates(LI_TANH, input_var="li_op/I_ext", output_var="li_op/v", n=3,
-                             integrator="heun", device="cpu")
+        RateNet.from_pyrates(LI_TANH, input_var="li_op/I_ext", output_var="li_op/v",
+                             weights=np.eye(3), source_var="tanh_op/r", target_var="li_op/r_in",
+                             integrator="heun", coupling_dtype="int4", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpikeResetNet.from_pyrates(QIF, input_var="I_ext", output_var="s", n=3,
-                                   spike_var=["spike"], reset_var=["v"], device="cpu")
+        SpikeResetNet.from_pyrates(QIF, input_var="I_ext", output_var="s", weights=np.eye(3),
+                                   source_var="s", target_var="s_in", spike_var=["spike"],
+                                   reset_var=["v"], coupling_dtype="bfloat16_master",
+                                   device="cpu")
 
 
 @pytest.mark.parametrize("spec,expect", [(None, torch.float32), ("float64", torch.float64),
