@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. device: the card's name and power limit (nvidia-smi), PyTorch and CUDA.
-2. build: compiles the CUDA kernels from rectipy_tpu_torch/csrc/ and the
+2. build: compiles the four CUDA sources of rectipy_tpu_torch/csrc/ and the
    generic fused step's generated sources (one per template structure this
    script attaches, into rectipy_tpu_torch/_build/gen/) with nvcc (sm_90a),
    one nvcc per source, all started together, and prints the compile times
@@ -30,8 +30,8 @@
    against their plain versions at the training path's shapes.
 8. train_path: bench.py's north-star training (QIF SpikeResetNet, N =
    10,000, T = 500, dt = 5e-3, int8_master coupling, adam lr 1e-4, 16
-   epochs) through Network.fit_bptt with RECTIPY_FUSED_ADAM=on: one warm
-   fit and two timed fits; the launch counts must be 16 adam_requant and
+   epochs) through Network.fit_bptt with RECTIPY_FUSED_ADAM=on: a 2-epoch
+   warm fit and one timed fit; the launch counts must be 16 adam_requant and
    8,000 of each int8 matvec per fit, the losses finite.
 9. train_split_vs_fused: 4 epochs with RECTIPY_FUSED_ADAM=off and =on on
    fresh networks: epoch 0's loss equal, later ones within rtol 1e-4.
@@ -62,6 +62,36 @@ Phases 11-14 (run after phase 6, while the main path's networks exist):
    (two f32 couplings through CircuitTemplate) over 2,000 steps.
 The kernels line lists the instances that phases 12-14 ran.
 
+Phases 15-17 (after phase 14; the int4 couplings and the packed-int4 kernels
+of csrc/int4_matvec.cu, the counterpart of benchmarks/i4pack_microbench.py):
+
+15. int4_kernel_check: int4_mv and int4_mv_t against their plain versions
+   on the card, bit for bit: (a) on the packed W that the int4 path's
+   network made in its own prep (N = 10,000); (b) the microbenchmark's own
+   case at its N = 14,336 (weights in [-8, 7], x in [-127, 127], seed 0),
+   also equal to x @ wt in float64; (c) a 1,001 x 999 shape with unpadded
+   500-byte rows, which takes the scalar instantiations.
+16. int4_path: the main path's network (phase 4) without a fused kernel,
+   with coupling_dtype="int4" and, in turns, "int8" (bench.py's default),
+   20,000 steps through Network.run, int4 best of 3 and int8 of 2 in
+   turns; one int4_mv (or int8_mv) launch per step, finite records, the correlation of the int4 and int8
+   records, each path's device-only step and idle share; then the same int4
+   network on the CPU over 200 steps, held to the card's run under
+   fused_vs_plain's rule (int4_path_vs_cpu).
+17. int4_timing: at N = 10,000 and 14,336, each int4 kernel's ms, bytes,
+   bound and achieved bytes/s, its plain version's ms on the card and
+   int8_mv/int8_mv_t on the same integers (the microbenchmark's A/B).
+
+Phases 18-19 (after phase 10, on the training path's data):
+
+18. int4_train_path: phase 8's network with coupling_dtype="int4_master":
+   one warm and one timed 16-epoch fit; 8,000 launches each of int4_mv and
+   int4_mv_t per fit, none of the int8 kernels or adam_requant; finite
+   losses; ms/epoch and trained neuron-updates/s.
+19. bf16_master_train_path: the same network with "bfloat16_master", 4
+   epochs (no hand-written kernel: bf16 x bf16 products with float32 sums
+   as a PyTorch matvec, as the JAX package leaves them to XLA).
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -84,17 +114,23 @@ STEPS = 20_000
 PLAIN_STEPS = 2_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
+INT8_OPS = 1979e12  # H100 SXM data sheet, int8 (the int4 weights multiply as int8 bytes)
 QIF_SFA = "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa"
 QIF = "rectipy_tpu_torch.models.spiking_neurons.qif.qif"
 LIF = "rectipy_tpu_torch.models.spiking_neurons.lif.lif"
 TANH = "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh"
 KERNEL_SOURCE = "rectipy_tpu_torch/csrc/qif_sfa_step.cu"
 TPU_KERNEL = "rectipy_tpu/ops/kernels.py:53"
-SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant")
+SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant", "int4_matvec")
 GENERIC_SOURCE = "rectipy_tpu_torch/csrc/generic_fused_step.cuh"
 GENERIC_TPU_KERNEL = "rectipy_tpu/ops/generic_fused.py:46"
+I4_SOURCE = "rectipy_tpu_torch/csrc/int4_matvec.cu"
+I4_TPU_KERNEL = "benchmarks/i4pack_microbench.py:54"
+N_I4PACK = 14_336  # i4pack_microbench.py's default N
+CPU_STEPS = 200  # the int4 path's CPU comparison window
 # the training path: bench.py:331-370
 T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 16, 1e-4
+WARM_EPOCHS = 2  # the int8_master path's warm fit
 SPLIT_VS_FUSED_RTOL = 1e-4
 # kernel vs plain on the card, (rtol, atol), for the two input cases of the
 # kernel check; W is the main path's in both.  Both W types take the same
@@ -133,7 +169,9 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` back-to-back calls.
 
     The card first spins for ~0.1 s while the host queues every call, so the
-    events time the device work alone, not the host's launch rate."""
+    events time the device work alone, not the host's launch rate.  The
+    calls must fit the device's launch queue (about a thousand kernels), or
+    the host blocks until the spin ends."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -166,14 +204,14 @@ def bench_training_data(n: int):
     return W, etas, inp, tgt
 
 
-def build_train_net(W, etas, device=None):
+def build_train_net(W, etas, device=None, coupling="int8_master"):
     from rectipy_tpu_torch import Network
 
     net = Network(DT_TRAIN, device=device)  # default: the current CUDA device; float32
     net.add_diffeq_node("qif", QIF, weights=W, source_var="s", target_var="s_in",
                         input_var="I_ext", output_var="s", op="qif_op", spike_var="spike",
                         spike_def="v", spike_threshold=1e2, spike_reset=-1e2,
-                        node_vars={"all/qif_op/eta": etas}, coupling_dtype="int8_master",
+                        node_vars={"all/qif_op/eta": etas}, coupling_dtype=coupling,
                         train_params=["weights"])
     net.compile()
     return net
@@ -221,9 +259,10 @@ def profile_device_time(fn):
     return sum(r[1] for r in rows) / 1e3, top
 
 
-def train_phases(dev) -> list:
-    """Phases 7-10: the training path and its three kernels.  Returns their
-    entries of the ``kernels`` line."""
+def train_phases(dev, data) -> list:
+    """Phases 7-10: the training path and its three kernels, on
+    ``bench_training_data``'s ``data`` (and the seconds it took to make).
+    Returns their entries of the ``kernels`` line."""
     from rectipy_tpu_torch.ops import bptt
     from rectipy_tpu_torch.ops.fused_opt import (adam_requant, adam_requant_plain,
                                                  bias_corrections)
@@ -232,9 +271,7 @@ def train_phases(dev) -> list:
 
     from rectipy_tpu_torch.testing import ADAM_KW, ADAM_RTOL, adam_inputs, check_adam_requant
 
-    t0 = time.perf_counter()
-    W_np, etas, inp, tgt = bench_training_data(N)
-    data_s = time.perf_counter() - t0
+    W_np, etas, inp, tgt, data_s = data
 
     # ------------------------------------------------ 7. train kernel check
     W = torch.as_tensor(W_np, dtype=torch.float32, device=dev)
@@ -274,28 +311,24 @@ def train_phases(dev) -> list:
     t0 = time.perf_counter()
     net = build_train_net(W_np, etas)
     build_s = time.perf_counter() - t0
-    warm_s, warm_losses = fit(net, inp_d, tgt_d, EPOCHS, "on")
-    runs, counts = [], []
+    # a short warm fit, then one timed fit (the run's time limit)
+    warm_s, warm_losses = fit(net, inp_d, tgt_d, WARM_EPOCHS, "on")
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        int8_mv.launches = int8_mv_t.launches = adam_requant.launches = 0
-        seconds, losses = fit(net, inp_d, tgt_d, EPOCHS, "on")
-        counts.append((adam_requant.launches, int8_mv.launches, int8_mv_t.launches))
-        runs.append((seconds, losses))
-    for c in counts:
-        if c != (EPOCHS, EPOCHS * T_TRAIN, EPOCHS * T_TRAIN):
-            raise AssertionError(f"launch counts (adam_requant, int8_mv, int8_mv_t) {c}; "
-                                 f"expected ({EPOCHS}, {EPOCHS * T_TRAIN}, {EPOCHS * T_TRAIN})")
+    int8_mv.launches = int8_mv_t.launches = adam_requant.launches = 0
+    seconds, losses = fit(net, inp_d, tgt_d, EPOCHS, "on")
+    launches = {"adam_requant": adam_requant.launches, "int8_mv": int8_mv.launches,
+                "int8_mv_t": int8_mv_t.launches}
+    want = {"adam_requant": EPOCHS, "int8_mv": EPOCHS * T_TRAIN, "int8_mv_t": EPOCHS * T_TRAIN}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}; expected {want}")
     if net.last_fit != {"trajectory": "chain", "fused_adam": True}:
         raise AssertionError(f"the fit did not take the fused path: {net.last_fit}")
-    best = min(r[0] for r in runs) / EPOCHS
-    launches = {"adam_requant": counts[0][0], "int8_mv": counts[0][1], "int8_mv_t": counts[0][2]}
+    best = seconds / EPOCHS
     emit({"phase": "train_path", "n": N, "T": T_TRAIN, "epochs": EPOCHS, "coupling": "int8_master",
           "fused_adam": "on", "build_s": build_s, "warm_fit_s": warm_s,
-          "fit_s": [r[0] for r in runs], "ms_per_epoch": best * 1e3,
+          "warm_epochs": WARM_EPOCHS, "fit_s": seconds, "ms_per_epoch": best * 1e3,
           "trained_neuron_updates_per_s": T_TRAIN * N / best, "launches_per_fit": launches,
-          "first_loss": warm_losses[0], "last_loss": runs[-1][1][-1],
-          "losses_last_fit": runs[-1][1],
+          "first_loss": warm_losses[0], "last_loss": losses[-1], "losses_timed_fit": losses,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
     # ----------------------------------------------- 9. split vs fused
@@ -372,10 +405,10 @@ def train_phases(dev) -> list:
     specs = [
         ("int8_mv", "rectipy_tpu_torch/csrc/int8_matvec.cu", "rectipy_tpu/ops/quant.py:65",
          lambda: int8_mv(wq, xq, ws, xs), lambda: (int8_dot_plain(wq, xq) * ws) * xs,
-         N * N + N + 4 * N + 4 + 4 * N, 2 * N * N + 2 * N, 1979e12, 0.0),
+         N * N + N + 4 * N + 4 + 4 * N, 2 * N * N + 2 * N, INT8_OPS, 0.0),
         ("int8_mv_t", "rectipy_tpu_torch/csrc/int8_matvec.cu", "rectipy_tpu/ops/quant.py:73",
          lambda: int8_mv_t(wq, vq, vs), lambda: int8_dot_t_plain(wq, vq) * vs,
-         N * N + N + 4 + 4 * N, 2 * N * N + N, 1979e12, 0.0),
+         N * N + N + 4 + 4 * N, 2 * N * N + N, INT8_OPS, 0.0),
         ("adam_requant", "rectipy_tpu_torch/csrc/adam_requant.cu",
          "rectipy_tpu/ops/fused_opt.py:88",
          lambda: adam_requant(w, m, v, g, bc1, bc2, lr, **ADAM_KW),
@@ -534,14 +567,17 @@ def generic_instance(name: str, node, w_dtype, seed: int, launches: int, case: s
     return entry
 
 
-def device_step_ms(net, x) -> float:
+def device_step_ms(net, x, reps: int = 50) -> float:
     """The network's whole step with input ``x`` timed on the device alone
-    (no host gaps), as phase 6 times the main path's; 50 steps, so that the
-    host queues them within cuda_ms's spin even at 1 ms of host time each."""
+    (no host gaps), as phase 6 times the main path's, on the parameters as
+    ``Network.run`` preps them; ``reps`` steps, so that the host queues them
+    within cuda_ms's spin even at 1 ms of host time each.  A plain lowered
+    step (no fused kernel) launches about 75 kernels: 8 steps keep it within
+    the launch queue."""
     step = net.make_step()
-    state, params = net.init_state(), net.parameters_pytree()
+    state, params = net.init_state(), net._prep_params(net.parameters_pytree())
     with torch.no_grad():
-        return cuda_ms(lambda: step(state, params, x), reps=50)
+        return cuda_ms(lambda: step(state, params, x), reps=reps)
 
 
 def generic_phases(W_np, build_net, spec_net) -> list:
@@ -684,22 +720,265 @@ def generic_phases(W_np, build_net, spec_net) -> list:
     return entries
 
 
-def unported_bounds() -> dict:
-    """The H100 bound of each TPU kernel not ported yet, from its shapes
-    (bytes each input read once and each output written once, over
-    HBM_BYTES_PER_S; the operations over the peak of their type)."""
-    # benchmarks/i4pack_microbench.py:95 at its default N = 14,336: the
-    # packed (N/2, N) uint8 coupling, x_even/x_odd (N/2 f32 each), y (N f32);
-    # the products run in bf16 on the tensor cores (989e12/s)
-    n4 = 14_336
-    i_bytes = n4 // 2 * n4 + 2 * 4 * (n4 // 2) + 4 * n4
-    i_ops = 2 * n4 * n4
-    out = {"phase": "unported_bounds"}
-    for name, n_bytes, n_ops, peak in (("i4pack_matvec", i_bytes, i_ops, 989e12),):
-        t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / peak
-        out[name] = {"bytes": n_bytes, "ops": n_ops, "bound_ms": max(t_b, t_o) * 1e3,
-                     "bound_by": "bytes" if t_b >= t_o else "operations"}
-    return out
+def int4_check(case: str, wp, ws, xq, xs, vq, vs, n_in: int, exact=None,
+               report: dict = None) -> dict:
+    """Hold int4_mv and int4_mv_t on (wp, ...) to their plain versions on the
+    card, bit for bit (integer sums are exact in any order), and, where
+    ``exact`` gives the float64 products ``(W @ xq, W.T @ vq)``, to those.
+    Prints one ``int4_kernel_check`` line and returns it."""
+    from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv,
+                                             int4_mv_t, int4_vector_path)
+
+    before = (int4_mv.launches, int4_mv_t.launches)
+    out, out_t = int4_mv(wp, xq, ws, xs), int4_mv_t(wp, vq, vs, n_in)
+    torch.cuda.synchronize()
+    if (int4_mv.launches, int4_mv_t.launches) != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"int4_kernel_check ({case}): the kernels were not launched")
+    ref, ref_t = (int4_dot_plain(wp, xq) * ws) * xs, int4_dot_t_plain(wp, vq, n_in) * vs
+    if not (torch.equal(out, ref) and torch.equal(out_t, ref_t)):
+        raise AssertionError(f"int4_kernel_check ({case}): a kernel differs from its plain "
+                             f"version")
+    if not (bool((out != 0).any()) and bool((out_t != 0).any())):
+        raise AssertionError(f"int4_kernel_check ({case}): vacuous, all outputs are zero")
+    line = {"phase": "int4_kernel_check", "case": case, "shape": [int(wp.shape[0]), n_in],
+            "row_bytes": int(wp.shape[1]),
+            "path": "vector" if int4_vector_path(wp, xq) else "scalar",
+            "bit_identical_to_plain": True, **(report or {})}
+    if exact is not None:
+        same = (torch.equal(out.double(), exact[0]) and torch.equal(out_t.double(), exact[1]))
+        if not same:
+            raise AssertionError(f"int4_kernel_check ({case}): not equal to the float64 product")
+        line["equal_to_float64_product"] = True
+    emit(line)
+    return line
+
+
+def int4_phases(W_np, build_net) -> tuple:
+    """Phases 15-17: the int4 kernels against their plain versions, the int4
+    path (the main path's network with coupling_dtype="int4", in turns with
+    "int8"), and their timing.  Returns (the int4_mv entry of the ``kernels``
+    line, the N=10,000 timing of int4_mv_t for the training path's entry)."""
+    from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv,
+                                             int4_mv_t, int8_mv, int8_mv_t, pack_int4,
+                                             quant_vec, unpack_int4)
+
+    dev = torch.device("cuda", 0)
+    # --------------------------------------------- 15. int4 kernel check
+    # (a) the packed W that the int4 path's network made in its own prep
+    t0 = time.perf_counter()
+    nets = {c: build_net(c, fused=False) for c in ("int4", "int8")}
+    build_s = time.perf_counter() - t0
+    node = nets["int4"].get_node("qif")
+    wp10, ws10 = node.prep_params(node.args)["weights__q4"], node.args["weights__scale"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xq10, xs10 = quant_vec(torch.rand(N, generator=gen, device=dev))  # s-like, in [0, 1]
+    vq10, vs10 = quant_vec(torch.randn(N, generator=gen, device=dev))
+    int4_check("int4_path_network", wp10, ws10, xq10, xs10, vq10, vs10, N)
+    # (b) i4pack_microbench.py:122-131 at its N: weights in [-8, 7] and x in
+    # [-127, 127] from seed 0, against x @ wt (and wt @ x) in float64
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    wt = rng.integers(-8, 8, size=(N_I4PACK, N_I4PACK)).astype(np.int8)
+    x = rng.integers(-127, 128, size=N_I4PACK).astype(np.int8)
+    data_s = time.perf_counter() - t0
+    w14 = torch.as_tensor(wt).to(dev).T.contiguous()  # row j of W = column j of wt
+    del wt
+    wp14, x14 = pack_int4(w14), torch.as_tensor(x).to(dev)
+    w64, x64 = w14.double(), x14.double()
+    exact = (torch.mv(w64, x64), torch.mv(w64.T, x64))
+    del w64
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    ones14 = torch.ones(N_I4PACK, dtype=torch.float32, device=dev)
+    int4_check("i4pack_microbench", wp14, ones14, x14, one, x14, one, N_I4PACK, exact=exact,
+               report={"data_s": data_s})
+    # (c) an odd shape with unpadded rows (500 bytes, off the 16-byte grid):
+    # the scalar instantiations
+    g = torch.Generator(device=dev).manual_seed(6)
+    w_odd = torch.randint(-8, 8, (1001, 999), generator=g, device=dev, dtype=torch.int8)
+    wp_odd = pack_int4(w_odd)[:, :500].contiguous()
+    xq_o, xs_o = quant_vec(torch.randn(999, generator=g, device=dev))
+    vq_o, vs_o = quant_vec(torch.randn(1001, generator=g, device=dev))
+    line = int4_check("odd_unpadded", wp_odd, torch.rand(1001, generator=g, device=dev) + 0.5,
+                      xq_o, xs_o, vq_o, vs_o, 999)
+    if line["path"] != "scalar":
+        raise AssertionError("int4_kernel_check (odd_unpadded) did not take the scalar path")
+
+    # ------------------------------------------------------ 16. int4 path
+    run_kw = dict(record_output=False, record_vars=[("qif", "s", True)], sampling_steps=100,
+                  verbose=False)
+    inputs = bench_inputs(STEPS)
+    counters = {"int4": int4_mv, "int8": int8_mv}
+
+    def path_run(c):
+        int4_mv.launches = int8_mv.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = nets[c].run(inputs, **run_kw).to_numpy(("qif", "s"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters.items()}
+        if launches != {k: (STEPS if k == c else 0) for k in counters}:
+            raise AssertionError(f"int4_path ({c}): launches {launches} for {STEPS} steps")
+        if rec.shape != (STEPS // 100,) or not np.all(np.isfinite(rec)):
+            raise AssertionError(f"int4_path ({c}): bad records, shape {rec.shape}")
+        return seconds, rec, launches[c]
+
+    runs, recs, launches = {"int4": [], "int8": []}, {}, {}
+    # in turns, int4 best of 3 and int8 of 2 (the run's time limit); the
+    # kernels were built and run in phase 15
+    for c in ("int4", "int8", "int4", "int8", "int4"):
+        nets[c].reset()
+        seconds, recs[c], launches[c] = path_run(c)
+        runs[c].append(seconds)
+    corr = float(np.corrcoef(recs["int4"], recs["int8"])[0, 1])
+    x_t = torch.full((1,), 3.0, device=dev)
+    dev_ms = {c: device_step_ms(nets[c], x_t, reps=8) for c in ("int4", "int8")}
+    for c in ("int4", "int8"):
+        best = min(runs[c])
+        emit({"phase": "int4_path", "coupling": c, "n": N, "steps": STEPS,
+              "kernel": counters[c].__name__, "kernel_launches": launches[c],
+              "build_s_both": build_s, "run_s": runs[c],
+              "best_s": best, "ms_per_step": best / STEPS * 1e3,
+              "neuron_updates_per_s": STEPS * N / best, "device_step_ms": dev_ms[c],
+              "device_idle_share": 1.0 - dev_ms[c] / (best / STEPS * 1e3),
+              "mean_s_range": [float(recs[c].min()), float(recs[c].max())],
+              "corr_int4_vs_int8_records": corr})
+    # the same int4 network on the CPU over a short window from the card's
+    # state after its last run (the population is spiking by then), held to
+    # the card's run from that state under fused_vs_plain's rule
+    y_end = nets["int4"].get_node("qif").y.detach().cpu().numpy()
+    t0 = time.perf_counter()
+    cpu_net = build_net("int4", fused=False, device="cpu")
+    cpu_build_s = time.perf_counter() - t0
+    cmp_kw = dict(record_output=False, record_vars=[("qif", "s", True)], sampling_steps=10,
+                  verbose=False)
+    short = bench_inputs(CPU_STEPS)
+    cmp, cmp_s = {}, {}
+    for name, net in (("card", nets["int4"]), ("cpu", cpu_net)):
+        net.reset({"qif": y_end})
+        t0 = time.perf_counter()
+        cmp[name] = net.run(short, **cmp_kw).to_numpy(("qif", "s"))
+        cmp_s[name] = time.perf_counter() - t0
+    ref, got = cmp["cpu"], cmp["card"]
+    max_diff = float(np.abs(got - ref).max())
+    cpu_corr = float(np.corrcoef(got, ref)[0, 1]) if ref.std() > 0 else float("nan")
+    if not (cpu_corr >= 0.999 and max_diff <= 1e-2 * float(np.abs(ref).max())):
+        raise AssertionError(f"int4 card vs cpu: corr {cpu_corr}, max|diff| {max_diff}")
+    emit({"phase": "int4_path_vs_cpu", "coupling": "int4", "n": N, "steps": CPU_STEPS,
+          "records": int(ref.shape[0]), "corr": cpu_corr, "max_abs_diff": max_diff,
+          "max_abs_ref": float(np.abs(ref).max()), "cpu_build_s": cpu_build_s,
+          "card_run_s": cmp_s["card"], "cpu_run_s": cmp_s["cpu"]})
+    del cpu_net
+
+    # ---------------------------------------------------- 17. int4 timing
+    # per N: int4_mv/int4_mv_t, their plain versions, and int8_mv/int8_mv_t
+    # on the same integers (i4pack_microbench.py:170-193's A/B)
+    cases = {N: (wp10, ws10, xq10, xs10, vq10, vs10),
+             N_I4PACK: (wp14, ones14, x14, one, x14, one)}
+    timing = {}
+    for n, (wp, ws, xq, xs, vq, vs) in cases.items():
+        w_i8 = unpack_int4(wp, n).contiguous()  # the same integers, one per byte
+        rows = {}
+        for name, fn, plain, i8, i8_bytes, n_bytes in (
+                ("int4_mv", lambda: int4_mv(wp, xq, ws, xs),
+                 lambda: (int4_dot_plain(wp, xq) * ws) * xs,
+                 lambda: int8_mv(w_i8, xq, ws, xs),
+                 n * n + 9 * n + 4, n * ((n + 1) // 2) + 9 * n + 4),
+                ("int4_mv_t", lambda: int4_mv_t(wp, vq, vs, n),
+                 lambda: int4_dot_t_plain(wp, vq, n) * vs,
+                 lambda: int8_mv_t(w_i8, vq, vs),
+                 n * n + 5 * n + 4, n * ((n + 1) // 2) + 5 * n + 4)):
+            ms = cuda_ms(fn, reps=200)
+            plain_ms = cuda_ms(plain, reps=5)
+            int8_ms = cuda_ms(i8, reps=200)
+            n_ops = 2 * n * n
+            t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS
+            row = {"name": name, "n": n, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": n_bytes, "ops": n_ops, "achieved_bytes_per_s": n_bytes / (ms * 1e-3),
+                   "share_of_bound": max(t_bytes, t_ops) * 1e3 / ms,
+                   "int8_yardstick": name.replace("int4", "int8"), "int8_ms": int8_ms,
+                   "int8_bytes": i8_bytes, "int8_over_int4": int8_ms / ms,
+                   "library_ms": None,
+                   "library_ms_reason": "no PyTorch call computes an int4 matvec"}
+            rows[name] = row
+            emit({"phase": "int4_timing", **row})
+        timing[n] = rows
+        del w_i8
+    path_ms = min(runs["int4"]) / STEPS * 1e3
+    emit({"phase": "int4_timing", "int4_path_device_step_ms": dev_ms["int4"],
+          "int4_path_ms_per_step": path_ms,
+          "int4_path_device_idle_share": 1.0 - dev_ms["int4"] / path_ms,
+          "int4_mv_share_of_step": timing[N]["int4_mv"]["ms"] / path_ms})
+    del nets, w14, wp14, x14, exact
+    torch.cuda.empty_cache()
+    r = timing[N]["int4_mv"]
+    entry = {"name": "int4_mv[int4_path]", "route": "cuda", "source": I4_SOURCE,
+             "replaces": I4_TPU_KERNEL, "launches": launches["int4"], "max_abs_err": 0.0,
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": None}
+    return entry, timing[N]
+
+
+def int4_train_phases(dev, data, timing10) -> list:
+    """Phases 18-19: the training path with an int4_master coupling (one
+    warm and one timed 16-epoch fit) and with a bfloat16_master coupling (4
+    epochs).  ``timing10`` is phase 17's N=10,000 timing.  Returns the
+    int4 kernels' entries of the ``kernels`` line for this path."""
+    from rectipy_tpu_torch.ops.fused_opt import adam_requant
+    from rectipy_tpu_torch.ops.quant import int4_mv, int4_mv_t, int8_mv, int8_mv_t
+
+    W_np, etas, inp, tgt, _ = data
+    inp_d = torch.as_tensor(inp, dtype=torch.float32, device=dev)
+    tgt_d = torch.as_tensor(tgt, dtype=torch.float32, device=dev)
+    kernels = (int4_mv, int4_mv_t, int8_mv, int8_mv_t, adam_requant)
+
+    def counted_fit(net, epochs):
+        for k in kernels:
+            k.launches = 0
+        seconds, losses = fit(net, inp_d, tgt_d, epochs, "on")
+        return seconds, losses, {k.__name__: k.launches for k in kernels}
+
+    # -------------------------------------------------- 18. int4_master
+    t0 = time.perf_counter()
+    net = build_train_net(W_np, etas, coupling="int4_master")
+    build_s = time.perf_counter() - t0
+    warm_s, warm_losses, _ = counted_fit(net, EPOCHS)
+    seconds, losses, launches = counted_fit(net, EPOCHS)
+    want = {"int4_mv": EPOCHS * T_TRAIN, "int4_mv_t": EPOCHS * T_TRAIN, "int8_mv": 0,
+            "int8_mv_t": 0, "adam_requant": 0}
+    if launches != want:
+        raise AssertionError(f"int4_train_path: launches {launches}, expected {want}")
+    if net.last_fit != {"trajectory": "chain", "fused_adam": False}:
+        raise AssertionError(f"int4_train_path took {net.last_fit}")
+    emit({"phase": "int4_train_path", "n": N, "T": T_TRAIN, "epochs": EPOCHS,
+          "coupling": "int4_master", "build_s": build_s, "warm_fit_s": warm_s,
+          "fit_s": seconds, "ms_per_epoch": seconds / EPOCHS * 1e3,
+          "trained_neuron_updates_per_s": T_TRAIN * N * EPOCHS / seconds,
+          "launches_per_fit": launches, "first_loss": warm_losses[0],
+          "losses_timed_fit": losses})
+    del net
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 19. bfloat16_master
+    net = build_train_net(W_np, etas, coupling="bfloat16_master")
+    seconds, losses, launches = counted_fit(net, 4)
+    if any(launches.values()) or net.last_fit["trajectory"] != "chain":
+        raise AssertionError(f"bf16_master_train_path: launches {launches}, {net.last_fit}")
+    emit({"phase": "bf16_master_train_path", "n": N, "T": T_TRAIN, "epochs": 4,
+          "coupling": "bfloat16_master", "fit_s": seconds, "ms_per_epoch": seconds / 4 * 1e3,
+          "trained_neuron_updates_per_s": T_TRAIN * N * 4 / seconds, "losses": losses})
+    del net
+    torch.cuda.empty_cache()
+    entries = []
+    for name in ("int4_mv", "int4_mv_t"):
+        r = timing10[name]
+        entries.append({"name": f"{name}[int4_train_path]", "route": "cuda", "source": I4_SOURCE,
+                        "replaces": I4_TPU_KERNEL, "launches": want[name], "max_abs_err": 0.0,
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    return entries
 
 
 def main() -> int:
@@ -793,8 +1072,8 @@ def main() -> int:
             emit(line)
 
     # ---------------------------------------------------------- 4. main path
-    def build_net(coupling: str, fused: bool):
-        net = Network(DT)  # the current CUDA device
+    def build_net(coupling: str, fused: bool, device=None):
+        net = Network(DT, device=device)  # default: the current CUDA device
         net.add_diffeq_node(
             "qif", QIF_SFA, weights=W_np, source_var="s", target_var="s_in",
             input_var="I_ext", output_var="s", spike_var="spike", spike_def="v",
@@ -909,8 +1188,15 @@ def main() -> int:
     kernels += generic_phases(W_np, build_net, nets["bfloat16"])
     del nets, fused
     torch.cuda.empty_cache()
-    kernels += train_phases(dev)
-    emit(unported_bounds())
+    entry, timing10 = int4_phases(W_np, build_net)
+    kernels.append(entry)
+    del W_np
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data = bench_training_data(N)
+    data_s = time.perf_counter() - t0
+    kernels += train_phases(dev, data + (data_s,))
+    kernels += int4_train_phases(dev, data + (data_s,), timing10)
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -21,10 +21,15 @@ __all__ = ["load_jax_params"]
 # (the generic step); rebuilt here, never copied
 _JAX_DERIVED = ("__wt_pad__", "__eta_pad__")
 _JAX_DERIVED_PREFIXES = ("__wt_pad_", "__row_")
+# the once-per-run prepped forms of a coupling (dsl/lower.py prep_args): the
+# quantized master ('__q', '__qs'), the packed int4 carrier ('__q4') and the
+# bf16-rounded master ('__bf16'); rebuilt by every run, never copied
+_PREPPED_SUFFIXES = ("__q", "__qs", "__q4", "__bf16")
 
 
 def _jax_derived(key: str) -> bool:
-    return key in _JAX_DERIVED or key.startswith(_JAX_DERIVED_PREFIXES)
+    return (key in _JAX_DERIVED or key.startswith(_JAX_DERIVED_PREFIXES)
+            or key.endswith(_PREPPED_SUFFIXES))
 
 
 def _numpy(val) -> np.ndarray:
@@ -66,16 +71,19 @@ def _unpad_state(y: np.ndarray, n_state: int, jax_node_params: dict) -> np.ndarr
 def load_jax_params(net, params: dict, state: dict = None) -> None:
     """Write a JAX network's ``parameters_pytree()`` (and optionally its
     ``init_state()``), as nested dicts of numpy arrays, into the port
-    network ``net`` built the same way.  That covers quantized couplings
-    (the float master ``weights`` of an ``int8_master`` node; the int8
-    ``weights`` and their ``weights__scale`` of a frozen ``int8`` node) and
-    trainable ``Linear`` edges.
+    network ``net`` built the same way.  That covers every dense coupling:
+    the float master ``weights`` of a ``bfloat16_master``, ``int8_master``
+    or ``int4_master`` node, the int8 ``weights`` (for ``int4``, the int8
+    carrier of [-7, 7]) and their ``weights__scale`` of a frozen ``int8`` or
+    ``int4`` node, and trainable ``Linear`` edges.
 
     Keys the port does not have raise ``KeyError``.  The padded copies of a
     JAX network with a fused step attached (``__wt_pad__``, ``__eta_pad__``,
     ``__wt_pad_{c}__``, ``__row_{k}__``) are not copied: a port node with a
     fused kernel attached rebuilds its own copies from the couplings and
-    parameters.  A padded fused state is unpadded.
+    parameters.  Nor are the prepped forms of a coupling (``__q``,
+    ``__qs``, ``__q4``, ``__bf16``), which every run rebuilds.  A padded
+    fused state is unpadded.
     """
     net.compile()
     for label, sub in params.get("nodes", {}).items():

@@ -8,15 +8,23 @@ axis.  The result is ``f(t, y, args) -> dy`` on torch tensors, with the same
 ``read_var`` and ``alg_vars`` as the JAX lowering, so parameters and states
 carry across one to one (``rectipy_tpu_torch.convert``).
 
-Couplings: dense float32/float64 (``w @ src``); reduced-precision dense
-float16/bfloat16, where both W and the source are cast to the coupling type
-and the products are summed in float32; ``'int8_master'`` (a float master
-under ``weights``, quantized per row once per run or trajectory, int8
-matvecs with STE gradients, ``ops/quant.py``); and frozen ``int8`` (the
-weights quantized at build into ``weights`` (int8) and ``weights__scale``).
-The int4, ``bfloat16_master`` and block-sparse couplings of the JAX package
-are not ported yet (ROADMAP Queue 1 items 5 and 10) and raise
-``NotImplementedError``.
+Couplings, every dense type of the JAX package:
+- float32/float64 (``w @ src``);
+- reduced-precision float16/bfloat16, where both W and the source are cast
+  to the coupling type and the products are summed in float32;
+- ``'bfloat16_master'`` (``'bf16_master'``): a float master under
+  ``weights``, its matvec a bfloat16 one as above, gradients through the
+  cast to the master;
+- ``'int8_master'`` and ``'int4_master'``: a float master under ``weights``,
+  quantized per row to [-127, 127] or [-7, 7] once per run or trajectory,
+  the int8/int4 matvecs of ``ops/quant.py`` with STE gradients;
+- frozen ``int8`` and ``'int4'``: the weights quantized at build into
+  ``weights`` (int8, or an int8 carrier of [-7, 7]) and ``weights__scale``;
+  the source is STE-rounded to int8 by ``max|src|/127`` in its own dtype,
+  so gradients reach the source (not the frozen weights).
+The int4 products run on weights packed two per byte (``ops/quant.py``
+``pack_int4``).  Block-sparse couplings are not ported yet (ROADMAP Queue 1
+item 10) and raise ``NotImplementedError``.
 
 Besides ``func``, the lowering gives the deferred-gradient trajectories
 (``ops/bptt.py``) and the generic fused step (``ops/generic_fused.py``)
@@ -24,8 +32,10 @@ Besides ``func``, the lowering gives the deferred-gradient trajectories
 outside), ``tile_local`` (no population reductions), ``tile_program`` (the
 same field as plain data, for the CUDA emitter ``dsl/cuda.py``),
 ``state_order``, ``make_tile_reader`` and ``coupling_cast``, and the
-inference runs ``prep_args`` (the once-per-run requantization of an
-``int8_master`` coupling).
+inference runs ``prep_args``: the once-per-run quantization of a master
+(``__q``/``__qs``), the packing of a frozen int4 carrier (``__q4``) and the
+bfloat16 rounding of a ``bfloat16_master`` (``__bf16``), each under the
+coupling's key with that suffix.
 """
 
 from __future__ import annotations
@@ -39,9 +49,8 @@ import torch
 from .expr import CONSTANTS, evaluate, free_symbols, split_equation
 from .parser import NodeTemplate, OperatorTemplate, TemplateError, _strip_node_prefix
 
-_QUANT_TODO = ("ROADMAP Queue 1 item 5 (the int4 and bfloat16_master couplings) is not "
-               "ported yet; use coupling_dtype=None, 'float32', 'bfloat16', 'int8' or "
-               "'int8_master'.")
+_COUPLINGS = ("None, 'float32', 'float64', 'float16', 'bfloat16', 'bfloat16_master', "
+              "'int8', 'int8_master', 'int4' or 'int4_master'")
 
 
 @dataclass
@@ -102,8 +111,8 @@ class VectorField:
     state_order: List[str] = field(default_factory=list)  # state var qnames, y layout order
     make_tile_reader: Optional[Callable] = None
     couplings: List[Tuple[str, str, str]] = field(default_factory=list)  # (src, tgt, wkey)
-    coupling_cast: Optional[str] = None  # 'int8' for int8_master couplings
-    prep_args: Optional[Callable] = None  # once-per-run prep of int8_master couplings
+    coupling_cast: Optional[str] = None  # 'bf16' / 'int8' / 'int4' for the master couplings
+    prep_args: Optional[Callable] = None  # once-per-run prep of the couplings
 
 
 def _qualify(name: str, ops: List[OperatorTemplate]) -> str:
@@ -137,22 +146,53 @@ def _float_matvec(w: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return torch.mv(w, src)
 
 
-def _frozen_int8_matvec(wq: torch.Tensor, scale: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Frozen int8 coupling (the JAX lowering's int8 branch): the source is
-    scaled by ``max|src|/127`` in its own dtype and rounded to int8, the int8
-    product sums exactly, and the result is ``(float32(sum) * scale) * s_scale``
-    with the last product in the source's dtype.  Inference only: the JAX
-    package's straight-through gradient for the source is not ported."""
-    from ..ops.quant import int8_mv
+class _FrozenQuantDot(torch.autograd.Function):
+    """``float32(sum_j W[i, j] * round(scaled)[j]) * scale[i]`` of a frozen
+    int8/int4 coupling, as a function of the scaled source.  The forward
+    rounds ``scaled`` to int8 and runs ``mv`` (``int8_mv`` on the int8
+    weights, ``int4_mv`` on the packed ones); the backward is the
+    straight-through estimator of the JAX lowering (``_int8_matvec`` /
+    ``_int4_matvec``'s JVP, transposed): ``W^T @ (g * scale)`` with the int8
+    carrier ``wq`` in the source's dtype."""
 
-    if torch.is_grad_enabled() and src.requires_grad:
-        raise NotImplementedError(
-            "Gradients through a frozen int8 coupling are not ported yet (ROADMAP Queue 1 "
-            "item 5); train with coupling_dtype=None, 'float32' or 'int8_master'.")
-    s_scale = torch.clamp_min(src.abs().amax(), 1e-30) / 127.0
-    xq = torch.clamp(torch.round(src / s_scale), -127, 127).to(torch.int8)
-    one = torch.ones((), dtype=torch.float32, device=src.device)
-    return int8_mv(wq, xq, scale, one).to(src.dtype) * s_scale
+    @staticmethod
+    def forward(ctx, scaled, wq, w_mv, scale, mv):
+        ctx.save_for_backward(wq, scale)
+        ctx.dtype = scaled.dtype
+        xq = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
+        one = torch.ones((), dtype=torch.float32, device=scaled.device)
+        return mv(w_mv, xq, scale, one)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, scale = ctx.saved_tensors
+        dscaled = torch.mv(wq.to(ctx.dtype).T, (g * scale).to(ctx.dtype))
+        return dscaled, None, None, None, None
+
+
+def _frozen_quant_matvec(wq: torch.Tensor, w_mv: torch.Tensor, scale: torch.Tensor,
+                         src: torch.Tensor, mv) -> torch.Tensor:
+    """Frozen int8/int4 coupling (the JAX lowering's int8 and int4
+    branches): the source is scaled by ``max|src|/127`` in its own dtype and
+    rounded to int8, the integer product sums exactly, and the result is
+    ``(float32(sum) * scale) * s_scale`` with the last product in the
+    source's dtype.  The source's gradient is straight-through; the scale
+    ``s_scale`` takes none."""
+    s_scale = torch.clamp_min(src.detach().abs().amax(), 1e-30) / 127.0
+    return _FrozenQuantDot.apply(src / s_scale, wq, w_mv, scale, mv).to(src.dtype) * s_scale
+
+
+def _bf16_values(w: torch.Tensor) -> torch.Tensor:
+    """``w`` rounded to bfloat16 and held in float32, where a product of two
+    such values is exact: a float32 matvec of them is the bfloat16 matvec
+    with float32 sums, without a cast of ``w`` per step."""
+    return w.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_matvec(wb: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The ``bfloat16_master`` matvec on ``wb = _bf16_values(w)``: the
+    source rounded to bfloat16, the products summed in float32."""
+    return torch.mv(wb, src.to(torch.bfloat16).to(torch.float32)).to(src.dtype)
 
 
 def _broadcast(value, n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -216,12 +256,18 @@ def lower(
     if not ops:
         raise TemplateError(f"Node template {node.name!r} has no operators")
 
-    master_int8 = coupling_dtype == "int8_master"
-    if isinstance(coupling_dtype, str) and not master_int8:
-        raise NotImplementedError(f"coupling_dtype={coupling_dtype!r}: {_QUANT_TODO}")
-    if not master_int8 and coupling_dtype is not None and coupling_dtype not in (
-            torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int8):
-        raise NotImplementedError(f"coupling_dtype={coupling_dtype!r}: {_QUANT_TODO}")
+    # the string couplings: float masters ('bf16', 'int8', 'int4' casts) and
+    # the frozen int4 carrier; a torch dtype otherwise
+    cast = {"bfloat16_master": "bf16", "bf16_master": "bf16", "int8_master": "int8",
+            "int4_master": "int4"}.get(coupling_dtype) if isinstance(coupling_dtype, str) else None
+    int4_frozen = coupling_dtype == "int4"
+    if isinstance(coupling_dtype, str) and cast is None and not int4_frozen:
+        raise ValueError(f"coupling_dtype={coupling_dtype!r} is not a coupling type; use "
+                         f"{_COUPLINGS}.")
+    if not isinstance(coupling_dtype, str) and coupling_dtype not in (
+            None, torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int8):
+        raise ValueError(f"coupling_dtype={coupling_dtype!r} is not a coupling type; use "
+                         f"{_COUPLINGS}.")
 
     def _as_matrix(w):
         if hasattr(w, "blocks"):
@@ -352,68 +398,79 @@ def lower(
                 args[qname] = _vectorize(base, lv.default).expand(n).contiguous()
             keys.append(qname)
             input_vars.append(qname)
-    # 'int8_master': a float master (the network's dtype) is stored and
-    # trained; the int8 quantization happens once per run (prep_args) or per
-    # trajectory (ops/bptt.py).  Frozen 'int8': quantized here, once.
-    w_dtype = dtype if master_int8 else (coupling_dtype or dtype)
-    int8_coupling = w_dtype == torch.int8
-    master_dense_keys: List[str] = []
+    # A master coupling stores a float master (the network's dtype), which
+    # trains; its bf16 rounding or int8/int4 quantization happens once per run
+    # (prep_args) or per trajectory (ops/bptt.py).  Frozen 'int8' and 'int4'
+    # quantize here, once, into the weights (int8) and their row scales.
+    w_dtype = dtype if (cast or int4_frozen) else (coupling_dtype or dtype)
+    quant_frozen = w_dtype == torch.int8 or int4_frozen
+    from ..ops import quant
 
-    def _check_int8_fan_in(n_in: int, wkey: str):
-        # int8 x int8 accumulates in int32: worst case 127*127*n_in per output
-        from ..ops.quant import INT8_DOT_MAX_FAN_IN
-
-        if n_in >= INT8_DOT_MAX_FAN_IN:
+    def _check_fan_in(n_in: int, wkey: str, bits: int):
+        # integer products accumulate in int32: worst case 127*127*n_in per
+        # output sum for int8 weights, 7*127*n_in for int4
+        limit = quant.INT8_DOT_MAX_FAN_IN if bits == 8 else quant.INT4_DOT_MAX_FAN_IN
+        if n_in >= limit:
             raise ValueError(
-                f"Dense int8 coupling {wkey!r} has fan-in {n_in} >= "
-                f"{INT8_DOT_MAX_FAN_IN}, which can overflow the int32 "
-                f"accumulator in the worst case. Use bfloat16/float32 at this size.")
+                f"Dense int{bits} coupling {wkey!r} has fan-in {n_in} >= {limit}, which can "
+                f"overflow the int32 accumulator in the worst case. Use bfloat16/float32 at "
+                f"this size.")
 
     for _, _, W, wkey in all_edges:
-        if int8_coupling:
-            from ..ops.quant import quantize_rows
-
-            _check_int8_fan_in(int(W.shape[1]), wkey)
-            args[wkey], args[wkey + "__scale"] = quantize_rows(_tensor(W, torch.float32))
+        if quant_frozen:
+            _check_fan_in(int(W.shape[1]), wkey, 4 if int4_frozen else 8)
+            quantize = quant.quantize_rows_i4 if int4_frozen else quant.quantize_rows
+            args[wkey], args[wkey + "__scale"] = quantize(_tensor(W, torch.float32))
             keys.extend([wkey, wkey + "__scale"])
             continue
-        if master_int8:
-            _check_int8_fan_in(int(W.shape[1]), wkey)
-            master_dense_keys.append(wkey)
+        if cast in ("int8", "int4"):
+            _check_fan_in(int(W.shape[1]), wkey, int(cast[3:]))
         args[wkey] = _tensor(W, w_dtype)
         keys.append(wkey)
+    wkeys = [wkey for _, _, _, wkey in all_edges]
 
-    # int8_master inference prep: requantize the float master ONCE per run
-    # (Network.run applies it before the time loop through the node's
-    # prep_params); the (wq, scale) pairs ride along in args under reserved
-    # "__q"/"__qs" keys that _coupling_matvec picks up.  The plain-autograd
-    # training path keeps the per-step STE matvec (the deferred trajectories
-    # prep inside ops/bptt.py).
+    # Once-per-run prep (Network.run applies it before the time loop through
+    # the node's prep_params): the prepped forms ride along in args under
+    # reserved keys that _coupling_matvec picks up.  The training paths never
+    # see them: plain autograd keeps the per-step STE matvec (or the cast),
+    # and the deferred trajectories prep inside ops/bptt.py.
     prep_args = None
-    if master_dense_keys:
+    if wkeys and (cast or int4_frozen):
 
         def prep_args(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-            from ..ops.quant import quantize_rows
-
             a = dict(a)
-            for wk in master_dense_keys:
-                a[wk + "__q"], a[wk + "__qs"] = quantize_rows(a[wk].detach())
+            for wk in wkeys:
+                w = a[wk].detach()
+                if int4_frozen:
+                    a[wk + "__q4"] = quant.pack_int4(w)
+                elif cast == "bf16":
+                    a[wk + "__bf16"] = _bf16_values(w)
+                elif cast == "int8":
+                    a[wk + "__q"], a[wk + "__qs"] = quant.quantize_rows(w)
+                else:
+                    a[wk + "__q"], a[wk + "__qs"], _ = quant._i4_prep(w)
             return a
 
     def _coupling_matvec(w, src, a, wkey):
-        if master_int8 and wkey + "__q" in a:
-            # prepped int8_master path (inference runs): the same numerics as
-            # the per-step STE matvec's forward
-            from ..ops.quant import _mv_prepped
-
-            return _mv_prepped((a[wkey + "__q"], a[wkey + "__qs"]), src)
-        if master_int8:
+        if cast in ("int8", "int4") and wkey + "__q" in a:
+            # prepped master (inference runs): the same numerics as the
+            # per-step STE matvec's forward
+            mv = quant._mv_prepped if cast == "int8" else quant._mv4_prepped
+            return mv((a[wkey + "__q"], a[wkey + "__qs"]), src)
+        if cast in ("int8", "int4"):
             # plain-autograd training: the per-step STE matvec
-            from ..ops.quant import int8_master_matvec
-
-            return int8_master_matvec(w, src).to(src.dtype)
+            mv = quant.int8_master_matvec if cast == "int8" else quant.int4_master_matvec
+            return mv(w, src).to(src.dtype)
+        if cast == "bf16":
+            wb = a[wkey + "__bf16"] if wkey + "__bf16" in a else _bf16_values(w)
+            return _bf16_matvec(wb, src)
+        if int4_frozen:
+            # the packed weights from prep_args, else packed here (the JAX
+            # lowering's in-body cast fallback: the same numbers, slower)
+            wp = a[wkey + "__q4"] if wkey + "__q4" in a else quant.pack_int4(w)
+            return _frozen_quant_matvec(w, wp, a[wkey + "__scale"], src, quant.int4_mv)
         if w.dtype == torch.int8:
-            return _frozen_int8_matvec(w, a[wkey + "__scale"], src)
+            return _frozen_quant_matvec(w, w, a[wkey + "__scale"], src, quant.int8_mv)
         return _float_matvec(w, src)
 
     # initial state, contiguous per-variable blocks
@@ -677,6 +734,6 @@ def lower(
         state_order=list(state_order),
         make_tile_reader=make_tile_reader,
         couplings=[(esv, etv, wkey) for esv, etv, _, wkey in all_edges],
-        coupling_cast="int8" if master_int8 else None,
+        coupling_cast=cast,
         prep_args=prep_args,
     )

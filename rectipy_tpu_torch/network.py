@@ -446,8 +446,9 @@ class Network:
         return params
 
     def _prep_params(self, params: dict) -> dict:
-        """Once-per-run parameter prep of each node (the int8_master
-        requantization, ``nodes.py`` ``prep_params``), applied before the
+        """Once-per-run parameter prep of each node (the quantization of a
+        master coupling, the packing of a frozen int4 one, ``nodes.py``
+        ``prep_params``), applied before the
         time loop of ``run``, so it costs one pass per run, not per step.
         The training paths never use it (the trajectories prep inside; plain
         autograd needs the per-step STE matvec)."""

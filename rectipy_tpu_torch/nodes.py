@@ -273,9 +273,9 @@ class RateNet:
             val = self._args.get(k)
             if isinstance(val, torch.Tensor) and val.dtype == torch.int8:
                 raise ValueError(
-                    f"Parameter {k!r} is stored frozen-quantized (coupling_dtype='int8') "
-                    f"and cannot be trained directly; train with float32 or an "
-                    f"'int8_master' coupling instead.")
+                    f"Parameter {k!r} is stored frozen-quantized (coupling_dtype='int8' or "
+                    f"'int4') and cannot be trained directly; train with float32/bfloat16 "
+                    f"or an 'int8_master'/'int4_master' coupling instead.")
 
         self._step_fn = None  # cached step of forward(); attach resets it
         self._step_version = 0
@@ -446,12 +446,13 @@ class RateNet:
         return step
 
     def prep_params(self, args: dict) -> dict:
-        """Once-per-run parameter prep: an ``int8_master`` coupling is
-        quantized here, before the time loop, instead of every step.  The
-        prepped pairs ride along in the args under reserved keys that the
-        lowered matvec picks up (``dsl/lower.py``).  Identity for every other
-        coupling, and with a fused kernel attached.  Inference only: the
-        training paths bypass it."""
+        """Once-per-run parameter prep: a master coupling is quantized (or
+        rounded to bf16) and a frozen int4 coupling packed here, before the
+        time loop, instead of every step.  The prepped forms ride along in
+        the args under reserved keys that the lowered matvec picks up
+        (``dsl/lower.py``).  Identity for the other couplings, and with a
+        fused kernel attached.  Inference only: the training paths bypass
+        it."""
         prep = getattr(self._vf, "prep_args", None)
         if prep is None or getattr(self, "_fused_attached", False):
             return args

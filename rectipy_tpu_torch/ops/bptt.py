@@ -26,8 +26,10 @@ forward does (``W @ src``).
 Surrogate spikes, the detached hard reset and the pre-update output follow
 each node class (``nodes.py`` ``make_step``).  Scope: DSL-built ``RateNet``
 and ``SpikeResetNet`` with Euler integration and at least one dense coupling
-in float32/float64/bfloat16 or ``int8_master`` (``ValueError`` otherwise, as
-in the JAX package; the caller then takes plain autograd).  Not ported yet:
+in float32/float64/bfloat16 or a master coupling (``bfloat16_master``,
+``int8_master``, ``int4_master``); anything else, frozen ``int8``/``int4``
+included, raises ``ValueError`` as in the JAX package, and the caller then
+takes plain autograd.  Not ported yet:
 checkpointed trajectories (``remat_steps``, ROADMAP Queue 1 item 7), the Heun
 trajectory and the other node classes (Queue 1 item 3).
 """
@@ -50,7 +52,23 @@ def _make_matvec(cast):
         from .quant import int8_master_ops
 
         return int8_master_ops()
-    from ..dsl.lower import _float_matvec
+    if cast == "int4":  # int4_master quantized training (ops/quant.py)
+        from .quant import int4_master_ops
+
+        return int4_master_ops()
+    from ..dsl.lower import _bf16_matvec, _bf16_values, _float_matvec
+
+    if cast == "bf16":  # bfloat16_master: bf16 x bf16 products, float32 sums
+        def mv_t_bf16(w, delta):
+            return torch.mv(w.T, delta.to(torch.bfloat16).to(torch.float32)).to(delta.dtype)
+
+        def grad_w_bf16(deltas, srcs):
+            """dW = Delta^T @ Src on bf16-rounded factors, float32 sums."""
+            return (deltas.to(torch.bfloat16).to(torch.float32).T
+                    @ srcs.to(torch.bfloat16).to(torch.float32))
+
+        # prep rounds the master to bf16 once per trajectory (held in float32)
+        return _bf16_values, _bf16_matvec, mv_t_bf16, grad_w_bf16
 
     def prep(w):
         return w
@@ -96,8 +114,8 @@ def _node_pieces(node):
         raise ValueError("Deferred-gradient BPTT requires at least one coupling matrix")
     for wk in wkeys:
         if node._args[wk].dtype == torch.int8:
-            raise ValueError("a frozen int8 coupling is inference-only; train with float32 "
-                             "or int8_master coupling")
+            raise ValueError("the deferred trajectory takes no frozen int8/int4 coupling; "
+                             "plain autograd trains through it")
     src_readers = []
     for src, _tgt, _wk in vf.couplings:
         rd = vf.make_tile_reader(src, allow_global=True)

@@ -20,8 +20,9 @@ Scope (``ValueError`` otherwise, with the JAX package's messages):
 nodes built through the DSL, float32 state, Euler integration (and Heun on
 a ``RateNet``: the kernel in derivative mode, twice per step), one or more
 dense float32/bfloat16 couplings whose sources are states or algebraics of
-states and parameters only.  Frozen ``int8`` and ``int8_master`` couplings,
-block-sparse couplings, rk4, templates with population reductions and a
+states and parameters only.  Frozen ``int8``/``int4`` and ``int8_master``/
+``int4_master`` couplings, block-sparse couplings, rk4, templates with
+population reductions and a
 second attach are refused.
 
 Unlike the TPU kernel, nothing is padded and W stays row-major: the node
@@ -245,8 +246,8 @@ def attach_generic_fused_step(node, weights_dtype=None) -> None:
     if not wkeys:
         raise ValueError("Generic fused step requires at least one coupling matrix")
     for wk in wkeys:
-        if node._args[wk].dtype == torch.int8 or vf.coupling_cast == "int8":
-            raise ValueError("int8 coupling runs on the plain path (STE quantization)")
+        if node._args[wk].dtype == torch.int8 or vf.coupling_cast in ("int8", "int4"):
+            raise ValueError("int8/int4 coupling runs on the plain path (STE quantization)")
         if node._args[wk].dim() != 2:
             raise ValueError("block-sparse coupling runs on the plain path "
                              "(already gather-free and bandwidth-light)")

@@ -1,6 +1,6 @@
-"""int8 quantized-training coupling (``coupling_dtype='int8_master'``).
+"""int8 and int4 quantized couplings (``'int8_master'``, ``'int4_master'``).
 
-Counterpart of the dense int8 part of ``rectipy_tpu/ops/quant.py``.  The
+Counterpart of the dense part of ``rectipy_tpu/ops/quant.py``.  The
 float master coupling is quantized symmetrically per output row once per
 trajectory (``quantize_rows``); each step's matvec runs int8 x int8 with an
 exact int32 sum and a dynamic activation scale, and gradients flow
@@ -25,8 +25,13 @@ the network's dtype; ``quant_vec`` rounds its scale to float32 and divides by
 that value cast back to the activation's dtype; ``torch.round`` rounds half
 to even, as ``jnp.round`` does.
 
-int4 and block-sparse couplings are not ported yet (ROADMAP Queue 1 items 5
-and 10).
+The int4 section (below) is the same scheme one notch down: weights in
+[-7, 7] per row, kept at rest in an int8 carrier as the JAX package keeps
+them, and packed two per byte (:func:`pack_int4`) for the products, which
+are the hand-written kernels of ``csrc/int4_matvec.cu`` (the counterpart of
+the packed-int4 Pallas matvec of ``benchmarks/i4pack_microbench.py``).
+
+Block-sparse couplings are not ported yet (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -39,7 +44,10 @@ import torch
 from ._build import build
 
 __all__ = ["quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot", "int8_dot_t",
-           "int8_dot_plain", "int8_dot_t_plain", "int8_master_matvec", "int8_master_ops"]
+           "int8_dot_plain", "int8_dot_t_plain", "int8_master_matvec", "int8_master_ops",
+           "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN", "quantize_rows_i4", "pack_int4",
+           "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
+           "int4_master_matvec", "int4_master_ops"]
 
 # int8 x int8 products accumulate in int32: the worst-case per-output sum is
 # 127*127*n_in, so the fan-in must stay below this to be overflow-safe
@@ -88,14 +96,24 @@ def _lib():
     return lib
 
 
-def _check(name: str, wq, vec, row_scale, act_scale, n_vec: int):
-    """Device, dtype, shape and contiguity checks shared by both wrappers."""
+def _check(name: str, wq, vec, row_scale, act_scale, n_vec: int, dtype=torch.int8,
+           max_fan_in: int = INT8_DOT_MAX_FAN_IN, n_in: int = None):
+    """Device, dtype, shape and contiguity checks shared by the int8 and int4
+    wrappers.  ``wq`` is an int8 matrix, or (``dtype=torch.uint8``) packed
+    int4 rows of ``n_in`` weights each; neither dimension of the weights may
+    reach ``max_fan_in``."""
     device = wq.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: wq must be on the current CUDA device, got {device}")
-    if wq.dtype != torch.int8 or wq.dim() != 2 or not wq.is_contiguous():
-        raise ValueError(f"{name}: wq must be a contiguous 2-D int8 matrix, got "
+        raise ValueError(f"{name}: the weights must be on the current CUDA device, got {device}")
+    kind = "int8" if dtype == torch.int8 else "packed int4 (uint8)"
+    if wq.dtype != dtype or wq.dim() != 2 or not wq.is_contiguous():
+        raise ValueError(f"{name}: the weights must be a contiguous 2-D {kind} matrix, got "
                          f"{wq.dtype} {tuple(wq.shape)}")
+    if n_in is None:
+        n_in = wq.shape[1]
+    elif wq.shape[1] < (n_in + 1) // 2:
+        raise ValueError(f"{name}: packed rows of {wq.shape[1]} bytes cannot hold {n_in} "
+                         f"int4 weights")
     if vec.device != device or vec.dtype != torch.int8 or tuple(vec.shape) != (n_vec,) \
             or not vec.is_contiguous():
         raise ValueError(f"{name}: the vector must be a contiguous ({n_vec},) int8 tensor on "
@@ -109,9 +127,9 @@ def _check(name: str, wq, vec, row_scale, act_scale, n_vec: int):
     if act_scale.device != device or act_scale.dtype != torch.float32 \
             or act_scale.numel() != 1:
         raise ValueError(f"{name}: the activation scale must be one float32 value on {device}")
-    if wq.shape[1] >= INT8_DOT_MAX_FAN_IN or wq.shape[0] >= INT8_DOT_MAX_FAN_IN:
-        raise ValueError(f"{name}: a dimension of {tuple(wq.shape)} reaches "
-                         f"INT8_DOT_MAX_FAN_IN={INT8_DOT_MAX_FAN_IN} (int32 overflow)")
+    if n_in >= max_fan_in or wq.shape[0] >= max_fan_in:
+        raise ValueError(f"{name}: a dimension of the ({wq.shape[0]}, {n_in}) weights reaches "
+                         f"the fan-in limit {max_fan_in} (int32 overflow)")
 
 
 def int8_mv(wq, xq, row_scale, act_scale) -> torch.Tensor:
@@ -244,3 +262,205 @@ class _Int8MasterMatvec(torch.autograd.Function):
 def int8_master_matvec(w, src):
     """STE int8 matvec of a float master ``w`` (quantized on every call)."""
     return _Int8MasterMatvec.apply(w, src)
+
+
+# -------------------------------------------------------------------- int4
+# The couplings quantize to [-7, 7]: worst case 7*127*n_in per output sum.
+INT4_DOT_MAX_FAN_IN = (2**31 - 1) // (7 * 127)  # 2415617
+# The kernels take the full nibble range [-8, 7]: worst case 8*127*n_in.
+INT4_MV_MAX_FAN_IN = (2**31 - 1) // (8 * 127)  # 2113664
+
+
+def quantize_rows_i4(w: torch.Tensor):
+    """Symmetric per-output-row quantization to [-7, 7]: ``(wq int8 carrier
+    (n_out, n_in), scale float32 (n_out,))``, the JAX package's casts."""
+    amax = w.abs().amax(dim=1)
+    scale = (torch.clamp_min(amax, 1e-30) / 7.0).to(torch.float32)
+    wq = torch.clamp(torch.round(w / scale[:, None].to(w.dtype)), -7, 7).to(torch.int8)
+    return wq, scale
+
+
+def int4_stride(n_in: int) -> int:
+    """Bytes per packed row: ``ceil(n_in / 2)`` rounded up to 16, so that
+    every row starts 16-byte aligned."""
+    return -(-((n_in + 1) // 2) // 16) * 16
+
+
+def pack_int4(wq: torch.Tensor) -> torch.Tensor:
+    """``(n_out, n_in)`` integers in [-8, 7] -> ``(n_out, int4_stride(n_in))``
+    uint8.  Byte ``k`` of row ``i`` holds ``wq[i, 2k] + 8`` in its low nibble
+    and ``wq[i, 2k+1] + 8`` in its high nibble (offset binary); the nibbles
+    past ``n_in`` hold 8, a zero weight.  Per output row, this is the
+    transpose of the Pallas kernel's packing (``i4pack_microbench.py``)."""
+    n_out, n_in = wq.shape
+    nib = torch.full((n_out, 2 * int4_stride(n_in)), 8, dtype=torch.uint8, device=wq.device)
+    nib[:, :n_in] = (wq.to(torch.int16) + 8).to(torch.uint8)
+    return (nib[:, 0::2] | (nib[:, 1::2] << 4)).contiguous()
+
+
+def unpack_int4(wp: torch.Tensor, n_in: int) -> torch.Tensor:
+    """The inverse of :func:`pack_int4`: ``(n_out, n_in)`` int8 in [-8, 7]."""
+    lo = (wp & 15).to(torch.int8) - 8
+    hi = (wp >> 4).to(torch.int8) - 8
+    return torch.stack((lo, hi), dim=-1).reshape(wp.shape[0], -1)[:, :n_in]
+
+
+def _nibble_planes(wp: torch.Tensor, n_sum: int):
+    """The low and high nibbles of ``wp`` (the even and odd weights, each
+    offset by 8) as floats, and that float type: float32 where every
+    partial sum of up to ``n_sum`` products (at most 15 * 127 each) is an
+    integer below 2^24, hence exact (the Pallas kernel's own argument), else
+    float64."""
+    dt = torch.float32 if 15 * 127 * n_sum < 2 ** 24 else torch.float64
+    return (wp & 15).to(dt), (wp >> 4).to(dt), dt
+
+
+def int4_dot_plain(wp: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int4_mv`'s sum: ``float32(W @ xq)`` for the
+    packed ``wp``, summed exactly as the Pallas kernel sums it,
+    ``x_even @ (lo - 8) + x_odd @ (hi - 8)``, with the offset taken off
+    once."""
+    n_in = xq.shape[0]
+    lo, hi, dt = _nibble_planes(wp, wp.shape[1])
+    x = torch.zeros(2 * wp.shape[1], dtype=dt, device=xq.device)
+    x[:n_in] = xq.to(dt)
+    acc = torch.mv(lo, x[0::2]).to(torch.float64) + torch.mv(hi, x[1::2]).to(torch.float64)
+    return (acc - 8.0 * xq.to(torch.float64).sum()).to(torch.float32)
+
+
+def int4_dot_t_plain(wp: torch.Tensor, vq: torch.Tensor, n_in: int) -> torch.Tensor:
+    """Plain version of :func:`int4_mv_t`'s sum: ``float32(W.T @ vq)``,
+    summed exactly."""
+    lo, hi, dt = _nibble_planes(wp, wp.shape[0])
+    v = vq.to(dt)
+    acc = torch.stack((torch.mv(lo.T, v), torch.mv(hi.T, v)), dim=1).reshape(-1)[:n_in]
+    return (acc.to(torch.float64) - 8.0 * vq.to(torch.float64).sum()).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib4():
+    lib = build("int4_matvec").lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.int4_mv_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.int4_mv_t_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.int4_mv_launch.restype = ctypes.c_int
+    lib.int4_mv_t_launch.restype = ctypes.c_int
+    lib.int4_mv_t_scratch.argtypes = [i, i, i]
+    lib.int4_mv_t_scratch.restype = ctypes.c_longlong
+    return lib
+
+
+def int4_vector_path(wp: torch.Tensor, vec: torch.Tensor = None) -> bool:
+    """Whether the kernels take their 16-byte path: the packed rows start
+    16-byte aligned (a stride of a multiple of 16 on an aligned base) and,
+    for :func:`int4_mv`, so does ``xq``.  Anything else takes the scalar
+    instantiation."""
+    ok = wp.shape[1] % 16 == 0 and wp.data_ptr() % 16 == 0
+    return bool(ok and (vec is None or vec.data_ptr() % 16 == 0))
+
+
+def int4_mv(wp, xq, row_scale, act_scale) -> torch.Tensor:
+    """``out[i] = (float32(sum_j W[i, j] * xq[j]) * row_scale[i]) * act_scale``,
+    float32 ``(n_out,)``, for the packed int4 ``wp`` (:func:`pack_int4`,
+    any stride that holds ``len(xq)`` weights) and int8 ``xq``.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel of
+    ``csrc/int4_matvec.cu`` on the current stream; anything it does not take
+    raises.  Each launch adds one to ``int4_mv.launches``."""
+    if wp.device.type == "cpu":
+        return (int4_dot_plain(wp, xq) * row_scale) * act_scale
+    n_out, n_in = wp.shape[0], xq.shape[0]
+    _check("int4_mv", wp, xq, row_scale, act_scale, n_in, dtype=torch.uint8,
+           max_fan_in=INT4_MV_MAX_FAN_IN, n_in=n_in)
+    out = torch.empty(n_out, dtype=torch.float32, device=wp.device)
+    err = _lib4().int4_mv_launch(wp.data_ptr(), xq.data_ptr(), row_scale.data_ptr(),
+                                 act_scale.data_ptr(), out.data_ptr(), n_out, n_in, wp.shape[1],
+                                 int(int4_vector_path(wp, xq)),
+                                 torch.cuda.current_stream(wp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4_mv: kernel launch failed with CUDA error {err}")
+    int4_mv.launches += 1
+    return out
+
+
+int4_mv.launches = 0
+
+
+def int4_mv_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:
+    """``out[j] = float32(sum_i W[i, j] * vq[i]) * act_scale``, float32
+    ``(n_in,)``: the transposed product, read from the row-major packed
+    ``wp`` without a transposed copy (``n_in``: the weights per row).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    ``csrc/int4_matvec.cu``, which sum chunks of rows into an int32 scratch
+    and then the chunks (exact in any order).  Each launch adds one to
+    ``int4_mv_t.launches``."""
+    if wp.device.type == "cpu":
+        return int4_dot_t_plain(wp, vq, n_in) * act_scale
+    n_out = wp.shape[0]
+    _check("int4_mv_t", wp, vq, None, act_scale, n_out, dtype=torch.uint8,
+           max_fan_in=INT4_MV_MAX_FAN_IN, n_in=n_in)
+    lib, vec = _lib4(), int(int4_vector_path(wp))
+    partial = torch.empty(lib.int4_mv_t_scratch(n_out, n_in, vec), dtype=torch.int32,
+                          device=wp.device)
+    out = torch.empty(n_in, dtype=torch.float32, device=wp.device)
+    err = lib.int4_mv_t_launch(wp.data_ptr(), vq.data_ptr(), act_scale.data_ptr(),
+                               partial.data_ptr(), out.data_ptr(), n_out, n_in, wp.shape[1], vec,
+                               torch.cuda.current_stream(wp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4_mv_t: kernel launch failed with CUDA error {err}")
+    int4_mv_t.launches += 1
+    return out
+
+
+int4_mv_t.launches = 0
+
+
+def _i4_prep(w):
+    """int4_master prep: float master -> ``(packed weights, row scale,
+    n_in)``; the packed form replaces the JAX package's int4 cast."""
+    wq, scale = quantize_rows_i4(w)
+    return pack_int4(wq), scale, w.shape[1]
+
+
+def _mv4_prepped(wp, src):
+    xq, xs = quant_vec(src)
+    return int4_mv(wp[0], xq, wp[1], xs).to(src.dtype)
+
+
+def _mv4_t_prepped(wp, delta):
+    """W^T @ delta with the row scales folded into delta before the dynamic
+    quantization, as in :func:`_mv_t_prepped`."""
+    v = wp[1].to(delta.dtype) * delta
+    vq, vs = quant_vec(v)
+    return int4_mv_t(wp[0], vq, vs, wp[2]).to(delta.dtype)
+
+
+def int4_master_ops():
+    """``(prep, mv, mv_t, grad_w)`` of an ``int4_master`` coupling for the
+    deferred-gradient trajectories: the int4 counterpart of
+    :func:`int8_master_ops` (same STE, same full-precision master
+    gradient)."""
+    return _i4_prep, _mv4_prepped, _mv4_t_prepped, _grad_w
+
+
+class _Int4MasterMatvec(torch.autograd.Function):
+    """STE int4 matvec of the plain autograd path (the int4 counterpart of
+    :class:`_Int8MasterMatvec`)."""
+
+    @staticmethod
+    def forward(ctx, w, src):
+        ctx.save_for_backward(w, src)
+        return _mv4_prepped(_i4_prep(w.detach()), src)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, src = ctx.saved_tensors
+        dw = torch.outer(g, src).to(w.dtype) if ctx.needs_input_grad[0] else None
+        dsrc = _mv4_t_prepped(_i4_prep(w), g) if ctx.needs_input_grad[1] else None
+        return dw, dsrc
+
+
+def int4_master_matvec(w, src):
+    """STE int4 matvec of a float master ``w`` (quantized on every call)."""
+    return _Int4MasterMatvec.apply(w, src)

@@ -215,13 +215,15 @@ def test_lowering_refuses_unported_couplings(coupling):
     cd = coupling if coupling.endswith(("master", "int4")) else resolve_dtype(coupling)
     kw = dict(weights=np.eye(4), source_var="s", target_var="s_in", coupling_dtype=cd,
               device="cpu")
-    if coupling in ("int8", "int8_master"):
-        # ported (ops/quant.py): stored as the JAX package stores them
-        vf = lower("rectipy_tpu.models.spiking_neurons.qif.qif", **kw)
-        assert vf.args["weights"].dtype == (torch.int8 if coupling == "int8" else torch.float32)
-        assert ("weights__scale" in vf.args) == (coupling == "int8")
-        assert vf.coupling_cast == ("int8" if coupling == "int8_master" else None)
-        assert (vf.prep_args is not None) == (coupling == "int8_master")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lower("rectipy_tpu.models.spiking_neurons.qif.qif", **kw)
+    # every dense coupling is ported (ops/quant.py, tests/test_torch_int4.py):
+    # stored as the JAX package stores it, with the JAX coupling_cast
+    vf = lower("rectipy_tpu.models.spiking_neurons.qif.qif", **kw)
+    frozen = coupling in ("int8", "int4")
+    assert vf.args["weights"].dtype == (torch.int8 if frozen else torch.float32)
+    assert ("weights__scale" in vf.args) == frozen
+    vj = j_lower("rectipy_tpu.models.spiking_neurons.qif.qif", weights=np.eye(4),
+                 source_var="s", target_var="s_in",
+                 coupling_dtype=jnp.int8 if coupling == "int8" else coupling)
+    assert vf.coupling_cast == vj.coupling_cast
+    assert sorted(vf.args) == sorted(vj.args)
+    assert (vf.prep_args is not None) == (coupling != "int8")

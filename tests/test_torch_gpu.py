@@ -17,8 +17,9 @@ from rectipy_tpu_torch import Network, attach_fused_qif_step
 from rectipy_tpu_torch.ops.fused_opt import adam_requant, adam_requant_plain
 from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fused_step_plain
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
-from rectipy_tpu_torch.ops.quant import (int8_dot_plain, int8_dot_t_plain, int8_mv,
-                                         int8_mv_t, quant_vec, quantize_rows)
+from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv, int4_mv_t,
+                                         int4_vector_path, int8_dot_plain, int8_dot_t_plain,
+                                         int8_mv, int8_mv_t, pack_int4, quant_vec, quantize_rows)
 from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
                                        check_generic, generic_case_net, generic_inputs,
                                        lost_eighth_margin)
@@ -218,6 +219,137 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         int8_mv_t(wq, vq.cpu(), vs)
     with pytest.raises(ValueError, match="activation scale"):
         int8_mv_t(wq, vq, vs.cpu())
+
+
+# ------------------------------------------------------ int4 matvecs
+def _int4_inputs(n_out, n_in, seed, device, tight=False):
+    """Packed weights over the full nibble range [-8, 7] (``tight``: rows of
+    ceil(n_in / 2) bytes, unpadded), the activations and the scales."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randint(-8, 8, (n_out, n_in), generator=gen, device=device, dtype=torch.int8)
+    wp = pack_int4(w)
+    if tight:
+        wp = wp[:, :(n_in + 1) // 2].contiguous()
+    xq, xs = quant_vec(torch.randn(n_in, generator=gen, device=device))
+    vq, vs = quant_vec(torch.randn(n_out, generator=gen, device=device))
+    ws = torch.rand(n_out, generator=gen, device=device) + 0.5
+    return wp, ws, xq, xs, vq, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_out,n_in,tight", [
+    (64, 1024, False), (37, 1000, False),  # 16-byte aligned rows, a tail of 8 weights
+    (16, 10_000, True),  # 5,000-byte rows (8 mod 16): the scalar path
+    (16, 10_000, False), (1003, 999, False), (999, 1003, True),  # odd n_in
+    (33, 1, False), (1, 33, False)])  # n_in = 1, n_out = 1
+def test_int4_matvecs_bit_identical_to_plain(cuda, n_out, n_in, tight):
+    # integer sums are exact in any order: the kernels must agree bit for
+    # bit with the float64-summed plain versions, epilogue included
+    wp, ws, xq, xs, vq, vs = _int4_inputs(n_out, n_in, 14, cuda, tight)
+    assert int4_vector_path(wp, xq) == (not tight)
+    before = (int4_mv.launches, int4_mv_t.launches)
+    out = int4_mv(wp, xq, ws, xs)
+    out_t = int4_mv_t(wp, vq, vs, n_in)
+    torch.cuda.synchronize()
+    assert (int4_mv.launches, int4_mv_t.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, (int4_dot_plain(wp, xq) * ws) * xs)
+    assert torch.equal(out_t, int4_dot_t_plain(wp, vq, n_in) * vs)
+    assert bool((out != 0).any()) and bool((out_t != 0).any())
+
+
+@pytest.mark.gpu
+def test_int4_matvec_misaligned_vector_takes_the_scalar_loop(cuda):
+    wp, ws, xq, xs, vq, vs = _int4_inputs(256, 1024, 15, cuda)
+    x_off = torch.cat((torch.zeros(1, dtype=torch.int8, device=cuda), xq))[1:]
+    assert not int4_vector_path(wp, x_off)
+    assert torch.equal(int4_mv(wp, x_off, ws, xs), (int4_dot_plain(wp, xq) * ws) * xs)
+
+
+@pytest.mark.gpu
+def test_int4_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    wp, ws, xq, xs, vq, vs = _int4_inputs(64, 64, 16, cuda)
+    with pytest.raises(ValueError, match="packed int4"):
+        int4_mv(wp.to(torch.int8), xq, ws, xs)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_mv(wp[:, :8], xq, ws, xs)
+    with pytest.raises(ValueError, match="cannot hold"):
+        int4_mv(wp[:, :16].contiguous(), torch.zeros(64, dtype=torch.int8, device=cuda)
+                .repeat(2), ws, xs)
+    with pytest.raises(ValueError, match="row scale"):
+        int4_mv(wp, xq, ws.double(), xs)
+    with pytest.raises(ValueError, match="vector"):
+        int4_mv_t(wp, vq.cpu(), vs, 64)
+    with pytest.raises(ValueError, match="activation scale"):
+        int4_mv_t(wp, vq, vs.cpu(), 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupling", ["int4", "int4_master"])
+def test_int4_network_on_card_matches_plain_network_on_cpu(cuda, coupling):
+    # 400 steps of the bench network at n=512 through Network.run: the int4
+    # kernel every step on the card, the plain version on the CPU.  The
+    # integer sums are exact on both sides; the float32 amax and dynamics can
+    # round otherwise and flip an activation's int8 rounding now and then
+    n, steps = 512, 400
+    rng = np.random.default_rng(17)
+    W = (rng.random((n, n)) < 0.1) / (0.1 * n)
+    etas = rng.normal(size=n) * 50.0 + 20000.0
+    inp = np.zeros((steps, 1))
+    inp[100:300] = 3.0
+    obs, launches = {}, {}
+    for device in (cuda, "cpu"):
+        net = Network(1e-4, device=device)
+        net.add_diffeq_node(
+            "qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa", weights=W,
+            source_var="s", target_var="s_in", input_var="I_ext", output_var="s",
+            spike_var="spike", spike_def="v", op="qif_sfa_op",
+            node_vars={"all/qif_sfa_op/eta": etas, "all/qif_sfa_op/k": 15.0},
+            coupling_dtype=coupling)
+        net.add_func_node("inp", 1, activation_function="tanh")
+        net.add_edge("inp", "qif", weights=np.ones((n, 1)))
+        before = int4_mv.launches
+        obs[str(device)] = net.run(inp, sampling_steps=10, record_vars=[("qif", "v", False)],
+                                   verbose=False)
+        launches[str(device)] = int4_mv.launches - before
+    assert launches == {str(cuda): steps, "cpu": 0}
+    a, b = obs["cpu"], obs[str(cuda)]
+    assert a.to_numpy("out").max() > 0.0, "no spiking activity -- weak test"
+    np.testing.assert_allclose(b.to_numpy("out"), a.to_numpy("out"), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(b.to_numpy(("qif", "v")), a.to_numpy(("qif", "v")),
+                               rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_int4_master_fit_on_card_matches_plain_fit_on_cpu(cuda):
+    # the int4_master training path on the card (int4_mv and int4_mv_t every
+    # step) against the same float32 fit on the CPU, as the int8_master fit
+    # test holds its own: losses within rtol 1e-4
+    n, T = 64, 120
+    rng = np.random.default_rng(31)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    etas = rng.uniform(5.0, 15.0, n)
+    inp, tgt = rng.normal(size=(T, 1)) * 5 + 10, rng.normal(size=(T, n)) * 0.1
+    res = {}
+    for device in (cuda, "cpu"):
+        net = Network(5e-3, device=device)
+        net.add_diffeq_node(
+            "rnn", "rectipy_tpu_torch.models.spiking_neurons.qif.qif", weights=W,
+            input_var="I_ext", output_var="s", source_var="s", target_var="s_in", op="qif_op",
+            spike_var="spike", spike_def="v", spike_threshold=100.0, spike_reset=-100.0,
+            node_vars={"all/qif_op/eta": etas}, coupling_dtype="int4_master",
+            train_params=["weights"])
+        before = (int4_mv.launches, int4_mv_t.launches)
+        obs = net.fit_bptt([inp] * 3, [tgt] * 3, optimizer="adam", lr=1e-2, verbose=False)
+        after = (int4_mv.launches, int4_mv_t.launches)
+        assert net.last_fit == {"trajectory": "chain", "fused_adam": False}
+        res[str(device)] = (np.asarray(obs["epoch_loss"]),
+                            net.get_node("rnn")["weights"].cpu().numpy(),
+                            tuple(a - b for a, b in zip(after, before)))
+    card = res[str(cuda)]
+    assert card[2] == (3 * T, 3 * T) and res["cpu"][2] == (0, 0)
+    np.testing.assert_allclose(card[0], res["cpu"][0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], res["cpu"][1], rtol=1e-3, atol=1e-4)
+    assert not np.array_equal(card[1], W.astype(np.float32)), "nothing trained"
 
 
 # ---------------------------------------------------- fused adam + requant

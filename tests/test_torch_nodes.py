@@ -178,18 +178,51 @@ def test_set_param_and_getitem():
         t.set_param("no_such_param", 1.0)
 
 
-def test_unported_node_features_raise():
-    # Heun/RK4 and MultiSpikeResetNet are ported (test_torch_nodes_spiking.py);
-    # on these paths the int4 and bfloat16_master couplings still raise
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RateNet.from_pyrates(LI_TANH, input_var="li_op/I_ext", output_var="li_op/v",
-                             weights=np.eye(3), source_var="tanh_op/r", target_var="li_op/r_in",
-                             integrator="heun", coupling_dtype="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SpikeResetNet.from_pyrates(QIF, input_var="I_ext", output_var="s", weights=np.eye(3),
-                                   source_var="s", target_var="s_in", spike_var=["spike"],
-                                   reset_var=["v"], coupling_dtype="bfloat16_master",
-                                   device="cpu")
+@pytest.mark.parametrize("case", ["heun_int4", "spike_reset_bf16_master", "block_sparse"])
+def test_unported_node_features_raise(case):
+    # the int4 and bfloat16_master couplings are ported: a Heun RateNet with
+    # a frozen int4 coupling and a SpikeResetNet with a bfloat16_master one
+    # step as JAX's do (float64; the same carrier and scales, exact integer
+    # sums; bf16 products exact, float32 sums in another order: rtol 1e-6).
+    # A block-sparse coupling still raises (ROADMAP Queue 1 item 10)
+    if case == "block_sparse":
+        from rectipy_tpu.ops.sparse import BlockSparseCoupling
+
+        blocks = np.random.default_rng(0).normal(size=(2, 1, 3, 3))
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+            RateNet.from_pyrates(LI_TANH, input_var="li_op/I_ext", output_var="li_op/v",
+                                 weights=BlockSparseCoupling(blocks, np.asarray([[0], [1]])),
+                                 source_var="tanh_op/r", target_var="li_op/r_in",
+                                 integrator="heun", coupling_dtype="int4", device="cpu")
+        return
+    n = 6
+    rng = np.random.default_rng(6)
+    W = rng.normal(size=(n, n)) * 0.5
+    if case == "heun_int4":
+        kw = dict(input_var="li_op/I_ext", output_var="li_op/v", weights=W,
+                  source_var="tanh_op/r", target_var="li_op/r_in", integrator="heun",
+                  coupling_dtype="int4")
+        t = RateNet.from_pyrates(LI_TANH, dtype=torch.float64, device="cpu", **kw)
+        j = JRateNet.from_pyrates(LI_TANH, dtype=jnp.float64, **kw)
+        t.args["weights__scale"] = torch.as_tensor(np.array(j.args["weights__scale"]))
+        tol = dict(rtol=1e-12, atol=1e-14)
+    else:
+        kw = dict(input_var="I_ext", output_var="s", weights=np.abs(W), source_var="s",
+                  target_var="s_in", spike_var="spike", reset_var="v", spike_threshold=20.0,
+                  spike_reset=-20.0, dt=5e-3, coupling_dtype="bfloat16_master",
+                  node_vars={"all/qif_sfa_op/eta": rng.normal(size=n) * 2.0 + 40.0})
+        t = SpikeResetNet.from_pyrates(QIF, dtype=torch.float64, device="cpu", **kw)
+        j = JSpikeResetNet.from_pyrates(QIF, dtype=jnp.float64, **kw)
+        tol = dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(t.args["weights"].numpy(), np.asarray(j.args["weights"]))
+    t_step, j_step = t.make_step(), jax.jit(j.make_step())
+    yt, yj = t.y, j.y
+    for k in range(60):
+        x = rng.normal(size=n) * 5.0
+        yt, ot = t_step(yt, t.args, torch.as_tensor(x))
+        yj, oj = j_step(yj, j.args, jnp.asarray(x))
+        np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **tol)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **tol)
 
 
 @pytest.mark.parametrize("spec,expect", [(None, torch.float32), ("float64", torch.float64),
