@@ -85,12 +85,51 @@ of csrc/int4_matvec.cu, the counterpart of benchmarks/i4pack_microbench.py):
 Phases 18-19 (after phase 10, on the training path's data):
 
 18. int4_train_path: phase 8's network with coupling_dtype="int4_master":
-   one warm and one timed 16-epoch fit; 8,000 launches each of int4_mv and
+   a 2-epoch warm fit and one timed 16-epoch fit; 8,000 launches each of int4_mv and
    int4_mv_t per fit, none of the int8 kernels or adam_requant; finite
    losses; ms/epoch and trained neuron-updates/s.
 19. bf16_master_train_path: the same network with "bfloat16_master", 4
    epochs (no hand-written kernel: bf16 x bf16 products with float32 sums
    as a PyTorch matvec, as the JAX package leaves them to XLA).
+
+Phases 20-24 (after phase 19; the trainers and FeedbackNetwork, through the
+kernels above, at N = 10,000):
+
+20. rls_path: FORCE learning. The main path's bf16 network (phase 4, the
+   fused QIF+SFA kernel) with an identity readout of width 1 behind an RLS
+   edge (beta 0.99, alpha 1, float64 P of 10,000 x 10,000): fit_rls over
+   20,000 steps of bench_inputs with the target sin(2 pi 2 t),
+   update_steps=10, sampling_steps=100, then Network.test on the same
+   inputs from the same initial state; 20,000 kernel launches per fit,
+   finite losses and weights, P symmetric; ms/step, the RLS update alone
+   (cuda_ms) against its bound (P read twice and written once).
+21. rls_vs_cpu: the same FORCE fit (a fresh RLS edge, from the reservoir's
+   state after phase 20) on the card and on the CPU for 200 steps with
+   update_steps=10: readout records and W under fused_vs_plain's rule.
+22. ridge_path: fit_ridge on the same reservoir over 20,000 steps with
+   sampling_steps=10 (X is 2,000 x 10,000, float32 Gram matrix and solve
+   on the card), alpha = 1e-3 x the largest eigenvalue of X X^T from a
+   first run of the same inputs; the predictions held to numpy's float64
+   solve of the same X on the host (its dual form, (X X^T + alpha I) c = y,
+   y = X X^T c) within cond x eps32 x sqrt(rows), cond from float64
+   eigenvalues; then test() with the ridge readout.
+23. tbptt_path: phase 8's network (int8_master) trained by fit_bptt in step
+   mode on the bench data tiled to T = 2,000 with update_steps=100 (20
+   chunks), adam lr 1e-4: one warm and one timed fit; 2,000 launches each of
+   int8_mv and int8_mv_t per fit and none of adam_requant (step mode takes
+   the split optimizer); 20 finite chunk losses; ms per chunk.
+24. feedback_path: examples/feedback_populations.py as a FeedbackNetwork at
+   N = 10,000 per population (two LIF populations with the generic kernel
+   and a bf16 coupling, dense float32 feedforward p1 -> p2 and feedback
+   p2 -> p1; the example's weights, sized for N = 100, scaled by 100/N),
+   20,000 steps, best of 2; two kernel launches per step; the device-only
+   step and idle share; the first 200 steps on the CPU held to the card's
+   under fused_vs_plain's rule.
+No kernel is added for phases 20-24; the kernels line lists the instances
+they ran with their launch counts (qif_sfa_step and the int8 matvecs with
+phase 6's and phase 10's timings of the same kernel, the generic kernel
+checked and timed on the feedback path's node), and phase 10 adds
+torch._int_mm as the int8 rows' library yardstick.
 
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
@@ -115,6 +154,7 @@ PLAIN_STEPS = 2_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 INT8_OPS = 1979e12  # H100 SXM data sheet, int8 (the int4 weights multiply as int8 bytes)
+F64_FLOPS = 34e12  # H100 SXM data sheet, float64 outside the tensor cores
 QIF_SFA = "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa"
 QIF = "rectipy_tpu_torch.models.spiking_neurons.qif.qif"
 LIF = "rectipy_tpu_torch.models.spiking_neurons.lif.lif"
@@ -130,8 +170,10 @@ N_I4PACK = 14_336  # i4pack_microbench.py's default N
 CPU_STEPS = 200  # the int4 path's CPU comparison window
 # the training path: bench.py:331-370
 T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 16, 1e-4
-WARM_EPOCHS = 2  # the int8_master path's warm fit
+WARM_EPOCHS = 2  # the warm fit of the int8_master and int4_master paths
 SPLIT_VS_FUSED_RTOL = 1e-4
+T_TBPTT, UPDATE_STEPS = 2_000, 100  # the step-mode path: bench data tiled, the JAX default
+RIDGE_SAMPLING = 10
 # kernel vs plain on the card, (rtol, atol), for the two input cases of the
 # kernel check; W is the main path's in both.  Both W types take the same
 # tolerance: f32 does the same f32 arithmetic, summed in another order over
@@ -155,7 +197,12 @@ TOL = {"reset": (1e-5, 1e-4), "coupling": (1e-5, 1e-6)}
 # O(1e-3), as TOL["coupling"] above, held to a lost-eighth margin above 1.
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:  # the script's elapsed seconds, for its time budget
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -415,19 +462,37 @@ def train_phases(dev, data) -> list:
          lambda: adam_requant_plain(w, m, v, g, bc1, bc2, lr, **ADAM_KW),
          29 * N * N + 4 * N, 15 * N * N + 3 * N, F32_FLOPS, adam_err),
     ]
+    # the int8 rows' yardstick: torch._int_mm (int8 x int8 -> int32, which
+    # needs more than 16 rows) of the activations padded to 17 rows with the
+    # same int8 W, column-major as cuBLASLt takes it (W.T is a view; W for
+    # the transposed product is a copy); it gives the int32 sums without the
+    # scales, so it is not the same function
+    int_mm = {"int8_mv": (xq.expand(17, N).contiguous(), wq.T),
+              "int8_mv_t": (vq.expand(17, N).contiguous(), wq.T.contiguous().T)}
     for name, source, replaces, fn, plain, n_bytes, n_ops, peak, err in specs:
         ms = cuda_ms(fn, reps=50 if name == "adam_requant" else 200)
         plain_ms = cuda_ms(plain, reps=5)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+        library_ms, reason = None, "no single PyTorch call computes this function"
+        if name in int_mm:
+            a, b = int_mm[name]
+            try:
+                torch._int_mm(a, b)
+                library_ms = cuda_ms(lambda: torch._int_mm(a, b), reps=200)
+                reason = ("torch._int_mm of the activations padded to 17 rows with the same "
+                          "int8 W: int32 sums without the scales, a yardstick")
+            except RuntimeError as e:
+                reason = f"torch._int_mm refused the shape: {str(e)[:200]}"
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                  "bound_ms": max(t_bytes, t_ops) * 1e3,
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": library_ms}
         entries.append(entry)
         emit({"phase": "train_timing", **entry, "bytes": n_bytes, "ops": n_ops,
-              "launches_per_epoch": launches[name] // EPOCHS,
-              "library_ms_reason": "no single PyTorch call computes this function",
+              "launches_per_epoch": launches[name] // EPOCHS, "library_ms_reason": reason,
               "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+    del int_mm
     return entries
 
 
@@ -488,7 +553,8 @@ def generic_sources() -> list:
 
     W = np.full((16, 16), 1.0 / 16)
     nodes = [generic_case_net(case, W, "cpu")[1] for case in GENERIC_CASES]
-    nodes += [lif_net(16, "cpu").get_node("lif"), ei_net(16, "cpu")[0].get_node("ei")]
+    nodes += [lif_net(16, "cpu").get_node("lif"), ei_net(16, "cpu")[0].get_node("ei"),
+              feedback_net(16, "cpu").get_node("p1")]
     return sorted({node._fused_cfg["step"].source for node in nodes})
 
 
@@ -944,7 +1010,7 @@ def int4_train_phases(dev, data, timing10) -> list:
     t0 = time.perf_counter()
     net = build_train_net(W_np, etas, coupling="int4_master")
     build_s = time.perf_counter() - t0
-    warm_s, warm_losses, _ = counted_fit(net, EPOCHS)
+    warm_s, warm_losses, _ = counted_fit(net, WARM_EPOCHS)
     seconds, losses, launches = counted_fit(net, EPOCHS)
     want = {"int4_mv": EPOCHS * T_TRAIN, "int4_mv_t": EPOCHS * T_TRAIN, "int8_mv": 0,
             "int8_mv_t": 0, "adam_requant": 0}
@@ -954,6 +1020,7 @@ def int4_train_phases(dev, data, timing10) -> list:
         raise AssertionError(f"int4_train_path took {net.last_fit}")
     emit({"phase": "int4_train_path", "n": N, "T": T_TRAIN, "epochs": EPOCHS,
           "coupling": "int4_master", "build_s": build_s, "warm_fit_s": warm_s,
+          "warm_epochs": WARM_EPOCHS,
           "fit_s": seconds, "ms_per_epoch": seconds / EPOCHS * 1e3,
           "trained_neuron_updates_per_s": T_TRAIN * N * EPOCHS / seconds,
           "launches_per_fit": launches, "first_loss": warm_losses[0],
@@ -979,6 +1046,341 @@ def int4_train_phases(dev, data, timing10) -> list:
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
     return entries
+
+
+def feedback_weights(n: int) -> tuple:
+    """examples/feedback_populations.py's weights at width n, drawn from seed 5
+    in the example's order: the two populations' couplings (normal), the
+    excitatory feedforward edge p1 -> p2 (10 x uniform) and the inhibitory
+    feedback edge p2 -> p1 (-100 x uniform); every weight is scaled by 100/n,
+    so that a neuron's summed input matches the example's at its n = 100."""
+    rng = np.random.default_rng(5)
+    scale, k = 100.0 / n, 10.0
+
+    def draw(fn, factor):
+        w = fn(size=(n, n))
+        w *= factor * scale
+        return w.astype(np.float32)
+
+    Ws = [draw(rng.normal, 1.0) for _ in range(2)]
+    return Ws[0], Ws[1], draw(rng.random, k), draw(rng.random, -10 * k)
+
+
+def feedback_net(n: int, device, weights: tuple = None):
+    """examples/feedback_populations.py as a FeedbackNetwork at width n: two
+    LIF populations (the template's defaults, bf16 couplings) joined by dense
+    float32 feedforward and feedback edges (``feedback_weights``); the
+    generic kernel attached to both populations."""
+    from rectipy_tpu_torch import FeedbackNetwork, attach_generic_fused_step
+
+    W1, W2, W_ff, W_fb = weights if weights is not None else feedback_weights(n)
+    net = FeedbackNetwork(1e-2, device=device)
+    for label, W in (("p1", W1), ("p2", W2)):
+        net.add_diffeq_node(label, LIF, input_var="I_ext", output_var="s", weights=W,
+                            source_var="s", target_var="s_in", op="lif_op", spike_var="spike",
+                            spike_def="v", coupling_dtype="bfloat16")
+    net.add_edge("p1", "p2", weights=W_ff)
+    net.add_edge("p2", "p1", weights=W_fb, feedback=True)
+    net.compile()
+    for label in ("p1", "p2"):
+        attach_generic_fused_step(net.get_node(label))
+    return net
+
+
+def vs_cpu(name: str, card: np.ndarray, cpu: np.ndarray) -> dict:
+    """fused_vs_plain's rule (correlation >= 0.999, max |diff| <= 1% of the
+    largest reference value) on the card's records against the CPU's."""
+    max_diff = float(np.abs(card - cpu).max())
+    corr = float(np.corrcoef(card.ravel(), cpu.ravel())[0, 1]) if cpu.std() > 0 else float("nan")
+    if not (corr >= 0.999 and max_diff <= 1e-2 * float(np.abs(cpu).max())):
+        raise AssertionError(f"{name}: card vs cpu corr {corr}, max|diff| {max_diff}")
+    return {"corr": corr, "max_abs_diff": max_diff, "max_abs_ref": float(np.abs(cpu).max())}
+
+
+def readout_phases(build_net, timing: dict) -> list:
+    """Phases 20-22: FORCE (fit_rls) and the ridge readout (fit_ridge) on
+    the main path's bf16 reservoir, and test().  ``timing`` is phase 6's
+    ``qif_sfa_step[bfloat16]`` entry (the same kernel and W).  Returns the
+    kernel's entries of the ``kernels`` line for the two paths."""
+    from rectipy_tpu_torch.edges import RLS
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+
+    inputs = bench_inputs(STEPS)
+    target = np.sin(2 * np.pi * 2.0 * DT * np.arange(STEPS))[:, None]
+
+    def with_readout(net):
+        net.add_func_node("readout", 1, activation_function="identity")
+        return net.add_edge("qif", "readout", train="rls", beta=0.99, alpha=1.0)
+
+    def counted(fn):
+        qif_sfa_step.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, qif_sfa_step.launches
+
+    # ---------------------------------------------------------- 20. rls_path
+    t0 = time.perf_counter()
+    net = build_net("bfloat16", fused=True)
+    edge = with_readout(net)
+    build_s = time.perf_counter() - t0
+    fit_kw = dict(update_steps=10, sampling_steps=100, verbose=False)
+    net.reset()  # the fit and the test start from the same (zero) state
+    obs, fit_s, launches = counted(lambda: net.fit_rls(inputs, target, **fit_kw))
+    if launches != STEPS:
+        raise AssertionError(f"rls_path: {launches} qif_sfa_step launches for {STEPS} steps")
+    losses = obs.to_numpy("loss")
+    W, P = edge.weights, edge.P
+    if not (np.all(np.isfinite(losses)) and bool(torch.isfinite(W).all())
+            and bool(torch.isfinite(P).all())):
+        raise AssertionError("rls_path: non-finite losses, weights or P")
+    asym = float((P - P.T).abs().max())
+    p_max = float(P.abs().max())
+    p_moved = float((P - torch.eye(N, dtype=P.dtype, device=P.device)).abs().max())
+    if not asym <= 1e-10 * p_max:
+        raise AssertionError(f"rls_path: P is not symmetric (max|P - P^T| = {asym})")
+    y_end = net.get_node("qif").y.detach().cpu().numpy()
+    net.reset()
+    (obs_t, test_loss), test_s, test_launches = counted(
+        lambda: net.test(inputs, target, sampling_steps=100, verbose=False))
+    rec = obs_t.to_numpy("out")
+    if rec.shape != (STEPS // 100, 1) or not np.all(np.isfinite(rec)):
+        raise AssertionError(f"rls_path: bad test records, shape {rec.shape}")
+    tgt_var = float(np.var(target[::100]))
+    # the RLS update alone, on a copy of P (it downdates P in place) at the
+    # reservoir's last output
+    update = RLS.update_fn(edge.beta)
+    P_copy = P.clone()
+    x = net.get_node("qif").y[N:2 * N].to(torch.float64)
+    y = torch.ones(1, dtype=torch.float64, device=x.device)
+    y_hat = W @ x
+    update_ms = cuda_ms(lambda: update(W, P_copy, x, y, y_hat), reps=50)
+    del P_copy
+    n_bytes = 3 * N * N * 8 + 8 * (4 * N + 4)  # P read twice, written once; the vectors
+    n_ops = 4 * N * N + 8 * N
+    update_bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F64_FLOPS) * 1e3
+    step_ms = fit_s / STEPS * 1e3
+    emit({"phase": "rls_path", "n": N, "steps": STEPS, "update_steps": 10, "beta": 0.99,
+          "P_dtype": "float64", "kernel_launches_fit": launches,
+          "kernel_launches_test": test_launches, "build_s": build_s, "fit_s": fit_s,
+          "ms_per_step": step_ms, "neuron_updates_per_s": STEPS * N / fit_s,
+          "rls_update_ms": update_ms, "rls_update_bound_ms": update_bound_ms,
+          "rls_update_bound_by": "bytes", "rls_update_bytes": n_bytes,
+          "rls_update_share_of_bound": update_bound_ms / update_ms,
+          "update_share_of_step": update_ms / 10 / step_ms,
+          "max_abs_P_minus_PT": asym, "max_abs_P": p_max, "max_abs_P_minus_I": p_moved,
+          "fit_loss_first_last": [float(losses[1]), float(losses[-1])],
+          "test_s": test_s, "test_loss": test_loss, "target_variance": tgt_var,
+          "test_loss_over_target_variance": test_loss / tgt_var,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    entries = [dict(timing, name="qif_sfa_step[bfloat16,rls_path]", launches=launches)]
+
+    # --------------------------------------------------------- 21. rls_vs_cpu
+    # a fresh RLS edge on both sides, from the reservoir's state at the end
+    # of the fit (the population is spiking by then)
+    net.pop_edge("qif", "readout")
+    net.add_edge("qif", "readout", train="rls", beta=0.99, alpha=1.0)
+    t0 = time.perf_counter()
+    cpu_net = build_net("bfloat16", fused=True, device="cpu")
+    with_readout(cpu_net)
+    cpu_build_s = time.perf_counter() - t0
+    cmp, secs = {}, {}
+    for name, n_ in (("card", net), ("cpu", cpu_net)):
+        n_.reset({"qif": y_end})
+        t0 = time.perf_counter()
+        o = n_.fit_rls(inputs[:CPU_STEPS], target[:CPU_STEPS], update_steps=10,
+                       sampling_steps=10, verbose=False)
+        secs[name] = time.perf_counter() - t0
+        cmp[name] = (o.to_numpy("out"), n_.get_edge("qif", "readout").weights.cpu().numpy())
+    emit({"phase": "rls_vs_cpu", "n": N, "steps": CPU_STEPS, "update_steps": 10,
+          "records": int(cmp["cpu"][0].shape[0]),
+          "readout": vs_cpu("rls_vs_cpu readout", cmp["card"][0], cmp["cpu"][0]),
+          "weights": vs_cpu("rls_vs_cpu weights", cmp["card"][1], cmp["cpu"][1]),
+          "cpu_build_s": cpu_build_s, "card_fit_s": secs["card"], "cpu_fit_s": secs["cpu"]})
+    del cpu_net, net, edge, W, P
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------------- 22. ridge_path
+    net = build_net("bfloat16", fused=True)
+    net.reset()  # every run of this phase starts from the same (zero) state
+    (obs, run_s, _) = counted(lambda: net.run(inputs, sampling_steps=RIDGE_SAMPLING,
+                                              verbose=False))
+    X = obs.to_numpy("out")
+    rows = X.shape[0]
+    if rows >= N:
+        raise AssertionError("ridge_path: X X^T + alpha I is the dual form only for rows < N")
+    X64 = X.astype(np.float64)
+    K = X64 @ X64.T
+    lam_max = float(np.linalg.eigvalsh(K)[-1])
+    alpha = 1e-3 * lam_max
+    cond = (lam_max + alpha) / alpha  # X^T X is singular (rows < N): its least eigenvalue is 0
+    net.reset()
+    obs, fit_s, launches = counted(lambda: net.fit_ridge(
+        inputs, target, sampling_steps=RIDGE_SAMPLING, alpha=alpha, verbose=False))
+    if launches != STEPS:
+        raise AssertionError(f"ridge_path: {launches} qif_sfa_step launches for {STEPS} steps")
+    y32 = np.asarray(obs["y"], dtype=np.float64)
+    x_same = bool(np.array_equal(obs.to_numpy("out"), X))
+    y_t = target[::RIDGE_SAMPLING][:rows]
+    t0 = time.perf_counter()
+    y64 = K @ np.linalg.solve(K + alpha * np.eye(rows), y_t)
+    ref_s = time.perf_counter() - t0
+    rel = float(np.linalg.norm(y32 - y64) / np.linalg.norm(y64))
+    tol = cond * float(np.finfo(np.float32).eps) * np.sqrt(rows)
+    if not (tol < 0.1 and rel <= tol and np.all(np.isfinite(y32))):
+        raise AssertionError(f"ridge_path: predictions off the float64 solve by {rel} "
+                             f"(tolerance {tol})")
+    # the Gram product and the solve alone, on the card
+    Xd = torch.as_tensor(X, device=net.device)
+    yd = torch.as_tensor(y_t, dtype=torch.float32, device=net.device)
+    eye = alpha * torch.eye(N, device=net.device)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    gram, gram_s = timed(lambda: Xd.T @ Xd + eye)
+    _, solve_s = timed(lambda: torch.linalg.solve(gram, Xd.T @ yd))
+    del Xd, gram, eye
+    net.reset()
+    (obs_t, test_loss), test_s, test_launches = counted(
+        lambda: net.test(inputs, target, sampling_steps=RIDGE_SAMPLING, verbose=False))
+    fit_loss = float(np.mean((y32 - y_t) ** 2))
+    emit({"phase": "ridge_path", "n": N, "steps": STEPS, "sampling_steps": RIDGE_SAMPLING,
+          "X_shape": [rows, N], "alpha": alpha, "lambda_max_XXt": lam_max, "cond_gram": cond,
+          "rel_err_vs_float64": rel, "tolerance": tol, "X_equal_to_first_run": x_same,
+          "kernel_launches_fit": launches, "kernel_launches_test": test_launches,
+          "run_s": run_s, "fit_ridge_s": fit_s, "gram_s": gram_s, "solve_s": solve_s,
+          "float64_host_solve_s": ref_s, "fit_loss": fit_loss, "test_s": test_s,
+          "test_loss": test_loss, "target_variance": float(np.var(y_t)),
+          "test_loss_over_target_variance": test_loss / float(np.var(y_t))})
+    entries.append(dict(timing, name="qif_sfa_step[bfloat16,ridge_path]", launches=launches))
+    del net, obs, obs_t, X, X64, K
+    torch.cuda.empty_cache()
+    return entries
+
+
+def tbptt_phase(dev, data, timing: dict) -> list:
+    """Phase 23: truncated BPTT (fit_bptt step mode) of phase 8's int8_master
+    network on the bench data tiled to T_TBPTT.  ``timing`` maps phase 10's
+    int8 kernel names to their entries.  Returns their entries for this
+    path."""
+    from rectipy_tpu_torch.ops.fused_opt import adam_requant
+    from rectipy_tpu_torch.ops.quant import int8_mv, int8_mv_t
+
+    W_np, etas, inp, tgt, _ = data
+    reps = T_TBPTT // T_TRAIN
+    inp_d = torch.as_tensor(np.tile(inp, (reps, 1)), dtype=torch.float32, device=dev)
+    tgt_d = torch.as_tensor(np.tile(tgt, (reps, 1)), dtype=torch.float32, device=dev)
+    kernels = (int8_mv, int8_mv_t, adam_requant)
+    chunks = T_TBPTT // UPDATE_STEPS
+    t0 = time.perf_counter()
+    net = build_train_net(W_np, etas)
+    build_s = time.perf_counter() - t0
+
+    def step_fit():
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs = net.fit_bptt(inp_d, tgt_d, optimizer="adam", lr=LR, update_steps=UPDATE_STEPS,
+                           sampling_steps=1, record_output=False, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # the loss recorded at the last step of each chunk is that chunk's
+        losses = obs.to_numpy("loss")[UPDATE_STEPS - 1::UPDATE_STEPS]
+        return seconds, losses, {k.__name__: k.launches for k in kernels}
+
+    warm_s, warm_losses, _ = step_fit()
+    seconds, losses, launches = step_fit()
+    want = {"int8_mv": T_TBPTT, "int8_mv_t": T_TBPTT, "adam_requant": 0}
+    if launches != want:
+        raise AssertionError(f"tbptt_path: launches {launches}, expected {want}")
+    if net.last_fit != {"trajectory": "chain", "fused_adam": False}:
+        raise AssertionError(f"tbptt_path took {net.last_fit}")
+    if len(losses) != chunks or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"tbptt_path: chunk losses {losses}")
+    emit({"phase": "tbptt_path", "n": N, "T": T_TBPTT, "update_steps": UPDATE_STEPS,
+          "chunks": chunks, "coupling": "int8_master", "optimizer": "adam", "lr": LR,
+          "build_s": build_s, "warm_fit_s": warm_s, "fit_s": seconds,
+          "ms_per_chunk": seconds / chunks * 1e3,
+          "trained_neuron_updates_per_s": T_TBPTT * N / seconds,
+          "launches_per_fit": launches, "chunk_losses_warm_fit": list(map(float, warm_losses)),
+          "chunk_losses": list(map(float, losses))})
+    del net, inp_d, tgt_d
+    torch.cuda.empty_cache()
+    return [dict(timing[name], name=f"{name}[tbptt_path]", launches=launches[name])
+            for name in ("int8_mv", "int8_mv_t")]
+
+
+def feedback_phase() -> list:
+    """Phase 24: examples/feedback_populations.py at N per population.
+    Returns the generic kernel's entry of the ``kernels`` line."""
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
+
+    t0 = time.perf_counter()
+    weights = feedback_weights(N)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = feedback_net(N, None, weights)
+    build_s = time.perf_counter() - t0
+    inputs = np.zeros((STEPS, 1), dtype=np.float32) + 100.0  # the example's drive
+    run_kw = dict(record_output=False, record_vars=[("p1", "s", True), ("p2", "s", True)],
+                  sampling_steps=100, verbose=False)
+    runs = []
+    for _ in range(2):
+        net.reset()
+        generic_fused_step.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs = net.run(inputs, **run_kw)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        launches = generic_fused_step.launches
+        if launches != 2 * STEPS:
+            raise AssertionError(f"feedback_path: {launches} launches for {STEPS} steps")
+        recs = [obs.to_numpy((p, "s")) for p in ("p1", "p2")]
+        if any(r.shape != (STEPS // 100,) or not np.all(np.isfinite(r)) for r in recs):
+            raise AssertionError("feedback_path: bad records")
+    best = min(runs)
+    dev_ms = device_step_ms(net, torch.full((1,), 100.0, device=net.device), reps=30)
+    # the first CPU_STEPS steps on the CPU, held to the card's
+    short = inputs[:CPU_STEPS]
+    cmp_kw = dict(run_kw, sampling_steps=10)
+    t0 = time.perf_counter()
+    cpu_net = feedback_net(N, "cpu", weights)
+    cpu_build_s = time.perf_counter() - t0
+    del weights
+    cmp, secs = {}, {}
+    for name, n_ in (("card", net), ("cpu", cpu_net)):
+        n_.reset()
+        t0 = time.perf_counter()
+        o = n_.run(short, **cmp_kw)
+        secs[name] = time.perf_counter() - t0
+        cmp[name] = np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])
+    del cpu_net
+    emit({"phase": "feedback_path", "template": "lif", "populations": 2, "coupling": "bfloat16",
+          "edges": "float32 dense feedforward p1->p2 and feedback p2->p1", "n": N,
+          "steps": STEPS, "kernel_launches": launches, "w_data_s": data_s, "build_s": build_s,
+          "run_s": runs,
+          "best_s": best, "ms_per_step": best / STEPS * 1e3,
+          "neuron_updates_per_s": 2 * STEPS * N / best, "device_step_ms": dev_ms,
+          "device_idle_share": 1.0 - dev_ms / (best / STEPS * 1e3),
+          "mean_s_range": [float(np.min(recs)), float(np.max(recs))],
+          "vs_cpu": {"steps": CPU_STEPS, "records": int(cmp["cpu"].shape[1]),
+                     **vs_cpu("feedback_path card vs cpu", cmp["card"], cmp["cpu"]),
+                     "cpu_build_s": cpu_build_s, "card_run_s": secs["card"],
+                     "cpu_run_s": secs["cpu"]}})
+    entry = generic_instance("lif,bfloat16,feedback_path", net.get_node("p1"), torch.bfloat16,
+                             16, launches)
+    del net
+    torch.cuda.empty_cache()
+    return [entry]
 
 
 def main() -> int:
@@ -1190,13 +1592,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     entry, timing10 = int4_phases(W_np, build_net)
     kernels.append(entry)
-    del W_np
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     data = bench_training_data(N)
     data_s = time.perf_counter() - t0
     kernels += train_phases(dev, data + (data_s,))
     kernels += int4_train_phases(dev, data + (data_s,), timing10)
+    by_name = {e["name"]: e for e in kernels}
+    kernels += readout_phases(build_net, by_name["qif_sfa_step[bfloat16]"])
+    del W_np
+    kernels += tbptt_phase(dev, data + (data_s,), by_name)
+    kernels += feedback_phase()
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

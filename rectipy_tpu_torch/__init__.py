@@ -16,8 +16,8 @@ __version__ = "0.1.0"
 
 from .convert import load_jax_params
 from .dsl import CircuitTemplate, NodeTemplate, OperatorTemplate, clear_frontend_caches, lower
-from .edges import Linear
-from .network import Network
+from .edges import RLS, Linear
+from .network import FeedbackNetwork, Network
 from .nodes import InstantNode, MultiSpikeResetNet, RateNet, SpikeNet, SpikeResetNet
 from .observer import Observer
 from .ops.generic_fused import attach_generic_fused_step
@@ -33,6 +33,7 @@ from .utility import (
 
 __all__ = [
     "CircuitTemplate",
+    "FeedbackNetwork",
     "InstantNode",
     "Linear",
     "MultiSpikeResetNet",
@@ -40,6 +41,7 @@ __all__ = [
     "NodeTemplate",
     "Observer",
     "OperatorTemplate",
+    "RLS",
     "RateNet",
     "SpikeNet",
     "SpikeResetNet",

@@ -75,7 +75,10 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
     the float master ``weights`` of a ``bfloat16_master``, ``int8_master``
     or ``int4_master`` node, the int8 ``weights`` (for ``int4``, the int8
     carrier of [-7, 7]) and their ``weights__scale`` of a frozen ``int8`` or
-    ``int4`` node, and trainable ``Linear`` edges.
+    ``int4`` node, ``Linear`` edges (feedback edges too), and an ``RLS``
+    edge's ``weights`` and ``P``.  A state with ``"fb"`` (the feedback
+    outputs of a ``FeedbackNetwork``) sets the port network's carried
+    feedback outputs.
 
     Keys the port does not have raise ``KeyError``.  The padded copies of a
     JAX network with a fused step attached (``__wt_pad__``, ``__eta_pad__``,
@@ -101,9 +104,10 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
             refresh()
     for ekey, sub in params.get("edges", {}).items():
         u, _, v = ekey.partition("->")
-        if not net.graph.has_edge(u, v):
+        try:  # get_edge also finds a FeedbackNetwork's feedback edges
+            eparams = net.get_edge(u, v).params
+        except KeyError:
             raise KeyError(f"Edge {ekey!r} does not exist in the port network.")
-        eparams = net.get_edge(u, v).params
         for key, val in sub.items():
             if key not in eparams:
                 raise KeyError(f"Edge {ekey!r} has no parameter {key!r} in the port.")
@@ -121,3 +125,10 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
     for ekey, es in state.get("edges", {}).items():
         if es is not None:
             raise KeyError(f"Edge state of {ekey!r}: stateful edges are not ported.")
+    if state.get("fb"):
+        # the previous-step feedback outputs (the JAX network's _fb_store
+        # after a run, else its sources' current outputs)
+        port_fb = net.init_state()["fb"]
+        net._fb_store = {u: torch.as_tensor(_numpy(val)).to(device=port_fb[u].device,
+                                                             dtype=port_fb[u].dtype)
+                         for u, val in state["fb"].items()}

@@ -1,15 +1,18 @@
-"""Edge runtime: linear projections.
+"""Edge runtime: linear projections and the RLS readout.
 
-Counterpart of the ``Linear`` edge of ``rectipy_tpu/edges.py``.  An edge
-exposes ``init_state()`` and ``make_step() -> (state, params, x) ->
+Counterpart of the ``Linear`` and ``RLS`` edges of ``rectipy_tpu/edges.py``.
+An edge exposes ``init_state()`` and ``make_step() -> (state, params, x) ->
 (state', y)``; its parameters live in a ``params`` dict so the Network can
 collect them into one parameter tree.
 
 - ``Linear``: ``y = W @ x``; weights auto-transposed when given as
   ``(n_in, n_out)``; 1-D weights are per-neuron gains.
+- ``RLS``: a ``Linear`` readout whose weights ``Network.fit_rls`` adapts
+  online by recursive least squares, carrying the inverse-correlation
+  matrix ``P``.
 
-The other edge classes of the JAX package (masked, delay, filter, STP, RLS,
-STDP, block-sparse) are not ported yet (ROADMAP Queue 1 items 9, 10 and 12).
+The other edge classes of the JAX package (masked, delay, filter, STP,
+STDP, block-sparse) are not ported yet (ROADMAP Queue 1 items 10 and 12).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from .nodes import resolve_device, resolve_dtype
 
-__all__ = ["Linear"]
+__all__ = ["Linear", "RLS"]
 
 
 def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -33,7 +36,11 @@ def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 def _apply_w(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Edge projection: 2-D weights -> matvec; 1-D weights -> diagonal
     (elementwise) gains, which spare an (N, N) identity-like matrix for what
-    is an O(N) operation."""
+    is an O(N) operation.  Mixed dtypes (a float64 RLS readout fed by a
+    float32 population) compute in the promoted type, as JAX promotes."""
+    if w.dtype != v.dtype:
+        dtype = torch.promote_types(w.dtype, v.dtype)
+        w, v = w.to(dtype), v.to(dtype)
     return w * v if w.ndim == 1 else w @ v
 
 
@@ -116,3 +123,69 @@ class Linear:
         _, y = self.make_step()(self.init_state(), self.params,
                                 _as_tensor(x, self.dtype, self.device))
         return y
+
+
+class RLS(Linear):
+    """Extended recursive least squares (FORCE-style online readout learning).
+
+    State: the inverse-correlation matrix ``P = alpha*I`` and the weights;
+    per update (the JAX package's ``RLS.update_fn``):
+
+        z = beta^-1 P x
+        k = (1 + x.z)^-1
+        W += outer(y - k*x.(W + outer(y,z))^T, z)
+        P -= k * outer(z, z)
+        loss = |y - y_hat|^2
+
+    ``dtype`` defaults to float64 (RectiPy's own RLS default; the JAX package
+    takes it only with x64 on).  ``P`` is downdated in place, so an update
+    reads P twice and writes it once and never waits on the host.
+
+    References: Principe et al. (2011), Kernel Adaptive Filtering.
+    """
+
+    _tensors = ["weights", "P"]
+
+    def __init__(self, n_in: int, n_out: int, weights=None, dtype=torch.float64,
+                 beta: float = 1.0, alpha: float = 1.0, device=None, **kwargs):
+        if beta > 1 or beta < 0:
+            raise ValueError("Parameter beta should be a positive scalar between 0 and 1.")
+        if alpha < 0:
+            raise ValueError("Parameter alpha should be a positive scalar.")
+        if weights is None:
+            weights = np.zeros((n_out, n_in))
+        super().__init__(n_in, n_out, weights=weights, dtype=dtype, detach=True, device=device)
+        self.beta = float(beta) ** (-1)
+        self.params["P"] = float(alpha) * torch.eye(n_in, dtype=self.dtype, device=self.device)
+        self.loss = 0.0
+        self.train_keys = []
+
+    @property
+    def P(self):
+        return self.params["P"]
+
+    @staticmethod
+    def update_fn(beta_inv: float):
+        """RLS update ``(W, P, x, y, y_hat) -> (W', P, loss)``, used by
+        ``Network.fit_rls``.  ``P`` is downdated in place (``addr_``, with
+        the gain ``k`` a 0-d tensor: no host sync) and returned; ``W'`` is a
+        new tensor.  The downdate rounds ``(k*z_i)*z_j`` where the JAX
+        package rounds ``k*(z_i*z_j)``."""
+
+        def update(W, P, x, y, y_hat):
+            z = beta_inv * torch.mv(P, x)
+            k = 1.0 / (1.0 + x @ z)
+            err = y - y_hat
+            W_new = W + torch.outer(y - k * ((W + torch.outer(y, z)) @ x), z)
+            P.addr_(k * z, z, alpha=-1.0)
+            return W_new, P, err @ err
+
+        return update
+
+    def update(self, x, y, y_hat) -> None:
+        x, y, y_hat = (_as_tensor(a, self.dtype, self.device) for a in (x, y, y_hat))
+        W, P, loss = self.update_fn(self.beta)(self.params["weights"], self.params["P"], x, y,
+                                               y_hat)
+        self.params["weights"] = W
+        self.params["P"] = P
+        self.loss = loss

@@ -1,21 +1,28 @@
-"""Network: graph container, step composition, simulation and BPTT training.
+"""Network: graph container, step composition, simulation and training.
 
-Counterpart of the simulation and epoch-mode training subset of
-``rectipy_tpu/network.py``.  ``compile()`` resolves the graph once into an
+Counterpart of ``rectipy_tpu/network.py`` (``Network`` and
+``FeedbackNetwork``).  ``compile()`` resolves the graph once into an
 evaluation order; ``make_step()`` composes the node and edge steps into one
-network step ``step(state, params, x) -> (state', out, taps)``; ``run``
-drives it in a Python loop over time steps with the JAX package's windowed
-recording semantics; ``fit_bptt`` (epoch mode) trains through the
-deferred-gradient trajectory of ``ops/bptt.py`` on chain networks and through
-plain autograd otherwise.
+network step ``step(state, params, x) -> (state', out, taps)`` (feedback
+edges read the previous step's source outputs from ``state["fb"]``);
+``run`` drives it in a Python loop over time steps with the JAX package's
+windowed recording semantics.  The trainers:
 
-On the device: the inputs move to the device once, the records and epoch
-losses stay on the device, and nothing inside the loops synchronises with
-the host; they cross to the host once, at the end.
+- ``fit_bptt``: epoch mode (one update per epoch) and step mode (truncated
+  BPTT, one update per ``update_steps`` chunk), through the deferred-gradient
+  trajectory of ``ops/bptt.py`` on chain networks and through plain autograd
+  otherwise;
+- ``fit_ridge``: a closed-form ridge readout (Gram matrix and solve);
+- ``fit_rls``: online FORCE learning of an ``RLS`` edge;
+- ``test``: a frozen run scored by a loss.
 
-Not ported yet (ROADMAP Queue 1 items 7-14): ``fit_bptt`` step mode,
-``remat_steps`` and ``mesh=``, the other trainers, ``run_batch``,
-``FeedbackNetwork``, the edge classes beyond ``Linear``, heterogeneous
+On the device: the inputs move to the device once, the records and losses
+stay on the device, and nothing inside the loops synchronises with the host;
+they cross to the host once, at the end.
+
+Not ported yet (ROADMAP Queue 1 items 7 and 10-14): ``remat_steps`` and
+``mesh=``, ``run_batch`` and the batched trainers, ``fit_stdp`` and
+``fit_eprop``, the edge classes beyond ``Linear`` and ``RLS``, heterogeneous
 circuits, on-device input specs and spike rasters.
 """
 
@@ -23,21 +30,21 @@ from __future__ import annotations
 
 import os
 from time import perf_counter
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import networkx as nx
 import numpy as np
 import torch
 from networkx import DiGraph
 
-from .edges import Linear
+from .edges import RLS, Linear
 from .nodes import InstantNode, RateNet, SpikeNet, SpikeResetNet, resolve_device, resolve_dtype
 from .observer import Observer
 from .train import get_loss_function, get_optimizer
 from .train.optimizers import tree_map
 from .utility import add_op_name, retrieve_from_dict
 
-__all__ = ["Network"]
+__all__ = ["FeedbackNetwork", "Network"]
 
 
 def _ekey(u: str, v: str) -> str:
@@ -82,6 +89,31 @@ def _unflatten(paths: list, leaves: list) -> dict:
     return tree
 
 
+def _detach(tree):
+    """A state tree cut out of the autograd graph (the truncation of BPTT)."""
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree
+
+
+def _read_vars(rec_info: list, state: dict, params: dict) -> list:
+    """The ``record_vars`` values of ``state`` (``_resolve_record_vars``'s
+    entries; ``reduce`` takes the population mean)."""
+    vals = []
+    for (_, label, reader, reduce) in rec_info:
+        val = reader(state["nodes"][label], params["nodes"][label])
+        vals.append(val.mean() if reduce else val)
+    return vals
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
 class Network:
     """Main user interface for building and simulating networks of
     differential-equation nodes, function nodes, and linear edges.
@@ -103,6 +135,8 @@ class Network:
         self._out_node: Optional[str] = None
         self._compiled = None
         self._step_cache: Dict[tuple, Callable] = {}
+        self._fb_store: Dict[str, torch.Tensor] = {}  # previous-step feedback outputs
+        self._train_edge: Optional[Tuple[str, str]] = None  # the RLS edge (source, target)
         self.last_fit: Optional[dict] = None  # the paths the last fit_bptt took
 
     # ------------------------------------------------------------- container
@@ -181,6 +215,38 @@ class Network:
             n.y = y
 
     # -------------------------------------------------------------- building
+    @classmethod
+    def from_yaml(cls, node, weights=None, dt: float = 1e-3, source_var: str = None,
+                  target_var: str = None, input_var: str = None, output_var: str = None,
+                  device=None, dtype=torch.float32, label: str = "rnn",
+                  train_params: list = None, **kwargs) -> "Network":
+        """Legacy one-call constructor (an older RectiPy API): a Network with a
+        single diffeq node built from a YAML template.  ``device=None`` is
+        the current CUDA device, as for ``Network``."""
+        net = cls(dt, device=device, dtype=dtype)
+        net.add_diffeq_node(label, node, input_var=input_var, output_var=output_var,
+                            weights=weights, source_var=source_var, target_var=target_var,
+                            train_params=train_params, **kwargs)
+        return net
+
+    def add_input_layer(self, m: int, weights=None, train: Optional[str] = None,
+                        **kwargs) -> Linear:
+        """Legacy helper: add an identity input node of width ``m`` wired to
+        the network's current input node."""
+        self.compile()
+        target = self._in_node
+        self.add_func_node("input_layer", m, activation_function="identity")
+        return self.add_edge("input_layer", target, weights=weights, train=train, **kwargs)
+
+    def add_output_layer(self, k: int, weights=None, train: Optional[str] = None,
+                         activation_function: str = "identity", **kwargs) -> Linear:
+        """Legacy helper: add an activation output node of width ``k`` wired
+        from the network's current output node."""
+        self.compile()
+        source = self._out_node
+        self.add_func_node("output_layer", k, activation_function=activation_function)
+        return self.add_edge(source, "output_layer", weights=weights, train=train, **kwargs)
+
     def add_node(self, label: str, node, node_type: str, op: str = None, **node_attrs) -> None:
         """Insert a pre-built node instance into the graph."""
         if op:
@@ -203,7 +269,8 @@ class Network:
         prefixes bare variable names, the node-class dispatch on
         ``spike_var``/``reset``, ``train_params``, and ``spike_def`` as an
         alias for ``reset_var``.  The node is placed on the network's device
-        and, unless ``dtype=`` is given, takes the network's dtype.
+        and, unless ``dtype=`` (or ``float_precision=``) is given, takes the
+        network's dtype.
         """
         if reset_var is None and "spike_def" in kwargs:
             reset_var = kwargs.pop("spike_def")
@@ -238,6 +305,8 @@ class Network:
 
         args = (node, var_dict["in_ext"], var_dict["out"])
         kwargs.pop("device", None)
+        if "dtype" not in kwargs and "float_precision" in kwargs:
+            kwargs["dtype"] = kwargs.pop("float_precision")
         kwargs.setdefault("dtype", self.dtype)
         build_kwargs = {"weights": weights, "source_var": var_dict["svar"],
                         "target_var": var_dict["tvar"], "train_params": train_params,
@@ -271,12 +340,18 @@ class Network:
 
     def add_edge(self, source: str, target: str, weights=None, train: Optional[str] = None,
                  edge_attrs: dict = None, **kwargs) -> Linear:
-        """Add a ``Linear`` edge, on the network's device and dtype.
-        ``train`` is ``None`` or ``'gd'``.  The other edge classes of the
-        JAX package (chosen there by ``mask``/``delays``/``filter_weights``/
-        ``tau_facil``/``tau_depress`` or block-sparse weights) and the online
-        rules (``'rls'``, ``'eprop'``, ``'stdp'``) raise
-        ``NotImplementedError``."""
+        """Add an edge on the network's device.  ``train``:
+
+        - ``None`` or ``'gd'``: a ``Linear`` edge in the network's dtype,
+          frozen or trained by ``fit_bptt``;
+        - ``'rls'``: an ``RLS`` readout (``beta``, ``alpha``) that
+          ``fit_rls`` trains online; its dtype is ``rls_dtype``, by default
+          float64 (the JAX package takes float64 only with x64 on).
+
+        The other edge classes of the JAX package (chosen there by
+        ``mask``/``delays``/``filter_weights``/``tau_facil``/``tau_depress``
+        or block-sparse weights) and the rules ``'eprop'`` and ``'stdp'``
+        raise ``NotImplementedError``."""
         edge_attrs = dict(edge_attrs or {})
         kwargs.pop("dtype", None)
         kwargs.pop("device", None)
@@ -284,18 +359,32 @@ class Network:
                          & set(kwargs))
         if special or hasattr(weights, "blocks"):
             raise _todo(f"An edge with {'/'.join(special) or 'block-sparse weights'}", "10")
-        if train not in (None, "gd"):
-            if train in ("rls", "eprop", "stdp"):
-                raise _todo(f"train={train!r}", "9/12")
+        if train not in (None, "gd", "rls"):
+            if train in ("eprop", "stdp"):
+                raise _todo(f"train={train!r}", "12")
             raise ValueError(
                 "Invalid option for keyword argument `train`. Please see the docstring of "
                 "`Network.add_edge` for valid options."
             )
-        kwargs.update({"n_in": self[source]["n_out"], "n_out": self[target]["n_in"],
-                       "weights": weights, "dtype": self.dtype, "device": self.device})
-        edge = Linear(**kwargs, detach=train is None)
-        self.graph.add_edge(source, target, edge=edge, trainable=train is not None,
+        n_in, n_out = self[source]["n_out"], self[target]["n_in"]
+        if train == "rls":
+            edge = RLS(n_in, n_out, weights=weights,
+                       dtype=resolve_dtype(kwargs.get("rls_dtype", torch.float64)),
+                       beta=kwargs.get("beta", 1.0), alpha=kwargs.get("alpha", 1.0),
+                       device=self.device)
+            self._train_edge = (source, target)
+        else:
+            kwargs.update({"n_in": n_in, "n_out": n_out, "weights": weights,
+                           "dtype": self.dtype, "device": self.device})
+            edge = Linear(**kwargs, detach=train is None)
+        self.graph.add_edge(source, target, edge=edge, trainable=train == "gd",
                             n_in=edge.n_in, n_out=edge.n_out, **edge_attrs)
+        self._invalidate()
+        return edge
+
+    def pop_edge(self, source: str, target: str):
+        edge = self.get_edge(source, target)
+        self.graph.remove_edge(source, target)
         self._invalidate()
         return edge
 
@@ -339,6 +428,11 @@ class Network:
         self._step_cache.clear()
         return self
 
+    def _fb_edge_list(self) -> list:
+        """``[(source, target, edge)]`` of the feedback edges
+        (``FeedbackNetwork``); none in a plain ``Network``."""
+        return []
+
     def _step_versions(self) -> tuple:
         """Per-node step versions: attaching a fused kernel bumps a node's
         version, invalidating every cached step composed from it."""
@@ -363,10 +457,22 @@ class Network:
         preds = {n: sorted(self.graph.predecessors(n)) for n in order}
         edge_steps = {(u, n): self.get_edge(u, n).make_step() for n in order for u in preds[n]}
         out_node = self._out_node
+        fb_edges = self._fb_edge_list()
+        fb_steps = {(u, v): e.make_step() for u, v, e in fb_edges}
+        fb_by_target: Dict[str, list] = {}
+        for u, v, _ in fb_edges:
+            fb_by_target.setdefault(v, []).append(u)
+        fb_sources = sorted({u for u, _, _ in fb_edges})
+        # a feedback edge carries its source's out-slice after the update (the
+        # next step's pre-update output, RectiPy's semantics); an instant
+        # source passes this step's output
+        fb_readers = {u: getattr(self.get_node(u), "_make_out_reader", lambda: None)()
+                      for u in fb_sources}
 
         def step(state, params, x):
             nodes_st = dict(state["nodes"])
             edges_st = dict(state["edges"])
+            fb_prev = state.get("fb", {})
             outs = {}
             for n in order:
                 if preds[n]:
@@ -378,16 +484,27 @@ class Network:
                         inp = val if inp is None else inp + val  # fan-in sum
                 else:
                     inp = x
+                for u in fb_by_target.get(n, ()):
+                    k = _ekey(u, n)
+                    es, val = fb_steps[(u, n)](edges_st[k], params["edges"][k], fb_prev[u])
+                    edges_st[k] = es
+                    inp = inp + val
                 ns, out = node_steps[n](nodes_st[n], params["nodes"][n], inp)
                 nodes_st[n] = ns
                 outs[n] = out
-            return {"nodes": nodes_st, "edges": edges_st}, outs[out_node], {t: outs[t] for t in taps}
+            new_state = {"nodes": nodes_st, "edges": edges_st}
+            if fb_sources or "fb" in state:
+                new_state["fb"] = {
+                    u: outs[u] if fb_readers[u] is None
+                    else fb_readers[u](nodes_st[u], params["nodes"][u]) for u in fb_sources}
+            return new_state, outs[out_node], {t: outs[t] for t in taps}
 
         self._step_cache[key] = step
         return step
 
     def init_state(self) -> dict:
-        """Current network state as a tree (node states, edge states)."""
+        """Current network state as a tree (node states, edge states and,
+        with feedback edges, the previous-step feedback outputs)."""
         if self._compiled is None:
             self.compile()
         order = self._compiled["order"]
@@ -398,6 +515,20 @@ class Network:
         for n in order:
             for u in self.graph.predecessors(n):
                 state["edges"][_ekey(u, n)] = self.get_edge(u, n).init_state()
+        fb_edges = self._fb_edge_list()
+        if fb_edges:
+            fb = {}
+            for u, v, e in fb_edges:
+                state["edges"][_ekey(u, v)] = e.init_state()
+                src = self.get_node(u)
+                if u in self._fb_store:
+                    fb[u] = self._fb_store[u]
+                elif hasattr(src, "_make_out_reader"):
+                    # the first step reads the initial state's output, not zeros
+                    fb[u] = src._make_out_reader()(src.y, src.args)
+                else:
+                    fb[u] = torch.zeros(self[u]["n_out"], dtype=self.dtype, device=self.device)
+            state["fb"] = fb
         return state
 
     def parameters_pytree(self) -> dict:
@@ -409,7 +540,76 @@ class Network:
         for n in order:
             for u in self.graph.predecessors(n):
                 params["edges"][_ekey(u, n)] = dict(self.get_edge(u, n).params)
+        for u, v, e in self._fb_edge_list():
+            params["edges"][_ekey(u, v)] = dict(e.params)
         return params
+
+    def describe(self) -> str:
+        """Human-readable architecture summary: nodes (class, size,
+        integrator, trainables), edges (class, weight shape and dtype, extra
+        carried tensors), and parameter/state totals with their memory
+        footprint; the JAX package's format.  ``print(net.describe())``."""
+        self.compile()
+        order = self._compiled["order"]
+        lines = [f"Network(dt={self.dt}, dtype={_dtype_name(self.dtype)}): "
+                 f"{len(order)} node(s), input={self._in_node!r} (n_in={self.n_in}), "
+                 f"output={self._out_node!r} (n_out={self.n_out})"]
+
+        def size(leaf):
+            return leaf.numel() if isinstance(leaf, torch.Tensor) else int(np.size(leaf))
+
+        def nbytes(leaf):  # a Python scalar counts as a float64
+            if isinstance(leaf, torch.Tensor):
+                return leaf.numel() * leaf.element_size()
+            return size(leaf) * np.dtype(getattr(leaf, "dtype", np.float64)).itemsize
+
+        def stats(tree):
+            leaves = [v for v in tree.values() if v is not None]
+            return sum(map(size, leaves)), sum(map(nbytes, leaves))
+
+        n_param = n_bytes = 0
+        lines.append("nodes:")
+        for label in order:
+            node = self.get_node(label)
+            cnt, byt = stats(node.args)
+            n_param += cnt
+            n_bytes += byt
+            y = getattr(node, "y", None)
+            extra = ""
+            if getattr(node, "integrator", "euler") != "euler":
+                extra += f", integrator={node.integrator}"
+            if node.train_keys:
+                extra += f", train={list(node.train_keys)}"
+            size_s = f"state={y.shape[0]}" if y is not None else f"n={node.n_in}"
+            lines.append(f"  {label}: {type(node).__name__} ({size_s}, {cnt:,} params{extra})")
+            if y is not None:
+                n_bytes += nbytes(y)
+        edges = [(u, v, self.get_edge(u, v), "") for v in order for u in self.graph.predecessors(v)]
+        edges += [(u, v, e, " [feedback]") for u, v, e in self._fb_edge_list()]
+        if edges:
+            lines.append("edges:")
+        for u, v, e, tag in edges:
+            cnt, byt = stats(e.params)
+            n_param += cnt
+            n_bytes += byt
+            w = e.params["weights"]
+            shape = "x".join(map(str, w.shape)) if w.dim() else "scalar"
+            extras = [k for k in e.params if k != "weights"]
+            lines.append(f"  {u} -> {v}{tag}: {type(e).__name__} ({shape} {_dtype_name(w.dtype)}"
+                         + (f", carry: {extras}" if extras else "")
+                         + (f", train={list(e.train_keys)}" if e.train_keys else "") + ")")
+        params = self.parameters_pytree()
+        t_cnt = sum(size(params[kind][label][key]) for kind, label, key in self.trainable_paths())
+        lines.append(f"totals: {n_param:,} parameters ({t_cnt:,} trainable), "
+                     f"~{n_bytes/1e6:,.1f} MB params+state on device")
+        return "\n".join(lines)
+
+    def parameters(self, recurse: bool = True) -> Iterator:
+        """The trainable parameters of the network's nodes and edges."""
+        for n in self.graph:
+            yield from self.get_node(n).parameters(recurse=recurse)
+        for s, t in self.graph.edges:
+            yield from self.graph[s][t]["edge"].parameters()
 
     def trainable_paths(self) -> List[tuple]:
         """Paths ``(kind, label, key)`` of trainable leaves in the params tree."""
@@ -424,6 +624,9 @@ class Network:
             for u in self.graph.predecessors(n):
                 for k in self.get_edge(u, n).train_keys:
                     paths.append(("edges", _ekey(u, n), k))
+        for u, v, e in self._fb_edge_list():
+            for k in e.train_keys:
+                paths.append(("edges", _ekey(u, v), k))
         return paths
 
     @staticmethod
@@ -464,6 +667,8 @@ class Network:
         node and edge wrappers."""
         order = self._compiled["order"]
         if state is not None:
+            if "fb" in state:
+                self._fb_store = dict(state["fb"])
             for n in order:
                 node = self.get_node(n)
                 ns = state["nodes"].get(n)
@@ -532,6 +737,10 @@ class Network:
 
         The loop runs without autograd (``enable_grad`` is accepted and
         ignored, as in the JAX package: gradients belong to the trainers).
+        So ``truncate_steps`` (the JAX package cuts the gradient of its
+        generic scan every ``truncate_steps`` steps) has no gradient to cut:
+        it is checked and the records are those of the run without it, as
+        in the JAX package.
         """
         del enable_grad
         for key, what, item in (("mesh", "run(mesh=)", "14"),
@@ -548,8 +757,9 @@ class Network:
             raise ValueError(f"`inputs` must be a (T, m) array; got shape {tuple(inputs.shape)}")
         steps = int(inputs.shape[0])
         n_chan = int(inputs.shape[1])
-        if int(kwargs.pop("truncate_steps", steps)) < steps:
-            raise _todo("run(truncate_steps=)", "9")
+        truncate_steps = int(kwargs.pop("truncate_steps", steps))
+        if truncate_steps < 1:
+            raise ValueError(f"truncate_steps must be >= 1; got {truncate_steps}")
 
         self.compile()
         if self.n_in and n_chan not in (1, self.n_in):
@@ -653,7 +863,10 @@ class Network:
         return outs, rec_vars
 
     def reset(self, state: dict = None):
-        """Reset node states to zeros, or to the given per-node vectors."""
+        """Reset node states to zeros, or to the given per-node vectors, and
+        drop the carried feedback outputs (the next run's first step reads
+        them from the reset states)."""
+        self._fb_store = {}
         for node in self.nodes:
             n = self.get_node(node)
             if hasattr(n, "y"):
@@ -670,28 +883,41 @@ class Network:
                  loss: str = "mse", loss_kwargs: dict = None, lr: float = 1e-3,
                  sampling_steps: int = 1, update_steps: int = 100, verbose: bool = True,
                  **kwargs) -> Observer:
-        """Backpropagation through time, epoch mode: ``inputs`` and
-        ``targets`` are lists (or 3-D arrays ``(epochs, T, m)``); each epoch
-        runs the trajectory from the pre-training state, takes the loss over
-        its (downsampled) outputs and makes one optimizer update.
+        """Backpropagation through time, in two modes, as in the JAX package:
+
+        - epoch mode (``inputs`` and ``targets`` are lists, or 3-D arrays
+          ``(epochs, T, m)``): each epoch runs the trajectory from the
+          pre-training state, takes the loss over its (downsampled) outputs
+          and makes one optimizer update;
+        - step mode (2-D ``(T, m)`` arrays): truncated BPTT.  The run is cut
+          into chunks of ``update_steps`` steps; each chunk is one
+          trajectory from the state the previous one left (detached: that is
+          the truncation), its loss over its per-step outputs, and one
+          optimizer update.  Leftover steps run forward without an update.
+          The records follow the global ``step % sampling_steps == 0`` grid
+          (per-step outputs, no downsampling), each with the loss of the
+          last completed chunk (0 before the first).
 
         ``fused_bptt`` (default ``'auto'``): chain networks ``[instants] ->
         population -> [instants]`` train through the deferred-gradient
         trajectory of ``ops/bptt.py`` (the stateless pre/post stages run
-        outside the time loop, as one batched product each); anything else
-        takes plain autograd through ``make_step``.  ``True`` raises where the
-        chain trajectory does not apply; ``False`` always takes plain
-        autograd.  (The JAX package's multi-population graph trajectory is
-        not ported; plain autograd gives the same gradients.)
+        outside the time loop, as one batched product each); anything else,
+        and step mode with ``record_vars``, takes plain autograd through
+        ``make_step``.  ``True`` raises where the chain trajectory does not
+        apply; ``False`` always takes plain autograd.  (The JAX package's
+        multi-population graph trajectory is not ported; plain autograd
+        gives the same gradients.)
 
-        ``RECTIPY_FUSED_ADAM`` picks the optimizer tail of a plain-adam fit
-        of one trained dense ``int8_master`` coupling on a chain: ``off``
-        (default: the split optax-formula optimizer) or ``on`` (one pass of
-        adam + requantization through ``ops.fused_opt.adam_requant``, the
-        CUDA kernel on the card).  Any other value raises ``ValueError``.
+        ``RECTIPY_FUSED_ADAM`` picks the optimizer tail of a plain-adam
+        epoch-mode fit of one trained dense ``int8_master`` coupling on a
+        chain: ``off`` (default: the split optax-formula optimizer) or ``on``
+        (one pass of adam + requantization through
+        ``ops.fused_opt.adam_requant``, the CUDA kernel on the card).  Any
+        other value raises ``ValueError``.  Step mode always takes the split
+        optimizer, as the JAX package does.
 
-        Not ported yet: step mode (2-D inputs, ROADMAP Queue 1 item 9),
-        ``remat_steps`` (item 7) and ``mesh=`` (item 14).
+        Not ported yet: ``remat_steps`` (ROADMAP Queue 1 item 7) and
+        ``mesh=`` (item 14).
         """
         self.compile()
         loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
@@ -706,14 +932,12 @@ class Network:
         if kwargs:
             raise TypeError(f"fit_bptt() got unexpected keyword arguments {sorted(kwargs)}")
         epoch_mode = isinstance(inputs, list) or getattr(inputs, "ndim", 0) == 3
-        if not epoch_mode:
-            raise _todo("fit_bptt step mode (2-D inputs)", "9")
-        if len(inputs) != len(targets):
+        if epoch_mode and len(inputs) != len(targets):
             raise ValueError(
                 "Wrong dimensions of input and target output. Please make sure that "
                 "`inputs` and `targets` agree in the first dimension (epochs)."
             )
-        mode = fused_adam_mode()
+        mode = fused_adam_mode() if epoch_mode else "off"
         obs = Observer(dt=self.dt, **obs_kwargs)
         paths = self.trainable_paths()
         if not paths:
@@ -723,6 +947,25 @@ class Network:
         train = tree_map(lambda t: t.detach(), train)
         opt_state = opt.init(train)
         state0 = self.init_state()
+
+        if not epoch_mode:
+            inputs, targets = self._to_device(inputs), self._to_device(targets)
+            if inputs.shape[0] != targets.shape[0]:
+                raise ValueError(
+                    "Wrong dimensions of input and target output. Please make sure that "
+                    "`inputs` and `targets` agree in the first dimension."
+                )
+            t0 = perf_counter()
+            train, stateT, rec = self._bptt_steps(loss_fn, opt, train, frozen, opt_state,
+                                                  state0, inputs, targets, update_steps,
+                                                  sampling_steps, obs, fused_bptt)
+            self._write_back(state=stateT)
+            obs.record_batch(rec["steps"], outputs=rec["out"], losses=rec["loss"],
+                             var_values=rec["vars"])
+            self._write_back(params=self._combine(train, frozen))
+            if verbose:
+                print(f"Finished optimization after {perf_counter() - t0} s.")
+            return obs
 
         # plain adam (only b1/b2/eps overrides, a scalar lr) may take the fused
         # adam + requantize tail (decided per network in _build_fused_adam)
@@ -772,9 +1015,12 @@ class Network:
         """Decompose a chain network ``[instants...] -> population ->
         [instants...]`` (stateless ``Linear`` edges) into ``(label,
         apply_prefix, apply_suffix)``; ``None`` when the topology does not
-        qualify.  The stateless pre/post stages move outside the time loop:
-        each becomes one batched product over the ``(T, n)`` series."""
+        qualify (feedback edges never do).  The stateless pre/post stages
+        move outside the time loop: each becomes one batched product over the
+        ``(T, n)`` series."""
         order = self._compiled["order"]
+        if self._fb_edge_list():
+            return None
         if len(order) == 1:
             return order[0], None, None
         diffeq = [n for n in order if self[n].get("node_type") == "diff_eq"]
@@ -809,6 +1055,31 @@ class Network:
         return (label, lambda params, xs: apply(pre_ops, params, xs),
                 lambda params, outs: apply(post_ops, params, outs))
 
+    def _chain_traj(self, fused_bptt) -> tuple:
+        """``(chain, traj, wkeys)``: the chain decomposition and the
+        deferred-gradient trajectory of its population with the coupling
+        keys it takes (``ops/bptt.make_coupled_traj``), or ``traj=None``
+        where the fit takes plain autograd.  ``fused_bptt=True`` raises
+        where the trajectory does not apply."""
+        if fused_bptt not in ("auto", True):
+            return None, None, None
+        chain = self._chain_decompose()
+        if chain is None:
+            if fused_bptt is True:
+                raise ValueError("fused_bptt=True needs a chain network [instants] -> "
+                                 "population -> [instants]; the graph trajectory is not "
+                                 "ported yet (ROADMAP Queue 1 item 10).")
+            return None, None, None
+        from .ops.bptt import make_coupled_traj
+
+        try:
+            traj, wkeys = make_coupled_traj(self.get_node(chain[0]))
+        except (ValueError, AttributeError, KeyError):
+            if fused_bptt is True:
+                raise
+            return chain, None, None
+        return chain, traj, wkeys
+
     def _build_epoch_programs(self, loss_fn, opt, fused_bptt, sampling_steps, fused_cfg,
                               paths):
         """``(update, init_opt, pack, info)``: the per-epoch update
@@ -819,21 +1090,7 @@ class Network:
         bool}``)."""
         combine = self._combine
         step = self.make_step()
-        traj = chain = None
-        if fused_bptt in ("auto", True):
-            chain = self._chain_decompose()
-            if chain is not None:
-                from .ops.bptt import make_coupled_traj
-
-                try:
-                    traj, traj_wkeys = make_coupled_traj(self.get_node(chain[0]))
-                except (ValueError, AttributeError, KeyError):
-                    if fused_bptt is True:
-                        raise
-            elif fused_bptt is True:
-                raise ValueError("fused_bptt=True needs a chain network [instants] -> "
-                                 "population -> [instants]; the graph trajectory is not "
-                                 "ported yet (ROADMAP Queue 1 item 10).")
+        chain, traj, traj_wkeys = self._chain_traj(fused_bptt)
 
         def downsample(outs):
             if sampling_steps > 1:
@@ -948,20 +1205,7 @@ class Network:
             # call of the same fit (the recording path splits one fit)
             opt_state = init_opt(train, opt_state)
         y0 = pack(state0)
-        # stage each distinct input/target array on the device once; the
-        # cache holds the source object too, so an id() is never reused
-        staged: Dict[int, tuple] = {}
-
-        def stage(x):
-            hit = staged.get(id(x))
-            if hit is None:
-                if isinstance(x, torch.Tensor):
-                    arr = x.to(device=self.device, dtype=self.dtype)
-                else:
-                    arr = torch.as_tensor(np.asarray(x)).to(device=self.device, dtype=self.dtype)
-                hit = staged[id(x)] = (x, arr)
-            return hit[1]
-
+        stage = self._stager()
         losses = []
         for epoch in range(len(inputs)):
             inp, tgt = stage(inputs[epoch]), stage(targets[epoch])
@@ -975,14 +1219,357 @@ class Network:
             losses = [float(x) for x in torch.stack(losses).cpu().tolist()]
         return train, opt_state, losses
 
+    def _to_device(self, x) -> torch.Tensor:
+        """An array or tensor on the network's device, in its dtype."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=self.dtype)
+        return torch.as_tensor(np.asarray(x)).to(device=self.device, dtype=self.dtype)
 
-def _value_and_grad(loss_fn, train, frozen, y0, inp, tgt):
-    """``(loss, grads)`` of ``loss_fn(train, ...)`` with respect to every leaf
-    of ``train``; a leaf the loss does not reach gets a zero gradient."""
+    def _stager(self) -> Callable:
+        """``stage(x)``: each distinct input/target array moves to the device
+        once; the cache holds the source object too, so an id() is never
+        reused."""
+        staged: Dict[int, tuple] = {}
+
+        def stage(x):
+            hit = staged.get(id(x))
+            if hit is None:
+                hit = staged[id(x)] = (x, self._to_device(x))
+            return hit[1]
+
+        return stage
+
+    def _bptt_steps(self, loss_fn, opt, train, frozen, opt_state, state0, inputs, targets,
+                    update_steps, sampling_steps, obs, fused_bptt):
+        """Step mode of ``fit_bptt`` (truncated BPTT): ``(train', state_T,
+        records)``.  The chunk losses and the records stay on the device
+        until the end."""
+        combine = self._combine
+        step = self.make_step()
+        T, u, s = int(inputs.shape[0]), int(update_steps), int(sampling_steps)
+        n_upd = T // u
+        rec_info = self._resolve_record_vars(obs)
+        record_output = obs.record_output
+
+        # records on the global grid step % s == 0: per-step outputs and
+        # record_vars after the step
+        rec_steps, rec_out, rec_vars = [], [], []
+
+        def record(t, out, vals):
+            rec_steps.append(t)
+            if record_output:
+                rec_out.append(out.detach())
+            rec_vars.append([v.detach() for v in vals])
+
+        def forward(state, params, t0, t1):  # no update (T < u, and the leftover)
+            with torch.no_grad():
+                for t in range(t0, t1):
+                    state, out, _ = step(state, params, inputs[t])
+                    if t % s == 0:
+                        record(t, out, _read_vars(rec_info, state, params))
+            return state
+
+        # the chain trajectory emits outputs only: record_vars take autograd
+        chain, traj, wkeys = self._chain_traj(fused_bptt if not rec_info else False)
+        if traj is not None:
+            label, prefix, suffix = chain
+
+            def chunk_loss(train, frozen, state, t0):
+                params = combine(train, frozen)
+                nargs = params["nodes"][label]
+                W = {k: nargs[k] for k in wkeys}
+                rest = {k: v for k, v in nargs.items() if k not in wkeys}
+                xs = inputs[t0:t0 + u]
+                xs = prefix(params, xs) if prefix is not None else xs
+                yT, outs = traj(W, rest, state["nodes"][label], xs)
+                if suffix is not None:
+                    outs = suffix(params, outs)
+                new_state = {**state, "nodes": {**state["nodes"], label: yT}}
+                return loss_fn(outs, targets[t0:t0 + u]), (new_state, outs, {})
+        else:
+            def chunk_loss(train, frozen, state, t0):
+                params = combine(train, frozen)
+                outs, vals = [], {}
+                for t in range(t0, t0 + u):
+                    state, out, _ = step(state, params, inputs[t])
+                    outs.append(out)
+                    if rec_info and t % s == 0:
+                        vals[t] = _read_vars(rec_info, state, params)
+                outs = torch.stack(outs)
+                return loss_fn(outs, targets[t0:t0 + u]), (state, outs, vals)
+
+        self.last_fit = {"trajectory": "chain" if traj is not None else "autograd",
+                         "fused_adam": False}
+        state, losses = state0, []
+        for c in range(n_upd):
+            t0 = c * u
+            lval, grads, (state, outs, vals) = _value_and_grad(
+                chunk_loss, train, frozen, state, t0, has_aux=True)
+            train, opt_state = opt.update(grads, opt_state, train)
+            train = tree_map(lambda t: t.detach(), train)
+            state = _detach(state)  # the truncation
+            losses.append(lval)
+            for t in range(t0 + (-t0) % s, t0 + u, s):
+                record(t, outs[t - t0], vals.get(t, ()))
+        state = forward(state, combine(train, frozen), n_upd * u, T)
+
+        steps = np.asarray(rec_steps, dtype=np.int64)
+        # the loss recorded at step t is that of the last chunk completed by
+        # then (chunks end at steps u-1, 2u-1, ...; 0 before the first)
+        done = np.minimum((steps + 1) // u, n_upd)
+        chunk_losses = _host(torch.stack(losses)) if losses else np.zeros(1)
+        rec_loss = np.where(done >= 1, chunk_losses[np.maximum(done - 1, 0)], 0.0)
+        vars_ = {key: _host(torch.stack([r[i] for r in rec_vars]))
+                 for i, (key, _, _, _) in enumerate(rec_info)} if len(steps) else {}
+        out = _host(torch.stack(rec_out)) if rec_out else None
+        return train, state, {"steps": steps, "out": out, "loss": rec_loss, "vars": vars_}
+
+    def fit_ridge(self, inputs, targets, sampling_steps: int = 100, alpha: float = 1e-4,
+                  verbose: bool = True, add_readout_node: bool = True, **kwargs) -> Observer:
+        """Closed-form ridge-regression readout of the network trajectory,
+        ``w_out = (X^T X + alpha*I)^-1 X^T y``, with ``X`` the outputs
+        ``run`` records (one row per ``sampling_steps`` window) and ``y`` the
+        targets at the recorded steps.  The Gram matrix and the solve run on
+        the network's device in its dtype.  ``add_readout_node=True`` adds an
+        identity node ``readout`` wired from the output node with ``w_out``.
+        The Observer also holds ``y`` (the fitted predictions ``X w_out``)
+        and ``w_out``, as numpy arrays."""
+        targets = self._to_device(targets)
+        if len(inputs) != targets.shape[0]:
+            raise ValueError(
+                "Wrong dimensions of input and target output. Please make sure that `inputs` "
+                "and `targets` agree in the first dimension."
+            )
+        self.compile()
+        t0 = perf_counter()
+        obs = self.run(inputs=inputs, sampling_steps=sampling_steps, verbose=verbose, **kwargs)
+        if verbose:
+            print(f"Finished network state collection after {perf_counter() - t0} s.")
+
+        t0 = perf_counter()
+        X = self._to_device(obs.to_numpy("out"))
+        if X.shape[0] != targets.shape[0]:
+            targets = targets[torch.as_tensor(np.asarray(obs["steps"]), device=self.device)]
+        gram = X.T @ X + alpha * torch.eye(X.shape[1], dtype=self.dtype, device=self.device)
+        w_out = torch.linalg.solve(gram, X.T @ targets)
+        y = X @ w_out
+        if verbose:
+            print(f"Finished fitting of read-out weights after {perf_counter() - t0} s.")
+
+        if add_readout_node:
+            prev_out = self._out_node
+            self.add_func_node("readout", n=int(w_out.shape[1]), activation_function="identity")
+            self.add_edge(prev_out, target="readout", weights=w_out.T.contiguous())
+        obs.save("y", _host(y))
+        obs.save("w_out", _host(w_out))
+        return obs
+
+    def fit_rls(self, inputs, targets, update_steps: int = 1, sampling_steps: int = 100,
+                verbose: bool = True, **kwargs) -> Observer:
+        """Online recursive-least-squares (FORCE) training of the edge added
+        with ``add_edge(..., train='rls')``.
+
+        Every step runs the network; at ``step % update_steps == 0`` the RLS
+        update adapts the edge's weights and ``P`` from the edge's source
+        output, the target and the readout's output of that step.  Online
+        mode (2-D inputs): the records fall on ``step % sampling_steps ==
+        0`` (the step's output, the loss current at that step and
+        ``record_vars`` snapshots).  Epoch mode (lists of inputs and
+        targets): the network state is reset to the pre-training state
+        after each epoch; the Observer holds ``epoch_loss`` (the last
+        update's loss of each epoch) and ``epochs``."""
+        if not self._train_edge:
+            raise ValueError("No RLS-trainable edge in the network; add one with "
+                             "add_edge(..., train='rls').")
+        self.compile()
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("fit_rls(mesh=)", "14")
+        obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
+        obs = Observer(dt=self.dt, **obs_kwargs)
+        edge = self.get_edge(*self._train_edge)
+
+        t0 = perf_counter()
+        if isinstance(inputs, list):
+            if len(inputs) != len(targets):
+                raise ValueError(
+                    "Wrong dimensions of input and target output. Please make sure that "
+                    "`inputs` and `targets` agree in the first dimension (epochs)."
+                )
+            y0 = self.state
+            stage = self._stager()
+            losses = []
+            for epoch in range(len(inputs)):
+                loss = self._rls_loop(stage(inputs[epoch]), stage(targets[epoch]), update_steps,
+                                      sampling_steps, obs, record=False)
+                losses.append(loss)  # stays on the device until the end
+                self.reset(y0)
+                if verbose:
+                    print(f"Progress: {epoch + 1}/{len(inputs)} training epochs finished.")
+                    print(f"Epoch loss: {float(loss)}.")
+                    print("")
+            if losses:
+                losses = [float(x) for x in torch.stack(losses).cpu().tolist()]
+                edge.loss = losses[-1]
+            obs.save("epoch_loss", losses)
+            obs.save("epochs", np.arange(len(inputs)))
+        else:
+            inputs, targets = self._to_device(inputs), self._to_device(targets)
+            if inputs.shape[0] != targets.shape[0]:
+                raise ValueError(
+                    "Wrong dimensions of input and target output. Please make sure that "
+                    "`inputs` and `targets` agree in the first dimension."
+                )
+            edge.loss = float(self._rls_loop(inputs, targets, update_steps, sampling_steps, obs,
+                                             record=True))
+        if verbose:
+            print(f"Finished optimization after {perf_counter() - t0} s.")
+        return obs
+
+    def _rls_loop(self, inputs, targets, update_steps, sampling_steps, obs, record: bool):
+        """One pass of ``fit_rls`` over ``inputs``; returns the last update's
+        loss as a 0-d device tensor.  The JAX package computes the update
+        every step and selects it; this loop branches on the host step
+        index, so steps without an update skip the O(N^2) work."""
+        src, tgt = self._train_edge
+        edge = self.get_edge(src, tgt)
+        update = RLS.update_fn(edge.beta)
+        step = self.make_step(taps=(src, tgt))
+        state = self.init_state()
+        params = self._prep_params(self.parameters_pytree())
+        eparams = params["edges"][_ekey(src, tgt)] = dict(params["edges"][_ekey(src, tgt)])
+        W, P = edge.params["weights"], edge.params["P"]
+        w_dtype = W.dtype
+        loss = torch.zeros((), dtype=w_dtype, device=self.device)
+        var_info = self._resolve_record_vars(obs) if record else []
+        u, s = int(update_steps), int(sampling_steps)
+        rec_steps, rec_out, rec_loss, rec_vars = [], [], [], []
+        with torch.no_grad():
+            for t in range(int(inputs.shape[0])):
+                eparams["weights"] = W
+                state, out, taps = step(state, params, inputs[t])
+                if t % u == 0:
+                    W, P, loss = update(W, P, taps[src].to(w_dtype), targets[t].to(w_dtype),
+                                        taps[tgt].to(w_dtype))
+                if record and t % s == 0:
+                    rec_steps.append(t)
+                    rec_out.append(out)
+                    rec_loss.append(loss)
+                    rec_vars.append(_read_vars(var_info, state, params))
+        edge.params["weights"] = W  # P was downdated in place
+        self._write_back(state=state)
+        if record and rec_steps:
+            var_values = {key: _host(torch.stack([r[i] for r in rec_vars]))
+                          for i, (key, _, _, _) in enumerate(var_info)}
+            obs.record_batch(np.asarray(rec_steps), outputs=_host(torch.stack(rec_out)),
+                             losses=_host(torch.stack(rec_loss)), var_values=var_values or None)
+        return loss
+
+    def test(self, inputs, targets, loss: str = "mse", loss_kwargs: dict = None,
+             sampling_steps: int = 100, verbose: bool = True, **kwargs) -> tuple:
+        """Run with frozen parameters and return ``(Observer, loss)``, the
+        loss of the recorded outputs against the targets at the recorded
+        steps (when ``sampling_steps > 1`` the targets are downsampled to
+        them).  The loss is computed on the host, in the network's dtype."""
+        loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
+        obs = self.run(inputs=inputs, sampling_steps=sampling_steps, verbose=verbose, **kwargs)
+        output = torch.as_tensor(obs.to_numpy("out")).to(self.dtype)
+        targets = (targets.detach().cpu() if isinstance(targets, torch.Tensor)
+                   else torch.as_tensor(np.asarray(targets))).to(self.dtype)
+        if output.shape[0] != targets.shape[0]:
+            targets = targets[torch.as_tensor(np.asarray(obs["steps"]))]
+        return obs, float(loss_fn(output, targets))
+
+
+def _value_and_grad(loss_fn, train, *args, has_aux: bool = False):
+    """``(loss, grads)`` of ``loss_fn(train, *args)`` with respect to every
+    leaf of ``train``; a leaf the loss does not reach gets a zero gradient.
+    With ``has_aux`` the function returns ``(loss, aux)`` and so does this
+    one, ``(loss, grads, aux)``."""
     paths, leaves = _flatten(train)
     leaves = [t.detach().requires_grad_(True) for t in leaves]
     with torch.enable_grad():
-        lval = loss_fn(_unflatten(paths, leaves), frozen, y0, inp, tgt)
+        res = loss_fn(_unflatten(paths, leaves), *args)
+        lval, aux = res if has_aux else (res, None)
         grads = torch.autograd.grad(lval, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    return lval.detach(), _unflatten(paths, grads)
+    out = (lval.detach(), _unflatten(paths, grads))
+    return out + (aux,) if has_aux else out
+
+
+class FeedbackNetwork(Network):
+    """Network with feedback edges: an edge added with ``feedback=True``
+    carries its source node's output of the previous step (a one-step
+    delayed recurrence between nodes, RectiPy's ``FeedbackNetwork``).
+
+    ``compile()`` moves the feedback edges out of ``graph`` into
+    ``_fb_graph`` (so the feedforward graph keeps a topological order) and
+    is re-entrant; ``get_edge``, ``get_node`` and ``pop_edge`` find them
+    there."""
+
+    def __init__(self, dt: float, device=None, dtype=torch.float32):
+        super().__init__(dt, device=device, dtype=dtype)
+        self._fb_graph: Optional[DiGraph] = None
+
+    def compile(self):
+        if self._fb_graph is not None:
+            for u, v in self._fb_graph.edges:
+                self.graph.add_edge(u, v, **self._fb_graph[u][v])
+            self._fb_graph = None
+        ffwd_edges, fb_edges = [], []
+        for u, v in self.graph.edges:
+            (fb_edges if self.graph[u][v].get("feedback") else ffwd_edges).append((u, v))
+        fb = DiGraph()
+        for u, v in fb_edges:
+            fb.add_node(u, **self.graph.nodes[u])
+            fb.add_node(v, **self.graph.nodes[v])
+            fb.add_edge(u, v, **self.graph[u][v])
+        g_fwd = DiGraph()
+        for n, attrs in self.graph.nodes(data=True):
+            g_fwd.add_node(n, **attrs)
+        for u, v in ffwd_edges:
+            g_fwd.add_edge(u, v, **self.graph[u][v])
+        self._fb_graph = fb
+        self.graph = g_fwd
+        return super().compile()
+
+    def add_edge(self, source: str, target: str, weights=None, train: Optional[str] = None,
+                 feedback: bool = False, edge_attrs: dict = None, **kwargs) -> Linear:
+        edge_attrs = dict(edge_attrs or {})
+        edge_attrs["feedback"] = feedback
+        return super().add_edge(source, target, weights=weights, train=train,
+                                edge_attrs=edge_attrs, **kwargs)
+
+    def get_edge(self, source: str, target: str) -> Linear:
+        try:
+            return super().get_edge(source, target)
+        except KeyError:
+            if self._fb_graph is None or not self._fb_graph.has_edge(source, target):
+                raise
+            return self._fb_graph[source][target]["edge"]
+
+    def pop_edge(self, source: str, target: str):
+        if (self._fb_graph is not None and not self.graph.has_edge(source, target)
+                and self._fb_graph.has_edge(source, target)):
+            edge = self._fb_graph[source][target]["edge"]
+            self._fb_graph.remove_edge(source, target)
+            self._invalidate()
+            return edge
+        return super().pop_edge(source, target)
+
+    def get_node(self, node: str):
+        try:
+            return super().get_node(node)
+        except KeyError:
+            if self._fb_graph is None:
+                raise
+            return self._fb_graph.nodes[node]["node"]
+
+    def _fb_edge_list(self) -> list:
+        if self._fb_graph is None:
+            return []
+        return [(u, v, self._fb_graph[u][v]["edge"]) for u, v in self._fb_graph.edges]
+
+    def parameters(self, recurse: bool = True) -> Iterator:
+        yield from super().parameters(recurse=recurse)
+        for u, v, e in self._fb_edge_list():
+            yield from e.parameters()

@@ -210,8 +210,12 @@ def test_invalid_fused_adam_mode_raises(monkeypatch, mode):
 def test_unported_fit_options_raise():
     net = _rate(Network, T_, _nets()[1][2], np.eye(3))
     data = ([np.ones((4, 3))], [np.ones((4, 3))])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        net.fit_bptt(np.ones((4, 3)), np.ones((4, 3)), verbose=False)
+    # step mode (2-D inputs) is ported: it runs, and its options raise as
+    # epoch mode's do
+    assert net.fit_bptt(np.ones((4, 3)), np.ones((4, 3)), update_steps=2,
+                        verbose=False).to_numpy("loss").shape == (4,)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        net.fit_bptt(np.ones((4, 3)), np.ones((4, 3)), remat_steps=2, verbose=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         net.fit_bptt(*data, remat_steps=2, verbose=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from rectipy_tpu_torch import Network, attach_fused_qif_step
+from rectipy_tpu_torch import (RLS, FeedbackNetwork, Network, attach_fused_qif_step,
+                               attach_generic_fused_step)
 from rectipy_tpu_torch.ops.fused_opt import adam_requant, adam_requant_plain
 from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fused_step_plain
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
@@ -566,3 +567,103 @@ def test_generic_fused_network_on_card_matches_plain_network_on_cpu(cuda, case, 
         assert cpu[0].max() > 0.0, "no spikes -- weak test"
     np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(card[1], cpu[1], rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------- trainers and feedback
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(1000, 1), (333, 3)])
+def test_rls_update_on_card_matches_cpu_float64(cuda, n, m):
+    # 20 RLS updates in float64 on the card against the same updates on the
+    # CPU (the same formula, matvec sums in another order); the card's
+    # update never waits on the host (sync debug mode raises on a sync)
+    rng = np.random.default_rng(50)
+    xs, ys = rng.normal(size=(20, n)), rng.normal(size=(20, m))
+    edges = {str(d): RLS(n, m, beta=0.99, alpha=2.0, device=d) for d in (cuda, "cpu")}
+    for x, y in zip(xs, ys):
+        for dev, e in edges.items():
+            xt, yt = (torch.as_tensor(a, device=e.device) for a in (x, y))
+            y_hat = e.forward(xt)
+            if dev != "cpu":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                e.update(xt, yt, y_hat)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    card, cpu = edges[str(cuda)], edges["cpu"]
+    assert card.P.dtype == torch.float64 and card.P.device.type == "cuda"
+    np.testing.assert_allclose(card.weights.cpu().numpy(), cpu.weights.numpy(), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(card.P.cpu().numpy(), cpu.P.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(float(card.loss), float(cpu.loss), rtol=1e-10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupling", ["float32", "int8_master"])
+def test_step_mode_fit_on_card_matches_cpu(cuda, coupling):
+    # truncated BPTT, three chunks of a tanh population through the chain
+    # trajectory: on the card (int8_master: the int8 kernels every step)
+    # against the same float32 fit on the CPU
+    n, u = 64, 40
+    rng = np.random.default_rng(51)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    inp, tgt = rng.normal(size=(3 * u, n)), rng.normal(size=(3 * u, n)) * 0.5
+    res = {}
+    for device in (cuda, "cpu"):
+        net = Network(1e-1, device=device)
+        net.add_diffeq_node("rnn", "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh",
+                            weights=W, input_var="li_op/I_ext", output_var="tanh_op/r",
+                            source_var="tanh_op/r", target_var="li_op/r_in",
+                            coupling_dtype=coupling, train_params=["weights"])
+        before = (int8_mv.launches, int8_mv_t.launches)
+        obs = net.fit_bptt(inp, tgt, optimizer="adam", lr=1e-2, update_steps=u,
+                           sampling_steps=5, verbose=False)
+        launches = (int8_mv.launches - before[0], int8_mv_t.launches - before[1])
+        assert net.last_fit == {"trajectory": "chain", "fused_adam": False}
+        res[str(device)] = (obs.to_numpy("loss"), obs.to_numpy("out"),
+                            net.get_node("rnn")["weights"].cpu().numpy(), launches)
+    card, cpu = res[str(cuda)], res["cpu"]
+    on_card = 3 * u if coupling == "int8_master" else 0
+    assert card[3] == (on_card, on_card) and cpu[3] == (0, 0)
+    assert card[0][-1] != 0.0
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(card[2], cpu[2], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_feedback_network_on_card_matches_cpu(cuda):
+    # examples/feedback_populations.py at n = 128: two LIF populations with
+    # the generic kernel attached (two launches per step on the card, the
+    # plain version on the CPU), dense float32 feedforward and feedback
+    n, steps = 128, 300
+    rng = np.random.default_rng(52)
+    Ws = [rng.normal(size=(n, n)) * (100 / n) for _ in range(2)]
+    k = 10.0 * 100 / n
+    W_ff, W_fb = k * rng.random((n, n)), -10 * k * rng.random((n, n))
+    inp = np.zeros((steps, 1)) + 100.0
+    outs = {}
+    for device in (cuda, "cpu"):
+        net = FeedbackNetwork(1e-2, device=device)
+        for label, W in zip(("p1", "p2"), Ws):
+            net.add_diffeq_node(label, "rectipy_tpu_torch.models.spiking_neurons.lif.lif",
+                                input_var="I_ext", output_var="s", weights=W, source_var="s",
+                                target_var="s_in", op="lif_op", spike_var="spike",
+                                spike_def="v", coupling_dtype="bfloat16")
+        net.add_edge("p1", "p2", weights=W_ff)
+        net.add_edge("p2", "p1", weights=W_fb, feedback=True)
+        net.compile()
+        for label in ("p1", "p2"):
+            attach_generic_fused_step(net.get_node(label))
+        before = generic_fused_step.launches
+        obs = net.run(inp, sampling_steps=10, verbose=False,
+                      record_vars=[("p1", "s", True), ("p2", "s", True)])
+        launches = generic_fused_step.launches - before
+        assert launches == (0 if device == "cpu" else 2 * steps)
+        outs[str(device)] = (obs.to_numpy(("p1", "s")), obs.to_numpy(("p2", "s")),
+                             net._fb_store["p2"].cpu().numpy())
+    card, cpu = outs[str(cuda)], outs["cpu"]
+    assert cpu[1].max() > 0.0, "no spikes -- weak test"
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(b).max()))

@@ -174,10 +174,12 @@ def test_unported_network_features_raise():
     for kw in ({"mask": np.ones((8, 1))}, {"delays": np.ones(1, dtype=int)}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tnet.add_edge("inp", "qif", **kw)
+    # the RLS readout and run(truncate_steps=) are ported; eprop/stdp are not
+    for rule in ("eprop", "stdp"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+            tnet.add_edge("inp", "qif", train=rule)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.add_edge("inp", "qif", train="rls")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.run(np.zeros((5, 1)), truncate_steps=2, verbose=False)
+        tnet.run(np.zeros((5, 1)), record_spikes=["qif"], verbose=False)
     # SpikeNet (reset=False) is ported; a circuit of mixed templates is not
     from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate
 
