@@ -131,6 +131,53 @@ phase 6's and phase 10's timings of the same kernel, the generic kernel
 checked and timed on the feedback path's node), and phase 10 adds
 torch._int_mm as the int8 rows' library yardstick.
 
+Phases 25-28 (after phase 24; the batched trials of Network.run_batch and
+fit_bptt_batch, through the batched kernels int8_mm/int8_mm_t of
+csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
+
+25. batch_kernel_check: at N = 10,000, int8_mm and int8_mm_t bit for bit
+   against their plain versions at B = 32 and 7 (the main path's quantized
+   W, per-trial activation scales); the B-row qif_sfa_step in f32 and bf16
+   W at B = 32 and 5, on strided rows of one (B, 3N) state buffer, in the
+   reset and coupling cases, held to TOL against its plain version and,
+   trial by trial, against the single-row kernel; the lost-eighth margin of
+   the coupling case.
+26. run_batch_path: benchmarks/batch_throughput.py's network (N = 10,000
+   qif_sfa, 10% fan-in of 1/(0.1 N) from seed 42, the tan etas, dt 1e-4)
+   with a frozen int8 coupling: an eta sweep (offsets linspace(-2, 2, 32))
+   over 32 trials on a shared (5,000, 1) drive, record_vars the population
+   mean of s every 100 steps, in turns with the single-trial run, best of
+   2; one int8_mm launch per step; trials 0, 15 and 31 against
+   single-trial runs with their eta over 200 steps (the int8 sums are exact
+   on both sides: rtol 1e-5).  Then the same with a bf16 coupling and the
+   fused QIF step: one B-row launch per step, the trials under
+   fused_vs_plain's rule.  Then phase 12's LIF network (the generic kernel,
+   bf16 W) over 4 trials of 2,000 steps of their own drive: the kernel
+   takes one trial, so 8,000 launches; each trial against its single-trial
+   run over 200 steps (the same kernel on the same rows: rtol 1e-6).
+27. batch_train_path: bench.py's ensemble phase at full size, fit_bptt_batch
+   of phase 8's network (int8_master, adam lr 1e-4) on B = 32 trials of
+   normal (32, 500, 10,000) float32 arrays from default_rng(7), full batch:
+   a 2-epoch warm fit and a timed 8-epoch fit; 4,000 launches each of
+   int8_mm and int8_mm_t per fit and none of int8_mv(_t) or adam_requant;
+   finite losses; ms/epoch and aggregate trained neuron-updates/s against
+   phase 8's single-trial figure.  Then batch_train_vs_cpu: the same fit at
+   N = 2,000, B = 4, T = 50, 2 epochs, on the card and on the CPU (losses
+   rtol 1e-4; at most 1% of the weights' updates differ by more than 1% of
+   lr; see BATCH_LOSS_RTOL).
+28. batch_timing: int8_mm/int8_mm_t at B = 32 (bound, plain ms,
+   torch._int_mm of the same integers), the B-row step at B = 32 in f32 and
+   bf16 (bound, plain ms, torch.matmul of s by W^T; the bound takes the
+   bf16 peak for a bf16 W, so that step is bound by its bytes), one B = 32
+   epoch split
+   by CUDA events (forward loop, backward loop, dW product, adam step) and
+   the device's idle share over one epoch (torch.profiler).
+The kernels line adds int8_mm and int8_mm_t (launches of phase 27's fit),
+int8_mm[run_batch_path] (launches of phase 26's int8 run, phase 28's
+timing at the same shapes), the B-row step in bf16 (launches of phase 26's
+fused run) and the generic kernel's run_batch instance (phase 26's LIF
+run, checked and timed as in phase 11).
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -154,6 +201,14 @@ PLAIN_STEPS = 2_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
 INT8_OPS = 1979e12  # H100 SXM data sheet, int8 (the int4 weights multiply as int8 bytes)
+BF16_FLOPS = 989e12  # H100 SXM data sheet, bf16 x bf16 with f32 sums, dense
+
+
+def peak_flops(w_dtype) -> float:
+    """The card's peak for products whose operands are ``w_dtype``: a bf16 W
+    multiplies bf16-rounded sources (bf16 peak), a float32 one runs at the
+    float32 peak outside the tensor cores."""
+    return BF16_FLOPS if w_dtype == torch.bfloat16 else F32_FLOPS
 F64_FLOPS = 34e12  # H100 SXM data sheet, float64 outside the tensor cores
 QIF_SFA = "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa"
 QIF = "rectipy_tpu_torch.models.spiking_neurons.qif.qif"
@@ -306,10 +361,11 @@ def profile_device_time(fn):
     return sum(r[1] for r in rows) / 1e3, top
 
 
-def train_phases(dev, data) -> list:
+def train_phases(dev, data) -> tuple:
     """Phases 7-10: the training path and its three kernels, on
     ``bench_training_data``'s ``data`` (and the seconds it took to make).
-    Returns their entries of the ``kernels`` line."""
+    Returns their entries of the ``kernels`` line and the path's trained
+    neuron-updates/s."""
     from rectipy_tpu_torch.ops import bptt
     from rectipy_tpu_torch.ops.fused_opt import (adam_requant, adam_requant_plain,
                                                  bias_corrections)
@@ -493,7 +549,7 @@ def train_phases(dev, data) -> list:
               "launches_per_epoch": launches[name] // EPOCHS, "library_ms_reason": reason,
               "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
     del int_mm
-    return entries
+    return entries, T_TRAIN * N / best
 
 
 def lif_net(n: int, device):
@@ -621,7 +677,7 @@ def generic_instance(name: str, node, w_dtype, seed: int, launches: int, case: s
     # W once, the K sources, drive, V states and P per-neuron rows in, V rows out
     n_bytes = K * n * n * Ws[0].element_size() + 4 * n * (K + 1 + 2 * V + len(vecs))
     n_ops = 2 * K * n * n + n * tail_ops(node._vf.tile_program)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(w_dtype)
     entry = {"name": f"generic_fused_step[{name}]", "route": "cuda", "source": GENERIC_SOURCE,
              "replaces": GENERIC_TPU_KERNEL, "launches": launches, "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1383,6 +1439,501 @@ def feedback_phase() -> list:
     return [entry]
 
 
+# ------------------------------------------------------------ phases 25-28
+B_RUN, T_RUN = 32, 5_000  # run_batch_path: benchmarks/batch_throughput.py's network
+B_TRAIN, TRAIN_EPOCHS = 32, 8  # batch_train_path: bench.py's ensemble phase
+B_RAGGED = (7, 5)  # batch_kernel_check: a ragged B for int8_mm(_t) and the B-row step
+CMP_STEPS = 200  # the run_batch trials against single-trial runs
+G_B = 4  # run_batch_path's generic-kernel run: trials of PLAIN_STEPS steps
+CPU_N, CPU_B, CPU_T, CPU_EPOCHS = 2_000, 4, 50, 2  # batch_train_vs_cpu
+# batch_train_vs_cpu: the card's fit (int8_mm/int8_mm_t, float32 sums in
+# another order) against the CPU's (plain products).  The integer sums are
+# exact on both, but the states that feed quant_vec differ in the last bits,
+# so a source value can sit on the other side of a rounding boundary and
+# the dynamics then part slowly; the losses are means over 1e5 terms (rtol
+# 1e-4).  Adam takes steps of about lr whatever the gradient's size, so a
+# weight whose gradient is near 0 may step the other way: the rule is on the
+# share of weights whose update differs by more than 1% of lr (at most 1%).
+BATCH_LOSS_RTOL, BATCH_W_SHARE = 1e-4, 1e-2
+
+
+def batch_run_net(coupling: str, fused: bool, device=None):
+    """benchmarks/batch_throughput.py's network: N = 10,000 qif_sfa, a 10%
+    fan-in coupling of 1/(0.1 N) from seed 42, the tan etas, dt 1e-4; the
+    drive enters I_ext directly."""
+    from rectipy_tpu_torch import Network, attach_fused_qif_step
+
+    rng = np.random.default_rng(42)
+    W = (rng.random((N, N)) < 0.1) * (1.0 / (0.1 * N))
+    etas = -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, N + 1) - N - 1) / (N + 1))
+    net = Network(DT, device=device)
+    net.add_diffeq_node("qif", QIF_SFA, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="qif_sfa_op", spike_var="spike",
+                        spike_def="v", spike_threshold=1e2, spike_reset=-1e2,
+                        node_vars={"all/qif_sfa_op/eta": etas}, coupling_dtype=coupling)
+    net.compile()
+    if fused:
+        attach_fused_qif_step(net.get_node("qif"))
+    return net, etas
+
+
+def rows_state(B: int, n: int, case: str, rng, dev):
+    """B trials' (v, s, x) as rows of one (B, 3n) buffer, eta and inp (B, n),
+    for the kernel check's two cases (TOL)."""
+    if case == "reset":
+        y = np.concatenate([rng.normal(size=(B, n)) * 80.0, rng.random((B, n)),
+                            rng.random((B, n))], axis=1)
+        eta, inp = rng.normal(size=(B, n)), rng.normal(size=(B, n))
+    else:
+        y = np.concatenate([rng.normal(size=(B, n)) * 1e-3, rng.random((B, n)),
+                            rng.random((B, n)) * 1e-3], axis=1)
+        eta, inp = rng.normal(size=(B, n)) * 1e-3, rng.normal(size=(B, n)) * 1e-3
+    y, eta, inp = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (y, eta, inp))
+    return y[:, :n], y[:, n:2 * n], y[:, 2 * n:], eta, inp
+
+
+def batch_kernel_check(dev, W_np) -> dict:
+    """Phase 25: int8_mm/int8_mm_t bit for bit and the B-row qif_sfa_step
+    against its plain version and the single-row kernel, at N = 10,000."""
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
+    from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
+                                             quant_vec, quantize_rows)
+
+    W32 = torch.as_tensor(W_np, dtype=torch.float32, device=dev)
+    wq, ws = quantize_rows(W32)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    max_err = {}
+    for B in (B_TRAIN, B_RAGGED[0]):
+        xq, xs = quant_vec(torch.randn((B, N), generator=gen, device=dev)
+                           * torch.linspace(0.1, 10.0, B, device=dev)[:, None])
+        vq, vs = quant_vec(torch.randn((B, N), generator=gen, device=dev) * 1e-3)
+        got, got_t = int8_mm(wq, xq, ws, xs.reshape(-1)), int8_mm_t(wq, vq, vs.reshape(-1))
+        torch.cuda.synchronize()
+        ref, ref_t = (int8_mm_plain(wq, xq) * ws) * xs, int8_mm_t_plain(wq, vq) * vs
+        if not (torch.equal(got, ref) and torch.equal(got_t, ref_t)):
+            raise AssertionError(f"int8_mm/int8_mm_t differ from their plain versions at B={B}")
+        if not (bool((got != 0).any()) and bool((got_t != 0).any())):
+            raise AssertionError("the int8_mm check is vacuous: all outputs are zero")
+        emit({"phase": "batch_kernel_check", "kernel": "int8_mm/int8_mm_t", "n": N, "B": B,
+              "bit_identical": True})
+    max_err["int8_mm"] = max_err["int8_mm_t"] = 0.0
+    params = dict(dt=DT, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05, thresh=100.0,
+                  v_reset=-100.0)
+    rng = np.random.default_rng(25)
+    for name, W in (("float32", W32), ("bfloat16", W32.to(torch.bfloat16))):
+        err = 0.0
+        for B in (B_TRAIN, B_RAGGED[1]):
+            for case in ("reset", "coupling"):
+                p = dict(params, k=1.0 / DT) if case == "coupling" else params
+                v, s, x, eta, inp = rows_state(B, N, case, rng, dev)
+                out = qif_sfa_step(v, s, x, W, eta, inp, **p)
+                torch.cuda.synchronize()
+                ref = torch.stack(qif_sfa_reference_step(v, s, x, W, eta, inp, **p), dim=-2)
+                rtol, atol = TOL[case]
+                torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+                one_err = 0.0
+                for b in range(B):  # each trial against the single-row kernel
+                    one = qif_sfa_step(v[b].contiguous(), s[b].contiguous(), x[b].contiguous(),
+                                       W, eta[b], inp[b], **p)
+                    torch.testing.assert_close(out[b], one, rtol=rtol, atol=atol)
+                    one_err = max(one_err, float((out[b] - one).abs().max()))
+                mask, ref_mask = out[:, 0] == p["v_reset"], ref[:, 0] == p["v_reset"]
+                if not torch.equal(mask, ref_mask):
+                    raise AssertionError(f"B-row {name}, {case}: the reset masks differ")
+                e = float((out - ref).abs().max())
+                err = max(err, e)
+                line = {"phase": "batch_kernel_check", "kernel": "qif_sfa_step[rows]",
+                        "w_dtype": name, "case": case, "n": N, "B": B, "max_abs_err": e,
+                        "max_abs_diff_single_row_kernel": one_err, "rtol": rtol, "atol": atol,
+                        "reset_neurons": int(mask.sum())}
+                if case == "reset" and not bool(mask.any()):
+                    raise AssertionError(f"B-row {name}: no neuron was reset")
+                if case == "coupling":
+                    s_cut = s.clone()
+                    s_cut[:, ::8] = 0.0
+                    cut = qif_sfa_reference_step(v, s_cut, x, W, eta, inp, **p)[0]
+                    margin = float(((cut - ref[:, 0]).abs()
+                                    / (atol + rtol * ref[:, 0].abs())).min())
+                    if bool(mask.any()) or margin <= 1.0:
+                        raise AssertionError(f"B-row {name}: the coupling case reset neurons "
+                                             f"or would pass a lost eighth (margin {margin})")
+                    line["lost_eighth_min_margin"] = margin
+                emit(line)
+        max_err[f"qif_sfa_step_rows[{name}]"] = err
+    return max_err
+
+
+def run_batch_phase(dev) -> tuple:
+    """Phase 26: run_batch on benchmarks/batch_throughput.py's network, an
+    eta sweep over B_RUN trials on a shared drive, int8 coupling (int8_mm)
+    and then bf16 with the fused QIF step (the B-row kernel).  Returns
+    (launches by kernel, the seconds of a B_RUN run, the shared drive)."""
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+    from rectipy_tpu_torch.ops.quant import int8_mm, int8_mv
+
+    drive = bench_inputs(T_RUN)
+    offsets = np.linspace(-2.0, 2.0, B_RUN)
+    rec_kw = dict(record_output=False, record_vars=[("qif", "s", True)], verbose=False)
+    picks = (0, B_RUN // 2 - 1, B_RUN - 1)
+    launches, out = {}, {}
+    for coupling, fused, kernel in (("int8", False, int8_mm), ("bfloat16", True, qif_sfa_step)):
+        t0 = time.perf_counter()
+        net, etas = batch_run_net(coupling, fused)
+        build_s = time.perf_counter() - t0
+        sweep = torch.as_tensor(etas[None, :] + offsets[:, None], dtype=torch.float32,
+                                device=dev)
+
+        y0 = net.get_node("qif").y.clone()
+
+        def batch(steps=T_RUN, s=100, kw=rec_kw):  # every trial from y0
+            net.reset({"qif": y0})
+            return net.run_batch(drive[:steps], sampling_steps=s,
+                                 batch_vars={("qif", "eta"): sweep}, **kw)
+
+        def single(steps=T_RUN, s=100, kw=rec_kw):  # from the same initial state
+            net.reset({"qif": y0})
+            return net.run(drive[:steps], sampling_steps=s, **kw)
+
+        batch(CMP_STEPS)  # warm
+        times = {"batch": [], "single": []}
+        for _ in range(2):  # in turns, best of 2
+            kernel.launches = int8_mv.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = batch()
+            torch.cuda.synchronize()
+            times["batch"].append(time.perf_counter() - t0)
+            if kernel.launches != T_RUN or int8_mv.launches != 0:
+                raise AssertionError(f"run_batch_path ({coupling}): {kernel.launches} "
+                                     f"{kernel.__name__} launches for {T_RUN} steps")
+            launches[coupling] = kernel.launches
+            rec = res[("qif", "s")]
+            if rec.shape != (B_RUN, T_RUN // 100) or not np.all(np.isfinite(rec)):
+                raise AssertionError(f"run_batch_path ({coupling}): bad records {rec.shape}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single()
+            torch.cuda.synchronize()
+            times["single"].append(time.perf_counter() - t0)
+        best_b, best_1 = min(times["batch"]), min(times["single"])
+        # trials 0, 15 and 31 against single-trial runs with their eta: the
+        # whole v every 10 steps (the mean s moves little before the first
+        # spikes, near step 190)
+        v_kw = dict(rec_kw, record_vars=[("qif", "v", False)])
+        short = batch(CMP_STEPS, 10, v_kw)[("qif", "v")]
+        cmp = {}
+        for b in picks:
+            net.set_var("qif", "eta", etas + offsets[b])
+            one = single(CMP_STEPS, 10, v_kw).to_numpy(("qif", "v"))
+            if coupling == "int8":  # exact integer sums on both sides
+                np.testing.assert_allclose(short[b], one, rtol=1e-5, atol=1e-7)
+                cmp[b] = {"max_abs_diff": float(np.abs(short[b] - one).max())}
+            else:  # another summation order: fused_vs_plain's rule
+                cmp[b] = vs_cpu(f"run_batch_path trial {b}", short[b], one)
+        nu_b, nu_1 = B_RUN * N * T_RUN / best_b, N * T_RUN / best_1
+        emit({"phase": "run_batch_path", "coupling": coupling, "fused_qif_step": fused, "n": N,
+              "B": B_RUN, "steps": T_RUN, "sweep": "eta + linspace(-2, 2, B)",
+              "kernel": kernel.__name__, "launches": launches[coupling], "build_s": build_s,
+              "run_batch_s": times["batch"], "run_single_s": times["single"],
+              "ms_per_step": best_b / T_RUN * 1e3, "single_ms_per_step": best_1 / T_RUN * 1e3,
+              "aggregate_neuron_updates_per_s": nu_b, "single_neuron_updates_per_s": nu_1,
+              "ratio_to_single": nu_b / nu_1,
+              "mean_s_range": [float(rec.min()), float(rec.max())],
+              "trials_vs_single": {str(k): v for k, v in cmp.items()}})
+        out[coupling] = best_b
+        del net, sweep, y0
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def generic_batch_phase() -> dict:
+    """Phase 26, continued: run_batch of phase 12's LIF network (the generic
+    kernel, bf16 W) over G_B trials of their own drive; the kernel takes one
+    trial, so it launches once per trial per step.  Each trial against a
+    single-trial run of its drive over CMP_STEPS (the same kernel on the same
+    rows).  Returns the instance's ``kernels`` entry."""
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
+
+    t0 = time.perf_counter()
+    net = lif_net(N, None)
+    build_s = time.perf_counter() - t0
+    ins = (np.random.default_rng(26).normal(size=(G_B, PLAIN_STEPS, 1))
+           + np.linspace(0.0, 2.0, G_B)[:, None, None]).astype(np.float32)
+    y0 = net.get_node("lif").y.clone()
+    generic_fused_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = net.run_batch(ins, record_output=False, record_vars=[("lif", "s", True)],
+                        sampling_steps=100)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = generic_fused_step.launches
+    if launches != G_B * PLAIN_STEPS:
+        raise AssertionError(f"run_batch_path (generic): {launches} launches for {G_B} trials x "
+                             f"{PLAIN_STEPS} steps")
+    rec = res[("lif", "s")]
+    if (rec.shape != (G_B, PLAIN_STEPS // 100) or not np.all(np.isfinite(rec))
+            or not rec.max() > 0.0):
+        raise AssertionError(f"run_batch_path (generic): bad records (shape {rec.shape})")
+    short = net.run_batch(ins[:, :CMP_STEPS], sampling_steps=10)["out"]
+    diffs = []
+    for b in range(G_B):
+        net.reset({"lif": y0})
+        one = net.run(ins[b, :CMP_STEPS], sampling_steps=10, verbose=False).to_numpy("out")
+        np.testing.assert_allclose(short[b], one, rtol=1e-6, atol=1e-6)
+        diffs.append(float(np.abs(short[b] - one).max()))
+    emit({"phase": "run_batch_path", "template": "lif", "coupling": "bfloat16",
+          "kernel": "generic_fused_step (one trial a launch)", "n": N, "B": G_B,
+          "steps": PLAIN_STEPS, "launches": launches, "build_s": build_s, "run_batch_s": run_s,
+          "ms_per_step": run_s / PLAIN_STEPS * 1e3,
+          "aggregate_neuron_updates_per_s": G_B * N * PLAIN_STEPS / run_s,
+          "mean_s_range": [float(rec.min()), float(rec.max())],
+          "trials_vs_single_max_abs_diff": diffs})
+    entry = generic_instance("lif,bfloat16,run_batch_path", net.get_node("lif"),
+                             torch.bfloat16, 26, launches)
+    del net
+    torch.cuda.empty_cache()
+    return entry
+
+
+def batch_train_data(n: int, B: int, T: int, seed: int):
+    """bench.py's ensemble trial arrays: normal (B, T, n) from default_rng(seed),
+    float32."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, T, n)).astype(np.float32),
+            rng.normal(size=(B, T, n)).astype(np.float32))
+
+
+def batch_train_phase(dev, data, single_nu: float) -> tuple:
+    """Phase 27: bench.py's ensemble phase at full size (fit_bptt_batch,
+    B_TRAIN trials, int8_master, adam lr 1e-4, full batch), a warm fit and a
+    timed one; then batch_train_vs_cpu at CPU_N.  Returns (launches, ms per
+    epoch, the staged trial arrays, the network)."""
+    from rectipy_tpu_torch.ops.fused_opt import adam_requant
+    from rectipy_tpu_torch.ops.quant import int8_mm, int8_mm_t, int8_mv, int8_mv_t
+
+    W_np, etas = data[0], data[1]
+    t0 = time.perf_counter()
+    ins, tgts = batch_train_data(N, B_TRAIN, T_TRAIN, 7)
+    ins_d = torch.as_tensor(ins, device=dev)
+    tgt_d = torch.as_tensor(tgts, device=dev)
+    del ins, tgts
+    data_s = time.perf_counter() - t0
+    net = build_train_net(W_np, etas)
+    kernels = (int8_mm, int8_mm_t, int8_mv, int8_mv_t, adam_requant)
+
+    def fit_b(epochs):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs = net.fit_bptt_batch(ins_d, tgt_d, n_epochs=epochs, optimizer="adam", lr=LR,
+                                 verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses = [float(x) for x in obs["epoch_loss"]]
+        if len(losses) != epochs or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"batch_train_path: bad losses {losses}")
+        return seconds, losses, {k.__name__: k.launches for k in kernels}
+
+    warm_s, warm_losses, _ = fit_b(WARM_EPOCHS)
+    torch.cuda.reset_peak_memory_stats()
+    seconds, losses, launches = fit_b(TRAIN_EPOCHS)
+    want = {"int8_mm": T_TRAIN * TRAIN_EPOCHS, "int8_mm_t": T_TRAIN * TRAIN_EPOCHS,
+            "int8_mv": 0, "int8_mv_t": 0, "adam_requant": 0}
+    if launches != want:
+        raise AssertionError(f"batch_train_path: launches {launches}, expected {want}")
+    if net.last_fit != {"trajectory": "chain", "fused_adam": False}:
+        raise AssertionError(f"batch_train_path took {net.last_fit}")
+    epoch_s = seconds / TRAIN_EPOCHS
+    nu = B_TRAIN * T_TRAIN * N / epoch_s
+    emit({"phase": "batch_train_path", "n": N, "T": T_TRAIN, "B": B_TRAIN,
+          "epochs": TRAIN_EPOCHS, "coupling": "int8_master", "optimizer": "adam", "lr": LR,
+          "batch_size": B_TRAIN, "data_s": data_s, "warm_fit_s": warm_s,
+          "warm_epochs": WARM_EPOCHS, "fit_s": seconds, "ms_per_epoch": epoch_s * 1e3,
+          "aggregate_trained_neuron_updates_per_s": nu,
+          "single_trial_trained_neuron_updates_per_s": single_nu,
+          "ratio_to_single_trial": nu / single_nu, "launches_per_fit": launches,
+          "first_loss": warm_losses[0], "losses_timed_fit": losses,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+
+    # ------------------------------------------------ batch_train_vs_cpu
+    rng = np.random.default_rng(27)
+    Wc = (rng.random((CPU_N, CPU_N)) < 0.1) * (1.0 / (0.1 * CPU_N))
+    etas_c = -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, CPU_N + 1) - CPU_N - 1)
+                           / (CPU_N + 1))
+    ins_c, tgt_c = batch_train_data(CPU_N, CPU_B, CPU_T, 28)
+    res = {}
+    for device in (None, "cpu"):
+        n_ = build_train_net(Wc, etas_c, device=device)
+        t0 = time.perf_counter()
+        obs = n_.fit_bptt_batch(ins_c, tgt_c, n_epochs=CPU_EPOCHS, optimizer="adam", lr=LR,
+                                verbose=False)
+        res[device or "card"] = (np.asarray(obs["epoch_loss"]),
+                                 n_.get_node("qif")["weights"].cpu().numpy(),
+                                 time.perf_counter() - t0)
+    (l_card, w_card, s_card), (l_cpu, w_cpu, s_cpu) = res["card"], res["cpu"]
+    loss_rel = float(np.max(np.abs(l_card - l_cpu) / np.abs(l_cpu)))
+    w0 = Wc.astype(np.float32)
+    d_card, d_cpu = w_card - w0, w_cpu - w0
+    share = float(np.mean(np.abs(d_card - d_cpu) > 0.01 * LR))
+    if loss_rel > BATCH_LOSS_RTOL or share > BATCH_W_SHARE or not np.abs(d_cpu).max() > 0:
+        raise AssertionError(f"batch_train_vs_cpu: loss rel {loss_rel}, share of weights "
+                             f"whose updates differ {share}")
+    emit({"phase": "batch_train_vs_cpu", "n": CPU_N, "B": CPU_B, "T": CPU_T,
+          "epochs": CPU_EPOCHS, "losses_card": [float(x) for x in l_card],
+          "losses_cpu": [float(x) for x in l_cpu],
+          "max_rel_loss_diff": loss_rel, "loss_rtol": BATCH_LOSS_RTOL,
+          "share_of_weight_updates_differing": share, "share_limit": BATCH_W_SHARE,
+          "max_abs_weight_diff": float(np.abs(w_card - w_cpu).max()),
+          "max_abs_weight_update": float(np.abs(d_cpu).max()), "card_s": s_card,
+          "cpu_s": s_cpu})
+    return launches, epoch_s * 1e3, (ins_d, tgt_d), net
+
+
+def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_launches: dict,
+                 errs: dict) -> list:
+    """Phase 28: each new kernel's ms at the paths' shapes with its bound,
+    plain ms and yardstick; one B_TRAIN epoch split by CUDA events; the
+    device's idle share over one epoch."""
+    from rectipy_tpu_torch.ops import bptt
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
+    from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
+                                             quant_vec, quantize_rows)
+    from rectipy_tpu_torch.train import get_optimizer
+
+    ins_d, tgt_d = staged
+    B = B_TRAIN
+    W32 = torch.as_tensor(W_np, dtype=torch.float32, device=dev)
+    wq, ws = quantize_rows(W32)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    xq, xs = quant_vec(torch.randn((B, N), generator=gen, device=dev))
+    vq, vs = quant_vec(torch.randn((B, N), generator=gen, device=dev) * 1e-3)
+    xs, vs = xs.reshape(-1), vs.reshape(-1)
+    wq_cm = wq.T.contiguous().T  # column-major wq for torch._int_mm's transposed product
+    entries = []
+    specs = [
+        ("int8_mm", "rectipy_tpu_torch/csrc/int8_matvec.cu",
+         "port-only (rectipy_tpu/ops/quant.py:65 under vmap)",
+         lambda: int8_mm(wq, xq, ws, xs), lambda: (int8_mm_plain(wq, xq) * ws) * xs[:, None],
+         lambda: torch._int_mm(xq, wq.T),
+         N * N + B * N + 4 * N + 4 * B + 4 * B * N, 2 * B * N * N, INT8_OPS,
+         launches["int8_mm"]),
+        ("int8_mm_t", "rectipy_tpu_torch/csrc/int8_matvec.cu",
+         "port-only (rectipy_tpu/ops/quant.py:73 under vmap)",
+         lambda: int8_mm_t(wq, vq, vs), lambda: int8_mm_t_plain(wq, vq) * vs[:, None],
+         lambda: torch._int_mm(vq, wq_cm),
+         N * N + B * N + 4 * B + 4 * B * N, 2 * B * N * N, INT8_OPS, launches["int8_mm_t"]),
+    ]
+    for name, source, replaces, fn, plain, lib, n_bytes, n_ops, peak, n_launch in specs:
+        ms = cuda_ms(fn, reps=200)
+        plain_ms = cuda_ms(plain, reps=5)
+        library_ms = cuda_ms(lib, reps=200)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": n_launch, "max_abs_err": errs[name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": library_ms}
+        entries.append(entry)
+        emit({"phase": "batch_timing", **entry, "B": B, "bytes": n_bytes, "ops": n_ops,
+              "library_ms_reason": "torch._int_mm of the same integers (int32 sums without "
+                                   "the scales): a yardstick",
+              "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+        if name == "int8_mm":  # run_batch_path's instance: the same (B_RUN = B_TRAIN, N) shapes
+            entries.append({**entry, "name": "int8_mm[run_batch_path]",
+                            "launches": run_launches["int8"]})
+    # the B-row step at the run_batch path's shapes (B_RUN trials)
+    params = dict(dt=DT, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05, thresh=100.0,
+                  v_reset=-100.0)
+    v, s, x, eta, inp = rows_state(B_RUN, N, "reset", np.random.default_rng(28), dev)
+    for name, W in (("float32", W32), ("bfloat16", W32.to(torch.bfloat16))):
+        n_bytes = N * N * W.element_size() + B_RUN * N * 4 * 5 + B_RUN * N * 4 * 3
+        n_ops = 2 * B_RUN * N * N + 20 * B_RUN * N
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(W.dtype)
+        ms = cuda_ms(lambda: qif_sfa_step(v, s, x, W, eta, inp, **params), reps=100)
+        plain_ms = cuda_ms(lambda: qif_sfa_reference_step(v, s, x, W, eta, inp, **params),
+                           reps=10)
+        s_w = s.contiguous().to(W.dtype)
+        library_ms = cuda_ms(lambda: s_w @ W.T, reps=100)
+        entry = {"name": f"qif_sfa_step_rows[{name}]", "route": "cuda",
+                 "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+                 "launches": run_launches["bfloat16"] if name == "bfloat16" else 0,
+                 "max_abs_err": errs[f"qif_sfa_step_rows[{name}]"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": library_ms}
+        if name == "bfloat16":  # the path's instance; f32 is timed here only
+            entries.append(entry)
+        emit({"phase": "batch_timing", **entry, "B": B_RUN, "bytes": n_bytes, "ops": n_ops,
+              "library_ms_reason": f"torch.matmul of the (B, N) s by W^T in {name} "
+                                   f"(the products alone)",
+              "achieved_flops": n_ops / (ms * 1e-3)})
+    del v, s, x, eta, inp
+    # one B_TRAIN epoch split by CUDA events: the trajectory's forward loop,
+    # its backward loop (less the dW product), the dW product (timed alone at
+    # the same shapes) and the split adam step
+    node = net.get_node("qif")
+    traj, wkeys = bptt.make_coupled_traj(node)
+    p = bptt._node_pieces(node)
+    args = {k: v for k, v in node.args.items() if k not in wkeys}
+    Wm = node.args["weights"]
+    y0 = net._batch_state(net.init_state(), B)["nodes"]["qif"]
+    xs_tm = ins_d.transpose(0, 1).contiguous()
+    opt = get_optimizer("adam", LR)
+    train = {"nodes": {"qif": {"weights": Wm}}, "edges": {}}
+    opt_state = opt.init(train)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    torch.cuda.synchronize()
+    W_leaf = Wm.detach().requires_grad_(True)
+    with torch.enable_grad():
+        ev[0].record()
+        _, outs = traj({"weights": W_leaf}, args, y0, xs_tm)
+        ev[1].record()
+        loss = torch.stack([torch.mean((o - t) ** 2)
+                            for o, t in zip(outs.transpose(0, 1), tgt_d)]).mean()
+        (gW,) = torch.autograd.grad(loss, W_leaf)
+        ev[2].record()
+    deltas = torch.randn((T_TRAIN, B, N), device=dev)
+    ev[3].record()
+    p.grad_ws[0](deltas, deltas)
+    ev[4].record()
+    opt.update({"nodes": {"qif": {"weights": gW}}, "edges": {}}, opt_state, train)
+    ev[5].record()
+    torch.cuda.synchronize()
+    fwd, bwd_all, dw = (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                        ev[3].elapsed_time(ev[4]))
+    parts = dict(zip(("forward_loop", "backward_loop", "dW_matmul", "optimizer"),
+                     (fwd, bwd_all - dw, dw, ev[4].elapsed_time(ev[5]))))
+    del outs, gW, deltas, loss, xs_tm
+    dw_flops = 2.0 * T_TRAIN * B * N * N
+    busy_ms, top = profile_device_time(
+        lambda: net.fit_bptt_batch(ins_d, tgt_d, n_epochs=1, optimizer="adam", lr=LR,
+                                   verbose=False))
+    emit({"phase": "batch_timing_top_device_ops", "top": top})
+    emit({"phase": "batch_timing", "B": B, "epoch_split_ms": parts, "ms_per_epoch": epoch_ms,
+          "dW_flops": dw_flops, "dW_achieved_flops": dw_flops / (dw * 1e-3) if dw > 0 else None,
+          "dW_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+          "profiled_device_busy_ms": busy_ms,
+          "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / epoch_ms})
+    return entries
+
+
+def batch_phases(dev, W_np, data, single_nu: float) -> list:
+    """Phases 25-28 (the batched trials of run_batch and fit_bptt_batch).
+    Returns the entries of the ``kernels`` line for their kernels."""
+    errs = batch_kernel_check(dev, W_np)
+    torch.cuda.empty_cache()
+    run_launches, _ = run_batch_phase(dev)
+    generic_entry = generic_batch_phase()
+    launches, epoch_ms, staged, net = batch_train_phase(dev, data, single_nu)
+    entries = batch_timing(dev, W_np, net, staged, epoch_ms, launches, run_launches, errs)
+    entries.append(generic_entry)
+    del staged, net
+    torch.cuda.empty_cache()
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1561,8 +2112,9 @@ def main() -> int:
         itemsize = W.element_size()
         n_bytes = N * N * itemsize + 5 * 4 * N + 3 * 4 * N  # W, 5 vectors in, 3 out
         n_ops = 2 * N * N + 20 * N  # the matvec's FMAs plus the epilogue
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS) * 1e3
-        bound_by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS else "operations"
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(W.dtype)
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
         ms = cuda_ms(lambda: qif_sfa_step(v, s, x, W, eta, inp, **params), reps=200)
         plain_ms = cuda_ms(lambda: qif_sfa_reference_step(v, s, x, W, eta, inp, **params),
                            reps=20)
@@ -1596,13 +2148,15 @@ def main() -> int:
     t0 = time.perf_counter()
     data = bench_training_data(N)
     data_s = time.perf_counter() - t0
-    kernels += train_phases(dev, data + (data_s,))
+    entries, train_nu = train_phases(dev, data + (data_s,))
+    kernels += entries
     kernels += int4_train_phases(dev, data + (data_s,), timing10)
     by_name = {e["name"]: e for e in kernels}
     kernels += readout_phases(build_net, by_name["qif_sfa_step[bfloat16]"])
-    del W_np
     kernels += tbptt_phase(dev, data + (data_s,), by_name)
     kernels += feedback_phase()
+    kernels += batch_phases(dev, W_np, data, train_nu)
+    del W_np
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -9,7 +9,9 @@ network's weights and state across.
 
 Importing the package builds nothing: the CUDA kernels under ``csrc/`` are
 compiled at first use.  Everything runs on the current CUDA device unless
-``device="cpu"`` is passed.
+``device="cpu"`` is passed.  ``Network.run_batch`` and
+``Network.fit_bptt_batch`` run ``B`` independent trials together through
+batched kernels (``int8_mm``/``int8_mm_t``, the B-row ``qif_sfa_step``).
 """
 
 __version__ = "0.1.0"

@@ -208,6 +208,16 @@ def _exprel(x):
     return torch.where(small, 1.0 + x * 0.5, torch.expm1(safe) / safe)
 
 
+def _population(fn: Callable) -> Callable:
+    """A reduction over the neuron axis: the whole of a population vector,
+    the last axis (kept, to broadcast back) of per-trial rows ``(B, n)``."""
+
+    def reduce(x):
+        return fn(x) if x.dim() <= 1 else fn(x, dim=-1, keepdim=True)
+
+    return reduce
+
+
 def _heaviside(x):
     # heaviside(0) = 0.0 in the equation language (jnp.heaviside(x, 0.0))
     return torch.heaviside(x, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -233,10 +243,10 @@ FUNCTIONS: Dict[str, Callable] = {
         "sign": torch.sign,
         # population reductions (PyRates `mean()` semantics); the scalar
         # result broadcasts back over the neuron axis
-        "mean": torch.mean,
-        "sum": torch.sum,
-        "min": torch.amin,
-        "max": torch.amax,
+        "mean": _population(torch.mean),
+        "sum": _population(torch.sum),
+        "min": _population(torch.amin),
+        "max": _population(torch.amax),
         "maxi": torch.maximum,
         "mini": torch.minimum,
         "maximum": torch.maximum,

@@ -131,19 +131,31 @@ def _qualify(name: str, ops: List[OperatorTemplate]) -> str:
     return f"{matches[0]}/{name}"
 
 
+def matvec(w: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``w @ src`` for a source vector (``torch.mv``), for source rows
+    ``(..., n_in)`` with one shared ``w`` (one ``(rows, n_in) @ (n_in,
+    n_out)`` product), and for per-trial weights ``(B, n_out, n_in)`` with
+    sources ``(B, n_in)`` (a swept coupling: a batched product)."""
+    if src.dim() == 1 and w.dim() == 2:
+        return torch.mv(w, src)
+    if w.dim() == 2:
+        return src @ w.T
+    return (w @ src.unsqueeze(-1)).squeeze(-1)
+
+
 def _float_matvec(w: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``w @ src``.  A float16/bfloat16 coupling casts BOTH operands to its
-    type and sums the products in float32 (the JAX lowering's
-    ``dot_general(..., preferred_element_type=float32)``): the upcast
-    operands hold the rounded values exactly, so one float32 product is the
-    same function."""
+    """``w @ src`` (any source of :func:`matvec`).  A float16/bfloat16
+    coupling casts BOTH operands to its type and sums the products in
+    float32 (the JAX lowering's ``dot_general(...,
+    preferred_element_type=float32)``): the upcast operands hold the rounded
+    values exactly, so one float32 product is the same function."""
     if w.dtype in (torch.bfloat16, torch.float16):
-        out = torch.mv(w.to(torch.float32), src.to(w.dtype).to(torch.float32))
+        out = matvec(w.to(torch.float32), src.to(w.dtype).to(torch.float32))
         return out.to(src.dtype)
     if w.dtype != src.dtype:
         dt = torch.promote_types(w.dtype, src.dtype)
-        return torch.mv(w.to(dt), src.to(dt))
-    return torch.mv(w, src)
+        return matvec(w.to(dt), src.to(dt))
+    return matvec(w, src)
 
 
 class _FrozenQuantDot(torch.autograd.Function):
@@ -160,13 +172,16 @@ class _FrozenQuantDot(torch.autograd.Function):
         ctx.save_for_backward(wq, scale)
         ctx.dtype = scaled.dtype
         xq = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
-        one = torch.ones((), dtype=torch.float32, device=scaled.device)
+        one = torch.ones(scaled.shape[:-1] + (1,) if scaled.dim() > 1 else (),
+                         dtype=torch.float32, device=scaled.device)
         return mv(w_mv, xq, scale, one)
 
     @staticmethod
     def backward(ctx, g):
         wq, scale = ctx.saved_tensors
-        dscaled = torch.mv(wq.to(ctx.dtype).T, (g * scale).to(ctx.dtype))
+        gs = (g * scale).to(ctx.dtype)
+        w = wq.to(ctx.dtype)
+        dscaled = torch.mv(w.T, gs) if gs.dim() == 1 else gs @ w
         return dscaled, None, None, None, None
 
 
@@ -176,9 +191,12 @@ def _frozen_quant_matvec(wq: torch.Tensor, w_mv: torch.Tensor, scale: torch.Tens
     branches): the source is scaled by ``max|src|/127`` in its own dtype and
     rounded to int8, the integer product sums exactly, and the result is
     ``(float32(sum) * scale) * s_scale`` with the last product in the
-    source's dtype.  The source's gradient is straight-through; the scale
+    source's dtype.  Source rows ``(..., n_in)`` take one ``s_scale`` each
+    (one per trial).  The source's gradient is straight-through; the scale
     ``s_scale`` takes none."""
-    s_scale = torch.clamp_min(src.detach().abs().amax(), 1e-30) / 127.0
+    a = src.detach().abs()
+    s_scale = torch.clamp_min(a.amax() if src.dim() == 1 else a.amax(dim=-1, keepdim=True),
+                              1e-30) / 127.0
     return _FrozenQuantDot.apply(src / s_scale, wq, w_mv, scale, mv).to(src.dtype) * s_scale
 
 
@@ -192,13 +210,15 @@ def _bf16_values(w: torch.Tensor) -> torch.Tensor:
 def _bf16_matvec(wb: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """The ``bfloat16_master`` matvec on ``wb = _bf16_values(w)``: the
     source rounded to bfloat16, the products summed in float32."""
-    return torch.mv(wb, src.to(torch.bfloat16).to(torch.float32)).to(src.dtype)
+    return matvec(wb, src.to(torch.bfloat16).to(torch.float32)).to(src.dtype)
 
 
-def _broadcast(value, n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def _broadcast(value, shape: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` (a number, a scalar, ``(n,)``, or per trial ``(B, 1)``/``(B,
+    n)``) broadcast to a state block's ``shape``, ``(n,)`` or ``(B, n)``."""
     if isinstance(value, torch.Tensor):
-        return value.expand(n)
-    return torch.full((n,), float(value), dtype=dtype, device=device)
+        return value.expand(shape)
+    return torch.full(shape, float(value), dtype=dtype, device=device)
 
 
 def lower(
@@ -441,6 +461,10 @@ def lower(
             a = dict(a)
             for wk in wkeys:
                 w = a[wk].detach()
+                if w.dim() == 3 and cast != "int8" and cast != "bf16":
+                    raise NotImplementedError(
+                        "A per-trial (swept) int4 coupling is not ported yet (ROADMAP "
+                        "Queue 2, follow-on h: batched int4 products).")
                 if int4_frozen:
                     a[wk + "__q4"] = quant.pack_int4(w)
                 elif cast == "bf16":
@@ -468,9 +492,9 @@ def lower(
             # the packed weights from prep_args, else packed here (the JAX
             # lowering's in-body cast fallback: the same numbers, slower)
             wp = a[wkey + "__q4"] if wkey + "__q4" in a else quant.pack_int4(w)
-            return _frozen_quant_matvec(w, wp, a[wkey + "__scale"], src, quant.int4_mv)
+            return _frozen_quant_matvec(w, wp, a[wkey + "__scale"], src, quant.int4_product)
         if w.dtype == torch.int8:
-            return _frozen_quant_matvec(w, w, a[wkey + "__scale"], src, quant.int8_mv)
+            return _frozen_quant_matvec(w, w, a[wkey + "__scale"], src, quant.int8_product)
         return _float_matvec(w, src)
 
     # initial state, contiguous per-variable blocks
@@ -545,7 +569,7 @@ def lower(
         """Evaluate all state slices, inputs and algebraic vars."""
         env: Dict[str, torch.Tensor] = {}
         for qname, (lo, hi) in state_slices:
-            env[qname] = y[lo:hi]
+            env[qname] = y[..., lo:hi]
         for k in keys:
             env[k] = a[k]
         for qname in schedule:
@@ -566,10 +590,11 @@ def lower(
         del t  # autonomous systems only (the Euler call is f(0, y, ...))
         env = _build_env(y, a)
         dy_parts = []
+        shape = y.shape[:-1] + (n,)
         for qname, rhs_ast, opname in ode_rhs:
             dv = evaluate(rhs_ast, _op_env(env, opname))
-            dy_parts.append(_broadcast(dv, n, y.dtype, y.device))
-        return torch.cat(dy_parts) if dy_parts else torch.zeros_like(y)
+            dy_parts.append(_broadcast(dv, shape, y.dtype, y.device))
+        return torch.cat(dy_parts, dim=-1) if dy_parts else torch.zeros_like(y)
 
     alg_names = [q for q in schedule if lowered[q].kind == "algebraic"]
 
@@ -612,7 +637,7 @@ def lower(
                     val = val + ext[qname]
                 env[qname] = val
         first = next(iter(states.values()))
-        return {qname: _broadcast(evaluate(rhs_ast, _op_env(env, opname)), first.shape[0],
+        return {qname: _broadcast(evaluate(rhs_ast, _op_env(env, opname)), first.shape,
                                   first.dtype, first.device)
                 for qname, rhs_ast, opname in ode_rhs}
 
@@ -677,11 +702,11 @@ def lower(
         """
         if qname in vmap_full:
             lo, hi = vmap_full[qname]
-            return y[lo:hi]
+            return y[..., lo:hi]
         env = _build_env(y, a)
         if qname not in env:
             raise KeyError(f"Variable {qname!r} not found in lowered population")
-        return _broadcast(env[qname], n, y.dtype, y.device)
+        return _broadcast(env[qname], y.shape[:-1] + (n,), y.dtype, y.device)
 
     # user-facing name maps: qualified plus unambiguous bare names
     param_map: Dict[str, str] = {}

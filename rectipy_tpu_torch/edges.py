@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from .dsl.lower import matvec
 from .nodes import resolve_device, resolve_dtype
 
 __all__ = ["Linear", "RLS"]
@@ -33,15 +34,18 @@ def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float64)).to(device=device, dtype=dtype)
 
 
-def _apply_w(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Edge projection: 2-D weights -> matvec; 1-D weights -> diagonal
-    (elementwise) gains, which spare an (N, N) identity-like matrix for what
-    is an O(N) operation.  Mixed dtypes (a float64 RLS readout fed by a
-    float32 population) compute in the promoted type, as JAX promotes."""
+def _apply_w(w: torch.Tensor, v: torch.Tensor, diag: bool) -> torch.Tensor:
+    """Edge projection: a matrix -> matvec; 1-D weights (``diag``) ->
+    diagonal (elementwise) gains, which spare an (N, N) identity-like matrix
+    for what is an O(N) operation.  The source may carry leading trial axes
+    ``(B, n)``, and the weights a per-trial axis (swept by ``run_batch``),
+    so ``diag`` comes from the edge, not from ``w``.  Mixed dtypes (a float64
+    RLS readout fed by a float32 population) compute in the promoted type,
+    as JAX promotes."""
     if w.dtype != v.dtype:
         dtype = torch.promote_types(w.dtype, v.dtype)
         w, v = w.to(dtype), v.to(dtype)
-    return w * v if w.ndim == 1 else w @ v
+    return w * v if diag else matvec(w, v)
 
 
 class Linear:
@@ -114,8 +118,10 @@ class Linear:
         return None
 
     def make_step(self) -> Callable:
+        diag = self.params["weights"].ndim == 1
+
         def step(state, params, x):
-            return state, _apply_w(params["weights"], x)
+            return state, _apply_w(params["weights"], x, diag)
 
         return step
 

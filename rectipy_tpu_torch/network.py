@@ -16,12 +16,19 @@ windowed recording semantics.  The trainers:
 - ``fit_rls``: online FORCE learning of an ``RLS`` edge;
 - ``test``: a frozen run scored by a loss.
 
+Batched trials: ``run_batch`` integrates ``B`` independent trials together
+(``(B, T, m)`` inputs, or a shared ``(T, m)`` drive with per-trial
+parameters, ``batch_vars``), and ``fit_bptt_batch`` trains on them in
+minibatches.  Every node and edge step takes states with a leading trial
+axis, so a step of ``B`` trials is one step whose products take ``(B, n)``
+rows.
+
 On the device: the inputs move to the device once, the records and losses
 stay on the device, and nothing inside the loops synchronises with the host;
 they cross to the host once, at the end.
 
 Not ported yet (ROADMAP Queue 1 items 7 and 10-14): ``remat_steps`` and
-``mesh=``, ``run_batch`` and the batched trainers, ``fit_stdp`` and
+``mesh=``, ``fit_bptt_multistart`` and ``fit_es``, ``fit_stdp`` and
 ``fit_eprop``, the edge classes beyond ``Linear`` and ``RLS``, heterogeneous
 circuits, on-device input specs and spike rasters.
 """
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import os
 from time import perf_counter
+from types import SimpleNamespace
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import networkx as nx
@@ -710,7 +718,7 @@ class Network:
                 lo, hi = spec
 
                 def reader(y, a, lo=lo, hi=hi):
-                    return y[lo:hi]
+                    return y[..., lo:hi]
             elif isinstance(spec, str):
                 vf = node._vf
 
@@ -718,7 +726,7 @@ class Network:
                     return vf.read_var(q, y, a)
             else:
                 def reader(y, a, i=spec):
-                    return y[i]
+                    return y[..., i]
             resolved.append(((node_label, var), node_label, reader, reduce))
         return resolved
 
@@ -778,8 +786,8 @@ class Network:
         rec_info = self._resolve_record_vars(obs)
         with torch.no_grad():
             state, rec0, recs = self._run_windowed(
-                self.init_state(), self._prep_params(self.parameters_pytree()), inputs, s,
-                cutoff, rec_info, obs.record_output)
+                self.init_state(), self._prep_params(self.parameters_pytree()),
+                inputs.unbind(0), s, cutoff, rec_info, obs.record_output)
         self._write_back(state)
 
         rec_steps_all = [t for t in range(steps) if t % s == 0]
@@ -793,19 +801,25 @@ class Network:
             print(f"Progress: {steps}/{steps} integration steps finished.")
         return obs
 
-    def _run_windowed(self, state, params, inputs, s, cutoff, rec_info, record_output):
-        """The run loop.  Returns the final state, the step-0 record and the
-        window records, all as host numpy arrays (one transfer, at the end)."""
+    def _run_windowed(self, state, params, xs, s, cutoff, rec_info, record_output,
+                      batched: bool = False):
+        """The run loop over the per-step inputs ``xs``.  Returns the final
+        state, the step-0 record and the window records, all as host numpy
+        arrays (one transfer, at the end).  ``batched``: the states carry a
+        leading trial axis; a reduced record is each trial's population mean
+        and the window records stack along axis 1, ``(B, R, ...)``."""
         step = self.make_step()
-        xs = inputs.unbind(0)
         steps = len(xs)
         n_win = (steps - 1) // s  # full windows after step 0
+        axis = 1 if batched else 0
 
         def read_vars(state):
             vals = {}
             for (key, label, reader, reduce) in rec_info:
                 val = reader(state["nodes"][label], params["nodes"][label])
-                vals["var::" + "::".join(key)] = val.mean() if reduce else val
+                if reduce:
+                    val = val.mean(dim=-1) if batched else val.mean()
+                vals["var::" + "::".join(key)] = val
             return vals
 
         # step 0: its own record window
@@ -836,31 +850,197 @@ class Network:
         rec0 = (host(out0) if record_output else None, {k: host(v) for k, v in vars0.items()})
         recs = None
         if n_win:
-            recs = (host(torch.stack(win_outs)) if record_output else None,
-                    {k: host(torch.stack([w[k] for w in win_vars])) for k in vars0})
+            recs = (host(torch.stack(win_outs, dim=axis)) if record_output else None,
+                    {k: host(torch.stack([w[k] for w in win_vars], dim=axis)) for k in vars0})
         return state, rec0, recs
 
     @staticmethod
     def _assemble_windowed_records(rec0, recs, rec_info, record_output, rec_steps_all,
-                                   cutoff):
+                                   cutoff, axis: int = 0):
         """Host-side record assembly: step 0 + window ends, filtered by
-        cutoff (the JAX package's ``_assemble_windowed_records``)."""
+        cutoff, along record axis ``axis`` (0 single-trial, 1 batched; the
+        JAX package's ``_assemble_windowed_records``)."""
         keep = np.asarray([t >= cutoff for t in rec_steps_all])
         if record_output:
-            parts = [np.expand_dims(np.asarray(rec0[0]), 0)]
+            parts = [np.expand_dims(np.asarray(rec0[0]), axis)]
             if recs is not None:
                 parts.append(np.asarray(recs[0]))
-            outs = np.compress(keep, np.concatenate(parts, axis=0), axis=0)
+            outs = np.compress(keep, np.concatenate(parts, axis=axis), axis=axis)
         else:
             outs = None
         rec_vars = {}
         for (key, _, _, _) in rec_info:
             k = "var::" + "::".join(key)
-            parts = [np.expand_dims(np.asarray(rec0[1][k]), 0)]
+            parts = [np.expand_dims(np.asarray(rec0[1][k]), axis)]
             if recs is not None:
                 parts.append(np.asarray(recs[1][k]))
-            rec_vars[key] = np.compress(keep, np.concatenate(parts, axis=0), axis=0)
+            rec_vars[key] = np.compress(keep, np.concatenate(parts, axis=axis), axis=axis)
         return outs, rec_vars
+
+    # ------------------------------------------------------- batched trials
+    _CLASS_LOSSES = ("nll", "ce")  # integer class labels: (B, R) targets
+
+    def _sweep_path(self, name: str, k) -> tuple:
+        """Resolve a ``batch_vars`` key to a params-tree path ``("nodes"|
+        "edges", label_or_ekey, param)``: ``(node, var)``, an exact path
+        3-tuple, or ``("edge", source, target, param)`` for an edge
+        parameter (the JAX package's ``_sweep_path``)."""
+        k = tuple(k)
+        if len(k) == 4 and k[0] == "edge":
+            _, src, tgt, param = k
+            edge = self.get_edge(src, tgt)  # raises with names if absent
+            if param not in edge.params:
+                raise KeyError(f"{name}: {param!r} is not a parameter of edge {src!r} -> "
+                               f"{tgt!r} (available: {sorted(edge.params)}).")
+            return ("edges", _ekey(src, tgt), param)
+        if len(k) == 3 and k[0] in ("nodes", "edges"):
+            sec, label, key = k
+            try:
+                owner = (getattr(self.get_node(label), "_args", {}) if sec == "nodes"
+                         else self.get_edge(*label.split("->")).params)
+            except KeyError:
+                raise KeyError(f"{name}: path {k} not found (no such {sec[:-1]} {label!r}).")
+            if key not in owner:
+                raise KeyError(f"{name}: {key!r} is not a parameter of {sec[:-1]} {label!r} "
+                               f"(path {k} not found).")
+            return k
+        nlabel, var = k
+        node = self.get_node(nlabel)
+        try:
+            return ("nodes", nlabel, node._param_map[self._relabel_var(var)])
+        except (AttributeError, KeyError):
+            raise KeyError(f"{name}: {var!r} is not a parameter of node {nlabel!r}.")
+
+    def _sweep_values(self, vals, leaf) -> torch.Tensor:
+        """Per-trial values on the device in the leaf's dtype; ``(B,)`` (one
+        scalar per trial) becomes ``(B, 1)``, so that it broadcasts over the
+        neurons of ``(B, n)`` states."""
+        dtype = leaf.dtype if isinstance(leaf, torch.Tensor) else self.dtype
+        vals = (vals.to(device=self.device, dtype=dtype) if isinstance(vals, torch.Tensor)
+                else torch.as_tensor(np.asarray(vals)).to(device=self.device, dtype=dtype))
+        return vals.reshape(-1, 1) if vals.dim() == 1 else vals
+
+    def _with_sweeps(self, params: dict, sweeps: dict) -> dict:
+        """``params`` with the per-trial leaves of ``sweeps`` (path -> all
+        trials' values) spliced in.  A node with a fused kernel then passes
+        its args through the kernel's ``_fused_sweep``, which routes what the
+        kernel takes per trial into its copies and refuses the rest."""
+        if not sweeps:
+            return params
+        params = {kind: {lbl: dict(sub) for lbl, sub in params[kind].items()}
+                  for kind in ("nodes", "edges")}
+        for (sec, label, key), val in sweeps.items():
+            params[sec][label][key] = val
+        for label in {label for sec, label, _ in sweeps if sec == "nodes"}:
+            sweep = getattr(self.get_node(label), "_fused_sweep", None)
+            if sweep is not None:
+                params["nodes"][label] = sweep(params["nodes"][label])
+        return params
+
+    def _refuse_generic_fused(self):
+        """``fit_bptt_batch`` refuses a node with the generic fused step,
+        whose kernel takes one trial (its B-row form is ROADMAP Queue 2,
+        follow-on g)."""
+        for n in self._compiled["order"]:
+            cfg = getattr(self.get_node(n), "_fused_cfg", None)
+            if cfg is not None and "step" in cfg:
+                raise NotImplementedError(
+                    f"Node {n!r} has the generic fused step attached, whose kernel takes one "
+                    f"trial; fit_bptt_batch through it is not ported yet (ROADMAP Queue 2, "
+                    f"follow-on g). Rebuild the node without it for fit_bptt_batch.")
+
+    def _batch_state(self, state: dict, B: int) -> dict:
+        """The state tree with every node state and carried feedback output
+        repeated over ``B`` trials, ``(B, ...)``."""
+        def rows(t):
+            return None if t is None else t.expand((B,) + tuple(t.shape)).contiguous()
+
+        out = {"nodes": {k: rows(v) for k, v in state["nodes"].items()},
+               "edges": dict(state["edges"])}
+        if "fb" in state:
+            out["fb"] = {k: rows(v) for k, v in state["fb"].items()}
+        return out
+
+    def run_batch(self, inputs, sampling_steps: int = 1, cutoff: int = 0,
+                  verbose: bool = False, **kwargs) -> dict:
+        """Integrate a batch of independent trials, every trial from the
+        network's current state; the network's state (and a
+        ``FeedbackNetwork``'s carried outputs) is left unchanged.
+
+        ``inputs``: ``(B, T, m)``, or a shared ``(T, m)`` drive with
+        ``batch_vars`` (staged once; no ``(B, T, m)`` copy).  Returns
+        ``{"steps": (R,), "out": (B, R, n_out), (node, var): (B, R, ...)}``
+        with the recording semantics of :meth:`run`.
+
+        ``batch_vars``: ``{key: values}`` sweeps parameters across the
+        trials; ``values`` is ``(B,)`` (one scalar per trial) or ``(B, n)``
+        (per neuron), or ``(B, n, n)`` for a coupling.  Keys are ``(node,
+        var)``, an exact path ``("nodes"|"edges", label, key)`` or
+        ``("edge", source, target, param)``.  A master coupling swept per
+        trial is quantized (or rounded) per trial once per run.
+
+        All trials advance together: every step is one batched step, whose
+        products take ``(B, n)`` rows (one ``int8_mm`` launch per step for an
+        ``int8``/``int8_master`` coupling, one B-row ``qif_sfa_step`` for a
+        node with the fused QIF step).  A coupling swept per trial has its
+        own W per trial, so nothing can be shared: an ``int8``/
+        ``int8_master`` one launches ``int8_mv`` once per trial per step.
+
+        A node with the generic fused step, whose kernel takes one trial,
+        launches it once per trial per step.
+
+        Not ported yet: on-device input specs and ``record_spikes`` (ROADMAP
+        Queue 1 item 11), ``mesh=`` (item 14) and int4 couplings of ``(B,
+        n)`` sources on the GPU (Queue 2, follow-on h; the JAX package has
+        no counterpart of that refusal).  A fused node refuses a sweep of a
+        parameter its kernel bakes in or shares (the JAX package's fused
+        QIF kernel ignores a swept eta, which the port applies).
+        """
+        for key, what, item in (("mesh", "run_batch(mesh=)", "14"),
+                                ("record_spikes", "run_batch(record_spikes=)", "11")):
+            if kwargs.pop(key, None) is not None:
+                raise _todo(what, item)
+        batch_vars = kwargs.pop("batch_vars", None)
+        if hasattr(inputs, "build"):
+            raise _todo("On-device input specs (rectipy_tpu.inputs)", "11")
+        inputs = self._to_device(inputs)
+        if inputs.ndim == 2 and batch_vars:
+            B, T = int(np.shape(next(iter(batch_vars.values())))[0]), int(inputs.shape[0])
+        elif inputs.ndim != 3:
+            raise ValueError(f"run_batch expects (B, T, m) inputs -- or shared (T, m) inputs "
+                             f"with batch_vars -- got {tuple(inputs.shape)}")
+        else:
+            B, T = int(inputs.shape[0]), int(inputs.shape[1])
+        self.compile()
+        n_chan = int(inputs.shape[-1])
+        if self.n_in and n_chan not in (1, self.n_in):
+            raise ValueError(f"`inputs` has {n_chan} channels but the network input node "
+                             f"{self._in_node!r} expects {self.n_in} (or 1, broadcast).")
+        s = int(sampling_steps)
+        if s < 1:
+            raise ValueError(f"sampling_steps must be >= 1; got {sampling_steps}")
+        obs = Observer(dt=self.dt, record_loss=kwargs.pop("record_loss", False), **kwargs)
+        rec_info = self._resolve_record_vars(obs)
+        state0 = self.init_state()
+        params = self.parameters_pytree()
+        sweeps = self._resolve_batch_vars("run_batch", batch_vars, B, params, trainer=False)
+        rec_steps_all = [t for t in range(T) if t % s == 0]
+        results = {"steps": np.asarray([t for t in rec_steps_all if t >= cutoff],
+                                       dtype=np.int64)}
+        with torch.no_grad():
+            pb = self._prep_params(self._with_sweeps(params, sweeps))
+            xs = ([x.expand(B, n_chan) for x in inputs.unbind(0)] if inputs.ndim == 2
+                  else inputs.unbind(1))
+            _, rec0, recs = self._run_windowed(self._batch_state(state0, B), pb, xs, s, cutoff,
+                                               rec_info, obs.record_output, batched=True)
+        outs, rec_vars = self._assemble_windowed_records(
+            rec0, recs, rec_info, obs.record_output, rec_steps_all, cutoff, axis=1)
+        if outs is not None:
+            results["out"] = outs
+        results.update(rec_vars)
+        if verbose:
+            print(f"Progress: {B} trials x {T} steps finished.")
+        return results
 
     def reset(self, state: dict = None):
         """Reset node states to zeros, or to the given per-node vectors, and
@@ -1007,9 +1187,241 @@ class Network:
             print(f"Finished optimization after {perf_counter() - t0} s.")
         return obs
 
-    def fit_bptt_batch(self, *args, **kwargs):
-        """Batched-trial BPTT: not ported yet."""
-        raise _todo("fit_bptt_batch", "11")
+    def fit_bptt_batch(self, inputs, targets, n_epochs: int = 1, batch_size: int = None,
+                       optimizer: str = "adam", optimizer_kwargs: dict = None, loss: str = "mse",
+                       loss_kwargs: dict = None, lr: float = 1e-3, sampling_steps: int = 1,
+                       shuffle: bool = True, seed: int = 0, verbose: bool = True,
+                       **kwargs) -> Observer:
+        """Minibatch BPTT over a batch of independent trials, as the JAX
+        package's ``fit_bptt_batch``.
+
+        ``inputs``: ``(B, T, m)``, every trial from the network's current
+        state; ``targets``: ``(B, R, n_out)`` with ``R = T // sampling_steps``
+        (``(B, R)`` integer classes for ``loss='nll'|'ce'``).  Each update
+        takes the gradient of the mean over ``batch_size`` trials (default:
+        all B) of each trial's loss; ``n_epochs`` passes over the trials,
+        reshuffled each epoch when ``shuffle`` (the permutations of
+        ``numpy.random.default_rng(seed)``, the JAX package's).
+        ``accum_steps=k`` averages the gradients of ``k`` equal micro-batches
+        of each minibatch (the same update, ``1/k`` of the trajectories in
+        memory).  ``batch_vars`` (``{(node, var): (B,) or (B, n)}``, as
+        :meth:`run_batch`'s) gives each trial its own FROZEN parameters;
+        trained parameters stay shared, and a trainable path raises.
+
+        Every step advances the minibatch's trials together: chain networks
+        train through the deferred-gradient trajectory of ``ops/bptt.py``
+        with ``(B, n)`` rows (``int8_mm``/``int8_mm_t`` for an
+        ``int8_master`` coupling) and one dW product over trials and time;
+        other networks through plain autograd over the batched step
+        (``fused_bptt`` as in :meth:`fit_bptt`; ``net.last_fit`` says which).
+        The optimizer is the split one, as in the JAX package's batch
+        programs (``RECTIPY_FUSED_ADAM`` is not read).
+
+        Returns an Observer with ``train_loss`` (one per update),
+        ``epoch_loss`` (the mean over an epoch's minibatches) and
+        ``epochs``.  The trained parameters are written back; the network's
+        state is left unchanged.  Not ported yet: ``remat_steps`` (ROADMAP
+        Queue 1 item 7), ``mesh=`` (item 14) and a node with the generic
+        fused step (Queue 2, follow-on g).
+        """
+        self.compile()
+        loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
+        opt = get_optimizer(optimizer, lr, optimizer_kwargs=optimizer_kwargs)
+        obs = Observer(dt=self.dt, **retrieve_from_dict(["record_loss"], kwargs))
+        paths = self.trainable_paths()
+        if not paths:
+            raise ValueError("No trainable parameters in the network; pass `train_params` "
+                             "to add_diffeq_node or train='gd' to add_edge.")
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("fit_bptt_batch(mesh=)", "14")
+        self._refuse_generic_fused()
+        batch_vars = kwargs.pop("batch_vars", None)
+        setup = self._batch_fit_setup("fit_bptt_batch", inputs, targets, batch_size, loss,
+                                      shuffle, seed, n_epochs, kwargs)
+        params = self.parameters_pytree()
+        sweeps = self._resolve_batch_vars("fit_bptt_batch", batch_vars, setup.B, params)
+        train, frozen = self._partition(params, paths)
+        train = tree_map(lambda t: t.detach(), train)
+        opt_state = opt.init(train)
+        batch_loss, pack, self.last_fit = self._build_batch_programs(loss_fn, sampling_steps,
+                                                                     setup.fused_bptt)
+        state0 = self.init_state()
+        xs_all, tgt_all, mb, accum = setup.inputs, setup.targets, setup.mb, setup.accum
+        y0 = pack(state0, mb // accum)
+
+        t0 = perf_counter()
+        losses = []
+        perms = torch.as_tensor(setup.perms, device=self.device)
+        for epoch in range(setup.epochs):
+            perm = perms[epoch]
+            for u in range(setup.n_mb):
+                ids = perm[u * mb:(u + 1) * mb]
+                lsum, gsum = None, None
+                for a in range(accum):  # equal micro-batches: the mean of their means
+                    sub = ids[a * (mb // accum):(a + 1) * (mb // accum)]
+                    full = sub.shape[0] == setup.B and not setup.shuffled
+                    xs = xs_all if full else xs_all.index_select(1, sub)
+                    tgt = tgt_all if full else tgt_all.index_select(0, sub)
+                    fz = self._with_sweeps(frozen, {p: (v if full else v.index_select(0, sub))
+                                                    for p, v in sweeps.items()})
+                    lval, grads = _value_and_grad(batch_loss, train, fz, y0, xs, tgt)
+                    lsum = lval if lsum is None else lsum + lval
+                    gsum = grads if gsum is None else tree_map(torch.add, gsum, grads)
+                if accum > 1:
+                    lsum, gsum = lsum / accum, tree_map(lambda g: g / accum, gsum)
+                train, opt_state = opt.update(gsum, opt_state, train)
+                train = tree_map(lambda t: t.detach(), train)
+                losses.append(lsum)  # stays on the device until the end
+            if verbose:
+                ep = torch.stack(losses[-setup.n_mb:]).mean()
+                print(f"Progress: {epoch + 1}/{setup.epochs} training epochs finished.")
+                print(f"Epoch loss: {float(ep)}.")
+                print("")
+        host = _host(torch.stack(losses)) if losses else np.zeros(0)
+        obs.save("train_loss", list(host))
+        obs.save("epoch_loss", list(host.reshape(setup.epochs, setup.n_mb).mean(axis=1))
+                 if setup.epochs else [])
+        obs.save("epochs", np.arange(setup.epochs))
+        self._write_back(params=self._combine(train, frozen))
+        if verbose:
+            print(f"Finished optimization after {perf_counter() - t0} s.")
+        return obs
+
+    def _resolve_batch_vars(self, name: str, batch_vars, B: int, params: dict,
+                            trainer: bool = True) -> dict:
+        """``batch_vars`` as ``{path: (B, ...) device tensor}`` (``(B,)``
+        values as ``(B, 1)``).  The trainers take per-trial overrides of
+        FROZEN parameters, ``(B,)`` or ``(B,) + leaf.shape``; a trainable
+        path raises (per-start trained values are ``fit_bptt_multistart``'s,
+        ROADMAP Queue 1 item 11).  ``run_batch`` (``trainer=False``) sweeps
+        any parameter and checks the leading dimension only: a scalar
+        parameter may sweep with per-neuron ``(B, n)`` values, as in the JAX
+        package."""
+        trainable = set(self.trainable_paths()) if trainer else set()
+        sweeps = {}
+        for k, vals in (batch_vars or {}).items():
+            path = self._sweep_path(name, k)
+            if path in trainable:
+                raise ValueError(
+                    f"{name}: batch_vars path {path} is TRAINABLE; per-trial sweeps apply to "
+                    f"frozen parameters (per-start trainable inits are fit_bptt_multistart's "
+                    f"start_inits).")
+            try:
+                leaf = params[path[0]][path[1]][path[2]]
+            except KeyError:
+                raise KeyError(f"{name}: batch_vars path {path} not found.")
+            shape = tuple(np.shape(vals))
+            leaf_shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+            if not trainer and shape[:1] != (B,):
+                raise ValueError(f"{name}: batch_vars[{k}]: leading dimension {shape[:1]} != "
+                                 f"batch size {B}")
+            if trainer and shape not in ((B,), (B,) + leaf_shape):
+                raise ValueError(f"{name}: batch_vars[{k}] must have shape {(B,)} (scalar per "
+                                 f"trial) or {(B,) + leaf_shape}, got {shape}")
+            sweeps[path] = self._sweep_values(vals, leaf)
+        return sweeps
+
+    def _batch_fit_setup(self, name: str, inputs, targets, batch_size, loss: str, shuffle,
+                         seed, n_epochs, kwargs: dict) -> SimpleNamespace:
+        """Validation, staging and minibatch arithmetic of the batched-trial
+        trainers (the JAX package's ``_batch_fit_setup``): the inputs on the
+        device time-major ``(T, B, m)`` (a step reads ``(B, m)`` rows), the
+        targets ``(B, R, ...)``, ``B``, ``T``, the minibatch size ``mb`` and
+        count ``n_mb``, ``accum``, ``shuffled``, ``fused_bptt``, ``epochs``
+        and the per-epoch trial permutations ``perms`` (host numpy).
+        Consumes its keyword arguments from ``kwargs``; any other raises."""
+        if int(kwargs.pop("remat_steps", 0)) > 1:
+            raise _todo(f"{name}(remat_steps=)", "7")
+        fused_bptt = kwargs.pop("fused_bptt", "auto")
+        accum = int(kwargs.pop("accum_steps", 1))
+        retrieve_from_dict(["closure", "retain_graph"], kwargs)  # torch.optim-only knobs
+        if kwargs:
+            raise TypeError(f"{name}() got unexpected keyword arguments {sorted(kwargs)}")
+        ishape, tshape = tuple(np.shape(inputs)), tuple(np.shape(targets))
+        if len(ishape) != 3:
+            raise ValueError(f"{name} expects (B, T, m) inputs, got {ishape}")
+        expect_nd = 2 if loss in self._CLASS_LOSSES else 3
+        if len(tshape) != expect_nd:
+            raise ValueError(
+                f"{name} expects targets of shape "
+                f"{'(B, R) integer class labels' if expect_nd == 2 else '(B, R, n_out)'} "
+                f"for loss={loss!r} (R = T // sampling_steps), got {tshape}")
+        if tshape[0] != ishape[0]:
+            raise ValueError(
+                "Wrong dimensions of input and target output. Please make sure that "
+                "`inputs` and `targets` agree in the first dimension (trials).")
+        B, T = ishape[0], ishape[1]
+        mb = B if batch_size is None else int(batch_size)
+        if mb < 1 or B % mb:
+            raise ValueError(f"batch_size={mb} must divide the number of trials B={B}")
+        if accum < 1 or mb % accum:
+            raise ValueError(
+                f"accum_steps={accum} must divide the minibatch size {mb} (micro-batches of "
+                f"mb/accum_steps trials each).")
+        n_mb = B // mb
+        shuffled = bool(shuffle) and n_mb > 1  # full batch: the order is moot
+        E = int(n_epochs)
+        if shuffled:
+            rng = np.random.default_rng(seed)
+            perms = np.stack([rng.permutation(B) for _ in range(E)]) if E else np.zeros((0, B))
+        else:
+            perms = np.broadcast_to(np.arange(B), (E, B))
+        return SimpleNamespace(
+            inputs=self._to_device(inputs).transpose(0, 1).contiguous(),
+            targets=self._to_device(targets), B=B, T=T, mb=mb, n_mb=n_mb, accum=accum,
+            shuffled=shuffled, fused_bptt=fused_bptt, epochs=E,
+            perms=np.array(perms, dtype=np.int64))
+
+    def _build_batch_programs(self, loss_fn, sampling_steps: int, fused_bptt) -> tuple:
+        """``(batch_loss, pack, info)`` of the batched-trial trainers:
+        ``batch_loss(train, frozen, y0, xs, tgt)``, the mean over the
+        minibatch's trials of each trial's loss, for time-major inputs ``xs
+        (T, mb, m)`` and targets ``(mb, R, ...)``; ``pack(state0, mb)``, the
+        initial state of ``mb`` trials; and which trajectory the fit takes
+        (``{"trajectory": "chain"|"autograd", "fused_adam": False}``)."""
+        combine = self._combine
+        step = self.make_step()
+        chain, traj, wkeys = self._chain_traj(fused_bptt)
+        s = int(sampling_steps)
+
+        def trial_mean(outs, tgt):
+            """outs (mb, T, n): each trial's loss on its downsampled outputs,
+            then the mean over trials (the JAX package's vmapped loss)."""
+            if s > 1:
+                n_keep = outs.shape[1] // s
+                outs = outs[:, :n_keep * s].reshape(outs.shape[0], n_keep, s, -1).mean(dim=2)
+            return torch.stack([loss_fn(o, t) for o, t in zip(outs, tgt)]).mean()
+
+        if traj is not None:
+            label, prefix, suffix = chain
+
+            def pack(state0, mb):
+                return self._batch_state(state0, mb)["nodes"][label]
+
+            def batch_loss(train, frozen, y0, xs, tgt):
+                params = combine(train, frozen)
+                nargs = params["nodes"][label]
+                W = {k: nargs[k] for k in wkeys}
+                rest = {k: v for k, v in nargs.items() if k not in wkeys}
+                xs = prefix(params, xs) if prefix is not None else xs
+                _, outs = traj(W, rest, y0, xs)
+                if suffix is not None:
+                    outs = suffix(params, outs)
+                return trial_mean(outs.transpose(0, 1), tgt)
+        else:
+            def pack(state0, mb):
+                return self._batch_state(state0, mb)
+
+            def batch_loss(train, frozen, state0, xs, tgt):
+                params = combine(train, frozen)
+                state, outs = state0, []
+                for x in xs.unbind(0):
+                    state, out, _ = step(state, params, x)
+                    outs.append(out)
+                return trial_mean(torch.stack(outs, dim=1), tgt)
+
+        return batch_loss, pack, {"trajectory": "chain" if traj is not None else "autograd",
+                                  "fused_adam": False}
 
     def _chain_decompose(self):
         """Decompose a chain network ``[instants...] -> population ->
@@ -1223,7 +1635,10 @@ class Network:
         """An array or tensor on the network's device, in its dtype."""
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=self.dtype)
-        return torch.as_tensor(np.asarray(x)).to(device=self.device, dtype=self.dtype)
+        x = np.asarray(x)
+        if not x.flags.writeable:  # a broadcast view: torch takes only writable arrays
+            x = x.copy()
+        return torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
 
     def _stager(self) -> Callable:
         """``stage(x)``: each distinct input/target array moves to the device

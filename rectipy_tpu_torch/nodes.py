@@ -6,6 +6,10 @@ the object API (``forward``/``reset``/``set_param``/``__getitem__``) is a
 thin wrapper holding the current ``y`` tensor and ``args`` dict.
 ``Network.compile`` composes these steps into one network step.  Steps are
 functional: they return new tensors and never write their inputs in place.
+Every step takes a state ``(S,)`` or, for ``Network.run_batch`` and
+``fit_bptt_batch``, a leading trial axis ``(B, S)``: state blocks are slices
+of the last axis, and parameters swept per trial arrive as ``(B, 1)`` or
+``(B, n)`` and broadcast.
 
 Semantics (as in the JAX package and RectiPy):
 - ``RateNet.forward``: one explicit-Euler step (or a Heun/RK4 step with
@@ -120,6 +124,13 @@ class InstantNode:
         self.n_out = n
         self.func = f
         self.func_name = func
+        self._axis = axis
+
+    def _row_func(self, x):
+        dim = self._axis - 1 if x.dim() > 1 and self._axis >= 0 else self._axis
+        if self.func_name == "log_softmax":
+            return torch.log_softmax(x, dim=dim)
+        return torch.softmax(-x if self.func_name == "softmin" else x, dim=dim)
 
     def __getitem__(self, item):
         # function nodes have no parameters or state variables; raising lets
@@ -153,6 +164,10 @@ class InstantNode:
 
     def make_step(self) -> Callable:
         f = self.func
+        if self.func_name in ("softmax", "softmin", "log_softmax"):
+            # the axis counts in one trial's (n,) vector; per-trial rows
+            # (B, n) reduce over their last axis
+            f = self._row_func
 
         def step(state, args, x):
             del args
@@ -470,7 +485,7 @@ class RateNet:
 
             def reader(y, a):
                 del a
-                return y[lo:hi]
+                return y[..., lo:hi]
 
         return reader
 
@@ -597,7 +612,7 @@ class SpikeNet(RateNet):
         reader = self._make_out_reader()
 
         def step(y, args, x):
-            spikes = spike_fn(y[lo:hi] - thresh) / dt
+            spikes = spike_fn(y[..., lo:hi] - thresh) / dt
             a = dict(args)
             a[skey] = spikes
             a[rkey] = spikes.detach()
@@ -653,15 +668,15 @@ class SpikeResetNet(RateNet):
         reader = self._make_out_reader()
 
         def step(y, args, x):
-            spikes = spike_fn(y[lo:hi] - thresh)
+            spikes = spike_fn(y[..., lo:hi] - thresh)
             reset = spikes.detach()
             a = dict(args)
             a[skey] = spikes / dt
             a[inp_key] = x
             out = reader(y, a)  # pre-update output, as in RectiPy
             y_new = y + dt * func(0.0, y, a)
-            seg = y_new[lo:hi] * (1.0 - reset) + reset * v_reset
-            return torch.cat((y_new[:lo], seg, y_new[hi:])), out
+            seg = y_new[..., lo:hi] * (1.0 - reset) + reset * v_reset
+            return torch.cat((y_new[..., :lo], seg, y_new[..., hi:]), dim=-1), out
 
         return step
 
@@ -712,14 +727,14 @@ class MultiSpikeResetNet(RateNet):
             a = dict(args)
             resets = []
             for k, (lo, hi) in zip(skeys, segments):
-                spikes = spike_fn(y[lo:hi] - thresh)
+                spikes = spike_fn(y[..., lo:hi] - thresh)
                 resets.append(spikes.detach())
                 a[k] = spikes / dt
             a[inp_key] = x
             y_new = y + dt * func(0.0, y, a)
             for (lo, hi), reset in zip(segments, resets):
-                seg = torch.where(reset > 0.0, v_reset, y_new[lo:hi])
-                y_new = torch.cat((y_new[:lo], seg, y_new[hi:]))
+                seg = torch.where(reset > 0.0, v_reset, y_new[..., lo:hi])
+                y_new = torch.cat((y_new[..., :lo], seg, y_new[..., hi:]), dim=-1)
             return y_new, reader(y_new, a)  # post-update output
 
         return step

@@ -24,12 +24,17 @@ forward does (``W @ src``).
   ``ctx.needs_input_grad`` asks for are computed.
 
 Surrogate spikes, the detached hard reset and the pre-update output follow
-each node class (``nodes.py`` ``make_step``).  Scope: DSL-built ``RateNet``
-and ``SpikeResetNet`` with Euler integration and at least one dense coupling
-in float32/float64/bfloat16 or a master coupling (``bfloat16_master``,
-``int8_master``, ``int4_master``); anything else, frozen ``int8``/``int4``
-included, raises ``ValueError`` as in the JAX package, and the caller then
-takes plain autograd.  Not ported yet:
+each node class (``nodes.py`` ``make_step``).  ``fit_bptt_batch`` runs the
+same trajectory on ``B`` trials at once: ``y0`` is ``(B, S)``, ``xs`` is
+time-major ``(T, B, n_in)``, the per-step products take ``(B, n)`` rows
+(``ops/quant.py``'s ``int8_mm``/``int8_mm_t`` for an ``int8_master``
+coupling), and each ``dW`` is still ONE matmul, over trials and time.
+
+Scope: DSL-built ``RateNet`` and ``SpikeResetNet`` with Euler integration
+and at least one dense coupling in float32/float64/bfloat16 or a master
+coupling (``bfloat16_master``, ``int8_master``, ``int4_master``); anything
+else, frozen ``int8``/``int4`` included, raises ``ValueError`` as in the
+JAX package, and the caller then takes plain autograd.  Not ported yet:
 checkpointed trajectories (``remat_steps``, ROADMAP Queue 1 item 7), the Heun
 trajectory and the other node classes (Queue 1 item 3).
 """
@@ -44,6 +49,12 @@ import torch
 __all__ = ["make_coupled_traj", "make_coupled_traj_prepped"]
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``(T, n)`` factors as they are; ``(T, B, n)`` flattened to ``(T*B,
+    n)``, so that dW contracts trials and time in one product."""
+    return t.reshape(-1, t.shape[-1])
+
+
 def _make_matvec(cast):
     """Coupling contraction 4-tuple ``(prep, mv, mv_t, grad_w)`` matching
     ``dsl.lower``'s matvec numerics.  ``prep(w)`` runs once per trajectory;
@@ -56,16 +67,16 @@ def _make_matvec(cast):
         from .quant import int4_master_ops
 
         return int4_master_ops()
-    from ..dsl.lower import _bf16_matvec, _bf16_values, _float_matvec
+    from ..dsl.lower import _bf16_matvec, _bf16_values, _float_matvec, matvec
 
     if cast == "bf16":  # bfloat16_master: bf16 x bf16 products, float32 sums
         def mv_t_bf16(w, delta):
-            return torch.mv(w.T, delta.to(torch.bfloat16).to(torch.float32)).to(delta.dtype)
+            return matvec(w.T, delta.to(torch.bfloat16).to(torch.float32)).to(delta.dtype)
 
         def grad_w_bf16(deltas, srcs):
             """dW = Delta^T @ Src on bf16-rounded factors, float32 sums."""
-            return (deltas.to(torch.bfloat16).to(torch.float32).T
-                    @ srcs.to(torch.bfloat16).to(torch.float32))
+            return (_rows(deltas).to(torch.bfloat16).to(torch.float32).T
+                    @ _rows(srcs).to(torch.bfloat16).to(torch.float32))
 
         # prep rounds the master to bf16 once per trajectory (held in float32)
         return _bf16_values, _bf16_matvec, mv_t_bf16, grad_w_bf16
@@ -76,18 +87,23 @@ def _make_matvec(cast):
     def mv_t(w, delta):
         """W^T @ delta with the forward matvec's precision policy."""
         if w.dtype in (torch.bfloat16, torch.float16):
-            out = torch.mv(w.to(torch.float32).T, delta.to(w.dtype).to(torch.float32))
+            out = matvec(w.to(torch.float32).T, delta.to(w.dtype).to(torch.float32))
             return out.to(delta.dtype)
         if w.dtype != delta.dtype:
             dt = torch.promote_types(w.dtype, delta.dtype)
-            return torch.mv(w.to(dt).T, delta.to(dt)).to(delta.dtype)
-        return torch.mv(w.T, delta)
+            return matvec(w.to(dt).T, delta.to(dt)).to(delta.dtype)
+        return matvec(w.T, delta)
 
     def grad_w(deltas, srcs):
-        """dW = Delta^T @ Src over the time axis: one matmul, its result
-        rounded to float32 as the JAX package's ``dot_general(...,
-        preferred_element_type=float32)`` rounds it."""
-        return (deltas.T @ srcs).to(torch.float32).to(deltas.dtype)
+        """dW = Delta^T @ Src over the time (and trial) axes: one matmul,
+        its result rounded to float32 as the JAX package's ``dot_general(...,
+        preferred_element_type=float32)`` rounds it.  Wider factors of ``(T,
+        B, n)`` trials round each trial's product, as that package's vmapped
+        trajectory does, and sum them (float32 factors: one product)."""
+        if deltas.dim() == 3 and deltas.dtype != torch.float32:
+            per_trial = torch.einsum("tbi,tbj->bij", deltas, srcs)
+            return per_trial.to(torch.float32).to(deltas.dtype).sum(0)
+        return (_rows(deltas).T @ _rows(srcs)).to(torch.float32).to(deltas.dtype)
 
     return prep, _float_matvec, mv_t, grad_w
 
@@ -146,12 +162,13 @@ def _node_pieces(node):
     out_lo, out_hi = node._start, node._stop
 
     def split_states(y):
-        return {q: y[a:b] for q, a, b in slices}
+        return {q: y[..., a:b] for q, a, b in slices}
 
     def src_fn(y, args):
         """Coupling source rows: elementwise in the state."""
         states = split_states(y)
-        return tuple(rd(states, args).to(y.dtype).expand(n) for rd in src_readers)
+        shape = y.shape[:-1] + (n,)
+        return tuple(rd(states, args).to(y.dtype).expand(shape) for rd in src_readers)
 
     def step_x(y, s_ins, x, args):
         """One Euler step with the coupling matvec results supplied from
@@ -164,18 +181,18 @@ def _node_pieces(node):
             ext[tgt] = ext[tgt] + s_in if tgt in ext else 0.0 + s_in
         reset = None
         if spiking:
-            spikes = spike_fn(y[lo:hi] - thresh)
+            spikes = spike_fn(y[..., lo:hi] - thresh)
             reset = spikes.detach()
             a2[spike_key] = spikes / dt
         d = tile_func(states, a2, ext)
-        y_new = torch.cat([states[q] + dt * d[q] for q in state_order])
+        y_new = torch.cat([states[q] + dt * d[q] for q in state_order], dim=-1)
         if spiking:
-            seg = y_new[lo:hi] * (1.0 - reset) + reset * reset_val
-            y_new = torch.cat((y_new[:lo], seg, y_new[hi:]))
+            seg = y_new[..., lo:hi] * (1.0 - reset) + reset * reset_val
+            y_new = torch.cat((y_new[..., :lo], seg, y_new[..., hi:]), dim=-1)
         if out_reader_alg is not None:
-            out = out_reader_alg(states, a2).expand(n)
+            out = out_reader_alg(states, a2).expand(y.shape[:-1] + (n,))
         else:
-            out = y[out_lo:out_hi]
+            out = y[..., out_lo:out_hi]
         return y_new, out
 
     return SimpleNamespace(

@@ -218,6 +218,8 @@ def attach_generic_fused_step(node, weights_dtype=None) -> None:
     The node keeps its state layout, records, ``get_var`` and ``reset``.
     ``set_param`` refreshes the per-neuron parameters and the couplings in
     the kernel's copies and raises for the scalars, which are baked in.
+    ``(B, S)`` states (``run_batch``) launch the kernel once per trial, and
+    a per-trial sweep of the node's parameters raises.
     """
     from ..nodes import resolve_dtype  # nodes imports ops: not at module level
 
@@ -386,10 +388,25 @@ def attach_generic_fused_step(node, weights_dtype=None) -> None:
                else y[out_lo:out_hi])  # RateNet: pre-update output
         return y_new, out
 
-    chosen = fused_step_heun if heun else fused_step
+    one_trial = fused_step_heun if heun else fused_step
+
+    def chosen(y, args, x):
+        if y.dim() == 1:
+            return one_trial(y, args, x)
+        # (B, S) states: the kernel takes one trial, so it launches once per
+        # trial (its B-row form is ROADMAP Queue 2, follow-on g)
+        xs = x.unbind(0) if x.dim() == 2 else [x] * y.shape[0]
+        ys, outs = zip(*(one_trial(yb, args, xb) for yb, xb in zip(y.unbind(0), xs)))
+        return torch.stack(ys), torch.stack(outs)
+
+    def sweep(args):
+        raise ValueError("The generic fused step bakes in or shares every parameter across "
+                         "trials; none can be swept per trial.")
+
     node.make_step = lambda: chosen
     node._step_fn = None  # drop the cached forward() step (old step function)
     node._step_version = getattr(node, "_step_version", 0) + 1
     node._fused_refresh = refresh
+    node._fused_sweep = sweep
     node._fused_cfg = {"step": step, "weights_dtype": w_dtype, "n": n}
     node._fused_attached = True

@@ -15,6 +15,10 @@ vector field, threshold test and hard reset.
 - :func:`attach_fused_qif_step` swaps a qif/qif_sfa ``SpikeResetNet``'s step
   for the kernel (forward path only).
 
+Each takes one state ``(n,)`` or, for ``Network.run_batch``, ``B`` trials'
+states ``(B, n)`` that share W (the TPU kernel under the JAX package's
+``vmap``): the B-row kernel reads W once for up to 32 trials.
+
 W stays row-major and unpadded: the JAX package's transposed, tile-padded
 copy and padded state layout existed for the TPU's matrix unit.
 """
@@ -26,6 +30,7 @@ import functools
 
 import torch
 
+from ..dsl.lower import matvec
 from ..nodes import resolve_dtype
 from ._build import build
 
@@ -37,13 +42,15 @@ _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
 
 def qif_sfa_reference_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha,
                            thresh, v_reset):
-    """Plain PyTorch version of one QIF+SFA SpikeResetNet Euler step."""
+    """Plain PyTorch version of one QIF+SFA SpikeResetNet Euler step, for a
+    state ``(n,)`` or trials' states ``(B, n)`` (any operand may be ``(n,)``,
+    shared by the trials)."""
     spikes = torch.heaviside(v - thresh, torch.ones((), dtype=v.dtype, device=v.device)) / dt
     reset = spikes * dt  # 0/1 mask
     if W.dtype in (torch.bfloat16, torch.float16):
-        s_in = torch.mv(W.to(torch.float32), s.to(W.dtype).to(torch.float32)).to(v.dtype)
+        s_in = matvec(W.to(torch.float32), s.to(W.dtype).to(torch.float32)).to(v.dtype)
     else:
-        s_in = torch.mv(W.to(s.dtype), s)
+        s_in = matvec(W.to(s.dtype), s)
     dv = (v * v + (eta - x) + inp) / tau + k * s_in
     ds = -s / tau_s + spikes
     dx = -x / tau_x + alpha * spikes
@@ -57,6 +64,17 @@ def _launch_fn():
     fn = build("qif_sfa_step").lib.qif_sfa_step_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [p, i, i, p, p, p, p, p, p, p, p, i, f, f, f, f, f, f, f, f, f, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_launch_fn():
+    """The B-row kernel's C entry point."""
+    fn = build("qif_sfa_step").lib.qif_sfa_rows_launch
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    fn.argtypes = [p, i, i, p, p, p, p, p, ll, ll, ll, ll, ll, p, i, i,
+                   f, f, f, f, f, f, f, f, f, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -75,7 +93,8 @@ def _check_vec(name: str, t: torch.Tensor, n: int, device: torch.device):
 def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thresh, v_reset):
     """One fused QIF+SFA step.  Returns a new ``(3, n)`` float32 tensor whose
     rows are ``v'``, ``s'`` and ``x'`` (so ``v2, s2, x2 = qif_sfa_step(...)``
-    unpacks it); the inputs are never written.
+    unpacks it); the inputs are never written.  For ``B`` trials ``v`` is
+    ``(B, n)`` and the result ``(B, 3, n)``: :func:`qif_sfa_rows_step`.
 
     A W on the CPU takes :func:`qif_sfa_reference_step`.  A W on the GPU
     launches the kernel on the current stream: W ``(n, n)`` float32 or
@@ -84,10 +103,13 @@ def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thres
     ``qif_sfa_step.launches``.
     """
     device = W.device
-    if device.type == "cpu":
-        return torch.stack(qif_sfa_reference_step(
-            v, s, x, W, eta, inp, dt=dt, tau=tau, tau_s=tau_s, tau_x=tau_x, k=k,
-            alpha=alpha, thresh=thresh, v_reset=v_reset))
+    if device.type == "cpu" or v.dim() == 2:
+        if device.type == "cpu":
+            return torch.stack(qif_sfa_reference_step(
+                v, s, x, W, eta, inp, dt=dt, tau=tau, tau_s=tau_s, tau_x=tau_x, k=k,
+                alpha=alpha, thresh=thresh, v_reset=v_reset), dim=-2)
+        return qif_sfa_rows_step(v, s, x, W, eta, inp, dt=dt, tau=tau, tau_s=tau_s,
+                                 tau_x=tau_x, k=k, alpha=alpha, thresh=thresh, v_reset=v_reset)
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
             f"qif_sfa_step: W must be on the current CUDA device, got {device}")
@@ -117,6 +139,53 @@ def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thres
 
 
 qif_sfa_step.launches = 0
+
+
+def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thresh,
+                      v_reset):
+    """One fused QIF+SFA step of ``B`` trials that share W, through the B-row
+    kernel of ``csrc/qif_sfa_step.cu``: ``v (B, n)``; ``s``, ``x``, ``eta``
+    and ``inp`` each ``(B, n)`` or ``(n,)`` (one row shared by every trial),
+    float32, each row contiguous (the rows may be strided: the node's ``(B,
+    3n)`` state is read in place).  Returns a new ``(B, 3, n)`` float32
+    tensor (``v'``, ``s'``, ``x'`` per trial).  CUDA tensors only (a CPU W
+    takes the plain version through :func:`qif_sfa_step`); anything the
+    kernel does not take raises.  Each launch adds one to
+    ``qif_sfa_step.launches``."""
+    device = W.device
+    if device.type != "cuda" or device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"qif_sfa_step: W must be on the current CUDA device, got {device}")
+    if v.dim() != 2:
+        raise ValueError(f"qif_sfa_step: B-row v must be (B, n), got {tuple(v.shape)}")
+    rows, n = v.shape
+    if W.dtype not in _VEC_ELEMS:
+        raise ValueError(f"qif_sfa_step: W must be float32 or bfloat16, got {W.dtype}")
+    if tuple(W.shape) != (n, n) or not W.is_contiguous():
+        raise ValueError(
+            f"qif_sfa_step: W must be a contiguous ({n}, {n}) matrix, got {tuple(W.shape)}")
+    lds = []
+    for name, t in (("v", v), ("s", s), ("x", x), ("eta", eta), ("inp", inp)):
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"qif_sfa_step: {name} must be float32 on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.shape not in ((rows, n), (n,)) or t.stride(-1) != 1:
+            raise ValueError(f"qif_sfa_step: {name} must be ({rows}, {n}) or ({n},) with "
+                             f"contiguous rows, got {tuple(t.shape)} strides {t.stride()}")
+        lds.append(t.stride(0) if t.dim() == 2 else 0)
+    out = torch.empty((rows, 3, n), dtype=torch.float32, device=device)
+    vec = (n % 4 == 0 and lds[1] % 4 == 0 and W.data_ptr() % 16 == 0
+           and s.data_ptr() % 16 == 0)
+    err = _rows_launch_fn()(
+        W.data_ptr(), int(W.dtype == torch.bfloat16), int(vec),
+        v.data_ptr(), s.data_ptr(), x.data_ptr(), eta.data_ptr(), inp.data_ptr(), *lds,
+        out.data_ptr(), n, rows,
+        float(dt), 1.0 / dt, 1.0 / tau, 1.0 / tau_s, 1.0 / tau_x, float(k), float(alpha),
+        float(thresh), float(v_reset), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"qif_sfa_step: B-row kernel launch failed with CUDA error {err}")
+    qif_sfa_step.launches += 1
+    return out
 
 
 def attach_fused_qif_step(node, weights_dtype=None) -> None:
@@ -181,13 +250,24 @@ def attach_fused_qif_step(node, weights_dtype=None) -> None:
         node._args["__w_fused__"] = node._args["weights"].to(
             device=device, dtype=w_dtype).contiguous()
 
-    def refresh_eta():
-        eta = node._args[eta_key]
+    def eta_rows(eta):  # (n,), or (B, n) for per-trial values
         if isinstance(eta, torch.Tensor):
-            row = eta.to(device=device, dtype=torch.float32).expand(n).contiguous()
-        else:
-            row = torch.full((n,), float(eta), dtype=torch.float32, device=device)
-        node._args["__eta_fused__"] = row
+            return eta.to(device=device, dtype=torch.float32).expand(
+                eta.shape[:-1] + (n,)).contiguous()
+        return torch.full((n,), float(eta), dtype=torch.float32, device=device)
+
+    def refresh_eta():
+        node._args["__eta_fused__"] = eta_rows(node._args[eta_key])
+
+    def sweep(args):
+        # batch_vars: a per-trial eta goes into the kernel's copy; every
+        # other parameter is baked into the kernel or shared by the trials
+        for key, val in args.items():
+            if key != eta_key and val is not node._args.get(key):
+                raise ValueError(
+                    f"The fused QIF step bakes in or shares {key!r} across trials; only eta "
+                    f"can be swept per trial.")
+        return {**args, "__eta_fused__": eta_rows(args[eta_key])}
 
     refresh_weights()
     refresh_eta()
@@ -198,17 +278,19 @@ def attach_fused_qif_step(node, weights_dtype=None) -> None:
     n_rows = len(order)
 
     def fused_step(y, args, x):
-        v, s = y[:n], y[n:2 * n]
-        xs = y[2 * n:3 * n] if has_x else x_zeros
-        inp = x.to(torch.float32).expand(n).contiguous()
+        v, s = y[..., :n], y[..., n:2 * n]
+        xs = y[..., 2 * n:3 * n] if has_x else x_zeros
+        inp = x.to(torch.float32).expand(y.shape[:-1] + (n,)).contiguous()
         y_new = qif_sfa_step(v, s, xs, args["__w_fused__"], args["__eta_fused__"], inp, **kw)
         # the output is the PRE-update s: a view of the old state, which no
-        # later step writes (every step returns a new buffer)
-        return y_new[:n_rows].reshape(-1), s
+        # later step writes (every step returns a new buffer); B trials'
+        # states (B, 3n) give a (B, 3, n) result
+        return y_new[..., :n_rows, :].reshape(y.shape[:-1] + (-1,)), s
 
     node.make_step = lambda: fused_step
     node._step_fn = None  # drop the cached forward() step (old step function)
     node._step_version = getattr(node, "_step_version", 0) + 1
     node._fused_refresh = {"weights": refresh_weights, eta_key: refresh_eta}
-    node._fused_cfg = {"weights_dtype": w_dtype, "n": n, "eta_key": eta_key}
+    node._fused_sweep = sweep
+    node._fused_cfg = {"weights_dtype": w_dtype, "n": n}
     node._fused_attached = True

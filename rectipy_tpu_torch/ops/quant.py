@@ -19,6 +19,12 @@ CPU tensors.  The plain versions sum in float64, which is exact for every
 fan-in below :data:`INT8_DOT_MAX_FAN_IN` (each sum is an integer under 2^31),
 so kernel and plain version agree bit for bit.
 
+Sources with leading (trial) axes, ``(..., n_in)``, take one activation scale
+per row (``quant_vec`` reduces over the last axis), as the JAX package's
+``vmap`` gives one per trial; their products are the batched kernels
+:func:`int8_mm` and :func:`int8_mm_t`, which read W once for all rows.  A
+1-D source takes the matvecs as before.
+
 Casts follow the JAX package exactly: the int32 sum becomes float32 and is
 multiplied ``* row_scale * act_scale`` in that order, in float32, whatever
 the network's dtype; ``quant_vec`` rounds its scale to float32 and divides by
@@ -44,7 +50,8 @@ import torch
 from ._build import build
 
 __all__ = ["quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot", "int8_dot_t",
-           "int8_dot_plain", "int8_dot_t_plain", "int8_master_matvec", "int8_master_ops",
+           "int8_dot_plain", "int8_dot_t_plain", "int8_mm", "int8_mm_t", "int8_mm_plain",
+           "int8_mm_t_plain", "int8_master_matvec", "int8_master_ops",
            "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN", "quantize_rows_i4", "pack_int4",
            "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
            "int4_master_matvec", "int4_master_ops"]
@@ -56,19 +63,22 @@ INT8_DOT_MAX_FAN_IN = (2**31 - 1) // (127 * 127)  # 133144
 
 def quantize_rows(w: torch.Tensor):
     """Symmetric per-output-row int8 quantization of a float master matrix:
-    ``(wq int8 (n_out, n_in), scale float32 (n_out,))``."""
-    amax = w.abs().amax(dim=1)
+    ``(wq int8 (n_out, n_in), scale float32 (n_out,))``; a ``(B, n_out,
+    n_in)`` stack of per-trial matrices quantizes each of its rows."""
+    amax = w.abs().amax(dim=-1)
     scale = (torch.clamp_min(amax, 1e-30) / 127.0).to(torch.float32)
-    wq = torch.clamp(torch.round(w / scale[:, None].to(w.dtype)), -127, 127).to(torch.int8)
+    wq = torch.clamp(torch.round(w / scale[..., None].to(w.dtype)), -127, 127).to(torch.int8)
     return wq, scale
 
 
 def quant_vec(x: torch.Tensor):
     """Dynamic symmetric quantization of an activation vector:
-    ``(xq int8 (n,), scale float32 0-dim)``.  The scale carries no gradient,
-    so the quantized matvec stays exactly linear in ``x`` under STE."""
+    ``(xq int8 (n,), scale float32 0-dim)``.  Rows ``(..., n)`` take one
+    scale each, ``(..., 1)``.  The scale carries no gradient, so the
+    quantized matvec stays exactly linear in ``x`` under STE."""
     x = x.detach()
-    s = (torch.clamp_min(x.abs().amax(), 1e-30) / 127.0).to(torch.float32)
+    amax = x.abs().amax() if x.dim() <= 1 else x.abs().amax(dim=-1, keepdim=True)
+    s = (torch.clamp_min(amax, 1e-30) / 127.0).to(torch.float32)
     xq = torch.clamp(torch.round(x / s.to(x.dtype)), -127, 127).to(torch.int8)
     return xq, s
 
@@ -84,6 +94,18 @@ def int8_dot_t_plain(wq: torch.Tensor, vq: torch.Tensor) -> torch.Tensor:
     return torch.mv(wq.to(torch.float64).T, vq.to(torch.float64)).to(torch.float32)
 
 
+def int8_mm_plain(wq: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int8_mm`'s sums: ``float32(xq @ wq.T)`` for
+    ``(B, n_in)`` rows, summed exactly."""
+    return (xq.to(torch.float64) @ wq.to(torch.float64).T).to(torch.float32)
+
+
+def int8_mm_t_plain(wq: torch.Tensor, vq: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int8_mm_t`'s sums: ``float32(vq @ wq)`` for
+    ``(B, n_out)`` rows, summed exactly."""
+    return (vq.to(torch.float64) @ wq.to(torch.float64)).to(torch.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The kernels' C entry points, built and declared once per process."""
@@ -91,17 +113,23 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.int8_mv_launch.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.int8_mv_t_launch.argtypes = [p, p, p, p, p, i, i, i, p]
-    lib.int8_mv_launch.restype = ctypes.c_int
-    lib.int8_mv_t_launch.restype = ctypes.c_int
+    lib.int8_mm_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.int8_mm_t_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.int8_mm_t_scratch.argtypes = [i, i, i]
+    lib.int8_mm_t_scratch.restype = ctypes.c_longlong
+    for fn in (lib.int8_mv_launch, lib.int8_mv_t_launch, lib.int8_mm_launch,
+               lib.int8_mm_t_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _check(name: str, wq, vec, row_scale, act_scale, n_vec: int, dtype=torch.int8,
-           max_fan_in: int = INT8_DOT_MAX_FAN_IN, n_in: int = None):
+           max_fan_in: int = INT8_DOT_MAX_FAN_IN, n_in: int = None, rows: int = None):
     """Device, dtype, shape and contiguity checks shared by the int8 and int4
     wrappers.  ``wq`` is an int8 matrix, or (``dtype=torch.uint8``) packed
     int4 rows of ``n_in`` weights each; neither dimension of the weights may
-    reach ``max_fan_in``."""
+    reach ``max_fan_in``.  ``rows``: the batched products take ``(rows,
+    n_vec)`` activations and ``(rows,)`` activation scales."""
     device = wq.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: the weights must be on the current CUDA device, got {device}")
@@ -114,9 +142,10 @@ def _check(name: str, wq, vec, row_scale, act_scale, n_vec: int, dtype=torch.int
     elif wq.shape[1] < (n_in + 1) // 2:
         raise ValueError(f"{name}: packed rows of {wq.shape[1]} bytes cannot hold {n_in} "
                          f"int4 weights")
-    if vec.device != device or vec.dtype != torch.int8 or tuple(vec.shape) != (n_vec,) \
+    shape, what = ((n_vec,), "vector") if rows is None else ((rows, n_vec), "activations")
+    if vec.device != device or vec.dtype != torch.int8 or tuple(vec.shape) != shape \
             or not vec.is_contiguous():
-        raise ValueError(f"{name}: the vector must be a contiguous ({n_vec},) int8 tensor on "
+        raise ValueError(f"{name}: the {what} must be a contiguous {shape} int8 tensor on "
                          f"{device}, got {vec.dtype} {tuple(vec.shape)} on {vec.device}")
     if row_scale is not None and (row_scale.device != device
                                   or row_scale.dtype != torch.float32
@@ -125,8 +154,9 @@ def _check(name: str, wq, vec, row_scale, act_scale, n_vec: int, dtype=torch.int
         raise ValueError(f"{name}: the row scale must be a contiguous ({wq.shape[0]},) "
                          f"float32 tensor on {device}")
     if act_scale.device != device or act_scale.dtype != torch.float32 \
-            or act_scale.numel() != 1:
-        raise ValueError(f"{name}: the activation scale must be one float32 value on {device}")
+            or act_scale.numel() != (rows or 1) or not act_scale.is_contiguous():
+        what = "one float32 value" if rows is None else f"{rows} contiguous float32 values"
+        raise ValueError(f"{name}: the activation scale must be {what} on {device}")
     if n_in >= max_fan_in or wq.shape[0] >= max_fan_in:
         raise ValueError(f"{name}: a dimension of the ({wq.shape[0]}, {n_in}) weights reaches "
                          f"the fan-in limit {max_fan_in} (int32 overflow)")
@@ -187,6 +217,92 @@ def int8_mv_t(wq, vq, act_scale) -> torch.Tensor:
 int8_mv_t.launches = 0
 
 
+def int8_mm(wq, xq, row_scale, act_scale) -> torch.Tensor:
+    """``out[b, i] = (float32(sum_j wq[i, j] * xq[b, j]) * row_scale[i]) *
+    act_scale[b]``, float32 ``(B, n_out)``: :func:`int8_mv` for ``B`` rows of
+    activations ``(B, n_in)``, each with its own scale ``act_scale (B,)``.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel of
+    ``csrc/int8_matvec.cu``, which reads W once for up to 32 rows; anything it
+    does not take raises.  Each launch adds one to ``int8_mm.launches``."""
+    if wq.device.type == "cpu":
+        return (int8_mm_plain(wq, xq) * row_scale) * act_scale[:, None]
+    n_out, n_in = wq.shape
+    rows = xq.shape[0] if xq.dim() == 2 else -1
+    _check("int8_mm", wq, xq, row_scale, act_scale, n_in, rows=rows)
+    out = torch.empty((rows, n_out), dtype=torch.float32, device=wq.device)
+    vec = int(n_in % 16 == 0 and wq.data_ptr() % 16 == 0 and xq.data_ptr() % 16 == 0)
+    err = _lib().int8_mm_launch(wq.data_ptr(), xq.data_ptr(), row_scale.data_ptr(),
+                                act_scale.data_ptr(), out.data_ptr(), n_out, n_in, rows, vec,
+                                torch.cuda.current_stream(wq.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_mm: kernel launch failed with CUDA error {err}")
+    int8_mm.launches += 1
+    return out
+
+
+int8_mm.launches = 0
+
+
+def int8_mm_t(wq, vq, act_scale) -> torch.Tensor:
+    """``out[b, j] = float32(sum_i wq[i, j] * vq[b, i]) * act_scale[b]``,
+    float32 ``(B, n_in)``: :func:`int8_mv_t` for ``B`` rows ``(B, n_out)``,
+    read from the row-major ``wq`` without a transposed copy.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    ``csrc/int8_matvec.cu``, which sum chunks of rows into an int32 scratch
+    and then the chunks (exact in any order).  Each launch adds one to
+    ``int8_mm_t.launches``."""
+    if wq.device.type == "cpu":
+        return int8_mm_t_plain(wq, vq) * act_scale[:, None]
+    n_out, n_in = wq.shape
+    rows = vq.shape[0] if vq.dim() == 2 else -1
+    _check("int8_mm_t", wq, vq, None, act_scale, n_out, rows=rows)
+    lib = _lib()
+    partial = torch.empty(lib.int8_mm_t_scratch(n_out, n_in, rows), dtype=torch.int32,
+                          device=wq.device)
+    out = torch.empty((rows, n_in), dtype=torch.float32, device=wq.device)
+    vec = int(n_in % 4 == 0 and wq.data_ptr() % 4 == 0)
+    err = lib.int8_mm_t_launch(wq.data_ptr(), vq.data_ptr(), act_scale.data_ptr(),
+                               partial.data_ptr(), out.data_ptr(), n_out, n_in, rows, vec,
+                               torch.cuda.current_stream(wq.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int8_mm_t: kernel launch failed with CUDA error {err}")
+    int8_mm_t.launches += 1
+    return out
+
+
+int8_mm_t.launches = 0
+
+
+def int8_product(wq, xq, row_scale, act_scale) -> torch.Tensor:
+    """The forward int8 product for any source: :func:`int8_mv` for a
+    vector, :func:`int8_mm` for rows ``(..., n_in)`` (leading axes flattened,
+    ``act_scale`` of shape ``(..., 1)``), and, for per-trial weights ``(B,
+    n_out, n_in)`` (a swept coupling: nothing to share), one :func:`int8_mv`
+    per trial."""
+    if xq.dim() == 1:
+        return int8_mv(wq, xq, row_scale, act_scale)
+    if wq.dim() == 3:
+        return torch.stack([int8_mv(wq[b], xq[b], row_scale[b], act_scale[b])
+                            for b in range(wq.shape[0])])
+    lead = xq.shape[:-1]
+    out = int8_mm(wq, xq.reshape(-1, xq.shape[-1]), row_scale, act_scale.reshape(-1))
+    return out.reshape(*lead, wq.shape[0])
+
+
+def int8_product_t(wq, vq, act_scale) -> torch.Tensor:
+    """The transposed int8 product for any source, as :func:`int8_product`
+    dispatches the forward one."""
+    if vq.dim() == 1:
+        return int8_mv_t(wq, vq, act_scale)
+    if wq.dim() == 3:
+        return torch.stack([int8_mv_t(wq[b], vq[b], act_scale[b]) for b in range(wq.shape[0])])
+    lead = vq.shape[:-1]
+    out = int8_mm_t(wq, vq.reshape(-1, vq.shape[-1]), act_scale.reshape(-1))
+    return out.reshape(*lead, wq.shape[1])
+
+
 def int8_dot(wq, xq) -> torch.Tensor:
     """``(n_out, n_in) int8 @ (n_in,) int8 -> float32`` with an exact integer
     sum.  Through the kernel on CUDA tensors (with unit scales); use
@@ -208,16 +324,16 @@ def int8_dot_t(wq, vq) -> torch.Tensor:
 def _mv_prepped(wp, src):
     wq, ws = wp
     xq, xs = quant_vec(src)
-    return int8_mv(wq, xq, ws, xs).to(src.dtype)
+    return int8_product(wq, xq, ws, xs).to(src.dtype)
 
 
 def _mv_t_prepped(wp, delta):
     """W^T @ delta = W_q^T (scale . delta): delta is row-scaled before the
-    dynamic quantization, so one scalar activation scale suffices."""
+    dynamic quantization, so one activation scale per row suffices."""
     wq, ws = wp
     v = ws.to(delta.dtype) * delta
     vq, vs = quant_vec(v)
-    return int8_mv_t(wq, vq, vs).to(delta.dtype)
+    return int8_product_t(wq, vq, vs).to(delta.dtype)
 
 
 def _mv(w, src):
@@ -230,8 +346,21 @@ def _mv_t(w, delta):
 
 def _grad_w(deltas, srcs):
     """dW = Delta^T @ Src in float32 (the master-weight gradient is not
-    quantized: STE passes it through at full precision)."""
-    return deltas.to(torch.float32).T @ srcs.to(torch.float32)
+    quantized: STE passes it through at full precision).  Every leading axis
+    (time, and trials) is contracted: ``(T, B, n)`` factors make ONE
+    ``(n_out, T*B) @ (T*B, n_in)`` product, the sum over trials of each
+    trial's ``Delta_b^T @ Src_b``."""
+    d = deltas.to(torch.float32)
+    sr = srcs.to(torch.float32)
+    return d.reshape(-1, d.shape[-1]).T @ sr.reshape(-1, sr.shape[-1])
+
+
+def _outer_sum(g, src):
+    """``sum over the leading axes of outer(g, src)``: the per-step weight
+    gradient of the plain autograd path (one outer product for a vector)."""
+    if g.dim() == 1:
+        return torch.outer(g, src)
+    return g.reshape(-1, g.shape[-1]).T @ src.reshape(-1, src.shape[-1])
 
 
 def int8_master_ops():
@@ -254,7 +383,7 @@ class _Int8MasterMatvec(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w, src = ctx.saved_tensors
-        dw = torch.outer(g, src).to(w.dtype) if ctx.needs_input_grad[0] else None
+        dw = _outer_sum(g, src).to(w.dtype) if ctx.needs_input_grad[0] else None
         dsrc = _mv_t(w, g) if ctx.needs_input_grad[1] else None
         return dw, dsrc
 
@@ -423,9 +552,32 @@ def _i4_prep(w):
     return pack_int4(wq), scale, w.shape[1]
 
 
+def _int4_rows(name: str, fn, vec: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
+    """``fn`` applied to each row of ``(..., n)`` int8 activations with its
+    own scale: the batched int4 products, on the plain path only (batched
+    int4 kernels are not written yet, ROADMAP Queue 2)."""
+    if vec.device.type != "cpu":
+        raise NotImplementedError(
+            f"{name} of rows (trials) on the GPU is not ported yet: batched int4 kernels "
+            f"(int4_mm/int4_mm_t, ROADMAP Queue 2, follow-on h) are still to be written; use "
+            f"an int8 or bfloat16 coupling for run_batch/fit_bptt_batch on the card.")
+    rows = vec.reshape(-1, vec.shape[-1])
+    scales = act_scale.reshape(-1)
+    out = torch.stack([fn(rows[b], scales[b]) for b in range(rows.shape[0])])
+    return out.reshape(*vec.shape[:-1], out.shape[-1])
+
+
+def int4_product(wp, xq, row_scale, act_scale) -> torch.Tensor:
+    """:func:`int4_mv` for a vector; for rows ``(..., n_in)`` (one activation
+    scale each, ``(..., 1)``) the per-row plain products (CPU tensors only)."""
+    if xq.dim() == 1:
+        return int4_mv(wp, xq, row_scale, act_scale)
+    return _int4_rows("int4_mv", lambda x, s: int4_mv(wp, x, row_scale, s), xq, act_scale)
+
+
 def _mv4_prepped(wp, src):
     xq, xs = quant_vec(src)
-    return int4_mv(wp[0], xq, wp[1], xs).to(src.dtype)
+    return int4_product(wp[0], xq, wp[1], xs).to(src.dtype)
 
 
 def _mv4_t_prepped(wp, delta):
@@ -433,6 +585,9 @@ def _mv4_t_prepped(wp, delta):
     quantization, as in :func:`_mv_t_prepped`."""
     v = wp[1].to(delta.dtype) * delta
     vq, vs = quant_vec(v)
+    if delta.dim() > 1:
+        return _int4_rows("int4_mv_t", lambda x, s: int4_mv_t(wp[0], x, s, wp[2]), vq,
+                          vs).to(delta.dtype)
     return int4_mv_t(wp[0], vq, vs, wp[2]).to(delta.dtype)
 
 
@@ -456,7 +611,7 @@ class _Int4MasterMatvec(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w, src = ctx.saved_tensors
-        dw = torch.outer(g, src).to(w.dtype) if ctx.needs_input_grad[0] else None
+        dw = _outer_sum(g, src).to(w.dtype) if ctx.needs_input_grad[0] else None
         dsrc = _mv4_t_prepped(_i4_prep(w), g) if ctx.needs_input_grad[1] else None
         return dw, dsrc
 

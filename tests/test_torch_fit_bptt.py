@@ -220,8 +220,11 @@ def test_unported_fit_options_raise():
         net.fit_bptt(*data, remat_steps=2, verbose=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         net.fit_bptt(*data, mesh=object(), verbose=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        net.fit_bptt_batch(*data)
+    # fit_bptt_batch is ported; its unported options raise as fit_bptt's do
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        net.fit_bptt_batch(*data, remat_steps=2, verbose=False)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        net.fit_bptt_batch(*data, mesh=object(), verbose=False)
     # fused_bptt=True where the chain trajectory does not apply
     two = Network(1e-2, dtype=torch.float64, device="cpu")
     for label in ("a", "b"):

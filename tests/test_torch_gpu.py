@@ -20,6 +20,7 @@ from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fuse
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
 from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv, int4_mv_t,
                                          int4_vector_path, int8_dot_plain, int8_dot_t_plain,
+                                         int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
                                          int8_mv, int8_mv_t, pack_int4, quant_vec, quantize_rows)
 from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
                                        check_generic, generic_case_net, generic_inputs,
@@ -667,3 +668,218 @@ def test_feedback_network_on_card_matches_cpu(cuda):
     assert cpu[1].max() > 0.0, "no spikes -- weak test"
     for a, b in zip(card, cpu):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(b).max()))
+
+
+# ------------------------------------------------------------ batched trials
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_out,n_in", [(32, 1000, 1024), (7, 1003, 999), (40, 256, 512),
+                                          (1, 37, 16)])
+def test_int8_mm_kernels_are_bit_identical_to_plain_versions(cuda, B, n_out, n_in):
+    # 16-byte / scalar paths, two groups of trials (B > 32), one row; the
+    # sums are integers, so kernel and plain version agree bit for bit
+    rng = np.random.default_rng(60)
+    wq = torch.as_tensor(rng.integers(-127, 128, size=(n_out, n_in)), dtype=torch.int8,
+                         device=cuda)
+    xq = torch.as_tensor(rng.integers(-127, 128, size=(B, n_in)), dtype=torch.int8, device=cuda)
+    vq = torch.as_tensor(rng.integers(-127, 128, size=(B, n_out)), dtype=torch.int8,
+                         device=cuda)
+    rs = torch.as_tensor(rng.random(n_out), dtype=torch.float32, device=cuda)
+    act = torch.as_tensor(rng.random(B) + 0.5, dtype=torch.float32, device=cuda)
+    before = (int8_mm.launches, int8_mm_t.launches)
+    mm, mm_t = int8_mm(wq, xq, rs, act), int8_mm_t(wq, vq, act)
+    torch.cuda.synchronize()
+    assert (int8_mm.launches, int8_mm_t.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(mm, (int8_mm_plain(wq, xq) * rs) * act[:, None])
+    assert torch.equal(mm_t, int8_mm_t_plain(wq, vq) * act[:, None])
+    assert torch.equal(mm[B - 1], int8_mv(wq, xq[B - 1], rs, act[B - 1]))
+
+
+@pytest.mark.gpu
+def test_int8_mm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    wq = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
+    xq = torch.zeros((4, 32), dtype=torch.int8, device=cuda)
+    one = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="activation scale"):
+        int8_mm(wq, xq, torch.ones(64, device=cuda), one[:3])
+    with pytest.raises(ValueError, match="activations"):
+        int8_mm(wq, xq[:, :16], torch.ones(64, device=cuda), one)
+    with pytest.raises(ValueError, match="activations"):
+        int8_mm_t(wq, xq, one)  # (4, 32) rows for a product that takes (4, 64)
+
+
+def _rows_inputs(B, n, seed, device, w_dtype, coupling):
+    """B trials' states as rows of a (B, 3n) buffer (v | s | x), per-trial
+    eta and inp, one W; the reset case or the coupling case of _inputs."""
+    rng = np.random.default_rng(seed)
+    if coupling:
+        W = rng.random((n, n))
+        W /= W.sum(axis=1, keepdims=True)
+        y = np.concatenate([rng.normal(size=(B, n)) * 1e-3, rng.random((B, n)),
+                            rng.random((B, n)) * 1e-3], axis=1)
+        eta, inp = rng.normal(size=(B, n)) * 1e-3, rng.normal(size=(B, n)) * 1e-3
+    else:
+        W = (rng.random((n, n)) < 0.1) * 0.01
+        y = np.concatenate([rng.normal(size=(B, n)) * 12.0, rng.random((B, n)),
+                            rng.random((B, n))], axis=1)
+        eta, inp = rng.normal(size=(B, n)), rng.normal(size=(B, n))
+    W, y, eta, inp = _on(device, w_dtype, W, [y, eta, inp])
+    return W, y[:, :n], y[:, n:2 * n], y[:, 2 * n:], eta, inp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [5, 33])
+@pytest.mark.parametrize("n", [1000, 1003])  # vector loads / scalar loads of W
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_qif_rows_kernel_matches_plain_and_single_row_kernel(cuda, B, n, w_dtype):
+    # the B-row step on strided rows of one state buffer: against its plain
+    # version, and each trial against the single-row kernel on that trial
+    for coupling, p, tol in ((False, PARAMS, dict(rtol=1e-5, atol=1e-4)),
+                             (True, COUPLING_PARAMS, COUPLING_TOL)):
+        W, v, s, x, eta, inp = _rows_inputs(B, n, 61, cuda, w_dtype, coupling)
+        before = qif_sfa_step.launches
+        out = qif_sfa_step(v, s, x, W, eta, inp, **p)
+        torch.cuda.synchronize()
+        assert qif_sfa_step.launches == before + 1 and out.shape == (B, 3, n)
+        ref = torch.stack(qif_sfa_reference_step(v, s, x, W, eta, inp, **p), dim=-2)
+        torch.testing.assert_close(out, ref, **tol)
+        for b in (0, B - 1):
+            one = qif_sfa_step(v[b].contiguous(), s[b].contiguous(), x[b].contiguous(), W,
+                               eta[b], inp[b], **p)
+            torch.testing.assert_close(out[b], one, **tol)
+        if not coupling:
+            assert torch.equal(out[:, 0] == p["v_reset"], ref[:, 0] == p["v_reset"])
+            assert bool((out[:, 0] == p["v_reset"]).any())
+
+
+@pytest.mark.gpu
+def test_qif_rows_shared_operands_and_refusals(cuda):
+    # an (n,) operand is one row shared by every trial (stride 0)
+    B, n = 4, 256
+    W, v, s, x, eta, inp = _rows_inputs(B, n, 62, cuda, torch.float32, False)
+    out = qif_sfa_step(v, s, x[0].contiguous(), W, eta[1].contiguous(), inp, **PARAMS)
+    ref = torch.stack(qif_sfa_reference_step(v, s, x[0], W, eta[1], inp, **PARAMS), dim=-2)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        qif_sfa_step(v, s, x, W, eta.t().contiguous().t(), inp, **PARAMS)
+    with pytest.raises(ValueError, match="float32"):
+        qif_sfa_step(v, s, x, W, eta.double(), inp, **PARAMS)
+
+
+def _int8_rate_net(device, coupling, W):
+    # the output is the state li_op/v: an algebraic output (tanh_op/r) read
+    # by run's step evaluates the lowered field, the coupling included, again
+    net = Network(1e-1, device=device)
+    net.add_diffeq_node("rnn", "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh",
+                        weights=W, input_var="li_op/I_ext", output_var="li_op/v",
+                        source_var="tanh_op/r", target_var="li_op/r_in",
+                        coupling_dtype=coupling,
+                        train_params=None if coupling is torch.int8 else ["weights"])
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupling", ["int8", "int8_master"])
+def test_run_batch_on_card_matches_cpu(cuda, coupling):
+    # B trials through one int8_mm launch per step on the card, against the
+    # same batch on the CPU (plain products; the activation scales per trial)
+    n, B, T = 96, 6, 50
+    rng = np.random.default_rng(63)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    ins = rng.normal(size=(B, T, n)) * np.linspace(0.1, 2.0, B)[:, None, None]
+    res = {}
+    for device in (cuda, "cpu"):
+        net = _int8_rate_net(device, torch.int8 if coupling == "int8" else coupling, W)
+        before = (int8_mm.launches, int8_mv.launches)
+        out = net.run_batch(ins, sampling_steps=5, record_vars=[("rnn", "li_op/v", True)])
+        res[str(device)] = (out, int8_mm.launches - before[0], int8_mv.launches - before[1])
+    (card, n_mm, n_mv), (cpu, _, _) = res[str(cuda)], res["cpu"]
+    assert (n_mm, n_mv) == (T, 0)
+    np.testing.assert_allclose(card["out"], cpu["out"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card[("rnn", "li_op/v")], cpu[("rnn", "li_op/v")], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fused_qif_run_batch_on_card_matches_cpu(cuda):
+    # the B-row kernel in run_batch (one launch per step) with a swept eta,
+    # against the same batch on the CPU
+    n, B, T = 256, 5, 200
+    rng = np.random.default_rng(64)
+    W = rng.random((n, n)) / n
+    etas = 200.0 + rng.normal(size=n) * 20.0
+    sweep = etas[None, :] + np.linspace(-100.0, 100.0, B)[:, None]
+    drive = rng.normal(size=(T, 1))
+    res = {}
+    for device in (cuda, "cpu"):
+        net = Network(1e-2, device=device)
+        net.add_diffeq_node("qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa",
+                            weights=W, source_var="s", target_var="s_in", input_var="I_ext",
+                            output_var="s", spike_var="spike", spike_def="v", op="qif_sfa_op",
+                            spike_threshold=1e2, spike_reset=-1e2,
+                            node_vars={"all/qif_sfa_op/eta": etas}, coupling_dtype="bfloat16")
+        net.compile()
+        attach_fused_qif_step(net.get_node("qif"))
+        before = qif_sfa_step.launches
+        out = net.run_batch(drive, batch_vars={("qif", "eta"): sweep}, sampling_steps=10)
+        res[str(device)] = (out["out"], qif_sfa_step.launches - before)
+    assert res[str(cuda)][1] == T and res["cpu"][1] == 0
+    card, cpu = res[str(cuda)][0], res["cpu"][0]
+    assert cpu.max() > 0.0, "no spikes -- weak test"
+    np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-4 * np.abs(cpu).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["lif", "tanh_heun"])
+def test_generic_fused_run_batch_on_card_matches_cpu(cuda, case):
+    # the generic node in run_batch launches the single-trial kernel once per
+    # trial per step (twice for Heun); each trial against the plain lowered
+    # step on the CPU
+    n, B, steps = 128, 3, 200
+    rng = np.random.default_rng(67)
+    ins = rng.normal(size=(B, steps, n)) + np.linspace(0.0, 2.0, B)[:, None, None]
+    outs = {}
+    for device in (cuda, "cpu"):
+        net, _ = _generic_node(case, n, device, attach=device is cuda)
+        before = generic_fused_step.launches
+        outs[str(device)] = net.run_batch(ins, sampling_steps=10)["out"]
+        launches = generic_fused_step.launches - before
+        assert launches == (0 if device == "cpu" else
+                            B * steps * (2 if case == "tanh_heun" else 1))
+    card, cpu = outs[str(cuda)], outs["cpu"]
+    if case == "lif":
+        assert cpu.max() > 0.0, "no spikes -- weak test"
+    assert np.abs(cpu[0] - cpu[-1]).max() > 1e-3
+    np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fit_bptt_batch_on_card_matches_cpu(cuda):
+    # an int8_master chain trained on B trials: int8_mm and int8_mm_t once
+    # per step on the card, the plain products on the CPU
+    n, B, T, E = 64, 4, 40, 3
+    rng = np.random.default_rng(65)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    ins, tgts = rng.normal(size=(B, T, n)), rng.normal(size=(B, T, n)) * 0.5
+    res = {}
+    for device in (cuda, "cpu"):
+        net = _int8_rate_net(device, "int8_master", W)
+        before = (int8_mm.launches, int8_mm_t.launches)
+        obs = net.fit_bptt_batch(ins, tgts, n_epochs=E, optimizer="adam", lr=1e-2,
+                                 verbose=False)
+        launches = (int8_mm.launches - before[0], int8_mm_t.launches - before[1])
+        assert net.last_fit == {"trajectory": "chain", "fused_adam": False}
+        res[str(device)] = (np.asarray(obs["epoch_loss"]),
+                            net.get_node("rnn")["weights"].cpu().numpy(), launches)
+    card, cpu = res[str(cuda)], res["cpu"]
+    assert card[2] == (T * E, T * E) and cpu[2] == (0, 0)
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_batched_int4_on_card_is_refused(cuda):
+    n, B, T = 64, 3, 5
+    rng = np.random.default_rng(66)
+    net = _int8_rate_net(cuda, "int4_master", rng.normal(size=(n, n)) / np.sqrt(n))
+    with pytest.raises(NotImplementedError, match="follow-on h"):
+        net.run_batch(rng.normal(size=(B, T, n)))
