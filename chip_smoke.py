@@ -140,8 +140,10 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    W, per-trial activation scales); the B-row qif_sfa_step in f32 and bf16
    W at B = 32 and 5, on strided rows of one (B, 3N) state buffer, in the
    reset and coupling cases, held to TOL against its plain version and,
-   trial by trial, against the single-row kernel; the lost-eighth margin of
-   the coupling case.
+   trial by trial, against the single-row kernel; equal reset masks; the
+   lost-eighth margin of the coupling case.  Each line names the kernel's
+   route (rows_route): bf16 W on the tensor cores ("mma", counted apart in
+   qif_sfa_step.mma_launches), f32 W on the CUDA cores ("vec").
 26. run_batch_path: benchmarks/batch_throughput.py's network (N = 10,000
    qif_sfa, 10% fan-in of 1/(0.1 N) from seed 42, the tan etas, dt 1e-4)
    with a frozen int8 coupling: an eta sweep (offsets linspace(-2, 2, 32))
@@ -150,8 +152,9 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    2; one int8_mm launch per step; trials 0, 15 and 31 against
    single-trial runs with their eta over 200 steps (the int8 sums are exact
    on both sides: rtol 1e-5).  Then the same with a bf16 coupling and the
-   fused QIF step: one B-row launch per step, the trials under
-   fused_vs_plain's rule.  Then phase 12's LIF network (the generic kernel,
+   fused QIF step: one B-row launch per step, every one on the tensor
+   cores (qif_sfa_step.mma_launches), the trials under fused_vs_plain's
+   rule.  Then phase 12's LIF network (the generic kernel,
    bf16 W) over 4 trials of 2,000 steps of their own drive: the kernel
    takes one trial, so 8,000 launches; each trial against its single-trial
    run over 200 steps (the same kernel on the same rows: rtol 1e-6).
@@ -168,7 +171,10 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
 28. batch_timing: int8_mm/int8_mm_t at B = 32 (bound, plain ms,
    torch._int_mm of the same integers), the B-row step at B = 32 in f32 and
    bf16 (bound, plain ms, torch.matmul of s by W^T; the bound takes the
-   bf16 peak for a bf16 W, so that step is bound by its bytes), one B = 32
+   bf16 peak for a bf16 W, so that step is bound by its bytes; the line
+   adds kernel_route, achieved_bytes_per_s and, for the tensor-core route,
+   the ms of its probes: its W stream and fragment reads with and without
+   the barrier between chunks), one B = 32
    epoch split
    by CUDA events (forward loop, backward loop, dW product, adam step) and
    the device's idle share over one epoch (torch.profiler).
@@ -184,6 +190,7 @@ the script exits non-zero.  Without a CUDA device it exits 2 and prints
 nothing on stdout.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -1495,7 +1502,7 @@ def rows_state(B: int, n: int, case: str, rng, dev):
 def batch_kernel_check(dev, W_np) -> dict:
     """Phase 25: int8_mm/int8_mm_t bit for bit and the B-row qif_sfa_step
     against its plain version and the single-row kernel, at N = 10,000."""
-    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
     from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
                                              quant_vec, quantize_rows)
 
@@ -1526,8 +1533,14 @@ def batch_kernel_check(dev, W_np) -> dict:
             for case in ("reset", "coupling"):
                 p = dict(params, k=1.0 / DT) if case == "coupling" else params
                 v, s, x, eta, inp = rows_state(B, N, case, rng, dev)
+                route = rows_route(W.dtype, N, s.stride(0), W.data_ptr(), s.data_ptr())
+                if route != ("mma" if name == "bfloat16" else "vec"):
+                    raise AssertionError(f"B-row {name}: route {route}")
+                mma_before = qif_sfa_step.mma_launches
                 out = qif_sfa_step(v, s, x, W, eta, inp, **p)
                 torch.cuda.synchronize()
+                if qif_sfa_step.mma_launches - mma_before != int(route == "mma"):
+                    raise AssertionError(f"B-row {name}: the launch did not take route {route}")
                 ref = torch.stack(qif_sfa_reference_step(v, s, x, W, eta, inp, **p), dim=-2)
                 rtol, atol = TOL[case]
                 torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
@@ -1543,7 +1556,8 @@ def batch_kernel_check(dev, W_np) -> dict:
                 e = float((out - ref).abs().max())
                 err = max(err, e)
                 line = {"phase": "batch_kernel_check", "kernel": "qif_sfa_step[rows]",
-                        "w_dtype": name, "case": case, "n": N, "B": B, "max_abs_err": e,
+                        "w_dtype": name, "kernel_route": route, "case": case, "n": N, "B": B,
+                        "max_abs_err": e,
                         "max_abs_diff_single_row_kernel": one_err, "rtol": rtol, "atol": atol,
                         "reset_neurons": int(mask.sum())}
                 if case == "reset" and not bool(mask.any()):
@@ -1597,7 +1611,7 @@ def run_batch_phase(dev) -> tuple:
         batch(CMP_STEPS)  # warm
         times = {"batch": [], "single": []}
         for _ in range(2):  # in turns, best of 2
-            kernel.launches = int8_mv.launches = 0
+            kernel.launches = int8_mv.launches = qif_sfa_step.mma_launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = batch()
@@ -1606,6 +1620,10 @@ def run_batch_phase(dev) -> tuple:
             if kernel.launches != T_RUN or int8_mv.launches != 0:
                 raise AssertionError(f"run_batch_path ({coupling}): {kernel.launches} "
                                      f"{kernel.__name__} launches for {T_RUN} steps")
+            mma_launches = qif_sfa_step.mma_launches  # every fused bf16 step on the tensor cores
+            if mma_launches != (T_RUN if fused else 0):
+                raise AssertionError(f"run_batch_path ({coupling}): {mma_launches} of "
+                                     f"{T_RUN} launches took the tensor-core route")
             launches[coupling] = kernel.launches
             rec = res[("qif", "s")]
             if rec.shape != (B_RUN, T_RUN // 100) or not np.all(np.isfinite(rec)):
@@ -1633,7 +1651,8 @@ def run_batch_phase(dev) -> tuple:
         nu_b, nu_1 = B_RUN * N * T_RUN / best_b, N * T_RUN / best_1
         emit({"phase": "run_batch_path", "coupling": coupling, "fused_qif_step": fused, "n": N,
               "B": B_RUN, "steps": T_RUN, "sweep": "eta + linspace(-2, 2, B)",
-              "kernel": kernel.__name__, "launches": launches[coupling], "build_s": build_s,
+              "kernel": kernel.__name__, "launches": launches[coupling],
+              "tensor_core_launches": mma_launches, "build_s": build_s,
               "run_batch_s": times["batch"], "run_single_s": times["single"],
               "ms_per_step": best_b / T_RUN * 1e3, "single_ms_per_step": best_1 / T_RUN * 1e3,
               "aggregate_neuron_updates_per_s": nu_b, "single_neuron_updates_per_s": nu_1,
@@ -1791,13 +1810,40 @@ def batch_train_phase(dev, data, single_nu: float) -> tuple:
     return launches, epoch_s * 1e3, (ins_d, tgt_d), net
 
 
+def rows_probe_ms(W, v, s, x, eta, inp) -> dict:
+    """Phase 28: ms of the tensor-core B-row kernel's probes
+    (csrc/qif_sfa_step.cu, kProbe) on the timed operands: the kernel's W
+    stream with its fragment reads and its barrier between chunks, and the
+    same without the barrier (no staging of s, no products; the outputs are
+    meaningless)."""
+    from rectipy_tpu_torch.ops._build import build
+
+    fn = build("qif_sfa_step").lib.qif_sfa_rows_probe_launch
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [I, P, P, P, P, P, P, L, L, L, L, L, P, I, I, P]
+    fn.restype = I
+    B, n = v.shape
+    out = torch.empty((B, 3, n), dtype=torch.float32, device=v.device)
+    lds = [t.stride(0) if t.dim() == 2 else 0 for t in (v, s, x, eta, inp)]
+    ms = {}
+    for name, probe in (("w_stream_fragments_barrier", 3), ("w_stream_fragments", 7)):
+        def run(probe=probe):
+            err = fn(probe, W.data_ptr(), v.data_ptr(), s.data_ptr(), x.data_ptr(),
+                     eta.data_ptr(), inp.data_ptr(), *lds, out.data_ptr(), n, B,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"qif_sfa_rows_probe_launch({probe}): CUDA error {err}")
+        ms[name] = cuda_ms(run, reps=100)
+    return ms
+
+
 def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_launches: dict,
                  errs: dict) -> list:
     """Phase 28: each new kernel's ms at the paths' shapes with its bound,
     plain ms and yardstick; one B_TRAIN epoch split by CUDA events; the
     device's idle share over one epoch."""
     from rectipy_tpu_torch.ops import bptt
-    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
     from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
                                              quant_vec, quantize_rows)
     from rectipy_tpu_torch.train import get_optimizer
@@ -1850,6 +1896,7 @@ def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_la
     for name, W in (("float32", W32), ("bfloat16", W32.to(torch.bfloat16))):
         n_bytes = N * N * W.element_size() + B_RUN * N * 4 * 5 + B_RUN * N * 4 * 3
         n_ops = 2 * B_RUN * N * N + 20 * B_RUN * N
+        route = rows_route(W.dtype, N, s.stride(0), W.data_ptr(), s.data_ptr())
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(W.dtype)
         ms = cuda_ms(lambda: qif_sfa_step(v, s, x, W, eta, inp, **params), reps=100)
         plain_ms = cuda_ms(lambda: qif_sfa_reference_step(v, s, x, W, eta, inp, **params),
@@ -1865,9 +1912,12 @@ def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_la
                  "library_ms": library_ms}
         if name == "bfloat16":  # the path's instance; f32 is timed here only
             entries.append(entry)
-        emit({"phase": "batch_timing", **entry, "B": B_RUN, "bytes": n_bytes, "ops": n_ops,
+        probes = ({"probe_ms": rows_probe_ms(W, v, s, x, eta, inp)} if route == "mma" else {})
+        emit({"phase": "batch_timing", **entry, "kernel_route": route, **probes, "B": B_RUN,
+              "bytes": n_bytes, "ops": n_ops,
               "library_ms_reason": f"torch.matmul of the (B, N) s by W^T in {name} "
                                    f"(the products alone)",
+              "achieved_bytes_per_s": n_bytes / (ms * 1e-3),
               "achieved_flops": n_ops / (ms * 1e-3)})
     del v, s, x, eta, inp
     # one B_TRAIN epoch split by CUDA events: the trajectory's forward loop,

@@ -40,21 +40,71 @@
 //
 // The B-row form (qif_sfa_rows_launch) is the same step for B independent
 // trials that share W: the TPU kernel as the JAX package's run_batch runs it
-// under vmap.  Bound at N = 10,000: W must still be read once, 0.0598 ms in
-// bf16 and 0.1195 ms in f32 at 3.35 TB/s; the 2*B*N^2 products (6.4e9 at
-// B = 32) take 0.096 ms on the CUDA cores' 67 TFLOP/s of f32 FMAs, which is
-// the larger bound for bf16 W.  (A tensor-core form is later work.)
+// under vmap.  W must still be read once per group of 32 trials: 0.0598 ms in
+// bf16 and 0.1195 ms in f32 at 3.35 TB/s (N = 10,000), plus 0.0030 ms of the
+// trials' states.
 // - The trap: the single-row form, one block per row, would re-read all B
 //   source rows s[b, :] per W row, 12.8 GB from L2 per step at B = 32.
+//
+// A bf16 W with n % 8 == 0, ld_s % 4 == 0 and W and s 16-byte aligned takes
+// the tensor cores (qif_sfa_rows_mma_kernel), the MXU's bf16 x bf16 -> f32
+// product of the TPU kernel (kernels.py:88-92).  It replaces a CUDA-core
+// instance that ran at 18% of the bound: its 2*B*N^2 = 6.4e9 operations on
+// 210 MB are 30 operations a byte, above the CUDA cores' ridge (67 TFLOP/s
+// over 3.35 TB/s, 20 a byte), so it was bound by its FMAs at >= 0.096 ms;
+// the tensor cores' ridge is 295 a byte (989 TFLOP/s), so there the step is
+// bound by its bytes (0.0628 ms) and its products take 0.0065 ms.
+// - mma.sync m16n8k16 bf16 x bf16 -> f32: A = 16 rows of W x 16 k, B = 16 k x
+//   8 trials; four n-tiles cover a block's 32 trials.  (wgmma would gain
+//   nothing where the products take a tenth of the bytes' time.)
+// - W goes from HBM straight into registers: lane l loads 16 bytes (8 bf16)
+//   of rows l/4 and l/4 + 8 at k-offset 8 (l % 4) of a 32-wide k-slab, which
+//   are two k16 A-fragments once k is permuted (fragment 1 takes the first
+//   and second 4-byte words of each row's 16 bytes, fragment 2 the third and
+//   fourth).  The sum over k does not depend on the order of k, so the same
+//   permutation applied to the B-fragments is exact, and then a lane's
+//   B-fragments of one n-tile are one 16-byte shared load of its trial's s
+//   at the same 8 inputs.
+// - A block owns 80 rows of W and 32 trials: 125 blocks at N = 10,000, one
+//   wave of one block an SM.  Its ten warps are 5 row tiles x 2 parts of K:
+//   every chunk of 384 inputs is split 192 / 192.  Each lane keeps a chunk
+//   of W loads in flight, 6 slabs x 2 x 16 B in registers (a ring), which
+//   across the card is about 7.7 MB: Little's law at 3.35 TB/s wants 3-4 MB
+//   for a microsecond of HBM latency.
+// - The trials' s goes through L2 once per block (125 x 1.28 MB = 160 MB per
+//   step; 16-row blocks read 800 MB): each chunk of the 32 trials' f32 s is
+//   copied with cp.async while the previous chunk is used, and each thread
+//   rounds the values it copied itself to bf16 (RNE, as the TPU kernel and
+//   torch's .to(bfloat16) round) into one of two shared buffers, each trial
+//   row padded to 64 mod 128 bytes so that the 16-byte reads of a
+//   quarter-warp (two trials) hit 32 distinct banks.  One barrier a chunk.
+// - The tensor cores' f32 sums may truncate: each slab's two products start
+//   from zero and their sum (32 terms, about 0.016) is added to f32
+//   registers by ordinary round-to-nearest adds, so no biased error grows
+//   over the 625 k16 steps of a row.
+// - The two K parts meet in shared memory; the accumulator fragment gives
+//   each lane 2 rows x 2 trials of every n-tile, so no shuffle is needed:
+//   each part runs the shared epilogue for two n-tiles, masking rows >= n
+//   and trials >= the group's count.
+// - What it tried and left (PERF.md): 16- and 64-row blocks at two
+//   an SM (the 128-register cap spilled), s held in registers, L2
+//   prefetches of W further ahead, longer chunks with a shorter ring,
+//   producer warps on mbarriers, a barrier per K part.  What holds it back
+//   (the probes below, timed by chip_smoke.py): the W stream in this load
+//   pattern, the fragment reads and the barrier between chunks.
+//
+// Every other B-row launch (a f32 W; a bf16 W that is not aligned as above)
+// runs qif_sfa_rows_kernel on the CUDA cores; f32 is bound by its bytes
+// there already, and TF32 would change its numbers.
 // - A block of 4 warps owns 16 rows of W and up to 32 trials.  For each
 //   chunk of 128 inputs, it stages that chunk of every trial's s in shared
 //   memory once (16 KB; rounded to bf16 for a bf16 W, as the single-row
-//   kernel rounds it), with asynchronous copies (cp.async) into two buffers
-//   so that the next chunk's copies fly while this one is used; each warp
-//   streams 4 values of each of its 4 rows per lane (16-byte f32 or 8-byte
-//   bf16 loads, lane l at inputs 4l..4l+3 of the chunk, so the shared reads
-//   are conflict-free), a chunk ahead of their use, and multiplies them with
-//   every trial's 4 values:
+//   kernel rounds it): with asynchronous copies (cp.async) into two buffers
+//   on the vector path, so that the next chunk's copies fly while this one
+//   is used; each warp streams 4 values of each of its 4 rows per lane
+//   (16-byte f32 loads, lane l at inputs 4l..4l+3 of the chunk, so the
+//   shared reads are conflict-free), a chunk ahead of their use, and
+//   multiplies them with every trial's 4 values:
 //   4 rows x 32 trials of f32 sums in registers, 16 FMAs per 16-byte shared
 //   load.  W is read once for the 32 trials; more trials take another group
 //   of blocks.  (A first version staged with plain loads and loaded each
@@ -74,6 +124,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
 #include "row_dot.cuh"
@@ -144,26 +195,9 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// Four consecutive weights of a row as loaded (16 bytes of f32, 8 of bf16;
-// streaming hint), and as floats.
-template <typename WT>
-struct Raw;
-template <>
-struct Raw<float> {
-  using T = float4;
-};
-template <>
-struct Raw<__nv_bfloat16> {
-  using T = uint2;
-};
-template <typename WT>
-__device__ __forceinline__ typename Raw<WT>::T raw4(const WT* __restrict__ w) {
-  return __ldcs(reinterpret_cast<const typename Raw<WT>::T*>(w));
-}
-__device__ __forceinline__ float4 cvt4(float4 a) { return a; }
-__device__ __forceinline__ float4 cvt4(uint2 u) {
-  return make_float4(rowdot::bf16_lo(u.x), rowdot::bf16_hi(u.x), rowdot::bf16_lo(u.y),
-                     rowdot::bf16_hi(u.y));
+// Four consecutive f32 weights of a row (16 bytes; streaming hint).
+__device__ __forceinline__ float4 raw4(const float* __restrict__ w) {
+  return __ldcs(reinterpret_cast<const float4*>(w));
 }
 
 template <typename WT>
@@ -210,6 +244,7 @@ qif_sfa_rows_kernel(const WT* __restrict__ W, const float* __restrict__ v,
                     long long ld_s, long long ld_x, long long ld_eta, long long ld_inp,
                     float* __restrict__ out, int n, int n_rows, StepParams p) {
   constexpr bool kBf16 = std::is_same<WT, __nv_bfloat16>::value;
+  static_assert(!(kVec && kBf16), "an aligned bf16 W takes qif_sfa_rows_mma_kernel");
   constexpr int kVecs = kRTrials * kRChunk / 4;  // float4s of a staged chunk
   __shared__ float4 ss[2][kVecs];  // 2 x 16 KB: the chunk of every trial, double-buffered
   const int lane = threadIdx.x & 31;
@@ -250,13 +285,13 @@ qif_sfa_rows_kernel(const WT* __restrict__ W, const float* __restrict__ v,
   };
 
   stage(0);
-  typename Raw<WT>::T wraw[kRRowsPerWarp];  // the next chunk's weights, as loaded
+  float4 wraw[kRRowsPerWarp];  // the next chunk's weights
   if constexpr (kVec) {
 #pragma unroll
     for (int r = 0; r < kRRowsPerWarp; ++r)
       wraw[r] = (row0 + r < n && 4 * lane < n)
-                    ? raw4<WT>(W + static_cast<size_t>(row0 + r) * n + 4 * lane)
-                    : typename Raw<WT>::T{};
+                    ? raw4(W + static_cast<size_t>(row0 + r) * n + 4 * lane)
+                    : float4{};
   }
   for (int c = 0; c < chunks; ++c) {
     const int k0 = c * kRChunk;
@@ -266,28 +301,18 @@ qif_sfa_rows_kernel(const WT* __restrict__ W, const float* __restrict__ v,
       // previous chunk; then the next chunk's, which fly while this one is
       // used (without that the loads' latency set the kernel's pace)
 #pragma unroll
-      for (int r = 0; r < kRRowsPerWarp; ++r) w[r] = cvt4(wraw[r]);
+      for (int r = 0; r < kRRowsPerWarp; ++r) w[r] = wraw[r];
       const int k = k0 + kRChunk + 4 * lane;
 #pragma unroll
       for (int r = 0; r < kRRowsPerWarp; ++r)
-        wraw[r] = (row0 + r < n && k < n) ? raw4<WT>(W + static_cast<size_t>(row0 + r) * n + k)
-                                          : typename Raw<WT>::T{};
+        wraw[r] = (row0 + r < n && k < n) ? raw4(W + static_cast<size_t>(row0 + r) * n + k)
+                                          : float4{};
     }
     if (c + 1 < chunks) {  // the next chunk's copies fly while this one is used
       stage(c + 1);
       copy_wait<1>();
     } else {
       copy_wait<0>();
-    }
-    if constexpr (kVec && kBf16) {  // this thread's own copies, rounded as the TPU kernel rounds s
-#pragma unroll
-      for (int j = 0; j < kVecs / kRThreads; ++j) {
-        const int idx = threadIdx.x + j * kRThreads;
-        float4 t = ss[c & 1][idx];
-        t = make_float4(rowdot::bf16_round(t.x), rowdot::bf16_round(t.y),
-                        rowdot::bf16_round(t.z), rowdot::bf16_round(t.w));
-        ss[c & 1][idx] = t;
-      }
     }
     __syncthreads();  // chunk c is in shared memory for every thread
     if constexpr (kVec) {
@@ -337,6 +362,201 @@ qif_sfa_rows_kernel(const WT* __restrict__ W, const float* __restrict__ v,
   }
 }
 
+// ------------------------------------------- B rows, bf16 W, tensor cores
+constexpr int kMRowTiles = 5;                   // warps along the rows, 16 rows of W each
+constexpr int kMKSplit = 2;                     // warps along K: each sums its part of a chunk
+constexpr int kMSlabs = 6;                      // 32-wide k-slabs per warp and chunk
+constexpr int kMThreads = 32 * kMRowTiles * kMKSplit;
+constexpr int kMRows = 16 * kMRowTiles;         // rows of W per block: 125 blocks at N = 10,000
+constexpr int kMChunk = 32 * kMSlabs * kMKSplit;  // inputs of each trial per chunk
+constexpr int kMStride = 2 * kMChunk + 64;      // bytes per staged trial row; = 64 mod 128
+constexpr int kMQuads = kMChunk / 4;            // float4s of a trial per chunk
+constexpr int kMStage = (kRTrials * kMQuads + kMThreads - 1) / kMThreads;  // float4s a thread stages
+constexpr int kMBf16Bytes = 2 * kRTrials * kMStride;             // two rounded chunks
+constexpr int kMSmem = kMBf16Bytes + kRTrials * kMChunk * 4;      // and one f32 chunk
+static_assert(kMKSplit * kMRowTiles * 16 * 32 * 4 <= kMBf16Bytes,
+              "the K parts' partial sums must fit the staging buffers");
+
+// Probes of what holds the kernel back (chip_smoke.py times them beside it):
+// kProbe bit 1 skips the staging of s, bit 2 replaces the products with XORs
+// (the fragments are still read), bit 4 skips the barrier between chunks.
+// Their outputs are meaningless; qif_sfa_rows_launch runs kProbe = 0 alone.
+constexpr int kProbeNoStaging = 1, kProbeNoMma = 2, kProbeNoBarrier = 4;
+
+// d = a * b + c on the tensor cores: a 16 x 16 bf16 tile of W (row-major
+// fragment), a 16 x 8 bf16 tile of s (column fragment), f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1, float c0,
+                                         float c1, float c2, float c3) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(c0), "f"(c1), "f"(c2),
+        "f"(c3));
+}
+
+// Two floats rounded to bf16 (RNE), lo in the low half: memory order.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return reinterpret_cast<uint32_t&>(h);
+}
+
+// The aligned bf16 B-row step (header note).  Warp w owns rows 16 (w %
+// kMRowTiles) .. +16 of the block's and the part w / kMRowTiles of K in every
+// chunk of kMChunk inputs.
+template <int kProbe>
+__global__ void __launch_bounds__(kMThreads, 1)
+qif_sfa_rows_mma_kernel(const __nv_bfloat16* __restrict__ W, const float* __restrict__ v,
+                        const float* __restrict__ s, const float* __restrict__ x,
+                        const float* __restrict__ eta, const float* __restrict__ inp,
+                        long long ld_v, long long ld_s, long long ld_x, long long ld_eta,
+                        long long ld_inp, float* __restrict__ out, int n, int n_rows,
+                        StepParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ss = smem;  // [2][kRTrials * kMStride] bf16
+  float4* sf = reinterpret_cast<float4*>(smem + kMBf16Bytes);  // [kRTrials * kMQuads] f32
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
+  const int tile = warp % kMRowTiles, part = warp / kMRowTiles;
+  const int b0 = blockIdx.y * kRTrials;
+  const int nb = min(kRTrials, n_rows - b0);
+  const int row = blockIdx.x * kMRows + 16 * tile + g;  // and row + 8
+  const int kw = part * 32 * kMSlabs + 8 * t;  // the lane's inputs in a chunk: kw + 32 j + [0, 8)
+  const bool ok_lo = row < n, ok_hi = row + 8 < n;
+  const __nv_bfloat16* w_lo = W + static_cast<size_t>(ok_lo ? row : 0) * n + kw;
+  const __nv_bfloat16* w_hi = W + static_cast<size_t>(ok_hi ? row + 8 : 0) * n + kw;
+  const int chunks = (n + kMChunk - 1) / kMChunk;
+
+  uint4 ring[kMSlabs][2];  // W of rows (row, row + 8), a chunk ahead of its use
+  auto load_w = [&](int c, int j) {
+    const int k = c * kMChunk + 32 * j;
+    const bool in = kw + k < n;  // n % 8 == 0: the lane's 8 inputs are all in or all out
+    ring[j][0] = (ok_lo && in) ? __ldcs(reinterpret_cast<const uint4*>(w_lo + k)) : uint4{};
+    ring[j][1] = (ok_hi && in) ? __ldcs(reinterpret_cast<const uint4*>(w_hi + k)) : uint4{};
+  };
+  auto fetch_s = [&](int c) {  // chunk c of the trials' s: cp.async, zeros past the data
+#pragma unroll
+    for (int q = 0; q < kMStage; ++q) {
+      const int idx = threadIdx.x + q * kMThreads;
+      const int b = idx / kMQuads;
+      const int k = c * kMChunk + 4 * (idx % kMQuads);
+      const bool ok = b < nb && k < n;
+      if (idx < kRTrials * kMQuads)
+        copy16(&sf[idx], ok ? s + (b0 + b) * ld_s + k : s, ok ? 16 : 0);
+    }
+    copy_commit();
+  };
+  auto store_s = [&](int buf) {  // this thread's own copies, rounded to bf16 on the way in
+    copy_wait<0>();
+#pragma unroll
+    for (int q = 0; q < kMStage; ++q) {
+      const int idx = threadIdx.x + q * kMThreads;
+      if (idx < kRTrials * kMQuads) {
+        const float4 f = sf[idx];
+        *reinterpret_cast<uint2*>(&ss[buf * kRTrials * kMStride + (idx / kMQuads) * kMStride +
+                                      8 * (idx % kMQuads)]) =
+            make_uint2(bf16x2(f.x, f.y), bf16x2(f.z, f.w));
+      }
+    }
+  };
+
+  fetch_s(0);
+#pragma unroll
+  for (int j = 0; j < kMSlabs; ++j) load_w(0, j);
+  store_s(0);
+  __syncthreads();
+  float acc[4][4];  // n-tile, fragment element: rows (row, row + 8) x trials 8 nt + 2 t + {0, 1}
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  // trial 8 nt + g's inputs kw + 32 j + [0, 8) of the chunk in buffer 0
+  const unsigned char* s_lane = ss + g * kMStride + 2 * kw;
+  for (int c = 0; c < chunks; ++c) {
+    const bool more = c + 1 < chunks && !(kProbe & kProbeNoStaging);
+    if (more) fetch_s(c + 1);  // flies while this chunk is used
+    const unsigned char* sb = s_lane + (c & 1) * (kRTrials * kMStride);
+#pragma unroll
+    for (int j = 0; j < kMSlabs; ++j) {
+      const uint4 lo = ring[j][0], hi = ring[j][1];
+      load_w(c + 1, j);  // zeros (and no load) past the last chunk
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint4 bv = *reinterpret_cast<const uint4*>(sb + 8 * nt * kMStride + 64 * j);
+        float d[4];
+        if constexpr (kProbe & kProbeNoMma) {
+          d[0] = __uint_as_float(lo.x ^ hi.x ^ bv.x);
+          d[1] = __uint_as_float(lo.y ^ hi.y ^ bv.y);
+          d[2] = __uint_as_float(lo.z ^ hi.z ^ bv.z);
+          d[3] = __uint_as_float(lo.w ^ hi.w ^ bv.w);
+        } else {
+          // k-slab as two k16 fragments: words 0, 1 of each row's 16 bytes, then 2, 3
+          mma_bf16(d, lo.x, hi.x, lo.y, hi.y, bv.x, bv.y, 0.f, 0.f, 0.f, 0.f);
+          mma_bf16(d, lo.z, hi.z, lo.w, hi.w, bv.z, bv.w, d[0], d[1], d[2], d[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][i] += d[i];  // round-to-nearest f32 adds
+      }
+    }
+    if (more) store_s((c + 1) & 1);
+    if (!(kProbe & kProbeNoBarrier)) __syncthreads();  // chunk c used up, chunk c + 1 staged
+  }
+  // the K parts' sums meet; part q keeps the n-tiles nt % kMKSplit == q
+  if constexpr (kProbe & kProbeNoBarrier) __syncthreads();
+  float* red = reinterpret_cast<float*>(ss);  // [part][tile][nt][i][lane]
+  auto at = [&](int q, int nt, int i) {
+    return red + (((q * kMRowTiles + tile) * 4 + nt) * 4 + i) * 32 + lane;
+  };
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+    if (nt % kMKSplit != part)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) *at(part, nt, i) = acc[nt][i];
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    if (nt % kMKSplit != part) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      for (int q = 0; q < kMKSplit; ++q)
+        if (q != part) acc[nt][i] += *at(q, nt, i);
+      const int tb = 8 * nt + 2 * t + (i & 1);
+      const int r = row + 8 * (i >> 1);
+      if (tb < nb && r < n) {
+        const long long b = b0 + tb;
+        float* o = out + b * 3 * n;
+        qif_sfa_update(acc[nt][i], v[b * ld_v + r], s[b * ld_s + r], x[b * ld_x + r],
+                       eta[b * ld_eta + r], inp[b * ld_inp + r], p, o + r, o + n + r,
+                       o + 2 * n + r);
+      }
+    }
+  }
+}
+
+template <int kProbe>
+cudaError_t launch_rows_mma(const void* W, const float* v, const float* s, const float* x,
+                            const float* eta, const float* inp, long long ld_v, long long ld_s,
+                            long long ld_x, long long ld_eta, long long ld_inp, float* out,
+                            int n, int n_rows, const StepParams& p, cudaStream_t st) {
+  auto* kernel = qif_sfa_rows_mma_kernel<kProbe>;
+  // dynamic shared memory above 48 KB is taken only when asked for, once per device
+  static std::atomic<unsigned long long> asked{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (!(asked.load() >> dev & 1ull)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMSmem);
+    if (e != cudaSuccess) return e;
+    asked.fetch_or(1ull << dev);
+  }
+  const dim3 grid((n + kMRows - 1) / kMRows, (n_rows + kRTrials - 1) / kRTrials);
+  kernel<<<grid, kMThreads, kMSmem, st>>>(static_cast<const __nv_bfloat16*>(W), v, s, x, eta,
+                                          inp, ld_v, ld_s, ld_x, ld_eta, ld_inp, out, n, n_rows,
+                                          p);
+  return cudaGetLastError();
+}
+
 template <typename WT, bool kVec>
 void launch(const void* W, const void* v, const void* s, const void* x, const void* eta,
             const void* inp, void* v_out, void* s_out, void* x_out, int n,
@@ -378,8 +598,10 @@ extern "C" int qif_sfa_step_launch(const void* W, int w_bf16, int vec, const voi
 // 1).  v, s, x, eta, inp: f32, row b of each at b * ld_<name> (ld 0: one row
 // shared by every trial), n contiguous values each.  out: (n_rows, 3, n) f32
 // (v', s', x' of each trial), distinct from the inputs.  vec = 1 selects the
-// vector loads of W and the asynchronous copies of s: the caller sets it only
-// when n and ld_s are multiples of 4 and W and s are 16-byte aligned.
+// tensor-core kernel for a bf16 W, the vector loads of W and the asynchronous
+// copies of s for a f32 W: the caller sets it only when n is a multiple of
+// the vector width (8 bf16, 4 f32), ld_s a multiple of 4, and W and s are
+// 16-byte aligned.
 extern "C" int qif_sfa_rows_launch(const void* W, int w_bf16, int vec, const void* v,
                                    const void* s, const void* x, const void* eta,
                                    const void* inp, long long ld_v, long long ld_s,
@@ -402,12 +624,45 @@ extern "C" int qif_sfa_rows_launch(const void* W, int w_bf16, int vec, const voi
       static_cast<const WT*>(W), pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta, ld_inp, po, n, \
       n_rows, p)
   if (w_bf16) {
-    if (vec) QIF_ROWS(__nv_bfloat16, true);
-    else QIF_ROWS(__nv_bfloat16, false);
+    if (vec) {
+      return static_cast<int>(launch_rows_mma<0>(W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta,
+                                                 ld_inp, po, n, n_rows, p, st));
+    } else {
+      QIF_ROWS(__nv_bfloat16, false);
+    }
   } else {
     if (vec) QIF_ROWS(float, true);
     else QIF_ROWS(float, false);
   }
 #undef QIF_ROWS
   return static_cast<int>(cudaGetLastError());
+}
+
+// The probes of the tensor-core B-row kernel (kProbe above), for timing:
+// probe 3 streams W and reads the fragments, with the barrier between chunks;
+// probe 7 the same without the barrier.  Same operands as
+// qif_sfa_rows_launch with a bf16 W; the output is meaningless.
+extern "C" int qif_sfa_rows_probe_launch(int probe, const void* W, const void* v, const void* s,
+                                         const void* x, const void* eta, const void* inp,
+                                         long long ld_v, long long ld_s, long long ld_x,
+                                         long long ld_eta, long long ld_inp, void* out, int n,
+                                         int n_rows, void* stream) {
+  if (n <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const StepParams p{};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* pv = static_cast<const float*>(v);
+  const auto* ps = static_cast<const float*>(s);
+  const auto* px = static_cast<const float*>(x);
+  const auto* pe = static_cast<const float*>(eta);
+  const auto* pi = static_cast<const float*>(inp);
+  auto* po = static_cast<float*>(out);
+  constexpr int kFragmentsBarrier = kProbeNoStaging | kProbeNoMma;
+  constexpr int kFragments = kFragmentsBarrier | kProbeNoBarrier;
+  if (probe == kFragmentsBarrier)
+    return static_cast<int>(launch_rows_mma<kFragmentsBarrier>(
+        W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta, ld_inp, po, n, n_rows, p, st));
+  if (probe == kFragments)
+    return static_cast<int>(launch_rows_mma<kFragments>(W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x,
+                                                        ld_eta, ld_inp, po, n, n_rows, p, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

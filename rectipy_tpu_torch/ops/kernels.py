@@ -17,7 +17,8 @@ vector field, threshold test and hard reset.
 
 Each takes one state ``(n,)`` or, for ``Network.run_batch``, ``B`` trials'
 states ``(B, n)`` that share W (the TPU kernel under the JAX package's
-``vmap``): the B-row kernel reads W once for up to 32 trials.
+``vmap``): the B-row kernel reads W once for up to 32 trials.  An aligned
+bfloat16 W takes its tensor-core instance (:func:`rows_route`).
 
 W stays row-major and unpadded: the JAX package's transposed, tile-padded
 copy and padded state layout existed for the TPU's matrix unit.
@@ -34,7 +35,7 @@ from ..dsl.lower import matvec
 from ..nodes import resolve_dtype
 from ._build import build
 
-__all__ = ["qif_sfa_reference_step", "qif_sfa_step", "attach_fused_qif_step"]
+__all__ = ["qif_sfa_reference_step", "qif_sfa_step", "rows_route", "attach_fused_qif_step"]
 
 # elements per 16-byte vector load of W
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
@@ -139,6 +140,19 @@ def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thres
 
 
 qif_sfa_step.launches = 0
+qif_sfa_step.mma_launches = 0  # B-row launches on the tensor cores (rows_route "mma")
+
+
+def rows_route(w_dtype, n: int, ld_s: int, w_ptr: int, s_ptr: int) -> str:
+    """The B-row kernel's instance for a W of ``w_dtype``, rows of ``n``
+    inputs, a row stride ``ld_s`` of s and the addresses of W and s:
+    ``"mma"`` (a bfloat16 W on the tensor cores) or ``"vec"`` (a float32 W,
+    16-byte loads) when ``n`` is a multiple of the vector width (8 bfloat16,
+    4 float32), ``ld_s`` of 4 and both addresses of 16 bytes; else
+    ``"scalar"``."""
+    if n % _VEC_ELEMS[w_dtype] or ld_s % 4 or w_ptr % 16 or s_ptr % 16:
+        return "scalar"
+    return "mma" if w_dtype == torch.bfloat16 else "vec"
 
 
 def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thresh,
@@ -151,7 +165,8 @@ def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, 
     tensor (``v'``, ``s'``, ``x'`` per trial).  CUDA tensors only (a CPU W
     takes the plain version through :func:`qif_sfa_step`); anything the
     kernel does not take raises.  Each launch adds one to
-    ``qif_sfa_step.launches``."""
+    ``qif_sfa_step.launches``, and one on the tensor cores also to
+    ``qif_sfa_step.mma_launches``."""
     device = W.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
@@ -174,10 +189,9 @@ def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, 
                              f"contiguous rows, got {tuple(t.shape)} strides {t.stride()}")
         lds.append(t.stride(0) if t.dim() == 2 else 0)
     out = torch.empty((rows, 3, n), dtype=torch.float32, device=device)
-    vec = (n % 4 == 0 and lds[1] % 4 == 0 and W.data_ptr() % 16 == 0
-           and s.data_ptr() % 16 == 0)
+    route = rows_route(W.dtype, n, lds[1], W.data_ptr(), s.data_ptr())
     err = _rows_launch_fn()(
-        W.data_ptr(), int(W.dtype == torch.bfloat16), int(vec),
+        W.data_ptr(), int(W.dtype == torch.bfloat16), int(route != "scalar"),
         v.data_ptr(), s.data_ptr(), x.data_ptr(), eta.data_ptr(), inp.data_ptr(), *lds,
         out.data_ptr(), n, rows,
         float(dt), 1.0 / dt, 1.0 / tau, 1.0 / tau_s, 1.0 / tau_x, float(k), float(alpha),
@@ -185,6 +199,8 @@ def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, 
     if err != 0:
         raise RuntimeError(f"qif_sfa_step: B-row kernel launch failed with CUDA error {err}")
     qif_sfa_step.launches += 1
+    if route == "mma":
+        qif_sfa_step.mma_launches += 1
     return out
 
 

@@ -17,7 +17,7 @@ from rectipy_tpu_torch import (RLS, FeedbackNetwork, Network, attach_fused_qif_s
                                attach_generic_fused_step)
 from rectipy_tpu_torch.ops.fused_opt import adam_requant, adam_requant_plain
 from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fused_step_plain
-from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
+from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
 from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv, int4_mv_t,
                                          int4_vector_path, int8_dot_plain, int8_dot_t_plain,
                                          int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
@@ -727,19 +727,24 @@ def _rows_inputs(B, n, seed, device, w_dtype, coupling):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B", [5, 33])
-@pytest.mark.parametrize("n", [1000, 1003])  # vector loads / scalar loads of W
+@pytest.mark.parametrize("B", [5, 32, 33, 64])  # one, one full and two trial groups
+# vector loads of W (bf16: the tensor cores) / scalar loads; 1,024 fills every row tile
+@pytest.mark.parametrize("n", [1000, 1003, 1024])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_qif_rows_kernel_matches_plain_and_single_row_kernel(cuda, B, n, w_dtype):
     # the B-row step on strided rows of one state buffer: against its plain
     # version, and each trial against the single-row kernel on that trial
+    mma = w_dtype == torch.bfloat16 and n % 8 == 0
     for coupling, p, tol in ((False, PARAMS, dict(rtol=1e-5, atol=1e-4)),
                              (True, COUPLING_PARAMS, COUPLING_TOL)):
         W, v, s, x, eta, inp = _rows_inputs(B, n, 61, cuda, w_dtype, coupling)
-        before = qif_sfa_step.launches
+        assert rows_route(W.dtype, n, s.stride(0), W.data_ptr(), s.data_ptr()) == (
+            "mma" if mma else "vec" if n % 4 == 0 else "scalar")
+        before = qif_sfa_step.launches, qif_sfa_step.mma_launches
         out = qif_sfa_step(v, s, x, W, eta, inp, **p)
         torch.cuda.synchronize()
-        assert qif_sfa_step.launches == before + 1 and out.shape == (B, 3, n)
+        assert (qif_sfa_step.launches, qif_sfa_step.mma_launches) == (
+            before[0] + 1, before[1] + int(mma)) and out.shape == (B, 3, n)
         ref = torch.stack(qif_sfa_reference_step(v, s, x, W, eta, inp, **p), dim=-2)
         torch.testing.assert_close(out, ref, **tol)
         for b in (0, B - 1):
@@ -763,6 +768,22 @@ def test_qif_rows_shared_operands_and_refusals(cuda):
         qif_sfa_step(v, s, x, W, eta.t().contiguous().t(), inp, **PARAMS)
     with pytest.raises(ValueError, match="float32"):
         qif_sfa_step(v, s, x, W, eta.double(), inp, **PARAMS)
+
+
+@pytest.mark.gpu
+def test_qif_rows_tensor_cores_shared_operands(cuda):
+    # the tensor-core route with (n,) operands shared by every trial, s
+    # among them (stride 0), in the coupling case
+    B, n = 37, 1024
+    W, v, s, x, eta, inp = _rows_inputs(B, n, 64, cuda, torch.bfloat16, True)
+    s0, x0, eta0 = s[3].contiguous(), x[0].contiguous(), eta[1].contiguous()
+    before = qif_sfa_step.mma_launches
+    out = qif_sfa_step(v, s0, x0, W, eta0, inp, **COUPLING_PARAMS)
+    torch.cuda.synchronize()
+    assert qif_sfa_step.mma_launches == before + 1
+    ref = torch.stack(qif_sfa_reference_step(v, s0, x0, W, eta0, inp, **COUPLING_PARAMS),
+                      dim=-2)
+    torch.testing.assert_close(out, ref, **COUPLING_TOL)
 
 
 def _int8_rate_net(device, coupling, W):

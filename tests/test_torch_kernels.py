@@ -17,7 +17,7 @@ from rectipy_tpu.ops.kernels import make_qif_sfa_pallas_step, pad_coupling
 from rectipy_tpu.ops.kernels import qif_sfa_reference_step as j_reference_step
 from rectipy_tpu_torch import Network
 from rectipy_tpu_torch.ops.kernels import (attach_fused_qif_step, qif_sfa_reference_step,
-                                           qif_sfa_step)
+                                           qif_sfa_step, rows_route)
 
 PARAMS = dict(dt=1e-4, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05,
               thresh=10.0, v_reset=-10.0)
@@ -103,6 +103,33 @@ def test_non_cpu_non_cuda_tensors_raise():
     meta = [torch.empty(n, device="meta") for _ in range(5)]
     with pytest.raises(ValueError, match="CUDA"):
         qif_sfa_step(*meta[:3], torch.empty(n, n, device="meta"), *meta[3:], **PARAMS)
+
+
+@pytest.mark.parametrize("w_dtype, n, ld_s, w_ptr, s_ptr, route", [
+    (torch.bfloat16, 10_000, 30_000, 4096, 4096 + 40_000, "mma"),  # a node's (B, 3n) state
+    (torch.bfloat16, 1_000, 0, 256, 512, "mma"),  # one s row shared by every trial
+    (torch.float32, 10_000, 30_000, 4096, 4096 + 40_000, "vec"),
+    (torch.bfloat16, 1_004, 3_012, 4096, 4096 + 4_016, "scalar"),  # n % 8 != 0
+    (torch.bfloat16, 1_003, 3_009, 4096, 4096 + 4_012, "scalar"),
+    (torch.bfloat16, 1_000, 3_002, 4096, 4096 + 4_000, "scalar"),  # ld_s % 4 != 0
+    (torch.bfloat16, 1_000, 3_000, 4096 + 8, 4096 + 4_000, "scalar"),  # W not 16-byte aligned
+    (torch.bfloat16, 1_000, 3_000, 4096, 4096 + 4_004, "scalar"),  # s not 16-byte aligned
+    (torch.float32, 1_002, 3_006, 4096, 4096 + 4_008, "scalar"),  # n % 4 != 0
+])
+def test_rows_route(w_dtype, n, ld_s, w_ptr, s_ptr, route):
+    # the B-row kernel's instance is a pure function of the operands' shapes
+    # and addresses: aligned bf16 takes the tensor cores, everything else not
+    assert rows_route(w_dtype, n, ld_s, w_ptr, s_ptr) == route
+
+
+def test_rows_route_of_a_node_state_view():
+    # the fused node's s is the view y[:, n:2n] of its (B, 3n) state: the
+    # route follows n (through the view's offset and row stride)
+    for n, route in ((1_000, "mma"), (1_024, "mma"), (1_004, "scalar"), (1_003, "scalar")):
+        y = torch.zeros((4, 3 * n), dtype=torch.float32)
+        W = torch.zeros((n, n), dtype=torch.bfloat16)
+        s = y[:, n:2 * n]
+        assert rows_route(W.dtype, n, s.stride(0), W.data_ptr(), s.data_ptr()) == route
 
 
 # ------------------------------------------------------------- node attach
