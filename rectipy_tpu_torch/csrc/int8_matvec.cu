@@ -50,10 +50,11 @@
 // of rectipy_tpu/ops/quant.py batched dots.  Bound at N = 10,000 and B = 32:
 // W must still be read once, 1.0e8 bytes (30 us at 3.35 TB/s), and the
 // 2*B*N^2 = 6.4e9 integer operations take 3 us at the tensor cores'
-// 1,979 TOP/s; so the bound is the bytes.  These kernels multiply on the
-// CUDA cores with __dp4a (about 64 four-byte products a clock per SM, some
-// 50 us for 8e8 __dp4a at B = 32), which caps them above that bound: the
-// tensor-core form (mma.sync or wgmma on int8) is later work.
+// 1,979 TOP/s; so the bound is the bytes.  On the CUDA cores with __dp4a
+// (about 64 four-byte products a clock per SM) the products alone take some
+// 50 us at B = 32, above that bound: int8_mm_t's main instance therefore
+// runs on the tensor cores (int8_mm_t_mma_kernel, below); int8_mm and
+// int8_mm_t's other instances still use __dp4a.
 //
 // Design against re-reading: int8_mv's one-warp-per-row form, kept for B
 // rows, would make each warp read all B activation rows per W row, 3.2 GB
@@ -67,7 +68,58 @@
 //   32 trials; a B above 32 takes a second group of blocks, which reads W
 //   again.  Each sum reduces across the warp with __reduce_add_sync; lane b
 //   writes trial b's epilogue, in int8_mv's order.
-// - int8_mm_t: int4_mv_t's scheme on bytes.  A block owns a strip of 512
+// - int8_mm_t on the tensor cores (route "mma": n_in % 8 == 0 and wq 8-byte
+//   aligned; int8_mm_t_mma_kernel).  mma.sync m16n8k32 s8 x s8 -> s32 with
+//   M = W's columns j (the outputs), N = the trials, K = W's rows i: A[j][i]
+//   = W[i, j], B[i][b] = vq[b, i].  (wgmma wants 8-bit operands K-major in
+//   shared memory, which row-major W is not, so it would need the same
+//   transpose through shared memory.)
+//   - A fragments from row-major W by byte transposes in registers: lane
+//     (g, t) = (lane / 4, lane % 4) loads 8 bytes, columns 8g..8g+7, of each
+//     of the rows 8t..8t+7 of a 32-row k-step, and four transpose4 calls
+//     turn the 8 x 8 bytes into 16 words of one column x four rows.  A
+//     fragment's k slots 4t + e and 16 + 4t + e then hold rows 8t + e and
+//     8t + 4 + e: a permutation of k, which the B fragments share, and the
+//     integer sum does not depend on the order of k.  Column 8g + 2u + h is
+//     row g + 8h of m-tile u (four m-tiles), so a warp owns 64 columns, and
+//     the 8 lanes that share t read 64 contiguous bytes of one row.
+//   - B fragments without a transpose: under that permutation, lane (g, t)'s
+//     two B registers of n-tile nt are the 8 bytes of trial 8 nt + g at rows
+//     8t..8t+7 of the step: one 8-byte read of the block's stage of vq.  The
+//     block stages its chunk of rows of all its trials (cp.async where n_out
+//     and vq allow 16-byte copies, byte loads otherwise), zeros past the
+//     chunk and past the trials, each trial row padded to 32 mod 128 bytes
+//     so that a half-warp's 8-byte reads hit distinct banks.  The copies go
+//     out in four parts after the first W loads, and the k loop waits for
+//     each part when it reaches it (a barrier each): staged whole before
+//     the loop, the stage held up the start of the W stream.
+//   - W streams from HBM straight into registers, two k-steps (128 bytes a
+//     lane) ahead of their use, with loads that skip L1 and ask L2 for the
+//     surrounding 256 bytes (the block's four warps read 256 contiguous
+//     bytes of a row).  4 m-tiles x 4 n-tiles x 4 = 64 int32 sums a lane;
+//     n-tiles past the trials are skipped.
+//   - A block is 4 warps (256 columns) x a chunk of rows x 32 trials; the
+//     rows are split into as many chunks as fill the card with one wave of
+//     kMcBlocksPerSm blocks an SM, at most 8 (8 chunks of 1,280 rows at
+//     N = 10,000: 320 blocks).  The chunks of a column strip are one thread
+//     block cluster: each block leaves its sums in shared memory, and after
+//     a cluster barrier block q reads every chunk's sums of its share of
+//     the strip through distributed shared memory, adds them and writes
+//     float(sum) * act_scale[b] as the JAX package rounds it.  No scratch
+//     in device memory, no atomics and no second launch.  (A first version
+//     added the chunks with int32 atomics into a zeroed scratch and let the
+//     strip's last block scale; it needed the zeroing launch and ran level
+//     with this one.  Pushing the sums to their owner instead of pulling
+//     them ran slower, and so did 2 or 4 blocks an SM, fewer chunks, and B
+//     fragments read through L1 instead of the stage; a third k-step in
+//     flight gained nothing that held from one build to the next.)
+//   - What holds it back (PERF.md): the fixed cost of the cluster barriers
+//     and the reduce after the k loop, and the W stream in this load
+//     pattern (64 bytes of 4 rows a warp instruction), which reaches a
+//     smaller share of the HBM rate than int8_mv's 16-byte loads of one
+//     row.
+// - int8_mm_t's other routes ("vec": n_in % 4 == 0 and wq 4-byte aligned;
+//   "scalar"): int4_mv_t's scheme on bytes.  A block owns a strip of 512
 //   columns (4 adjacent columns a thread, one 4-byte load per row) and a
 //   chunk of rows; a thread takes four rows at a time, transposes the 4 x 4
 //   bytes with __byte_perm so that a word holds one column's four rows, and
@@ -78,7 +130,7 @@
 //   kernel sums the chunks and applies the scale.
 // - Non-aligned shapes take scalar instantiations: the same blocks, one byte
 //   at a time.
-// The sums are integers, exact in any order, so both agree bit for bit with
+// The sums are integers, exact in any order, so all agree bit for bit with
 // the plain versions.
 //
 // Interface: plain C functions, loaded with ctypes; they launch on the
@@ -86,6 +138,12 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
+
+#include <atomic>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -416,6 +474,274 @@ void mm_t_chunks(int n_out, int n_in, int n_rows, int* chunks, int* rows) {
   *chunks = (n_out + r - 1) / r;
 }
 
+// --------------------------------------------- int8_mm_t on the tensor cores
+constexpr int kMcWarps = 4;
+constexpr int kMcThreads = 32 * kMcWarps;
+constexpr int kMcWarpCols = 64;                  // lane group g: columns 8g..8g+7
+constexpr int kMcCols = kMcWarps * kMcWarpCols;  // columns of a block
+constexpr int kMcStep = 32;                      // rows of W a k-step (m16n8k32)
+constexpr int kMcRing = 2;                       // k-steps of W in flight a lane
+constexpr int kMcPassRows = 2048;                // rows of vq staged at once at most
+constexpr int kMcParts = 4;                      // parts of the stage, waited for one by one
+constexpr int kMcMaxCluster = 8;                 // chunks of rows (the portable cluster size)
+constexpr int kMcBlocksPerSm = 3;                // the wave the launch aims for
+constexpr int kMcRedPitch = kMcWarpCols + 1;     // ints a trial in the sums' buffer
+
+// Bytes a trial's row takes in the stage of a pass of `rows` rows: 32 mod
+// 128, so that the 8-byte reads of a half-warp (4 trials x 4 row offsets)
+// hit distinct banks; a multiple of 16 for cp.async.
+__host__ __device__ constexpr int mc_stride(int rows) { return (rows + 127) / 128 * 128 + 32; }
+
+constexpr int mc_smem(int rows) {
+  return kTrials * mc_stride(rows) > kMcWarps * kTrials * kMcRedPitch * 4
+             ? kTrials * mc_stride(rows)
+             : kMcWarps * kTrials * kMcRedPitch * 4;
+}
+
+// A 16-byte copy from device to shared memory that uses no registers
+// (cp.async); bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void copy16(void* smem, const void* gmem, int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes));
+}
+
+// Wait until at most `pending` groups of this thread's cp.async copies are
+// in flight (0 <= pending < kMcParts).
+static_assert(kMcParts <= 4, "wait_copies waits for at most 3 pending groups");
+__device__ __forceinline__ void wait_copies(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::); break;
+  }
+}
+
+// 8 bytes of W, read once: not kept in L1, and L2 fetches the surrounding
+// 256 bytes (the block's other warps read them next).
+__device__ __forceinline__ uint2 load_w8(const int8_t* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
+}
+
+// c += a * b on the tensor cores: a 16 x 32 int8 tile (row fragment), a
+// 32 x 8 int8 tile (column fragment), exact int32 sums.
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The tensor-core int8_mm_t (header note).  Grid: (column strips of
+// kMcCols, chunks of rows_per_chunk rows, groups of kTrials trials); the
+// chunks of a strip and group are one cluster.  kVecStage: n_out % 16 == 0
+// and vq 16-byte aligned.
+template <bool kVecStage>
+__global__ void __launch_bounds__(kMcThreads, kMcBlocksPerSm)
+int8_mm_t_mma_kernel(const int8_t* __restrict__ wq, const int8_t* __restrict__ vq,
+                     const float* __restrict__ act_scale, float* __restrict__ out, int n_out,
+                     int n_in, int n_rows, int rows_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
+  const int b0 = blockIdx.z * kTrials;
+  const int nb = min(kTrials, n_rows - b0);
+  const int ntiles = (nb + 7) / 8;  // n-tiles with a trial in them
+  const int r0 = blockIdx.y * rows_per_chunk;
+  const int rows = max(0, min(n_out, r0 + rows_per_chunk) - r0);  // a chunk may be empty
+  const int stride = mc_stride(min(rows_per_chunk, kMcPassRows));
+  const int jw = blockIdx.x * kMcCols + warp * kMcWarpCols;  // the warp's first column
+  const bool col_ok = jw + 8 * g < n_in;  // n_in % 8 == 0: the lane's 8 columns all in or out
+  const unsigned char* s_lane = smem + g * stride + 8 * t;  // trial g, rows 8t..8t+7
+
+  int c[4][4][4];  // m-tile u, n-tile nt, fragment element
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[u][nt][i] = 0;
+
+  for (int p0 = 0; p0 < rows; p0 += kMcPassRows) {  // one pass at N = 10,000
+    const int prows = min(kMcPassRows, rows - p0);
+    const int steps = (prows + kMcStep - 1) / kMcStep;
+    const int rp = r0 + p0;
+    if (p0 > 0) __syncthreads();  // the previous pass's stage is used up
+    // row 8t of the pass at the lane's columns
+    const int8_t* w_lane = wq + (static_cast<size_t>(rp) + 8 * t) * n_in + (col_ok ? jw + 8 * g : 0);
+    uint2 ring[kMcRing][8];  // rows 8t..8t+7 of a k-step, kMcRing steps ahead
+    auto load_w = [&](int s, uint2 (&w)[8]) {  // zeros (and no load) past the pass
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int k = s * kMcStep + 8 * t + r;
+        w[r] = (col_ok && k < prows) ? load_w8(w_lane + static_cast<size_t>(s * kMcStep + r) * n_in)
+                                     : make_uint2(0u, 0u);
+      }
+    };
+#pragma unroll
+    for (int d = 0; d < kMcRing; ++d) load_w(d, ring[d]);
+
+    // stage vq[b0 + b, rp .. rp + 32 steps) for the trials of the n-tiles in
+    // use, zeros past the pass and past the trials: in kMcParts parts of
+    // `part` k-steps, each waited for only when the k loop reaches it
+    const int span = steps * kMcStep;
+    const int part = (steps + kMcParts - 1) / kMcParts;
+    if constexpr (kVecStage) {  // prows is a multiple of 16: a copy is all in or all out
+#pragma unroll
+      for (int q = 0; q < kMcParts; ++q) {
+        const int k0 = min(span, q * part * kMcStep) / 16;
+        const int n = min(span, (q + 1) * part * kMcStep) / 16 - k0;  // 16-byte copies a trial
+        for (int idx = threadIdx.x; idx < 8 * ntiles * n; idx += kMcThreads) {
+          const int b = idx / n, k = 16 * (k0 + idx % n);
+          const bool ok = b < nb && k < prows;
+          copy16(smem + b * stride + k, ok ? vq + static_cast<size_t>(b0 + b) * n_out + rp + k : vq,
+                 ok ? 16 : 0);
+        }
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < 8 * ntiles * span; idx += kMcThreads) {
+        const int b = idx / span, k = idx % span;
+        smem[b * stride + k] = (b < nb && k < prows)
+            ? static_cast<unsigned char>(__ldg(vq + static_cast<size_t>(b0 + b) * n_out + rp + k))
+            : static_cast<unsigned char>(0);
+      }
+    }
+
+    for (int s0 = 0; s0 < steps; s0 += kMcRing) {
+#pragma unroll
+      for (int d = 0; d < kMcRing; ++d) {
+        const int s = s0 + d;
+        if (s >= steps) break;
+        if (s % part == 0) {  // the stage's part s / part has landed, for every thread
+          wait_copies(kMcParts - 1 - s / part);
+          __syncthreads();
+        }
+        uint2 w[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) w[r] = ring[d][r];
+        load_w(s + kMcRing, ring[d]);
+        // lo[c]: column 8g + c at rows 8t..8t+3 (k slots 4t..4t+3);
+        // hi[c]: the same column at rows 8t+4..8t+7 (k slots 16+4t..16+4t+3)
+        uint32_t lo[8], hi[8];
+        transpose4(w[0].x, w[1].x, w[2].x, w[3].x, lo);
+        transpose4(w[0].y, w[1].y, w[2].y, w[3].y, lo + 4);
+        transpose4(w[4].x, w[5].x, w[6].x, w[7].x, hi);
+        transpose4(w[4].y, w[5].y, w[6].y, w[7].y, hi + 4);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt >= ntiles) break;
+          const uint2 bv = *reinterpret_cast<const uint2*>(s_lane + 8 * nt * stride + s * kMcStep);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)  // rows g, g + 8 of m-tile u: columns 8g + 2u, + 1
+            mma_s8(c[u][nt], lo[2 * u], lo[2 * u + 1], hi[2 * u], hi[2 * u + 1], bv.x, bv.y);
+        }
+      }
+    }
+  }
+
+  // the sums by trial and column in shared memory (the stage is used up)
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  int* red = reinterpret_cast<int*>(smem);  // [warp][trial][column of the warp]
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // element i: m-row g + 8 (i / 2), trial 2t + i % 2
+        red[(warp * kTrials + 8 * nt + 2 * t + (i & 1)) * kMcRedPitch + 8 * g + 2 * u + (i >> 1)] =
+            c[u][nt][i];
+  // the chunks of the cluster add their sums through distributed shared
+  // memory: block `rank` reduces every chunks-th run of kMcThreads sums
+  cluster.sync();
+  const int chunks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int* peer[kMcMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMcMaxCluster; ++q) peer[q] = q < chunks ? cluster.map_shared_rank(red, q) : red;
+  constexpr int kEach = 8;  // sums a thread reduces at once: all their reads in flight
+  for (int i0 = rank * kMcThreads + threadIdx.x; i0 < nb * kMcCols;
+       i0 += kEach * chunks * kMcThreads) {
+    int sum[kEach];
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      const int idx = i0 + e * chunks * kMcThreads;
+      const int b = idx / kMcCols, col = idx % kMcCols;
+      const int off = ((col / kMcWarpCols) * kTrials + b) * kMcRedPitch + col % kMcWarpCols;
+      sum[e] = 0;
+#pragma unroll
+      for (int q = 0; q < kMcMaxCluster; ++q)
+        if (q < chunks && idx < nb * kMcCols) sum[e] += peer[q][off];
+    }
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      const int idx = i0 + e * chunks * kMcThreads;
+      const int b = idx / kMcCols, j = blockIdx.x * kMcCols + idx % kMcCols;
+      if (idx < nb * kMcCols && j < n_in)
+        out[static_cast<size_t>(b0 + b) * n_in + j] =
+            __fmul_rn(static_cast<float>(sum[e]), act_scale[b0 + b]);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// The tensor-core launch's split of n_out into chunks of rows (a multiple
+// of kMcStep; one cluster of at most kMcMaxCluster chunks), for a card of
+// `sms` SMs.
+void mc_chunks(int n_out, int n_in, int n_rows, int sms, int* chunks, int* rows) {
+  const int strips = (n_in + kMcCols - 1) / kMcCols;
+  const int groups = (n_rows + kTrials - 1) / kTrials;
+  int c = sms * kMcBlocksPerSm / (strips * groups);
+  c = c < 1 ? 1 : (c > kMcMaxCluster ? kMcMaxCluster : c);
+  int r = (n_out + c - 1) / c;
+  *rows = (r + kMcStep - 1) / kMcStep * kMcStep;
+  *chunks = c;
+}
+
+template <bool kVecStage>
+cudaError_t launch_mm_t_mma(const int8_t* w, const int8_t* v, const float* as, float* out,
+                            int n_out, int n_in, int n_rows, cudaStream_t st) {
+  if (n_out <= 0)
+    return cudaMemsetAsync(out, 0, static_cast<size_t>(n_rows) * n_in * sizeof(float), st);
+  auto* kernel = int8_mm_t_mma_kernel<kVecStage>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  // dynamic shared memory above 48 KB is taken only when asked for, once per device
+  static std::atomic<unsigned long long> asked{0};
+  if (!(asked.load() >> dev & 1ull)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             mc_smem(kMcPassRows));
+    if (e != cudaSuccess) return e;
+    asked.fetch_or(1ull << dev);
+  }
+  int sms = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  int chunks, rows;
+  mc_chunks(n_out, n_in, n_rows, sms, &chunks, &rows);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_in + kMcCols - 1) / kMcCols, chunks, (n_rows + kTrials - 1) / kTrials);
+  cfg.blockDim = dim3(kMcThreads);
+  cfg.dynamicSmemBytes = mc_smem(rows < kMcPassRows ? rows : kMcPassRows);
+  cfg.stream = st;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = chunks;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, w, v, as, out, n_out, n_in, n_rows, rows);
+}
 }  // namespace
 
 // wq: (n_out, n_in) int8 row-major; xq: (n_in,) int8; row_scale: (n_out,)
@@ -489,38 +815,52 @@ extern "C" int int8_mm_launch(const void* wq, const void* xq, const void* row_sc
   return static_cast<int>(cudaGetLastError());
 }
 
+// int8_mm_t_launch's routes (ops/quant.py::int8_mm_t_route picks one).
+constexpr int kRouteScalar = 0, kRouteVec = 1, kRouteMma = 2;
+
 // The int32 elements of the scratch that int8_mm_t_launch needs for these
-// arguments (chunks x n_rows x n_in).
-extern "C" long long int8_mm_t_scratch(int n_out, int n_in, int n_rows) {
+// arguments on `route`: chunks x n_rows x n_in partial sums for the
+// __dp4a routes, none for the tensor cores.
+extern "C" long long int8_mm_t_scratch(int n_out, int n_in, int n_rows, int route) {
+  if (n_in <= 0 || n_rows <= 0) return 0;
+  if (route == kRouteMma) return 0;
   int chunks, rows;
   mm_t_chunks(n_out, n_in, n_rows, &chunks, &rows);
-  return static_cast<long long>(chunks) * (n_rows > 0 ? n_rows : 0) * (n_in > 0 ? n_in : 0);
+  return static_cast<long long>(chunks) * n_rows * n_in;
 }
 
 // wq: (n_out, n_in) int8 row-major; vq: (n_rows, n_out) int8 row-major;
-// act_scale: (n_rows,) f32; partial: int32 scratch of
-// int8_mm_t_scratch(n_out, n_in, n_rows) elements, written before it is
-// read; out: (n_rows, n_in) f32.  vec = 1 selects the 4-byte loads of wq:
-// the caller sets it only when n_in % 4 == 0 and wq is 4-byte aligned.
+// act_scale: (n_rows,) f32; scratch: int32, int8_mm_t_scratch(n_out, n_in,
+// n_rows, route) elements, written before it is read; out: (n_rows, n_in)
+// f32.  route: kRouteMma (the caller sets it only when n_in % 8 == 0 and wq
+// is 8-byte aligned), kRouteVec (4-byte loads of wq: n_in % 4 == 0 and wq
+// 4-byte aligned) or kRouteScalar.
 extern "C" int int8_mm_t_launch(const void* wq, const void* vq, const void* act_scale,
-                                void* partial, void* out, int n_out, int n_in, int n_rows,
-                                int vec, void* stream) {
+                                void* scratch, void* out, int n_out, int n_in, int n_rows,
+                                int route, void* stream) {
   if (n_in <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const int8_t*>(wq);
+  const auto* v = static_cast<const int8_t*>(vq);
+  const auto* as = static_cast<const float*>(act_scale);
+  auto* p = static_cast<int*>(scratch);
+  auto* o = static_cast<float*>(out);
+  if (route == kRouteMma) {
+    const bool vec_stage = n_out % 16 == 0 && reinterpret_cast<uintptr_t>(vq) % 16 == 0;
+    return static_cast<int>(vec_stage ? launch_mm_t_mma<true>(w, v, as, o, n_out, n_in, n_rows, st)
+                                      : launch_mm_t_mma<false>(w, v, as, o, n_out, n_in, n_rows, st));
+  }
   int chunks, rows;
   mm_t_chunks(n_out, n_in, n_rows, &chunks, &rows);
-  auto* p = static_cast<int*>(partial);
   if (chunks > 0) {
     const dim3 grid((n_in + kMtStrip - 1) / kMtStrip, chunks, (n_rows + kTrials - 1) / kTrials);
-    const auto* w = static_cast<const int8_t*>(wq);
-    const auto* v = static_cast<const int8_t*>(vq);
-    if (vec) int8_mm_t_kernel<true><<<grid, kMtThreads, 0, st>>>(w, v, p, n_out, n_in, n_rows, rows);
+    if (route == kRouteVec)
+      int8_mm_t_kernel<true><<<grid, kMtThreads, 0, st>>>(w, v, p, n_out, n_in, n_rows, rows);
     else int8_mm_t_kernel<false><<<grid, kMtThreads, 0, st>>>(w, v, p, n_out, n_in, n_rows, rows);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 rgrid((n_in + 255) / 256, n_rows);
-  mm_t_reduce_kernel<<<rgrid, 256, 0, st>>>(p, chunks, n_rows, static_cast<const float*>(act_scale),
-                                            static_cast<float*>(out), n_in);
+  mm_t_reduce_kernel<<<rgrid, 256, 0, st>>>(p, chunks, n_rows, as, o, n_in);
   return static_cast<int>(cudaGetLastError());
 }

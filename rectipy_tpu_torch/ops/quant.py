@@ -22,8 +22,9 @@ so kernel and plain version agree bit for bit.
 Sources with leading (trial) axes, ``(..., n_in)``, take one activation scale
 per row (``quant_vec`` reduces over the last axis), as the JAX package's
 ``vmap`` gives one per trial; their products are the batched kernels
-:func:`int8_mm` and :func:`int8_mm_t`, which read W once for all rows.  A
-1-D source takes the matvecs as before.
+:func:`int8_mm` and :func:`int8_mm_t`, which read W once for all rows
+(:func:`int8_mm_t` on the tensor cores where :func:`int8_mm_t_route` says
+``"mma"``).  A 1-D source takes the matvecs as before.
 
 Casts follow the JAX package exactly: the int32 sum becomes float32 and is
 multiplied ``* row_scale * act_scale`` in that order, in float32, whatever
@@ -51,7 +52,7 @@ from ._build import build
 
 __all__ = ["quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot", "int8_dot_t",
            "int8_dot_plain", "int8_dot_t_plain", "int8_mm", "int8_mm_t", "int8_mm_plain",
-           "int8_mm_t_plain", "int8_master_matvec", "int8_master_ops",
+           "int8_mm_t_plain", "int8_mm_t_route", "int8_master_matvec", "int8_master_ops",
            "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN", "quantize_rows_i4", "pack_int4",
            "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
            "int4_master_matvec", "int4_master_ops"]
@@ -115,7 +116,7 @@ def _lib():
     lib.int8_mv_t_launch.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.int8_mm_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.int8_mm_t_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.int8_mm_t_scratch.argtypes = [i, i, i]
+    lib.int8_mm_t_scratch.argtypes = [i, i, i, i]
     lib.int8_mm_t_scratch.restype = ctypes.c_longlong
     for fn in (lib.int8_mv_launch, lib.int8_mv_t_launch, lib.int8_mm_launch,
                lib.int8_mm_t_launch):
@@ -244,35 +245,58 @@ def int8_mm(wq, xq, row_scale, act_scale) -> torch.Tensor:
 int8_mm.launches = 0
 
 
+def int8_mm_t_route(n_in: int, wq_ptr: int) -> str:
+    """The instance of :func:`int8_mm_t` for weights of ``n_in`` columns at
+    address ``wq_ptr``: ``"mma"`` (the tensor cores) when ``n_in`` is a
+    multiple of 8 and the address of 8 bytes, ``"vec"`` (``__dp4a`` on
+    4-byte loads) when they are of 4, else ``"scalar"``.  The activations
+    do not choose: the tensor-core kernel stages them with 16-byte copies
+    where their length and address allow, and byte by byte otherwise."""
+    if n_in % 8 == 0 and wq_ptr % 8 == 0:
+        return "mma"
+    return "vec" if n_in % 4 == 0 and wq_ptr % 4 == 0 else "scalar"
+
+
+_MM_T_ROUTES = {"scalar": 0, "vec": 1, "mma": 2}  # int8_mm_t_launch's route codes
+
+
 def int8_mm_t(wq, vq, act_scale) -> torch.Tensor:
     """``out[b, j] = float32(sum_i wq[i, j] * vq[b, i]) * act_scale[b]``,
     float32 ``(B, n_in)``: :func:`int8_mv_t` for ``B`` rows ``(B, n_out)``,
     read from the row-major ``wq`` without a transposed copy.
 
     CPU tensors take the plain version; CUDA tensors launch the kernels of
-    ``csrc/int8_matvec.cu``, which sum chunks of rows into an int32 scratch
-    and then the chunks (exact in any order).  Each launch adds one to
-    ``int8_mm_t.launches``."""
+    ``csrc/int8_matvec.cu`` on the route :func:`int8_mm_t_route` gives:
+    ``"mma"`` sums chunks of rows on the tensor cores and adds the chunks'
+    sums in shared memory (one launch, no scratch); the other routes sum
+    chunks of rows on the CUDA cores into an int32 scratch and then the
+    chunks.  Integer sums are exact in any order.  Each launch adds one to
+    ``int8_mm_t.launches``, and one on the tensor cores also to
+    ``int8_mm_t.mma_launches``."""
     if wq.device.type == "cpu":
         return int8_mm_t_plain(wq, vq) * act_scale[:, None]
     n_out, n_in = wq.shape
     rows = vq.shape[0] if vq.dim() == 2 else -1
     _check("int8_mm_t", wq, vq, None, act_scale, n_out, rows=rows)
     lib = _lib()
-    partial = torch.empty(lib.int8_mm_t_scratch(n_out, n_in, rows), dtype=torch.int32,
-                          device=wq.device)
+    route = int8_mm_t_route(n_in, wq.data_ptr())
+    code = _MM_T_ROUTES[route]
+    size = lib.int8_mm_t_scratch(n_out, n_in, rows, code)
+    scratch = torch.empty(size, dtype=torch.int32, device=wq.device)
     out = torch.empty((rows, n_in), dtype=torch.float32, device=wq.device)
-    vec = int(n_in % 4 == 0 and wq.data_ptr() % 4 == 0)
     err = lib.int8_mm_t_launch(wq.data_ptr(), vq.data_ptr(), act_scale.data_ptr(),
-                               partial.data_ptr(), out.data_ptr(), n_out, n_in, rows, vec,
+                               scratch.data_ptr(), out.data_ptr(), n_out, n_in, rows, code,
                                torch.cuda.current_stream(wq.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_mm_t: kernel launch failed with CUDA error {err}")
     int8_mm_t.launches += 1
+    if route == "mma":
+        int8_mm_t.mma_launches += 1
     return out
 
 
 int8_mm_t.launches = 0
+int8_mm_t.mma_launches = 0  # launches on the tensor cores (int8_mm_t_route "mma")
 
 
 def int8_product(wq, xq, row_scale, act_scale) -> torch.Tensor:

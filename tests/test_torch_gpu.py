@@ -21,7 +21,8 @@ from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, 
 from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv, int4_mv_t,
                                          int4_vector_path, int8_dot_plain, int8_dot_t_plain,
                                          int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
-                                         int8_mv, int8_mv_t, pack_int4, quant_vec, quantize_rows)
+                                         int8_mm_t_route, int8_mv, int8_mv_t, pack_int4,
+                                         quant_vec, quantize_rows)
 from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
                                        check_generic, generic_case_net, generic_inputs,
                                        lost_eighth_margin)
@@ -672,23 +673,43 @@ def test_feedback_network_on_card_matches_cpu(cuda):
 
 # ------------------------------------------------------------ batched trials
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,n_out,n_in", [(32, 1000, 1024), (7, 1003, 999), (40, 256, 512),
-                                          (1, 37, 16)])
-def test_int8_mm_kernels_are_bit_identical_to_plain_versions(cuda, B, n_out, n_in):
-    # 16-byte / scalar paths, two groups of trials (B > 32), one row; the
-    # sums are integers, so kernel and plain version agree bit for bit
+@pytest.mark.parametrize("B,n_out,n_in,offset,route", [
+    (32, 1000, 1024, 0, "mma"), (7, 1003, 999, 0, "scalar"), (40, 256, 512, 0, "mma"),
+    (1, 37, 16, 0, "mma"),
+    # int8_mm_t on the tensor cores: K tails (n_out not a multiple of 32),
+    # a column tail (1,000 columns: 3 strips of 256 and 232), one trial,
+    # one n-tile of 7, one and two groups of 32, 33 (a group of one)
+    (1, 1003, 1000, 0, "mma"), (7, 1003, 1000, 0, "mma"), (32, 1003, 1000, 0, "mma"),
+    (33, 1003, 1000, 0, "mma"), (64, 1003, 1000, 0, "mma"), (32, 10000, 1000, 0, "mma"),
+    (7, 10000, 1000, 0, "mma"),
+    (5, 17, 264, 0, "mma"),  # n_out % 16 != 0: vq staged byte by byte
+    (32, 5000, 136, 0, "mma"),  # few strips: 8 chunks of 640 rows
+    (4, 20000, 64, 0, "mma"),  # chunks of 2,528 rows: two passes of the stage each
+    # the __dp4a instances of int8_mm_t: 4-byte loads, weights at 4 mod 8
+    # or n_in % 8 == 4
+    (32, 1000, 1024, 4, "vec"), (33, 1003, 1004, 0, "vec"), (7, 1003, 1000, 4, "vec"),
+])
+def test_int8_mm_kernels_are_bit_identical_to_plain_versions(cuda, B, n_out, n_in, offset,
+                                                             route):
+    # 16-byte / scalar paths of int8_mm; the tensor-core and __dp4a routes of
+    # int8_mm_t (the weights may start `offset` bytes into their buffer);
+    # two groups of trials (B > 32), one row.  The sums are integers, so
+    # kernel and plain version agree bit for bit.
     rng = np.random.default_rng(60)
-    wq = torch.as_tensor(rng.integers(-127, 128, size=(n_out, n_in)), dtype=torch.int8,
-                         device=cuda)
+    buf = torch.empty(offset + n_out * n_in, dtype=torch.int8, device=cuda)
+    wq = buf[offset:].view(n_out, n_in)
+    wq.copy_(torch.as_tensor(rng.integers(-127, 128, size=(n_out, n_in)), dtype=torch.int8))
     xq = torch.as_tensor(rng.integers(-127, 128, size=(B, n_in)), dtype=torch.int8, device=cuda)
     vq = torch.as_tensor(rng.integers(-127, 128, size=(B, n_out)), dtype=torch.int8,
                          device=cuda)
     rs = torch.as_tensor(rng.random(n_out), dtype=torch.float32, device=cuda)
     act = torch.as_tensor(rng.random(B) + 0.5, dtype=torch.float32, device=cuda)
-    before = (int8_mm.launches, int8_mm_t.launches)
+    assert int8_mm_t_route(n_in, wq.data_ptr()) == route
+    before = (int8_mm.launches, int8_mm_t.launches, int8_mm_t.mma_launches)
     mm, mm_t = int8_mm(wq, xq, rs, act), int8_mm_t(wq, vq, act)
     torch.cuda.synchronize()
-    assert (int8_mm.launches, int8_mm_t.launches) == (before[0] + 1, before[1] + 1)
+    assert (int8_mm.launches, int8_mm_t.launches, int8_mm_t.mma_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + int(route == "mma"))
     assert torch.equal(mm, (int8_mm_plain(wq, xq) * rs) * act[:, None])
     assert torch.equal(mm_t, int8_mm_t_plain(wq, vq) * act[:, None])
     assert torch.equal(mm[B - 1], int8_mv(wq, xq[B - 1], rs, act[B - 1]))

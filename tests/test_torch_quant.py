@@ -233,3 +233,164 @@ def test_unported_couplings_raise(coupling):
                                                                                 atol=1e-9)
     np.testing.assert_allclose(to.to_numpy("out"), jo.to_numpy("out"), **tol)
     np.testing.assert_allclose(to.to_numpy(("rnn", "v")), jo.to_numpy(("rnn", "v")), **tol)
+
+
+# ------------------------------------------- int8_mm_t on the tensor cores
+@pytest.mark.parametrize("n_in, wq_ptr, route", [
+    (10_000, 4096, "mma"),  # the training path's N = 10,000 (B = 32 or any B)
+    (1_000, 4096 + 8, "mma"),  # 8-byte aligned is enough
+    (1_004, 4096, "vec"),  # n_in % 8 == 4: __dp4a on 4-byte loads
+    (1_000, 4096 + 4, "vec"),  # weights only 4-byte aligned
+    (999, 4096, "scalar"),  # odd n_in
+    (1_002, 4096, "scalar"),
+    (1_000, 4096 + 2, "scalar"),  # weights not 4-byte aligned
+    (1_000, 4096 + 1, "scalar"),
+])
+def test_int8_mm_t_route(n_in, wq_ptr, route):
+    # int8_mm_t's instance is a pure function of the weights' width and
+    # address: the tensor cores where 8-byte loads of W fit, __dp4a elsewhere
+    assert tq.int8_mm_t_route(n_in, wq_ptr) == route
+
+
+@pytest.mark.parametrize("B", [1, 7, 33])
+@pytest.mark.parametrize("n_in", [999, 1000])
+def test_int8_mm_t_plain_matches_jax_vmap(B, n_in):
+    # the kernel's plain version with its epilogue against the JAX package's
+    # transposed int8 dot under vmap, times the same per-trial scales: both
+    # sum exactly and multiply once in float32, so bit for bit
+    n_out = 1003
+    rng = np.random.default_rng(90 + B)
+    wq = rng.integers(-127, 128, size=(n_out, n_in)).astype(np.int8)
+    vq = rng.integers(-127, 128, size=(B, n_out)).astype(np.int8)
+    act = (rng.random(B) + 0.5).astype(np.float32)
+    ref = jax.vmap(jq.int8_dot_t, in_axes=(None, 0))(jnp.asarray(wq), jnp.asarray(vq)) \
+        * jnp.asarray(act)[:, None]
+    got = tq.int8_mm_t(_t(wq), _t(vq), _t(act))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, n_in)
+    np.testing.assert_array_equal(_np(got), np.asarray(ref))
+
+
+# A numpy model of int8_mm_t_mma_kernel (csrc/int8_matvec.cu): the chunks
+# and passes of rows, the stage of vq, which bytes each lane loads, the
+# transpose4 byte permutes, the mma.sync m16n8k32 fragment layouts of the
+# PTX ISA, and the C fragments' (trial, column) in the sums' buffer that the
+# cluster adds up.  Each tile product runs as a dense integer matmul.
+_KTRIALS, _WARPS, _WARP_COLS, _STEP = 32, 4, 64, 32
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3  # the fragments' group and thread in group
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
+    (sel >> 4n) & 7 of the 8 bytes y:x."""
+    both = (y.astype(np.uint64) << np.uint64(32)) | x.astype(np.uint64)
+    out = np.zeros_like(x, dtype=np.uint64)
+    for n in range(4):
+        k = (sel >> (4 * n)) & 7
+        out |= ((both >> np.uint64(8 * k)) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _transpose4(r0, r1, r2, r3):
+    lo01, hi01 = _byte_perm(r0, r1, 0x5140), _byte_perm(r0, r1, 0x7362)
+    lo23, hi23 = _byte_perm(r2, r3, 0x5140), _byte_perm(r2, r3, 0x7362)
+    return [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
+            _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
+
+
+def _bytes(words):
+    """(32,) uint32 -> (32, 4) signed bytes, little-endian."""
+    return words.astype("<u4").view(np.int8).reshape(-1, 4).astype(np.int64)
+
+
+def _word(b):
+    """(32, 4) int8 bytes -> (32,) uint32, little-endian."""
+    return np.ascontiguousarray(b.astype(np.int8)).view("<u4").reshape(-1)
+
+
+def _mma_m16n8k32(a, b):
+    """D = A B of the PTX fragments: a four (32,) uint32 registers of the
+    16 x 32 row-major A, b two of the 32 x 8 column-major B; returns the
+    four (32,) int64 registers of the 16 x 8 D."""
+    A, Bm = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+    for reg, (m_off, k_off) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
+        for e in range(4):
+            A[_G + m_off, k_off + 4 * _T + e] = _bytes(a[reg])[:, e]
+    for reg, k_off in enumerate((0, 16)):
+        for e in range(4):
+            Bm[k_off + 4 * _T + e, _G] = _bytes(b[reg])[:, e]
+    D = A @ Bm
+    return [D[_G + 8 * (i >> 1), 2 * _T + (i & 1)] for i in range(4)]
+
+
+def _passes(n_out, rows_per_chunk, pass_rows):
+    """(first row, rows) of every pass of every chunk of rows."""
+    for c0 in range(0, n_out, rows_per_chunk):
+        rows = min(n_out, c0 + rows_per_chunk) - c0
+        for p0 in range(0, rows, pass_rows):
+            yield c0 + p0, min(pass_rows, rows - p0)
+
+
+def _mma_t_model(wq, vq, act, rows_per_chunk, pass_rows=2048):
+    n_out, n_in = wq.shape
+    n_rows = vq.shape[0]
+    acc = np.zeros((n_rows, n_in), np.int64)  # the sum over chunks (the cluster's reduce)
+    wpad = np.zeros((n_out + 2 * _STEP, n_in + 2 * _WARPS * _WARP_COLS), np.int8)
+    wpad[:n_out, :n_in] = wq
+    for b0 in range(0, n_rows, _KTRIALS):
+        nb = min(_KTRIALS, n_rows - b0)
+        ntiles = (nb + 7) // 8
+        for r0, rows in _passes(n_out, rows_per_chunk, pass_rows):
+            steps = -(-rows // _STEP)
+            stage = np.zeros((_KTRIALS, steps * _STEP), np.int8)
+            stage[:nb, :rows] = vq[b0:b0 + nb, r0:r0 + rows]
+            for jw in range(0, n_in, _WARP_COLS):  # each warp of each strip
+                col_ok = (jw + 8 * _G < n_in)[:, None]
+                c = np.zeros((4, 4, 4, 32), np.int64)  # u, nt, i, lane
+                for s in range(steps):
+                    w = []  # w[r]: (32, 8) bytes of row 8t + r, columns 8g..8g+7
+                    for r in range(8):
+                        k = s * _STEP + 8 * _T + r
+                        cols = jw + 8 * _G[:, None] + np.arange(8)
+                        ok = col_ok & (k < rows)[:, None]
+                        w.append(np.where(ok, wpad[(r0 + k)[:, None], cols], 0))
+                    lo = _transpose4(*[_word(w[r][:, :4]) for r in range(4)]) \
+                        + _transpose4(*[_word(w[r][:, 4:]) for r in range(4)])
+                    hi = _transpose4(*[_word(w[r][:, :4]) for r in range(4, 8)]) \
+                        + _transpose4(*[_word(w[r][:, 4:]) for r in range(4, 8)])
+                    for nt in range(ntiles):
+                        bv = stage[8 * nt + _G[:, None], s * _STEP + 8 * _T[:, None]
+                                   + np.arange(8)]
+                        bx, by = _word(bv[:, :4]), _word(bv[:, 4:])
+                        for u in range(4):
+                            d = _mma_m16n8k32((lo[2 * u], lo[2 * u + 1], hi[2 * u],
+                                               hi[2 * u + 1]), (bx, by))
+                            for i in range(4):
+                                c[u, nt, i] += d[i]
+                red = np.zeros((_KTRIALS, _WARP_COLS), np.int64)
+                for u in range(4):
+                    for nt in range(4):
+                        for i in range(4):
+                            red[8 * nt + 2 * _T + (i & 1), 8 * _G + 2 * u + (i >> 1)] = c[u, nt, i]
+                width = min(_WARP_COLS, n_in - jw)
+                acc[b0:b0 + nb, jw:jw + width] += red[:nb, :width]
+    return acc.astype(np.float32) * act[:, None]
+
+
+@pytest.mark.parametrize("B, n_out, n_in, rows_per_chunk, pass_rows", [
+    (7, 70, 136, 64, 2048),  # a K tail in the second chunk; 7 trials pad one n-tile
+    (33, 45, 264, 32, 2048),  # two trial groups (the second of one trial); a column tail
+    (16, 96, 64, 96, 2048),  # one chunk of three full k-steps, two n-tiles
+    (1, 3, 8, 32, 2048),  # one trial, one short k-step, one lane group's columns
+    (9, 150, 72, 128, 64),  # chunks of two passes, the last pass of a chunk short
+])
+def test_int8_mm_t_fragment_model_equals_plain(B, n_out, n_in, rows_per_chunk, pass_rows):
+    # the tensor-core kernel's index mapping, modelled lane by lane, gives
+    # int8_mm_t's plain result bit for bit (an index error shows here)
+    rng = np.random.default_rng(B + n_out)
+    wq = rng.integers(-127, 128, size=(n_out, n_in)).astype(np.int8)
+    vq = rng.integers(-127, 128, size=(B, n_out)).astype(np.int8)
+    act = (rng.random(B) + 0.5).astype(np.float32)
+    got = _mma_t_model(wq, vq, act, rows_per_chunk, pass_rows)
+    ref = tq.int8_mm_t_plain(_t(wq), _t(vq)) * _t(act)[:, None]
+    np.testing.assert_array_equal(got, _np(ref))
