@@ -137,9 +137,9 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
 
 25. batch_kernel_check: at N = 10,000, int8_mm and int8_mm_t bit for bit
    against their plain versions at B = 32 and 7 (the main path's quantized
-   W, per-trial activation scales); int8_mm_t must take its tensor-core
-   route ("mma", int8_mm_t_route; one int8_mm_t.mma_launches a call), which
-   each line names; the B-row qif_sfa_step in f32 and bf16
+   W, per-trial activation scales); both must take their tensor-core
+   routes ("mma", int8_mm_route and int8_mm_t_route; one mma_launches of
+   each a call), which each line names; the B-row qif_sfa_step in f32 and bf16
    W at B = 32 and 5, on strided rows of one (B, 3N) state buffer, in the
    reset and coupling cases, held to TOL against its plain version and,
    trial by trial, against the single-row kernel; equal reset masks; the
@@ -151,7 +151,8 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    with a frozen int8 coupling: an eta sweep (offsets linspace(-2, 2, 32))
    over 32 trials on a shared (5,000, 1) drive, record_vars the population
    mean of s every 100 steps, in turns with the single-trial run, best of
-   2; one int8_mm launch per step; trials 0, 15 and 31 against
+   2; one int8_mm launch per step, every one on the tensor cores
+   (int8_mm.mma_launches); trials 0, 15 and 31 against
    single-trial runs with their eta over 200 steps (the int8 sums are exact
    on both sides: rtol 1e-5).  Then the same with a bf16 coupling and the
    fused QIF step: one B-row launch per step, every one on the tensor
@@ -164,8 +165,9 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    of phase 8's network (int8_master, adam lr 1e-4) on B = 32 trials of
    normal (32, 500, 10,000) float32 arrays from default_rng(7), full batch:
    a 2-epoch warm fit and a timed 8-epoch fit; 4,000 launches each of
-   int8_mm and int8_mm_t per fit, all 4,000 of int8_mm_t on the tensor
-   cores (int8_mm_t.mma_launches), and none of int8_mv(_t) or adam_requant;
+   int8_mm and int8_mm_t per fit, all 4,000 of each on the tensor cores
+   (int8_mm.mma_launches, int8_mm_t.mma_launches), and none of int8_mv(_t)
+   or adam_requant;
    finite losses; ms/epoch and aggregate trained neuron-updates/s against
    phase 8's single-trial figure.  Then batch_train_vs_cpu: the same fit at
    N = 2,000, B = 4, T = 50, 2 epochs, on the card and on the CPU (losses
@@ -173,10 +175,10 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    lr; see BATCH_LOSS_RTOL).
 28. batch_timing: int8_mm/int8_mm_t at B = 32 (bound, plain ms,
    torch._int_mm of the same integers; for int8_mm_t its W is a column-major
-   copy, so the yardstick reads W already transposed), int8_mm_t's line
-   with kernel_route and its ms in turns with its __dp4a instance on the
-   same operands (tensor cores, __dp4a, __dp4a, tensor cores; the two held
-   equal first), the B-row step at B = 32 in f32 and
+   copy, so the yardstick reads W already transposed), each line with
+   kernel_route and its ms in turns with its __dp4a instance on the same
+   operands (tensor cores, __dp4a, __dp4a, tensor cores; the two held equal
+   first), the B-row step at B = 32 in f32 and
    bf16 (bound, plain ms, torch.matmul of s by W^T; the bound takes the
    bf16 peak for a bf16 W, so that step is bound by its bytes; the line
    adds kernel_route, achieved_bytes_per_s and, for the tensor-core route,
@@ -1510,33 +1512,35 @@ def batch_kernel_check(dev, W_np) -> dict:
     """Phase 25: int8_mm/int8_mm_t bit for bit and the B-row qif_sfa_step
     against its plain version and the single-row kernel, at N = 10,000."""
     from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
-    from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
-                                             int8_mm_t_route, quant_vec, quantize_rows)
+    from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_route, int8_mm_t,
+                                             int8_mm_t_plain, int8_mm_t_route, quant_vec,
+                                             quantize_rows)
 
     W32 = torch.as_tensor(W_np, dtype=torch.float32, device=dev)
     wq, ws = quantize_rows(W32)
     gen = torch.Generator(device=dev).manual_seed(25)
     max_err = {}
-    route_t = int8_mm_t_route(N, wq.data_ptr())
-    if route_t != "mma":
-        raise AssertionError(f"int8_mm_t takes the {route_t!r} route at N={N}, not the tensor "
-                             f"cores")
+    route, route_t = int8_mm_route(N, wq.data_ptr()), int8_mm_t_route(N, wq.data_ptr())
+    if (route, route_t) != ("mma", "mma"):
+        raise AssertionError(f"int8_mm/int8_mm_t take the {route!r}/{route_t!r} routes at "
+                             f"N={N}, not the tensor cores")
     for B in (B_TRAIN, B_RAGGED[0]):
         xq, xs = quant_vec(torch.randn((B, N), generator=gen, device=dev)
                            * torch.linspace(0.1, 10.0, B, device=dev)[:, None])
         vq, vs = quant_vec(torch.randn((B, N), generator=gen, device=dev) * 1e-3)
-        mma_before = int8_mm_t.mma_launches
+        mma_before = int8_mm.mma_launches, int8_mm_t.mma_launches
         got, got_t = int8_mm(wq, xq, ws, xs.reshape(-1)), int8_mm_t(wq, vq, vs.reshape(-1))
         torch.cuda.synchronize()
-        if int8_mm_t.mma_launches - mma_before != 1:
-            raise AssertionError(f"int8_mm_t did not launch on the tensor cores at B={B}")
+        if (int8_mm.mma_launches - mma_before[0], int8_mm_t.mma_launches - mma_before[1]) \
+                != (1, 1):
+            raise AssertionError(f"int8_mm/int8_mm_t did not launch on the tensor cores at B={B}")
         ref, ref_t = (int8_mm_plain(wq, xq) * ws) * xs, int8_mm_t_plain(wq, vq) * vs
         if not (torch.equal(got, ref) and torch.equal(got_t, ref_t)):
             raise AssertionError(f"int8_mm/int8_mm_t differ from their plain versions at B={B}")
         if not (bool((got != 0).any()) and bool((got_t != 0).any())):
             raise AssertionError("the int8_mm check is vacuous: all outputs are zero")
         emit({"phase": "batch_kernel_check", "kernel": "int8_mm/int8_mm_t", "n": N, "B": B,
-              "int8_mm_t_route": route_t, "bit_identical": True})
+              "int8_mm_route": route, "int8_mm_t_route": route_t, "bit_identical": True})
     max_err["int8_mm"] = max_err["int8_mm_t"] = 0.0
     params = dict(dt=DT, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05, thresh=100.0,
                   v_reset=-100.0)
@@ -1625,7 +1629,7 @@ def run_batch_phase(dev) -> tuple:
         batch(CMP_STEPS)  # warm
         times = {"batch": [], "single": []}
         for _ in range(2):  # in turns, best of 2
-            kernel.launches = int8_mv.launches = qif_sfa_step.mma_launches = 0
+            kernel.launches = kernel.mma_launches = int8_mv.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = batch()
@@ -1634,8 +1638,8 @@ def run_batch_phase(dev) -> tuple:
             if kernel.launches != T_RUN or int8_mv.launches != 0:
                 raise AssertionError(f"run_batch_path ({coupling}): {kernel.launches} "
                                      f"{kernel.__name__} launches for {T_RUN} steps")
-            mma_launches = qif_sfa_step.mma_launches  # every fused bf16 step on the tensor cores
-            if mma_launches != (T_RUN if fused else 0):
+            mma_launches = kernel.mma_launches  # every step's product on the tensor cores
+            if mma_launches != T_RUN:
                 raise AssertionError(f"run_batch_path ({coupling}): {mma_launches} of "
                                      f"{T_RUN} launches took the tensor-core route")
             launches[coupling] = kernel.launches
@@ -1758,7 +1762,7 @@ def batch_train_phase(dev, data, single_nu: float) -> tuple:
     def fit_b(epochs):
         for k in kernels:
             k.launches = 0
-        int8_mm_t.mma_launches = 0
+        int8_mm.mma_launches = int8_mm_t.mma_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         obs = net.fit_bptt_batch(ins_d, tgt_d, n_epochs=epochs, optimizer="adam", lr=LR,
@@ -1769,6 +1773,7 @@ def batch_train_phase(dev, data, single_nu: float) -> tuple:
         if len(losses) != epochs or not np.all(np.isfinite(losses)):
             raise AssertionError(f"batch_train_path: bad losses {losses}")
         counts = {k.__name__: k.launches for k in kernels}
+        counts["int8_mm_tensor_core"] = int8_mm.mma_launches
         counts["int8_mm_t_tensor_core"] = int8_mm_t.mma_launches
         return seconds, losses, counts
 
@@ -1776,8 +1781,9 @@ def batch_train_phase(dev, data, single_nu: float) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     seconds, losses, launches = fit_b(TRAIN_EPOCHS)
     want = {"int8_mm": T_TRAIN * TRAIN_EPOCHS, "int8_mm_t": T_TRAIN * TRAIN_EPOCHS,
-            "int8_mv": 0, "int8_mv_t": 0, "adam_requant": 0,
-            "int8_mm_t_tensor_core": T_TRAIN * TRAIN_EPOCHS}  # every int8_mm_t on "mma"
+            "int8_mv": 0, "int8_mv_t": 0, "adam_requant": 0,  # every int8_mm(_t) on "mma":
+            "int8_mm_tensor_core": T_TRAIN * TRAIN_EPOCHS,
+            "int8_mm_t_tensor_core": T_TRAIN * TRAIN_EPOCHS}
     if launches != want:
         raise AssertionError(f"batch_train_path: launches {launches}, expected {want}")
     if net.last_fit != {"trajectory": "chain", "fused_adam": False}:
@@ -1855,33 +1861,46 @@ def rows_probe_ms(W, v, s, x, eta, inp) -> dict:
     return ms
 
 
-def mm_t_turns(fn, wq, vq, vs) -> tuple:
-    """Phase 28: int8_mm_t (``fn``, the tensor cores at N = 10,000) in turns
-    with its __dp4a instance on the same operands (the "vec" route, called
-    through the C launch as the wrapper calls it for a 4-byte-aligned W):
-    kernel, __dp4a, __dp4a, kernel.  Returns the kernel's mean ms and the
-    line's extra keys."""
+def dp4a_turns(name: str, fn, wq, act, scales) -> tuple:
+    """Phase 28: int8_mm or int8_mm_t (``name``; ``fn``, the tensor cores at
+    N = 10,000) in turns with its __dp4a instance on the same operands (the
+    "vec" route, called through the C launch): kernel, __dp4a, __dp4a,
+    kernel.  ``act``: the activations (xq or vq); ``scales``: int8_mm's
+    (row scale, activation scales) or int8_mm_t's activation scales.
+    Returns the kernel's mean ms and the line's extra keys."""
     from rectipy_tpu_torch.ops import quant
 
-    route = quant.int8_mm_t_route(wq.shape[1], wq.data_ptr())
     n_out, n_in = wq.shape
-    B = vq.shape[0]
-    lib = quant._lib()
-    vec = quant._MM_T_ROUTES["vec"]
-    scratch = torch.empty(lib.int8_mm_t_scratch(n_out, n_in, B, vec), dtype=torch.int32,
-                          device=wq.device)
-    out = torch.empty((B, n_in), dtype=torch.float32, device=wq.device)
+    B = act.shape[0]
+    lib, vec = quant._lib(), quant._ROUTES["vec"]
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "int8_mm":
+        route = quant.int8_mm_route(n_in, wq.data_ptr())
+        ws, xs = scales
+        out = torch.empty((B, n_out), dtype=torch.float32, device=wq.device)
+
+        def launch():
+            return lib.int8_mm_launch(wq.data_ptr(), act.data_ptr(), ws.data_ptr(),
+                                      xs.data_ptr(), out.data_ptr(), n_out, n_in, B, vec, stream)
+    else:
+        route = quant.int8_mm_t_route(n_in, wq.data_ptr())
+        scratch = torch.empty(lib.int8_mm_t_scratch(n_out, n_in, B, vec), dtype=torch.int32,
+                              device=wq.device)
+        out = torch.empty((B, n_in), dtype=torch.float32, device=wq.device)
+
+        def launch():
+            return lib.int8_mm_t_launch(wq.data_ptr(), act.data_ptr(), scales.data_ptr(),
+                                        scratch.data_ptr(), out.data_ptr(), n_out, n_in, B, vec,
+                                        stream)
 
     def dp4a():
-        err = lib.int8_mm_t_launch(wq.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-                                   scratch.data_ptr(), out.data_ptr(), n_out, n_in, B, vec,
-                                   torch.cuda.current_stream().cuda_stream)
+        err = launch()
         if err:
-            raise RuntimeError(f"int8_mm_t_launch (vec): CUDA error {err}")
+            raise RuntimeError(f"{name}_launch (vec): CUDA error {err}")
         return out
 
     if not torch.equal(dp4a(), fn()):
-        raise AssertionError("int8_mm_t: the tensor-core and __dp4a instances differ")
+        raise AssertionError(f"{name}: the tensor-core and __dp4a instances differ")
     turns = [cuda_ms(f, reps=200) for f in (fn, dp4a, dp4a, fn)]
     ms, dp4a_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     return ms, {"kernel_route": route, "turns_ms": turns, "dp4a_ms_in_turns": dp4a_ms,
@@ -1923,11 +1942,9 @@ def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_la
          N * N + B * N + 4 * B + 4 * B * N, 2 * B * N * N, INT8_OPS, launches["int8_mm_t"]),
     ]
     for name, source, replaces, fn, plain, lib, n_bytes, n_ops, peak, n_launch in specs:
-        extra = {}
-        if name == "int8_mm_t":  # the tensor cores in turns with the __dp4a instance
-            ms, extra = mm_t_turns(fn, wq, vq, vs)
-        else:
-            ms = cuda_ms(fn, reps=200)
+        # the tensor cores in turns with the __dp4a instance
+        ms, extra = (dp4a_turns(name, fn, wq, xq, (ws, xs)) if name == "int8_mm"
+                     else dp4a_turns(name, fn, wq, vq, vs))
         plain_ms = cuda_ms(plain, reps=5)
         library_ms = cuda_ms(lib, reps=200)
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak

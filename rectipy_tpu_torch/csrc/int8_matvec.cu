@@ -52,22 +52,78 @@
 // 2*B*N^2 = 6.4e9 integer operations take 3 us at the tensor cores'
 // 1,979 TOP/s; so the bound is the bytes.  On the CUDA cores with __dp4a
 // (about 64 four-byte products a clock per SM) the products alone take some
-// 50 us at B = 32, above that bound: int8_mm_t's main instance therefore
-// runs on the tensor cores (int8_mm_t_mma_kernel, below); int8_mm and
-// int8_mm_t's other instances still use __dp4a.
+// 50 us at B = 32, above that bound: both main instances therefore run on
+// the tensor cores (int8_mm_mma_kernel and int8_mm_t_mma_kernel, below);
+// the __dp4a kernels stay for the shapes their routes do not take and as
+// the tensor cores' yardstick.
 //
 // Design against re-reading: int8_mv's one-warp-per-row form, kept for B
 // rows, would make each warp read all B activation rows per W row, 3.2 GB
 // from L2 per call at B = 32.  Instead:
-// - int8_mm: a block of 4 warps owns 16 rows of W and up to 32 trials.  For
-//   each 512-byte chunk of the inputs, the block stages the chunk of all its
-//   trials' activations in shared memory once (16 KB); each warp streams
-//   16 bytes of each of its 4 rows per lane and multiplies them with every
-//   trial's 16 bytes from shared memory (4 rows x 32 trials of int32 sums in
-//   registers, 16 __dp4a per 16-byte shared load).  W is read once for the
-//   32 trials; a B above 32 takes a second group of blocks, which reads W
-//   again.  Each sum reduces across the warp with __reduce_add_sync; lane b
-//   writes trial b's epilogue, in int8_mv's order.
+// - int8_mm on the tensor cores (route "mma": n_in % 8 == 0 and wq 8-byte
+//   aligned; int8_mm_mma_kernel).  mma.sync m16n8k32 s8 x s8 -> s32 with
+//   M = W's rows i (the outputs), N = the trials, K = W's columns j: A[i][j]
+//   = W[i, j] and B[j][b] = xq[b, j], both K-major as they lie.
+//   - A fragments straight from W's rows, no byte transposes: lane (g, t)
+//     = (lane / 4, lane % 4) loads 16 bytes, columns 16t..16t+15 of a
+//     64-column sub-block, of rows g and g + 8 of each m-tile (one 16-byte
+//     load where n_in % 16 == 0 and wq is 16-byte aligned, else two of 8).
+//     Its first 8 bytes are k-step 0's registers and the last 8 k-step
+//     1's: k slots 4t..4t+3 and 16+4t..16+4t+3 hold columns 16t..16t+3 and
+//     16t+4..16t+7 (+8 for step 1), a permutation of k that the B fragments
+//     share; the integer sum does not depend on the order of k.
+//   - B fragments: under that permutation lane (g, t)'s four B registers of
+//     n-tile nt (both k-steps) are the 16 bytes of trial 8 nt + g at the
+//     same columns: one 16-byte read of the block's stage of xq, whose
+//     trial rows are padded to 64 mod 128 bytes so that a quarter-warp's
+//     reads hit distinct banks.
+//   - xq is staged once per block, not once per 16 rows: a block owns 128
+//     rows (4 warps x 2 m-tiles) and a chunk of columns, and copies the
+//     chunk of all its trials (cp.async where n_in % 16 == 0 and xq is
+//     16-byte aligned, byte loads otherwise; zeros past the chunk and the
+//     trials) in passes of at most 2,048 columns, each in four parts that
+//     the k loop waits for one by one, after the first W loads are out.
+//     The chunks of a strip are one thread block cluster that adds its
+//     int32 sums through distributed shared memory and writes the
+//     epilogue, as int8_mm_t's does.  At N = 10,000: 79 strips x 3 chunks
+//     of 3,456 columns (the last 3,088, whose last k-block holds 16), two
+//     passes each, so the stage reads 79 x 32 x 10,000 bytes = 25 MB from
+//     L2 a call (the __dp4a kernel's 16-row blocks read 200 MB), against
+//     W's 100 MB from HBM.
+//   - W streams from HBM straight into registers in k-blocks of two
+//     sub-blocks (a lane's loads of a row are 64 bytes apart, so a warp's
+//     two load instructions read 128 contiguous bytes of each of 8 rows),
+//     one k-block (256 bytes a lane) ahead of the one in use, with loads
+//     that skip L1 and ask L2 for the surrounding 256 bytes.  2 m-tiles x
+//     4 n-tiles x 4 = 32 int32 sums a lane; n-tiles past the trials are
+//     skipped; rows past n_out load nothing and are not written.
+//   - One wave: the number of chunks is the largest (at most 8) for which
+//     the clusters of all strips fit on the card at once, as the runtime
+//     reports it (cudaOccupancyMaxActiveClusters, asked once per device),
+//     and the shared memory is one size for every shape: two blocks an SM.
+//   - What bounds it: the W stream in this load pattern.  With the
+//     products replaced by an XOR the kernel took its full time, and with
+//     the stage left out as well most of it (the tensor cores' work is
+//     about 3 us at B = 32).  Tried and slower (a throwaway timing script,
+//     no figures kept): three blocks an SM (79 clusters of 5 did not all
+//     fit on the card's GPCs at once, so a second wave ran; 4 chunks with
+//     a second pass once the fit was read), a one-pass stage of 3,456
+//     columns, one 64-column sub-block a k-block with a ring of 2, 3 or 4,
+//     two with a ring of 3, four with a ring of 1 or 2, 8 stage parts, 8
+//     warps a block, 4 m-tiles a warp (spills) or 1, bulk L2 prefetches of
+//     each row ahead of the loads, a row's two sub-blocks loaded back to
+//     back, and a 128-byte L2 hint.
+// - int8_mm's __dp4a instances (route "scalar"; "vec" only through the C
+//   launch, its conditions being inside "mma"'s): a block of 4 warps owns
+//   16 rows of W and up to 32 trials.  For each 512-byte chunk of the
+//   inputs, the block stages the chunk of all its trials' activations in
+//   shared memory once (16 KB); each warp streams 16 bytes of each of its 4
+//   rows per lane and multiplies them with every trial's 16 bytes from
+//   shared memory (4 rows x 32 trials of int32 sums in registers, 16 __dp4a
+//   per 16-byte shared load).  Each sum reduces across the warp with
+//   __reduce_add_sync; lane b writes trial b's epilogue, in int8_mv's order.
+//   A B above 32 takes a second group of blocks, which reads W again, on
+//   every route.
 // - int8_mm_t on the tensor cores (route "mma": n_in % 8 == 0 and wq 8-byte
 //   aligned; int8_mm_t_mma_kernel).  mma.sync m16n8k32 s8 x s8 -> s32 with
 //   M = W's columns j (the outputs), N = the trials, K = W's rows i: A[j][i]
@@ -141,7 +197,10 @@
 
 #include <cooperative_groups.h>
 
+#include <array>
 #include <atomic>
+#include <map>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -742,6 +801,278 @@ cudaError_t launch_mm_t_mma(const int8_t* w, const int8_t* v, const float* as, f
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, w, v, as, out, n_out, n_in, n_rows, rows);
 }
+
+// ----------------------------------------------- int8_mm on the tensor cores
+constexpr int kMaWarps = 4;
+constexpr int kMaThreads = 32 * kMaWarps;
+constexpr int kMaTiles = 2;                         // m-tiles of 16 rows a warp
+constexpr int kMaWarpRows = 16 * kMaTiles;
+constexpr int kMaRows = kMaWarps * kMaWarpRows;     // rows of W a block
+constexpr int kMaBlockK = 128;                      // columns of a k-block, loaded at once
+constexpr int kMaSub = kMaBlockK / 64;              // its sub-blocks of two k-steps
+constexpr int kMaRing = 2;                          // k-blocks of W in flight a lane
+constexpr int kMaPassCols = 2048;                   // columns of xq staged at once at most
+constexpr int kMaParts = 4;                         // parts of the stage, waited for one by one
+constexpr int kMaMaxCluster = 8;                    // chunks of columns (the portable cluster size)
+constexpr int kMaBlocksPerSm = 2;                   // blocks an SM (the stage's shared memory)
+constexpr int kMaRedPitch = kMaRows + 4;            // ints a trial in the sums' buffer
+static_assert(kMaParts <= 4, "wait_copies waits for at most 3 pending groups");
+static_assert(kMaPassCols % kMaBlockK == 0 && kMaBlockK % 64 == 0, "whole k-blocks a pass");
+// Bytes a trial's row takes in the stage: 64 mod 128, so that the 16-byte
+// reads of a quarter-warp (2 trials x 4 column offsets) hit distinct banks;
+// a multiple of 16 for cp.async.
+constexpr int kMaStride = kMaPassCols / 128 * 128 + 64;
+// one size of shared memory for every shape (the stage, then the sums), so
+// that what fits on the card does not depend on the shape
+constexpr int kMaSmem = kTrials * kMaStride > kTrials * kMaRedPitch * 4
+                            ? kTrials * kMaStride : kTrials * kMaRedPitch * 4;
+
+// 16 bytes of W, read once (as load_w8).
+__device__ __forceinline__ uint4 load_w16(const int8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// The tensor-core int8_mm (header note).  Grid: (strips of kMaRows rows,
+// chunks of cols_per_chunk columns, groups of kTrials trials); the chunks of
+// a strip and group are one cluster.  kW16: n_in % 16 == 0 and wq 16-byte
+// aligned (one 16-byte load where two 8-byte loads go otherwise); kVecStage:
+// n_in % 16 == 0 and xq 16-byte aligned.
+template <bool kW16, bool kVecStage>
+__global__ void __launch_bounds__(kMaThreads, kMaBlocksPerSm)
+int8_mm_mma_kernel(const int8_t* __restrict__ wq, const int8_t* __restrict__ xq,
+                   const float* __restrict__ row_scale, const float* __restrict__ act_scale,
+                   float* __restrict__ out, int n_out, int n_in, int n_rows, int cols_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
+  const int b0 = blockIdx.z * kTrials;
+  const int nb = min(kTrials, n_rows - b0);
+  const int ntiles = (nb + 7) / 8;  // n-tiles with a trial in them
+  const int c0 = blockIdx.y * cols_per_chunk;
+  const int cols = max(0, min(n_in, c0 + cols_per_chunk) - c0);  // a chunk may be empty
+  const int row0 = blockIdx.x * kMaRows + warp * kMaWarpRows;  // the warp's first row
+  const unsigned char* s_lane = smem + g * kMaStride + 16 * t;  // trial g, columns 16t.. of a block
+
+  // the lane's rows g and g + 8 of each m-tile (m = 2 * tile + half), at
+  // its columns 16t..16t+15 of the chunk's first k-block
+  const int8_t* w_row[2 * kMaTiles];
+  bool row_ok[2 * kMaTiles];
+#pragma unroll
+  for (int m = 0; m < 2 * kMaTiles; ++m) {
+    const int r = row0 + 16 * (m >> 1) + 8 * (m & 1) + g;
+    row_ok[m] = r < n_out;
+    w_row[m] = wq + static_cast<size_t>(row_ok[m] ? r : 0) * n_in + c0 + 16 * t;
+  }
+
+  int c[kMaTiles][4][4];  // m-tile, n-tile, fragment element
+#pragma unroll
+  for (int u = 0; u < kMaTiles; ++u)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[u][nt][i] = 0;
+
+  for (int p0 = 0; p0 < cols; p0 += kMaPassCols) {  // one pass at N = 10,000
+    const int pcols = min(kMaPassCols, cols - p0);
+    const int blocks = (pcols + kMaBlockK - 1) / kMaBlockK;
+    if (p0 > 0) __syncthreads();  // the previous pass's stage is used up
+    uint4 ring[kMaRing][kMaSub][2 * kMaTiles];  // kMaRing k-blocks ahead
+    // zeros (and no load) past the pass
+    auto load_w = [&](int kb, uint4 (&w)[kMaSub][2 * kMaTiles]) {
+#pragma unroll
+      for (int h = 0; h < kMaSub; ++h) {
+        const int k = kb * kMaBlockK + 64 * h + 16 * t;  // the lane's first column in the pass
+#pragma unroll
+        for (int m = 0; m < 2 * kMaTiles; ++m) {
+          const int8_t* p = w_row[m] + p0 + kb * kMaBlockK + 64 * h;
+          if constexpr (kW16) {
+            w[h][m] = (row_ok[m] && k < pcols) ? load_w16(p) : make_uint4(0u, 0u, 0u, 0u);
+          } else {  // n_in % 8 == 0: each 8 bytes all in or all out
+            const uint2 lo = (row_ok[m] && k < pcols) ? load_w8(p) : make_uint2(0u, 0u);
+            const uint2 hi = (row_ok[m] && k + 8 < pcols) ? load_w8(p + 8) : make_uint2(0u, 0u);
+            w[h][m] = make_uint4(lo.x, lo.y, hi.x, hi.y);
+          }
+        }
+      }
+    };
+#pragma unroll
+    for (int d = 0; d < kMaRing; ++d) load_w(d, ring[d]);
+
+    // stage xq[b0 + b, c0 + p0 .. + 64 blocks) for the trials of the n-tiles
+    // in use, zeros past the pass and past the trials: in kMaParts parts of
+    // `part` k-blocks, each waited for only when the k loop reaches it
+    const int span = blocks * kMaBlockK;
+    const int part = (blocks + kMaParts - 1) / kMaParts;
+    const int8_t* x_pass = xq + static_cast<size_t>(b0) * n_in + c0 + p0;
+    if constexpr (kVecStage) {  // pcols is a multiple of 16: a copy is all in or all out
+#pragma unroll
+      for (int q = 0; q < kMaParts; ++q) {
+        const int k0 = min(span, q * part * kMaBlockK) / 16;
+        const int n = min(span, (q + 1) * part * kMaBlockK) / 16 - k0;  // 16-byte copies a trial
+        for (int idx = threadIdx.x; idx < 8 * ntiles * n; idx += kMaThreads) {
+          const int b = idx / n, k = 16 * (k0 + idx % n);
+          const bool ok = b < nb && k < pcols;
+          copy16(smem + b * kMaStride + k, ok ? x_pass + static_cast<size_t>(b) * n_in + k : xq,
+                 ok ? 16 : 0);
+        }
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < 8 * ntiles * span; idx += kMaThreads) {
+        const int b = idx / span, k = idx % span;
+        smem[b * kMaStride + k] = (b < nb && k < pcols)
+            ? static_cast<unsigned char>(__ldg(x_pass + static_cast<size_t>(b) * n_in + k))
+            : static_cast<unsigned char>(0);
+      }
+    }
+
+    for (int kb0 = 0; kb0 < blocks; kb0 += kMaRing) {
+#pragma unroll
+      for (int d = 0; d < kMaRing; ++d) {
+        const int kb = kb0 + d;
+        if (kb >= blocks) break;
+        if (kb % part == 0) {  // the stage's part kb / part has landed, for every thread
+          wait_copies(kMaParts - 1 - kb / part);
+          __syncthreads();
+        }
+        uint4 w[kMaSub][2 * kMaTiles];
+#pragma unroll
+        for (int h = 0; h < kMaSub; ++h)
+#pragma unroll
+          for (int m = 0; m < 2 * kMaTiles; ++m) w[h][m] = ring[d][h][m];
+        load_w(kb + kMaRing, ring[d]);
+        // A fragment of m-tile u, k-step 0 of a sub-block: rows g, g + 8 at
+        // columns 16t..16t+3 (k slots 4t..4t+3) and 16t+4..16t+7 (k slots
+        // 16+4t..16+4t+3); k-step 1 the same at columns 16t+8..16t+15.  The
+        // B fragments of trial 8nt + g are the same columns of the stage:
+        // one 16-byte read.
+#pragma unroll
+        for (int h = 0; h < kMaSub; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (nt >= ntiles) break;
+            const uint4 bv = *reinterpret_cast<const uint4*>(s_lane + 8 * nt * kMaStride +
+                                                             kb * kMaBlockK + 64 * h);
+#pragma unroll
+            for (int u = 0; u < kMaTiles; ++u) {
+              const uint4* a = w[h] + 2 * u;  // rows g and g + 8 of m-tile u
+              mma_s8(c[u][nt], a[0].x, a[1].x, a[0].y, a[1].y, bv.x, bv.y);
+              mma_s8(c[u][nt], a[0].z, a[1].z, a[0].w, a[1].w, bv.z, bv.w);
+            }
+          }
+      }
+    }
+  }
+
+  // the sums by trial and row in shared memory (the stage is used up)
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  int* red = reinterpret_cast<int*>(smem);  // [trial][row of the block]
+#pragma unroll
+  for (int u = 0; u < kMaTiles; ++u)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)  // element i: m-row g + 8 (i / 2), trial 2t + i % 2
+        red[(8 * nt + 2 * t + (i & 1)) * kMaRedPitch + warp * kMaWarpRows + 16 * u + g +
+            8 * (i >> 1)] = c[u][nt][i];
+  // the chunks of the cluster add their sums through distributed shared
+  // memory: block `rank` reduces every chunks-th run of kMaThreads sums
+  cluster.sync();
+  const int chunks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int* peer[kMaMaxCluster];
+#pragma unroll
+  for (int q = 0; q < kMaMaxCluster; ++q)
+    peer[q] = q < chunks ? cluster.map_shared_rank(red, q) : red;
+  constexpr int kEach = 8;  // sums a thread reduces at once: all their reads in flight
+  for (int i0 = rank * kMaThreads + threadIdx.x; i0 < nb * kMaRows;
+       i0 += kEach * chunks * kMaThreads) {
+    int sum[kEach];
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      const int idx = i0 + e * chunks * kMaThreads;
+      const int off = (idx / kMaRows) * kMaRedPitch + idx % kMaRows;
+      sum[e] = 0;
+#pragma unroll
+      for (int q = 0; q < kMaMaxCluster; ++q)
+        if (q < chunks && idx < nb * kMaRows) sum[e] += peer[q][off];
+    }
+#pragma unroll
+    for (int e = 0; e < kEach; ++e) {
+      const int idx = i0 + e * chunks * kMaThreads;
+      const int b = idx / kMaRows, i = blockIdx.x * kMaRows + idx % kMaRows;
+      if (idx < nb * kMaRows && i < n_out)
+        out[static_cast<size_t>(b0 + b) * n_out + i] =
+            __fmul_rn(__fmul_rn(static_cast<float>(sum[e]), row_scale[i]), act_scale[b0 + b]);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// The tensor-core int8_mm's split of n_in into chunks of columns (a multiple
+// of kMaBlockK, none empty): as many as the clusters of the strips still fit
+// on the card at once, `fit[c]` being how many clusters of c blocks do.
+void ma_chunks(int n_out, int n_in, int n_rows, const int* fit, int* chunks, int* cols) {
+  const int clusters = (n_out + kMaRows - 1) / kMaRows * ((n_rows + kTrials - 1) / kTrials);
+  int c = kMaMaxCluster;
+  while (c > 1 && fit[c] < clusters) --c;
+  int k = (n_in + c - 1) / c;
+  k = (k + kMaBlockK - 1) / kMaBlockK * kMaBlockK;
+  *cols = k > 0 ? k : kMaBlockK;
+  *chunks = n_in > 0 ? (n_in + *cols - 1) / *cols : 1;
+}
+
+template <bool kW16, bool kVecStage>
+cudaError_t launch_mm_mma(const int8_t* w, const int8_t* x, const float* rs, const float* as,
+                          float* out, int n_out, int n_in, int n_rows, cudaStream_t st) {
+  auto* kernel = int8_mm_mma_kernel<kW16, kVecStage>;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kMaThreads);
+  cfg.dynamicSmemBytes = kMaSmem;
+  cfg.stream = st;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  // per device, once: the shared memory above 48 KB (taken only when asked
+  // for) and how many clusters of each size fit on the card at once
+  static std::mutex mu;
+  static std::map<int, std::array<int, kMaMaxCluster + 1>> fits;
+  std::array<int, kMaMaxCluster + 1> fit;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    auto it = fits.find(dev);
+    if (it == fits.end()) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaSmem);
+      if (e != cudaSuccess) return e;
+      fit[0] = 0;
+      for (int c = 1; c <= kMaMaxCluster; ++c) {
+        cfg.gridDim = dim3(1, c, 1);
+        cluster.val.clusterDim.y = c;
+        e = cudaOccupancyMaxActiveClusters(&fit[c], kernel, &cfg);
+        if (e != cudaSuccess) return e;
+      }
+      it = fits.emplace(dev, fit).first;
+    }
+    fit = it->second;
+  }
+  int chunks, cols;
+  ma_chunks(n_out, n_in, n_rows, fit.data(), &chunks, &cols);
+  cfg.gridDim = dim3((n_out + kMaRows - 1) / kMaRows, chunks, (n_rows + kTrials - 1) / kTrials);
+  cluster.val.clusterDim.y = chunks;
+  return cudaLaunchKernelEx(&cfg, kernel, w, x, rs, as, out, n_out, n_in, n_rows, cols);
+}
 }  // namespace
 
 // wq: (n_out, n_in) int8 row-major; xq: (n_in,) int8; row_scale: (n_out,)
@@ -795,28 +1126,41 @@ extern "C" int int8_mv_t_launch(const void* wq, const void* vq, const void* act_
   return static_cast<int>(cudaGetLastError());
 }
 
+// The routes of int8_mm_launch and int8_mm_t_launch (ops/quant.py::int8_mm_route
+// and int8_mm_t_route pick one).
+constexpr int kRouteScalar = 0, kRouteVec = 1, kRouteMma = 2;
+
 // wq: (n_out, n_in) int8 row-major; xq: (n_rows, n_in) int8 row-major;
 // row_scale: (n_out,) f32; act_scale: (n_rows,) f32; out: (n_rows, n_out)
-// f32.  vec = 1 selects the 16-byte path: the caller sets it only when
-// n_in % 16 == 0 and wq and xq are 16-byte aligned.
+// f32.  route: kRouteMma (the caller sets it only when n_in % 8 == 0 and wq
+// is 8-byte aligned), kRouteVec (the __dp4a kernel's 16-byte path: n_in %
+// 16 == 0 and wq and xq 16-byte aligned) or kRouteScalar.
 extern "C" int int8_mm_launch(const void* wq, const void* xq, const void* row_scale,
                               const void* act_scale, void* out, int n_out, int n_in, int n_rows,
-                              int vec, void* stream) {
+                              int route, void* stream) {
   if (n_out <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_out + kMmRows - 1) / kMmRows, (n_rows + kTrials - 1) / kTrials);
   const auto* w = static_cast<const int8_t*>(wq);
   const auto* x = static_cast<const int8_t*>(xq);
   const auto* rs = static_cast<const float*>(row_scale);
   const auto* as = static_cast<const float*>(act_scale);
   auto* o = static_cast<float*>(out);
-  if (vec) int8_mm_kernel<true><<<grid, kMmThreads, 0, st>>>(w, x, rs, as, o, n_out, n_in, n_rows);
+  if (route == kRouteMma) {
+    const bool w16 = n_in % 16 == 0 && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
+    const bool vec_stage = n_in % 16 == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0;
+    cudaError_t e;
+    if (w16) e = vec_stage ? launch_mm_mma<true, true>(w, x, rs, as, o, n_out, n_in, n_rows, st)
+                           : launch_mm_mma<true, false>(w, x, rs, as, o, n_out, n_in, n_rows, st);
+    else e = vec_stage ? launch_mm_mma<false, true>(w, x, rs, as, o, n_out, n_in, n_rows, st)
+                       : launch_mm_mma<false, false>(w, x, rs, as, o, n_out, n_in, n_rows, st);
+    return static_cast<int>(e);
+  }
+  const dim3 grid((n_out + kMmRows - 1) / kMmRows, (n_rows + kTrials - 1) / kTrials);
+  if (route == kRouteVec)
+    int8_mm_kernel<true><<<grid, kMmThreads, 0, st>>>(w, x, rs, as, o, n_out, n_in, n_rows);
   else int8_mm_kernel<false><<<grid, kMmThreads, 0, st>>>(w, x, rs, as, o, n_out, n_in, n_rows);
   return static_cast<int>(cudaGetLastError());
 }
-
-// int8_mm_t_launch's routes (ops/quant.py::int8_mm_t_route picks one).
-constexpr int kRouteScalar = 0, kRouteVec = 1, kRouteMma = 2;
 
 // The int32 elements of the scratch that int8_mm_t_launch needs for these
 // arguments on `route`: chunks x n_rows x n_in partial sums for the

@@ -22,9 +22,9 @@ so kernel and plain version agree bit for bit.
 Sources with leading (trial) axes, ``(..., n_in)``, take one activation scale
 per row (``quant_vec`` reduces over the last axis), as the JAX package's
 ``vmap`` gives one per trial; their products are the batched kernels
-:func:`int8_mm` and :func:`int8_mm_t`, which read W once for all rows
-(:func:`int8_mm_t` on the tensor cores where :func:`int8_mm_t_route` says
-``"mma"``).  A 1-D source takes the matvecs as before.
+:func:`int8_mm` and :func:`int8_mm_t`, which read W once for all rows (on
+the tensor cores where :func:`int8_mm_route` and :func:`int8_mm_t_route`
+say ``"mma"``).  A 1-D source takes the matvecs as before.
 
 Casts follow the JAX package exactly: the int32 sum becomes float32 and is
 multiplied ``* row_scale * act_scale`` in that order, in float32, whatever
@@ -52,9 +52,9 @@ from ._build import build
 
 __all__ = ["quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot", "int8_dot_t",
            "int8_dot_plain", "int8_dot_t_plain", "int8_mm", "int8_mm_t", "int8_mm_plain",
-           "int8_mm_t_plain", "int8_mm_t_route", "int8_master_matvec", "int8_master_ops",
-           "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN", "quantize_rows_i4", "pack_int4",
-           "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
+           "int8_mm_t_plain", "int8_mm_route", "int8_mm_t_route", "int8_master_matvec",
+           "int8_master_ops", "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN", "quantize_rows_i4",
+           "pack_int4", "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
            "int4_master_matvec", "int4_master_ops"]
 
 # int8 x int8 products accumulate in int32: the worst-case per-output sum is
@@ -218,31 +218,54 @@ def int8_mv_t(wq, vq, act_scale) -> torch.Tensor:
 int8_mv_t.launches = 0
 
 
+def int8_mm_route(n_in: int, wq_ptr: int) -> str:
+    """The instance of :func:`int8_mm` for weights of ``n_in`` columns at
+    address ``wq_ptr``: ``"mma"`` (the tensor cores) when ``n_in`` is a
+    multiple of 8 and the address of 8 bytes, else ``"scalar"`` (``__dp4a``
+    on byte loads).  The activations do not choose: the tensor-core kernel
+    stages them with 16-byte copies where their length and address allow,
+    and byte by byte otherwise.  The ``"vec"`` instance (``__dp4a`` on
+    16-byte loads of W and the activations) wants a subset of the tensor
+    cores' conditions, so no route picks it; it stays as their yardstick."""
+    return "mma" if n_in % 8 == 0 and wq_ptr % 8 == 0 else "scalar"
+
+
+_ROUTES = {"scalar": 0, "vec": 1, "mma": 2}  # the route codes of int8_mm(_t)_launch
+
+
 def int8_mm(wq, xq, row_scale, act_scale) -> torch.Tensor:
     """``out[b, i] = (float32(sum_j wq[i, j] * xq[b, j]) * row_scale[i]) *
     act_scale[b]``, float32 ``(B, n_out)``: :func:`int8_mv` for ``B`` rows of
     activations ``(B, n_in)``, each with its own scale ``act_scale (B,)``.
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel of
-    ``csrc/int8_matvec.cu``, which reads W once for up to 32 rows; anything it
-    does not take raises.  Each launch adds one to ``int8_mm.launches``."""
+    CPU tensors take the plain version.  CUDA tensors launch the kernels of
+    ``csrc/int8_matvec.cu`` on the route :func:`int8_mm_route` gives:
+    ``"mma"`` sums chunks of columns for up to 32 rows on the tensor cores
+    and adds the chunks' sums in shared memory; ``"scalar"`` reads W once
+    for up to 32 rows on the CUDA cores.  Integer sums are exact in any
+    order; anything the kernels do not take raises.  Each launch adds one to
+    ``int8_mm.launches``, and one on the tensor cores also to
+    ``int8_mm.mma_launches``."""
     if wq.device.type == "cpu":
         return (int8_mm_plain(wq, xq) * row_scale) * act_scale[:, None]
     n_out, n_in = wq.shape
     rows = xq.shape[0] if xq.dim() == 2 else -1
     _check("int8_mm", wq, xq, row_scale, act_scale, n_in, rows=rows)
     out = torch.empty((rows, n_out), dtype=torch.float32, device=wq.device)
-    vec = int(n_in % 16 == 0 and wq.data_ptr() % 16 == 0 and xq.data_ptr() % 16 == 0)
+    route = int8_mm_route(n_in, wq.data_ptr())
     err = _lib().int8_mm_launch(wq.data_ptr(), xq.data_ptr(), row_scale.data_ptr(),
-                                act_scale.data_ptr(), out.data_ptr(), n_out, n_in, rows, vec,
-                                torch.cuda.current_stream(wq.device).cuda_stream)
+                                act_scale.data_ptr(), out.data_ptr(), n_out, n_in, rows,
+                                _ROUTES[route], torch.cuda.current_stream(wq.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_mm: kernel launch failed with CUDA error {err}")
     int8_mm.launches += 1
+    if route == "mma":
+        int8_mm.mma_launches += 1
     return out
 
 
 int8_mm.launches = 0
+int8_mm.mma_launches = 0  # launches on the tensor cores (int8_mm_route "mma")
 
 
 def int8_mm_t_route(n_in: int, wq_ptr: int) -> str:
@@ -255,9 +278,6 @@ def int8_mm_t_route(n_in: int, wq_ptr: int) -> str:
     if n_in % 8 == 0 and wq_ptr % 8 == 0:
         return "mma"
     return "vec" if n_in % 4 == 0 and wq_ptr % 4 == 0 else "scalar"
-
-
-_MM_T_ROUTES = {"scalar": 0, "vec": 1, "mma": 2}  # int8_mm_t_launch's route codes
 
 
 def int8_mm_t(wq, vq, act_scale) -> torch.Tensor:
@@ -280,7 +300,7 @@ def int8_mm_t(wq, vq, act_scale) -> torch.Tensor:
     _check("int8_mm_t", wq, vq, None, act_scale, n_out, rows=rows)
     lib = _lib()
     route = int8_mm_t_route(n_in, wq.data_ptr())
-    code = _MM_T_ROUTES[route]
+    code = _ROUTES[route]
     size = lib.int8_mm_t_scratch(n_out, n_in, rows, code)
     scratch = torch.empty(size, dtype=torch.int32, device=wq.device)
     out = torch.empty((rows, n_in), dtype=torch.float32, device=wq.device)

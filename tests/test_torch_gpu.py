@@ -20,8 +20,9 @@ from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fuse
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
 from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv, int4_mv_t,
                                          int4_vector_path, int8_dot_plain, int8_dot_t_plain,
-                                         int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
-                                         int8_mm_t_route, int8_mv, int8_mv_t, pack_int4,
+                                         int8_mm, int8_mm_plain, int8_mm_route, int8_mm_t,
+                                         int8_mm_t_plain, int8_mm_t_route, int8_mv, int8_mv_t,
+                                         pack_int4,
                                          quant_vec, quantize_rows)
 from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
                                        check_generic, generic_case_net, generic_inputs,
@@ -673,28 +674,42 @@ def test_feedback_network_on_card_matches_cpu(cuda):
 
 # ------------------------------------------------------------ batched trials
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,n_out,n_in,offset,route", [
-    (32, 1000, 1024, 0, "mma"), (7, 1003, 999, 0, "scalar"), (40, 256, 512, 0, "mma"),
-    (1, 37, 16, 0, "mma"),
+@pytest.mark.parametrize("B,n_out,n_in,offset,route,route_t", [
+    (32, 1000, 1024, 0, "mma", "mma"), (7, 1003, 999, 0, "scalar", "scalar"),
+    (40, 256, 512, 0, "mma", "mma"), (1, 37, 16, 0, "mma", "mma"),
     # int8_mm_t on the tensor cores: K tails (n_out not a multiple of 32),
     # a column tail (1,000 columns: 3 strips of 256 and 232), one trial,
-    # one n-tile of 7, one and two groups of 32, 33 (a group of one)
-    (1, 1003, 1000, 0, "mma"), (7, 1003, 1000, 0, "mma"), (32, 1003, 1000, 0, "mma"),
-    (33, 1003, 1000, 0, "mma"), (64, 1003, 1000, 0, "mma"), (32, 10000, 1000, 0, "mma"),
-    (7, 10000, 1000, 0, "mma"),
-    (5, 17, 264, 0, "mma"),  # n_out % 16 != 0: vq staged byte by byte
-    (32, 5000, 136, 0, "mma"),  # few strips: 8 chunks of 640 rows
-    (4, 20000, 64, 0, "mma"),  # chunks of 2,528 rows: two passes of the stage each
-    # the __dp4a instances of int8_mm_t: 4-byte loads, weights at 4 mod 8
-    # or n_in % 8 == 4
-    (32, 1000, 1024, 4, "vec"), (33, 1003, 1004, 0, "vec"), (7, 1003, 1000, 4, "vec"),
+    # one n-tile of 7, one and two groups of 32, 33 (a group of one);
+    # int8_mm there: n_in % 16 == 8 (two 8-byte loads of W, xq staged byte
+    # by byte), row tails (1,003 rows: 7 strips of 128 and 107)
+    (1, 1003, 1000, 0, "mma", "mma"), (7, 1003, 1000, 0, "mma", "mma"),
+    (32, 1003, 1000, 0, "mma", "mma"), (33, 1003, 1000, 0, "mma", "mma"),
+    (64, 1003, 1000, 0, "mma", "mma"), (32, 10000, 1000, 0, "mma", "mma"),
+    (7, 10000, 1000, 0, "mma", "mma"),
+    (5, 17, 264, 0, "mma", "mma"),  # n_out % 16 != 0: vq staged byte by byte
+    (32, 5000, 136, 0, "mma", "mma"),  # few strips: 8 chunks of 640 rows
+    (4, 20000, 64, 0, "mma", "mma"),  # chunks of 2,528 rows: two passes of the stage each
+    # int8_mm on the tensor cores at the paths' N = 10,000 columns: 16-byte
+    # loads and stage, a K tail of 16 bytes in the last chunk's last
+    # k-block (3 chunks of 3,456 at 79 strips on an H100), n_out 1,003 and
+    # 10,000, B 1 to 64
+    (1, 10000, 10000, 0, "mma", "mma"), (7, 10000, 10000, 0, "mma", "mma"),
+    (32, 10000, 10000, 0, "mma", "mma"), (33, 1003, 10000, 0, "mma", "mma"),
+    (64, 1003, 10000, 0, "mma", "mma"),
+    (32, 1003, 10000, 8, "mma", "mma"),  # W 8-byte aligned only: two 8-byte loads
+    (3, 300, 40000, 0, "mma", "mma"),  # few strips: 8 chunks of 5,120 columns, three passes
+    # the __dp4a instances: int8_mm_t's 4-byte loads (weights at 4 mod 8 or
+    # n_in % 8 == 4), int8_mm's byte loads
+    (32, 1000, 1024, 4, "scalar", "vec"), (33, 1003, 1004, 0, "scalar", "vec"),
+    (7, 1003, 1000, 4, "scalar", "vec"), (32, 10000, 10000, 4, "scalar", "vec"),
+    (5, 1003, 1000, 1, "scalar", "scalar"),
 ])
 def test_int8_mm_kernels_are_bit_identical_to_plain_versions(cuda, B, n_out, n_in, offset,
-                                                             route):
-    # 16-byte / scalar paths of int8_mm; the tensor-core and __dp4a routes of
-    # int8_mm_t (the weights may start `offset` bytes into their buffer);
-    # two groups of trials (B > 32), one row.  The sums are integers, so
-    # kernel and plain version agree bit for bit.
+                                                             route, route_t):
+    # the tensor-core and __dp4a routes of int8_mm and int8_mm_t (the weights
+    # may start `offset` bytes into their buffer); two groups of trials (B >
+    # 32), one row.  The sums are integers, so kernel and plain version agree
+    # bit for bit.
     rng = np.random.default_rng(60)
     buf = torch.empty(offset + n_out * n_in, dtype=torch.int8, device=cuda)
     wq = buf[offset:].view(n_out, n_in)
@@ -704,15 +719,52 @@ def test_int8_mm_kernels_are_bit_identical_to_plain_versions(cuda, B, n_out, n_i
                          device=cuda)
     rs = torch.as_tensor(rng.random(n_out), dtype=torch.float32, device=cuda)
     act = torch.as_tensor(rng.random(B) + 0.5, dtype=torch.float32, device=cuda)
-    assert int8_mm_t_route(n_in, wq.data_ptr()) == route
-    before = (int8_mm.launches, int8_mm_t.launches, int8_mm_t.mma_launches)
+    assert int8_mm_route(n_in, wq.data_ptr()) == route
+    assert int8_mm_t_route(n_in, wq.data_ptr()) == route_t
+    before = (int8_mm.launches, int8_mm.mma_launches, int8_mm_t.launches,
+              int8_mm_t.mma_launches)
     mm, mm_t = int8_mm(wq, xq, rs, act), int8_mm_t(wq, vq, act)
     torch.cuda.synchronize()
-    assert (int8_mm.launches, int8_mm_t.launches, int8_mm_t.mma_launches) == (
-        before[0] + 1, before[1] + 1, before[2] + int(route == "mma"))
+    assert (int8_mm.launches, int8_mm.mma_launches, int8_mm_t.launches,
+            int8_mm_t.mma_launches) == (before[0] + 1, before[1] + int(route == "mma"),
+                                        before[2] + 1, before[3] + int(route_t == "mma"))
     assert torch.equal(mm, (int8_mm_plain(wq, xq) * rs) * act[:, None])
     assert torch.equal(mm_t, int8_mm_t_plain(wq, vq) * act[:, None])
     assert torch.equal(mm[B - 1], int8_mv(wq, xq[B - 1], rs, act[B - 1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_out,n_in,x_offset", [
+    (32, 1003, 10000, 0), (33, 10000, 1024, 0), (7, 1003, 1000, 0),
+    (32, 1003, 10000, 8), (7, 1003, 10000, 3),  # xq not 16-byte aligned: staged byte by byte
+])
+def test_int8_mm_tensor_cores_and_dp4a_instance_agree(cuda, B, n_out, n_in, x_offset):
+    # int8_mm's tensor cores at any address of the activations, and its
+    # "vec" __dp4a instance (16-byte loads; no route picks it, it stays as
+    # the tensor cores' yardstick) through the C launch where it applies:
+    # both bit for bit against the plain version
+    from rectipy_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(68)
+    wq = torch.as_tensor(rng.integers(-127, 128, size=(n_out, n_in)), dtype=torch.int8,
+                         device=cuda)
+    xbuf = torch.empty(x_offset + B * n_in, dtype=torch.int8, device=cuda)
+    xq = xbuf[x_offset:].view(B, n_in)
+    xq.copy_(torch.as_tensor(rng.integers(-127, 128, size=(B, n_in)), dtype=torch.int8))
+    rs = torch.as_tensor(rng.random(n_out), dtype=torch.float32, device=cuda)
+    act = torch.as_tensor(rng.random(B) + 0.5, dtype=torch.float32, device=cuda)
+    ref = (int8_mm_plain(wq, xq) * rs) * act[:, None]
+    before = int8_mm.mma_launches
+    assert torch.equal(int8_mm(wq, xq, rs, act), ref)
+    assert int8_mm.mma_launches == before + 1
+    if n_in % 16 == 0 and xq.data_ptr() % 16 == 0:
+        out = torch.empty_like(ref)
+        err = quant._lib().int8_mm_launch(wq.data_ptr(), xq.data_ptr(), rs.data_ptr(),
+                                          act.data_ptr(), out.data_ptr(), n_out, n_in, B,
+                                          quant._ROUTES["vec"],
+                                          torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0 and torch.equal(out, ref)
 
 
 @pytest.mark.gpu
@@ -831,11 +883,12 @@ def test_run_batch_on_card_matches_cpu(cuda, coupling):
     res = {}
     for device in (cuda, "cpu"):
         net = _int8_rate_net(device, torch.int8 if coupling == "int8" else coupling, W)
-        before = (int8_mm.launches, int8_mv.launches)
+        before = (int8_mm.launches, int8_mm.mma_launches, int8_mv.launches)
         out = net.run_batch(ins, sampling_steps=5, record_vars=[("rnn", "li_op/v", True)])
-        res[str(device)] = (out, int8_mm.launches - before[0], int8_mv.launches - before[1])
-    (card, n_mm, n_mv), (cpu, _, _) = res[str(cuda)], res["cpu"]
-    assert (n_mm, n_mv) == (T, 0)
+        res[str(device)] = (out, int8_mm.launches - before[0],
+                            int8_mm.mma_launches - before[1], int8_mv.launches - before[2])
+    (card, n_mm, n_mma, n_mv), (cpu, _, _, _) = res[str(cuda)], res["cpu"]
+    assert (n_mm, n_mma, n_mv) == (T, T, 0)  # every step's product on the tensor cores
     np.testing.assert_allclose(card["out"], cpu["out"], rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(card[("rnn", "li_op/v")], cpu[("rnn", "li_op/v")], rtol=1e-4,
                                atol=1e-4)
@@ -905,15 +958,18 @@ def test_fit_bptt_batch_on_card_matches_cpu(cuda):
     res = {}
     for device in (cuda, "cpu"):
         net = _int8_rate_net(device, "int8_master", W)
-        before = (int8_mm.launches, int8_mm_t.launches)
+        before = (int8_mm.launches, int8_mm_t.launches, int8_mm.mma_launches,
+                  int8_mm_t.mma_launches)
         obs = net.fit_bptt_batch(ins, tgts, n_epochs=E, optimizer="adam", lr=1e-2,
                                  verbose=False)
-        launches = (int8_mm.launches - before[0], int8_mm_t.launches - before[1])
+        launches = (int8_mm.launches - before[0], int8_mm_t.launches - before[1],
+                    int8_mm.mma_launches - before[2], int8_mm_t.mma_launches - before[3])
         assert net.last_fit == {"trajectory": "chain", "fused_adam": False}
         res[str(device)] = (np.asarray(obs["epoch_loss"]),
                             net.get_node("rnn")["weights"].cpu().numpy(), launches)
     card, cpu = res[str(cuda)], res["cpu"]
-    assert card[2] == (T * E, T * E) and cpu[2] == (0, 0)
+    # both products of every step on the tensor cores
+    assert card[2] == (T * E,) * 4 and cpu[2] == (0,) * 4
     np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
     np.testing.assert_allclose(card[1], cpu[1], rtol=1e-3, atol=1e-4)
 

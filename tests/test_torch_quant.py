@@ -394,3 +394,119 @@ def test_int8_mm_t_fragment_model_equals_plain(B, n_out, n_in, rows_per_chunk, p
     got = _mma_t_model(wq, vq, act, rows_per_chunk, pass_rows)
     ref = tq.int8_mm_t_plain(_t(wq), _t(vq)) * _t(act)[:, None]
     np.testing.assert_array_equal(got, _np(ref))
+
+
+# --------------------------------------------- int8_mm on the tensor cores
+@pytest.mark.parametrize("n_in, wq_ptr, route", [
+    (10_000, 4096, "mma"),  # the batched paths' N = 10,000: 16-byte loads of W
+    (1_000, 4096, "mma"),  # n_in % 16 == 8: two 8-byte loads where one 16-byte load goes
+    (10_000, 4096 + 8, "mma"),  # 8-byte aligned is enough
+    (8, 4096, "mma"),
+    (1_004, 4096, "scalar"),  # n_in % 8 == 4
+    (999, 4096, "scalar"),  # odd n_in
+    (10_000, 4096 + 4, "scalar"),  # weights only 4-byte aligned
+    (1_000, 4096 + 1, "scalar"),
+])
+def test_int8_mm_route(n_in, wq_ptr, route):
+    # int8_mm's instance is a pure function of the weights' width and address:
+    # the tensor cores where 8-byte loads of W fit, __dp4a elsewhere
+    assert tq.int8_mm_route(n_in, wq_ptr) == route
+
+
+@pytest.mark.parametrize("B", [1, 7, 33])
+@pytest.mark.parametrize("n_in", [999, 1000])
+def test_int8_mm_plain_matches_jax_vmap(B, n_in):
+    # the kernel's plain version with its epilogue against the JAX package's
+    # int8 dot under vmap, times the same row and per-trial scales in the
+    # same order: both sum exactly and multiply twice in float32, so bit for bit
+    n_out = 1003
+    rng = np.random.default_rng(80 + B)
+    wq = rng.integers(-127, 128, size=(n_out, n_in)).astype(np.int8)
+    xq = rng.integers(-127, 128, size=(B, n_in)).astype(np.int8)
+    rs = (rng.random(n_out) + 0.5).astype(np.float32)
+    act = (rng.random(B) + 0.5).astype(np.float32)
+    ref = (jax.vmap(jq.int8_dot, in_axes=(None, 0))(jnp.asarray(wq), jnp.asarray(xq))
+           * jnp.asarray(rs)) * jnp.asarray(act)[:, None]
+    got = tq.int8_mm(_t(wq), _t(xq), _t(rs), _t(act))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, n_out)
+    np.testing.assert_array_equal(_np(got), np.asarray(ref))
+
+
+# A numpy model of int8_mm_mma_kernel (csrc/int8_matvec.cu): the chunks of
+# columns (one cluster) and their passes, the stage of xq, the 16 bytes of
+# rows g and g + 8 of each m-tile that lane (g, t) loads per 64-column
+# sub-block of a 128-column k-block, the A and B fragments of its two
+# k-steps, and the C fragments' (trial, row) in the sums' buffer that the
+# cluster adds up.
+_MA_TILES, _MA_BLOCK_K = 2, 128
+_MA_ROWS = _WARPS * 16 * _MA_TILES
+
+
+def _mma_model(wq, xq, rs, act, cols_per_chunk, pass_cols=2048):
+    n_out, n_in = wq.shape
+    n_rows = xq.shape[0]
+    acc = np.zeros((n_rows, n_out), np.int64)  # the sum over chunks (the cluster's reduce)
+    wpad = np.zeros((n_out + _MA_ROWS, n_in + 2 * _MA_BLOCK_K), np.int8)
+    wpad[:n_out, :n_in] = wq
+    col = 16 * _T[:, None] + np.arange(16)  # (32, 16): the lane's columns of a k-block
+    for b0 in range(0, n_rows, _KTRIALS):
+        nb = min(_KTRIALS, n_rows - b0)
+        ntiles = (nb + 7) // 8
+        for c0 in range(0, n_in, cols_per_chunk):
+            cols = min(n_in, c0 + cols_per_chunk) - c0
+            for p0 in range(0, cols, pass_cols):
+                pcols = min(pass_cols, cols - p0)
+                blocks = -(-pcols // _MA_BLOCK_K)
+                stage = np.zeros((_KTRIALS, blocks * _MA_BLOCK_K), np.int8)
+                stage[:nb, :pcols] = xq[b0:b0 + nb, c0 + p0:c0 + p0 + pcols]
+                for row0 in range(0, n_out, 16 * _MA_TILES):  # each warp of each strip
+                    c = np.zeros((_MA_TILES, 4, 4, 32), np.int64)  # u, nt, i, lane
+                    for kb, h in np.ndindex(blocks, _MA_BLOCK_K // 64):
+                        k = kb * _MA_BLOCK_K + 64 * h + col
+                        w = []  # w[m]: (32, 16) bytes of row g + 8 (m % 2) of m-tile m // 2
+                        for m in range(2 * _MA_TILES):
+                            r = row0 + 16 * (m >> 1) + 8 * (m & 1) + _G
+                            ok = (r < n_out)[:, None] & (k < pcols)
+                            w.append(np.where(ok, wpad[r[:, None], c0 + p0 + k], 0))
+                        for nt in range(ntiles):
+                            bv = stage[8 * nt + _G[:, None], k]
+                            for step in range(2):
+                                lo, hi = 8 * step, 8 * step + 4
+                                b = (_word(bv[:, lo:lo + 4]), _word(bv[:, hi:hi + 4]))
+                                for u in range(_MA_TILES):
+                                    a = (_word(w[2 * u][:, lo:lo + 4]),
+                                         _word(w[2 * u + 1][:, lo:lo + 4]),
+                                         _word(w[2 * u][:, hi:hi + 4]),
+                                         _word(w[2 * u + 1][:, hi:hi + 4]))
+                                    d = _mma_m16n8k32(a, b)
+                                    for i in range(4):
+                                        c[u, nt, i] += d[i]
+                    red = np.zeros((_KTRIALS, 16 * _MA_TILES), np.int64)
+                    for u in range(_MA_TILES):
+                        for nt in range(4):
+                            for i in range(4):
+                                red[8 * nt + 2 * _T + (i & 1), 16 * u + _G + 8 * (i >> 1)] = \
+                                    c[u, nt, i]
+                    height = min(16 * _MA_TILES, n_out - row0)
+                    acc[b0:b0 + nb, row0:row0 + height] += red[:nb, :height]
+    return (acc.astype(np.float32) * rs) * act[:, None]
+
+
+@pytest.mark.parametrize("B, n_out, n_in, cols_per_chunk, pass_cols", [
+    (7, 70, 400, 128, 2048),  # a K tail of 16 bytes (400 = 3 x 128 + 16); 7 trials, one n-tile
+    (33, 45, 136, 128, 2048),  # two trial groups (the second of one trial); n_out % 16 != 0
+    (1, 37, 384, 384, 2048),  # one trial, one chunk of three full k-blocks
+    (16, 129, 200, 128, 2048),  # n_in % 16 == 8: the last chunk is 72 columns; a row past a block
+    (9, 20, 656, 512, 256),  # chunks of two passes, the last pass of a chunk short
+])
+def test_int8_mm_fragment_model_equals_plain(B, n_out, n_in, cols_per_chunk, pass_cols):
+    # the tensor-core kernel's index mapping, modelled lane by lane, gives
+    # int8_mm's plain result with its epilogue bit for bit
+    rng = np.random.default_rng(B + n_in)
+    wq = rng.integers(-127, 128, size=(n_out, n_in)).astype(np.int8)
+    xq = rng.integers(-127, 128, size=(B, n_in)).astype(np.int8)
+    rs = (rng.random(n_out) + 0.5).astype(np.float32)
+    act = (rng.random(B) + 0.5).astype(np.float32)
+    got = _mma_model(wq, xq, rs, act, cols_per_chunk, pass_cols)
+    ref = (tq.int8_mm_plain(_t(wq), _t(xq)) * _t(rs)) * _t(act)[:, None]
+    np.testing.assert_array_equal(got, _np(ref))
