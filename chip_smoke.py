@@ -133,7 +133,9 @@ torch._int_mm as the int8 rows' library yardstick.
 
 Phases 25-28 (after phase 24; the batched trials of Network.run_batch and
 fit_bptt_batch, through the batched kernels int8_mm/int8_mm_t of
-csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
+csrc/int8_matvec.cu, int4_mm/int4_mm_t of csrc/int4_matvec.cu, the B-row
+qif_sfa_step of csrc/qif_sfa_step.cu and the B-row generic step of
+csrc/generic_fused_step.cuh):
 
 25. batch_kernel_check: at N = 10,000, int8_mm and int8_mm_t bit for bit
    against their plain versions at B = 32 and 7 (the main path's quantized
@@ -145,7 +147,15 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    trial by trial, against the single-row kernel; equal reset masks; the
    lost-eighth margin of the coupling case.  Each line names the kernel's
    route (rows_route): bf16 W on the tensor cores ("mma", counted apart in
-   qif_sfa_step.mma_launches), f32 W on the CUDA cores ("vec").
+   qif_sfa_step.mma_launches), f32 W on the CUDA cores ("vec").  Then
+   the B-row generic step (generic_fused_rows) for LIF (K = 1), the
+   E/I circuit (K = 2) and the Heun tanh RateNet (derivative mode), f32
+   and bf16 W, B = 32 and 5, at N (the vector route) and N - 1 (odd: the
+   scalar route), on strided state rows, held per trial to its plain
+   version and to the single-trial kernel under GENERIC_TOL["reset"];
+   and int4_mm/int4_mm_t bit for bit against their plain versions (and
+   int4_mv/int4_mv_t on the first and last trial) at B = 32, 7 and 5, N =
+   10,000 and 14,336.
 26. run_batch_path: benchmarks/batch_throughput.py's network (N = 10,000
    qif_sfa, 10% fan-in of 1/(0.1 N) from seed 42, the tan etas, dt 1e-4)
    with a frozen int8 coupling: an eta sweep (offsets linspace(-2, 2, 32))
@@ -157,10 +167,18 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    on both sides: rtol 1e-5).  Then the same with a bf16 coupling and the
    fused QIF step: one B-row launch per step, every one on the tensor
    cores (qif_sfa_step.mma_launches), the trials under fused_vs_plain's
-   rule.  Then phase 12's LIF network (the generic kernel,
-   bf16 W) over 4 trials of 2,000 steps of their own drive: the kernel
-   takes one trial, so 8,000 launches; each trial against its single-trial
-   run over 200 steps (the same kernel on the same rows: rtol 1e-6).
+   rule; then with a frozen int4 coupling: one int4_mm launch per
+   step, the trials held as int8's.  Then the same network with an
+   int4_master coupling swept per trial (4 couplings of their own, 1,000
+   steps): 4,000 int4_mv launches, the first and last trial against
+   single-trial runs with their coupling.  Then phase 12's LIF network
+   (the generic kernel, bf16 W) over 32 trials of 2,000 steps of their own
+   drive: one B-row launch a step (2,000), none of the single-trial
+   kernel; each trial against its single-trial run over 200 steps under
+   fused_vs_plain's rule; aggregate neuron-updates/s against the
+   single-trial run; then the B-row kernel timed in turns with the 32
+   single-trial launches it replaces, its plain version and torch.matmul
+   of the same bf16 W on (32, N) rows.
 27. batch_train_path: bench.py's ensemble phase at full size, fit_bptt_batch
    of phase 8's network (int8_master, adam lr 1e-4) on B = 32 trials of
    normal (32, 500, 10,000) float32 arrays from default_rng(7), full batch:
@@ -172,7 +190,11 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    phase 8's single-trial figure.  Then batch_train_vs_cpu: the same fit at
    N = 2,000, B = 4, T = 50, 2 epochs, on the card and on the CPU (losses
    rtol 1e-4; at most 1% of the weights' updates differ by more than 1% of
-   lr; see BATCH_LOSS_RTOL).
+   lr; see BATCH_LOSS_RTOL).  Then the same ensemble with an
+   int4_master coupling on the same trial arrays: a 1-epoch warm fit and a
+   timed 4-epoch fit, 2,000 launches each of int4_mm and int4_mm_t and
+   none of int4_mv(_t); ms/epoch and aggregate trained neuron-updates/s
+   against phase 18's; and batch_train_vs_cpu for int4_master.
 28. batch_timing: int8_mm/int8_mm_t at B = 32 (bound, plain ms,
    torch._int_mm of the same integers; for int8_mm_t its W is a column-major
    copy, so the yardstick reads W already transposed), each line with
@@ -186,12 +208,16 @@ csrc/int8_matvec.cu and the B-row qif_sfa_step of csrc/qif_sfa_step.cu):
    the barrier between chunks), one B = 32
    epoch split
    by CUDA events (forward loop, backward loop, dW product, adam step) and
-   the device's idle share over one epoch (torch.profiler).
+   the device's idle share over one epoch (torch.profiler).  Then
+   int4_mm/int4_mm_t at B = 32 on the main path's W quantized to int4
+   (bound, plain ms, torch._int_mm of the same integers unpacked to int8),
+   each in turns with the 32 int4_mv (int4_mv_t) launches it replaces.
 The kernels line adds int8_mm and int8_mm_t (launches of phase 27's fit),
 int8_mm[run_batch_path] (launches of phase 26's int8 run, phase 28's
 timing at the same shapes), the B-row step in bf16 (launches of phase 26's
-fused run) and the generic kernel's run_batch instance (phase 26's LIF
-run, checked and timed as in phase 11).
+fused run), int4_mm and int4_mm_t (launches of phase 27's int4_master
+fit), int4_mm[run_batch_path] (phase 26's int4 run) and the B-row generic
+step's run_batch instance (phase 26's LIF run, timed there).
 
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
@@ -1059,11 +1085,12 @@ def int4_phases(W_np, build_net) -> tuple:
     return entry, timing[N]
 
 
-def int4_train_phases(dev, data, timing10) -> list:
+def int4_train_phases(dev, data, timing10) -> tuple:
     """Phases 18-19: the training path with an int4_master coupling (one
     warm and one timed 16-epoch fit) and with a bfloat16_master coupling (4
     epochs).  ``timing10`` is phase 17's N=10,000 timing.  Returns the
-    int4 kernels' entries of the ``kernels`` line for this path."""
+    int4 kernels' entries of the ``kernels`` line for this path and the
+    int4_master fit's trained neuron-updates/s."""
     from rectipy_tpu_torch.ops.fused_opt import adam_requant
     from rectipy_tpu_torch.ops.quant import int4_mv, int4_mv_t, int8_mv, int8_mv_t
 
@@ -1090,11 +1117,12 @@ def int4_train_phases(dev, data, timing10) -> list:
         raise AssertionError(f"int4_train_path: launches {launches}, expected {want}")
     if net.last_fit != {"trajectory": "chain", "fused_adam": False}:
         raise AssertionError(f"int4_train_path took {net.last_fit}")
+    int4_nu = T_TRAIN * N * EPOCHS / seconds
     emit({"phase": "int4_train_path", "n": N, "T": T_TRAIN, "epochs": EPOCHS,
           "coupling": "int4_master", "build_s": build_s, "warm_fit_s": warm_s,
           "warm_epochs": WARM_EPOCHS,
           "fit_s": seconds, "ms_per_epoch": seconds / EPOCHS * 1e3,
-          "trained_neuron_updates_per_s": T_TRAIN * N * EPOCHS / seconds,
+          "trained_neuron_updates_per_s": int4_nu,
           "launches_per_fit": launches, "first_loss": warm_losses[0],
           "losses_timed_fit": losses})
     del net
@@ -1117,7 +1145,7 @@ def int4_train_phases(dev, data, timing10) -> list:
                         "replaces": I4_TPU_KERNEL, "launches": want[name], "max_abs_err": 0.0,
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
-    return entries
+    return entries, int4_nu
 
 
 def feedback_weights(n: int) -> tuple:
@@ -1460,7 +1488,9 @@ B_RUN, T_RUN = 32, 5_000  # run_batch_path: benchmarks/batch_throughput.py's net
 B_TRAIN, TRAIN_EPOCHS = 32, 8  # batch_train_path: bench.py's ensemble phase
 B_RAGGED = (7, 5)  # batch_kernel_check: a ragged B for int8_mm(_t) and the B-row step
 CMP_STEPS = 200  # the run_batch trials against single-trial runs
-G_B = 4  # run_batch_path's generic-kernel run: trials of PLAIN_STEPS steps
+G_B = 32  # run_batch_path's generic-kernel run: trials of PLAIN_STEPS steps
+SWEPT_B, SWEPT_STEPS = 4, 1_000  # run_batch_path: a swept int4_master coupling (spikes from ~190)
+I4_TRAIN_EPOCHS = 4  # batch_train_path's int4_master ensemble fit
 CPU_N, CPU_B, CPU_T, CPU_EPOCHS = 2_000, 4, 50, 2  # batch_train_vs_cpu
 # batch_train_vs_cpu: the card's fit (int8_mm/int8_mm_t, float32 sums in
 # another order) against the CPU's (plain products).  The integer sums are
@@ -1592,23 +1622,168 @@ def batch_kernel_check(dev, W_np) -> dict:
                     line["lost_eighth_min_margin"] = margin
                 emit(line)
         max_err[f"qif_sfa_step_rows[{name}]"] = err
+    max_err.update(generic_rows_check(dev, W32))
+    max_err.update(int4_mm_check(dev))
     return max_err
+
+
+def rows_case_step(case: str):
+    """The GenericStep of a generic-kernel network of this script (built on
+    CPU tensors at n = 16: the step, its generated source and its scalars do
+    not depend on n, and the build phase compiled that source)."""
+    from rectipy_tpu_torch.testing import generic_case_net
+
+    if case == "lif":
+        node = lif_net(16, "cpu").get_node("lif")
+    elif case == "ei":
+        node = ei_net(16, "cpu")[0].get_node("ei")
+    else:
+        node = generic_case_net(case, np.full((16, 16), 1.0 / 16), "cpu")[1]
+    return node._fused_cfg["step"]
+
+
+def rows_operands(step, n: int, B: int, rng, dev) -> tuple:
+    """B trials' operands of one B-row generic step at width n, as
+    rectipy_tpu_torch.testing.generic_inputs draws one trial's (spike-tested
+    states spread across the threshold, U(0, 1) sources and other states,
+    normal drive; per-neuron rows U(5, 15), as generic_case_net's): the
+    states as strided rows of one (B, V*n) buffer, as the node's state is.
+    Returns (srcs, drive, states, vecs)."""
+    def on(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    V = len(step.state_order)
+    spike_rows = {vidx for _, vidx, _, _ in step.spike_specs}
+    spread = 0.5 * max(abs(step.thresh - step.reset_val), 1.0)
+    y = np.concatenate([step.thresh + rng.normal(size=(B, n)) * spread if v in spike_rows
+                        else rng.random((B, n)) for v in range(V)], axis=1)
+    states = list(on(y).reshape(B, V, n).unbind(1))
+    srcs = [on(rng.random((B, n))) for _ in step.targets]
+    vecs = [on(rng.uniform(5.0, 15.0, n)) for _ in step.vec_keys]
+    return srcs, on(rng.normal(size=(B, n))), states, vecs
+
+
+def generic_rows_check(dev, W32) -> dict:
+    """Phase 25: the B-row generic step against its plain version under
+    GENERIC_TOL["reset"], trial by trial, and against the single-trial
+    kernel on each trial: LIF (K = 1), the E/I circuit (K = 2) and the Heun
+    tanh RateNet in derivative mode; f32 and bf16 W (the main path's, and
+    for the E/I circuit's second coupling half its transpose); B_TRAIN and
+    the ragged B_RAGGED[1]; N (the vector route) and N - 1 (odd: the scalar
+    route).  Returns the largest error of each case and W type."""
+    from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
+                                                     generic_fused_step, rows_vector_path)
+    from rectipy_tpu_torch.testing import GENERIC_TOL, check_generic
+
+    rng = np.random.default_rng(251)
+    W2 = (0.5 * W32.T).contiguous()
+    errs = {}
+    for case in ("lif", "ei", "tanh_heun"):
+        step = rows_case_step(case)
+        K = len(step.targets)
+        for name, w_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            err = 0.0
+            for n in (N, N - 1):
+                Ws = [W.to(w_dtype) if n == N else W[:n, :n].contiguous().to(w_dtype)
+                      for W in (W32, W2)[:K]]
+                for B in (B_TRAIN, B_RAGGED[1]):
+                    srcs, drive, states, vecs = rows_operands(step, n, B, rng, dev)
+                    route = "vec" if rows_vector_path(n, Ws, srcs) else "scalar"
+                    if route != ("vec" if n % 4 == 0 else "scalar"):
+                        raise AssertionError(f"generic rows {case}: route {route} at n={n}")
+                    before = generic_fused_rows.launches
+                    got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
+                    torch.cuda.synchronize()
+                    if generic_fused_rows.launches != before + 1:
+                        raise AssertionError(f"generic rows {case}: no launch")
+                    ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
+                    resets, one_err = 0, 0.0
+                    for b in range(B):
+                        resets += check_generic(got[b], ref[b], step)[1]
+                        one = generic_fused_step(step, [t[b] for t in srcs], Ws, drive[b],
+                                                 [t[b].contiguous() for t in states], vecs)
+                        check_generic(got[b], one, step)
+                        one_err = max(one_err, float((got[b] - one).abs().max()))
+                    hard = any(h for _, _, h, _ in step.spike_specs) and not step.derivative
+                    if hard and resets == 0:
+                        raise AssertionError(f"generic rows {case}: no neuron was reset")
+                    e = float((got - ref).abs().max())
+                    err = max(err, e)
+                    emit({"phase": "batch_kernel_check", "kernel": "generic_fused_rows",
+                          "case": case, "couplings": K, "derivative": step.derivative,
+                          "w_dtype": name, "kernel_route": route, "n": n, "B": B,
+                          "max_abs_err": e, "max_abs_diff_single_trial_kernel": one_err,
+                          "rtol": GENERIC_TOL["reset"][0],
+                          "atol": f"{GENERIC_TOL['reset'][1]} x row max",
+                          "reset_neurons": resets})
+            errs[f"generic_fused_rows[{case},{name}]"] = err
+    return errs
+
+
+def int4_mm_check(dev) -> dict:
+    """Phase 25: int4_mm and int4_mm_t bit for bit against their plain
+    versions (and against int4_mv/int4_mv_t on the first and last trial)
+    at B = B_TRAIN and B_RAGGED, N = 10,000 and the microbenchmark's
+    14,336: weights over the full nibble range, per-trial activation
+    scales over two decades."""
+    from rectipy_tpu_torch.ops.quant import (int4_mm, int4_mm_plain, int4_mm_t, int4_mm_t_plain,
+                                             int4_mv, int4_mv_t, int4_vector_path, pack_int4,
+                                             quant_vec)
+
+    gen = torch.Generator(device=dev).manual_seed(252)
+    for n in (N, N_I4PACK):
+        wp = pack_int4(torch.randint(-8, 8, (n, n), generator=gen, device=dev,
+                                     dtype=torch.int8))
+        ws = torch.rand(n, generator=gen, device=dev) + 0.5
+        for B in (B_TRAIN,) + B_RAGGED:
+            scale = torch.logspace(-1.0, 1.0, B, device=dev)[:, None]
+            xq, xs = quant_vec(torch.randn((B, n), generator=gen, device=dev) * scale)
+            vq, vs = quant_vec(torch.randn((B, n), generator=gen, device=dev) * scale)
+            xs, vs = xs.reshape(-1), vs.reshape(-1)
+            before = int4_mm.launches, int4_mm_t.launches
+            got, got_t = int4_mm(wp, xq, ws, xs), int4_mm_t(wp, vq, vs, n)
+            torch.cuda.synchronize()
+            if (int4_mm.launches - before[0], int4_mm_t.launches - before[1]) != (1, 1):
+                raise AssertionError(f"int4_mm/int4_mm_t did not launch at B={B}, n={n}")
+            ref, ref_t = (int4_mm_plain(wp, xq) * ws) * xs[:, None], int4_mm_t_plain(
+                wp, vq, n) * vs[:, None]
+            if not (torch.equal(got, ref) and torch.equal(got_t, ref_t)):
+                raise AssertionError(f"int4_mm/int4_mm_t differ from their plain versions at "
+                                     f"B={B}, n={n}")
+            for b in (0, B - 1):
+                if not (torch.equal(got[b], int4_mv(wp, xq[b], ws, xs[b])) and torch.equal(
+                        got_t[b], int4_mv_t(wp, vq[b], vs[b], n))):
+                    raise AssertionError(f"int4_mm/int4_mm_t differ from int4_mv/int4_mv_t "
+                                         f"at B={B}, n={n}, trial {b}")
+            if not (bool((got != 0).any()) and bool((got_t != 0).any())):
+                raise AssertionError("the int4_mm check is vacuous: all outputs are zero")
+            emit({"phase": "batch_kernel_check", "kernel": "int4_mm/int4_mm_t", "n": n, "B": B,
+                  "vector_path": int4_vector_path(wp, xq) and n % 16 == 0,
+                  "bit_identical": True})
+        del wp
+    return {"int4_mm": 0.0, "int4_mm_t": 0.0}
 
 
 def run_batch_phase(dev) -> tuple:
     """Phase 26: run_batch on benchmarks/batch_throughput.py's network, an
-    eta sweep over B_RUN trials on a shared drive, int8 coupling (int8_mm)
-    and then bf16 with the fused QIF step (the B-row kernel).  Returns
-    (launches by kernel, the seconds of a B_RUN run, the shared drive)."""
+    eta sweep over B_RUN trials on a shared drive, int8 coupling (int8_mm),
+    bf16 with the fused QIF step (the B-row kernel) and frozen int4
+    (int4_mm).  Returns (launches by coupling, the seconds of a B_RUN run
+    by coupling)."""
     from rectipy_tpu_torch.ops.kernels import qif_sfa_step
-    from rectipy_tpu_torch.ops.quant import int8_mm, int8_mv
+    from rectipy_tpu_torch.ops.quant import int4_mm, int4_mv, int8_mm, int8_mv
 
     drive = bench_inputs(T_RUN)
     offsets = np.linspace(-2.0, 2.0, B_RUN)
     rec_kw = dict(record_output=False, record_vars=[("qif", "s", True)], verbose=False)
     picks = (0, B_RUN // 2 - 1, B_RUN - 1)
     launches, out = {}, {}
-    for coupling, fused, kernel in (("int8", False, int8_mm), ("bfloat16", True, qif_sfa_step)):
+    # (coupling, fused step?, the batched kernel, a single-row kernel that
+    # must not launch, every launch on the tensor cores?)
+    for coupling, fused, kernel, absent, mma in (
+            ("int8", False, int8_mm, int8_mv, True),
+            ("bfloat16", True, qif_sfa_step, int8_mv, True),
+            ("int4", False, int4_mm, int4_mv, False)):
         t0 = time.perf_counter()
         net, etas = batch_run_net(coupling, fused)
         build_s = time.perf_counter() - t0
@@ -1629,17 +1804,20 @@ def run_batch_phase(dev) -> tuple:
         batch(CMP_STEPS)  # warm
         times = {"batch": [], "single": []}
         for _ in range(2):  # in turns, best of 2
-            kernel.launches = kernel.mma_launches = int8_mv.launches = 0
+            kernel.launches = absent.launches = 0
+            if mma:
+                kernel.mma_launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = batch()
             torch.cuda.synchronize()
             times["batch"].append(time.perf_counter() - t0)
-            if kernel.launches != T_RUN or int8_mv.launches != 0:
+            if kernel.launches != T_RUN or absent.launches != 0:
                 raise AssertionError(f"run_batch_path ({coupling}): {kernel.launches} "
                                      f"{kernel.__name__} launches for {T_RUN} steps")
-            mma_launches = kernel.mma_launches  # every step's product on the tensor cores
-            if mma_launches != T_RUN:
+            # every step's product on the tensor cores (int4_mm has no such route)
+            mma_launches = kernel.mma_launches if mma else None
+            if mma and mma_launches != T_RUN:
                 raise AssertionError(f"run_batch_path ({coupling}): {mma_launches} of "
                                      f"{T_RUN} launches took the tensor-core route")
             launches[coupling] = kernel.launches
@@ -1661,7 +1839,7 @@ def run_batch_phase(dev) -> tuple:
         for b in picks:
             net.set_var("qif", "eta", etas + offsets[b])
             one = single(CMP_STEPS, 10, v_kw).to_numpy(("qif", "v"))
-            if coupling == "int8":  # exact integer sums on both sides
+            if coupling in ("int8", "int4"):  # exact integer sums on both sides
                 np.testing.assert_allclose(short[b], one, rtol=1e-5, atol=1e-7)
                 cmp[b] = {"max_abs_diff": float(np.abs(short[b] - one).max())}
             else:  # another summation order: fused_vs_plain's rule
@@ -1683,13 +1861,66 @@ def run_batch_phase(dev) -> tuple:
     return launches, out
 
 
-def generic_batch_phase() -> dict:
+def swept_int4_phase(dev) -> dict:
+    """Phase 26, continued: run_batch of benchmarks/batch_throughput.py's
+    network with an int4_master coupling swept per trial through batch_vars:
+    SWEPT_B couplings of their own (10% fan-in masks drawn on the card),
+    quantized and packed per trial once per run, SWEPT_STEPS steps of the
+    shared drive, one int4_mv per trial a step; the first and last trial
+    against single-trial runs with their coupling (exact integer sums on
+    both sides).  Returns the launch counts."""
+    from rectipy_tpu_torch.ops.quant import int4_mm, int4_mv
+
+    t0 = time.perf_counter()
+    net, _ = batch_run_net("int4_master", False)
+    gen = torch.Generator(device=dev).manual_seed(261)
+    Ws = (torch.rand((SWEPT_B, N, N), generator=gen, device=dev) < 0.1).to(torch.float32)
+    Ws *= 1.0 / (0.1 * N)
+    build_s = time.perf_counter() - t0
+    drive = bench_inputs(SWEPT_STEPS)
+    y0 = net.get_node("qif").y.clone()
+    kw = dict(record_output=False, record_vars=[("qif", "v", False)], sampling_steps=10,
+              verbose=False)
+    int4_mv.launches = int4_mm.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = net.run_batch(drive, batch_vars={("qif", "weights"): Ws}, **kw)[("qif", "v")]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {"int4_mv": int4_mv.launches, "int4_mm": int4_mm.launches}
+    if launches != {"int4_mv": SWEPT_B * SWEPT_STEPS, "int4_mm": 0}:
+        raise AssertionError(f"run_batch_path (swept int4): launches {launches}")
+    if res.shape != (SWEPT_B, SWEPT_STEPS // 10, N) or not np.all(np.isfinite(res)):
+        raise AssertionError(f"run_batch_path (swept int4): bad records {res.shape}")
+    diffs = {}
+    for b in (0, SWEPT_B - 1):
+        net.get_node("qif").set_param("weights", Ws[b])
+        net.reset({"qif": y0})
+        one = net.run(drive, **kw).to_numpy(("qif", "v"))
+        np.testing.assert_allclose(res[b], one, rtol=1e-5, atol=1e-7)
+        diffs[str(b)] = float(np.abs(res[b] - one).max())
+    if not np.abs(res[0] - res[-1]).max() > 0.0:
+        raise AssertionError("run_batch_path (swept int4): the trials do not differ")
+    emit({"phase": "run_batch_path", "coupling": "int4_master swept per trial", "n": N,
+          "B": SWEPT_B, "steps": SWEPT_STEPS, "launches": launches, "build_s": build_s,
+          "run_batch_s": run_s, "ms_per_step": run_s / SWEPT_STEPS * 1e3,
+          "trials_vs_single_max_abs_diff": diffs})
+    del net, Ws
+    torch.cuda.empty_cache()
+    return launches
+
+
+def generic_batch_phase(errs: dict) -> dict:
     """Phase 26, continued: run_batch of phase 12's LIF network (the generic
-    kernel, bf16 W) over G_B trials of their own drive; the kernel takes one
-    trial, so it launches once per trial per step.  Each trial against a
-    single-trial run of its drive over CMP_STEPS (the same kernel on the same
-    rows).  Returns the instance's ``kernels`` entry."""
-    from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
+    kernel, bf16 W) over G_B trials of their own drive, one B-row launch a
+    step; each trial against a single-trial run of its drive over CMP_STEPS
+    (fused_vs_plain's rule: the B-row and the single-trial kernel sum in
+    other orders).  Then the B-row kernel timed in turns with the G_B
+    single-trial launches it replaces on the same rows, its plain version
+    and torch.matmul of the same bf16 W on (G_B, N) rows.  Returns the
+    instance's ``kernels`` entry."""
+    from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
+                                                     generic_fused_step)
 
     t0 = time.perf_counter()
     net = lif_net(N, None)
@@ -1697,38 +1928,97 @@ def generic_batch_phase() -> dict:
     ins = (np.random.default_rng(26).normal(size=(G_B, PLAIN_STEPS, 1))
            + np.linspace(0.0, 2.0, G_B)[:, None, None]).astype(np.float32)
     y0 = net.get_node("lif").y.clone()
-    generic_fused_step.launches = 0
+    generic_fused_rows.launches = generic_fused_step.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = net.run_batch(ins, record_output=False, record_vars=[("lif", "s", True)],
                         sampling_steps=100)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = generic_fused_step.launches
-    if launches != G_B * PLAIN_STEPS:
-        raise AssertionError(f"run_batch_path (generic): {launches} launches for {G_B} trials x "
+    launches = generic_fused_rows.launches
+    if (launches, generic_fused_step.launches) != (PLAIN_STEPS, 0):
+        raise AssertionError(f"run_batch_path (generic): {launches} B-row and "
+                             f"{generic_fused_step.launches} single-trial launches for "
                              f"{PLAIN_STEPS} steps")
     rec = res[("lif", "s")]
     if (rec.shape != (G_B, PLAIN_STEPS // 100) or not np.all(np.isfinite(rec))
             or not rec.max() > 0.0):
         raise AssertionError(f"run_batch_path (generic): bad records (shape {rec.shape})")
+    # the single-trial path, timed once over the same steps
+    net.reset({"lif": y0})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.run(ins[0], record_output=False, record_vars=[("lif", "s", True)], sampling_steps=100,
+            verbose=False)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    net.reset({"lif": y0})  # run_batch starts every trial from the network's state
     short = net.run_batch(ins[:, :CMP_STEPS], sampling_steps=10)["out"]
-    diffs = []
+    cmp = []
     for b in range(G_B):
         net.reset({"lif": y0})
         one = net.run(ins[b, :CMP_STEPS], sampling_steps=10, verbose=False).to_numpy("out")
-        np.testing.assert_allclose(short[b], one, rtol=1e-6, atol=1e-6)
-        diffs.append(float(np.abs(short[b] - one).max()))
+        if one.std() > 0:
+            cmp.append(vs_cpu(f"run_batch_path (generic) trial {b}", short[b], one)[
+                "max_abs_diff"])
+        else:  # a trial without a spike yet: s stays 0 in both
+            np.testing.assert_array_equal(short[b], one)
+            cmp.append(0.0)
+    nu_b, nu_1 = G_B * N * PLAIN_STEPS / run_s, N * PLAIN_STEPS / single_s
     emit({"phase": "run_batch_path", "template": "lif", "coupling": "bfloat16",
-          "kernel": "generic_fused_step (one trial a launch)", "n": N, "B": G_B,
+          "kernel": "generic_fused_rows (one B-row launch a step)", "n": N, "B": G_B,
           "steps": PLAIN_STEPS, "launches": launches, "build_s": build_s, "run_batch_s": run_s,
-          "ms_per_step": run_s / PLAIN_STEPS * 1e3,
-          "aggregate_neuron_updates_per_s": G_B * N * PLAIN_STEPS / run_s,
-          "mean_s_range": [float(rec.min()), float(rec.max())],
-          "trials_vs_single_max_abs_diff": diffs})
-    entry = generic_instance("lif,bfloat16,run_batch_path", net.get_node("lif"),
-                             torch.bfloat16, 26, launches)
-    del net
+          "run_single_s": single_s, "ms_per_step": run_s / PLAIN_STEPS * 1e3,
+          "single_ms_per_step": single_s / PLAIN_STEPS * 1e3,
+          "aggregate_neuron_updates_per_s": nu_b, "single_neuron_updates_per_s": nu_1,
+          "ratio_to_single": nu_b / nu_1, "mean_s_range": [float(rec.min()), float(rec.max())],
+          "trials_vs_single_max_abs_diff": max(cmp)})
+
+    # the kernel alone at the path's shapes
+    node = net.get_node("lif")
+    step = node._fused_cfg["step"]
+    W = node.args["__w_fused_0__"]
+    vecs = [node.args[f"__row_{k}__"] for k in step.vec_keys]
+    srcs, drive, states, _ = rows_operands(step, N, G_B, np.random.default_rng(262),
+                                           W.device)
+    singles = [([t[b] for t in srcs], drive[b], [t[b].contiguous() for t in states])
+               for b in range(G_B)]
+
+    def rows():
+        return generic_fused_rows(step, srcs, [W], drive, states, vecs)
+
+    def loop():
+        for sb, db, stb in singles:
+            generic_fused_step(step, sb, [W], db, stb, vecs)
+
+    # at most about a thousand kernels queued in cuda_ms: 20 loops of G_B
+    turns = [cuda_ms(f, reps=r) for f, r in ((rows, 100), (loop, 20), (loop, 20), (rows, 100))]
+    ms, loop_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    W32 = W.to(torch.float32)  # the f32 instance on the same rows, timed only
+    f32_ms = cuda_ms(lambda: generic_fused_rows(step, srcs, [W32], drive, states, vecs), reps=100)
+    plain_ms = cuda_ms(lambda: generic_fused_rows_plain(step, srcs, [W], drive, states, vecs),
+                       reps=3)
+    s_w = srcs[0].to(W.dtype)
+    library_ms = cuda_ms(lambda: s_w @ W.T, reps=100)
+    V, K, P = len(step.state_order), len(step.targets), len(vecs)
+    n_bytes = K * N * N * W.element_size() + 4 * N * (G_B * (K + 1 + 2 * V) + P)
+    n_ops = 2 * K * G_B * N * N + G_B * N * tail_ops(node._vf.tile_program)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(W.dtype)
+    entry = {"name": "generic_fused_rows[lif,bfloat16,run_batch_path]", "route": "cuda",
+             "source": GENERIC_SOURCE, "replaces": GENERIC_TPU_KERNEL, "launches": launches,
+             "max_abs_err": errs["generic_fused_rows[lif,bfloat16]"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}
+    emit({"phase": "batch_timing", **entry, "B": G_B, "bytes": n_bytes, "ops": n_ops,
+          "turns_ms": turns, "single_trial_launches_ms_in_turns": loop_ms,
+          "speedup_over_single_trial_launches": loop_ms / ms,
+          "f32_fma_bound_ms": 2 * K * G_B * N * N / F32_FLOPS * 1e3,
+          "float32_w_instance_ms": f32_ms,
+          "library_ms_reason": "torch.matmul of the (B, N) source rows by W^T in bf16 "
+                               "(the products alone, on the tensor cores): a yardstick",
+          "achieved_bytes_per_s": n_bytes / (ms * 1e-3), "achieved_flops": n_ops / (ms * 1e-3)})
+    del net, srcs, drive, states, singles, W32
     torch.cuda.empty_cache()
     return entry
 
@@ -1800,7 +2090,14 @@ def batch_train_phase(dev, data, single_nu: float) -> tuple:
           "first_loss": warm_losses[0], "losses_timed_fit": losses,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
-    # ------------------------------------------------ batch_train_vs_cpu
+    batch_train_vs_cpu("int8_master")
+    return launches, epoch_s * 1e3, (ins_d, tgt_d), net
+
+
+def batch_train_vs_cpu(coupling: str):
+    """Phase 27, continued: the ensemble fit of ``coupling`` at CPU_N, CPU_B
+    trials, CPU_T steps and CPU_EPOCHS epochs on the card and on the CPU
+    (plain products), held to BATCH_LOSS_RTOL and BATCH_W_SHARE."""
     rng = np.random.default_rng(27)
     Wc = (rng.random((CPU_N, CPU_N)) < 0.1) * (1.0 / (0.1 * CPU_N))
     etas_c = -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, CPU_N + 1) - CPU_N - 1)
@@ -1808,7 +2105,7 @@ def batch_train_phase(dev, data, single_nu: float) -> tuple:
     ins_c, tgt_c = batch_train_data(CPU_N, CPU_B, CPU_T, 28)
     res = {}
     for device in (None, "cpu"):
-        n_ = build_train_net(Wc, etas_c, device=device)
+        n_ = build_train_net(Wc, etas_c, device=device, coupling=coupling)
         t0 = time.perf_counter()
         obs = n_.fit_bptt_batch(ins_c, tgt_c, n_epochs=CPU_EPOCHS, optimizer="adam", lr=LR,
                                 verbose=False)
@@ -1821,17 +2118,68 @@ def batch_train_phase(dev, data, single_nu: float) -> tuple:
     d_card, d_cpu = w_card - w0, w_cpu - w0
     share = float(np.mean(np.abs(d_card - d_cpu) > 0.01 * LR))
     if loss_rel > BATCH_LOSS_RTOL or share > BATCH_W_SHARE or not np.abs(d_cpu).max() > 0:
-        raise AssertionError(f"batch_train_vs_cpu: loss rel {loss_rel}, share of weights "
-                             f"whose updates differ {share}")
-    emit({"phase": "batch_train_vs_cpu", "n": CPU_N, "B": CPU_B, "T": CPU_T,
-          "epochs": CPU_EPOCHS, "losses_card": [float(x) for x in l_card],
+        raise AssertionError(f"batch_train_vs_cpu ({coupling}): loss rel {loss_rel}, share of "
+                             f"weights whose updates differ {share}")
+    emit({"phase": "batch_train_vs_cpu", "coupling": coupling, "n": CPU_N, "B": CPU_B,
+          "T": CPU_T, "epochs": CPU_EPOCHS, "losses_card": [float(x) for x in l_card],
           "losses_cpu": [float(x) for x in l_cpu],
           "max_rel_loss_diff": loss_rel, "loss_rtol": BATCH_LOSS_RTOL,
           "share_of_weight_updates_differing": share, "share_limit": BATCH_W_SHARE,
           "max_abs_weight_diff": float(np.abs(w_card - w_cpu).max()),
           "max_abs_weight_update": float(np.abs(d_cpu).max()), "card_s": s_card,
           "cpu_s": s_cpu})
-    return launches, epoch_s * 1e3, (ins_d, tgt_d), net
+
+
+def batch_train_int4_phase(data, staged, int4_nu: float) -> dict:
+    """Phase 27, continued: the ensemble fit with an int4_master coupling on
+    the int8 fit's staged trials (B_TRAIN x T_TRAIN), a 1-epoch warm fit and
+    a timed I4_TRAIN_EPOCHS-epoch one: int4_mm and int4_mm_t once a step
+    each, none of int4_mv(_t); ms/epoch and aggregate trained
+    neuron-updates/s beside int4_train_path's (phase 18, this call); then
+    batch_train_vs_cpu for int4_master.  Returns the launches of the timed
+    fit."""
+    from rectipy_tpu_torch.ops.quant import int4_mm, int4_mm_t, int4_mv, int4_mv_t
+
+    ins_d, tgt_d = staged
+    net = build_train_net(data[0], data[1], coupling="int4_master")
+    kernels = (int4_mm, int4_mm_t, int4_mv, int4_mv_t)
+
+    def fit_b(epochs):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs = net.fit_bptt_batch(ins_d, tgt_d, n_epochs=epochs, optimizer="adam", lr=LR,
+                                 verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        losses = [float(x) for x in obs["epoch_loss"]]
+        if len(losses) != epochs or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"batch_train_path (int4_master): bad losses {losses}")
+        return seconds, losses, {k.__name__: k.launches for k in kernels}
+
+    warm_s, warm_losses, _ = fit_b(1)
+    seconds, losses, launches = fit_b(I4_TRAIN_EPOCHS)
+    steps = T_TRAIN * I4_TRAIN_EPOCHS
+    want = {"int4_mm": steps, "int4_mm_t": steps, "int4_mv": 0, "int4_mv_t": 0}
+    if launches != want:
+        raise AssertionError(f"batch_train_path (int4_master): launches {launches}, "
+                             f"expected {want}")
+    if net.last_fit != {"trajectory": "chain", "fused_adam": False}:
+        raise AssertionError(f"batch_train_path (int4_master) took {net.last_fit}")
+    epoch_s = seconds / I4_TRAIN_EPOCHS
+    nu = B_TRAIN * T_TRAIN * N / epoch_s
+    emit({"phase": "batch_train_path", "n": N, "T": T_TRAIN, "B": B_TRAIN,
+          "epochs": I4_TRAIN_EPOCHS, "coupling": "int4_master", "optimizer": "adam", "lr": LR,
+          "batch_size": B_TRAIN, "warm_fit_s": warm_s, "warm_epochs": 1, "fit_s": seconds,
+          "ms_per_epoch": epoch_s * 1e3, "aggregate_trained_neuron_updates_per_s": nu,
+          "single_trial_trained_neuron_updates_per_s": int4_nu,
+          "ratio_to_single_trial": nu / int4_nu, "launches_per_fit": launches,
+          "first_loss": warm_losses[0], "losses_timed_fit": losses})
+    del net
+    torch.cuda.empty_cache()
+    batch_train_vs_cpu("int4_master")
+    return launches
 
 
 def rows_probe_ms(W, v, s, x, eta, inp) -> dict:
@@ -2044,18 +2392,84 @@ def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_la
     return entries
 
 
-def batch_phases(dev, W_np, data, single_nu: float) -> list:
+def int4_batch_timing(dev, W_np, train_launches: dict, run_launches: dict, errs: dict) -> list:
+    """Phase 28, continued: int4_mm and int4_mm_t at N = 10,000, B = B_TRAIN
+    on the main path's W quantized to int4 (bound, plain ms, and as the
+    yardstick torch._int_mm of the same integers unpacked to int8: for
+    int4_mm_t on a column-major copy), each in turns with the B_TRAIN
+    int4_mv (int4_mv_t) launches it replaces on the same rows."""
+    from rectipy_tpu_torch.ops.quant import (int4_mm, int4_mm_plain, int4_mm_t, int4_mm_t_plain,
+                                             int4_mv, int4_mv_t, pack_int4, quant_vec,
+                                             quantize_rows_i4)
+
+    B = B_TRAIN
+    wq, ws = quantize_rows_i4(torch.as_tensor(W_np, dtype=torch.float32, device=dev))
+    wp = pack_int4(wq)
+    wq_cm = wq.T.contiguous().T
+    gen = torch.Generator(device=dev).manual_seed(281)
+    xq, xs = quant_vec(torch.randn((B, N), generator=gen, device=dev))
+    vq, vs = quant_vec(torch.randn((B, N), generator=gen, device=dev) * 1e-3)
+    xs, vs = xs.reshape(-1), vs.reshape(-1)
+    rows_x = [xq[b] for b in range(B)]
+    rows_v = [vq[b] for b in range(B)]
+    packed = wp.numel()
+    specs = [
+        ("int4_mm", lambda: int4_mm(wp, xq, ws, xs),
+         lambda: [int4_mv(wp, x, ws, xs[b]) for b, x in enumerate(rows_x)],
+         lambda: (int4_mm_plain(wp, xq) * ws) * xs[:, None], lambda: torch._int_mm(xq, wq.T),
+         packed + B * N + 4 * N + 4 * B + 4 * B * N),
+        ("int4_mm_t", lambda: int4_mm_t(wp, vq, vs, N),
+         lambda: [int4_mv_t(wp, v, vs[b], N) for b, v in enumerate(rows_v)],
+         lambda: int4_mm_t_plain(wp, vq, N) * vs[:, None], lambda: torch._int_mm(vq, wq_cm),
+         packed + B * N + 4 * B + 4 * B * N),
+    ]
+    entries = []
+    for name, fn, singles, plain, lib, n_bytes in specs:
+        # at most about a thousand kernels queued in cuda_ms (int4_mv_t is two)
+        turns = [cuda_ms(f, reps=r) for f, r in ((fn, 200), (singles, 10), (singles, 10),
+                                                 (fn, 200))]
+        ms, singles_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        plain_ms = cuda_ms(plain, reps=5)
+        library_ms = cuda_ms(lib, reps=200)
+        n_ops = 2 * B * N * N
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS
+        entry = {"name": name, "route": "cuda", "source": I4_SOURCE, "replaces": I4_TPU_KERNEL,
+                 "launches": train_launches[name], "max_abs_err": errs[name], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "library_ms": library_ms}
+        entries.append(entry)
+        emit({"phase": "batch_timing", **entry, "B": B, "bytes": n_bytes, "ops": n_ops,
+              "turns_ms": turns, "single_row_launches_ms_in_turns": singles_ms,
+              "speedup_over_single_row_launches": singles_ms / ms,
+              "library_ms_reason": "torch._int_mm of the same integers unpacked to int8 "
+                                   "(int32 sums without the scales): a yardstick" + (
+                                       "; its W is a column-major copy, transposed in memory "
+                                       "beforehand" if name == "int4_mm_t" else ""),
+              "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+        if name == "int4_mm":  # run_batch_path's instance: the same (B_RUN = B_TRAIN, N) shapes
+            entries.append({**entry, "name": "int4_mm[run_batch_path]",
+                            "launches": run_launches["int4"]})
+    del wq, wp, wq_cm
+    torch.cuda.empty_cache()
+    return entries
+
+
+def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> list:
     """Phases 25-28 (the batched trials of run_batch and fit_bptt_batch).
     Returns the entries of the ``kernels`` line for their kernels."""
     errs = batch_kernel_check(dev, W_np)
     torch.cuda.empty_cache()
     run_launches, _ = run_batch_phase(dev)
-    generic_entry = generic_batch_phase()
+    swept_int4_phase(dev)
+    generic_entry = generic_batch_phase(errs)
     launches, epoch_ms, staged, net = batch_train_phase(dev, data, single_nu)
+    i4_launches = batch_train_int4_phase(data, staged, int4_nu)
     entries = batch_timing(dev, W_np, net, staged, epoch_ms, launches, run_launches, errs)
-    entries.append(generic_entry)
     del staged, net
     torch.cuda.empty_cache()
+    entries += int4_batch_timing(dev, W_np, i4_launches, run_launches, errs)
+    entries.append(generic_entry)
     return entries
 
 
@@ -2275,12 +2689,13 @@ def main() -> int:
     data_s = time.perf_counter() - t0
     entries, train_nu = train_phases(dev, data + (data_s,))
     kernels += entries
-    kernels += int4_train_phases(dev, data + (data_s,), timing10)
+    entries, int4_nu = int4_train_phases(dev, data + (data_s,), timing10)
+    kernels += entries
     by_name = {e["name"]: e for e in kernels}
     kernels += readout_phases(build_net, by_name["qif_sfa_step[bfloat16]"])
     kernels += tbptt_phase(dev, data + (data_s,), by_name)
     kernels += feedback_phase()
-    kernels += batch_phases(dev, W_np, data, train_nu)
+    kernels += batch_phases(dev, W_np, data, train_nu, int4_nu)
     del W_np
 
     emit({"kernels": kernels})

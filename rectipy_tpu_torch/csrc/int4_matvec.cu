@@ -54,6 +54,50 @@
 // - When the stride is not a multiple of 16, or a pointer is not 16-byte
 //   aligned, scalar instantiations run: the same sums one nibble at a time.
 //
+// The batched forms, for B rows of activations (B trials of run_batch and
+// fit_bptt_batch, each with its own activation scale, as the JAX package's
+// vmap gives each trial its own quant_vec scale, rectipy_tpu/ops/quant.py:
+// 180-191 and rectipy_tpu/dsl/lower.py:95):
+//
+//   int4_mm:   out[b, i] = (float(sum_j W[i, j] * xq[b, j]) * row_scale[i]) * act_scale[b]
+//   int4_mm_t: out[b, j] =  float(sum_i W[i, j] * vq[b, i]) * act_scale[b]
+//
+// Bound at N = 10,000 and B = 32: the packed W must still be read once,
+// 5.0e7 bytes (15 us at 3.35 TB/s); the 2*B*N^2 = 6.4e9 operations take 3 us
+// at the int8 tensor-core rate, so the bound is the bytes.  On the CUDA
+// cores with __dp4a (about 64 four-byte products a clock per SM) the products
+// alone take some 50 us, above that bound; these first kernels run there
+// all the same (the tensor cores are a later step), and their sums are
+// exact, so they agree bit for bit with the plain versions.
+// - The trap: int4_mv's one-warp-per-row form, kept for B rows, would make
+//   each warp read all B activation rows per W row.
+// - int4_mm: int8_mm's __dp4a scheme (int8_matvec.cu, int8_mm_kernel) on
+//   nibbles.  A block of 4 warps owns 16 rows of W and up to 32 trials.  For
+//   each chunk of 1,024 inputs it stages the chunk of all its trials'
+//   activations in shared memory once (32 KB), each 16-byte word of xq split
+//   as it is stored into its even and odd bytes (__byte_perm), which are
+//   what the low and the high nibbles multiply; each word of a trial's
+//   chunk is stored so that lane l's two words sit 32 words apart and a
+//   warp's reads are conflict-free.  Each warp streams 16 packed bytes (32
+//   weights) of each of its 4 rows per lane, unpacks them once (mask +
+//   __vsub4) and multiplies them with every trial's 32 activations: 4 rows x
+//   32 trials of int32 sums in registers, 8 __dp4a per row and trial.  Each
+//   sum reduces across the warp with __reduce_add_sync; lane b writes trial
+//   b's epilogue in int4_mv's order.
+// - int4_mm_t: int8_mm_t's __dp4a scheme on nibbles.  A block owns a strip of
+//   512 columns (4 adjacent columns a thread: 2 packed bytes a row) and a
+//   chunk of rows, with the chunk's activations of its 32 trials staged in
+//   shared memory as words of 4 rows (read as broadcasts).  A thread takes
+//   4 rows at a time: two __byte_perm gather the 4 rows' bytes of its column
+//   pairs, a mask and __vsub4 unpack them into 4 words of one column x 4
+//   rows (signed), and __dp4a takes each against every trial's word: 4
+//   columns x 32 trials of int32 sums.  Each block stores its chunk's sums to
+//   an int32 scratch (chunks x B x n_in) and a second kernel sums the chunks
+//   and applies the scale.
+// - A B above 32 takes a second group of blocks, which reads W again.
+//   Non-aligned shapes take scalar instantiations: the same blocks, one
+//   nibble at a time.
+//
 // Interface: plain C functions, loaded with ctypes; they launch on the
 // caller's stream, never synchronise, and return cudaGetLastError().
 
@@ -240,6 +284,291 @@ void t_chunks(int n_out, int n_in, int vec, int* chunks, int* rows) {
   *chunks = (n_out + *rows - 1) / *rows;
 }
 
+// ------------------------------------------------------------- batched
+constexpr int kMmWarps = 4;                          // int4_mm: warps per block
+constexpr int kMmThreads = 32 * kMmWarps;
+constexpr int kMmRowsPerWarp = 4;
+constexpr int kMmRows = kMmWarps * kMmRowsPerWarp;   // rows of W per block
+constexpr int kTrials = 32;                          // trials per block (both kernels)
+constexpr int kMmChunk = 1024;                       // inputs staged per trial and pass
+constexpr int kMmWords = kMmChunk / 16;              // 16-byte words of a trial's chunk
+
+// The even and the odd bytes of the 16 activations of a: the x, y words of
+// the result are activations 0, 2, 4, 6 and 1, 3, 5, 7; z, w the same of
+// 8-15 (the operands of dot8's two __dp4a).
+__device__ __forceinline__ int4 split_even_odd(const int4 a) {
+  const uint32_t x = static_cast<uint32_t>(a.x), y = static_cast<uint32_t>(a.y);
+  const uint32_t z = static_cast<uint32_t>(a.z), w = static_cast<uint32_t>(a.w);
+  return make_int4(static_cast<int>(__byte_perm(x, y, 0x6420)),
+                   static_cast<int>(__byte_perm(x, y, 0x7531)),
+                   static_cast<int>(__byte_perm(z, w, 0x6420)),
+                   static_cast<int>(__byte_perm(z, w, 0x7531)));
+}
+
+// The low (weights 0, 2, 4, 6) and high (1, 3, 5, 7) nibbles of a packed word
+// as signed bytes.
+__device__ __forceinline__ int lo_nibbles(uint32_t u) {
+  return static_cast<int>(__vsub4(u & 0x0F0F0F0Fu, 0x08080808u));
+}
+__device__ __forceinline__ int hi_nibbles(uint32_t u) {
+  return static_cast<int>(__vsub4((u >> 4) & 0x0F0F0F0Fu, 0x08080808u));
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kMmThreads)
+int4_mm_kernel(const uint8_t* __restrict__ wp, const int8_t* __restrict__ xq,
+               const float* __restrict__ row_scale, const float* __restrict__ act_scale,
+               float* __restrict__ out, int n_out, int n_in, int stride, int n_rows) {
+  // 32 KB: the chunk of every trial; on the vector path word j of trial b
+  // (activations 16j..16j+15, split_even_odd) at b * kMmWords + (j & 1) * 32
+  // + j / 2, on the scalar path byte k of trial b at b * kMmChunk + k
+  __shared__ int4 xs[kTrials * kMmWords];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.y * kTrials;
+  const int nb = min(kTrials, n_rows - b0);
+  const int row0 = blockIdx.x * kMmRows + warp * kMmRowsPerWarp;
+  int acc[kMmRowsPerWarp][kTrials];
+#pragma unroll
+  for (int r = 0; r < kMmRowsPerWarp; ++r)
+#pragma unroll
+    for (int b = 0; b < kTrials; ++b) acc[r][b] = 0;
+  const int8_t* xb = reinterpret_cast<const int8_t*>(xs);
+  for (int k0 = 0; k0 < n_in; k0 += kMmChunk) {
+    // this chunk's 16 packed bytes (32 weights) of each row, unpacked,
+    // issued before the staging so that the loads overlap it; weights past
+    // the matrix are zero (nibbles of 8)
+    int lo[kMmRowsPerWarp][4], hi[kMmRowsPerWarp][4];
+    if constexpr (kVec) {
+      const int k = k0 + 32 * lane;
+#pragma unroll
+      for (int r = 0; r < kMmRowsPerWarp; ++r) {
+        const int4 u = (row0 + r < n_out && k < n_in)
+                           ? __ldcs(reinterpret_cast<const int4*>(
+                                 wp + static_cast<size_t>(row0 + r) * stride + k / 2))
+                           : make_int4(0x88888888, 0x88888888, 0x88888888, 0x88888888);
+        const uint32_t words[4] = {static_cast<uint32_t>(u.x), static_cast<uint32_t>(u.y),
+                                   static_cast<uint32_t>(u.z), static_cast<uint32_t>(u.w)};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          lo[r][q] = lo_nibbles(words[q]);
+          hi[r][q] = hi_nibbles(words[q]);
+        }
+      }
+    }
+    __syncthreads();  // the previous chunk is consumed
+    if constexpr (kVec) {
+#pragma unroll 4
+      for (int j = 0; j < kTrials * kMmWords / kMmThreads; ++j) {  // four in flight
+        const int idx = threadIdx.x + j * kMmThreads;
+        const int b = idx / kMmWords;
+        const int w = idx % kMmWords;
+        const int k = k0 + 16 * w;
+        const int4 a = (b < nb && k < n_in)
+                           ? __ldg(reinterpret_cast<const int4*>(
+                                 xq + static_cast<size_t>(b0 + b) * n_in + k))
+                           : make_int4(0, 0, 0, 0);
+        xs[b * kMmWords + (w & 1) * 32 + (w >> 1)] = split_even_odd(a);
+      }
+    } else {
+      int8_t* xw = reinterpret_cast<int8_t*>(xs);
+      for (int idx = threadIdx.x; idx < kTrials * kMmChunk; idx += kMmThreads) {
+        const int b = idx / kMmChunk;
+        const int k = k0 + idx % kMmChunk;
+        xw[idx] = (b < nb && k < n_in) ? __ldg(xq + static_cast<size_t>(b0 + b) * n_in + k)
+                                       : static_cast<int8_t>(0);
+      }
+    }
+    __syncthreads();
+    if constexpr (kVec) {
+#pragma unroll
+      for (int b = 0; b < kTrials; ++b) {
+        const int4 x0 = xs[b * kMmWords + lane];       // activations 0-15 of the lane's 32
+        const int4 x1 = xs[b * kMmWords + 32 + lane];  // and 16-31
+#pragma unroll
+        for (int r = 0; r < kMmRowsPerWarp; ++r) {
+          int a = acc[r][b];
+          a = __dp4a(lo[r][0], x0.x, a);
+          a = __dp4a(hi[r][0], x0.y, a);
+          a = __dp4a(lo[r][1], x0.z, a);
+          a = __dp4a(hi[r][1], x0.w, a);
+          a = __dp4a(lo[r][2], x1.x, a);
+          a = __dp4a(hi[r][2], x1.y, a);
+          a = __dp4a(lo[r][3], x1.z, a);
+          acc[r][b] = __dp4a(hi[r][3], x1.w, a);
+        }
+      }
+    } else {
+#pragma unroll 1
+      for (int q = 0; q < kMmChunk / 32; ++q) {
+        const int kk = q * 32 + lane;
+        const int k = k0 + kk;
+        int ws[kMmRowsPerWarp];
+#pragma unroll
+        for (int r = 0; r < kMmRowsPerWarp; ++r)
+          ws[r] = (row0 + r < n_out && k < n_in)
+                      ? nibble(wp + static_cast<size_t>(row0 + r) * stride, k)
+                      : 0;
+#pragma unroll
+        for (int b = 0; b < kTrials; ++b) {
+          const int x = static_cast<int>(xb[b * kMmChunk + kk]);
+#pragma unroll
+          for (int r = 0; r < kMmRowsPerWarp; ++r) acc[r][b] += ws[r] * x;
+        }
+      }
+    }
+  }
+  // reduce each (row, trial) sum across the warp; lane b keeps trial b's
+#pragma unroll
+  for (int r = 0; r < kMmRowsPerWarp; ++r) {
+    int mine = 0;
+#pragma unroll
+    for (int b = 0; b < kTrials; ++b) {
+      const int sum = __reduce_add_sync(0xffffffffu, acc[r][b]);
+      if (lane == b) mine = sum;
+    }
+    const int row = row0 + r;
+    if (row < n_out && lane < nb)
+      out[static_cast<size_t>(b0 + lane) * n_out + row] =
+          __fmul_rn(__fmul_rn(static_cast<float>(mine), row_scale[row]), act_scale[b0 + lane]);
+  }
+}
+
+constexpr int kMtThreads = 128;  // int4_mm_t: threads per block
+constexpr int kMtCols = 4;       // columns per thread (2 packed bytes a row)
+constexpr int kMtStrip = kMtThreads * kMtCols;
+constexpr int kMtBlocks = 512;   // int4_mm_t: blocks to aim for
+constexpr int kMtMaxRows = 512;  // rows per chunk at most (the staged activations)
+
+// Sign-extended byte k (0..3) of a 32-bit word.
+__device__ __forceinline__ int sbyte(uint32_t u, int k) {
+  return static_cast<int>(static_cast<int8_t>((u >> (8 * k)) & 0xffu));
+}
+
+// The 2 packed bytes of row r at columns col0..col0+3 (col0 a multiple of 4),
+// as the low half of a word; rows past the chunk hold zero weights.
+__device__ __forceinline__ uint32_t pair_bytes(const uint8_t* __restrict__ wp, int r, int r1,
+                                               int col0, int stride) {
+  if (r >= r1) return 0x8888u;
+  return __ldcs(reinterpret_cast<const unsigned short*>(wp + static_cast<size_t>(r) * stride +
+                                                        col0 / 2));
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kMtThreads)
+int4_mm_t_kernel(const uint8_t* __restrict__ wp, const int8_t* __restrict__ vq,
+                 int* __restrict__ partial, int n_out, int n_in, int stride, int n_rows,
+                 int rows_per_chunk) {
+  // the chunk's activations, word q of trial b at vs[q * kTrials + b]: rows
+  // 4q..4q+3 of the chunk, zero past its end
+  __shared__ uint32_t vs[kMtMaxRows / 4 * kTrials];
+  const int b0 = blockIdx.z * kTrials;
+  const int nb = min(kTrials, n_rows - b0);
+  const int r0 = blockIdx.y * rows_per_chunk;
+  const int r1 = min(n_out, r0 + rows_per_chunk);
+  const int words = (r1 - r0 + 3) / 4;
+  for (int idx = threadIdx.x; idx < words * kTrials; idx += kMtThreads) {
+    const int q = idx / kTrials, b = idx % kTrials;
+    uint32_t u = 0;
+    if (b < nb) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int r = r0 + 4 * q + k;
+        if (r < r1)
+          u |= static_cast<uint32_t>(static_cast<uint8_t>(
+                   __ldg(vq + static_cast<size_t>(b0 + b) * n_out + r)))
+               << (8 * k);
+      }
+    }
+    vs[idx] = u;
+  }
+  __syncthreads();
+  const int col0 = blockIdx.x * kMtStrip + threadIdx.x * kMtCols;
+  int acc[kMtCols][kTrials];
+#pragma unroll
+  for (int c = 0; c < kMtCols; ++c)
+#pragma unroll
+    for (int b = 0; b < kTrials; ++b) acc[c][b] = 0;
+  if (col0 < n_in) {
+#pragma unroll 2
+    for (int q = 0; q < words; ++q) {
+      const int r = r0 + 4 * q;
+      int col[kMtCols];  // column col0 + c of rows r..r+3, signed bytes
+      if constexpr (kVec) {
+        const uint32_t x = pair_bytes(wp, r, r1, col0, stride) |
+                           (pair_bytes(wp, r + 1, r1, col0, stride) << 16);
+        const uint32_t y = pair_bytes(wp, r + 2, r1, col0, stride) |
+                           (pair_bytes(wp, r + 3, r1, col0, stride) << 16);
+        const uint32_t t0 = __byte_perm(x, y, 0x6420);  // byte 0 of the 4 rows: columns 0, 1
+        const uint32_t t1 = __byte_perm(x, y, 0x7531);  // byte 1: columns 2, 3
+        col[0] = lo_nibbles(t0);
+        col[1] = hi_nibbles(t0);
+        col[2] = lo_nibbles(t1);
+        col[3] = hi_nibbles(t1);
+      } else {
+#pragma unroll
+        for (int c = 0; c < kMtCols; ++c) {
+          uint32_t u = 0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int w = (r + k < r1 && col0 + c < n_in)
+                              ? nibble(wp + static_cast<size_t>(r + k) * stride, col0 + c)
+                              : 0;
+            u |= (static_cast<uint32_t>(w) & 0xffu) << (8 * k);
+          }
+          col[c] = static_cast<int>(u);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kTrials; ++b) {
+        const int v = static_cast<int>(vs[q * kTrials + b]);
+#pragma unroll
+        for (int c = 0; c < kMtCols; ++c) acc[c][b] = __dp4a(col[c], v, acc[c][b]);
+      }
+    }
+  }
+  // this chunk's sums: partial[(chunk * n_rows + b) * n_in + col]
+#pragma unroll
+  for (int b = 0; b < kTrials; ++b) {
+    if (b >= nb) break;
+    int* dst = partial + (static_cast<size_t>(blockIdx.y) * n_rows + b0 + b) * n_in;
+#pragma unroll
+    for (int c = 0; c < kMtCols; ++c)
+      if (col0 + c < n_in) dst[col0 + c] = acc[c][b];
+  }
+}
+
+// out[b, j] = float(sum over the chunks of partial[c, b, j]) * act_scale[b].
+__global__ void mm_t_reduce_kernel(const int* __restrict__ partial, int chunks, int n_rows,
+                                   const float* __restrict__ act_scale, float* __restrict__ out,
+                                   int n_in) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (j >= n_in) return;
+  int sum = 0;
+  for (int c = 0; c < chunks; ++c) sum += partial[(static_cast<size_t>(c) * n_rows + b) * n_in + j];
+  out[static_cast<size_t>(b) * n_in + j] = __fmul_rn(static_cast<float>(sum), act_scale[b]);
+}
+
+// The chunks of rows int4_mm_t_launch splits n_out into, and the rows of each
+// (a multiple of 4, at most kMtMaxRows).
+void mm_t_chunks(int n_out, int n_in, int n_rows, int* chunks, int* rows) {
+  if (n_out <= 0 || n_in <= 0 || n_rows <= 0) {
+    *chunks = 0;
+    *rows = 0;
+    return;
+  }
+  const int strips = (n_in + kMtStrip - 1) / kMtStrip;
+  const int groups = (n_rows + kTrials - 1) / kTrials;
+  int c = kMtBlocks / (strips * groups);
+  c = c < 1 ? 1 : c;
+  int r = (n_out + c - 1) / c;
+  r = (r + 3) / 4 * 4;
+  r = r > kMtMaxRows ? kMtMaxRows : r;
+  *rows = r;
+  *chunks = (n_out + r - 1) / r;
+}
+
 }  // namespace
 
 // wp: (n_out, stride) uint8, packed rows of n_in weights; xq: (n_in,) int8;
@@ -295,5 +624,66 @@ extern "C" int int4_mv_t_launch(const void* wp, const void* vq, const void* act_
   }
   reduce_scale_kernel<<<(n_in + kRCols - 1) / kRCols, dim3(kRCols, kRLanes), 0, st>>>(
       p, chunks, static_cast<const float*>(act_scale), static_cast<float*>(out), n_in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched forward product.  wp: (n_out, stride) uint8, packed rows of
+// n_in weights; xq: (n_rows, n_in) int8, contiguous; row_scale: (n_out,) f32;
+// act_scale: (n_rows,) f32 on the device; out: (n_rows, n_out) f32.  vec = 1
+// selects the 16-byte path: the caller sets it only when stride and n_in are
+// multiples of 16 and wp and xq are 16-byte aligned.
+extern "C" int int4_mm_launch(const void* wp, const void* xq, const void* row_scale,
+                              const void* act_scale, void* out, int n_out, int n_in, int stride,
+                              int n_rows, int vec, void* stream) {
+  if (n_out <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n_out + kMmRows - 1) / kMmRows, (n_rows + kTrials - 1) / kTrials);
+  const auto* w = static_cast<const uint8_t*>(wp);
+  const auto* x = static_cast<const int8_t*>(xq);
+  const auto* rs = static_cast<const float*>(row_scale);
+  const auto* as = static_cast<const float*>(act_scale);
+  auto* o = static_cast<float*>(out);
+  if (vec)
+    int4_mm_kernel<true><<<grid, kMmThreads, 0, st>>>(w, x, rs, as, o, n_out, n_in, stride, n_rows);
+  else
+    int4_mm_kernel<false><<<grid, kMmThreads, 0, st>>>(w, x, rs, as, o, n_out, n_in, stride, n_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int32 elements of the scratch that int4_mm_t_launch needs for these
+// arguments (chunks x n_rows x n_in).
+extern "C" long long int4_mm_t_scratch(int n_out, int n_in, int n_rows) {
+  int chunks, rows;
+  mm_t_chunks(n_out, n_in, n_rows, &chunks, &rows);
+  return static_cast<long long>(chunks) * n_rows * (n_in > 0 ? n_in : 0);
+}
+
+// The batched transposed product.  wp: (n_out, stride) uint8, packed rows of
+// n_in weights; vq: (n_rows, n_out) int8, contiguous; act_scale: (n_rows,)
+// f32 on the device; partial: int32 scratch of int4_mm_t_scratch(n_out,
+// n_in, n_rows) elements, written before it is read; out: (n_rows, n_in)
+// f32.  vec = 1 selects the 2-byte loads of the packed rows: the caller sets
+// it only when stride is a multiple of 16 and wp 16-byte aligned.
+extern "C" int int4_mm_t_launch(const void* wp, const void* vq, const void* act_scale,
+                                void* partial, void* out, int n_out, int n_in, int stride,
+                                int n_rows, int vec, void* stream) {
+  if (n_in <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* w = static_cast<const uint8_t*>(wp);
+  const auto* v = static_cast<const int8_t*>(vq);
+  auto* p = static_cast<int*>(partial);
+  int chunks, rows;
+  mm_t_chunks(n_out, n_in, n_rows, &chunks, &rows);
+  if (chunks > 0) {
+    const dim3 grid((n_in + kMtStrip - 1) / kMtStrip, chunks, (n_rows + kTrials - 1) / kTrials);
+    if (vec)
+      int4_mm_t_kernel<true><<<grid, kMtThreads, 0, st>>>(w, v, p, n_out, n_in, stride, n_rows, rows);
+    else
+      int4_mm_t_kernel<false><<<grid, kMtThreads, 0, st>>>(w, v, p, n_out, n_in, stride, n_rows, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mm_t_reduce_kernel<<<dim3((n_in + 255) / 256, n_rows), 256, 0, st>>>(
+      p, chunks, n_rows, static_cast<const float*>(act_scale), static_cast<float*>(out), n_in);
   return static_cast<int>(cudaGetLastError());
 }

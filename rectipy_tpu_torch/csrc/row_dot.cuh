@@ -9,6 +9,12 @@
 // The unrolled loops keep several loads in flight per thread.  The scalar
 // loops take n not a multiple of the vector width and pointers that are not
 // 16-byte aligned.
+//
+// Below partial_dot: what the B-row kernels share (qif_sfa_rows_kernel and
+// generic_fused_rows_kernel), a warp per few rows of W with one trial per
+// lane: cp.async copies of the trials' source chunks into shared memory, a
+// scalar weight load, and the reduce-scatter that leaves each lane its
+// trial's row sum.
 
 #pragma once
 
@@ -81,6 +87,58 @@ __device__ __forceinline__ float partial_dot(const WT* __restrict__ w,
     }
   }
   return acc;
+}
+
+// A 16-byte copy from device to shared memory that uses no registers
+// (cp.async, sm_80 and later); bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void copy16(void* smem, const void* gmem, int bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(bytes));
+}
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// One weight of a row as f32 (read-only cache).
+template <typename WT>
+__device__ __forceinline__ float load1(const WT* __restrict__ w) {
+  if constexpr (std::is_same<WT, __nv_bfloat16>::value) {
+    return __uint_as_float(static_cast<uint32_t>(
+                               __ldg(reinterpret_cast<const unsigned short*>(w))) << 16);
+  } else {
+    return __ldg(w);
+  }
+}
+
+constexpr int kWarpTrials = 32;  // one trial per lane
+
+// One step of the reduce-scatter: lanes with bit kOff set keep the upper half
+// of v[0..2 kOff) and send the lower half to their partner, the others the
+// reverse.  kOff is a template argument so that every index is a constant
+// and v stays in registers.
+template <int kOff>
+__device__ __forceinline__ void scatter_step(float (&v)[kWarpTrials], int lane) {
+  const bool upper = (lane & kOff) != 0;
+#pragma unroll
+  for (int i = 0; i < kOff; ++i) {
+    const float send = upper ? v[i] : v[i + kOff];
+    const float keep = upper ? v[i + kOff] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, kOff);
+  }
+}
+
+// After this, lane l holds in v[0] the sum over the warp's lanes of v[l]: a
+// reduce-scatter of 31 shuffles (16 + 8 + 4 + 2 + 1).
+__device__ __forceinline__ float reduce_scatter(float (&v)[kWarpTrials], int lane) {
+  scatter_step<16>(v, lane);
+  scatter_step<8>(v, lane);
+  scatter_step<4>(v, lane);
+  scatter_step<2>(v, lane);
+  scatter_step<1>(v, lane);
+  return v[0];
 }
 
 }  // namespace rowdot

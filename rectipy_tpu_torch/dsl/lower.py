@@ -181,7 +181,12 @@ class _FrozenQuantDot(torch.autograd.Function):
         wq, scale = ctx.saved_tensors
         gs = (g * scale).to(ctx.dtype)
         w = wq.to(ctx.dtype)
-        dscaled = torch.mv(w.T, gs) if gs.dim() == 1 else gs @ w
+        if gs.dim() == 1:
+            dscaled = torch.mv(w.T, gs)
+        elif w.dim() == 3:  # per-trial weights (a swept coupling)
+            dscaled = (gs.unsqueeze(-2) @ w).squeeze(-2)
+        else:
+            dscaled = gs @ w
         return dscaled, None, None, None, None
 
 
@@ -460,11 +465,7 @@ def lower(
         def prep_args(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             a = dict(a)
             for wk in wkeys:
-                w = a[wk].detach()
-                if w.dim() == 3 and cast != "int8" and cast != "bf16":
-                    raise NotImplementedError(
-                        "A per-trial (swept) int4 coupling is not ported yet (ROADMAP "
-                        "Queue 2, follow-on h: batched int4 products).")
+                w = a[wk].detach()  # (B, n, n) for a coupling swept per trial
                 if int4_frozen:
                     a[wk + "__q4"] = quant.pack_int4(w)
                 elif cast == "bf16":

@@ -938,16 +938,18 @@ class Network:
         return params
 
     def _refuse_generic_fused(self):
-        """``fit_bptt_batch`` refuses a node with the generic fused step,
-        whose kernel takes one trial (its B-row form is ROADMAP Queue 2,
-        follow-on g)."""
+        """``fit_bptt_batch`` refuses a node with the generic fused step: its
+        kernel has no backward, as the JAX package's Pallas kernel has none
+        (JAX raises in the kernel's JVP rule when a gradient must pass
+        through it, and gives the node's own coupling, which the kernel reads
+        from its copy, a zero gradient)."""
         for n in self._compiled["order"]:
             cfg = getattr(self.get_node(n), "_fused_cfg", None)
             if cfg is not None and "step" in cfg:
                 raise NotImplementedError(
-                    f"Node {n!r} has the generic fused step attached, whose kernel takes one "
-                    f"trial; fit_bptt_batch through it is not ported yet (ROADMAP Queue 2, "
-                    f"follow-on g). Rebuild the node without it for fit_bptt_batch.")
+                    f"Node {n!r} has the generic fused step attached, whose kernel has no "
+                    f"backward (nor has the JAX package's Pallas kernel): no gradient passes "
+                    f"through it. Rebuild the node without it for fit_bptt_batch.")
 
     def _batch_state(self, state: dict, B: int) -> dict:
         """The state tree with every node state and carried feedback output
@@ -981,20 +983,19 @@ class Network:
 
         All trials advance together: every step is one batched step, whose
         products take ``(B, n)`` rows (one ``int8_mm`` launch per step for an
-        ``int8``/``int8_master`` coupling, one B-row ``qif_sfa_step`` for a
-        node with the fused QIF step).  A coupling swept per trial has its
-        own W per trial, so nothing can be shared: an ``int8``/
-        ``int8_master`` one launches ``int8_mv`` once per trial per step.
-
-        A node with the generic fused step, whose kernel takes one trial,
-        launches it once per trial per step.
+        ``int8``/``int8_master`` coupling, one ``int4_mm`` for an ``int4``/
+        ``int4_master`` one, one B-row ``qif_sfa_step`` for a node with the
+        fused QIF step, one B-row ``generic_fused_rows`` for a node with the
+        generic fused step, two for a Heun one).  A coupling swept per trial
+        has its own W per trial, so nothing can be shared: an integer one
+        (``int8``, ``int8_master``, ``int4``, ``int4_master``) launches its
+        matvec (``int8_mv``, ``int4_mv``) once per trial per step.
 
         Not ported yet: on-device input specs and ``record_spikes`` (ROADMAP
-        Queue 1 item 11), ``mesh=`` (item 14) and int4 couplings of ``(B,
-        n)`` sources on the GPU (Queue 2, follow-on h; the JAX package has
-        no counterpart of that refusal).  A fused node refuses a sweep of a
-        parameter its kernel bakes in or shares (the JAX package's fused
-        QIF kernel ignores a swept eta, which the port applies).
+        Queue 1 item 11) and ``mesh=`` (item 14).  A fused node refuses a
+        sweep of a parameter its kernel bakes in or shares (the JAX
+        package's fused QIF kernel ignores a swept eta, which the port
+        applies).
         """
         for key, what, item in (("mesh", "run_batch(mesh=)", "14"),
                                 ("record_spikes", "run_batch(record_spikes=)", "11")):
@@ -1221,8 +1222,10 @@ class Network:
         ``epoch_loss`` (the mean over an epoch's minibatches) and
         ``epochs``.  The trained parameters are written back; the network's
         state is left unchanged.  Not ported yet: ``remat_steps`` (ROADMAP
-        Queue 1 item 7), ``mesh=`` (item 14) and a node with the generic
-        fused step (Queue 2, follow-on g).
+        Queue 1 item 7) and ``mesh=`` (item 14).  A node with the generic
+        fused step raises: its kernel has no backward, as the JAX package's
+        has none.  ``int4_master`` couplings take ``int4_mm``/``int4_mm_t``
+        on the card.
         """
         self.compile()
         loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)

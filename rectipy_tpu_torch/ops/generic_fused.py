@@ -13,7 +13,16 @@ couplings.
   from the template) for CUDA tensors and takes the plain version for CPU
   tensors.  There is no fallback: a CUDA tensor the kernel does not take
   raises.
+- :func:`generic_fused_rows` is the same step for ``B`` trials that share
+  the couplings and parameters (the TPU kernel under the JAX package's
+  ``vmap``, ``rectipy_tpu/network.py:1476-1711``): one launch of the B-row
+  kernel of ``csrc/generic_fused_step.cuh`` reads each W once for up to 32
+  trials; :func:`generic_fused_rows_plain` is its plain version.
 - :func:`attach_generic_fused_step` swaps a node's step for it.
+- The CUDA kernels have no backward (nor does the TPU kernel: JAX cannot
+  differentiate through its ``pallas_call``), so on the card both wrappers
+  raise when autograd would need one; the plain versions on CPU tensors
+  stay differentiable.
 
 Scope (``ValueError`` otherwise, with the JAX package's messages):
 ``RateNet``, ``SpikeResetNet``, ``SpikeNet`` and ``MultiSpikeResetNet``
@@ -43,8 +52,9 @@ import torch
 from ..dsl.cuda import emit_step_source
 from ._build import build_generated
 
-__all__ = ["GenericStep", "attach_generic_fused_step", "generic_fused_step",
-           "generic_fused_step_plain"]
+__all__ = ["GenericStep", "attach_generic_fused_step", "generic_fused_rows",
+           "generic_fused_rows_plain", "generic_fused_step", "generic_fused_step_plain",
+           "refuse_autograd", "rows_vector_path"]
 
 # elements per 16-byte vector load of W
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
@@ -77,7 +87,11 @@ class GenericStep:
 
 
 def _matvec(W: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """``W @ src`` in f32 sums; a bf16 W takes the source rounded to bf16."""
+    """``W @ src`` in f32 sums; a bf16 W takes the source rounded to bf16.
+    Source rows ``(B, n)`` take one matvec each, so that every trial's sum
+    is the single-trial one."""
+    if src.dim() == 2:
+        return torch.stack([_matvec(W, row) for row in src.unbind(0)])
     if W.dtype == torch.float32:
         return torch.mv(W, src)
     return torch.mv(W.to(torch.float32), src.to(W.dtype).to(torch.float32))
@@ -109,14 +123,33 @@ def generic_fused_step_plain(step: GenericStep, srcs: Sequence[torch.Tensor],
             ext[k] = ext.get(k, 0.0) + r / step.dt
     d = step.tile_func(st, a_tile, ext)
     if step.derivative:
-        return torch.stack([d[q] for q in step.state_order])
+        return torch.stack([d[q] for q in step.state_order], dim=-2)
     rows = []
     for i, q in enumerate(step.state_order):
         new = states[i] + step.dt * d[q]
         if i in resets:
             new = new * (1.0 - resets[i]) + resets[i] * step.reset_val
         rows.append(new)
-    return torch.stack(rows)
+    return torch.stack(rows, dim=-2)
+
+
+def generic_fused_rows_plain(step: GenericStep, srcs: Sequence[torch.Tensor],
+                             Ws: Sequence[torch.Tensor], drive: torch.Tensor,
+                             states: Sequence[torch.Tensor],
+                             vecs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of one generic fused step of ``B`` trials: the
+    sources, the drive and the states ``(B, n)`` (or ``(n,)``, shared by
+    every trial), the per-neuron rows ``(n,)``; a new ``(B, V, n)`` tensor.
+    Each trial's coupling sums are its own matvecs, so row ``b`` is
+    :func:`generic_fused_step_plain` of trial ``b``."""
+    B = next(t.shape[0] for t in list(states) + list(srcs) + [drive] if t.dim() == 2)
+    n = drive.shape[-1]
+
+    def rows(t):
+        return t.expand(B, n)
+
+    return generic_fused_step_plain(step, [rows(t) for t in srcs], Ws, rows(drive),
+                                    [rows(t) for t in states], vecs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,16 +164,16 @@ def _launch_fn(source: str):
     return fn
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device: torch.device):
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device: torch.device,
+           who: str = "generic_fused_step"):
     if t.device != device:
-        raise ValueError(f"generic_fused_step: {name} is on {t.device}, the drive on {device}")
+        raise ValueError(f"{who}: {name} is on {t.device}, the drive on {device}")
     if t.dtype != dtype:
-        raise ValueError(f"generic_fused_step: {name} must be {dtype}, got {t.dtype}")
+        raise ValueError(f"{who}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
-        raise ValueError(
-            f"generic_fused_step: {name} must have shape {shape}, got {tuple(t.shape)}")
+        raise ValueError(f"{who}: {name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"generic_fused_step: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 def generic_fused_step(step: GenericStep, srcs: Sequence[torch.Tensor],
@@ -162,6 +195,8 @@ def generic_fused_step(step: GenericStep, srcs: Sequence[torch.Tensor],
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
             f"generic_fused_step: the drive must be on the current CUDA device, got {device}")
+    refuse_autograd("generic_fused_step", list(srcs) + list(Ws) + [drive] + list(states)
+                     + list(vecs))
     K, V = len(step.targets), len(step.state_order)
     if (len(Ws), len(srcs), len(states), len(vecs)) != (K, K, V, len(step.vec_keys)):
         raise ValueError(
@@ -201,11 +236,121 @@ def generic_fused_step(step: GenericStep, srcs: Sequence[torch.Tensor],
 generic_fused_step.launches = 0
 
 
-def _row(val, n: int, device: torch.device) -> torch.Tensor:
-    """A contiguous ``(n,)`` float32 row of a tensor or a Python float."""
-    if isinstance(val, torch.Tensor):
-        return val.to(device=device, dtype=torch.float32).expand(n).contiguous()
-    return torch.full((n,), float(val), dtype=torch.float32, device=device)
+def refuse_autograd(name: str, tensors) -> None:
+    """The kernels write their results through ctypes, with no autograd
+    history: refuse, rather than cut a gradient silently, when autograd
+    would need one through them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but the CUDA kernel has no backward (nor has "
+            f"the JAX package's Pallas kernel). Train without the fused step attached (CPU "
+            f"tensors take the plain version instead).")
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_launch_fn(source: str):
+    """The B-row C entry point of a generated source (the same library as
+    :func:`_launch_fn`'s)."""
+    fn = build_generated("generic_fused_step", source).lib.generic_fused_rows_launch
+    i, f = ctypes.c_int, ctypes.c_float
+    fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.POINTER(ctypes.c_double), i, i, i, i, f, f, f, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rows_vector_path(n: int, Ws: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor]) -> bool:
+    """Whether the B-row kernel takes its vector path: ``n`` a multiple of
+    4, every W and source base 16-byte aligned and every source row stride
+    (0 for a shared row) a multiple of 4.  Anything else takes the scalar
+    instantiation."""
+    return n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in list(Ws) + list(srcs)) and all(
+        _ld(t) % 4 == 0 for t in srcs)
+
+
+def _ld(t: torch.Tensor) -> int:
+    """The row stride of ``(B, n)`` rows, 0 for one ``(n,)`` row."""
+    return t.stride(0) if t.dim() == 2 else 0
+
+
+def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
+                       Ws: Sequence[torch.Tensor], drive: torch.Tensor,
+                       states: Sequence[torch.Tensor],
+                       vecs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """One generic fused step of ``B`` trials that share the couplings and
+    the parameters (see :func:`generic_fused_rows_plain`): a new ``(B, V,
+    n)`` float32 tensor, the node's ``(B, V*n)`` state layout.
+
+    A drive on the CPU takes the plain version.  A drive on the GPU
+    launches the B-row kernel on the current stream: K couplings ``(n, n)``,
+    all float32 or all bfloat16 and contiguous; the K sources, the drive
+    and the V states float32 ``(B, n)`` or ``(n,)`` (one row shared by every
+    trial) with contiguous rows (the rows may be strided: the node's state
+    is read in place); the P per-neuron rows ``(n,)`` float32 and
+    contiguous; all on the current device.  Anything else raises.  Each
+    launch adds one to ``generic_fused_rows.launches``."""
+    device = drive.device
+    if device.type == "cpu":
+        return generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
+    if device.type != "cuda" or device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"generic_fused_rows: the drive must be on the current CUDA device, got {device}")
+    refuse_autograd("generic_fused_rows", list(srcs) + list(Ws) + [drive] + list(states)
+                     + list(vecs))
+    K, V = len(step.targets), len(step.state_order)
+    if (len(Ws), len(srcs), len(states), len(vecs)) != (K, K, V, len(step.vec_keys)):
+        raise ValueError(
+            f"generic_fused_rows: expected {K} couplings and sources, {V} state rows and "
+            f"{len(step.vec_keys)} per-neuron rows; got {len(Ws)}, {len(srcs)}, "
+            f"{len(states)} and {len(vecs)}")
+    per_trial = list(srcs) + [drive] + list(states)
+    two_d = [t for t in per_trial if t.dim() == 2]
+    if not two_d:
+        raise ValueError("generic_fused_rows: no operand has a trial axis (B, n)")
+    B, n = two_d[0].shape
+    w_dtype = Ws[0].dtype
+    if w_dtype not in _VEC_ELEMS:
+        raise ValueError(f"generic_fused_rows: W must be float32 or bfloat16, got {w_dtype}")
+    for c, W in enumerate(Ws):
+        _check(f"W[{c}]", W, (n, n), w_dtype, device, "generic_fused_rows")
+    for j, t in enumerate(vecs):
+        _check(f"vec[{j}]", t, (n,), torch.float32, device, "generic_fused_rows")
+    names = ([f"src[{c}]" for c in range(K)] + ["drive"] + [f"state[{v}]" for v in range(V)])
+    for name, t in zip(names, per_trial):
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"generic_fused_rows: {name} must be float32 on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        if t.shape not in ((B, n), (n,)) or t.stride(-1) != 1:
+            raise ValueError(f"generic_fused_rows: {name} must be ({B}, {n}) or ({n},) with "
+                             f"contiguous rows, got {tuple(t.shape)} strides {t.stride()}")
+
+    out = torch.empty((B, V, n), dtype=torch.float32, device=device)
+    ptrs = ([W.data_ptr() for W in Ws] + [t.data_ptr() for t in per_trial]
+            + [t.data_ptr() for t in vecs] + [out.data_ptr()])
+    lds = [_ld(t) for t in per_trial] + [V * n]
+    scalars = list(step.scalars.values())
+    err = _rows_launch_fn(step.source)(
+        (ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_longlong * len(lds))(*lds),
+        (ctypes.c_double * max(len(scalars), 1))(*scalars), n, B,
+        int(w_dtype == torch.bfloat16), int(rows_vector_path(n, Ws, srcs)), step.dt,
+        step.thresh, step.reset_val, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"generic_fused_rows: kernel launch failed with CUDA error {err}")
+    generic_fused_rows.launches += 1
+    return out
+
+
+generic_fused_rows.launches = 0
+
+
+def _row(val, n: int, device: torch.device, lead: tuple = ()) -> torch.Tensor:
+    """A float32 ``(*lead, n)`` block of a tensor or a Python float, each
+    row contiguous: a contiguous ``(n,)`` row, or ``(B, n)`` rows of which a
+    row shared by every trial stays one row (row stride 0)."""
+    if not isinstance(val, torch.Tensor):
+        val = torch.full((n,), float(val), dtype=torch.float32, device=device)
+    t = val.to(device=device, dtype=torch.float32).expand(*lead, n)
+    return t if t.stride(-1) == 1 else t.contiguous()
 
 
 def attach_generic_fused_step(node, weights_dtype=None) -> None:
@@ -218,8 +363,9 @@ def attach_generic_fused_step(node, weights_dtype=None) -> None:
     The node keeps its state layout, records, ``get_var`` and ``reset``.
     ``set_param`` refreshes the per-neuron parameters and the couplings in
     the kernel's copies and raises for the scalars, which are baked in.
-    ``(B, S)`` states (``run_batch``) launch the kernel once per trial, and
-    a per-trial sweep of the node's parameters raises.
+    ``(B, S)`` states (``run_batch``) launch the B-row kernel once per step
+    (twice for Heun), and a per-trial sweep of the node's parameters
+    raises.
     """
     from ..nodes import resolve_dtype  # nodes imports ops: not at module level
 
@@ -344,8 +490,8 @@ def attach_generic_fused_step(node, weights_dtype=None) -> None:
     post_out = cls_name in ("SpikeNet", "MultiSpikeResetNet")
     out_lo, out_hi = node._start, node._stop
 
-    def pieces(args, x):
-        drive = x.to(torch.float32).expand(n).contiguous()
+    def pieces(args, x, lead):
+        drive = _row(x, n, device, lead)
         vecs = [args[f"__row_{k}__"] for k in vec_keys]
         a_full = dict(scalars)
         a_full.update(zip(vec_keys, vecs))
@@ -355,49 +501,46 @@ def attach_generic_fused_step(node, weights_dtype=None) -> None:
     def launch(rows, drive, vecs, a_full, Ws):
         # a state source is a view of the state; an algebraic one is
         # computed here once per launch, as the JAX package does outside its
-        # kernel (generic_fused.py:336-353)
+        # kernel (generic_fused.py:336-353).  (B, n) rows (run_batch) take
+        # the B-row kernel, one launch for every trial.
         st = dict(zip(state_order, rows))
-        srcs = [_row(rd(st, a_full), n, device) for rd in src_readers]
-        return generic_fused_step(step, srcs, Ws, drive, rows, vecs)
+        lead = tuple(rows[0].shape[:-1])
+        srcs = [_row(rd(st, a_full), n, device, lead) for rd in src_readers]
+        kernel = generic_fused_rows if lead else generic_fused_step
+        return kernel(step, srcs, Ws, drive, rows, vecs)
 
     def read_out(rows, a_full):
-        return _row(out_reader(dict(zip(state_order, rows)), a_full), n, device)
+        return _row(out_reader(dict(zip(state_order, rows)), a_full), n, device,
+                    tuple(rows[0].shape[:-1]))
 
     def fused_step(y, args, x):
-        drive, vecs, a_full, Ws = pieces(args, x)
-        rows = list(y.reshape(n_vars, n).unbind(0))
+        lead = tuple(y.shape[:-1])
+        drive, vecs, a_full, Ws = pieces(args, x, lead)
+        rows = list(y.reshape(*lead, n_vars, n).unbind(-2))
         new = launch(rows, drive, vecs, a_full, Ws)
-        y_new = new.reshape(-1)
+        y_new = new.reshape(y.shape)
         # output per node class: RateNet/SpikeResetNet read the pre-update
         # state, SpikeNet/MultiSpikeResetNet the post-update state
         if out_reader is not None:
-            out = read_out(list(new.unbind(0)) if post_out else rows, a_full)
+            out = read_out(list(new.unbind(-2)) if post_out else rows, a_full)
         else:
-            out = (y_new if post_out else y)[out_lo:out_hi]
+            out = (y_new if post_out else y)[..., out_lo:out_hi]
         return y_new, out
 
     def fused_step_heun(y, args, x):
         # the kernel in derivative mode, twice, with the RK2 combination
         # between (the plain Heun step's two vector-field evaluations)
-        drive, vecs, a_full, Ws = pieces(args, x)
-        Y = y.reshape(n_vars, n)
-        k1 = launch(list(Y.unbind(0)), drive, vecs, a_full, Ws)
-        k2 = launch(list((Y + dt * k1).unbind(0)), drive, vecs, a_full, Ws)
-        y_new = (Y + (dt * 0.5) * (k1 + k2)).reshape(-1)
-        out = (read_out(list(Y.unbind(0)), a_full) if out_reader is not None
-               else y[out_lo:out_hi])  # RateNet: pre-update output
+        lead = tuple(y.shape[:-1])
+        drive, vecs, a_full, Ws = pieces(args, x, lead)
+        Y = y.reshape(*lead, n_vars, n)
+        k1 = launch(list(Y.unbind(-2)), drive, vecs, a_full, Ws)
+        k2 = launch(list((Y + dt * k1).unbind(-2)), drive, vecs, a_full, Ws)
+        y_new = (Y + (dt * 0.5) * (k1 + k2)).reshape(y.shape)
+        out = (read_out(list(Y.unbind(-2)), a_full) if out_reader is not None
+               else y[..., out_lo:out_hi])  # RateNet: pre-update output
         return y_new, out
 
-    one_trial = fused_step_heun if heun else fused_step
-
-    def chosen(y, args, x):
-        if y.dim() == 1:
-            return one_trial(y, args, x)
-        # (B, S) states: the kernel takes one trial, so it launches once per
-        # trial (its B-row form is ROADMAP Queue 2, follow-on g)
-        xs = x.unbind(0) if x.dim() == 2 else [x] * y.shape[0]
-        ys, outs = zip(*(one_trial(yb, args, xb) for yb, xb in zip(y.unbind(0), xs)))
-        return torch.stack(ys), torch.stack(outs)
+    chosen = fused_step_heun if heun else fused_step
 
     def sweep(args):
         raise ValueError("The generic fused step bakes in or shares every parameter across "

@@ -20,6 +20,10 @@ states ``(B, n)`` that share W (the TPU kernel under the JAX package's
 ``vmap``): the B-row kernel reads W once for up to 32 trials.  An aligned
 bfloat16 W takes its tensor-core instance (:func:`rows_route`).
 
+The kernels have no backward (nor has the TPU kernel), so on the card the
+wrappers raise when autograd would need one; the plain version on CPU
+tensors is what autograd sees there.
+
 W stays row-major and unpadded: the JAX package's transposed, tile-padded
 copy and padded state layout existed for the TPU's matrix unit.
 """
@@ -34,6 +38,7 @@ import torch
 from ..dsl.lower import matvec
 from ..nodes import resolve_dtype
 from ._build import build
+from .generic_fused import refuse_autograd
 
 __all__ = ["qif_sfa_reference_step", "qif_sfa_step", "rows_route", "attach_fused_qif_step"]
 
@@ -114,6 +119,7 @@ def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thres
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
             f"qif_sfa_step: W must be on the current CUDA device, got {device}")
+    refuse_autograd("qif_sfa_step", (v, s, x, W, eta, inp))
     n = v.shape[0] if v.dim() == 1 else -1
     if W.dtype not in _VEC_ELEMS:
         raise ValueError(f"qif_sfa_step: W must be float32 or bfloat16, got {W.dtype}")
@@ -171,6 +177,7 @@ def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, 
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
             f"qif_sfa_step: W must be on the current CUDA device, got {device}")
+    refuse_autograd("qif_sfa_step", (v, s, x, W, eta, inp))
     if v.dim() != 2:
         raise ValueError(f"qif_sfa_step: B-row v must be (B, n), got {tuple(v.shape)}")
     rows, n = v.shape

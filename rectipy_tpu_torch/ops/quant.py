@@ -36,7 +36,9 @@ The int4 section (below) is the same scheme one notch down: weights in
 [-7, 7] per row, kept at rest in an int8 carrier as the JAX package keeps
 them, and packed two per byte (:func:`pack_int4`) for the products, which
 are the hand-written kernels of ``csrc/int4_matvec.cu`` (the counterpart of
-the packed-int4 Pallas matvec of ``benchmarks/i4pack_microbench.py``).
+the packed-int4 Pallas matvec of ``benchmarks/i4pack_microbench.py``):
+:func:`int4_mv` and :func:`int4_mv_t` for a vector, :func:`int4_mm` and
+:func:`int4_mm_t` for ``(..., n)`` rows, one activation scale each.
 
 Block-sparse couplings are not ported yet (ROADMAP Queue 1 item 10).
 """
@@ -55,7 +57,8 @@ __all__ = ["quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot", "int
            "int8_mm_t_plain", "int8_mm_route", "int8_mm_t_route", "int8_master_matvec",
            "int8_master_ops", "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN", "quantize_rows_i4",
            "pack_int4", "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
-           "int4_master_matvec", "int4_master_ops"]
+           "int4_mm", "int4_mm_t", "int4_mm_plain", "int4_mm_t_plain", "int4_master_matvec",
+           "int4_master_ops"]
 
 # int8 x int8 products accumulate in int32: the worst-case per-output sum is
 # 127*127*n_in, so the fan-in must stay below this to be overflow-safe
@@ -327,8 +330,9 @@ def int8_product(wq, xq, row_scale, act_scale) -> torch.Tensor:
     per trial."""
     if xq.dim() == 1:
         return int8_mv(wq, xq, row_scale, act_scale)
-    if wq.dim() == 3:
-        return torch.stack([int8_mv(wq[b], xq[b], row_scale[b], act_scale[b])
+    if wq.dim() == 3:  # a frozen coupling's row scale is shared, a master's per trial
+        return torch.stack([int8_mv(wq[b], xq[b], row_scale[b] if row_scale.dim() == 2
+                                    else row_scale, act_scale[b])
                             for b in range(wq.shape[0])])
     lead = xq.shape[:-1]
     out = int8_mm(wq, xq.reshape(-1, xq.shape[-1]), row_scale, act_scale.reshape(-1))
@@ -446,10 +450,12 @@ INT4_MV_MAX_FAN_IN = (2**31 - 1) // (8 * 127)  # 2113664
 
 def quantize_rows_i4(w: torch.Tensor):
     """Symmetric per-output-row quantization to [-7, 7]: ``(wq int8 carrier
-    (n_out, n_in), scale float32 (n_out,))``, the JAX package's casts."""
-    amax = w.abs().amax(dim=1)
+    (n_out, n_in), scale float32 (n_out,))``, the JAX package's casts; a
+    ``(B, n_out, n_in)`` stack of per-trial matrices quantizes each of its
+    rows."""
+    amax = w.abs().amax(dim=-1)
     scale = (torch.clamp_min(amax, 1e-30) / 7.0).to(torch.float32)
-    wq = torch.clamp(torch.round(w / scale[:, None].to(w.dtype)), -7, 7).to(torch.int8)
+    wq = torch.clamp(torch.round(w / scale[..., None].to(w.dtype)), -7, 7).to(torch.int8)
     return wq, scale
 
 
@@ -460,15 +466,18 @@ def int4_stride(n_in: int) -> int:
 
 
 def pack_int4(wq: torch.Tensor) -> torch.Tensor:
-    """``(n_out, n_in)`` integers in [-8, 7] -> ``(n_out, int4_stride(n_in))``
-    uint8.  Byte ``k`` of row ``i`` holds ``wq[i, 2k] + 8`` in its low nibble
-    and ``wq[i, 2k+1] + 8`` in its high nibble (offset binary); the nibbles
-    past ``n_in`` hold 8, a zero weight.  Per output row, this is the
-    transpose of the Pallas kernel's packing (``i4pack_microbench.py``)."""
-    n_out, n_in = wq.shape
-    nib = torch.full((n_out, 2 * int4_stride(n_in)), 8, dtype=torch.uint8, device=wq.device)
-    nib[:, :n_in] = (wq.to(torch.int16) + 8).to(torch.uint8)
-    return (nib[:, 0::2] | (nib[:, 1::2] << 4)).contiguous()
+    """``(..., n_out, n_in)`` integers in [-8, 7] -> ``(..., n_out,
+    int4_stride(n_in))`` uint8.  Byte ``k`` of row ``i`` holds ``wq[i, 2k] +
+    8`` in its low nibble and ``wq[i, 2k+1] + 8`` in its high nibble (offset
+    binary); the nibbles past ``n_in`` hold 8, a zero weight.  Per output
+    row, this is the transpose of the Pallas kernel's packing
+    (``i4pack_microbench.py``).  A ``(B, n_out, n_in)`` stack (a swept
+    coupling) packs each trial's matrix."""
+    n_in = wq.shape[-1]
+    nib = torch.full(wq.shape[:-1] + (2 * int4_stride(n_in),), 8, dtype=torch.uint8,
+                     device=wq.device)
+    nib[..., :n_in] = (wq.to(torch.int16) + 8).to(torch.uint8)
+    return (nib[..., 0::2] | (nib[..., 1::2] << 4)).contiguous()
 
 
 def unpack_int4(wp: torch.Tensor, n_in: int) -> torch.Tensor:
@@ -510,16 +519,45 @@ def int4_dot_t_plain(wp: torch.Tensor, vq: torch.Tensor, n_in: int) -> torch.Ten
     return (acc.to(torch.float64) - 8.0 * vq.to(torch.float64).sum()).to(torch.float32)
 
 
+def int4_mm_plain(wp: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`int4_mm`'s sums: ``float32(xq @ W.T)`` for
+    ``(B, n_in)`` rows and the packed ``wp``, summed exactly (the even and
+    the odd weights apart, the offset taken off once, as
+    :func:`int4_dot_plain`)."""
+    B, n_in = xq.shape
+    lo, hi, dt = _nibble_planes(wp, wp.shape[1])
+    x = torch.zeros((B, 2 * wp.shape[1]), dtype=dt, device=xq.device)
+    x[:, :n_in] = xq.to(dt)
+    acc = (x[:, 0::2] @ lo.T).to(torch.float64) + (x[:, 1::2] @ hi.T).to(torch.float64)
+    return (acc - 8.0 * xq.to(torch.float64).sum(dim=1, keepdim=True)).to(torch.float32)
+
+
+def int4_mm_t_plain(wp: torch.Tensor, vq: torch.Tensor, n_in: int) -> torch.Tensor:
+    """Plain version of :func:`int4_mm_t`'s sums: ``float32(vq @ W)`` for
+    ``(B, n_out)`` rows, summed exactly."""
+    B = vq.shape[0]
+    lo, hi, dt = _nibble_planes(wp, wp.shape[0])
+    v = vq.to(dt)
+    acc = torch.stack((v @ lo, v @ hi), dim=2).reshape(B, -1)[:, :n_in]
+    return (acc.to(torch.float64)
+            - 8.0 * vq.to(torch.float64).sum(dim=1, keepdim=True)).to(torch.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib4():
     lib = build("int4_matvec").lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.int4_mv_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.int4_mv_t_launch.argtypes = [p, p, p, p, p, i, i, i, i, p]
-    lib.int4_mv_launch.restype = ctypes.c_int
-    lib.int4_mv_t_launch.restype = ctypes.c_int
+    lib.int4_mm_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.int4_mm_t_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    for fn in (lib.int4_mv_launch, lib.int4_mv_t_launch, lib.int4_mm_launch,
+               lib.int4_mm_t_launch):
+        fn.restype = ctypes.c_int
     lib.int4_mv_t_scratch.argtypes = [i, i, i]
     lib.int4_mv_t_scratch.restype = ctypes.c_longlong
+    lib.int4_mm_t_scratch.argtypes = [i, i, i]
+    lib.int4_mm_t_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -589,34 +627,103 @@ def int4_mv_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:
 int4_mv_t.launches = 0
 
 
+def int4_mm(wp, xq, row_scale, act_scale) -> torch.Tensor:
+    """``out[b, i] = (float32(sum_j W[i, j] * xq[b, j]) * row_scale[i]) *
+    act_scale[b]``, float32 ``(B, n_out)``: :func:`int4_mv` for ``B`` rows of
+    activations ``(B, n_in)``, each with its own scale ``act_scale (B,)``.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel of
+    ``csrc/int4_matvec.cu`` on the current stream, which reads the packed W
+    once for up to 32 rows; anything it does not take raises.  Each launch
+    adds one to ``int4_mm.launches``."""
+    if wp.device.type == "cpu":
+        return (int4_mm_plain(wp, xq) * row_scale) * act_scale[:, None]
+    n_out = wp.shape[0]
+    rows, n_in = xq.shape if xq.dim() == 2 else (-1, -1)
+    _check("int4_mm", wp, xq, row_scale, act_scale, n_in, dtype=torch.uint8,
+           max_fan_in=INT4_MV_MAX_FAN_IN, n_in=n_in, rows=rows)
+    out = torch.empty((rows, n_out), dtype=torch.float32, device=wp.device)
+    vec = int4_vector_path(wp, xq) and n_in % 16 == 0
+    err = _lib4().int4_mm_launch(wp.data_ptr(), xq.data_ptr(), row_scale.data_ptr(),
+                                 act_scale.data_ptr(), out.data_ptr(), n_out, n_in, wp.shape[1],
+                                 rows, int(vec), torch.cuda.current_stream(wp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4_mm: kernel launch failed with CUDA error {err}")
+    int4_mm.launches += 1
+    return out
+
+
+int4_mm.launches = 0
+
+
+def int4_mm_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:
+    """``out[b, j] = float32(sum_i W[i, j] * vq[b, i]) * act_scale[b]``,
+    float32 ``(B, n_in)``: :func:`int4_mv_t` for ``B`` rows ``(B, n_out)``,
+    read from the row-major packed ``wp`` without a transposed copy.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    ``csrc/int4_matvec.cu``, which sum chunks of rows for up to 32 rows of
+    activations into an int32 scratch and then the chunks (exact in any
+    order).  Each launch adds one to ``int4_mm_t.launches``."""
+    if wp.device.type == "cpu":
+        return int4_mm_t_plain(wp, vq, n_in) * act_scale[:, None]
+    n_out = wp.shape[0]
+    rows = vq.shape[0] if vq.dim() == 2 else -1
+    _check("int4_mm_t", wp, vq, None, act_scale, n_out, dtype=torch.uint8,
+           max_fan_in=INT4_MV_MAX_FAN_IN, n_in=n_in, rows=rows)
+    lib = _lib4()
+    partial = torch.empty(lib.int4_mm_t_scratch(n_out, n_in, rows), dtype=torch.int32,
+                          device=wp.device)
+    out = torch.empty((rows, n_in), dtype=torch.float32, device=wp.device)
+    err = lib.int4_mm_t_launch(wp.data_ptr(), vq.data_ptr(), act_scale.data_ptr(),
+                               partial.data_ptr(), out.data_ptr(), n_out, n_in, wp.shape[1], rows,
+                               int(int4_vector_path(wp)),
+                               torch.cuda.current_stream(wp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"int4_mm_t: kernel launch failed with CUDA error {err}")
+    int4_mm_t.launches += 1
+    return out
+
+
+int4_mm_t.launches = 0
+
+
 def _i4_prep(w):
     """int4_master prep: float master -> ``(packed weights, row scale,
-    n_in)``; the packed form replaces the JAX package's int4 cast."""
+    n_in)``; the packed form replaces the JAX package's int4 cast.  A ``(B,
+    n_out, n_in)`` stack (a swept coupling) preps each trial's matrix."""
     wq, scale = quantize_rows_i4(w)
-    return pack_int4(wq), scale, w.shape[1]
-
-
-def _int4_rows(name: str, fn, vec: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
-    """``fn`` applied to each row of ``(..., n)`` int8 activations with its
-    own scale: the batched int4 products, on the plain path only (batched
-    int4 kernels are not written yet, ROADMAP Queue 2)."""
-    if vec.device.type != "cpu":
-        raise NotImplementedError(
-            f"{name} of rows (trials) on the GPU is not ported yet: batched int4 kernels "
-            f"(int4_mm/int4_mm_t, ROADMAP Queue 2, follow-on h) are still to be written; use "
-            f"an int8 or bfloat16 coupling for run_batch/fit_bptt_batch on the card.")
-    rows = vec.reshape(-1, vec.shape[-1])
-    scales = act_scale.reshape(-1)
-    out = torch.stack([fn(rows[b], scales[b]) for b in range(rows.shape[0])])
-    return out.reshape(*vec.shape[:-1], out.shape[-1])
+    return pack_int4(wq), scale, w.shape[-1]
 
 
 def int4_product(wp, xq, row_scale, act_scale) -> torch.Tensor:
-    """:func:`int4_mv` for a vector; for rows ``(..., n_in)`` (one activation
-    scale each, ``(..., 1)``) the per-row plain products (CPU tensors only)."""
+    """The forward int4 product for any source, as :func:`int8_product`
+    dispatches the int8 one: :func:`int4_mv` for a vector, :func:`int4_mm`
+    for rows ``(..., n_in)`` (leading axes flattened, ``act_scale`` of shape
+    ``(..., 1)``), and, for per-trial packed weights ``(B, n_out, stride)``
+    (a swept coupling: nothing to share), one :func:`int4_mv` per trial."""
     if xq.dim() == 1:
         return int4_mv(wp, xq, row_scale, act_scale)
-    return _int4_rows("int4_mv", lambda x, s: int4_mv(wp, x, row_scale, s), xq, act_scale)
+    if wp.dim() == 3:  # a frozen coupling's row scale is shared, a master's per trial
+        return torch.stack([int4_mv(wp[b], xq[b], row_scale[b] if row_scale.dim() == 2
+                                    else row_scale, act_scale[b])
+                            for b in range(wp.shape[0])])
+    lead = xq.shape[:-1]
+    out = int4_mm(wp, xq.reshape(-1, xq.shape[-1]), row_scale, act_scale.reshape(-1))
+    return out.reshape(*lead, wp.shape[0])
+
+
+def int4_product_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:
+    """The transposed int4 product for any source, as :func:`int4_product`
+    dispatches the forward one."""
+    if vq.dim() == 1:
+        return int4_mv_t(wp, vq, act_scale, n_in)
+    if wp.dim() == 3:
+        return torch.stack([int4_mv_t(wp[b], vq[b], act_scale[b], n_in)
+                            for b in range(wp.shape[0])])
+    lead = vq.shape[:-1]
+    out = int4_mm_t(wp, vq.reshape(-1, vq.shape[-1]), act_scale.reshape(-1), n_in)
+    return out.reshape(*lead, n_in)
 
 
 def _mv4_prepped(wp, src):
@@ -629,10 +736,7 @@ def _mv4_t_prepped(wp, delta):
     quantization, as in :func:`_mv_t_prepped`."""
     v = wp[1].to(delta.dtype) * delta
     vq, vs = quant_vec(v)
-    if delta.dim() > 1:
-        return _int4_rows("int4_mv_t", lambda x, s: int4_mv_t(wp[0], x, s, wp[2]), vq,
-                          vs).to(delta.dtype)
-    return int4_mv_t(wp[0], vq, vs, wp[2]).to(delta.dtype)
+    return int4_product_t(wp[0], vq, vs, wp[2]).to(delta.dtype)
 
 
 def int4_master_ops():

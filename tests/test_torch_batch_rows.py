@@ -1,0 +1,487 @@
+"""The batched forms of the generic fused step and the int4 products (CPU).
+
+- ``run_batch`` of a node with the generic fused step against the JAX
+  package's ``run_batch`` of the same network with its Pallas kernel
+  attached in interpret mode (``vmap`` of the kernel), for every node class
+  and mode of ``tests/test_torch_generic_fused.py`` at its tolerances, each
+  trial against the port's single-trial run, and one B-row step a time step
+  (two for Heun);
+- ``generic_fused_rows_plain`` against the single-trial plain step, trial
+  by trial, exactly;
+- frozen ``int4`` in ``run_batch``, ``int4_master`` in ``fit_bptt_batch``,
+  an ``int4_master`` coupling swept per trial through ``batch_vars`` and
+  the source gradients through a swept frozen ``int4`` coupling, against
+  the JAX package at float32;
+- numpy models of ``int4_mm`` and ``int4_mm_t`` (``csrc/int4_matvec.cu``),
+  lane by lane: the nibble unpack, the even/odd split of the activations,
+  the shared-memory layouts and the chunks of rows, against the plain
+  versions bit for bit.
+
+Inputs come from numpy seeds.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rectipy_tpu import Network as JNetwork
+from rectipy_tpu.dsl.parser import CircuitTemplate as JCircuit
+from rectipy_tpu.dsl.parser import NodeTemplate as JNodeTemplate
+from rectipy_tpu.ops.generic_fused import attach_generic_fused_step as j_attach
+from rectipy_tpu_torch import Network
+from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate
+from rectipy_tpu_torch.ops import generic_fused as gf
+from rectipy_tpu_torch.ops import quant
+from rectipy_tpu_torch.testing import GENERIC_CASES, generic_case_net, generic_inputs
+
+J, T_ = "neuron_model_templates.", "rectipy_tpu_torch.models."
+LIF = "spiking_neurons.lif.lif"
+QIF_SFA = "spiking_neurons.qif.qif_sfa"
+QIF_RESET = "spiking_neurons.qif.qif_reset"
+IK = "spiking_neurons.ik.ik"
+TANH = "rate_neurons.leaky_integrator.tanh"
+
+
+def _net(pkg, dt):
+    if pkg == "jax":
+        return JNetwork(dt, dtype=jnp.float32), J
+    return Network(dt, device="cpu", dtype=torch.float32), T_
+
+
+F32 = dict(dtype=jnp.float32)  # the node's dtype (both packages take the JAX name)
+
+
+def _lif(pkg, rng):
+    n = 16
+    W, tau = np.abs(rng.normal(size=(n, n))) * 0.05, rng.uniform(10.0, 15.0, size=n)
+    net, pre = _net(pkg, 1e-2)
+    net.add_diffeq_node("lif", pre + LIF, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="lif_op", spike_var="spike",
+                        reset_var="v", spike_threshold=10.0, spike_reset=-10.0,
+                        node_vars={"eta": 10.0, "tau": tau, "tau_s": 5.0}, **F32)
+    return net
+
+
+def _qif_sfa(pkg, rng):
+    n = 32
+    W, etas = (rng.random((n, n)) < 0.2) * 0.02, rng.normal(size=n) + 100.0
+    net, pre = _net(pkg, 1e-3)
+    net.add_diffeq_node("qif", pre + QIF_SFA, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="qif_sfa_op", spike_var="spike",
+                        spike_def="v", spike_threshold=30.0, spike_reset=-30.0,
+                        node_vars={"all/qif_sfa_op/eta": etas}, **F32)
+    return net
+
+
+def _spikenet(pkg, rng):
+    n = 24
+    W = np.abs(rng.normal(size=(n, n))) * 0.01
+    net, pre = _net(pkg, 1e-3)
+    net.add_diffeq_node("qif", pre + QIF_RESET, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="qif_reset_op", spike_var="spike",
+                        reset_var="reset", reset=False, spike_threshold=10.0,
+                        spike_reset=-10.0, node_vars={"eta": 8.0, "k": 0.0}, **F32)
+    return net
+
+
+def _multi_spike(pkg, rng):
+    n = 16
+    W = np.abs(rng.normal(size=(n, n))) * 0.02
+    net, pre = _net(pkg, 1e-2)
+    net.add_diffeq_node("ik", pre + IK, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="ik_op", spike_var=["spike"],
+                        reset_var=["v"], spike_threshold=40.0, spike_reset=-60.0,
+                        node_vars={"eta": 200.0}, **F32)
+    return net
+
+
+def _tanh_heun(pkg, rng):
+    n = 24
+    W, tau = rng.normal(size=(n, n)) * 0.3, rng.uniform(5.0, 15.0, size=n)
+    net, pre = _net(pkg, 1e-2)
+    net.add_diffeq_node("rnn", pre + TANH, weights=W, input_var="li_op/I_ext",
+                        output_var="li_op/v", source_var="tanh_op/r", target_var="li_op/r_in",
+                        integrator="heun", node_vars={"all/li_op/tau": tau,
+                                                      "all/li_op/eta": 1.0}, **F32)
+    return net
+
+
+def _ei(pkg, rng):
+    """Two couplings, the second into the input variable itself (K = 2)."""
+    n = 24
+    W1, W2 = rng.normal(size=(n, n)) * 0.2, rng.normal(size=(n, n)) * 0.1
+    nt, ct = (JNodeTemplate, JCircuit) if pkg == "jax" else (NodeTemplate, CircuitTemplate)
+    net, pre = _net(pkg, 1e-2)
+    circ = ct("c", {f"p{i}": nt.from_yaml(pre + TANH) for i in range(n)})
+    circ.add_edges_from_matrix("tanh_op/r", "li_op/r_in", weight=W1)
+    circ.add_edges_from_matrix("tanh_op/r", "li_op/I_ext", weight=W2)
+    net.add_diffeq_node("rnn", circ, input_var="li_op/I_ext", output_var="li_op/v", **F32)
+    return net
+
+
+# name -> (build function, steps, drive (scale, offset of trial 0, of the last),
+# atol and JAX tile of test_torch_generic_fused.py's case, spiking?)
+ROW_CASES = {
+    "lif": (_lif, 150, (3.0, 10.0, 30.0), 2e-4, 128, True),
+    "qif_sfa": (_qif_sfa, 200, (1.0, 0.0, 200.0), 2e-4, 128, True),
+    "spikenet": (_spikenet, 200, (1.0, 200.0, 600.0), 2e-4, 128, True),
+    "multi_spike_reset": (_multi_spike, 250, (1.0, 3000.0, 12000.0), 2e-4, 128, True),
+    "tanh_heun": (_tanh_heun, 150, (1.0, -1.0, 1.0), 5e-5, 128, False),
+    "two_couplings": (_ei, 150, (1.0, -1.0, 1.0), 5e-4, 16, False),
+}
+
+
+def _build(case, pkg):
+    build, *_, tile, _ = ROW_CASES[case]
+    net = build(pkg, np.random.default_rng(21))
+    net.compile()
+    node = net.get_node(list(net.nodes)[0])
+    if pkg == "jax":
+        j_attach(node, tile=tile, interpret=True)
+    else:
+        gf.attach_generic_fused_step(node)
+    return net
+
+
+def _counting(monkeypatch, name):
+    calls = []
+    fn = getattr(gf, name)
+
+    def counted(*args):
+        calls.append(1)
+        return fn(*args)
+
+    monkeypatch.setattr(gf, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_generic_rows_run_batch_matches_jax_and_single_trials(case, monkeypatch):
+    _, T, (scale, lo, hi), atol, _, spiking = ROW_CASES[case]
+    B = 4
+    n_in = _build(case, "torch").n_in
+    ins = (np.random.default_rng(22).normal(size=(B, T, n_in)) * scale
+           + np.linspace(lo, hi, B)[:, None, None]).astype(np.float32)
+    rj = _build(case, "jax").run_batch(ins, verbose=False)
+    net = _build(case, "torch")
+    rows, single = _counting(monkeypatch, "generic_fused_rows"), _counting(
+        monkeypatch, "generic_fused_step")
+    rt = net.run_batch(ins, verbose=False)
+    heun = case == "tanh_heun"
+    assert (len(rows), len(single)) == ((2 if heun else 1) * T, 0)
+    np.testing.assert_allclose(rt["out"], np.asarray(rj["out"]), rtol=1e-4, atol=atol)
+    monkeypatch.undo()
+    for b in (0, B - 1):
+        one = _build(case, "torch").run(ins[b], verbose=False).to_numpy("out")
+        np.testing.assert_allclose(rt["out"][b], one, rtol=0, atol=1e-6)
+    assert np.abs(rt["out"][0] - rt["out"][-1]).max() > 1e-3
+    if spiking:
+        assert rt["out"].max() > 0, "no spikes -- weak test"
+
+
+@pytest.mark.parametrize("case", list(GENERIC_CASES))
+def test_generic_rows_plain_equals_single_trial_plain(case):
+    # trial by trial, bit for bit: states as strided rows of one (B, V*n)
+    # buffer, per-trial sources, and a drive shared by every trial (row
+    # stride 0) in one of the two calls
+    n, B = 24, 4
+    W = np.random.default_rng(23).normal(size=(n, n)) / n
+    _, node = generic_case_net(case, W, "cpu", seed=23)
+    step, _, _, _, vecs = generic_inputs(node, 23)
+    V, K = len(step.state_order), len(step.targets)
+    Ws = [node.args[f"__w_fused_{c}__"] for c in range(K)]
+    rows = [generic_inputs(node, 30 + b)[1:4] for b in range(B)]  # (srcs, drive, states)
+    y = torch.stack([torch.cat(st) for _, _, st in rows])  # (B, V*n)
+    states = list(y.reshape(B, V, n).unbind(1))
+    srcs = [torch.stack([r[0][c] for r in rows]) for c in range(K)]
+    drives = torch.stack([r[1] for r in rows])
+    for drive in (drives, drives[0]):
+        got = gf.generic_fused_rows(step, srcs, Ws, drive, states, vecs)
+        assert got.shape == (B, V, n) and states[0].stride(0) == V * n
+        for b in range(B):
+            one = gf.generic_fused_step_plain(step, [s[b] for s in srcs], Ws,
+                                              drive[b] if drive.dim() == 2 else drive,
+                                              [s[b].contiguous() for s in states], vecs)
+            assert torch.equal(got[b], one)
+
+
+# ------------------------------------------------------------------- int4
+def _rate(pkg, W, coupling, train=False):
+    # the output is a state, so that one product runs a step
+    net, pre = _net(pkg, 1e-2)
+    net.add_diffeq_node("p", pre + TANH, weights=W, source_var="tanh_op/r",
+                        target_var="li_op/r_in", input_var="li_op/I_ext",
+                        output_var="li_op/v", coupling_dtype=coupling,
+                        train_params=["weights"] if train else None)
+    return net
+
+
+def test_frozen_int4_run_batch_matches_jax_and_takes_int4_mm(monkeypatch):
+    # the (B, n) sources take int4_mm (its plain version here), one call a
+    # step, against JAX's vmap of its int4 dot
+    rng = np.random.default_rng(24)
+    N, B, T = 20, 5, 40
+    W = rng.normal(scale=0.3, size=(N, N))
+    ins = rng.normal(size=(B, T, 1)) * np.linspace(0.5, 3.0, B)[:, None, None]
+    calls = []
+    mm = quant.int4_mm
+    monkeypatch.setattr(quant, "int4_mm", lambda *a: calls.append(1) or mm(*a))
+    rt = _rate("torch", W, "int4").run_batch(ins, verbose=False)
+    assert len(calls) == T
+    rj = _rate("jax", W, "int4").run_batch(ins, verbose=False)
+    np.testing.assert_allclose(rt["out"], np.asarray(rj["out"]), rtol=1e-5, atol=1e-6)
+
+
+def test_int4_master_fit_bptt_batch_matches_jax_at_float32(monkeypatch):
+    # the chain trajectory's (T, B, n) rows through int4_mm / int4_mm_t
+    # (their plain versions) and one dW product, against JAX at float32
+    rng = np.random.default_rng(25)
+    n, B, T = 12, 4, 40
+    W0 = rng.normal(size=(n, n)) * 0.3
+    ins, tgts = rng.normal(size=(B, T, 1)), rng.normal(size=(B, T, n)) * 0.1
+    kw = dict(n_epochs=3, optimizer="adam", lr=1e-2, verbose=False)
+    calls = {"int4_mm": [], "int4_mm_t": []}
+    for name in calls:
+        fn = getattr(quant, name)
+        monkeypatch.setattr(quant, name, lambda *a, fn=fn, c=calls[name]: c.append(1) or fn(*a))
+    tn = _rate("torch", W0, "int4_master", train=True)
+    lt = np.asarray(tn.fit_bptt_batch(ins, tgts, **kw)["epoch_loss"])
+    assert tn.last_fit["trajectory"] == "chain"
+    assert (len(calls["int4_mm"]), len(calls["int4_mm_t"])) == (3 * T, 3 * T)
+    jn = _rate("jax", W0, "int4_master", train=True)
+    lj = np.asarray(jn.fit_bptt_batch(ins, tgts, **kw)["epoch_loss"])
+    np.testing.assert_allclose(lt, lj, rtol=1e-5)
+    wt = tn.get_node("p")["weights"].numpy()
+    wj = np.asarray(jn.get_node("p")["weights"])
+    np.testing.assert_allclose(wt, wj, rtol=1e-4, atol=1e-6)
+    assert np.abs(wt - W0).max() > 1e-4
+
+
+def test_swept_int4_coupling_preps_per_trial_like_jax(monkeypatch):
+    # a per-trial int4_master coupling through batch_vars: quantized and
+    # packed per trial once per run, one int4_mv per trial a step
+    rng = np.random.default_rng(26)
+    N, B, T = 10, 3, 30
+    W = rng.normal(scale=0.3, size=(N, N))
+    Ws = rng.normal(scale=0.3, size=(B, N, N))
+    ins = rng.normal(size=(B, T, 1))
+    bv = {("p", "weights"): Ws}
+    calls = []
+    mv = quant.int4_mv
+    monkeypatch.setattr(quant, "int4_mv", lambda *a: calls.append(1) or mv(*a))
+    rt = _rate("torch", W, "int4_master").run_batch(ins, verbose=False, batch_vars=bv)
+    assert len(calls) == B * T
+    monkeypatch.undo()
+    rj = _rate("jax", W, "int4_master").run_batch(ins, verbose=False, batch_vars=bv)
+    np.testing.assert_allclose(rt["out"], np.asarray(rj["out"]), rtol=0, atol=1e-6)
+    for b in range(B):
+        one = _rate("torch", Ws[b], "int4_master").run(ins[b], verbose=False).to_numpy("out")
+        np.testing.assert_allclose(rt["out"][b], one, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("coupling,lo,hi", [("int8", -127, 128), ("int4", -7, 8)])
+def test_swept_frozen_coupling_keeps_its_shared_row_scale_like_jax(coupling, lo, hi):
+    # a frozen int8/int4 coupling swept per trial: each trial's integer
+    # weights with the coupling's one (n,) row scale, as JAX's vmap applies
+    # them (the per-trial product once took trial b's scale from that row)
+    rng = np.random.default_rng(31)
+    n, B, T = 8, 3, 20
+    W = rng.normal(size=(n, n)) * 0.3
+    Wq = rng.integers(lo, hi, size=(B, n, n)).astype(np.int8)
+    ins = rng.normal(size=(B, T, 1))
+    cd = {"jax": {"int8": jnp.int8}, "torch": {"int8": torch.int8}}
+    rj, rt = (_rate(pkg, W, cd[pkg].get(coupling, coupling)).run_batch(
+        ins, verbose=False, batch_vars={("p", "weights"): Wq}) for pkg in ("jax", "torch"))
+    np.testing.assert_allclose(rt["out"], np.asarray(rj["out"]), rtol=1e-5, atol=1e-7)
+    assert np.abs(rt["out"][0] - rt["out"][-1]).max() > 1e-3
+
+
+def test_swept_frozen_int4_coupling_passes_source_gradients_like_jax():
+    # fit_bptt_batch with a frozen int4 carrier swept per trial and a
+    # trained input edge: the straight-through gradient goes through each
+    # trial's own (n, n) weights, as JAX's vmap takes it
+    rng = np.random.default_rng(30)
+    n, B, T = 8, 3, 20
+    W = rng.normal(size=(n, n)) * 0.3
+    Wq = rng.integers(-7, 8, size=(B, n, n)).astype(np.int8)
+    ins, tgts = rng.normal(size=(B, T, 2)), rng.normal(size=(B, T, n)) * 0.1
+    W_in = rng.normal(size=(n, 2))
+    res = []
+    for pkg in ("jax", "torch"):
+        # JAX at float32 throughout: its int4 JVP refuses float64 tangents
+        # (ROADMAP Queue 3), and tests/conftest.py turns x64 on
+        with jax.enable_x64(False):
+            net = _rate(pkg, W, "int4")
+            net.add_func_node("inp", 2, activation_function="identity")
+            net.add_edge("inp", "p", weights=W_in, train="gd")
+            obs = net.fit_bptt_batch(ins, tgts, n_epochs=3, optimizer="sgd", lr=2.0,
+                                     verbose=False, batch_vars={("p", "weights"): Wq})
+            res.append((np.asarray(obs["epoch_loss"]),
+                        np.asarray(net.get_edge("inp", "p").params["weights"])))
+    np.testing.assert_allclose(res[1][0], res[0][0], rtol=1e-5)
+    np.testing.assert_allclose(res[1][1], res[0][1], rtol=1e-5, atol=1e-7)
+    assert np.abs(res[1][1] - W_in).max() > 1e-3
+
+
+# A numpy model of int4_mm_kernel and int4_mm_t_kernel's vector paths
+# (csrc/int4_matvec.cu): which bytes each lane or thread loads, the nibble
+# unpack (mask + __vsub4), the even/odd split of the activations and its
+# shared-memory word order, the chunks, and every __dp4a.
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
+    (sel >> 4n) & 7 of the 8 bytes y:x."""
+    both = (np.asarray(y, np.uint64) << np.uint64(32)) | np.asarray(x, np.uint64)
+    out = np.zeros(np.shape(both), dtype=np.uint64)
+    for n in range(4):
+        k = (sel >> (4 * n)) & 7
+        out |= ((both >> np.uint64(8 * k)) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _sbytes(u):
+    """uint32 words -> their 4 signed bytes each (little-endian), int64."""
+    u = np.ascontiguousarray(np.asarray(u, np.uint32))
+    return u.astype("<u4").view(np.int8).reshape(u.shape + (4,)).astype(np.int64)
+
+
+def _dp4a(a, b, acc):
+    return acc + (_sbytes(a) * _sbytes(b)).sum(axis=-1)
+
+
+def _vsub4_nibbles(u, shift):
+    """__vsub4((u >> shift) & 0x0F0F0F0F, 0x08080808): signed bytes in [-8, 7]."""
+    b = (np.asarray(u, np.uint32) >> np.uint32(shift)) & np.uint32(0x0F0F0F0F)
+    return _pack_bytes(_sbytes(b) - 8)
+
+
+def _pack_bytes(b):
+    """(..., 4) integers -> uint32 words of their low bytes."""
+    b = (np.asarray(b, np.int64) & 0xFF).astype(np.uint32)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+
+def _words(a):
+    """int8/uint8 array (..., 4k) -> uint32 words (..., k), little-endian."""
+    return np.ascontiguousarray(a).view("<u4")
+
+
+def _int4_mm_model(wp, xq, rs, act):
+    n_out, stride = wp.shape
+    B, n_in = xq.shape
+    assert n_in % 16 == 0 and stride % 16 == 0
+    chunk, words = 1024, 64
+    acc = np.zeros((B, n_out, 32), np.int64)  # per lane
+    lanes = np.arange(32)
+    for k0 in range(0, n_in, chunk):
+        # the stage: word w of trial b (activations 16w..16w+15), split into
+        # even and odd bytes, at (w & 1) * 32 + w // 2; zeros past the data
+        xs = np.zeros((B, words, 4), np.uint32)
+        for w in range(words):
+            k = k0 + 16 * w
+            a = _words(xq[:, k:k + 16]) if k < n_in else np.zeros((B, 4), np.uint32)
+            split = np.stack([_byte_perm(a[:, 0], a[:, 1], 0x6420),
+                              _byte_perm(a[:, 0], a[:, 1], 0x7531),
+                              _byte_perm(a[:, 2], a[:, 3], 0x6420),
+                              _byte_perm(a[:, 2], a[:, 3], 0x7531)], axis=1)
+            xs[:, (w & 1) * 32 + (w >> 1)] = split
+        x0, x1 = xs[:, lanes], xs[:, 32 + lanes]  # (B, 32, 4) each
+        # lane l's 16 packed bytes of each row (zero weights past n_in)
+        u = np.full((n_out, 32, 4), 0x88888888, np.uint32)
+        for lane in lanes:
+            k = k0 + 32 * lane
+            if k < n_in:
+                u[:, lane] = _words(wp[:, k // 2:k // 2 + 16])
+        lo, hi = _vsub4_nibbles(u, 0), _vsub4_nibbles(u, 4)  # (n_out, 32, 4)
+        xw = (x0[..., 0], x0[..., 1], x0[..., 2], x0[..., 3],
+              x1[..., 0], x1[..., 1], x1[..., 2], x1[..., 3])
+        ws = (lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1],
+              lo[..., 2], hi[..., 2], lo[..., 3], hi[..., 3])
+        for wv, xv in zip(ws, xw):
+            acc = _dp4a(wv[None, :, :], xv[:, None, :], acc)
+    total = acc.sum(axis=-1).astype(np.float32)
+    return (total * rs[None, :]) * act[:, None]
+
+
+def _int4_mm_t_model(wp, vq, act, n_in, rows_per_chunk):
+    n_out, stride = wp.shape
+    B = vq.shape[0]
+    assert rows_per_chunk % 4 == 0 and stride % 2 == 0
+    cols = np.arange(0, n_in, 4)  # col0 of every thread
+    out = np.zeros((B, len(cols), 4), np.int64)
+    for r0 in range(0, n_out, rows_per_chunk):
+        r1 = min(n_out, r0 + rows_per_chunk)
+        acc = np.zeros_like(out)
+        for r in range(r0, r1, 4):
+            pairs = []
+            for k in range(4):  # pair_bytes: 2 packed bytes at col0 / 2, 0x8888 past r1
+                if r + k < r1:
+                    p = wp[r + k, cols // 2].astype(np.uint32) | (
+                        wp[r + k, cols // 2 + 1].astype(np.uint32) << 8)
+                else:
+                    p = np.full(len(cols), 0x8888, np.uint32)
+                pairs.append(p)
+            x, y = pairs[0] | (pairs[1] << 16), pairs[2] | (pairs[3] << 16)
+            t0, t1 = _byte_perm(x, y, 0x6420), _byte_perm(x, y, 0x7531)
+            col = (_vsub4_nibbles(t0, 0), _vsub4_nibbles(t0, 4), _vsub4_nibbles(t1, 0),
+                   _vsub4_nibbles(t1, 4))
+            v = np.zeros((B, 4), np.int64)  # the staged word: rows r..r+3, 0 past r1
+            m = min(4, r1 - r)
+            v[:, :m] = vq[:, r:r + m]
+            vw = _pack_bytes(v)
+            for c in range(4):
+                acc[:, :, c] = _dp4a(col[c][None, :], vw[:, None], acc[:, :, c])
+        out += acc  # the reduce kernel adds the chunks' sums
+    sums = out.reshape(B, -1)[:, :n_in].astype(np.float32)
+    return sums * act[:, None]
+
+
+def _int4_operands(rng, B, n_out, n_in):
+    wq = rng.integers(-8, 8, size=(n_out, n_in))
+    wp = quant.pack_int4(torch.as_tensor(wq, dtype=torch.int8))
+    xq = rng.integers(-127, 128, size=(B, n_in)).astype(np.int8)
+    vq = rng.integers(-127, 128, size=(B, n_out)).astype(np.int8)
+    rs = rng.random(n_out).astype(np.float32)
+    act = (rng.random(B) + 0.5).astype(np.float32)
+    return wq, wp, xq, vq, rs, act
+
+
+@pytest.mark.parametrize("B,n_out,n_in", [(3, 20, 48), (5, 37, 2064), (2, 9, 16)])
+def test_int4_mm_lane_model_equals_plain(B, n_out, n_in):
+    # n_in 2064: two chunks of 1,024 inputs and a third of 16, so most lanes
+    # of the last load nothing (zero weights against zero activations)
+    rng = np.random.default_rng(27)
+    wq, wp, xq, _, rs, act = _int4_operands(rng, B, n_out, n_in)
+    got = _int4_mm_model(wp.numpy(), xq, rs, act)
+    ref = quant.int4_mm(wp, torch.as_tensor(xq), torch.as_tensor(rs), torch.as_tensor(act))
+    np.testing.assert_array_equal(got, ref.numpy())
+    exact = (xq.astype(np.float64) @ wq.T.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(quant.int4_mm_plain(wp, torch.as_tensor(xq)).numpy(), exact)
+
+
+@pytest.mark.parametrize("B,n_out,n_in,rows", [(3, 20, 48, 8), (4, 37, 50, 12),
+                                                 (2, 33, 7, 4), (5, 64, 1001, 64)])
+def test_int4_mm_t_lane_model_equals_plain(B, n_out, n_in, rows):
+    # ragged last chunks of rows, and columns past n_in inside a packed byte
+    rng = np.random.default_rng(28)
+    wq, wp, _, vq, _, act = _int4_operands(rng, B, n_out, n_in)
+    got = _int4_mm_t_model(wp.numpy(), vq, act, n_in, rows)
+    ref = quant.int4_mm_t(wp, torch.as_tensor(vq), torch.as_tensor(act), n_in)
+    np.testing.assert_array_equal(got, ref.numpy())
+    exact = (vq.astype(np.float64) @ wq.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(quant.int4_mm_t_plain(wp, torch.as_tensor(vq), n_in).numpy(),
+                                  exact)
+
+
+@pytest.mark.parametrize("B,n_out,n_in", [(7, 13, 31), (1, 16, 16)])
+def test_int4_mm_plain_versions_equal_per_row_loops(B, n_out, n_in):
+    # bit for bit: the batched products and their epilogues against a loop
+    # of the single-vector ones, trial by trial
+    rng = np.random.default_rng(29)
+    _, wp, xq, vq, rs, act = (torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                              for a in _int4_operands(rng, B, n_out, n_in))
+    mm, mm_t = quant.int4_mm(wp, xq, rs, act), quant.int4_mm_t(wp, vq, act, n_in)
+    for b in range(B):
+        assert torch.equal(mm[b], quant.int4_mv(wp, xq[b], rs, act[b]))
+        assert torch.equal(mm_t[b], quant.int4_mv_t(wp, vq[b], act[b], n_in))

@@ -340,15 +340,16 @@ def test_batch_vars_validation():
                            verbose=False)
 
 
-@pytest.mark.parametrize("kw,item", [(dict(remat_steps=10), "item 7"),
-                                     (dict(mesh=object()), "item 14"),
-                                     ("generic_fused", "follow-on g")])
+@pytest.mark.parametrize("kw,item", [
+    (dict(remat_steps=10), "item 7"), (dict(mesh=object()), "item 14"),
+    # the test id of the refusal's first form, which named a follow-on
+    pytest.param("generic_fused", "has no backward", id="generic_fused-follow-on g")])
 def test_unported_fit_options_raise(kw, item):
     rng = np.random.default_rng(12)
     ins, tgts = _trials(rng)
     net = _chain(Network, rng.normal(size=(6, 6)),
                  dtype="float32" if kw == "generic_fused" else "float64")
-    if kw == "generic_fused":  # the generic kernel takes one trial
+    if kw == "generic_fused":  # the generic kernel has no backward, as JAX's has none
         net.compile()
         attach_generic_fused_step(net.get_node("p"))
         kw = {}

@@ -16,10 +16,14 @@ import torch
 from rectipy_tpu_torch import (RLS, FeedbackNetwork, Network, attach_fused_qif_step,
                                attach_generic_fused_step)
 from rectipy_tpu_torch.ops.fused_opt import adam_requant, adam_requant_plain
-from rectipy_tpu_torch.ops.generic_fused import generic_fused_step, generic_fused_step_plain
+from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
+                                                 generic_fused_step, generic_fused_step_plain,
+                                                 rows_vector_path)
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
-from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv, int4_mv_t,
-                                         int4_vector_path, int8_dot_plain, int8_dot_t_plain,
+from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mm,
+                                         int4_mm_plain, int4_mm_t, int4_mm_t_plain, int4_mv,
+                                         int4_mv_t, int4_vector_path, int8_dot_plain,
+                                         int8_dot_t_plain,
                                          int8_mm, int8_mm_plain, int8_mm_route, int8_mm_t,
                                          int8_mm_t_plain, int8_mm_t_route, int8_mv, int8_mv_t,
                                          pack_int4,
@@ -867,7 +871,7 @@ def _int8_rate_net(device, coupling, W):
                         weights=W, input_var="li_op/I_ext", output_var="li_op/v",
                         source_var="tanh_op/r", target_var="li_op/r_in",
                         coupling_dtype=coupling,
-                        train_params=None if coupling is torch.int8 else ["weights"])
+                        train_params=None if coupling in (torch.int8, "int4") else ["weights"])
     return net
 
 
@@ -924,22 +928,23 @@ def test_fused_qif_run_batch_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["lif", "tanh_heun"])
+@pytest.mark.parametrize("case", ["lif", "tanh_heun", "two_couplings"])
 def test_generic_fused_run_batch_on_card_matches_cpu(cuda, case):
-    # the generic node in run_batch launches the single-trial kernel once per
-    # trial per step (twice for Heun); each trial against the plain lowered
-    # step on the CPU
+    # the generic node in run_batch launches the B-row kernel once per step
+    # (twice for Heun) for all its trials, never the single-trial one; each
+    # trial against the plain lowered step on the CPU
     n, B, steps = 128, 3, 200
     rng = np.random.default_rng(67)
     ins = rng.normal(size=(B, steps, n)) + np.linspace(0.0, 2.0, B)[:, None, None]
     outs = {}
     for device in (cuda, "cpu"):
         net, _ = _generic_node(case, n, device, attach=device is cuda)
-        before = generic_fused_step.launches
+        before = generic_fused_rows.launches, generic_fused_step.launches
         outs[str(device)] = net.run_batch(ins, sampling_steps=10)["out"]
-        launches = generic_fused_step.launches - before
-        assert launches == (0 if device == "cpu" else
-                            B * steps * (2 if case == "tanh_heun" else 1))
+        launches = (generic_fused_rows.launches - before[0],
+                    generic_fused_step.launches - before[1])
+        assert launches == ((0, 0) if device == "cpu" else
+                            (steps * (2 if case == "tanh_heun" else 1), 0))
     card, cpu = outs[str(cuda)], outs["cpu"]
     if case == "lif":
         assert cpu.max() > 0.0, "no spikes -- weak test"
@@ -974,10 +979,287 @@ def test_fit_bptt_batch_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(card[1], cpu[1], rtol=1e-3, atol=1e-4)
 
 
+def _same_shape(card, cpu):
+    """chip_smoke.py's fused_vs_plain rule: correlation >= 0.999 and max
+    |diff| <= 1% of the largest reference value.  The int4 runs need it
+    against the CPU: PyTorch on CUDA divides by a Python scalar through its
+    reciprocal, so the quantizers' scales (``/ 127.0``, ``/ 7.0``) can
+    differ from the CPU's by an ulp and flip an activation's or a weight's
+    rounding now and then (a card and a CPU run of one int4 network part
+    from the same step, single trial or batched)."""
+    card, cpu = np.asarray(card), np.asarray(cpu)
+    assert np.corrcoef(card.ravel(), cpu.ravel())[0, 1] >= 0.999
+    assert np.abs(card - cpu).max() <= 1e-2 * np.abs(cpu).max()
+
+
 @pytest.mark.gpu
-def test_batched_int4_on_card_is_refused(cuda):
-    n, B, T = 64, 3, 5
+@pytest.mark.parametrize("coupling", ["int4", "int4_master"])
+def test_batched_int4_on_card_is_refused(cuda, coupling):
+    # the name is that of the refusal this replaced: int4 couplings of (B,
+    # n) sources now run through int4_mm on the card, one launch a step;
+    # each trial equals the card's single-trial run (int4_mm and int4_mv sum
+    # exactly), and the batch follows the CPU's (see _same_shape)
+    n, B, T = 96, 6, 50
     rng = np.random.default_rng(66)
-    net = _int8_rate_net(cuda, "int4_master", rng.normal(size=(n, n)) / np.sqrt(n))
-    with pytest.raises(NotImplementedError, match="follow-on h"):
-        net.run_batch(rng.normal(size=(B, T, n)))
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    ins = rng.normal(size=(B, T, n)) * np.linspace(0.1, 2.0, B)[:, None, None]
+    res = {}
+    for device in (cuda, "cpu"):
+        net = _int8_rate_net(device, coupling, W)
+        before = (int4_mm.launches, int4_mv.launches)
+        out = net.run_batch(ins, sampling_steps=5, record_vars=[("rnn", "li_op/v", True)])
+        res[str(device)] = (out, int4_mm.launches - before[0], int4_mv.launches - before[1])
+    (card, n_mm, n_mv), (cpu, _, _) = res[str(cuda)], res["cpu"]
+    assert (n_mm, n_mv) == (T, 0)
+    for b in (0, B - 1):
+        one = _int8_rate_net(cuda, coupling, W).run(ins[b], sampling_steps=5, verbose=False)
+        np.testing.assert_allclose(card["out"][b], one.to_numpy("out"), rtol=1e-6, atol=1e-7)
+    _same_shape(card["out"], cpu["out"])
+    _same_shape(card[("rnn", "li_op/v")], cpu[("rnn", "li_op/v")])
+
+
+@pytest.mark.gpu
+def test_int4_master_fit_bptt_batch_on_card_matches_cpu(cuda):
+    # an int4_master chain trained on B trials: int4_mm and int4_mm_t once
+    # per step on the card, the plain products on the CPU
+    n, B, T, E = 64, 4, 40, 3
+    rng = np.random.default_rng(68)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    ins, tgts = rng.normal(size=(B, T, n)), rng.normal(size=(B, T, n)) * 0.5
+    res = {}
+    for device in (cuda, "cpu"):
+        net = _int8_rate_net(device, "int4_master", W)
+        before = (int4_mm.launches, int4_mm_t.launches, int4_mv.launches, int4_mv_t.launches)
+        obs = net.fit_bptt_batch(ins, tgts, n_epochs=E, optimizer="adam", lr=1e-2,
+                                 verbose=False)
+        launches = (int4_mm.launches - before[0], int4_mm_t.launches - before[1],
+                    int4_mv.launches - before[2], int4_mv_t.launches - before[3])
+        assert net.last_fit == {"trajectory": "chain", "fused_adam": False}
+        res[str(device)] = (np.asarray(obs["epoch_loss"]),
+                            net.get_node("rnn")["weights"].cpu().numpy(), launches)
+    card, cpu = res[str(cuda)], res["cpu"]
+    assert card[2] == (T * E, T * E, 0, 0) and cpu[2] == (0,) * 4
+    np.testing.assert_allclose(card[0], cpu[0], rtol=1e-4)
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_swept_int4_coupling_on_card_matches_cpu(cuda):
+    # a per-trial int4_master coupling: packed per trial once per run, one
+    # int4_mv per trial a step; each trial equals the card's single-trial
+    # run with its coupling, and the batch follows the CPU's (_same_shape)
+    n, B, T = 64, 3, 30
+    rng = np.random.default_rng(69)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    Ws = rng.normal(size=(B, n, n)) / np.sqrt(n)
+    ins = rng.normal(size=(B, T, n))
+    res = {}
+    for device in (cuda, "cpu"):
+        net = _int8_rate_net(device, "int4_master", W)
+        before = int4_mv.launches
+        out = net.run_batch(ins, batch_vars={("rnn", "weights"): Ws})["out"]
+        res[str(device)] = (out, int4_mv.launches - before)
+    assert res[str(cuda)][1] == B * T and res["cpu"][1] == 0
+    for b in (0, B - 1):
+        one = _int8_rate_net(cuda, "int4_master", Ws[b]).run(ins[b], verbose=False)
+        np.testing.assert_allclose(res[str(cuda)][0][b], one.to_numpy("out"), rtol=1e-6,
+                                   atol=1e-7)
+    _same_shape(res[str(cuda)][0], res["cpu"][0])
+
+
+# ------------------------------------------------- B-row generic fused step
+def _generic_rows_inputs(node, B, seed, shared_drive=False):
+    """``(step, srcs, drive, states, vecs)`` for one B-row launch: trial b's
+    rows are ``generic_inputs(node, seed + 1 + b)``'s; the states are strided
+    rows of one (B, V*n) buffer, as the node's state is."""
+    step, _, _, _, vecs = generic_inputs(node, seed)
+    rows = [generic_inputs(node, seed + 1 + b)[1:4] for b in range(B)]
+    V, n = len(step.state_order), node._fused_cfg["n"]
+    y = torch.stack([torch.cat(st) for _, _, st in rows])
+    states = list(y.reshape(B, V, n).unbind(1))
+    srcs = [torch.stack([r[0][c] for r in rows]) for c in range(len(step.targets))]
+    drive = torch.stack([r[1] for r in rows])
+    return step, srcs, drive[0] if shared_drive else drive, states, vecs
+
+
+def _check_rows(node, w_dtype, inputs, case="reset"):
+    """The B-row kernel against its plain version and, trial by trial,
+    against the single-trial kernel; returns (got, ref, Ws)."""
+    step, srcs, drive, states, vecs = inputs
+    Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(len(step.targets))]
+    before = generic_fused_rows.launches
+    got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
+    torch.cuda.synchronize()
+    assert generic_fused_rows.launches == before + 1
+    ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
+    for b in range(got.shape[0]):
+        check_generic(got[b], ref[b], step, case)
+        one = generic_fused_step(step, [s[b] for s in srcs], Ws,
+                                 drive[b] if drive.dim() == 2 else drive,
+                                 [s[b].contiguous() for s in states], vecs)
+        check_generic(got[b], one, step, case)
+    return got, ref, Ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [32, 5])
+@pytest.mark.parametrize("n", [1000, 37])  # the vector path / the scalar one
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(GENERIC_CASES))
+def test_generic_rows_kernel_matches_plain_and_single_trial_kernel(cuda, case, w_dtype, n, B):
+    # every node class and mode, K = 1 and 2, Heun's derivative mode
+    _, node = _generic_node(case, n, cuda)
+    inputs = _generic_rows_inputs(node, B, seed=6)
+    Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(len(inputs[0].targets))]
+    assert rows_vector_path(n, Ws, inputs[1]) == (n % 4 == 0)
+    got, ref, _ = _check_rows(node, w_dtype, inputs)
+    step = inputs[0]
+    if any(hard for _, _, hard, _ in step.spike_specs) and not step.derivative:
+        v = next(v for _, v, hard, _ in step.spike_specs if hard)
+        assert bool((ref[:, v] == step.reset_val).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1000, 1003])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_generic_rows_kernel_coupling_case(cuda, n, w_dtype):
+    # v' = s_in + O(1e-3) in every trial: the check sees each trial's sums
+    _, node = _generic_node("qif_sfa", n, cuda)
+    B = 33  # two groups of trials, the second of one
+    step = generic_inputs(node, 7, coupling=True)[0]
+    per = [generic_inputs(node, 8 + b, coupling=True) for b in range(B)]
+    srcs = [torch.stack([p[1][0] for p in per])]
+    drive = torch.stack([p[2] for p in per])
+    V = len(step.state_order)
+    y = torch.stack([torch.cat(p[3]) for p in per])
+    states = list(y.reshape(B, V, n).unbind(1))
+    got, ref, Ws = _check_rows(node, w_dtype, (step, srcs, drive, states, per[0][4]),
+                               case="coupling")
+    for b in (0, B - 1):
+        assert lost_eighth_margin(step, [srcs[0][b]], Ws, drive[b],
+                                  [s[b].contiguous() for s in states], per[0][4],
+                                  ref[b]) > 1.0
+
+
+@pytest.mark.gpu
+def test_generic_rows_shared_and_misaligned_operands(cuda):
+    # a drive shared by every trial (row stride 0), and a source 4 bytes off
+    # an aligned base, which takes the scalar instantiation
+    _, node = _generic_node("lif", 1000, cuda)
+    _check_rows(node, torch.float32, _generic_rows_inputs(node, 7, seed=9, shared_drive=True))
+    step, srcs, drive, states, vecs = _generic_rows_inputs(node, 7, seed=10)
+    buf = torch.zeros(srcs[0].numel() + 1, device=cuda)
+    buf[1:] = srcs[0].reshape(-1)
+    off = buf[1:].reshape(srcs[0].shape)
+    assert not rows_vector_path(1000, [node.args["__w_fused_0__"]], [off])
+    _check_rows(node, torch.float32, (step, [off], drive, states, vecs))
+
+
+@pytest.mark.gpu
+def test_generic_rows_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    _, node = _generic_node("lif", 64, cuda)
+    step, srcs, drive, states, vecs = _generic_rows_inputs(node, 3, seed=11)
+    W = node.args["__w_fused_0__"]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        generic_fused_rows(step, srcs, [W.double()], drive, states, vecs)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        generic_fused_rows(step, [srcs[0].t().contiguous().t()], [W], drive, states, vecs)
+    with pytest.raises(ValueError, match=r"\(3, 64\) or \(64,\)"):
+        generic_fused_rows(step, srcs, [W], drive[:2], states, vecs)
+    with pytest.raises(ValueError, match="float32 on"):
+        generic_fused_rows(step, srcs, [W], drive, [states[0].cpu()] + states[1:], vecs)
+    with pytest.raises(ValueError, match="expected 1 couplings"):
+        generic_fused_rows(step, srcs * 2, [W, W], drive, states, vecs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["qif", "generic"])
+def test_fit_through_a_fused_node_raises_on_the_card(cuda, kernel):
+    # a trainable input edge into a node with a fused step, and a trainable
+    # readout behind it: on the CPU the generic step's plain version carries
+    # the input edge's gradient (the QIF step's plain version has none: its
+    # threshold is a heaviside); on the card each kernel, which has no
+    # backward (nor has the JAX package's), refuses instead of cutting the
+    # gradient silently
+    n, T = 64, 30
+    rng = np.random.default_rng(70)
+    W = rng.random((n, n)) / n
+    ins, tgts = rng.normal(size=(T, 2)), rng.normal(size=(T, 3)) * 0.1
+    for device in (("cpu", cuda) if kernel == "generic" else (cuda,)):
+        net = Network(1e-3, device=device)
+        if kernel == "qif":
+            net.add_diffeq_node("p", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa",
+                                weights=W, source_var="s", target_var="s_in", input_var="I_ext",
+                                output_var="s", spike_var="spike", spike_def="v",
+                                op="qif_sfa_op", spike_threshold=1e2, spike_reset=-1e2)
+        else:
+            net.add_diffeq_node("p", "rectipy_tpu_torch.models.rate_neurons.leaky_integrator."
+                                "tanh", weights=W, source_var="tanh_op/r",
+                                target_var="li_op/r_in", input_var="li_op/I_ext",
+                                output_var="tanh_op/r")
+        net.add_func_node("inp", 2, activation_function="identity")
+        net.add_func_node("out", 3, activation_function="identity")
+        net.add_edge("inp", "p", weights=rng.normal(size=(n, 2)), train="gd")
+        net.add_edge("p", "out", weights=rng.normal(size=(3, n)) * 0.1, train="gd")
+        net.compile()
+        (attach_fused_qif_step if kernel == "qif" else attach_generic_fused_step)(
+            net.get_node("p"))
+        w_in = net.get_edge("inp", "p").params["weights"].clone()
+        if device == "cpu":
+            net.fit_bptt([ins], [tgts], optimizer="sgd", lr=1.0, verbose=False)
+            assert float((net.get_edge("inp", "p").params["weights"] - w_in).abs().max()) > 0
+        else:
+            with pytest.raises(RuntimeError, match="has no backward"):
+                net.fit_bptt([ins], [tgts], optimizer="sgd", lr=1.0, verbose=False)
+
+
+# ------------------------------------------------------------ int4_mm(_t)
+def _int4_rows(B, n_out, n_in, seed, device, tight=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randint(-8, 8, (n_out, n_in), generator=gen, device=device, dtype=torch.int8)
+    wp = pack_int4(w)
+    if tight:
+        wp = wp[:, :(n_in + 1) // 2].contiguous()
+    scale = torch.linspace(0.1, 10.0, B, device=device)[:, None]
+    xq, xs = quant_vec(torch.randn((B, n_in), generator=gen, device=device) * scale)
+    vq, vs = quant_vec(torch.randn((B, n_out), generator=gen, device=device))
+    ws = torch.rand(n_out, generator=gen, device=device) + 0.5
+    return wp, ws, xq, xs.reshape(-1), vq, vs.reshape(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_out,n_in,tight", [
+    (32, 10_000, 10_000, False), (7, 10_000, 10_000, False), (5, 1000, 1024, False),
+    (33, 1003, 2064, False),  # two groups of trials, a ragged last chunk of 16 inputs
+    (1, 37, 48, False), (64, 256, 512, False),
+    (7, 1003, 999, False),  # n_in % 16 != 0: the scalar int4_mm
+    (5, 999, 1003, True), (32, 16, 10_000, True),  # unpadded rows: the scalar paths
+    (3, 33, 1, False), (3, 1, 33, False)])
+def test_int4_mm_kernels_bit_identical_to_plain(cuda, B, n_out, n_in, tight):
+    # integer sums are exact in any order: bit for bit, epilogues included
+    wp, ws, xq, xs, vq, vs = _int4_rows(B, n_out, n_in, 71, cuda, tight)
+    before = (int4_mm.launches, int4_mm_t.launches)
+    out, out_t = int4_mm(wp, xq, ws, xs), int4_mm_t(wp, vq, vs, n_in)
+    torch.cuda.synchronize()
+    assert (int4_mm.launches, int4_mm_t.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, (int4_mm_plain(wp, xq) * ws) * xs[:, None])
+    assert torch.equal(out_t, int4_mm_t_plain(wp, vq, n_in) * vs[:, None])
+    assert bool((out != 0).any()) and bool((out_t != 0).any())
+    for b in (0, B - 1):  # and against the single-row kernels
+        assert torch.equal(out[b], int4_mv(wp, xq[b].contiguous(), ws, xs[b]))
+        assert torch.equal(out_t[b], int4_mv_t(wp, vq[b].contiguous(), vs[b], n_in))
+
+
+@pytest.mark.gpu
+def test_int4_mm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    wp, ws, xq, xs, vq, vs = _int4_rows(3, 64, 64, 72, cuda)
+    with pytest.raises(ValueError, match="packed int4"):
+        int4_mm(wp.to(torch.int8), xq, ws, xs)
+    with pytest.raises(ValueError, match="activations"):
+        int4_mm(wp, xq.t().contiguous().t(), ws, xs)
+    with pytest.raises(ValueError, match="activation scale"):
+        int4_mm(wp, xq, ws, xs[:2])
+    with pytest.raises(ValueError, match="cannot hold"):
+        int4_mm_t(wp[:, :16].contiguous(), vq, vs, 64)
+    with pytest.raises(ValueError, match="activations"):
+        int4_mm_t(wp, vq.cpu(), vs, 64)

@@ -317,13 +317,16 @@ def test_edge_sweep_and_softmax_output_match_jax():
 
 
 def test_frozen_int4_rows_on_the_plain_path():
-    # int4 couplings take (B, n) sources on the CPU (per-row plain
-    # products); each trial equals its single-trial run
+    # int4 couplings take (B, n) sources through int4_mm, whose CPU tensors
+    # take its plain version (no launch); each trial equals its single-trial
+    # run
     rng = np.random.default_rng(12)
     N, B, T = 8, 3, 15
     W = rng.normal(scale=0.3, size=(N, N))
     ins = rng.normal(size=(B, T, 1))
+    quant.int4_mm.launches = quant.int4_mv.launches = 0
     rt = _rate(Network, W, "float32", "int4").run_batch(ins, verbose=False)
+    assert quant.int4_mm.launches == quant.int4_mv.launches == 0
     for b in range(B):
         o = _rate(Network, W, "float32", "int4").run(ins[b], verbose=False).to_numpy("out")
         np.testing.assert_allclose(rt["out"][b], o, rtol=0, atol=1e-6)
