@@ -77,7 +77,8 @@ of csrc/int4_matvec.cu, the counterpart of benchmarks/i4pack_microbench.py):
    turns; one int4_mv (or int8_mv) launch per step, finite records, the correlation of the int4 and int8
    records, each path's device-only step and idle share; then the same int4
    network on the CPU over 200 steps, held to the card's run under
-   fused_vs_plain's rule (int4_path_vs_cpu).
+   fused_vs_plain's rule (int4_path_vs_cpu, which also counts the records
+   that agree bit for bit).
 17. int4_timing: at N = 10,000 and 14,336, each int4 kernel's ms, bytes,
    bound and achieved bytes/s, its plain version's ms on the card and
    int8_mv/int8_mv_t on the same integers (the microbenchmark's A/B).
@@ -150,9 +151,12 @@ csrc/generic_fused_step.cuh):
    qif_sfa_step.mma_launches), f32 W on the CUDA cores ("vec").  Then
    the B-row generic step (generic_fused_rows) for LIF (K = 1), the
    E/I circuit (K = 2) and the Heun tanh RateNet (derivative mode), f32
-   and bf16 W, B = 32 and 5, at N (the vector route) and N - 1 (odd: the
-   scalar route), on strided state rows, held per trial to its plain
-   version and to the single-trial kernel under GENERIC_TOL["reset"];
+   and bf16 W, B = 32 and 5, at N (bf16: the tensor cores, counted in
+   generic_fused_rows.mma_launches; f32: the CUDA cores' vector route),
+   N - 4 for bf16 (the CUDA cores' bf16 vector route) and N - 1 (odd: the
+   scalar route), on the route generic_rows_route names, on strided state
+   rows, held per trial to its plain version and to the single-trial
+   kernel under GENERIC_TOL["reset"];
    and int4_mm/int4_mm_t bit for bit against their plain versions (and
    int4_mv/int4_mv_t on the first and last trial) at B = 32, 7 and 5, N =
    10,000 and 14,336.
@@ -173,12 +177,16 @@ csrc/generic_fused_step.cuh):
    steps): 4,000 int4_mv launches, the first and last trial against
    single-trial runs with their coupling.  Then phase 12's LIF network
    (the generic kernel, bf16 W) over 32 trials of 2,000 steps of their own
-   drive: one B-row launch a step (2,000), none of the single-trial
-   kernel; each trial against its single-trial run over 200 steps under
-   fused_vs_plain's rule; aggregate neuron-updates/s against the
-   single-trial run; then the B-row kernel timed in turns with the 32
-   single-trial launches it replaces, its plain version and torch.matmul
-   of the same bf16 W on (32, N) rows.
+   drive: one B-row launch a step (2,000), every one on the tensor cores,
+   none of the single-trial kernel; each trial against its single-trial
+   run over 200 steps under fused_vs_plain's rule; aggregate
+   neuron-updates/s against the single-trial run; then the B-row kernel
+   timed in turns with its CUDA-core bf16 instance (tensor cores, CUDA
+   cores, CUDA cores, tensor cores; the two held to each other first) and
+   with the 32 single-trial launches it replaces, its f32-W instance, its
+   plain version and torch.matmul of the same bf16 W on (32, N) rows; and
+   the E/I circuit's K = 2 step on the tensor cores at B = 32 with its
+   bound.
 27. batch_train_path: bench.py's ensemble phase at full size, fit_bptt_batch
    of phase 8's network (int8_master, adam lr 1e-4) on B = 32 trials of
    normal (32, 500, 10,000) float32 arrays from default_rng(7), full batch:
@@ -217,7 +225,18 @@ int8_mm[run_batch_path] (launches of phase 26's int8 run, phase 28's
 timing at the same shapes), the B-row step in bf16 (launches of phase 26's
 fused run), int4_mm and int4_mm_t (launches of phase 27's int4_master
 fit), int4_mm[run_batch_path] (phase 26's int4 run) and the B-row generic
-step's run_batch instance (phase 26's LIF run, timed there).
+step's tensor-core instance (phase 26's LIF run, timed there).
+
+Phase 29 (run after phase 2, before any phase quantizes):
+
+29. quant_scales_exact: PyTorch's CUDA division by a Python scalar
+   multiplies by the scalar's reciprocal; on rows where that parts from
+   the true division (rectipy_tpu_torch.testing.reciprocal_rows), the
+   card's quantize_rows, quantize_rows_i4 and quant_vec (scales and
+   integers) and the frozen coupling's source scale must equal the CPU's
+   bit for bit; the line also counts the rows where the card's division
+   by the Python scalars 7.0 and 127.0 parts from the CPU's (the form the
+   port no longer uses).
 
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
@@ -301,6 +320,26 @@ def emit(obj):
     if "phase" in obj:  # the script's elapsed seconds, for its time budget
         obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
+
+
+def quant_scales_phase(dev) -> None:
+    """Phase 29: every quantization scale of the port, with its integers,
+    on the card against the CPU bit for bit, on rows where a product by the
+    reciprocal of 7 or 127 parts from the division; and the rows where the
+    card's division by the Python scalar parts from the CPU's."""
+    from rectipy_tpu_torch.testing import quant_scales, reciprocal_rows
+
+    w = torch.as_tensor(reciprocal_rows())
+    card, cpu = quant_scales(w.to(dev)), quant_scales(w)
+    equal = {name: all(torch.equal(got.cpu(), want) for got, want in zip(card[name], ref))
+             for name, ref in cpu.items()}
+    amax = torch.clamp_min(w.abs().amax(dim=-1), 1e-30)
+    scalar_differs = {str(d): int(((amax.to(dev) / d).cpu() != amax / d).sum())
+                      for d in (7.0, 127.0)}
+    emit({"phase": "quant_scales_exact", "rows": int(w.shape[0]), "n": int(w.shape[1]),
+          "bit_identical": equal, "python_scalar_division_rows_differ": scalar_differs})
+    if not all(equal.values()):
+        raise AssertionError(f"quantization scales differ between the card and the CPU: {equal}")
 
 
 def nvidia_smi() -> str:
@@ -1029,7 +1068,8 @@ def int4_phases(W_np, build_net) -> tuple:
     if not (cpu_corr >= 0.999 and max_diff <= 1e-2 * float(np.abs(ref).max())):
         raise AssertionError(f"int4 card vs cpu: corr {cpu_corr}, max|diff| {max_diff}")
     emit({"phase": "int4_path_vs_cpu", "coupling": "int4", "n": N, "steps": CPU_STEPS,
-          "records": int(ref.shape[0]), "corr": cpu_corr, "max_abs_diff": max_diff,
+          "records": int(ref.shape[0]), "records_equal": int((got == ref).sum()),
+          "corr": cpu_corr, "max_abs_diff": max_diff,
           "max_abs_ref": float(np.abs(ref).max()), "cpu_build_s": cpu_build_s,
           "card_run_s": cmp_s["card"], "cpu_run_s": cmp_s["cpu"]})
     del cpu_net
@@ -1663,16 +1703,28 @@ def rows_operands(step, n: int, B: int, rng, dev) -> tuple:
     return srcs, on(rng.normal(size=(B, n))), states, vecs
 
 
+def generic_route(Ws, srcs) -> str:
+    """generic_rows_route of one B-row launch's operands."""
+    from rectipy_tpu_torch.ops.generic_fused import generic_rows_route
+
+    return generic_rows_route(Ws[0].dtype, srcs[0].shape[-1],
+                              [t.stride(0) if t.dim() == 2 else 0 for t in srcs],
+                              [t.data_ptr() for t in list(Ws) + list(srcs)])
+
+
 def generic_rows_check(dev, W32) -> dict:
     """Phase 25: the B-row generic step against its plain version under
     GENERIC_TOL["reset"], trial by trial, and against the single-trial
     kernel on each trial: LIF (K = 1), the E/I circuit (K = 2) and the Heun
     tanh RateNet in derivative mode; f32 and bf16 W (the main path's, and
     for the E/I circuit's second coupling half its transpose); B_TRAIN and
-    the ragged B_RAGGED[1]; N (the vector route) and N - 1 (odd: the scalar
-    route).  Returns the largest error of each case and W type."""
+    the ragged B_RAGGED[1]; at N (bf16: the tensor cores, "mma"; f32: the
+    CUDA cores' vector route), N - 4 for bf16 (n % 8 == 4: the CUDA cores'
+    bf16 vector route) and N - 1 (odd: the scalar route), each launch on
+    the route generic_rows_route names (mma_launches counts the tensor
+    cores').  Returns the largest error of each case, W type and route."""
     from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
-                                                     generic_fused_step, rows_vector_path)
+                                                     generic_fused_step)
     from rectipy_tpu_torch.testing import GENERIC_TOL, check_generic
 
     rng = np.random.default_rng(251)
@@ -1682,20 +1734,24 @@ def generic_rows_check(dev, W32) -> dict:
         step = rows_case_step(case)
         K = len(step.targets)
         for name, w_dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            err = 0.0
-            for n in (N, N - 1):
+            for n in ((N, N - 4, N - 1) if name == "bfloat16" else (N, N - 1)):
                 Ws = [W.to(w_dtype) if n == N else W[:n, :n].contiguous().to(w_dtype)
                       for W in (W32, W2)[:K]]
+                want = ("scalar" if n % 4 else "mma" if name == "bfloat16" and n % 8 == 0
+                        else "vec")
                 for B in (B_TRAIN, B_RAGGED[1]):
                     srcs, drive, states, vecs = rows_operands(step, n, B, rng, dev)
-                    route = "vec" if rows_vector_path(n, Ws, srcs) else "scalar"
-                    if route != ("vec" if n % 4 == 0 else "scalar"):
-                        raise AssertionError(f"generic rows {case}: route {route} at n={n}")
-                    before = generic_fused_rows.launches
+                    route = generic_route(Ws, srcs)
+                    if route != want:
+                        raise AssertionError(f"generic rows {case}: route {route} at n={n}, "
+                                             f"{name} W, not {want}")
+                    before = generic_fused_rows.launches, generic_fused_rows.mma_launches
                     got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
                     torch.cuda.synchronize()
-                    if generic_fused_rows.launches != before + 1:
-                        raise AssertionError(f"generic rows {case}: no launch")
+                    if (generic_fused_rows.launches - before[0], generic_fused_rows.mma_launches
+                            - before[1]) != (1, int(route == "mma")):
+                        raise AssertionError(f"generic rows {case}: the launch did not take "
+                                             f"route {route}")
                     ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
                     resets, one_err = 0, 0.0
                     for b in range(B):
@@ -1708,7 +1764,8 @@ def generic_rows_check(dev, W32) -> dict:
                     if hard and resets == 0:
                         raise AssertionError(f"generic rows {case}: no neuron was reset")
                     e = float((got - ref).abs().max())
-                    err = max(err, e)
+                    key = f"generic_fused_rows[{case},{name},{route}]"
+                    errs[key] = max(errs.get(key, 0.0), e)
                     emit({"phase": "batch_kernel_check", "kernel": "generic_fused_rows",
                           "case": case, "couplings": K, "derivative": step.derivative,
                           "w_dtype": name, "kernel_route": route, "n": n, "B": B,
@@ -1716,7 +1773,6 @@ def generic_rows_check(dev, W32) -> dict:
                           "rtol": GENERIC_TOL["reset"][0],
                           "atol": f"{GENERIC_TOL['reset'][1]} x row max",
                           "reset_neurons": resets})
-            errs[f"generic_fused_rows[{case},{name}]"] = err
     return errs
 
 
@@ -1913,14 +1969,18 @@ def swept_int4_phase(dev) -> dict:
 def generic_batch_phase(errs: dict) -> dict:
     """Phase 26, continued: run_batch of phase 12's LIF network (the generic
     kernel, bf16 W) over G_B trials of their own drive, one B-row launch a
-    step; each trial against a single-trial run of its drive over CMP_STEPS
-    (fused_vs_plain's rule: the B-row and the single-trial kernel sum in
-    other orders).  Then the B-row kernel timed in turns with the G_B
-    single-trial launches it replaces on the same rows, its plain version
-    and torch.matmul of the same bf16 W on (G_B, N) rows.  Returns the
-    instance's ``kernels`` entry."""
+    step, every one on the tensor cores; each trial against a single-trial
+    run of its drive over CMP_STEPS (fused_vs_plain's rule: the B-row and
+    the single-trial kernel sum in other orders).  Then the B-row kernel
+    timed in turns with its CUDA-core bf16 instance on the same rows (held
+    to it first under GENERIC_TOL["reset"]), and in turns with the G_B
+    single-trial launches it replaces; its f32-W instance, its plain
+    version and torch.matmul of the same bf16 W on (G_B, N) rows; then the
+    E/I circuit's K = 2 step on the tensor cores (ei_rows_timing).  Returns
+    the instance's ``kernels`` entry."""
     from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
                                                      generic_fused_step)
+    from rectipy_tpu_torch.testing import check_generic
 
     t0 = time.perf_counter()
     net = lif_net(N, None)
@@ -1928,16 +1988,18 @@ def generic_batch_phase(errs: dict) -> dict:
     ins = (np.random.default_rng(26).normal(size=(G_B, PLAIN_STEPS, 1))
            + np.linspace(0.0, 2.0, G_B)[:, None, None]).astype(np.float32)
     y0 = net.get_node("lif").y.clone()
-    generic_fused_rows.launches = generic_fused_step.launches = 0
+    generic_fused_rows.launches = generic_fused_rows.mma_launches = 0
+    generic_fused_step.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = net.run_batch(ins, record_output=False, record_vars=[("lif", "s", True)],
                         sampling_steps=100)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = generic_fused_rows.launches
-    if (launches, generic_fused_step.launches) != (PLAIN_STEPS, 0):
-        raise AssertionError(f"run_batch_path (generic): {launches} B-row and "
+    launches, mma_launches = generic_fused_rows.launches, generic_fused_rows.mma_launches
+    if (launches, mma_launches, generic_fused_step.launches) != (PLAIN_STEPS, PLAIN_STEPS, 0):
+        raise AssertionError(f"run_batch_path (generic): {launches} B-row launches "
+                             f"({mma_launches} on the tensor cores) and "
                              f"{generic_fused_step.launches} single-trial launches for "
                              f"{PLAIN_STEPS} steps")
     rec = res[("lif", "s")]
@@ -1967,7 +2029,8 @@ def generic_batch_phase(errs: dict) -> dict:
     nu_b, nu_1 = G_B * N * PLAIN_STEPS / run_s, N * PLAIN_STEPS / single_s
     emit({"phase": "run_batch_path", "template": "lif", "coupling": "bfloat16",
           "kernel": "generic_fused_rows (one B-row launch a step)", "n": N, "B": G_B,
-          "steps": PLAIN_STEPS, "launches": launches, "build_s": build_s, "run_batch_s": run_s,
+          "steps": PLAIN_STEPS, "launches": launches, "mma_launches": mma_launches,
+          "build_s": build_s, "run_batch_s": run_s,
           "run_single_s": single_s, "ms_per_step": run_s / PLAIN_STEPS * 1e3,
           "single_ms_per_step": single_s / PLAIN_STEPS * 1e3,
           "aggregate_neuron_updates_per_s": nu_b, "single_neuron_updates_per_s": nu_1,
@@ -1991,36 +2054,126 @@ def generic_batch_phase(errs: dict) -> dict:
         for sb, db, stb in singles:
             generic_fused_step(step, sb, [W], db, stb, vecs)
 
-    # at most about a thousand kernels queued in cuda_ms: 20 loops of G_B
-    turns = [cuda_ms(f, reps=r) for f, r in ((rows, 100), (loop, 20), (loop, 20), (rows, 100))]
-    ms, loop_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    route = generic_route([W], srcs)
+    cores = generic_rows_instance(step, srcs, [W], drive, states, vecs, "vec")
+    got, other = rows(), cores()
+    for b in range(G_B):  # the two instances sum in other orders
+        check_generic(other[b], got[b], step)
+    del got, other
+    # the tensor cores in turns with the CUDA cores' bf16 instance, then
+    # with the G_B single-trial launches (at most about a thousand kernels
+    # queued in cuda_ms: 20 loops of G_B)
+    turns = [cuda_ms(f, reps=100) for f in (rows, cores, cores, rows)]
+    ms, cores_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    loop_turns = [cuda_ms(f, reps=r) for f, r in ((rows, 100), (loop, 20), (loop, 20),
+                                                  (rows, 100))]
+    loop_ms = (loop_turns[1] + loop_turns[2]) / 2
     W32 = W.to(torch.float32)  # the f32 instance on the same rows, timed only
     f32_ms = cuda_ms(lambda: generic_fused_rows(step, srcs, [W32], drive, states, vecs), reps=100)
     plain_ms = cuda_ms(lambda: generic_fused_rows_plain(step, srcs, [W], drive, states, vecs),
                        reps=3)
     s_w = srcs[0].to(W.dtype)
     library_ms = cuda_ms(lambda: s_w @ W.T, reps=100)
-    V, K, P = len(step.state_order), len(step.targets), len(vecs)
-    n_bytes = K * N * N * W.element_size() + 4 * N * (G_B * (K + 1 + 2 * V) + P)
-    n_ops = 2 * K * G_B * N * N + G_B * N * tail_ops(node._vf.tile_program)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(W.dtype)
-    entry = {"name": "generic_fused_rows[lif,bfloat16,run_batch_path]", "route": "cuda",
-             "source": GENERIC_SOURCE, "replaces": GENERIC_TPU_KERNEL, "launches": launches,
-             "max_abs_err": errs["generic_fused_rows[lif,bfloat16]"], "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    n_bytes, n_ops, bound_ms, bound_by = rows_bound(step, [W], G_B, len(vecs),
+                                                    tail_ops(node._vf.tile_program))
+    entry = {"name": "generic_fused_rows[lif,bfloat16,mma]", "route": "cuda",
+             "source": GENERIC_SOURCE, "replaces": GENERIC_TPU_KERNEL, "launches": mma_launches,
+             "max_abs_err": errs["generic_fused_rows[lif,bfloat16,mma]"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": library_ms}
-    emit({"phase": "batch_timing", **entry, "B": G_B, "bytes": n_bytes, "ops": n_ops,
-          "turns_ms": turns, "single_trial_launches_ms_in_turns": loop_ms,
+    emit({"phase": "batch_timing", **entry, "kernel_route": route, "B": G_B, "bytes": n_bytes,
+          "ops": n_ops, "turns_ms": turns, "cuda_core_bf16_ms_in_turns": cores_ms,
+          "speedup_over_cuda_core_bf16": cores_ms / ms, "loop_turns_ms": loop_turns,
+          "single_trial_launches_ms_in_turns": loop_ms,
           "speedup_over_single_trial_launches": loop_ms / ms,
-          "f32_fma_bound_ms": 2 * K * G_B * N * N / F32_FLOPS * 1e3,
+          "f32_fma_bound_ms": 2 * G_B * N * N / F32_FLOPS * 1e3,
           "float32_w_instance_ms": f32_ms,
           "library_ms_reason": "torch.matmul of the (B, N) source rows by W^T in bf16 "
                                "(the products alone, on the tensor cores): a yardstick",
           "achieved_bytes_per_s": n_bytes / (ms * 1e-3), "achieved_flops": n_ops / (ms * 1e-3)})
-    del net, srcs, drive, states, singles, W32
+    del net, srcs, drive, states, singles, W32, s_w
     torch.cuda.empty_cache()
+    ei_rows_timing(W)
     return entry
+
+
+def rows_bound(step, Ws, B: int, P: int, ops_per_neuron: int) -> tuple:
+    """Bytes and operations of one B-row generic step at N (each W, the B
+    trials' K sources, drive and V states read once, their V outputs
+    written once, the P per-neuron rows read once; the products and the
+    tail), and the bound they give: (bytes, ops, bound ms, bound_by)."""
+    K, V = len(Ws), len(step.state_order)
+    n_bytes = sum(W.numel() * W.element_size() for W in Ws) + 4 * N * (B * (K + 1 + 2 * V) + P)
+    n_ops = 2 * K * B * N * N + B * N * ops_per_neuron
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(Ws[0].dtype)
+    return n_bytes, n_ops, max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def generic_rows_instance(step, srcs, Ws, drive, states, vecs, route: str):
+    """A callable that launches the B-row generic step's ``route`` instance
+    on these operands through the C entry point (``"vec"``: the CUDA cores'
+    16-byte loads, reached by no aligned bf16 launch of the wrapper) into
+    one output, which it returns; not counted in the wrapper's launches."""
+    from rectipy_tpu_torch.ops import generic_fused, quant
+
+    B, n = srcs[0].shape
+    V = len(step.state_order)
+    out = torch.empty((B, V, n), dtype=torch.float32, device=drive.device)
+    per_trial = list(srcs) + [drive] + list(states)
+    ptrs = ([W.data_ptr() for W in Ws] + [t.data_ptr() for t in per_trial]
+            + [t.data_ptr() for t in vecs] + [out.data_ptr()])
+    lds = [t.stride(0) if t.dim() == 2 else 0 for t in per_trial] + [V * n]
+    scalars = list(step.scalars.values())
+    args = ((ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_longlong * len(lds))(*lds),
+            (ctypes.c_double * max(len(scalars), 1))(*scalars), n, B,
+            int(Ws[0].dtype == torch.bfloat16), quant._ROUTES[route], step.dt, step.thresh,
+            step.reset_val)
+    fn = generic_fused._rows_launch_fn(step.source)
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"generic_fused_rows_launch ({route}): CUDA error {err}")
+        return out
+
+    return launch
+
+
+def ei_rows_timing(W) -> None:
+    """Phase 26, continued: the E/I circuit's step (K = 2) on the tensor
+    cores at B = G_B, bf16 W (W and half its transpose), with its bound,
+    its plain version's ms and two torch.matmul's; held to its plain
+    version first."""
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_rows, generic_fused_rows_plain
+    from rectipy_tpu_torch.testing import check_generic
+
+    node = ei_net(16, "cpu")[0].get_node("ei")  # the step does not depend on n
+    step = node._fused_cfg["step"]
+    Ws = [W, (0.5 * W.T).contiguous()]
+    srcs, drive, states, vecs = rows_operands(step, N, G_B, np.random.default_rng(263), W.device)
+    route = generic_route(Ws, srcs)
+    if route != "mma":
+        raise AssertionError(f"the E/I B-row step takes route {route}, not the tensor cores")
+    got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
+    ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
+    for b in range(G_B):
+        check_generic(got[b], ref[b], step)
+    ms = cuda_ms(lambda: generic_fused_rows(step, srcs, Ws, drive, states, vecs), reps=100)
+    plain_ms = cuda_ms(lambda: generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs),
+                       reps=3)
+    s_w = [t.to(W.dtype) for t in srcs]
+    library_ms = cuda_ms(lambda: [x @ w.T for x, w in zip(s_w, Ws)], reps=100)
+    n_bytes, n_ops, bound_ms, bound_by = rows_bound(step, Ws, G_B, len(vecs),
+                                                    tail_ops(node._vf.tile_program))
+    emit({"phase": "batch_timing", "name": "generic_fused_rows[ei,bfloat16,mma]",
+          "kernel_route": route, "couplings": 2, "n": N, "B": G_B,
+          "max_abs_err": float((got - ref).abs().max()), "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+          "library_ms_reason": "two torch.matmul of the (B, N) source rows by W^T in bf16 "
+                               "(the products alone): a yardstick",
+          "bytes": n_bytes, "ops": n_ops, "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+    del Ws, srcs, drive, states, s_w
+    torch.cuda.empty_cache()
 
 
 def batch_train_data(n: int, B: int, T: int, seed: int):
@@ -2505,6 +2658,8 @@ def main() -> int:
         emit({"phase": "build", "source": source,
               "seconds": time.perf_counter() - t0, "nvcc_seconds": built.seconds,
               "library": os.path.basename(built.path), "ptxas": ptxas})
+
+    quant_scales_phase(dev)
 
     # ------------------------------------------------------ 3. kernel check
     rng = np.random.default_rng(0)

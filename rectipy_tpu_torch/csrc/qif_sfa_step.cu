@@ -128,6 +128,7 @@
 #include <type_traits>
 
 #include "row_dot.cuh"
+#include "rows_mma.cuh"
 
 namespace {
 
@@ -323,18 +324,23 @@ qif_sfa_rows_kernel(const WT* __restrict__ W, const float* __restrict__ v,
 }
 
 // ------------------------------------------- B rows, bf16 W, tensor cores
-constexpr int kMRowTiles = 5;                   // warps along the rows, 16 rows of W each
-constexpr int kMKSplit = 2;                     // warps along K: each sums its part of a chunk
-constexpr int kMSlabs = 6;                      // 32-wide k-slabs per warp and chunk
-constexpr int kMThreads = 32 * kMRowTiles * kMKSplit;
-constexpr int kMRows = 16 * kMRowTiles;         // rows of W per block: 125 blocks at N = 10,000
-constexpr int kMChunk = 32 * kMSlabs * kMKSplit;  // inputs of each trial per chunk
-constexpr int kMStride = 2 * kMChunk + 64;      // bytes per staged trial row; = 64 mod 128
-constexpr int kMQuads = kMChunk / 4;            // float4s of a trial per chunk
-constexpr int kMStage = (kRTrials * kMQuads + kMThreads - 1) / kMThreads;  // float4s a thread stages
-constexpr int kMBf16Bytes = 2 * kRTrials * kMStride;             // two rounded chunks
-constexpr int kMSmem = kMBf16Bytes + kRTrials * kMChunk * 4;      // and one f32 chunk
-static_assert(kMKSplit * kMRowTiles * 16 * 32 * 4 <= kMBf16Bytes,
+// The block geometry, mma_bf16 and bf16x2 (rows_mma.cuh, which the generic
+// fused step's tensor-core B-row kernel shares).
+using rowmma::bf16x2;
+using rowmma::kMBf16Bytes;
+using rowmma::kMChunk;
+using rowmma::kMKSplit;
+using rowmma::kMQuads;
+using rowmma::kMRows;
+using rowmma::kMRowTiles;
+using rowmma::kMSlabs;
+using rowmma::kMSmem;
+using rowmma::kMStage;
+using rowmma::kMStride;
+using rowmma::kMThreads;
+using rowmma::mma_bf16;
+static_assert(rowmma::kRTrials == kRTrials, "one trial per lane");
+static_assert(rowmma::kMSumBytes <= kMBf16Bytes,
               "the K parts' partial sums must fit the staging buffers");
 
 // Probes of what holds the kernel back (chip_smoke.py times them beside it):
@@ -342,24 +348,6 @@ static_assert(kMKSplit * kMRowTiles * 16 * 32 * 4 <= kMBf16Bytes,
 // (the fragments are still read), bit 4 skips the barrier between chunks.
 // Their outputs are meaningless; qif_sfa_rows_launch runs kProbe = 0 alone.
 constexpr int kProbeNoStaging = 1, kProbeNoMma = 2, kProbeNoBarrier = 4;
-
-// d = a * b + c on the tensor cores: a 16 x 16 bf16 tile of W (row-major
-// fragment), a 16 x 8 bf16 tile of s (column fragment), f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1, float c0,
-                                         float c1, float c2, float c3) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(c0), "f"(c1), "f"(c2),
-        "f"(c3));
-}
-
-// Two floats rounded to bf16 (RNE), lo in the low half: memory order.
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return reinterpret_cast<uint32_t&>(h);
-}
 
 // The aligned bf16 B-row step (header note).  Warp w owns rows 16 (w %
 // kMRowTiles) .. +16 of the block's and the part w / kMRowTiles of K in every

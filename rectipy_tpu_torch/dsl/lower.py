@@ -199,10 +199,19 @@ def _frozen_quant_matvec(wq: torch.Tensor, w_mv: torch.Tensor, scale: torch.Tens
     source's dtype.  Source rows ``(..., n_in)`` take one ``s_scale`` each
     (one per trial).  The source's gradient is straight-through; the scale
     ``s_scale`` takes none."""
-    a = src.detach().abs()
-    s_scale = torch.clamp_min(a.amax() if src.dim() == 1 else a.amax(dim=-1, keepdim=True),
-                              1e-30) / 127.0
+    s_scale = _source_scale(src)
     return _FrozenQuantDot.apply(src / s_scale, wq, w_mv, scale, mv).to(src.dtype) * s_scale
+
+
+def _source_scale(src: torch.Tensor) -> torch.Tensor:
+    """The frozen coupling's source scale, ``max|src| / 127`` in the
+    source's dtype (one per row of ``(..., n_in)`` sources), divided
+    exactly on every device (``ops.quant.exact_div``)."""
+    from ..ops.quant import exact_div  # ops imports dsl: not at module level
+
+    a = src.detach().abs()
+    return exact_div(torch.clamp_min(a.amax() if src.dim() == 1
+                                     else a.amax(dim=-1, keepdim=True), 1e-30), 127.0)
 
 
 def _bf16_values(w: torch.Tensor) -> torch.Tensor:

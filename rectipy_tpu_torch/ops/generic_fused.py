@@ -15,9 +15,11 @@ couplings.
   raises.
 - :func:`generic_fused_rows` is the same step for ``B`` trials that share
   the couplings and parameters (the TPU kernel under the JAX package's
-  ``vmap``, ``rectipy_tpu/network.py:1476-1711``): one launch of the B-row
+  ``vmap``, ``rectipy_tpu/network.py:1476-1711``): one launch of a B-row
   kernel of ``csrc/generic_fused_step.cuh`` reads each W once for up to 32
-  trials; :func:`generic_fused_rows_plain` is its plain version.
+  trials, on the tensor cores for an aligned bfloat16 W
+  (:func:`generic_rows_route`); :func:`generic_fused_rows_plain` is its
+  plain version.
 - :func:`attach_generic_fused_step` swaps a node's step for it.
 - The CUDA kernels have no backward (nor does the TPU kernel: JAX cannot
   differentiate through its ``pallas_call``), so on the card both wrappers
@@ -51,10 +53,11 @@ import torch
 
 from ..dsl.cuda import emit_step_source
 from ._build import build_generated
+from .quant import _ROUTES
 
 __all__ = ["GenericStep", "attach_generic_fused_step", "generic_fused_rows",
            "generic_fused_rows_plain", "generic_fused_step", "generic_fused_step_plain",
-           "refuse_autograd", "rows_vector_path"]
+           "generic_rows_route", "refuse_autograd"]
 
 # elements per 16-byte vector load of W
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
@@ -259,13 +262,19 @@ def _rows_launch_fn(source: str):
     return fn
 
 
-def rows_vector_path(n: int, Ws: Sequence[torch.Tensor], srcs: Sequence[torch.Tensor]) -> bool:
-    """Whether the B-row kernel takes its vector path: ``n`` a multiple of
-    4, every W and source base 16-byte aligned and every source row stride
-    (0 for a shared row) a multiple of 4.  Anything else takes the scalar
-    instantiation."""
-    return n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in list(Ws) + list(srcs)) and all(
-        _ld(t) % 4 == 0 for t in srcs)
+def generic_rows_route(w_dtype, n: int, src_lds: Sequence[int], ptrs: Sequence[int]) -> str:
+    """The B-row kernel's instance for couplings of ``w_dtype``, rows of
+    ``n`` inputs, the sources' row strides ``src_lds`` (0 for a row shared
+    by every trial) and the addresses ``ptrs`` of the W and the sources:
+    ``"vec"`` (16-byte loads of W, asynchronous copies of the sources) when
+    ``n`` is a multiple of 4, every address of 16 bytes and every stride of
+    4, and of those ``"mma"`` (the tensor cores) for a bfloat16 W with ``n``
+    a multiple of 8; else ``"scalar"``.  A float32 W stays on the CUDA
+    cores, where its numbers are the plain version's; TF32 would change
+    them."""
+    if n % 4 or any(p % 16 for p in ptrs) or any(ld % 4 for ld in src_lds):
+        return "scalar"
+    return "mma" if w_dtype == torch.bfloat16 and n % 8 == 0 else "vec"
 
 
 def _ld(t: torch.Tensor) -> int:
@@ -287,8 +296,10 @@ def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
     and the V states float32 ``(B, n)`` or ``(n,)`` (one row shared by every
     trial) with contiguous rows (the rows may be strided: the node's state
     is read in place); the P per-neuron rows ``(n,)`` float32 and
-    contiguous; all on the current device.  Anything else raises.  Each
-    launch adds one to ``generic_fused_rows.launches``."""
+    contiguous; all on the current device.  Anything else raises.  The
+    kernel's instance is :func:`generic_rows_route`'s.  Each launch adds one
+    to ``generic_fused_rows.launches``, and one on the tensor cores also to
+    ``generic_fused_rows.mma_launches``."""
     device = drive.device
     if device.type == "cpu":
         return generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
@@ -328,19 +339,23 @@ def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
     ptrs = ([W.data_ptr() for W in Ws] + [t.data_ptr() for t in per_trial]
             + [t.data_ptr() for t in vecs] + [out.data_ptr()])
     lds = [_ld(t) for t in per_trial] + [V * n]
+    route = generic_rows_route(w_dtype, n, lds[:K], ptrs[:2 * K])
     scalars = list(step.scalars.values())
     err = _rows_launch_fn(step.source)(
         (ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_longlong * len(lds))(*lds),
         (ctypes.c_double * max(len(scalars), 1))(*scalars), n, B,
-        int(w_dtype == torch.bfloat16), int(rows_vector_path(n, Ws, srcs)), step.dt,
-        step.thresh, step.reset_val, torch.cuda.current_stream(device).cuda_stream)
+        int(w_dtype == torch.bfloat16), _ROUTES[route], step.dt, step.thresh, step.reset_val,
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"generic_fused_rows: kernel launch failed with CUDA error {err}")
     generic_fused_rows.launches += 1
+    if route == "mma":
+        generic_fused_rows.mma_launches += 1
     return out
 
 
 generic_fused_rows.launches = 0
+generic_fused_rows.mma_launches = 0  # launches on the tensor cores (generic_rows_route "mma")
 
 
 def _row(val, n: int, device: torch.device, lead: tuple = ()) -> torch.Tensor:

@@ -52,10 +52,11 @@ import torch
 
 from ._build import build
 
-__all__ = ["quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot", "int8_dot_t",
-           "int8_dot_plain", "int8_dot_t_plain", "int8_mm", "int8_mm_t", "int8_mm_plain",
-           "int8_mm_t_plain", "int8_mm_route", "int8_mm_t_route", "int8_master_matvec",
-           "int8_master_ops", "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN", "quantize_rows_i4",
+__all__ = ["exact_div", "quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot",
+           "int8_dot_t", "int8_dot_plain", "int8_dot_t_plain", "int8_mm", "int8_mm_t",
+           "int8_mm_plain", "int8_mm_t_plain", "int8_mm_route", "int8_mm_t_route",
+           "int8_master_matvec", "int8_master_ops", "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN",
+           "quantize_rows_i4",
            "pack_int4", "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
            "int4_mm", "int4_mm_t", "int4_mm_plain", "int4_mm_t_plain", "int4_master_matvec",
            "int4_master_ops"]
@@ -65,12 +66,29 @@ __all__ = ["quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "int8_dot", "int
 INT8_DOT_MAX_FAN_IN = (2**31 - 1) // (127 * 127)  # 133144
 
 
+@functools.lru_cache(maxsize=None)
+def _divisor(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` as a 0-dim tensor of ``dtype`` on ``device``, made once."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def exact_div(t: torch.Tensor, value: float) -> torch.Tensor:
+    """``t / value``, correctly rounded on every device, as the JAX package
+    and PyTorch on the CPU divide.  PyTorch's CUDA division by a Python
+    scalar multiplies by the scalar's reciprocal, one ulp off for about half
+    of all values at ``/ 7`` and 4% at ``/ 127``; a 0-dim divisor on the
+    operand's own device and dtype takes the true division.  The divisor is
+    made once per value, dtype and device, so a step copies nothing to the
+    card.  Every quantization scale of the port goes through here."""
+    return t / _divisor(float(value), t.dtype, t.device)
+
+
 def quantize_rows(w: torch.Tensor):
     """Symmetric per-output-row int8 quantization of a float master matrix:
     ``(wq int8 (n_out, n_in), scale float32 (n_out,))``; a ``(B, n_out,
     n_in)`` stack of per-trial matrices quantizes each of its rows."""
     amax = w.abs().amax(dim=-1)
-    scale = (torch.clamp_min(amax, 1e-30) / 127.0).to(torch.float32)
+    scale = exact_div(torch.clamp_min(amax, 1e-30), 127.0).to(torch.float32)
     wq = torch.clamp(torch.round(w / scale[..., None].to(w.dtype)), -127, 127).to(torch.int8)
     return wq, scale
 
@@ -82,7 +100,7 @@ def quant_vec(x: torch.Tensor):
     quantized matvec stays exactly linear in ``x`` under STE."""
     x = x.detach()
     amax = x.abs().amax() if x.dim() <= 1 else x.abs().amax(dim=-1, keepdim=True)
-    s = (torch.clamp_min(amax, 1e-30) / 127.0).to(torch.float32)
+    s = exact_div(torch.clamp_min(amax, 1e-30), 127.0).to(torch.float32)
     xq = torch.clamp(torch.round(x / s.to(x.dtype)), -127, 127).to(torch.int8)
     return xq, s
 
@@ -233,7 +251,8 @@ def int8_mm_route(n_in: int, wq_ptr: int) -> str:
     return "mma" if n_in % 8 == 0 and wq_ptr % 8 == 0 else "scalar"
 
 
-_ROUTES = {"scalar": 0, "vec": 1, "mma": 2}  # the route codes of int8_mm(_t)_launch
+# the route codes of int8_mm(_t)_launch and generic_fused_rows_launch
+_ROUTES = {"scalar": 0, "vec": 1, "mma": 2}
 
 
 def int8_mm(wq, xq, row_scale, act_scale) -> torch.Tensor:
@@ -454,7 +473,7 @@ def quantize_rows_i4(w: torch.Tensor):
     ``(B, n_out, n_in)`` stack of per-trial matrices quantizes each of its
     rows."""
     amax = w.abs().amax(dim=-1)
-    scale = (torch.clamp_min(amax, 1e-30) / 7.0).to(torch.float32)
+    scale = exact_div(torch.clamp_min(amax, 1e-30), 7.0).to(torch.float32)
     wq = torch.clamp(torch.round(w / scale[..., None].to(w.dtype)), -7, 7).to(torch.int8)
     return wq, scale
 

@@ -8,6 +8,11 @@ may round a division by a host scalar through its reciprocal: an ulp of the
 update, which is large against a W' that nearly cancels); wq must be equal
 except where the plain W'/scale lies within 1e-4 of a .5 rounding boundary.
 
+The quantization scales: rows on which a division by the reciprocal of 7
+or of 127 parts from the true division (``reciprocal_rows``), and every
+scale the port quantizes with, with its integers (``quant_scales``), to be
+held bit for bit to the CPU's and to numpy's float32 division.
+
 The generic fused step: one node of each class and mode
 (``GENERIC_CASES``), built through the public API with the kernel attached,
 and inputs for one step of it (``generic_inputs``); ``check_generic`` holds
@@ -25,7 +30,7 @@ from .ops.fused_opt import bias_corrections
 
 __all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "adam_inputs",
            "check_adam_requant", "check_generic", "generic_case_net", "generic_inputs",
-           "lost_eighth_margin"]
+           "lost_eighth_margin", "quant_scales", "reciprocal_rows"]
 
 ADAM_RTOL = 1e-6
 ADAM_KW = dict(b1=0.9, b2=0.999, eps=1e-8)
@@ -71,6 +76,34 @@ def check_adam_requant(got, ref, w):
     if margin < 1e3:
         raise AssertionError(f"the adam update is only {margin}x the W' tolerance")
     return rel, int(boundary.sum()), margin
+
+
+# --------------------------------------------------------- quantization scales
+def reciprocal_rows(rows: int = 256, n: int = 256, seed: int = 12) -> np.ndarray:
+    """float32 ``(rows, n)`` values of magnitude U(0.1, 10) and random sign,
+    among whose rows' largest magnitudes numpy finds some where the product
+    by the float32 reciprocal of 7, and of 127, differs from the true
+    division (asserted): where PyTorch's CUDA division by a Python scalar,
+    which multiplies by the reciprocal, parts from the CPU's."""
+    rng = np.random.default_rng(seed)
+    w = (rng.uniform(0.1, 10.0, (rows, n)) * rng.choice([-1.0, 1.0], (rows, n))).astype(
+        np.float32)
+    amax = np.abs(w).max(axis=-1)
+    for d in (7, 127):
+        if not (amax * np.float32(1.0 / d) != amax / np.float32(d)).any():
+            raise AssertionError(f"no row where the reciprocal of {d} parts from the division")
+    return w
+
+
+def quant_scales(w: torch.Tensor) -> dict:
+    """Every quantization of the port on ``w``'s rows, on ``w``'s device:
+    name -> (integers, scale) of ``quantize_rows``, ``quantize_rows_i4`` and
+    ``quant_vec``, and ``(scale,)`` of the frozen coupling's source scale."""
+    from .dsl.lower import _source_scale
+    from .ops.quant import quant_vec, quantize_rows, quantize_rows_i4
+
+    return {"quantize_rows": quantize_rows(w), "quantize_rows_i4": quantize_rows_i4(w),
+            "quant_vec": quant_vec(w), "source_scale": (_source_scale(w),)}
 
 
 # ---------------------------------------------------------------- generic step

@@ -207,6 +207,41 @@ def test_generic_rows_plain_equals_single_trial_plain(case):
             assert torch.equal(got[b], one)
 
 
+BF16, F32_T = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("w_dtype, n, src_lds, ptrs, route", [
+    (BF16, 10_000, [20_000], [4096, 4096 + 200_000_000], "mma"),  # LIF's (B, 2n) state rows
+    (BF16, 10_000, [10_000, 0], [4096, 8192, 16384, 32768], "mma"),  # K = 2, one shared row
+    (F32_T, 10_000, [20_000], [4096, 4096 + 400_000_000], "vec"),  # f32 W: the CUDA cores
+    (BF16, 9_996, [19_992], [4096, 8192], "vec"),  # n % 8 == 4: the CUDA cores' vector loads
+    (F32_T, 9_996, [19_992], [4096, 8192], "vec"),
+    (BF16, 1_000, [1_000], [4096 + 8, 8192], "scalar"),  # W not 16-byte aligned
+    (BF16, 1_000, [1_000, 1_000], [4096, 4096 + 8, 8192, 12288], "scalar"),  # the second W
+    (BF16, 1_000, [1_000], [4096, 8192 + 4], "scalar"),  # a source base not 16-byte aligned
+    (BF16, 1_000, [1_002], [4096, 8192], "scalar"),  # a source row stride % 4 != 0
+    (BF16, 9_999, [9_999], [4096, 8192], "scalar"),  # odd n
+    (F32_T, 1_002, [1_002], [4096, 8192], "scalar"),
+])
+def test_generic_rows_route(w_dtype, n, src_lds, ptrs, route):
+    # the B-row generic step's instance is a pure function of the couplings'
+    # dtype, n, the sources' row strides and the W and source addresses:
+    # aligned bf16 takes the tensor cores, f32 never does
+    assert gf.generic_rows_route(w_dtype, n, src_lds, ptrs) == route
+
+
+def test_generic_rows_route_of_a_node_state_view():
+    # a LIF node's source s is the view y[:, n:2n] of its (B, 2n) state: the
+    # route follows n and the dtype through the view's offset and row stride
+    for n, w_dtype, route in ((1_000, BF16, "mma"), (1_024, BF16, "mma"), (1_004, BF16, "vec"),
+                              (1_004, F32_T, "vec"), (1_000, F32_T, "vec"),
+                              (1_003, BF16, "scalar"), (1_002, F32_T, "scalar")):
+        y = torch.zeros((4, 2 * n), dtype=torch.float32)
+        W, s = torch.zeros((n, n), dtype=w_dtype), y[:, n:2 * n]
+        assert gf.generic_rows_route(w_dtype, n, [s.stride(0)],
+                                     [W.data_ptr(), s.data_ptr()]) == route
+
+
 # ------------------------------------------------------------------- int4
 def _rate(pkg, W, coupling, train=False):
     # the output is a state, so that one product runs a step

@@ -18,7 +18,7 @@ from rectipy_tpu_torch import (RLS, FeedbackNetwork, Network, attach_fused_qif_s
 from rectipy_tpu_torch.ops.fused_opt import adam_requant, adam_requant_plain
 from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
                                                  generic_fused_step, generic_fused_step_plain,
-                                                 rows_vector_path)
+                                                 generic_rows_route)
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
 from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mm,
                                          int4_mm_plain, int4_mm_t, int4_mm_t_plain, int4_mv,
@@ -30,7 +30,7 @@ from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_
                                          quant_vec, quantize_rows)
 from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
                                        check_generic, generic_case_net, generic_inputs,
-                                       lost_eighth_margin)
+                                       lost_eighth_margin, quant_scales, reciprocal_rows)
 
 PARAMS = dict(dt=1e-4, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05,
               thresh=10.0, v_reset=-10.0)
@@ -982,11 +982,12 @@ def test_fit_bptt_batch_on_card_matches_cpu(cuda):
 def _same_shape(card, cpu):
     """chip_smoke.py's fused_vs_plain rule: correlation >= 0.999 and max
     |diff| <= 1% of the largest reference value.  The int4 runs need it
-    against the CPU: PyTorch on CUDA divides by a Python scalar through its
-    reciprocal, so the quantizers' scales (``/ 127.0``, ``/ 7.0``) can
-    differ from the CPU's by an ulp and flip an activation's or a weight's
-    rounding now and then (a card and a CPU run of one int4 network part
-    from the same step, single trial or batched)."""
+    against the CPU: a card and a CPU run of one int4 network part after
+    some steps, single trial or batched, though their int4 products agree
+    bit for bit and their quantization scales too (``ops.quant.exact_div``,
+    ``test_quantization_scales_on_card_equal_cpu_bit_for_bit``): a value
+    that differs in its last bit elsewhere in the step can flip an
+    activation's rounding now and then (which one is not pinned down)."""
     card, cpu = np.asarray(card), np.asarray(cpu)
     assert np.corrcoef(card.ravel(), cpu.ravel())[0, 1] >= 0.999
     assert np.abs(card - cpu).max() <= 1e-2 * np.abs(cpu).max()
@@ -1082,19 +1083,29 @@ def _generic_rows_inputs(node, B, seed, shared_drive=False):
     return step, srcs, drive[0] if shared_drive else drive, states, vecs
 
 
+def _rows_route(Ws, srcs):
+    """:func:`generic_rows_route` of one B-row launch's operands."""
+    return generic_rows_route(Ws[0].dtype, srcs[0].shape[-1],
+                              [s.stride(0) if s.dim() == 2 else 0 for s in srcs],
+                              [t.data_ptr() for t in list(Ws) + list(srcs)])
+
+
 def _check_rows(node, w_dtype, inputs, case="reset"):
     """The B-row kernel against its plain version and, trial by trial,
-    against the single-trial kernel; returns (got, ref, Ws)."""
+    against the single-trial kernel; the launch must take
+    :func:`generic_rows_route`'s instance (``mma_launches`` counts the
+    tensor cores').  Returns (got, ref, Ws)."""
     step, srcs, drive, states, vecs = inputs
     Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(len(step.targets))]
-    before = generic_fused_rows.launches
+    before = generic_fused_rows.launches, generic_fused_rows.mma_launches
     got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
     torch.cuda.synchronize()
-    assert generic_fused_rows.launches == before + 1
+    assert (generic_fused_rows.launches - before[0], generic_fused_rows.mma_launches
+            - before[1]) == (1, int(_rows_route(Ws, srcs) == "mma"))
     ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
     for b in range(got.shape[0]):
         check_generic(got[b], ref[b], step, case)
-        one = generic_fused_step(step, [s[b] for s in srcs], Ws,
+        one = generic_fused_step(step, [s[b] if s.dim() == 2 else s for s in srcs], Ws,
                                  drive[b] if drive.dim() == 2 else drive,
                                  [s[b].contiguous() for s in states], vecs)
         check_generic(got[b], one, step, case)
@@ -1103,7 +1114,9 @@ def _check_rows(node, w_dtype, inputs, case="reset"):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [32, 5])
-@pytest.mark.parametrize("n", [1000, 37])  # the vector path / the scalar one
+# bf16: the tensor cores / the CUDA cores' vector path / the scalar one (f32:
+# the vector path at 1000 and 996)
+@pytest.mark.parametrize("n", [1000, 996, 37])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(GENERIC_CASES))
 def test_generic_rows_kernel_matches_plain_and_single_trial_kernel(cuda, case, w_dtype, n, B):
@@ -1111,7 +1124,9 @@ def test_generic_rows_kernel_matches_plain_and_single_trial_kernel(cuda, case, w
     _, node = _generic_node(case, n, cuda)
     inputs = _generic_rows_inputs(node, B, seed=6)
     Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(len(inputs[0].targets))]
-    assert rows_vector_path(n, Ws, inputs[1]) == (n % 4 == 0)
+    route = ("scalar" if n % 4 else "mma" if w_dtype == torch.bfloat16 and n % 8 == 0
+             else "vec")
+    assert _rows_route(Ws, inputs[1]) == route
     got, ref, _ = _check_rows(node, w_dtype, inputs)
     step = inputs[0]
     if any(hard for _, _, hard, _ in step.spike_specs) and not step.derivative:
@@ -1151,8 +1166,41 @@ def test_generic_rows_shared_and_misaligned_operands(cuda):
     buf = torch.zeros(srcs[0].numel() + 1, device=cuda)
     buf[1:] = srcs[0].reshape(-1)
     off = buf[1:].reshape(srcs[0].shape)
-    assert not rows_vector_path(1000, [node.args["__w_fused_0__"]], [off])
+    assert _rows_route([node.args["__w_fused_0__"]], [off]) == "scalar"
     _check_rows(node, torch.float32, (step, [off], drive, states, vecs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [32, 5, 33])
+@pytest.mark.parametrize("case", ["lif", "two_couplings", "tanh_heun"])
+def test_generic_rows_tensor_cores_match_plain(cuda, case, B):
+    # the bf16 tensor-core instance at K = 1 and 2, Euler and Heun's
+    # derivative mode, n = 1000 (a ragged last block of rows and a ragged
+    # last chunk of inputs), one or two groups of trials: one launch on the
+    # tensor cores, held to the plain version and the single-trial kernel;
+    # then with a source row shared by every trial (row stride 0)
+    _, node = _generic_node(case, 1000, cuda)
+    step, srcs, drive, states, vecs = _generic_rows_inputs(node, B, seed=12)
+    before = generic_fused_rows.mma_launches
+    _check_rows(node, torch.bfloat16, (step, srcs, drive, states, vecs))
+    shared = [srcs[0][1]] + srcs[1:]
+    _check_rows(node, torch.bfloat16, (step, shared, drive, states, vecs))
+    assert generic_fused_rows.mma_launches == before + 2
+
+
+@pytest.mark.gpu
+def test_quantization_scales_on_card_equal_cpu_bit_for_bit(cuda):
+    # PyTorch's CUDA division by a Python scalar multiplies by the
+    # reciprocal; every scale of the port divides exactly (ops.quant.
+    # exact_div), so on rows where the reciprocal of 7 or 127 parts from the
+    # division (reciprocal_rows asserts that such rows are in the case) the
+    # card's scales and integers equal the CPU's bit for bit: quantize_rows,
+    # quantize_rows_i4, quant_vec and the frozen coupling's source scale
+    w = torch.as_tensor(reciprocal_rows())
+    card, cpu = quant_scales(w.to(cuda)), quant_scales(w)
+    for name, ref in cpu.items():
+        for got, want in zip(card[name], ref):
+            assert got.device.type == "cuda" and torch.equal(got.cpu(), want), name
 
 
 @pytest.mark.gpu

@@ -15,6 +15,7 @@ from rectipy_tpu.ops import quant as jq
 from rectipy_tpu_torch import Network, load_jax_params
 from rectipy_tpu_torch.ops import fused_opt as tfo
 from rectipy_tpu_torch.ops import quant as tq
+from rectipy_tpu_torch.testing import quant_scales, reciprocal_rows
 
 QIF_J = "neuron_model_templates.spiking_neurons.qif.qif"
 QIF_T = "rectipy_tpu_torch.models.spiking_neurons.qif.qif"
@@ -56,6 +57,25 @@ def test_quantizers_and_int8_products_match_jax(dtype):
     np.testing.assert_array_equal(_np(tq._mv_t_prepped((twq, tws), _t(d))),
                                   np.asarray(jq._mv_t_prepped((jwq, jws), jnp.asarray(d))))
     assert tq._mv_prepped((twq, tws), _t(x)).dtype == _t(x).dtype
+
+
+def test_quantization_scales_divide_like_numpy_float32():
+    # the four scales of the port (quantize_rows, quantize_rows_i4, quant_vec
+    # and the frozen coupling's source scale) are max|w| / d divided exactly,
+    # as numpy divides float32, also on rows where a product by the
+    # reciprocal of d would differ (reciprocal_rows asserts that such rows
+    # are in the case): the contract test_torch_gpu.py holds the card to
+    w = reciprocal_rows()
+    amax = np.maximum(np.abs(w).max(axis=-1), np.float32(1e-30))
+    got = quant_scales(_t(w))
+    for name, d, lim in (("quantize_rows", 127, 127), ("quantize_rows_i4", 7, 7),
+                         ("quant_vec", 127, 127), ("source_scale", 127, None)):
+        scale = amax / np.float32(d)
+        assert scale.dtype == np.float32
+        np.testing.assert_array_equal(_np(got[name][-1]).reshape(-1), scale)
+        if lim is not None:
+            wq = np.clip(np.round(w / scale[:, None]), -lim, lim)
+            np.testing.assert_array_equal(_np(got[name][0]), wq.astype(np.int8))
 
 
 def test_int8_dot_plain_is_exact_at_the_fan_in_limit_scale():
