@@ -159,7 +159,8 @@ csrc/generic_fused_step.cuh):
    kernel under GENERIC_TOL["reset"];
    and int4_mm/int4_mm_t bit for bit against their plain versions (and
    int4_mv/int4_mv_t on the first and last trial) at B = 32, 7 and 5, N =
-   10,000 and 14,336.
+   10,000 and 14,336, int4_mm on its tensor-core route (int4_mm_route
+   "mma", one int4_mm.mma_launches a call), which each line names.
 26. run_batch_path: benchmarks/batch_throughput.py's network (N = 10,000
    qif_sfa, 10% fan-in of 1/(0.1 N) from seed 42, the tan etas, dt 1e-4)
    with a frozen int8 coupling: an eta sweep (offsets linspace(-2, 2, 32))
@@ -172,7 +173,8 @@ csrc/generic_fused_step.cuh):
    fused QIF step: one B-row launch per step, every one on the tensor
    cores (qif_sfa_step.mma_launches), the trials under fused_vs_plain's
    rule; then with a frozen int4 coupling: one int4_mm launch per
-   step, the trials held as int8's.  Then the same network with an
+   step, every one on the tensor cores (int4_mm.mma_launches), the trials
+   held as int8's.  Then the same network with an
    int4_master coupling swept per trial (4 couplings of their own, 1,000
    steps): 4,000 int4_mv launches, the first and last trial against
    single-trial runs with their coupling.  Then phase 12's LIF network
@@ -200,8 +202,8 @@ csrc/generic_fused_step.cuh):
    rtol 1e-4; at most 1% of the weights' updates differ by more than 1% of
    lr; see BATCH_LOSS_RTOL).  Then the same ensemble with an
    int4_master coupling on the same trial arrays: a 1-epoch warm fit and a
-   timed 4-epoch fit, 2,000 launches each of int4_mm and int4_mm_t and
-   none of int4_mv(_t); ms/epoch and aggregate trained neuron-updates/s
+   timed 4-epoch fit, 2,000 launches each of int4_mm and int4_mm_t (all
+   2,000 of int4_mm on the tensor cores) and none of int4_mv(_t); ms/epoch and aggregate trained neuron-updates/s
    against phase 18's; and batch_train_vs_cpu for int4_master.
 28. batch_timing: int8_mm/int8_mm_t at B = 32 (bound, plain ms,
    torch._int_mm of the same integers; for int8_mm_t its W is a column-major
@@ -219,12 +221,16 @@ csrc/generic_fused_step.cuh):
    the device's idle share over one epoch (torch.profiler).  Then
    int4_mm/int4_mm_t at B = 32 on the main path's W quantized to int4
    (bound, plain ms, torch._int_mm of the same integers unpacked to int8),
-   each in turns with the 32 int4_mv (int4_mv_t) launches it replaces.
+   each in turns with the 32 int4_mv (int4_mv_t) launches it replaces, and
+   int4_mm in turns with its __dp4a instance (tensor cores, __dp4a,
+   __dp4a, tensor cores; the two held equal first), also at N = 14,336
+   (random packed weights: 103 MB, more than the L2 holds).
 The kernels line adds int8_mm and int8_mm_t (launches of phase 27's fit),
 int8_mm[run_batch_path] (launches of phase 26's int8 run, phase 28's
 timing at the same shapes), the B-row step in bf16 (launches of phase 26's
 fused run), int4_mm and int4_mm_t (launches of phase 27's int4_master
-fit), int4_mm[run_batch_path] (phase 26's int4 run) and the B-row generic
+fit; int4_mm with its kernel_route), int4_mm[run_batch_path] (phase 26's
+int4 run) and the B-row generic
 step's tensor-core instance (phase 26's LIF run, timed there).
 
 Phase 29 (run after phase 2, before any phase quantizes):
@@ -1782,8 +1788,8 @@ def int4_mm_check(dev) -> dict:
     at B = B_TRAIN and B_RAGGED, N = 10,000 and the microbenchmark's
     14,336: weights over the full nibble range, per-trial activation
     scales over two decades."""
-    from rectipy_tpu_torch.ops.quant import (int4_mm, int4_mm_plain, int4_mm_t, int4_mm_t_plain,
-                                             int4_mv, int4_mv_t, int4_vector_path, pack_int4,
+    from rectipy_tpu_torch.ops.quant import (int4_mm, int4_mm_plain, int4_mm_route, int4_mm_t,
+                                             int4_mm_t_plain, int4_mv, int4_mv_t, pack_int4,
                                              quant_vec)
 
     gen = torch.Generator(device=dev).manual_seed(252)
@@ -1796,11 +1802,15 @@ def int4_mm_check(dev) -> dict:
             xq, xs = quant_vec(torch.randn((B, n), generator=gen, device=dev) * scale)
             vq, vs = quant_vec(torch.randn((B, n), generator=gen, device=dev) * scale)
             xs, vs = xs.reshape(-1), vs.reshape(-1)
-            before = int4_mm.launches, int4_mm_t.launches
+            route = int4_mm_route(wp.shape[1], wp.data_ptr())
+            before = int4_mm.launches, int4_mm.mma_launches, int4_mm_t.launches
             got, got_t = int4_mm(wp, xq, ws, xs), int4_mm_t(wp, vq, vs, n)
             torch.cuda.synchronize()
-            if (int4_mm.launches - before[0], int4_mm_t.launches - before[1]) != (1, 1):
+            if (int4_mm.launches - before[0], int4_mm_t.launches - before[2]) != (1, 1):
                 raise AssertionError(f"int4_mm/int4_mm_t did not launch at B={B}, n={n}")
+            # every pack_int4 output takes the tensor cores
+            if route != "mma" or int4_mm.mma_launches - before[1] != 1:
+                raise AssertionError(f"int4_mm took route {route} at B={B}, n={n}")
             ref, ref_t = (int4_mm_plain(wp, xq) * ws) * xs[:, None], int4_mm_t_plain(
                 wp, vq, n) * vs[:, None]
             if not (torch.equal(got, ref) and torch.equal(got_t, ref_t)):
@@ -1814,8 +1824,7 @@ def int4_mm_check(dev) -> dict:
             if not (bool((got != 0).any()) and bool((got_t != 0).any())):
                 raise AssertionError("the int4_mm check is vacuous: all outputs are zero")
             emit({"phase": "batch_kernel_check", "kernel": "int4_mm/int4_mm_t", "n": n, "B": B,
-                  "vector_path": int4_vector_path(wp, xq) and n % 16 == 0,
-                  "bit_identical": True})
+                  "kernel_route": route, "tensor_core_launches": 1, "bit_identical": True})
         del wp
     return {"int4_mm": 0.0, "int4_mm_t": 0.0}
 
@@ -1834,12 +1843,12 @@ def run_batch_phase(dev) -> tuple:
     rec_kw = dict(record_output=False, record_vars=[("qif", "s", True)], verbose=False)
     picks = (0, B_RUN // 2 - 1, B_RUN - 1)
     launches, out = {}, {}
-    # (coupling, fused step?, the batched kernel, a single-row kernel that
-    # must not launch, every launch on the tensor cores?)
-    for coupling, fused, kernel, absent, mma in (
-            ("int8", False, int8_mm, int8_mv, True),
-            ("bfloat16", True, qif_sfa_step, int8_mv, True),
-            ("int4", False, int4_mm, int4_mv, False)):
+    # (coupling, fused step?, the batched kernel, whose every launch must
+    # take the tensor cores, a single-row kernel that must not launch)
+    for coupling, fused, kernel, absent in (
+            ("int8", False, int8_mm, int8_mv),
+            ("bfloat16", True, qif_sfa_step, int8_mv),
+            ("int4", False, int4_mm, int4_mv)):
         t0 = time.perf_counter()
         net, etas = batch_run_net(coupling, fused)
         build_s = time.perf_counter() - t0
@@ -1860,9 +1869,7 @@ def run_batch_phase(dev) -> tuple:
         batch(CMP_STEPS)  # warm
         times = {"batch": [], "single": []}
         for _ in range(2):  # in turns, best of 2
-            kernel.launches = absent.launches = 0
-            if mma:
-                kernel.mma_launches = 0
+            kernel.launches = kernel.mma_launches = absent.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = batch()
@@ -1871,9 +1878,9 @@ def run_batch_phase(dev) -> tuple:
             if kernel.launches != T_RUN or absent.launches != 0:
                 raise AssertionError(f"run_batch_path ({coupling}): {kernel.launches} "
                                      f"{kernel.__name__} launches for {T_RUN} steps")
-            # every step's product on the tensor cores (int4_mm has no such route)
-            mma_launches = kernel.mma_launches if mma else None
-            if mma and mma_launches != T_RUN:
+            # every step's product on the tensor cores
+            mma_launches = kernel.mma_launches
+            if mma_launches != T_RUN:
                 raise AssertionError(f"run_batch_path ({coupling}): {mma_launches} of "
                                      f"{T_RUN} launches took the tensor-core route")
             launches[coupling] = kernel.launches
@@ -2300,6 +2307,7 @@ def batch_train_int4_phase(data, staged, int4_nu: float) -> dict:
     def fit_b(epochs):
         for k in kernels:
             k.launches = 0
+        int4_mm.mma_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         obs = net.fit_bptt_batch(ins_d, tgt_d, n_epochs=epochs, optimizer="adam", lr=LR,
@@ -2318,6 +2326,9 @@ def batch_train_int4_phase(data, staged, int4_nu: float) -> dict:
     if launches != want:
         raise AssertionError(f"batch_train_path (int4_master): launches {launches}, "
                              f"expected {want}")
+    if int4_mm.mma_launches != steps:  # every forward product on the tensor cores
+        raise AssertionError(f"batch_train_path (int4_master): {int4_mm.mma_launches} of "
+                             f"{steps} int4_mm launches took the tensor-core route")
     if net.last_fit != {"trajectory": "chain", "fused_adam": False}:
         raise AssertionError(f"batch_train_path (int4_master) took {net.last_fit}")
     epoch_s = seconds / I4_TRAIN_EPOCHS
@@ -2328,6 +2339,7 @@ def batch_train_int4_phase(data, staged, int4_nu: float) -> dict:
           "ms_per_epoch": epoch_s * 1e3, "aggregate_trained_neuron_updates_per_s": nu,
           "single_trial_trained_neuron_updates_per_s": int4_nu,
           "ratio_to_single_trial": nu / int4_nu, "launches_per_fit": launches,
+          "int4_mm_tensor_core_launches": int4_mm.mma_launches,
           "first_loss": warm_losses[0], "losses_timed_fit": losses})
     del net
     torch.cuda.empty_cache()
@@ -2363,19 +2375,30 @@ def rows_probe_ms(W, v, s, x, eta, inp) -> dict:
 
 
 def dp4a_turns(name: str, fn, wq, act, scales) -> tuple:
-    """Phase 28: int8_mm or int8_mm_t (``name``; ``fn``, the tensor cores at
-    N = 10,000) in turns with its __dp4a instance on the same operands (the
-    "vec" route, called through the C launch): kernel, __dp4a, __dp4a,
-    kernel.  ``act``: the activations (xq or vq); ``scales``: int8_mm's
-    (row scale, activation scales) or int8_mm_t's activation scales.
-    Returns the kernel's mean ms and the line's extra keys."""
+    """Phase 28: int8_mm, int8_mm_t or int4_mm (``name``; ``fn``, the tensor
+    cores) in turns with its __dp4a instance on the same operands (the "vec"
+    route, called through the C launch): kernel, __dp4a, __dp4a, kernel.
+    ``wq``: the int8 or packed int4 weights; ``act``: the activations (xq or
+    vq); ``scales``: int8_mm's and int4_mm's (row scale, activation scales)
+    or int8_mm_t's activation scales.  Returns the kernel's mean ms and the
+    line's extra keys."""
     from rectipy_tpu_torch.ops import quant
 
     n_out, n_in = wq.shape
     B = act.shape[0]
     lib, vec = quant._lib(), quant._ROUTES["vec"]
     stream = torch.cuda.current_stream().cuda_stream
-    if name == "int8_mm":
+    if name == "int4_mm":
+        route = quant.int4_mm_route(wq.shape[1], wq.data_ptr())
+        ws, xs = scales
+        n_in = act.shape[1]
+        out = torch.empty((B, n_out), dtype=torch.float32, device=wq.device)
+
+        def launch():
+            return quant._lib4().int4_mm_launch(wq.data_ptr(), act.data_ptr(), ws.data_ptr(),
+                                                xs.data_ptr(), out.data_ptr(), n_out, n_in,
+                                                wq.shape[1], B, vec, stream)
+    elif name == "int8_mm":
         route = quant.int8_mm_route(n_in, wq.data_ptr())
         ws, xs = scales
         out = torch.empty((B, n_out), dtype=torch.float32, device=wq.device)
@@ -2550,10 +2573,17 @@ def int4_batch_timing(dev, W_np, train_launches: dict, run_launches: dict, errs:
     on the main path's W quantized to int4 (bound, plain ms, and as the
     yardstick torch._int_mm of the same integers unpacked to int8: for
     int4_mm_t on a column-major copy), each in turns with the B_TRAIN
-    int4_mv (int4_mv_t) launches it replaces on the same rows."""
+    int4_mv (int4_mv_t) launches it replaces on the same rows; int4_mm
+    also in turns with its __dp4a instance, at N = 10,000 and at the
+    microbenchmark's N = 14,336 (random weights over the full nibble
+    range), whose 103 MB of packed W cannot stay in L2."""
     from rectipy_tpu_torch.ops.quant import (int4_mm, int4_mm_plain, int4_mm_t, int4_mm_t_plain,
                                              int4_mv, int4_mv_t, pack_int4, quant_vec,
                                              quantize_rows_i4)
+
+    def bound(n_bytes, n_ops):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     B = B_TRAIN
     wq, ws = quantize_rows_i4(torch.as_tensor(W_np, dtype=torch.float32, device=dev))
@@ -2582,18 +2612,23 @@ def int4_batch_timing(dev, W_np, train_launches: dict, run_launches: dict, errs:
         turns = [cuda_ms(f, reps=r) for f, r in ((fn, 200), (singles, 10), (singles, 10),
                                                  (fn, 200))]
         ms, singles_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        extra = {}
+        if name == "int4_mm":  # the tensor cores in turns with the __dp4a instance
+            ms, extra = dp4a_turns(name, fn, wp, xq, (ws, xs))
         plain_ms = cuda_ms(plain, reps=5)
         library_ms = cuda_ms(lib, reps=200)
         n_ops = 2 * B * N * N
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS
+        bound_ms, bound_by = bound(n_bytes, n_ops)
         entry = {"name": name, "route": "cuda", "source": I4_SOURCE, "replaces": I4_TPU_KERNEL,
                  "launches": train_launches[name], "max_abs_err": errs[name], "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": library_ms}
+        if name == "int4_mm":
+            entry["kernel_route"] = extra["kernel_route"]
         entries.append(entry)
-        emit({"phase": "batch_timing", **entry, "B": B, "bytes": n_bytes, "ops": n_ops,
-              "turns_ms": turns, "single_row_launches_ms_in_turns": singles_ms,
+        emit({"phase": "batch_timing", **entry, **extra, "n": N, "B": B, "bytes": n_bytes,
+              "ops": n_ops, "single_row_turns_ms": turns,
+              "single_row_launches_ms_in_turns": singles_ms,
               "speedup_over_single_row_launches": singles_ms / ms,
               "library_ms_reason": "torch._int_mm of the same integers unpacked to int8 "
                                    "(int32 sums without the scales): a yardstick" + (
@@ -2603,7 +2638,24 @@ def int4_batch_timing(dev, W_np, train_launches: dict, run_launches: dict, errs:
         if name == "int4_mm":  # run_batch_path's instance: the same (B_RUN = B_TRAIN, N) shapes
             entries.append({**entry, "name": "int4_mm[run_batch_path]",
                             "launches": run_launches["int4"]})
-    del wq, wp, wq_cm
+    del wq, wp, wq_cm, rows_x, rows_v
+    torch.cuda.empty_cache()
+    n = N_I4PACK
+    wq = torch.randint(-8, 8, (n, n), generator=gen, device=dev, dtype=torch.int8)
+    wp, ws = pack_int4(wq), torch.rand(n, generator=gen, device=dev) + 0.5
+    xq, xs = quant_vec(torch.randn((B, n), generator=gen, device=dev))
+    xs = xs.reshape(-1)
+    ms, extra = dp4a_turns("int4_mm", lambda: int4_mm(wp, xq, ws, xs), wp, xq, (ws, xs))
+    n_bytes, n_ops = wp.numel() + B * n + 4 * n + 4 * B + 4 * B * n, 2 * B * n * n
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    emit({"phase": "batch_timing", "name": "int4_mm", "n": n, "B": B, "ms": ms, **extra,
+          "plain_ms": cuda_ms(lambda: (int4_mm_plain(wp, xq) * ws) * xs[:, None], reps=5),
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "library_ms": cuda_ms(lambda: torch._int_mm(xq, wq.T), reps=200),
+          "library_ms_reason": "torch._int_mm of the same integers unpacked to int8 (int32 "
+                               "sums without the scales): a yardstick",
+          "bytes": n_bytes, "ops": n_ops, "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+    del wq, wp
     torch.cuda.empty_cache()
     return entries
 

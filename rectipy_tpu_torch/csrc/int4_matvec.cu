@@ -33,7 +33,7 @@
 //   bytes of the row (32 weights; streaming hint) and the 32 bytes of xq
 //   that they multiply (read-only cache).  In each 32-bit word, the low
 //   nibbles (weights 0, 2, 4, 6 of the word) and the high nibbles (1, 3, 5,
-//   7) become four signed bytes each with a mask and __vsub4; __byte_perm
+//   7) become four signed bytes each (lo_nibbles, hi_nibbles); __byte_perm
 //   picks the even and the odd bytes of xq; two __dp4a sum the eight
 //   products into an int32.  The last n_in % 32 weights go one per lane; a
 //   warp shuffle reduces the row; lane 0 writes the epilogue in the JAX
@@ -66,12 +66,69 @@
 // 5.0e7 bytes (15 us at 3.35 TB/s); the 2*B*N^2 = 6.4e9 operations take 3 us
 // at the int8 tensor-core rate, so the bound is the bytes.  On the CUDA
 // cores with __dp4a (about 64 four-byte products a clock per SM) the products
-// alone take some 50 us, above that bound; these first kernels run there
-// all the same (the tensor cores are a later step), and their sums are
-// exact, so they agree bit for bit with the plain versions.
+// alone take some 50 us, above that bound, so int4_mm runs on the tensor
+// cores (int4_mm_mma_kernel); int4_mm_t and the __dp4a int4_mm still run on
+// the CUDA cores.  All sums are exact, so every kernel agrees bit for bit
+// with the plain versions.
 // - The trap: int4_mv's one-warp-per-row form, kept for B rows, would make
 //   each warp read all B activation rows per W row.
-// - int4_mm: int8_mm's __dp4a scheme (int8_matvec.cu, int8_mm_kernel) on
+// - int4_mm on the tensor cores (route "mma": stride % 16 == 0 and wp
+//   16-byte aligned, which every pack_int4 output is; int4_mm_mma_kernel):
+//   int8_mm_mma_kernel's scheme (int8_matvec.cu) on nibbles, with the
+//   pieces both share in mma_s8.cuh.  mma.sync m16n8k32 s8 x s8 -> s32 with
+//   M = W's rows, N = the trials, K = W's columns; the int4 tensor-core
+//   path is left alone (the H100's data sheet gives it no dense rate), so
+//   each nibble becomes a signed byte in registers.
+//   - A fragments from the packed rows: lane (g, t) = (lane / 4, lane % 4)
+//     makes one 16-byte streaming load (columns 32t..32t+31 of a 128-column
+//     k-block) of rows g and g + 8 of each m-tile.  Word s of it holds
+//     columns 32t+8s..32t+8s+7: its low nibbles (the even columns) become
+//     a0 (row g) and a1 (row g + 8) of k-step s, its high nibbles (the odd
+//     ones) a2 and a3 (lo_nibbles / hi_nibbles: mask, shift, n - 8).  So k
+//     slot 4t+i holds column 32t+8s+2i and slot 16+4t+i column 32t+8s+2i+1:
+//     a permutation of k, and the integer sum does not depend on the order.
+//   - B fragments under the same permutation: the block stages xq with each
+//     16-byte word split into its even and odd bytes (split_even_odd), so
+//     that trial 8nt+g's B registers of the four k-steps are two 16-byte
+//     shared reads (columns 32t..32t+15, then +16..+31).  Each trial row of
+//     the stage is padded to 16 mod 32 bytes, so that a quarter-warp's reads
+//     (2 trials x 4 lanes 32 bytes apart) hit distinct banks.  Where n_in %
+//     16 == 0 and xq is 16-byte aligned, cp.async copies the words in parts
+//     after the first W loads are out, and each thread splits the words it
+//     copied once its part has landed (no extra barrier); otherwise each
+//     byte is loaded and stored at its split position.
+//   - The grid is int8_mm's: a block owns a strip of rows and a chunk of
+//     columns, the chunks of a strip are one thread block cluster that adds
+//     its int32 sums through distributed shared memory and writes the
+//     epilogue in int4_mv's order, and the chunk count is the largest (at
+//     most 8) for which the clusters of all strips fit on the card at once
+//     (cudaOccupancyMaxActiveClusters, asked once per device).  But a block
+//     owns 256 rows (4 warps x 4 m-tiles), not 128: W's bytes per column are
+//     half of int8's, so the xq stage, which every strip reads, weighs twice
+//     as much against them; 256-row strips halve it (40 strips x 32 x 10,000
+//     bytes = 13 MB of L2 reads at N = 10,000, against W's 50 MB).  Two
+//     k-blocks (32 bytes a row) of W are in flight a lane; 4 m-tiles x 4
+//     n-tiles x 4 = 64 int32 sums; the stage is waited for in two parts.
+//   - Where the trouble lies: (1) the last k-block of a row: at N = 10,000 a
+//     row holds 78 k-blocks and 16 columns, so lanes t = 1..3 of the last
+//     would read the next row.  A lane loads only when its first column lies
+//     inside the pass; its 16 bytes then start below ceil(n_in / 2) at a
+//     multiple of 16, hence end inside the stride.  A skipped load is 0x88
+//     bytes (zero weights), and the stage holds zeros past n_in and past the
+//     trials, so that nothing is read past xq.  (2) Ragged B (7 or 5 trials):
+//     n-tiles past the trials are skipped and no row past n_rows is
+//     written.  (3) W of about L2's size at N = 10,000: a timed loop may read
+//     part of it from L2 (N = 14,336's 103 MB cannot).
+//   - What bounds it: the W stream with its unpacking in this load pattern;
+//     with the products replaced by an XOR, and the stage left out as well,
+//     the kernel kept most of its time.  Tried and slower (a throwaway
+//     timing script, no figures kept): 128-row strips with two or three
+//     k-blocks of 256 columns in flight, or four of 128; __vsub4 for the
+//     unpack; four stage parts; one 4,096-column pass at one block an SM;
+//     8 warps a block of 2 m-tiles each; and at most 4 chunks (slower at N
+//     = 10,000, faster at 14,336).
+// - int4_mm's __dp4a instances (route "scalar"; "vec" only through the C
+//   launch, its conditions being inside "mma"'s): int8_mm's __dp4a scheme on
 //   nibbles.  A block of 4 warps owns 16 rows of W and up to 32 trials.  For
 //   each chunk of 1,024 inputs it stages the chunk of all its trials'
 //   activations in shared memory once (32 KB), each 16-byte word of xq split
@@ -79,18 +136,18 @@
 //   what the low and the high nibbles multiply; each word of a trial's
 //   chunk is stored so that lane l's two words sit 32 words apart and a
 //   warp's reads are conflict-free.  Each warp streams 16 packed bytes (32
-//   weights) of each of its 4 rows per lane, unpacks them once (mask +
-//   __vsub4) and multiplies them with every trial's 32 activations: 4 rows x
-//   32 trials of int32 sums in registers, 8 __dp4a per row and trial.  Each
-//   sum reduces across the warp with __reduce_add_sync; lane b writes trial
-//   b's epilogue in int4_mv's order.
+//   weights) of each of its 4 rows per lane, unpacks them once and
+//   multiplies them with every trial's 32 activations: 4 rows x 32 trials of
+//   int32 sums in registers, 8 __dp4a per row and trial.  Each sum reduces
+//   across the warp with __reduce_add_sync; lane b writes trial b's
+//   epilogue in int4_mv's order.
 // - int4_mm_t: int8_mm_t's __dp4a scheme on nibbles.  A block owns a strip of
 //   512 columns (4 adjacent columns a thread: 2 packed bytes a row) and a
 //   chunk of rows, with the chunk's activations of its 32 trials staged in
 //   shared memory as words of 4 rows (read as broadcasts).  A thread takes
 //   4 rows at a time: two __byte_perm gather the 4 rows' bytes of its column
-//   pairs, a mask and __vsub4 unpack them into 4 words of one column x 4
-//   rows (signed), and __dp4a takes each against every trial's word: 4
+//   pairs, lo_nibbles and hi_nibbles unpack them into 4 words of one column
+//   x 4 rows (signed), and __dp4a takes each against every trial's word: 4
 //   columns x 32 trials of int32 sums.  Each block stores its chunk's sums to
 //   an int32 scratch (chunks x B x n_in) and a second kernel sums the chunks
 //   and applies the scale.
@@ -103,6 +160,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_s8.cuh"
 
 namespace {
 
@@ -120,13 +179,22 @@ __device__ __forceinline__ int nibble(const uint8_t* row, int j) {
   return ((j & 1) ? (b >> 4) : (b & 15)) - 8;
 }
 
+// The low (weights 0, 2, 4, 6) and high (1, 3, 5, 7) nibbles of a packed word
+// as signed bytes, n - 8 each: n + 0x78 stays inside its byte, and flipping
+// the byte's top bit then takes 0x80 off (n >= 8) or adds 0x80 (n < 8, giving
+// n - 8 mod 256).  Three or four integer instructions; __vsub4 takes more.
+__device__ __forceinline__ int lo_nibbles(uint32_t u) {
+  return static_cast<int>(((u & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u);
+}
+__device__ __forceinline__ int hi_nibbles(uint32_t u) {
+  return static_cast<int>((((u >> 4) & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u);
+}
+
 // acc + the 8 weights of the packed word u times the 8 activations of the
 // words a (activations 0-3) and b (4-7).
 __device__ __forceinline__ int dot8(uint32_t u, uint32_t a, uint32_t b, int acc) {
-  const int lo = static_cast<int>(__vsub4(u & 0x0F0F0F0Fu, 0x08080808u));
-  const int hi = static_cast<int>(__vsub4((u >> 4) & 0x0F0F0F0Fu, 0x08080808u));
-  acc = __dp4a(lo, static_cast<int>(__byte_perm(a, b, 0x6420)), acc);
-  return __dp4a(hi, static_cast<int>(__byte_perm(a, b, 0x7531)), acc);
+  acc = __dp4a(lo_nibbles(u), static_cast<int>(__byte_perm(a, b, 0x6420)), acc);
+  return __dp4a(hi_nibbles(u), static_cast<int>(__byte_perm(a, b, 0x7531)), acc);
 }
 
 template <bool kVec>
@@ -303,15 +371,6 @@ __device__ __forceinline__ int4 split_even_odd(const int4 a) {
                    static_cast<int>(__byte_perm(x, y, 0x7531)),
                    static_cast<int>(__byte_perm(z, w, 0x6420)),
                    static_cast<int>(__byte_perm(z, w, 0x7531)));
-}
-
-// The low (weights 0, 2, 4, 6) and high (1, 3, 5, 7) nibbles of a packed word
-// as signed bytes.
-__device__ __forceinline__ int lo_nibbles(uint32_t u) {
-  return static_cast<int>(__vsub4(u & 0x0F0F0F0Fu, 0x08080808u));
-}
-__device__ __forceinline__ int hi_nibbles(uint32_t u) {
-  return static_cast<int>(__vsub4((u >> 4) & 0x0F0F0F0Fu, 0x08080808u));
 }
 
 template <bool kVec>
@@ -569,6 +628,201 @@ void mm_t_chunks(int n_out, int n_in, int n_rows, int* chunks, int* rows) {
   *chunks = (n_out + r - 1) / r;
 }
 
+// ----------------------------------------------- int4_mm on the tensor cores
+constexpr int kQaWarps = 4;
+constexpr int kQaThreads = 32 * kQaWarps;
+constexpr int kQaTiles = 4;                         // m-tiles of 16 rows a warp
+constexpr int kQaWarpRows = 16 * kQaTiles;
+constexpr int kQaRows = kQaWarps * kQaWarpRows;     // rows of W a block
+constexpr int kQaBlockK = 128;                      // columns of a k-block: 16 bytes a lane and row
+constexpr int kQaRing = 2;                          // k-blocks of W in flight a lane
+constexpr int kQaPassCols = 2048;                   // columns of xq staged at once at most
+constexpr int kQaParts = 2;                         // parts of the stage, waited for one by one
+constexpr int kQaMaxCluster = 8;                    // chunks of columns (the portable cluster size)
+constexpr int kQaBlocksPerSm = 2;                   // blocks an SM (the stage's shared memory)
+constexpr int kQaRedPitch = kQaRows + 4;            // ints a trial in the sums' buffer
+static_assert(kQaParts <= 4, "wait_copies waits for at most 3 pending groups");
+static_assert(kQaPassCols % kQaBlockK == 0, "whole k-blocks a pass");
+// Bytes a trial's row takes in the stage: 16 mod 32, so that the 16-byte
+// reads of a quarter-warp (2 trials x 4 lanes 32 bytes apart) hit distinct
+// banks; a multiple of 16 for cp.async.
+constexpr int kQaStride = kQaPassCols + 16;
+// one size of shared memory for every shape (the stage, then the sums), so
+// that what fits on the card does not depend on the shape
+constexpr int kQaSmem = kTrials * kQaStride > kTrials * kQaRedPitch * 4
+                            ? kTrials * kQaStride : kTrials * kQaRedPitch * 4;
+constexpr uint32_t kZeroWeights = 0x88888888u;      // 8 nibbles of 8: zero weights
+
+// The stage position of activation j (0..15) of a 16-byte word once split:
+// split_even_odd's order (the even bytes of the first 8, their odd bytes,
+// the same of the last 8).
+__host__ __device__ constexpr int split_pos(int j) { return (j & 8) + (j & 1) * 4 + (j & 7) / 2; }
+
+// The tensor-core int4_mm (header note).  Grid: (strips of kQaRows rows,
+// chunks of cols_per_chunk columns, groups of kTrials trials); the chunks of
+// a strip and group are one cluster.  The caller takes this kernel only when
+// stride % 16 == 0 and wp is 16-byte aligned; kVecStage: n_in % 16 == 0 and
+// xq 16-byte aligned (the stage by cp.async, else byte by byte).
+template <bool kVecStage>
+__global__ void __launch_bounds__(kQaThreads, kQaBlocksPerSm)
+int4_mm_mma_kernel(const uint8_t* __restrict__ wp, const int8_t* __restrict__ xq,
+                   const float* __restrict__ row_scale, const float* __restrict__ act_scale,
+                   float* __restrict__ out, int n_out, int n_in, int stride, int n_rows,
+                   int cols_per_chunk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
+  const int b0 = blockIdx.z * kTrials;
+  const int nb = min(kTrials, n_rows - b0);
+  const int ntiles = (nb + 7) / 8;  // n-tiles with a trial in them
+  const int c0 = blockIdx.y * cols_per_chunk;
+  const int cols = max(0, min(n_in, c0 + cols_per_chunk) - c0);  // a chunk may be empty
+  const int row0 = blockIdx.x * kQaRows + warp * kQaWarpRows;  // the warp's first row
+  const unsigned char* s_lane = smem + g * kQaStride + 32 * t;  // trial g, columns 32t.. of a k-block
+
+  // the lane's packed rows g and g + 8 of each m-tile (m = 2 * tile + half),
+  // at its 16 bytes (columns 32t..32t+31) of the chunk's first k-block
+  const uint8_t* w_row[2 * kQaTiles];
+  bool row_ok[2 * kQaTiles];
+#pragma unroll
+  for (int m = 0; m < 2 * kQaTiles; ++m) {
+    const int r = row0 + 16 * (m >> 1) + 8 * (m & 1) + g;
+    row_ok[m] = r < n_out;
+    w_row[m] = wp + static_cast<size_t>(row_ok[m] ? r : 0) * stride + c0 / 2 + 16 * t;
+  }
+
+  int c[kQaTiles][4][4];  // m-tile, n-tile, fragment element
+#pragma unroll
+  for (int u = 0; u < kQaTiles; ++u)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[u][nt][i] = 0;
+
+  for (int p0 = 0; p0 < cols; p0 += kQaPassCols) {  // one pass at N = 10,000
+    const int pcols = min(kQaPassCols, cols - p0);
+    const int blocks = (pcols + kQaBlockK - 1) / kQaBlockK;
+    if (p0 > 0) __syncthreads();  // the previous pass's stage is used up
+    uint4 ring[kQaRing][2 * kQaTiles];  // kQaRing k-blocks ahead
+    // zero weights (and no load) past the pass: a lane that loads starts
+    // inside the pass, at a multiple of 16 bytes below ceil(n_in / 2) <=
+    // stride, so its 16 bytes never reach the next row
+    auto load_w = [&](int kb, uint4 (&w)[2 * kQaTiles]) {
+      const int k = kb * kQaBlockK + 32 * t;  // the lane's first column in the pass
+#pragma unroll
+      for (int m = 0; m < 2 * kQaTiles; ++m)
+        w[m] = (row_ok[m] && k < pcols)
+                   ? mmas8::load_w16(w_row[m] + (p0 + kb * kQaBlockK) / 2)
+                   : make_uint4(kZeroWeights, kZeroWeights, kZeroWeights, kZeroWeights);
+    };
+#pragma unroll
+    for (int d = 0; d < kQaRing; ++d) load_w(d, ring[d]);
+
+    // stage xq[b0 + b, c0 + p0 .. + blocks k-blocks) for the trials of the
+    // n-tiles in use, zeros past the pass and past the trials, each 16-byte
+    // word split into its even and odd bytes: in kQaParts parts of `part`
+    // k-blocks, each waited for only when the k loop reaches it
+    const int span = blocks * kQaBlockK;
+    const int part = (blocks + kQaParts - 1) / kQaParts;
+    const int8_t* x_pass = xq + static_cast<size_t>(b0) * n_in + c0 + p0;
+    // part q's 16-byte words of each trial: [k0, k0 + n)
+    auto part_words = [&](int q, int& k0, int& n) {
+      k0 = min(span, q * part * kQaBlockK) / 16;
+      n = min(span, (q + 1) * part * kQaBlockK) / 16 - k0;
+    };
+    if constexpr (kVecStage) {  // pcols is a multiple of 16: a copy is all in or all out
+#pragma unroll
+      for (int q = 0; q < kQaParts; ++q) {
+        int k0, n;
+        part_words(q, k0, n);
+        for (int idx = threadIdx.x; idx < 8 * ntiles * n; idx += kQaThreads) {
+          const int b = idx / n, k = 16 * (k0 + idx % n);
+          const bool ok = b < nb && k < pcols;
+          mmas8::copy16(smem + b * kQaStride + k,
+                        ok ? x_pass + static_cast<size_t>(b) * n_in + k : xq, ok ? 16 : 0);
+        }
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+    } else {  // byte loads, each stored at its split position
+      for (int idx = threadIdx.x; idx < 8 * ntiles * span; idx += kQaThreads) {
+        const int b = idx / span, k = idx % span;
+        smem[b * kQaStride + (k & ~15) + split_pos(k & 15)] =
+            (b < nb && k < pcols)
+                ? static_cast<unsigned char>(__ldg(x_pass + static_cast<size_t>(b) * n_in + k))
+                : static_cast<unsigned char>(0);
+      }
+    }
+
+    for (int kb0 = 0; kb0 < blocks; kb0 += kQaRing) {
+#pragma unroll
+      for (int d = 0; d < kQaRing; ++d) {
+        const int kb = kb0 + d;
+        if (kb >= blocks) break;
+        if (kb % part == 0) {  // the stage's part kb / part has landed, for every thread
+          mmas8::wait_copies(kQaParts - 1 - kb / part);
+          if constexpr (kVecStage) {  // each thread splits the words it copied
+            int k0, n;
+            part_words(kb / part, k0, n);
+            for (int idx = threadIdx.x; idx < 8 * ntiles * n; idx += kQaThreads) {
+              int4* p = reinterpret_cast<int4*>(smem + (idx / n) * kQaStride +
+                                                16 * (k0 + idx % n));
+              *p = split_even_odd(*p);
+            }
+          }
+          __syncthreads();
+        }
+        uint4 w[2 * kQaTiles];
+#pragma unroll
+        for (int m = 0; m < 2 * kQaTiles; ++m) w[m] = ring[d][m];
+        load_w(kb + kQaRing, ring[d]);
+        // word s of a packed row: columns 32t+8s..32t+8s+7; lo holds the
+        // even ones (k slots 4t..4t+3 of k-step s), hi the odd ones (k
+        // slots 16+4t..16+4t+3), as signed bytes
+        uint32_t lo[2 * kQaTiles][4], hi[2 * kQaTiles][4];
+#pragma unroll
+        for (int m = 0; m < 2 * kQaTiles; ++m) {
+          const uint32_t words[4] = {w[m].x, w[m].y, w[m].z, w[m].w};
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            lo[m][s] = static_cast<uint32_t>(lo_nibbles(words[s]));
+            hi[m][s] = static_cast<uint32_t>(hi_nibbles(words[s]));
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt >= ntiles) break;
+          // trial 8nt + g's split columns 32t..32t+31 of the k-block: the
+          // even and the odd bytes of k-steps 0, 1 and then 2, 3
+          const unsigned char* sb = s_lane + 8 * nt * kQaStride + kb * kQaBlockK;
+          const uint4 b01 = *reinterpret_cast<const uint4*>(sb);
+          const uint4 b23 = *reinterpret_cast<const uint4*>(sb + 16);
+          const uint32_t bv[8] = {b01.x, b01.y, b01.z, b01.w, b23.x, b23.y, b23.z, b23.w};
+#pragma unroll
+          for (int u = 0; u < kQaTiles; ++u)
+#pragma unroll
+            for (int s = 0; s < 4; ++s)  // rows g and g + 8 of m-tile u
+              mmas8::mma_s8(c[u][nt], lo[2 * u][s], lo[2 * u + 1][s], hi[2 * u][s],
+                            hi[2 * u + 1][s], bv[2 * s], bv[2 * s + 1]);
+        }
+      }
+    }
+  }
+
+  // the chunks' sums by trial and row, added across the cluster
+  mmas8::rows_cluster_epilogue<kQaWarps, kQaTiles, kQaRedPitch, kQaMaxCluster>(
+      c, reinterpret_cast<int*>(smem), nb, b0, row_scale, act_scale, out, n_out);
+}
+
+template <bool kVecStage>
+cudaError_t launch_mm_mma(const uint8_t* w, const int8_t* x, const float* rs, const float* as,
+                          float* out, int n_out, int n_in, int stride, int n_rows,
+                          cudaStream_t st) {
+  return mmas8::launch_column_clusters<kQaMaxCluster>(
+      int4_mm_mma_kernel<kVecStage>, kQaThreads, kQaSmem, (n_out + kQaRows - 1) / kQaRows,
+      (n_rows + kTrials - 1) / kTrials, n_in, kQaBlockK, st, w, x, rs, as, out, n_out, n_in,
+      stride, n_rows);
+}
+
 }  // namespace
 
 // wp: (n_out, stride) uint8, packed rows of n_in weights; xq: (n_in,) int8;
@@ -627,23 +881,34 @@ extern "C" int int4_mv_t_launch(const void* wp, const void* vq, const void* act_
   return static_cast<int>(cudaGetLastError());
 }
 
+// The routes of int4_mm_launch (ops/quant.py::int4_mm_route picks one).
+constexpr int kRouteScalar = 0, kRouteVec = 1, kRouteMma = 2;
+
 // The batched forward product.  wp: (n_out, stride) uint8, packed rows of
 // n_in weights; xq: (n_rows, n_in) int8, contiguous; row_scale: (n_out,) f32;
-// act_scale: (n_rows,) f32 on the device; out: (n_rows, n_out) f32.  vec = 1
-// selects the 16-byte path: the caller sets it only when stride and n_in are
-// multiples of 16 and wp and xq are 16-byte aligned.
+// act_scale: (n_rows,) f32 on the device; out: (n_rows, n_out) f32.  route:
+// kRouteMma (the tensor cores; the caller sets it only when stride is a
+// multiple of 16 and wp 16-byte aligned), kRouteVec (the __dp4a kernel's
+// 16-byte path: stride and n_in multiples of 16, wp and xq 16-byte aligned)
+// or kRouteScalar.
 extern "C" int int4_mm_launch(const void* wp, const void* xq, const void* row_scale,
                               const void* act_scale, void* out, int n_out, int n_in, int stride,
-                              int n_rows, int vec, void* stream) {
+                              int n_rows, int route, void* stream) {
   if (n_out <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n_out + kMmRows - 1) / kMmRows, (n_rows + kTrials - 1) / kTrials);
   const auto* w = static_cast<const uint8_t*>(wp);
   const auto* x = static_cast<const int8_t*>(xq);
   const auto* rs = static_cast<const float*>(row_scale);
   const auto* as = static_cast<const float*>(act_scale);
   auto* o = static_cast<float*>(out);
-  if (vec)
+  if (route == kRouteMma) {
+    const bool vec_stage = n_in % 16 == 0 && reinterpret_cast<uintptr_t>(xq) % 16 == 0;
+    return static_cast<int>(
+        vec_stage ? launch_mm_mma<true>(w, x, rs, as, o, n_out, n_in, stride, n_rows, st)
+                  : launch_mm_mma<false>(w, x, rs, as, o, n_out, n_in, stride, n_rows, st));
+  }
+  const dim3 grid((n_out + kMmRows - 1) / kMmRows, (n_rows + kTrials - 1) / kTrials);
+  if (route == kRouteVec)
     int4_mm_kernel<true><<<grid, kMmThreads, 0, st>>>(w, x, rs, as, o, n_out, n_in, stride, n_rows);
   else
     int4_mm_kernel<false><<<grid, kMmThreads, 0, st>>>(w, x, rs, as, o, n_out, n_in, stride, n_rows);

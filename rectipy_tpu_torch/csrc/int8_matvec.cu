@@ -187,7 +187,9 @@
 // - Non-aligned shapes take scalar instantiations: the same blocks, one byte
 //   at a time.
 // The sums are integers, exact in any order, so all agree bit for bit with
-// the plain versions.
+// the plain versions.  The tensor-core pieces that int4_mm's kernel shares
+// (mma_s8, the cp.async stage, the clusters' epilogue, chunks and fit) live
+// in mma_s8.cuh.
 //
 // Interface: plain C functions, loaded with ctypes; they launch on the
 // caller's stream, never synchronise, and return cudaGetLastError().
@@ -197,14 +199,18 @@
 
 #include <cooperative_groups.h>
 
-#include <array>
 #include <atomic>
-#include <map>
-#include <mutex>
+
+#include "mma_s8.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using mmas8::copy16;
+using mmas8::load_w16;
+using mmas8::mma_s8;
+using mmas8::wait_copies;
 
 constexpr int kMvThreads = 256;             // int8_mv: 8 warps, one row each
 constexpr int kMvRows = kMvThreads / 32;
@@ -557,25 +563,7 @@ constexpr int mc_smem(int rows) {
              : kMcWarps * kTrials * kMcRedPitch * 4;
 }
 
-// A 16-byte copy from device to shared memory that uses no registers
-// (cp.async); bytes = 0 writes zeros and reads nothing.
-__device__ __forceinline__ void copy16(void* smem, const void* gmem, int bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes));
-}
-
-// Wait until at most `pending` groups of this thread's cp.async copies are
-// in flight (0 <= pending < kMcParts).
 static_assert(kMcParts <= 4, "wait_copies waits for at most 3 pending groups");
-__device__ __forceinline__ void wait_copies(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::); break;
-  }
-}
 
 // 8 bytes of W, read once: not kept in L1, and L2 fetches the surrounding
 // 256 bytes (the block's other warps read them next).
@@ -585,16 +573,6 @@ __device__ __forceinline__ uint2 load_w8(const int8_t* p) {
                : "=r"(v.x), "=r"(v.y)
                : "l"(p));
   return v;
-}
-
-// c += a * b on the tensor cores: a 16 x 32 int8 tile (row fragment), a
-// 32 x 8 int8 tile (column fragment), exact int32 sums.
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // The tensor-core int8_mm_t (header note).  Grid: (column strips of
@@ -827,15 +805,6 @@ constexpr int kMaStride = kMaPassCols / 128 * 128 + 64;
 constexpr int kMaSmem = kTrials * kMaStride > kTrials * kMaRedPitch * 4
                             ? kTrials * kMaStride : kTrials * kMaRedPitch * 4;
 
-// 16 bytes of W, read once (as load_w8).
-__device__ __forceinline__ uint4 load_w16(const int8_t* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
 // The tensor-core int8_mm (header note).  Grid: (strips of kMaRows rows,
 // chunks of cols_per_chunk columns, groups of kTrials trials); the chunks of
 // a strip and group are one cluster.  kW16: n_in % 16 == 0 and wq 16-byte
@@ -847,7 +816,6 @@ int8_mm_mma_kernel(const int8_t* __restrict__ wq, const int8_t* __restrict__ xq,
                    const float* __restrict__ row_scale, const float* __restrict__ act_scale,
                    float* __restrict__ out, int n_out, int n_in, int n_rows, int cols_per_chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
   const int b0 = blockIdx.z * kTrials;
@@ -969,109 +937,18 @@ int8_mm_mma_kernel(const int8_t* __restrict__ wq, const int8_t* __restrict__ xq,
     }
   }
 
-  // the sums by trial and row in shared memory (the stage is used up)
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-  int* red = reinterpret_cast<int*>(smem);  // [trial][row of the block]
-#pragma unroll
-  for (int u = 0; u < kMaTiles; ++u)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)  // element i: m-row g + 8 (i / 2), trial 2t + i % 2
-        red[(8 * nt + 2 * t + (i & 1)) * kMaRedPitch + warp * kMaWarpRows + 16 * u + g +
-            8 * (i >> 1)] = c[u][nt][i];
-  // the chunks of the cluster add their sums through distributed shared
-  // memory: block `rank` reduces every chunks-th run of kMaThreads sums
-  cluster.sync();
-  const int chunks = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int* peer[kMaMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMaMaxCluster; ++q)
-    peer[q] = q < chunks ? cluster.map_shared_rank(red, q) : red;
-  constexpr int kEach = 8;  // sums a thread reduces at once: all their reads in flight
-  for (int i0 = rank * kMaThreads + threadIdx.x; i0 < nb * kMaRows;
-       i0 += kEach * chunks * kMaThreads) {
-    int sum[kEach];
-#pragma unroll
-    for (int e = 0; e < kEach; ++e) {
-      const int idx = i0 + e * chunks * kMaThreads;
-      const int off = (idx / kMaRows) * kMaRedPitch + idx % kMaRows;
-      sum[e] = 0;
-#pragma unroll
-      for (int q = 0; q < kMaMaxCluster; ++q)
-        if (q < chunks && idx < nb * kMaRows) sum[e] += peer[q][off];
-    }
-#pragma unroll
-    for (int e = 0; e < kEach; ++e) {
-      const int idx = i0 + e * chunks * kMaThreads;
-      const int b = idx / kMaRows, i = blockIdx.x * kMaRows + idx % kMaRows;
-      if (idx < nb * kMaRows && i < n_out)
-        out[static_cast<size_t>(b0 + b) * n_out + i] =
-            __fmul_rn(__fmul_rn(static_cast<float>(sum[e]), row_scale[i]), act_scale[b0 + b]);
-    }
-  }
-  cluster.sync();  // no block leaves while another reads its shared memory
-}
-
-// The tensor-core int8_mm's split of n_in into chunks of columns (a multiple
-// of kMaBlockK, none empty): as many as the clusters of the strips still fit
-// on the card at once, `fit[c]` being how many clusters of c blocks do.
-void ma_chunks(int n_out, int n_in, int n_rows, const int* fit, int* chunks, int* cols) {
-  const int clusters = (n_out + kMaRows - 1) / kMaRows * ((n_rows + kTrials - 1) / kTrials);
-  int c = kMaMaxCluster;
-  while (c > 1 && fit[c] < clusters) --c;
-  int k = (n_in + c - 1) / c;
-  k = (k + kMaBlockK - 1) / kMaBlockK * kMaBlockK;
-  *cols = k > 0 ? k : kMaBlockK;
-  *chunks = n_in > 0 ? (n_in + *cols - 1) / *cols : 1;
+  // the chunks' sums by trial and row, added across the cluster
+  mmas8::rows_cluster_epilogue<kMaWarps, kMaTiles, kMaRedPitch, kMaMaxCluster>(
+      c, reinterpret_cast<int*>(smem), nb, b0, row_scale, act_scale, out, n_out);
 }
 
 template <bool kW16, bool kVecStage>
 cudaError_t launch_mm_mma(const int8_t* w, const int8_t* x, const float* rs, const float* as,
                           float* out, int n_out, int n_in, int n_rows, cudaStream_t st) {
-  auto* kernel = int8_mm_mma_kernel<kW16, kVecStage>;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kMaThreads);
-  cfg.dynamicSmemBytes = kMaSmem;
-  cfg.stream = st;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  // per device, once: the shared memory above 48 KB (taken only when asked
-  // for) and how many clusters of each size fit on the card at once
-  static std::mutex mu;
-  static std::map<int, std::array<int, kMaMaxCluster + 1>> fits;
-  std::array<int, kMaMaxCluster + 1> fit;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    auto it = fits.find(dev);
-    if (it == fits.end()) {
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaSmem);
-      if (e != cudaSuccess) return e;
-      fit[0] = 0;
-      for (int c = 1; c <= kMaMaxCluster; ++c) {
-        cfg.gridDim = dim3(1, c, 1);
-        cluster.val.clusterDim.y = c;
-        e = cudaOccupancyMaxActiveClusters(&fit[c], kernel, &cfg);
-        if (e != cudaSuccess) return e;
-      }
-      it = fits.emplace(dev, fit).first;
-    }
-    fit = it->second;
-  }
-  int chunks, cols;
-  ma_chunks(n_out, n_in, n_rows, fit.data(), &chunks, &cols);
-  cfg.gridDim = dim3((n_out + kMaRows - 1) / kMaRows, chunks, (n_rows + kTrials - 1) / kTrials);
-  cluster.val.clusterDim.y = chunks;
-  return cudaLaunchKernelEx(&cfg, kernel, w, x, rs, as, out, n_out, n_in, n_rows, cols);
+  return mmas8::launch_column_clusters<kMaMaxCluster>(
+      int8_mm_mma_kernel<kW16, kVecStage>, kMaThreads, kMaSmem,
+      (n_out + kMaRows - 1) / kMaRows, (n_rows + kTrials - 1) / kTrials, n_in, kMaBlockK, st, w, x,
+      rs, as, out, n_out, n_in, n_rows);
 }
 }  // namespace
 

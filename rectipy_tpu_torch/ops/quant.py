@@ -38,7 +38,9 @@ them, and packed two per byte (:func:`pack_int4`) for the products, which
 are the hand-written kernels of ``csrc/int4_matvec.cu`` (the counterpart of
 the packed-int4 Pallas matvec of ``benchmarks/i4pack_microbench.py``):
 :func:`int4_mv` and :func:`int4_mv_t` for a vector, :func:`int4_mm` and
-:func:`int4_mm_t` for ``(..., n)`` rows, one activation scale each.
+:func:`int4_mm_t` for ``(..., n)`` rows, one activation scale each
+(:func:`int4_mm` on the tensor cores where :func:`int4_mm_route` says
+``"mma"``).
 
 Block-sparse couplings are not ported yet (ROADMAP Queue 1 item 10).
 """
@@ -58,8 +60,8 @@ __all__ = ["exact_div", "quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "in
            "int8_master_matvec", "int8_master_ops", "INT4_DOT_MAX_FAN_IN", "INT4_MV_MAX_FAN_IN",
            "quantize_rows_i4",
            "pack_int4", "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
-           "int4_mm", "int4_mm_t", "int4_mm_plain", "int4_mm_t_plain", "int4_master_matvec",
-           "int4_master_ops"]
+           "int4_mm", "int4_mm_t", "int4_mm_plain", "int4_mm_route", "int4_mm_t_plain",
+           "int4_master_matvec", "int4_master_ops"]
 
 # int8 x int8 products accumulate in int32: the worst-case per-output sum is
 # 127*127*n_in, so the fan-in must stay below this to be overflow-safe
@@ -251,7 +253,7 @@ def int8_mm_route(n_in: int, wq_ptr: int) -> str:
     return "mma" if n_in % 8 == 0 and wq_ptr % 8 == 0 else "scalar"
 
 
-# the route codes of int8_mm(_t)_launch and generic_fused_rows_launch
+# the route codes of int8_mm(_t)_launch, int4_mm_launch and generic_fused_rows_launch
 _ROUTES = {"scalar": 0, "vec": 1, "mma": 2}
 
 
@@ -646,15 +648,32 @@ def int4_mv_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:
 int4_mv_t.launches = 0
 
 
+def int4_mm_route(stride: int, wp_ptr: int) -> str:
+    """The instance of :func:`int4_mm` for packed rows of ``stride`` bytes at
+    address ``wp_ptr``: ``"mma"`` (the tensor cores) when the stride is a
+    multiple of 16 and the address of 16 bytes, which every
+    :func:`pack_int4` output is, else ``"scalar"`` (``__dp4a`` one nibble at
+    a time).  The activations do not choose: the tensor-core kernel stages
+    them with 16-byte copies where their length and address allow, and byte
+    by byte otherwise.  The ``"vec"`` instance (``__dp4a`` on 16-byte loads)
+    wants a subset of the tensor cores' conditions, so no route picks it; it
+    stays as their yardstick."""
+    return "mma" if stride % 16 == 0 and wp_ptr % 16 == 0 else "scalar"
+
+
 def int4_mm(wp, xq, row_scale, act_scale) -> torch.Tensor:
     """``out[b, i] = (float32(sum_j W[i, j] * xq[b, j]) * row_scale[i]) *
     act_scale[b]``, float32 ``(B, n_out)``: :func:`int4_mv` for ``B`` rows of
     activations ``(B, n_in)``, each with its own scale ``act_scale (B,)``.
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel of
-    ``csrc/int4_matvec.cu`` on the current stream, which reads the packed W
-    once for up to 32 rows; anything it does not take raises.  Each launch
-    adds one to ``int4_mm.launches``."""
+    CPU tensors take the plain version.  CUDA tensors launch the kernels of
+    ``csrc/int4_matvec.cu`` on the current stream, on the route
+    :func:`int4_mm_route` gives: ``"mma"`` sums chunks of columns for up to
+    32 rows on the tensor cores and adds the chunks' sums in shared memory;
+    ``"scalar"`` reads the packed W once for up to 32 rows on the CUDA
+    cores.  Integer sums are exact in any order; anything the kernels do not
+    take raises.  Each launch adds one to ``int4_mm.launches``, and one on
+    the tensor cores also to ``int4_mm.mma_launches``."""
     if wp.device.type == "cpu":
         return (int4_mm_plain(wp, xq) * row_scale) * act_scale[:, None]
     n_out = wp.shape[0]
@@ -662,17 +681,21 @@ def int4_mm(wp, xq, row_scale, act_scale) -> torch.Tensor:
     _check("int4_mm", wp, xq, row_scale, act_scale, n_in, dtype=torch.uint8,
            max_fan_in=INT4_MV_MAX_FAN_IN, n_in=n_in, rows=rows)
     out = torch.empty((rows, n_out), dtype=torch.float32, device=wp.device)
-    vec = int4_vector_path(wp, xq) and n_in % 16 == 0
+    route = int4_mm_route(wp.shape[1], wp.data_ptr())
     err = _lib4().int4_mm_launch(wp.data_ptr(), xq.data_ptr(), row_scale.data_ptr(),
                                  act_scale.data_ptr(), out.data_ptr(), n_out, n_in, wp.shape[1],
-                                 rows, int(vec), torch.cuda.current_stream(wp.device).cuda_stream)
+                                 rows, _ROUTES[route],
+                                 torch.cuda.current_stream(wp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int4_mm: kernel launch failed with CUDA error {err}")
     int4_mm.launches += 1
+    if route == "mma":
+        int4_mm.mma_launches += 1
     return out
 
 
 int4_mm.launches = 0
+int4_mm.mma_launches = 0  # launches on the tensor cores (int4_mm_route "mma")
 
 
 def int4_mm_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:

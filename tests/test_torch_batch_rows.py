@@ -15,7 +15,11 @@
 - numpy models of ``int4_mm`` and ``int4_mm_t`` (``csrc/int4_matvec.cu``),
   lane by lane: the nibble unpack, the even/odd split of the activations,
   the shared-memory layouts and the chunks of rows, against the plain
-  versions bit for bit.
+  versions bit for bit;
+- a numpy model of ``int4_mm``'s tensor-core kernel, lane by lane: the
+  k-permutation of the nibbles in the ``mma.sync`` fragments, the split
+  stage, the chunks of columns and their passes, and the stride guard of
+  the last k-block; and ``int4_mm_route``.
 
 Inputs come from numpy seeds.
 """
@@ -362,7 +366,7 @@ def test_swept_frozen_int4_coupling_passes_source_gradients_like_jax():
 
 # A numpy model of int4_mm_kernel and int4_mm_t_kernel's vector paths
 # (csrc/int4_matvec.cu): which bytes each lane or thread loads, the nibble
-# unpack (mask + __vsub4), the even/odd split of the activations and its
+# unpack (lo_nibbles, hi_nibbles), the even/odd split of the activations and its
 # shared-memory word order, the chunks, and every __dp4a.
 def _byte_perm(x, y, sel):
     """CUDA's __byte_perm on uint32 arrays: byte n of the result is byte
@@ -385,10 +389,11 @@ def _dp4a(a, b, acc):
     return acc + (_sbytes(a) * _sbytes(b)).sum(axis=-1)
 
 
-def _vsub4_nibbles(u, shift):
-    """__vsub4((u >> shift) & 0x0F0F0F0F, 0x08080808): signed bytes in [-8, 7]."""
+def _nibbles(u, shift):
+    """lo_nibbles (shift 0) or hi_nibbles (shift 4): ((u >> shift) &
+    0x0F0F0F0F) + 0x78787878, then each byte's top bit flipped."""
     b = (np.asarray(u, np.uint32) >> np.uint32(shift)) & np.uint32(0x0F0F0F0F)
-    return _pack_bytes(_sbytes(b) - 8)
+    return ((b + np.uint32(0x78787878)) ^ np.uint32(0x80808080)).astype(np.uint32)
 
 
 def _pack_bytes(b):
@@ -428,7 +433,7 @@ def _int4_mm_model(wp, xq, rs, act):
             k = k0 + 32 * lane
             if k < n_in:
                 u[:, lane] = _words(wp[:, k // 2:k // 2 + 16])
-        lo, hi = _vsub4_nibbles(u, 0), _vsub4_nibbles(u, 4)  # (n_out, 32, 4)
+        lo, hi = _nibbles(u, 0), _nibbles(u, 4)  # (n_out, 32, 4)
         xw = (x0[..., 0], x0[..., 1], x0[..., 2], x0[..., 3],
               x1[..., 0], x1[..., 1], x1[..., 2], x1[..., 3])
         ws = (lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1],
@@ -459,8 +464,8 @@ def _int4_mm_t_model(wp, vq, act, n_in, rows_per_chunk):
                 pairs.append(p)
             x, y = pairs[0] | (pairs[1] << 16), pairs[2] | (pairs[3] << 16)
             t0, t1 = _byte_perm(x, y, 0x6420), _byte_perm(x, y, 0x7531)
-            col = (_vsub4_nibbles(t0, 0), _vsub4_nibbles(t0, 4), _vsub4_nibbles(t1, 0),
-                   _vsub4_nibbles(t1, 4))
+            col = (_nibbles(t0, 0), _nibbles(t0, 4), _nibbles(t1, 0),
+                   _nibbles(t1, 4))
             v = np.zeros((B, 4), np.int64)  # the staged word: rows r..r+3, 0 past r1
             m = min(4, r1 - r)
             v[:, :m] = vq[:, r:r + m]
@@ -520,3 +525,159 @@ def test_int4_mm_plain_versions_equal_per_row_loops(B, n_out, n_in):
     for b in range(B):
         assert torch.equal(mm[b], quant.int4_mv(wp, xq[b], rs, act[b]))
         assert torch.equal(mm_t[b], quant.int4_mv_t(wp, vq[b], act[b], n_in))
+
+
+# A numpy model of int4_mm_mma_kernel (csrc/int4_matvec.cu): the chunks of
+# columns (one cluster) and their passes; the stage of xq, each 16-byte word
+# split into its even and odd bytes (by cp.async and then in place, or byte
+# by byte into the split positions); the 16 packed bytes (columns
+# 32t..32t+31 of a 128-column k-block) of rows g and g + 8 of each m-tile
+# that lane (g, t) loads, read from the packed buffer as the card reads it,
+# so that a load past its row's stride would take the next row's bytes; the
+# nibbles of word s as k-step s's A registers (low nibbles in k slots
+# 4t..4t+3, high ones in 16+4t..16+4t+3) and the staged even and odd bytes
+# as its B registers; the PTX ISA's m16n8k32 fragment layouts; and the C
+# fragments' (trial, row) in the sums' buffer that the cluster adds up.
+_QA_TILES, _QA_BLOCK_K = 4, 128
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3  # the fragments' group and thread in group
+
+
+def _mma_m16n8k32(a, b):
+    """D = A B of the PTX fragments: a four (32,) uint32 registers of the
+    16 x 32 row-major s8 A, b two of the 32 x 8 column-major s8 B; returns
+    the four (32,) int64 registers of the 16 x 8 D."""
+    A, Bm = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+    for reg, (m_off, k_off) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
+        A[(_G + m_off)[:, None], k_off + 4 * _T[:, None] + np.arange(4)] = _sbytes(a[reg])
+    for reg, k_off in enumerate((0, 16)):
+        Bm[k_off + 4 * _T[:, None] + np.arange(4), _G[:, None]] = _sbytes(b[reg])
+    D = A @ Bm
+    return [D[_G + 8 * (i >> 1), 2 * _T + (i & 1)] for i in range(4)]
+
+
+def _split_stage(raw, byte_path):
+    """The stage of the (32, span) raw activations: each 16-byte word split
+    as split_even_odd splits it, or each byte stored at its split position."""
+    span = raw.shape[1]
+    if byte_path:
+        j = np.arange(span)
+        pos = (j & ~15) + (j & 8) + (j & 1) * 4 + (j & 7) // 2
+        stage = np.zeros_like(raw)
+        stage[:, pos] = raw
+        return stage
+    w = _words(raw).reshape(raw.shape[0], -1, 4)
+    split = np.stack([_byte_perm(w[..., 0], w[..., 1], 0x6420),
+                      _byte_perm(w[..., 0], w[..., 1], 0x7531),
+                      _byte_perm(w[..., 2], w[..., 3], 0x6420),
+                      _byte_perm(w[..., 2], w[..., 3], 0x7531)], axis=-1)
+    return np.ascontiguousarray(split).view(np.int8).reshape(raw.shape)
+
+
+def _int4_mma_model(wp, xq, rs, act, cols_per_chunk, pass_cols, byte_path):
+    n_out, stride = wp.shape
+    n_rows, n_in = xq.shape
+    assert stride % 16 == 0 and cols_per_chunk % _QA_BLOCK_K == 0
+    assert byte_path or n_in % 16 == 0  # cp.async takes whole 16-byte words
+    flat = np.ascontiguousarray(wp).reshape(-1)
+    acc = np.zeros((n_rows, n_out), np.int64)  # the sum over chunks (the cluster's reduce)
+    for b0 in range(0, n_rows, 32):
+        nb = min(32, n_rows - b0)
+        ntiles = (nb + 7) // 8
+        for c0 in range(0, n_in, cols_per_chunk):
+            cols = min(n_in, c0 + cols_per_chunk) - c0
+            for p0 in range(0, cols, pass_cols):
+                pcols = min(pass_cols, cols - p0)
+                blocks = -(-pcols // _QA_BLOCK_K)
+                raw = np.zeros((32, blocks * _QA_BLOCK_K), np.int8)
+                raw[:nb, :pcols] = xq[b0:b0 + nb, c0 + p0:c0 + p0 + pcols]
+                stage = _split_stage(raw, byte_path)
+                for row0 in range(0, n_out, 16 * _QA_TILES):  # each warp of each strip
+                    c = np.zeros((_QA_TILES, 4, 4, 32), np.int64)  # u, nt, i, lane
+                    for kb in range(blocks):
+                        k = kb * _QA_BLOCK_K + 32 * _T  # the lane's first column
+                        off = (c0 + p0 + kb * _QA_BLOCK_K) // 2 + 16 * _T
+                        lo, hi = [], []
+                        for m in range(2 * _QA_TILES):
+                            r = row0 + 16 * (m >> 1) + 8 * (m & 1) + _G
+                            ok = (r < n_out) & (k < pcols)
+                            assert np.all(off[ok] + 16 <= stride)  # never the next row
+                            u = np.full((32, 4), 0x88888888, np.uint32)
+                            for ln in np.flatnonzero(ok):
+                                start = r[ln] * stride + off[ln]
+                                u[ln] = _words(flat[start:start + 16])
+                            lo.append(_nibbles(u, 0))
+                            hi.append(_nibbles(u, 4))
+                        for nt in range(ntiles):
+                            col = kb * _QA_BLOCK_K + 32 * _T[:, None] + np.arange(32)
+                            bw = _words(np.ascontiguousarray(stage[8 * nt + _G[:, None], col]))
+                            for u, s in np.ndindex(_QA_TILES, 4):
+                                d = _mma_m16n8k32((lo[2 * u][:, s], lo[2 * u + 1][:, s],
+                                                   hi[2 * u][:, s], hi[2 * u + 1][:, s]),
+                                                  (bw[:, 2 * s], bw[:, 2 * s + 1]))
+                                for i in range(4):
+                                    c[u, nt, i] += d[i]
+                    red = np.zeros((32, 16 * _QA_TILES), np.int64)
+                    for u, nt, i in np.ndindex(_QA_TILES, 4, 4):
+                        red[8 * nt + 2 * _T + (i & 1), 16 * u + _G + 8 * (i >> 1)] = c[u, nt, i]
+                    height = min(16 * _QA_TILES, n_out - row0)
+                    acc[b0:b0 + nb, row0:row0 + height] += red[:nb, :height]
+    return (acc.astype(np.float32) * rs) * act[:, None]
+
+
+@pytest.mark.parametrize("B,n_out,n_in,cols_per_chunk,pass_cols,byte_path", [
+    (32, 20, 10_000, 1792, 2048, False),  # N = 10,000 in 6 chunks: its last k-block holds 16
+    (7, 70, 528, 256, 2048, False),  # n_in % 128 == 16 in the last of three chunks; one n-tile
+    (1, 37, 1001, 512, 2048, True),  # odd n_in, one trial: the bytes stage
+    (7, 45, 600, 512, 256, True),  # n_in % 32 != 0; chunks of three passes, the last short
+    (33, 16, 272, 256, 2048, False),  # two trial groups, the second of one trial
+    (5, 257, 2064, 1024, 512, False),  # a row past a strip; passes of four k-blocks
+])
+def test_int4_mm_tensor_core_lane_model_equals_plain(B, n_out, n_in, cols_per_chunk, pass_cols,
+                                                     byte_path):
+    # the tensor-core kernel's index mapping, modelled lane by lane, gives
+    # int4_mm's plain result with its epilogue bit for bit, every load
+    # inside its row's stride
+    rng = np.random.default_rng(B + n_in)
+    wq, wp, xq, _, rs, act = _int4_operands(rng, B, n_out, n_in)
+    got = _int4_mma_model(wp.numpy(), xq, rs, act, cols_per_chunk, pass_cols, byte_path)
+    ref = quant.int4_mm(wp, torch.as_tensor(xq), torch.as_tensor(rs), torch.as_tensor(act))
+    np.testing.assert_array_equal(got, ref.numpy())
+
+
+@pytest.mark.parametrize("stride,wp_ptr,route", [
+    (5008, 4096, "mma"),  # pack_int4 at N = 10,000
+    (7168, 4096, "mma"),  # N = 14,336
+    (5008, 4096 + 16, "mma"),
+    (16, 4096, "mma"),
+    (5000, 4096, "scalar"),  # tight rows at N = 10,000: every other row off 16 bytes
+    (5008, 4096 + 8, "scalar"),  # packed rows only 8-byte aligned
+    (5008, 4096 + 1, "scalar"),  # a view one byte into its buffer
+    (520, 4096 + 4, "scalar"),
+])
+def test_int4_mm_route(stride, wp_ptr, route):
+    # int4_mm's instance is a pure function of the packed rows' stride and
+    # address: the tensor cores where every row starts 16-byte aligned
+    assert quant.int4_mm_route(stride, wp_ptr) == route
+
+
+@pytest.mark.parametrize("n_in", [1, 31, 10_000, 14_336])
+def test_pack_int4_output_takes_the_tensor_cores(n_in):
+    wp = quant.pack_int4(torch.zeros((3, n_in), dtype=torch.int8))
+    assert wp.shape[1] == quant.int4_stride(n_in)
+    assert quant.int4_mm_route(wp.shape[1], wp.data_ptr()) == "mma"
+    assert quant.int4_mm_route(wp.shape[1], wp.data_ptr() + 1) == "scalar"
+
+
+def test_nibble_unpack_by_add_and_xor_is_the_signed_subtraction():
+    # lo_nibbles/hi_nibbles (csrc/int4_matvec.cu) take n - 8 of each nibble
+    # as ((n + 0x78) ^ 0x80) per byte, which the lane models above share:
+    # every nibble value in every byte of a word becomes the signed byte
+    # n - 8, and the other nibble of the byte does not leak in
+    n = np.arange(16)
+    cols = np.stack([n, n[::-1], (n + 5) % 16, (n + 11) % 16], axis=1)  # (16, 4) nibbles
+    other = (cols * 7 + 3) % 16  # the byte's other nibble
+    for shift in (0, 4):
+        packed = (cols << shift) | (other << (4 - shift))
+        words = _pack_bytes(packed)
+        np.testing.assert_array_equal(_sbytes(_nibbles(words, shift)), cols - 8)

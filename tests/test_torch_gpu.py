@@ -21,8 +21,9 @@ from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fus
                                                  generic_rows_route)
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
 from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mm,
-                                         int4_mm_plain, int4_mm_t, int4_mm_t_plain, int4_mv,
-                                         int4_mv_t, int4_vector_path, int8_dot_plain,
+                                         int4_mm_plain, int4_mm_route, int4_mm_t,
+                                         int4_mm_t_plain, int4_mv, int4_mv_t, int4_vector_path,
+                                         int8_dot_plain,
                                          int8_dot_t_plain,
                                          int8_mm, int8_mm_plain, int8_mm_route, int8_mm_t,
                                          int8_mm_t_plain, int8_mm_t_route, int8_mv, int8_mv_t,
@@ -1276,26 +1277,65 @@ def _int4_rows(B, n_out, n_in, seed, device, tight=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,n_out,n_in,tight", [
-    (32, 10_000, 10_000, False), (7, 10_000, 10_000, False), (5, 1000, 1024, False),
-    (33, 1003, 2064, False),  # two groups of trials, a ragged last chunk of 16 inputs
-    (1, 37, 48, False), (64, 256, 512, False),
-    (7, 1003, 999, False),  # n_in % 16 != 0: the scalar int4_mm
-    (5, 999, 1003, True), (32, 16, 10_000, True),  # unpadded rows: the scalar paths
-    (3, 33, 1, False), (3, 1, 33, False)])
-def test_int4_mm_kernels_bit_identical_to_plain(cuda, B, n_out, n_in, tight):
-    # integer sums are exact in any order: bit for bit, epilogues included
+@pytest.mark.parametrize("B,n_out,n_in,tight,offset", [
+    (32, 10_000, 10_000, False, 0), (7, 10_000, 10_000, False, 0), (5, 1000, 1024, False, 0),
+    (5, 300, 10_000, False, 0),  # N = 10,000's 16-column tail in its last k-block, 5 trials
+    (33, 1003, 2064, False, 0),  # two groups of trials, a ragged last k-block of 16 inputs
+    (1, 37, 48, False, 0), (64, 256, 512, False, 0),
+    (7, 1003, 999, False, 0),  # n_in % 16 != 0: the tensor cores, the activations by bytes
+    (5, 999, 1003, True, 0), (32, 16, 10_000, True, 0),  # unpadded rows: the scalar paths
+    (7, 1003, 1024, False, 1),  # a view of wp one byte into its buffer: the scalar int4_mm
+    (3, 33, 1, False, 0), (3, 1, 33, False, 0)])
+def test_int4_mm_kernels_bit_identical_to_plain(cuda, B, n_out, n_in, tight, offset):
+    # integer sums are exact in any order: bit for bit, epilogues included;
+    # int4_mm on the tensor cores wherever the packed rows start 16-byte
+    # aligned
     wp, ws, xq, xs, vq, vs = _int4_rows(B, n_out, n_in, 71, cuda, tight)
-    before = (int4_mm.launches, int4_mm_t.launches)
+    if offset:
+        buf = torch.empty(offset + wp.numel(), dtype=torch.uint8, device=cuda)
+        wp = buf[offset:].view(wp.shape).copy_(wp)
+    route = int4_mm_route(wp.shape[1], wp.data_ptr())
+    assert route == ("scalar" if tight or offset else "mma")
+    before = (int4_mm.launches, int4_mm.mma_launches, int4_mm_t.launches)
     out, out_t = int4_mm(wp, xq, ws, xs), int4_mm_t(wp, vq, vs, n_in)
     torch.cuda.synchronize()
-    assert (int4_mm.launches, int4_mm_t.launches) == (before[0] + 1, before[1] + 1)
+    assert (int4_mm.launches, int4_mm.mma_launches, int4_mm_t.launches) == (
+        before[0] + 1, before[1] + int(route == "mma"), before[2] + 1)
     assert torch.equal(out, (int4_mm_plain(wp, xq) * ws) * xs[:, None])
     assert torch.equal(out_t, int4_mm_t_plain(wp, vq, n_in) * vs[:, None])
     assert bool((out != 0).any()) and bool((out_t != 0).any())
     for b in (0, B - 1):  # and against the single-row kernels
         assert torch.equal(out[b], int4_mv(wp, xq[b].contiguous(), ws, xs[b]))
         assert torch.equal(out_t[b], int4_mv_t(wp, vq[b].contiguous(), vs[b], n_in))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_out,n_in,x_offset", [
+    (32, 1003, 10_000, 0), (33, 10_000, 1024, 0), (7, 1003, 1008, 0),
+    (32, 1003, 10_000, 8), (7, 1003, 10_000, 3),  # xq not 16-byte aligned: staged byte by byte
+])
+def test_int4_mm_tensor_cores_and_dp4a_instance_agree(cuda, B, n_out, n_in, x_offset):
+    # int4_mm's tensor cores at any address of the activations, and its
+    # "vec" __dp4a instance (16-byte loads; no route picks it, it stays as
+    # the tensor cores' yardstick) through the C launch where it applies:
+    # both bit for bit against the plain version
+    from rectipy_tpu_torch.ops import quant
+
+    wp, ws, xq0, xs, _, _ = _int4_rows(B, n_out, n_in, 73, cuda)
+    xbuf = torch.empty(x_offset + B * n_in, dtype=torch.int8, device=cuda)
+    xq = xbuf[x_offset:].view(B, n_in).copy_(xq0)
+    ref = (int4_mm_plain(wp, xq) * ws) * xs[:, None]
+    before = int4_mm.mma_launches
+    assert torch.equal(int4_mm(wp, xq, ws, xs), ref)
+    assert int4_mm.mma_launches == before + 1
+    if n_in % 16 == 0 and xq.data_ptr() % 16 == 0:
+        out = torch.empty_like(ref)
+        err = quant._lib4().int4_mm_launch(wp.data_ptr(), xq.data_ptr(), ws.data_ptr(),
+                                           xs.data_ptr(), out.data_ptr(), n_out, n_in,
+                                           wp.shape[1], B, quant._ROUTES["vec"],
+                                           torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0 and torch.equal(out, ref)
 
 
 @pytest.mark.gpu
