@@ -66,10 +66,11 @@
 // 5.0e7 bytes (15 us at 3.35 TB/s); the 2*B*N^2 = 6.4e9 operations take 3 us
 // at the int8 tensor-core rate, so the bound is the bytes.  On the CUDA
 // cores with __dp4a (about 64 four-byte products a clock per SM) the products
-// alone take some 50 us, above that bound, so int4_mm runs on the tensor
-// cores (int4_mm_mma_kernel); int4_mm_t and the __dp4a int4_mm still run on
-// the CUDA cores.  All sums are exact, so every kernel agrees bit for bit
-// with the plain versions.
+// alone take some 50 us, above that bound, so both run on the tensor cores
+// (int4_mm_mma_kernel; int4_mm_t as an instance of mma_s8.cuh's
+// cols_t_mma_kernel); their __dp4a kernels stay for the shapes the routes
+// do not take and as the tensor cores' yardsticks.  All sums are exact, so
+// every kernel agrees bit for bit with the plain versions.
 // - The trap: int4_mv's one-warp-per-row form, kept for B rows, would make
 //   each warp read all B activation rows per W row.
 // - int4_mm on the tensor cores (route "mma": stride % 16 == 0 and wp
@@ -141,8 +142,37 @@
 //   int32 sums in registers, 8 __dp4a per row and trial.  Each sum reduces
 //   across the warp with __reduce_add_sync; lane b writes trial b's
 //   epilogue in int4_mv's order.
-// - int4_mm_t: int8_mm_t's __dp4a scheme on nibbles.  A block owns a strip of
-//   512 columns (4 adjacent columns a thread: 2 packed bytes a row) and a
+// - int4_mm_t on the tensor cores (route "mma": stride % 16 == 0 and wp
+//   16-byte aligned, which every pack_int4 output is): int8_mm_t's kernel
+//   (mma_s8.cuh, cols_t_mma_kernel; int8_matvec.cu's header note) on
+//   nibbles.  M = W's columns, N = the trials, K = W's rows.  Lane (g, t)
+//   loads 4 packed bytes, columns 8g..8g+7 of its warp's 64, of each of rows
+//   8t..8t+7 of a 32-row k-step; one transpose4 per 4 rows makes word u of
+//   byte u of the 4 rows, whose low nibbles are column 8g + 2u and high
+//   nibbles column 8g + 2u + 1: rows g and g + 8 of m-tile u, as int8_mm_t
+//   maps its columns.  So the B fragments (8 bytes of a trial's staged vq),
+//   the k permutation, the stage in parts and the cluster epilogue are
+//   int8_mm_t's, and no scratch or second launch is needed.
+//   - Where the trouble lies: (1) the last column strip at N = 10,000 (a
+//     packed row of 5,000 bytes in a stride of 5,008): a lane loads only
+//     where its first column lies below n_in; its 4 bytes then start at a
+//     multiple of 4 below ceil(n_in / 2) <= stride, a multiple of 16, so
+//     they end inside the row.  A skipped load is 0x88888888 (zero weights).
+//     (2) The last k-step of a chunk (rows past n_out) meets zeros in the
+//     stage and loads nothing.  (3) Ragged B: n-tiles past the trials are
+//     skipped and no missing trial is written.
+//   - Geometry, chosen among variants timed in turns at N = 10,000 and
+//     14,336 (PERF.md): 4 warps (256 columns) a block at 128
+//     registers (4 blocks an SM) with passes of 1,024 rows in two parts
+//     (34 KB of shared memory).  With int8_mm_t's 3 blocks an SM, N =
+//     14,336 took 7 chunks (392 blocks) whose clusters did not all fit on
+//     the card at once: a second wave.  8 warps a block, which halve the
+//     stage's L2 reads, left the card unevenly loaded at N = 10,000 (160
+//     blocks on 132 SMs).
+// - int4_mm_t's __dp4a instances (route "scalar"; "vec" only through the C
+//   launch, its conditions being inside "mma"'s): int8_mm_t's __dp4a scheme
+//   on nibbles.  A block owns a strip of 512 columns (4 adjacent columns a
+//   thread: 2 packed bytes a row) and a
 //   chunk of rows, with the chunk's activations of its 32 trials staged in
 //   shared memory as words of 4 rows (read as broadcasts).  A thread takes
 //   4 rows at a time: two __byte_perm gather the 4 rows' bytes of its column
@@ -165,6 +195,9 @@
 
 namespace {
 
+using mmas8::hi_nibbles;
+using mmas8::lo_nibbles;
+
 constexpr int kMvThreads = 256;  // int4_mv: 8 warps, one row each
 constexpr int kMvRows = kMvThreads / 32;
 constexpr int kTThreads = 64;    // int4_mv_t: threads per block
@@ -177,17 +210,6 @@ constexpr int kRLanes = 8;       // reduce: lanes of chunks per column
 __device__ __forceinline__ int nibble(const uint8_t* row, int j) {
   const int b = __ldg(row + (j >> 1));
   return ((j & 1) ? (b >> 4) : (b & 15)) - 8;
-}
-
-// The low (weights 0, 2, 4, 6) and high (1, 3, 5, 7) nibbles of a packed word
-// as signed bytes, n - 8 each: n + 0x78 stays inside its byte, and flipping
-// the byte's top bit then takes 0x80 off (n >= 8) or adds 0x80 (n < 8, giving
-// n - 8 mod 256).  Three or four integer instructions; __vsub4 takes more.
-__device__ __forceinline__ int lo_nibbles(uint32_t u) {
-  return static_cast<int>(((u & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u);
-}
-__device__ __forceinline__ int hi_nibbles(uint32_t u) {
-  return static_cast<int>((((u >> 4) & 0x0F0F0F0Fu) + 0x78787878u) ^ 0x80808080u);
 }
 
 // acc + the 8 weights of the packed word u times the 8 activations of the
@@ -823,6 +845,13 @@ cudaError_t launch_mm_mma(const uint8_t* w, const int8_t* x, const float* rs, co
       stride, n_rows);
 }
 
+// int4_mm_t on the tensor cores: mmas8::cols_t_mma_kernel with 4 packed
+// bytes (8 columns) of a row a lane (header note): 4 warps (256 columns) a
+// block, a wave of 4 blocks an SM, passes of at most 1,024 rows.
+constexpr int kQtWarps = 4;
+constexpr int kQtBlocksPerSm = 4;
+constexpr int kQtPassRows = 1024;
+
 }  // namespace
 
 // wp: (n_out, stride) uint8, packed rows of n_in weights; xq: (n_in,) int8;
@@ -916,39 +945,48 @@ extern "C" int int4_mm_launch(const void* wp, const void* xq, const void* row_sc
 }
 
 // The int32 elements of the scratch that int4_mm_t_launch needs for these
-// arguments (chunks x n_rows x n_in).
-extern "C" long long int4_mm_t_scratch(int n_out, int n_in, int n_rows) {
+// arguments on `route`: chunks x n_rows x n_in partial sums for the __dp4a
+// routes, none for the tensor cores.
+extern "C" long long int4_mm_t_scratch(int n_out, int n_in, int n_rows, int route) {
+  if (n_in <= 0 || n_rows <= 0 || route == kRouteMma) return 0;
   int chunks, rows;
   mm_t_chunks(n_out, n_in, n_rows, &chunks, &rows);
-  return static_cast<long long>(chunks) * n_rows * (n_in > 0 ? n_in : 0);
+  return static_cast<long long>(chunks) * n_rows * n_in;
 }
 
 // The batched transposed product.  wp: (n_out, stride) uint8, packed rows of
 // n_in weights; vq: (n_rows, n_out) int8, contiguous; act_scale: (n_rows,)
 // f32 on the device; partial: int32 scratch of int4_mm_t_scratch(n_out,
-// n_in, n_rows) elements, written before it is read; out: (n_rows, n_in)
-// f32.  vec = 1 selects the 2-byte loads of the packed rows: the caller sets
-// it only when stride is a multiple of 16 and wp 16-byte aligned.
+// n_in, n_rows, route) elements, written before it is read; out: (n_rows,
+// n_in) f32.  route: kRouteMma (the tensor cores; the caller sets it only
+// when stride is a multiple of 16 and wp 16-byte aligned), kRouteVec (the
+// __dp4a kernel's 2-byte loads of the packed rows: stride even and wp
+// 2-byte aligned) or kRouteScalar.
 extern "C" int int4_mm_t_launch(const void* wp, const void* vq, const void* act_scale,
                                 void* partial, void* out, int n_out, int n_in, int stride,
-                                int n_rows, int vec, void* stream) {
+                                int n_rows, int route, void* stream) {
   if (n_in <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* w = static_cast<const uint8_t*>(wp);
   const auto* v = static_cast<const int8_t*>(vq);
+  const auto* as = static_cast<const float*>(act_scale);
+  auto* o = static_cast<float*>(out);
+  if (route == kRouteMma)
+    return static_cast<int>(mmas8::launch_cols_t<4, kQtWarps, kQtBlocksPerSm, kQtPassRows>(
+        w, v, as, o, n_out, n_in, stride, n_rows, st));
   auto* p = static_cast<int*>(partial);
   int chunks, rows;
   mm_t_chunks(n_out, n_in, n_rows, &chunks, &rows);
   if (chunks > 0) {
     const dim3 grid((n_in + kMtStrip - 1) / kMtStrip, chunks, (n_rows + kTrials - 1) / kTrials);
-    if (vec)
+    if (route == kRouteVec)
       int4_mm_t_kernel<true><<<grid, kMtThreads, 0, st>>>(w, v, p, n_out, n_in, stride, n_rows, rows);
     else
       int4_mm_t_kernel<false><<<grid, kMtThreads, 0, st>>>(w, v, p, n_out, n_in, stride, n_rows, rows);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  mm_t_reduce_kernel<<<dim3((n_in + 255) / 256, n_rows), 256, 0, st>>>(
-      p, chunks, n_rows, static_cast<const float*>(act_scale), static_cast<float*>(out), n_in);
+  mm_t_reduce_kernel<<<dim3((n_in + 255) / 256, n_rows), 256, 0, st>>>(p, chunks, n_rows, as, o,
+                                                                       n_in);
   return static_cast<int>(cudaGetLastError());
 }

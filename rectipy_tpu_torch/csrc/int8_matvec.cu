@@ -53,7 +53,7 @@
 // 1,979 TOP/s; so the bound is the bytes.  On the CUDA cores with __dp4a
 // (about 64 four-byte products a clock per SM) the products alone take some
 // 50 us at B = 32, above that bound: both main instances therefore run on
-// the tensor cores (int8_mm_mma_kernel and int8_mm_t_mma_kernel, below);
+// the tensor cores (int8_mm_mma_kernel and mma_s8.cuh's cols_t_mma_kernel);
 // the __dp4a kernels stay for the shapes their routes do not take and as
 // the tensor cores' yardstick.
 //
@@ -125,7 +125,8 @@
 //   A B above 32 takes a second group of blocks, which reads W again, on
 //   every route.
 // - int8_mm_t on the tensor cores (route "mma": n_in % 8 == 0 and wq 8-byte
-//   aligned; int8_mm_t_mma_kernel).  mma.sync m16n8k32 s8 x s8 -> s32 with
+//   aligned; mmas8::cols_t_mma_kernel in mma_s8.cuh, whose other instance
+//   is int4_mm_t's on packed nibbles).  mma.sync m16n8k32 s8 x s8 -> s32 with
 //   M = W's columns j (the outputs), N = the trials, K = W's rows i: A[j][i]
 //   = W[i, j], B[i][b] = vq[b, i].  (wgmma wants 8-bit operands K-major in
 //   shared memory, which row-major W is not, so it would need the same
@@ -188,8 +189,8 @@
 //   at a time.
 // The sums are integers, exact in any order, so all agree bit for bit with
 // the plain versions.  The tensor-core pieces that int4_mm's kernel shares
-// (mma_s8, the cp.async stage, the clusters' epilogue, chunks and fit) live
-// in mma_s8.cuh.
+// (mma_s8, the cp.async stage, the clusters' epilogue, chunks and fit), and
+// the whole tensor-core int8_mm_t, live in mma_s8.cuh.
 //
 // Interface: plain C functions, loaded with ctypes; they launch on the
 // caller's stream, never synchronise, and return cudaGetLastError().
@@ -197,19 +198,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cooperative_groups.h>
-
-#include <atomic>
-
 #include "mma_s8.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 using mmas8::copy16;
 using mmas8::load_w16;
+using mmas8::load_w8;
 using mmas8::mma_s8;
+using mmas8::transpose4;
 using mmas8::wait_copies;
 
 constexpr int kMvThreads = 256;             // int8_mv: 8 warps, one row each
@@ -415,20 +412,6 @@ constexpr int kMtStrip = kMtThreads * kMtCols;
 constexpr int kMtBlocks = 512;   // int8_mm_t: blocks to aim for
 constexpr int kMtMaxRows = 512;  // rows per chunk at most (the staged activations)
 
-// Word c of the 4 x 4 byte transpose of the words r0..r3: byte k of the
-// result is byte c of word r_k.
-__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3,
-                                           uint32_t out[4]) {
-  const uint32_t lo01 = __byte_perm(r0, r1, 0x5140);  // r0.b0 r1.b0 r0.b1 r1.b1
-  const uint32_t hi01 = __byte_perm(r0, r1, 0x7362);  // r0.b2 r1.b2 r0.b3 r1.b3
-  const uint32_t lo23 = __byte_perm(r2, r3, 0x5140);
-  const uint32_t hi23 = __byte_perm(r2, r3, 0x7362);
-  out[0] = __byte_perm(lo01, lo23, 0x5410);  // r0.b0 r1.b0 r2.b0 r3.b0
-  out[1] = __byte_perm(lo01, lo23, 0x7632);  // r0.b1 r1.b1 r2.b1 r3.b1
-  out[2] = __byte_perm(hi01, hi23, 0x5410);
-  out[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
 // The 4 bytes of wq at row r, columns col0..col0+3 (zero outside the matrix),
 // as one little-endian word.
 template <bool kVec>
@@ -540,245 +523,12 @@ void mm_t_chunks(int n_out, int n_in, int n_rows, int* chunks, int* rows) {
 }
 
 // --------------------------------------------- int8_mm_t on the tensor cores
+// mmas8::cols_t_mma_kernel with 8 bytes (8 int8 columns) of a row a lane
+// (header note): 4 warps (256 columns) a block, a wave of 3 blocks an SM,
+// passes of at most 2,048 rows.
 constexpr int kMcWarps = 4;
-constexpr int kMcThreads = 32 * kMcWarps;
-constexpr int kMcWarpCols = 64;                  // lane group g: columns 8g..8g+7
-constexpr int kMcCols = kMcWarps * kMcWarpCols;  // columns of a block
-constexpr int kMcStep = 32;                      // rows of W a k-step (m16n8k32)
-constexpr int kMcRing = 2;                       // k-steps of W in flight a lane
-constexpr int kMcPassRows = 2048;                // rows of vq staged at once at most
-constexpr int kMcParts = 4;                      // parts of the stage, waited for one by one
-constexpr int kMcMaxCluster = 8;                 // chunks of rows (the portable cluster size)
-constexpr int kMcBlocksPerSm = 3;                // the wave the launch aims for
-constexpr int kMcRedPitch = kMcWarpCols + 1;     // ints a trial in the sums' buffer
-
-// Bytes a trial's row takes in the stage of a pass of `rows` rows: 32 mod
-// 128, so that the 8-byte reads of a half-warp (4 trials x 4 row offsets)
-// hit distinct banks; a multiple of 16 for cp.async.
-__host__ __device__ constexpr int mc_stride(int rows) { return (rows + 127) / 128 * 128 + 32; }
-
-constexpr int mc_smem(int rows) {
-  return kTrials * mc_stride(rows) > kMcWarps * kTrials * kMcRedPitch * 4
-             ? kTrials * mc_stride(rows)
-             : kMcWarps * kTrials * kMcRedPitch * 4;
-}
-
-static_assert(kMcParts <= 4, "wait_copies waits for at most 3 pending groups");
-
-// 8 bytes of W, read once: not kept in L1, and L2 fetches the surrounding
-// 256 bytes (the block's other warps read them next).
-__device__ __forceinline__ uint2 load_w8(const int8_t* p) {
-  uint2 v;
-  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];\n"
-               : "=r"(v.x), "=r"(v.y)
-               : "l"(p));
-  return v;
-}
-
-// The tensor-core int8_mm_t (header note).  Grid: (column strips of
-// kMcCols, chunks of rows_per_chunk rows, groups of kTrials trials); the
-// chunks of a strip and group are one cluster.  kVecStage: n_out % 16 == 0
-// and vq 16-byte aligned.
-template <bool kVecStage>
-__global__ void __launch_bounds__(kMcThreads, kMcBlocksPerSm)
-int8_mm_t_mma_kernel(const int8_t* __restrict__ wq, const int8_t* __restrict__ vq,
-                     const float* __restrict__ act_scale, float* __restrict__ out, int n_out,
-                     int n_in, int n_rows, int rows_per_chunk) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
-  const int b0 = blockIdx.z * kTrials;
-  const int nb = min(kTrials, n_rows - b0);
-  const int ntiles = (nb + 7) / 8;  // n-tiles with a trial in them
-  const int r0 = blockIdx.y * rows_per_chunk;
-  const int rows = max(0, min(n_out, r0 + rows_per_chunk) - r0);  // a chunk may be empty
-  const int stride = mc_stride(min(rows_per_chunk, kMcPassRows));
-  const int jw = blockIdx.x * kMcCols + warp * kMcWarpCols;  // the warp's first column
-  const bool col_ok = jw + 8 * g < n_in;  // n_in % 8 == 0: the lane's 8 columns all in or out
-  const unsigned char* s_lane = smem + g * stride + 8 * t;  // trial g, rows 8t..8t+7
-
-  int c[4][4][4];  // m-tile u, n-tile nt, fragment element
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[u][nt][i] = 0;
-
-  for (int p0 = 0; p0 < rows; p0 += kMcPassRows) {  // one pass at N = 10,000
-    const int prows = min(kMcPassRows, rows - p0);
-    const int steps = (prows + kMcStep - 1) / kMcStep;
-    const int rp = r0 + p0;
-    if (p0 > 0) __syncthreads();  // the previous pass's stage is used up
-    // row 8t of the pass at the lane's columns
-    const int8_t* w_lane = wq + (static_cast<size_t>(rp) + 8 * t) * n_in + (col_ok ? jw + 8 * g : 0);
-    uint2 ring[kMcRing][8];  // rows 8t..8t+7 of a k-step, kMcRing steps ahead
-    auto load_w = [&](int s, uint2 (&w)[8]) {  // zeros (and no load) past the pass
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int k = s * kMcStep + 8 * t + r;
-        w[r] = (col_ok && k < prows) ? load_w8(w_lane + static_cast<size_t>(s * kMcStep + r) * n_in)
-                                     : make_uint2(0u, 0u);
-      }
-    };
-#pragma unroll
-    for (int d = 0; d < kMcRing; ++d) load_w(d, ring[d]);
-
-    // stage vq[b0 + b, rp .. rp + 32 steps) for the trials of the n-tiles in
-    // use, zeros past the pass and past the trials: in kMcParts parts of
-    // `part` k-steps, each waited for only when the k loop reaches it
-    const int span = steps * kMcStep;
-    const int part = (steps + kMcParts - 1) / kMcParts;
-    if constexpr (kVecStage) {  // prows is a multiple of 16: a copy is all in or all out
-#pragma unroll
-      for (int q = 0; q < kMcParts; ++q) {
-        const int k0 = min(span, q * part * kMcStep) / 16;
-        const int n = min(span, (q + 1) * part * kMcStep) / 16 - k0;  // 16-byte copies a trial
-        for (int idx = threadIdx.x; idx < 8 * ntiles * n; idx += kMcThreads) {
-          const int b = idx / n, k = 16 * (k0 + idx % n);
-          const bool ok = b < nb && k < prows;
-          copy16(smem + b * stride + k, ok ? vq + static_cast<size_t>(b0 + b) * n_out + rp + k : vq,
-                 ok ? 16 : 0);
-        }
-        asm volatile("cp.async.commit_group;\n" ::);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < 8 * ntiles * span; idx += kMcThreads) {
-        const int b = idx / span, k = idx % span;
-        smem[b * stride + k] = (b < nb && k < prows)
-            ? static_cast<unsigned char>(__ldg(vq + static_cast<size_t>(b0 + b) * n_out + rp + k))
-            : static_cast<unsigned char>(0);
-      }
-    }
-
-    for (int s0 = 0; s0 < steps; s0 += kMcRing) {
-#pragma unroll
-      for (int d = 0; d < kMcRing; ++d) {
-        const int s = s0 + d;
-        if (s >= steps) break;
-        if (s % part == 0) {  // the stage's part s / part has landed, for every thread
-          wait_copies(kMcParts - 1 - s / part);
-          __syncthreads();
-        }
-        uint2 w[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) w[r] = ring[d][r];
-        load_w(s + kMcRing, ring[d]);
-        // lo[c]: column 8g + c at rows 8t..8t+3 (k slots 4t..4t+3);
-        // hi[c]: the same column at rows 8t+4..8t+7 (k slots 16+4t..16+4t+3)
-        uint32_t lo[8], hi[8];
-        transpose4(w[0].x, w[1].x, w[2].x, w[3].x, lo);
-        transpose4(w[0].y, w[1].y, w[2].y, w[3].y, lo + 4);
-        transpose4(w[4].x, w[5].x, w[6].x, w[7].x, hi);
-        transpose4(w[4].y, w[5].y, w[6].y, w[7].y, hi + 4);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (nt >= ntiles) break;
-          const uint2 bv = *reinterpret_cast<const uint2*>(s_lane + 8 * nt * stride + s * kMcStep);
-#pragma unroll
-          for (int u = 0; u < 4; ++u)  // rows g, g + 8 of m-tile u: columns 8g + 2u, + 1
-            mma_s8(c[u][nt], lo[2 * u], lo[2 * u + 1], hi[2 * u], hi[2 * u + 1], bv.x, bv.y);
-        }
-      }
-    }
-  }
-
-  // the sums by trial and column in shared memory (the stage is used up)
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-  int* red = reinterpret_cast<int*>(smem);  // [warp][trial][column of the warp]
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)  // element i: m-row g + 8 (i / 2), trial 2t + i % 2
-        red[(warp * kTrials + 8 * nt + 2 * t + (i & 1)) * kMcRedPitch + 8 * g + 2 * u + (i >> 1)] =
-            c[u][nt][i];
-  // the chunks of the cluster add their sums through distributed shared
-  // memory: block `rank` reduces every chunks-th run of kMcThreads sums
-  cluster.sync();
-  const int chunks = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int* peer[kMcMaxCluster];
-#pragma unroll
-  for (int q = 0; q < kMcMaxCluster; ++q) peer[q] = q < chunks ? cluster.map_shared_rank(red, q) : red;
-  constexpr int kEach = 8;  // sums a thread reduces at once: all their reads in flight
-  for (int i0 = rank * kMcThreads + threadIdx.x; i0 < nb * kMcCols;
-       i0 += kEach * chunks * kMcThreads) {
-    int sum[kEach];
-#pragma unroll
-    for (int e = 0; e < kEach; ++e) {
-      const int idx = i0 + e * chunks * kMcThreads;
-      const int b = idx / kMcCols, col = idx % kMcCols;
-      const int off = ((col / kMcWarpCols) * kTrials + b) * kMcRedPitch + col % kMcWarpCols;
-      sum[e] = 0;
-#pragma unroll
-      for (int q = 0; q < kMcMaxCluster; ++q)
-        if (q < chunks && idx < nb * kMcCols) sum[e] += peer[q][off];
-    }
-#pragma unroll
-    for (int e = 0; e < kEach; ++e) {
-      const int idx = i0 + e * chunks * kMcThreads;
-      const int b = idx / kMcCols, j = blockIdx.x * kMcCols + idx % kMcCols;
-      if (idx < nb * kMcCols && j < n_in)
-        out[static_cast<size_t>(b0 + b) * n_in + j] =
-            __fmul_rn(static_cast<float>(sum[e]), act_scale[b0 + b]);
-    }
-  }
-  cluster.sync();  // no block leaves while another reads its shared memory
-}
-
-// The tensor-core launch's split of n_out into chunks of rows (a multiple
-// of kMcStep; one cluster of at most kMcMaxCluster chunks), for a card of
-// `sms` SMs.
-void mc_chunks(int n_out, int n_in, int n_rows, int sms, int* chunks, int* rows) {
-  const int strips = (n_in + kMcCols - 1) / kMcCols;
-  const int groups = (n_rows + kTrials - 1) / kTrials;
-  int c = sms * kMcBlocksPerSm / (strips * groups);
-  c = c < 1 ? 1 : (c > kMcMaxCluster ? kMcMaxCluster : c);
-  int r = (n_out + c - 1) / c;
-  *rows = (r + kMcStep - 1) / kMcStep * kMcStep;
-  *chunks = c;
-}
-
-template <bool kVecStage>
-cudaError_t launch_mm_t_mma(const int8_t* w, const int8_t* v, const float* as, float* out,
-                            int n_out, int n_in, int n_rows, cudaStream_t st) {
-  if (n_out <= 0)
-    return cudaMemsetAsync(out, 0, static_cast<size_t>(n_rows) * n_in * sizeof(float), st);
-  auto* kernel = int8_mm_t_mma_kernel<kVecStage>;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  // dynamic shared memory above 48 KB is taken only when asked for, once per device
-  static std::atomic<unsigned long long> asked{0};
-  if (!(asked.load() >> dev & 1ull)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             mc_smem(kMcPassRows));
-    if (e != cudaSuccess) return e;
-    asked.fetch_or(1ull << dev);
-  }
-  int sms = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  int chunks, rows;
-  mc_chunks(n_out, n_in, n_rows, sms, &chunks, &rows);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n_in + kMcCols - 1) / kMcCols, chunks, (n_rows + kTrials - 1) / kTrials);
-  cfg.blockDim = dim3(kMcThreads);
-  cfg.dynamicSmemBytes = mc_smem(rows < kMcPassRows ? rows : kMcPassRows);
-  cfg.stream = st;
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = 1;
-  cluster.val.clusterDim.y = chunks;
-  cluster.val.clusterDim.z = 1;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, w, v, as, out, n_out, n_in, n_rows, rows);
-}
+constexpr int kMcBlocksPerSm = 3;
+constexpr int kMcPassRows = 2048;
 
 // ----------------------------------------------- int8_mm on the tensor cores
 constexpr int kMaWarps = 4;
@@ -1067,9 +817,8 @@ extern "C" int int8_mm_t_launch(const void* wq, const void* vq, const void* act_
   auto* p = static_cast<int*>(scratch);
   auto* o = static_cast<float*>(out);
   if (route == kRouteMma) {
-    const bool vec_stage = n_out % 16 == 0 && reinterpret_cast<uintptr_t>(vq) % 16 == 0;
-    return static_cast<int>(vec_stage ? launch_mm_t_mma<true>(w, v, as, o, n_out, n_in, n_rows, st)
-                                      : launch_mm_t_mma<false>(w, v, as, o, n_out, n_in, n_rows, st));
+    return static_cast<int>(mmas8::launch_cols_t<8, kMcWarps, kMcBlocksPerSm, kMcPassRows>(
+        w, v, as, o, n_out, n_in, n_in, n_rows, st));
   }
   int chunks, rows;
   mm_t_chunks(n_out, n_in, n_rows, &chunks, &rows);

@@ -253,7 +253,7 @@ def int8_mm_route(n_in: int, wq_ptr: int) -> str:
     return "mma" if n_in % 8 == 0 and wq_ptr % 8 == 0 else "scalar"
 
 
-# the route codes of int8_mm(_t)_launch, int4_mm_launch and generic_fused_rows_launch
+# the route codes of int8_mm(_t)_launch, int4_mm(_t)_launch and generic_fused_rows_launch
 _ROUTES = {"scalar": 0, "vec": 1, "mma": 2}
 
 
@@ -577,7 +577,7 @@ def _lib4():
         fn.restype = ctypes.c_int
     lib.int4_mv_t_scratch.argtypes = [i, i, i]
     lib.int4_mv_t_scratch.restype = ctypes.c_longlong
-    lib.int4_mm_t_scratch.argtypes = [i, i, i]
+    lib.int4_mm_t_scratch.argtypes = [i, i, i, i]
     lib.int4_mm_t_scratch.restype = ctypes.c_longlong
     return lib
 
@@ -698,15 +698,31 @@ int4_mm.launches = 0
 int4_mm.mma_launches = 0  # launches on the tensor cores (int4_mm_route "mma")
 
 
+def int4_mm_t_route(stride: int, wp_ptr: int) -> str:
+    """The instance of :func:`int4_mm_t` for packed rows of ``stride`` bytes
+    at address ``wp_ptr``: ``"mma"`` (the tensor cores) when the stride is a
+    multiple of 16 and the address of 16 bytes, which every
+    :func:`pack_int4` output is, else ``"scalar"`` (``__dp4a`` one nibble at
+    a time), as :func:`int4_mm_route`.  The ``"vec"`` instance (``__dp4a`` on
+    2-byte loads of the packed rows), which :func:`int4_vector_path` chose
+    under the same conditions, stays reachable through the C launch as the
+    tensor cores' yardstick."""
+    return int4_mm_route(stride, wp_ptr)
+
+
 def int4_mm_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:
     """``out[b, j] = float32(sum_i W[i, j] * vq[b, i]) * act_scale[b]``,
     float32 ``(B, n_in)``: :func:`int4_mv_t` for ``B`` rows ``(B, n_out)``,
     read from the row-major packed ``wp`` without a transposed copy.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels of
-    ``csrc/int4_matvec.cu``, which sum chunks of rows for up to 32 rows of
-    activations into an int32 scratch and then the chunks (exact in any
-    order).  Each launch adds one to ``int4_mm_t.launches``."""
+    CPU tensors take the plain version.  CUDA tensors launch the kernels of
+    ``csrc/int4_matvec.cu`` on the route :func:`int4_mm_t_route` gives:
+    ``"mma"`` sums chunks of rows for up to 32 rows of activations on the
+    tensor cores and adds the chunks' sums in shared memory (one launch, no
+    scratch); ``"scalar"`` sums chunks of rows on the CUDA cores into an
+    int32 scratch and then the chunks.  Integer sums are exact in any order.
+    Each launch adds one to ``int4_mm_t.launches``, and one on the tensor
+    cores also to ``int4_mm_t.mma_launches``."""
     if wp.device.type == "cpu":
         return int4_mm_t_plain(wp, vq, n_in) * act_scale[:, None]
     n_out = wp.shape[0]
@@ -714,20 +730,24 @@ def int4_mm_t(wp, vq, act_scale, n_in: int) -> torch.Tensor:
     _check("int4_mm_t", wp, vq, None, act_scale, n_out, dtype=torch.uint8,
            max_fan_in=INT4_MV_MAX_FAN_IN, n_in=n_in, rows=rows)
     lib = _lib4()
-    partial = torch.empty(lib.int4_mm_t_scratch(n_out, n_in, rows), dtype=torch.int32,
+    route = int4_mm_t_route(wp.shape[1], wp.data_ptr())
+    code = _ROUTES[route]
+    partial = torch.empty(lib.int4_mm_t_scratch(n_out, n_in, rows, code), dtype=torch.int32,
                           device=wp.device)
     out = torch.empty((rows, n_in), dtype=torch.float32, device=wp.device)
     err = lib.int4_mm_t_launch(wp.data_ptr(), vq.data_ptr(), act_scale.data_ptr(),
                                partial.data_ptr(), out.data_ptr(), n_out, n_in, wp.shape[1], rows,
-                               int(int4_vector_path(wp)),
-                               torch.cuda.current_stream(wp.device).cuda_stream)
+                               code, torch.cuda.current_stream(wp.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int4_mm_t: kernel launch failed with CUDA error {err}")
     int4_mm_t.launches += 1
+    if route == "mma":
+        int4_mm_t.mma_launches += 1
     return out
 
 
 int4_mm_t.launches = 0
+int4_mm_t.mma_launches = 0  # launches on the tensor cores (int4_mm_t_route "mma")
 
 
 def _i4_prep(w):

@@ -19,7 +19,11 @@
 - a numpy model of ``int4_mm``'s tensor-core kernel, lane by lane: the
   k-permutation of the nibbles in the ``mma.sync`` fragments, the split
   stage, the chunks of columns and their passes, and the stride guard of
-  the last k-block; and ``int4_mm_route``.
+  the last k-block; and ``int4_mm_route``;
+- a numpy model of ``int4_mm_t``'s tensor-core kernel, every lane of every
+  warp: the byte transposes and the nibble unpack into the fragments, the
+  stage of the activations, the chunks of rows and their passes, the
+  stride guard of the last column strip; and ``int4_mm_t_route``.
 
 Inputs come from numpy seeds.
 """
@@ -544,16 +548,18 @@ _G, _T = _LANE >> 2, _LANE & 3  # the fragments' group and thread in group
 
 
 def _mma_m16n8k32(a, b):
-    """D = A B of the PTX fragments: a four (32,) uint32 registers of the
-    16 x 32 row-major s8 A, b two of the 32 x 8 column-major s8 B; returns
-    the four (32,) int64 registers of the 16 x 8 D."""
-    A, Bm = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+    """D = A B of the PTX fragments: a four (..., 32) uint32 registers of
+    the 16 x 32 row-major s8 A, b two of the 32 x 8 column-major s8 B (the
+    leading axes: a stack of warps); returns the four (..., 32) int64
+    registers of the 16 x 8 D."""
+    lead = np.broadcast_shapes(*(np.shape(r)[:-1] for r in (*a, *b)))
+    A, Bm = np.zeros(lead + (16, 32), np.int64), np.zeros(lead + (32, 8), np.int64)
     for reg, (m_off, k_off) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
-        A[(_G + m_off)[:, None], k_off + 4 * _T[:, None] + np.arange(4)] = _sbytes(a[reg])
+        A[..., (_G + m_off)[:, None], k_off + 4 * _T[:, None] + np.arange(4)] = _sbytes(a[reg])
     for reg, k_off in enumerate((0, 16)):
-        Bm[k_off + 4 * _T[:, None] + np.arange(4), _G[:, None]] = _sbytes(b[reg])
+        Bm[..., k_off + 4 * _T[:, None] + np.arange(4), _G[:, None]] = _sbytes(b[reg])
     D = A @ Bm
-    return [D[_G + 8 * (i >> 1), 2 * _T + (i & 1)] for i in range(4)]
+    return [D[..., _G + 8 * (i >> 1), 2 * _T + (i & 1)] for i in range(4)]
 
 
 def _split_stage(raw, byte_path):
@@ -665,8 +671,133 @@ def test_int4_mm_route(stride, wp_ptr, route):
 def test_pack_int4_output_takes_the_tensor_cores(n_in):
     wp = quant.pack_int4(torch.zeros((3, n_in), dtype=torch.int8))
     assert wp.shape[1] == quant.int4_stride(n_in)
-    assert quant.int4_mm_route(wp.shape[1], wp.data_ptr()) == "mma"
-    assert quant.int4_mm_route(wp.shape[1], wp.data_ptr() + 1) == "scalar"
+    for route in (quant.int4_mm_route, quant.int4_mm_t_route):
+        assert route(wp.shape[1], wp.data_ptr()) == "mma"
+        assert route(wp.shape[1], wp.data_ptr() + 1) == "scalar"
+
+
+# A numpy model of int4_mm_t's tensor-core instance (mmas8::cols_t_mma_kernel
+# with 4 packed bytes a lane, csrc/mma_s8.cuh), every warp of every strip at
+# once: the chunks of rows (one cluster) and their passes; the stage of vq
+# (16-byte copies, each inside its row of vq, or bytes); the 4 packed bytes
+# (columns 8g..8g+7 of the warp's 64) of rows 8t..8t+7 of a k-step that lane
+# (g, t) loads, read from the packed buffer as the card reads it, so that a
+# load past its row's stride would take the next row's bytes, and zero
+# weights (nibbles of 8) where it loads nothing; transpose4 and the nibble
+# unpack into the A registers (column 8g + 2u + h is row g + 8h of m-tile
+# u); the staged bytes of trial 8nt + g at rows 8t..8t+7 as the B
+# registers; the PTX ISA's m16n8k32 fragment layouts; and the C fragments'
+# (trial, column) in the sums' buffer that the cluster adds up.
+_QT_WARPS, _QT_STEP, _QT_PASS_ROWS = 4, 32, 1024
+
+
+def _transpose4(r0, r1, r2, r3):
+    """Word c of the result holds byte c of the words r0..r3."""
+    lo01, hi01 = _byte_perm(r0, r1, 0x5140), _byte_perm(r0, r1, 0x7362)
+    lo23, hi23 = _byte_perm(r2, r3, 0x5140), _byte_perm(r2, r3, 0x7362)
+    return [_byte_perm(lo01, lo23, 0x5410), _byte_perm(lo01, lo23, 0x7632),
+            _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
+
+
+def _int4_mma_t_model(wp, vq, act, n_in, rows_per_chunk, pass_rows=_QT_PASS_ROWS,
+                      warps=_QT_WARPS):
+    n_out, stride = wp.shape
+    n_rows = vq.shape[0]
+    assert stride % 16 == 0 and rows_per_chunk % _QT_STEP == 0
+    vec_stage = n_out % 16 == 0  # the stage by 16-byte copies
+    flat = np.ascontiguousarray(wp).reshape(-1)
+    n_warps = -(-n_in // (64 * warps)) * warps  # every warp of every strip
+    jw = 64 * np.arange(n_warps)[:, None]  # (warps, 1): the warp's first column
+    col_ok = jw + 8 * _G < n_in  # (warps, 32): the lane loads
+    off = (jw + 8 * _G) // 2  # its first byte of a row
+    assert np.all(off[col_ok] + 4 <= stride)  # its 4 bytes never reach the next row
+    acc = np.zeros((n_rows, 64 * n_warps), np.int64)  # the sum over chunks (the cluster's reduce)
+    for b0 in range(0, n_rows, 32):
+        nb = min(32, n_rows - b0)
+        ntiles = (nb + 7) // 8
+        for rp, prows in _int4_t_passes(n_out, rows_per_chunk, pass_rows):
+            steps = -(-prows // _QT_STEP)
+            if vec_stage:  # whole 16-byte copies, each inside its row of vq
+                assert prows % 16 == 0 and rp + prows <= n_out
+            stage = np.zeros((32, steps * _QT_STEP), np.int8)
+            stage[:nb, :prows] = vq[b0:b0 + nb, rp:rp + prows]
+            c = np.zeros((4, 4, 4) + col_ok.shape, np.int64)  # u, nt, i, warp, lane
+            for s in range(steps):
+                words = []  # rows 8t + r of the step at the lane's 4 bytes
+                for r in range(8):
+                    k = s * _QT_STEP + 8 * _T + r
+                    ok = col_ok & (k < prows)
+                    u = np.full(col_ok.shape, 0x88888888, np.uint32)
+                    start = ((rp + k) * stride + off)[ok]
+                    u[ok] = _words(flat[start[:, None] + np.arange(4)]).reshape(-1)
+                    words.append(u)
+                a, b = _transpose4(*words[:4]), _transpose4(*words[4:])
+                lo = [_nibbles(a[q >> 1], 4 * (q & 1)) for q in range(8)]  # rows 8t..8t+3
+                hi = [_nibbles(b[q >> 1], 4 * (q & 1)) for q in range(8)]  # rows 8t+4..8t+7
+                for nt in range(ntiles):
+                    bv = stage[8 * nt + _G[:, None], s * _QT_STEP + 8 * _T[:, None] + np.arange(8)]
+                    bx, by = _words(bv[:, :4]).reshape(-1), _words(bv[:, 4:]).reshape(-1)
+                    for u in range(4):
+                        d = _mma_m16n8k32((lo[2 * u], lo[2 * u + 1], hi[2 * u], hi[2 * u + 1]),
+                                          (bx, by))
+                        for i in range(4):
+                            c[u, nt, i] += d[i]
+            red = np.zeros((n_warps, 32, 64), np.int64)  # [warp][trial][column of the warp]
+            for u, nt, i in np.ndindex(4, 4, 4):
+                red[:, 8 * nt + 2 * _T + (i & 1), 8 * _G + 2 * u + (i >> 1)] = c[u, nt, i]
+            acc[b0:b0 + nb] += red[:, :nb].transpose(1, 0, 2).reshape(nb, -1)
+    return acc[:, :n_in].astype(np.float32) * act[:, None]
+
+
+def _int4_t_passes(n_out, rows_per_chunk, pass_rows):
+    """(first row, rows) of every pass of every chunk of rows."""
+    for r0 in range(0, n_out, rows_per_chunk):
+        rows = min(n_out, r0 + rows_per_chunk) - r0
+        for p0 in range(0, rows, pass_rows):
+            yield r0 + p0, min(pass_rows, rows - p0)
+
+
+@pytest.mark.parametrize("B,n_out,n_in,rows_per_chunk,pass_rows", [
+    # N = 10,000's last strip (16 columns: two lane groups of its first warp
+    # load) and its last two chunks of rows (8 chunks of 1,280 at N =
+    # 10,000, each in passes of 1,024; the last chunk's 1,040 rows end in a
+    # pass of one k-step of 16 rows)
+    (32, 2320, 10_000, 1280, 1024),
+    (7, 70, 136, 64, 1024),  # 7 trials pad one n-tile; the byte stage; a short last k-step
+    (5, 96, 1001, 64, 1024),  # odd n_in: its last byte holds one column; 5 trials
+    (33, 45, 264, 32, 1024),  # two trial groups, the second of one trial; the byte stage
+    (9, 150, 72, 128, 64),  # chunks of two passes, the last pass of a chunk short
+    (3, 1, 33, 32, 1024),  # one row of W
+])
+def test_int4_mm_t_tensor_core_lane_model_equals_plain(B, n_out, n_in, rows_per_chunk,
+                                                       pass_rows):
+    # the tensor-core kernel's index mapping, modelled lane by lane, gives
+    # int4_mm_t's plain result with its epilogue bit for bit, every load
+    # inside its row's stride
+    rng = np.random.default_rng(B + n_out + n_in)
+    wq, wp, _, vq, _, act = _int4_operands(rng, B, n_out, n_in)
+    got = _int4_mma_t_model(wp.numpy(), vq, act, n_in, rows_per_chunk, pass_rows)
+    ref = quant.int4_mm_t(wp, torch.as_tensor(vq), torch.as_tensor(act), n_in)
+    np.testing.assert_array_equal(got, ref.numpy())
+    exact = (vq.astype(np.float64) @ wq.astype(np.float64)).astype(np.float32) * act[:, None]
+    np.testing.assert_array_equal(got, exact)
+
+
+@pytest.mark.parametrize("stride,wp_ptr,route", [
+    (5008, 4096, "mma"),  # pack_int4 at N = 10,000
+    (7168, 4096, "mma"),  # N = 14,336
+    (5008, 4096 + 32, "mma"),
+    (16, 4096, "mma"),
+    (5000, 4096, "scalar"),  # tight rows at N = 10,000: every other row off 16 bytes
+    (5008, 4096 + 8, "scalar"),  # packed rows only 8-byte aligned
+    (5008, 4096 + 2, "scalar"),
+    (4, 4096, "scalar"),
+])
+def test_int4_mm_t_route(stride, wp_ptr, route):
+    # int4_mm_t's instance is a pure function of the packed rows' stride and
+    # address: the tensor cores where every row's 4-byte loads lie inside a
+    # 16-byte-rounded row, as int4_mm's
+    assert quant.int4_mm_t_route(stride, wp_ptr) == route
 
 
 def test_nibble_unpack_by_add_and_xor_is_the_signed_subtraction():

@@ -22,7 +22,8 @@ from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fus
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
 from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mm,
                                          int4_mm_plain, int4_mm_route, int4_mm_t,
-                                         int4_mm_t_plain, int4_mv, int4_mv_t, int4_vector_path,
+                                         int4_mm_t_plain, int4_mm_t_route, int4_mv, int4_mv_t,
+                                         int4_vector_path,
                                          int8_dot_plain,
                                          int8_dot_t_plain,
                                          int8_mm, int8_mm_plain, int8_mm_route, int8_mm_t,
@@ -1288,19 +1289,22 @@ def _int4_rows(B, n_out, n_in, seed, device, tight=False):
     (3, 33, 1, False, 0), (3, 1, 33, False, 0)])
 def test_int4_mm_kernels_bit_identical_to_plain(cuda, B, n_out, n_in, tight, offset):
     # integer sums are exact in any order: bit for bit, epilogues included;
-    # int4_mm on the tensor cores wherever the packed rows start 16-byte
-    # aligned
+    # int4_mm and int4_mm_t on the tensor cores wherever the packed rows
+    # start 16-byte aligned
     wp, ws, xq, xs, vq, vs = _int4_rows(B, n_out, n_in, 71, cuda, tight)
     if offset:
         buf = torch.empty(offset + wp.numel(), dtype=torch.uint8, device=cuda)
         wp = buf[offset:].view(wp.shape).copy_(wp)
     route = int4_mm_route(wp.shape[1], wp.data_ptr())
     assert route == ("scalar" if tight or offset else "mma")
-    before = (int4_mm.launches, int4_mm.mma_launches, int4_mm_t.launches)
+    assert int4_mm_t_route(wp.shape[1], wp.data_ptr()) == route
+    counts = (lambda: (int4_mm.launches, int4_mm.mma_launches, int4_mm_t.launches,
+                       int4_mm_t.mma_launches))
+    before = counts()
     out, out_t = int4_mm(wp, xq, ws, xs), int4_mm_t(wp, vq, vs, n_in)
     torch.cuda.synchronize()
-    assert (int4_mm.launches, int4_mm.mma_launches, int4_mm_t.launches) == (
-        before[0] + 1, before[1] + int(route == "mma"), before[2] + 1)
+    mma = int(route == "mma")
+    assert counts() == (before[0] + 1, before[1] + mma, before[2] + 1, before[3] + mma)
     assert torch.equal(out, (int4_mm_plain(wp, xq) * ws) * xs[:, None])
     assert torch.equal(out_t, int4_mm_t_plain(wp, vq, n_in) * vs[:, None])
     assert bool((out != 0).any()) and bool((out_t != 0).any())
@@ -1336,6 +1340,38 @@ def test_int4_mm_tensor_cores_and_dp4a_instance_agree(cuda, B, n_out, n_in, x_of
                                            torch.cuda.current_stream().cuda_stream)
         torch.cuda.synchronize()
         assert err == 0 and torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n_out,n_in,v_offset", [
+    (32, 10_000, 10_000, 0), (7, 10_000, 1003, 0), (5, 1008, 10_000, 0),
+    (33, 1024, 10_000, 0),  # two groups of trials
+    (32, 10_000, 10_000, 8), (7, 1003, 999, 3),  # vq not 16-byte aligned: staged byte by byte
+])
+def test_int4_mm_t_tensor_cores_and_dp4a_instance_agree(cuda, B, n_out, n_in, v_offset):
+    # int4_mm_t's tensor cores at any address of the activations, and its
+    # "vec" __dp4a instance (2-byte loads of the packed rows; no route picks
+    # it, it stays as the tensor cores' yardstick) through the C launch: both
+    # bit for bit against the plain version
+    from rectipy_tpu_torch.ops import quant
+
+    wp, _, _, _, vq0, vs = _int4_rows(B, n_out, n_in, 74, cuda)
+    vbuf = torch.empty(v_offset + B * n_out, dtype=torch.int8, device=cuda)
+    vq = vbuf[v_offset:].view(B, n_out).copy_(vq0)
+    ref = int4_mm_t_plain(wp, vq, n_in) * vs[:, None]
+    before = int4_mm_t.mma_launches
+    assert torch.equal(int4_mm_t(wp, vq, vs, n_in), ref)
+    assert int4_mm_t.mma_launches == before + 1
+    lib, vec = quant._lib4(), quant._ROUTES["vec"]
+    assert lib.int4_mm_t_scratch(n_out, n_in, B, quant._ROUTES["mma"]) == 0
+    scratch = torch.empty(lib.int4_mm_t_scratch(n_out, n_in, B, vec), dtype=torch.int32,
+                          device=cuda)
+    out = torch.empty_like(ref)
+    err = lib.int4_mm_t_launch(wp.data_ptr(), vq.data_ptr(), vs.data_ptr(), scratch.data_ptr(),
+                               out.data_ptr(), n_out, n_in, wp.shape[1], B, vec,
+                               torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, ref)
 
 
 @pytest.mark.gpu
