@@ -148,7 +148,10 @@ csrc/generic_fused_step.cuh):
    trial by trial, against the single-row kernel; equal reset masks; the
    lost-eighth margin of the coupling case.  Each line names the kernel's
    route (rows_route): bf16 W on the tensor cores ("mma", counted apart in
-   qif_sfa_step.mma_launches), f32 W on the CUDA cores ("vec").  Then
+   qif_sfa_step.mma_launches), f32 W on the CUDA cores' tiled kernel
+   ("tiled", counted in qif_sfa_step.tiled_launches), which is also held
+   to TOL against the CUDA cores' older vector instance (route code "vec", reached
+   through the C entry alone) with equal reset masks.  Then
    the B-row generic step (generic_fused_rows) for LIF (K = 1), the
    E/I circuit (K = 2) and the Heun tanh RateNet (derivative mode), f32
    and bf16 W, B = 32 and 5, at N (bf16: the tensor cores, counted in
@@ -173,7 +176,11 @@ csrc/generic_fused_step.cuh):
    on both sides: rtol 1e-5).  Then the same with a bf16 coupling and the
    fused QIF step: one B-row launch per step, every one on the tensor
    cores (qif_sfa_step.mma_launches), the trials under fused_vs_plain's
-   rule; then with a frozen int4 coupling: one int4_mm launch per
+   rule; then with a f32 coupling and the fused QIF step at its default
+   weights_dtype (f32): one B-row launch per step, every one on the tiled
+   kernel (qif_sfa_step.tiled_launches) and none of the single-row kernel,
+   the trials under fused_vs_plain's rule, ratio_to_single against the
+   single-trial f32 fused run in turns; then with a frozen int4 coupling: one int4_mm launch per
    step, every one on the tensor cores (int4_mm.mma_launches), the trials
    held as int8's.  Then the same network with an
    int4_master coupling swept per trial (4 couplings of their own, 1,000
@@ -186,8 +193,10 @@ csrc/generic_fused_step.cuh):
    neuron-updates/s against the single-trial run; then the B-row kernel
    timed in turns with its CUDA-core bf16 instance (tensor cores, CUDA
    cores, CUDA cores, tensor cores; the two held to each other first) and
-   with the 32 single-trial launches it replaces, its f32-W instance, its
-   plain version and torch.matmul of the same bf16 W on (32, N) rows; and
+   with the 32 single-trial launches it replaces, its f32-W instance (its
+   route, ms, bound, plain ms and torch.matmul of the f32 W on the same
+   rows), its plain version and torch.matmul of the same bf16 W on (32, N)
+   rows; and
    the E/I circuit's K = 2 step on the tensor cores at B = 32 with its
    bound.
 27. batch_train_path: bench.py's ensemble phase at full size, fit_bptt_batch
@@ -216,9 +225,14 @@ csrc/generic_fused_step.cuh):
    first), the B-row step at B = 32 in f32 and
    bf16 (bound, plain ms, torch.matmul of s by W^T; the bound takes the
    bf16 peak for a bf16 W, so that step is bound by its bytes; the line
-   adds kernel_route, achieved_bytes_per_s and, for the tensor-core route,
-   the ms of its probes: its W stream and fragment reads with and without
-   the barrier between chunks), one B = 32
+   adds kernel_route, achieved_bytes_per_s and the ms of its probes: for
+   the tensor-core route its W stream and fragment reads with and without
+   the barrier between chunks; for the tiled f32 route the ring's stream
+   with the shared loads and no FMAs, the kernel without the copies of s,
+   and the ring's stream alone; the f32 step is timed in turns with the
+   CUDA cores' vector instance, tiled, vec, vec, tiled, the two held to
+   TOL["reset"] first, and nvidia-smi's SM clock and power sampled while
+   it runs back to back for 1.5 s), one B = 32
    epoch split
    by CUDA events (forward loop, backward loop, dW product, adam step) and
    the device's idle share over one epoch (torch.profiler).  Then
@@ -230,8 +244,8 @@ csrc/generic_fused_step.cuh):
    weights: 103 MB, more than the L2 holds).
 The kernels line adds int8_mm and int8_mm_t (launches of phase 27's fit),
 int8_mm[run_batch_path] (launches of phase 26's int8 run, phase 28's
-timing at the same shapes), the B-row step in bf16 (launches of phase 26's
-fused run), int4_mm and int4_mm_t (launches of phase 27's int4_master
+timing at the same shapes), the B-row step in bf16 and in f32 (launches of
+phase 26's fused runs), int4_mm and int4_mm_t (launches of phase 27's int4_master
 fit; each with its kernel_route), int4_mm[run_batch_path] (phase 26's
 int4 run) and the B-row generic
 step's tensor-core instance (phase 26's LIF run, timed there).
@@ -355,6 +369,34 @@ def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def clock_and_power(fn, seconds: float = 1.5) -> dict:
+    """The SM clock (MHz) and board power (W), medians of nvidia-smi's
+    samples every 50 ms over the last three quarters of ``seconds`` of
+    back-to-back calls of ``fn``: whether a kernel runs at the card's full
+    clock or at its power limit."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=60)[0]
+    rows = [[float(v) for v in line.split(",")] for line in text.splitlines() if line.strip()]
+    rows = rows[len(rows) // 4:]
+    if not rows:
+        raise AssertionError("nvidia-smi gave no clock samples")
+    return {"sm_clock_mhz": float(np.median([r[0] for r in rows])),
+            "power_w": float(np.median([r[1] for r in rows])), "samples": len(rows)}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -1594,6 +1636,7 @@ def batch_kernel_check(dev, W_np) -> dict:
     from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_route, int8_mm_t,
                                              int8_mm_t_plain, int8_mm_t_route, quant_vec,
                                              quantize_rows)
+    from rectipy_tpu_torch.testing import qif_rows_instance
 
     W32 = torch.as_tensor(W_np, dtype=torch.float32, device=dev)
     wq, ws = quantize_rows(W32)
@@ -1631,12 +1674,14 @@ def batch_kernel_check(dev, W_np) -> dict:
                 p = dict(params, k=1.0 / DT) if case == "coupling" else params
                 v, s, x, eta, inp = rows_state(B, N, case, rng, dev)
                 route = rows_route(W.dtype, N, s.stride(0), W.data_ptr(), s.data_ptr())
-                if route != ("mma" if name == "bfloat16" else "vec"):
+                if route != ("mma" if name == "bfloat16" else "tiled"):
                     raise AssertionError(f"B-row {name}: route {route}")
-                mma_before = qif_sfa_step.mma_launches
+                before = qif_sfa_step.mma_launches, qif_sfa_step.tiled_launches
                 out = qif_sfa_step(v, s, x, W, eta, inp, **p)
                 torch.cuda.synchronize()
-                if qif_sfa_step.mma_launches - mma_before != int(route == "mma"):
+                if (qif_sfa_step.mma_launches - before[0],
+                        qif_sfa_step.tiled_launches - before[1]) != (int(route == "mma"),
+                                                                     int(route == "tiled")):
                     raise AssertionError(f"B-row {name}: the launch did not take route {route}")
                 ref = torch.stack(qif_sfa_reference_step(v, s, x, W, eta, inp, **p), dim=-2)
                 rtol, atol = TOL[case]
@@ -1657,6 +1702,13 @@ def batch_kernel_check(dev, W_np) -> dict:
                         "max_abs_err": e,
                         "max_abs_diff_single_row_kernel": one_err, "rtol": rtol, "atol": atol,
                         "reset_neurons": int(mask.sum())}
+                if route == "tiled":  # and against the CUDA cores' vector instance
+                    old = qif_rows_instance("vec", W, v, s, x, eta, inp, p)
+                    torch.testing.assert_close(out, old, rtol=rtol, atol=atol)
+                    if not torch.equal(mask, old[:, 0] == p["v_reset"]):
+                        raise AssertionError(f"B-row {name}, {case}: the reset masks of the "
+                                             f"tiled and vector instances differ")
+                    line["max_abs_diff_vec_instance"] = float((out - old).abs().max())
                 if case == "reset" and not bool(mask.any()):
                     raise AssertionError(f"B-row {name}: no neuron was reset")
                 if case == "coupling":
@@ -1840,9 +1892,9 @@ def int4_mm_check(dev) -> dict:
 def run_batch_phase(dev) -> tuple:
     """Phase 26: run_batch on benchmarks/batch_throughput.py's network, an
     eta sweep over B_RUN trials on a shared drive, int8 coupling (int8_mm),
-    bf16 with the fused QIF step (the B-row kernel) and frozen int4
-    (int4_mm).  Returns (launches by coupling, the seconds of a B_RUN run
-    by coupling)."""
+    bf16 and f32 with the fused QIF step (the B-row kernel on the tensor
+    cores and its tiled f32 instance) and frozen int4 (int4_mm).  Returns
+    (launches by coupling, the seconds of a B_RUN run by coupling)."""
     from rectipy_tpu_torch.ops.kernels import qif_sfa_step
     from rectipy_tpu_torch.ops.quant import int4_mm, int4_mv, int8_mm, int8_mv
 
@@ -1851,12 +1903,17 @@ def run_batch_phase(dev) -> tuple:
     rec_kw = dict(record_output=False, record_vars=[("qif", "s", True)], verbose=False)
     picks = (0, B_RUN // 2 - 1, B_RUN - 1)
     launches, out = {}, {}
-    # (coupling, fused step?, the batched kernel, whose every launch must
-    # take the tensor cores, a single-row kernel that must not launch)
-    for coupling, fused, kernel, absent in (
-            ("int8", False, int8_mm, int8_mv),
-            ("bfloat16", True, qif_sfa_step, int8_mv),
-            ("int4", False, int4_mm, int4_mv)):
+    # (coupling, fused step?, the batched kernel, the route every launch
+    # must take, a single-row kernel that must not launch); the fused step's
+    # f32 coupling is its default weights_dtype.  qif_sfa_step.launches
+    # counts the single-row launches too, so its count of B-row launches on
+    # the route bounds them to none.
+    for coupling, fused, kernel, route, absent in (
+            ("int8", False, int8_mm, "mma", int8_mv),
+            ("bfloat16", True, qif_sfa_step, "mma", int8_mv),
+            ("float32", True, qif_sfa_step, "tiled", int8_mv),
+            ("int4", False, int4_mm, "mma", int4_mv)):
+        counter = f"{route}_launches"
         t0 = time.perf_counter()
         net, etas = batch_run_net(coupling, fused)
         build_s = time.perf_counter() - t0
@@ -1877,7 +1934,8 @@ def run_batch_phase(dev) -> tuple:
         batch(CMP_STEPS)  # warm
         times = {"batch": [], "single": []}
         for _ in range(2):  # in turns, best of 2
-            kernel.launches = kernel.mma_launches = absent.launches = 0
+            kernel.launches = absent.launches = 0
+            setattr(kernel, counter, 0)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = batch()
@@ -1886,11 +1944,11 @@ def run_batch_phase(dev) -> tuple:
             if kernel.launches != T_RUN or absent.launches != 0:
                 raise AssertionError(f"run_batch_path ({coupling}): {kernel.launches} "
                                      f"{kernel.__name__} launches for {T_RUN} steps")
-            # every step's product on the tensor cores
-            mma_launches = kernel.mma_launches
-            if mma_launches != T_RUN:
-                raise AssertionError(f"run_batch_path ({coupling}): {mma_launches} of "
-                                     f"{T_RUN} launches took the tensor-core route")
+            # every step's product on the route (the tensor cores; f32: tiled)
+            route_launches = getattr(kernel, counter)
+            if route_launches != T_RUN:
+                raise AssertionError(f"run_batch_path ({coupling}): {route_launches} of "
+                                     f"{T_RUN} launches took the {route!r} route")
             launches[coupling] = kernel.launches
             rec = res[("qif", "s")]
             if rec.shape != (B_RUN, T_RUN // 100) or not np.all(np.isfinite(rec)):
@@ -1919,7 +1977,9 @@ def run_batch_phase(dev) -> tuple:
         emit({"phase": "run_batch_path", "coupling": coupling, "fused_qif_step": fused, "n": N,
               "B": B_RUN, "steps": T_RUN, "sweep": "eta + linspace(-2, 2, B)",
               "kernel": kernel.__name__, "launches": launches[coupling],
-              "tensor_core_launches": mma_launches, "build_s": build_s,
+              "kernel_route": route, "route_launches": route_launches,
+              **({"tensor_core_launches": route_launches} if route == "mma" else {}),
+              "build_s": build_s,
               "run_batch_s": times["batch"], "run_single_s": times["single"],
               "ms_per_step": best_b / T_RUN * 1e3, "single_ms_per_step": best_1 / T_RUN * 1e3,
               "aggregate_neuron_updates_per_s": nu_b, "single_neuron_updates_per_s": nu_1,
@@ -2085,6 +2145,16 @@ def generic_batch_phase(errs: dict) -> dict:
     loop_ms = (loop_turns[1] + loop_turns[2]) / 2
     W32 = W.to(torch.float32)  # the f32 instance on the same rows, timed only
     f32_ms = cuda_ms(lambda: generic_fused_rows(step, srcs, [W32], drive, states, vecs), reps=100)
+    f32_bytes, f32_ops, f32_bound, f32_by = rows_bound(step, [W32], G_B, len(vecs),
+                                                       tail_ops(node._vf.tile_program))
+    f32 = {"kernel_route": generic_route([W32], srcs), "launches": 0, "ms": f32_ms,
+           "plain_ms": cuda_ms(lambda: generic_fused_rows_plain(step, srcs, [W32], drive,
+                                                                states, vecs), reps=3),
+           "bound_ms": f32_bound, "bound_by": f32_by, "bytes": f32_bytes, "ops": f32_ops,
+           "library_ms": cuda_ms(lambda: srcs[0] @ W32.T, reps=100),
+           "library_ms_reason": "torch.matmul of the (B, N) f32 source rows by W^T in f32 "
+                                "(the products alone): a yardstick",
+           "achieved_bytes_per_s": f32_bytes / (f32_ms * 1e-3)}
     plain_ms = cuda_ms(lambda: generic_fused_rows_plain(step, srcs, [W], drive, states, vecs),
                        reps=3)
     s_w = srcs[0].to(W.dtype)
@@ -2102,7 +2172,7 @@ def generic_batch_phase(errs: dict) -> dict:
           "single_trial_launches_ms_in_turns": loop_ms,
           "speedup_over_single_trial_launches": loop_ms / ms,
           "f32_fma_bound_ms": 2 * G_B * N * N / F32_FLOPS * 1e3,
-          "float32_w_instance_ms": f32_ms,
+          "float32_w_instance": f32,
           "library_ms_reason": "torch.matmul of the (B, N) source rows by W^T in bf16 "
                                "(the products alone, on the tensor cores): a yardstick",
           "achieved_bytes_per_s": n_bytes / (ms * 1e-3), "achieved_flops": n_ops / (ms * 1e-3)})
@@ -2357,15 +2427,25 @@ def batch_train_int4_phase(data, staged, int4_nu: float) -> dict:
     return launches
 
 
-def rows_probe_ms(W, v, s, x, eta, inp) -> dict:
-    """Phase 28: ms of the tensor-core B-row kernel's probes
-    (csrc/qif_sfa_step.cu, kProbe) on the timed operands: the kernel's W
-    stream with its fragment reads and its barrier between chunks, and the
-    same without the barrier (no staging of s, no products; the outputs are
-    meaningless)."""
+def rows_probe_ms(route: str, W, v, s, x, eta, inp) -> dict:
+    """Phase 28: ms of the B-row QIF kernel's probes (csrc/qif_sfa_step.cu
+    and csrc/rows_tiled.cuh, kProbe) on the timed operands; their outputs
+    are meaningless.  "mma" (the tensor cores): the kernel's W stream with
+    its fragment reads and its barrier between chunks, and the same without
+    the barrier (no staging of s, no products).  "tiled" (f32): the ring's
+    stream and the micro-tiles' shared loads without the FMAs, the kernel
+    without the copies of s, and the ring's stream alone (no loads, no
+    FMAs)."""
     from rectipy_tpu_torch.ops._build import build
 
-    fn = build("qif_sfa_step").lib.qif_sfa_rows_probe_launch
+    lib = build("qif_sfa_step").lib
+    if route == "mma":
+        fn = lib.qif_sfa_rows_probe_launch
+        probes = (("w_stream_fragments_barrier", 3), ("w_stream_fragments", 7))
+    else:
+        fn = lib.qif_sfa_rows_tiled_probe_launch
+        probes = (("ring_and_shared_loads_no_fma", 1), ("no_staging_of_s", 2),
+                  ("ring_stream_only", 4))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [I, P, P, P, P, P, P, L, L, L, L, L, P, I, I, P]
     fn.restype = I
@@ -2373,13 +2453,13 @@ def rows_probe_ms(W, v, s, x, eta, inp) -> dict:
     out = torch.empty((B, 3, n), dtype=torch.float32, device=v.device)
     lds = [t.stride(0) if t.dim() == 2 else 0 for t in (v, s, x, eta, inp)]
     ms = {}
-    for name, probe in (("w_stream_fragments_barrier", 3), ("w_stream_fragments", 7)):
+    for name, probe in probes:
         def run(probe=probe):
             err = fn(probe, W.data_ptr(), v.data_ptr(), s.data_ptr(), x.data_ptr(),
                      eta.data_ptr(), inp.data_ptr(), *lds, out.data_ptr(), n, B,
                      torch.cuda.current_stream().cuda_stream)
             if err:
-                raise RuntimeError(f"qif_sfa_rows_probe_launch({probe}): CUDA error {err}")
+                raise RuntimeError(f"B-row probe {route} {probe}: CUDA error {err}")
         ms[name] = cuda_ms(run, reps=100)
     return ms
 
@@ -2463,6 +2543,7 @@ def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_la
     from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
     from rectipy_tpu_torch.ops.quant import (int8_mm, int8_mm_plain, int8_mm_t, int8_mm_t_plain,
                                              quant_vec, quantize_rows)
+    from rectipy_tpu_torch.testing import qif_rows_instance
     from rectipy_tpu_torch.train import get_optimizer
 
     ins_d, tgt_d = staged
@@ -2520,22 +2601,38 @@ def batch_timing(dev, W_np, net, staged, epoch_ms: float, launches: dict, run_la
         n_ops = 2 * B_RUN * N * N + 20 * B_RUN * N
         route = rows_route(W.dtype, N, s.stride(0), W.data_ptr(), s.data_ptr())
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(W.dtype)
-        ms = cuda_ms(lambda: qif_sfa_step(v, s, x, W, eta, inp, **params), reps=100)
+
+        def kernel():
+            return qif_sfa_step(v, s, x, W, eta, inp, **params)
+
+        extra = {}
+        if route == "tiled":  # in turns with the CUDA cores' vector instance, held to it first
+            def vec():
+                return qif_rows_instance("vec", W, v, s, x, eta, inp, params)
+
+            torch.testing.assert_close(kernel(), vec(), rtol=TOL["reset"][0],
+                                       atol=TOL["reset"][1])
+            turns = [cuda_ms(f, reps=100) for f in (kernel, vec, vec, kernel)]
+            ms, vec_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            extra = {"turns_ms": turns, "vec_instance_ms_in_turns": vec_ms,
+                     "speedup_over_vec_instance": vec_ms / ms,
+                     "clock_and_power": clock_and_power(kernel)}
+        else:
+            ms = cuda_ms(kernel, reps=100)
         plain_ms = cuda_ms(lambda: qif_sfa_reference_step(v, s, x, W, eta, inp, **params),
                            reps=10)
         s_w = s.contiguous().to(W.dtype)
         library_ms = cuda_ms(lambda: s_w @ W.T, reps=100)
         entry = {"name": f"qif_sfa_step_rows[{name}]", "route": "cuda",
                  "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-                 "launches": run_launches["bfloat16"] if name == "bfloat16" else 0,
+                 "launches": run_launches[name],
                  "max_abs_err": errs[f"qif_sfa_step_rows[{name}]"], "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "library_ms": library_ms}
-        if name == "bfloat16":  # the path's instance; f32 is timed here only
-            entries.append(entry)
-        probes = ({"probe_ms": rows_probe_ms(W, v, s, x, eta, inp)} if route == "mma" else {})
-        emit({"phase": "batch_timing", **entry, "kernel_route": route, **probes, "B": B_RUN,
+        entries.append(entry)  # the run_batch path's instances (phase 26's launches)
+        emit({"phase": "batch_timing", **entry, "kernel_route": route, **extra,
+              "probe_ms": rows_probe_ms(route, W, v, s, x, eta, inp), "B": B_RUN,
               "bytes": n_bytes, "ops": n_ops,
               "library_ms_reason": f"torch.matmul of the (B, N) s by W^T in {name} "
                                    f"(the products alone)",

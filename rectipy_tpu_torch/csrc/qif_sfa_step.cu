@@ -93,9 +93,23 @@
 //   (the probes below, timed by chip_smoke.py): the W stream in this load
 //   pattern, the fragment reads and the barrier between chunks.
 //
-// Every other B-row launch (a f32 W; a bf16 W that is not aligned as above)
-// runs qif_sfa_rows_kernel on the CUDA cores; f32 is bound by its bytes
-// there already, and TF32 would change its numbers.
+// A f32 W with n % 4 == 0, ld_s % 4 == 0 and W and s 16-byte aligned takes
+// qif_sfa_rows_tiled_kernel on the CUDA cores (route 3, "tiled"): TF32 would
+// change its numbers.  Its 3.2e9 FMAs at N = 10,000, B = 32 take 0.096 ms at
+// the f32 peak, 80% of W's 0.1195 ms of bytes, so it must stream W near the
+// HBM rate and keep the FMA pipe about 80% busy at once.  Its sums are
+// rows_tiled.cuh's (whose header note gives the design): 80-row strips, W
+// and s through a cp.async ring in shared memory, a register micro-tile of
+// 10 rows x 8 trials a lane (18 shared loads feed 320 FMAs), eight K parts
+// that meet in shared memory, and each (trial, row) sum through the shared
+// epilogue once, rows >= n and trials >= the group's count masked.  As the
+// route of an aligned f32 W it replaces the vector instance below, which ran
+// at 42% of its bound (PERF.md).
+//
+// Every other B-row launch (a f32 or bf16 W that is not aligned as above)
+// runs qif_sfa_rows_kernel on the CUDA cores.  Its f32 vector instance (route
+// 1, "vec") stays reachable through the C entry as a yardstick; no Python
+// route picks it.
 // - A block of 4 warps owns 16 rows of W and up to 32 trials.  For each
 //   chunk of 128 inputs, it stages that chunk of every trial's s in shared
 //   memory once (16 KB; rounded to bf16 for a bf16 W, as the single-row
@@ -129,6 +143,7 @@
 
 #include "row_dot.cuh"
 #include "rows_mma.cuh"
+#include "rows_tiled.cuh"
 
 namespace {
 
@@ -482,26 +497,89 @@ qif_sfa_rows_mma_kernel(const __nv_bfloat16* __restrict__ W, const float* __rest
   }
 }
 
+// Dynamic shared memory above 48 KB is taken only when asked for, once per
+// kernel and device.
+template <typename K>
+cudaError_t allow_smem(K* kernel, int bytes, std::atomic<unsigned long long>& asked) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (!(asked.load() >> dev & 1ull)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    asked.fetch_or(1ull << dev);
+  }
+  return cudaSuccess;
+}
+
 template <int kProbe>
 cudaError_t launch_rows_mma(const void* W, const float* v, const float* s, const float* x,
                             const float* eta, const float* inp, long long ld_v, long long ld_s,
                             long long ld_x, long long ld_eta, long long ld_inp, float* out,
                             int n, int n_rows, const StepParams& p, cudaStream_t st) {
   auto* kernel = qif_sfa_rows_mma_kernel<kProbe>;
-  // dynamic shared memory above 48 KB is taken only when asked for, once per device
   static std::atomic<unsigned long long> asked{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = allow_smem(kernel, kMSmem, asked);
   if (e != cudaSuccess) return e;
-  if (!(asked.load() >> dev & 1ull)) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMSmem);
-    if (e != cudaSuccess) return e;
-    asked.fetch_or(1ull << dev);
-  }
   const dim3 grid((n + kMRows - 1) / kMRows, (n_rows + kRTrials - 1) / kRTrials);
   kernel<<<grid, kMThreads, kMSmem, st>>>(static_cast<const __nv_bfloat16*>(W), v, s, x, eta,
                                           inp, ld_v, ld_s, ld_x, ld_eta, ld_inp, out, n, n_rows,
                                           p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- B rows, f32 W, tiled
+// The geometry (rows_tiled.cuh): 10 rows x 8 trials a lane (a warp: 8 row
+// groups x 4 trial groups, all 80 rows of the strip), 8 warps each on an
+// eighth of every chunk, a ring of 3 chunks of 128 inputs (173 KB of shared
+// memory).
+using QifTile = rowtile::Geometry<10, 8, 1, 8, 128, 3>;
+static_assert(rowtile::kTrials == kRTrials, "32 trials a block");
+
+// The aligned f32 B-row step (header note): the block's sums, then each
+// thread's (trial, row) pairs through the epilogue, consecutive threads on
+// consecutive rows.
+template <class G, int kProbe>
+__global__ void __launch_bounds__(G::kThreads, 1)
+qif_sfa_rows_tiled_kernel(const float* __restrict__ W, const float* __restrict__ v,
+                          const float* __restrict__ s, const float* __restrict__ x,
+                          const float* __restrict__ eta, const float* __restrict__ inp,
+                          long long ld_v, long long ld_s, long long ld_x, long long ld_eta,
+                          long long ld_inp, float* __restrict__ out, int n, int n_rows,
+                          StepParams p) {
+  extern __shared__ __align__(16) unsigned char tsmem[];
+  float* sums = reinterpret_cast<float*>(tsmem);
+  const int b0 = blockIdx.y * kRTrials;
+  const int nb = min(kRTrials, n_rows - b0);
+  const int row0 = blockIdx.x * G::kRows;
+  rowtile::block_sums<G, kProbe>(W, s, ld_s, n, nb, b0, row0, sums);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kRTrials * G::kRows; e += G::kThreads) {
+    const int t = e / G::kRows, r = e % G::kRows, i = row0 + r;
+    if (t < nb && i < n) {
+      const long long b = b0 + t;
+      float* o = out + b * 3 * n;
+      qif_sfa_update(rowtile::part_sum<G>(sums, t, r), v[b * ld_v + i], s[b * ld_s + i],
+                     x[b * ld_x + i], eta[b * ld_eta + i], inp[b * ld_inp + i], p, o + i,
+                     o + n + i, o + 2 * n + i);
+    }
+  }
+}
+
+template <class G, int kProbe>
+cudaError_t launch_rows_tiled(const void* W, const float* v, const float* s, const float* x,
+                              const float* eta, const float* inp, long long ld_v,
+                              long long ld_s, long long ld_x, long long ld_eta, long long ld_inp,
+                              float* out, int n, int n_rows, const StepParams& p,
+                              cudaStream_t st) {
+  auto* kernel = qif_sfa_rows_tiled_kernel<G, kProbe>;
+  static std::atomic<unsigned long long> asked{0};
+  const cudaError_t e = allow_smem(kernel, G::kSmem, asked);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + G::kRows - 1) / G::kRows, (n_rows + kRTrials - 1) / kRTrials);
+  kernel<<<grid, G::kThreads, G::kSmem, st>>>(static_cast<const float*>(W), v, s, x, eta, inp,
+                                              ld_v, ld_s, ld_x, ld_eta, ld_inp, out, n, n_rows,
+                                              p);
   return cudaGetLastError();
 }
 
@@ -545,12 +623,13 @@ extern "C" int qif_sfa_step_launch(const void* W, int w_bf16, int vec, const voi
 // The B-row step.  W: (n, n) row-major, f32 (w_bf16 = 0) or bf16 (w_bf16 =
 // 1).  v, s, x, eta, inp: f32, row b of each at b * ld_<name> (ld 0: one row
 // shared by every trial), n contiguous values each.  out: (n_rows, 3, n) f32
-// (v', s', x' of each trial), distinct from the inputs.  vec = 1 selects the
-// tensor-core kernel for a bf16 W, the vector loads of W and the asynchronous
-// copies of s for a f32 W: the caller sets it only when n is a multiple of
-// the vector width (8 bf16, 4 f32), ld_s a multiple of 4, and W and s are
-// 16-byte aligned.
-extern "C" int qif_sfa_rows_launch(const void* W, int w_bf16, int vec, const void* v,
+// (v', s', x' of each trial), distinct from the inputs.  route: 0 scalar
+// loads (any W); 1 the vector loads of W and asynchronous copies of s on the
+// CUDA cores (f32, the yardstick of route 3); 2 the tensor cores (bf16); 3 the tiled
+// CUDA-core kernel (f32).  Routes 1-3 need n a multiple of the vector width
+// (4 f32, 8 bf16), ld_s a multiple of 4 and W and s 16-byte aligned; any
+// other pairing of route and type is refused (cudaErrorInvalidValue).
+extern "C" int qif_sfa_rows_launch(const void* W, int w_bf16, int route, const void* v,
                                    const void* s, const void* x, const void* eta,
                                    const void* inp, long long ld_v, long long ld_s,
                                    long long ld_x, long long ld_eta, long long ld_inp, void* out,
@@ -571,16 +650,17 @@ extern "C" int qif_sfa_rows_launch(const void* W, int w_bf16, int vec, const voi
   qif_sfa_rows_kernel<WT, VEC><<<grid, kRThreads, 0, st>>>(                                   \
       static_cast<const WT*>(W), pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta, ld_inp, po, n, \
       n_rows, p)
-  if (w_bf16) {
-    if (vec) {
+  switch (route | (w_bf16 ? 4 : 0)) {
+    case 0: QIF_ROWS(float, false); break;
+    case 1: QIF_ROWS(float, true); break;
+    case 3:
+      return static_cast<int>(launch_rows_tiled<QifTile, 0>(
+          W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta, ld_inp, po, n, n_rows, p, st));
+    case 4: QIF_ROWS(__nv_bfloat16, false); break;
+    case 6:
       return static_cast<int>(launch_rows_mma<0>(W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta,
                                                  ld_inp, po, n, n_rows, p, st));
-    } else {
-      QIF_ROWS(__nv_bfloat16, false);
-    }
-  } else {
-    if (vec) QIF_ROWS(float, true);
-    else QIF_ROWS(float, false);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef QIF_ROWS
   return static_cast<int>(cudaGetLastError());
@@ -612,5 +692,37 @@ extern "C" int qif_sfa_rows_probe_launch(int probe, const void* W, const void* v
   if (probe == kFragments)
     return static_cast<int>(launch_rows_mma<kFragments>(W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x,
                                                         ld_eta, ld_inp, po, n, n_rows, p, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The probes of the tiled f32 B-row kernel (rowtile::kProbe*), for timing:
+// probe 1 streams W and s through the ring and reads the micro-tiles'
+// operands without the FMAs; probe 2 skips the copies of s; probe 4 streams
+// W and s through the ring and reads nothing (no FMAs).  Same operands
+// as qif_sfa_rows_launch with a f32 W on route 3; the output is meaningless.
+extern "C" int qif_sfa_rows_tiled_probe_launch(int probe, const void* W, const void* v,
+                                               const void* s, const void* x, const void* eta,
+                                               const void* inp, long long ld_v, long long ld_s,
+                                               long long ld_x, long long ld_eta,
+                                               long long ld_inp, void* out, int n, int n_rows,
+                                               void* stream) {
+  if (n <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const StepParams p{};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* pv = static_cast<const float*>(v);
+  const auto* ps = static_cast<const float*>(s);
+  const auto* px = static_cast<const float*>(x);
+  const auto* pe = static_cast<const float*>(eta);
+  const auto* pi = static_cast<const float*>(inp);
+  auto* po = static_cast<float*>(out);
+  if (probe == rowtile::kProbeNoFma)
+    return static_cast<int>(launch_rows_tiled<QifTile, rowtile::kProbeNoFma>(
+        W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta, ld_inp, po, n, n_rows, p, st));
+  if (probe == rowtile::kProbeNoStaging)
+    return static_cast<int>(launch_rows_tiled<QifTile, rowtile::kProbeNoStaging>(
+        W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta, ld_inp, po, n, n_rows, p, st));
+  if (probe == rowtile::kProbeNoReads)
+    return static_cast<int>(launch_rows_tiled<QifTile, rowtile::kProbeNoReads>(
+        W, pv, ps, px, pe, pi, ld_v, ld_s, ld_x, ld_eta, ld_inp, po, n, n_rows, p, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

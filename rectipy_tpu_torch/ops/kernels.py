@@ -18,7 +18,8 @@ vector field, threshold test and hard reset.
 Each takes one state ``(n,)`` or, for ``Network.run_batch``, ``B`` trials'
 states ``(B, n)`` that share W (the TPU kernel under the JAX package's
 ``vmap``): the B-row kernel reads W once for up to 32 trials.  An aligned
-bfloat16 W takes its tensor-core instance (:func:`rows_route`).
+bfloat16 W takes its tensor-core instance, an aligned float32 W its tiled
+instance on the CUDA cores (:func:`rows_route`).
 
 The kernels have no backward (nor has the TPU kernel), so on the card the
 wrappers raise when autograd would need one; the plain version on CPU
@@ -44,6 +45,9 @@ __all__ = ["qif_sfa_reference_step", "qif_sfa_step", "rows_route", "attach_fused
 
 # elements per 16-byte vector load of W
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
+# the B-row C entry's route codes ("vec", the CUDA cores' older f32 vector
+# instance, is reached only through the C entry: no route picks it)
+_ROWS_ROUTES = {"scalar": 0, "vec": 1, "mma": 2, "tiled": 3}
 
 
 def qif_sfa_reference_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha,
@@ -147,18 +151,21 @@ def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thres
 
 qif_sfa_step.launches = 0
 qif_sfa_step.mma_launches = 0  # B-row launches on the tensor cores (rows_route "mma")
+qif_sfa_step.tiled_launches = 0  # B-row launches of the tiled f32 kernel (rows_route "tiled")
 
 
 def rows_route(w_dtype, n: int, ld_s: int, w_ptr: int, s_ptr: int) -> str:
     """The B-row kernel's instance for a W of ``w_dtype``, rows of ``n``
     inputs, a row stride ``ld_s`` of s and the addresses of W and s:
-    ``"mma"`` (a bfloat16 W on the tensor cores) or ``"vec"`` (a float32 W,
-    16-byte loads) when ``n`` is a multiple of the vector width (8 bfloat16,
-    4 float32), ``ld_s`` of 4 and both addresses of 16 bytes; else
-    ``"scalar"``."""
+    ``"mma"`` (a bfloat16 W on the tensor cores) or ``"tiled"`` (a float32
+    W on the CUDA cores: register micro-tiles, W and s through a ring in
+    shared memory) when ``n`` is a multiple of the vector width (8
+    bfloat16, 4 float32), ``ld_s`` of 4 and both addresses of 16 bytes;
+    else ``"scalar"``.  A float32 W stays on the CUDA cores, where its
+    numbers are the plain version's; TF32 would change them."""
     if n % _VEC_ELEMS[w_dtype] or ld_s % 4 or w_ptr % 16 or s_ptr % 16:
         return "scalar"
-    return "mma" if w_dtype == torch.bfloat16 else "vec"
+    return "mma" if w_dtype == torch.bfloat16 else "tiled"
 
 
 def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thresh,
@@ -172,7 +179,8 @@ def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, 
     takes the plain version through :func:`qif_sfa_step`); anything the
     kernel does not take raises.  Each launch adds one to
     ``qif_sfa_step.launches``, and one on the tensor cores also to
-    ``qif_sfa_step.mma_launches``."""
+    ``qif_sfa_step.mma_launches``, one of the tiled f32 kernel to
+    ``qif_sfa_step.tiled_launches``."""
     device = W.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
@@ -198,7 +206,7 @@ def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, 
     out = torch.empty((rows, 3, n), dtype=torch.float32, device=device)
     route = rows_route(W.dtype, n, lds[1], W.data_ptr(), s.data_ptr())
     err = _rows_launch_fn()(
-        W.data_ptr(), int(W.dtype == torch.bfloat16), int(route != "scalar"),
+        W.data_ptr(), int(W.dtype == torch.bfloat16), _ROWS_ROUTES[route],
         v.data_ptr(), s.data_ptr(), x.data_ptr(), eta.data_ptr(), inp.data_ptr(), *lds,
         out.data_ptr(), n, rows,
         float(dt), 1.0 / dt, 1.0 / tau, 1.0 / tau_s, 1.0 / tau_x, float(k), float(alpha),
@@ -208,6 +216,8 @@ def qif_sfa_rows_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, 
     qif_sfa_step.launches += 1
     if route == "mma":
         qif_sfa_step.mma_launches += 1
+    elif route == "tiled":
+        qif_sfa_step.tiled_launches += 1
     return out
 
 

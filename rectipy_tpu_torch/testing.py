@@ -13,6 +13,10 @@ or of 127 parts from the true division (``reciprocal_rows``), and every
 scale the port quantizes with, with its integers (``quant_scales``), to be
 held bit for bit to the CPU's and to numpy's float32 division.
 
+The B-row QIF step on one route of its C entry (``qif_rows_instance``):
+the CUDA cores' f32 vector instance (``"vec"``), which no Python route
+picks, is the tiled f32 kernel's yardstick.
+
 The generic fused step: one node of each class and mode
 (``GENERIC_CASES``), built through the public API with the kernel attached,
 and inputs for one step of it (``generic_inputs``); ``check_generic`` holds
@@ -30,7 +34,7 @@ from .ops.fused_opt import bias_corrections
 
 __all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "adam_inputs",
            "check_adam_requant", "check_generic", "generic_case_net", "generic_inputs",
-           "lost_eighth_margin", "quant_scales", "reciprocal_rows"]
+           "lost_eighth_margin", "qif_rows_instance", "quant_scales", "reciprocal_rows"]
 
 ADAM_RTOL = 1e-6
 ADAM_KW = dict(b1=0.9, b2=0.999, eps=1e-8)
@@ -107,6 +111,27 @@ def quant_scales(w: torch.Tensor) -> dict:
 
 
 # ---------------------------------------------------------------- generic step
+def qif_rows_instance(route: str, W, v, s, x, eta, inp, p) -> torch.Tensor:
+    """The B-row QIF step of ``ops.kernels.qif_sfa_rows_step``'s operands
+    (``p``: its keyword parameters) through the C entry on ``route``
+    (``ops.kernels._ROWS_ROUTES``), on the current CUDA stream; counts no
+    launch.  A launch the entry refuses raises."""
+    from .ops import kernels
+
+    B, n = v.shape
+    out = torch.empty((B, 3, n), dtype=torch.float32, device=v.device)
+    lds = [t.stride(0) if t.dim() == 2 else 0 for t in (v, s, x, eta, inp)]
+    err = kernels._rows_launch_fn()(
+        W.data_ptr(), int(W.dtype == torch.bfloat16), kernels._ROWS_ROUTES[route], v.data_ptr(),
+        s.data_ptr(), x.data_ptr(), eta.data_ptr(), inp.data_ptr(), *lds, out.data_ptr(), n, B,
+        float(p["dt"]), 1.0 / p["dt"], 1.0 / p["tau"], 1.0 / p["tau_s"], 1.0 / p["tau_x"],
+        float(p["k"]), float(p["alpha"]), float(p["thresh"]), float(p["v_reset"]),
+        torch.cuda.current_stream(v.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"qif_sfa_rows_launch ({route}): CUDA error {err}")
+    return out
+
+
 _SPIKING = dict(input_var="I_ext", output_var="s", source_var="s", target_var="s_in")
 # name -> (template, add_diffeq_node keywords); each with the generic kernel
 GENERIC_CASES = {

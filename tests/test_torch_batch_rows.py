@@ -23,10 +23,19 @@
 - a numpy model of ``int4_mm_t``'s tensor-core kernel, every lane of every
   warp: the byte transposes and the nibble unpack into the fragments, the
   stage of the activations, the chunks of rows and their passes, the
-  stride guard of the last column strip; and ``int4_mm_t_route``.
+  stride guard of the last column strip; and ``int4_mm_t_route``;
+- a numpy schedule model of the tiled float32 B-row QIF step
+  (``csrc/rows_tiled.cuh`` with ``qif_sfa_step.cu``'s geometry): its
+  strips, ring stages, copies, lane micro-tiles and K parts, every W read
+  once per trial group and inside its row, its float32 sums in the
+  kernel's order against the plain step and JAX's ``vmap`` of the Pallas
+  kernel in interpret mode.
 
 Inputs come from numpy seeds.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -38,10 +47,12 @@ from rectipy_tpu import Network as JNetwork
 from rectipy_tpu.dsl.parser import CircuitTemplate as JCircuit
 from rectipy_tpu.dsl.parser import NodeTemplate as JNodeTemplate
 from rectipy_tpu.ops.generic_fused import attach_generic_fused_step as j_attach
+from rectipy_tpu.ops.kernels import make_qif_sfa_pallas_step, pad_coupling
 from rectipy_tpu_torch import Network
 from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate
 from rectipy_tpu_torch.ops import generic_fused as gf
 from rectipy_tpu_torch.ops import quant
+from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step
 from rectipy_tpu_torch.testing import GENERIC_CASES, generic_case_net, generic_inputs
 
 J, T_ = "neuron_model_templates.", "rectipy_tpu_torch.models."
@@ -812,3 +823,202 @@ def test_nibble_unpack_by_add_and_xor_is_the_signed_subtraction():
         packed = (cols << shift) | (other << (4 - shift))
         words = _pack_bytes(packed)
         np.testing.assert_array_equal(_sbytes(_nibbles(words, shift)), cols - 8)
+
+
+
+# A numpy schedule model of the tiled float32 B-row QIF step
+# (qif_sfa_rows_tiled_kernel; rowtile::block_sums in csrc/rows_tiled.cuh at
+# qif_sfa_step.cu's QifTile geometry, read from the source): every block
+# (strip of kRows rows x group of 32 trials) at once; each thread's 16-byte
+# copies of a chunk into the ring slot c % kStages, started kStages - 1
+# chunks ahead as the kernel starts them, read from the flat W and state
+# buffers as the card reads them (so that a copy past a row would take the
+# next row's values) and counted; the slot a chunk is copied into is never
+# one still to be read; each lane's kR x kT micro-tile of its warp's K part,
+# one fmaf per input in the kernel's order (emulated in float64, so within
+# an ulp of the card's single rounding); the K parts added in order; the
+# epilogue in float32.
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / "rectipy_tpu_torch" / "csrc"
+
+
+def _qif_tile():
+    """(kR, kT, kRowTiles, kKSplit, kChunk, kStages) of QifTile."""
+    m = re.search(r"using QifTile = rowtile::Geometry<([^>]*)>;",
+                  (_CSRC / "qif_sfa_step.cu").read_text())
+    return tuple(int(v) for v in m.group(1).split(","))
+
+
+def _fmaf(a, b, c):
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _tiled_sums(W, sbuf, s_off, ld_s, B, geometry):
+    """s_in (B, n) of the tiled kernel on W and the s rows of the flat
+    buffer sbuf (row b at s_off + b * ld_s); asserts its reads."""
+    R, T, row_tiles, ksplit, chunk, stages = geometry
+    tg_n = 32 // T
+    rg_n = 32 // tg_n
+    rows = rg_n * R * row_tiles  # of a strip
+    warps, quads = row_tiles * ksplit, chunk // 4
+    threads, stage_rows = 32 * warps, rows + 32
+    copies = -(-stage_rows * quads // threads)
+    n = W.shape[0]
+    flat = np.ascontiguousarray(W, np.float32).reshape(-1)
+    reads = np.zeros(n * n, np.int64)
+    chunks, strips = -(-n // chunk), -(-n // rows)
+    # each thread's copies of a chunk: staged rows tid / quads + q threads /
+    # quads at quad tid % quads; together every (row, quad) once
+    tid = np.arange(threads)
+    cr = (tid[:, None] // quads + np.arange(copies) * (threads // quads)).reshape(-1)
+    cq = np.repeat(tid % quads, copies)
+    keep = cr < stage_rows
+    cr, cq = cr[keep], cq[keep]
+    assert len(set(zip(cr.tolist(), cq.tolist()))) == len(cr) == stage_rows * quads
+    four = np.arange(4)
+    lane, warp = np.arange(32), np.arange(warps)
+    tg, rg = lane % tg_n, lane // tg_n
+    tile, part = warp % row_tiles, warp // row_tiles
+    # the micro-tiles: lane l of warp w sums rows r_idx[w, l, i] of its strip
+    # for trials tg + tg_n j (staged rows rows + trial)
+    r_idx = tile[:, None, None] * rg_n * R + rg[None, :, None] + rg_n * np.arange(R)
+    t_idx = tg[:, None] + tg_n * np.arange(T)
+    out = np.zeros((B, n), np.float32)
+    for b0 in range(0, B, 32):
+        nb = min(32, B - b0)
+        ring = np.full((stages, strips, stage_rows, chunk + 4), np.nan, np.float32)
+        pending = []
+
+        def fetch(c):  # chunk c of every strip into slot c % stages
+            if c >= chunks:
+                return
+            assert c % stages not in [q % stages for q in pending]  # a chunk still to be read
+            k = c * chunk + 4 * cq
+            for st in range(strips):
+                dst = ring[c % stages, st]
+                row = st * rows + cr
+                w_row = cr < rows
+                ok = np.where(w_row, row < n, cr - rows < nb) & (k < n)
+                dst[cr[~ok, None], 4 * cq[~ok, None] + four] = 0.0  # zeros, no read
+                assert np.all(k[ok] + 4 <= n)  # inside its row
+                src = np.where(w_row, row * n + k, s_off + (b0 + cr - rows) * ld_s + k)
+                wsel, ssel = ok & w_row, ok & ~w_row
+                assert np.all(src[wsel] + 4 <= n * n)  # inside W
+                np.add.at(reads, src[wsel, None] + four, 1)
+                dst[cr[wsel, None], 4 * cq[wsel, None] + four] = flat[src[wsel, None] + four]
+                dst[cr[ssel, None], 4 * cq[ssel, None] + four] = sbuf[src[ssel, None] + four]
+            pending.append(c)
+
+        for c in range(stages - 1):
+            fetch(c)
+        acc = np.zeros((strips, warps, 32, R, T), np.float32)
+        for c in range(chunks):
+            pending.remove(c)
+            fetch(c + stages - 1)  # after the chunk's barrier: into chunk c - 1's slot
+            st = ring[c % stages]
+            for k4 in range(0, chunk // ksplit, 4):
+                ks = (part * (chunk // ksplit) + k4)[:, None, None, None] + four  # (W, 1, 1, 4)
+                a = st[:, r_idx[..., None], ks]  # (strips, W, 32, R, 4)
+                b = st[:, rows + t_idx[None, :, :, None], ks]  # (strips, W, 32, T, 4)
+                for comp in range(4):  # inputs k .. k + 3 in turn
+                    acc = _fmaf(a[..., None, comp], b[:, :, :, None, :, comp], acc)
+        assert np.isfinite(acc).all()  # no pad, no unstaged slot was read
+        parts = np.zeros((ksplit, strips, 32, rows), np.float32)  # [part][strip][trial][row]
+        for w in warp:
+            parts[part[w]][:, np.broadcast_to(t_idx[:, None, :], (32, R, T)),
+                           np.broadcast_to(r_idx[w][:, :, None], (32, R, T))] = acc[:, w]
+        sums = parts[0]
+        for q in range(1, ksplit):  # the K parts in order
+            sums = sums + parts[q]
+        out[b0:b0 + nb] = sums.transpose(1, 0, 2).reshape(32, strips * rows)[:nb, :n]
+    np.testing.assert_array_equal(reads, -(-B // 32))  # every W element once per group
+    return out
+
+
+def _tiled_step(W, y, eta, inp, s_shared, p, geometry):
+    """The kernel's (B, 3, n) output on states y (B, 3n) (v | s | x rows of
+    one buffer; s_shared: one s row read by every trial, ld 0)."""
+    B, n = y.shape[0], W.shape[0]
+    flat_y = np.ascontiguousarray(y, np.float32).reshape(-1)
+    s_off, ld_s = (n, 0) if s_shared else (n, 3 * n)
+    s_in = _tiled_sums(W, flat_y, s_off, ld_s, B, geometry)
+    v, x = y[:, :n], y[:, 2 * n:]
+    s = np.broadcast_to(y[:1, n:2 * n], (B, n)) if s_shared else y[:, n:2 * n]
+    f = np.float32
+    reset = (v - f(p["thresh"]) >= 0).astype(f)
+    spikes = reset * f(1.0 / p["dt"])
+    dv = (v * v + (eta - x) + inp) * f(1.0 / p["tau"]) + f(p["k"]) * s_in
+    ds = -s * f(1.0 / p["tau_s"]) + spikes
+    dx = -x * f(1.0 / p["tau_x"]) + f(p["alpha"]) * spikes
+    dt = f(p["dt"])
+    return np.stack([(v + dt * dv) * (1 - reset) + reset * f(p["v_reset"]), s + dt * ds,
+                     x + dt * dx], axis=1)
+
+
+_TILED_PARAMS = dict(dt=1e-4, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05, thresh=100.0,
+                     v_reset=-100.0)
+_TILED_TOL = {"reset": (1e-5, 1e-4), "coupling": (1e-5, 1e-6)}  # chip_smoke.py's TOL
+
+
+@pytest.mark.parametrize("B,n,s_shared,case", [
+    (32, 172, False, "reset"),  # 3 strips, the last of 12 rows; 2 chunks, the last of 44 inputs
+    (32, 172, False, "coupling"),
+    (5, 300, True, "coupling"),  # 5 trials read one shared s row (ld 0); 4 strips, 3 chunks
+    (33, 300, False, "reset"),  # two trial groups, the second of one trial
+    (7, 84, False, "coupling"),  # one strip past its last row by 76 rows
+])
+def test_tiled_rows_schedule_model_matches_plain_and_jax(B, n, s_shared, case):
+    # the tiled f32 B-row kernel's schedule, modelled block by block, reads
+    # every W element once per trial group and never past a row or W, and
+    # its float32 sums in the kernel's order give the plain step and JAX's
+    # vmap of the Pallas kernel (interpret mode) within chip_smoke.py's TOL,
+    # with equal reset masks; in the coupling case TOL sees a lost eighth
+    rng = np.random.default_rng(B + n)
+    p = dict(_TILED_PARAMS, k=1.0 / _TILED_PARAMS["dt"]) if case == "coupling" else _TILED_PARAMS
+    if case == "coupling":
+        W = rng.random((n, n))
+        W /= W.sum(axis=1, keepdims=True)
+        y = np.concatenate([rng.normal(size=(B, n)) * 1e-3, rng.random((B, n)),
+                            rng.random((B, n)) * 1e-3], axis=1)
+        eta, inp = rng.normal(size=(B, n)) * 1e-3, rng.normal(size=(B, n)) * 1e-3
+    else:
+        W = (rng.random((n, n)) < 0.1) * (1.0 / (0.1 * n))
+        y = np.concatenate([rng.normal(size=(B, n)) * 80.0, rng.random((B, n)),
+                            rng.random((B, n))], axis=1)
+        eta, inp = rng.normal(size=(B, n)), rng.normal(size=(B, n))
+    W, y, eta, inp = (a.astype(np.float32) for a in (W, y, eta, inp))
+    got = _tiled_step(W, y, eta, inp, s_shared, p, _qif_tile())
+
+    v, s, x = y[:, :n], (y[0, n:2 * n] if s_shared else y[:, n:2 * n]), y[:, 2 * n:]
+    tv, ts, tx, te, ti = (torch.as_tensor(np.ascontiguousarray(a)) for a in (v, s, x, eta, inp))
+    ref = torch.stack(qif_sfa_reference_step(tv, ts, tx, torch.as_tensor(W), te, ti, **p),
+                      dim=-2).numpy()
+    rtol, atol = _TILED_TOL[case]
+    np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol)
+    mask = got[:, 0] == p["v_reset"]
+    np.testing.assert_array_equal(mask, ref[:, 0] == p["v_reset"])
+    assert mask.any() if case == "reset" else not mask.any()
+
+    step = make_qif_sfa_pallas_step(n, tile=128, interpret=True, **p)
+    jv, js, jx = jax.vmap(step, in_axes=(0, None if s_shared else 0, 0, None, 0, 0))(
+        *(jnp.asarray(a) for a in (v, s, x)), pad_coupling(W, 128), jnp.asarray(eta),
+        jnp.asarray(inp))
+    jref = np.stack([np.asarray(jv), np.broadcast_to(np.asarray(js), (B, n)), np.asarray(jx)],
+                    axis=1)
+    np.testing.assert_allclose(got, jref, rtol=rtol, atol=atol)
+
+    if case == "coupling":  # the tolerance fails a sum that lost every eighth input
+        s_cut = np.array(s)
+        s_cut[..., ::8] = 0.0
+        cut = qif_sfa_reference_step(tv, torch.as_tensor(s_cut), tx, torch.as_tensor(W), te,
+                                     ti, **p)[0].numpy()
+        margin = (np.abs(cut - ref[:, 0]) / (atol + rtol * np.abs(ref[:, 0]))).min()
+        assert margin > 1.0
+
+
+def test_tiled_geometry_of_the_source():
+    # the model's geometry is the kernel's: 80-row strips (125 blocks at
+    # N = 10,000), a warp of 32 trials, whole 16-byte reads of every part
+    R, T, row_tiles, ksplit, chunk, stages = _qif_tile()
+    rows = (32 // (32 // T)) * R * row_tiles
+    assert rows == 80 and -(-10_000 // rows) == 125
+    assert 32 % T == 0 and chunk % 32 == 0 and (chunk // ksplit) % 4 == 0 and stages >= 2

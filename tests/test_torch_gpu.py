@@ -32,7 +32,8 @@ from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_
                                          quant_vec, quantize_rows)
 from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
                                        check_generic, generic_case_net, generic_inputs,
-                                       lost_eighth_margin, quant_scales, reciprocal_rows)
+                                       lost_eighth_margin, qif_rows_instance, quant_scales,
+                                       reciprocal_rows)
 
 PARAMS = dict(dt=1e-4, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05,
               thresh=10.0, v_reset=-10.0)
@@ -812,18 +813,23 @@ def _rows_inputs(B, n, seed, device, w_dtype, coupling):
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 def test_qif_rows_kernel_matches_plain_and_single_row_kernel(cuda, B, n, w_dtype):
     # the B-row step on strided rows of one state buffer: against its plain
-    # version, and each trial against the single-row kernel on that trial
+    # version, and each trial against the single-row kernel on that trial;
+    # an aligned bf16 W takes the tensor cores, an aligned f32 W the tiled
+    # kernel, each counted apart
     mma = w_dtype == torch.bfloat16 and n % 8 == 0
+    tiled = w_dtype == torch.float32 and n % 4 == 0
     for coupling, p, tol in ((False, PARAMS, dict(rtol=1e-5, atol=1e-4)),
                              (True, COUPLING_PARAMS, COUPLING_TOL)):
         W, v, s, x, eta, inp = _rows_inputs(B, n, 61, cuda, w_dtype, coupling)
         assert rows_route(W.dtype, n, s.stride(0), W.data_ptr(), s.data_ptr()) == (
-            "mma" if mma else "vec" if n % 4 == 0 else "scalar")
-        before = qif_sfa_step.launches, qif_sfa_step.mma_launches
+            "mma" if mma else "tiled" if tiled else "scalar")
+        before = (qif_sfa_step.launches, qif_sfa_step.mma_launches,
+                  qif_sfa_step.tiled_launches)
         out = qif_sfa_step(v, s, x, W, eta, inp, **p)
         torch.cuda.synchronize()
-        assert (qif_sfa_step.launches, qif_sfa_step.mma_launches) == (
-            before[0] + 1, before[1] + int(mma)) and out.shape == (B, 3, n)
+        assert (qif_sfa_step.launches, qif_sfa_step.mma_launches,
+                qif_sfa_step.tiled_launches) == (
+            before[0] + 1, before[1] + int(mma), before[2] + int(tiled)) and out.shape == (B, 3, n)
         ref = torch.stack(qif_sfa_reference_step(v, s, x, W, eta, inp, **p), dim=-2)
         torch.testing.assert_close(out, ref, **tol)
         for b in (0, B - 1):
@@ -833,6 +839,41 @@ def test_qif_rows_kernel_matches_plain_and_single_row_kernel(cuda, B, n, w_dtype
         if not coupling:
             assert torch.equal(out[:, 0] == p["v_reset"], ref[:, 0] == p["v_reset"])
             assert bool((out[:, 0] == p["v_reset"]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [5, 32])
+# N = 10,000 (125 strips of 80 rows, 79 chunks, the last of 16 inputs) and
+# 1,124 (15 strips, the last of 4 rows; the last chunk of 100 inputs)
+@pytest.mark.parametrize("n", [10_000, 1_124])
+def test_qif_rows_tiled_and_vec_instance_agree(cuda, B, n):
+    # the tiled f32 kernel and the CUDA cores' older vector instance on the same
+    # operands: within the B-row tolerance of each other and of the plain
+    # version, with equal reset masks; a bad route code is refused
+    from rectipy_tpu_torch.ops import kernels
+
+    for coupling, p, tol in ((False, PARAMS, dict(rtol=1e-5, atol=1e-4)),
+                             (True, COUPLING_PARAMS, COUPLING_TOL)):
+        W, v, s, x, eta, inp = _rows_inputs(B, n, 65, cuda, torch.float32, coupling)
+        before = qif_sfa_step.tiled_launches
+        new = qif_sfa_step(v, s, x, W, eta, inp, **p)
+        old = qif_rows_instance("vec", W, v, s, x, eta, inp, p)
+        torch.cuda.synchronize()
+        assert qif_sfa_step.tiled_launches == before + 1
+        ref = torch.stack(qif_sfa_reference_step(v, s, x, W, eta, inp, **p), dim=-2)
+        torch.testing.assert_close(new, old, **tol)
+        torch.testing.assert_close(new, ref, **tol)
+        assert torch.equal(new[:, 0] == p["v_reset"], old[:, 0] == p["v_reset"])
+        assert torch.equal(new[:, 0] == p["v_reset"], ref[:, 0] == p["v_reset"])
+        if coupling:  # the tolerance fails a sum that lost every eighth input
+            s_cut = s.clone()
+            s_cut[:, ::8] = 0.0
+            cut = qif_sfa_reference_step(v, s_cut, x, W, eta, inp, **p)[0]
+            assert float(((cut - ref[:, 0]).abs()
+                          / (tol["atol"] + tol["rtol"] * ref[:, 0].abs())).min()) > 1.0
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the tensor cores' code, f32 W
+        qif_rows_instance("mma", W, v, s, x, eta, inp, PARAMS)
+    assert kernels._ROWS_ROUTES["tiled"] == 3
 
 
 @pytest.mark.gpu
@@ -901,9 +942,12 @@ def test_run_batch_on_card_matches_cpu(cuda, coupling):
 
 
 @pytest.mark.gpu
-def test_fused_qif_run_batch_on_card_matches_cpu(cuda):
-    # the B-row kernel in run_batch (one launch per step) with a swept eta,
-    # against the same batch on the CPU
+@pytest.mark.parametrize("coupling", ["bfloat16", "float32"])
+def test_fused_qif_run_batch_on_card_matches_cpu(cuda, coupling):
+    # the B-row kernel in run_batch (one launch per step, every one on the
+    # route of the node's coupling type: the tensor cores for bf16, the
+    # tiled kernel for f32) with a swept eta, against the same batch on the
+    # CPU
     n, B, T = 256, 5, 200
     rng = np.random.default_rng(64)
     W = rng.random((n, n)) / n
@@ -917,13 +961,15 @@ def test_fused_qif_run_batch_on_card_matches_cpu(cuda):
                             weights=W, source_var="s", target_var="s_in", input_var="I_ext",
                             output_var="s", spike_var="spike", spike_def="v", op="qif_sfa_op",
                             spike_threshold=1e2, spike_reset=-1e2,
-                            node_vars={"all/qif_sfa_op/eta": etas}, coupling_dtype="bfloat16")
+                            node_vars={"all/qif_sfa_op/eta": etas}, coupling_dtype=coupling)
         net.compile()
         attach_fused_qif_step(net.get_node("qif"))
-        before = qif_sfa_step.launches
+        route = "mma_launches" if coupling == "bfloat16" else "tiled_launches"
+        before = qif_sfa_step.launches, getattr(qif_sfa_step, route)
         out = net.run_batch(drive, batch_vars={("qif", "eta"): sweep}, sampling_steps=10)
-        res[str(device)] = (out["out"], qif_sfa_step.launches - before)
-    assert res[str(cuda)][1] == T and res["cpu"][1] == 0
+        res[str(device)] = (out["out"], qif_sfa_step.launches - before[0],
+                            getattr(qif_sfa_step, route) - before[1])
+    assert res[str(cuda)][1:] == (T, T) and res["cpu"][1:] == (0, 0)
     card, cpu = res[str(cuda)][0], res["cpu"][0]
     assert cpu.max() > 0.0, "no spikes -- weak test"
     np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-4 * np.abs(cpu).max())

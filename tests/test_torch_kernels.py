@@ -108,26 +108,36 @@ def test_non_cpu_non_cuda_tensors_raise():
 @pytest.mark.parametrize("w_dtype, n, ld_s, w_ptr, s_ptr, route", [
     (torch.bfloat16, 10_000, 30_000, 4096, 4096 + 40_000, "mma"),  # a node's (B, 3n) state
     (torch.bfloat16, 1_000, 0, 256, 512, "mma"),  # one s row shared by every trial
-    (torch.float32, 10_000, 30_000, 4096, 4096 + 40_000, "vec"),
+    (torch.float32, 10_000, 30_000, 4096, 4096 + 40_000, "tiled"),  # f32: the CUDA cores
+    (torch.float32, 1_000, 0, 256, 512, "tiled"),  # one s row shared by every trial
+    (torch.float32, 1_004, 3_012, 4096, 4096 + 4_016, "tiled"),  # n % 4 == 0 is enough for f32
     (torch.bfloat16, 1_004, 3_012, 4096, 4096 + 4_016, "scalar"),  # n % 8 != 0
     (torch.bfloat16, 1_003, 3_009, 4096, 4096 + 4_012, "scalar"),
     (torch.bfloat16, 1_000, 3_002, 4096, 4096 + 4_000, "scalar"),  # ld_s % 4 != 0
     (torch.bfloat16, 1_000, 3_000, 4096 + 8, 4096 + 4_000, "scalar"),  # W not 16-byte aligned
     (torch.bfloat16, 1_000, 3_000, 4096, 4096 + 4_004, "scalar"),  # s not 16-byte aligned
     (torch.float32, 1_002, 3_006, 4096, 4096 + 4_008, "scalar"),  # n % 4 != 0
+    (torch.float32, 1_000, 3_002, 4096, 4096 + 4_000, "scalar"),  # ld_s % 4 != 0
+    (torch.float32, 1_000, 3_000, 4096 + 4, 4096 + 4_000, "scalar"),  # W not 16-byte aligned
+    (torch.float32, 1_000, 3_000, 4096, 4096 + 4_008, "scalar"),  # s not 16-byte aligned
 ])
 def test_rows_route(w_dtype, n, ld_s, w_ptr, s_ptr, route):
     # the B-row kernel's instance is a pure function of the operands' shapes
-    # and addresses: aligned bf16 takes the tensor cores, everything else not
+    # and addresses: aligned bf16 takes the tensor cores, aligned f32 the
+    # tiled kernel on the CUDA cores, everything else the scalar loads
     assert rows_route(w_dtype, n, ld_s, w_ptr, s_ptr) == route
 
 
 def test_rows_route_of_a_node_state_view():
     # the fused node's s is the view y[:, n:2n] of its (B, 3n) state: the
     # route follows n (through the view's offset and row stride)
-    for n, route in ((1_000, "mma"), (1_024, "mma"), (1_004, "scalar"), (1_003, "scalar")):
+    for w_dtype, n, route in (
+            (torch.bfloat16, 1_000, "mma"), (torch.bfloat16, 1_024, "mma"),
+            (torch.bfloat16, 1_004, "scalar"), (torch.bfloat16, 1_003, "scalar"),
+            (torch.float32, 1_000, "tiled"), (torch.float32, 1_004, "tiled"),
+            (torch.float32, 1_002, "scalar"), (torch.float32, 1_003, "scalar")):
         y = torch.zeros((4, 3 * n), dtype=torch.float32)
-        W = torch.zeros((n, n), dtype=torch.bfloat16)
+        W = torch.zeros((n, n), dtype=w_dtype)
         s = y[:, n:2 * n]
         assert rows_route(W.dtype, n, s.stride(0), W.data_ptr(), s.data_ptr()) == route
 
