@@ -155,11 +155,13 @@ csrc/generic_fused_step.cuh):
    the B-row generic step (generic_fused_rows) for LIF (K = 1), the
    E/I circuit (K = 2) and the Heun tanh RateNet (derivative mode), f32
    and bf16 W, B = 32 and 5, at N (bf16: the tensor cores, counted in
-   generic_fused_rows.mma_launches; f32: the CUDA cores' vector route),
-   N - 4 for bf16 (the CUDA cores' bf16 vector route) and N - 1 (odd: the
-   scalar route), on the route generic_rows_route names, on strided state
-   rows, held per trial to its plain version and to the single-trial
-   kernel under GENERIC_TOL["reset"];
+   generic_fused_rows.mma_launches; f32: the tiled CUDA-core kernel,
+   counted in generic_fused_rows.tiled_launches, also held to the CUDA
+   cores' vector instance it replaced, route code "vec" through the C
+   entry), N - 4 for bf16 (the CUDA cores' bf16 vector route) and N - 1
+   (odd: the scalar route), on the route generic_rows_route names, on
+   strided state rows, held per trial to its plain version and to the
+   single-trial kernel under GENERIC_TOL["reset"];
    and int4_mm/int4_mm_t bit for bit against their plain versions (and
    int4_mv/int4_mv_t on the first and last trial) at B = 32, 7 and 5, N =
    10,000 and 14,336, both on their tensor-core routes (int4_mm_route and
@@ -186,19 +188,23 @@ csrc/generic_fused_step.cuh):
    int4_master coupling swept per trial (4 couplings of their own, 1,000
    steps): 4,000 int4_mv launches, the first and last trial against
    single-trial runs with their coupling.  Then phase 12's LIF network
-   (the generic kernel, bf16 W) over 32 trials of 2,000 steps of their own
-   drive: one B-row launch a step (2,000), every one on the tensor cores,
-   none of the single-trial kernel; each trial against its single-trial
-   run over 200 steps under fused_vs_plain's rule; aggregate
-   neuron-updates/s against the single-trial run; then the B-row kernel
-   timed in turns with its CUDA-core bf16 instance (tensor cores, CUDA
-   cores, CUDA cores, tensor cores; the two held to each other first) and
-   with the 32 single-trial launches it replaces, its f32-W instance (its
-   route, ms, bound, plain ms and torch.matmul of the f32 W on the same
-   rows), its plain version and torch.matmul of the same bf16 W on (32, N)
-   rows; and
-   the E/I circuit's K = 2 step on the tensor cores at B = 32 with its
-   bound.
+   (the generic kernel) with a bf16 coupling and, built once more, at its
+   default f32 coupling, each over 32 trials of 2,000 steps of their own
+   drive: one B-row launch a step (2,000), every one on the tensor cores
+   (bf16) or on the tiled kernel (f32), none of the single-trial kernel;
+   each trial against its single-trial run over 200 steps under
+   fused_vs_plain's rule; aggregate neuron-updates/s against the
+   single-trial run of the same network; then each network's B-row kernel
+   alone at the path's shapes, timed in turns with its CUDA-core vector
+   instance (kernel, vec, vec, kernel; the two held to each other first),
+   its plain version, torch.matmul of the same W on (32, N) rows and its
+   bound; the bf16 one also in turns with the 32 single-trial launches it
+   replaces, the f32 one also with its probes (the ring's stream with the
+   shared loads and no FMAs, without the copies of the sources, the
+   ring's stream alone) and nvidia-smi's SM clock and power while it runs;
+   and the E/I circuit's K = 2 step at B = 32 on the tensor cores (bf16)
+   and on the tiled kernel (f32, in turns with its vector instance, and
+   its probes), each with its bound and two torch.matmul.
 27. batch_train_path: bench.py's ensemble phase at full size, fit_bptt_batch
    of phase 8's network (int8_master, adam lr 1e-4) on B = 32 trials of
    normal (32, 500, 10,000) float32 arrays from default_rng(7), full batch:
@@ -248,7 +254,8 @@ timing at the same shapes), the B-row step in bf16 and in f32 (launches of
 phase 26's fused runs), int4_mm and int4_mm_t (launches of phase 27's int4_master
 fit; each with its kernel_route), int4_mm[run_batch_path] (phase 26's
 int4 run) and the B-row generic
-step's tensor-core instance (phase 26's LIF run, timed there).
+step's tensor-core and tiled f32 instances (phase 26's two LIF runs, timed
+there).
 
 Phase 29 (run after phase 2, before any phase quantizes):
 
@@ -684,11 +691,12 @@ def train_phases(dev, data) -> tuple:
     return entries, T_TRAIN * N / best
 
 
-def lif_net(n: int, device):
+def lif_net(n: int, device, coupling_dtype: str = "bfloat16"):
     """examples/fused_kernels.py's network at width n: a LIF SpikeResetNet
-    with a bf16 coupling W = |normal| * 0.5/n and per-neuron tau ~ U(10, 15)
-    from seed 0, eta 10, tau_s 5, threshold +-10, dt 1e-2; the generic
-    kernel attached."""
+    with a coupling W = |normal| * 0.5/n (bf16 unless ``coupling_dtype``
+    says otherwise; the kernel takes the node's coupling dtype) and
+    per-neuron tau ~ U(10, 15) from seed 0, eta 10, tau_s 5, threshold
+    +-10, dt 1e-2; the generic kernel attached."""
     from rectipy_tpu_torch import Network, attach_generic_fused_step
 
     rng = np.random.default_rng(0)
@@ -699,7 +707,7 @@ def lif_net(n: int, device):
                         input_var="I_ext", output_var="s", op="lif_op", spike_var="spike",
                         reset_var="v", spike_threshold=10.0, spike_reset=-10.0,
                         node_vars={"eta": 10.0, "tau": tau, "tau_s": 5.0},
-                        coupling_dtype="bfloat16")
+                        coupling_dtype=coupling_dtype)
     net.compile()
     attach_generic_fused_step(net.get_node("lif"))
     return net
@@ -1743,27 +1751,6 @@ def rows_case_step(case: str):
     return node._fused_cfg["step"]
 
 
-def rows_operands(step, n: int, B: int, rng, dev) -> tuple:
-    """B trials' operands of one B-row generic step at width n, as
-    rectipy_tpu_torch.testing.generic_inputs draws one trial's (spike-tested
-    states spread across the threshold, U(0, 1) sources and other states,
-    normal drive; per-neuron rows U(5, 15), as generic_case_net's): the
-    states as strided rows of one (B, V*n) buffer, as the node's state is.
-    Returns (srcs, drive, states, vecs)."""
-    def on(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev)
-
-    V = len(step.state_order)
-    spike_rows = {vidx for _, vidx, _, _ in step.spike_specs}
-    spread = 0.5 * max(abs(step.thresh - step.reset_val), 1.0)
-    y = np.concatenate([step.thresh + rng.normal(size=(B, n)) * spread if v in spike_rows
-                        else rng.random((B, n)) for v in range(V)], axis=1)
-    states = list(on(y).reshape(B, V, n).unbind(1))
-    srcs = [on(rng.random((B, n))) for _ in step.targets]
-    vecs = [on(rng.uniform(5.0, 15.0, n)) for _ in step.vec_keys]
-    return srcs, on(rng.normal(size=(B, n))), states, vecs
-
-
 def generic_route(Ws, srcs) -> str:
     """generic_rows_route of one B-row launch's operands."""
     from rectipy_tpu_torch.ops.generic_fused import generic_rows_route
@@ -1780,13 +1767,17 @@ def generic_rows_check(dev, W32) -> dict:
     tanh RateNet in derivative mode; f32 and bf16 W (the main path's, and
     for the E/I circuit's second coupling half its transpose); B_TRAIN and
     the ragged B_RAGGED[1]; at N (bf16: the tensor cores, "mma"; f32: the
-    CUDA cores' vector route), N - 4 for bf16 (n % 8 == 4: the CUDA cores'
-    bf16 vector route) and N - 1 (odd: the scalar route), each launch on
-    the route generic_rows_route names (mma_launches counts the tensor
-    cores').  Returns the largest error of each case, W type and route."""
+    tiled CUDA-core kernel, "tiled", also held to the CUDA cores' vector
+    instance it replaced, route code "vec" through the C entry), N - 4 for
+    bf16 (n % 8 == 4: the CUDA cores' bf16 vector route) and N - 1 (odd:
+    the scalar route), each launch on the route generic_rows_route names
+    (mma_launches counts the tensor cores', tiled_launches the tiled
+    kernel's).  Returns the largest error of each case, W type and
+    route."""
     from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
                                                      generic_fused_step)
-    from rectipy_tpu_torch.testing import GENERIC_TOL, check_generic
+    from rectipy_tpu_torch.testing import (GENERIC_TOL, check_generic, generic_rows_instance,
+                                           generic_rows_operands)
 
     rng = np.random.default_rng(251)
     W2 = (0.5 * W32.T).contiguous()
@@ -1798,19 +1789,22 @@ def generic_rows_check(dev, W32) -> dict:
             for n in ((N, N - 4, N - 1) if name == "bfloat16" else (N, N - 1)):
                 Ws = [W.to(w_dtype) if n == N else W[:n, :n].contiguous().to(w_dtype)
                       for W in (W32, W2)[:K]]
-                want = ("scalar" if n % 4 else "mma" if name == "bfloat16" and n % 8 == 0
-                        else "vec")
+                want = ("scalar" if n % 4 else "tiled" if name == "float32"
+                        else "mma" if n % 8 == 0 else "vec")
                 for B in (B_TRAIN, B_RAGGED[1]):
-                    srcs, drive, states, vecs = rows_operands(step, n, B, rng, dev)
+                    srcs, drive, states, vecs = generic_rows_operands(step, n, B, rng, dev)
                     route = generic_route(Ws, srcs)
                     if route != want:
                         raise AssertionError(f"generic rows {case}: route {route} at n={n}, "
                                              f"{name} W, not {want}")
-                    before = generic_fused_rows.launches, generic_fused_rows.mma_launches
+                    before = (generic_fused_rows.launches, generic_fused_rows.mma_launches,
+                              generic_fused_rows.tiled_launches)
                     got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
                     torch.cuda.synchronize()
-                    if (generic_fused_rows.launches - before[0], generic_fused_rows.mma_launches
-                            - before[1]) != (1, int(route == "mma")):
+                    if (generic_fused_rows.launches - before[0],
+                            generic_fused_rows.mma_launches - before[1],
+                            generic_fused_rows.tiled_launches - before[2]) != (
+                                1, int(route == "mma"), int(route == "tiled")):
                         raise AssertionError(f"generic rows {case}: the launch did not take "
                                              f"route {route}")
                     ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
@@ -1827,13 +1821,19 @@ def generic_rows_check(dev, W32) -> dict:
                     e = float((got - ref).abs().max())
                     key = f"generic_fused_rows[{case},{name},{route}]"
                     errs[key] = max(errs.get(key, 0.0), e)
-                    emit({"phase": "batch_kernel_check", "kernel": "generic_fused_rows",
-                          "case": case, "couplings": K, "derivative": step.derivative,
-                          "w_dtype": name, "kernel_route": route, "n": n, "B": B,
-                          "max_abs_err": e, "max_abs_diff_single_trial_kernel": one_err,
-                          "rtol": GENERIC_TOL["reset"][0],
-                          "atol": f"{GENERIC_TOL['reset'][1]} x row max",
-                          "reset_neurons": resets})
+                    line = {"phase": "batch_kernel_check", "kernel": "generic_fused_rows",
+                            "case": case, "couplings": K, "derivative": step.derivative,
+                            "w_dtype": name, "kernel_route": route, "n": n, "B": B,
+                            "max_abs_err": e, "max_abs_diff_single_trial_kernel": one_err,
+                            "rtol": GENERIC_TOL["reset"][0],
+                            "atol": f"{GENERIC_TOL['reset'][1]} x row max",
+                            "reset_neurons": resets}
+                    if route == "tiled":  # and against the CUDA cores' vector instance
+                        old = generic_rows_instance(step, srcs, Ws, drive, states, vecs, "vec")()
+                        for b in range(B):
+                            check_generic(got[b], old[b], step)
+                        line["max_abs_diff_vec_instance"] = float((got - old).abs().max())
+                    emit(line)
     return errs
 
 
@@ -2041,46 +2041,62 @@ def swept_int4_phase(dev) -> dict:
     return launches
 
 
-def generic_batch_phase(errs: dict) -> dict:
-    """Phase 26, continued: run_batch of phase 12's LIF network (the generic
-    kernel, bf16 W) over G_B trials of their own drive, one B-row launch a
-    step, every one on the tensor cores; each trial against a single-trial
-    run of its drive over CMP_STEPS (fused_vs_plain's rule: the B-row and
-    the single-trial kernel sum in other orders).  Then the B-row kernel
-    timed in turns with its CUDA-core bf16 instance on the same rows (held
-    to it first under GENERIC_TOL["reset"]), and in turns with the G_B
-    single-trial launches it replaces; its f32-W instance, its plain
-    version and torch.matmul of the same bf16 W on (G_B, N) rows; then the
-    E/I circuit's K = 2 step on the tensor cores (ei_rows_timing).  Returns
-    the instance's ``kernels`` entry."""
-    from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
-                                                     generic_fused_step)
-    from rectipy_tpu_torch.testing import check_generic
+def generic_batch_phase(errs: dict) -> list:
+    """Phase 26, continued: phase 12's LIF network (the generic kernel) with
+    a bf16 coupling (the tensor cores) and at its default f32 coupling (the
+    tiled CUDA-core kernel), each built once: run_batch over G_B trials
+    (generic_run_batch), then its B-row step alone at the path's shapes
+    (generic_rows_timing); then the E/I circuit's K = 2 step in both types
+    (ei_rows_timing).  Returns the two instances' ``kernels`` entries."""
+    entries, Ws = [], {}
+    for coupling, route in (("bfloat16", "mma"), ("float32", "tiled")):
+        t0 = time.perf_counter()
+        net = lif_net(N, None, coupling)
+        build_s = time.perf_counter() - t0
+        launches = generic_run_batch(net, coupling, route, build_s)
+        entry, Ws[coupling] = generic_rows_timing(net, coupling, route, launches, errs)
+        entries.append(entry)
+        del net
+        torch.cuda.empty_cache()
+    ei_rows_timing(Ws)
+    return entries
 
-    t0 = time.perf_counter()
-    net = lif_net(N, None)
-    build_s = time.perf_counter() - t0
+
+def generic_run_batch(net, coupling: str, route: str, build_s: float) -> int:
+    """run_batch of the LIF network ``net`` (the generic kernel, W in
+    ``coupling``) over G_B trials of PLAIN_STEPS steps of their own drive:
+    one B-row launch a step, every one on ``route`` (generic_fused_rows'
+    mma_launches or tiled_launches), none of the single-trial kernel; then
+    the single-trial run of trial 0's drive, timed once over the same steps;
+    each trial against a single-trial run of its drive over CMP_STEPS
+    (fused_vs_plain's rule: the B-row and the single-trial kernel sum in
+    other orders).  Prints the run_batch_path line; returns the launches on
+    the route."""
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_rows, generic_fused_step
+
     ins = (np.random.default_rng(26).normal(size=(G_B, PLAIN_STEPS, 1))
            + np.linspace(0.0, 2.0, G_B)[:, None, None]).astype(np.float32)
     y0 = net.get_node("lif").y.clone()
+    counter = f"{route}_launches"
     generic_fused_rows.launches = generic_fused_rows.mma_launches = 0
-    generic_fused_step.launches = 0
+    generic_fused_rows.tiled_launches = generic_fused_step.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = net.run_batch(ins, record_output=False, record_vars=[("lif", "s", True)],
                         sampling_steps=100)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches, mma_launches = generic_fused_rows.launches, generic_fused_rows.mma_launches
-    if (launches, mma_launches, generic_fused_step.launches) != (PLAIN_STEPS, PLAIN_STEPS, 0):
-        raise AssertionError(f"run_batch_path (generic): {launches} B-row launches "
-                             f"({mma_launches} on the tensor cores) and "
+    launches, route_launches = generic_fused_rows.launches, getattr(generic_fused_rows, counter)
+    if (launches, route_launches, generic_fused_step.launches) != (PLAIN_STEPS, PLAIN_STEPS, 0):
+        raise AssertionError(f"run_batch_path (generic, {coupling}): {launches} B-row launches "
+                             f"({route_launches} on route {route!r}) and "
                              f"{generic_fused_step.launches} single-trial launches for "
                              f"{PLAIN_STEPS} steps")
     rec = res[("lif", "s")]
     if (rec.shape != (G_B, PLAIN_STEPS // 100) or not np.all(np.isfinite(rec))
             or not rec.max() > 0.0):
-        raise AssertionError(f"run_batch_path (generic): bad records (shape {rec.shape})")
+        raise AssertionError(f"run_batch_path (generic, {coupling}): bad records "
+                             f"(shape {rec.shape})")
     # the single-trial path, timed once over the same steps
     net.reset({"lif": y0})
     torch.cuda.synchronize()
@@ -2096,90 +2112,109 @@ def generic_batch_phase(errs: dict) -> dict:
         net.reset({"lif": y0})
         one = net.run(ins[b, :CMP_STEPS], sampling_steps=10, verbose=False).to_numpy("out")
         if one.std() > 0:
-            cmp.append(vs_cpu(f"run_batch_path (generic) trial {b}", short[b], one)[
+            cmp.append(vs_cpu(f"run_batch_path (generic, {coupling}) trial {b}", short[b], one)[
                 "max_abs_diff"])
         else:  # a trial without a spike yet: s stays 0 in both
             np.testing.assert_array_equal(short[b], one)
             cmp.append(0.0)
     nu_b, nu_1 = G_B * N * PLAIN_STEPS / run_s, N * PLAIN_STEPS / single_s
-    emit({"phase": "run_batch_path", "template": "lif", "coupling": "bfloat16",
+    emit({"phase": "run_batch_path", "template": "lif", "coupling": coupling,
           "kernel": "generic_fused_rows (one B-row launch a step)", "n": N, "B": G_B,
-          "steps": PLAIN_STEPS, "launches": launches, "mma_launches": mma_launches,
-          "build_s": build_s, "run_batch_s": run_s,
+          "steps": PLAIN_STEPS, "launches": launches, "kernel_route": route,
+          counter: route_launches, "build_s": build_s, "run_batch_s": run_s,
           "run_single_s": single_s, "ms_per_step": run_s / PLAIN_STEPS * 1e3,
           "single_ms_per_step": single_s / PLAIN_STEPS * 1e3,
           "aggregate_neuron_updates_per_s": nu_b, "single_neuron_updates_per_s": nu_1,
           "ratio_to_single": nu_b / nu_1, "mean_s_range": [float(rec.min()), float(rec.max())],
           "trials_vs_single_max_abs_diff": max(cmp)})
+    return route_launches
 
-    # the kernel alone at the path's shapes
+
+GENERIC_PROBES = (("ring_and_shared_loads_no_fma", 1), ("no_staging_of_sources", 2),
+                  ("ring_stream_only", 4))  # the tiled kernel's (rows_tiled.cuh's kProbe*)
+
+
+def generic_rows_timing(net, w_name: str, route: str, launches: int, errs: dict) -> tuple:
+    """The LIF network's B-row step alone at the path's shapes (G_B trials'
+    rows as generic_rows_operands draws them; W the network's, in
+    ``w_name``) on ``route``: held to the CUDA cores' vector instance
+    (route code "vec" through the C entry) under GENERIC_TOL["reset"], then
+    timed in turns with it (kernel, vec, vec, kernel); its plain version,
+    torch.matmul of the same W on the (G_B, N) rows and its bound.  On the
+    tensor cores also in turns with the G_B single-trial launches it
+    replaces; on the tiled kernel also its probes and nvidia-smi's SM clock
+    and power while it runs back to back.  Returns (the ``kernels`` entry,
+    W)."""
+    from rectipy_tpu_torch.ops.generic_fused import (generic_fused_rows, generic_fused_rows_plain,
+                                                     generic_fused_step)
+    from rectipy_tpu_torch.testing import (check_generic, generic_rows_instance,
+                                           generic_rows_operands)
+
     node = net.get_node("lif")
     step = node._fused_cfg["step"]
     W = node.args["__w_fused_0__"]
     vecs = [node.args[f"__row_{k}__"] for k in step.vec_keys]
-    srcs, drive, states, _ = rows_operands(step, N, G_B, np.random.default_rng(262),
-                                           W.device)
-    singles = [([t[b] for t in srcs], drive[b], [t[b].contiguous() for t in states])
-               for b in range(G_B)]
+    srcs, drive, states, _ = generic_rows_operands(step, N, G_B, np.random.default_rng(262),
+                                                   W.device)
 
     def rows():
         return generic_fused_rows(step, srcs, [W], drive, states, vecs)
 
-    def loop():
-        for sb, db, stb in singles:
-            generic_fused_step(step, sb, [W], db, stb, vecs)
-
-    route = generic_route([W], srcs)
+    if generic_route([W], srcs) != route:
+        raise AssertionError(f"the LIF B-row step ({w_name}) takes route "
+                             f"{generic_route([W], srcs)}, not {route}")
     cores = generic_rows_instance(step, srcs, [W], drive, states, vecs, "vec")
     got, other = rows(), cores()
     for b in range(G_B):  # the two instances sum in other orders
         check_generic(other[b], got[b], step)
+    vec_err = float((got - other).abs().max())
     del got, other
-    # the tensor cores in turns with the CUDA cores' bf16 instance, then
-    # with the G_B single-trial launches (at most about a thousand kernels
-    # queued in cuda_ms: 20 loops of G_B)
     turns = [cuda_ms(f, reps=100) for f in (rows, cores, cores, rows)]
     ms, cores_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    loop_turns = [cuda_ms(f, reps=r) for f, r in ((rows, 100), (loop, 20), (loop, 20),
-                                                  (rows, 100))]
-    loop_ms = (loop_turns[1] + loop_turns[2]) / 2
-    W32 = W.to(torch.float32)  # the f32 instance on the same rows, timed only
-    f32_ms = cuda_ms(lambda: generic_fused_rows(step, srcs, [W32], drive, states, vecs), reps=100)
-    f32_bytes, f32_ops, f32_bound, f32_by = rows_bound(step, [W32], G_B, len(vecs),
-                                                       tail_ops(node._vf.tile_program))
-    f32 = {"kernel_route": generic_route([W32], srcs), "launches": 0, "ms": f32_ms,
-           "plain_ms": cuda_ms(lambda: generic_fused_rows_plain(step, srcs, [W32], drive,
-                                                                states, vecs), reps=3),
-           "bound_ms": f32_bound, "bound_by": f32_by, "bytes": f32_bytes, "ops": f32_ops,
-           "library_ms": cuda_ms(lambda: srcs[0] @ W32.T, reps=100),
-           "library_ms_reason": "torch.matmul of the (B, N) f32 source rows by W^T in f32 "
-                                "(the products alone): a yardstick",
-           "achieved_bytes_per_s": f32_bytes / (f32_ms * 1e-3)}
+    extra = {"turns_ms": turns, "vec_instance_ms_in_turns": cores_ms,
+             "speedup_over_vec_instance": cores_ms / ms,
+             "max_abs_diff_vec_instance": vec_err}
+    if route == "mma":
+        # in turns with the G_B single-trial launches (at most about a
+        # thousand kernels queued in cuda_ms: 20 loops of G_B)
+        singles = [([t[b] for t in srcs], drive[b], [t[b].contiguous() for t in states])
+                   for b in range(G_B)]
+
+        def loop():
+            for sb, db, stb in singles:
+                generic_fused_step(step, sb, [W], db, stb, vecs)
+
+        loop_turns = [cuda_ms(f, reps=r) for f, r in ((rows, 100), (loop, 20), (loop, 20),
+                                                      (rows, 100))]
+        loop_ms = (loop_turns[1] + loop_turns[2]) / 2
+        extra.update(loop_turns_ms=loop_turns, single_trial_launches_ms_in_turns=loop_ms,
+                     speedup_over_single_trial_launches=loop_ms / ms)
+        del singles
+    else:
+        extra["probe_ms"] = {
+            name: cuda_ms(generic_rows_instance(step, srcs, [W], drive, states, vecs, route,
+                                                probe=probe), reps=100)
+            for name, probe in GENERIC_PROBES}
+        extra["clock_and_power"] = clock_and_power(rows)
     plain_ms = cuda_ms(lambda: generic_fused_rows_plain(step, srcs, [W], drive, states, vecs),
                        reps=3)
     s_w = srcs[0].to(W.dtype)
     library_ms = cuda_ms(lambda: s_w @ W.T, reps=100)
     n_bytes, n_ops, bound_ms, bound_by = rows_bound(step, [W], G_B, len(vecs),
                                                     tail_ops(node._vf.tile_program))
-    entry = {"name": "generic_fused_rows[lif,bfloat16,mma]", "route": "cuda",
-             "source": GENERIC_SOURCE, "replaces": GENERIC_TPU_KERNEL, "launches": mma_launches,
-             "max_abs_err": errs["generic_fused_rows[lif,bfloat16,mma]"], "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    name = f"generic_fused_rows[lif,{w_name},{route}]"
+    entry = {"name": name, "route": "cuda", "source": GENERIC_SOURCE,
+             "replaces": GENERIC_TPU_KERNEL, "launches": launches, "max_abs_err": errs[name],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": library_ms}
     emit({"phase": "batch_timing", **entry, "kernel_route": route, "B": G_B, "bytes": n_bytes,
-          "ops": n_ops, "turns_ms": turns, "cuda_core_bf16_ms_in_turns": cores_ms,
-          "speedup_over_cuda_core_bf16": cores_ms / ms, "loop_turns_ms": loop_turns,
-          "single_trial_launches_ms_in_turns": loop_ms,
-          "speedup_over_single_trial_launches": loop_ms / ms,
-          "f32_fma_bound_ms": 2 * G_B * N * N / F32_FLOPS * 1e3,
-          "float32_w_instance": f32,
-          "library_ms_reason": "torch.matmul of the (B, N) source rows by W^T in bf16 "
-                               "(the products alone, on the tensor cores): a yardstick",
+          "ops": n_ops, **extra, "f32_fma_bound_ms": 2 * G_B * N * N / F32_FLOPS * 1e3,
+          "library_ms_reason": f"torch.matmul of the (B, N) source rows by W^T in {w_name} "
+                               f"(the products alone): a yardstick",
           "achieved_bytes_per_s": n_bytes / (ms * 1e-3), "achieved_flops": n_ops / (ms * 1e-3)})
-    del net, srcs, drive, states, singles, W32, s_w
+    del srcs, drive, states, s_w
     torch.cuda.empty_cache()
-    ei_rows_timing(W)
-    return entry
+    return entry, W
 
 
 def rows_bound(step, Ws, B: int, P: int, ops_per_neuron: int) -> tuple:
@@ -2194,71 +2229,68 @@ def rows_bound(step, Ws, B: int, P: int, ops_per_neuron: int) -> tuple:
     return n_bytes, n_ops, max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def generic_rows_instance(step, srcs, Ws, drive, states, vecs, route: str):
-    """A callable that launches the B-row generic step's ``route`` instance
-    on these operands through the C entry point (``"vec"``: the CUDA cores'
-    16-byte loads, reached by no aligned bf16 launch of the wrapper) into
-    one output, which it returns; not counted in the wrapper's launches."""
-    from rectipy_tpu_torch.ops import generic_fused, quant
-
-    B, n = srcs[0].shape
-    V = len(step.state_order)
-    out = torch.empty((B, V, n), dtype=torch.float32, device=drive.device)
-    per_trial = list(srcs) + [drive] + list(states)
-    ptrs = ([W.data_ptr() for W in Ws] + [t.data_ptr() for t in per_trial]
-            + [t.data_ptr() for t in vecs] + [out.data_ptr()])
-    lds = [t.stride(0) if t.dim() == 2 else 0 for t in per_trial] + [V * n]
-    scalars = list(step.scalars.values())
-    args = ((ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_longlong * len(lds))(*lds),
-            (ctypes.c_double * max(len(scalars), 1))(*scalars), n, B,
-            int(Ws[0].dtype == torch.bfloat16), quant._ROUTES[route], step.dt, step.thresh,
-            step.reset_val)
-    fn = generic_fused._rows_launch_fn(step.source)
-
-    def launch():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"generic_fused_rows_launch ({route}): CUDA error {err}")
-        return out
-
-    return launch
-
-
-def ei_rows_timing(W) -> None:
-    """Phase 26, continued: the E/I circuit's step (K = 2) on the tensor
-    cores at B = G_B, bf16 W (W and half its transpose), with its bound,
-    its plain version's ms and two torch.matmul's; held to its plain
-    version first."""
+def ei_rows_timing(Ws: dict) -> None:
+    """The E/I circuit's B-row step (K = 2) at B = G_B for each W type of
+    ``Ws`` (the LIF network's W and half its transpose): bf16 on the tensor
+    cores, f32 on the tiled kernel, which is also held to the CUDA cores'
+    vector instance and timed in turns with it (tiled, vec, vec, tiled),
+    and whose probes are timed;
+    each held to its plain version first, with its bound, its plain
+    version's ms and two torch.matmul of the same W as the yardstick."""
     from rectipy_tpu_torch.ops.generic_fused import generic_fused_rows, generic_fused_rows_plain
-    from rectipy_tpu_torch.testing import check_generic
+    from rectipy_tpu_torch.testing import (check_generic, generic_rows_instance,
+                                           generic_rows_operands)
 
     node = ei_net(16, "cpu")[0].get_node("ei")  # the step does not depend on n
     step = node._fused_cfg["step"]
-    Ws = [W, (0.5 * W.T).contiguous()]
-    srcs, drive, states, vecs = rows_operands(step, N, G_B, np.random.default_rng(263), W.device)
-    route = generic_route(Ws, srcs)
-    if route != "mma":
-        raise AssertionError(f"the E/I B-row step takes route {route}, not the tensor cores")
-    got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
-    ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
-    for b in range(G_B):
-        check_generic(got[b], ref[b], step)
-    ms = cuda_ms(lambda: generic_fused_rows(step, srcs, Ws, drive, states, vecs), reps=100)
-    plain_ms = cuda_ms(lambda: generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs),
-                       reps=3)
-    s_w = [t.to(W.dtype) for t in srcs]
-    library_ms = cuda_ms(lambda: [x @ w.T for x, w in zip(s_w, Ws)], reps=100)
-    n_bytes, n_ops, bound_ms, bound_by = rows_bound(step, Ws, G_B, len(vecs),
-                                                    tail_ops(node._vf.tile_program))
-    emit({"phase": "batch_timing", "name": "generic_fused_rows[ei,bfloat16,mma]",
-          "kernel_route": route, "couplings": 2, "n": N, "B": G_B,
-          "max_abs_err": float((got - ref).abs().max()), "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-          "library_ms_reason": "two torch.matmul of the (B, N) source rows by W^T in bf16 "
-                               "(the products alone): a yardstick",
-          "bytes": n_bytes, "ops": n_ops, "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
-    del Ws, srcs, drive, states, s_w
-    torch.cuda.empty_cache()
+    for w_name, W in Ws.items():
+        pair = [W, (0.5 * W.T).contiguous()]
+        srcs, drive, states, vecs = generic_rows_operands(step, N, G_B,
+                                                          np.random.default_rng(263), W.device)
+        route = generic_route(pair, srcs)
+        if route != ("mma" if w_name == "bfloat16" else "tiled"):
+            raise AssertionError(f"the E/I B-row step ({w_name}) takes route {route}")
+
+        def rows():
+            return generic_fused_rows(step, srcs, pair, drive, states, vecs)
+
+        got = rows()
+        ref = generic_fused_rows_plain(step, srcs, pair, drive, states, vecs)
+        for b in range(G_B):
+            check_generic(got[b], ref[b], step)
+        extra = {}
+        if route == "tiled":  # in turns with the vector instance, held to it first
+            cores = generic_rows_instance(step, srcs, pair, drive, states, vecs, "vec")
+            old = cores()
+            for b in range(G_B):
+                check_generic(got[b], old[b], step)
+            turns = [cuda_ms(f, reps=100) for f in (rows, cores, cores, rows)]
+            ms, cores_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            extra = {"turns_ms": turns, "vec_instance_ms_in_turns": cores_ms,
+                     "speedup_over_vec_instance": cores_ms / ms,
+                     "max_abs_diff_vec_instance": float((got - old).abs().max()),
+                     "probe_ms": {
+                         name: cuda_ms(generic_rows_instance(step, srcs, pair, drive, states,
+                                                             vecs, route, probe=probe), reps=100)
+                         for name, probe in GENERIC_PROBES}}
+            del old
+        else:
+            ms = cuda_ms(rows, reps=100)
+        plain_ms = cuda_ms(lambda: generic_fused_rows_plain(step, srcs, pair, drive, states,
+                                                            vecs), reps=3)
+        s_w = [t.to(W.dtype) for t in srcs]
+        library_ms = cuda_ms(lambda: [x @ w.T for x, w in zip(s_w, pair)], reps=100)
+        n_bytes, n_ops, bound_ms, bound_by = rows_bound(step, pair, G_B, len(vecs),
+                                                        tail_ops(node._vf.tile_program))
+        emit({"phase": "batch_timing", "name": f"generic_fused_rows[ei,{w_name},{route}]",
+              "kernel_route": route, "couplings": 2, "n": N, "B": G_B,
+              "max_abs_err": float((got - ref).abs().max()), "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms, **extra,
+              "library_ms_reason": f"two torch.matmul of the (B, N) source rows by W^T in "
+                                   f"{w_name} (the products alone): a yardstick",
+              "bytes": n_bytes, "ops": n_ops, "achieved_bytes_per_s": n_bytes / (ms * 1e-3)})
+        del pair, srcs, drive, states, s_w, got, ref
+        torch.cuda.empty_cache()
 
 
 def batch_train_data(n: int, B: int, T: int, seed: int):
@@ -2797,14 +2829,14 @@ def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> list:
     torch.cuda.empty_cache()
     run_launches, _ = run_batch_phase(dev)
     swept_int4_phase(dev)
-    generic_entry = generic_batch_phase(errs)
+    generic_entries = generic_batch_phase(errs)
     launches, epoch_ms, staged, net = batch_train_phase(dev, data, single_nu)
     i4_launches = batch_train_int4_phase(data, staged, int4_nu)
     entries = batch_timing(dev, W_np, net, staged, epoch_ms, launches, run_launches, errs)
     del staged, net
     torch.cuda.empty_cache()
     entries += int4_batch_timing(dev, W_np, i4_launches, run_launches, errs)
-    entries.append(generic_entry)
+    entries += generic_entries
     return entries
 
 

@@ -44,8 +44,10 @@
 // ~60 us at 3.35 TB/s).  Its 2*K*B*N^2 products (6.4e9 at B = 32) take ~96
 // us on the CUDA cores' f32 FMAs (67 TFLOP/s) and ~6.5 us on the tensor
 // cores' bf16 (989 TFLOP/s).  So a bf16 W belongs on the tensor cores,
-// where the step is bound by its bytes; a f32 W stays on the CUDA cores,
-// bound by its FMAs there, since TF32 would change its numbers.
+// where the step is bound by its bytes.  A f32 W stays on the CUDA cores,
+// since TF32 would change its numbers; there its FMAs take 80% of its
+// bytes' time (0.096 of 0.1195 ms a coupling), so the step must stream W
+// near the HBM rate and keep the FMA pipe busy at once.
 // - The trap: the single-trial form, one block per row, would re-read all B
 //   source rows per W row (12.8 GB from L2 a step at B = 32 and K = 1).
 //
@@ -82,9 +84,44 @@
 //   last, so updates in turn, each waiting for its loads behind the
 //   previous one's stores, were most of the gap to the QIF kernel.
 //
-// Every other B-row launch (a f32 W; a bf16 W that is not aligned as above)
-// runs generic_fused_rows_kernel on the CUDA cores, and its bf16 instance
-// stays the tensor cores' yardstick (route 1 through the C entry point):
+// A f32 W of at most kTiledMaxK (5) couplings with n % 4 == 0, every W and
+// source base 16-byte aligned and every source row stride a multiple of 4
+// takes generic_fused_rows_tiled_kernel on the CUDA cores (route 3,
+// "tiled"), which sums as qif_sfa_rows_tiled_kernel does (qif_sfa_step.cu):
+// rows_tiled.cuh's block_sums over an 80-row strip and a group of 32
+// trials (125 blocks at N = 10,000, one wave of one block an SM), W and the
+// sources through a cp.async ring in shared memory, a register micro-tile
+// of 10 rows x 8 trials a lane, eight K parts that meet in shared memory
+// (GenericTile, the QIF kernel's geometry).  The sources cross L2 once per
+// strip and coupling (160 MB a coupling at B = 32), where the vector
+// instance below, at 16 rows a block for K = 1 and 8 for K = 2, read 800 MB
+// and 3.2 GB.  What the generic step adds:
+// - K couplings in turn: block_sums of coupling 0 over all n, then of
+//   coupling 1, and so on, so that each W is still read once per trial
+//   group.  block_sums ends by laying its parts' sums over the ring; after
+//   a barrier each thread adds the parts of its (trial, row) pairs
+//   (part_sum) into an area of its own beside the ring, [K][32][80] f32 (10
+//   KB a coupling), and a second barrier frees the ring for the next
+//   coupling's chunks.  Keeping the earlier couplings' sums in registers
+//   across the next block_sums would not fit: its micro-tile alone takes
+//   most of the 255 registers a thread.  The ring (177 KB) and K areas fit
+//   the 227 KB a block may have up to K = 5; more couplings take the vector
+//   instance (ops/generic_fused.py's generic_rows_route says so from the
+//   shapes).  Draining and refilling the ring costs about two chunks of 79
+//   per coupling.
+// - The epilogue takes a thread's 10 (trial, row) pairs with consecutive
+//   threads on consecutive rows and loads every input of them (the K sums,
+//   the V states, the drive, the P per-neuron rows) before it stores the
+//   first result, for the reason above; rows >= n and trials >= the group's
+//   count are masked.  Derivative mode (Heun) comes through neuron_update.
+// - Its probes (rowtile::kProbe*: no FMAs, no staging of the sources, the
+//   ring's stream alone) are launched through generic_fused_rows_tiled_
+//   probe_launch for timing.
+//
+// Every other B-row launch (a W that is not aligned as above; a f32 W of
+// more than kTiledMaxK couplings) runs generic_fused_rows_kernel on the
+// CUDA cores, and its f32 and bf16 vector instances stay the tiled and
+// tensor-core kernels' yardsticks (route 1 through the C entry point):
 // - The scheme of qif_sfa_rows_kernel (qif_sfa_step.cu): a block of 4 warps
 //   owns 4 * R rows of W and up to 32 trials, R = 4 / K rows a warp (4 for
 //   one coupling, 2 for two, 1 from three on), so that the K * R * 32 f32
@@ -124,6 +161,7 @@
 #include "generic_fused_math.cuh"
 #include "row_dot.cuh"
 #include "rows_mma.cuh"
+#include "rows_tiled.cuh"
 
 namespace gf {
 
@@ -475,8 +513,8 @@ int launch_rows_instance(const RowArgs<Prog>& a, cudaStream_t st) {
 }
 
 // ------------------------------------------- B rows, bf16 W, tensor cores
-// the launch's route codes (ops/quant.py's _ROUTES)
-constexpr int kRouteScalar = 0, kRouteVec = 1, kRouteMma = 2;
+// the launch's route codes (ops/generic_fused.py's _ROWS_ROUTES)
+constexpr int kRouteScalar = 0, kRouteVec = 1, kRouteMma = 2, kRouteTiled = 3;
 
 // dynamic shared memory of the tensor-core B-row kernel: the staging
 // buffers, or the K couplings' partial sums where the two K parts meet
@@ -692,26 +730,115 @@ int launch_rows_mma(const RowArgs<Prog>& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: K W matrices ((n, n) row-major, f32 or bf16 by w_bf16), K source
-// bases, the drive base, V state bases, P per-neuron rows ((n,), shared by
-// every trial), then the output base.  lds: the row strides (in floats) of
-// the K sources, the drive, the V states and the output; row b of an operand
-// starts at base + b * ld (ld 0: one row shared by every trial), n
-// contiguous f32 each.  The output, (n_rows, V, n) f32 at row stride ld_out
-// (>= V * n), must not overlap an input.  scalars: C doubles.  route:
-// kRouteMma, the tensor cores (a bf16 W only), and kRouteVec, the 16-byte
-// loads of W and the asynchronous copies of the sources on the CUDA cores,
-// want n % 4 == 0 (n % 8 == 0 for kRouteMma), every W and source base
-// 16-byte aligned and every source row stride a multiple of 4; the caller
-// checks that (ops/generic_fused.py's generic_rows_route).  kRouteScalar
-// takes anything.
-template <class Prog>
-int launch_rows(const uint64_t* ptrs, const long long* lds, const double* scalars, int n,
-                int n_rows, int w_bf16, int route, float dt, float thresh, float reset_val,
-                void* stream) {
-  if (n <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
-  if (route < kRouteScalar || route > kRouteMma || (route == kRouteMma && !w_bf16))
+// ------------------------------------------------- B rows, f32 W, tiled
+// The geometry (rows_tiled.cuh; qif_sfa_step.cu's QifTile): 10 rows x 8
+// trials a lane (a warp: 8 row groups x 4 trial groups, all 80 rows of the
+// strip), 8 warps each on an eighth of every chunk, a ring of 3 chunks of
+// 128 inputs (177 KB of shared memory).
+using GenericTile = rowtile::Geometry<10, 8, 1, 8, 128, 3>;
+static_assert(rowtile::kTrials == kRTrials, "32 trials a block");
+
+// bytes of one coupling's sums beside the ring, [kRTrials][kRows] f32
+constexpr int kTiledSumBytes = kRTrials * GenericTile::kRows * 4;
+// the most couplings whose sums fit beside the ring in 227 KB
+constexpr int kTiledMaxK = (232448 - GenericTile::kSmem) / kTiledSumBytes;
+
+// dynamic shared memory of the tiled kernel: the ring, then K couplings' sums
+template <int K>
+__host__ __device__ constexpr int rows_tiled_smem() {
+  return GenericTile::kSmem + K * kTiledSumBytes;
+}
+
+// The aligned f32 B-row step (header note): each coupling's block_sums in
+// turn, its parts added into the coupling's sums beside the ring, then each
+// thread's (trial, row) pairs through the epilogue.  kProbe: rowtile's
+// probes, whose outputs are meaningless.
+template <class Prog, int kProbe>
+__global__ void __launch_bounds__(GenericTile::kThreads, 1)
+    generic_fused_rows_tiled_kernel(const RowArgs<Prog> a) {
+  using G = GenericTile;
+  constexpr int K = Prog::K, V = Prog::V, P = Prog::P;
+  constexpr int kSums = kRTrials * G::kRows;     // one coupling's (trial, row) pairs
+  constexpr int kPairs = kSums / G::kThreads;    // a thread's
+  static_assert(kSums % G::kThreads == 0, "whole pairs a thread");
+  static_assert(rows_tiled_smem<K>() <= 232448, "the K couplings' sums must fit shared memory");
+  extern __shared__ __align__(16) unsigned char gf_tiled_smem[];
+  float* ring = reinterpret_cast<float*>(gf_tiled_smem);
+  float* sums = ring + G::kSmem / 4;  // [K][kRTrials][kRows]
+  const int n = a.n;
+  const int b0 = blockIdx.y * kRTrials;
+  const int nb = min(kRTrials, a.n_rows - b0);
+  const int row0 = blockIdx.x * G::kRows;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    rowtile::block_sums<G, kProbe>(static_cast<const float*>(a.W[c]), a.src[c], a.ld_src[c], n,
+                                   nb, b0, row0, ring);
+    __syncthreads();  // the parts' sums lie over the ring
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+      const int e = threadIdx.x + j * G::kThreads;
+      sums[c * kSums + e] = rowtile::part_sum<G>(ring, e / G::kRows, e % G::kRows);
+    }
+    if (c + 1 < K) __syncthreads();  // the ring is free for the next coupling's chunks
+  }
+  // The thread's pairs e = threadIdx.x + j kThreads: trial e / kRows, row
+  // row0 + e % kRows, consecutive threads on consecutive rows; it reads back
+  // only the sums it wrote.  Every input of its updates is loaded before the
+  // first result is stored (the tensor-core kernel's note above).
+  float acc[kPairs][K], y[kPairs][V], drive[kPairs], p[kPairs][at_least_one<P>()];
+  bool ok[kPairs];
+  long long bs[kPairs];
+  int rs[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int e = threadIdx.x + j * G::kThreads;
+    const int t = e / G::kRows;
+    rs[j] = row0 + e % G::kRows;
+    bs[j] = b0 + t;
+    ok[j] = t < nb && rs[j] < n;
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[j][c] = sums[c * kSums + e];
+    if (ok[j]) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) y[j][v] = a.state[v][bs[j] * a.ld_state[v] + rs[j]];
+      drive[j] = a.drive[bs[j] * a.ld_drive + rs[j]];
+#pragma unroll
+      for (int q = 0; q < P; ++q) p[j][q] = a.vec[q][rs[j]];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    if (!ok[j]) continue;
+    float res[V];
+    neuron_update<Prog>(acc[j], y[j], p[j], a.c, drive[j], a.dt, a.thresh, a.reset_val, res);
+    float* o = a.out + bs[j] * a.ld_out + rs[j];
+#pragma unroll
+    for (int v = 0; v < V; ++v) o[static_cast<size_t>(v) * n] = res[v];
+  }
+}
+
+template <class Prog, int kProbe>
+int launch_rows_tiled(const RowArgs<Prog>& a, cudaStream_t st) {
+  if constexpr (Prog::K > kTiledMaxK) {
     return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    constexpr int kSmem = rows_tiled_smem<Prog::K>();
+    // above 48 KB only after this; asked once per instantiation
+    static const cudaError_t attr =
+        cudaFuncSetAttribute(generic_fused_rows_tiled_kernel<Prog, kProbe>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const dim3 grid((a.n + GenericTile::kRows - 1) / GenericTile::kRows,
+                    (a.n_rows + kRTrials - 1) / kRTrials);
+    generic_fused_rows_tiled_kernel<Prog, kProbe><<<grid, GenericTile::kThreads, kSmem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// The argument struct of one B-row launch (launch_rows' operands).
+template <class Prog>
+RowArgs<Prog> row_args(const uint64_t* ptrs, const long long* lds, const double* scalars, int n,
+                       int n_rows, float dt, float thresh, float reset_val) {
   constexpr int K = Prog::K, V = Prog::V, P = Prog::P, C = Prog::C;
   RowArgs<Prog> a{};
   int k = 0, l = 0;
@@ -735,8 +862,37 @@ int launch_rows(const uint64_t* ptrs, const long long* lds, const double* scalar
   a.dt = dt;
   a.thresh = thresh;
   a.reset_val = reset_val;
+  return a;
+}
+
+// ptrs: K W matrices ((n, n) row-major, f32 or bf16 by w_bf16), K source
+// bases, the drive base, V state bases, P per-neuron rows ((n,), shared by
+// every trial), then the output base.  lds: the row strides (in floats) of
+// the K sources, the drive, the V states and the output; row b of an operand
+// starts at base + b * ld (ld 0: one row shared by every trial), n
+// contiguous f32 each.  The output, (n_rows, V, n) f32 at row stride ld_out
+// (>= V * n), must not overlap an input.  scalars: C doubles.  route:
+// kRouteMma, the tensor cores (a bf16 W only), kRouteTiled, the tiled
+// CUDA-core kernel (a f32 W of at most kTiledMaxK couplings only), and
+// kRouteVec, the 16-byte loads of W and the asynchronous copies of the
+// sources on the CUDA cores, want n % 4 == 0 (n % 8 == 0 for kRouteMma),
+// every W and source base 16-byte aligned and every source row stride a
+// multiple of 4; the caller checks that (ops/generic_fused.py's
+// generic_rows_route).  kRouteScalar takes anything.  A route a W type or
+// K does not take is refused (cudaErrorInvalidValue).
+template <class Prog>
+int launch_rows(const uint64_t* ptrs, const long long* lds, const double* scalars, int n,
+                int n_rows, int w_bf16, int route, float dt, float thresh, float reset_val,
+                void* stream) {
+  if (n <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  if (route < kRouteScalar || route > kRouteTiled || (route == kRouteMma && !w_bf16) ||
+      (route == kRouteTiled && (w_bf16 || Prog::K > kTiledMaxK)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const RowArgs<Prog> a =
+      row_args<Prog>(ptrs, lds, scalars, n, n_rows, dt, thresh, reset_val);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (route == kRouteMma) return launch_rows_mma<Prog>(a, st);
+  if (route == kRouteTiled) return launch_rows_tiled<Prog, 0>(a, st);
   const bool vec = route == kRouteVec;
   if (w_bf16) {
     return vec ? launch_rows_instance<Prog, __nv_bfloat16, true>(a, st)
@@ -746,9 +902,28 @@ int launch_rows(const uint64_t* ptrs, const long long* lds, const double* scalar
              : launch_rows_instance<Prog, float, false>(a, st);
 }
 
+// The probes of the tiled kernel (rowtile::kProbe*), for timing: probe 1
+// streams W and the sources through the ring and reads the micro-tiles'
+// operands without the FMAs; probe 2 skips the copies of the sources; probe
+// 4 streams W and the sources through the ring and reads nothing.  Same
+// operands as launch_rows on kRouteTiled; the output is meaningless.
+template <class Prog>
+int launch_rows_tiled_probe(const uint64_t* ptrs, const long long* lds, const double* scalars,
+                            int n, int n_rows, int probe, void* stream) {
+  if (n <= 0 || n_rows <= 0) return static_cast<int>(cudaSuccess);
+  const RowArgs<Prog> a = row_args<Prog>(ptrs, lds, scalars, n, n_rows, 1.f, 0.f, 0.f);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (probe == rowtile::kProbeNoFma) return launch_rows_tiled<Prog, rowtile::kProbeNoFma>(a, st);
+  if (probe == rowtile::kProbeNoStaging)
+    return launch_rows_tiled<Prog, rowtile::kProbeNoStaging>(a, st);
+  if (probe == rowtile::kProbeNoReads)
+    return launch_rows_tiled<Prog, rowtile::kProbeNoReads>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace gf
 
-// The generated source's entry points: one pair per template structure.
+// The generated source's entry points, one set per template structure.
 #define GF_DEFINE_LAUNCH(PROG)                                                              \
   extern "C" int generic_fused_step_launch(const uint64_t* ptrs, const double* scalars,     \
                                            int n, int w_bf16, int vec, float dt,           \
@@ -761,4 +936,9 @@ int launch_rows(const uint64_t* ptrs, const long long* lds, const double* scalar
                                            float reset_val, void* stream) {                 \
     return gf::launch_rows<PROG>(ptrs, lds, scalars, n, n_rows, w_bf16, route, dt, thresh,  \
                                  reset_val, stream);                                        \
+  }                                                                                         \
+  extern "C" int generic_fused_rows_tiled_probe_launch(                                     \
+      const uint64_t* ptrs, const long long* lds, const double* scalars, int n, int n_rows, \
+      int probe, void* stream) {                                                            \
+    return gf::launch_rows_tiled_probe<PROG>(ptrs, lds, scalars, n, n_rows, probe, stream); \
   }

@@ -2,16 +2,17 @@
 // s_in[b, i] = sum_j W[i, j] * s[b, j] for a block's strip of rows of W and
 // its group of up to 32 trials, with f32 products and f32 sums (fmaf), as
 // the plain version computes them; only the order of the sum differs.
-// qif_sfa_rows_tiled_kernel (qif_sfa_step.cu) runs it; the pieces do not
-// depend on the QIF epilogue, so the generic fused step's B-row kernel can
-// share them, as both share rows_mma.cuh on a bf16 W.
+// Two kernels run it, each with its own epilogue, as both share
+// rows_mma.cuh on a bf16 W: qif_sfa_rows_tiled_kernel (qif_sfa_step.cu)
+// and generic_fused_rows_tiled_kernel (generic_fused_step.cuh), which calls
+// block_sums once per coupling, on that coupling's W and source.
 //
 // Bound.  W is read once per group of 32 trials: 400 MB at N = 10,000, 0.1195
 // ms at 3.35 TB/s; its 3.2e9 FMAs take 0.096 ms at the f32 peak (67 TFLOP/s),
 // 80% of the bytes' time.  So the step must stream W near the HBM rate and
 // keep the FMA pipe about 80% busy at once.  (Derived figures.)
 //
-// Design (Geometry below; qif_sfa_step.cu's QifTile picks the numbers):
+// Design (Geometry below; QifTile and GenericTile pick the same numbers):
 // - A block owns kRows rows of W (a strip; 80: 125 blocks at N = 10,000, one
 //   wave of one block an SM) and 32 trials, so s crosses L2 once per strip
 //   (125 x 1.28 MB = 160 MB a step; 16-row strips read 800 MB).

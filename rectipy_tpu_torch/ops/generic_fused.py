@@ -17,9 +17,9 @@ couplings.
   the couplings and parameters (the TPU kernel under the JAX package's
   ``vmap``, ``rectipy_tpu/network.py:1476-1711``): one launch of a B-row
   kernel of ``csrc/generic_fused_step.cuh`` reads each W once for up to 32
-  trials, on the tensor cores for an aligned bfloat16 W
-  (:func:`generic_rows_route`); :func:`generic_fused_rows_plain` is its
-  plain version.
+  trials, on the tensor cores for an aligned bfloat16 W and on the tiled
+  CUDA-core kernel for an aligned float32 one (:func:`generic_rows_route`);
+  :func:`generic_fused_rows_plain` is its plain version.
 - :func:`attach_generic_fused_step` swaps a node's step for it.
 - The CUDA kernels have no backward (nor does the TPU kernel: JAX cannot
   differentiate through its ``pallas_call``), so on the card both wrappers
@@ -53,7 +53,6 @@ import torch
 
 from ..dsl.cuda import emit_step_source
 from ._build import build_generated
-from .quant import _ROUTES
 
 __all__ = ["GenericStep", "attach_generic_fused_step", "generic_fused_rows",
            "generic_fused_rows_plain", "generic_fused_step", "generic_fused_step_plain",
@@ -61,6 +60,11 @@ __all__ = ["GenericStep", "attach_generic_fused_step", "generic_fused_rows",
 
 # elements per 16-byte vector load of W
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
+# the B-row C entry's route codes (csrc/generic_fused_step.cuh, kRoute*)
+_ROWS_ROUTES = {"scalar": 0, "vec": 1, "mma": 2, "tiled": 3}
+# the most couplings of the tiled route: the ring and K couplings' sums in
+# a block's 227 KB of shared memory (kTiledMaxK)
+_TILED_MAX_K = 5
 _NODE_CLASSES = ("RateNet", "SpikeResetNet", "SpikeNet", "MultiSpikeResetNet")
 
 
@@ -264,17 +268,22 @@ def _rows_launch_fn(source: str):
 
 def generic_rows_route(w_dtype, n: int, src_lds: Sequence[int], ptrs: Sequence[int]) -> str:
     """The B-row kernel's instance for couplings of ``w_dtype``, rows of
-    ``n`` inputs, the sources' row strides ``src_lds`` (0 for a row shared
-    by every trial) and the addresses ``ptrs`` of the W and the sources:
-    ``"vec"`` (16-byte loads of W, asynchronous copies of the sources) when
-    ``n`` is a multiple of 4, every address of 16 bytes and every stride of
-    4, and of those ``"mma"`` (the tensor cores) for a bfloat16 W with ``n``
-    a multiple of 8; else ``"scalar"``.  A float32 W stays on the CUDA
-    cores, where its numbers are the plain version's; TF32 would change
-    them."""
+    ``n`` inputs, the K sources' row strides ``src_lds`` (0 for a row
+    shared by every trial) and the addresses ``ptrs`` of the W and the
+    sources.  When ``n`` is a multiple of 4, every address of 16 bytes and
+    every stride of 4: ``"mma"`` (the tensor cores) for a bfloat16 W with
+    ``n`` a multiple of 8; ``"tiled"`` (the CUDA cores' tiled kernel: W and
+    the sources through a ring in shared memory, 80-row strips) for a
+    float32 W of at most ``_TILED_MAX_K`` couplings, whose sums must fit
+    beside the ring; else ``"vec"`` (16-byte loads of W, asynchronous
+    copies of the sources).  Otherwise ``"scalar"``.  A float32 W stays on
+    the CUDA cores, where its numbers are the plain version's; TF32 would
+    change them."""
     if n % 4 or any(p % 16 for p in ptrs) or any(ld % 4 for ld in src_lds):
         return "scalar"
-    return "mma" if w_dtype == torch.bfloat16 and n % 8 == 0 else "vec"
+    if w_dtype == torch.bfloat16:
+        return "mma" if n % 8 == 0 else "vec"
+    return "tiled" if len(src_lds) <= _TILED_MAX_K else "vec"
 
 
 def _ld(t: torch.Tensor) -> int:
@@ -299,7 +308,8 @@ def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
     contiguous; all on the current device.  Anything else raises.  The
     kernel's instance is :func:`generic_rows_route`'s.  Each launch adds one
     to ``generic_fused_rows.launches``, and one on the tensor cores also to
-    ``generic_fused_rows.mma_launches``."""
+    ``generic_fused_rows.mma_launches``, one on the tiled kernel to
+    ``generic_fused_rows.tiled_launches``."""
     device = drive.device
     if device.type == "cpu":
         return generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
@@ -344,18 +354,21 @@ def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
     err = _rows_launch_fn(step.source)(
         (ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_longlong * len(lds))(*lds),
         (ctypes.c_double * max(len(scalars), 1))(*scalars), n, B,
-        int(w_dtype == torch.bfloat16), _ROUTES[route], step.dt, step.thresh, step.reset_val,
-        torch.cuda.current_stream(device).cuda_stream)
+        int(w_dtype == torch.bfloat16), _ROWS_ROUTES[route], step.dt, step.thresh,
+        step.reset_val, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"generic_fused_rows: kernel launch failed with CUDA error {err}")
     generic_fused_rows.launches += 1
     if route == "mma":
         generic_fused_rows.mma_launches += 1
+    elif route == "tiled":
+        generic_fused_rows.tiled_launches += 1
     return out
 
 
 generic_fused_rows.launches = 0
 generic_fused_rows.mma_launches = 0  # launches on the tensor cores (generic_rows_route "mma")
+generic_fused_rows.tiled_launches = 0  # launches on the tiled f32 kernel ("tiled")
 
 
 def _row(val, n: int, device: torch.device, lead: tuple = ()) -> torch.Tensor:

@@ -253,7 +253,7 @@ def int8_mm_route(n_in: int, wq_ptr: int) -> str:
     return "mma" if n_in % 8 == 0 and wq_ptr % 8 == 0 else "scalar"
 
 
-# the route codes of int8_mm(_t)_launch, int4_mm(_t)_launch and generic_fused_rows_launch
+# the route codes of int8_mm(_t)_launch and int4_mm(_t)_launch
 _ROUTES = {"scalar": 0, "vec": 1, "mma": 2}
 
 

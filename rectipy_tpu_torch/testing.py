@@ -15,7 +15,8 @@ held bit for bit to the CPU's and to numpy's float32 division.
 
 The B-row QIF step on one route of its C entry (``qif_rows_instance``):
 the CUDA cores' f32 vector instance (``"vec"``), which no Python route
-picks, is the tiled f32 kernel's yardstick.
+picks, is the tiled f32 kernel's yardstick.  The B-row generic step the
+same way (``generic_rows_instance``), and the tiled kernel's probes.
 
 The generic fused step: one node of each class and mode
 (``GENERIC_CASES``), built through the public API with the kernel attached,
@@ -34,7 +35,8 @@ from .ops.fused_opt import bias_corrections
 
 __all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "adam_inputs",
            "check_adam_requant", "check_generic", "generic_case_net", "generic_inputs",
-           "lost_eighth_margin", "qif_rows_instance", "quant_scales", "reciprocal_rows"]
+           "generic_rows_instance", "generic_rows_operands", "lost_eighth_margin",
+           "qif_rows_instance", "quant_scales", "reciprocal_rows"]
 
 ADAM_RTOL = 1e-6
 ADAM_KW = dict(b1=0.9, b2=0.999, eps=1e-8)
@@ -130,6 +132,53 @@ def qif_rows_instance(route: str, W, v, s, x, eta, inp, p) -> torch.Tensor:
     if err:
         raise RuntimeError(f"qif_sfa_rows_launch ({route}): CUDA error {err}")
     return out
+
+
+def generic_rows_instance(step, srcs, Ws, drive, states, vecs, route: str, probe: int = 0):
+    """A callable that launches the B-row generic step of
+    ``ops.generic_fused.generic_fused_rows``'s operands through the C entry
+    on ``route`` (``ops.generic_fused._ROWS_ROUTES``; ``"vec"``: the CUDA
+    cores' 16-byte loads, the tiled and tensor-core instances' yardstick) on
+    the current CUDA stream, into one output, which it returns; counts no
+    launch.  ``probe`` (``"tiled"`` only): one of ``csrc/rows_tiled.cuh``'s
+    ``kProbe*`` instances instead, whose output is meaningless.  A launch
+    the entry refuses raises."""
+    import ctypes
+
+    from .ops import generic_fused
+
+    B, n = srcs[0].shape
+    V = len(step.state_order)
+    out = torch.empty((B, V, n), dtype=torch.float32, device=drive.device)
+    per_trial = list(srcs) + [drive] + list(states)
+    ptrs = ([W.data_ptr() for W in Ws] + [t.data_ptr() for t in per_trial]
+            + [t.data_ptr() for t in vecs] + [out.data_ptr()])
+    lds = [t.stride(0) if t.dim() == 2 else 0 for t in per_trial] + [V * n]
+    scalars = list(step.scalars.values())
+    head = ((ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_longlong * len(lds))(*lds),
+            (ctypes.c_double * max(len(scalars), 1))(*scalars), n, B)
+    if probe:
+        if route != "tiled":
+            raise ValueError(f"the probes are the tiled kernel's, not route {route!r}'s")
+        fn = generic_fused.build_generated("generic_fused_step", step.source).lib
+        fn = fn.generic_fused_rows_tiled_probe_launch
+        fn.argtypes = [ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        args = head + (probe,)
+    else:
+        fn = generic_fused._rows_launch_fn(step.source)
+        args = head + (int(Ws[0].dtype == torch.bfloat16), generic_fused._ROWS_ROUTES[route],
+                       step.dt, step.thresh, step.reset_val)
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream(drive.device).cuda_stream)
+        if err:
+            raise RuntimeError(f"generic_fused_rows ({route}, probe {probe}): CUDA error {err}")
+        return out
+
+    return launch
 
 
 _SPIKING = dict(input_var="I_ext", output_var="s", source_var="s", target_var="s_in")
@@ -232,6 +281,27 @@ def generic_inputs(node, seed: int, coupling: bool = False):
         drive = row(rng.normal(size=n) * 1e-3)
         step = dataclasses.replace(step, scalars={**step.scalars, "qif_sfa_op/k": 1.0 / step.dt})
     return step, srcs, drive, states, vecs
+
+
+def generic_rows_operands(step, n: int, B: int, rng, device) -> tuple:
+    """B trials' operands of one B-row generic step at width n, as
+    ``generic_inputs`` draws one trial's (spike-tested states spread across
+    the threshold, U(0, 1) sources and other states, normal drive;
+    per-neuron rows U(5, 15), as ``generic_case_net``'s) from the numpy
+    generator ``rng``: the states as strided rows of one (B, V*n) buffer,
+    as the node's state is.  Returns (srcs, drive, states, vecs)."""
+    def on(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    V = len(step.state_order)
+    spike_rows = {vidx for _, vidx, _, _ in step.spike_specs}
+    spread = 0.5 * max(abs(step.thresh - step.reset_val), 1.0)
+    y = np.concatenate([step.thresh + rng.normal(size=(B, n)) * spread if v in spike_rows
+                        else rng.random((B, n)) for v in range(V)], axis=1)
+    states = list(on(y).reshape(B, V, n).unbind(1))
+    srcs = [on(rng.random((B, n))) for _ in step.targets]
+    vecs = [on(rng.uniform(5.0, 15.0, n)) for _ in step.vec_keys]
+    return srcs, on(rng.normal(size=(B, n))), states, vecs
 
 
 def check_generic(got, ref, step, case: str = "reset"):

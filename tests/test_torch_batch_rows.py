@@ -29,7 +29,13 @@
   strips, ring stages, copies, lane micro-tiles and K parts, every W read
   once per trial group and inside its row, its float32 sums in the
   kernel's order against the plain step and JAX's ``vmap`` of the Pallas
-  kernel in interpret mode.
+  kernel in interpret mode;
+- the same schedule model for the tiled float32 B-row generic step
+  (``generic_fused_step.cuh``'s geometry), once per coupling on its own
+  source and row stride, its sums through the plain tail against the plain
+  step under ``GENERIC_TOL`` (and, for LIF, JAX's ``vmap`` of the generic
+  Pallas kernel in interpret mode), and ``generic_rows_route``'s K limit
+  against the shared memory the geometry needs.
 
 Inputs come from numpy seeds.
 """
@@ -53,7 +59,8 @@ from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate
 from rectipy_tpu_torch.ops import generic_fused as gf
 from rectipy_tpu_torch.ops import quant
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step
-from rectipy_tpu_torch.testing import GENERIC_CASES, generic_case_net, generic_inputs
+from rectipy_tpu_torch.testing import (GENERIC_CASES, check_generic, generic_case_net,
+                                       generic_inputs, lost_eighth_margin)
 
 J, T_ = "neuron_model_templates.", "rectipy_tpu_torch.models."
 LIF = "spiking_neurons.lif.lif"
@@ -229,12 +236,21 @@ def test_generic_rows_plain_equals_single_trial_plain(case):
 BF16, F32_T = torch.bfloat16, torch.float32
 
 
+_K5 = [4096 * (i + 1) for i in range(10)]  # five W and five source bases, all aligned
+
+
 @pytest.mark.parametrize("w_dtype, n, src_lds, ptrs, route", [
     (BF16, 10_000, [20_000], [4096, 4096 + 200_000_000], "mma"),  # LIF's (B, 2n) state rows
     (BF16, 10_000, [10_000, 0], [4096, 8192, 16384, 32768], "mma"),  # K = 2, one shared row
-    (F32_T, 10_000, [20_000], [4096, 4096 + 400_000_000], "vec"),  # f32 W: the CUDA cores
+    (F32_T, 10_000, [20_000], [4096, 4096 + 400_000_000], "tiled"),  # f32 W: the tiled kernel
     (BF16, 9_996, [19_992], [4096, 8192], "vec"),  # n % 8 == 4: the CUDA cores' vector loads
-    (F32_T, 9_996, [19_992], [4096, 8192], "vec"),
+    (F32_T, 9_996, [19_992], [4096, 8192], "tiled"),  # n % 4 is all the tiled kernel needs
+    (F32_T, 10_000, [10_000, 0], [4096, 8192, 16384, 32768], "tiled"),  # K = 2, one shared row
+    (F32_T, 1_000, [1_000] * 5, _K5, "tiled"),  # K = 5: the sums still fit beside the ring
+    (F32_T, 1_000, [1_000] * 6, _K5 + [45056, 49152], "vec"),  # K = 6: they do not
+    (F32_T, 1_000, [1_000], [4096 + 8, 8192], "scalar"),  # f32 W not 16-byte aligned
+    (F32_T, 1_000, [1_000], [4096, 8192 + 4], "scalar"),  # f32: a source base not aligned
+    (F32_T, 1_000, [1_002], [4096, 8192], "scalar"),  # f32: a source row stride % 4 != 0
     (BF16, 1_000, [1_000], [4096 + 8, 8192], "scalar"),  # W not 16-byte aligned
     (BF16, 1_000, [1_000, 1_000], [4096, 4096 + 8, 8192, 12288], "scalar"),  # the second W
     (BF16, 1_000, [1_000], [4096, 8192 + 4], "scalar"),  # a source base not 16-byte aligned
@@ -244,8 +260,9 @@ BF16, F32_T = torch.bfloat16, torch.float32
 ])
 def test_generic_rows_route(w_dtype, n, src_lds, ptrs, route):
     # the B-row generic step's instance is a pure function of the couplings'
-    # dtype, n, the sources' row strides and the W and source addresses:
-    # aligned bf16 takes the tensor cores, f32 never does
+    # dtype, n, their number, the sources' row strides and the W and source
+    # addresses: aligned bf16 takes the tensor cores, f32 never does; an
+    # aligned f32 W of at most five couplings takes the tiled kernel
     assert gf.generic_rows_route(w_dtype, n, src_lds, ptrs) == route
 
 
@@ -253,8 +270,9 @@ def test_generic_rows_route_of_a_node_state_view():
     # a LIF node's source s is the view y[:, n:2n] of its (B, 2n) state: the
     # route follows n and the dtype through the view's offset and row stride
     for n, w_dtype, route in ((1_000, BF16, "mma"), (1_024, BF16, "mma"), (1_004, BF16, "vec"),
-                              (1_004, F32_T, "vec"), (1_000, F32_T, "vec"),
-                              (1_003, BF16, "scalar"), (1_002, F32_T, "scalar")):
+                              (1_004, F32_T, "tiled"), (1_000, F32_T, "tiled"),
+                              (1_003, BF16, "scalar"), (1_002, F32_T, "scalar"),
+                              (1_003, F32_T, "scalar")):
         y = torch.zeros((4, 2 * n), dtype=torch.float32)
         W, s = torch.zeros((n, n), dtype=w_dtype), y[:, n:2 * n]
         assert gf.generic_rows_route(w_dtype, n, [s.stride(0)],
@@ -1022,3 +1040,137 @@ def test_tiled_geometry_of_the_source():
     rows = (32 // (32 // T)) * R * row_tiles
     assert rows == 80 and -(-10_000 // rows) == 125
     assert 32 % T == 0 and chunk % 32 == 0 and (chunk // ksplit) % 4 == 0 and stages >= 2
+
+
+# A schedule model of the tiled float32 B-row generic step
+# (generic_fused_rows_tiled_kernel in csrc/generic_fused_step.cuh, at its
+# GenericTile geometry, read from the source): _tiled_sums once per
+# coupling, each on its own source and row stride (every W element read once
+# per trial group, no read past a row or a W), its float32 sums through the
+# plain tail (the plain step with identity couplings and the sums as its
+# sources: an f32 product by the identity is exact).
+def _generic_tile():
+    """(kR, kT, kRowTiles, kKSplit, kChunk, kStages) of GenericTile."""
+    m = re.search(r"using GenericTile = rowtile::Geometry<([^>]*)>;",
+                  (_CSRC / "generic_fused_step.cuh").read_text())
+    return tuple(int(v) for v in m.group(1).split(","))
+
+
+def _tiled_smem(geometry):
+    """(bytes of the ring, bytes of one coupling's [32][kRows] f32 sums)
+    of the tiled kernel at ``geometry`` (rowtile::Geometry's kSmem)."""
+    R, T, row_tiles, ksplit, chunk, stages = geometry
+    tg_n = 32 // T
+    rg_n = 32 // tg_n
+    rows = rg_n * R * row_tiles
+    ring = stages * (rows + 32) * (chunk + 4)
+    parts = ksplit * 32 * (rows + (rg_n - rows) % 32)  # the parts' sums, over the ring
+    return 4 * max(ring, parts), 4 * 32 * rows
+
+
+def _model_operands(case, n, B, src, seed):
+    """The step, per-coupling Ws, sources and what the kernel reads them
+    from, drive, states and per-neuron rows of one B-row launch: trial b's
+    rows are ``generic_inputs(node, seed + 1 + b)``'s (the coupling case for
+    qif_sfa), the states strided rows of one (B, V*n) buffer.  ``src``:
+    "state" (the source is the node's s, a row of that buffer, as a LIF
+    node's is y[:, n:2n]), "shared" (the first source one row for every
+    trial, ld 0; the others as "rows") or "rows" (each source the second
+    half of (B, 2n) rows)."""
+    rng = np.random.default_rng(seed)
+    Ws = []
+    for c in range(2):  # dense, row-normalised; the second negative
+        W = rng.random((n, n))
+        Ws.append((W / W.sum(axis=1, keepdims=True) * (1.0 if c == 0 else -0.5))
+                  .astype(np.float32))
+    _, node = generic_case_net(case, Ws[0], "cpu", seed=seed)
+    coupling = case == "qif_sfa"
+    step, _, _, _, vecs = generic_inputs(node, seed, coupling=coupling)
+    K, V = len(step.targets), len(step.state_order)
+    Ws = [torch.as_tensor(W) for W in Ws[:K]]
+    rows = [generic_inputs(node, seed + 1 + b, coupling=coupling)[1:4] for b in range(B)]
+    y = torch.stack([torch.cat(st) for _, _, st in rows])  # (B, V*n)
+    states = list(y.reshape(B, V, n).unbind(1))
+    drive = torch.stack([r[1] for r in rows])
+    srcs, reads = [], []  # reads: (flat buffer, offset of trial 0's row, row stride)
+    for c in range(K):
+        if src == "state":
+            v = next(i for i, q in enumerate(step.state_order) if q.endswith("/s"))
+            srcs.append(states[v])
+            reads.append((y.numpy().reshape(-1), v * n, V * n))
+        elif src == "shared" and c == 0:
+            srcs.append(rows[0][0][c])
+            reads.append((srcs[-1].numpy(), 0, 0))
+        else:
+            buf = torch.cat([torch.as_tensor(rng.random((B, n)), dtype=torch.float32),
+                             torch.stack([r[0][c] for r in rows])], dim=1)
+            srcs.append(buf[:, n:])
+            reads.append((buf.numpy().reshape(-1), n, 2 * n))
+    return step, Ws, srcs, reads, drive, states, vecs
+
+
+@pytest.mark.parametrize("case,B,n,src", [
+    ("lif", 5, 84, "state"),  # one strip past its last row by 76 rows; one short chunk
+    ("lif", 32, 300, "shared"),  # one source row for every trial (ld 0); 4 strips, 3 chunks
+    ("two_couplings", 33, 172, "rows"),  # K = 2; two trial groups, the second of one trial
+    ("two_couplings", 5, 172, "shared"),  # K = 2; 3 strips, the last of 12 rows; 2 chunks
+    ("tanh_heun", 32, 172, "rows"),  # Heun's derivative mode
+    ("qif_sfa", 33, 172, "state"),  # the coupling case: v' = s_in + O(1e-3)
+])
+def test_generic_tiled_rows_schedule_model_matches_plain(case, B, n, src):
+    # the tiled f32 B-row generic kernel's schedule, modelled block by block
+    # and coupling by coupling, reads every element of every W once per
+    # trial group and never past a row or a W; its float32 sums through
+    # the plain tail give the plain step within GENERIC_TOL, with equal
+    # reset masks; in the coupling case the tolerance sees a lost eighth
+    step, Ws, srcs, reads, drive, states, vecs = _model_operands(case, n, B, src, 16 + n)
+    geometry = _generic_tile()
+    sums = [torch.as_tensor(_tiled_sums(W.numpy(), flat, off, ld, B, geometry))
+            for W, (flat, off, ld) in zip(Ws, reads)]
+    eye = torch.eye(n)
+    got = gf.generic_fused_rows_plain(step, sums, [eye] * len(Ws), drive, states, vecs)
+    ref = gf.generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
+    tol = "coupling" if case == "qif_sfa" else "reset"
+    resets = sum(check_generic(got[b], ref[b], step, tol)[1] for b in range(B))
+    hard = any(h for _, _, h, _ in step.spike_specs) and not step.derivative
+    assert (resets > 0) == (hard and tol == "reset")
+    if tol == "coupling":
+        for b in (0, B - 1):
+            assert lost_eighth_margin(step, [srcs[0][b]], Ws, drive[b],
+                                      [s[b].contiguous() for s in states], vecs, ref[b]) > 1.0
+    if case == "lif" and src == "state":  # and JAX's generic kernel under vmap (interpret)
+        template, kw = GENERIC_CASES[case]
+        kw = dict(kw)
+        node_vars = dict(kw.pop("node_vars"))
+        node_vars[kw.pop("per_neuron")] = np.random.default_rng(16 + n).uniform(5.0, 15.0, n)
+        jnet = JNetwork(kw.pop("dt"), dtype=jnp.float32)
+        jnet.add_diffeq_node("pop", template.replace(T_, J), weights=Ws[0].numpy(),
+                             node_vars=node_vars, **kw, **F32)
+        jnet.compile()
+        jnode = jnet.get_node("pop")
+        j_attach(jnode, tile=128, interpret=True)
+        V, n_pad = len(step.state_order), -(-n // 128) * 128
+        y = np.stack([s.numpy() for s in states], axis=1)  # (B, V, n)
+        y_pad = np.pad(y, ((0, 0), (0, 0), (0, n_pad - n))).reshape(B, V * n_pad)
+        jy, _ = jax.vmap(jnode.make_step(), in_axes=(0, None, 0))(
+            jnp.asarray(y_pad), jnode.args, jnp.asarray(drive.numpy()))
+        jref = torch.as_tensor(np.asarray(jy).reshape(B, V, n_pad)[..., :n].copy())
+        for b in range(B):
+            check_generic(got[b], jref[b], step, tol)
+
+
+def test_generic_tiled_geometry_of_the_source():
+    # the generic kernel's geometry is read from its header: 80-row strips
+    # (125 blocks at N = 10,000), whole 16-byte reads of every part; the
+    # ring and the sums of up to generic_rows_route's K limit of couplings
+    # fit a block's 227 KB of shared memory, one coupling more does not,
+    # and the E/I circuit's two fit
+    geometry = _generic_tile()
+    R, T, row_tiles, ksplit, chunk, stages = geometry
+    rows = (32 // (32 // T)) * R * row_tiles
+    assert rows == 80 and -(-10_000 // rows) == 125
+    assert 32 % T == 0 and chunk % 32 == 0 and (chunk // ksplit) % 4 == 0 and stages >= 2
+    ring, per_coupling = _tiled_smem(geometry)
+    assert per_coupling == 10_240 and ring == 177_408  # rows_tiled.cuh's kSmem at 3 x 128
+    K = gf._TILED_MAX_K
+    assert 2 <= K and ring + K * per_coupling <= 232_448 < ring + (K + 1) * per_coupling

@@ -32,6 +32,7 @@ from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_
                                          quant_vec, quantize_rows)
 from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
                                        check_generic, generic_case_net, generic_inputs,
+                                       generic_rows_instance, generic_rows_operands,
                                        lost_eighth_margin, qif_rows_instance, quant_scales,
                                        reciprocal_rows)
 
@@ -979,20 +980,24 @@ def test_fused_qif_run_batch_on_card_matches_cpu(cuda, coupling):
 @pytest.mark.parametrize("case", ["lif", "tanh_heun", "two_couplings"])
 def test_generic_fused_run_batch_on_card_matches_cpu(cuda, case):
     # the generic node in run_batch launches the B-row kernel once per step
-    # (twice for Heun) for all its trials, never the single-trial one; each
-    # trial against the plain lowered step on the CPU
+    # (twice for Heun) for all its trials, on the tiled route (an f32
+    # coupling), never the single-trial one; each trial against the plain
+    # lowered step on the CPU
     n, B, steps = 128, 3, 200
     rng = np.random.default_rng(67)
     ins = rng.normal(size=(B, steps, n)) + np.linspace(0.0, 2.0, B)[:, None, None]
     outs = {}
     for device in (cuda, "cpu"):
         net, _ = _generic_node(case, n, device, attach=device is cuda)
-        before = generic_fused_rows.launches, generic_fused_step.launches
+        before = (generic_fused_rows.launches, generic_fused_rows.tiled_launches,
+                  generic_fused_step.launches)
         outs[str(device)] = net.run_batch(ins, sampling_steps=10)["out"]
         launches = (generic_fused_rows.launches - before[0],
-                    generic_fused_step.launches - before[1])
-        assert launches == ((0, 0) if device == "cpu" else
-                            (steps * (2 if case == "tanh_heun" else 1), 0))
+                    generic_fused_rows.tiled_launches - before[1],
+                    generic_fused_step.launches - before[2])
+        # f32 couplings: every B-row launch on the tiled kernel
+        rows = steps * (2 if case == "tanh_heun" else 1)
+        assert launches == ((0, 0, 0) if device == "cpu" else (rows, rows, 0))
     card, cpu = outs[str(cuda)], outs["cpu"]
     if case == "lif":
         assert cpu.max() > 0.0, "no spikes -- weak test"
@@ -1142,14 +1147,18 @@ def _check_rows(node, w_dtype, inputs, case="reset"):
     """The B-row kernel against its plain version and, trial by trial,
     against the single-trial kernel; the launch must take
     :func:`generic_rows_route`'s instance (``mma_launches`` counts the
-    tensor cores').  Returns (got, ref, Ws)."""
+    tensor cores', ``tiled_launches`` the tiled kernel's).  Returns (got,
+    ref, Ws)."""
     step, srcs, drive, states, vecs = inputs
     Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(len(step.targets))]
-    before = generic_fused_rows.launches, generic_fused_rows.mma_launches
+    before = (generic_fused_rows.launches, generic_fused_rows.mma_launches,
+              generic_fused_rows.tiled_launches)
     got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
     torch.cuda.synchronize()
-    assert (generic_fused_rows.launches - before[0], generic_fused_rows.mma_launches
-            - before[1]) == (1, int(_rows_route(Ws, srcs) == "mma"))
+    route = _rows_route(Ws, srcs)
+    assert (generic_fused_rows.launches - before[0], generic_fused_rows.mma_launches - before[1],
+            generic_fused_rows.tiled_launches - before[2]) == (1, int(route == "mma"),
+                                                               int(route == "tiled"))
     ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
     for b in range(got.shape[0]):
         check_generic(got[b], ref[b], step, case)
@@ -1163,7 +1172,7 @@ def _check_rows(node, w_dtype, inputs, case="reset"):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B", [32, 5])
 # bf16: the tensor cores / the CUDA cores' vector path / the scalar one (f32:
-# the vector path at 1000 and 996)
+# the tiled kernel at 1000 and 996)
 @pytest.mark.parametrize("n", [1000, 996, 37])
 @pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(GENERIC_CASES))
@@ -1172,8 +1181,8 @@ def test_generic_rows_kernel_matches_plain_and_single_trial_kernel(cuda, case, w
     _, node = _generic_node(case, n, cuda)
     inputs = _generic_rows_inputs(node, B, seed=6)
     Ws = [node.args[f"__w_fused_{c}__"].to(w_dtype) for c in range(len(inputs[0].targets))]
-    route = ("scalar" if n % 4 else "mma" if w_dtype == torch.bfloat16 and n % 8 == 0
-             else "vec")
+    route = ("scalar" if n % 4 else "tiled" if w_dtype == torch.float32
+             else "mma" if n % 8 == 0 else "vec")
     assert _rows_route(Ws, inputs[1]) == route
     got, ref, _ = _check_rows(node, w_dtype, inputs)
     step = inputs[0]
@@ -1234,6 +1243,40 @@ def test_generic_rows_tensor_cores_match_plain(cuda, case, B):
     shared = [srcs[0][1]] + srcs[1:]
     _check_rows(node, torch.bfloat16, (step, shared, drive, states, vecs))
     assert generic_fused_rows.mma_launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [32, 5])
+@pytest.mark.parametrize("n", [10_000, 1000])  # 125 and 13 strips of 80 rows, both odd
+@pytest.mark.parametrize("case", ["lif", "two_couplings", "tanh_heun"])
+def test_generic_rows_tiled_and_vec_instances_agree(cuda, case, n, B):
+    # the tiled f32 kernel (K = 1 and 2, Euler and Heun's derivative mode)
+    # against its plain version and the CUDA cores' vector instance it
+    # replaced, reached through the C entry, on the same operands: within
+    # GENERIC_TOL, equal reset masks; then one of its probes launches
+    step = _generic_node(case, 16, cuda)[1]._fused_cfg["step"]  # the same at any n
+    rng = np.random.default_rng(13)
+    srcs, drive, states, vecs = generic_rows_operands(step, n, B, rng, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    Ws = []
+    for _ in step.targets:  # dense, row-normalised: a sum averages its U(0, 1) source
+        W = torch.rand((n, n), generator=gen, device=cuda)
+        Ws.append(W / W.sum(dim=1, keepdim=True))
+    assert _rows_route(Ws, srcs) == "tiled"
+    before = generic_fused_rows.tiled_launches
+    got = generic_fused_rows(step, srcs, Ws, drive, states, vecs)
+    old = generic_rows_instance(step, srcs, Ws, drive, states, vecs, "vec")()
+    torch.cuda.synchronize()
+    assert generic_fused_rows.tiled_launches == before + 1
+    ref = generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
+    for b in range(B):
+        check_generic(got[b], ref[b], step)
+        check_generic(got[b], old[b], step)
+    generic_rows_instance(step, srcs, Ws, drive, states, vecs, "tiled", probe=4)()
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the tiled kernel takes no bf16 W
+        generic_rows_instance(step, srcs, [W.to(torch.bfloat16) for W in Ws], drive, states,
+                              vecs, "tiled")()
 
 
 @pytest.mark.gpu
