@@ -268,6 +268,52 @@ Phase 29 (run after phase 2, before any phase quantizes):
    by the Python scalars 7.0 and 127.0 parts from the CPU's (the form the
    port no longer uses).
 
+Phases 30-32 (after phase 28; the edge family of rectipy_tpu_torch/edges.py,
+computed with PyTorch operations as the JAX package computes it with XLA
+operations; no kernel of its own):
+
+30. whole_brain_path: benchmarks/whole_brain_scale.py's network at M = 998
+   Jansen-Rit regions, float32, dt 1e-4, conduction speed 2 m/s (positions
+   in a 0.14 m cube from default_rng(0), W = exp(-dist/0.06) normalised by
+   in-strength x 40, D = rint(dist/speed/dt), a 1,157-step span, tau_e ~
+   U(8e-3, 13e-3)) as a FeedbackNetwork self-edge brain -> brain; auto must
+   pick the factored read (S = 15, Q = 78).  Network.run of 10,000 steps
+   (sampling_steps 100), best of 3, in turns with the same network with an
+   instantaneous dense f32 edge and with mode="gather", each at 2,000
+   steps: ms per step, region-updates/s, the delay overhead factor, each
+   network's device-only step and idle share, and the delay read alone
+   (the edge step on CUDA events) against its byte bound (factored: the
+   coarse and fine one-hots, the (n_in, n_out, S) intermediate written and
+   read, W and the buffer, about 0.50 GB; gather: the int64 index, W and
+   the buffer); one selector build per run.  The factored and gather reads give
+   bit-identical records over 2,000 steps (fresh networks, no TF32); the
+   card against the CPU over 200 steps under fused_vs_plain's rule;
+   run_batch of 8 trials of 2,000 steps (normal inputs x 2 from
+   default_rng(2)), best of 2, each trial held to its single-trial run
+   over 200 steps under the same rule; peak device memory.
+31. stp_feedback_path: phase 24's network (two LIF populations of N =
+   10,000, bf16 couplings with the generic kernel, feedback_weights(N),
+   drive 100, 20,000 steps) with both edges LinearSTP: p1 -> p2 depressing
+   (U 0.5, tau_depress 5, no facilitation), the feedback p2 -> p1
+   facilitating (U 0.2, tau_facil 10, tau_depress 1), in turns with the
+   plain-edge network (stp, plain, plain, stp); 40,000 generic launches a
+   run; both populations active (the largest window mean of s above 1e-3)
+   and the STP state moved (min x of p1 -> p2 below 0.9, max u of p2 -> p1
+   above 0.2 after the first run); each network's device-only step; the
+   first 200 steps on the CPU held to the card's (records and the final
+   (u, x)) under fused_vs_plain's rule; the kernels line gains the generic
+   kernel's entry for this path.
+32. edge_family_check: at n = 1,000, float32, 500 steps, an identity input
+   through each edge class into a tanh population, on the card against the
+   CPU under fused_vs_plain's rule: masked, per-source delay, filter, delay
+   + filter, STP, and the delay matrix's onehot, factored, gather, interp
+   (hat and factored2) reads and the factored and onehot reads with
+   read_dtype bfloat16; then at M = 90 regions of phase 30's network a
+   trainable-delay interp edge (delays x 1.1 against a teacher's records x
+   1.05, 1,000 steps): the epoch loss and the gradients of weights and
+   delays on the card against the CPU (FIT_LOSS_RTOL, FIT_GRAD_RTOL), and
+   one fit_bptt epoch on the card, whose loss must be the same.
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -2840,6 +2886,433 @@ def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> list:
     return entries
 
 
+# ------------------------------------------------------------ phases 30-32
+JR = "rectipy_tpu_torch.models.mean_field.jansen_rit.jansen_rit"
+WB_M, WB_DT, WB_SPEED = 998, 1e-4, 2.0  # benchmarks/whole_brain_scale.py's M=998 cell
+WB_T, WB_T_SHORT, WB_B = 10_000, 2_000, 8
+STP_DRIVE = 100.0  # feedback_phase's drive
+FAMILY_N, FAMILY_T, FAMILY_M, FAMILY_FIT_T = 1_000, 500, 90, 1_000
+# edge_family_check's fit: the card's loss and gradients (relative norm of
+# the difference) against the CPU's, float32 both, whose sums run in another
+# order over FAMILY_FIT_T steps.  A delay's gradient is the difference of
+# neighbouring history values, so it keeps fewer digits than the weights'.
+FIT_LOSS_RTOL, FIT_GRAD_RTOL = 1e-4, 5e-3
+
+
+def wb_data(M: int, seed: int = 0):
+    """benchmarks/whole_brain_scale.py's connectome at width M: region
+    positions in a 0.14 m cube from default_rng(seed), W = exp(-dist/0.06)
+    with a zero diagonal normalised by in-strength, D = rint(dist / speed /
+    dt) and tau_e ~ U(8e-3, 13e-3).  Returns (W, D, tau_e, dist)."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.0, 0.14, size=(M, 3))
+    dist = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
+    W = np.exp(-dist / 0.06)
+    np.fill_diagonal(W, 0.0)
+    W /= W.sum(axis=0, keepdims=True)  # in-strength (square W auto-transposes)
+    D = np.rint(dist / WB_SPEED / WB_DT).astype(int)
+    np.fill_diagonal(D, 0)
+    return W, D, rng.uniform(8e-3, 13e-3, size=M), dist
+
+
+def wb_net(M: int, W, taues, device, **edge_kw):
+    """The whole-brain network: M Jansen-Rit regions (float32, dt 1e-4) with a
+    FeedbackNetwork self-edge brain -> brain of weights 40 W; ``delays=D``
+    makes it a LinearMemoryMatrix (``mode`` as given, else auto), none an
+    instantaneous dense edge."""
+    from rectipy_tpu_torch import FeedbackNetwork
+
+    net = FeedbackNetwork(WB_DT, device=device)
+    net.add_diffeq_node("brain", JR, weights=np.zeros((M, M)), source_var="m_py",
+                        target_var="r_in", input_var="r_in", output_var="m_py",
+                        node_vars={"all/jr_op/tau_e": taues})
+    net.add_edge("brain", "brain", weights=40.0 * W, feedback=True, **edge_kw)
+    net.compile()
+    return net
+
+
+def timed_run(net, inputs, **kw):
+    """(seconds, Observer) of one ``Network.run``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs = net.run(inputs, verbose=False, **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, obs
+
+
+def read_ms(edge, x) -> float:
+    """The delay edge's step alone (the shift, the read and the weighted
+    sum), timed on the device by CUDA events, on the prepped selectors."""
+    step, params = edge.make_step(), edge.prep_params(dict(edge.params))
+    buf = edge.init_state()
+    with torch.no_grad():
+        return cuda_ms(lambda: step(buf, params, x), reps=100)
+
+
+def whole_brain_phase(dev) -> None:
+    """Phase 30: benchmarks/whole_brain_scale.py's M=998 network on the card."""
+    M = WB_M
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    W, D, taues, _ = wb_data(M)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nets = {"factored": wb_net(M, W, taues, dev, delays=D),
+            "instantaneous": wb_net(M, W, taues, dev),
+            "gather": wb_net(M, W, taues, dev, delays=D, mode="gather")}
+    build_s = time.perf_counter() - t0
+    edge = nets["factored"].get_edge("brain", "brain")
+    Q, S = edge._fQS  # 78 and 15 at M = 998 (D1 = 1,158): 998^2 (Q + S) <= 2^27
+    d1 = int(D.max()) + 1
+    S_rule = max(1, int(round(np.sqrt(d1 / 5.0))))
+    if (edge.mode, S) != ("factored", S_rule) or Q != -(-d1 // S) \
+            or M * M * (Q + S) > 2 ** 27:
+        raise AssertionError(f"whole_brain_path: auto picked {edge.mode}, Q={Q}, S={S}")
+    # the host-bound loops are timed per step: 2,000 steps suffice for the
+    # instantaneous and gather networks beside the factored path's 10,000
+    steps = {"factored": WB_T, "instantaneous": WB_T_SHORT, "gather": WB_T_SHORT}
+    inputs = {k: torch.zeros((t, M), device=dev) for k, t in steps.items()}
+    kw = dict(sampling_steps=100)
+    warm = {k: timed_run(net, inputs[k][:200], **kw)[0] for k, net in nets.items()}
+    times = {k: [] for k in nets}
+    for _ in range(3):  # in turns, best of 3
+        for k, net in nets.items():
+            sec, obs = timed_run(net, inputs[k], **kw)
+            times[k].append(sec)
+            out = obs.to_numpy("out")
+            if out.shape != (steps[k] // 100, M) or not np.all(np.isfinite(out)):
+                raise AssertionError(f"whole_brain_path {k}: bad records {out.shape}")
+    builds = edge.selector_builds
+    if builds != 4:  # one per run: never per step
+        raise AssertionError(f"whole_brain_path: {builds} selector builds for 4 runs")
+    ms = {k: min(v) / steps[k] * 1e3 for k, v in times.items()}
+    x0 = torch.zeros(M, device=dev)
+    dev_ms = {k: device_step_ms(net, x0, reps=8) for k, net in nets.items()}
+    reads = {k: read_ms(nets[k].get_edge("brain", "brain"), x0) for k in ("factored", "gather")}
+    # bytes each read moves a step: factored, the coarse and fine one-hots,
+    # the (n_in, n_out, S) intermediate written and read, the buffer and W;
+    # gather, the int64 index, W and the buffer
+    f32 = 4
+    read_bytes = {"factored": M * M * (Q + 3 * S) * f32 + M * Q * S * f32 + M * M * f32,
+                  "gather": M * M * (8 + f32) + M * (int(D.max()) + 1) * f32}
+    read_line = {k: {"ms": reads[k], "bytes": b, "bound_ms": b / HBM_BYTES_PER_S * 1e3,
+                     "share_of_bound": b / HBM_BYTES_PER_S * 1e3 / reads[k]}
+                 for k, b in read_bytes.items()}
+    del nets, inputs
+    torch.cuda.empty_cache()
+
+    # factored == gather bit for bit over the same 2,000 steps (fresh networks)
+    cmp_kw = dict(sampling_steps=10, record_vars=[("brain", "psp_e", False)])
+    short = torch.zeros((WB_T_SHORT, M), device=dev)
+    recs = {}
+    for mode in ("auto", "gather"):
+        net = wb_net(M, W, taues, dev, delays=D, mode=mode)
+        obs = net.run(short, verbose=False, **cmp_kw)
+        # the history the two buffers share (factored's is Q*S wide, gather's D1)
+        recs[mode] = (obs.to_numpy("out"), obs.to_numpy(("brain", "psp_e")),
+                      net.get_edge("brain", "brain").buffer[:, :d1].cpu().numpy())
+        del net
+    identical = all(np.array_equal(a, b) for a, b in zip(recs["auto"], recs["gather"]))
+    if not identical:
+        raise AssertionError("whole_brain_path: the factored and gather reads differ")
+    out_range = [float(recs["auto"][0].min()), float(recs["auto"][0].max())]
+    del recs
+
+    # the card against the CPU over CPU_STEPS steps
+    cmp, secs = {}, {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        net = wb_net(M, W, taues, device, delays=D)
+        t0 = time.perf_counter()
+        cmp[name] = net.run(np.zeros((CPU_STEPS, M), dtype=np.float32), verbose=False,
+                            sampling_steps=10).to_numpy("out")
+        secs[name] = time.perf_counter() - t0
+        del net
+    vs = vs_cpu("whole_brain_path card vs cpu", cmp["card"], cmp["cpu"])
+
+    # run_batch of B trials (whole_brain_scale.py's WB_BATCH branch), each
+    # trial held to its single-trial run over CMP_STEPS steps
+    net = wb_net(M, W, taues, dev, delays=D)
+    binp = torch.as_tensor(np.random.default_rng(2).normal(size=(WB_B, WB_T_SHORT, M))
+                           .astype(np.float32) * 2.0, device=dev)
+    short_b = net.run_batch(binp[:, :CMP_STEPS], sampling_steps=10)["out"]  # also the warm-up
+    torch.cuda.synchronize()
+    b_times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = net.run_batch(binp, sampling_steps=100)
+        torch.cuda.synchronize()
+        b_times.append(time.perf_counter() - t0)
+        if res["out"].shape != (WB_B, WB_T_SHORT // 100, M) or not np.all(
+                np.isfinite(res["out"])):
+            raise AssertionError("whole_brain_path: bad run_batch records")
+    b_best = min(b_times)
+    trial_cmp = []
+    for b in range(WB_B):
+        single = wb_net(M, W, taues, dev, delays=D)
+        ref = single.run(binp[b, :CMP_STEPS], verbose=False, sampling_steps=10).to_numpy("out")
+        trial_cmp.append(vs_cpu(f"whole_brain_path trial {b}", short_b[b], ref)["max_abs_diff"])
+        del single
+    del net, binp
+    torch.cuda.empty_cache()
+    emit({"phase": "whole_brain_path", "template": "jansen_rit", "regions": M,
+          "dtype": "float32", "dt": WB_DT, "speed_m_per_s": WB_SPEED,
+          "delay_span_steps": int(D.max()), "distinct_delays": int(np.unique(D).size),
+          "auto_mode": "factored", "Q": Q, "S": S, "w_data_s": data_s, "build_s": build_s,
+          "steps": steps, "warm_200_steps_s": warm, "run_s": times, "ms_per_step": ms,
+          "region_updates_per_s": {k: M / (v * 1e-3) for k, v in ms.items()},
+          "delay_overhead_factor": ms["factored"] / ms["instantaneous"],
+          "gather_over_factored": ms["gather"] / ms["factored"],
+          "device_step_ms": dev_ms,
+          "device_idle_share": {k: 1.0 - dev_ms[k] / ms[k] for k in ms},
+          "delay_read": read_line, "selector_builds": builds,
+          "factored_equals_gather_bit_for_bit": {"steps": WB_T_SHORT, "identical": identical},
+          "out_range": out_range,
+          "vs_cpu": {"steps": CPU_STEPS, **vs, "card_run_s": secs["card"],
+                     "cpu_run_s": secs["cpu"]},
+          "run_batch": {"B": WB_B, "steps": WB_T_SHORT, "run_s": b_times, "best_s": b_best,
+                        "ms_per_step": b_best / WB_T_SHORT * 1e3,
+                        "aggregate_region_updates_per_s": WB_B * WB_T_SHORT * M / b_best,
+                        "ratio_to_single": WB_B * ms["factored"] / (b_best / WB_T_SHORT * 1e3),
+                        "trials_vs_single_max_abs_diff": max(trial_cmp),
+                        "trial_steps": CMP_STEPS},
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+
+
+def stp_feedback_net(n: int, device, weights: tuple = None):
+    """feedback_net's network with both edges LinearSTP: p1 -> p2 depressing
+    (U 0.5, tau_depress 5.0, no facilitation), the feedback p2 -> p1
+    facilitating (U 0.2, tau_facil 10.0, tau_depress 1.0); the taus are in the
+    template's time unit, 500-1,000 steps at dt 1e-2."""
+    from rectipy_tpu_torch import FeedbackNetwork, attach_generic_fused_step
+
+    W1, W2, W_ff, W_fb = weights if weights is not None else feedback_weights(n)
+    net = FeedbackNetwork(1e-2, device=device)
+    for label, W in (("p1", W1), ("p2", W2)):
+        net.add_diffeq_node(label, LIF, input_var="I_ext", output_var="s", weights=W,
+                            source_var="s", target_var="s_in", op="lif_op", spike_var="spike",
+                            spike_def="v", coupling_dtype="bfloat16")
+    net.add_edge("p1", "p2", weights=W_ff, U=0.5, tau_depress=5.0, tau_facil=0.0)
+    net.add_edge("p2", "p1", weights=W_fb, feedback=True, U=0.2, tau_facil=10.0,
+                 tau_depress=1.0)
+    net.compile()
+    for label in ("p1", "p2"):
+        attach_generic_fused_step(net.get_node(label))
+    return net
+
+
+def stp_feedback_phase(dev) -> list:
+    """Phase 31: feedback_phase's network with short-term plasticity on both
+    edges, in turns with the plain-edge network.  Returns the generic
+    kernel's entry of the ``kernels`` line."""
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
+
+    t0 = time.perf_counter()
+    weights = feedback_weights(N)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = stp_feedback_net(N, dev, weights)
+    build_s = time.perf_counter() - t0
+    plain = feedback_net(N, dev, weights)
+    inputs = torch.full((STEPS, 1), STP_DRIVE, device=dev)
+    run_kw = dict(record_output=False, record_vars=[("p1", "s", True), ("p2", "s", True)],
+                  sampling_steps=100)
+    stp_edges = [net.get_edge("p1", "p2"), net.get_edge("p2", "p1")]
+    initial = [e.init_state() for e in stp_edges]
+    timed_run(net, inputs[:200], **run_kw)  # warm-up, then back to the initial state
+    net.reset()
+    for e, st in zip(stp_edges, initial):
+        e.set_state(st)
+    # the first run from the initial state: launches, activity, STP state; it
+    # is the first of the timed turns
+    generic_fused_step.launches = 0
+    first_s, obs = timed_run(net, inputs, **run_kw)
+    launches = generic_fused_step.launches
+    if launches != 2 * STEPS:
+        raise AssertionError(f"stp_feedback_path: {launches} launches for {STEPS} steps")
+    recs = [obs.to_numpy((p, "s")) for p in ("p1", "p2")]
+    if any(r.shape != (STEPS // 100,) or not np.all(np.isfinite(r)) for r in recs):
+        raise AssertionError("stp_feedback_path: bad records")
+    active = [float(r.max()) for r in recs]
+    dep, fac = net.get_edge("p1", "p2"), net.get_edge("p2", "p1")
+    stp_state = {"p1->p2_x_min": float(dep.x.min()), "p1->p2_u_max": float(dep.u.max()),
+                 "p2->p1_u_max": float(fac.u.max()), "p2->p1_x_min": float(fac.x.min())}
+    if min(active) <= 1e-3 or stp_state["p1->p2_x_min"] >= 0.9 \
+            or stp_state["p2->p1_u_max"] <= 0.2:
+        raise AssertionError(f"stp_feedback_path: silent populations or STP state that did not "
+                             f"move: max mean s {active}, {stp_state}")
+    # in turns with the plain-edge network: stp (the first run), plain, plain, stp
+    timed_run(plain, inputs[:200], **run_kw)  # warm-up
+    times = {"stp": [first_s], "plain": []}
+    for name in ("plain", "plain", "stp"):
+        n_ = net if name == "stp" else plain
+        n_.reset()
+        sec, o = timed_run(n_, inputs, **run_kw)
+        if not all(np.all(np.isfinite(o.to_numpy((p, "s")))) for p in ("p1", "p2")):
+            raise AssertionError(f"stp_feedback_path {name}: non-finite records")
+        times[name].append(sec)
+    ms = {k: min(v) / STEPS * 1e3 for k, v in times.items()}
+    x1 = torch.full((1,), STP_DRIVE, device=dev)
+    # a step of either network queues about 60 kernels: 10 steps stay
+    # within cuda_ms's launch queue
+    dev_ms = {"stp": device_step_ms(net, x1, reps=10), "plain": device_step_ms(plain, x1, reps=10)}
+    del plain
+    torch.cuda.empty_cache()
+    # the card against the CPU over CPU_STEPS steps, both from the initial state
+    cmp_kw = dict(run_kw, sampling_steps=10, verbose=False)
+    cmp, secs = {}, {}
+    fresh = stp_feedback_net(N, dev, weights)
+    t0 = time.perf_counter()
+    cpu_net = stp_feedback_net(N, "cpu", weights)
+    cpu_build_s = time.perf_counter() - t0
+    del weights
+    for name, n_ in (("card", fresh), ("cpu", cpu_net)):
+        t0 = time.perf_counter()
+        o = n_.run(np.full((CPU_STEPS, 1), STP_DRIVE, dtype=np.float32), **cmp_kw)
+        secs[name] = time.perf_counter() - t0
+        cmp[name] = np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])
+        cmp[name + "_stp"] = np.concatenate([n_.get_edge("p1", "p2").x.cpu().numpy(),
+                                             n_.get_edge("p2", "p1").u.cpu().numpy()])
+    del cpu_net, fresh
+    vs = vs_cpu("stp_feedback_path card vs cpu", cmp["card"], cmp["cpu"])
+    vs_stp = vs_cpu("stp_feedback_path (u, x) card vs cpu", cmp["card_stp"], cmp["cpu_stp"])
+    emit({"phase": "stp_feedback_path", "template": "lif", "populations": 2,
+          "coupling": "bfloat16",
+          "edges": "float32 LinearSTP p1->p2 (U 0.5, tau_depress 5) and feedback p2->p1 "
+                   "(U 0.2, tau_facil 10, tau_depress 1)", "n": N, "steps": STEPS,
+          "drive": STP_DRIVE, "kernel_launches": launches, "w_data_s": data_s,
+          "build_s": build_s, "first_run_s": first_s, "run_s": times, "ms_per_step": ms,
+          "stp_over_plain": ms["stp"] / ms["plain"],
+          "neuron_updates_per_s": {k: 2 * N / (v * 1e-3) for k, v in ms.items()},
+          "device_step_ms": dev_ms,
+          "device_idle_share": {k: 1.0 - dev_ms[k] / ms[k] for k in ms},
+          "max_mean_s": active, "stp_state_after_first_run": stp_state,
+          "vs_cpu": {"steps": CPU_STEPS, "records": int(cmp["cpu"].shape[1]), **vs,
+                     "stp_state": vs_stp, "cpu_build_s": cpu_build_s,
+                     "card_run_s": secs["card"], "cpu_run_s": secs["cpu"]}})
+    entry = generic_instance("lif,bfloat16,stp_feedback_path", net.get_node("p1"),
+                             torch.bfloat16, 17, launches)
+    del net
+    torch.cuda.empty_cache()
+    return [entry]
+
+
+def family_net(n: int, device, W_rec, **edge_kw):
+    """inp (identity, n) -> an edge of the family -> a tanh population of n
+    (float32, dt 1e-2, coupling W_rec)."""
+    from rectipy_tpu_torch import Network
+
+    net = Network(1e-2, device=device)
+    net.add_func_node("inp", n, activation_function="identity")
+    net.add_diffeq_node("pop", TANH, weights=W_rec, input_var="li_op/I_ext",
+                        output_var="li_op/v", source_var="tanh_op/r", target_var="li_op/r_in")
+    net.add_edge("inp", "pop", **edge_kw)
+    net.compile()
+    return net
+
+
+def epoch_loss_and_grads(net, inp, tgt) -> tuple:
+    """fit_bptt's epoch loss (plain autograd, mse on every step) and its
+    gradients with respect to the trainable leaves, by the network's own
+    step and edge prep."""
+    paths = net.trainable_paths()
+    params = net.parameters_pytree()
+    leaves = [params[k][l][p].detach().clone().requires_grad_(True) for k, l, p in paths]
+    for (k, l, p), leaf in zip(paths, leaves):
+        params[k][l] = {**params[k][l], p: leaf}
+    step = net.make_step()
+    with torch.enable_grad():
+        prepped = net._prep_edge_params(params)
+        state, outs = net.init_state(), []
+        for x in net._to_device(inp).unbind(0):
+            state, out, _ = step(state, prepped, x)
+            outs.append(out)
+        loss = torch.mean((torch.stack(outs) - net._to_device(tgt)) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), {"/".join(p): g.cpu().numpy() for p, g in zip(paths, grads)}
+
+
+def edge_family_check(dev) -> None:
+    """Phase 32: every edge class and delay read on the card against the same
+    network on the CPU, and a fit through trainable delays."""
+    rng = np.random.default_rng(31)
+    n, T = FAMILY_N, FAMILY_T
+    W_rec = (rng.normal(size=(n, n)) * (0.5 / np.sqrt(n))).astype(np.float32)
+    W = (rng.normal(size=(n, n)) * (1.0 / np.sqrt(n))).astype(np.float32)
+    D = rng.integers(0, 40, size=(n, n))
+    inp = np.abs(rng.normal(size=(T, n))).astype(np.float32)
+    cases = {
+        "masked": dict(mask=(rng.random((n, n)) < 0.2).astype(np.float32)),
+        "delay": dict(delays=rng.integers(0, 40, size=n)),
+        "filter": dict(filter_weights=np.eye(n, dtype=np.float32) * 0.5),
+        "delay_filter": dict(delays=rng.integers(0, 40, size=n),
+                             filter_weights=np.eye(n, dtype=np.float32) * 0.5),
+        "stp": dict(tau_facil=0.5, tau_depress=0.3, U=0.3),
+        "matrix_onehot": dict(delays=D, mode="onehot"),
+        "matrix_factored": dict(delays=D, mode="factored"),
+        "matrix_gather": dict(delays=D, mode="gather"),
+        "matrix_interp_hat": dict(delays=D + 0.3, mode="interp", interp_impl="hat"),
+        "matrix_interp_factored2": dict(delays=D + 0.3, mode="interp",
+                                        interp_impl="factored2"),
+        "matrix_factored_bf16_read": dict(delays=D, mode="factored", read_dtype="bfloat16"),
+        "matrix_onehot_bf16_read": dict(delays=D, mode="onehot", read_dtype="bfloat16"),
+    }
+    lines = {}
+    for name, kw in cases.items():
+        recs, secs = {}, {}
+        for where, device in (("card", dev), ("cpu", "cpu")):
+            net = family_net(n, device, W_rec, weights=W, **kw)
+            t0 = time.perf_counter()
+            recs[where] = net.run(inp, sampling_steps=10, verbose=False).to_numpy("out")
+            secs[where] = time.perf_counter() - t0
+            edge = net.get_edge("inp", "pop")
+            if where == "card" and getattr(edge, "selector_builds", 1) > 1:
+                raise AssertionError(f"edge_family_check {name}: selectors built per step")
+            del net
+        lines[name] = {"class": type(edge).__name__, "mode": getattr(edge, "mode", None),
+                       **vs_cpu(f"edge_family_check {name}", recs["card"], recs["cpu"]),
+                       "card_run_s": secs["card"], "cpu_run_s": secs["cpu"]}
+    # one fit_bptt epoch through a trainable-delay interp edge at M regions
+    M, Tf = FAMILY_M, FAMILY_FIT_T
+    Wm, _, taues, dist = wb_data(M)
+    dmax = int(np.ceil(1.1 * dist.max() / WB_SPEED / WB_DT))
+    finp = np.random.default_rng(3).normal(size=(Tf, M)).astype(np.float32) * 5.0
+    # the teacher's records (delays x 1), the student's delays x 1.1; the
+    # loss and gradients of fit_bptt's epoch on both devices, then the epoch
+    # itself on the card, whose loss must be the same
+    fit, secs = {}, {}
+    for where, device in (("cpu", "cpu"), ("card", dev)):
+        net = wb_net(M, Wm, taues, device, delays=dist / WB_SPEED / WB_DT, mode="interp",
+                     train="gd", train_delays=True, max_delay=dmax)
+        tgt = net.run(finp, verbose=False).to_numpy("out") * 1.05
+        student = wb_net(M, Wm, taues, device, delays=dist / WB_SPEED / WB_DT * 1.1,
+                         mode="interp", train="gd", train_delays=True, max_delay=dmax)
+        t0 = time.perf_counter()
+        fit[where] = epoch_loss_and_grads(student, finp, tgt)
+        secs[where] = time.perf_counter() - t0
+        del net
+    # the card's student and teacher records are the loop's last
+    t0 = time.perf_counter()
+    obs = student.fit_bptt([finp], [tgt], optimizer="adam", lr=1e-2, verbose=False)
+    secs["card_fit_bptt"] = time.perf_counter() - t0
+    e_c, how = float(obs["epoch_loss"][0]), student.last_fit
+    impl = student.get_edge("brain", "brain")._interp_impl
+    del student
+    (l_c, g_c), (l_p, g_p) = fit["card"], fit["cpu"]
+    grad_err = {k: float(np.linalg.norm(g_c[k] - g_p[k]) / np.linalg.norm(g_p[k])) for k in g_p}
+    fit_line = {"regions": M, "steps": Tf, "interp_impl": impl, "trajectory": how["trajectory"],
+                "loss": {"card": l_c, "cpu": l_p, "card_fit_bptt_epoch": e_c},
+                "loss_rtol": FIT_LOSS_RTOL, "grad_rel_norm_err": grad_err,
+                "grad_rtol": FIT_GRAD_RTOL,
+                "grad_norm": {k: float(np.linalg.norm(v)) for k, v in g_p.items()},
+                "seconds": secs}
+    if (abs(l_c - l_p) > FIT_LOSS_RTOL * abs(l_p) or abs(e_c - l_c) > FIT_LOSS_RTOL * abs(l_c)
+            or max(grad_err.values()) > FIT_GRAD_RTOL
+            or set(g_p) != {"edges/brain->brain/weights", "edges/brain->brain/delays"}):
+        raise AssertionError(f"edge_family_check fit: {fit_line}")
+    emit({"phase": "edge_family_check", "n": n, "steps": T, "dtype": "float32",
+          "cases": lines, "fit_bptt": fit_line})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3066,6 +3539,10 @@ def main() -> int:
     kernels += feedback_phase()
     kernels += batch_phases(dev, W_np, data, train_nu, int4_nu)
     del W_np
+    torch.cuda.empty_cache()
+    whole_brain_phase(dev)
+    kernels += stp_feedback_phase(dev)
+    edge_family_check(dev)
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

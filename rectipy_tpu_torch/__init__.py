@@ -12,13 +12,16 @@ compiled at first use.  Everything runs on the current CUDA device unless
 ``device="cpu"`` is passed.  ``Network.run_batch`` and
 ``Network.fit_bptt_batch`` run ``B`` independent trials together through
 batched kernels (``int8_mm``/``int8_mm_t``, the B-row ``qif_sfa_step``).
+The edge family (masks, per-source and per-connection delays, filters,
+short-term plasticity) is computed with PyTorch operations.
 """
 
 __version__ = "0.1.0"
 
 from .convert import load_jax_params
 from .dsl import CircuitTemplate, NodeTemplate, OperatorTemplate, clear_frontend_caches, lower
-from .edges import RLS, Linear
+from .edges import (RLS, Linear, LinearFilter, LinearMasked, LinearMemory, LinearMemoryFilter,
+                    LinearMemoryMatrix, LinearSTP)
 from .network import FeedbackNetwork, Network
 from .nodes import InstantNode, MultiSpikeResetNet, RateNet, SpikeNet, SpikeResetNet
 from .observer import Observer
@@ -38,6 +41,12 @@ __all__ = [
     "FeedbackNetwork",
     "InstantNode",
     "Linear",
+    "LinearFilter",
+    "LinearMasked",
+    "LinearMemory",
+    "LinearMemoryFilter",
+    "LinearMemoryMatrix",
+    "LinearSTP",
     "MultiSpikeResetNet",
     "Network",
     "NodeTemplate",

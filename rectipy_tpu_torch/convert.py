@@ -68,6 +68,20 @@ def _unpad_state(y: np.ndarray, n_state: int, jax_node_params: dict) -> np.ndarr
     return np.concatenate([y[i * n_pad:i * n_pad + n] for i in range(n_vars)])
 
 
+def _edge_state(ekey: str, val, old):
+    """A JAX edge state (a delay buffer, a filter state, an STP ``(u, x)``
+    pair) in the layout of the port edge's current state ``old``; a state
+    whose structure or shapes differ raises ``KeyError``."""
+    if isinstance(old, tuple):
+        if not isinstance(val, (tuple, list)) or len(val) != len(old):
+            raise KeyError(f"Edge state of {ekey!r}: expected a {len(old)}-tuple.")
+        return tuple(_edge_state(ekey, v, o) for v, o in zip(val, old))
+    if old is None or isinstance(val, (tuple, list)) or np.shape(val) != tuple(old.shape):
+        want = "no state" if old is None else f"a state of shape {tuple(old.shape)}"
+        raise KeyError(f"Edge state of {ekey!r} does not match the port edge's: {want}.")
+    return torch.as_tensor(_numpy(val)).to(device=old.device, dtype=old.dtype)
+
+
 def load_jax_params(net, params: dict, state: dict = None) -> None:
     """Write a JAX network's ``parameters_pytree()`` (and optionally its
     ``init_state()``), as nested dicts of numpy arrays, into the port
@@ -75,10 +89,13 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
     the float master ``weights`` of a ``bfloat16_master``, ``int8_master``
     or ``int4_master`` node, the int8 ``weights`` (for ``int4``, the int8
     carrier of [-7, 7]) and their ``weights__scale`` of a frozen ``int8`` or
-    ``int4`` node, ``Linear`` edges (feedback edges too), and an ``RLS``
-    edge's ``weights`` and ``P``.  A state with ``"fb"`` (the feedback
-    outputs of a ``FeedbackNetwork``) sets the port network's carried
-    feedback outputs.
+    ``int4`` node, the edges' parameters (feedback edges too: ``weights``,
+    a mask, a filter, the float ``delays`` of an ``interp`` delay matrix,
+    an ``RLS`` edge's ``P``) and, in ``state``, the edges' states (the
+    delay buffers, a filter's ``y``, an STP edge's ``(u, x)``; a state
+    whose structure or shape differs raises ``KeyError``).  A state with
+    ``"fb"`` (the feedback outputs of a ``FeedbackNetwork``) sets the port
+    network's carried feedback outputs.
 
     Keys the port does not have raise ``KeyError``.  The padded copies of a
     JAX network with a fused step attached (``__wt_pad__``, ``__eta_pad__``,
@@ -123,8 +140,14 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
         y = _unpad_state(_numpy(y), node.y.shape[0], params.get("nodes", {}).get(label, {}))
         node.reset(y=y)
     for ekey, es in state.get("edges", {}).items():
-        if es is not None:
-            raise KeyError(f"Edge state of {ekey!r}: stateful edges are not ported.")
+        if es is None:
+            continue
+        u, _, v = ekey.partition("->")
+        try:
+            edge = net.get_edge(u, v)
+        except KeyError:
+            raise KeyError(f"Edge {ekey!r} does not exist in the port network.")
+        edge.set_state(_edge_state(ekey, es, edge.init_state()))
     if state.get("fb"):
         # the previous-step feedback outputs (the JAX network's _fb_store
         # after a run, else its sources' current outputs)

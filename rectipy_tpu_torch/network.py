@@ -29,8 +29,8 @@ they cross to the host once, at the end.
 
 Not ported yet (ROADMAP Queue 1 items 7 and 10-14): ``remat_steps`` and
 ``mesh=``, ``fit_bptt_multistart`` and ``fit_es``, ``fit_stdp`` and
-``fit_eprop``, the edge classes beyond ``Linear`` and ``RLS``, heterogeneous
-circuits, on-device input specs and spike rasters.
+``fit_eprop``, the STDP and block-sparse edges, heterogeneous circuits,
+on-device input specs and spike rasters.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ import numpy as np
 import torch
 from networkx import DiGraph
 
-from .edges import RLS, Linear
+from .edges import (RLS, Linear, LinearFilter, LinearMasked, LinearMemory, LinearMemoryFilter,
+                    LinearMemoryMatrix, LinearSTP)
 from .nodes import InstantNode, RateNet, SpikeNet, SpikeResetNet, resolve_device, resolve_dtype
 from .observer import Observer
 from .train import get_loss_function, get_optimizer
@@ -101,6 +102,8 @@ def _detach(tree):
     """A state tree cut out of the autograd graph (the truncation of BPTT)."""
     if isinstance(tree, dict):
         return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):  # an STP edge's (u, x)
+        return tuple(_detach(v) for v in tree)
     return tree.detach() if isinstance(tree, torch.Tensor) else tree
 
 
@@ -348,25 +351,53 @@ class Network:
 
     def add_edge(self, source: str, target: str, weights=None, train: Optional[str] = None,
                  edge_attrs: dict = None, **kwargs) -> Linear:
-        """Add an edge on the network's device.  ``train``:
+        """Add an edge on the network's device, in the network's dtype.  The
+        class follows the keyword arguments, as in the JAX package:
+        ``mask`` -> ``LinearMasked``; ``delays`` -> ``LinearMemory`` (1-D,
+        per source; with ``filter_weights`` ``LinearMemoryFilter``) or
+        ``LinearMemoryMatrix`` (2-D, per connection; ``mode``,
+        ``train_delays``, ``max_delay``, ``read_dtype``, ``fine_s``,
+        ``interp_impl``); ``filter_weights`` -> ``LinearFilter``;
+        ``tau_facil``/``tau_depress`` (and ``U``) -> ``LinearSTP`` with the
+        network's ``dt``; else ``Linear``.  Short-term plasticity combined
+        with a mask, delays or a filter, and a 2-D delay matrix with a
+        filter, raise ``ValueError``.  ``train``:
 
-        - ``None`` or ``'gd'``: a ``Linear`` edge in the network's dtype,
-          frozen or trained by ``fit_bptt``;
+        - ``None`` or ``'gd'``: the edge frozen or trained by ``fit_bptt``;
         - ``'rls'``: an ``RLS`` readout (``beta``, ``alpha``) that
           ``fit_rls`` trains online; its dtype is ``rls_dtype``, by default
           float64 (the JAX package takes float64 only with x64 on).
 
-        The other edge classes of the JAX package (chosen there by
-        ``mask``/``delays``/``filter_weights``/``tau_facil``/``tau_depress``
-        or block-sparse weights) and the rules ``'eprop'`` and ``'stdp'``
-        raise ``NotImplementedError``."""
+        Block-sparse weights and the rules ``'eprop'`` and ``'stdp'`` raise
+        ``NotImplementedError``."""
         edge_attrs = dict(edge_attrs or {})
         kwargs.pop("dtype", None)
         kwargs.pop("device", None)
-        special = sorted({"mask", "delays", "filter_weights", "tau_facil", "tau_depress"}
-                         & set(kwargs))
-        if special or hasattr(weights, "blocks"):
-            raise _todo(f"An edge with {'/'.join(special) or 'block-sparse weights'}", "10")
+        stp_req = {"tau_facil", "tau_depress"} & set(kwargs)
+        if stp_req and ({"mask", "delays", "filter_weights"} & set(kwargs)):
+            raise ValueError(
+                "Short-term plasticity (tau_facil/tau_depress) cannot be combined "
+                "with mask/delays/filter_weights on a single edge; chain two edges "
+                "through an identity func-node instead.")
+        if hasattr(weights, "blocks"):
+            raise _todo("An edge with block-sparse weights", "10")
+        if "mask" in kwargs:
+            EdgeClass = LinearMasked
+        elif "delays" in kwargs and np.ndim(kwargs["delays"]) == 2:
+            if "filter_weights" in kwargs:
+                raise ValueError(
+                    "A 2-D delay matrix cannot be combined with filter_weights; "
+                    "chain a LinearFilter edge through an identity func-node instead.")
+            EdgeClass = LinearMemoryMatrix
+        elif "delays" in kwargs:
+            EdgeClass = LinearMemoryFilter if "filter_weights" in kwargs else LinearMemory
+        elif "filter_weights" in kwargs:
+            EdgeClass = LinearFilter
+        elif stp_req:
+            EdgeClass = LinearSTP
+            kwargs["dt"] = self.dt
+        else:
+            EdgeClass = Linear
         if train not in (None, "gd", "rls"):
             if train in ("eprop", "stdp"):
                 raise _todo(f"train={train!r}", "12")
@@ -384,7 +415,7 @@ class Network:
         else:
             kwargs.update({"n_in": n_in, "n_out": n_out, "weights": weights,
                            "dtype": self.dtype, "device": self.device})
-            edge = Linear(**kwargs, detach=train is None)
+            edge = EdgeClass(**kwargs, detach=train is None)
         self.graph.add_edge(source, target, edge=edge, trainable=train == "gd",
                             n_in=edge.n_in, n_out=edge.n_out, **edge_attrs)
         self._invalidate()
@@ -659,16 +690,33 @@ class Network:
     def _prep_params(self, params: dict) -> dict:
         """Once-per-run parameter prep of each node (the quantization of a
         master coupling, the packing of a frozen int4 one, ``nodes.py``
-        ``prep_params``), applied before the
+        ``prep_params``) and each edge (the delay matrix's selectors,
+        ``edges.py`` ``LinearMemoryMatrix.prep_params``), applied before the
         time loop of ``run``, so it costs one pass per run, not per step.
-        The training paths never use it (the trajectories prep inside; plain
-        autograd needs the per-step STE matvec)."""
+        The training paths take the edge prep alone (``_prep_edge_params``):
+        the trajectories prep their nodes inside, and plain autograd needs
+        the per-step STE matvec."""
         nodes, changed = {}, False
         for n, sub in params["nodes"].items():
             prep = getattr(self.get_node(n), "prep_params", None)
             nodes[n] = prep(sub) if prep is not None else sub
             changed = changed or nodes[n] is not sub
+        params = self._prep_edge_params(params)
         return {**params, "nodes": nodes} if changed else params
+
+    def _prep_edge_params(self, params: dict) -> dict:
+        """The edges' prep alone, safe inside a differentiated loss: the
+        selectors of an ``interp`` delay matrix derive from its trainable
+        delays, so the prep must run inside the autograd graph for the
+        delays to get their gradient; once per epoch, chunk or minibatch,
+        never per step.  A swept ``delays`` (``(B, n_out, n_in)``) is
+        prepped per trial."""
+        edges, changed = {}, False
+        for k, sub in params["edges"].items():
+            prep = getattr(self.get_edge(*k.split("->")), "prep_params", None)
+            edges[k] = prep(sub) if prep is not None else sub
+            changed = changed or edges[k] is not sub
+        return {**params, "edges": edges} if changed else params
 
     def _write_back(self, state: dict = None, params: dict = None):
         """Push a state after a run, or trained parameters, back into the
@@ -682,6 +730,9 @@ class Network:
                 ns = state["nodes"].get(n)
                 if ns is not None and hasattr(node, "set_state"):
                     node.set_state(ns)
+            for k, es in state["edges"].items():
+                if es is not None:  # the buffers, filter states and (u, x)
+                    self.get_edge(*k.split("->")).set_state(_detach(es))
         if params is not None:
             for n, sub in params["nodes"].items():
                 node = self.get_node(n)
@@ -952,13 +1003,16 @@ class Network:
                     f"through it. Rebuild the node without it for fit_bptt_batch.")
 
     def _batch_state(self, state: dict, B: int) -> dict:
-        """The state tree with every node state and carried feedback output
-        repeated over ``B`` trials, ``(B, ...)``."""
+        """The state tree with every node state, edge state (an STP edge's
+        ``(u, x)`` each) and carried feedback output repeated over ``B``
+        trials, ``(B, ...)``."""
         def rows(t):
+            if isinstance(t, tuple):
+                return tuple(rows(v) for v in t)
             return None if t is None else t.expand((B,) + tuple(t.shape)).contiguous()
 
         out = {"nodes": {k: rows(v) for k, v in state["nodes"].items()},
-               "edges": dict(state["edges"])}
+               "edges": {k: rows(v) for k, v in state["edges"].items()}}
         if "fb" in state:
             out["fb"] = {k: rows(v) for k, v in state["fb"].items()}
         return out
@@ -1416,7 +1470,7 @@ class Network:
                 return self._batch_state(state0, mb)
 
             def batch_loss(train, frozen, state0, xs, tgt):
-                params = combine(train, frozen)
+                params = self._prep_edge_params(combine(train, frozen))
                 state, outs = state0, []
                 for x in xs.unbind(0):
                     state, out, _ = step(state, params, x)
@@ -1542,7 +1596,7 @@ class Network:
                 return state0
 
             def epoch_loss(train, frozen, state0, inp, tgt):
-                params = combine(train, frozen)
+                params = self._prep_edge_params(combine(train, frozen))
                 state, outs = state0, []
                 for x in inp.unbind(0):
                     state, out, _ = step(state, params, x)
@@ -1680,6 +1734,7 @@ class Network:
             rec_vars.append([v.detach() for v in vals])
 
         def forward(state, params, t0, t1):  # no update (T < u, and the leftover)
+            params = self._prep_edge_params(params)
             with torch.no_grad():
                 for t in range(t0, t1):
                     state, out, _ = step(state, params, inputs[t])
@@ -1706,7 +1761,7 @@ class Network:
                 return loss_fn(outs, targets[t0:t0 + u]), (new_state, outs, {})
         else:
             def chunk_loss(train, frozen, state, t0):
-                params = combine(train, frozen)
+                params = self._prep_edge_params(combine(train, frozen))
                 outs, vals = [], {}
                 for t in range(t0, t0 + u):
                     state, out, _ = step(state, params, inputs[t])

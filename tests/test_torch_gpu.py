@@ -1476,3 +1476,74 @@ def test_int4_mm_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         int4_mm_t(wp[:, :16].contiguous(), vq, vs, 64)
     with pytest.raises(ValueError, match="activations"):
         int4_mm_t(wp, vq.cpu(), vs, 64)
+
+
+# the edge family on the card (no kernel of its own: PyTorch operations on the
+# card's tensors), each against the same network on the CPU
+_EDGE_N, _EDGE_T = 96, 120
+
+
+def _edge_cases():
+    rng = np.random.default_rng(80)
+    n = _EDGE_N
+    D = rng.integers(0, 30, size=(n, n))
+    return {
+        "masked": dict(mask=(rng.random((n, n)) < 0.3).astype(np.float32)),
+        "delay": dict(delays=rng.integers(0, 30, size=n)),
+        "filter": dict(filter_weights=np.eye(n, dtype=np.float32) * 0.5),
+        "delay_filter": dict(delays=rng.integers(0, 30, size=n),
+                             filter_weights=np.eye(n, dtype=np.float32) * 0.5),
+        "stp": dict(tau_facil=0.5, tau_depress=0.3, U=0.3),
+        "matrix_onehot": dict(delays=D, mode="onehot"),
+        "matrix_factored": dict(delays=D, mode="factored"),
+        "matrix_gather": dict(delays=D, mode="gather"),
+        "matrix_interp_hat": dict(delays=D + 0.3, mode="interp", interp_impl="hat"),
+        "matrix_interp_factored2": dict(delays=D + 0.3, mode="interp",
+                                        interp_impl="factored2"),
+        "matrix_factored_bf16_read": dict(delays=D, mode="factored", read_dtype="bfloat16"),
+    }
+
+
+def _edge_net(device, **edge_kw):
+    rng = np.random.default_rng(81)
+    n = _EDGE_N
+    net = Network(1e-2, device=device)
+    net.add_func_node("inp", n, activation_function="identity")
+    net.add_diffeq_node("pop", "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh",
+                        weights=rng.normal(size=(n, n)) * (0.5 / np.sqrt(n)),
+                        input_var="li_op/I_ext", output_var="li_op/v",
+                        source_var="tanh_op/r", target_var="li_op/r_in")
+    net.add_edge("inp", "pop", weights=rng.normal(size=(n, n)) / np.sqrt(n), **edge_kw)
+    net.compile()
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_edge_cases()))
+def test_edge_class_on_card_matches_cpu(cuda, case):
+    # float32 on both: the products sum in another order, so the records
+    # agree to rtol 1e-4 of the largest value; run_batch's trials too
+    kw = _edge_cases()[case]
+    inp = np.abs(np.random.default_rng(82).normal(size=(_EDGE_T, _EDGE_N))).astype(np.float32)
+    outs = {}
+    for device in ("cpu", cuda):
+        net = _edge_net(device, **kw)
+        out = net.run(inp, sampling_steps=5, verbose=False).to_numpy("out")
+        batch = net.run_batch(np.stack([inp, inp[::-1].copy()]), sampling_steps=5)["out"]
+        state = net.get_edge("inp", "pop").init_state()  # None for the masked edge
+        state = state if isinstance(state, tuple) else (state,) if state is not None else ()
+        outs[str(device)] = (out, batch, *[s.cpu().numpy() for s in state])
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_delay_matrix_reads_are_bit_identical_on_card(cuda):
+    # each read selects exactly one buffer slot: factored, onehot and gather
+    # give the same records bit for bit while the products run without TF32
+    D = np.random.default_rng(83).integers(0, 60, size=(_EDGE_N, _EDGE_N))
+    inp = np.random.default_rng(84).normal(size=(_EDGE_T, _EDGE_N)).astype(np.float32)
+    recs = {mode: _edge_net(cuda, delays=D, mode=mode).run(inp, verbose=False).to_numpy("out")
+            for mode in ("factored", "onehot", "gather")}
+    np.testing.assert_array_equal(recs["factored"], recs["gather"])
+    np.testing.assert_array_equal(recs["onehot"], recs["gather"])

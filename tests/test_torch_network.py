@@ -171,9 +171,17 @@ def test_run_accepts_tensor_inputs_and_checks_shapes():
 
 def test_unported_network_features_raise():
     _, tnet = _pair(n=8)
-    for kw in ({"mask": np.ones((8, 1))}, {"delays": np.ones(1, dtype=int)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tnet.add_edge("inp", "qif", **kw)
+    # masks and delays are ported (tests/test_torch_edges.py); block-sparse
+    # weights are not (ROADMAP Queue 1 item 10, part 2)
+    from types import SimpleNamespace
+
+    from rectipy_tpu_torch import LinearMasked, LinearMemory
+
+    blocks = SimpleNamespace(blocks=np.ones((1, 1, 8, 1)))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        tnet.add_edge("inp", "qif", weights=blocks)
+    assert isinstance(tnet.add_edge("inp", "qif", mask=np.ones((8, 1))), LinearMasked)
+    assert isinstance(tnet.add_edge("inp", "qif", delays=np.ones(1, dtype=int)), LinearMemory)
     # the RLS readout and run(truncate_steps=) are ported; eprop/stdp are not
     for rule in ("eprop", "stdp"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
