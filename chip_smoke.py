@@ -15,7 +15,7 @@
    with inputs on which the coupling sets v' (the matvec).
 4. main_path: the bench network (qif_sfa SpikeResetNet with a seeded 10%
    row-normalised coupling, fed by a tanh node through a Linear edge) built
-   through the public API, the kernel attached, and Network.run over 20,000
+   through the public API, the kernel attached, and Network.run over 10,000
    steps, for a bf16 and an f32 coupling; the launch counter must equal the
    step count and the records must be finite; neuron-updates/s from the best
    of 3 timed runs.
@@ -52,7 +52,7 @@ Phases 11-14 (run after phase 6, while the main path's networks exist):
    margin must exceed 1); then each instance's ms, bound, plain ms and
    torch.mv ms (the matvecs alone).
 12. generic_path: examples/fused_kernels.py's LIF network (bf16 coupling)
-   with attach_generic_fused_step and Network.run over 20,000 steps; one
+   with attach_generic_fused_step and Network.run over 10,000 steps; one
    launch per step, finite records, neuron-updates/s from the best of 3.
 13. generic_vs_specialized: the main path's bf16 network with the generic
    kernel in place of attach_fused_qif_step over 2,000 steps, in turns
@@ -73,7 +73,7 @@ of csrc/int4_matvec.cu, the counterpart of benchmarks/i4pack_microbench.py):
    500-byte rows, which takes the scalar instantiations.
 16. int4_path: the main path's network (phase 4) without a fused kernel,
    with coupling_dtype="int4" and, in turns, "int8" (bench.py's default),
-   20,000 steps through Network.run, int4 best of 3 and int8 of 2 in
+   10,000 steps through Network.run, int4 best of 3 and int8 of 2 in
    turns; one int4_mv (or int8_mv) launch per step, finite records, the correlation of the int4 and int8
    records, each path's device-only step and idle share; then the same int4
    network on the CPU over 200 steps, held to the card's run under
@@ -99,16 +99,16 @@ kernels above, at N = 10,000):
 20. rls_path: FORCE learning. The main path's bf16 network (phase 4, the
    fused QIF+SFA kernel) with an identity readout of width 1 behind an RLS
    edge (beta 0.99, alpha 1, float64 P of 10,000 x 10,000): fit_rls over
-   20,000 steps of bench_inputs with the target sin(2 pi 2 t),
+   10,000 steps of bench_inputs with the target sin(2 pi 2 t),
    update_steps=10, sampling_steps=100, then Network.test on the same
-   inputs from the same initial state; 20,000 kernel launches per fit,
+   inputs from the same initial state; 10,000 kernel launches per fit,
    finite losses and weights, P symmetric; ms/step, the RLS update alone
    (cuda_ms) against its bound (P read twice and written once).
 21. rls_vs_cpu: the same FORCE fit (a fresh RLS edge, from the reservoir's
    state after phase 20) on the card and on the CPU for 200 steps with
    update_steps=10: readout records and W under fused_vs_plain's rule.
-22. ridge_path: fit_ridge on the same reservoir over 20,000 steps with
-   sampling_steps=10 (X is 2,000 x 10,000, float32 Gram matrix and solve
+22. ridge_path: fit_ridge on the same reservoir over 10,000 steps with
+   sampling_steps=10 (X is 1,000 x 10,000, float32 Gram matrix and solve
    on the card), alpha = 1e-3 x the largest eigenvalue of X X^T from a
    first run of the same inputs; the predictions held to numpy's float64
    solve of the same X on the host (its dual form, (X X^T + alpha I) c = y,
@@ -123,7 +123,7 @@ kernels above, at N = 10,000):
    N = 10,000 per population (two LIF populations with the generic kernel
    and a bf16 coupling, dense float32 feedforward p1 -> p2 and feedback
    p2 -> p1; the example's weights, sized for N = 100, scaled by 100/N),
-   20,000 steps, best of 2; two kernel launches per step; the device-only
+   10,000 steps, best of 2; two kernel launches per step; the device-only
    step and idle share; the first 200 steps on the CPU held to the card's
    under fused_vs_plain's rule.
 No kernel is added for phases 20-24; the kernels line lists the instances
@@ -277,7 +277,7 @@ operations; no kernel of its own):
    in a 0.14 m cube from default_rng(0), W = exp(-dist/0.06) normalised by
    in-strength x 40, D = rint(dist/speed/dt), a 1,157-step span, tau_e ~
    U(8e-3, 13e-3)) as a FeedbackNetwork self-edge brain -> brain; auto must
-   pick the factored read (S = 15, Q = 78).  Network.run of 10,000 steps
+   pick the factored read (S = 15, Q = 78).  Network.run of 4,000 steps
    (sampling_steps 100), best of 3, in turns with the same network with an
    instantaneous dense f32 edge and with mode="gather", each at 2,000
    steps: ms per step, region-updates/s, the delay overhead factor, each
@@ -293,7 +293,7 @@ operations; no kernel of its own):
    over 200 steps under the same rule; peak device memory.
 31. stp_feedback_path: phase 24's network (two LIF populations of N =
    10,000, bf16 couplings with the generic kernel, feedback_weights(N),
-   drive 100, 20,000 steps) with both edges LinearSTP: p1 -> p2 depressing
+   drive 100, 10,000 steps) with both edges LinearSTP: p1 -> p2 depressing
    (U 0.5, tau_depress 5, no facilitation), the feedback p2 -> p1
    facilitating (U 0.2, tau_facil 10, tau_depress 1), in turns with the
    plain-edge network (stp, plain, plain, stp); 40,000 generic launches a
@@ -314,6 +314,62 @@ operations; no kernel of its own):
    delays on the card against the CPU (FIT_LOSS_RTOL, FIT_GRAD_RTOL), and
    one fit_bptt epoch on the card, whose loss must be the same.
 
+
+Phases 33-36 (PR 18, after phase 32; block-sparse couplings and edges,
+ops/sparse.py and the block section of ops/quant.py, whose int8 contraction
+is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
+
+33. block_int8_check: block_int8_mv bit for bit against its plain version
+   on the card at B = 1, 3 and 16 trials, bs = 512, 32 and 20 (20 takes
+   the kernel's 4-byte pieces), with both index forms: a node coupling's
+   cols over (B, nb_in, bs) sources and a flat (nb_in * D1)-block history
+   index; then block_int8_timing at the million-neuron shape (1,954 block
+   rows x 4 x 512^2, random int8 operands), B = 1 and 16: its ms against
+   the byte bound, its plain version's ms and the yardstick, torch.bmm in
+   bf16 of the same integers (exact) over the gathered rows, float32 out.
+34. sparse_scale_path: benchmarks/sparse_scale.py's network at N =
+   1,000,448 (qif_sfa, dt 1e-4, fan-in 1,000, 512-neuron blocks, seed 0,
+   the native sampler, asserted; the tan etas, alpha 0.05, k 15), Pulse(T,
+   1, t_on=T//4, amp=3.0) as an array; Network.run of 2,000 steps with
+   sampling_steps=100 and the population mean of s, coupling_dtype="int8"
+   (block_int8_mv, 2,000 launches a run, asserted) in turns with
+   "bfloat16" (a gather and torch.bmm), best of 3: ms/step, nu/s, the
+   device's idle share, the kernel's share of the step, the block stream's
+   bytes/s, the sampling and build seconds, peak device memory; the host
+   float32 master is dropped after the build.  Then the SCALE_BATCH branch:
+   run_batch of 16 trials (etas + linspace(-1, 1, 16)) over 500 steps in
+   turns with the single trial (500 launches, asserted), trials 0 and 15
+   held to single-trial runs with their eta over 100 steps (rtol 1e-5);
+   and the same construction at N = 8,192 on the card against the CPU
+   over 200 steps under fused_vs_plain's rule, int8 and bf16.
+35. block_delay_path: benchmarks/block_delay_scale.py's network at N =
+   100,352 (196 patches, fan-in 1,000, seed 0, dt 1e-3, ring delays scaled
+   to 64 steps, etas 1000 + 200 N(0, 1) from default_rng(1), all coupling
+   on a FeedbackNetwork self-edge, Pulse(T, 1, t_on=T//8, amp=3.0)): four
+   variants in turns over 2,000 steps, best of 3: zero-delay, delayed f32,
+   delayed block_dtype="bfloat16" and delayed "int8_master" (block_int8_mv
+   on the gathered stack, 2,000 launches a run, asserted); ms/step, idle
+   share, the edge's step alone against its byte bound, block_int8_mv
+   alone at the edge's shape; two chunked runs of 1,000 steps equal to one
+   of 2,000 bit for bit (f32 and int8); the delayed run differs from the
+   zero-delay one; the card against the CPU at N = 8,192 over 200 steps.
+36. sparse_train_check: at N = 8,192, fit_bptt (2 epochs, T = 200, sgd)
+   through a block-coupled QIF node with float32 and int8_master weights on
+   the chain trajectory (asserted), one plain-autograd epoch through a
+   delayed f32 BlockSparseLinear edge (train="gd"), and 20 steps of a frozen
+   int8_master edge's source gradient (nonzero: the STE, where the JAX
+   package gives zeros), each on the card against the CPU (FIT_LOSS_RTOL,
+   FIT_GRAD_RTOL).
+The kernels line adds block_int8_mv (B = 1: the int8 run's launches),
+block_int8_mv[B=16] (the run_batch launches) and
+block_int8_mv[block_delay_path] (the int8 edge's launches, timed at its
+gathered-stack shape).
+
+PR 18 cut the depth of earlier paths so that the script, with phases 33-36,
+stays well inside its time limit: the forward paths (phases 4, 12, 16, 20,
+22, 24 and 31) run 10,000 steps where they ran 20,000, and phase 30's
+factored network 4,000 steps where it ran 10,000; no width changed.
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -333,7 +389,7 @@ import torch
 
 N = 10_000
 DT = 1e-4
-STEPS = 20_000
+STEPS = 10_000  # 20,000 until PR 18 (the time limit; see the module docstring)
 PLAIN_STEPS = 2_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
@@ -353,7 +409,7 @@ LIF = "rectipy_tpu_torch.models.spiking_neurons.lif.lif"
 TANH = "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh"
 KERNEL_SOURCE = "rectipy_tpu_torch/csrc/qif_sfa_step.cu"
 TPU_KERNEL = "rectipy_tpu/ops/kernels.py:53"
-SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant", "int4_matvec")
+SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant", "int4_matvec", "block_int8")
 GENERIC_SOURCE = "rectipy_tpu_torch/csrc/generic_fused_step.cuh"
 GENERIC_TPU_KERNEL = "rectipy_tpu/ops/generic_fused.py:46"
 I4_SOURCE = "rectipy_tpu_torch/csrc/int4_matvec.cu"
@@ -2889,7 +2945,7 @@ def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> list:
 # ------------------------------------------------------------ phases 30-32
 JR = "rectipy_tpu_torch.models.mean_field.jansen_rit.jansen_rit"
 WB_M, WB_DT, WB_SPEED = 998, 1e-4, 2.0  # benchmarks/whole_brain_scale.py's M=998 cell
-WB_T, WB_T_SHORT, WB_B = 10_000, 2_000, 8
+WB_T, WB_T_SHORT, WB_B = 4_000, 2_000, 8  # WB_T 10,000 until PR 18
 STP_DRIVE = 100.0  # feedback_phase's drive
 FAMILY_N, FAMILY_T, FAMILY_M, FAMILY_FIT_T = 1_000, 500, 90, 1_000
 # edge_family_check's fit: the card's loss and gradients (relative norm of
@@ -3313,6 +3369,544 @@ def edge_family_check(dev) -> None:
           "cases": lines, "fit_bptt": fit_line})
 
 
+# ------------------------------------------------------------- phases 33-36
+SPARSE_N, SPARSE_BS, SPARSE_FAN_IN = 1_000_448, 512, 1_000  # benchmarks/sparse_scale.py
+SPARSE_DT, SPARSE_T = 1e-4, 2_000
+SPARSE_B, SPARSE_T_B = 16, 500  # sparse_scale.py's SCALE_BATCH=16 branch at SCALE_T=500
+SPARSE_CMP_STEPS = 100  # the B=16 trials against single-trial runs
+SMALL_N = 8_192  # the card-vs-CPU and training width: 16 block rows of 512
+BD_N, BD_DMAX, BD_DT, BD_T = 100_352, 64, 1e-3, 2_000  # benchmarks/block_delay_scale.py
+SPARSE_TRAIN_T, SPARSE_TRAIN_LR = 200, 0.1
+BLOCK_SOURCE = "rectipy_tpu_torch/csrc/block_int8.cu"
+BLOCK_REPLACES = "port-only (the XLA einsum of rectipy_tpu/ops/quant.py:258)"
+
+
+def tan_etas(n: int) -> np.ndarray:
+    return -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, n + 1) - n - 1) / (n + 1))
+
+
+def pulse(steps: int, t_on: int, amp: float = 3.0) -> np.ndarray:
+    """rectipy_tpu.inputs.Pulse(steps, 1, t_on=t_on, amp=amp) as an array."""
+    drive = np.zeros((steps, 1), dtype=np.float32)
+    drive[t_on:, 0] = amp
+    return drive
+
+
+def sparse_net(A, etas, coupling, device):
+    """benchmarks/sparse_scale.py's network: qif_sfa with the block
+    coupling ``A`` at ``coupling_dtype=coupling``, dt 1e-4."""
+    from rectipy_tpu_torch import Network
+
+    net = Network(SPARSE_DT, device=device)
+    net.add_diffeq_node(
+        "qif", QIF_SFA, weights=A, source_var="s", target_var="s_in", input_var="I_ext",
+        output_var="s", spike_var="spike", spike_def="v", op="qif_sfa_op",
+        spike_threshold=1e2, spike_reset=-1e2,
+        node_vars={"all/qif_sfa_op/eta": etas, "all/qif_sfa_op/alpha": 0.05,
+                   "all/qif_sfa_op/k": 15.0}, coupling_dtype=coupling)
+    net.compile()
+    return net
+
+
+def block_bound(n_bytes: float, n_ops: float, peak: float) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def block_int8_timing(bq, rs, xq, idx) -> dict:
+    """block_int8_mv's ms on these operands, its plain version's, its bound
+    (each input read once, the float32 output written once) and the
+    yardstick: torch.bmm in bf16 of the same integers (exact) over the
+    gathered rows, float32 out (timed only, never on a path)."""
+    from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_plain
+
+    n_br, cb, bs, _ = bq.shape
+    B = xq.shape[0]
+    out = block_int8_mv(bq, rs, xq, idx)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out, block_int8_mv_plain(bq, rs, xq, idx)))
+    if not equal:
+        raise AssertionError(f"block_int8_mv differs from its plain version at B={B}")
+    ms = cuda_ms(lambda: block_int8_mv(bq, rs, xq, idx), reps=50)
+    plain_ms = cuda_ms(lambda: block_int8_mv_plain(bq, rs, xq, idx), reps=2)
+    a16 = bq.reshape(n_br * cb, bs, bs).to(torch.bfloat16)
+    x16 = xq[:, idx.long()].to(torch.bfloat16).permute(1, 2, 3, 0).reshape(n_br * cb, bs, B)
+    library_ms = cuda_ms(lambda: torch.bmm(a16, x16, out_dtype=torch.float32), reps=20)
+    del a16, x16
+    n_bytes = bq.numel() + rs.numel() * 4 + xq.numel() + idx.numel() * 4 + B * n_br * bs * 4
+    n_ops = 2.0 * B * n_br * cb * bs * bs
+    bound_ms, bound_by = block_bound(n_bytes, n_ops, INT8_OPS)
+    return {"B": B, "n": n_br * bs, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes, "ops": n_ops,
+            "share_of_bound": bound_ms / ms, "achieved_bytes_per_s": n_bytes / (ms * 1e-3),
+            "bit_identical": equal}
+
+
+def block_int8_check(dev) -> dict:
+    """Phase 33: block_int8_mv bit for bit against its plain version, and its
+    timing at the million-neuron shape."""
+    from rectipy_tpu_torch.ops.quant import (block_int8_mv, block_int8_mv_plain,
+                                             block_int8_mv_route)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+
+    def rint(shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=dev, generator=g)
+
+    n_br, cb, nb_in, d1 = 6, 4, 6, 5
+    cases = []
+    for B in (1, 3, SPARSE_B):
+        for bs in (512, 32, 20):
+            bq = rint((n_br, cb, bs, bs))
+            rs = torch.rand((n_br, bs), device=dev, generator=g)
+            cols = torch.stack([torch.randperm(nb_in, device=dev, generator=g)[:cb]
+                                for _ in range(n_br)]).to(torch.int32)
+            for form in ("cols", "history"):
+                if form == "cols":  # a node coupling: idx = cols over (B, nb_in, bs)
+                    xq, idx = rint((B, nb_in, bs)), cols
+                else:  # the edge's flat (nb_in * D1)-block history index
+                    slots = torch.randint(0, d1, (n_br, cb), device=dev, generator=g)
+                    xq, idx = rint((B, nb_in * d1, bs)), (cols * d1 + slots).to(torch.int32)
+                before = block_int8_mv.launches
+                out = block_int8_mv(bq, rs, xq, idx.contiguous())
+                torch.cuda.synchronize()
+                ref = block_int8_mv_plain(bq, rs, xq, idx)
+                if block_int8_mv.launches != before + 1 or not torch.equal(out, ref):
+                    raise AssertionError(f"block_int8_mv B={B} bs={bs} {form}: differs from "
+                                         f"its plain version")
+                cases.append({"B": B, "bs": bs, "index": form, "bit_identical": True,
+                              "route_bytes": block_int8_mv_route(bs, bq.data_ptr(),
+                                                                 xq.data_ptr())})
+    # why the kernel: PyTorch has no int8 batched product on the card
+    try:
+        ones = torch.ones((1, 2, 2), dtype=torch.int8, device=dev)
+        torch.bmm(ones, ones)
+        torch.cuda.synchronize()
+        torch_bmm_int8 = "ran"
+    except (RuntimeError, NotImplementedError) as err:
+        torch_bmm_int8 = f"{type(err).__name__}: {err}"
+    emit({"phase": "block_int8_check", "n_br": n_br, "cb": cb, "cases": cases,
+          "torch_bmm_int8": torch_bmm_int8})
+    n_br = SPARSE_N // SPARSE_BS
+    cb, bs = 4, SPARSE_BS
+    bq = rint((n_br, cb, bs, bs))
+    rs = torch.rand((n_br, bs), device=dev, generator=g)
+    idx = torch.stack([torch.randperm(n_br, device=dev, generator=g)[:cb]
+                       for _ in range(n_br)]).to(torch.int32)
+    timing = {B: block_int8_timing(bq, rs, rint((B, n_br, bs)), idx) for B in (1, SPARSE_B)}
+    del bq, rs, idx
+    torch.cuda.empty_cache()
+    emit({"phase": "block_int8_timing", "n_br": n_br, "cb": cb, "bs": bs,
+          "random_int8_operands": True, "by_trials": list(timing.values())})
+    return timing
+
+
+def sparse_scale_phase(dev, timing: dict) -> list:
+    """Phase 34: benchmarks/sparse_scale.py's N = 1,000,448 network on the
+    card, int8 (block_int8_mv) in turns with bf16 (gather + torch.bmm), the
+    B = 16 sweep, and the card against the CPU at N = 8,192."""
+    from rectipy_tpu_torch import block_random_connectivity
+    from rectipy_tpu_torch.ops.quant import block_int8_mv
+
+    N = SPARSE_N
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A = block_random_connectivity(N, N, SPARSE_FAN_IN, block_size=SPARSE_BS, seed=0)
+    sample_s = time.perf_counter() - t0
+    backend = block_random_connectivity.last_backend
+    if backend != "native":
+        raise AssertionError(f"sparse_scale_path: the sampler took {backend}, not native")
+    n_br, cb = A.cols.shape
+    stored = A.blocks.size  # weights streamed a step
+    etas = tan_etas(N)
+    nets, build_s = {}, {}
+    for coupling in ("int8", "bfloat16"):
+        t0 = time.perf_counter()
+        nets[coupling] = sparse_net(A, etas, coupling, dev)
+        torch.cuda.synchronize()
+        build_s[coupling] = time.perf_counter() - t0
+    del A  # the host float32 master (8.2 GB), as sparse_scale.py drops it
+    drive = torch.as_tensor(pulse(SPARSE_T, SPARSE_T // 4), device=dev)
+    kw = dict(record_output=False, record_vars=[("qif", "s", True)], sampling_steps=100)
+    first, launches = {}, {}
+    for c, net in nets.items():
+        net.reset()
+        before = block_int8_mv.launches
+        first[c], obs = timed_run(net, drive, **kw)
+        launches[c] = block_int8_mv.launches - before
+        rec = obs.to_numpy(("qif", "s"))
+        if rec.shape != (SPARSE_T // 100,) or not np.all(np.isfinite(rec)):
+            raise AssertionError(f"sparse_scale_path {c}: bad records {rec.shape}")
+    if launches != {"int8": SPARSE_T, "bfloat16": 0}:
+        raise AssertionError(f"sparse_scale_path: block_int8_mv launches {launches}")
+    times, recs = {c: [] for c in nets}, {}
+    for _ in range(3):  # in turns, best of 3
+        for c, net in nets.items():
+            net.reset()
+            sec, obs = timed_run(net, drive, **kw)
+            times[c].append(sec)
+            recs[c] = obs.to_numpy(("qif", "s"))
+            if not np.all(np.isfinite(recs[c])):
+                raise AssertionError(f"sparse_scale_path {c}: non-finite records")
+    ms = {c: min(v) / SPARSE_T * 1e3 for c, v in times.items()}
+    x0 = torch.full((1,), 3.0, device=dev)
+    dev_ms = {c: device_step_ms(net, x0, reps=8) for c, net in nets.items()}
+    corr = (float(np.corrcoef(recs["int8"], recs["bfloat16"])[0, 1])
+            if recs["int8"].std() > 0 and recs["bfloat16"].std() > 0 else None)
+
+    # the B = 16 eta sweep in turns with the single trial, T = 500
+    net = nets["int8"]
+    sweep = np.linspace(-1.0, 1.0, SPARSE_B)[:, None] + etas[None, :]
+    bvars = {("qif", "eta"): sweep}
+    drive_b = drive[:SPARSE_T_B]
+    net.reset()
+    before = block_int8_mv.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.run_batch(drive_b, batch_vars=bvars, **kw)
+    torch.cuda.synchronize()
+    first_b = time.perf_counter() - t0
+    launches_b = block_int8_mv.launches - before
+    if launches_b != SPARSE_T_B:
+        raise AssertionError(f"sparse_scale_path: {launches_b} launches for {SPARSE_T_B} "
+                             f"batched steps")
+    b_times, s_times = [], []
+    for _ in range(3):
+        net.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = net.run_batch(drive_b, batch_vars=bvars, **kw)
+        torch.cuda.synchronize()
+        b_times.append(time.perf_counter() - t0)
+        if res[("qif", "s")].shape != (SPARSE_B, SPARSE_T_B // 100) or not np.all(
+                np.isfinite(res[("qif", "s")])):
+            raise AssertionError("sparse_scale_path: bad run_batch records")
+        net.reset()
+        s_times.append(timed_run(net, drive_b, **kw)[0])
+    b_best, s_best = min(b_times), min(s_times)
+    # trials 0 and B-1 against single-trial runs with their eta (the int8
+    # sums are exact on both sides; the records are population means)
+    cmp_in = drive[SPARSE_T // 4:SPARSE_T // 4 + SPARSE_CMP_STEPS]
+    cmp_kw = dict(record_output=False, record_vars=[("qif", "v", True)], sampling_steps=10)
+    net.reset()
+    res = net.run_batch(cmp_in, batch_vars=bvars, **cmp_kw)[("qif", "v")]
+    node, trial_diff = net.get_node("qif"), {}
+    for b in (0, SPARSE_B - 1):
+        net.reset()
+        node.set_param("eta", sweep[b])
+        single = net.run(cmp_in, verbose=False, **cmp_kw).to_numpy(("qif", "v"))
+        np.testing.assert_allclose(res[b], single, rtol=1e-5, atol=1e-5 * np.abs(single).max())
+        trial_diff[b] = float(np.abs(res[b] - single).max())
+    node.set_param("eta", etas)
+    peak = torch.cuda.max_memory_allocated()
+    del nets, net, node, drive, drive_b, res
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at N = 8,192 over CPU_STEPS steps
+    A8 = block_random_connectivity(SMALL_N, SMALL_N, SPARSE_FAN_IN, block_size=SPARSE_BS, seed=0)
+    d8 = pulse(CPU_STEPS, CPU_STEPS // 4)
+    vs, v_kw = {}, dict(record_output=False, record_vars=[("qif", "v", True)], sampling_steps=10)
+    for c in ("int8", "bfloat16"):
+        out = {device: sparse_net(A8, tan_etas(SMALL_N), c, device).run(
+            d8, verbose=False, **v_kw).to_numpy(("qif", "v")) for device in ("cpu", dev)}
+        vs[c] = vs_cpu(f"sparse_scale_path {c} card vs cpu", out[dev], out["cpu"])
+    step_bytes = {"int8": stored, "bfloat16": 2 * stored}
+    kernel_ms = timing[1]["ms"]
+    emit({"phase": "sparse_scale_path", "template": "qif_sfa", "n": N, "block_rows": n_br,
+          "source_blocks": cb, "block_size": SPARSE_BS, "fan_in": SPARSE_FAN_IN, "dt": SPARSE_DT,
+          "sampler": backend, "sample_s": sample_s, "build_s": build_s, "steps": SPARSE_T,
+          "first_run_s": first, "run_s": times, "ms_per_step": ms,
+          "neuron_updates_per_s": {c: N / (v * 1e-3) for c, v in ms.items()},
+          "device_step_ms": dev_ms,
+          "device_idle_share": {c: 1.0 - dev_ms[c] / ms[c] for c in ms},
+          "block_int8_mv_launches": launches["int8"], "block_int8_mv_ms": kernel_ms,
+          "kernel_share_of_step": kernel_ms / ms["int8"],
+          "block_stream_bytes_per_step": step_bytes,
+          "block_stream_bytes_per_s": {c: step_bytes[c] / (ms[c] * 1e-3) for c in ms},
+          "corr_int8_bf16": corr,
+          "run_batch": {"B": SPARSE_B, "steps": SPARSE_T_B, "first_run_s": first_b,
+                        "run_s": b_times, "single_run_s": s_times,
+                        "ms_per_step": b_best / SPARSE_T_B * 1e3,
+                        "single_ms_per_step": s_best / SPARSE_T_B * 1e3,
+                        "aggregate_neuron_updates_per_s": SPARSE_B * SPARSE_T_B * N / b_best,
+                        "ratio_to_single": SPARSE_B * s_best / b_best,
+                        "block_int8_mv_launches": launches_b,
+                        "trials_vs_single_max_abs_diff": trial_diff,
+                        "trial_steps": SPARSE_CMP_STEPS},
+          "vs_cpu": {"n": SMALL_N, "steps": CPU_STEPS, **vs},
+          "max_memory_allocated_bytes": peak})
+    out = []
+    for B, n_launch, name in ((1, launches["int8"], "block_int8_mv"),
+                              (SPARSE_B, launches_b, f"block_int8_mv[B={SPARSE_B}]")):
+        t = timing[B]
+        out.append({"name": name, "route": "cuda", "source": BLOCK_SOURCE,
+                    "replaces": BLOCK_REPLACES, "launches": n_launch, "max_abs_err": 0.0,
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    return out
+
+
+def bd_data(N: int):
+    """benchmarks/block_delay_scale.py's network data: the block coupling
+    (fan-in 1,000, seed 0), ring delays scaled to [0, BD_DMAX] and the
+    etas 1000 + 200 N(0, 1) from default_rng(1)."""
+    from rectipy_tpu_torch import block_random_connectivity
+
+    A = block_random_connectivity(N, N, 1_000, block_size=SPARSE_BS, seed=0)
+    nb = N // SPARSE_BS
+    ring = np.abs(A.cols - np.arange(nb)[:, None])
+    ring = np.minimum(ring, nb - ring).astype(float)
+    d_blk = np.rint(ring / max(ring.max(), 1.0) * BD_DMAX).astype(int)
+    etas = 1000.0 + 200.0 * np.random.default_rng(1).standard_normal(N)
+    return A, d_blk, etas
+
+
+def bd_net(N: int, A, d_blk, etas, device, **edge_kw):
+    """All recurrent coupling on a FeedbackNetwork self-edge: a
+    BlockSparseLinear with per-block delays d_blk (None: no delays)."""
+    from rectipy_tpu_torch import FeedbackNetwork
+
+    net = FeedbackNetwork(BD_DT, device=device)
+    net.add_diffeq_node(
+        "qif", QIF_SFA, n=N, input_var="I_ext", output_var="s", spike_var="spike",
+        spike_def="v", op="qif_sfa_op", spike_threshold=1e2, spike_reset=-1e2,
+        node_vars={"all/qif_sfa_op/eta": etas, "all/qif_sfa_op/alpha": 0.05,
+                   "all/qif_sfa_op/k": 15.0})
+    net.add_edge("qif", "qif", weights=A, delays=d_blk, feedback=True, **edge_kw)
+    net.compile()
+    return net
+
+
+BD_VARIANTS = {"zero_delay": (False, {}), "delay_f32": (True, {}),
+               "delay_bf16": (True, {"block_dtype": "bfloat16"}),
+               "delay_int8": (True, {"block_dtype": "int8_master"})}
+
+
+def block_delay_phase(dev) -> list:
+    """Phase 35: benchmarks/block_delay_scale.py's N = 100,352 network, four
+    variants in turns, the edge's read + contraction against its bound,
+    chunked runs, and the card against the CPU at N = 8,192."""
+    from rectipy_tpu_torch import block_random_connectivity
+    from rectipy_tpu_torch.ops.quant import block_int8_mv
+
+    N = BD_N
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A, d_blk, etas = bd_data(N)
+    sample_s = time.perf_counter() - t0
+    if block_random_connectivity.last_backend != "native":
+        raise AssertionError("block_delay_path: the sampler did not take the native backend")
+    nets, build_s = {}, {}
+    for k, (delayed, ekw) in BD_VARIANTS.items():
+        t0 = time.perf_counter()
+        nets[k] = bd_net(N, A, d_blk if delayed else None, etas, dev, **ekw)
+        torch.cuda.synchronize()
+        build_s[k] = time.perf_counter() - t0
+    n_br, cb = A.cols.shape
+    drive = torch.as_tensor(pulse(BD_T, BD_T // 8), device=dev)
+    kw = dict(record_output=False, record_vars=[("qif", "s", True)], sampling_steps=100)
+    first, launches, first_recs = {}, {}, {}
+    for k, net in nets.items():
+        before = block_int8_mv.launches
+        first[k], obs = timed_run(net, drive, **kw)
+        launches[k] = block_int8_mv.launches - before
+        first_recs[k] = obs.to_numpy(("qif", "s"))
+        if first_recs[k].shape != (BD_T // 100,) or not np.all(np.isfinite(first_recs[k])):
+            raise AssertionError(f"block_delay_path {k}: bad records")
+    want = {k: BD_T if k == "delay_int8" else 0 for k in nets}
+    if launches != want:
+        raise AssertionError(f"block_delay_path: block_int8_mv launches {launches}")
+    delay_effect = float(np.abs(first_recs["delay_f32"] - first_recs["zero_delay"]).max())
+    if delay_effect == 0.0:
+        raise AssertionError("block_delay_path: the delayed run equals the zero-delay run")
+    times = {k: [] for k in nets}
+    for _ in range(3):  # in turns, best of 3
+        for k, net in nets.items():
+            net.reset()
+            sec, obs = timed_run(net, drive, **kw)
+            times[k].append(sec)
+            if not np.all(np.isfinite(obs.to_numpy(("qif", "s")))):
+                raise AssertionError(f"block_delay_path {k}: non-finite records")
+    ms = {k: min(v) / BD_T * 1e3 for k, v in times.items()}
+    x0 = torch.full((1,), 3.0, device=dev)
+    dev_ms = {k: device_step_ms(net, x0, reps=8) for k, net in nets.items()}
+    # the edge's step alone: the history write and read and the contraction
+    reads = {}
+    x = torch.rand(N, device=dev)
+    for k, net in nets.items():
+        edge = net.get_edge("qif", "qif")
+        step, params = edge.make_step(), edge.prep_params(dict(edge.params))
+        state = edge.init_state()
+        with torch.no_grad():
+            r_ms = cuda_ms(lambda: step(state, params, x), reps=20)
+        w = 1 if k == "delay_int8" else 2 if k == "delay_bf16" else 4
+        # the blocks, the cb * N gathered source values, x in and y out
+        n_bytes = N * cb * SPARSE_BS * w + cb * N * 4 + 2 * N * 4
+        reads[k] = {"ms": r_ms, "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                    "share_of_bound": n_bytes / HBM_BYTES_PER_S * 1e3 / r_ms}
+    # the kernel alone at the edge's shape: the quantized blocks over a
+    # gathered (1, n_br * cb, bs) stack
+    edge = nets["delay_int8"].get_edge("qif", "qif")
+    bq, scale = edge.prep_params(dict(edge.params))["weights"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(35)
+    xq = torch.randint(-127, 128, (1, n_br * cb, SPARSE_BS), dtype=torch.int8, device=dev,
+                       generator=g)
+    idx = torch.arange(n_br * cb, dtype=torch.int32, device=dev).reshape(n_br, cb)
+    k_t = block_int8_timing(bq, scale, xq, idx)
+    del bq, scale, xq, edge
+    peak = torch.cuda.max_memory_allocated()
+    del nets
+    torch.cuda.empty_cache()
+
+    # two chunked runs of BD_T/2 steps equal one of BD_T, bit for bit
+    chunked = {}
+    for k in ("delay_f32", "delay_int8"):
+        ekw = BD_VARIANTS[k][1]
+        full = bd_net(N, A, d_blk, etas, dev, **ekw).run(drive, verbose=False, **kw)
+        parts = bd_net(N, A, d_blk, etas, dev, **ekw)
+        a = parts.run(drive[:BD_T // 2], verbose=False, **kw).to_numpy(("qif", "s"))
+        b = parts.run(drive[BD_T // 2:], verbose=False, **kw).to_numpy(("qif", "s"))
+        same = bool(np.array_equal(np.concatenate([a, b]), full.to_numpy(("qif", "s"))))
+        hist = parts.get_edge("qif", "qif").init_state()
+        if not same or int(hist[1]) != BD_T:
+            raise AssertionError(f"block_delay_path {k}: chunked runs differ from one run")
+        chunked[k] = same
+        del full, parts
+        torch.cuda.empty_cache()
+    del A
+
+    # the card against the CPU at N = 8,192 over CPU_STEPS steps
+    A8, d8, e8 = bd_data(SMALL_N)
+    drive8 = pulse(CPU_STEPS, CPU_STEPS // 8)
+    v_kw = dict(record_output=False, record_vars=[("qif", "v", True)], sampling_steps=10)
+    vs = {}
+    for k in ("delay_f32", "delay_int8"):
+        out = {device: bd_net(SMALL_N, A8, d8, e8, device, **BD_VARIANTS[k][1]).run(
+            drive8, verbose=False, **v_kw).to_numpy(("qif", "v")) for device in ("cpu", dev)}
+        vs[k] = vs_cpu(f"block_delay_path {k} card vs cpu", out[dev], out["cpu"])
+    emit({"phase": "block_delay_path", "template": "qif_sfa", "n": N, "patches": n_br,
+          "source_blocks": cb, "block_size": SPARSE_BS, "fan_in": 1_000, "dt": BD_DT,
+          "d_max": BD_DMAX, "history_slots": BD_DMAX + 1, "sample_s": sample_s,
+          "build_s": build_s, "steps": BD_T, "first_run_s": first, "run_s": times,
+          "ms_per_step": ms, "neuron_updates_per_s": {k: N / (v * 1e-3) for k, v in ms.items()},
+          "device_step_ms": dev_ms,
+          "device_idle_share": {k: 1.0 - dev_ms[k] / ms[k] for k in ms},
+          "edge_step": reads, "block_int8_mv_launches": launches["delay_int8"],
+          "block_int8_mv_at_edge_shape": k_t, "delayed_vs_zero_delay_max_abs_diff": delay_effect,
+          "chunked_equals_one_run_bit_for_bit": chunked,
+          "vs_cpu": {"n": SMALL_N, "steps": CPU_STEPS, **vs},
+          "max_memory_allocated_bytes": peak})
+    return [{"name": "block_int8_mv[block_delay_path]", "route": "cuda",
+             "source": BLOCK_SOURCE, "replaces": BLOCK_REPLACES,
+             "launches": launches["delay_int8"], "max_abs_err": 0.0, "ms": k_t["ms"],
+             "plain_ms": k_t["plain_ms"], "bound_ms": k_t["bound_ms"],
+             "bound_by": k_t["bound_by"], "library_ms": k_t["library_ms"]}]
+
+
+def rel_norm(a: np.ndarray, b: np.ndarray) -> float:
+    """||a - b|| / ||b|| in float64."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
+
+
+def sparse_train_check(dev) -> None:
+    """Phase 36: fit_bptt through a block-coupled node (float32 and
+    int8_master, the chain trajectory) and one epoch through a delayed f32
+    BlockSparseLinear edge, on the card against the CPU; a frozen
+    int8_master edge's source gradient, nonzero, against the CPU's."""
+    from rectipy_tpu_torch import BlockSparseLinear, Network, block_random_connectivity
+
+    N, T = SMALL_N, SPARSE_TRAIN_T
+    A = block_random_connectivity(N, N, SPARSE_FAN_IN, block_size=SPARSE_BS, seed=0)
+    rng = np.random.default_rng(18)
+    etas = 20.0 + rng.random(N)  # every neuron spikes within the window
+    inp = (rng.normal(size=(T, N)) * 2.0 + 5.0).astype(np.float32)
+    tgt = (rng.normal(size=(T, N)) * 0.1).astype(np.float32)
+    node_fits = {}
+    for coupling in ("float32", "int8_master"):
+        res = {}
+        for device in (dev, "cpu"):
+            net = Network(1e-2, device=device)
+            net.add_diffeq_node("qif", QIF, weights=A, input_var="I_ext", output_var="s",
+                                source_var="s", target_var="s_in", op="qif_op",
+                                spike_var="spike", spike_def="v", spike_threshold=100.0,
+                                spike_reset=-100.0, node_vars={"all/qif_op/eta": etas},
+                                coupling_dtype=None if coupling == "float32" else coupling,
+                                train_params=["weights"])
+            net.compile()
+            w0 = net.get_node("qif")["weights"].detach().cpu().numpy()
+            t0 = time.perf_counter()
+            obs = net.fit_bptt([inp] * 2, [tgt] * 2, optimizer="sgd", lr=SPARSE_TRAIN_LR,
+                               verbose=False)
+            seconds = time.perf_counter() - t0
+            if net.last_fit["trajectory"] != "chain":
+                raise AssertionError(f"sparse_train_check {coupling}: took {net.last_fit}")
+            dw = net.get_node("qif")["weights"].detach().cpu().numpy() - w0
+            res[str(device)] = (np.asarray(obs["epoch_loss"], dtype=np.float64), dw, seconds)
+            del net
+        (lc, dc, sc), (lp, dp, sp) = res[str(dev)], res["cpu"]
+        loss_rtol = float(np.abs(lc - lp).max() / np.abs(lp).max())
+        grad_rel = rel_norm(dc, dp)
+        if not (np.all(np.isfinite(lc)) and loss_rtol <= FIT_LOSS_RTOL
+                and grad_rel <= FIT_GRAD_RTOL and np.abs(dp).max() > 0):
+            raise AssertionError(f"sparse_train_check {coupling}: losses {lc} vs {lp}, "
+                                 f"gradient relative norm {grad_rel}")
+        node_fits[coupling] = {"losses": lc.tolist(), "cpu_losses": lp.tolist(),
+                               "loss_rtol": loss_rtol, "weights_grad_rel_norm": grad_rel,
+                               "card_fit_s": sc, "cpu_fit_s": sp, "trajectory": "chain"}
+
+    # one epoch through a delayed f32 BlockSparseLinear feedback edge
+    A8, d8, e8 = bd_data(N)
+    drive = pulse(T, T // 8)
+    edge_fit = {}
+    for device in (dev, "cpu"):
+        net = bd_net(N, A8, d8, e8, device, train="gd")
+        teacher = bd_net(N, A8, d8, e8, device).run(drive, verbose=False).to_numpy("out")
+        edge = net.get_edge("qif", "qif")
+        edge.weights = edge.weights * 1.05
+        loss, grads = epoch_loss_and_grads(net, drive, teacher)
+        obs = net.fit_bptt([drive], [teacher], optimizer="sgd", lr=1e-3, verbose=False)
+        edge_fit[str(device)] = (loss, grads, float(obs["epoch_loss"][0]))
+        del net
+    (lc, gc, fc), (lp, gp, fp) = edge_fit[str(dev)], edge_fit["cpu"]
+    g_rel = {k: rel_norm(gc[k], gp[k]) for k in gp}
+    if not (abs(lc - lp) <= FIT_LOSS_RTOL * abs(lp) and abs(fc - lc) <= FIT_LOSS_RTOL * abs(lc)
+            and all(v <= FIT_GRAD_RTOL for v in g_rel.values())):
+        raise AssertionError(f"sparse_train_check edge: loss {lc} vs {lp} (fit {fc}), "
+                             f"gradients {g_rel}")
+
+    # a frozen int8_master edge passes source gradients (the STE's)
+    src_grad = {}
+    g = np.random.default_rng(36)
+    xs = g.normal(size=(20, N)).astype(np.float32)
+    gs = g.normal(size=(20, N)).astype(np.float32)
+    for device in (dev, "cpu"):
+        e = BlockSparseLinear(N, N, weights=A8, delays=d8, block_dtype="int8_master",
+                              device=device)
+        params, step = e.prep_params(dict(e.params)), e.make_step()
+        x = torch.as_tensor(xs, device=device).requires_grad_(True)
+        state, total = e.init_state(), 0.0
+        for t in range(xs.shape[0]):
+            state, y = step(state, params, x[t])
+            total = total + (y * torch.as_tensor(gs[t], device=device)).sum()
+        (gx,) = torch.autograd.grad(total, x)
+        src_grad[str(device)] = gx.cpu().numpy()
+    s_rel = rel_norm(src_grad[str(dev)], src_grad["cpu"])
+    s_max = float(np.abs(src_grad[str(dev)]).max())
+    if not (s_max > 0 and s_rel <= FIT_GRAD_RTOL):
+        raise AssertionError(f"sparse_train_check: frozen int8_master source gradient max "
+                             f"{s_max}, card vs cpu {s_rel}")
+    emit({"phase": "sparse_train_check", "n": N, "steps": T, "epochs": 2,
+          "optimizer": "sgd", "node_fits": node_fits,
+          "delayed_edge_epoch": {"loss": lc, "cpu_loss": lp, "fit_loss": fc,
+                                 "grad_rel_norm": g_rel},
+          "frozen_int8_master_edge_source_grad": {"max_abs": s_max, "card_vs_cpu_rel_norm": s_rel,
+                                                  "steps": xs.shape[0]},
+          "loss_rtol": FIT_LOSS_RTOL, "grad_rtol": FIT_GRAD_RTOL})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3543,6 +4137,11 @@ def main() -> int:
     whole_brain_phase(dev)
     kernels += stp_feedback_phase(dev)
     edge_family_check(dev)
+    torch.cuda.empty_cache()
+    timing = block_int8_check(dev)
+    kernels += sparse_scale_phase(dev, timing)
+    kernels += block_delay_phase(dev)
+    sparse_train_check(dev)
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

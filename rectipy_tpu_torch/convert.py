@@ -39,10 +39,17 @@ def _numpy(val) -> np.ndarray:
     return arr
 
 
-def _like(val, old):
-    """``val`` in the device/dtype of the port's current value ``old``."""
+def _like(val, old, where: str = ""):
+    """``val`` in the device/dtype of the port's current value ``old``.  A
+    matrix or block tensor (two or more axes on either side: a coupling, its
+    blocks, a block-column table) must keep its shape, or ``KeyError``; the
+    values are carried as they are (quantized ones are never requantized)."""
     if isinstance(old, torch.Tensor):
-        return torch.as_tensor(_numpy(val)).to(device=old.device, dtype=old.dtype)
+        arr = _numpy(val)
+        if (old.dim() >= 2 or arr.ndim >= 2) and tuple(arr.shape) != tuple(old.shape):
+            raise KeyError(f"{where} has shape {tuple(arr.shape)} in the JAX network and "
+                           f"{tuple(old.shape)} in the port's.")
+        return torch.as_tensor(arr).to(device=old.device, dtype=old.dtype)
     return float(np.asarray(val))
 
 
@@ -89,11 +96,15 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
     the float master ``weights`` of a ``bfloat16_master``, ``int8_master``
     or ``int4_master`` node, the int8 ``weights`` (for ``int4``, the int8
     carrier of [-7, 7]) and their ``weights__scale`` of a frozen ``int8`` or
-    ``int4`` node, the edges' parameters (feedback edges too: ``weights``,
-    a mask, a filter, the float ``delays`` of an ``interp`` delay matrix,
-    an ``RLS`` edge's ``P``) and, in ``state``, the edges' states (the
-    delay buffers, a filter's ``y``, an STP edge's ``(u, x)``; a state
-    whose structure or shape differs raises ``KeyError``).  A state with
+    ``int4`` node, a block-sparse coupling (its blocks, ``weights__cols``
+    and a frozen ``int8`` one's ``weights__scale``, carried as they are),
+    the edges' parameters (feedback edges too: ``weights``, a
+    ``BlockSparseLinear``'s blocks, a mask, a filter, the float ``delays``
+    of an ``interp`` delay matrix, an ``RLS`` edge's ``P``) and, in
+    ``state``, the edges' states (the delay buffers, a filter's ``y``, an
+    STP edge's ``(u, x)``, a block edge's ``(hist, t)``; a state whose
+    structure or shape differs raises ``KeyError``, and so does a
+    parameter with two or more axes whose shape differs).  A state with
     ``"fb"`` (the feedback outputs of a ``FeedbackNetwork``) sets the port
     network's carried feedback outputs.
 
@@ -116,7 +127,7 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
                 continue
             if key not in args:
                 raise KeyError(f"Node {label!r} has no parameter {key!r} in the port.")
-            args[key] = _like(val, args[key])
+            args[key] = _like(val, args[key], f"Parameter {key!r} of node {label!r}")
         for refresh in getattr(node, "_fused_refresh", {}).values():
             refresh()
     for ekey, sub in params.get("edges", {}).items():
@@ -128,7 +139,7 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
         for key, val in sub.items():
             if key not in eparams:
                 raise KeyError(f"Edge {ekey!r} has no parameter {key!r} in the port.")
-            eparams[key] = _like(val, eparams[key])
+            eparams[key] = _like(val, eparams[key], f"Parameter {key!r} of edge {ekey!r}")
     if state is None:
         return
     for label, y in state.get("nodes", {}).items():

@@ -23,8 +23,19 @@ Couplings, every dense type of the JAX package:
   the source is STE-rounded to int8 by ``max|src|/127`` in its own dtype,
   so gradients reach the source (not the frozen weights).
 The int4 products run on weights packed two per byte (``ops/quant.py``
-``pack_int4``).  Block-sparse couplings are not ported yet (ROADMAP Queue 1
-item 10) and raise ``NotImplementedError``.
+``pack_int4``).
+
+A block-sparse coupling (``ops/sparse.BlockSparseCoupling``) stores its
+``(n_br, cb, bs, bs)`` blocks under the coupling's key and the int32
+block-column table under ``<key>__cols``: float32/float64/bfloat16 blocks
+(``ops/sparse.block_sparse_matvec``, float32-rounded as the JAX package's
+``preferred_element_type``), ``'bfloat16_master'`` (prepped to bfloat16
+once per run), frozen ``int8`` (quantized per output row on the device at
+build, ``<key>__scale``; no source gradient, as in the JAX package) and
+``'int8_master'`` (quantized by ``prep_args`` once per run, or by the
+per-step STE matvec in plain-autograd training); every int8 block product
+is the ``block_int8_mv`` kernel.  int4 block couplings raise
+``NotImplementedError``, as in the JAX package.
 
 Besides ``func``, the lowering gives the deferred-gradient trajectories
 (``ops/bptt.py``) and the generic fused step (``ops/generic_fused.py``)
@@ -203,6 +214,22 @@ def _frozen_quant_matvec(wq: torch.Tensor, w_mv: torch.Tensor, scale: torch.Tens
     return _FrozenQuantDot.apply(src / s_scale, wq, w_mv, scale, mv).to(src.dtype) * s_scale
 
 
+def _frozen_block_matvec(wq: torch.Tensor, scale: torch.Tensor, cols: torch.Tensor,
+                         src: torch.Tensor) -> torch.Tensor:
+    """Frozen int8 block coupling (the JAX lowering's int8 block branch):
+    the source rounded to int8 by ``max|src|/127`` in its own dtype, the
+    ``block_int8_mv`` kernel's ``float32(sum) * scale``, then ``*
+    s_scale`` in the source's dtype.  No gradient passes: the JAX package's
+    cast of the rounded source to int8 passes none either."""
+    from ..ops import quant  # ops imports dsl: not at module level
+
+    s_scale = _source_scale(src)
+    xq = torch.clamp(torch.round(src.detach() / s_scale), -127, 127).to(torch.int8)
+    bs = wq.shape[-2]
+    acc = quant.block_int8_product(wq, scale, xq.reshape(-1, src.shape[-1] // bs, bs), cols)
+    return acc.reshape(*src.shape[:-1], -1).to(src.dtype) * s_scale
+
+
 def _source_scale(src: torch.Tensor) -> torch.Tensor:
     """The frozen coupling's source scale, ``max|src| / 127`` in the
     source's dtype (one per row of ``(..., n_in)`` sources), divided
@@ -304,9 +331,8 @@ def lower(
                          f"{_COUPLINGS}.")
 
     def _as_matrix(w):
-        if hasattr(w, "blocks"):
-            raise NotImplementedError(
-                "Block-sparse couplings are not ported yet (ROADMAP Queue 1 item 10).")
+        if hasattr(w, "blocks"):  # a BlockSparseCoupling passes through
+            return w
         if isinstance(w, torch.Tensor):
             w = w.detach().cpu().numpy()
         return np.asarray(w)
@@ -450,7 +476,30 @@ def lower(
                 f"overflow the int32 accumulator in the worst case. Use bfloat16/float32 at "
                 f"this size.")
 
+    block_q_mv: Dict[str, Callable] = {}  # int8_master block couplings' STE matvecs
     for _, _, W, wkey in all_edges:
+        if hasattr(W, "blocks"):
+            # a block-sparse coupling (ops/sparse.py): the blocks at the
+            # coupling's type, the block-column table as an int32 arg
+            from ..ops.sparse import blocks_to_device
+
+            if int4_frozen or cast == "int4":
+                raise NotImplementedError(
+                    "int4 coupling is dense-only; use 'int8_master'/'int8' for block-sparse "
+                    "couplings (their fan-in is already bounded per row).")
+            cols = torch.as_tensor(W.cols, dtype=torch.int32).to(device)
+            if quant_frozen:
+                # per-output-row int8, quantized on the device a chunk of
+                # block rows at a time from the float32 blocks
+                args[wkey], args[wkey + "__scale"] = quant.quantize_blocks_host(W.blocks, device)
+                keys.append(wkey + "__scale")
+            else:
+                args[wkey] = blocks_to_device(W.blocks, w_dtype, device)
+                if cast == "int8":
+                    block_q_mv[wkey] = quant.make_block_int8_master_matvec(cols)
+            args[wkey + "__cols"] = cols
+            keys.extend([wkey, wkey + "__cols"])
+            continue
         if quant_frozen:
             _check_fan_in(int(W.shape[1]), wkey, 4 if int4_frozen else 8)
             quantize = quant.quantize_rows_i4 if int4_frozen else quant.quantize_rows
@@ -475,7 +524,12 @@ def lower(
             a = dict(a)
             for wk in wkeys:
                 w = a[wk].detach()  # (B, n, n) for a coupling swept per trial
-                if int4_frozen:
+                if wk + "__cols" in a:  # a block coupling (B, n_br, cb, bs, bs) when swept
+                    if cast == "int8":
+                        a[wk + "__q"], a[wk + "__qs"] = quant.quantize_blocks(w)
+                    elif cast == "bf16":
+                        a[wk + "__bf16"] = w.to(torch.bfloat16)
+                elif int4_frozen:
                     a[wk + "__q4"] = quant.pack_int4(w)
                 elif cast == "bf16":
                     a[wk + "__bf16"] = _bf16_values(w)
@@ -485,7 +539,25 @@ def lower(
                     a[wk + "__q"], a[wk + "__qs"], _ = quant._i4_prep(w)
             return a
 
+    def _block_matvec(w, src, a, wkey):
+        from ..ops.sparse import block_sparse_matvec
+
+        cols = a[wkey + "__cols"]
+        if cast == "int8" and wkey + "__q" in a:
+            # prepped master (inference runs): the block_int8_mv kernel
+            return quant.block_int8_matvec((a[wkey + "__q"], a[wkey + "__qs"]), cols, src)
+        if cast == "int8":  # plain-autograd training: the per-step STE matvec
+            return block_q_mv[wkey](w, src).to(src.dtype)
+        if w.dtype == torch.int8:
+            return _frozen_block_matvec(w, a[wkey + "__scale"], cols, src)
+        if cast == "bf16":  # the bfloat16 copy from prep_args, else the master cast here
+            w = a.get(wkey + "__bf16", w)
+        bf16 = cast == "bf16" or w.dtype == torch.bfloat16
+        return block_sparse_matvec(w, cols, src, cast_dtype=torch.bfloat16 if bf16 else None)
+
     def _coupling_matvec(w, src, a, wkey):
+        if wkey + "__cols" in a:
+            return _block_matvec(w, src, a, wkey)
         if cast in ("int8", "int4") and wkey + "__q" in a:
             # prepped master (inference runs): the same numerics as the
             # per-step STE matvec's forward

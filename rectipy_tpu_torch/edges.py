@@ -27,9 +27,15 @@ parameters (a swept coupling ``(B, n_out, n_in)``).
   online by recursive least squares, carrying the inverse-correlation
   matrix ``P``.
 
+- ``BlockSparseLinear``: a ``BlockSparseCoupling`` projection with optional
+  per-block integer delays read from a circular history ``(nb_in, D1,
+  bs)``; ``block_dtype`` bfloat16 or ``'int8_master'``.
+
 The JAX package computes these edges with XLA operations and no Pallas
-kernel; the port computes them with PyTorch operations.  ``STDP`` and the
-block-sparse edge are not ported yet (ROADMAP Queue 1 items 10 and 12).
+kernel; the port computes them with PyTorch operations, except the int8
+block contraction of an ``int8_master`` block edge, which is the
+``block_int8_mv`` kernel (``ops/quant.py``).  ``STDP`` and
+``BlockSparseSTDP`` are not ported yet (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -43,8 +49,8 @@ import torch
 from .dsl.lower import matvec
 from .nodes import resolve_device, resolve_dtype
 
-__all__ = ["Linear", "LinearFilter", "LinearMasked", "LinearMemory", "LinearMemoryFilter",
-           "LinearMemoryMatrix", "LinearSTP", "RLS"]
+__all__ = ["BlockSparseLinear", "Linear", "LinearFilter", "LinearMasked", "LinearMemory",
+           "LinearMemoryFilter", "LinearMemoryMatrix", "LinearSTP", "RLS"]
 
 
 def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -686,6 +692,200 @@ class LinearMemoryMatrix(_Stateful):
             return buf, (params["weights"].transpose(-1, -2) * vals).sum(-2)
 
         return step
+
+
+class BlockSparseLinear(Linear):
+    """Block-sparse edge projection, optionally with per-block conduction
+    delays: ``y[r*bs:(r+1)*bs] = sum_c blocks[r, c] @ x_{cols[r, c]}(t -
+    d[r, c])``, where ``x_b`` is source block ``b``.
+
+    The weights are a ``BlockSparseCoupling`` (``ops/sparse.py``), the
+    fixed-degree tiles of the node-level block coupling; ``delays`` (one
+    integer step count per (target block, source block) pair, ``(n_br,
+    cb)``) model ``d = distance / velocity`` between local patches, the
+    population-scale companion of ``LinearMemoryMatrix``.
+
+    The delay state is a circular history ``(nb_in, D1, bs)`` with a step
+    cursor ``t``, never a shifted ring: each step writes the input at slot
+    ``t mod D1`` and gathers the ``(n_br, cb)`` blocks at slots ``(t - d)
+    mod D1``.  Unwritten slots are zero and ``d <= D1 - 1``, so ``t - d <
+    0`` reads zeros, and ``d = 0`` reads this step's input.  The state
+    ``(hist, t)`` rides ``run`` and is written back (chunked runs continue
+    exactly); ``delays=None`` gives a stateless edge.
+
+    ``block_dtype`` streams the blocks and the gathered sources at a
+    reduced floating type (``bfloat16``: exact products, sums at the
+    edge's accumulation type, float32 or float64), cast once per run by
+    ``prep_params`` (and in the step where no prep ran, as in training,
+    where the master stays full precision); ``'int8_master'`` quantizes
+    the blocks per output row with a dynamic activation scale per gathered
+    stack: a frozen edge quantizes once per run and contracts through the
+    ``block_int8_mv`` kernel with the straight-through source gradient (the
+    JAX package's frozen edge gives zero source gradients here); a
+    trainable one takes the in-step STE apply (``ops/quant.py``).
+    """
+
+    _tensors = ["weights"]
+
+    def __init__(self, n_in: int, n_out: int, weights, delays=None, dtype=None,
+                 detach: bool = True, block_dtype=None, device=None, **kwargs):
+        if not hasattr(weights, "blocks"):
+            raise ValueError(
+                "BlockSparseLinear requires a BlockSparseCoupling as weights "
+                "(rectipy_tpu_torch.block_random_connectivity builds one).")
+        from .ops.sparse import blocks_to_device
+
+        self.dtype = resolve_dtype(dtype)
+        self.device = resolve_device(device)
+        self.block_dtype = None
+        self._int8_master = block_dtype == "int8_master"
+        if block_dtype is not None and not self._int8_master:
+            bd = resolve_dtype(block_dtype)
+            if not bd.is_floating_point:
+                raise ValueError(f"block_dtype must be a floating dtype or 'int8_master'; "
+                                 f"got {block_dtype!r}")
+            if bd != self.dtype:  # the same type: stream at master precision
+                self.block_dtype = bd
+        blocks = weights.blocks
+        cols = np.asarray(weights.cols, dtype=np.int64)
+        n_br, cb, bs, _ = blocks.shape
+        if n_br * bs != n_out:
+            raise ValueError(f"block rows x block size = {n_br}x{bs} != n_out={n_out}")
+        if n_in % bs:
+            raise ValueError(f"n_in={n_in} must be a multiple of the block size {bs}")
+        nb_in = n_in // bs
+        if cols.size and (cols.min() < 0 or cols.max() >= nb_in):
+            raise ValueError(f"cols reference source blocks outside [0, {nb_in})")
+        self.n_in, self.n_out = n_in, n_out
+        self.bs, self.nb_in = bs, nb_in
+        self.cols = torch.as_tensor(cols, device=self.device)
+        self.params: Dict[str, torch.Tensor] = {
+            "weights": blocks_to_device(blocks, self.dtype, self.device)}
+        self.train_keys = []
+        self._train_req = []
+        if not detach:
+            train_params = kwargs.pop("train_params", self._tensors)
+            self._train_req = list(train_params)
+            self.train_keys = [k for k in self._tensors if k in train_params and k in self.params]
+        self.delays = None
+        self.max_delay = 0
+        if delays is not None:
+            if isinstance(delays, torch.Tensor):
+                delays = delays.detach().cpu().numpy()
+            delays = np.asarray(delays)
+            if delays.shape != (n_br, cb):
+                raise ValueError(
+                    f"Per-block delays must be ({n_br}, {cb}) -- one per (target-block, "
+                    f"source-block) pair like cols; got {delays.shape}.")
+            if not np.issubdtype(delays.dtype, np.integer) \
+                    and not np.allclose(delays, np.rint(delays)):
+                raise ValueError("Block delays must be integer step counts; round "
+                                 "distance/velocity/dt results explicitly (np.rint).")
+            delays = np.rint(delays).astype(np.int64)
+            if delays.min() < 0:
+                raise ValueError("Delays must be non-negative step counts.")
+            self.delays = torch.as_tensor(delays, device=self.device)
+            self.max_delay = int(delays.max())
+        self._D1 = self.max_delay + 1
+        self._state = None
+        if self.delays is not None:
+            self._state = (torch.zeros((nb_in, self._D1, bs), dtype=self.dtype,
+                                       device=self.device),
+                           torch.zeros((), dtype=torch.int32, device=self.device))
+        self._rows: Dict[int, torch.Tensor] = {}
+
+    @property
+    def weights(self):
+        return self.params["weights"]
+
+    @weights.setter
+    def weights(self, w):
+        if hasattr(w, "blocks"):
+            w = w.blocks
+        w = _as_tensor(w, self.dtype, self.device)
+        if w.shape != self.params["weights"].shape:
+            raise ValueError(f"block weights must keep shape "
+                             f"{tuple(self.params['weights'].shape)}; got {tuple(w.shape)}")
+        self.params["weights"] = w
+
+    def init_state(self):
+        return self._state
+
+    def set_state(self, state):
+        if self.delays is not None:
+            self._state = state
+
+    def prep_params(self, sub: Dict) -> Dict:
+        """The once-per-run block-stream cast (``block_dtype``), or the
+        ``int8_master`` quantization of a frozen edge; a trainable
+        ``int8_master`` edge keeps its master (its step takes the STE
+        apply).  Idempotent."""
+        if self._int8_master:
+            if self.train_keys or isinstance(sub.get("weights"), tuple):
+                return sub
+            from .ops.quant import quantize_blocks
+
+            return {**sub, "weights": quantize_blocks(sub["weights"].detach())}
+        bd = self.block_dtype
+        if bd is None or sub["weights"].dtype == bd:
+            return sub
+        return {**sub, "weights": sub["weights"].to(bd)}
+
+    def _arange(self, L: int) -> torch.Tensor:
+        if L not in self._rows:
+            self._rows[L] = torch.arange(L, device=self.device)
+        return self._rows[L]
+
+    def make_step(self) -> Callable:
+        from .ops.quant import block_int8_stack_prepped, make_block_int8_stack_apply
+        from .ops.sparse import block_contract
+
+        cols, bs, nb_in, D1 = self.cols, self.bs, self.nb_in, self._D1
+        n_br, cb = cols.shape
+        dtype, bd, int8m = self.dtype, self.block_dtype, self._int8_master
+        acc = torch.float64 if dtype == torch.float64 else torch.float32
+        ste = make_block_int8_stack_apply()
+
+        def contract(w, s_blk):
+            if int8m:
+                y = block_int8_stack_prepped(w, s_blk) if isinstance(w, tuple) else ste(w, s_blk)
+                return y.to(acc)
+            if bd is not None:  # a no-op where prep already cast the blocks
+                w, s_blk = w.to(bd), s_blk.to(bd)
+            return block_contract(w, s_blk, acc).reshape(*s_blk.shape[:-3], n_br * bs)
+
+        if self.delays is None:
+            def step(state, params, x):
+                s_blk = x.to(dtype).reshape(*x.shape[:-1], nb_in, bs)[..., cols, :]
+                return state, contract(params["weights"], s_blk).to(dtype)
+
+            return step
+
+        dmat = self.delays
+        nb = torch.arange(nb_in, device=self.device)[None, :]
+
+        def step(state, params, x):
+            hist, t = state
+            lead = x.shape[:-1]
+            L = int(np.prod(lead, dtype=np.int64)) if lead else 1
+            rows = self._arange(L)
+            k = torch.remainder(t, D1).reshape(L).long()
+            h = hist.reshape(L, nb_in, D1, bs)
+            # write x(t) at slot t mod D1 of every source block's history
+            h = h.index_put((rows[:, None], nb, k[:, None]),
+                            x.to(hist.dtype).reshape(L, nb_in, bs))
+            # read each (target, source) block pair at slot (t - d) mod D1
+            flat = cols * D1 + torch.remainder(k[:, None, None] - dmat, D1)
+            s_blk = h.reshape(L, nb_in * D1, bs)[rows[:, None, None], flat]
+            y = contract(params["weights"], s_blk.reshape(*lead, n_br, cb, bs))
+            return (h.reshape(hist.shape), t + 1), y.to(dtype)
+
+        return step
+
+    def forward(self, x, **kwargs):
+        state, y = self._eager(self.init_state(), x)
+        self.set_state(state)
+        return y
 
 
 class RLS(Linear):

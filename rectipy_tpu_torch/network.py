@@ -29,8 +29,8 @@ they cross to the host once, at the end.
 
 Not ported yet (ROADMAP Queue 1 items 7 and 10-14): ``remat_steps`` and
 ``mesh=``, ``fit_bptt_multistart`` and ``fit_es``, ``fit_stdp`` and
-``fit_eprop``, the STDP and block-sparse edges, heterogeneous circuits,
-on-device input specs and spike rasters.
+``fit_eprop``, the STDP edges, the graph trajectory, heterogeneous
+circuits, on-device input specs and spike rasters.
 """
 
 from __future__ import annotations
@@ -45,8 +45,8 @@ import numpy as np
 import torch
 from networkx import DiGraph
 
-from .edges import (RLS, Linear, LinearFilter, LinearMasked, LinearMemory, LinearMemoryFilter,
-                    LinearMemoryMatrix, LinearSTP)
+from .edges import (RLS, BlockSparseLinear, Linear, LinearFilter, LinearMasked, LinearMemory,
+                    LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
 from .nodes import InstantNode, RateNet, SpikeNet, SpikeResetNet, resolve_device, resolve_dtype
 from .observer import Observer
 from .train import get_loss_function, get_optimizer
@@ -359,17 +359,18 @@ class Network:
         ``train_delays``, ``max_delay``, ``read_dtype``, ``fine_s``,
         ``interp_impl``); ``filter_weights`` -> ``LinearFilter``;
         ``tau_facil``/``tau_depress`` (and ``U``) -> ``LinearSTP`` with the
-        network's ``dt``; else ``Linear``.  Short-term plasticity combined
-        with a mask, delays or a filter, and a 2-D delay matrix with a
-        filter, raise ``ValueError``.  ``train``:
+        network's ``dt``; a ``BlockSparseCoupling`` as ``weights`` ->
+        ``BlockSparseLinear`` (per-block ``delays``, ``block_dtype``); else
+        ``Linear``.  Short-term plasticity combined with a mask, delays or a
+        filter, a 2-D delay matrix with a filter, and block-sparse weights
+        with a mask or a filter, raise ``ValueError``.  ``train``:
 
         - ``None`` or ``'gd'``: the edge frozen or trained by ``fit_bptt``;
         - ``'rls'``: an ``RLS`` readout (``beta``, ``alpha``) that
           ``fit_rls`` trains online; its dtype is ``rls_dtype``, by default
           float64 (the JAX package takes float64 only with x64 on).
 
-        Block-sparse weights and the rules ``'eprop'`` and ``'stdp'`` raise
-        ``NotImplementedError``."""
+        The rules ``'eprop'`` and ``'stdp'`` raise ``NotImplementedError``."""
         edge_attrs = dict(edge_attrs or {})
         kwargs.pop("dtype", None)
         kwargs.pop("device", None)
@@ -380,8 +381,14 @@ class Network:
                 "with mask/delays/filter_weights on a single edge; chain two edges "
                 "through an identity func-node instead.")
         if hasattr(weights, "blocks"):
-            raise _todo("An edge with block-sparse weights", "10")
-        if "mask" in kwargs:
+            # a BlockSparseCoupling: the block-sparse edge, optionally with
+            # per-block conduction delays
+            if {"mask", "filter_weights"} & set(kwargs):
+                raise ValueError(
+                    "Block-sparse edges support only optional per-block "
+                    "delays; chain a separate edge for masks/filters.")
+            EdgeClass = BlockSparseLinear
+        elif "mask" in kwargs:
             EdgeClass = LinearMasked
         elif "delays" in kwargs and np.ndim(kwargs["delays"]) == 2:
             if "filter_weights" in kwargs:

@@ -31,8 +31,11 @@ time-major ``(T, B, n_in)``, the per-step products take ``(B, n)`` rows
 coupling), and each ``dW`` is still ONE matmul, over trials and time.
 
 Scope: DSL-built ``RateNet`` and ``SpikeResetNet`` with Euler integration
-and at least one dense coupling in float32/float64/bfloat16 or a master
-coupling (``bfloat16_master``, ``int8_master``, ``int4_master``); anything
+and at least one coupling, dense in float32/float64/bfloat16 or a master
+coupling (``bfloat16_master``, ``int8_master``, ``int4_master``), or
+block-sparse (float, ``bfloat16_master`` or ``int8_master``: the gather,
+scatter and per-block contractions of ``_make_sparse_matvec`` and
+``ops/quant.py``'s ``make_block_int8_ops``); anything
 else, frozen ``int8``/``int4`` included, raises ``ValueError`` as in the
 JAX package, and the caller then takes plain autograd.  Not ported yet:
 checkpointed trajectories (``remat_steps``, ROADMAP Queue 1 item 7), the Heun
@@ -108,6 +111,81 @@ def _make_matvec(cast):
     return prep, _float_matvec, mv_t, grad_w
 
 
+def _make_sparse_matvec(cast, cols):
+    """Block-sparse ``(prep, mv, mv_t, grad_w)`` of a float or
+    ``bfloat16_master`` coupling (the JAX package's ``_make_sparse_matvec``);
+    ``cols (n_br, cb)`` is its block structure.  The contractions round to
+    float32 as that package's ``preferred_element_type=float32`` does (at
+    float64 they sum in float64 and round once), and bfloat16 operands
+    multiply exactly with float32 sums.  ``RECTIPY_SPARSE_BWD`` picks the
+    transposed contraction's reduction over column blocks when the ops are
+    built: ``scatter`` (default: contract in the forward tile layout and
+    add the ``(n_br, cb, bs)`` contributions into their column blocks),
+    ``onehot`` (the same contraction, the reduction a product with the
+    constant one-hot membership matrix) or ``gather`` (each column block's
+    incoming tiles through the transposed structure); all give the same
+    gradient up to float32 summation order."""
+    from .quant import _np_cols, _onehot_col_matrix, _transposed_block_table, block_grad_w
+    from .quant import sparse_bwd_mode
+    from .sparse import block_contract, block_sparse_matvec
+
+    bf16 = cast == "bf16"
+    cols_np = _np_cols(cols)
+    n_br, cb = cols_np.shape
+    cols_t = torch.as_tensor(cols_np)
+    mode = sparse_bwd_mode()
+    table = _transposed_block_table(cols_np) if mode == "gather" else None
+    onehot = _onehot_col_matrix(cols_np) if mode == "onehot" else None
+
+    def prep(w):
+        if bf16 and w.dtype not in (torch.bfloat16, torch.int8):
+            return w.to(torch.bfloat16)
+        return w
+
+    def mv(w, src):
+        cast_dtype = torch.bfloat16 if (bf16 or w.dtype == torch.bfloat16) else None
+        return block_sparse_matvec(w, cols_t.to(w.device), src, cast_dtype=cast_dtype)
+
+    def mv_t(w, delta):
+        """``A^T @ delta`` for a square block-sparse ``A`` (the recurrent
+        coupling), float32-rounded, in ``delta``'s dtype."""
+        bs = w.shape[-2]
+        lead = delta.shape[:-1]
+        d_blk = delta.reshape(-1, n_br, bs)
+        L, dev = d_blk.shape[0], w.device
+        wc, dc = w, d_blk
+        if bf16 or w.dtype == torch.bfloat16:
+            wc, dc = w.to(torch.bfloat16), d_blk.to(torch.bfloat16)
+        acc = torch.float64 if torch.float64 in (wc.dtype, dc.dtype) else torch.float32
+        if mode == "gather":
+            rows_T, slot_T, mask_T = (t.to(dev) for t in table)
+            G = wc[rows_T, slot_T]  # (n_bc, cb_t, bs, bs)
+            D = dc[:, rows_T] * mask_T[..., None].to(dc.dtype)  # (L, n_bc, cb_t, bs)
+            # out[l, q, j] = sum_c sum_i G[q, c, i, j] D[l, q, c, i]
+            out = block_contract(G.transpose(-1, -2), D, acc).to(torch.float32)
+        else:
+            # contrib[l, r, c, j] = sum_i w[r, c, i, j] d[l, r, i]: the
+            # forward layout with the blocks transposed and d repeated per slot
+            contrib = block_contract(wc.transpose(-1, -2).reshape(n_br * cb, 1, bs, bs),
+                                     dc[:, :, None].expand(L, n_br, cb, bs).reshape(
+                                         L, n_br * cb, 1, bs), acc).to(torch.float32)
+            contrib = contrib.reshape(L, n_br * cb, bs)
+            if mode == "onehot":
+                out = torch.einsum("lkj,kq->lqj", contrib, onehot.to(dev))
+            else:
+                out = torch.zeros((L, n_br, bs), dtype=torch.float32, device=dev)
+                out = out.index_add(1, cols_t.to(dev).reshape(-1), contrib)
+        return out.reshape(*lead, n_br * bs).to(delta.dtype)
+
+    def grad_w(deltas, srcs):
+        """``dA[r, c] = sum_t delta_t[row block r] (x) src_t[block cols[r,
+        c]]``: one batched contraction over the saved trajectories (and
+        trials), float32."""
+        return block_grad_w(deltas, srcs, cols_t, cast=torch.bfloat16 if bf16 else None)
+
+    return prep, mv, mv_t, grad_w
+
+
 def _node_pieces(node):
     """Validate a node for deferred-gradient BPTT and build its per-population
     machinery: coupling source readers, the coupling-free step function and
@@ -151,7 +229,17 @@ def _node_pieces(node):
     slices = [(q,) + tuple(vf.var_map[q]) for q in state_order]
     tgt_names = [tgt for _, tgt, _ in vf.couplings]
     tile_func, inp_key = vf.tile_func, node._inp_key
-    ops4 = [_make_matvec(vf.coupling_cast) for _ in wkeys]
+    ops4 = []
+    for wk in wkeys:
+        if node._args[wk].dim() == 4:  # a block-sparse coupling (its structure in __cols)
+            if vf.coupling_cast == "int8":
+                from .quant import make_block_int8_ops
+
+                ops4.append(make_block_int8_ops(node._args[wk + "__cols"]))
+            else:
+                ops4.append(_make_sparse_matvec(vf.coupling_cast, node._args[wk + "__cols"]))
+        else:
+            ops4.append(_make_matvec(vf.coupling_cast))
 
     spiking = cls_name == "SpikeResetNet"
     spike_fn = getattr(node, "spike", None)

@@ -272,6 +272,9 @@ def attach_fused_qif_step(node, weights_dtype=None) -> None:
               tau_x=scalar("tau_x", 1.0) if has_x else 1.0,
               k=scalar("k"), alpha=scalar("alpha", 0.0) if has_x else 0.0,
               thresh=node._thresh, v_reset=node._reset_val)
+    if node._args["weights"].dim() != 2:
+        raise ValueError("Fused QIF step takes a dense coupling; a block-sparse coupling runs "
+                         "on the plain path")
     w_dtype = resolve_dtype(weights_dtype if weights_dtype is not None
                             else node._args["weights"].dtype)
     if w_dtype not in _VEC_ELEMS:

@@ -42,14 +42,23 @@ the packed-int4 Pallas matvec of ``benchmarks/i4pack_microbench.py``):
 (:func:`int4_mm` on the tensor cores where :func:`int4_mm_route` says
 ``"mma"``).
 
-Block-sparse couplings are not ported yet (ROADMAP Queue 1 item 10).
+The block-sparse section (at the end) quantizes block couplings per output
+row (:func:`quantize_blocks`) and contracts them through the hand-written
+kernel of ``csrc/block_int8.cu``, :func:`block_int8_mv` (the gathered int8
+block contraction for one or ``B`` rows, which replaces the JAX package's
+XLA einsum); the node couplings take it with ``idx = cols``
+(:func:`block_int8_matvec`, :func:`make_block_int8_ops`), the delayed edge
+with its gathered stack (:func:`make_block_int8_stack_ops`).  Their
+transposed contraction (training only) is a PyTorch product.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
+import numpy as np
 import torch
 
 from ._build import build
@@ -61,7 +70,10 @@ __all__ = ["exact_div", "quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "in
            "quantize_rows_i4",
            "pack_int4", "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
            "int4_mm", "int4_mm_t", "int4_mm_plain", "int4_mm_route", "int4_mm_t_plain",
-           "int4_master_matvec", "int4_master_ops"]
+           "int4_master_matvec", "int4_master_ops", "quantize_blocks", "block_int8_mv",
+           "block_int8_mv_plain", "block_int8_mv_route", "block_int8_matvec",
+           "make_block_int8_ops", "make_block_int8_master_matvec", "make_block_int8_stack_ops",
+           "make_block_int8_stack_apply", "block_int8_stack_prepped"]
 
 # int8 x int8 products accumulate in int32: the worst-case per-output sum is
 # 127*127*n_in, so the fan-in must stay below this to be overflow-safe
@@ -829,3 +841,457 @@ class _Int4MasterMatvec(torch.autograd.Function):
 def int4_master_matvec(w, src):
     """STE int4 matvec of a float master ``w`` (quantized on every call)."""
     return _Int4MasterMatvec.apply(w, src)
+
+
+# -------------------------------------------------------------- block-sparse
+# The int8 block couplings (the JAX package's rectipy_tpu/ops/quant.py:236-462):
+# per-output-row scales over each row's cb*bs stored inputs, the dynamic
+# activation scale of quant_vec, exact integer sums.  The forward contraction
+# is the hand-written kernel of csrc/block_int8.cu (block_int8_mv); the
+# transposed one (training only) is a float32 product over bs-long sums,
+# exact below 2^24, then the reduction over source blocks.
+
+
+def _quantize_block_rows(b: torch.Tensor):
+    amax = b.abs().amax(dim=(1, 3))  # (R, bs)
+    scale = exact_div(torch.clamp_min(amax, 1e-30), 127.0).to(torch.float32)
+    bq = torch.clamp(torch.round(b / scale[:, None, :, None].to(b.dtype)), -127, 127)
+    return bq.to(torch.int8), scale
+
+
+def quantize_blocks(blocks: torch.Tensor):
+    """Symmetric per-output-row int8 quantization of a block-sparse master
+    ``(n_br, cb, bs, bs)``: each output row ``(r, i)`` gets one scale over
+    its ``cb * bs`` stored inputs.  Returns ``(bq int8, scale float32 (n_br,
+    bs))``; a per-trial stack ``(B, n_br, cb, bs, bs)`` quantizes each
+    trial's rows.  Every scale belongs to one row, so the rows quantize a
+    chunk at a time (``ops.sparse.CHUNK_ELEMS`` elements) with the same
+    result as one pass: a million-neuron master is 8 GB of float32, and one
+    pass would hold several temporaries of its size."""
+    from .sparse import CHUNK_ELEMS
+
+    lead, (n_br, cb, bs) = blocks.shape[:-4], blocks.shape[-4:-1]
+    flat = blocks.reshape(-1, cb, bs, bs)
+    step = max(1, CHUNK_ELEMS // (cb * bs * bs))
+    if flat.shape[0] <= step:
+        bq, scale = _quantize_block_rows(flat)
+    else:
+        bq = torch.empty(flat.shape, dtype=torch.int8, device=flat.device)
+        scale = torch.empty((flat.shape[0], bs), dtype=torch.float32, device=flat.device)
+        for lo in range(0, flat.shape[0], step):
+            bq[lo:lo + step], scale[lo:lo + step] = _quantize_block_rows(flat[lo:lo + step])
+    return bq.reshape(blocks.shape), scale.reshape(*lead, n_br, bs)
+
+
+def quantize_blocks_host(blocks, device):
+    """:func:`quantize_blocks` of the float32 values of a host array
+    ``(n_br, cb, bs, bs)`` (the frozen ``int8`` coupling's build), moved to
+    ``device`` and quantized a chunk of block rows at a time: the float32
+    blocks never lie on the device whole."""
+    from .sparse import CHUNK_ELEMS
+
+    src = torch.from_numpy(np.ascontiguousarray(blocks))
+    n_br, cb, bs, _ = src.shape
+    bq = torch.empty(src.shape, dtype=torch.int8, device=device)
+    scale = torch.empty((n_br, bs), dtype=torch.float32, device=device)
+    step = max(1, CHUNK_ELEMS // (cb * bs * bs))
+    for lo in range(0, n_br, step):
+        chunk = src[lo:lo + step].to(device).to(torch.float32)
+        bq[lo:lo + step], scale[lo:lo + step] = _quantize_block_rows(chunk)
+    return bq, scale
+
+
+def block_int8_mv_plain(bq, row_scale, xq, idx) -> torch.Tensor:
+    """Plain version of :func:`block_int8_mv`: ``float32(sum_c sum_j bq[r,
+    c, i, j] * xq[b, idx[r, c], j]) * row_scale[r, i]`` as ``(B, n_br *
+    bs)``, summed exactly a chunk of block rows at a time: each block's
+    ``bs``-long sums in float32 (below 127^2 * bs < 2^24 for bs < 1040;
+    float64 beyond), their sum over the ``cb`` blocks in float64."""
+    from .sparse import CHUNK_ELEMS
+
+    n_br, cb, bs, _ = bq.shape
+    B = xq.shape[0]
+    dt = torch.float32 if 127 * 127 * bs < 2 ** 24 else torch.float64
+    out = torch.empty((B, n_br * bs), dtype=torch.float32, device=bq.device)
+    idx = idx.long()
+    step = max(1, CHUNK_ELEMS // (cb * bs * bs))
+    for lo in range(0, n_br, step):
+        hi = min(n_br, lo + step)
+        a = bq[lo:hi].to(dt).reshape(-1, bs, bs)
+        x = xq[:, idx[lo:hi]].to(dt).permute(1, 2, 3, 0).reshape(-1, bs, B)
+        acc = torch.bmm(a, x).to(torch.float64).reshape(hi - lo, cb, bs, B).sum(1)  # exact
+        out[:, lo * bs:hi * bs] = (acc.permute(2, 0, 1).reshape(B, -1).to(torch.float32)
+                                   * row_scale[lo:hi].reshape(-1))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_block():
+    """The block kernel's C entry points, built and declared once per process."""
+    lib = build("block_int8").lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.block_int8_mv_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.block_int8_mv_launch.restype = ctypes.c_int
+    return lib
+
+
+def block_int8_mv_route(bs: int, bq_ptr: int, xq_ptr: int) -> int:
+    """The bytes a lane of :func:`block_int8_mv`'s kernel reads at once for
+    blocks of ``bs`` at ``bq_ptr`` and activations at ``xq_ptr``: 16 where
+    ``bs % 16 == 0`` and both addresses are 16-byte aligned, 4 where they
+    allow 4-byte pieces, else 1, as ``block_int8_mv_launch`` picks them."""
+    addr = bq_ptr | xq_ptr
+    if bs % 16 == 0 and addr % 16 == 0:
+        return 16
+    return 4 if bs % 4 == 0 and addr % 4 == 0 else 1
+
+
+def _check_block(bq, row_scale, xq, idx) -> None:
+    device = bq.device
+    if device.type != "cuda" or device.index != torch.cuda.current_device():
+        raise ValueError(f"block_int8_mv: the blocks must be on the current CUDA device, "
+                         f"got {device}")
+    if bq.dtype != torch.int8 or bq.dim() != 4 or bq.shape[2] != bq.shape[3] \
+            or not bq.is_contiguous():
+        raise ValueError(f"block_int8_mv: the blocks must be a contiguous (n_br, cb, bs, bs) "
+                         f"int8 tensor, got {bq.dtype} {tuple(bq.shape)}")
+    n_br, cb, bs, _ = bq.shape
+    if xq.device != device or xq.dtype != torch.int8 or xq.dim() != 3 or xq.shape[2] != bs \
+            or not xq.is_contiguous():
+        raise ValueError(f"block_int8_mv: the activations must be a contiguous (B, n_src, {bs}) "
+                         f"int8 tensor on {device}, got {xq.dtype} {tuple(xq.shape)} on "
+                         f"{xq.device}")
+    if row_scale.device != device or row_scale.dtype != torch.float32 \
+            or row_scale.numel() != n_br * bs or not row_scale.is_contiguous():
+        raise ValueError(f"block_int8_mv: the row scale must be a contiguous ({n_br}, {bs}) "
+                         f"float32 tensor on {device}")
+    if idx.device != device or idx.dtype != torch.int32 or tuple(idx.shape) != (n_br, cb) \
+            or not idx.is_contiguous():
+        raise ValueError(f"block_int8_mv: the index table must be a contiguous ({n_br}, {cb}) "
+                         f"int32 tensor on {device}")
+    if cb * bs >= INT8_DOT_MAX_FAN_IN:
+        raise ValueError(f"block_int8_mv: a row of {cb} x {bs} inputs reaches the fan-in limit "
+                         f"{INT8_DOT_MAX_FAN_IN} (int32 overflow)")
+
+
+def block_int8_mv(bq, row_scale, xq, idx) -> torch.Tensor:
+    """``out[b, r*bs + i] = float32(sum_c sum_j bq[r, c, i, j] * xq[b, idx[r,
+    c], j]) * row_scale[r, i]``, float32 ``(B, n_br * bs)``: the gathered
+    int8 block contraction with its row scales, for ``B`` rows of int8
+    activations cut into ``bs``-long blocks, ``xq (B, n_src, bs)``.  Every
+    entry of ``idx`` must lie in ``[0, n_src)``.  The caller applies the
+    activation scale.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel of
+    ``csrc/block_int8.cu`` on the current stream; anything it does not take
+    raises.  The integer sums are exact, so kernel and plain version agree
+    bit for bit.  Each launch adds one to ``block_int8_mv.launches``."""
+    if bq.device.type == "cpu":
+        return block_int8_mv_plain(bq, row_scale, xq, idx)
+    _check_block(bq, row_scale, xq, idx)
+    n_br, cb, bs, _ = bq.shape
+    B, n_src = xq.shape[0], xq.shape[1]
+    out = torch.empty((B, n_br * bs), dtype=torch.float32, device=bq.device)
+    err = _lib_block().block_int8_mv_launch(
+        bq.data_ptr(), row_scale.data_ptr(), xq.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        n_br, cb, bs, n_src, B, torch.cuda.current_stream(bq.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"block_int8_mv: kernel launch failed with CUDA error {err}")
+    block_int8_mv.launches += 1
+    return out
+
+
+block_int8_mv.launches = 0
+
+
+def block_int8_product(bq, row_scale, xq, idx) -> torch.Tensor:
+    """:func:`block_int8_mv` for shared blocks, or, for per-trial blocks
+    ``(B, n_br, cb, bs, bs)`` (a swept coupling), one launch per trial with
+    its row scale (a frozen coupling's is shared, a master's per trial)."""
+    if bq.dim() == 4:
+        return block_int8_mv(bq, row_scale, xq, idx)
+    return torch.cat([block_int8_mv(bq[b], row_scale[b] if row_scale.dim() == 3 else row_scale,
+                                    xq[b:b + 1], idx) for b in range(bq.shape[0])])
+
+
+def _rows_scale(s: torch.Tensor) -> torch.Tensor:
+    """A quant_vec scale (0-dim, or ``(..., 1)``) as ``(L, 1)``."""
+    return s.reshape(-1, 1)
+
+
+def block_int8_matvec(wp, cols, src) -> torch.Tensor:
+    """The forward block contraction from the prepped ``(bq, scale)`` pair
+    (the JAX package's ``block_int8_mv(wp, cols, src)``): the source
+    quantized by ``quant_vec`` (one scale per row of ``(..., n)``), the
+    kernel's ``float32(acc) * scale``, then ``* xs`` in float32, returned in
+    ``src``'s dtype."""
+    bq, scale = wp
+    n_br, bs = bq.shape[-4], bq.shape[-2]
+    xq, xs = quant_vec(src)
+    acc = block_int8_product(bq, scale, xq.reshape(-1, src.shape[-1] // bs, bs),
+                             cols.to(device=bq.device, dtype=torch.int32))
+    return (acc * _rows_scale(xs)).reshape(*src.shape[:-1], n_br * bs).to(src.dtype)
+
+
+def _block_t_contrib(bq, vq) -> torch.Tensor:
+    """``contrib[l, r, c, j] = sum_i bq[r, c, i, j] * vq[l, r, i]`` for
+    ``vq (L, n_br, bs)`` int8, exact: a float32 product over ``bs``-long
+    sums (each below 127^2 * bs < 2^24 for bs < 1040; float64 beyond)."""
+    n_br, cb, bs, _ = bq.shape
+    L = vq.shape[0]
+    dt = torch.float32 if 127 * 127 * bs < 2 ** 24 else torch.float64
+    a = bq.reshape(n_br * cb, bs, bs).to(dt).transpose(1, 2)
+    v = vq.to(dt).permute(1, 2, 0)[:, None].expand(n_br, cb, bs, L).reshape(n_br * cb, bs, L)
+    c = torch.bmm(a, v).to(torch.float32)
+    return c.reshape(n_br, cb, bs, L).permute(3, 0, 1, 2)
+
+
+def _onehot_col_matrix(cols_np) -> torch.Tensor:
+    """One-hot block-column membership ``M (n_br*cb, n_br)``: ``M[r*cb +
+    slot, cols[r, slot]] = 1``; the reduction over column blocks as one
+    product."""
+    n_br, cb = cols_np.shape
+    M = np.zeros((n_br * cb, n_br), dtype=np.float32)
+    M[np.arange(n_br * cb), np.asarray(cols_np).ravel()] = 1.0
+    return torch.as_tensor(M)
+
+
+def _transposed_block_table(cols_np):
+    """The transposed block structure of the gather backward: for each
+    column block, the (row block, slot) pairs with ``cols[r, slot] == c``,
+    padded to the largest in-degree (``rows_T``, ``slot_T``, ``mask_T``)."""
+    n_br, cb = cols_np.shape
+    lists = [[] for _ in range(n_br)]  # a square coupling
+    for r in range(n_br):
+        for j in range(cb):
+            lists[int(cols_np[r, j])].append((r, j))
+    cb_t = max(1, max(len(entry) for entry in lists))
+    rows_T = np.zeros((n_br, cb_t), dtype=np.int64)
+    slot_T = np.zeros((n_br, cb_t), dtype=np.int64)
+    mask_T = np.zeros((n_br, cb_t), dtype=np.float32)
+    for c, pairs in enumerate(lists):
+        for k, (r, j) in enumerate(pairs):
+            rows_T[c, k], slot_T[c, k], mask_T[c, k] = r, j, 1.0
+    return torch.as_tensor(rows_T), torch.as_tensor(slot_T), torch.as_tensor(mask_T)
+
+
+def sparse_bwd_mode() -> str:
+    """``RECTIPY_SPARSE_BWD``: the column-block reduction of the transposed
+    block contraction, ``scatter`` (default), ``gather`` or ``onehot``;
+    read when a coupling's ops are built, as the JAX package reads it."""
+    mode = os.environ.get("RECTIPY_SPARSE_BWD", "scatter")
+    if mode not in ("scatter", "gather", "onehot"):
+        raise ValueError(f"RECTIPY_SPARSE_BWD={mode!r}: use 'scatter', 'gather' or 'onehot'")
+    return mode
+
+
+def _np_cols(cols) -> np.ndarray:
+    return (cols.detach().cpu().numpy() if isinstance(cols, torch.Tensor)
+            else np.asarray(cols)).astype(np.int64)
+
+
+def block_grad_w(deltas, srcs, cols, cast=None) -> torch.Tensor:
+    """``dA[r, c] = sum_t delta_t[row block r] (x) src_t[block cols[r, c]]``
+    over every leading (time, trial) axis, one batched product: ``deltas
+    (..., n_br*bs)``, ``srcs (..., n_in)``; float32 result.  Float64 factors
+    sum in float64 and round once (the JAX package's
+    ``preferred_element_type=float32``); ``cast`` rounds both factors first
+    (bfloat16: exact products, float32 sums)."""
+    n_br, cb = cols.shape
+    bs = deltas.shape[-1] // n_br
+    d = deltas.reshape(-1, n_br, bs)
+    s = srcs.reshape(-1, srcs.shape[-1] // bs, bs)[:, cols.long().to(srcs.device)]
+    if cast is not None:
+        d, s = d.to(cast), s.to(cast)
+    acc = torch.float64 if torch.float64 in (d.dtype, s.dtype) else torch.float32
+    M = d.shape[0]
+    dA = torch.bmm(d.to(acc).permute(1, 2, 0), s.to(acc).permute(1, 0, 2, 3).reshape(n_br, M, cb * bs))
+    return dA.reshape(n_br, bs, cb, bs).permute(0, 2, 1, 3).contiguous().to(torch.float32)
+
+
+def make_block_int8_ops(cols):
+    """``(prep, mv, mv_t, grad_w)`` of an ``int8_master`` block-sparse
+    coupling for the deferred-gradient trajectories; ``cols (n_br, cb)`` is
+    its block structure (a tensor or an array).  ``RECTIPY_SPARSE_BWD`` is
+    read here, when the ops are built."""
+    cols_np = _np_cols(cols)
+    n_br, cb = cols_np.shape
+    cols_t = torch.as_tensor(cols_np.astype(np.int32))
+    mode = sparse_bwd_mode()
+    table = _transposed_block_table(cols_np) if mode == "gather" else None
+    onehot = _onehot_col_matrix(cols_np) if mode == "onehot" else None
+
+    def mv(wp, src):
+        return block_int8_matvec(wp, cols_t.to(wp[0].device), src)
+
+    def mv_t(wp, delta):
+        """``A^T @ delta``: the row scales fold into delta before the
+        dynamic quantization; exact integer contractions in the forward
+        tile layout, then the mode's reduction over column blocks."""
+        bq, scale = wp
+        bs = bq.shape[-2]
+        lead = delta.shape[:-1]
+        v = scale.to(delta.dtype) * delta.reshape(*lead, n_br, bs)
+        vq, vs = quant_vec(v.reshape(*lead, n_br * bs))
+        vq = vq.reshape(-1, n_br, bs)
+        L, dev = vq.shape[0], bq.device
+        if mode == "gather":
+            rows_T, slot_T, mask_T = (t.to(dev) for t in table)
+            G = bq[rows_T, slot_T].to(torch.float64)  # (n_bc, cb_t, bs, bs)
+            D = vq[:, rows_T].to(torch.float64) * mask_T[..., None].to(torch.float64)
+            out = torch.einsum("qcij,lqci->lqj", G, D).to(torch.float32)
+        else:
+            contrib = _block_t_contrib(bq, vq).reshape(L, n_br * cb, bs)
+            if mode == "onehot":
+                out = torch.einsum("lkj,kq->lqj", contrib, onehot.to(dev))
+            else:
+                out = torch.zeros((L, n_br, bs), dtype=torch.float32, device=dev)
+                out.index_add_(1, cols_t.to(dev).long().reshape(-1), contrib)
+        out = out.reshape(L, n_br * bs) * _rows_scale(vs)
+        return out.reshape(*lead, n_br * bs).to(delta.dtype)
+
+    def grad_w(deltas, srcs):
+        """The master's gradient in float32, never quantized (STE)."""
+        return block_grad_w(deltas.to(torch.float32), srcs.to(torch.float32), cols_t)
+
+    return quantize_blocks, mv, mv_t, grad_w
+
+
+class _BlockInt8MasterMatvec(torch.autograd.Function):
+    """STE quantized block matvec of the plain autograd path: the forward
+    quantizes the master and contracts in int8, the backward takes ``dsrc``
+    through the quantized transpose and ``dA`` as the full-precision
+    product (the deferred trajectory's numerics)."""
+
+    @staticmethod
+    def forward(ctx, blocks, src, ops):
+        prep, mv, _, _ = ops
+        ctx.save_for_backward(blocks, src)
+        ctx.ops = ops
+        return mv(prep(blocks.detach()), src)
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks, src = ctx.saved_tensors
+        prep, _, mv_t, grad_w = ctx.ops
+        db = grad_w(g, src).to(blocks.dtype) if ctx.needs_input_grad[0] else None
+        dsrc = mv_t(prep(blocks.detach()), g) if ctx.needs_input_grad[1] else None
+        return db, dsrc, None
+
+
+def make_block_int8_master_matvec(cols):
+    """STE quantized block-sparse matvec ``f(blocks, src)`` of an
+    ``int8_master`` coupling for the plain autograd path (the deferred
+    trajectories use :func:`make_block_int8_ops` and prep once)."""
+    ops = make_block_int8_ops(cols)
+
+    def f(blocks, src):
+        return _BlockInt8MasterMatvec.apply(blocks, src, ops)
+
+    return f
+
+
+_STACK_IDX: dict = {}
+
+
+def _stack_idx(n_br: int, cb: int, device) -> torch.Tensor:
+    """``arange(n_br * cb)`` as the ``(n_br, cb)`` int32 index table of a
+    gathered stack, made once per shape and device."""
+    key = (n_br, cb, str(device))
+    if key not in _STACK_IDX:
+        _STACK_IDX[key] = torch.arange(n_br * cb, dtype=torch.int32,
+                                       device=device).reshape(n_br, cb)
+    return _STACK_IDX[key]
+
+
+def _stack_mv(wp, s_blk):
+    bq, scale = wp
+    n_br, cb, bs = bq.shape[-4], bq.shape[-3], bq.shape[-2]
+    lead = s_blk.shape[:-3]
+    xq, xs = quant_vec(s_blk.reshape(*lead, n_br * cb * bs))
+    acc = block_int8_product(bq, scale, xq.reshape(-1, n_br * cb, bs),
+                             _stack_idx(n_br, cb, bq.device))
+    return (acc * _rows_scale(xs)).reshape(*lead, n_br * bs)
+
+
+def _stack_mv_t(wp, delta):
+    """``W^T @ delta`` in gathered form ``(..., n_br, cb, bs)``, float32:
+    the row scales fold into delta (in float32) before the dynamic
+    quantization."""
+    bq, scale = wp
+    n_br, cb, bs = bq.shape[-4], bq.shape[-3], bq.shape[-2]
+    lead = delta.shape[:-1]
+    v = scale * delta.reshape(*lead, n_br, bs).to(torch.float32)
+    vq, vs = quant_vec(v.reshape(*lead, n_br * bs))
+    contrib = _block_t_contrib(bq, vq.reshape(-1, n_br, bs))
+    out = contrib * _rows_scale(vs)[:, :, None, None]
+    return out.reshape(*lead, n_br, cb, bs)
+
+
+def _stack_grad_w(deltas, srcs):
+    """``dW[r, c] = sum_t delta_t[row r] (x) src_t[r, c]`` in float32 (STE)
+    over every leading axis; ``srcs (..., n_br, cb, bs)``."""
+    n_br, cb, bs = srcs.shape[-3:]
+    d = deltas.reshape(-1, n_br, bs).to(torch.float32)
+    s = srcs.reshape(-1, n_br, cb * bs).to(torch.float32)
+    dW = torch.bmm(d.permute(1, 2, 0), s.permute(1, 0, 2))  # (n_br, bs, cb*bs)
+    return dW.reshape(n_br, bs, cb, bs).permute(0, 2, 1, 3).contiguous()
+
+
+def make_block_int8_stack_ops():
+    """``(prep, mv, mv_t, grad_w)`` of ``int8_master`` contractions on an
+    already gathered ``(..., n_br, cb, bs)`` source stack: the delayed
+    ``BlockSparseLinear`` edge, whose history read resolves each block's
+    delay before the contraction.  One dynamic activation scale per stack
+    (per trial), taken over the gathered blocks; on the card the forward
+    launches ``block_int8_mv`` with ``idx = arange(n_br * cb)``."""
+    return quantize_blocks, _stack_mv, _stack_mv_t, _stack_grad_w
+
+
+class _BlockStackApply(torch.autograd.Function):
+    """The STE apply of a trainable ``int8_master`` edge: the master
+    quantized in the step, the backward's ``dW`` at full precision and
+    ``ds`` through the quantized transpose."""
+
+    @staticmethod
+    def forward(ctx, blocks, s_blk):
+        ctx.save_for_backward(blocks, s_blk)
+        return _stack_mv(quantize_blocks(blocks.detach()), s_blk)
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks, s_blk = ctx.saved_tensors
+        db = _stack_grad_w(g, s_blk).to(blocks.dtype) if ctx.needs_input_grad[0] else None
+        ds = (_stack_mv_t(quantize_blocks(blocks.detach()), g).to(s_blk.dtype)
+              if ctx.needs_input_grad[1] else None)
+        return db, ds
+
+
+def make_block_int8_stack_apply():
+    """The STE-wrapped single-step apply ``f(blocks, s_blk)`` of the
+    gathered-stack form (the trainable edge's in-step quantization)."""
+    return _BlockStackApply.apply
+
+
+class _BlockStackPrepped(torch.autograd.Function):
+    """The prepped (frozen) ``int8_master`` edge's contraction: the forward
+    from the once-per-run ``(bq, scale)``, and the source gradient of the
+    stack form's STE ``mv_t``.  (The JAX package's frozen edge takes plain
+    autodiff through its int8 einsum here and gives exactly zero source
+    gradients; the port does not copy that.)"""
+
+    @staticmethod
+    def forward(ctx, s_blk, bq, scale):
+        ctx.wp = (bq, scale)
+        ctx.dtype = s_blk.dtype
+        return _stack_mv((bq, scale), s_blk)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _stack_mv_t(ctx.wp, g).to(ctx.dtype), None, None
+
+
+def block_int8_stack_prepped(wp, s_blk) -> torch.Tensor:
+    """:func:`make_block_int8_stack_ops`' forward on prepped ``wp``, with
+    the STE source gradient."""
+    return _BlockStackPrepped.apply(s_blk, wp[0], wp[1])

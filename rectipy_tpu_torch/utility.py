@@ -113,17 +113,25 @@ def random_connectivity(
     """Fixed fan-in random coupling: every row receives exactly ``int(m*p)``
     connections; ``normalize=True`` scales rows to sum to 1.
 
-    ``backend``: 'numpy' or 'auto' (argsort construction, O(n m log m)).
-    The JAX package's 'native' C++ sampler is not part of this package.
+    ``backend``: 'numpy' (argsort construction, O(n m log m)), 'native' (the
+    C++ Floyd sampler of ``native/``, O(n k)), or 'auto' (native for
+    ``n * m >= 10_000_000`` when no ``rng`` is given, numpy otherwise), as
+    in the JAX package.  A given ``rng`` seeds the native sampler from its
+    stream.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "The native connectivity sampler is not ported; use backend='numpy'.")
     n_conns = int(m * p)
-    rng = rng or np.random.default_rng()
-    # vectorized fixed-fan-in sampling: argsort of uniform noise gives a
-    # permutation per row
-    cols = np.argsort(rng.random((n, m)), axis=1)[:, :n_conns]
+    use_native = backend == "native" or (
+        backend == "auto" and rng is None and n * m >= 10_000_000)
+    if use_native:
+        from . import native
+
+        seed = int((rng or np.random.default_rng()).integers(2 ** 62))
+        cols = native.sample_fixed_fanin(n, m, n_conns, seed=seed)
+    else:
+        rng = rng or np.random.default_rng()
+        # vectorized fixed-fan-in sampling: argsort of uniform noise gives a
+        # permutation per row
+        cols = np.argsort(rng.random((n, m)), axis=1)[:, :n_conns]
     C = np.zeros((n, m))
     rows = np.repeat(np.arange(n), n_conns)
     C[rows, cols.ravel()] = 1.0 / n_conns if normalize else 1.0

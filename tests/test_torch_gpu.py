@@ -1547,3 +1547,142 @@ def test_delay_matrix_reads_are_bit_identical_on_card(cuda):
             for mode in ("factored", "onehot", "gather")}
     np.testing.assert_array_equal(recs["factored"], recs["gather"])
     np.testing.assert_array_equal(recs["onehot"], recs["gather"])
+
+
+# ------------------------------------------------------ block-sparse couplings
+def _block_operands(B, bs, form, device, seed):
+    """block_int8_mv's operands: 6 block rows of 4 source blocks; ``form``
+    'cols' indexes (B, 6, bs) sources by a node coupling's cols, 'history'
+    a flat (B, 6 * 5, bs) history by cols * D1 + slot, as the delayed edge's
+    read would."""
+    rng = np.random.default_rng(seed)
+    n_br, cb, nb_in, d1 = 6, 4, 6, 5
+    bq = rng.integers(-127, 128, size=(n_br, cb, bs, bs)).astype(np.int8)
+    rs = rng.random((n_br, bs)).astype(np.float32)
+    cols = np.stack([rng.permutation(nb_in)[:cb] for _ in range(n_br)])
+    if form == "cols":
+        xq, idx = rng.integers(-127, 128, size=(B, nb_in, bs)), cols
+    else:
+        xq = rng.integers(-127, 128, size=(B, nb_in * d1, bs))
+        idx = cols * d1 + rng.integers(0, d1, size=(n_br, cb))
+    return [torch.as_tensor(a).to(device) for a in
+            (bq, rs, xq.astype(np.int8), idx.astype(np.int32))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["cols", "history"])
+@pytest.mark.parametrize("bs", [512, 32, 20])  # 16-byte pieces, and 4-byte ones
+@pytest.mark.parametrize("B", [1, 3, 16, 40])  # 40: three groups of trials
+def test_block_int8_mv_bit_identical_to_plain(cuda, B, bs, form):
+    from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_plain
+
+    ops = _block_operands(B, bs, form, cuda, seed=B * 1000 + bs)
+    before = block_int8_mv.launches
+    out = block_int8_mv(*ops)
+    torch.cuda.synchronize()
+    assert block_int8_mv.launches == before + 1
+    assert torch.equal(out, block_int8_mv_plain(*ops))
+    assert torch.equal(out.cpu(), block_int8_mv(*[t.cpu() for t in ops]))
+
+
+@pytest.mark.gpu
+def test_block_int8_mv_odd_block_size_takes_the_byte_route(cuda):
+    from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_plain, block_int8_mv_route
+
+    ops = _block_operands(3, 7, "cols", cuda, seed=7)
+    assert block_int8_mv_route(7, ops[0].data_ptr(), ops[2].data_ptr()) == 1
+    assert torch.equal(block_int8_mv(*ops), block_int8_mv_plain(*ops))
+
+
+@pytest.mark.gpu
+def test_block_int8_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    from rectipy_tpu_torch.ops.quant import block_int8_mv
+
+    bq, rs, xq, idx = _block_operands(2, 32, "cols", cuda, seed=3)
+    bad = [((bq.float(), rs, xq, idx), "blocks"), ((bq, rs.double(), xq, idx), "row scale"),
+           ((bq, rs, xq[:, :, :16].contiguous(), idx), "activations"),
+           ((bq, rs, xq, idx.long()), "index")]
+    for args, what in bad:
+        with pytest.raises(ValueError, match=what):
+            block_int8_mv(*args)
+    with pytest.raises(ValueError):  # mixed devices
+        block_int8_mv(bq, rs.cpu(), xq, idx)
+
+
+def _block_qif(device, coupling, n=2048):
+    from rectipy_tpu_torch import block_random_connectivity
+
+    A = block_random_connectivity(n, n, 200, block_size=256, seed=4)
+    A.blocks *= 20.0
+    etas = -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, n + 1) - n - 1) / (n + 1))
+    net = Network(1e-4, device=device)
+    net.add_diffeq_node(
+        "qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa", weights=A,
+        source_var="s", target_var="s_in", input_var="I_ext", output_var="s",
+        spike_var="spike", spike_def="v", op="qif_sfa_op",
+        node_vars={"all/qif_sfa_op/eta": etas, "all/qif_sfa_op/k": 15.0},
+        coupling_dtype=coupling)
+    net.compile()
+    return net, etas
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coupling", ["float32", "bfloat16", "int8", "int8_master",
+                                      "bfloat16_master"])
+def test_block_coupled_node_on_card_matches_cpu(cuda, coupling):
+    # run and an eta sweep through run_batch, card against CPU (float32;
+    # the int8 sums exact on both sides, float sums in another order);
+    # an int8 coupling launches block_int8_mv once a step
+    from rectipy_tpu_torch.ops.quant import block_int8_mv
+
+    inp = np.full((300, 1), 3.0, dtype=np.float32)
+    kw = dict(sampling_steps=10, record_vars=[("qif", "v", True)], record_output=False)
+    outs = {}
+    for device in ("cpu", cuda):
+        net, etas = _block_qif(device, coupling)
+        before = block_int8_mv.launches
+        out = net.run(inp, verbose=False, **kw).to_numpy(("qif", "v"))
+        if device is cuda:
+            want = 300 if coupling in ("int8", "int8_master") else 0
+            assert block_int8_mv.launches - before == want
+        sweep = {("qif", "eta"): np.linspace(-1.0, 1.0, 3)[:, None] + etas}
+        batch = net.run_batch(inp, batch_vars=sweep, **kw)[("qif", "v")]
+        outs[str(device)] = (out, batch)
+    for got, want in zip(outs[str(cuda)], outs["cpu"]):
+        assert np.all(np.isfinite(got))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block_dtype", [None, "bfloat16", "int8_master"])
+def test_delayed_block_edge_chunked_run_on_card(cuda, block_dtype):
+    # the circular history continues across runs bit for bit on the card,
+    # and the records follow the CPU's
+    from rectipy_tpu_torch import block_random_connectivity
+
+    n = 2048
+    A = block_random_connectivity(n, n, 200, block_size=256, seed=5)
+    d_blk = np.random.default_rng(6).integers(0, 12, size=A.cols.shape)
+    etas = 1000.0 + 200.0 * np.random.default_rng(1).standard_normal(n)
+
+    def build(device):
+        net = FeedbackNetwork(1e-3, device=device)
+        net.add_diffeq_node(
+            "qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa", n=n,
+            input_var="I_ext", output_var="s", spike_var="spike", spike_def="v",
+            op="qif_sfa_op", node_vars={"all/qif_sfa_op/eta": etas})
+        net.add_edge("qif", "qif", weights=A, delays=d_blk, feedback=True,
+                     block_dtype=block_dtype)
+        net.compile()
+        return net
+
+    inp = np.full((200, 1), 3.0, dtype=np.float32)
+    kw = dict(sampling_steps=10, record_vars=[("qif", "v", True)], record_output=False,
+              verbose=False)
+    full = build(cuda).run(inp, **kw).to_numpy(("qif", "v"))
+    net = build(cuda)
+    parts = [net.run(inp[:100], **kw).to_numpy(("qif", "v")),
+             net.run(inp[100:], **kw).to_numpy(("qif", "v"))]
+    np.testing.assert_array_equal(np.concatenate(parts), full)
+    want = build("cpu").run(inp, **kw).to_numpy(("qif", "v"))
+    np.testing.assert_allclose(full, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())

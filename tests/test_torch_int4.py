@@ -218,7 +218,7 @@ def test_frozen_int4_source_gradient_matches_jax():
 
 def test_frozen_int4_refusals():
     # training the frozen weights is refused with guidance (test_dsl.py:596);
-    # a block-sparse coupling is not ported (ROADMAP Queue 1 item 10)
+    # an int4 block-sparse coupling is refused as dense-only (test_dsl.py:606)
     from rectipy_tpu.ops.sparse import BlockSparseCoupling
 
     W = np.eye(8) * 0.5
@@ -228,7 +228,7 @@ def test_frozen_int4_refusals():
                              output_var="li_op/v", coupling_dtype="int4",
                              train_params=["weights"], device="cpu")
     blocks = np.random.default_rng(0).normal(size=(2, 1, 4, 4)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="dense-only"):
         lower(T_ + TANH, weights=BlockSparseCoupling(blocks, np.asarray([[0], [1]])),
               source_var="tanh_op/r", target_var="li_op/r_in", coupling_dtype="int4",
               device="cpu")

@@ -171,15 +171,14 @@ def test_run_accepts_tensor_inputs_and_checks_shapes():
 
 def test_unported_network_features_raise():
     _, tnet = _pair(n=8)
-    # masks and delays are ported (tests/test_torch_edges.py); block-sparse
-    # weights are not (ROADMAP Queue 1 item 10, part 2)
-    from types import SimpleNamespace
+    # masks, delays and block-sparse weights are ported
+    # (tests/test_torch_edges.py, tests/test_torch_block_edges.py); a block
+    # edge with a mask is refused, as in the JAX package
+    from rectipy_tpu_torch import BlockSparseCoupling, LinearMasked, LinearMemory
 
-    from rectipy_tpu_torch import LinearMasked, LinearMemory
-
-    blocks = SimpleNamespace(blocks=np.ones((1, 1, 8, 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tnet.add_edge("inp", "qif", weights=blocks)
+    blocks = BlockSparseCoupling(np.ones((1, 1, 8, 8)), np.zeros((1, 1)))
+    with pytest.raises(ValueError, match="per-block delays"):
+        tnet.add_edge("qif", "qif", weights=blocks, mask=np.ones((8, 8)))
     assert isinstance(tnet.add_edge("inp", "qif", mask=np.ones((8, 1))), LinearMasked)
     assert isinstance(tnet.add_edge("inp", "qif", delays=np.ones(1, dtype=int)), LinearMemory)
     # the RLS readout and run(truncate_steps=) are ported; eprop/stdp are not

@@ -184,12 +184,13 @@ def test_unported_node_features_raise(case):
     # a frozen int4 coupling and a SpikeResetNet with a bfloat16_master one
     # step as JAX's do (float64; the same carrier and scales, exact integer
     # sums; bf16 products exact, float32 sums in another order: rtol 1e-6).
-    # A block-sparse coupling still raises (ROADMAP Queue 1 item 10)
+    # An int4 block-sparse coupling raises, as in the JAX package
+    # (tests/test_dsl.py:606)
     if case == "block_sparse":
         from rectipy_tpu.ops.sparse import BlockSparseCoupling
 
         blocks = np.random.default_rng(0).normal(size=(2, 1, 3, 3))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="dense-only"):
             RateNet.from_pyrates(LI_TANH, input_var="li_op/I_ext", output_var="li_op/v",
                                  weights=BlockSparseCoupling(blocks, np.asarray([[0], [1]])),
                                  source_var="tanh_op/r", target_var="li_op/r_in",
