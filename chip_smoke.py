@@ -319,14 +319,19 @@ Phases 33-36 (PR 18, after phase 32; block-sparse couplings and edges,
 ops/sparse.py and the block section of ops/quant.py, whose int8 contraction
 is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
 
-33. block_int8_check: block_int8_mv bit for bit against its plain version
-   on the card at B = 1, 3 and 16 trials, bs = 512, 32 and 20 (20 takes
-   the kernel's 4-byte pieces), with both index forms: a node coupling's
-   cols over (B, nb_in, bs) sources and a flat (nb_in * D1)-block history
-   index; then block_int8_timing at the million-neuron shape (1,954 block
-   rows x 4 x 512^2, random int8 operands), B = 1 and 16: its ms against
-   the byte bound, its plain version's ms and the yardstick, torch.bmm in
-   bf16 of the same integers (exact) over the gathered rows, float32 out.
+33. block_int8_check: block_int8_mv on every route its shapes allow ("mma"
+   on the tensor cores, and the __dp4a routes "vec16", "vec4", "scalar")
+   bit for bit against its plain version on the card at B = 1, 3, 16 and
+   33 trials, bs = 512, 32 and 20 (20 takes neither "mma" nor "vec16"),
+   with both index forms: a node coupling's cols over (B, nb_in, bs)
+   sources and a flat (nb_in * D1)-block history index, each launch
+   counted (mma_launches on "mma" alone); then block_int8_timing at the
+   million-neuron shape (1,954 block rows x 4 x 512^2, random int8
+   operands), B = 1, 2, 4, 8, 16 and 32: the route block_int8_mv_route
+   picks in turns with the __dp4a route "vec16" (chosen, vec16, vec16,
+   chosen), against the byte bound, its plain version's ms and the
+   yardstick, torch.bmm in bf16 of the same integers (exact) over the
+   gathered rows, float32 out.
 34. sparse_scale_path: benchmarks/sparse_scale.py's network at N =
    1,000,448 (qif_sfa, dt 1e-4, fan-in 1,000, 512-neuron blocks, seed 0,
    the native sampler, asserted; the tan etas, alpha 0.05, k 15), Pulse(T,
@@ -340,19 +345,25 @@ is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
    run_batch of 16 trials (etas + linspace(-1, 1, 16)) over 500 steps in
    turns with the single trial (500 launches, asserted), trials 0 and 15
    held to single-trial runs with their eta over 100 steps (rtol 1e-5);
-   and the same construction at N = 8,192 on the card against the CPU
-   over 200 steps under fused_vs_plain's rule, int8 and bf16.
+   every launch of the int8 run and of run_batch on the route
+   block_int8_mv_route gives (mma_launches asserted); one step on the
+   device alone for 1 and 16 trials, split by CUDA events into
+   block_int8_mv, the sources' int8 rounding and rescale, and the rest of
+   the field (block_step_split); and the same construction at N = 8,192 on
+   the card against the CPU over 200 steps under fused_vs_plain's rule,
+   int8 and bf16.
 35. block_delay_path: benchmarks/block_delay_scale.py's network at N =
    100,352 (196 patches, fan-in 1,000, seed 0, dt 1e-3, ring delays scaled
    to 64 steps, etas 1000 + 200 N(0, 1) from default_rng(1), all coupling
    on a FeedbackNetwork self-edge, Pulse(T, 1, t_on=T//8, amp=3.0)): four
    variants in turns over 2,000 steps, best of 3: zero-delay, delayed f32,
    delayed block_dtype="bfloat16" and delayed "int8_master" (block_int8_mv
-   on the gathered stack, 2,000 launches a run, asserted); ms/step, idle
-   share, the edge's step alone against its byte bound, block_int8_mv
-   alone at the edge's shape; two chunked runs of 1,000 steps equal to one
-   of 2,000 bit for bit (f32 and int8); the delayed run differs from the
-   zero-delay one; the card against the CPU at N = 8,192 over 200 steps.
+   on the gathered stack, 2,000 launches a run on the chosen route,
+   asserted); ms/step, idle share, the edge's step alone against its byte
+   bound, block_int8_mv alone at the edge's shape; two chunked runs of
+   1,000 steps equal to one of 2,000 bit for bit (f32 and int8); the
+   delayed run differs from the zero-delay one; the card against the CPU
+   at N = 8,192 over 200 steps.
 36. sparse_train_check: at N = 8,192, fit_bptt (2 epochs, T = 200, sgd)
    through a block-coupled QIF node with float32 and int8_master weights on
    the chain trajectory (asserted), one plain-autograd epoch through a
@@ -363,7 +374,8 @@ is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
 The kernels line adds block_int8_mv (B = 1: the int8 run's launches),
 block_int8_mv[B=16] (the run_batch launches) and
 block_int8_mv[block_delay_path] (the int8 edge's launches, timed at its
-gathered-stack shape).
+gathered-stack shape), each with the kernel_route its launches took, on
+which it is timed.
 
 PR 18 cut the depth of earlier paths so that the script, with phases 33-36,
 stays well inside its time limit: the forward paths (phases 4, 12, 16, 20,
@@ -938,9 +950,8 @@ def device_step_ms(net, x, reps: int = 50) -> float:
     within cuda_ms's spin even at 1 ms of host time each.  A plain lowered
     step (no fused kernel) launches about 75 kernels: 8 steps keep it within
     the launch queue."""
-    step = net.make_step()
-    state, params = net.init_state(), net._prep_params(net.parameters_pytree())
     with torch.no_grad():
+        step, state, params = net.step_args()
         return cuda_ms(lambda: step(state, params, x), reps=reps)
 
 
@@ -3378,6 +3389,7 @@ SMALL_N = 8_192  # the card-vs-CPU and training width: 16 block rows of 512
 BD_N, BD_DMAX, BD_DT, BD_T = 100_352, 64, 1e-3, 2_000  # benchmarks/block_delay_scale.py
 SPARSE_TRAIN_T, SPARSE_TRAIN_LR = 200, 0.1
 BLOCK_SOURCE = "rectipy_tpu_torch/csrc/block_int8.cu"
+BLOCK_TIMING_B = (1, 2, 4, 8, SPARSE_B, 32)  # phase 33's trials at the million-neuron shape
 BLOCK_REPLACES = "port-only (the XLA einsum of rectipy_tpu/ops/quant.py:258)"
 
 
@@ -3413,21 +3425,33 @@ def block_bound(n_bytes: float, n_ops: float, peak: float) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+DP4A_ROUTE = "vec16"  # block_int8_mv's __dp4a route at the timed shapes: the yardstick of "mma"
+
+
 def block_int8_timing(bq, rs, xq, idx) -> dict:
-    """block_int8_mv's ms on these operands, its plain version's, its bound
-    (each input read once, the float32 output written once) and the
-    yardstick: torch.bmm in bf16 of the same integers (exact) over the
-    gathered rows, float32 out (timed only, never on a path)."""
-    from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_plain
+    """block_int8_mv's ms on these operands on the route block_int8_mv_route
+    picks, in turns with the __dp4a route (chosen, dp4a, dp4a, chosen; each
+    route bit for bit against the plain version first), its plain version's
+    ms, its bound (each input read once, the float32 output written once)
+    and the yardstick: torch.bmm in bf16 of the same integers (exact) over
+    the gathered rows, float32 out (timed only, never on a path)."""
+    from rectipy_tpu_torch.ops.quant import (block_int8_mv, block_int8_mv_plain,
+                                             block_int8_mv_route)
 
     n_br, cb, bs, _ = bq.shape
     B = xq.shape[0]
-    out = block_int8_mv(bq, rs, xq, idx)
-    torch.cuda.synchronize()
-    equal = bool(torch.equal(out, block_int8_mv_plain(bq, rs, xq, idx)))
-    if not equal:
-        raise AssertionError(f"block_int8_mv differs from its plain version at B={B}")
-    ms = cuda_ms(lambda: block_int8_mv(bq, rs, xq, idx), reps=50)
+    route = block_int8_mv_route(bs, bq.data_ptr(), xq.data_ptr())
+    ref = block_int8_mv_plain(bq, rs, xq, idx)
+    turns = {route: [], DP4A_ROUTE: []}
+    for r in turns:
+        out = block_int8_mv(bq, rs, xq, idx, route=r)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"block_int8_mv {r} differs from its plain version at B={B}")
+    del out, ref
+    for r in (route, DP4A_ROUTE, DP4A_ROUTE, route):
+        turns[r].append(cuda_ms(lambda: block_int8_mv(bq, rs, xq, idx, route=r), reps=50))
+    ms = min(turns[route])
     plain_ms = cuda_ms(lambda: block_int8_mv_plain(bq, rs, xq, idx), reps=2)
     a16 = bq.reshape(n_br * cb, bs, bs).to(torch.bfloat16)
     x16 = xq[:, idx.long()].to(torch.bfloat16).permute(1, 2, 3, 0).reshape(n_br * cb, bs, B)
@@ -3436,17 +3460,21 @@ def block_int8_timing(bq, rs, xq, idx) -> dict:
     n_bytes = bq.numel() + rs.numel() * 4 + xq.numel() + idx.numel() * 4 + B * n_br * bs * 4
     n_ops = 2.0 * B * n_br * cb * bs * bs
     bound_ms, bound_by = block_bound(n_bytes, n_ops, INT8_OPS)
-    return {"B": B, "n": n_br * bs, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+    dp4a_ms = min(turns[DP4A_ROUTE])
+    return {"B": B, "n": n_br * bs, "route": route, "ms": ms, "turns_ms": turns,
+            "dp4a_ms": dp4a_ms, "dp4a_over_route": dp4a_ms / ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes, "ops": n_ops,
-            "share_of_bound": bound_ms / ms, "achieved_bytes_per_s": n_bytes / (ms * 1e-3),
-            "bit_identical": equal}
+            "share_of_bound": bound_ms / ms, "dp4a_share_of_bound": bound_ms / dp4a_ms,
+            "achieved_bytes_per_s": n_bytes / (ms * 1e-3), "bit_identical": True}
 
 
 def block_int8_check(dev) -> dict:
-    """Phase 33: block_int8_mv bit for bit against its plain version, and its
-    timing at the million-neuron shape."""
+    """Phase 33: block_int8_mv on every route its shapes allow, bit for bit
+    against its plain version, and its timing at the million-neuron shape
+    on the chosen route in turns with the __dp4a one."""
     from rectipy_tpu_torch.ops.quant import (block_int8_mv, block_int8_mv_plain,
-                                             block_int8_mv_route)
+                                             block_int8_mv_route, block_int8_mv_routes)
 
     g = torch.Generator(device=dev)
     g.manual_seed(18)
@@ -3456,7 +3484,7 @@ def block_int8_check(dev) -> dict:
 
     n_br, cb, nb_in, d1 = 6, 4, 6, 5
     cases = []
-    for B in (1, 3, SPARSE_B):
+    for B in (1, 3, SPARSE_B, 33):
         for bs in (512, 32, 20):
             bq = rint((n_br, cb, bs, bs))
             rs = torch.rand((n_br, bs), device=dev, generator=g)
@@ -3468,16 +3496,20 @@ def block_int8_check(dev) -> dict:
                 else:  # the edge's flat (nb_in * D1)-block history index
                     slots = torch.randint(0, d1, (n_br, cb), device=dev, generator=g)
                     xq, idx = rint((B, nb_in * d1, bs)), (cols * d1 + slots).to(torch.int32)
-                before = block_int8_mv.launches
-                out = block_int8_mv(bq, rs, xq, idx.contiguous())
-                torch.cuda.synchronize()
+                idx = idx.contiguous()
                 ref = block_int8_mv_plain(bq, rs, xq, idx)
-                if block_int8_mv.launches != before + 1 or not torch.equal(out, ref):
-                    raise AssertionError(f"block_int8_mv B={B} bs={bs} {form}: differs from "
-                                         f"its plain version")
-                cases.append({"B": B, "bs": bs, "index": form, "bit_identical": True,
-                              "route_bytes": block_int8_mv_route(bs, bq.data_ptr(),
-                                                                 xq.data_ptr())})
+                routes = block_int8_mv_routes(bs, bq.data_ptr(), xq.data_ptr())
+                for route in routes:
+                    before = (block_int8_mv.launches, block_int8_mv.mma_launches)
+                    out = block_int8_mv(bq, rs, xq, idx, route=route)
+                    torch.cuda.synchronize()
+                    after = (block_int8_mv.launches, block_int8_mv.mma_launches)
+                    want = (before[0] + 1, before[1] + (route == "mma"))
+                    if after != want or not torch.equal(out, ref):
+                        raise AssertionError(f"block_int8_mv B={B} bs={bs} {form} {route}: "
+                                             f"differs from its plain version")
+                cases.append({"B": B, "bs": bs, "index": form, "bit_identical": list(routes),
+                              "chosen": block_int8_mv_route(bs, bq.data_ptr(), xq.data_ptr())})
     # why the kernel: PyTorch has no int8 batched product on the card
     try:
         ones = torch.ones((1, 2, 2), dtype=torch.int8, device=dev)
@@ -3494,7 +3526,7 @@ def block_int8_check(dev) -> dict:
     rs = torch.rand((n_br, bs), device=dev, generator=g)
     idx = torch.stack([torch.randperm(n_br, device=dev, generator=g)[:cb]
                        for _ in range(n_br)]).to(torch.int32)
-    timing = {B: block_int8_timing(bq, rs, rint((B, n_br, bs)), idx) for B in (1, SPARSE_B)}
+    timing = {B: block_int8_timing(bq, rs, rint((B, n_br, bs)), idx) for B in BLOCK_TIMING_B}
     del bq, rs, idx
     torch.cuda.empty_cache()
     emit({"phase": "block_int8_timing", "n_br": n_br, "cb": cb, "bs": bs,
@@ -3502,12 +3534,45 @@ def block_int8_check(dev) -> dict:
     return timing
 
 
+def block_step_split(net, B: int, bvars: dict = None) -> dict:
+    """One step of the block-coupled int8 network on the device alone (CUDA
+    events through cuda_ms), for 1 or B trials, split: the whole step (the
+    step, states and parameters of Network.step_args, which run and
+    run_batch advance); the coupling's
+    product (dsl/lower.py's _frozen_block_matvec: the sources' int8
+    rounding, block_int8_mv, the rescale); block_int8_mv alone at the
+    step's shapes.  The rounding and rescale are the product less the
+    kernel, the rest of the field the step less the product."""
+    from rectipy_tpu_torch.dsl.lower import _frozen_block_matvec
+    from rectipy_tpu_torch.ops.quant import block_int8_mv
+
+    dev = net.device
+    x0 = torch.full((1,), 3.0, device=dev)
+    with torch.no_grad():
+        if bvars is None:
+            (step, state, pp), x = net.step_args(), x0
+        else:
+            (step, state, pp), x = net.step_args(B, bvars), x0.expand(B, 1)
+        a = pp["nodes"]["qif"]
+        wkey = next(k[:-len("__cols")] for k in a if k.endswith("__cols"))
+        bq, scale, cols = a[wkey], a[wkey + "__scale"], a[wkey + "__cols"]
+        n_br, _, bs, _ = bq.shape
+        src = torch.rand((B, n_br * bs) if bvars is not None else (n_br * bs,), device=dev)
+        xq = torch.randint(-127, 128, (B, n_br, bs), dtype=torch.int8, device=dev)
+        step_ms = cuda_ms(lambda: step(state, pp, x), reps=8)
+        product_ms = cuda_ms(lambda: _frozen_block_matvec(bq, scale, cols, src), reps=20)
+        kernel_ms = cuda_ms(lambda: block_int8_mv(bq, scale, xq, cols), reps=20)
+    return {"B": B, "step_ms": step_ms, "coupling_ms": product_ms, "block_int8_mv_ms": kernel_ms,
+            "round_and_rescale_ms": product_ms - kernel_ms,
+            "rest_of_field_ms": step_ms - product_ms}
+
+
 def sparse_scale_phase(dev, timing: dict) -> list:
     """Phase 34: benchmarks/sparse_scale.py's N = 1,000,448 network on the
     card, int8 (block_int8_mv) in turns with bf16 (gather + torch.bmm), the
     B = 16 sweep, and the card against the CPU at N = 8,192."""
     from rectipy_tpu_torch import block_random_connectivity
-    from rectipy_tpu_torch.ops.quant import block_int8_mv
+    from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_route
 
     N = SPARSE_N
     torch.cuda.reset_peak_memory_stats()
@@ -3529,17 +3594,27 @@ def sparse_scale_phase(dev, timing: dict) -> list:
     del A  # the host float32 master (8.2 GB), as sparse_scale.py drops it
     drive = torch.as_tensor(pulse(SPARSE_T, SPARSE_T // 4), device=dev)
     kw = dict(record_output=False, record_vars=[("qif", "s", True)], sampling_steps=100)
-    first, launches = {}, {}
+    # the route the choice gives the int8 network's launches: its blocks'
+    # address, and a fresh int8 allocation's for the sources it quantizes
+    # each step (the caching allocator aligns both alike)
+    a8 = nets["int8"].get_node("qif").args
+    bq_ptr = next(v for k, v in a8.items() if k + "__cols" in a8).data_ptr()
+    xq_ptr = torch.empty(SPARSE_BS, dtype=torch.int8, device=dev).data_ptr()
+    routes = {B: block_int8_mv_route(SPARSE_BS, bq_ptr, xq_ptr) for B in (1, SPARSE_B)}
+    first, launches, mma = {}, {}, {}
     for c, net in nets.items():
         net.reset()
-        before = block_int8_mv.launches
+        before = (block_int8_mv.launches, block_int8_mv.mma_launches)
         first[c], obs = timed_run(net, drive, **kw)
-        launches[c] = block_int8_mv.launches - before
+        launches[c] = block_int8_mv.launches - before[0]
+        mma[c] = block_int8_mv.mma_launches - before[1]
         rec = obs.to_numpy(("qif", "s"))
         if rec.shape != (SPARSE_T // 100,) or not np.all(np.isfinite(rec)):
             raise AssertionError(f"sparse_scale_path {c}: bad records {rec.shape}")
-    if launches != {"int8": SPARSE_T, "bfloat16": 0}:
-        raise AssertionError(f"sparse_scale_path: block_int8_mv launches {launches}")
+    want_mma = SPARSE_T if routes[1] == "mma" else 0
+    if launches != {"int8": SPARSE_T, "bfloat16": 0} or mma != {"int8": want_mma, "bfloat16": 0}:
+        raise AssertionError(f"sparse_scale_path: block_int8_mv launches {launches}, on the "
+                             f"tensor cores {mma} (route {routes[1]})")
     times, recs = {c: [] for c in nets}, {}
     for _ in range(3):  # in turns, best of 3
         for c, net in nets.items():
@@ -3561,16 +3636,17 @@ def sparse_scale_phase(dev, timing: dict) -> list:
     bvars = {("qif", "eta"): sweep}
     drive_b = drive[:SPARSE_T_B]
     net.reset()
-    before = block_int8_mv.launches
+    before = (block_int8_mv.launches, block_int8_mv.mma_launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     net.run_batch(drive_b, batch_vars=bvars, **kw)
     torch.cuda.synchronize()
     first_b = time.perf_counter() - t0
-    launches_b = block_int8_mv.launches - before
-    if launches_b != SPARSE_T_B:
-        raise AssertionError(f"sparse_scale_path: {launches_b} launches for {SPARSE_T_B} "
-                             f"batched steps")
+    launches_b = block_int8_mv.launches - before[0]
+    mma_b = block_int8_mv.mma_launches - before[1]
+    if launches_b != SPARSE_T_B or mma_b != (SPARSE_T_B if routes[SPARSE_B] == "mma" else 0):
+        raise AssertionError(f"sparse_scale_path: {launches_b} launches ({mma_b} on the tensor "
+                             f"cores, route {routes[SPARSE_B]}) for {SPARSE_T_B} batched steps")
     b_times, s_times = [], []
     for _ in range(3):
         net.reset()
@@ -3599,6 +3675,10 @@ def sparse_scale_phase(dev, timing: dict) -> list:
         np.testing.assert_allclose(res[b], single, rtol=1e-5, atol=1e-5 * np.abs(single).max())
         trial_diff[b] = float(np.abs(res[b] - single).max())
     node.set_param("eta", etas)
+    # one step on the device alone, split (the kernel, the sources' int8
+    # rounding and rescale, the rest of the field), for 1 and B trials
+    split = {1: block_step_split(net, 1), SPARSE_B: block_step_split(net, SPARSE_B, bvars)}
+    split_ratio = {k: split[SPARSE_B][k] / split[1][k] for k in split[1] if k != "B"}
     peak = torch.cuda.max_memory_allocated()
     del nets, net, node, drive, drive_b, res
     torch.cuda.empty_cache()
@@ -3621,6 +3701,7 @@ def sparse_scale_phase(dev, timing: dict) -> list:
           "device_step_ms": dev_ms,
           "device_idle_share": {c: 1.0 - dev_ms[c] / ms[c] for c in ms},
           "block_int8_mv_launches": launches["int8"], "block_int8_mv_ms": kernel_ms,
+          "block_int8_mv_route": routes[1], "block_int8_mv_mma_launches": mma["int8"],
           "kernel_share_of_step": kernel_ms / ms["int8"],
           "block_stream_bytes_per_step": step_bytes,
           "block_stream_bytes_per_s": {c: step_bytes[c] / (ms[c] * 1e-3) for c in ms},
@@ -3632,6 +3713,9 @@ def sparse_scale_phase(dev, timing: dict) -> list:
                         "aggregate_neuron_updates_per_s": SPARSE_B * SPARSE_T_B * N / b_best,
                         "ratio_to_single": SPARSE_B * s_best / b_best,
                         "block_int8_mv_launches": launches_b,
+                        "block_int8_mv_route": routes[SPARSE_B],
+                        "block_int8_mv_mma_launches": mma_b,
+                        "device_step_split": split, "split_b_over_single": split_ratio,
                         "trials_vs_single_max_abs_diff": trial_diff,
                         "trial_steps": SPARSE_CMP_STEPS},
           "vs_cpu": {"n": SMALL_N, "steps": CPU_STEPS, **vs},
@@ -3640,10 +3724,14 @@ def sparse_scale_phase(dev, timing: dict) -> list:
     for B, n_launch, name in ((1, launches["int8"], "block_int8_mv"),
                               (SPARSE_B, launches_b, f"block_int8_mv[B={SPARSE_B}]")):
         t = timing[B]
+        if t["route"] != routes[B]:
+            raise AssertionError(f"block_int8_mv at B={B}: timed on {t['route']}, the path "
+                                 f"took {routes[B]}")
         out.append({"name": name, "route": "cuda", "source": BLOCK_SOURCE,
                     "replaces": BLOCK_REPLACES, "launches": n_launch, "max_abs_err": 0.0,
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                    "kernel_route": routes[B]})
     return out
 
 
@@ -3706,11 +3794,12 @@ def block_delay_phase(dev) -> list:
     n_br, cb = A.cols.shape
     drive = torch.as_tensor(pulse(BD_T, BD_T // 8), device=dev)
     kw = dict(record_output=False, record_vars=[("qif", "s", True)], sampling_steps=100)
-    first, launches, first_recs = {}, {}, {}
+    first, launches, mma, first_recs = {}, {}, {}, {}
     for k, net in nets.items():
-        before = block_int8_mv.launches
+        before = (block_int8_mv.launches, block_int8_mv.mma_launches)
         first[k], obs = timed_run(net, drive, **kw)
-        launches[k] = block_int8_mv.launches - before
+        launches[k] = block_int8_mv.launches - before[0]
+        mma[k] = block_int8_mv.mma_launches - before[1]
         first_recs[k] = obs.to_numpy(("qif", "s"))
         if first_recs[k].shape != (BD_T // 100,) or not np.all(np.isfinite(first_recs[k])):
             raise AssertionError(f"block_delay_path {k}: bad records")
@@ -3755,6 +3844,9 @@ def block_delay_phase(dev) -> list:
                        generator=g)
     idx = torch.arange(n_br * cb, dtype=torch.int32, device=dev).reshape(n_br, cb)
     k_t = block_int8_timing(bq, scale, xq, idx)
+    if mma["delay_int8"] != (BD_T if k_t["route"] == "mma" else 0):
+        raise AssertionError(f"block_delay_path: {mma['delay_int8']} tensor-core launches on "
+                             f"route {k_t['route']}")
     del bq, scale, xq, edge
     peak = torch.cuda.max_memory_allocated()
     del nets
@@ -3794,6 +3886,7 @@ def block_delay_phase(dev) -> list:
           "device_step_ms": dev_ms,
           "device_idle_share": {k: 1.0 - dev_ms[k] / ms[k] for k in ms},
           "edge_step": reads, "block_int8_mv_launches": launches["delay_int8"],
+          "block_int8_mv_mma_launches": mma["delay_int8"],
           "block_int8_mv_at_edge_shape": k_t, "delayed_vs_zero_delay_max_abs_diff": delay_effect,
           "chunked_equals_one_run_bit_for_bit": chunked,
           "vs_cpu": {"n": SMALL_N, "steps": CPU_STEPS, **vs},
@@ -3802,7 +3895,8 @@ def block_delay_phase(dev) -> list:
              "source": BLOCK_SOURCE, "replaces": BLOCK_REPLACES,
              "launches": launches["delay_int8"], "max_abs_err": 0.0, "ms": k_t["ms"],
              "plain_ms": k_t["plain_ms"], "bound_ms": k_t["bound_ms"],
-             "bound_by": k_t["bound_by"], "library_ms": k_t["library_ms"]}]
+             "bound_by": k_t["bound_by"], "library_ms": k_t["library_ms"],
+             "kernel_route": k_t["route"]}]
 
 
 def rel_norm(a: np.ndarray, b: np.ndarray) -> float:

@@ -202,12 +202,10 @@
 
 namespace {
 
-using mmas8::copy16;
 using mmas8::load_w16;
 using mmas8::load_w8;
 using mmas8::mma_s8;
 using mmas8::transpose4;
-using mmas8::wait_copies;
 
 constexpr int kMvThreads = 256;             // int8_mv: 8 warps, one row each
 constexpr int kMvRows = kMvThreads / 32;
@@ -531,164 +529,68 @@ constexpr int kMcBlocksPerSm = 3;
 constexpr int kMcPassRows = 2048;
 
 // ----------------------------------------------- int8_mm on the tensor cores
-constexpr int kMaWarps = 4;
-constexpr int kMaThreads = 32 * kMaWarps;
-constexpr int kMaTiles = 2;                         // m-tiles of 16 rows a warp
-constexpr int kMaWarpRows = 16 * kMaTiles;
-constexpr int kMaRows = kMaWarps * kMaWarpRows;     // rows of W a block
-constexpr int kMaBlockK = 128;                      // columns of a k-block, loaded at once
-constexpr int kMaSub = kMaBlockK / 64;              // its sub-blocks of two k-steps
-constexpr int kMaRing = 2;                          // k-blocks of W in flight a lane
-constexpr int kMaPassCols = 2048;                   // columns of xq staged at once at most
-constexpr int kMaParts = 4;                         // parts of the stage, waited for one by one
+// The geometry and the k loop are mmas8::rows_mma_sums' (kRow*).
 constexpr int kMaMaxCluster = 8;                    // chunks of columns (the portable cluster size)
 constexpr int kMaBlocksPerSm = 2;                   // blocks an SM (the stage's shared memory)
-constexpr int kMaRedPitch = kMaRows + 4;            // ints a trial in the sums' buffer
-static_assert(kMaParts <= 4, "wait_copies waits for at most 3 pending groups");
-static_assert(kMaPassCols % kMaBlockK == 0 && kMaBlockK % 64 == 0, "whole k-blocks a pass");
-// Bytes a trial's row takes in the stage: 64 mod 128, so that the 16-byte
-// reads of a quarter-warp (2 trials x 4 column offsets) hit distinct banks;
-// a multiple of 16 for cp.async.
-constexpr int kMaStride = kMaPassCols / 128 * 128 + 64;
+constexpr int kMaRedPitch = mmas8::kRowBlockRows + 4;  // ints a trial in the sums' buffer
+static_assert(kTrials == mmas8::kRowTrials, "a group of trials is one thread block's");
 // one size of shared memory for every shape (the stage, then the sums), so
 // that what fits on the card does not depend on the shape
-constexpr int kMaSmem = kTrials * kMaStride > kTrials * kMaRedPitch * 4
-                            ? kTrials * kMaStride : kTrials * kMaRedPitch * 4;
+constexpr int kMaSmem = kTrials * mmas8::kRowStride > kTrials * kMaRedPitch * 4
+                            ? kTrials * mmas8::kRowStride : kTrials * kMaRedPitch * 4;
 
-// The tensor-core int8_mm (header note).  Grid: (strips of kMaRows rows,
-// chunks of cols_per_chunk columns, groups of kTrials trials); the chunks of
-// a strip and group are one cluster.  kW16: n_in % 16 == 0 and wq 16-byte
-// aligned (one 16-byte load where two 8-byte loads go otherwise); kVecStage:
-// n_in % 16 == 0 and xq 16-byte aligned.
+// The tensor-core int8_mm (header note).  Grid: (strips of kRowBlockRows
+// rows, chunks of cols_per_chunk columns, groups of kTrials trials); the
+// chunks of a strip and group are one cluster.  kW16: n_in % 16 == 0 and wq
+// 16-byte aligned (one 16-byte load where two 8-byte loads go otherwise);
+// kVecStage: n_in % 16 == 0 and xq 16-byte aligned.
 template <bool kW16, bool kVecStage>
-__global__ void __launch_bounds__(kMaThreads, kMaBlocksPerSm)
+__global__ void __launch_bounds__(mmas8::kRowThreads, kMaBlocksPerSm)
 int8_mm_mma_kernel(const int8_t* __restrict__ wq, const int8_t* __restrict__ xq,
                    const float* __restrict__ row_scale, const float* __restrict__ act_scale,
                    float* __restrict__ out, int n_out, int n_in, int n_rows, int cols_per_chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
+  const int g = lane >> 2;  // the fragments' group
   const int b0 = blockIdx.z * kTrials;
   const int nb = min(kTrials, n_rows - b0);
-  const int ntiles = (nb + 7) / 8;  // n-tiles with a trial in them
   const int c0 = blockIdx.y * cols_per_chunk;
   const int cols = max(0, min(n_in, c0 + cols_per_chunk) - c0);  // a chunk may be empty
-  const int row0 = blockIdx.x * kMaRows + warp * kMaWarpRows;  // the warp's first row
-  const unsigned char* s_lane = smem + g * kMaStride + 16 * t;  // trial g, columns 16t.. of a block
+  // the warp's first row
+  const int row0 = blockIdx.x * mmas8::kRowBlockRows + warp * mmas8::kRowWarpRows;
 
-  // the lane's rows g and g + 8 of each m-tile (m = 2 * tile + half), at
-  // its columns 16t..16t+15 of the chunk's first k-block
-  const int8_t* w_row[2 * kMaTiles];
-  bool row_ok[2 * kMaTiles];
+  // the lane's rows g and g + 8 of each m-tile (m = 2 * tile + half), from
+  // the chunk's first column
+  const int8_t* w_row[2 * mmas8::kRowTiles];
+  bool row_ok[2 * mmas8::kRowTiles];
 #pragma unroll
-  for (int m = 0; m < 2 * kMaTiles; ++m) {
+  for (int m = 0; m < 2 * mmas8::kRowTiles; ++m) {
     const int r = row0 + 16 * (m >> 1) + 8 * (m & 1) + g;
     row_ok[m] = r < n_out;
-    w_row[m] = wq + static_cast<size_t>(row_ok[m] ? r : 0) * n_in + c0 + 16 * t;
+    w_row[m] = wq + static_cast<size_t>(row_ok[m] ? r : 0) * n_in + c0;
   }
-
-  int c[kMaTiles][4][4];  // m-tile, n-tile, fragment element
+  const auto load_w = [&](int col, int end, uint4 (&w)[2 * mmas8::kRowTiles]) {
 #pragma unroll
-  for (int u = 0; u < kMaTiles; ++u)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) c[u][nt][i] = 0;
-
-  for (int p0 = 0; p0 < cols; p0 += kMaPassCols) {  // one pass at N = 10,000
-    const int pcols = min(kMaPassCols, cols - p0);
-    const int blocks = (pcols + kMaBlockK - 1) / kMaBlockK;
-    if (p0 > 0) __syncthreads();  // the previous pass's stage is used up
-    uint4 ring[kMaRing][kMaSub][2 * kMaTiles];  // kMaRing k-blocks ahead
-    // zeros (and no load) past the pass
-    auto load_w = [&](int kb, uint4 (&w)[kMaSub][2 * kMaTiles]) {
-#pragma unroll
-      for (int h = 0; h < kMaSub; ++h) {
-        const int k = kb * kMaBlockK + 64 * h + 16 * t;  // the lane's first column in the pass
-#pragma unroll
-        for (int m = 0; m < 2 * kMaTiles; ++m) {
-          const int8_t* p = w_row[m] + p0 + kb * kMaBlockK + 64 * h;
-          if constexpr (kW16) {
-            w[h][m] = (row_ok[m] && k < pcols) ? load_w16(p) : make_uint4(0u, 0u, 0u, 0u);
-          } else {  // n_in % 8 == 0: each 8 bytes all in or all out
-            const uint2 lo = (row_ok[m] && k < pcols) ? load_w8(p) : make_uint2(0u, 0u);
-            const uint2 hi = (row_ok[m] && k + 8 < pcols) ? load_w8(p + 8) : make_uint2(0u, 0u);
-            w[h][m] = make_uint4(lo.x, lo.y, hi.x, hi.y);
-          }
-        }
-      }
-    };
-#pragma unroll
-    for (int d = 0; d < kMaRing; ++d) load_w(d, ring[d]);
-
-    // stage xq[b0 + b, c0 + p0 .. + 64 blocks) for the trials of the n-tiles
-    // in use, zeros past the pass and past the trials: in kMaParts parts of
-    // `part` k-blocks, each waited for only when the k loop reaches it
-    const int span = blocks * kMaBlockK;
-    const int part = (blocks + kMaParts - 1) / kMaParts;
-    const int8_t* x_pass = xq + static_cast<size_t>(b0) * n_in + c0 + p0;
-    if constexpr (kVecStage) {  // pcols is a multiple of 16: a copy is all in or all out
-#pragma unroll
-      for (int q = 0; q < kMaParts; ++q) {
-        const int k0 = min(span, q * part * kMaBlockK) / 16;
-        const int n = min(span, (q + 1) * part * kMaBlockK) / 16 - k0;  // 16-byte copies a trial
-        for (int idx = threadIdx.x; idx < 8 * ntiles * n; idx += kMaThreads) {
-          const int b = idx / n, k = 16 * (k0 + idx % n);
-          const bool ok = b < nb && k < pcols;
-          copy16(smem + b * kMaStride + k, ok ? x_pass + static_cast<size_t>(b) * n_in + k : xq,
-                 ok ? 16 : 0);
-        }
-        asm volatile("cp.async.commit_group;\n" ::);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < 8 * ntiles * span; idx += kMaThreads) {
-        const int b = idx / span, k = idx % span;
-        smem[b * kMaStride + k] = (b < nb && k < pcols)
-            ? static_cast<unsigned char>(__ldg(x_pass + static_cast<size_t>(b) * n_in + k))
-            : static_cast<unsigned char>(0);
+    for (int m = 0; m < 2 * mmas8::kRowTiles; ++m) {
+      const int8_t* p = w_row[m] + col;
+      if constexpr (kW16) {
+        w[m] = (row_ok[m] && col < end) ? load_w16(p) : make_uint4(0u, 0u, 0u, 0u);
+      } else {  // n_in % 8 == 0: each 8 bytes all in or all out
+        const uint2 lo = (row_ok[m] && col < end) ? load_w8(p) : make_uint2(0u, 0u);
+        const uint2 hi = (row_ok[m] && col + 8 < end) ? load_w8(p + 8) : make_uint2(0u, 0u);
+        w[m] = make_uint4(lo.x, lo.y, hi.x, hi.y);
       }
     }
+  };
+  const auto src = [&](int b, int col) {  // xq[b0 + b, c0 + col]
+    return xq + static_cast<size_t>(b0 + b) * n_in + c0 + col;
+  };
 
-    for (int kb0 = 0; kb0 < blocks; kb0 += kMaRing) {
-#pragma unroll
-      for (int d = 0; d < kMaRing; ++d) {
-        const int kb = kb0 + d;
-        if (kb >= blocks) break;
-        if (kb % part == 0) {  // the stage's part kb / part has landed, for every thread
-          wait_copies(kMaParts - 1 - kb / part);
-          __syncthreads();
-        }
-        uint4 w[kMaSub][2 * kMaTiles];
-#pragma unroll
-        for (int h = 0; h < kMaSub; ++h)
-#pragma unroll
-          for (int m = 0; m < 2 * kMaTiles; ++m) w[h][m] = ring[d][h][m];
-        load_w(kb + kMaRing, ring[d]);
-        // A fragment of m-tile u, k-step 0 of a sub-block: rows g, g + 8 at
-        // columns 16t..16t+3 (k slots 4t..4t+3) and 16t+4..16t+7 (k slots
-        // 16+4t..16+4t+3); k-step 1 the same at columns 16t+8..16t+15.  The
-        // B fragments of trial 8nt + g are the same columns of the stage:
-        // one 16-byte read.
-#pragma unroll
-        for (int h = 0; h < kMaSub; ++h)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            if (nt >= ntiles) break;
-            const uint4 bv = *reinterpret_cast<const uint4*>(s_lane + 8 * nt * kMaStride +
-                                                             kb * kMaBlockK + 64 * h);
-#pragma unroll
-            for (int u = 0; u < kMaTiles; ++u) {
-              const uint4* a = w[h] + 2 * u;  // rows g and g + 8 of m-tile u
-              mma_s8(c[u][nt], a[0].x, a[1].x, a[0].y, a[1].y, bv.x, bv.y);
-              mma_s8(c[u][nt], a[0].z, a[1].z, a[0].w, a[1].w, bv.z, bv.w);
-            }
-          }
-      }
-    }
-  }
+  int c[mmas8::kRowTiles][4][4];  // m-tile, n-tile, fragment element
+  mmas8::rows_mma_sums<kVecStage>(c, smem, cols, nb, true, false, load_w, src);
 
   // the chunks' sums by trial and row, added across the cluster
-  mmas8::rows_cluster_epilogue<kMaWarps, kMaTiles, kMaRedPitch, kMaMaxCluster>(
+  mmas8::rows_cluster_epilogue<mmas8::kRowWarps, mmas8::kRowTiles, kMaRedPitch, kMaMaxCluster>(
       c, reinterpret_cast<int*>(smem), nb, b0, row_scale, act_scale, out, n_out);
 }
 
@@ -696,9 +598,9 @@ template <bool kW16, bool kVecStage>
 cudaError_t launch_mm_mma(const int8_t* w, const int8_t* x, const float* rs, const float* as,
                           float* out, int n_out, int n_in, int n_rows, cudaStream_t st) {
   return mmas8::launch_column_clusters<kMaMaxCluster>(
-      int8_mm_mma_kernel<kW16, kVecStage>, kMaThreads, kMaSmem,
-      (n_out + kMaRows - 1) / kMaRows, (n_rows + kTrials - 1) / kTrials, n_in, kMaBlockK, st, w, x,
-      rs, as, out, n_out, n_in, n_rows);
+      int8_mm_mma_kernel<kW16, kVecStage>, mmas8::kRowThreads, kMaSmem,
+      (n_out + mmas8::kRowBlockRows - 1) / mmas8::kRowBlockRows, (n_rows + kTrials - 1) / kTrials,
+      n_in, mmas8::kRowBlockK, st, w, x, rs, as, out, n_out, n_in, n_rows);
 }
 }  // namespace
 

@@ -1,7 +1,9 @@
 // The tensor-core pieces of the batched int8 x int8 and int4 x int8
 // products, for NVIDIA Hopper (sm_90a): int8_mm_mma_kernel (int8_matvec.cu)
-// and int4_mm_mma_kernel (int4_matvec.cu) share them, and int8_mm_t and
-// int4_mm_t are two instances of one kernel here (cols_t_mma_kernel).
+// and int4_mm_mma_kernel (int4_matvec.cu) share them, int8_mm_mma_kernel
+// and block_int8_mma_kernel (block_int8.cu) one k loop (rows_mma_sums), and
+// int8_mm_t and int4_mm_t are two instances of one kernel here
+// (cols_t_mma_kernel).
 // mma.sync m16n8k32 s8 x s8 -> s32 (exact int32 sums), the cp.async copies
 // of the activations' stage, the streaming loads of W, the byte transposes
 // and the nibble unpack, and the thread block clusters in which the chunks
@@ -102,6 +104,140 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, ui
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------ products whose M is W's rows
+// The geometry and the k loop that int8_mm_mma_kernel (int8_matvec.cu) and
+// block_int8_mma_kernel (block_int8.cu) share; their header notes say why.
+// A thread block of kRowWarps warps owns kRowBlockRows rows of W (kRowTiles
+// m-tiles of 16 rows a warp) and up to kRowTrials trials (4 n-tiles of 8).
+constexpr int kRowWarps = 4;
+constexpr int kRowThreads = 32 * kRowWarps;
+constexpr int kRowTiles = 2;                          // m-tiles of 16 rows a warp
+constexpr int kRowWarpRows = 16 * kRowTiles;
+constexpr int kRowBlockRows = kRowWarps * kRowWarpRows;  // rows of W a thread block
+constexpr int kRowTrials = 32;                        // trials a thread block (4 n-tiles)
+constexpr int kRowBlockK = 128;                       // columns of a k-block, loaded at once
+constexpr int kRowSub = kRowBlockK / 64;              // its sub-blocks of two k-steps
+constexpr int kRowRing = 2;                           // k-blocks of W in flight a lane
+constexpr int kRowPassCols = 2048;                    // columns staged at once at most
+constexpr int kRowParts = 4;                          // parts of the stage, waited for one by one
+// Bytes a trial's row takes in the stage: 64 mod 128, so that the 16-byte
+// reads of a quarter-warp (2 trials x 4 column offsets) hit distinct banks;
+// a multiple of 16 for cp.async.
+constexpr int kRowStride = kRowPassCols / 128 * 128 + 64;
+static_assert(kRowParts <= 4, "wait_copies waits for at most 3 pending groups");
+static_assert(kRowPassCols % kRowBlockK == 0 && kRowBlockK % 64 == 0, "whole k-blocks a pass");
+
+// c = the int32 sums of the warp's kRowTiles m-tiles and 4 n-tiles over K
+// columns, in passes of at most kRowPassCols.  For each pass the lanes
+// first put their loads of W's first kRowRing k-blocks in flight; the
+// thread block then stages the pass's columns of the n-tiles' trials in
+// rows of kRowStride bytes, zeros past the pass and past the nb trials
+// (kVecStage: 16-byte cp.async copies in kRowParts parts, each waited for
+// only when the k loop reaches it; else byte loads); and each 16-byte B read
+// of the stage serves the warp's kRowTiles m-tiles.
+// - load_w(col, end, w): w[m] = the 16 bytes at columns col..col+15 of the
+//   lane's row m (rows g and g + 8 of each m-tile, m = 2 * tile + half),
+//   zeros where the row is out or at columns from `end` on;
+// - src(b, col): the address of column col of trial b of the thread
+//   block's trials (read 16 bytes on where kVecStage, else one byte);
+// - fresh: the first pass is staged (false: the stage still holds it from
+//   the thread block's previous call, which needs K <= kRowPassCols);
+//   used: a previous call read the stage, so restaging waits for all warps.
+template <bool kVecStage, class LoadW, class Src>
+__device__ __forceinline__ void rows_mma_sums(int (&c)[kRowTiles][4][4], unsigned char* smem,
+                                              int K, int nb, bool fresh, bool used,
+                                              const LoadW& load_w, const Src& src) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' group and thread in group
+  const int ntiles = (nb + 7) / 8;        // n-tiles with a trial in them
+  const unsigned char* s_lane = smem + g * kRowStride + 16 * t;  // trial g, columns 16t..
+#pragma unroll
+  for (int u = 0; u < kRowTiles; ++u)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[u][nt][i] = 0;
+
+  for (int p0 = 0; p0 < K; p0 += kRowPassCols) {
+    const int pcols = min(kRowPassCols, K - p0);
+    const int blocks = (pcols + kRowBlockK - 1) / kRowBlockK;
+    const bool stage = fresh || p0 > 0;
+    uint4 ring[kRowRing][kRowSub][2 * kRowTiles];  // kRowRing k-blocks ahead
+    // zeros (and no load) past the pass
+    auto load = [&](int kb, uint4 (&w)[kRowSub][2 * kRowTiles]) {
+#pragma unroll
+      for (int h = 0; h < kRowSub; ++h)
+        load_w(p0 + kb * kRowBlockK + 64 * h + 16 * t, p0 + pcols, w[h]);
+    };
+#pragma unroll
+    for (int d = 0; d < kRowRing; ++d) load(d, ring[d]);
+
+    // the stage, in kRowParts parts of `part` k-blocks
+    const int span = blocks * kRowBlockK;
+    const int part = (blocks + kRowParts - 1) / kRowParts;
+    if (stage) {
+      if (p0 > 0 || used) __syncthreads();  // the previous stage is used up
+      if constexpr (kVecStage) {  // pcols is a multiple of 16: a copy is all in or all out
+#pragma unroll
+        for (int q = 0; q < kRowParts; ++q) {
+          const int k0 = min(span, q * part * kRowBlockK) / 16;
+          const int n = min(span, (q + 1) * part * kRowBlockK) / 16 - k0;  // copies a trial
+          for (int e = threadIdx.x; e < 8 * ntiles * n; e += kRowThreads) {
+            const int b = e / n, k = 16 * (k0 + e % n);
+            const bool ok = b < nb && k < pcols;
+            copy16(smem + b * kRowStride + k, src(ok ? b : 0, p0 + (ok ? k : 0)), ok ? 16 : 0);
+          }
+          asm volatile("cp.async.commit_group;\n" ::);
+        }
+      } else {
+        for (int e = threadIdx.x; e < 8 * ntiles * span; e += kRowThreads) {
+          const int b = e / span, k = e % span;
+          smem[b * kRowStride + k] = (b < nb && k < pcols)
+              ? static_cast<unsigned char>(__ldg(src(b, p0 + k)))
+              : static_cast<unsigned char>(0);
+        }
+      }
+    }
+
+    for (int kb0 = 0; kb0 < blocks; kb0 += kRowRing) {
+#pragma unroll
+      for (int d = 0; d < kRowRing; ++d) {
+        const int kb = kb0 + d;
+        if (kb >= blocks) break;
+        if (stage && kb % part == 0) {  // the stage's part kb / part has landed, for all
+          wait_copies(kRowParts - 1 - kb / part);
+          __syncthreads();
+        }
+        uint4 w[kRowSub][2 * kRowTiles];
+#pragma unroll
+        for (int h = 0; h < kRowSub; ++h)
+#pragma unroll
+          for (int m = 0; m < 2 * kRowTiles; ++m) w[h][m] = ring[d][h][m];
+        load(kb + kRowRing, ring[d]);
+        // A fragment of m-tile u, k-step 0 of a sub-block: rows g, g + 8 at
+        // columns 16t..16t+3 (k slots 4t..4t+3) and 16t+4..16t+7 (k slots
+        // 16+4t..16+4t+3); k-step 1 the same at columns 16t+8..16t+15.  The
+        // B fragments of trial 8nt + g are the same columns of the stage:
+        // one 16-byte read.
+#pragma unroll
+        for (int h = 0; h < kRowSub; ++h)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            if (nt >= ntiles) break;
+            const uint4 bv = *reinterpret_cast<const uint4*>(s_lane + 8 * nt * kRowStride +
+                                                             kb * kRowBlockK + 64 * h);
+#pragma unroll
+            for (int u = 0; u < kRowTiles; ++u) {
+              const uint4* a = w[h] + 2 * u;  // rows g and g + 8 of m-tile u
+              mma_s8(c[u][nt], a[0].x, a[1].x, a[0].y, a[1].y, bv.x, bv.y);
+              mma_s8(c[u][nt], a[0].z, a[1].z, a[0].w, a[1].w, bv.z, bv.w);
+            }
+          }
+      }
+    }
+  }
 }
 
 // The epilogue of a block of kWarps warps whose M is W's rows (kTiles

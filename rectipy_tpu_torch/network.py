@@ -843,9 +843,8 @@ class Network:
             raise ValueError(f"sampling_steps must be >= 1; got {sampling_steps}")
         rec_info = self._resolve_record_vars(obs)
         with torch.no_grad():
-            state, rec0, recs = self._run_windowed(
-                self.init_state(), self._prep_params(self.parameters_pytree()),
-                inputs.unbind(0), s, cutoff, rec_info, obs.record_output)
+            state, rec0, recs = self._run_windowed(*self.step_args(), inputs.unbind(0), s,
+                                                   cutoff, rec_info, obs.record_output)
         self._write_back(state)
 
         rec_steps_all = [t for t in range(steps) if t % s == 0]
@@ -859,14 +858,28 @@ class Network:
             print(f"Progress: {steps}/{steps} integration steps finished.")
         return obs
 
-    def _run_windowed(self, state, params, xs, s, cutoff, rec_info, record_output,
+    def step_args(self, B: int = None, batch_vars: dict = None) -> tuple:
+        """``(step, state, params)``: the step function, the start states and
+        the prepped parameters that :meth:`run` (``B`` None: one trial) or
+        :meth:`run_batch` (``B`` trials under ``batch_vars``: ``(B, ...)``
+        states, each trial's swept values spliced in) advances, from the
+        network's current state.  The runs call it under ``torch.no_grad()``;
+        anything that times their step takes its arguments from here."""
+        params = self.parameters_pytree()
+        if B is None:
+            return self.make_step(), self.init_state(), self._prep_params(params)
+        sweeps = self._resolve_batch_vars("run_batch", batch_vars, B, params, trainer=False)
+        return (self.make_step(), self._batch_state(self.init_state(), B),
+                self._prep_params(self._with_sweeps(params, sweeps)))
+
+    def _run_windowed(self, step, state, params, xs, s, cutoff, rec_info, record_output,
                       batched: bool = False):
-        """The run loop over the per-step inputs ``xs``.  Returns the final
-        state, the step-0 record and the window records, all as host numpy
-        arrays (one transfer, at the end).  ``batched``: the states carry a
-        leading trial axis; a reduced record is each trial's population mean
-        and the window records stack along axis 1, ``(B, R, ...)``."""
-        step = self.make_step()
+        """The run loop of ``step`` over the per-step inputs ``xs``.  Returns
+        the final state, the step-0 record and the window records, all as
+        host numpy arrays (one transfer, at the end).  ``batched``: the
+        states carry a leading trial axis; a reduced record is each trial's
+        population mean and the window records stack along axis 1, ``(B, R,
+        ...)``."""
         steps = len(xs)
         n_win = (steps - 1) // s  # full windows after step 0
         axis = 1 if batched else 0
@@ -1083,18 +1096,15 @@ class Network:
             raise ValueError(f"sampling_steps must be >= 1; got {sampling_steps}")
         obs = Observer(dt=self.dt, record_loss=kwargs.pop("record_loss", False), **kwargs)
         rec_info = self._resolve_record_vars(obs)
-        state0 = self.init_state()
-        params = self.parameters_pytree()
-        sweeps = self._resolve_batch_vars("run_batch", batch_vars, B, params, trainer=False)
         rec_steps_all = [t for t in range(T) if t % s == 0]
         results = {"steps": np.asarray([t for t in rec_steps_all if t >= cutoff],
                                        dtype=np.int64)}
         with torch.no_grad():
-            pb = self._prep_params(self._with_sweeps(params, sweeps))
+            args = self.step_args(B, batch_vars)
             xs = ([x.expand(B, n_chan) for x in inputs.unbind(0)] if inputs.ndim == 2
                   else inputs.unbind(1))
-            _, rec0, recs = self._run_windowed(self._batch_state(state0, B), pb, xs, s, cutoff,
-                                               rec_info, obs.record_output, batched=True)
+            _, rec0, recs = self._run_windowed(*args, xs, s, cutoff, rec_info,
+                                               obs.record_output, batched=True)
         outs, rec_vars = self._assemble_windowed_records(
             rec0, recs, rec_info, obs.record_output, rec_steps_all, cutoff, axis=1)
         if outs is not None:

@@ -71,7 +71,8 @@ __all__ = ["exact_div", "quantize_rows", "quant_vec", "INT8_DOT_MAX_FAN_IN", "in
            "pack_int4", "unpack_int4", "int4_dot_plain", "int4_dot_t_plain", "int4_mv", "int4_mv_t",
            "int4_mm", "int4_mm_t", "int4_mm_plain", "int4_mm_route", "int4_mm_t_plain",
            "int4_master_matvec", "int4_master_ops", "quantize_blocks", "block_int8_mv",
-           "block_int8_mv_plain", "block_int8_mv_route", "block_int8_matvec",
+           "block_int8_mv_plain", "block_int8_mv_route", "block_int8_mv_routes",
+           "block_int8_matvec",
            "make_block_int8_ops", "make_block_int8_master_matvec", "make_block_int8_stack_ops",
            "make_block_int8_stack_apply", "block_int8_stack_prepped"]
 
@@ -930,20 +931,35 @@ def _lib_block():
     """The block kernel's C entry points, built and declared once per process."""
     lib = build("block_int8").lib
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.block_int8_mv_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.block_int8_mv_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.block_int8_mv_launch.restype = ctypes.c_int
     return lib
 
 
-def block_int8_mv_route(bs: int, bq_ptr: int, xq_ptr: int) -> int:
-    """The bytes a lane of :func:`block_int8_mv`'s kernel reads at once for
-    blocks of ``bs`` at ``bq_ptr`` and activations at ``xq_ptr``: 16 where
-    ``bs % 16 == 0`` and both addresses are 16-byte aligned, 4 where they
-    allow 4-byte pieces, else 1, as ``block_int8_mv_launch`` picks them."""
+# the route codes of block_int8_mv_launch
+_BLOCK_ROUTES = {"scalar": 0, "vec4": 1, "vec16": 2, "mma": 3}
+
+
+def block_int8_mv_routes(bs: int, bq_ptr: int, xq_ptr: int) -> tuple:
+    """Every route of :func:`block_int8_mv`'s kernels that blocks of ``bs``
+    at ``bq_ptr`` and activations at ``xq_ptr`` allow: ``"mma"`` (the
+    tensor cores: ``bs % 32 == 0``, both addresses 16-byte aligned),
+    ``"vec16"`` (``__dp4a`` on 16-byte pieces: ``bs % 16 == 0``, the same
+    alignment), ``"vec4"`` (4-byte pieces, 4-byte alignment) and
+    ``"scalar"`` (bytes), as ``block_int8_mv_launch`` checks them."""
     addr = bq_ptr | xq_ptr
-    if bs % 16 == 0 and addr % 16 == 0:
-        return 16
-    return 4 if bs % 4 == 0 and addr % 4 == 0 else 1
+    return tuple(name for name, ok in (
+        ("mma", bs % 32 == 0 and addr % 16 == 0), ("vec16", bs % 16 == 0 and addr % 16 == 0),
+        ("vec4", bs % 4 == 0 and addr % 4 == 0), ("scalar", True)) if ok)
+
+
+def block_int8_mv_route(bs: int, bq_ptr: int, xq_ptr: int) -> str:
+    """The route :func:`block_int8_mv` takes for blocks of ``bs`` at
+    ``bq_ptr`` and activations at ``xq_ptr``: the first of
+    :func:`block_int8_mv_routes`, the tensor cores wherever the shapes allow
+    them (they were faster at every trial count measured; see
+    ``csrc/block_int8.cu``), else the widest ``__dp4a`` pieces."""
+    return block_int8_mv_routes(bs, bq_ptr, xq_ptr)[0]
 
 
 def _check_block(bq, row_scale, xq, idx) -> None:
@@ -974,7 +990,7 @@ def _check_block(bq, row_scale, xq, idx) -> None:
                          f"{INT8_DOT_MAX_FAN_IN} (int32 overflow)")
 
 
-def block_int8_mv(bq, row_scale, xq, idx) -> torch.Tensor:
+def block_int8_mv(bq, row_scale, xq, idx, route=None) -> torch.Tensor:
     """``out[b, r*bs + i] = float32(sum_c sum_j bq[r, c, i, j] * xq[b, idx[r,
     c], j]) * row_scale[r, i]``, float32 ``(B, n_br * bs)``: the gathered
     int8 block contraction with its row scales, for ``B`` rows of int8
@@ -982,26 +998,40 @@ def block_int8_mv(bq, row_scale, xq, idx) -> torch.Tensor:
     entry of ``idx`` must lie in ``[0, n_src)``.  The caller applies the
     activation scale.
 
-    CPU tensors take the plain version.  CUDA tensors launch the kernel of
-    ``csrc/block_int8.cu`` on the current stream; anything it does not take
-    raises.  The integer sums are exact, so kernel and plain version agree
-    bit for bit.  Each launch adds one to ``block_int8_mv.launches``."""
+    CPU tensors take the plain version.  CUDA tensors launch a kernel of
+    ``csrc/block_int8.cu`` on the current stream, on ``route`` (default
+    :func:`block_int8_mv_route`'s; one that the shapes do not allow raises):
+    ``"mma"`` on the tensor cores, ``"vec16"``, ``"vec4"`` or ``"scalar"``
+    on the CUDA cores' ``__dp4a``.  Anything the kernels do not take
+    raises.  The integer sums are exact, so every route and the plain
+    version agree bit for bit.  Each launch adds one to
+    ``block_int8_mv.launches``, a launch on the tensor cores also to
+    ``block_int8_mv.mma_launches``."""
     if bq.device.type == "cpu":
         return block_int8_mv_plain(bq, row_scale, xq, idx)
     _check_block(bq, row_scale, xq, idx)
     n_br, cb, bs, _ = bq.shape
     B, n_src = xq.shape[0], xq.shape[1]
+    if route is None:
+        route = block_int8_mv_route(bs, bq.data_ptr(), xq.data_ptr())
+    elif route not in block_int8_mv_routes(bs, bq.data_ptr(), xq.data_ptr()):
+        raise ValueError(f"block_int8_mv: route {route!r} does not take bs={bs} at these "
+                         f"addresses")
     out = torch.empty((B, n_br * bs), dtype=torch.float32, device=bq.device)
     err = _lib_block().block_int8_mv_launch(
         bq.data_ptr(), row_scale.data_ptr(), xq.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        n_br, cb, bs, n_src, B, torch.cuda.current_stream(bq.device).cuda_stream)
+        n_br, cb, bs, n_src, B, _BLOCK_ROUTES[route],
+        torch.cuda.current_stream(bq.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_int8_mv: kernel launch failed with CUDA error {err}")
     block_int8_mv.launches += 1
+    if route == "mma":
+        block_int8_mv.mma_launches += 1
     return out
 
 
 block_int8_mv.launches = 0
+block_int8_mv.mma_launches = 0  # launches on the tensor cores (route "mma")
 
 
 def block_int8_product(bq, row_scale, xq, idx) -> torch.Tensor:

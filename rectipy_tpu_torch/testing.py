@@ -22,6 +22,11 @@ The generic fused step: one node of each class and mode
 (``GENERIC_CASES``), built through the public API with the kernel attached,
 and inputs for one step of it (``generic_inputs``); ``check_generic`` holds
 the kernel's rows to the plain version's (see ``GENERIC_TOL``).
+
+The tensor cores' int8 product: ``mma_m16n8k32`` is a numpy model of one
+``mma.sync`` m16n8k32 s8 on the PTX ISA's fragment layouts, with
+``sbytes`` and ``words`` between uint32 registers and their bytes; the
+CPU tests' lane-by-lane models of the ``mma`` kernels are built on it.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from .ops.fused_opt import bias_corrections
 __all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "adam_inputs",
            "check_adam_requant", "check_generic", "generic_case_net", "generic_inputs",
            "generic_rows_instance", "generic_rows_operands", "lost_eighth_margin",
-           "qif_rows_instance", "quant_scales", "reciprocal_rows"]
+           "mma_m16n8k32", "qif_rows_instance", "quant_scales", "reciprocal_rows", "sbytes",
+           "words"]
 
 ADAM_RTOL = 1e-6
 ADAM_KW = dict(b1=0.9, b2=0.999, eps=1e-8)
@@ -110,6 +116,37 @@ def quant_scales(w: torch.Tensor) -> dict:
 
     return {"quantize_rows": quantize_rows(w), "quantize_rows_i4": quantize_rows_i4(w),
             "quant_vec": quant_vec(w), "source_scale": (_source_scale(w),)}
+
+
+# ----------------------------------------------------- tensor-core fragments
+_LANE = np.arange(32)
+_G, _T = _LANE >> 2, _LANE & 3  # the fragments' group and thread in group
+
+
+def sbytes(u) -> np.ndarray:
+    """uint32 words -> their 4 signed bytes each (little-endian), int64."""
+    u = np.ascontiguousarray(np.asarray(u, np.uint32))
+    return u.astype("<u4").view(np.int8).reshape(u.shape + (4,)).astype(np.int64)
+
+
+def words(a) -> np.ndarray:
+    """int8/uint8 array (..., 4k) -> uint32 words (..., k), little-endian."""
+    return np.ascontiguousarray(a).view("<u4")
+
+
+def mma_m16n8k32(a, b) -> list:
+    """D = A B of the PTX fragments of ``mma.sync`` m16n8k32 s8: ``a`` four
+    (..., 32) uint32 registers of the 16 x 32 row-major A, ``b`` two of the
+    32 x 8 column-major B (the leading axes broadcast: a stack of warps);
+    returns the four (..., 32) int64 registers of the 16 x 8 D."""
+    lead = np.broadcast_shapes(*(np.shape(r)[:-1] for r in (*a, *b)))
+    A, Bm = np.zeros(lead + (16, 32), np.int64), np.zeros(lead + (32, 8), np.int64)
+    for reg, (m_off, k_off) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
+        A[..., (_G + m_off)[:, None], k_off + 4 * _T[:, None] + np.arange(4)] = sbytes(a[reg])
+    for reg, k_off in enumerate((0, 16)):
+        Bm[..., k_off + 4 * _T[:, None] + np.arange(4), _G[:, None]] = sbytes(b[reg])
+    D = A @ Bm
+    return [D[..., _G + 8 * (i >> 1), 2 * _T + (i & 1)] for i in range(4)]
 
 
 # ---------------------------------------------------------------- generic step

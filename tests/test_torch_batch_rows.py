@@ -61,6 +61,9 @@ from rectipy_tpu_torch.ops import quant
 from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step
 from rectipy_tpu_torch.testing import (GENERIC_CASES, check_generic, generic_case_net,
                                        generic_inputs, lost_eighth_margin)
+from rectipy_tpu_torch.testing import mma_m16n8k32 as _mma_m16n8k32
+from rectipy_tpu_torch.testing import sbytes as _sbytes
+from rectipy_tpu_torch.testing import words as _words
 
 J, T_ = "neuron_model_templates.", "rectipy_tpu_torch.models."
 LIF = "spiking_neurons.lif.lif"
@@ -412,12 +415,6 @@ def _byte_perm(x, y, sel):
     return out.astype(np.uint32)
 
 
-def _sbytes(u):
-    """uint32 words -> their 4 signed bytes each (little-endian), int64."""
-    u = np.ascontiguousarray(np.asarray(u, np.uint32))
-    return u.astype("<u4").view(np.int8).reshape(u.shape + (4,)).astype(np.int64)
-
-
 def _dp4a(a, b, acc):
     return acc + (_sbytes(a) * _sbytes(b)).sum(axis=-1)
 
@@ -433,11 +430,6 @@ def _pack_bytes(b):
     """(..., 4) integers -> uint32 words of their low bytes."""
     b = (np.asarray(b, np.int64) & 0xFF).astype(np.uint32)
     return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
-
-
-def _words(a):
-    """int8/uint8 array (..., 4k) -> uint32 words (..., k), little-endian."""
-    return np.ascontiguousarray(a).view("<u4")
 
 
 def _int4_mm_model(wp, xq, rs, act):
@@ -574,21 +566,6 @@ def test_int4_mm_plain_versions_equal_per_row_loops(B, n_out, n_in):
 _QA_TILES, _QA_BLOCK_K = 4, 128
 _LANE = np.arange(32)
 _G, _T = _LANE >> 2, _LANE & 3  # the fragments' group and thread in group
-
-
-def _mma_m16n8k32(a, b):
-    """D = A B of the PTX fragments: a four (..., 32) uint32 registers of
-    the 16 x 32 row-major s8 A, b two of the 32 x 8 column-major s8 B (the
-    leading axes: a stack of warps); returns the four (..., 32) int64
-    registers of the 16 x 8 D."""
-    lead = np.broadcast_shapes(*(np.shape(r)[:-1] for r in (*a, *b)))
-    A, Bm = np.zeros(lead + (16, 32), np.int64), np.zeros(lead + (32, 8), np.int64)
-    for reg, (m_off, k_off) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
-        A[..., (_G + m_off)[:, None], k_off + 4 * _T[:, None] + np.arange(4)] = _sbytes(a[reg])
-    for reg, k_off in enumerate((0, 16)):
-        Bm[..., k_off + 4 * _T[:, None] + np.arange(4), _G[:, None]] = _sbytes(b[reg])
-    D = A @ Bm
-    return [D[..., _G + 8 * (i >> 1), 2 * _T + (i & 1)] for i in range(4)]
 
 
 def _split_stage(raw, byte_path):

@@ -1550,13 +1550,13 @@ def test_delay_matrix_reads_are_bit_identical_on_card(cuda):
 
 
 # ------------------------------------------------------ block-sparse couplings
-def _block_operands(B, bs, form, device, seed):
-    """block_int8_mv's operands: 6 block rows of 4 source blocks; ``form``
-    'cols' indexes (B, 6, bs) sources by a node coupling's cols, 'history'
-    a flat (B, 6 * 5, bs) history by cols * D1 + slot, as the delayed edge's
-    read would."""
+def _block_operands(B, bs, form, device, seed, cb=4):
+    """block_int8_mv's operands: 6 block rows of ``cb`` source blocks;
+    ``form`` 'cols' indexes (B, 6, bs) sources by a node coupling's cols,
+    'history' a flat (B, 6 * 5, bs) history by cols * D1 + slot, as the
+    delayed edge's read would."""
     rng = np.random.default_rng(seed)
-    n_br, cb, nb_in, d1 = 6, 4, 6, 5
+    n_br, nb_in, d1 = 6, 6, 5
     bq = rng.integers(-127, 128, size=(n_br, cb, bs, bs)).astype(np.int8)
     rs = rng.random((n_br, bs)).astype(np.float32)
     cols = np.stack([rng.permutation(nb_in)[:cb] for _ in range(n_br)])
@@ -1590,8 +1590,51 @@ def test_block_int8_mv_odd_block_size_takes_the_byte_route(cuda):
     from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_plain, block_int8_mv_route
 
     ops = _block_operands(3, 7, "cols", cuda, seed=7)
-    assert block_int8_mv_route(7, ops[0].data_ptr(), ops[2].data_ptr()) == 1
+    assert block_int8_mv_route(7, ops[0].data_ptr(), ops[2].data_ptr()) == "scalar"
+    before = block_int8_mv.mma_launches
     assert torch.equal(block_int8_mv(*ops), block_int8_mv_plain(*ops))
+    assert block_int8_mv.mma_launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["cols", "history"])
+@pytest.mark.parametrize("cb", [1, 4])
+@pytest.mark.parametrize("bs", [32, 64, 512])
+@pytest.mark.parametrize("B", [1, 3, 8, 16, 17, 32, 33])  # 17: a ragged n-tile; 33: two groups
+def test_block_int8_mv_tensor_cores_bit_identical_to_plain(cuda, B, bs, cb, form):
+    # the "mma" route takes every aligned bs % 32 == 0 call, and equals the
+    # plain version and the __dp4a route bit for bit
+    from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_plain, block_int8_mv_route
+
+    ops = _block_operands(B, bs, form, cuda, seed=B * 1000 + bs + cb, cb=cb)
+    assert block_int8_mv_route(bs, ops[0].data_ptr(), ops[2].data_ptr()) == "mma"
+    launches, mma = block_int8_mv.launches, block_int8_mv.mma_launches
+    out = block_int8_mv(*ops)
+    torch.cuda.synchronize()
+    assert (block_int8_mv.launches, block_int8_mv.mma_launches) == (launches + 1, mma + 1)
+    assert torch.equal(out, block_int8_mv_plain(*ops))
+    assert torch.equal(out, block_int8_mv(*ops, route="vec16"))
+    assert block_int8_mv.mma_launches == mma + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,offset,route", [(48, 0, "vec16"), (512, 8, "vec4"),
+                                             (64, 4, "vec4"), (64, 1, "scalar")])
+def test_block_int8_mv_misaligned_or_odd_block_takes_dp4a(cuda, bs, offset, route):
+    # activations that start off 16 bytes, or bs % 32 != 0, take the
+    # __dp4a pieces they allow; forcing the tensor cores raises
+    from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_plain, block_int8_mv_route
+
+    bq, rs, xq, idx = _block_operands(5, bs, "cols", cuda, seed=bs + offset)
+    buf = torch.empty(xq.numel() + offset, dtype=torch.int8, device=cuda)
+    xq_off = buf[offset:].view(xq.shape)
+    xq_off.copy_(xq)
+    assert block_int8_mv_route(bs, bq.data_ptr(), xq_off.data_ptr()) == route
+    before = block_int8_mv.mma_launches
+    assert torch.equal(block_int8_mv(bq, rs, xq_off, idx), block_int8_mv_plain(bq, rs, xq, idx))
+    assert block_int8_mv.mma_launches == before
+    with pytest.raises(ValueError, match="route"):
+        block_int8_mv(bq, rs, xq_off, idx, route="mma")
 
 
 @pytest.mark.gpu
@@ -1651,6 +1694,30 @@ def test_block_coupled_node_on_card_matches_cpu(cuda, coupling):
     for got, want in zip(outs[str(cuda)], outs["cpu"]):
         assert np.all(np.isfinite(got))
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_block_coupled_int8_run_batch_takes_the_tensor_cores(cuda):
+    # run_batch of 32 trials through a block-coupled int8 node (bs = 256)
+    # launches block_int8_mv once a step, every launch on the tensor cores,
+    # and each trial follows its single-trial run
+    from rectipy_tpu_torch.ops.quant import block_int8_mv
+
+    net, etas = _block_qif(cuda, "int8")
+    inp = np.full((60, 1), 3.0, dtype=np.float32)
+    kw = dict(sampling_steps=10, record_vars=[("qif", "v", True)], record_output=False)
+    sweep = np.linspace(-1.0, 1.0, 32)[:, None] + etas
+    net.reset()  # the single-trial runs below start from the reset state too
+    launches, mma = block_int8_mv.launches, block_int8_mv.mma_launches
+    batch = net.run_batch(inp, batch_vars={("qif", "eta"): sweep}, **kw)[("qif", "v")]
+    assert block_int8_mv.launches - launches == 60
+    assert block_int8_mv.mma_launches - mma == 60
+    node = net.get_node("qif")
+    for b in (0, 31):
+        net.reset()
+        node.set_param("eta", sweep[b])
+        single = net.run(inp, verbose=False, **kw).to_numpy(("qif", "v"))
+        np.testing.assert_allclose(batch[b], single, rtol=1e-5, atol=1e-5 * np.abs(single).max())
 
 
 @pytest.mark.gpu

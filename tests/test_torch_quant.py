@@ -15,6 +15,7 @@ from rectipy_tpu.ops import quant as jq
 from rectipy_tpu_torch import Network, load_jax_params
 from rectipy_tpu_torch.ops import fused_opt as tfo
 from rectipy_tpu_torch.ops import quant as tq
+from rectipy_tpu_torch.testing import mma_m16n8k32 as _mma_m16n8k32
 from rectipy_tpu_torch.testing import quant_scales, reciprocal_rows
 
 QIF_J = "neuron_model_templates.spiking_neurons.qif.qif"
@@ -318,29 +319,9 @@ def _transpose4(r0, r1, r2, r3):
             _byte_perm(hi01, hi23, 0x5410), _byte_perm(hi01, hi23, 0x7632)]
 
 
-def _bytes(words):
-    """(32,) uint32 -> (32, 4) signed bytes, little-endian."""
-    return words.astype("<u4").view(np.int8).reshape(-1, 4).astype(np.int64)
-
-
 def _word(b):
     """(32, 4) int8 bytes -> (32,) uint32, little-endian."""
     return np.ascontiguousarray(b.astype(np.int8)).view("<u4").reshape(-1)
-
-
-def _mma_m16n8k32(a, b):
-    """D = A B of the PTX fragments: a four (32,) uint32 registers of the
-    16 x 32 row-major A, b two of the 32 x 8 column-major B; returns the
-    four (32,) int64 registers of the 16 x 8 D."""
-    A, Bm = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
-    for reg, (m_off, k_off) in enumerate(((0, 0), (8, 0), (0, 16), (8, 16))):
-        for e in range(4):
-            A[_G + m_off, k_off + 4 * _T + e] = _bytes(a[reg])[:, e]
-    for reg, k_off in enumerate((0, 16)):
-        for e in range(4):
-            Bm[k_off + 4 * _T + e, _G] = _bytes(b[reg])[:, e]
-    D = A @ Bm
-    return [D[_G + 8 * (i >> 1), 2 * _T + (i & 1)] for i in range(4)]
 
 
 def _passes(n_out, rows_per_chunk, pass_rows):
@@ -452,7 +433,8 @@ def test_int8_mm_plain_matches_jax_vmap(B, n_in):
     np.testing.assert_array_equal(_np(got), np.asarray(ref))
 
 
-# A numpy model of int8_mm_mma_kernel (csrc/int8_matvec.cu): the chunks of
+# A numpy model of int8_mm_mma_kernel (csrc/int8_matvec.cu; its k loop is
+# csrc/mma_s8.cuh's rows_mma_sums): the chunks of
 # columns (one cluster) and their passes, the stage of xq, the 16 bytes of
 # rows g and g + 8 of each m-tile that lane (g, t) loads per 64-column
 # sub-block of a 128-column k-block, the A and B fragments of its two
