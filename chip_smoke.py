@@ -15,7 +15,7 @@
    with inputs on which the coupling sets v' (the matvec).
 4. main_path: the bench network (qif_sfa SpikeResetNet with a seeded 10%
    row-normalised coupling, fed by a tanh node through a Linear edge) built
-   through the public API, the kernel attached, and Network.run over 10,000
+   through the public API, the kernel attached, and Network.run over 5,000
    steps, for a bf16 and an f32 coupling; the launch counter must equal the
    step count and the records must be finite; neuron-updates/s from the best
    of 3 timed runs.
@@ -52,7 +52,7 @@ Phases 11-14 (run after phase 6, while the main path's networks exist):
    margin must exceed 1); then each instance's ms, bound, plain ms and
    torch.mv ms (the matvecs alone).
 12. generic_path: examples/fused_kernels.py's LIF network (bf16 coupling)
-   with attach_generic_fused_step and Network.run over 10,000 steps; one
+   with attach_generic_fused_step and Network.run over 5,000 steps; one
    launch per step, finite records, neuron-updates/s from the best of 3.
 13. generic_vs_specialized: the main path's bf16 network with the generic
    kernel in place of attach_fused_qif_step over 2,000 steps, in turns
@@ -73,10 +73,10 @@ of csrc/int4_matvec.cu, the counterpart of benchmarks/i4pack_microbench.py):
    500-byte rows, which takes the scalar instantiations.
 16. int4_path: the main path's network (phase 4) without a fused kernel,
    with coupling_dtype="int4" and, in turns, "int8" (bench.py's default),
-   10,000 steps through Network.run, int4 best of 3 and int8 of 2 in
+   5,000 steps through Network.run, int4 best of 3 and int8 of 2 in
    turns; one int4_mv (or int8_mv) launch per step, finite records, the correlation of the int4 and int8
    records, each path's device-only step and idle share; then the same int4
-   network on the CPU over 200 steps, held to the card's run under
+   network on the CPU over 100 steps, held to the card's run under
    fused_vs_plain's rule (int4_path_vs_cpu, which also counts the records
    that agree bit for bit).
 17. int4_timing: at N = 10,000 and 14,336, each int4 kernel's ms, bytes,
@@ -99,16 +99,16 @@ kernels above, at N = 10,000):
 20. rls_path: FORCE learning. The main path's bf16 network (phase 4, the
    fused QIF+SFA kernel) with an identity readout of width 1 behind an RLS
    edge (beta 0.99, alpha 1, float64 P of 10,000 x 10,000): fit_rls over
-   10,000 steps of bench_inputs with the target sin(2 pi 2 t),
+   5,000 steps of bench_inputs with the target sin(2 pi 2 t),
    update_steps=10, sampling_steps=100, then Network.test on the same
-   inputs from the same initial state; 10,000 kernel launches per fit,
+   inputs from the same initial state; 5,000 kernel launches per fit,
    finite losses and weights, P symmetric; ms/step, the RLS update alone
    (cuda_ms) against its bound (P read twice and written once).
 21. rls_vs_cpu: the same FORCE fit (a fresh RLS edge, from the reservoir's
-   state after phase 20) on the card and on the CPU for 200 steps with
+   state after phase 20) on the card and on the CPU for 100 steps with
    update_steps=10: readout records and W under fused_vs_plain's rule.
-22. ridge_path: fit_ridge on the same reservoir over 10,000 steps with
-   sampling_steps=10 (X is 1,000 x 10,000, float32 Gram matrix and solve
+22. ridge_path: fit_ridge on the same reservoir over 5,000 steps with
+   sampling_steps=10 (X is 500 x 10,000, float32 Gram matrix and solve
    on the card), alpha = 1e-3 x the largest eigenvalue of X X^T from a
    first run of the same inputs; the predictions held to numpy's float64
    solve of the same X on the host (its dual form, (X X^T + alpha I) c = y,
@@ -123,7 +123,7 @@ kernels above, at N = 10,000):
    N = 10,000 per population (two LIF populations with the generic kernel
    and a bf16 coupling, dense float32 feedforward p1 -> p2 and feedback
    p2 -> p1; the example's weights, sized for N = 100, scaled by 100/N),
-   10,000 steps, best of 2; two kernel launches per step; the device-only
+   5,000 steps, best of 2; two kernel launches per step; the device-only
    step and idle share; the first 200 steps on the CPU held to the card's
    under fused_vs_plain's rule.
 No kernel is added for phases 20-24; the kernels line lists the instances
@@ -287,13 +287,13 @@ operations; no kernel of its own):
    read, W and the buffer, about 0.50 GB; gather: the int64 index, W and
    the buffer); one selector build per run.  The factored and gather reads give
    bit-identical records over 2,000 steps (fresh networks, no TF32); the
-   card against the CPU over 200 steps under fused_vs_plain's rule;
+   card against the CPU over 100 steps under fused_vs_plain's rule;
    run_batch of 8 trials of 2,000 steps (normal inputs x 2 from
    default_rng(2)), best of 2, each trial held to its single-trial run
    over 200 steps under the same rule; peak device memory.
 31. stp_feedback_path: phase 24's network (two LIF populations of N =
    10,000, bf16 couplings with the generic kernel, feedback_weights(N),
-   drive 100, 10,000 steps) with both edges LinearSTP: p1 -> p2 depressing
+   drive 100, 5,000 steps) with both edges LinearSTP: p1 -> p2 depressing
    (U 0.5, tau_depress 5, no facilitation), the feedback p2 -> p1
    facilitating (U 0.2, tau_facil 10, tau_depress 1), in turns with the
    plain-edge network (stp, plain, plain, stp); 40,000 generic launches a
@@ -350,7 +350,7 @@ is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
    device alone for 1 and 16 trials, split by CUDA events into
    block_int8_mv, the sources' int8 rounding and rescale, and the rest of
    the field (block_step_split); and the same construction at N = 8,192 on
-   the card against the CPU over 200 steps under fused_vs_plain's rule,
+   the card against the CPU over 100 steps under fused_vs_plain's rule,
    int8 and bf16.
 35. block_delay_path: benchmarks/block_delay_scale.py's network at N =
    100,352 (196 patches, fan-in 1,000, seed 0, dt 1e-3, ring delays scaled
@@ -363,11 +363,13 @@ is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
    bound, block_int8_mv alone at the edge's shape; two chunked runs of
    1,000 steps equal to one of 2,000 bit for bit (f32 and int8); the
    delayed run differs from the zero-delay one; the card against the CPU
-   at N = 8,192 over 200 steps.
+   at N = 8,192 over 100 steps.
 36. sparse_train_check: at N = 8,192, fit_bptt (2 epochs, T = 200, sgd)
    through a block-coupled QIF node with float32 and int8_master weights on
-   the chain trajectory (asserted), one plain-autograd epoch through a
-   delayed f32 BlockSparseLinear edge (train="gd"), and 20 steps of a frozen
+   the chain trajectory (asserted), one epoch through a delayed f32
+   BlockSparseLinear edge (train="gd"; plain autograd's loss and gradients,
+   then a fit_bptt epoch, which takes the graph trajectory,
+   whose loss must be the same), and 20 steps of a frozen
    int8_master edge's source gradient (nonzero: the STE, where the JAX
    package gives zeros), each on the card against the CPU (FIT_LOSS_RTOL,
    FIT_GRAD_RTOL).
@@ -380,7 +382,48 @@ which it is timed.
 PR 18 cut the depth of earlier paths so that the script, with phases 33-36,
 stays well inside its time limit: the forward paths (phases 4, 12, 16, 20,
 22, 24 and 31) run 10,000 steps where they ran 20,000, and phase 30's
-factored network 4,000 steps where it ran 10,000; no width changed.
+factored network 4,000 steps where it ran 10,000; no width changed.  For
+phases 37-38 the same forward paths were halved again, to 5,000 steps, and
+the card-vs-CPU windows of phases 16, 21, 30, 34 and 35 to 100 steps (the
+LIF feedback networks of phases 24 and 31 keep 200: their first spikes come
+later); the device profiles record device activity alone.
+
+Phases 37-38 (after phase 36; the graph trajectory of
+ops/graph_bptt.py, the chunked and Heun trajectories):
+
+37. graph_train_path: benchmarks/block_delay_scale.py's trained phase
+   (BD_TRAIN=1) at N = 100,352 uncut in width: the identity input of
+   width 1 into qif_sfa without a coupling, a trained delayed
+   BlockSparseLinear feedback self-edge (phase 35's blocks and ring
+   delays), T = 500, the drive 0 then 3.0 from T/4, adam lr 1e-4, targets
+   from a teacher's run, the student's blocks x 1.05; block_dtype
+   "int8_master" and float32, each through the graph trajectory
+   (fused_bptt="auto", asserted "graph") in turns with plain autograd
+   (fused_bptt=False), one warm epoch each, then one timed fit of 4 epochs
+   each (block_delay_scale.py runs 8): ms/epoch, trained nu/s, peak
+   memory, losses (decreasing, graph and autograd within 1e-4),
+   block_int8_mv launches (one a forward step, all on "mma", asserted);
+   one epoch split by CUDA events into the forward loop, the backward
+   loop, the deferred dW (timed alone) and adam, the device's idle share
+   within each loop over a 100-step window (torch.profiler), the stack
+   mv_t (PyTorch) per step against the backward step; then one
+   remat_steps=100 fit (2 epochs) of a fresh int8_master student (its
+   backward recomputes each chunk: two block_int8_mv launches a step,
+   asserted) and block_int8_mv at the edge's shape.
+38. graph_train_check: one epoch's loss and gradients through the graph
+   trajectory on the card against the CPU and against plain autograd on
+   the card (FIT_LOSS_RTOL, FIT_GRAD_RTOL): examples/multi_population_
+   training.py's circuit at its sizes (200 + 100, T = 400, the teacher's
+   seed 1) with a float32 coupling and an int8_master one on exc (int8_mv
+   and int8_mv_t once a step, asserted), a Heun population into an Euler
+   one (n = 256), and a chunked (remat_steps=50) feedback network of two
+   populations of 256 with a delayed edge; then a truncated-BPTT fit
+   (50-step chunks; int8_mv and int8_mv_t once a step, asserted) and a
+   fit_bptt_batch (B = 4, minibatches of 2; int8_mm and int8_mm_t once a
+   step, asserted) of the feedback network with an int8_master coupling
+   on p1, card against CPU.
+The kernels line adds block_int8_mv[graph_train_path] (the int8_master
+graph fit's launches, timed at the gathered-stack shape).
 
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
@@ -401,7 +444,7 @@ import torch
 
 N = 10_000
 DT = 1e-4
-STEPS = 10_000  # 20,000 until PR 18 (the time limit; see the module docstring)
+STEPS = 5_000  # 20,000, then 10,000, before phases 33-38 (the time limit; see the docstring)
 PLAIN_STEPS = 2_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM data sheet, float32 outside the tensor cores
@@ -427,7 +470,8 @@ GENERIC_TPU_KERNEL = "rectipy_tpu/ops/generic_fused.py:46"
 I4_SOURCE = "rectipy_tpu_torch/csrc/int4_matvec.cu"
 I4_TPU_KERNEL = "benchmarks/i4pack_microbench.py:54"
 N_I4PACK = 14_336  # i4pack_microbench.py's default N
-CPU_STEPS = 200  # the int4 path's CPU comparison window
+CPU_STEPS = 100  # the card-vs-CPU windows (200 before phases 37-38: the time limit)
+LIF_CPU_STEPS = 200  # the LIF feedback networks' windows: their first spikes come later
 # the training path: bench.py:331-370
 T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 16, 1e-4
 WARM_EPOCHS = 2  # the warm fit of the int8_master and int4_master paths
@@ -592,7 +636,9 @@ def profile_device_time(fn):
     torch.profiler; (None, reason) when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity alone: the same kernel times at a tenth of the cost of
+    # tracing the host's ops too (a fit's host trace took about 40 s)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []
@@ -1661,8 +1707,8 @@ def feedback_phase() -> list:
             raise AssertionError("feedback_path: bad records")
     best = min(runs)
     dev_ms = device_step_ms(net, torch.full((1,), 100.0, device=net.device), reps=30)
-    # the first CPU_STEPS steps on the CPU, held to the card's
-    short = inputs[:CPU_STEPS]
+    # the first LIF_CPU_STEPS steps on the CPU, held to the card's
+    short = inputs[:LIF_CPU_STEPS]
     cmp_kw = dict(run_kw, sampling_steps=10)
     t0 = time.perf_counter()
     cpu_net = feedback_net(N, "cpu", weights)
@@ -1684,7 +1730,7 @@ def feedback_phase() -> list:
           "neuron_updates_per_s": 2 * STEPS * N / best, "device_step_ms": dev_ms,
           "device_idle_share": 1.0 - dev_ms / (best / STEPS * 1e3),
           "mean_s_range": [float(np.min(recs)), float(np.max(recs))],
-          "vs_cpu": {"steps": CPU_STEPS, "records": int(cmp["cpu"].shape[1]),
+          "vs_cpu": {"steps": LIF_CPU_STEPS, "records": int(cmp["cpu"].shape[1]),
                      **vs_cpu("feedback_path card vs cpu", cmp["card"], cmp["cpu"]),
                      "cpu_build_s": cpu_build_s, "card_run_s": secs["card"],
                      "cpu_run_s": secs["cpu"]}})
@@ -3224,7 +3270,7 @@ def stp_feedback_phase(dev) -> list:
     dev_ms = {"stp": device_step_ms(net, x1, reps=10), "plain": device_step_ms(plain, x1, reps=10)}
     del plain
     torch.cuda.empty_cache()
-    # the card against the CPU over CPU_STEPS steps, both from the initial state
+    # the card against the CPU over LIF_CPU_STEPS steps, both from the initial state
     cmp_kw = dict(run_kw, sampling_steps=10, verbose=False)
     cmp, secs = {}, {}
     fresh = stp_feedback_net(N, dev, weights)
@@ -3234,7 +3280,7 @@ def stp_feedback_phase(dev) -> list:
     del weights
     for name, n_ in (("card", fresh), ("cpu", cpu_net)):
         t0 = time.perf_counter()
-        o = n_.run(np.full((CPU_STEPS, 1), STP_DRIVE, dtype=np.float32), **cmp_kw)
+        o = n_.run(np.full((LIF_CPU_STEPS, 1), STP_DRIVE, dtype=np.float32), **cmp_kw)
         secs[name] = time.perf_counter() - t0
         cmp[name] = np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])
         cmp[name + "_stp"] = np.concatenate([n_.get_edge("p1", "p2").x.cpu().numpy(),
@@ -3253,7 +3299,7 @@ def stp_feedback_phase(dev) -> list:
           "device_step_ms": dev_ms,
           "device_idle_share": {k: 1.0 - dev_ms[k] / ms[k] for k in ms},
           "max_mean_s": active, "stp_state_after_first_run": stp_state,
-          "vs_cpu": {"steps": CPU_STEPS, "records": int(cmp["cpu"].shape[1]), **vs,
+          "vs_cpu": {"steps": LIF_CPU_STEPS, "records": int(cmp["cpu"].shape[1]), **vs,
                      "stp_state": vs_stp, "cpu_build_s": cpu_build_s,
                      "card_run_s": secs["card"], "cpu_run_s": secs["cpu"]}})
     entry = generic_instance("lif,bfloat16,stp_feedback_path", net.get_node("p1"),
@@ -3275,27 +3321,6 @@ def family_net(n: int, device, W_rec, **edge_kw):
     net.add_edge("inp", "pop", **edge_kw)
     net.compile()
     return net
-
-
-def epoch_loss_and_grads(net, inp, tgt) -> tuple:
-    """fit_bptt's epoch loss (plain autograd, mse on every step) and its
-    gradients with respect to the trainable leaves, by the network's own
-    step and edge prep."""
-    paths = net.trainable_paths()
-    params = net.parameters_pytree()
-    leaves = [params[k][l][p].detach().clone().requires_grad_(True) for k, l, p in paths]
-    for (k, l, p), leaf in zip(paths, leaves):
-        params[k][l] = {**params[k][l], p: leaf}
-    step = net.make_step()
-    with torch.enable_grad():
-        prepped = net._prep_edge_params(params)
-        state, outs = net.init_state(), []
-        for x in net._to_device(inp).unbind(0):
-            state, out, _ = step(state, prepped, x)
-            outs.append(out)
-        loss = torch.mean((torch.stack(outs) - net._to_device(tgt)) ** 2)
-        grads = torch.autograd.grad(loss, leaves)
-    return float(loss.detach()), {"/".join(p): g.cpu().numpy() for p, g in zip(paths, grads)}
 
 
 def edge_family_check(dev) -> None:
@@ -3750,17 +3775,24 @@ def bd_data(N: int):
     return A, d_blk, etas
 
 
-def bd_net(N: int, A, d_blk, etas, device, **edge_kw):
+def bd_net(N: int, A, d_blk, etas, device, inp: bool = False, **edge_kw):
     """All recurrent coupling on a FeedbackNetwork self-edge: a
-    BlockSparseLinear with per-block delays d_blk (None: no delays)."""
+    BlockSparseLinear with per-block delays d_blk (None: no delays).
+    ``inp``: the trained phase's identity input node of width 1, joined to
+    the population by the weights normal(size=(N, 1)) of default_rng(7)."""
     from rectipy_tpu_torch import FeedbackNetwork
 
     net = FeedbackNetwork(BD_DT, device=device)
+    if inp:
+        net.add_func_node("inp", 1, activation_function="identity")
     net.add_diffeq_node(
         "qif", QIF_SFA, n=N, input_var="I_ext", output_var="s", spike_var="spike",
         spike_def="v", op="qif_sfa_op", spike_threshold=1e2, spike_reset=-1e2,
         node_vars={"all/qif_sfa_op/eta": etas, "all/qif_sfa_op/alpha": 0.05,
                    "all/qif_sfa_op/k": 15.0})
+    if inp:
+        net.add_edge("inp", "qif", weights=np.random.default_rng(7).normal(
+            size=(N, 1)).astype(np.float32))
     net.add_edge("qif", "qif", weights=A, delays=d_blk, feedback=True, **edge_kw)
     net.compile()
     return net
@@ -4001,6 +4033,431 @@ def sparse_train_check(dev) -> None:
           "loss_rtol": FIT_LOSS_RTOL, "grad_rtol": FIT_GRAD_RTOL})
 
 
+GT_T, GT_EPOCHS, GT_LR, GT_REMAT = 500, 4, 1e-4, 100  # block_delay_scale.py BD_TRAIN=1
+GT_PROFILE_T = 100  # graph_train_path's profiled window of steps
+GT_VARIANTS = {"int8_master": {"block_dtype": "int8_master"}, "float32": {}}
+GC_T, GC_B = 400, 4  # graph_train_check: examples/multi_population_training.py's T; B trials
+
+
+def epoch_loss_and_grads(net, inp, tgt, trajectory: str = "autograd", remat: int = 0) -> tuple:
+    """fit_bptt's epoch loss (mse on every step) and its gradients with
+    respect to the trainable leaves, through plain autograd over the
+    network's own step and edge prep, or through the graph trajectory
+    (``remat``: the chunked one)."""
+    from rectipy_tpu_torch.ops.graph_bptt import graph_weights_args, make_graph_traj
+
+    params = net.parameters_pytree()
+    paths = net.trainable_paths()
+    leaves = [params[k][l][p].detach().clone().requires_grad_(True) for k, l, p in paths]
+    for (k, l, p), leaf in zip(paths, leaves):
+        params[k][l] = {**params[k][l], p: leaf}
+    xs, tgt = net._to_device(inp), net._to_device(tgt)
+    with torch.enable_grad():
+        if trajectory == "graph":
+            traj, spec = make_graph_traj(net, remat_steps=remat)
+            w, a = graph_weights_args(spec, params)
+            _, outs = traj(w, a, net._graph_pack(spec, net.init_state()), xs)
+        else:
+            _, outs = net._plain_outs(net.make_step(), net._prep_edge_params(params),
+                                      net.init_state(), xs)
+        loss = torch.mean((outs - tgt) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), {"/".join(p): g.cpu().numpy() for p, g in zip(paths, grads)}
+
+
+def timed_fit(net, inp_d, tgt_d, epochs: int, **kw) -> tuple:
+    """``(seconds, losses, peak bytes)`` of one fit_bptt on the card; the
+    peak counts what the fit allocated above the bytes live at its start."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    obs = net.fit_bptt([inp_d] * epochs, [tgt_d] * epochs, optimizer="adam", lr=GT_LR,
+                       verbose=False, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    losses = [float(x) for x in obs["epoch_loss"]]
+    if len(losses) != epochs or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"graph_train_path: bad losses {losses}")
+    return seconds, losses, torch.cuda.max_memory_allocated() - start
+
+
+def graph_epoch_split(net, inp_d, tgt_d) -> dict:
+    """One epoch of the graph trajectory split by CUDA events (and the
+    host's clock): the forward loop, the backward loop, the deferred dW
+    contraction (timed alone at the epoch's shapes) and adam; each loop's
+    device busy time from torch.profiler (the idle share within it); and the
+    edge's transposed contraction (the gathered-stack mv_t, PyTorch) per
+    step against the backward loop's share of a step."""
+    from rectipy_tpu_torch.ops.graph_bptt import (_block_edge_ops, graph_weights_args,
+                                                  make_graph_traj)
+    from rectipy_tpu_torch.train import get_optimizer
+
+    edge = net.get_edge("qif", "qif")
+    prep, _, mv_t, grad_w = _block_edge_ops(edge)
+    traj, spec = make_graph_traj(net)
+    w, a = graph_weights_args(spec, net.parameters_pytree())
+    W = w["e:qif->qif"].detach().requires_grad_(True)
+    w = {**w, "e:qif->qif": W}
+    C0 = net._graph_pack(spec, net.init_state())
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    wall = {}
+    torch.cuda.synchronize()
+    with torch.enable_grad():
+        t0 = time.perf_counter()
+        ev[0].record()
+        _, outs = traj(w, a, C0, inp_d)
+        ev[1].record()
+        loss = torch.mean((outs - tgt_d) ** 2)
+        torch.cuda.synchronize()
+        wall["forward_loop"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        (gW,) = torch.autograd.grad(loss, W)
+        ev[2].record()
+        torch.cuda.synchronize()
+        wall["backward_loop_and_dW"] = (time.perf_counter() - t0) * 1e3
+    n_br, cb, bs = edge.cols.shape[0], edge.cols.shape[1], edge.bs
+    g = torch.Generator(device=inp_d.device)
+    g.manual_seed(37)
+    deltas = torch.randn((GT_T, n_br * bs), device=inp_d.device, generator=g)
+    srcs = torch.randn((GT_T, n_br, cb, bs), device=inp_d.device, generator=g)
+    ev[3].record()
+    grad_w(deltas, srcs)
+    ev[4].record()
+    opt = get_optimizer("adam", GT_LR)
+    train = {"nodes": {}, "edges": {"qif->qif": {"weights": W.detach()}}}
+    opt.update({"nodes": {}, "edges": {"qif->qif": {"weights": gW}}}, opt.init(train), train)
+    ev[5].record()
+    torch.cuda.synchronize()
+    fwd_ms, bwd_all, dw = (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                           ev[3].elapsed_time(ev[4]))
+    split = {"forward_loop": fwd_ms, "backward_loop": bwd_all - dw, "deferred_dW": dw,
+             "optimizer": ev[4].elapsed_time(ev[5])}
+    wp = prep(W.detach())
+    delta = deltas[0]
+    mv_t_ms = cuda_ms(lambda: mv_t(wp, delta), reps=20)
+    del deltas, srcs, outs, loss, gW
+    # the device's busy time within each loop, over the first GT_PROFILE_T
+    # steps (torch.profiler; the same window unprofiled gives the wall
+    # time): the host's gaps between kernels
+    xs_n, tg_n = inp_d[:GT_PROFILE_T], tgt_d[:GT_PROFILE_T]
+
+    def fwd():
+        return traj(w, a, C0, xs_n)[1]
+
+    with torch.enable_grad():
+        torch.autograd.grad(torch.mean((fwd() - tg_n) ** 2), W)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = fwd()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(torch.mean((outs - tg_n) ** 2), W)
+        torch.cuda.synchronize()
+        win_wall = {"forward_loop": (t1 - t0) * 1e3,
+                    "backward_loop_and_dW": (time.perf_counter() - t1) * 1e3}
+        fwd_busy, _ = profile_device_time(fwd)
+        loss = torch.mean((fwd() - tg_n) ** 2)
+        bwd_busy, top = profile_device_time(lambda: torch.autograd.grad(loss, W))
+    del loss
+    busy = {"forward_loop": fwd_busy, "backward_loop_and_dW": bwd_busy}
+    idle = {k: 1.0 - v / win_wall[k] for k, v in busy.items() if v is not None}
+    bwd_step = split["backward_loop"] / GT_T
+    return {"epoch_split_ms": split, "host_wall_ms": wall, "profile_window_steps": GT_PROFILE_T,
+            "window_wall_ms": win_wall, "window_device_busy_ms": busy,
+            "device_idle_share_within": idle, "backward_top_device_ops": top,
+            "mv_t_ms_per_step": mv_t_ms, "backward_loop_ms_per_step": bwd_step,
+            "mv_t_share_of_backward_step": mv_t_ms / bwd_step}
+
+
+def graph_train_phase(dev) -> list:
+    """Phase 37: benchmarks/block_delay_scale.py's trained phase (BD_TRAIN=1)
+    at N = 100,352: the delayed block feedback edge trained by fit_bptt
+    through the graph trajectory in turns with plain autograd, int8_master
+    and float32, then one remat_steps=100 fit of the int8_master variant."""
+    from rectipy_tpu_torch import block_random_connectivity
+    from rectipy_tpu_torch.ops.quant import block_int8_mv, quantize_blocks
+
+    N, T = BD_N, GT_T
+    t0 = time.perf_counter()
+    A, d_blk, etas = bd_data(N)
+    sample_s = time.perf_counter() - t0
+    if block_random_connectivity.last_backend != "native":
+        raise AssertionError("graph_train_path: the sampler did not take the native backend")
+    inp_d = torch.as_tensor(pulse(T, T // 4), device=dev)
+    kernel_entry = None
+    for name, ekw in GT_VARIANTS.items():
+        teacher = bd_net(N, A, d_blk, etas, dev, inp=True, **ekw)
+        tgt_d = torch.as_tensor(teacher.run(inp_d, verbose=False).to_numpy("out"), device=dev)
+        del teacher
+        if float(tgt_d.abs().max()) == 0.0:
+            raise AssertionError(f"graph_train_path {name}: the teacher does not spike")
+        nets = {}
+        for mode in ("graph", "autograd"):
+            net = bd_net(N, A, d_blk, etas, dev, inp=True, train="gd", **ekw)
+            edge = net.get_edge("qif", "qif")
+            edge.weights = edge.weights * 1.05  # the teacher-student perturbation
+            nets[mode] = net
+        fused = {"graph": "auto", "autograd": False}
+        warm = {m: timed_fit(net, inp_d, tgt_d, 1, fused_bptt=fused[m])[0]
+                for m, net in nets.items()}
+        res = {}
+        for mode in ("graph", "autograd"):  # in turns, after one warm epoch each
+            before = (block_int8_mv.launches, block_int8_mv.mma_launches)
+            secs, losses, peak = timed_fit(nets[mode], inp_d, tgt_d, GT_EPOCHS,
+                                           fused_bptt=fused[mode])
+            launches = (block_int8_mv.launches - before[0],
+                        block_int8_mv.mma_launches - before[1])
+            if nets[mode].last_fit["trajectory"] != mode:
+                raise AssertionError(f"graph_train_path {name}: {mode} took "
+                                     f"{nets[mode].last_fit}")
+            want = GT_EPOCHS * T if name == "int8_master" else 0
+            if launches != (want, want):
+                raise AssertionError(f"graph_train_path {name} {mode}: block_int8_mv launches "
+                                     f"{launches}, want {want} all on mma")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"graph_train_path {name} {mode}: losses {losses}")
+            res[mode] = {"fit_s": secs, "warm_fit_s": warm[mode], "losses": losses,
+                         "ms_per_epoch": secs / GT_EPOCHS * 1e3,
+                         "trained_neuron_updates_per_s": T * N * GT_EPOCHS / secs,
+                         "peak_bytes_above_start": peak, "block_int8_mv_launches": launches[0]}
+        lg, lp = np.asarray(res["graph"]["losses"]), np.asarray(res["autograd"]["losses"])
+        rel = float(np.abs(lg - lp).max() / np.abs(lp).max())
+        if rel > FIT_LOSS_RTOL:
+            raise AssertionError(f"graph_train_path {name}: graph vs autograd losses {lg} vs "
+                                 f"{lp}")
+        net = nets["graph"]
+        split = graph_epoch_split(net, inp_d, tgt_d)
+        busy = split["window_device_busy_ms"]
+        busy_ms = None  # the epoch's device time: the windows scaled to T, dW and adam
+        if None not in busy.values():
+            busy_ms = ((busy["forward_loop"] + busy["backward_loop_and_dW"]) * T / GT_PROFILE_T
+                       + split["epoch_split_ms"]["optimizer"])
+        line = {"phase": "graph_train_path", "variant": name, "n": N, "steps": T,
+                "epochs_per_fit": GT_EPOCHS, "lr": GT_LR, "sample_s": sample_s,
+                "graph_vs_autograd_loss_rel": rel,
+                "graph_over_autograd_speed": (res["autograd"]["ms_per_epoch"]
+                                              / res["graph"]["ms_per_epoch"]),
+                "device_busy_ms_per_epoch": busy_ms,
+                "device_idle_share": (None if busy_ms is None
+                                      else 1.0 - busy_ms / res["graph"]["ms_per_epoch"]),
+                **res, **split}
+        if name == "int8_master":
+            nets.clear()
+            net = bd_net(N, A, d_blk, etas, dev, inp=True, train="gd", **ekw)  # a fresh student
+            edge = net.get_edge("qif", "qif")
+            edge.weights = edge.weights * 1.05
+            before = (block_int8_mv.launches, block_int8_mv.mma_launches)
+            secs, losses, peak = timed_fit(net, inp_d, tgt_d, 2, remat_steps=GT_REMAT)
+            launches = (block_int8_mv.launches - before[0],
+                        block_int8_mv.mma_launches - before[1])
+            # the chunked backward recomputes each chunk's forward
+            if net.last_fit["trajectory"] != "graph" or launches != (4 * T, 4 * T):
+                raise AssertionError(f"graph_train_path remat: {net.last_fit}, launches "
+                                     f"{launches}")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"graph_train_path remat: losses {losses}")
+            line["remat"] = {"remat_steps": GT_REMAT, "epochs": 2, "ms_per_epoch": secs / 2 * 1e3,
+                             "trained_neuron_updates_per_s": T * N / (secs / 2),
+                             "losses": losses, "peak_bytes_above_start": peak,
+                             "block_int8_mv_launches": launches[0]}
+            # the kernel at the edge's gathered-stack shape
+            bq, scale = quantize_blocks(net.get_edge("qif", "qif").weights)
+            n_br, cb = A.cols.shape
+            g = torch.Generator(device=dev)
+            g.manual_seed(38)
+            xq = torch.randint(-127, 128, (1, n_br * cb, SPARSE_BS), dtype=torch.int8,
+                               device=dev, generator=g)
+            idx = torch.arange(n_br * cb, dtype=torch.int32, device=dev).reshape(n_br, cb)
+            k_t = block_int8_timing(bq, scale, xq, idx)
+            if k_t["route"] != "mma":
+                raise AssertionError(f"graph_train_path: block_int8_mv route {k_t['route']}")
+            kernel_entry = {"name": "block_int8_mv[graph_train_path]", "route": "cuda",
+                            "source": BLOCK_SOURCE, "replaces": BLOCK_REPLACES,
+                            "launches": res["graph"]["block_int8_mv_launches"],
+                            "max_abs_err": 0.0, "ms": k_t["ms"], "plain_ms": k_t["plain_ms"],
+                            "bound_ms": k_t["bound_ms"], "bound_by": k_t["bound_by"],
+                            "library_ms": k_t["library_ms"], "kernel_route": k_t["route"]}
+            line["block_int8_mv_at_edge_shape"] = k_t
+            del bq, scale, xq
+        emit(line)
+        del net, nets, tgt_d
+        torch.cuda.empty_cache()
+    return [kernel_entry]
+
+
+def gc_circuit(device, coupling=None, seed: int = 2):
+    """examples/multi_population_training.py's circuit at its own sizes (the
+    student's seed 2, the teacher's 1): inp (3) -> a QIF population of 200
+    -> a tanh population of 100 -> a tanh readout of 2, a trained inhibitory
+    feedback edge, every coupling and edge trained; ``coupling`` the QIF
+    population's coupling_dtype."""
+    from rectipy_tpu_torch import FeedbackNetwork
+
+    n1, n2 = 200, 100
+    rng = np.random.default_rng(0)
+    etas, W_in = 3.0 + rng.random(n1), rng.normal(size=(n1, 3))
+    r = np.random.default_rng(seed)
+    net = FeedbackNetwork(1e-2, device=device)
+    net.add_func_node("inp", 3, activation_function="identity")
+    net.add_diffeq_node("exc", QIF, weights=np.abs(r.normal(size=(n1, n1))) * (2.0 / n1),
+                        input_var="I_ext", output_var="s", source_var="s", target_var="s_in",
+                        op="qif_op", spike_var="spike", spike_def="v", spike_threshold=100.0,
+                        spike_reset=-100.0, node_vars={"all/qif_op/eta": etas},
+                        coupling_dtype=coupling, train_params=["weights"])
+    net.add_diffeq_node("inh", TANH, weights=r.normal(size=(n2, n2)) * 0.2,
+                        input_var="li_op/I_ext", output_var="li_op/v", source_var="tanh_op/r",
+                        target_var="li_op/r_in", train_params=["weights"])
+    net.add_func_node("out", 2, activation_function="tanh")
+    net.add_edge("inp", "exc", weights=W_in)
+    net.add_edge("exc", "inh", weights=r.normal(size=(n2, n1)) * 0.5, train="gd")
+    net.add_edge("inh", "out", weights=r.normal(size=(2, n2)) * 0.5, train="gd")
+    net.add_edge("inh", "exc", weights=r.normal(size=(n1, n2)) * -0.05, feedback=True,
+                 train="gd")
+    net.compile()
+    return net
+
+
+def gc_heun(device):
+    """A Heun tanh population into an Euler one, n = 256 each."""
+    from rectipy_tpu_torch import Network
+
+    rng = np.random.default_rng(38)
+    net = Network(1e-2, device=device)
+    for label, kw in (("p1", {"integrator": "heun"}), ("p2", {})):
+        net.add_diffeq_node(label, TANH, weights=rng.normal(size=(256, 256)) * (3.0 / 256 ** 0.5),
+                            input_var="li_op/I_ext", output_var="li_op/v",
+                            source_var="tanh_op/r", target_var="li_op/r_in",
+                            train_params=["weights"], **kw)
+    net.add_edge("p1", "p2", weights=rng.normal(size=(256, 256)) * 0.1, train="gd")
+    net.compile()
+    return net
+
+
+def gc_feedback(device, coupling=None):
+    """Two tanh populations of 256 (``coupling`` p1's coupling_dtype), a
+    delayed trained edge p1 -> p2 and a trained feedback edge p2 -> p1."""
+    from rectipy_tpu_torch import FeedbackNetwork
+
+    rng = np.random.default_rng(39)
+    net = FeedbackNetwork(1e-2, device=device)
+    for label, c in (("p1", coupling), ("p2", None)):
+        net.add_diffeq_node(label, TANH, weights=rng.normal(size=(256, 256)) * (2.0 / 256 ** 0.5),
+                            input_var="li_op/I_ext", output_var="li_op/v",
+                            source_var="tanh_op/r", target_var="li_op/r_in",
+                            train_params=["weights"], coupling_dtype=c)
+    net.add_edge("p1", "p2", weights=rng.normal(size=(256, 256)) * 0.1, train="gd",
+                 delays=(np.arange(256) % 5) + 1)
+    net.add_edge("p2", "p1", weights=rng.normal(size=(256, 256)) * 0.05, feedback=True,
+                 train="gd")
+    net.compile()
+    return net
+
+
+def graph_train_check(dev) -> None:
+    """Phase 38: the graph trajectory on the card against the CPU and against
+    plain autograd on the card, at small sizes: one epoch's loss and
+    gradients of examples/multi_population_training.py's circuit (float32
+    and int8_master on the QIF population: int8_mv and int8_mv_t once per
+    step, asserted), of a Heun population in a graph and of a chunked
+    (remat_steps) trajectory; a truncated-BPTT fit of a feedback network and
+    a fit_bptt_batch of it at B = 4, card against CPU."""
+    from rectipy_tpu_torch.ops.quant import int8_mv, int8_mv_t
+
+    rng = np.random.default_rng(40)
+    t_ax = np.arange(GC_T) * 1e-2
+    inp3 = np.stack([np.sin(2 * np.pi * 0.7 * t_ax), np.cos(2 * np.pi * 0.3 * t_ax),
+                     np.ones(GC_T) * 2.0], axis=1).astype(np.float32)
+    cases = {}
+
+    def compare(name, build, inp, tgt, remat=0):
+        res = {}
+        for where, device, how in (("card", dev, "graph"), ("cpu", "cpu", "graph"),
+                                   ("card_autograd", dev, "autograd")):
+            net = build(device)
+            before = (int8_mv.launches, int8_mv_t.launches)
+            t0 = time.perf_counter()
+            loss, grads = epoch_loss_and_grads(net, inp, tgt, how, remat if how == "graph" else 0)
+            res[where] = (loss, grads, (int8_mv.launches - before[0],
+                                        int8_mv_t.launches - before[1]),
+                          time.perf_counter() - t0)
+        (lc, gc, kc, sc), (lp, gp, _, sp), (la, ga, _, _) = (res["card"], res["cpu"],
+                                                             res["card_autograd"])
+        g_cpu = {k: rel_norm(gc[k], gp[k]) for k in gp}
+        g_plain = {k: rel_norm(gc[k], ga[k]) for k in ga}
+        ok = (abs(lc - lp) <= FIT_LOSS_RTOL * abs(lp) and abs(lc - la) <= FIT_LOSS_RTOL * abs(la)
+              and all(v <= FIT_GRAD_RTOL for v in g_cpu.values())
+              and all(v <= FIT_GRAD_RTOL for v in g_plain.values())
+              and all(np.abs(g).max() > 0 for g in gp.values()))
+        if not ok:
+            raise AssertionError(f"graph_train_check {name}: loss {lc} / cpu {lp} / autograd "
+                                 f"{la}, gradients vs cpu {g_cpu}, vs autograd {g_plain}")
+        cases[name] = {"loss": lc, "cpu_loss": lp, "autograd_loss": la,
+                       "grad_rel_norm_vs_cpu": g_cpu, "grad_rel_norm_vs_autograd": g_plain,
+                       "int8_mv_launches": kc[0], "int8_mv_t_launches": kc[1],
+                       "card_s": sc, "cpu_s": sp}
+        return kc
+
+    tgt3 = gc_circuit("cpu", seed=1).run(inp3, verbose=False).to_numpy("out")
+    for coupling in (None, "int8_master"):
+        launches = compare(f"circuit_{coupling or 'float32'}",
+                           lambda d, c=coupling: gc_circuit(d, c), inp3, tgt3)
+        want = (GC_T, GC_T) if coupling else (0, 0)
+        if launches != want:
+            raise AssertionError(f"graph_train_check circuit {coupling}: int8_mv/int8_mv_t "
+                                 f"launches {launches}, want {want}")
+    inp = (rng.normal(size=(200, 256)) * 0.5).astype(np.float32)
+    tgt = (rng.normal(size=(200, 256)) * 0.1).astype(np.float32)
+    compare("heun", gc_heun, inp, tgt)
+    compare("remat_50", gc_feedback, inp, tgt, remat=50)
+
+    # a truncated-BPTT fit and a fit_bptt_batch of the feedback network, p1
+    # int8_master: int8_mv/int8_mv_t once a step, int8_mm/int8_mm_t once a
+    # step of each minibatch's (2, 256) rows
+    from rectipy_tpu_torch.ops.quant import int8_mm, int8_mm_t
+
+    fits = {}
+    ins_b = (rng.normal(size=(GC_B, 200, 256)) * 0.5).astype(np.float32)
+    tgts_b = (rng.normal(size=(GC_B, 200, 256)) * 0.1).astype(np.float32)
+    for device in (dev, "cpu"):
+        net = gc_feedback(device, "int8_master")
+        before = (int8_mv.launches, int8_mv_t.launches)
+        obs = net.fit_bptt(inp, tgt, optimizer="adam", lr=1e-3, update_steps=50,
+                           verbose=False)
+        mv = (int8_mv.launches - before[0], int8_mv_t.launches - before[1])
+        kind_s = net.last_fit["trajectory"]
+        w_s = net.get_edge("p2", "p1").weights.detach().cpu().numpy()
+        net_b = gc_feedback(device, "int8_master")
+        before = (int8_mm.launches, int8_mm_t.launches)
+        obs_b = net_b.fit_bptt_batch(ins_b, tgts_b, n_epochs=2, batch_size=2, optimizer="adam",
+                                     lr=1e-3, seed=0, verbose=False)
+        mm = (int8_mm.launches - before[0], int8_mm_t.launches - before[1])
+        kind_b = net_b.last_fit["trajectory"]
+        if (kind_s, kind_b) != ("graph", "graph"):
+            raise AssertionError(f"graph_train_check fits took {kind_s}, {kind_b}")
+        if device is dev and (mv != (200, 200) or mm != (800, 800)):
+            raise AssertionError(f"graph_train_check fits: int8_mv/int8_mv_t {mv} (want 200 "
+                                 f"each), int8_mm/int8_mm_t {mm} (want 800 each)")
+        fits[str(device)] = (np.asarray(obs["loss"], dtype=float), w_s,
+                             np.asarray(obs_b["train_loss"], dtype=float),
+                             net_b.get_edge("p2", "p1").weights.detach().cpu().numpy())
+    (ls_c, ws_c, lb_c, wb_c), (ls_p, ws_p, lb_p, wb_p) = fits[str(dev)], fits["cpu"]
+    fit_line = {"int8_mv_launches": 200, "int8_mv_t_launches": 200, "int8_mm_launches": 800,
+                "int8_mm_t_launches": 800,
+                "tbptt_loss_rtol": float(np.abs(ls_c - ls_p).max() / np.abs(ls_p).max()),
+                "tbptt_fb_weights_rel_norm": rel_norm(ws_c, ws_p),
+                "batch_loss_rtol": float(np.abs(lb_c - lb_p).max() / np.abs(lb_p).max()),
+                "batch_fb_weights_rel_norm": rel_norm(wb_c, wb_p),
+                "tbptt_losses": ls_c[::50].tolist(), "batch_losses": lb_c.tolist()}
+    if not (fit_line["tbptt_loss_rtol"] <= FIT_LOSS_RTOL
+            and fit_line["batch_loss_rtol"] <= FIT_LOSS_RTOL
+            and fit_line["tbptt_fb_weights_rel_norm"] <= FIT_GRAD_RTOL
+            and fit_line["batch_fb_weights_rel_norm"] <= FIT_GRAD_RTOL):
+        raise AssertionError(f"graph_train_check fits: {fit_line}")
+    emit({"phase": "graph_train_check", "steps": GC_T, "cases": cases, "fits": fit_line,
+          "batch_trials": GC_B, "loss_rtol": FIT_LOSS_RTOL, "grad_rtol": FIT_GRAD_RTOL})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4236,6 +4693,9 @@ def main() -> int:
     kernels += sparse_scale_phase(dev, timing)
     kernels += block_delay_phase(dev)
     sparse_train_check(dev)
+    torch.cuda.empty_cache()
+    kernels += graph_train_phase(dev)
+    graph_train_check(dev)
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -296,8 +296,10 @@ def lower(
         if circuit.heterogeneous:
             raise TemplateError(
                 f"Circuit {circuit.name!r} mixes node templates with different "
-                "equations and cannot lower to one vector field; heterogeneous "
-                "circuits are not ported yet (ROADMAP Queue 1 item 3)."
+                "equations and cannot lower to one vector field. Pass it to "
+                "Network.add_diffeq_node, which expands it into one Network node "
+                "per template group wired with inter-group edges (or build the "
+                "separate Network nodes yourself with add_edge)."
             )
         node = circuit.node_template
         n = n or circuit.n

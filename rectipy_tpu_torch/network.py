@@ -10,8 +10,9 @@ windowed recording semantics.  The trainers:
 
 - ``fit_bptt``: epoch mode (one update per epoch) and step mode (truncated
   BPTT, one update per ``update_steps`` chunk), through the deferred-gradient
-  trajectory of ``ops/bptt.py`` on chain networks and through plain autograd
-  otherwise;
+  trajectories: ``ops/bptt.py``'s on chain networks, ``ops/graph_bptt.py``'s
+  on other graphs of populations and linear-family edges, and plain
+  autograd otherwise;
 - ``fit_ridge``: a closed-form ridge readout (Gram matrix and solve);
 - ``fit_rls``: online FORCE learning of an ``RLS`` edge;
 - ``test``: a frozen run scored by a loss.
@@ -27,10 +28,9 @@ On the device: the inputs move to the device once, the records and losses
 stay on the device, and nothing inside the loops synchronises with the host;
 they cross to the host once, at the end.
 
-Not ported yet (ROADMAP Queue 1 items 7 and 10-14): ``remat_steps`` and
-``mesh=``, ``fit_bptt_multistart`` and ``fit_es``, ``fit_stdp`` and
-``fit_eprop``, the STDP edges, the graph trajectory, heterogeneous
-circuits, on-device input specs and spike rasters.
+Not ported yet (ROADMAP Queue 1 items 11-14): ``mesh=``,
+``fit_bptt_multistart`` and ``fit_es``, ``fit_stdp`` and ``fit_eprop``, the
+STDP edges, on-device input specs and spike rasters.
 """
 
 from __future__ import annotations
@@ -289,7 +289,13 @@ class Network:
         from .dsl.parser import CircuitTemplate
 
         if isinstance(node, CircuitTemplate) and node.heterogeneous:
-            raise _todo("A circuit of mixed node templates", "3")
+            # a circuit of mixed model equations cannot share one vector
+            # field: one node per template group, wired by Linear edges
+            return self._add_circuit_nodes(
+                label, node, input_var=input_var, output_var=output_var,
+                spike_var=spike_var, reset_var=reset_var, reset=reset, op=op,
+                train_params=train_params, weights=weights, source_var=source_var,
+                target_var=target_var, **kwargs)
 
         var_dict = {"svar": source_var, "tvar": target_var, "in_ext": input_var,
                     "out": output_var, "spike": spike_var, "reset": reset_var}
@@ -340,6 +346,153 @@ class Network:
         node_instance = NodeClass.from_pyrates(*args, **kwargs)
         self.add_node(label, node=node_instance, node_type="diff_eq", op=op)
         return node_instance
+
+    def _add_circuit_nodes(self, label: str, circuit, input_var: str, output_var: str,
+                           spike_var=None, reset_var=None, reset: bool = True, op: str = None,
+                           train_params: list = None, weights=None, source_var: str = None,
+                           target_var: str = None, **kwargs) -> RateNet:
+        """Expand a CircuitTemplate of mixed model equations into one node
+        per structurally homogeneous group, ``"<label>.<group>"``, wired by
+        ``Linear`` edges cut from the circuit's weight matrices (the JAX
+        package's ``_add_circuit_nodes``).
+
+        For each circuit edge ``(source_var, target_var, W)`` the block
+        ``W[targets of group i, sources of group j]`` becomes group i's own
+        coupling (``i == j``) or an edge ``<label>.<group j> -> <label>.<group
+        i>`` into group i's ``target_var`` (the group's input variable).  The
+        external input drives the group that owns ``input_var``; the output
+        is the group that owns ``output_var``.  Returns the output group's
+        node."""
+        from .dsl.parser import TemplateError, _strip_node_prefix
+
+        if op is not None:
+            raise TemplateError(
+                "The `op` shorthand is not supported for heterogeneous circuits (each group "
+                "has its own operators); qualify variables as 'op/var'.")
+        if weights is not None or source_var is not None or target_var is not None:
+            raise TemplateError(
+                "weights/source_var/target_var are not supported together with a "
+                "heterogeneous CircuitTemplate; declare every coupling on the circuit via "
+                "add_edges_from_matrix.")
+        if "record_vars" in kwargs:
+            raise TemplateError(
+                "record_vars on add_diffeq_node is not supported for heterogeneous circuits; "
+                "record at run() time with record_vars=[('<label>.<group>', '<var>', "
+                "reduce)] on the expanded node labels.")
+        node_vars = kwargs.pop("node_vars", kwargs.pop("node_values", None)) or {}
+        groups = list(circuit.groups)
+        gid = {id(g): k for k, g in enumerate(groups)}
+        n_total = circuit.n
+
+        # intra-group couplings and inter-group edges; a full matrix may
+        # populate only its (target group x source group) block
+        intra = {k: [] for k in range(len(groups))}
+        inter = []  # (source group, target group, source var, target var, block)
+        for sv_raw, tv_raw, W in circuit.edges:
+            gs, sv = circuit.resolve_group(sv_raw)
+            gt, tv = circuit.resolve_group(tv_raw)
+            W = np.asarray(W)
+            if W.shape != (n_total, n_total):
+                raise TemplateError(
+                    f"Circuit edge {sv!r}->{tv!r} weight matrix has shape {W.shape}; expected "
+                    f"({n_total}, {n_total}) over the full circuit index space.")
+            block = W[np.ix_(gt.indices, gs.indices)]
+            outside = W.copy()
+            outside[np.ix_(gt.indices, gs.indices)] = 0.0
+            if np.any(outside != 0.0):
+                raise TemplateError(
+                    f"Circuit edge {sv!r}->{tv!r}: weight entries outside the [{gt.name} "
+                    f"targets x {gs.name} sources] block are nonzero but {sv!r}/{tv!r} only "
+                    f"exist on those groups.")
+            if gs is gt:
+                intra[gid[id(gs)]].append((sv, tv, block))
+            else:
+                inter.append((gid[id(gs)], gid[id(gt)], sv, tv, block))
+
+        gi, input_var = circuit.resolve_group(input_var)
+        go, output_var = circuit.resolve_group(output_var)
+        g_in, g_out = gid[id(gi)], gid[id(go)]
+        in_chan = {g_in: input_var}
+        for _, ti, _, tv, _ in inter:
+            if in_chan.setdefault(ti, tv) != tv:
+                raise TemplateError(
+                    f"Group {groups[ti].name!r} receives input at both {in_chan[ti]!r} and "
+                    f"{tv!r}; a Network node has one input channel -- give the group a single "
+                    f"target variable (or build the nodes by hand).")
+        out_chan = {g_out: output_var}
+        for si, _, sv, _, _ in inter:
+            if out_chan.setdefault(si, sv) != sv:
+                raise TemplateError(
+                    f"Group {groups[si].name!r} feeds edges from both {out_chan[si]!r} and "
+                    f"{sv!r}; a Network node has one output channel.")
+        for k, g in enumerate(groups):
+            if k not in in_chan:
+                raise TemplateError(
+                    f"Group {g.name!r} receives neither the external input ({input_var!r}) "
+                    f"nor any inter-group edge; the expanded Network would have two input "
+                    f"nodes. Drive it or couple into it.")
+            if k not in out_chan:
+                raise TemplateError(
+                    f"Group {g.name!r} neither provides the circuit output ({output_var!r}) "
+                    f"nor feeds any inter-group edge; the expanded Network would have two "
+                    f"output nodes.")
+        if g_in in {ti for _, ti, _, _, _ in inter}:
+            raise TemplateError(
+                f"The externally-driven group {groups[g_in].name!r} also receives inter-group "
+                f"coupling; that needs two input channels on one node. Re-root the circuit or "
+                f"build the nodes by hand (FeedbackNetwork covers cyclic topologies).")
+        gg = DiGraph()
+        gg.add_nodes_from(range(len(groups)))
+        gg.add_edges_from((si, ti) for si, ti, _, _, _ in inter)
+        if not nx.is_directed_acyclic_graph(gg):
+            raise TemplateError(
+                "The circuit's inter-group coupling is cyclic; express the cycle with "
+                "FeedbackNetwork.add_edge(..., feedback=True) between hand-built nodes "
+                "(one-step-delayed recurrence).")
+
+        def slice_overrides(g, src: dict) -> dict:
+            out = {}
+            for key, val in src.items():
+                qkey = _strip_node_prefix(key)
+                if not g.owns(qkey):
+                    continue
+                arr = np.asarray(val)
+                if arr.ndim >= 1 and arr.shape[0] == n_total and g.n != n_total:
+                    out[f"all/{qkey}"] = arr[g.indices]
+                else:
+                    out[f"all/{qkey}"] = val
+            return out
+
+        labels, built = {}, {}
+        for k, g in enumerate(groups):
+            labels[k] = f"{label}.{g.name}"
+            gvars = slice_overrides(g, g.node_vars)
+            gvars.update(slice_overrides(g, circuit.node_vars))  # update_var()
+            gvars.update(slice_overrides(g, node_vars))
+            couplings = intra[k]
+            gw = gsv = gtv = None
+            gkwargs = dict(kwargs)
+            if couplings:
+                gsv, gtv, gw = couplings[0]
+                if couplings[1:]:
+                    gkwargs["edges"] = list(gkwargs.get("edges") or []) + couplings[1:]
+            gkwargs["N"] = g.n
+            gtrain = None
+            if train_params:
+                gtrain = [p for p in train_params
+                          if (p == "weights" and couplings)
+                          or (p != "weights" and g.owns(_strip_node_prefix(p)))] or None
+            spike_kw = {}
+            if spike_var and g.owns(_strip_node_prefix(spike_var)):
+                spike_kw = {"spike_var": spike_var, "reset_var": reset_var, "reset": reset}
+            built[k] = self.add_diffeq_node(
+                labels[k], g.template, input_var=in_chan[k], output_var=out_chan[k],
+                weights=gw, source_var=gsv, target_var=gtv, train_params=gtrain,
+                node_vars=gvars or None, **spike_kw, **gkwargs)
+        for si, ti, _, _, block in inter:
+            self.add_edge(labels[si], labels[ti], weights=block)
+        self._invalidate()
+        return built[g_out]
 
     def add_func_node(self, label: str, n: int, activation_function: str, **kwargs) -> InstantNode:
         """Add a stateless activation node: tanh/sigmoid/softmax/softmin/
@@ -428,11 +581,23 @@ class Network:
         self._invalidate()
         return edge
 
+    def pop_node(self, node: str):
+        """Remove a node (and its edges) from the graph and return it."""
+        node_data = self.get_node(node)
+        self.graph.remove_node(node)
+        self._invalidate()
+        return node_data
+
     def pop_edge(self, source: str, target: str):
         edge = self.get_edge(source, target)
         self.graph.remove_edge(source, target)
         self._invalidate()
         return edge
+
+    def clear(self):
+        """Remove every node and edge."""
+        for node in list(self.nodes):
+            self.pop_node(node)
 
     # ------------------------------------------------------------- compiling
     def _invalidate(self):
@@ -1114,6 +1279,13 @@ class Network:
             print(f"Progress: {B} trials x {T} steps finished.")
         return results
 
+    def detach(self, requires_grad: bool = True, detach_params: bool = False) -> None:
+        """Cut every node state out of any autograd graph it belongs to."""
+        for node in self.nodes:
+            n = self.get_node(node)
+            if hasattr(n, "y"):
+                n.detach(requires_grad=requires_grad, detach_params=detach_params)
+
     def reset(self, state: dict = None):
         """Reset node states to zeros, or to the given per-node vectors, and
         drop the carried feedback outputs (the next run's first step reads
@@ -1150,15 +1322,28 @@ class Network:
           (per-step outputs, no downsampling), each with the loss of the
           last completed chunk (0 before the first).
 
-        ``fused_bptt`` (default ``'auto'``): chain networks ``[instants] ->
-        population -> [instants]`` train through the deferred-gradient
-        trajectory of ``ops/bptt.py`` (the stateless pre/post stages run
-        outside the time loop, as one batched product each); anything else,
-        and step mode with ``record_vars``, takes plain autograd through
-        ``make_step``.  ``True`` raises where the chain trajectory does not
-        apply; ``False`` always takes plain autograd.  (The JAX package's
-        multi-population graph trajectory is not ported; plain autograd
-        gives the same gradients.)
+        ``fused_bptt`` (default ``'auto'``) picks the trajectory as the JAX
+        package does: chain networks ``[instants] -> population ->
+        [instants]`` train through the deferred-gradient trajectory of
+        ``ops/bptt.py`` (the stateless pre/post stages run outside the time
+        loop, as one batched product each); other networks of DSL-built
+        populations and linear-family edges (feedback networks,
+        multi-population circuits, stateful and block-sparse edges) through
+        the graph trajectory of ``ops/graph_bptt.py``; anything else, and
+        step mode with ``record_vars``, takes plain autograd through
+        ``make_step``.  ``True`` raises where neither trajectory applies;
+        ``False`` always takes plain autograd.  ``net.last_fit`` says which
+        (``"chain"``, ``"graph"`` or ``"autograd"``).
+
+        ``remat_steps=k`` (epoch mode) checkpoints the trajectory in k-step
+        chunks: the forward keeps the carry at each chunk's start only, and
+        the backward recomputes one chunk at a time (the population
+        trajectory is Euler-only here; a Heun node takes the graph
+        trajectory).  A ``k`` that does not divide ``T`` sends ``'auto'`` to
+        plain autograd, which checkpoints ``k``-step segments with
+        ``torch.utils.checkpoint`` where they divide ``T``, as the JAX
+        package does with ``jax.checkpoint``.  Step mode ignores it, as the
+        JAX package's does.
 
         ``RECTIPY_FUSED_ADAM`` picks the optimizer tail of a plain-adam
         epoch-mode fit of one trained dense ``int8_master`` coupling on a
@@ -1168,8 +1353,7 @@ class Network:
         other value raises ``ValueError``.  Step mode always takes the split
         optimizer, as the JAX package does.
 
-        Not ported yet: ``remat_steps`` (ROADMAP Queue 1 item 7) and
-        ``mesh=`` (item 14).
+        Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 14).
         """
         self.compile()
         loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
@@ -1178,12 +1362,17 @@ class Network:
         obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
         if kwargs.pop("mesh", None) is not None:
             raise _todo("fit_bptt(mesh=)", "14")
-        if int(kwargs.pop("remat_steps", 0)) > 1:
-            raise _todo("fit_bptt(remat_steps=)", "7")
+        remat_steps = int(kwargs.pop("remat_steps", 0))
         fused_bptt = kwargs.pop("fused_bptt", "auto")
         if kwargs:
             raise TypeError(f"fit_bptt() got unexpected keyword arguments {sorted(kwargs)}")
         epoch_mode = isinstance(inputs, list) or getattr(inputs, "ndim", 0) == 3
+        # remat composes with the trajectories when it divides T; else 'auto'
+        # takes plain autograd, which checkpoints where it can (JAX's rule)
+        T0 = int(np.shape(inputs[0])[0]) if epoch_mode and len(inputs) else 0
+        rk = remat_steps if (remat_steps > 1 and T0 and T0 % remat_steps == 0) else 0
+        if remat_steps > 1 and rk == 0 and fused_bptt == "auto":
+            fused_bptt = False
         if epoch_mode and len(inputs) != len(targets):
             raise ValueError(
                 "Wrong dimensions of input and target output. Please make sure that "
@@ -1231,7 +1420,7 @@ class Network:
 
         t0 = perf_counter()
         *programs, self.last_fit = self._build_epoch_programs(
-            loss_fn, opt, fused_bptt, sampling_steps, fused_cfg, paths)
+            loss_fn, opt, fused_bptt, sampling_steps, fused_cfg, paths, rk, remat_steps)
 
         def epochs(tr, os_, ins, tgts):
             return self._bptt_epochs(programs, tr, frozen, os_, state0, ins, tgts, verbose)
@@ -1283,17 +1472,19 @@ class Network:
         Every step advances the minibatch's trials together: chain networks
         train through the deferred-gradient trajectory of ``ops/bptt.py``
         with ``(B, n)`` rows (``int8_mm``/``int8_mm_t`` for an
-        ``int8_master`` coupling) and one dW product over trials and time;
-        other networks through plain autograd over the batched step
-        (``fused_bptt`` as in :meth:`fit_bptt`; ``net.last_fit`` says which).
+        ``int8_master`` coupling) and one dW product over trials and time,
+        other graphs through the graph trajectory with ``(B, ...)`` carries,
+        and the rest through plain autograd over the batched step
+        (``fused_bptt`` and ``remat_steps`` as in :meth:`fit_bptt`;
+        ``net.last_fit`` says which).
         The optimizer is the split one, as in the JAX package's batch
         programs (``RECTIPY_FUSED_ADAM`` is not read).
 
         Returns an Observer with ``train_loss`` (one per update),
         ``epoch_loss`` (the mean over an epoch's minibatches) and
         ``epochs``.  The trained parameters are written back; the network's
-        state is left unchanged.  Not ported yet: ``remat_steps`` (ROADMAP
-        Queue 1 item 7) and ``mesh=`` (item 14).  A node with the generic
+        state is left unchanged.  Not ported yet: ``mesh=`` (ROADMAP Queue 1
+        item 14).  A node with the generic
         fused step raises: its kernel has no backward, as the JAX package's
         has none.  ``int4_master`` couplings take ``int4_mm``/``int4_mm_t``
         on the card.
@@ -1317,8 +1508,8 @@ class Network:
         train, frozen = self._partition(params, paths)
         train = tree_map(lambda t: t.detach(), train)
         opt_state = opt.init(train)
-        batch_loss, pack, self.last_fit = self._build_batch_programs(loss_fn, sampling_steps,
-                                                                     setup.fused_bptt)
+        batch_loss, pack, self.last_fit = self._build_batch_programs(
+            loss_fn, sampling_steps, setup.fused_bptt, setup.rk, setup.remat_steps)
         state0 = self.init_state()
         xs_all, tgt_all, mb, accum = setup.inputs, setup.targets, setup.mb, setup.accum
         y0 = pack(state0, mb // accum)
@@ -1404,8 +1595,7 @@ class Network:
         count ``n_mb``, ``accum``, ``shuffled``, ``fused_bptt``, ``epochs``
         and the per-epoch trial permutations ``perms`` (host numpy).
         Consumes its keyword arguments from ``kwargs``; any other raises."""
-        if int(kwargs.pop("remat_steps", 0)) > 1:
-            raise _todo(f"{name}(remat_steps=)", "7")
+        remat_steps = int(kwargs.pop("remat_steps", 0))
         fused_bptt = kwargs.pop("fused_bptt", "auto")
         accum = int(kwargs.pop("accum_steps", 1))
         retrieve_from_dict(["closure", "retain_graph"], kwargs)  # torch.optim-only knobs
@@ -1433,6 +1623,9 @@ class Network:
                 f"accum_steps={accum} must divide the minibatch size {mb} (micro-batches of "
                 f"mb/accum_steps trials each).")
         n_mb = B // mb
+        rk = remat_steps if (remat_steps > 1 and T % remat_steps == 0) else 0
+        if remat_steps > 1 and rk == 0 and fused_bptt == "auto":
+            fused_bptt = False  # T not divisible: plain autograd takes the remat request
         shuffled = bool(shuffle) and n_mb > 1  # full batch: the order is moot
         E = int(n_epochs)
         if shuffled:
@@ -1443,19 +1636,21 @@ class Network:
         return SimpleNamespace(
             inputs=self._to_device(inputs).transpose(0, 1).contiguous(),
             targets=self._to_device(targets), B=B, T=T, mb=mb, n_mb=n_mb, accum=accum,
-            shuffled=shuffled, fused_bptt=fused_bptt, epochs=E,
+            shuffled=shuffled, fused_bptt=fused_bptt, rk=rk, remat_steps=remat_steps, epochs=E,
             perms=np.array(perms, dtype=np.int64))
 
-    def _build_batch_programs(self, loss_fn, sampling_steps: int, fused_bptt) -> tuple:
+    def _build_batch_programs(self, loss_fn, sampling_steps: int, fused_bptt, rk: int = 0,
+                              remat_steps: int = 0) -> tuple:
         """``(batch_loss, pack, info)`` of the batched-trial trainers:
         ``batch_loss(train, frozen, y0, xs, tgt)``, the mean over the
         minibatch's trials of each trial's loss, for time-major inputs ``xs
         (T, mb, m)`` and targets ``(mb, R, ...)``; ``pack(state0, mb)``, the
         initial state of ``mb`` trials; and which trajectory the fit takes
-        (``{"trajectory": "chain"|"autograd", "fused_adam": False}``)."""
+        (``{"trajectory": "chain"|"graph"|"autograd", "fused_adam":
+        False}``).  ``rk``/``remat_steps`` as in :meth:`fit_bptt`."""
         combine = self._combine
         step = self.make_step()
-        chain, traj, wkeys = self._chain_traj(fused_bptt)
+        tr = self._trajectory(fused_bptt, rk)
         s = int(sampling_steps)
 
         def trial_mean(outs, tgt):
@@ -1466,8 +1661,8 @@ class Network:
                 outs = outs[:, :n_keep * s].reshape(outs.shape[0], n_keep, s, -1).mean(dim=2)
             return torch.stack([loss_fn(o, t) for o, t in zip(outs, tgt)]).mean()
 
-        if traj is not None:
-            label, prefix, suffix = chain
+        if tr.kind == "chain":
+            label, prefix, suffix = tr.chain
 
             def pack(state0, mb):
                 return self._batch_state(state0, mb)["nodes"][label]
@@ -1475,12 +1670,22 @@ class Network:
             def batch_loss(train, frozen, y0, xs, tgt):
                 params = combine(train, frozen)
                 nargs = params["nodes"][label]
-                W = {k: nargs[k] for k in wkeys}
-                rest = {k: v for k, v in nargs.items() if k not in wkeys}
+                W = {k: nargs[k] for k in tr.wkeys}
+                rest = {k: v for k, v in nargs.items() if k not in tr.wkeys}
                 xs = prefix(params, xs) if prefix is not None else xs
-                _, outs = traj(W, rest, y0, xs)
+                _, outs = tr.traj(W, rest, y0, xs)
                 if suffix is not None:
                     outs = suffix(params, outs)
+                return trial_mean(outs.transpose(0, 1), tgt)
+        elif tr.kind == "graph":
+            from .ops.graph_bptt import graph_weights_args
+
+            def pack(state0, mb):
+                return self._graph_pack(tr.spec, self._batch_state(state0, mb))
+
+            def batch_loss(train, frozen, Y0, xs, tgt):
+                weights, args = graph_weights_args(tr.spec, combine(train, frozen))
+                _, outs = tr.traj(weights, args, Y0, xs)
                 return trial_mean(outs.transpose(0, 1), tgt)
         else:
             def pack(state0, mb):
@@ -1488,14 +1693,10 @@ class Network:
 
             def batch_loss(train, frozen, state0, xs, tgt):
                 params = self._prep_edge_params(combine(train, frozen))
-                state, outs = state0, []
-                for x in xs.unbind(0):
-                    state, out, _ = step(state, params, x)
-                    outs.append(out)
-                return trial_mean(torch.stack(outs, dim=1), tgt)
+                _, outs = self._plain_outs(step, params, state0, xs, remat_steps)
+                return trial_mean(outs.transpose(0, 1), tgt)
 
-        return batch_loss, pack, {"trajectory": "chain" if traj is not None else "autograd",
-                                  "fused_adam": False}
+        return batch_loss, pack, {"trajectory": tr.kind, "fused_adam": False}
 
     def _chain_decompose(self):
         """Decompose a chain network ``[instants...] -> population ->
@@ -1541,42 +1742,85 @@ class Network:
         return (label, lambda params, xs: apply(pre_ops, params, xs),
                 lambda params, outs: apply(post_ops, params, outs))
 
-    def _chain_traj(self, fused_bptt) -> tuple:
-        """``(chain, traj, wkeys)``: the chain decomposition and the
-        deferred-gradient trajectory of its population with the coupling
-        keys it takes (``ops/bptt.make_coupled_traj``), or ``traj=None``
-        where the fit takes plain autograd.  ``fused_bptt=True`` raises
-        where the trajectory does not apply."""
-        if fused_bptt not in ("auto", True):
-            return None, None, None
-        chain = self._chain_decompose()
-        if chain is None:
-            if fused_bptt is True:
-                raise ValueError("fused_bptt=True needs a chain network [instants] -> "
-                                 "population -> [instants]; the graph trajectory is not "
-                                 "ported yet (ROADMAP Queue 1 item 10).")
-            return None, None, None
-        from .ops.bptt import make_coupled_traj
+    def _trajectory(self, fused_bptt, rk: int = 0) -> SimpleNamespace:
+        """The trajectory a fit takes, as the JAX package's
+        ``_build_epoch_loss`` picks it: a chain network's population
+        trajectory (``ops/bptt.make_coupled_traj``; ``kind="chain"``, with
+        ``chain``, ``traj`` and ``wkeys``), else the graph trajectory
+        (``ops/graph_bptt.make_graph_traj``; ``kind="graph"``, with ``traj``
+        and ``spec``), else plain autograd (``kind="autograd"``).
+        ``fused_bptt=True`` raises where neither trajectory applies; an
+        unsupported topology (``ValueError``, ``AttributeError``,
+        ``KeyError``) sends ``'auto'`` to plain autograd.  ``rk > 1``: the
+        trajectories checkpoint ``rk``-step chunks."""
+        if fused_bptt in ("auto", True):
+            chain = self._chain_decompose()
+            if chain is not None:
+                from .ops.bptt import make_coupled_traj
 
-        try:
-            traj, wkeys = make_coupled_traj(self.get_node(chain[0]))
-        except (ValueError, AttributeError, KeyError):
-            if fused_bptt is True:
-                raise
-            return chain, None, None
-        return chain, traj, wkeys
+                try:
+                    traj, wkeys = make_coupled_traj(self.get_node(chain[0]), remat_steps=rk)
+                    return SimpleNamespace(kind="chain", chain=chain, traj=traj, wkeys=wkeys)
+                except (ValueError, AttributeError, KeyError):
+                    pass
+            from .ops.graph_bptt import make_graph_traj
+
+            try:
+                traj, spec = make_graph_traj(self, remat_steps=rk)
+                return SimpleNamespace(kind="graph", traj=traj, spec=spec)
+            except (ValueError, AttributeError, KeyError):
+                if fused_bptt is True:
+                    raise
+        return SimpleNamespace(kind="autograd")
+
+    @staticmethod
+    def _graph_pack(spec, state0: dict):
+        """The graph trajectory's start: the population states, and with
+        feedback or stateful edges the whole carry (the block edges' states
+        packed)."""
+        Y0 = {lbl: state0["nodes"][lbl] for lbl in spec.pop_labels}
+        if not spec.needs_carry:
+            return Y0
+        return {"Y": Y0, "fb": state0.get("fb", {}),
+                "E": {ek: spec.estate_pack[ek](state0["edges"][ek])
+                      for ek in spec.stateful_edges}}
+
+    def _plain_outs(self, step, params, state0, xs, remat_steps: int = 0):
+        """Plain autograd's loop of ``step`` over the per-step inputs ``xs``:
+        ``(state_T, outs)``.  ``remat_steps=k`` dividing ``T`` runs each
+        k-step segment under ``torch.utils.checkpoint``, which recomputes
+        the segment in the backward instead of keeping its activations (the
+        JAX package's ``jax.checkpoint``)."""
+        def segment(state, seg):
+            outs = []
+            for x in seg.unbind(0):
+                state, out, _ = step(state, params, x)
+                outs.append(out)
+            return state, torch.stack(outs)
+
+        R, T = int(remat_steps), int(xs.shape[0])
+        if R <= 1 or T % R:
+            return segment(state0, xs)
+        from torch.utils.checkpoint import checkpoint
+
+        state, parts = state0, []
+        for c in range(T // R):
+            state, outs = checkpoint(segment, state, xs[c * R:(c + 1) * R], use_reentrant=False)
+            parts.append(outs)
+        return state, torch.cat(parts)
 
     def _build_epoch_programs(self, loss_fn, opt, fused_bptt, sampling_steps, fused_cfg,
-                              paths):
+                              paths, rk: int = 0, remat_steps: int = 0):
         """``(update, init_opt, pack, info)``: the per-epoch update
         ``update(train, frozen, opt_state, y0, inp, tgt) -> (train',
         opt_state', loss)``, the optimizer-state initializer of the fused
         adam path (else ``None``), the initial-state packer, and which paths
-        the fit takes (``{"trajectory": "chain"|"autograd", "fused_adam":
-        bool}``)."""
+        the fit takes (``{"trajectory": "chain"|"graph"|"autograd",
+        "fused_adam": bool}``).  ``rk > 1`` checkpoints the trajectories;
+        plain autograd checkpoints ``remat_steps``-step segments."""
         combine = self._combine
         step = self.make_step()
-        chain, traj, traj_wkeys = self._chain_traj(fused_bptt)
+        tr = self._trajectory(fused_bptt, rk)
 
         def downsample(outs):
             if sampling_steps > 1:
@@ -1585,8 +1829,9 @@ class Network:
                 outs = outs.reshape(n_keep, sampling_steps, -1).mean(dim=1)
             return outs
 
-        if traj is not None:
-            label, apply_prefix, apply_suffix = chain
+        if tr.kind == "chain":
+            label, apply_prefix, apply_suffix = tr.chain
+            traj_wkeys = tr.wkeys
 
             def pack(state0):
                 return state0["nodes"][label]
@@ -1598,35 +1843,42 @@ class Network:
                 rest = {k: v for k, v in nargs.items() if k not in traj_wkeys}
                 xs = apply_prefix(params, inp) if apply_prefix is not None else inp
                 if traj_fn is None:
-                    _, outs = traj(W, rest, y0, xs)
+                    _, outs = tr.traj(W, rest, y0, xs)
                 else:
                     _, outs = traj_fn((wp,), W, rest, y0, xs)
                 if apply_suffix is not None:
                     outs = apply_suffix(params, outs)
                 return loss_fn(downsample(outs), tgt)
 
-            fused = self._build_fused_adam(label, traj_wkeys, epoch_loss, fused_cfg, paths)
+            fused = (self._build_fused_adam(label, traj_wkeys, epoch_loss, fused_cfg, paths)
+                     if rk == 0 else None)
             if fused is not None:
                 return fused + (pack, {"trajectory": "chain", "fused_adam": True})
+        elif tr.kind == "graph":
+            from .ops.graph_bptt import graph_weights_args
+
+            def pack(state0):
+                return self._graph_pack(tr.spec, state0)
+
+            def epoch_loss(train, frozen, Y0, inp, tgt):
+                weights, args = graph_weights_args(tr.spec, combine(train, frozen))
+                _, outs = tr.traj(weights, args, Y0, inp)
+                return loss_fn(downsample(outs), tgt)
         else:
             def pack(state0):
                 return state0
 
             def epoch_loss(train, frozen, state0, inp, tgt):
                 params = self._prep_edge_params(combine(train, frozen))
-                state, outs = state0, []
-                for x in inp.unbind(0):
-                    state, out, _ = step(state, params, x)
-                    outs.append(out)
-                return loss_fn(downsample(torch.stack(outs)), tgt)
+                _, outs = self._plain_outs(step, params, state0, inp, remat_steps)
+                return loss_fn(downsample(outs), tgt)
 
         def update(train, frozen, opt_state, y0, inp, tgt):
             lval, grads = _value_and_grad(epoch_loss, train, frozen, y0, inp, tgt)
             train, opt_state = opt.update(grads, opt_state, train)
             return tree_map(lambda t: t.detach(), train), opt_state, lval
 
-        return update, None, pack, {"trajectory": "chain" if traj is not None else "autograd",
-                                    "fused_adam": False}
+        return update, None, pack, {"trajectory": tr.kind, "fused_adam": False}
 
     def _build_fused_adam(self, label, traj_wkeys, epoch_loss, fused_cfg, paths):
         """The fused adam + requantize update, or ``None`` when the fit does
@@ -1759,22 +2011,43 @@ class Network:
                         record(t, out, _read_vars(rec_info, state, params))
             return state
 
-        # the chain trajectory emits outputs only: record_vars take autograd
-        chain, traj, wkeys = self._chain_traj(fused_bptt if not rec_info else False)
-        if traj is not None:
-            label, prefix, suffix = chain
+        # the trajectories emit outputs only: record_vars take autograd
+        tr = self._trajectory(fused_bptt if not rec_info else False)
+        if tr.kind == "chain":
+            label, prefix, suffix = tr.chain
 
             def chunk_loss(train, frozen, state, t0):
                 params = combine(train, frozen)
                 nargs = params["nodes"][label]
-                W = {k: nargs[k] for k in wkeys}
-                rest = {k: v for k, v in nargs.items() if k not in wkeys}
+                W = {k: nargs[k] for k in tr.wkeys}
+                rest = {k: v for k, v in nargs.items() if k not in tr.wkeys}
                 xs = inputs[t0:t0 + u]
                 xs = prefix(params, xs) if prefix is not None else xs
-                yT, outs = traj(W, rest, state["nodes"][label], xs)
+                yT, outs = tr.traj(W, rest, state["nodes"][label], xs)
                 if suffix is not None:
                     outs = suffix(params, outs)
                 new_state = {**state, "nodes": {**state["nodes"], label: yT}}
+                return loss_fn(outs, targets[t0:t0 + u]), (new_state, outs, {})
+        elif tr.kind == "graph":
+            from .ops.graph_bptt import graph_weights_args
+
+            spec = tr.spec
+
+            def chunk_loss(train, frozen, state, t0):
+                # the carried feedback outputs and edge states cross the
+                # chunks (packed and unpacked at each boundary)
+                weights, args = graph_weights_args(spec, combine(train, frozen))
+                C0 = self._graph_pack(spec, state)
+                CT, outs = tr.traj(weights, args, C0, inputs[t0:t0 + u])
+                if spec.needs_carry:
+                    new_E = {ek: spec.estate_unpack[ek](CT["E"][ek], state["edges"][ek], u)
+                             for ek in spec.stateful_edges}
+                    new_state = {**state, "nodes": {**state["nodes"], **CT["Y"]},
+                                 "edges": {**state["edges"], **new_E}}
+                    if "fb" in state:
+                        new_state["fb"] = CT["fb"]
+                else:
+                    new_state = {**state, "nodes": {**state["nodes"], **CT}}
                 return loss_fn(outs, targets[t0:t0 + u]), (new_state, outs, {})
         else:
             def chunk_loss(train, frozen, state, t0):
@@ -1788,8 +2061,7 @@ class Network:
                 outs = torch.stack(outs)
                 return loss_fn(outs, targets[t0:t0 + u]), (state, outs, vals)
 
-        self.last_fit = {"trajectory": "chain" if traj is not None else "autograd",
-                         "fused_adam": False}
+        self.last_fit = {"trajectory": tr.kind, "fused_adam": False}
         state, losses = state0, []
         for c in range(n_upd):
             t0 = c * u

@@ -138,8 +138,15 @@ def test_traj_only_computes_the_cotangents_asked_for():
 def test_traj_refuses_what_it_does_not_support():
     rng = np.random.default_rng(5)
     _, tnet = _pair("rate", 4, rng)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_coupled_traj(tnet.get_node("rnn"), remat_steps=4)
+    # remat_steps is ported for Euler; the Heun trajectory refuses it, as in
+    # the JAX package (fit_bptt then takes the graph trajectory)
+    make_coupled_traj(tnet.get_node("rnn"), remat_steps=4)
+    heun = Network(1e-2, dtype=torch.float64, device="cpu")
+    heun.add_diffeq_node("rnn", "rectipy_tpu_torch.models." + TANH, weights=np.eye(4),
+                         input_var="li_op/I_ext", output_var="li_op/v", source_var="tanh_op/r",
+                         target_var="li_op/r_in", integrator="heun")
+    with pytest.raises(ValueError, match="Euler-only"):
+        make_coupled_traj(heun.get_node("rnn"), remat_steps=4)
     node = RateNet(lambda t, y, a: -y + a["in"], {"weights": torch.zeros(4), "in": torch.zeros(4)},
                    {"out": [0, 4]}, {"in": "in", "weights": "weights"}, dt=1e-2,
                    dtype=torch.float64, y0=torch.zeros(4, dtype=torch.float64), device="cpu")

@@ -314,9 +314,10 @@ def test_trainable_delays_follow_jax():
     assert np.abs(d_t - d_0.T).max() > 1e-3
     np.testing.assert_allclose(l_t, l_j, rtol=1e-10)
     np.testing.assert_allclose(d_t, d_j, rtol=1e-8, atol=1e-12)
-    # fused_bptt=True refuses a network with a stateful edge (no chain)
+    # fused_bptt=True refuses a network with a delay-matrix edge: no chain,
+    # and the graph trajectory takes linear-family edges only
     net = _chain("torch", n, delays=d_0, train="gd", train_delays=True, mode="interp", **kw)
-    with pytest.raises(ValueError, match="chain"):
+    with pytest.raises(ValueError, match="linear-family"):
         net.fit_bptt([inp], [tgt], fused_bptt=True, verbose=False)
 
 

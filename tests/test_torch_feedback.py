@@ -108,15 +108,21 @@ def test_feedback_network_bptt_trains_feedback_edge_like_jax():
         res[pkg] = (np.asarray(obs["epoch_loss"]),
                     np.asarray(student.get_edge("p2", "p1").weights), student)
     losses, w_after, tnet = res["torch"]
-    assert tnet.last_fit["trajectory"] == "autograd"
+    assert tnet.last_fit["trajectory"] == "graph"
     assert losses[-1] < losses[0] * 0.8, f"no training through feedback: {losses}"
     assert np.abs(w_after - k_fb0).max() > 1e-4, "feedback weights untouched"
     # adam divides each gradient entry by its own running scale, so the
     # round-off of the nearly-zero entries reaches the updates: rtol 1e-7
     np.testing.assert_allclose(losses, res["jax"][0], rtol=1e-7)
     np.testing.assert_allclose(w_after, res["jax"][1], rtol=1e-7, atol=1e-10)
-    with pytest.raises(ValueError, match="chain"):
-        build("torch", k_fb0, "gd").fit_bptt([inp], [target], fused_bptt=True, verbose=False)
+    # plain autograd (fused_bptt=False) takes the same steps
+    plain = build("torch", k_fb0, "gd")
+    obs = plain.fit_bptt([inp] * 20, [target] * 20, optimizer="adam", lr=1e-2, verbose=False,
+                         fused_bptt=False)
+    assert plain.last_fit["trajectory"] == "autograd"
+    np.testing.assert_allclose(np.asarray(obs["epoch_loss"]), losses, rtol=1e-7)
+    np.testing.assert_allclose(np.asarray(plain.get_edge("p2", "p1").weights), w_after,
+                               rtol=1e-7, atol=1e-10)
 
 
 def test_feedback_network_step_mode_matches_jax():

@@ -214,28 +214,32 @@ def test_unported_fit_options_raise():
     # epoch mode's do
     assert net.fit_bptt(np.ones((4, 3)), np.ones((4, 3)), update_steps=2,
                         verbose=False).to_numpy("loss").shape == (4,)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        net.fit_bptt(np.ones((4, 3)), np.ones((4, 3)), remat_steps=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        net.fit_bptt(*data, remat_steps=2, verbose=False)
+    # remat_steps is ported (tests/test_torch_bptt_heun_remat.py): step mode
+    # ignores it, as the JAX package's does
+    net.fit_bptt(np.ones((4, 3)), np.ones((4, 3)), remat_steps=2, verbose=False)
+    net.fit_bptt(*data, remat_steps=2, verbose=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         net.fit_bptt(*data, mesh=object(), verbose=False)
     # fit_bptt_batch is ported; its unported options raise as fit_bptt's do
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        net.fit_bptt_batch(*data, remat_steps=2, verbose=False)
+    net.fit_bptt_batch(*data, remat_steps=2, verbose=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         net.fit_bptt_batch(*data, mesh=object(), verbose=False)
-    # fused_bptt=True where the chain trajectory does not apply
+    # fused_bptt=True where neither trajectory applies (an RLS edge); a
+    # two-population network takes the graph trajectory
     two = Network(1e-2, dtype=torch.float64, device="cpu")
     for label in ("a", "b"):
         two.add_diffeq_node(label, T_ + TANH, weights=np.eye(3), input_var="li_op/I_ext",
                             output_var="li_op/v", source_var="tanh_op/r",
                             target_var="li_op/r_in", train_params=["weights"])
-    two.add_edge("a", "b", weights=np.eye(3))
-    with pytest.raises(ValueError, match="chain"):
+    two.add_edge("a", "b", weights=np.eye(3), train="rls")
+    with pytest.raises(ValueError, match="linear-family"):
         two.fit_bptt(*data, fused_bptt=True, verbose=False)
     two.fit_bptt(*data, verbose=False)  # 'auto': plain autograd
     assert two.last_fit["trajectory"] == "autograd"
+    two.pop_edge("a", "b")
+    two.add_edge("a", "b", weights=np.eye(3))
+    two.fit_bptt(*data, fused_bptt=True, verbose=False)
+    assert two.last_fit["trajectory"] == "graph"
 
 
 def test_fit_records_last_epoch_run():

@@ -267,8 +267,9 @@ def test_class_loss_takes_integer_targets_like_jax():
 
 
 def test_two_population_network_trains_through_autograd_like_jax():
-    # a non-chain network (two populations): plain autograd over the batched
-    # step in the port, the graph trajectory in JAX; same gradients
+    # a non-chain network (two populations): the graph trajectory ('auto',
+    # as in JAX) and plain autograd over the batched step (fused_bptt=False)
+    # in the port, the graph trajectory in JAX; same gradients
     rng = np.random.default_rng(9)
 
     def build(cls):
@@ -287,12 +288,14 @@ def test_two_population_network_trains_through_autograd_like_jax():
     ins = rng.normal(size=(3, 20, 4))
     tgts = rng.normal(size=(3, 20, 3)) * 0.1
     kw = dict(n_epochs=3, optimizer="adam", lr=1e-2)
-    a, b = build(JNetwork), build(Network)
+    a, b, c = build(JNetwork), build(Network), build(Network)
     la, lb = _fit(a, ins, tgts, **kw), _fit(b, ins, tgts, **kw)
-    assert b.last_fit["trajectory"] == "autograd"
-    np.testing.assert_allclose(lb["epoch_loss"], la["epoch_loss"], rtol=1e-9)
-    for lbl in ("a", "b"):
-        np.testing.assert_allclose(_w(b, lbl), _w(a, lbl), rtol=1e-6, atol=1e-10)
+    lc = _fit(c, ins, tgts, fused_bptt=False, **kw)
+    assert b.last_fit["trajectory"] == "graph" and c.last_fit["trajectory"] == "autograd"
+    for net, res in ((b, lb), (c, lc)):
+        np.testing.assert_allclose(res["epoch_loss"], la["epoch_loss"], rtol=1e-9)
+        for lbl in ("a", "b"):
+            np.testing.assert_allclose(_w(net, lbl), _w(a, lbl), rtol=1e-6, atol=1e-10)
 
 
 def test_fit_validation_errors():
@@ -341,7 +344,8 @@ def test_batch_vars_validation():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(remat_steps=10), "item 7"), (dict(mesh=object()), "item 14"),
+    # the id the case had beside the remat_steps refusal, now ported
+    pytest.param(dict(mesh=object()), "item 14", id="kw1-item 14"),
     # the test id of the refusal's first form, which named a follow-on
     pytest.param("generic_fused", "has no backward", id="generic_fused-follow-on g")])
 def test_unported_fit_options_raise(kw, item):

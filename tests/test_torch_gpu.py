@@ -1753,3 +1753,148 @@ def test_delayed_block_edge_chunked_run_on_card(cuda, block_dtype):
     np.testing.assert_array_equal(np.concatenate(parts), full)
     want = build("cpu").run(inp, **kw).to_numpy(("qif", "v"))
     np.testing.assert_allclose(full, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def _graph_epoch(net, inp, tgt, remat=0):
+    """One epoch's mse loss and the gradients of the trainable leaves,
+    through the graph trajectory (``ops/graph_bptt.py``)."""
+    from rectipy_tpu_torch.ops.graph_bptt import graph_weights_args, make_graph_traj
+
+    params = net.parameters_pytree()
+    paths = net.trainable_paths()
+    leaves = [params[k][l][p].detach().clone().requires_grad_(True) for k, l, p in paths]
+    for (k, l, p), leaf in zip(paths, leaves):
+        params[k][l] = {**params[k][l], p: leaf}
+    traj, spec = make_graph_traj(net, remat_steps=remat)
+    w, a = graph_weights_args(spec, params)
+    with torch.enable_grad():
+        _, outs = traj(w, a, net._graph_pack(spec, net.init_state()), net._to_device(inp))
+        loss = torch.mean((outs - net._to_device(tgt)) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.cpu().numpy() for g in grads]
+
+
+def _graph_feedback(device, coupling=None):
+    """Two tanh populations of 64 (the first with ``coupling``), a delayed
+    trained edge and a trained feedback edge."""
+    rng = np.random.default_rng(20)
+    net = FeedbackNetwork(1e-2, device=device)
+    for label, c in (("p1", coupling), ("p2", None)):
+        net.add_diffeq_node(label, "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh",
+                            weights=rng.normal(size=(64, 64)) * 0.25, input_var="li_op/I_ext",
+                            output_var="li_op/v", source_var="tanh_op/r",
+                            target_var="li_op/r_in", train_params=["weights"],
+                            coupling_dtype=c)
+    net.add_edge("p1", "p2", weights=rng.normal(size=(64, 64)) * 0.1, train="gd",
+                 delays=(np.arange(64) % 4) + 1)
+    net.add_edge("p2", "p1", weights=rng.normal(size=(64, 64)) * 0.05, feedback=True,
+                 train="gd")
+    net.compile()
+    return net
+
+
+def _graph_block(device, block_dtype):
+    """The delayed block feedback self-edge on a population without a
+    coupling (the N=100,352 cell's topology at n = 2,048, bs = 256)."""
+    from rectipy_tpu_torch import block_random_connectivity
+
+    n = 2048
+    A = block_random_connectivity(n, n, 200, block_size=256, seed=5)
+    d_blk = np.random.default_rng(6).integers(0, 12, size=A.cols.shape)
+    etas = 1000.0 + 200.0 * np.random.default_rng(1).standard_normal(n)
+    net = FeedbackNetwork(1e-3, device=device)
+    net.add_func_node("inp", 1, activation_function="identity")
+    net.add_diffeq_node("qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa", n=n,
+                        input_var="I_ext", output_var="s", spike_var="spike", spike_def="v",
+                        op="qif_sfa_op", node_vars={"all/qif_sfa_op/eta": etas})
+    net.add_edge("inp", "qif", weights=np.random.default_rng(7).normal(size=(n, 1)))
+    net.add_edge("qif", "qif", weights=A, delays=d_blk, feedback=True, train="gd",
+                 block_dtype=block_dtype)
+    net.compile()
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["feedback", "feedback_int8_master", "block_float32",
+                                  "block_int8_master", "feedback_remat"])
+def test_graph_trajectory_on_card_matches_cpu(cuda, case):
+    # one epoch's loss and gradients through the graph trajectory on the
+    # card against the CPU (float32 sums in another order: the loss within
+    # 1e-4, each gradient within 5e-3 of its norm); the kernels on the path
+    # launch once a step: int8_mv forward and int8_mv_t backward for an
+    # int8_master coupling, block_int8_mv (on the tensor cores) for the
+    # int8_master block edge
+    from rectipy_tpu_torch.ops.quant import block_int8_mv
+
+    rng = np.random.default_rng(21)
+    if case.startswith("block"):
+        T = 300
+        inp = np.zeros((T, 1), dtype=np.float32)
+        inp[T // 4:, 0] = 3.0
+        tgt = (rng.normal(size=(T, 2048)) * 0.1).astype(np.float32)
+
+        def build(device):
+            return _graph_block(device, None if case == "block_float32" else "int8_master")
+    else:
+        T = 120
+        inp = rng.normal(size=(T, 64)).astype(np.float32)
+        tgt = (rng.normal(size=(T, 64)) * 0.1).astype(np.float32)
+
+        def build(device):
+            return _graph_feedback(device, "int8_master" if "int8" in case else None)
+    remat = 40 if case == "feedback_remat" else 0
+    counts = (int8_mv.launches, int8_mv_t.launches, block_int8_mv.launches,
+              block_int8_mv.mma_launches)
+    l_card, g_card = _graph_epoch(build(cuda), inp, tgt, remat)
+    counts = tuple(c1 - c0 for c0, c1 in zip(counts, (
+        int8_mv.launches, int8_mv_t.launches, block_int8_mv.launches,
+        block_int8_mv.mma_launches)))
+    want = {"feedback_int8_master": (T, T, 0, 0), "block_int8_master": (0, 0, T, T)}
+    assert counts == want.get(case, (0, 0, 0, 0))
+    l_cpu, g_cpu = _graph_epoch(build("cpu"), inp, tgt, remat)
+    assert np.isfinite(l_card) and l_card > 0
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+    for a, b in zip(g_card, g_cpu):
+        assert np.abs(b).max() > 0
+        assert np.linalg.norm(a - b) <= 5e-3 * np.linalg.norm(b)
+
+
+@pytest.mark.gpu
+def test_graph_fit_bptt_on_card_takes_the_graph_trajectory(cuda):
+    # fit_bptt of a feedback network on the card: the graph trajectory
+    # (fused_bptt=True), losses that decrease and follow the CPU's fit
+    rng = np.random.default_rng(22)
+    inp = rng.normal(size=(100, 64)).astype(np.float32)
+    tgt = (rng.normal(size=(100, 64)) * 0.1).astype(np.float32)
+    losses = {}
+    for device in (cuda, "cpu"):
+        net = _graph_feedback(device)
+        obs = net.fit_bptt([inp] * 4, [tgt] * 4, optimizer="adam", lr=1e-2, verbose=False,
+                           fused_bptt=True)
+        assert net.last_fit["trajectory"] == "graph"
+        losses[str(device)] = np.asarray(obs["epoch_loss"])
+    card = losses[str(cuda)]
+    assert card[-1] < card[0]
+    np.testing.assert_allclose(card, losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_graph_fit_bptt_batch_on_card_takes_the_row_kernels(cuda):
+    # fit_bptt_batch of a feedback network through the graph trajectory
+    # with an int8_master coupling: int8_mm forward and int8_mm_t backward
+    # once a step of each minibatch's rows; the losses follow the CPU's
+    rng = np.random.default_rng(23)
+    T = 60
+    ins = rng.normal(size=(4, T, 64)).astype(np.float32)
+    tgts = (rng.normal(size=(4, T, 64)) * 0.1).astype(np.float32)
+    losses = {}
+    for device in (cuda, "cpu"):
+        net = _graph_feedback(device, "int8_master")
+        before = (int8_mm.launches, int8_mm_t.launches)
+        obs = net.fit_bptt_batch(ins, tgts, n_epochs=1, batch_size=2, optimizer="adam",
+                                 lr=1e-3, seed=0, verbose=False)
+        assert net.last_fit["trajectory"] == "graph"
+        if device is cuda:
+            assert (int8_mm.launches - before[0], int8_mm_t.launches - before[1]) == (2 * T, 2 * T)
+        losses[str(device)] = np.asarray(obs["train_loss"])
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)

@@ -187,11 +187,12 @@ def test_unported_network_features_raise():
             tnet.add_edge("inp", "qif", train=rule)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnet.run(np.zeros((5, 1)), record_spikes=["qif"], verbose=False)
-    # SpikeNet (reset=False) is ported; a circuit of mixed templates is not
-    from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate
+    # SpikeNet (reset=False) and circuits of mixed templates are ported
+    # (tests/test_torch_circuits.py); a variable no group owns is refused
+    from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate, TemplateError
 
     mixed = CircuitTemplate("c", {"a": NodeTemplate.from_yaml(QIF_SFA),
                                   "b": NodeTemplate.from_yaml(QIF_SFA.replace("qif_sfa", "qif"))})
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+    with pytest.raises(TemplateError, match="exactly one node template"):
         tnet.add_diffeq_node("q2", mixed, input_var="I_ext", output_var="s",
                              spike_var="spike", reset_var="v")

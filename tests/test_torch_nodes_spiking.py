@@ -186,8 +186,8 @@ def test_rk4_integrator_fourth_order():
 
 
 def test_fit_bptt_spikenet_matches_jax_f64():
-    # plain autograd in the port (the chain trajectory refuses a SpikeNet);
-    # the JAX fit takes its own path: the losses and trained weights agree.
+    # the chain trajectory in the port and in JAX (both admit a SpikeNet):
+    # the losses and trained weights agree.
     # The readout is v, which the coupling moves continuously once s > 0
     n, T, K = 8, 80, 3
     rng = np.random.default_rng(44)
@@ -200,7 +200,7 @@ def test_fit_bptt_spikenet_matches_jax_f64():
         obs = net.fit_bptt([inp] * K, [tgt] * K, optimizer="adam", lr=1e-2, verbose=False)
         res[pkg] = (np.asarray(obs["epoch_loss"]), np.asarray(net.get_node("qif")["weights"]))
         if pkg == "torch":
-            assert net.last_fit["trajectory"] == "autograd"
+            assert net.last_fit["trajectory"] == "chain"
     np.testing.assert_allclose(res["torch"][0], res["jax"][0], rtol=1e-9)
     np.testing.assert_allclose(res["torch"][1], res["jax"][1], rtol=1e-8, atol=1e-12)
     assert res["jax"][0][-1] != res["jax"][0][0], "nothing trained"
