@@ -425,6 +425,58 @@ ops/graph_bptt.py, the chunked and Heun trajectories):
 The kernels line adds block_int8_mv[graph_train_path] (the int8_master
 graph fit's launches, timed at the gathered-stack shape).
 
+Phases 39-41 (after phase 38; record_spikes, the input specs of
+rectipy_tpu_torch/inputs.py, fit_es and fit_bptt_multistart; no new kernel):
+
+39. spikes_inputs_path: phase 4's population (N = 10,000 qif_sfa, bf16 W,
+   the fused QIF step) without its tanh input node, so that the drive
+   reaches each neuron: Network.run of Pulse(T, 1, 30,000 from T/10 to the
+   end) + Noise(T, channels=N, scale 50, seed 39) over 5,000 steps with
+   record_spikes=["qif"] and sampling_steps=100, in which at least half the
+   neurons spike; (a) the counts and records
+   equal, bit for bit, those of the same run fed spec.materialize(dt,
+   device="cuda"); (b) the fused kernel stepped by hand for 100 steps from
+   the run's final state: the reader's indicator on each pre-update state
+   equals v' == v_reset on every neuron, over at least N/10 spikes; (c)
+   ms/step of the array and the
+   spec, each with and without record_spikes, in turns (a, a+s, spec+s,
+   spec, then back); (d) Noise, Wiener and Poisson materialized on the
+   card within the bounds of tests/test_torch_inputs.py.
+40. es_path: fit_es of the per-neuron eta of phase 39's network, 16
+   candidates a generation (16 x 10,000), 8 generations of one run_batch of
+   2,000 steps each (Pulse of 3,000 from step 200), sigma 100, lr 10,000,
+   scored by mse on the spike counts per 100-step window against the
+   counts of a run at eta + 300; the last generation's mean loss must
+   fall below the first's (the search point's loss, the final B=1
+   evaluation, is reported beside the starting eta's); every
+   generation's run_batch takes qif_sfa_rows_mma_kernel once a step
+   (asserted per call, through a wrapper of the network's run_batch), and
+   so does the final B=1 evaluation; the state is unchanged and the
+   kernel's copy of eta refreshed; ms per generation, aggregate
+   candidate-neuron-updates/s; the B = 16 step alone (bound, plain ms,
+   torch.matmul of the rows).  Then es_vs_cpu: the same fit at N = 256
+   (etas about 3e4, so that neurons spike within 200 steps), 8 candidates,
+   3 generations, teacher eta + 50, sigma 20, lr 200, the output
+   objective with z-scores, on the card and on
+   the CPU (ES_LOSS_RTOL, ES_ETA_RTOL).
+41. multistart_path: phase 27's ensemble (int8_master, B = 32, T = 500,
+   adam lr 1e-4, phase 27's trial arrays, kept on the host) trained by
+   fit_bptt_multistart with 4 starts for 2 epochs, in turns with one
+   fit_bptt_batch epoch after a warm one (batch, multistart, a multistart
+   of 0 epochs that times the starts' numpy draws alone, batch): 4,000
+   launches each of int8_mm and int8_mm_t, all on the tensor cores;
+   ms/epoch without the draws, the ratio to the batch epoch, peak memory.
+   Then multistart_vs_cpu: 3 starts at N = 1,000 (etas about 500, the
+   coupling's gain 300 and init_scale 2 so that the starts part), B = 4,
+   T = 50, 2 epochs,
+   on the card and on the CPU: per-start losses within MS_LOSS_RTOL = 1e-6
+   and the same best start, after a check that the CPU's starts part by
+   more than 100 times that.
+The kernels line adds qif_sfa_step[spikes_inputs_path] (phase 6's timing
+of the same single-row kernel), qif_sfa_step.mma[es_path] (timed at B =
+16) and int8_mm[multistart_path] / int8_mm_t[multistart_path] (phase 28's
+timings at the same (32, N) shapes).
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -2981,9 +3033,10 @@ def int4_batch_timing(dev, W_np, train_launches: dict, run_launches: dict, errs:
     return entries
 
 
-def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> list:
+def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> tuple:
     """Phases 25-28 (the batched trials of run_batch and fit_bptt_batch).
-    Returns the entries of the ``kernels`` line for their kernels."""
+    Returns the entries of the ``kernels`` line for their kernels and host
+    copies of phase 27's trial arrays."""
     errs = batch_kernel_check(dev, W_np)
     torch.cuda.empty_cache()
     run_launches, _ = run_batch_phase(dev)
@@ -2992,11 +3045,12 @@ def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> list:
     launches, epoch_ms, staged, net = batch_train_phase(dev, data, single_nu)
     i4_launches = batch_train_int4_phase(data, staged, int4_nu)
     entries = batch_timing(dev, W_np, net, staged, epoch_ms, launches, run_launches, errs)
+    trials = tuple(a.cpu() for a in staged)  # phase 41 trains on the same arrays
     del staged, net
     torch.cuda.empty_cache()
     entries += int4_batch_timing(dev, W_np, i4_launches, run_launches, errs)
     entries += generic_entries
-    return entries
+    return entries, trials
 
 
 # ------------------------------------------------------------ phases 30-32
@@ -4458,6 +4512,473 @@ def graph_train_check(dev) -> None:
           "batch_trials": GC_B, "loss_rtol": FIT_LOSS_RTOL, "grad_rtol": FIT_GRAD_RTOL})
 
 
+# ------------------------------------------------------------ phases 39-41
+SPIKE_WINDOW = 100  # the records' window (sampling_steps) of phases 39 and 40
+BY_HAND_STEPS = 100  # spikes_inputs_path: the fused kernel stepped by hand
+NOISE_SCALE = 50.0  # spikes_inputs_path: the per-neuron noise of the drive
+# the pulse into every neuron (spike_drive) of phase 39 and of phase 40: all
+# but the tan etas' far tail spike, in volleys that the coupling keeps in
+# step; at 30,000 a neuron spikes once or twice in 100 steps of dt 1e-4 (the
+# hand-stepped check), at 3,000 a few times in phase 40's 2,000 steps
+SPIKE_DRIVE, ES_DRIVE = 30_000.0, 3_000.0
+ES_B, ES_T, ES_GENERATIONS = 16, 2_000, 8  # es_path: candidates, steps, generations
+ES_SHIFT, ES_SIGMA, ES_LR = 300.0, 100.0, 10_000.0  # the teacher's eta offset, sigma, lr
+ES_CPU_N, ES_CPU_T, ES_CPU_GENERATIONS, ES_CPU_B = 256, 200, 3, 8  # es_vs_cpu
+ES_CPU_SHIFT, ES_CPU_SIGMA, ES_CPU_LR = 50.0, 20.0, 200.0  # es_vs_cpu's teacher, sigma, lr
+# es_vs_cpu: the card's bf16 kernel against the plain step on the CPU (bf16
+# products, f32 sums in another order); the records part by ~1e-4 over 200
+# steps (test_fused_network_on_card_matches_plain_network_on_cpu), the mse
+# losses and, under z-score shaping (no ranks to reorder), the written-back
+# eta move with them continuously
+ES_LOSS_RTOL, ES_ETA_RTOL = 1e-3, 1e-2
+MS_STARTS, MS_EPOCHS = 4, 2  # multistart_path: phase 27's ensemble, 4 starts, 2 epochs
+MS_CPU_N, MS_CPU_STARTS = 1_000, 3  # multistart_vs_cpu (CPU_B trials, CPU_T steps, CPU_EPOCHS)
+MS_CPU_ETA = 500.0  # multistart_vs_cpu: the etas' centre
+# multistart_vs_cpu: the coupling's gain and the starts' init_scale, so that
+# the perturbed W move spike times and the starts' losses part by far more
+# than MS_LOSS_RTOL (8.4e-4 apart at the least on the CPU); the card's int8
+# sums are exact, so card and CPU should part by float32 round-off of the
+# loss means alone (1.2e-7 at gain 1)
+MS_CPU_GAIN, MS_CPU_INIT_SCALE, MS_LOSS_RTOL = 300.0, 2.0, 1e-6
+ES_CPU_ETA = 3e4  # es_vs_cpu: the etas' centre (a spike within ES_CPU_T steps of dt 1e-4)
+
+
+def spike_net(W_np, etas, device=None, coupling: str = "bfloat16", fused: bool = True):
+    """Phase 4's population (qif_sfa, its coupling, etas, alpha 0.05 and k
+    15, the fused QIF step) without the tanh input node: the drive enters
+    I_ext of every neuron, so a spec of N channels gives each its own noise."""
+    from rectipy_tpu_torch import Network, attach_fused_qif_step
+
+    net = Network(DT, device=device)
+    net.add_diffeq_node("qif", QIF_SFA, weights=W_np, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", spike_var="spike", spike_def="v",
+                        op="qif_sfa_op", spike_threshold=1e2, spike_reset=-1e2,
+                        node_vars={"all/qif_sfa_op/eta": etas, "all/qif_sfa_op/alpha": 0.05,
+                                   "all/qif_sfa_op/k": 15.0},
+                        coupling_dtype=coupling)
+    net.compile()
+    if fused:
+        attach_fused_qif_step(net.get_node("qif"))
+    return net
+
+
+def spec_statistics(dev) -> dict:
+    """Phase 39 (d): Noise, Wiener and Poisson specs materialized on the card,
+    held to the bounds of tests/test_torch_inputs.py."""
+    from rectipy_tpu_torch.inputs import Noise, Poisson, Wiener
+
+    z = Noise(4000, channels=8, seed=2).materialize(1e-3, torch.float64, device=dev).cpu()
+    sigma, drift = 0.5, 0.2
+    w = Wiener(2000, channels=16, sigma=sigma, drift=drift, seed=11).materialize(
+        1e-3, torch.float64, device=dev).cpu().numpy()
+    paths = Wiener(1000, channels=2048, sigma=sigma, seed=3).materialize(
+        1e-3, torch.float64, device=dev).cpu().numpy()
+    rate, steps = 40.0, 4000
+    ev = Poisson(steps, channels=8, rate=rate, seed=2).materialize(
+        1e-3, torch.float64, device=dev).cpu().numpy() > 0
+    emp = ev.mean(axis=0) / 1e-3
+    stats = {"noise_mean": float(z.mean()), "noise_std": float(z.std()),
+             "wiener_std_over_expected": float(w.std() / (sigma / np.sqrt(1e-3))),
+             "wiener_mean": float(w.mean()),
+             "wiener_integral_var_over_sigma2T": float((paths.sum(axis=0) * 1e-3).var()
+                                                       / sigma**2),
+             "poisson_rate": [float(r) for r in emp], "poisson_rate_expected": rate}
+    ok = (abs(stats["noise_mean"]) < 0.05 and abs(stats["noise_std"] - 1.0) < 0.05
+          and abs(stats["wiener_std_over_expected"] - 1.0) < 0.05
+          and abs(stats["wiener_mean"] - drift) < 5 * w.std() / np.sqrt(w.size)
+          and abs(stats["wiener_integral_var_over_sigma2T"] - 1.0) < 0.15
+          and np.all(np.abs(emp - rate) < 5 * np.sqrt(rate / (steps * 1e-3))))
+    if not ok:
+        raise AssertionError(f"spec statistics on the card out of bounds: {stats}")
+    return stats
+
+
+def spikes_inputs_phase(dev, W_np, etas, timing: dict) -> dict:
+    """Phase 39: record_spikes and an on-device spec on phase 4's population
+    at N = 10,000 (bf16 W, the fused QIF step): (a) the spec-driven run
+    against the run fed its card materialize, bit for bit; (b) the reader
+    against the kernel's own reset over BY_HAND_STEPS steps stepped by hand;
+    (c) ms/step with and without record_spikes, spec and array, in turns;
+    (d) the noise specs' statistics on the card.  Returns the kernels-line
+    entry (phase 6's timing of the same single-row bf16 kernel, this path's
+    launches)."""
+    from rectipy_tpu_torch.inputs import Noise
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+
+    t0 = time.perf_counter()
+    net = spike_net(W_np, etas)
+    build_s = time.perf_counter() - t0
+    node = net.get_node("qif")
+    y0 = node.y.clone()
+    spec = spike_drive(STEPS, SPIKE_DRIVE) + Noise(STEPS, channels=N, scale=NOISE_SCALE,
+                                                   seed=39)
+    dense = spec.materialize(DT, device=dev)
+    kw = dict(record_output=False, record_vars=[("qif", "s", True)],
+              sampling_steps=SPIKE_WINDOW, verbose=False)
+
+    def run(inputs, spikes: bool):
+        net.reset({"qif": y0})
+        return net.run(inputs, record_spikes=["qif"] if spikes else None, **kw)
+
+    # (a) the spec against its materialized drive
+    qif_sfa_step.launches = 0
+    a = run(spec, True)
+    torch.cuda.synchronize()
+    launches = qif_sfa_step.launches
+    if launches != STEPS:
+        raise AssertionError(f"spikes_inputs_path: {launches} launches for {STEPS} steps")
+    y_end = node.y.clone()
+    b = run(dense, True)
+    counts = a.to_numpy(("qif", "spikes"))
+    same = {"spikes": bool(np.array_equal(counts, b.to_numpy(("qif", "spikes")))),
+            "mean_s": bool(np.array_equal(a.to_numpy(("qif", "s")), b.to_numpy(("qif", "s"))))}
+    if not all(same.values()) or counts.shape != (STEPS // SPIKE_WINDOW, N):
+        raise AssertionError(f"spikes_inputs_path: the spec run differs from the materialized "
+                             f"one {same}, counts {counts.shape}")
+    spiking = int((counts.sum(axis=0) > 0).sum())
+    if counts.dtype != np.int32 or spiking < N // 2:
+        raise AssertionError(f"spikes_inputs_path: {spiking} of {N} neurons spiked, or the "
+                             f"counts are not int32 ({counts.dtype})")
+
+    # (b) the reader's indicator on each pre-update state against v' ==
+    # v_reset of the kernel's step, every neuron, BY_HAND_STEPS steps from
+    # the run's final state
+    step, reader = node.make_step(), node._make_spike_reader()
+    drive = spec.shifted(STEPS).drive(DT, torch.float32, dev)
+    y, mismatched, total = y_end, torch.zeros((), device=dev), torch.zeros((), device=dev)
+    with torch.no_grad():
+        for t in range(BY_HAND_STEPS):
+            spikes = reader(y) > 0
+            y, _ = step(y, node.args, drive[t])
+            mismatched += (spikes != (y[:N] == -1e2)).sum()
+            total += spikes.sum()
+    mismatched, total = int(mismatched), int(total)
+    if mismatched or total < N // 10:
+        raise AssertionError(f"spikes_inputs_path: the reader differs from the kernel's reset "
+                             f"on {mismatched} neuron-steps ({total} spikes)")
+
+    # (c) ms/step in turns: array or spec, with or without the spike counts
+    variants = {"array": (dense, False), "array_spikes": (dense, True),
+                "spec_spikes": (spec, True), "spec": (spec, False)}
+    order = list(variants) + list(reversed(list(variants)))
+    secs = {k: [] for k in variants}
+    for k in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(*variants[k])
+        torch.cuda.synchronize()
+        secs[k].append(time.perf_counter() - t0)
+    ms = {k: min(v) / STEPS * 1e3 for k, v in secs.items()}
+    stats = spec_statistics(dev)
+    emit({"phase": "spikes_inputs_path", "n": N, "steps": STEPS, "coupling": "bfloat16",
+          "sampling_steps": SPIKE_WINDOW, "build_s": build_s, "kernel_launches": launches,
+          "spec": f"Pulse(1 channel, {SPIKE_DRIVE} from T/10 to the end) + Noise(N channels, "
+                  f"scale {NOISE_SCALE}, seed 39)",
+          "spec_equals_materialized": same, "total_spikes": int(counts.sum()),
+          "spiking_neurons": spiking,
+          "by_hand_steps": BY_HAND_STEPS, "by_hand_spikes": total,
+          "by_hand_mismatched_neuron_steps": mismatched, "run_s_in_turns": secs,
+          "ms_per_step": ms, "record_spikes_cost_ms_per_step": {
+              "array": ms["array_spikes"] - ms["array"], "spec": ms["spec_spikes"] - ms["spec"]},
+          "spec_cost_ms_per_step": {"spikes": ms["spec_spikes"] - ms["array_spikes"],
+                                    "no_spikes": ms["spec"] - ms["array"]},
+          "materialized_bytes": dense.numel() * dense.element_size(), "spec_statistics": stats,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    return {**timing, "name": "qif_sfa_step[spikes_inputs_path]", "launches": launches}
+
+
+def es_kernel_timing(dev, W) -> tuple:
+    """Phase 40: the B-row step at the ES path's shapes (ES_B trials, bf16 W
+    on the tensor cores) against its plain version (TOL["reset"]), its ms,
+    bound, plain ms and torch.matmul of the same rows."""
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step, rows_route
+
+    params = dict(dt=DT, tau=1.0, tau_s=1.0, tau_x=10.0, k=15.0, alpha=0.05, thresh=100.0,
+                  v_reset=-100.0)
+    v, s, x, eta, inp = rows_state(ES_B, N, "reset", np.random.default_rng(40), dev)
+    route = rows_route(W.dtype, N, s.stride(0), W.data_ptr(), s.data_ptr())
+    got = qif_sfa_step(v, s, x, W, eta, inp, **params)
+    ref = qif_sfa_reference_step(v, s, x, W, eta, inp, **params)
+    torch.testing.assert_close(got, torch.stack(ref, dim=-2), rtol=TOL["reset"][0],
+                               atol=TOL["reset"][1])
+    err = float((got - torch.stack(ref, dim=-2)).abs().max())
+    n_bytes = N * N * W.element_size() + ES_B * N * 4 * 5 + ES_B * N * 4 * 3
+    n_ops = 2 * ES_B * N * N + 20 * ES_B * N
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / peak_flops(W.dtype)
+    ms = cuda_ms(lambda: qif_sfa_step(v, s, x, W, eta, inp, **params), reps=200)
+    plain_ms = cuda_ms(lambda: qif_sfa_reference_step(v, s, x, W, eta, inp, **params), reps=20)
+    s_w = s.contiguous().to(W.dtype)
+    library_ms = cuda_ms(lambda: s_w @ W.T, reps=200)
+    entry = {"name": "qif_sfa_step.mma[es_path]", "route": "cuda", "source": KERNEL_SOURCE,
+             "replaces": TPU_KERNEL, "launches": None, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}
+    return entry, {"kernel_route": route, "B": ES_B, "bytes": n_bytes, "ops": n_ops,
+                   "library_ms_reason": "torch.matmul of the (B, N) s by W^T in bfloat16 "
+                                        "(the products alone)",
+                   "achieved_bytes_per_s": n_bytes / (ms * 1e-3)}
+
+
+def spike_drive(T: int, amp: float):
+    """Phases 39 and 40: ``amp`` into every neuron from step T // 10 to the
+    end (and on past it in a shifted run)."""
+    from rectipy_tpu_torch.inputs import Pulse
+
+    return Pulse(T, channels=1, t_on=T // 10, t_off=-1, amp=amp)
+
+
+def es_inputs(n: int, T: int):
+    from rectipy_tpu_torch.inputs import Pulse
+
+    return Pulse(T, channels=1, t_on=T // 4, t_off=3 * T // 4, amp=3.0)
+
+
+def es_phase(dev, W_np, etas) -> dict:
+    """Phase 40: fit_es of the per-neuron eta of phase 4's population (bf16
+    W, the fused step) at N = 10,000: ES_B candidates a generation, each
+    generation one run_batch of ES_T steps on the tensor cores, scored by
+    mse on the spike counts per window against the counts of a run at eta +
+    ES_SHIFT; every generation's launches and the final B=1 evaluation
+    counted; the last generation's mean loss must fall below the first's;
+    the search point's loss is reported beside the starting eta's; then
+    es_vs_cpu.  Returns the kernels-line entry."""
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+
+    net = spike_net(W_np, etas)
+    drive = spike_drive(ES_T, ES_DRIVE)
+
+    def spike_counts(eta):
+        rec = net.run_batch(drive, sampling_steps=SPIKE_WINDOW, record_output=False,
+                            record_spikes=["qif"], batch_vars={("qif", "eta"): eta[None]})
+        return rec[("qif", "spikes")][0].astype(np.float32)
+
+    targets = spike_counts(etas + ES_SHIFT)
+    start_loss = float(np.mean((spike_counts(etas) - targets) ** 2))  # fit_es's "mse"
+    calls = []
+    run_batch = net._run_batch
+
+    def counted(inputs, sampling_steps, cutoff, verbose, kwargs):
+        B = int(np.shape(next(iter(kwargs["batch_vars"].values())))[0])
+        qif_sfa_step.launches = qif_sfa_step.mma_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_batch(inputs, sampling_steps, cutoff, verbose, kwargs)
+        torch.cuda.synchronize()
+        calls.append({"B": B, "s": time.perf_counter() - t0,
+                      "launches": qif_sfa_step.launches,
+                      "mma_launches": qif_sfa_step.mma_launches})
+        return out
+
+    net._run_batch = counted
+    y_before = net.get_node("qif").y.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs = net.fit_es(drive, targets, fit_vars=[("qif", "eta")], n_generations=ES_GENERATIONS,
+                     pop_size=ES_B, sigma=ES_SIGMA, lr=ES_LR, loss="mse",
+                     record_spikes=["qif"], objective_key=("qif", "spikes"),
+                     sampling_steps=SPIKE_WINDOW, seed=40, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    del net._run_batch
+    want = [{"B": ES_B, "launches": ES_T, "mma_launches": ES_T}] * ES_GENERATIONS + [
+        {"B": 1, "launches": ES_T, "mma_launches": ES_T}]
+    got = [{k: c[k] for k in ("B", "launches", "mma_launches")} for c in calls]
+    if got != want:
+        raise AssertionError(f"es_path: run_batch calls {got}, expected {want}")
+    if not torch.equal(net.get_node("qif").y, y_before):
+        raise AssertionError("es_path: fit_es changed the network state")
+    eta_fit = net.get_node("qif")["eta"]
+    if not torch.equal(net.get_node("qif")._args["__eta_fused__"], eta_fit.float()):
+        raise AssertionError("es_path: the kernel's copy of eta was not refreshed")
+    mean_loss = [float(v) for v in obs["es_mean_loss"]]
+    if not (np.all(np.isfinite(mean_loss)) and np.isfinite(obs["es_final_loss"])):
+        raise AssertionError(f"es_path: non-finite losses {mean_loss}")
+    search_loss = float(obs["es_search_point_loss"])
+    # what the ES updates earned, not a best of 16: at a constant sigma the
+    # candidates' mean loss (ES's smoothed objective) falls only if eta moved
+    # the right way
+    if not mean_loss[-1] < mean_loss[0]:
+        raise AssertionError(f"es_path: the generations' mean loss did not fall: {mean_loss}")
+    gen_s = [c["s"] for c in calls[:-1]]
+    entry, extra = es_kernel_timing(dev, net.get_node("qif")._args["__w_fused__"])
+    entry["launches"] = sum(c["mma_launches"] for c in calls)
+    emit({"phase": "es_path", "n": N, "pop_size": ES_B, "steps": ES_T,
+          "generations": ES_GENERATIONS, "sigma": ES_SIGMA, "lr": ES_LR,
+          "teacher_eta_shift": ES_SHIFT, "objective": "mse of the spike counts per window "
+          f"({SPIKE_WINDOW} steps)", "target_spikes": int(targets.sum()),
+          "run_batch_calls": calls, "fit_s": fit_s, "ms_per_generation": float(
+              np.mean(gen_s) * 1e3), "ms_per_generation_each": [g * 1e3 for g in gen_s],
+          "final_evaluation_s": calls[-1]["s"],
+          "aggregate_candidate_neuron_updates_per_s": ES_B * ES_T * N / float(np.mean(gen_s)),
+          "es_mean_loss": mean_loss, "es_best_loss": [float(v) for v in obs["es_best_loss"]],
+          "es_final_loss": float(obs["es_final_loss"]), "es_returned": obs["es_returned"],
+          "mean_loss_fall": 1.0 - mean_loss[-1] / mean_loss[0],
+          "start_loss": start_loss, "es_search_point_loss": search_loss,
+          "search_point_gain": 1.0 - search_loss / start_loss,
+          "spiking_target_neurons": int((targets.sum(axis=0) > 0).sum()),
+          "eta_update_mean": float((eta_fit.cpu().double() - torch.as_tensor(etas)).mean()),
+          "eta_update_abs_max": float((eta_fit.cpu().double()
+                                       - torch.as_tensor(etas)).abs().max()),
+          "mma_launches": entry["launches"],
+          "kernel_timing": {k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                   "max_abs_err")}, **extra,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    es_vs_cpu()
+    return entry
+
+
+def es_vs_cpu() -> None:
+    """Phase 40, continued: the same fit at ES_CPU_N neurons, ES_CPU_T steps
+    and ES_CPU_GENERATIONS generations of ES_CPU_B candidates on the card and
+    on the CPU, the output objective (mse of s) with z-score shaping: the
+    loss traces within ES_LOSS_RTOL, the written-back eta updates within
+    ES_ETA_RTOL of the largest."""
+    from rectipy_tpu_torch import random_connectivity
+
+    n = ES_CPU_N
+    rng = np.random.default_rng(4)
+    W = random_connectivity(n, n, 0.1, normalize=True, rng=rng)
+    etas = ES_CPU_ETA + rng.normal(size=n) * 2e3
+    drive = es_inputs(n, ES_CPU_T).materialize(DT, device="cpu").numpy()
+    targets = spike_net(W, etas + ES_CPU_SHIFT, device="cpu").run(
+        drive, verbose=False).to_numpy("out")
+    res = {}
+    for device in (None, "cpu"):
+        net = spike_net(W, etas, device=device)
+        t0 = time.perf_counter()
+        obs = net.fit_es(drive, targets, fit_vars=[("qif", "eta")],
+                         n_generations=ES_CPU_GENERATIONS, pop_size=ES_CPU_B,
+                         sigma=ES_CPU_SIGMA, lr=ES_CPU_LR, rank_shaping=False, seed=41,
+                         verbose=False)
+        res[device or "card"] = (np.asarray(obs["es_mean_loss"]), obs["es_returned"],
+                                 net.get_node("qif")["eta"].cpu().double().numpy() - etas,
+                                 time.perf_counter() - t0)
+    (l_card, r_card, d_card, s_card), (l_cpu, r_cpu, d_cpu, s_cpu) = res["card"], res["cpu"]
+    loss_rel = float(np.max(np.abs(l_card - l_cpu) / np.abs(l_cpu)))
+    eta_rel = float(np.abs(d_card - d_cpu).max() / np.abs(d_cpu).max())
+    if loss_rel > ES_LOSS_RTOL or eta_rel > ES_ETA_RTOL or r_card != r_cpu:
+        raise AssertionError(f"es_vs_cpu: loss rel {loss_rel}, eta rel {eta_rel}, returned "
+                             f"{r_card} / {r_cpu}")
+    emit({"phase": "es_vs_cpu", "n": n, "steps": ES_CPU_T, "pop_size": ES_CPU_B,
+          "generations": ES_CPU_GENERATIONS, "losses_card": [float(x) for x in l_card],
+          "losses_cpu": [float(x) for x in l_cpu], "max_rel_loss_diff": loss_rel,
+          "loss_rtol": ES_LOSS_RTOL, "eta_update_rel_diff": eta_rel, "eta_rtol": ES_ETA_RTOL,
+          "es_returned": r_card, "card_s": s_card, "cpu_s": s_cpu})
+
+
+def multistart_phase(dev, data, trials, by_name: dict) -> list:
+    """Phase 41: fit_bptt_multistart of phase 27's ensemble (bench.py's
+    network, int8_master, adam lr 1e-4, phase 27's B_TRAIN trial arrays)
+    with MS_STARTS starts for MS_EPOCHS epochs, in turns with a
+    fit_bptt_batch epoch of one start: int8_mm and int8_mm_t launches of the
+    multistart fit, all on the tensor cores; ms per epoch (the starts' draws,
+    timed by a fit of 0 epochs, taken out) and peak memory; then
+    multistart_vs_cpu.  Returns the kernels-line
+    entries (phase 28's timings of the same (B_TRAIN, N) shapes, this
+    path's launches)."""
+    from rectipy_tpu_torch.ops.quant import int8_mm, int8_mm_t
+
+    W_np, etas = data[0], data[1]
+    ins_d, tgt_d = (torch.as_tensor(a, device=dev) for a in trials)
+    net = build_train_net(W_np, etas)
+    net.fit_bptt_batch(ins_d, tgt_d, n_epochs=1, optimizer="adam", lr=LR, verbose=False)  # warm
+    turns, launches = [], None
+    # multistart_setup: a fit of 0 epochs, the starts' draws alone (the JAX
+    # package's numpy draws of MS_STARTS - 1 perturbations of the 10^8 weights)
+    for kind, epochs in (("batch", 1), ("multistart", MS_EPOCHS), ("multistart_setup", 0),
+                         ("batch", 1)):
+        for k in (int8_mm, int8_mm_t):
+            k.launches = k.mma_launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if kind == "batch":
+            obs = net.fit_bptt_batch(ins_d, tgt_d, n_epochs=1, optimizer="adam", lr=LR,
+                                     verbose=False)
+        else:
+            obs = net.fit_bptt_multistart(ins_d, tgt_d, n_starts=MS_STARTS, n_epochs=epochs,
+                                          optimizer="adam", lr=LR, seed=41, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {"int8_mm": int8_mm.launches, "int8_mm_t": int8_mm_t.launches,
+                  "int8_mm_tensor_core": int8_mm.mma_launches,
+                  "int8_mm_t_tensor_core": int8_mm_t.mma_launches}
+        turns.append({"fit": kind, "epochs": epochs, "s": seconds, "launches": counts,
+                      "epoch_loss": [float(x) for x in obs["epoch_loss"]],
+                      "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+        if kind == "multistart":
+            launches, ms_obs = counts, obs
+    want = MS_STARTS * MS_EPOCHS * T_TRAIN
+    if set(launches.values()) != {want}:
+        raise AssertionError(f"multistart_path: launches {launches}, expected {want} of each, "
+                             f"all on the tensor cores")
+    final = np.asarray(ms_obs["start_final_loss"])
+    if not np.all(np.isfinite(final)) or net.last_fit["trajectory"] != "chain":
+        raise AssertionError(f"multistart_path: final losses {final}, {net.last_fit}")
+    batch_ms = np.mean([t["s"] for t in turns if t["fit"] == "batch"]) * 1e3
+    setup_s = turns[2]["s"]
+    ms_epoch = (turns[1]["s"] - setup_s) / MS_EPOCHS * 1e3  # the draws taken out
+    emit({"phase": "multistart_path", "n": N, "T": T_TRAIN, "B": B_TRAIN, "starts": MS_STARTS,
+          "epochs": MS_EPOCHS, "coupling": "int8_master", "optimizer": "adam", "lr": LR,
+          "turns": turns, "start_draws_s": setup_s, "fit_s": turns[1]["s"],
+          "ms_per_epoch": ms_epoch, "batch_epoch_ms_in_turns": batch_ms,
+          "ratio_to_batch_epoch": ms_epoch / batch_ms,
+          "peak_memory_bytes": turns[1]["max_memory_allocated_bytes"],
+          "peak_memory_over_batch_fit_bytes": turns[1]["max_memory_allocated_bytes"]
+          - max(t["max_memory_allocated_bytes"] for t in turns if t["fit"] == "batch"),
+          "start_final_loss": [float(x) for x in final],
+          "best_start": int(ms_obs["best_start"][0]), "launches_per_fit": launches,
+          "aggregate_trained_neuron_updates_per_s": MS_STARTS * B_TRAIN * T_TRAIN * N
+          / (ms_epoch * 1e-3)})
+    del ins_d, tgt_d, net
+    torch.cuda.empty_cache()
+    multistart_vs_cpu()
+    return [{**by_name[name], "name": f"{name}[multistart_path]", "launches": launches[name]}
+            for name in ("int8_mm", "int8_mm_t")]
+
+
+def multistart_vs_cpu() -> None:
+    """Phase 41, continued: fit_bptt_multistart of MS_CPU_STARTS starts at
+    MS_CPU_N neurons, CPU_B trials, CPU_T steps and CPU_EPOCHS epochs on the
+    card and on the CPU: per-start losses within MS_LOSS_RTOL and the same
+    best start, where the CPU's starts part by more than 100 times that."""
+    rng = np.random.default_rng(41)
+    n = MS_CPU_N
+    Wc = (rng.random((n, n)) < 0.1) * (MS_CPU_GAIN / (0.1 * n))
+    # the tan etas raised by MS_CPU_ETA, so that most neurons spike within
+    # CPU_T steps and the starts' losses part
+    etas_c = MS_CPU_ETA + np.tan((np.pi / 2) * (2.0 * np.arange(1, n + 1) - n - 1) / (n + 1))
+    ins_c, tgt_c = batch_train_data(n, CPU_B, CPU_T, 42)
+    res = {}
+    for device in (None, "cpu"):
+        net = build_train_net(Wc, etas_c, device=device)
+        t0 = time.perf_counter()
+        obs = net.fit_bptt_multistart(ins_c, tgt_c, n_starts=MS_CPU_STARTS, n_epochs=CPU_EPOCHS,
+                                      optimizer="adam", lr=LR, seed=43,
+                                      init_scale=MS_CPU_INIT_SCALE, verbose=False)
+        res[device or "card"] = (np.asarray(obs["start_epoch_loss"]),
+                                 int(obs["best_start"][0]), time.perf_counter() - t0)
+    (l_card, b_card, s_card), (l_cpu, b_cpu, s_cpu) = res["card"], res["cpu"]
+    loss_rel = float(np.max(np.abs(l_card - l_cpu) / np.abs(l_cpu)))
+    # the comparison's power: every two starts part by 100 tolerances on the CPU
+    final = np.sort(l_cpu[-1])
+    parting = float(np.min(np.diff(final)) / final[0])
+    if parting <= 100 * MS_LOSS_RTOL:
+        raise AssertionError(f"multistart_vs_cpu: the CPU's starts part by {parting} only")
+    if loss_rel > MS_LOSS_RTOL or b_card != b_cpu:
+        raise AssertionError(f"multistart_vs_cpu: loss rel {loss_rel}, best start "
+                             f"{b_card} / {b_cpu}")
+    emit({"phase": "multistart_vs_cpu", "n": n, "B": CPU_B, "T": CPU_T, "epochs": CPU_EPOCHS,
+          "starts": MS_CPU_STARTS, "start_epoch_loss_card": l_card.tolist(),
+          "start_epoch_loss_cpu": l_cpu.tolist(), "max_rel_loss_diff": loss_rel,
+          "loss_rtol": MS_LOSS_RTOL, "coupling_gain": MS_CPU_GAIN,
+          "init_scale": MS_CPU_INIT_SCALE,
+          "cpu_starts_min_rel_parting": parting, "best_start_card": b_card,
+          "best_start_cpu": b_cpu,
+          "card_s": s_card, "cpu_s": s_cpu})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4682,8 +5203,8 @@ def main() -> int:
     kernels += readout_phases(build_net, by_name["qif_sfa_step[bfloat16]"])
     kernels += tbptt_phase(dev, data + (data_s,), by_name)
     kernels += feedback_phase()
-    kernels += batch_phases(dev, W_np, data, train_nu, int4_nu)
-    del W_np
+    entries, trials = batch_phases(dev, W_np, data, train_nu, int4_nu)
+    kernels += entries
     torch.cuda.empty_cache()
     whole_brain_phase(dev)
     kernels += stp_feedback_phase(dev)
@@ -4696,6 +5217,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += graph_train_phase(dev)
     graph_train_check(dev)
+    torch.cuda.empty_cache()
+    by_name = {e["name"]: e for e in kernels}
+    kernels.append(spikes_inputs_phase(dev, W_np, etas, by_name["qif_sfa_step[bfloat16]"]))
+    kernels.append(es_phase(dev, W_np, etas))
+    kernels += multistart_phase(dev, data, trials, by_name)
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -16,7 +16,9 @@ The edge family (masks, per-source and per-connection delays, filters,
 short-term plasticity) is computed with PyTorch operations.  Block-sparse
 couplings (``BlockSparseCoupling``, ``block_random_connectivity``) reach
 population scale on nodes and on ``BlockSparseLinear`` edges with per-block
-delays; their int8 contraction is the ``block_int8_mv`` kernel.
+delays; their int8 contraction is the ``block_int8_mv`` kernel.  Input
+specs (``inputs.py``) make a run's drive on the device, and
+``fit_bptt_multistart`` and ``fit_es`` train through the batched runs.
 """
 
 __version__ = "0.1.0"
@@ -25,6 +27,7 @@ from .convert import load_jax_params
 from .dsl import CircuitTemplate, NodeTemplate, OperatorTemplate, clear_frontend_caches, lower
 from .edges import (RLS, BlockSparseLinear, Linear, LinearFilter, LinearMasked, LinearMemory,
                     LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
+from .inputs import Constant, InputSpec, Noise, Poisson, Pulse, Sine, Sum, Wiener
 from .network import FeedbackNetwork, Network
 from .nodes import InstantNode, MultiSpikeResetNet, RateNet, SpikeNet, SpikeResetNet
 from .observer import Observer
@@ -44,7 +47,9 @@ __all__ = [
     "BlockSparseCoupling",
     "BlockSparseLinear",
     "CircuitTemplate",
+    "Constant",
     "FeedbackNetwork",
+    "InputSpec",
     "InstantNode",
     "Linear",
     "LinearFilter",
@@ -56,12 +61,18 @@ __all__ = [
     "MultiSpikeResetNet",
     "Network",
     "NodeTemplate",
+    "Noise",
     "Observer",
     "OperatorTemplate",
+    "Poisson",
+    "Pulse",
     "RLS",
     "RateNet",
+    "Sine",
     "SpikeNet",
     "SpikeResetNet",
+    "Sum",
+    "Wiener",
     "attach_fused_qif_step",
     "attach_generic_fused_step",
     "block_random_connectivity",

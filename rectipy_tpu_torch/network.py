@@ -15,22 +15,27 @@ windowed recording semantics.  The trainers:
   autograd otherwise;
 - ``fit_ridge``: a closed-form ridge readout (Gram matrix and solve);
 - ``fit_rls``: online FORCE learning of an ``RLS`` edge;
-- ``test``: a frozen run scored by a loss.
+- ``test``: a frozen run scored by a loss;
+- ``fit_bptt_multistart``: ``fit_bptt_batch``'s update for ``M``
+  independently initialised starts, the best written back;
+- ``fit_es``: evolution strategies over node and edge parameters, each
+  generation one ``run_batch`` of the candidates.
 
 Batched trials: ``run_batch`` integrates ``B`` independent trials together
 (``(B, T, m)`` inputs, or a shared ``(T, m)`` drive with per-trial
 parameters, ``batch_vars``), and ``fit_bptt_batch`` trains on them in
 minibatches.  Every node and edge step takes states with a leading trial
 axis, so a step of ``B`` trials is one step whose products take ``(B, n)``
-rows.
+rows.  ``run`` and ``run_batch`` take input specs (``inputs.py``: drives
+made on the device a chunk of steps at a time) and ``record_spikes`` (spike
+counts per record window).
 
 On the device: the inputs move to the device once, the records and losses
 stay on the device, and nothing inside the loops synchronises with the host;
 they cross to the host once, at the end.
 
-Not ported yet (ROADMAP Queue 1 items 11-14): ``mesh=``,
-``fit_bptt_multistart`` and ``fit_es``, ``fit_stdp`` and ``fit_eprop``, the
-STDP edges, on-device input specs and spike rasters.
+Not ported yet (ROADMAP Queue 1 items 12 and 14): ``fit_stdp`` and
+``fit_eprop`` with the STDP edges, and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from networkx import DiGraph
 
 from .edges import (RLS, BlockSparseLinear, Linear, LinearFilter, LinearMasked, LinearMemory,
                     LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
+from .inputs import InputSpec
 from .nodes import InstantNode, RateNet, SpikeNet, SpikeResetNet, resolve_device, resolve_dtype
 from .observer import Observer
 from .train import get_loss_function, get_optimizer
@@ -96,6 +102,16 @@ def _unflatten(paths: list, leaves: list) -> dict:
     for (kind, label, key), leaf in zip(paths, leaves):
         tree[kind].setdefault(label, {})[key] = leaf
     return tree
+
+
+def _best_start(losses) -> int:
+    """Index of the lowest finite loss (0 when none is finite): a start that
+    diverged (NaN or inf) never wins, where ``np.argmin`` would pick a NaN."""
+    losses = np.asarray(losses, dtype=np.float64)
+    finite = np.isfinite(losses)
+    if not finite.any():
+        return 0
+    return int(np.argmin(np.where(finite, losses, np.inf)))
 
 
 def _detach(tree):
@@ -953,6 +969,21 @@ class Network:
             resolved.append(((node_label, var), node_label, reader, reduce))
         return resolved
 
+    def _resolve_record_spikes(self, labels) -> tuple:
+        """``record_spikes=[node, ...]`` as ``((label, reader), ...)``: the
+        spiking nodes' spike readers (``SpikeNet``, ``SpikeResetNet``,
+        ``MultiSpikeResetNet``); any other node raises ``ValueError``."""
+        info = []
+        for label in labels or ():
+            node = self.get_node(label)
+            if not hasattr(node, "_make_spike_reader"):
+                raise ValueError(
+                    f"record_spikes: node {label!r} ({type(node).__name__}) is not "
+                    "a spiking node; spike rasters exist for SpikeNet / "
+                    "SpikeResetNet / MultiSpikeResetNet populations.")
+            info.append((label, node._make_spike_reader()))
+        return tuple(info)
+
     def run(self, inputs, sampling_steps: int = 1, cutoff: int = 0, verbose: bool = True,
             enable_grad: bool = True, **kwargs) -> Observer:
         """Integrate the input-driven network equations.
@@ -964,7 +995,15 @@ class Network:
         window's last step (``reduce=True`` records the population mean);
         the steps after the last full window are integrated but not
         recorded.  ``inputs`` is a ``(T, m)`` array with ``m`` the input
-        width or 1 (broadcast).
+        width or 1 (broadcast), or an unbatched input spec
+        (``rectipy_tpu_torch.inputs``), evaluated on the network's device a
+        chunk of steps at a time.
+
+        ``record_spikes=[node, ...]`` records each spiking node's spike
+        counts per window, ``(node, "spikes")``: the spike decision of every
+        step with ``step >= cutoff``, read from the state before the step,
+        summed in float32 over the window's steps (step 0 is a window of its
+        own) and returned as int32.
 
         The loop runs without autograd (``enable_grad`` is accepted and
         ignored, as in the JAX package: gradients belong to the trainers).
@@ -974,20 +1013,23 @@ class Network:
         in the JAX package.
         """
         del enable_grad
-        for key, what, item in (("mesh", "run(mesh=)", "14"),
-                                ("record_spikes", "run(record_spikes=)", "11")):
-            if kwargs.pop(key, None) is not None:
-                raise _todo(what, item)
-        if isinstance(inputs, torch.Tensor):
-            inputs = inputs.to(device=self.device, dtype=self.dtype)
-        elif hasattr(inputs, "build"):
-            raise _todo("On-device input specs (rectipy_tpu.inputs)", "11")
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("run(mesh=)", "14")
+        spike_info = self._resolve_record_spikes(kwargs.pop("record_spikes", None))
+        if isinstance(inputs, InputSpec):
+            if inputs.batch is not None:
+                raise ValueError(
+                    "run() takes an unbatched input spec; a spec with per-trial "
+                    "parameters (e.g. Noise with (B,) seeds) goes to run_batch().")
+            xs = inputs.drive(self.dt, self.dtype, self.device)
+            steps, n_chan = int(inputs.steps), int(inputs.channels)
         else:
-            inputs = torch.as_tensor(np.asarray(inputs)).to(device=self.device, dtype=self.dtype)
-        if inputs.ndim != 2:
-            raise ValueError(f"`inputs` must be a (T, m) array; got shape {tuple(inputs.shape)}")
-        steps = int(inputs.shape[0])
-        n_chan = int(inputs.shape[1])
+            inputs = self._to_device(inputs)
+            if inputs.ndim != 2:
+                raise ValueError(
+                    f"`inputs` must be a (T, m) array; got shape {tuple(inputs.shape)}")
+            xs = inputs.unbind(0)
+            steps, n_chan = int(inputs.shape[0]), int(inputs.shape[1])
         truncate_steps = int(kwargs.pop("truncate_steps", steps))
         if truncate_steps < 1:
             raise ValueError(f"truncate_steps must be >= 1; got {truncate_steps}")
@@ -1008,17 +1050,18 @@ class Network:
             raise ValueError(f"sampling_steps must be >= 1; got {sampling_steps}")
         rec_info = self._resolve_record_vars(obs)
         with torch.no_grad():
-            state, rec0, recs = self._run_windowed(*self.step_args(), inputs.unbind(0), s,
-                                                   cutoff, rec_info, obs.record_output)
+            state, rec0, recs = self._run_windowed(*self.step_args(), xs, s, cutoff, rec_info,
+                                                   obs.record_output, spike_info=spike_info)
         self._write_back(state)
 
         rec_steps_all = [t for t in range(steps) if t % s == 0]
         outs, rec_vars = self._assemble_windowed_records(
-            rec0, recs, rec_info, obs.record_output, rec_steps_all, cutoff)
+            rec0, recs, rec_info, obs.record_output, rec_steps_all, cutoff,
+            spike_info=spike_info)
         rec_steps = np.asarray([t for t in rec_steps_all if t >= cutoff], dtype=np.int64)
-        obs.record_batch(rec_steps, outputs=outs,
+        obs.record_batch(rec_steps, outputs=None if outs is None else _host(outs),
                          losses=np.zeros(len(rec_steps)) if obs.record_loss else None,
-                         var_values=rec_vars)
+                         var_values={k: _host(v) for k, v in rec_vars.items()})
         if verbose:
             print(f"Progress: {steps}/{steps} integration steps finished.")
         return obs
@@ -1038,13 +1081,17 @@ class Network:
                 self._prep_params(self._with_sweeps(params, sweeps)))
 
     def _run_windowed(self, step, state, params, xs, s, cutoff, rec_info, record_output,
-                      batched: bool = False):
-        """The run loop of ``step`` over the per-step inputs ``xs``.  Returns
-        the final state, the step-0 record and the window records, all as
-        host numpy arrays (one transfer, at the end).  ``batched``: the
-        states carry a leading trial axis; a reduced record is each trial's
-        population mean and the window records stack along axis 1, ``(B, R,
-        ...)``."""
+                      batched: bool = False, spike_info: tuple = ()):
+        """The run loop of ``step`` over the per-step inputs ``xs`` (a
+        sequence: ``len(xs)`` steps, ``xs[t]`` step ``t``'s input).  Returns
+        the final state, the step-0 record and the window records, on the
+        device; nothing in the loop synchronises with the host.
+        ``batched``: the states carry a leading trial axis; a reduced record
+        is each trial's population mean and the window records stack along
+        axis 1, ``(B, R, ...)``.  ``spike_info`` (``_resolve_record_spikes``):
+        each node's spike indicators, read before each step, masked by
+        ``step >= cutoff`` and summed in float32 over the window (a bfloat16
+        sum stops counting at 256)."""
         steps = len(xs)
         n_win = (steps - 1) // s  # full windows after step 0
         axis = 1 if batched else 0
@@ -1058,16 +1105,26 @@ class Network:
                 vals["var::" + "::".join(key)] = val
             return vals
 
+        def read_spikes(state):
+            return [reader(state["nodes"][label]).to(torch.float32)
+                    for (label, reader) in spike_info]
+
         # step 0: its own record window
+        spk0 = read_spikes(state)
         state, out, _ = step(state, params, xs[0])
+        if 0 < cutoff:
+            spk0 = [torch.zeros_like(v) for v in spk0]
         out0 = (out if 0 >= cutoff else torch.zeros_like(out)) if record_output else None
         vars0 = read_vars(state)
 
-        win_outs, win_vars = [], []
+        win_outs, win_vars, win_spk = [], [], []
         t = 1
         for _ in range(n_win):
-            acc, cnt = None, 0
+            acc, cnt, spk = None, 0, None
             for _ in range(s):
+                if spike_info and t >= cutoff:
+                    ind = read_spikes(state)
+                    spk = ind if spk is None else [a + v for a, v in zip(spk, ind)]
                 state, out, _ = step(state, params, xs[t])
                 if record_output and t >= cutoff:
                     acc = out if acc is None else acc + out
@@ -1076,41 +1133,41 @@ class Network:
             if record_output:
                 win_outs.append(torch.zeros_like(out) if acc is None else acc / cnt)
             win_vars.append(read_vars(state))
+            win_spk.append([torch.zeros_like(v) for v in spk0] if spk is None else spk)
         while t < steps:  # tail: integrated, not recorded
             state, _, _ = step(state, params, xs[t])
             t += 1
 
-        def host(x):
-            return x.detach().cpu().numpy()
-
-        rec0 = (host(out0) if record_output else None, {k: host(v) for k, v in vars0.items()})
+        rec0 = (out0, vars0, spk0)
         recs = None
         if n_win:
-            recs = (host(torch.stack(win_outs, dim=axis)) if record_output else None,
-                    {k: host(torch.stack([w[k] for w in win_vars], dim=axis)) for k in vars0})
+            recs = (torch.stack(win_outs, dim=axis) if record_output else None,
+                    {k: torch.stack([w[k] for w in win_vars], dim=axis) for k in vars0},
+                    [torch.stack([w[i] for w in win_spk], dim=axis)
+                     for i in range(len(spike_info))])
         return state, rec0, recs
 
     @staticmethod
     def _assemble_windowed_records(rec0, recs, rec_info, record_output, rec_steps_all,
-                                   cutoff, axis: int = 0):
-        """Host-side record assembly: step 0 + window ends, filtered by
-        cutoff, along record axis ``axis`` (0 single-trial, 1 batched; the
-        JAX package's ``_assemble_windowed_records``)."""
-        keep = np.asarray([t >= cutoff for t in rec_steps_all])
-        if record_output:
-            parts = [np.expand_dims(np.asarray(rec0[0]), axis)]
-            if recs is not None:
-                parts.append(np.asarray(recs[0]))
-            outs = np.compress(keep, np.concatenate(parts, axis=axis), axis=axis)
-        else:
-            outs = None
+                                   cutoff, axis: int = 0, spike_info: tuple = ()):
+        """Record assembly on the device: step 0 + window ends, those at
+        ``step >= cutoff``, along record axis ``axis`` (0 single-trial, 1
+        batched; the JAX package's ``_assemble_windowed_records``).  Spike
+        counts come out as int32 under ``(label, "spikes")``."""
+        first = sum(t < cutoff for t in rec_steps_all)  # the kept records are a suffix
+
+        def series(r0, rs):
+            parts = [r0.unsqueeze(axis)] + ([rs] if rs is not None else [])
+            return torch.cat(parts, dim=axis).narrow(axis, first, len(rec_steps_all) - first)
+
+        outs = series(rec0[0], recs[0] if recs else None) if record_output else None
         rec_vars = {}
         for (key, _, _, _) in rec_info:
             k = "var::" + "::".join(key)
-            parts = [np.expand_dims(np.asarray(rec0[1][k]), axis)]
-            if recs is not None:
-                parts.append(np.asarray(recs[1][k]))
-            rec_vars[key] = np.compress(keep, np.concatenate(parts, axis=axis), axis=axis)
+            rec_vars[key] = series(rec0[1][k], recs[1][k] if recs else None)
+        for i, (label, _) in enumerate(spike_info):
+            counts = series(rec0[2][i], recs[2][i] if recs else None)
+            rec_vars[(label, "spikes")] = torch.round(counts).to(torch.int32)
         return outs, rec_vars
 
     # ------------------------------------------------------- batched trials
@@ -1126,8 +1183,12 @@ class Network:
             _, src, tgt, param = k
             edge = self.get_edge(src, tgt)  # raises with names if absent
             if param not in edge.params:
+                extra = ("" if param != "delays" else
+                         " -- integer-delay edges hold their delays as static gather "
+                         "structure; build the edge with mode='interp' to expose a "
+                         "sweepable/evolvable float delay matrix")
                 raise KeyError(f"{name}: {param!r} is not a parameter of edge {src!r} -> "
-                               f"{tgt!r} (available: {sorted(edge.params)}).")
+                               f"{tgt!r} (available: {sorted(edge.params)}){extra}.")
             return ("edges", _ekey(src, tgt), param)
         if len(k) == 3 and k[0] in ("nodes", "edges"):
             sec, label, key = k
@@ -1209,9 +1270,13 @@ class Network:
         ``FeedbackNetwork``'s carried outputs) is left unchanged.
 
         ``inputs``: ``(B, T, m)``, or a shared ``(T, m)`` drive with
-        ``batch_vars`` (staged once; no ``(B, T, m)`` copy).  Returns
-        ``{"steps": (R,), "out": (B, R, n_out), (node, var): (B, R, ...)}``
-        with the recording semantics of :meth:`run`.
+        ``batch_vars`` (staged once; no ``(B, T, m)`` copy), or an input spec
+        (``rectipy_tpu_torch.inputs``): one with per-trial seeds (``(B,)``,
+        each trial its own stream), or an unbatched one shared by the trials
+        of ``batch_vars``.  Returns ``{"steps": (R,), "out": (B, R, n_out),
+        (node, var): (B, R, ...)}`` with the recording semantics of
+        :meth:`run`, ``record_spikes`` included (``(node, "spikes")``: ``(B,
+        R, n)`` int32 counts).
 
         ``batch_vars``: ``{key: values}`` sweeps parameters across the
         trials; ``values`` is ``(B,)`` (one scalar per trial) or ``(B, n)``
@@ -1230,29 +1295,46 @@ class Network:
         (``int8``, ``int8_master``, ``int4``, ``int4_master``) launches its
         matvec (``int8_mv``, ``int4_mv``) once per trial per step.
 
-        Not ported yet: on-device input specs and ``record_spikes`` (ROADMAP
-        Queue 1 item 11) and ``mesh=`` (item 14).  A fused node refuses a
-        sweep of a parameter its kernel bakes in or shares (the JAX
-        package's fused QIF kernel ignores a swept eta, which the port
+        Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 14).  A fused node
+        refuses a sweep of a parameter its kernel bakes in or shares (the
+        JAX package's fused QIF kernel ignores a swept eta, which the port
         applies).
         """
-        for key, what, item in (("mesh", "run_batch(mesh=)", "14"),
-                                ("record_spikes", "run_batch(record_spikes=)", "11")):
-            if kwargs.pop(key, None) is not None:
-                raise _todo(what, item)
+        results = self._run_batch(inputs, sampling_steps, cutoff, verbose, kwargs)
+        return {k: v if k == "steps" else _host(v) for k, v in results.items()}
+
+    def _run_batch(self, inputs, sampling_steps: int, cutoff: int, verbose: bool,
+                   kwargs: dict) -> dict:
+        """:meth:`run_batch` with its records left on the device."""
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("run_batch(mesh=)", "14")
         batch_vars = kwargs.pop("batch_vars", None)
-        if hasattr(inputs, "build"):
-            raise _todo("On-device input specs (rectipy_tpu.inputs)", "11")
-        inputs = self._to_device(inputs)
-        if inputs.ndim == 2 and batch_vars:
-            B, T = int(np.shape(next(iter(batch_vars.values())))[0]), int(inputs.shape[0])
-        elif inputs.ndim != 3:
-            raise ValueError(f"run_batch expects (B, T, m) inputs -- or shared (T, m) inputs "
-                             f"with batch_vars -- got {tuple(inputs.shape)}")
+        spike_info = self._resolve_record_spikes(kwargs.pop("record_spikes", None))
+        if isinstance(inputs, InputSpec):
+            T, B = int(inputs.steps), inputs.batch
+            if B is None:
+                if not batch_vars:
+                    raise ValueError(
+                        "run_batch with an unbatched input spec needs batch_vars "
+                        "(or make the spec per-trial, e.g. Noise with (B,) seeds).")
+                B = int(np.shape(next(iter(batch_vars.values())))[0])
+                xs = inputs.drive(self.dt, self.dtype, self.device, rows=B)
+            else:
+                xs = inputs.drive(self.dt, self.dtype, self.device)
+            n_chan = int(inputs.channels)
         else:
-            B, T = int(inputs.shape[0]), int(inputs.shape[1])
+            inputs = self._to_device(inputs)
+            if inputs.ndim == 2 and batch_vars:
+                B, T = int(np.shape(next(iter(batch_vars.values())))[0]), int(inputs.shape[0])
+            elif inputs.ndim != 3:
+                raise ValueError(f"run_batch expects (B, T, m) inputs -- or shared (T, m) "
+                                 f"inputs with batch_vars -- got {tuple(inputs.shape)}")
+            else:
+                B, T = int(inputs.shape[0]), int(inputs.shape[1])
+            n_chan = int(inputs.shape[-1])
+            xs = ([x.expand(B, n_chan) for x in inputs.unbind(0)] if inputs.ndim == 2
+                  else inputs.unbind(1))
         self.compile()
-        n_chan = int(inputs.shape[-1])
         if self.n_in and n_chan not in (1, self.n_in):
             raise ValueError(f"`inputs` has {n_chan} channels but the network input node "
                              f"{self._in_node!r} expects {self.n_in} (or 1, broadcast).")
@@ -1266,12 +1348,12 @@ class Network:
                                        dtype=np.int64)}
         with torch.no_grad():
             args = self.step_args(B, batch_vars)
-            xs = ([x.expand(B, n_chan) for x in inputs.unbind(0)] if inputs.ndim == 2
-                  else inputs.unbind(1))
             _, rec0, recs = self._run_windowed(*args, xs, s, cutoff, rec_info,
-                                               obs.record_output, batched=True)
+                                               obs.record_output, batched=True,
+                                               spike_info=spike_info)
         outs, rec_vars = self._assemble_windowed_records(
-            rec0, recs, rec_info, obs.record_output, rec_steps_all, cutoff, axis=1)
+            rec0, recs, rec_info, obs.record_output, rec_steps_all, cutoff, axis=1,
+            spike_info=spike_info)
         if outs is not None:
             results["out"] = outs
         results.update(rec_vars)
@@ -1510,33 +1592,17 @@ class Network:
         opt_state = opt.init(train)
         batch_loss, pack, self.last_fit = self._build_batch_programs(
             loss_fn, sampling_steps, setup.fused_bptt, setup.rk, setup.remat_steps)
-        state0 = self.init_state()
-        xs_all, tgt_all, mb, accum = setup.inputs, setup.targets, setup.mb, setup.accum
-        y0 = pack(state0, mb // accum)
+        y0 = pack(self.init_state(), setup.mb // setup.accum)
 
         t0 = perf_counter()
         losses = []
         perms = torch.as_tensor(setup.perms, device=self.device)
         for epoch in range(setup.epochs):
-            perm = perms[epoch]
             for u in range(setup.n_mb):
-                ids = perm[u * mb:(u + 1) * mb]
-                lsum, gsum = None, None
-                for a in range(accum):  # equal micro-batches: the mean of their means
-                    sub = ids[a * (mb // accum):(a + 1) * (mb // accum)]
-                    full = sub.shape[0] == setup.B and not setup.shuffled
-                    xs = xs_all if full else xs_all.index_select(1, sub)
-                    tgt = tgt_all if full else tgt_all.index_select(0, sub)
-                    fz = self._with_sweeps(frozen, {p: (v if full else v.index_select(0, sub))
-                                                    for p, v in sweeps.items()})
-                    lval, grads = _value_and_grad(batch_loss, train, fz, y0, xs, tgt)
-                    lsum = lval if lsum is None else lsum + lval
-                    gsum = grads if gsum is None else tree_map(torch.add, gsum, grads)
-                if accum > 1:
-                    lsum, gsum = lsum / accum, tree_map(lambda g: g / accum, gsum)
-                train, opt_state = opt.update(gsum, opt_state, train)
-                train = tree_map(lambda t: t.detach(), train)
-                losses.append(lsum)  # stays on the device until the end
+                micro = self._micro_batches(setup, frozen, sweeps, perms[epoch], u)
+                train, opt_state, lval = _minibatch_update(batch_loss, opt, train, opt_state,
+                                                           y0, micro)
+                losses.append(lval)  # stays on the device until the end
             if verbose:
                 ep = torch.stack(losses[-setup.n_mb:]).mean()
                 print(f"Progress: {epoch + 1}/{setup.epochs} training epochs finished.")
@@ -1552,13 +1618,403 @@ class Network:
             print(f"Finished optimization after {perf_counter() - t0} s.")
         return obs
 
+    def fit_bptt_multistart(self, inputs, targets, n_starts: int = 8, start_inits: dict = None,
+                            init_scale: float = 0.1, n_epochs: int = 1, batch_size: int = None,
+                            optimizer: str = "adam", optimizer_kwargs: dict = None,
+                            loss: str = "mse", loss_kwargs: dict = None, lr: float = 1e-3,
+                            sampling_steps: int = 1, shuffle: bool = True, seed: int = 0,
+                            verbose: bool = True, **kwargs) -> Observer:
+        """Multi-start BPTT: train ``n_starts`` independently initialised
+        copies of the network's trained parameters on the same trials, then
+        keep the best (the JAX package's ``fit_bptt_multistart``).
+
+        ``inputs``/``targets``/``batch_size``/``shuffle``/``accum_steps``/
+        ``batch_vars`` as in :meth:`fit_bptt_batch`; the per-trial frozen
+        values are shared by every start.  ``start_inits`` maps ``(node,
+        param)`` (or an exact trainable path ``(kind, label, key)``) to an
+        ``(n_starts, ...)`` array of initial values; a trainable leaf not
+        listed starts at its current value for start 0 and at ``leaf +
+        init_scale * std(leaf) * eps`` for the others, ``eps`` the standard
+        normal draws of ``numpy.random.default_rng(seed + 1)`` (the JAX
+        package's draws, in its order of the leaves).
+
+        Every start has its own trained parameters and optimizer state.  The
+        loop runs epoch, then minibatch, then start: each start takes
+        exactly the update of :meth:`fit_bptt_batch` on the minibatch, so an
+        ``int8_master`` coupling launches ``int8_mm``/``int8_mm_t`` once per
+        start per step on the card.  ``verbose`` reads the starts' epoch
+        losses once per epoch; otherwise nothing crosses to the host before
+        the end.
+
+        Returns an Observer with ``epoch_loss`` (the best start's),
+        ``start_epoch_loss`` (``(epochs, n_starts)``), ``start_final_loss``,
+        ``best_start`` and ``epochs``.  The best start with a finite final
+        loss is written back.  Not ported yet: ``mesh=`` (ROADMAP Queue 1
+        item 14).  A node with the generic fused step raises, as in
+        :meth:`fit_bptt_batch`.
+        """
+        self.compile()
+        loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
+        opt = get_optimizer(optimizer, lr, optimizer_kwargs=optimizer_kwargs)
+        obs = Observer(dt=self.dt, **retrieve_from_dict(["record_loss"], kwargs))
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("fit_bptt_multistart(mesh=)", "14")
+        paths = self.trainable_paths()
+        if not paths:
+            raise ValueError("No trainable parameters in the network; pass `train_params` "
+                             "to add_diffeq_node or train='gd' to add_edge.")
+        M = int(n_starts)
+        if M < 1:
+            raise ValueError(f"n_starts={M} must be >= 1")
+        self._refuse_generic_fused()
+        batch_vars = kwargs.pop("batch_vars", None)
+        setup = self._batch_fit_setup("fit_bptt_multistart", inputs, targets, batch_size, loss,
+                                      shuffle, seed, n_epochs, kwargs)
+        params = self.parameters_pytree()
+        sweeps = self._resolve_batch_vars("fit_bptt_multistart", batch_vars, setup.B, params)
+        train, frozen = self._partition(params, paths)
+        starts = self._start_trees(train, paths, M, start_inits, init_scale, seed)
+        opt_states = [opt.init(t) for t in starts]
+        batch_loss, pack, self.last_fit = self._build_batch_programs(
+            loss_fn, sampling_steps, setup.fused_bptt, setup.rk, setup.remat_steps)
+        y0 = pack(self.init_state(), setup.mb // setup.accum)
+
+        t0 = perf_counter()
+        E, n_mb = setup.epochs, setup.n_mb
+        losses = [[] for _ in range(M)]
+        perms = torch.as_tensor(setup.perms, device=self.device)
+        for epoch in range(E):
+            for u in range(n_mb):
+                micro = self._micro_batches(setup, frozen, sweeps, perms[epoch], u)
+                for m in range(M):  # independent starts: any order gives the same numbers
+                    starts[m], opt_states[m], lval = _minibatch_update(
+                        batch_loss, opt, starts[m], opt_states[m], y0, micro)
+                    losses[m].append(lval)  # stays on the device until the end
+            if verbose:
+                ep = _host(torch.stack([torch.stack(lm[-n_mb:]).mean() for lm in losses]))
+                b = _best_start(ep)
+                print(f"Progress: {epoch + 1}/{E} training epochs finished.")
+                print(f"Best-start epoch loss: {float(ep[b])} (start {b}).")
+                print("")
+        host = (_host(torch.stack([torch.stack(lm) for lm in losses])) if E
+                else np.zeros((M, 0)))
+        per_epoch = host.reshape(M, E, n_mb).mean(axis=2).T  # (E, M)
+        final = per_epoch[-1] if E else np.zeros(M)
+        best = _best_start(final) if E else 0
+        obs.save("epoch_loss", list(per_epoch[:, best]))
+        obs.save("start_epoch_loss", [per_epoch[ep] for ep in range(E)])
+        obs.save("start_final_loss", list(final))
+        obs.save("best_start", [best])
+        obs.save("epochs", np.arange(E))
+        self._write_back(params=self._combine(starts[best], frozen))
+        if verbose:
+            print(f"Finished optimization after {perf_counter() - t0} s (best start: {best}).")
+        return obs
+
+    def _start_trees(self, train: dict, paths: list, M: int, start_inits, init_scale: float,
+                     seed: int) -> list:
+        """The ``M`` starts' trained trees of :meth:`fit_bptt_multistart`:
+        ``start_inits`` resolved to trainable paths, the other leaves
+        perturbed as the JAX package perturbs them (one numpy stream over
+        the leaves in the train tree's order; float32 ``eps``, scaled by
+        ``float32(init_scale * std)``, added in the leaf's dtype)."""
+        inits = {}
+        for k, vals in (start_inits or {}).items():
+            if len(k) == 3 and k[0] in ("nodes", "edges"):
+                path = tuple(k)
+            else:
+                nlabel, var = k
+                node = self.get_node(nlabel)
+                try:
+                    path = ("nodes", nlabel, node._param_map[self._relabel_var(var)])
+                except (AttributeError, KeyError):
+                    raise KeyError(f"start_inits: {var!r} is not a parameter of node "
+                                   f"{nlabel!r}.")
+            if path not in paths:
+                raise KeyError(f"start_inits: {path} is not a trainable path "
+                               f"(trainable: {paths}).")
+            inits[path] = vals
+        rng = np.random.default_rng(seed + 1)
+        leaves = {}
+        for kind, by_label in train.items():
+            for label, sub in by_label.items():
+                for key, leaf in sub.items():
+                    leaf, path = leaf.detach(), (kind, label, key)
+                    shape = tuple(leaf.shape)
+                    given = inits.get(path)
+                    if given is not None:
+                        given = (given if isinstance(given, torch.Tensor)
+                                 else torch.as_tensor(np.asarray(given)))
+                        given = given.to(device=leaf.device, dtype=leaf.dtype)
+                        if tuple(given.shape) != (M,) + shape:
+                            raise ValueError(f"start_inits[{path}]: expected shape "
+                                             f"{(M,) + shape}, got {tuple(given.shape)}")
+                        leaves[path] = list(given.unbind(0))
+                        continue
+                    std = float(np.std(leaf.to(torch.float64).cpu().numpy())) or 1.0
+                    eps = np.empty((M,) + shape, dtype=np.float32)
+                    eps[0] = 0.0  # start 0 is the current network
+                    for m in range(1, M):
+                        eps[m] = rng.standard_normal(shape)
+                    eps *= np.float32(init_scale * std)
+                    leaves[path] = [leaf + torch.as_tensor(e).to(device=leaf.device,
+                                                                 dtype=leaf.dtype) for e in eps]
+        return [_unflatten(list(leaves), [v[m] for v in leaves.values()]) for m in range(M)]
+
+    def fit_es(self, inputs, targets, fit_vars, n_generations: int = 50, pop_size: int = 16,
+               sigma: float = 0.1, lr: float = 0.05, loss="mse", loss_kwargs: dict = None,
+               sampling_steps: int = 1, cutoff: int = 0, antithetic: bool = True,
+               rank_shaping: bool = True, sigma_decay: float = 1.0, bounds: dict = None,
+               record_spikes=None, objective_key="out", seed: int = 0, verbose: bool = True,
+               **kwargs) -> Observer:
+        """Gradient-free parameter fitting by evolution strategies (the JAX
+        package's ``fit_es``: OpenAI-ES / NES).
+
+        Each generation simulates the candidates ``theta + sigma * eps_b``
+        (``pop_size`` of them, in antithetic +/- pairs when ``antithetic``;
+        ``eps`` from ``numpy.random.default_rng(seed)``, clipped to
+        ``bounds``) as one :meth:`run_batch` from the network's current state,
+        scores each on the recorded ``objective_key`` series (``"out"``, or
+        ``(node, "spikes")`` with ``record_spikes=[node]``), and moves
+        ``theta`` by ``lr / (pop_size * sigma) * sum_b u_b eps_b``, ``u`` the
+        centred ranks of the negated losses (``rank_shaping``) or their
+        z-scores.  ``sigma`` is multiplied by ``sigma_decay`` each
+        generation; a generation without a finite loss is skipped.
+
+        ``fit_vars``: ``(node, var)`` node parameters (scalar or per-neuron)
+        and ``("edge", source, target, param)`` edge parameters (a coupling,
+        the float delay matrix of a ``mode='interp'`` edge, a mask), the keys
+        :meth:`run_batch` sweeps.  ``inputs``: a shared ``(T, m)`` array
+        (staged once) or an unbatched input spec.  ``loss``: a registry name,
+        whose candidates are scored on the device with one transfer of the
+        losses a generation, or a callable ``(out_b, targets) -> scalar`` on
+        host numpy arrays.
+
+        Returns an Observer with per-generation ``es_mean_loss``,
+        ``es_best_loss`` and ``es_sigma``, ``es_best_ever_loss``,
+        ``es_best_candidate``, ``es_search_point_loss`` (one more ``B=1``
+        run of the final search point) and ``es_final_loss``, the score of
+        what is written back: the better of the search point and the best
+        candidate (``es_returned``).  The write-back refreshes a fused
+        kernel's copies; the network state is left unchanged.  On a fused QIF
+        node a swept ``eta`` reaches the kernel (the JAX package's fused
+        kernel ignores it and scores identical candidates).  Not ported yet:
+        ``mesh=`` (ROADMAP Queue 1 item 14).
+        """
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("fit_es(mesh=)", "14")
+        if kwargs:
+            raise TypeError(f"fit_es() got unexpected keyword arguments {sorted(kwargs)}")
+        B = int(pop_size)
+        if B < 2:
+            raise ValueError("fit_es needs pop_size >= 2.")
+        if antithetic and B % 2:
+            raise ValueError("antithetic sampling needs an even pop_size.")
+        if not fit_vars:
+            raise ValueError("fit_vars must name at least one (node, var) parameter to evolve.")
+        fit_vars = [tuple(v) for v in fit_vars]
+        paths = {key: self._sweep_path("fit_es", key) for key in fit_vars}  # fail early
+        if isinstance(objective_key, (list, tuple)):
+            objective_key = tuple(objective_key)
+        if callable(loss):
+            loss_fn = (loss if not loss_kwargs
+                       else (lambda p, t, f=loss: f(p, t, **loss_kwargs)))
+        else:
+            loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
+        self.compile()
+        targets = np.asarray(targets)
+        es_losses = self._es_losses(loss_fn, not callable(loss), targets)
+        rng = np.random.default_rng(seed)
+        theta = {key: self._fit_var(paths[key]).to(torch.float64).cpu().numpy()
+                 for key in fit_vars}
+        bounds = {tuple(k): (float(lo), float(hi)) for k, (lo, hi) in (bounds or {}).items()}
+        for key in bounds:
+            if key not in theta:
+                raise ValueError(f"bounds key {key} is not in fit_vars.")
+
+        def clip(key, val):
+            if key in bounds:
+                lo, hi = bounds[key]
+                return np.clip(val, lo, hi)
+            return val
+
+        theta = {k: clip(k, v) for k, v in theta.items()}
+        if isinstance(inputs, InputSpec):
+            if inputs.batch is not None:
+                raise ValueError(
+                    "fit_es needs an UNBATCHED input spec shared across candidates "
+                    "(per-trial streams would randomize the objective per candidate and "
+                    "break the final B=1 evaluation).")
+        else:
+            if np.ndim(inputs) != 2:
+                raise ValueError(f"fit_es expects shared (T, m) inputs; got {np.shape(inputs)}")
+            inputs = self._to_device(inputs)  # staged once for every generation
+
+        def run(cands: dict) -> torch.Tensor:
+            results = self._run_batch(inputs, sampling_steps, cutoff, False, dict(
+                batch_vars=cands, record_spikes=record_spikes,
+                record_output=objective_key == "out"))
+            if objective_key not in results:
+                raise KeyError(
+                    f"objective_key {objective_key!r} is not a recorded series (available: "
+                    f"{sorted(repr(k) for k in results if k != 'steps')}); spike objectives "
+                    "need record_spikes=[node] and objective_key=(node, 'spikes').")
+            return results[objective_key]
+
+        obs = Observer(dt=self.dt, record_output=False, record_loss=False)
+        t0 = perf_counter()
+        half = B // 2
+        best_ever = (np.inf, None)
+        mean_hist, best_hist, sigma_hist = [], [], []
+        sig = float(sigma)
+        for gen in range(int(n_generations)):
+            eps, cands = {}, {}
+            for key, val in theta.items():
+                if antithetic:
+                    e = rng.standard_normal((half,) + val.shape)
+                    e = np.concatenate([e, -e], axis=0)
+                else:
+                    e = rng.standard_normal((B,) + val.shape)
+                eps[key] = e
+                cands[key] = clip(key, val[None] + sig * e)
+            out = run(cands)  # (B, R, ...) on the device
+            if gen == 0 and targets.shape not in ((out.shape[1],), tuple(out.shape[1:])):
+                try:
+                    np.broadcast_shapes(targets.shape, tuple(out.shape[1:]))
+                except ValueError:
+                    raise ValueError(
+                        f"targets of shape {targets.shape} do not broadcast against the "
+                        f"recorded output {tuple(out.shape[1:])} (records x n_out).")
+            losses = es_losses(out)
+            finite = np.isfinite(losses)
+            if not finite.any():
+                # a whole diverged generation: skip the update; the best
+                # candidate so far survives
+                mean_hist.append(float("nan"))
+                best_hist.append(float("nan"))
+                sigma_hist.append(sig)
+                sig *= float(sigma_decay)
+                if verbose:
+                    print(f"ES generation {gen}: all {B} candidates non-finite; update skipped")
+                continue
+            gen_best = int(np.argmin(np.where(finite, losses, np.inf)))
+            if losses[gen_best] < best_ever[0]:
+                best_ever = (float(losses[gen_best]),
+                             {k: np.array(c[gen_best]) for k, c in cands.items()})
+            scores = np.where(finite, -losses, -np.inf)
+            if rank_shaping:
+                order = np.argsort(np.argsort(scores))  # rank 0 = worst
+                u = order / (B - 1) - 0.5
+            else:
+                s_f = scores[finite]
+                std = s_f.std() + 1e-12
+                u = np.where(finite, (scores - s_f.mean()) / std, 0.0)
+                u = np.where(np.isfinite(u), u, 0.0)
+            for key in theta:
+                g = np.tensordot(u, eps[key], axes=(0, 0)) / (B * sig)
+                theta[key] = clip(key, theta[key] + lr * g)
+            mean_hist.append(float(np.nanmean(np.where(finite, losses, np.nan))))
+            best_hist.append(float(losses[gen_best]))
+            sigma_hist.append(sig)
+            sig *= float(sigma_decay)
+            if verbose and (gen % max(1, n_generations // 10) == 0
+                            or gen == n_generations - 1):
+                print(f"ES generation {gen}: best {best_hist[-1]:.6g}, "
+                      f"mean {mean_hist[-1]:.6g}, sigma {sig:.4g}")
+
+        # the final search point's own score: one more run of one trial (the
+        # network state stays untouched, so no plain run())
+        search_loss = float(es_losses(run({k: np.asarray(v)[None]
+                                           for k, v in theta.items()}))[0])
+        if best_ever[1] is not None and best_ever[0] < search_loss:
+            fitted, final_loss, returned = best_ever[1], best_ever[0], "best_candidate"
+        else:
+            fitted, final_loss, returned = theta, search_loss, "search_point"
+        for key, val in fitted.items():
+            self._set_fit_var(paths[key], val)
+        obs.save("es_returned", returned)
+        obs.save("es_search_point_loss", search_loss)
+        obs.save("generations", np.arange(len(mean_hist)))
+        obs.save("es_mean_loss", np.asarray(mean_hist))
+        obs.save("es_best_loss", np.asarray(best_hist))
+        obs.save("es_sigma", np.asarray(sigma_hist))
+        obs.save("es_best_ever_loss", best_ever[0])
+        obs.save("es_best_candidate", best_ever[1])
+        obs.save("es_final_loss", final_loss)
+        if verbose:
+            print(f"Finished evolution-strategies optimization after {perf_counter() - t0} s.")
+        return obs
+
+    def _es_losses(self, loss_fn, registry_loss: bool, targets: np.ndarray) -> Callable:
+        """``losses(out)``: the per-candidate losses of :meth:`fit_es`'s
+        ``(B, R, ...)`` device records as float64 numpy.  A registry loss
+        scores every candidate on the device (integer spike counts and the
+        targets promoted to a common float type) and crosses to the host once;
+        a callable runs on host numpy, candidate by candidate."""
+        if not registry_loss:
+            def losses(out):
+                out = _host(out)
+                return np.asarray([float(loss_fn(out[b], targets)) for b in range(out.shape[0])])
+            return losses
+        tgt = torch.as_tensor(np.ascontiguousarray(targets))
+
+        def losses(out):
+            dtype = torch.promote_types(out.dtype, tgt.dtype)
+            dtype = dtype if dtype.is_floating_point else self.dtype
+            x, t = out.to(dtype), tgt.to(device=out.device, dtype=dtype)
+            vals = torch.stack([loss_fn(x[b], t) for b in range(x.shape[0])])
+            return _host(vals).astype(np.float64)
+        return losses
+
+    def _fit_var(self, path: tuple) -> torch.Tensor:
+        """The parameter at a params-tree path (``_sweep_path``'s)."""
+        sec, label, key = path
+        if sec == "nodes":
+            return self.get_node(label)._args[key]
+        return self.get_edge(*label.split("->")).params[key]
+
+    def _set_fit_var(self, path: tuple, val):
+        """Write ``val`` to the parameter at ``path``, in its shape, dtype and
+        device; a node with a fused kernel refreshes the kernel's copy."""
+        sec, label, key = path
+        cur = self._fit_var(path)
+        new = torch.as_tensor(np.asarray(val)).to(device=cur.device, dtype=cur.dtype)
+        new = new.reshape(cur.shape)
+        if sec == "nodes":
+            node = self.get_node(label)
+            node._args[key] = new
+            if getattr(node, "_fused_attached", False):
+                node._refresh_fused_param(key)
+        else:
+            self.get_edge(*label.split("->")).params[key] = new
+
+    def _micro_batches(self, setup: SimpleNamespace, frozen: dict, sweeps: dict, perm,
+                       u: int) -> list:
+        """The ``accum`` equal micro-batches of minibatch ``u`` of the trial
+        permutation ``perm``: ``[(frozen, xs, targets)]``, the frozen
+        parameters with the micro-batch's swept values, its time-major
+        inputs and its targets (the whole staged arrays, uncopied, when the
+        micro-batch is every trial in order)."""
+        mb, accum = setup.mb, setup.accum
+        ids = perm[u * mb:(u + 1) * mb]
+        micro = []
+        for a in range(accum):
+            sub = ids[a * (mb // accum):(a + 1) * (mb // accum)]
+            full = sub.shape[0] == setup.B and not setup.shuffled
+            xs = setup.inputs if full else setup.inputs.index_select(1, sub)
+            tgt = setup.targets if full else setup.targets.index_select(0, sub)
+            fz = self._with_sweeps(frozen, {p: (v if full else v.index_select(0, sub))
+                                            for p, v in sweeps.items()})
+            micro.append((fz, xs, tgt))
+        return micro
+
     def _resolve_batch_vars(self, name: str, batch_vars, B: int, params: dict,
                             trainer: bool = True) -> dict:
         """``batch_vars`` as ``{path: (B, ...) device tensor}`` (``(B,)``
         values as ``(B, 1)``).  The trainers take per-trial overrides of
         FROZEN parameters, ``(B,)`` or ``(B,) + leaf.shape``; a trainable
-        path raises (per-start trained values are ``fit_bptt_multistart``'s,
-        ROADMAP Queue 1 item 11).  ``run_batch`` (``trainer=False``) sweeps
+        path raises (per-start trained values are ``fit_bptt_multistart``'s
+        ``start_inits``).  ``run_batch`` (``trainer=False``) sweeps
         any parameter and checks the leading dimension only: a scalar
         parameter may sweep with per-neuron ``(B, n)`` values, as in the JAX
         package."""
@@ -2256,6 +2712,22 @@ def _value_and_grad(loss_fn, train, *args, has_aux: bool = False):
     grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
     out = (lval.detach(), _unflatten(paths, grads))
     return out + (aux,) if has_aux else out
+
+
+def _minibatch_update(batch_loss, opt, train, opt_state, y0, micro: list) -> tuple:
+    """One optimizer update of the batched-trial trainers on one minibatch:
+    the mean of the micro-batches' losses and gradients (each the mean over
+    its trials), then ``opt.update``.  Returns ``(train', opt_state', loss)``
+    with the loss a 0-d device tensor."""
+    lsum, gsum = None, None
+    for fz, xs, tgt in micro:  # equal micro-batches: the mean of their means
+        lval, grads = _value_and_grad(batch_loss, train, fz, y0, xs, tgt)
+        lsum = lval if lsum is None else lsum + lval
+        gsum = grads if gsum is None else tree_map(torch.add, gsum, grads)
+    if len(micro) > 1:
+        lsum, gsum = lsum / len(micro), tree_map(lambda g: g / len(micro), gsum)
+    train, opt_state = opt.update(gsum, opt_state, train)
+    return tree_map(lambda t: t.detach(), train), opt_state, lsum
 
 
 class FeedbackNetwork(Network):

@@ -23,6 +23,8 @@ Semantics (as in the JAX package and RectiPy):
 - ``MultiSpikeResetNet``: one spike input and one hard-reset segment per
   entry of a list ``spike_var``/``reset_var``; returns the *post-update*
   output.
+- The three spiking classes give ``_make_spike_reader()``: the detached 0/1
+  spike decision of a pre-update state, which ``record_spikes`` counts.
 
 Devices: every node lives on one device.  ``device=None`` means CUDA and
 raises when no CUDA device is present; the CPU must be asked for with
@@ -579,6 +581,7 @@ class SpikeNet(RateNet):
         spike_def = kwargs.pop("spike_def", None)
         super().__init__(rnn_func, rnn_args, var_map, param_map, **kwargs)
         self.spike = make_spike_fn(spike_slope, spike_center)
+        self._center = spike_center
         self._spike_key = self._param_map["spike_var"]
         self._reset_key = self._param_map["reset_var"]
         self._thresh = float(spike_threshold)
@@ -622,6 +625,12 @@ class SpikeNet(RateNet):
 
         return step
 
+    def _make_spike_reader(self) -> Callable:
+        """The spike indicator (0/1, detached) of a PRE-update state ``(n,)``
+        or ``(B, S)``: the decision ``make_step`` takes on it.  Backs
+        ``record_spikes``."""
+        return _spike_reader(self._thresh, self._center, [(self._spike_lo, self._spike_hi)])
+
 
 class SpikeResetNet(RateNet):
     """Spiking node with a framework-managed hard reset of the reset-variable
@@ -634,6 +643,7 @@ class SpikeResetNet(RateNet):
         spike_slope = float(kwargs.pop("spike_slope", default_spike_slope(spike_threshold, spike_reset)))
         super().__init__(rnn_func, rnn_args, var_map, param_map, **kwargs)
         self.spike = make_spike_fn(spike_slope, spike_center)
+        self._center = spike_center
         self._spike_key = self._param_map["spike_var"]
         self._thresh = float(spike_threshold)
         self._reset_val = float(spike_reset)
@@ -680,6 +690,12 @@ class SpikeResetNet(RateNet):
 
         return step
 
+    def _make_spike_reader(self) -> Callable:
+        """The spike indicator of the reset-variable slice of a PRE-update
+        state (see ``SpikeNet``); a fused kernel resets exactly the neurons
+        it marks."""
+        return _spike_reader(self._thresh, self._center, [(self._reset_lo, self._reset_hi)])
+
 
 class MultiSpikeResetNet(RateNet):
     """Hard spike reset applied to a *list* of state-variable segments
@@ -693,6 +709,7 @@ class MultiSpikeResetNet(RateNet):
         spike_slope = float(kwargs.pop("spike_slope", default_spike_slope(spike_threshold, spike_reset)))
         super().__init__(rnn_func, rnn_args, var_map, param_map, **kwargs)
         self.spike = make_spike_fn(spike_slope, spike_center)
+        self._center = spike_center
         self._thresh = float(spike_threshold)
         self._reset_val = float(spike_reset)
         self._spike_keys: List[str] = []
@@ -738,6 +755,30 @@ class MultiSpikeResetNet(RateNet):
             return y_new, reader(y_new, a)  # post-update output
 
         return step
+
+    def _make_spike_reader(self) -> Callable:
+        """The spike indicators of the reset segments of a PRE-update state,
+        concatenated in declaration order (see ``SpikeNet``)."""
+        return _spike_reader(self._thresh, self._center, self._segments)
+
+
+def _spike_reader(thresh: float, center: float, segments) -> Callable:
+    """``read(y)``: the steps' spike decision ``heaviside(y[..., lo:hi] -
+    thresh, center)`` of each segment, concatenated on the last axis, in
+    ``y``'s dtype and detached (no autograd function; ``center`` is made
+    once per dtype and device, not per step)."""
+    centers = {}
+
+    def read(y):
+        y = y.detach()
+        c = centers.get((y.dtype, y.device))
+        if c is None:
+            c = centers[(y.dtype, y.device)] = torch.full((), center, dtype=y.dtype,
+                                                          device=y.device)
+        parts = [torch.heaviside(y[..., lo:hi] - thresh, c) for lo, hi in segments]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+    return read
 
 
 def _strip_all(name: str) -> str:

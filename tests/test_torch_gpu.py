@@ -1898,3 +1898,130 @@ def test_graph_fit_bptt_batch_on_card_takes_the_row_kernels(cuda):
             assert (int8_mm.launches - before[0], int8_mm_t.launches - before[1]) == (2 * T, 2 * T)
         losses[str(device)] = np.asarray(obs["train_loss"])
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)
+
+
+# ------------------------------------------ spike rasters, specs, trainers
+def _spiking_qif(device, n, coupling="bfloat16", fused=True):
+    """The main path's node at width n: qif_sfa, a 10% row-normalised
+    coupling, the fused QIF step on the card."""
+    rng = np.random.default_rng(70)
+    W = (rng.random((n, n)) < 0.1) / (0.1 * n)
+    net = Network(1e-4, device=device)
+    net.add_diffeq_node("qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa",
+                        weights=W, source_var="s", target_var="s_in", input_var="I_ext",
+                        output_var="s", spike_var="spike", spike_def="v", op="qif_sfa_op",
+                        spike_threshold=1e2, spike_reset=-1e2,
+                        node_vars={"all/qif_sfa_op/eta": rng.normal(size=n) * 50.0 + 2e4,
+                                   "all/qif_sfa_op/k": 15.0},
+                        coupling_dtype=coupling)
+    net.compile()
+    if fused:
+        attach_fused_qif_step(net.get_node("qif"))
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [None, 3])
+def test_spike_reader_is_the_fused_kernels_reset(cuda, B):
+    # the reader's indicator on each pre-update state equals v' == v_reset
+    # of the kernel's step, on every neuron, over 100 steps
+    n = 512
+    net = _spiking_qif(cuda, n)
+    node = net.get_node("qif")
+    step, reader = node.make_step(), node._make_spike_reader()
+    y = node.y if B is None else node.y.expand(B, -1).contiguous()
+    x = torch.full((1,), 3.0, device=cuda)
+    total = 0
+    with torch.no_grad():
+        for _ in range(100):
+            spikes = reader(y)
+            y, _ = step(y, node.args, x)
+            assert torch.equal(spikes > 0, y[..., :n] == -1e2)
+            total += int(spikes.sum())
+    assert total > 0, "no spikes -- weak test"
+
+
+@pytest.mark.gpu
+def test_run_with_spec_on_card_equals_materialized(cuda):
+    from rectipy_tpu_torch.inputs import Noise, Pulse
+
+    n, T = 512, 600
+    spec = Pulse(T, channels=1, t_on=100, amp=3.0) + Noise(T, channels=n, scale=20.0, seed=3)
+    dense = spec.materialize(1e-4, device=cuda)
+    assert dense.device.type == "cuda" and dense.shape == (T, n)
+    kw = dict(sampling_steps=10, record_spikes=["qif"], record_vars=[("qif", "v", False)],
+              verbose=False)
+    a = _spiking_qif(cuda, n).run(spec, **kw)
+    b = _spiking_qif(cuda, n).run(dense, **kw)
+    for key in ("out", ("qif", "spikes"), ("qif", "v")):
+        np.testing.assert_array_equal(a.to_numpy(key), b.to_numpy(key))
+    assert a.to_numpy(("qif", "spikes")).sum() > 0
+
+
+@pytest.mark.gpu
+def test_noise_specs_on_card_statistics(cuda):
+    from rectipy_tpu_torch.inputs import Noise, Poisson, Wiener
+
+    z = Noise(2000, channels=64, seed=1).materialize(1e-3, device=cuda).double()
+    assert abs(float(z.mean())) < 0.02 and abs(float(z.std()) - 1.0) < 0.02
+    w = Wiener(2000, channels=64, sigma=0.5, seed=2).materialize(1e-3, device=cuda).double()
+    assert abs(float(w.std()) / (0.5 / np.sqrt(1e-3)) - 1.0) < 0.02
+    p = Poisson(4000, channels=64, rate=40.0, seed=3).materialize(1e-3, device=cuda)
+    assert abs(float((p > 0).double().mean()) / 1e-3 - 40.0) < 2.0
+    cpu = Noise(2000, channels=64, seed=1).materialize(1e-3, device="cpu")
+    assert not torch.equal(z.float().cpu(), cpu)  # torch's CUDA stream is its own
+
+
+@pytest.mark.gpu
+def test_fit_es_generation_on_card_takes_the_tensor_cores(cuda):
+    # one generation of 4 candidates of the fused bf16 node: one B-row
+    # launch a step on the tensor cores, then the final B=1 evaluation
+    n, T = 256, 100
+    net = _spiking_qif(cuda, n)
+    eta = net.get_node("qif")["eta"].cpu().numpy()
+    before = qif_sfa_step.launches, qif_sfa_step.mma_launches
+    obs = net.fit_es(np.full((T, 1), 3.0), np.zeros((T // 10, n)), fit_vars=[("qif", "eta")],
+                     pop_size=4, n_generations=1, sigma=10.0, lr=1.0, sampling_steps=10,
+                     seed=0, verbose=False)
+    assert (qif_sfa_step.launches - before[0], qif_sfa_step.mma_launches - before[1]) == (
+        2 * T, 2 * T)
+    assert np.isfinite(obs["es_final_loss"])
+    assert not np.array_equal(net.get_node("qif")["eta"].cpu().numpy(), eta)
+    assert torch.equal(net.get_node("qif")._args["__eta_fused__"],
+                       net.get_node("qif")["eta"].float())
+
+
+@pytest.mark.gpu
+def test_int8_master_multistart_on_card(cuda):
+    # three starts of an int8_master chain: int8_mm and int8_mm_t once per
+    # start per step, on the tensor cores; one network (eta drawn once) on
+    # both devices, whose starts part by far more than the tolerance: the
+    # int8 sums are exact on both, so the losses part by float32 round-off
+    n, B, T, M = 256, 4, 50, 3
+    rng = np.random.default_rng(71)
+    W = (rng.random((n, n)) < 0.1) * (300.0 / (0.1 * n))
+    ins = rng.normal(size=(B, T, n)).astype(np.float32)
+    tgts = (rng.normal(size=(B, T, n)) * 0.1).astype(np.float32)
+    eta = 2000.0 + 500.0 * rng.normal(size=n)
+    res = {}
+    for device in (cuda, "cpu"):
+        net = Network(5e-3, device=device)
+        net.add_diffeq_node("qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif",
+                            weights=W, source_var="s", target_var="s_in", input_var="I_ext",
+                            output_var="s", op="qif_op", spike_var="spike", spike_def="v",
+                            spike_threshold=1e2, spike_reset=-1e2,
+                            node_vars={"all/qif_op/eta": eta},
+                            coupling_dtype="int8_master", train_params=["weights"])
+        before = (int8_mm.launches, int8_mm_t.launches, int8_mm.mma_launches,
+                  int8_mm_t.mma_launches)
+        obs = net.fit_bptt_multistart(ins, tgts, n_starts=M, n_epochs=1, optimizer="adam",
+                                      lr=1e-3, seed=0, init_scale=2.0, verbose=False)
+        after = (int8_mm.launches, int8_mm_t.launches, int8_mm.mma_launches,
+                 int8_mm_t.mma_launches)
+        if device is cuda:
+            assert tuple(a - b for a, b in zip(after, before)) == (M * T,) * 4
+        res[str(device)] = np.asarray(obs["start_final_loss"]), int(obs["best_start"][0])
+    final = np.sort(res["cpu"][0])
+    assert np.min(np.diff(final)) / final[0] > 1e-4  # 100 tolerances
+    np.testing.assert_allclose(res[str(cuda)][0], res["cpu"][0], rtol=1e-6)
+    assert res[str(cuda)][1] == res["cpu"][1]

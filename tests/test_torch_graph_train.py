@@ -70,10 +70,12 @@ def test_block_edge_coupling_free_population_trains_like_plain_and_jax(bdtype):
     if bdtype is None:
         np.testing.assert_allclose(wg, wj, rtol=wtol, atol=1e-8)
     else:
-        # float32: where a surrogate derivative underflows, PyTorch gives an
-        # exact zero and XLA a value near 1e-9, which adam's normalization
-        # turns into steps of lr size; so against JAX, the first epoch's
-        # block gradient (the trajectories' own output), held on its scale
+        # float32: on the rows whose true gradient is zero (JAX at float64
+        # gives at most 6.7e-18 there), PyTorch gives exact zeros and XLA's
+        # float32 round-off gives 1e-10 to 3.6e-8, which adam's
+        # normalization turns into steps of lr size; so against JAX, the
+        # first epoch's block gradient (the trajectories' own output), held
+        # on its scale
         g = {}
         for pkg in ("torch", "jax"):
             net = _block_qif(pkg, bdtype, dtype)

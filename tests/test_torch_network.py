@@ -185,8 +185,13 @@ def test_unported_network_features_raise():
     for rule in ("eprop", "stdp"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
             tnet.add_edge("inp", "qif", train=rule)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnet.run(np.zeros((5, 1)), record_spikes=["qif"], verbose=False)
+    # record_spikes is ported (tests/test_torch_record_spikes.py): a node
+    # without a spike decision is refused, as in the JAX package
+    tnet.add_func_node("rate", 8, activation_function="tanh")
+    tnet.add_edge("qif", "rate")
+    with pytest.raises(ValueError, match="not a spiking node"):
+        tnet.run(np.zeros((5, 1)), record_spikes=["rate"], verbose=False)
+    tnet.pop_node("rate")
     # SpikeNet (reset=False) and circuits of mixed templates are ported
     # (tests/test_torch_circuits.py); a variable no group owns is refused
     from rectipy_tpu_torch.dsl.parser import CircuitTemplate, NodeTemplate, TemplateError

@@ -10,6 +10,7 @@ import torch
 
 from rectipy_tpu import FeedbackNetwork as JFeedbackNetwork
 from rectipy_tpu import Network as JNetwork
+from rectipy_tpu import inputs as jinputs
 from rectipy_tpu.ops.generic_fused import attach_generic_fused_step as j_attach_generic
 from rectipy_tpu.ops.kernels import attach_fused_qif_step as j_attach
 from rectipy_tpu_torch import FeedbackNetwork, Network, attach_fused_qif_step
@@ -348,21 +349,31 @@ def test_run_batch_validation():
         net.run_batch(rng.normal(size=(B, T, 3)))
 
 
-class _Spec:
-    def build(self, *args):
-        raise AssertionError("not reached")
-
-
 @pytest.mark.parametrize("case", ["record_spikes", "mesh", "input_spec"])
 def test_unported_run_batch_features_raise(case):
+    # mesh= is not ported; record_spikes and input specs are
+    # (tests/test_torch_record_spikes.py, tests/test_torch_inputs.py) and
+    # refuse what the JAX package refuses: a rate node's spikes, and an
+    # unbatched spec without batch_vars to give the trials
+    from rectipy_tpu_torch.inputs import Pulse
+
     rng = np.random.default_rng(13)
     n = 6
     ins = rng.normal(size=(2, 5, 1))
     net = _rate(Network, rng.normal(size=(n, n)) * 0.2)
-    kw = {"record_spikes": dict(record_spikes=["p"]), "mesh": dict(mesh=object()),
-          "input_spec": {}}[case]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        net.run_batch(_Spec() if case == "input_spec" else ins, **kw)
+    if case == "mesh":
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+            net.run_batch(ins, mesh=object())
+        return
+    jnet = _rate(JNetwork, rng.normal(size=(n, n)) * 0.2)
+    if case == "record_spikes":
+        for nt in (net, jnet):
+            with pytest.raises(ValueError, match="not a spiking node"):
+                nt.run_batch(ins, record_spikes=["p"])
+    else:
+        for nt, spec in ((net, Pulse(5, channels=1)), (jnet, jinputs.Pulse(5, channels=1))):
+            with pytest.raises(ValueError, match="batch_vars"):
+                nt.run_batch(spec)
 
 
 def _generic(cls, case, n, rng):
