@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. device: the card's name and power limit (nvidia-smi), PyTorch and CUDA.
-2. build: compiles the four CUDA sources of rectipy_tpu_torch/csrc/ and the
+2. build: compiles the CUDA sources of rectipy_tpu_torch/csrc/ and the
    generic fused step's generated sources (one per template structure this
    script attaches, into rectipy_tpu_torch/_build/gen/) with nvcc (sm_90a),
    one nvcc per source, all started together, and prints the compile times
@@ -477,6 +477,46 @@ of the same single-row kernel), qif_sfa_step.mma[es_path] (timed at B =
 16) and int8_mm[multistart_path] / int8_mm_t[multistart_path] (phase 28's
 timings at the same (32, N) shapes).
 
+Phases 42-44 (after phase 41; plasticity: the STDP edges, fit_stdp and
+fit_eprop, and the fused STDP update of csrc/stdp_update.cu, a kernel of the
+port's own: the JAX package leaves the update to XLA):
+
+42. stdp_path: benchmarks/stdp_scale.py's dense cell uncut (N = 10,000 qif
+   FeedbackNetwork, the tan etas, dt 1e-4, the plastic float32 self-edge of
+   U(0, 15/N) weights the only coupling, soft bounds, Poisson(1 channel,
+   rate 50, amp 10, seed 1) made on the device), fit_stdp over 2,000 steps:
+   a warm fit of each variant, then in turns the kernel route (best of 3),
+   the plain update (1,000 steps, best of 2), w_dtype=bfloat16, reward
+   mode with r = 1 (hard bounds) and homeostasis_steps=500 (the aligned
+   path), each best of 2; one stdp_update launch a step asserted (none for
+   the plain update); ms/step, nu/s, the weights finite and in bounds,
+   peak memory, the idle share (a 200-step fit under torch.profiler), and
+   the kernel at each variant's shape held to its plain version bit for
+   bit, then timed against its byte bound and the plain version.
+43. block_stdp_path: examples/stdp_100k_blocks.py's network uncut (N =
+   100,352, bs 512, fan-in 1,000, the native sampler (asserted), seed 7,
+   the blocks scattered to U(0, 15/1,000), hard bounds, homeostasis every
+   500 steps): a warm fit of 2,000 steps (the row masses pinned after it,
+   rtol 1e-3), then the kernel (2,000 steps), the plain update (two fits of
+   250 steps), the kernel; the same figures as phase 42 and the block
+   tensor's bytes.
+44. plasticity_check: the kernel bit for bit against its plain version in
+   every variant (hard, soft, reward), layout (dense, blocks with repeated
+   columns) and type (float32, float64, bfloat16) at ragged shapes and at
+   the paths' row widths; fit_stdp with reward and homeostasis (every 32
+   steps) over 100 steps at float64, dense N = 256 and blocks N = 2,048 (bs
+   128), on the card and on the CPU: spike counts equal, weights and
+   eligibility within 1e-10; fit_eprop at full width on rls_path's network
+   (its readout registered as train='eprop', instantaneous NLMS, lr 0.5,
+   5,000 steps, then test()): one qif_sfa_step launch a step, ms/step, the
+   test loss over the target's variance; examples/rl_online_learning.py's
+   N = 200 network, card against CPU over 2,000 steps, with its feedback
+   weights, normalize off and on (within 1e-9 of the largest value).
+The kernels line adds stdp_update[float32,dense], [bfloat16,dense],
+[float32,reward,dense] and [float32,blocks] (the kernel route's launches of
+one fit of phases 42-43) and qif_sfa_step[bfloat16,eprop_path] (phase 6's
+timing of the same kernel).
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -516,7 +556,8 @@ LIF = "rectipy_tpu_torch.models.spiking_neurons.lif.lif"
 TANH = "rectipy_tpu_torch.models.rate_neurons.leaky_integrator.tanh"
 KERNEL_SOURCE = "rectipy_tpu_torch/csrc/qif_sfa_step.cu"
 TPU_KERNEL = "rectipy_tpu/ops/kernels.py:53"
-SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant", "int4_matvec", "block_int8")
+SOURCES = ("qif_sfa_step", "int8_matvec", "adam_requant", "int4_matvec", "block_int8",
+           "stdp_update")
 GENERIC_SOURCE = "rectipy_tpu_torch/csrc/generic_fused_step.cuh"
 GENERIC_TPU_KERNEL = "rectipy_tpu/ops/generic_fused.py:46"
 I4_SOURCE = "rectipy_tpu_torch/csrc/int4_matvec.cu"
@@ -4979,6 +5020,469 @@ def multistart_vs_cpu() -> None:
           "card_s": s_card, "cpu_s": s_cpu})
 
 
+# the plastic networks of phases 42-43: benchmarks/stdp_scale.py's dense cell
+# and examples/stdp_100k_blocks.py's block network, both uncut in width
+STDP_N, STDP_T, STDP_HOMEO = 10_000, 2_000, 500
+STDP_PLAIN_T = 1_000  # stdp_path's plain update: half the depth (about 4x the step)
+BSTDP_N, BSTDP_BS, BSTDP_FAN = 100_352, 512, 1_000
+BSTDP_PLAIN_T = 250  # block_stdp_path's plain update, two calls: one scaling period
+STDP_PROFILE_T = 200  # the profiled window of the idle share
+STDP_SOURCE = "rectipy_tpu_torch/csrc/stdp_update.cu"
+STDP_REPLACES = "port-only (the XLA-fused update of rectipy_tpu/edges.py:957-1000)"
+STDP_CHECK_T = 100  # plasticity_check: the fits held card against CPU, float64
+STDP_CHECK_TOL = 1e-10  # their weights' rtol (the projection's float64 sums in another order)
+EPROP_RL_N, EPROP_RL_T, EPROP_RL_TOL = 200, 2_000, 1e-9  # the RL example, card against CPU
+
+
+def stdp_scale_net(n: int, device=None, blocks=None, soft: bool = True, **edge_kw):
+    """benchmarks/stdp_scale.py's network: a QIF FeedbackNetwork of n
+    neurons (the tan etas, dt 1e-4) whose only coupling is the plastic
+    self-edge, U(0, 15/n) dense float32 weights drawn from default_rng(7)
+    (or ``blocks``, a BlockSparseCoupling of fan-in BSTDP_FAN), tau_+ = tau_-
+    = 10 dt, a_+ 1e-3/scale, a_- 1.2e-3/scale, w in [0, 30/scale], scale =
+    n (blocks: the fan-in)."""
+    from rectipy_tpu_torch import FeedbackNetwork
+
+    net = FeedbackNetwork(DT, device=device)
+    net.add_diffeq_node("qif", QIF, weights=None, n=n, input_var="I_ext", output_var="s",
+                        spike_var="spike", reset_var="v", spike_threshold=1e2,
+                        spike_reset=-1e2, node_vars={"all/qif_op/eta": tan_etas(n)})
+    if blocks is None:
+        w0 = np.random.default_rng(7).uniform(0.0, 15.0 / n, size=(n, n)).astype(np.float32)
+        scale = n
+    else:
+        w0, scale = blocks, BSTDP_FAN
+    net.add_edge("qif", "qif", feedback=True, train="stdp", weights=w0, tau_plus=10 * DT,
+                 tau_minus=10 * DT, a_plus=1e-3 / scale, a_minus=1.2e-3 / scale, w_min=0.0,
+                 w_max=30.0 / scale, soft_bounds=soft, **edge_kw)
+    return net
+
+
+class plain_stdp_update:
+    """Within the block, the edges' updates take ops/stdp's plain version
+    on the card (the plain update timed in turns with the kernel)."""
+
+    def __enter__(self):
+        from rectipy_tpu_torch.ops import stdp
+
+        self._mod, self._kernel = stdp, stdp.stdp_update
+        stdp.stdp_update = stdp.stdp_update_plain
+
+    def __exit__(self, *exc):
+        self._mod.stdp_update = self._kernel
+
+
+def stdp_drive(steps: int, offset: int = 0):
+    """stdp_scale.py's drive: Poisson(steps, 1, rate 50, amp 10, seed 1),
+    made on the device, shifted by ``offset`` global steps."""
+    from rectipy_tpu_torch.inputs import Poisson
+
+    return Poisson(steps, channels=1, rate=50.0, amp=10.0, seed=1).shifted(offset)
+
+
+def fit_turn(net, steps: int, offset: int, plain: bool = False, **kw) -> tuple:
+    """One timed fit_stdp of ``steps`` steps: (seconds, kernel launches,
+    observer); the launch count starts at 0 just before the fit."""
+    from rectipy_tpu_torch.ops.stdp import stdp_update
+
+    stdp_update.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if plain:
+        with plain_stdp_update():
+            obs = net.fit_stdp(stdp_drive(steps, offset), sampling_steps=steps // 4,
+                               verbose=False, **kw)
+    else:
+        obs = net.fit_stdp(stdp_drive(steps, offset), sampling_steps=steps // 4, verbose=False,
+                           **kw)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, stdp_update.launches, obs
+
+
+def check_plastic_weights(name: str, edge) -> dict:
+    W = edge.params["weights"]
+    lo, hi = float(W.min()), float(W.max())
+    if not (bool(torch.isfinite(W).all()) and lo >= edge.w_min and hi <= edge.w_max):
+        raise AssertionError(f"{name}: the weights left [{edge.w_min}, {edge.w_max}] or are "
+                             f"not finite ({lo}, {hi})")
+    return {"w_min": lo, "w_max": hi, "w_mean": float(W.double().mean())}
+
+
+def stdp_kernel_timing(name: str, edge, mode: str, launches: int) -> dict:
+    """The kernel at the edge's shape and type, on the edge's weights and
+    traces with 30% spikes (reward: its eligibility and r = 1): first held
+    to the plain version bit for bit, then its ms, the plain version's ms
+    and the byte bound (W, and E, read once and written once; the four
+    vectors once).  There is no single PyTorch call for the update: the
+    library yardstick is null."""
+    from rectipy_tpu_torch.ops.stdp import stdp_update, stdp_update_plain
+
+    W = edge.params["weights"]
+    gen = torch.Generator(device=W.device).manual_seed(42)
+    spk_pre = (torch.rand(edge.n_in, generator=gen, device=W.device) < 0.3).to(W.dtype)
+    spk_post = (torch.rand(edge.n_out, generator=gen, device=W.device) < 0.3).to(W.dtype)
+    x_pre = edge.params["x_pre"] + spk_pre
+    x_post = edge.params["x_post"] + spk_post
+    E = r = None
+    c = edge._consts(0.99 if mode == "reward" else 0.0)
+    if mode == "reward":
+        E = edge.params.get("elig", torch.zeros_like(W))
+        r = torch.ones((), dtype=W.dtype, device=W.device)
+    args = (W, x_pre, x_post, spk_pre, spk_post, c, mode == "soft", edge._cols, E, r)
+    before = stdp_update.launches
+    got, ref = stdp_update(*args), stdp_update_plain(*args)
+    stdp_update.launches = before  # the check's launch is no launch of the path
+    for a, b in zip(got, ref):
+        if b is not None and not torch.equal(a, b):
+            raise AssertionError(f"{name}: the kernel differs from its plain version on "
+                                 f"{int((a != b).sum())} entries")
+    del got, ref
+    ms = cuda_ms(lambda: stdp_update(*args), reps=50)
+    plain_ms = cuda_ms(lambda: stdp_update_plain(*args), reps=5)
+    stdp_update.launches = before
+    rw = 2 if E is None else 4  # W (and E) read and written
+    n_bytes = rw * W.numel() * W.element_size() + 2 * (edge.n_in + edge.n_out) * W.element_size()
+    n_ops = (8 if mode != "hard" else 6) * W.numel()
+    bound_ms, bound_by = block_bound(n_bytes, n_ops, F64_FLOPS if W.dtype == torch.float64
+                                     else F32_FLOPS)
+    return {"name": name, "route": "cuda", "source": STDP_SOURCE, "replaces": STDP_REPLACES,
+            "launches": launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": "none: no single PyTorch call computes the pair update",
+            "bytes": n_bytes, "share_of_bound": bound_ms / ms,
+            "achieved_bytes_per_s": n_bytes / (ms * 1e-3)}
+
+
+def stdp_idle_share(net, steps: int, ms_per_step: float, **kw) -> dict:
+    """The device's busy ms per step of a STDP_PROFILE_T-step fit under
+    torch.profiler against the timed runs' wall ms per step."""
+    busy_ms, top = profile_device_time(
+        lambda: net.fit_stdp(stdp_drive(STDP_PROFILE_T, steps), sampling_steps=STDP_PROFILE_T,
+                             verbose=False, **kw))
+    if busy_ms is None:
+        return {"device_idle_share": None, "reason": top}
+    per_step = busy_ms / STDP_PROFILE_T
+    return {"device_busy_ms_per_step": per_step, "device_idle_share": 1.0 - per_step / ms_per_step,
+            "top_device_ops": top[:6]}
+
+
+def stdp_phase(dev) -> list:
+    """Phase 42: benchmarks/stdp_scale.py's dense cell (N = 10,000, soft
+    bounds, the plastic float32 self-edge the only coupling, the Poisson
+    drive) through Network.fit_stdp over STDP_T steps: one warm fit, then in
+    turns the kernel route (best of 3), the plain update (STDP_PLAIN_T steps,
+    best of 2), w_dtype=bfloat16, reward mode with r = 1 (hard bounds), and
+    homeostasis_steps=STDP_HOMEO (the aligned, segmented path), each best of
+    2; one kernel launch a step asserted for every kernel-route fit, none for
+    the plain ones; ms/step, nu/s, the weights finite and in bounds, the
+    kernel's ms against its bound, the idle share, peak memory.  Returns the
+    kernels-line entries."""
+    t0 = time.perf_counter()
+    variants = {"kernel": ({}, {}), "bfloat16": ({"w_dtype": "bfloat16"}, {}),
+                "reward": ({}, {"reward": np.ones(STDP_T)}),
+                "homeostasis": ({}, {"homeostasis_steps": STDP_HOMEO})}
+    nets = {k: stdp_scale_net(STDP_N, soft=k != "reward", **ekw)
+            for k, (ekw, _) in variants.items()}
+    build_s = time.perf_counter() - t0
+    offsets = dict.fromkeys(nets, 0)
+
+    def turn(k, plain=False):
+        steps = STDP_PLAIN_T if plain else STDP_T
+        fkw = variants[k][1]
+        if "reward" in fkw:
+            fkw = {"reward": np.ones(steps)}
+        s, launches, obs = fit_turn(nets[k], steps, offsets[k], plain=plain, **fkw)
+        offsets[k] += steps
+        want = 0 if plain else steps
+        if launches != want:
+            raise AssertionError(f"stdp_path ({k}{', plain' if plain else ''}): {launches} "
+                                 f"kernel launches for {steps} steps")
+        return s / steps * 1e3, obs
+
+    warm = {k: turn(k)[0] for k in nets}  # the first call of each network
+    ms = {k: [] for k in list(nets) + ["plain"]}
+    torch.cuda.reset_peak_memory_stats()
+    for k in ("kernel", "plain", "bfloat16", "reward", "homeostasis", "homeostasis", "reward",
+              "bfloat16", "plain", "kernel", "kernel"):
+        ms[k].append(turn("kernel", plain=True)[0] if k == "plain" else turn(k)[0])
+    peak = torch.cuda.max_memory_allocated()
+    best = {k: min(v) for k, v in ms.items()}
+    weights = {k: check_plastic_weights(f"stdp_path ({k})", net.get_edge("qif", "qif"))
+               for k, net in nets.items()}
+    edge = nets["kernel"].get_edge("qif", "qif")
+    idle = stdp_idle_share(nets["kernel"], offsets["kernel"], best["kernel"])
+    entries = [stdp_kernel_timing("stdp_update[float32,dense]", edge, "soft", STDP_T),
+               stdp_kernel_timing("stdp_update[bfloat16,dense]",
+                                  nets["bfloat16"].get_edge("qif", "qif"), "soft", STDP_T),
+               stdp_kernel_timing("stdp_update[float32,reward,dense]",
+                                  nets["reward"].get_edge("qif", "qif"), "reward", STDP_T)]
+    emit({"phase": "stdp_path", "n": STDP_N, "steps": STDP_T, "plain_steps": STDP_PLAIN_T,
+          "dt": DT, "drive": "Poisson(1 channel, rate 50, amp 10, seed 1)",
+          "build_s": build_s, "warm_ms_per_step": warm, "ms_per_step_in_turns": ms,
+          "ms_per_step": best,
+          "neuron_updates_per_s": {k: STDP_N / (v * 1e-3) for k, v in best.items()},
+          "plain_over_kernel": best["plain"] / best["kernel"],
+          "kernel_launches_per_fit": STDP_T, "weights": weights,
+          "kernel_ms": {e["name"]: e["ms"] for e in entries},
+          "kernel_bound_ms": {e["name"]: e["bound_ms"] for e in entries},
+          "kernel_share_of_step": entries[0]["ms"] / best["kernel"], **idle,
+          "max_memory_allocated_bytes": peak})
+    del nets, edge
+    torch.cuda.empty_cache()
+    return entries
+
+
+def block_stdp_phase(dev) -> list:
+    """Phase 43: examples/stdp_100k_blocks.py's network (N = 100,352, bs
+    512, fan-in 1,000 from the native sampler, seed 7, the blocks scattered
+    to U(0, 15/fan-in), hard bounds, homeostasis every STDP_HOMEO steps, the
+    Poisson drive): a warm fit of STDP_T steps, then in turns the kernel
+    (STDP_T steps, the aligned path), the plain update (two fits of
+    BSTDP_PLAIN_T steps, together one scaling period, so the kernel's fits
+    stay aligned), the kernel; one launch a step asserted; ms/step, nu/s,
+    the block tensor's bytes, the row masses pinned at a scaling step, the
+    kernel against its bound, the idle share, peak memory."""
+    from rectipy_tpu_torch.ops.sparse import block_random_connectivity
+
+    t0 = time.perf_counter()
+    A = block_random_connectivity(BSTDP_N, BSTDP_N, BSTDP_FAN, block_size=BSTDP_BS, seed=7)
+    backend = block_random_connectivity.last_backend
+    A.blocks *= np.random.default_rng(7).random(A.blocks.shape, dtype=np.float32) * 15.0
+    sample_s = time.perf_counter() - t0
+    if backend != "native":
+        raise AssertionError(f"block_stdp_path: the sampler took {backend}, not native")
+    t0 = time.perf_counter()
+    net = stdp_scale_net(BSTDP_N, blocks=A, soft=False)
+    del A
+    build_s = time.perf_counter() - t0
+    edge = net.get_edge("qif", "qif")
+    mass0 = edge.params["weights"].sum(dim=(1, 3)).reshape(-1).clone()
+    kw = {"homeostasis_steps": STDP_HOMEO, "record_spikes": ["qif"]}
+    offset, ms, spikes = 0, {"kernel": [], "plain": []}, 0
+
+    def turn(plain=False):
+        nonlocal offset, spikes
+        steps = BSTDP_PLAIN_T if plain else STDP_T
+        s, launches, obs = fit_turn(net, steps, offset, plain=plain, **kw)
+        offset += steps
+        if launches != (0 if plain else steps):
+            raise AssertionError(f"block_stdp_path: {launches} kernel launches for {steps} "
+                                 f"steps{' (plain)' if plain else ''}")
+        spikes += int(obs.to_numpy(("qif", "spikes")).sum())
+        return s / steps * 1e3
+
+    warm = turn()
+    mass = edge.params["weights"].sum(dim=(1, 3)).reshape(-1)
+    mass_rel = float(((mass - mass0).abs() / mass0.abs().clamp_min(1e-30)).max())
+    torch.cuda.reset_peak_memory_stats()
+    for k in ("kernel", "plain", "plain", "kernel"):
+        ms[k].append(turn(plain=k == "plain"))
+    peak = torch.cuda.max_memory_allocated()
+    best = {k: min(v) for k, v in ms.items()}
+    weights = check_plastic_weights("block_stdp_path", edge)
+    if mass_rel > 1e-3 or spikes == 0:
+        raise AssertionError(f"block_stdp_path: row masses moved by {mass_rel} after an aligned "
+                             f"scaling step, or no spike ({spikes})")
+    W = edge.params["weights"]
+    idle = stdp_idle_share(net, offset, best["kernel"], **kw)
+    entry = stdp_kernel_timing("stdp_update[float32,blocks]", edge, "hard", STDP_T)
+    emit({"phase": "block_stdp_path", "n": BSTDP_N, "block_size": BSTDP_BS, "fan_in": BSTDP_FAN,
+          "blocks_shape": list(W.shape), "block_tensor_bytes": W.numel() * W.element_size(),
+          "steps": STDP_T, "plain_steps": [BSTDP_PLAIN_T, BSTDP_PLAIN_T],
+          "homeostasis_steps": STDP_HOMEO, "sampler": backend, "sample_s": sample_s,
+          "build_s": build_s, "warm_ms_per_step": warm, "ms_per_step_in_turns": ms,
+          "ms_per_step": best,
+          "neuron_updates_per_s": {k: BSTDP_N / (v * 1e-3) for k, v in best.items()},
+          "plain_over_kernel": best["plain"] / best["kernel"], "kernel_launches_per_fit": STDP_T,
+          "spikes": spikes, "row_mass_max_rel_change_after_scaling": mass_rel,
+          "weights": weights, "kernel_ms": entry["ms"], "kernel_bound_ms": entry["bound_ms"],
+          "kernel_share_of_step": entry["ms"] / best["kernel"], **idle,
+          "max_memory_allocated_bytes": peak})
+    del net, edge, W
+    torch.cuda.empty_cache()
+    return [entry]
+
+
+def stdp_check_net(n: int, device, blocks=None):
+    """plasticity_check's fits: a float64 QIF FeedbackNetwork (etas 2,000 to
+    3,000, a spike every ~60 steps of dt 1e-3) whose only coupling is a
+    plastic self-edge, dense U(0, 0.2) or on ``blocks`` ((n_br, cb, bs, bs),
+    cols), hard bounds [0, 0.3]."""
+    from rectipy_tpu_torch import BlockSparseCoupling, FeedbackNetwork
+
+    rng = np.random.default_rng(80)
+    net = FeedbackNetwork(1e-3, device=device, dtype=torch.float64)
+    net.add_diffeq_node("qif", QIF, weights=None, n=n, input_var="I_ext", output_var="s",
+                        spike_var="spike", reset_var="v", spike_threshold=1e2,
+                        spike_reset=-1e2,
+                        node_vars={"all/qif_op/eta": rng.uniform(2000.0, 3000.0, n)})
+    if blocks is None:
+        w = rng.uniform(0.0, 0.2, size=(n, n))
+    else:
+        w = BlockSparseCoupling(rng.uniform(0.0, 0.2, blocks[0]), blocks[1])
+    net.add_edge("qif", "qif", feedback=True, train="stdp", weights=w, tau_plus=2e-2,
+                 tau_minus=2e-2, a_plus=5e-3, a_minus=4e-3, w_min=0.0, w_max=0.3)
+    return net
+
+
+def rl_net(device):
+    """examples/rl_online_learning.py's network at N = EPROP_RL_N, float64:
+    a tanh reservoir (k 0.1, tau U(10, 20), J0 at spectral radius 1, v
+    normal) from default_rng(7), its input layer's weights from
+    default_rng(8) (the example draws them unseeded), an 'rls' readout."""
+    from rectipy_tpu_torch import Network
+
+    n, rng = EPROP_RL_N, np.random.default_rng(7)
+    tau = rng.uniform(10.0, 20.0, size=(n,))
+    J0 = rng.standard_normal((n, n))
+    J0 /= np.max(np.abs(np.linalg.eigvals(J0)))
+    net = Network.from_yaml(TANH, weights=J0, dt=1e-2, source_var="tanh_op/r",
+                            target_var="li_op/r_in", input_var="li_op/I_ext",
+                            output_var="li_op/v", device=device, dtype=torch.float64,
+                            node_vars={"all/li_op/k": 0.1, "all/li_op/tau": tau,
+                                       "all/li_op/v": rng.standard_normal(n)})
+    net.add_input_layer(2, weights=np.random.default_rng(8).standard_normal((n, 2)))
+    net.add_output_layer(1, train="rls")
+    net.compile()
+    return net, rng.standard_normal((2, 1)) * 0.1
+
+
+def plasticity_check(dev, build_net, timing: dict) -> dict:
+    """Phase 44: (a) the stdp_update kernel against its plain version bit
+    for bit for every variant, layout and type (testing.STDP_CASES) at
+    ragged shapes (37 x 1,003; 5 x 3 blocks of 20 with repeated columns)
+    and at the paths' row widths (10,000; blocks of 512); (b) fit_stdp
+    over STDP_CHECK_T steps with reward and homeostasis (every 32 steps:
+    the per-step path) on the card and on the CPU at float64, dense N = 256
+    and blocks N = 2,048 (bs 128, the native sampler's columns): spike
+    counts equal, weights and eligibility within STDP_CHECK_TOL, one launch
+    a step; (c) fit_eprop at full width: the FORCE cell's network (rls_path:
+    N = 10,000 qif_sfa, bf16, the fused step) with its readout registered
+    as train='eprop' (the instantaneous NLMS rule: epsilon = delta = 0, lr
+    0.5), STEPS steps, then test(): one
+    qif_sfa_step launch a step, ms/step, the test loss over the target's
+    variance; (d) examples/rl_online_learning.py's network card against CPU
+    over EPROP_RL_T steps, with its feedback weights, normalize off and on
+    (records and weights within EPROP_RL_TOL of the largest).  Returns the
+    kernels-line entry of the fused step on the eprop path."""
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+    from rectipy_tpu_torch.ops.sparse import block_random_connectivity
+    from rectipy_tpu_torch.ops.stdp import stdp_update
+    from rectipy_tpu_torch.testing import STDP_CASES, check_stdp, stdp_inputs
+
+    # (a) the kernel, bit for bit
+    t0 = time.perf_counter()
+    cases = {}
+    for mode, layout, dtype in STDP_CASES:
+        for shape in (None, (3, 10_000) if layout == "dense" else (2, 4, 512, 6)):
+            res = check_stdp(mode, stdp_inputs(layout, dtype, 44, dev, shape))
+            if res["launches"] != 1 or res["moved"] == 0:
+                raise AssertionError(f"plasticity_check {mode} {layout} {dtype}: {res}")
+            cases[f"{mode},{layout},{dtype},{'ragged' if shape is None else 'wide'}"] = \
+                res["moved"]
+    emit({"phase": "plasticity_check", "part": "kernel_bit_for_bit", "cases": len(cases),
+          "entries_moved": cases, "s": time.perf_counter() - t0})
+
+    # (b) fit_stdp, card against CPU
+    rng = np.random.default_rng(44)
+    A = block_random_connectivity(2048, 2048, 256, block_size=128, seed=44)
+    fits = {"dense": (256, None), "blocks": (2048, (A.blocks.shape, A.cols))}
+    for name, (n, blocks) in fits.items():
+        x = (rng.random((STDP_CHECK_T, n)) < 0.05) * 30.0
+        reward = rng.normal(size=STDP_CHECK_T)
+        res = {}
+        for device in (dev, "cpu"):
+            net = stdp_check_net(n, device, blocks)
+            stdp_update.launches = 0
+            t0 = time.perf_counter()
+            obs = net.fit_stdp(x, reward=reward, homeostasis_steps=32, sampling_steps=10,
+                               record_spikes=["qif"], verbose=False)
+            seconds = time.perf_counter() - t0
+            edge = net.get_edge("qif", "qif")
+            res[str(device)] = (obs.to_numpy(("qif", "spikes")),
+                                edge.params["weights"].cpu().numpy(),
+                                edge.params["elig"].cpu().numpy(), stdp_update.launches,
+                                seconds)
+        card, cpu = res[str(dev)], res["cpu"]
+        w_rel = float(np.abs(card[1] - cpu[1]).max() / np.abs(cpu[1]).max())
+        e_rel = float(np.abs(card[2] - cpu[2]).max() / np.abs(cpu[2]).max())
+        if not (np.array_equal(card[0], cpu[0]) and cpu[0].sum() > 0 and card[3] == STDP_CHECK_T
+                and w_rel <= STDP_CHECK_TOL and e_rel <= STDP_CHECK_TOL):
+            raise AssertionError(f"plasticity_check {name}: spikes equal "
+                                 f"{np.array_equal(card[0], cpu[0])} ({int(cpu[0].sum())}), "
+                                 f"launches {card[3]}, W rel {w_rel}, elig rel {e_rel}")
+        emit({"phase": "plasticity_check", "part": f"fit_stdp_vs_cpu[{name}]", "n": n,
+              "steps": STDP_CHECK_T, "dtype": "float64", "reward": True,
+              "homeostasis_steps": 32, "spikes": int(cpu[0].sum()), "spike_counts_equal": True,
+              "weights_max_rel_diff": w_rel, "elig_max_rel_diff": e_rel,
+              "rtol": STDP_CHECK_TOL, "kernel_launches": card[3], "card_s": card[4],
+              "cpu_s": cpu[4]})
+
+    # (c) fit_eprop on the FORCE cell's network, at full width
+    inputs = bench_inputs(STEPS)
+    target = np.sin(2 * np.pi * 2.0 * DT * np.arange(STEPS))[:, None]
+    net = build_net("bfloat16", fused=True)
+    net.add_func_node("readout", 1, activation_function="identity")
+    edge = net.add_edge("qif", "readout", train="eprop", weights=np.zeros((1, N)))
+    net.reset()
+    qif_sfa_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    obs = net.fit_eprop(inputs, target, lr=0.5, epsilon=0.0, delta=0.0, normalize=True,
+                        sampling_steps=100, verbose=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = qif_sfa_step.launches
+    losses = obs.to_numpy("loss")
+    if launches != STEPS or not (np.all(np.isfinite(losses))
+                                 and bool(torch.isfinite(edge.params["weights"]).all())):
+        raise AssertionError(f"eprop_path: {launches} qif_sfa_step launches for {STEPS} steps, "
+                             f"or non-finite losses or weights")
+    net.reset()
+    qif_sfa_step.launches = 0
+    t0 = time.perf_counter()
+    obs_t, test_loss = net.test(inputs, target, sampling_steps=100, verbose=False)
+    test_s = time.perf_counter() - t0
+    tgt_var = float(np.var(target[::100]))
+    emit({"phase": "plasticity_check", "part": "eprop_path", "n": N, "steps": STEPS,
+          "coupling": "bfloat16", "normalize": True, "lr": 0.5, "epsilon": 0.0, "delta": 0.0,
+          "kernel_launches_fit": launches, "kernel_launches_test": qif_sfa_step.launches,
+          "fit_s": fit_s, "ms_per_step": fit_s / STEPS * 1e3,
+          "neuron_updates_per_s": STEPS * N / fit_s,
+          "fit_loss_first_last": [float(losses[1]), float(losses[-1])], "test_s": test_s,
+          "test_loss": test_loss, "target_variance": tgt_var,
+          "test_loss_over_target_variance": test_loss / tgt_var,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+    del net, edge, obs, obs_t
+    torch.cuda.empty_cache()
+
+    # (d) the RL example's network, card against CPU
+    f1, f2, amp = 0.2, 0.02, 0.9
+    t_ax = np.linspace(0, EPROP_RL_T * 1e-2, num=EPROP_RL_T)
+    inp = np.stack([np.sin(2 * np.pi * f1 * t_ax) * amp, np.sin(2 * np.pi * f2 * t_ax) * amp], 1)
+    tgt = (inp[:, :1] * inp[:, 1:2]) / amp
+    for normalize in (False, True):
+        res = {}
+        for device in (dev, "cpu"):
+            net, W_fb = rl_net(device)
+            t0 = time.perf_counter()
+            o = net.fit_eprop(inp, tgt, update_steps=1, sampling_steps=10, feedback_weights=W_fb,
+                              epsilon=0.9, delta=0.5, lr=1e-3, decay=1.0, normalize=normalize,
+                              verbose=False)
+            res[str(device)] = (o.to_numpy("out"), o.to_numpy("loss"),
+                                net.get_edge("rnn", "output_layer").params["weights"].cpu().numpy(),
+                                time.perf_counter() - t0)
+        rel = {k: float(np.abs(a - b).max() / np.abs(b).max())
+               for k, a, b in zip(("out", "loss", "weights"), res[str(dev)], res["cpu"])}
+        if max(rel.values()) > EPROP_RL_TOL:
+            raise AssertionError(f"eprop_rl_vs_cpu (normalize={normalize}): {rel}")
+        emit({"phase": "plasticity_check", "part": f"eprop_rl_vs_cpu[normalize={normalize}]",
+              "n": EPROP_RL_N, "steps": EPROP_RL_T, "dtype": "float64",
+              "max_rel_diff": rel, "rtol": EPROP_RL_TOL, "card_s": res[str(dev)][3],
+              "cpu_s": res["cpu"][3]})
+    return {**timing, "name": "qif_sfa_step[bfloat16,eprop_path]", "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5222,6 +5726,10 @@ def main() -> int:
     kernels.append(spikes_inputs_phase(dev, W_np, etas, by_name["qif_sfa_step[bfloat16]"]))
     kernels.append(es_phase(dev, W_np, etas))
     kernels += multistart_phase(dev, data, trials, by_name)
+    torch.cuda.empty_cache()
+    kernels += stdp_phase(dev)
+    kernels += block_stdp_phase(dev)
+    kernels.append(plasticity_check(dev, build_net, by_name["qif_sfa_step[bfloat16]"]))
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -19,14 +19,17 @@ population scale on nodes and on ``BlockSparseLinear`` edges with per-block
 delays; their int8 contraction is the ``block_int8_mv`` kernel.  Input
 specs (``inputs.py``) make a run's drive on the device, and
 ``fit_bptt_multistart`` and ``fit_es`` train through the batched runs.
+Plastic edges (``STDP``, ``BlockSparseSTDP``) learn online in
+``Network.fit_stdp`` through the fused ``stdp_update`` kernel, and
+``Network.fit_eprop`` trains a readout by a local delta rule.
 """
 
 __version__ = "0.1.0"
 
 from .convert import load_jax_params
 from .dsl import CircuitTemplate, NodeTemplate, OperatorTemplate, clear_frontend_caches, lower
-from .edges import (RLS, BlockSparseLinear, Linear, LinearFilter, LinearMasked, LinearMemory,
-                    LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
+from .edges import (RLS, STDP, BlockSparseLinear, BlockSparseSTDP, Linear, LinearFilter,
+                    LinearMasked, LinearMemory, LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
 from .inputs import Constant, InputSpec, Noise, Poisson, Pulse, Sine, Sum, Wiener
 from .network import FeedbackNetwork, Network
 from .nodes import InstantNode, MultiSpikeResetNet, RateNet, SpikeNet, SpikeResetNet
@@ -46,6 +49,7 @@ from .utility import (
 __all__ = [
     "BlockSparseCoupling",
     "BlockSparseLinear",
+    "BlockSparseSTDP",
     "CircuitTemplate",
     "Constant",
     "FeedbackNetwork",
@@ -67,6 +71,7 @@ __all__ = [
     "Poisson",
     "Pulse",
     "RLS",
+    "STDP",
     "RateNet",
     "Sine",
     "SpikeNet",

@@ -89,7 +89,12 @@ def _edge_state(ekey: str, val, old):
     return torch.as_tensor(_numpy(val)).to(device=old.device, dtype=old.dtype)
 
 
-def load_jax_params(net, params: dict, state: dict = None) -> None:
+# the attributes a JAX STDP edge keeps across chunked fit_stdp calls
+# (the homeostatic target and the scaling schedule's phase)
+_EDGE_ATTRS = ("_homeo_target", "_homeo_phase")
+
+
+def load_jax_params(net, params: dict, state: dict = None, edge_attrs: dict = None) -> None:
     """Write a JAX network's ``parameters_pytree()`` (and optionally its
     ``init_state()``), as nested dicts of numpy arrays, into the port
     network ``net`` built the same way.  That covers every dense coupling:
@@ -106,7 +111,12 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
     structure or shape differs raises ``KeyError``, and so does a
     parameter with two or more axes whose shape differs).  A state with
     ``"fb"`` (the feedback outputs of a ``FeedbackNetwork``) sets the port
-    network's carried feedback outputs.
+    network's carried feedback outputs.  An STDP edge (dense or block)
+    carries its ``weights``, traces ``x_pre``/``x_post`` and, after a reward
+    fit, its eligibility ``elig``; ``edge_attrs`` (``{edge key: {attribute:
+    value}}``) carries its homeostatic target and schedule phase
+    (``_homeo_target``, ``_homeo_phase``: ``getattr`` of the JAX edge), so
+    that a fit chunked in the JAX package continues in the port exactly.
 
     Keys the port does not have raise ``KeyError``.  The padded copies of a
     JAX network with a fused step attached (``__wt_pad__``, ``__eta_pad__``,
@@ -137,9 +147,31 @@ def load_jax_params(net, params: dict, state: dict = None) -> None:
         except KeyError:
             raise KeyError(f"Edge {ekey!r} does not exist in the port network.")
         for key, val in sub.items():
+            if key == "elig" and key not in eparams and "x_pre" in eparams:
+                # an STDP edge's eligibility trace, made by its first reward fit
+                eparams[key] = _like(val, eparams["weights"], f"Eligibility of edge {ekey!r}")
+                continue
             if key not in eparams:
                 raise KeyError(f"Edge {ekey!r} has no parameter {key!r} in the port.")
             eparams[key] = _like(val, eparams[key], f"Parameter {key!r} of edge {ekey!r}")
+    for ekey, attrs in (edge_attrs or {}).items():
+        u, _, v = ekey.partition("->")
+        try:
+            edge = net.get_edge(u, v)
+        except KeyError:
+            raise KeyError(f"Edge {ekey!r} does not exist in the port network.")
+        for key, val in attrs.items():
+            if key not in _EDGE_ATTRS or not hasattr(edge, "reward_update_fn"):
+                raise KeyError(f"Edge {ekey!r} takes no attribute {key!r} in the port "
+                               f"(STDP edges take {', '.join(_EDGE_ATTRS)}).")
+            if val is None:
+                continue
+            if key == "_homeo_phase":
+                setattr(edge, key, int(val))
+            else:
+                w = edge.params["weights"]
+                setattr(edge, key, torch.as_tensor(_numpy(val)).to(device=w.device,
+                                                                   dtype=w.dtype))
     if state is None:
         return
     for label, y in state.get("nodes", {}).items():

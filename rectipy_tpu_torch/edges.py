@@ -30,12 +30,20 @@ parameters (a swept coupling ``(B, n_out, n_in)``).
 - ``BlockSparseLinear``: a ``BlockSparseCoupling`` projection with optional
   per-block integer delays read from a circular history ``(nb_in, D1,
   bs)``; ``block_dtype`` bfloat16 or ``'int8_master'``.
+- ``STDP``: a plastic ``Linear`` edge whose weights ``Network.fit_stdp``
+  adapts by pair-based spike-timing-dependent plasticity (hard or soft
+  bounds, or reward-modulated), carrying the traces ``x_pre``/``x_post``
+  (and, after a reward fit, the eligibility ``elig``); 1-D weights are
+  per-neuron gains updated elementwise.
+- ``BlockSparseSTDP``: the same rule on the blocks of a ``BlockSparseCoupling``
+  (no delays; ``block_dtype`` bfloat16, never ``'int8_master'``).
 
 The JAX package computes these edges with XLA operations and no Pallas
 kernel; the port computes them with PyTorch operations, except the int8
 block contraction of an ``int8_master`` block edge, which is the
-``block_int8_mv`` kernel (``ops/quant.py``).  ``STDP`` and
-``BlockSparseSTDP`` are not ported yet (ROADMAP Queue 1 item 12).
+``block_int8_mv`` kernel (``ops/quant.py``), and the plasticity update of
+the two STDP edges, which is the ``stdp_update`` kernel (``ops/stdp.py``)
+on the card for dense and block weights.
 """
 
 from __future__ import annotations
@@ -48,9 +56,10 @@ import torch
 
 from .dsl.lower import matvec
 from .nodes import resolve_device, resolve_dtype
+from .ops import stdp as _stdp
 
-__all__ = ["BlockSparseLinear", "Linear", "LinearFilter", "LinearMasked", "LinearMemory",
-           "LinearMemoryFilter", "LinearMemoryMatrix", "LinearSTP", "RLS"]
+__all__ = ["BlockSparseLinear", "BlockSparseSTDP", "Linear", "LinearFilter", "LinearMasked",
+           "LinearMemory", "LinearMemoryFilter", "LinearMemoryMatrix", "LinearSTP", "RLS", "STDP"]
 
 
 def _as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -952,3 +961,229 @@ class RLS(Linear):
         self.params["weights"] = W
         self.params["P"] = P
         self.loss = loss
+
+
+def _check_stdp_hparams(tau_plus, tau_minus, a_plus, a_minus, w_min, w_max):
+    if tau_plus <= 0 or tau_minus <= 0:
+        raise ValueError("STDP time constants tau_plus/tau_minus must be positive.")
+    if a_plus < 0 or a_minus < 0:
+        raise ValueError("STDP amplitudes a_plus/a_minus must be non-negative.")
+    if not w_max > w_min:
+        raise ValueError("STDP weight bounds require w_max > w_min.")
+
+
+def _resolve_stdp_w_dtype(w_dtype) -> torch.dtype:
+    """The reduced-precision plastic-W carry type: an integer carry would
+    truncate the ~1e-3-scale pair increments to zero and make plasticity a
+    silent no-op."""
+    try:
+        dtype = resolve_dtype(w_dtype)
+    except TypeError:
+        dtype = None
+    if dtype is None or not dtype.is_floating_point:
+        raise ValueError(
+            f"STDP w_dtype must be a floating dtype (the plastic-W scan carry accumulates "
+            f"~a_plus-scale increments); got {w_dtype}.")
+    return dtype
+
+
+class _PairRule:
+    """The pair-based trace rule shared by ``STDP`` and ``BlockSparseSTDP``
+    (the JAX package's ``STDP.pair_fn``/``update_fn``/``reward_update_fn``;
+    the block edge overrides only the shape of the outer products).  The
+    weights' update is ``ops/stdp.stdp_update``: the fused kernel on the
+    card, its plain version on the CPU; 1-D weights take the plain version
+    everywhere (O(N) elementwise products).  Every constant is a 0-dim
+    tensor of the weights' type, as the JAX package rounds its weakly typed
+    Python floats to the array's type."""
+
+    _cols: Optional[torch.Tensor] = None  # the block-column table of a block edge
+
+    def _init_rule(self, tau_plus, tau_minus, a_plus, a_minus, w_min, w_max, soft_bounds):
+        self.tau_plus = float(tau_plus)
+        self.tau_minus = float(tau_minus)
+        self.a_plus = float(a_plus)
+        self.a_minus = float(a_minus)
+        self.w_min = float(w_min)
+        self.w_max = float(w_max)
+        self.soft_bounds = bool(soft_bounds)
+        self.params["weights"] = _stdp.clip(self.params["weights"], self._consts())
+        self.params["x_pre"] = torch.zeros(self.n_in, dtype=self.dtype, device=self.device)
+        self.params["x_post"] = torch.zeros(self.n_out, dtype=self.dtype, device=self.device)
+        self.train_keys = []  # a local rule outside autograd
+
+    @property
+    def x_pre(self):
+        return self.params["x_pre"]
+
+    @property
+    def x_post(self):
+        return self.params["x_post"]
+
+    def _consts(self, d_e: float = 0.0):
+        return _stdp.stdp_consts(self.dtype, self.device, self.a_plus, self.a_minus,
+                                 self.w_min, self.w_max, d_e)
+
+    def _decays(self, dt: float):
+        return (torch.tensor(float(np.exp(-dt / self.tau_plus)), dtype=self.dtype,
+                             device=self.device),
+                torch.tensor(float(np.exp(-dt / self.tau_minus)), dtype=self.dtype,
+                             device=self.device))
+
+    def pair_fn(self, dt: float) -> Callable:
+        """Raw pair-rule increments (no bounds): ``(x_pre, x_post, spk_pre,
+        spk_post) -> (pot, dep, x_pre', x_post')``.  Traces decay first, are
+        read by the opposite side's spikes, and absorb the current spikes
+        after use (zero-lag pairs do not interact)."""
+        d_p, d_m = self._decays(dt)
+        c, cols, shape = self._consts(), self._cols, tuple(self.params["weights"].shape)
+
+        def increments(x_pre, x_post, spk_pre, spk_post):
+            x_pre, x_post = x_pre * d_p, x_post * d_m
+            pot, dep = _stdp.pair_increments(x_pre, x_post, spk_pre, spk_post, c, shape, cols)
+            return pot, dep, x_pre + spk_pre, x_post + spk_post
+
+        return increments
+
+    def update_fn(self, dt: float) -> Callable:
+        """Per-step update ``(W, x_pre, x_post, spk_pre, spk_post) -> (W',
+        x_pre', x_post')`` with spikes the {0, 1} indicators."""
+        d_p, d_m = self._decays(dt)
+        c, cols, soft = self._consts(), self._cols, self.soft_bounds
+        diagonal = self.params["weights"].dim() == 1
+
+        def update(W, x_pre, x_post, spk_pre, spk_post):
+            x_pre, x_post = x_pre * d_p, x_post * d_m
+            if diagonal:
+                W, _ = _stdp.stdp_update_plain(W, x_pre, x_post, spk_pre, spk_post, c, soft)
+            else:
+                W, _ = _stdp.stdp_update(W, x_pre, x_post, spk_pre, spk_post, c, soft, cols)
+            return W, x_pre + spk_pre, x_post + spk_post
+
+        return update
+
+    def reward_update_fn(self, dt: float, tau_e: float) -> Callable:
+        """Reward-modulated (three-factor) update, Izhikevich's (2007)
+        distal-reward rule: ``E <- E*exp(-dt/tau_e) + (pot - dep)``, ``W <-
+        clip(W + r*E)``; ``(W, E, x_pre, x_post, spk_pre, spk_post, r) ->
+        (W', E', x_pre', x_post')``.  Hard bounds only; ``r`` a number or a
+        0-dim tensor (read on the device)."""
+        if tau_e <= 0:
+            raise ValueError("reward-modulated STDP requires tau_e > 0.")
+        d_p, d_m = self._decays(dt)
+        c, cols = self._consts(float(np.exp(-dt / tau_e))), self._cols
+        diagonal = self.params["weights"].dim() == 1
+
+        def update(W, E, x_pre, x_post, spk_pre, spk_post, r):
+            if not isinstance(r, torch.Tensor) or r.dtype != W.dtype or r.device != W.device:
+                r = torch.as_tensor(r).to(device=W.device, dtype=W.dtype)
+            x_pre, x_post = x_pre * d_p, x_post * d_m
+            rule = _stdp.stdp_update_plain if diagonal else _stdp.stdp_update
+            W, E = rule(W, x_pre, x_post, spk_pre, spk_post, c, False, cols, E, r.reshape(()))
+            return W, E, x_pre + spk_pre, x_post + spk_post
+
+        return update
+
+    def update(self, spk_pre, spk_post, dt: float) -> None:
+        """One eager step of the rule (the object API; ``Network.fit_stdp``
+        is the trainer)."""
+        spk_pre = _as_tensor(spk_pre, self.dtype, self.device)
+        spk_post = _as_tensor(spk_post, self.dtype, self.device)
+        W, x_pre, x_post = self.update_fn(float(dt))(
+            self.params["weights"], self.params["x_pre"], self.params["x_post"], spk_pre,
+            spk_post)
+        self.params["weights"] = W
+        self.params["x_pre"] = x_pre
+        self.params["x_post"] = x_post
+
+
+class STDP(_PairRule, Linear):
+    """Spike-timing-dependent plasticity edge: online, unsupervised, local.
+
+    Pair-based all-to-all trace STDP (Morrison, Diesmann & Gerstner 2008),
+    per integration step:
+
+        x_pre  <- x_pre  * exp(-dt/tau_plus)           # decay first
+        x_post <- x_post * exp(-dt/tau_minus)
+        pot = a_plus  * outer(spk_post, x_pre)         # pre before post: LTP
+        dep = a_minus * outer(x_post, spk_pre)         # post before pre: LTD
+        W <- clip(W + pot - dep, w_min, w_max)         # hard bounds (default)
+        W <- clip(W + pot*(w_max - W) - dep*(W - w_min))  # soft_bounds=True
+        x_pre += spk_pre;  x_post += spk_post          # after use: zero-lag
+                                                       # pairs do not interact
+
+    ``tau_plus``/``tau_minus`` are in the network's time units.  1-D
+    (diagonal) weights give population-scale self-edges: the outer products
+    become elementwise products, O(N).  ``weights=None`` draws the initial
+    weights uniformly within the bounds from ``rng`` (a numpy Generator, so
+    the JAX package's draw is the same).  ``w_dtype`` (e.g. bfloat16) sets
+    the type of the weights and of both traces, as in the JAX package.
+
+    During a run the edge is a plain linear projection; the traces and the
+    weight updates are driven by ``Network.fit_stdp``.  The traces persist in
+    ``params``, so chunked fits continue plasticity seamlessly.
+    """
+
+    _tensors = ["weights"]
+
+    def __init__(self, n_in: int, n_out: int, weights=None, dtype=torch.float64,
+                 tau_plus: float = 20.0, tau_minus: float = 20.0, a_plus: float = 0.005,
+                 a_minus: float = 0.00525, w_min: float = 0.0, w_max: float = 1.0,
+                 soft_bounds: bool = False, w_dtype=None,
+                 rng: Optional[np.random.Generator] = None, device=None, **kwargs):
+        _check_stdp_hparams(tau_plus, tau_minus, a_plus, a_minus, w_min, w_max)
+        if w_dtype is not None:
+            dtype = _resolve_stdp_w_dtype(w_dtype)
+        if weights is None:
+            # uniform within the bounds (zeros would leave a_plus the only
+            # way off the lower bound)
+            rng = rng or np.random.default_rng()
+            weights = rng.uniform(w_min, w_max, size=(n_out, n_in))
+        Linear.__init__(self, n_in, n_out, weights=weights, dtype=dtype, detach=True,
+                        device=device)
+        self._init_rule(tau_plus, tau_minus, a_plus, a_minus, w_min, w_max, soft_bounds)
+
+
+class BlockSparseSTDP(_PairRule, BlockSparseLinear):
+    """Block-sparse STDP: the pair rule of :class:`STDP` on the fan-in blocks
+    of a ``BlockSparseCoupling``, plasticity at population scale where a
+    dense plastic W cannot exist.  The traces stay O(N) vectors; the outer
+    products are per block, on the gathered pre-synaptic blocks:
+
+        pot[r,c,i,j] = a_plus  * spk_post[r*bs+i] * x_pre[cols[r,c]*bs+j]
+        dep[r,c,i,j] = a_minus * x_post[r*bs+i]   * spk_pre[cols[r,c]*bs+j]
+
+    so every stored entry follows the dense rule for the synapse it stores;
+    synapses outside the blocks are absent.  On the card the update is one
+    pass of the ``stdp_update`` kernel over the ``(n_br, cb, bs, bs)`` block
+    tensor.  No per-block delays (the rule would need per-synapse delayed
+    pre-synaptic spike trains).  ``block_dtype`` bfloat16 streams the blocks
+    at bfloat16 in the projection; the plastic tensor stays at the edge's
+    type, cast in the step each step (the fit's weights are always the
+    current ones).  ``block_dtype='int8_master'`` raises ``ValueError``, and
+    so does any keyword the edge does not take (the JAX package ignores
+    them, ``rng`` among them).
+    """
+
+    def __init__(self, n_in: int, n_out: int, weights=None, dtype=torch.float64,
+                 tau_plus: float = 20.0, tau_minus: float = 20.0, a_plus: float = 0.005,
+                 a_minus: float = 0.00525, w_min: float = 0.0, w_max: float = 1.0,
+                 soft_bounds: bool = False, w_dtype=None, block_dtype=None, device=None,
+                 **kwargs):
+        if kwargs:
+            raise ValueError(
+                f"BlockSparseSTDP takes no {', '.join(sorted(kwargs))}: its weights are the "
+                "given BlockSparseCoupling's blocks (no random init, so no rng), and it has "
+                "no other options.")
+        _check_stdp_hparams(tau_plus, tau_minus, a_plus, a_minus, w_min, w_max)
+        if w_dtype is not None:
+            dtype = _resolve_stdp_w_dtype(w_dtype)
+        if block_dtype == "int8_master":
+            raise ValueError(
+                "block_dtype='int8_master' is a gradient-training stream (STE through a "
+                "quantized master); the plastic STDP carry must stay a float tensor -- use "
+                "w_dtype='bfloat16' to halve the plastic-W traffic instead.")
+        BlockSparseLinear.__init__(self, n_in, n_out, weights, delays=None, dtype=dtype,
+                                   detach=True, block_dtype=block_dtype, device=device)
+        self._cols = self.cols
+        self._init_rule(tau_plus, tau_minus, a_plus, a_minus, w_min, w_max, soft_bounds)

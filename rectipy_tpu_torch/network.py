@@ -19,7 +19,11 @@ windowed recording semantics.  The trainers:
 - ``fit_bptt_multistart``: ``fit_bptt_batch``'s update for ``M``
   independently initialised starts, the best written back;
 - ``fit_es``: evolution strategies over node and edge parameters, each
-  generation one ``run_batch`` of the candidates.
+  generation one ``run_batch`` of the candidates;
+- ``fit_stdp``: spike-timing-dependent plasticity of an ``STDP`` or
+  ``BlockSparseSTDP`` edge (reward-modulated, homeostatic scaling), the
+  update one launch of the fused ``stdp_update`` kernel a step on the card;
+- ``fit_eprop``: online three-factor learning of a readout edge.
 
 Batched trials: ``run_batch`` integrates ``B`` independent trials together
 (``(B, T, m)`` inputs, or a shared ``(T, m)`` drive with per-trial
@@ -34,8 +38,7 @@ On the device: the inputs move to the device once, the records and losses
 stay on the device, and nothing inside the loops synchronises with the host;
 they cross to the host once, at the end.
 
-Not ported yet (ROADMAP Queue 1 items 12 and 14): ``fit_stdp`` and
-``fit_eprop`` with the STDP edges, and ``mesh=``.
+Not ported yet (ROADMAP Queue 1 item 14): ``mesh=``.
 """
 
 from __future__ import annotations
@@ -50,16 +53,23 @@ import numpy as np
 import torch
 from networkx import DiGraph
 
-from .edges import (RLS, BlockSparseLinear, Linear, LinearFilter, LinearMasked, LinearMemory,
-                    LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
+from .edges import (RLS, STDP, BlockSparseLinear, BlockSparseSTDP, Linear, LinearFilter,
+                    LinearMasked, LinearMemory, LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
 from .inputs import InputSpec
 from .nodes import InstantNode, RateNet, SpikeNet, SpikeResetNet, resolve_device, resolve_dtype
 from .observer import Observer
+from .ops.stdp import clip
 from .train import get_loss_function, get_optimizer
 from .train.optimizers import tree_map
 from .utility import add_op_name, retrieve_from_dict
 
 __all__ = ["FeedbackNetwork", "Network"]
+
+
+# the keyword arguments an STDP edge takes from add_edge (the JAX package's
+# stdp_keys, less those add_edge fills in itself)
+_STDP_KEYS = ("tau_plus", "tau_minus", "a_plus", "a_minus", "w_min", "w_max", "soft_bounds",
+              "w_dtype", "rng")
 
 
 def _ekey(u: str, v: str) -> str:
@@ -134,7 +144,9 @@ def _read_vars(rec_info: list, state: dict, params: dict) -> list:
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+    """A tensor as a numpy array; bfloat16 (which numpy lacks) as float32."""
+    x = x.detach()
+    return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -163,7 +175,8 @@ class Network:
         self._compiled = None
         self._step_cache: Dict[tuple, Callable] = {}
         self._fb_store: Dict[str, torch.Tensor] = {}  # previous-step feedback outputs
-        self._train_edge: Optional[Tuple[str, str]] = None  # the RLS edge (source, target)
+        # the edge an online trainer adapts (RLS, eprop or STDP): (source, target)
+        self._train_edge: Optional[Tuple[str, str]] = None
         self.last_fit: Optional[dict] = None  # the paths the last fit_bptt took
 
     # ------------------------------------------------------------- container
@@ -537,9 +550,19 @@ class Network:
         - ``None`` or ``'gd'``: the edge frozen or trained by ``fit_bptt``;
         - ``'rls'``: an ``RLS`` readout (``beta``, ``alpha``) that
           ``fit_rls`` trains online; its dtype is ``rls_dtype``, by default
-          float64 (the JAX package takes float64 only with x64 on).
+          float64 (the JAX package takes float64 only with x64 on);
+        - ``'eprop'``: the class above built from the weights alone, frozen
+          to autograd, which ``fit_eprop`` trains online;
+        - ``'stdp'``: an ``STDP`` edge (``tau_plus``, ``tau_minus``,
+          ``a_plus``, ``a_minus``, ``w_min``, ``w_max``, ``soft_bounds``,
+          ``w_dtype``, ``rng``), or a ``BlockSparseSTDP`` for a
+          ``BlockSparseCoupling`` (the same, ``block_dtype`` for ``rng``),
+          which ``fit_stdp`` trains.  Delays, masks, filters and short-term
+          plasticity raise ``ValueError`` on a plastic edge, and so does
+          ``rng`` on a block one (the JAX package ignores it there).
 
-        The rules ``'eprop'`` and ``'stdp'`` raise ``NotImplementedError``."""
+        Other keywords an STDP edge does not take are ignored, as in the
+        JAX package."""
         edge_attrs = dict(edge_attrs or {})
         kwargs.pop("dtype", None)
         kwargs.pop("device", None)
@@ -574,9 +597,7 @@ class Network:
             kwargs["dt"] = self.dt
         else:
             EdgeClass = Linear
-        if train not in (None, "gd", "rls"):
-            if train in ("eprop", "stdp"):
-                raise _todo(f"train={train!r}", "12")
+        if train not in (None, "gd", "rls", "eprop", "stdp"):
             raise ValueError(
                 "Invalid option for keyword argument `train`. Please see the docstring of "
                 "`Network.add_edge` for valid options."
@@ -587,6 +608,33 @@ class Network:
                        dtype=resolve_dtype(kwargs.get("rls_dtype", torch.float64)),
                        beta=kwargs.get("beta", 1.0), alpha=kwargs.get("alpha", 1.0),
                        device=self.device)
+            self._train_edge = (source, target)
+        elif train == "eprop":
+            # the delta rule updates the weights outside autograd, like RLS
+            edge = EdgeClass(n_in=n_in, n_out=n_out, weights=weights, dtype=self.dtype,
+                             device=self.device, detach=True)
+            self._train_edge = (source, target)
+        elif train == "stdp":
+            structural = sorted({"delays", "mask", "filter_weights", "tau_facil",
+                                 "tau_depress"} & set(kwargs))
+            if structural:
+                # a plastic edge is a plain projection: the pair rule would
+                # need per-synapse delayed/masked/filtered pre-spike trains
+                raise ValueError(
+                    f"{'/'.join(structural)} are not supported on a plastic "
+                    "(train='stdp') edge; chain a separate delayed/masked/"
+                    "filtered edge for the transmission structure and keep "
+                    "the STDP edge a plain projection.")
+            rule = {k: v for k, v in kwargs.items() if k in _STDP_KEYS}
+            common = dict(n_in=n_in, n_out=n_out, weights=weights, dtype=self.dtype,
+                          device=self.device)
+            if hasattr(weights, "blocks"):
+                # plasticity on the fan-in blocks; a stray rng raises
+                if "block_dtype" in kwargs:
+                    rule["block_dtype"] = kwargs["block_dtype"]
+                edge = BlockSparseSTDP(**common, **rule)
+            else:
+                edge = STDP(**common, **rule)
             self._train_edge = (source, target)
         else:
             kwargs.update({"n_in": n_in, "n_out": n_out, "weights": weights,
@@ -2682,6 +2730,335 @@ class Network:
                              losses=_host(torch.stack(rec_loss)), var_values=var_values or None)
         return loss
 
+    def fit_stdp(self, inputs, sampling_steps: int = 100, reward=None, tau_e: float = None,
+                 homeostasis_steps: int = None, homeostasis_target=None, verbose: bool = True,
+                 **kwargs) -> Observer:
+        """Online spike-timing-dependent plasticity of the edge added with
+        ``add_edge(..., train='stdp')`` (an ``STDP`` edge, or a
+        ``BlockSparseSTDP`` one on a ``BlockSparseCoupling``).
+
+        Unsupervised: both endpoint nodes must be spiking populations, and
+        the pair rule takes each step's own spike decisions, read from the
+        state before the step by the nodes' spike readers (what
+        ``record_spikes`` counts).  Each step runs the network with the
+        current weights, then updates the weights and both traces; on the
+        card the update of dense or block weights is one launch of the
+        ``stdp_update`` kernel (``ops/stdp.py``).  The traces persist on the
+        edge, so chunked calls continue plasticity seamlessly.
+
+        ``inputs``: a ``(T, m)`` array or an unbatched input spec
+        (``rectipy_tpu_torch.inputs``), made on the device.
+
+        ``reward``: a ``(T,)`` per-step reward switches to reward-modulated
+        STDP (Izhikevich 2007): the pair increments charge an eligibility
+        trace ``E`` (decay ``tau_e``, default ``10 * max(tau_plus,
+        tau_minus)``) and the weights move by ``r_t * E`` (hard bounds).
+        ``E`` persists on the edge as ``params['elig']``.
+
+        ``homeostasis_steps``: every period each post-synaptic row's
+        above-floor mass is rescaled to ``homeostasis_target``,
+
+            W_i <- clip(w_min + (W_i - w_min) * target_i / sum(W_i - w_min))
+
+        (by default each row's above-floor mass at the first scaled fit; on a
+        block edge neuron ``r*bs + i``'s row is the entries ``[r, :, i, :]``).
+        The target (``edge._homeo_target``) and the schedule's phase
+        (``edge._homeo_phase``) persist on the edge, so chunks of any length
+        reproduce one long call.  Where a call starts on a scaling boundary
+        and covers whole periods, the weights recorded at a scaling step are
+        those before the scaling, as on the JAX package's segmented path;
+        otherwise those after it.  Needs 2-D or block weights.
+
+        Records at ``step % sampling_steps == 0``: the step's output,
+        ``record_vars`` after the step, and the weights' ``"w_mean"``,
+        ``"w_min"`` and ``"w_max"`` (with ``"w_steps"``).
+        ``record_spikes=[node, ...]`` adds each node's spike counts over the
+        window that ends at each record step, that step included, under
+        ``(node, "spikes")`` (int32).
+        """
+        if not self._train_edge:
+            raise ValueError("No STDP-trainable edge in the network; add one with "
+                             "add_edge(..., train='stdp').")
+        self.compile()
+        spike_info = self._resolve_record_spikes(kwargs.pop("record_spikes", None))
+        src, tgt = self._train_edge
+        edge = self.get_edge(src, tgt)
+        if not isinstance(edge, (STDP, BlockSparseSTDP)):
+            raise ValueError(
+                f"fit_stdp: the registered train edge {src!r} -> {tgt!r} is a "
+                f"{type(edge).__name__}, not an STDP edge; add it with "
+                "add_edge(..., train='stdp').")
+        blocky = isinstance(edge, BlockSparseSTDP)
+        for label, want in ((src, edge.n_in), (tgt, edge.n_out)):
+            node = self.get_node(label)
+            if not hasattr(node, "_make_spike_reader"):
+                raise ValueError(
+                    f"fit_stdp: node {label!r} ({type(node).__name__}) is not a "
+                    "spiking node; STDP needs pre- and post-synaptic spike trains "
+                    "(SpikeNet / SpikeResetNet / MultiSpikeResetNet populations).")
+            got = int(node._make_spike_reader()(node.y).shape[-1])
+            if got != want:
+                raise ValueError(
+                    f"fit_stdp: node {label!r} emits a {got}-wide spike vector but "
+                    f"the STDP edge {src!r} -> {tgt!r} expects {want}.")
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("fit_stdp(mesh=)", "14")
+        obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
+        obs = Observer(dt=self.dt, **obs_kwargs)
+        t0 = perf_counter()
+
+        W = edge.params["weights"]
+        w_dtype = W.dtype
+        reward_mode = reward is not None
+        E = None
+        if reward_mode:
+            if edge.soft_bounds:
+                raise ValueError(
+                    "reward-modulated STDP uses hard bounds (the reward changes "
+                    "sign); construct the edge with soft_bounds=False.")
+            if tau_e is None:
+                tau_e = 10.0 * max(edge.tau_plus, edge.tau_minus)
+            update = edge.reward_update_fn(self.dt, float(tau_e))
+            reward = (reward.detach() if isinstance(reward, torch.Tensor)
+                      else torch.as_tensor(np.asarray(reward, dtype=np.float64)))
+            reward = reward.to(device=self.device, dtype=w_dtype).reshape(-1)
+            E = edge.params.get("elig")
+            E = torch.zeros_like(W) if E is None else E
+        else:
+            if tau_e is not None:
+                raise ValueError(
+                    "tau_e only applies to reward-modulated STDP; pass the "
+                    "per-step reward= signal as well (or drop tau_e).")
+            update = edge.update_fn(self.dt)
+        consts = edge._consts()
+        h_steps, h_target = 0, None
+        if homeostasis_steps is not None:
+            h_steps = int(homeostasis_steps)
+            if h_steps <= 0:
+                raise ValueError("homeostasis_steps must be a positive integer.")
+            if not blocky and W.dim() != 2:
+                raise ValueError(
+                    "homeostatic synaptic scaling needs 2-D edge weights (rows "
+                    "= postsynaptic neurons); 1-D diagonal edges have no row "
+                    "mass to normalize.")
+            if homeostasis_target is None:
+                homeostasis_target = getattr(edge, "_homeo_target", None)
+            if homeostasis_target is None:
+                above = W - consts.w_min
+                homeostasis_target = (above.sum(dim=(1, 3)).reshape(-1) if blocky
+                                      else above.sum(dim=1))
+            h_target = (homeostasis_target.detach() if isinstance(homeostasis_target,
+                                                                  torch.Tensor)
+                        else torch.as_tensor(np.asarray(homeostasis_target, dtype=np.float64)))
+            h_target = h_target.to(device=self.device, dtype=w_dtype)
+            if h_target.dim() == 0:
+                h_target = h_target.expand(edge.n_out).clone()
+            if tuple(h_target.shape) != (edge.n_out,):
+                raise ValueError(
+                    f"homeostasis_target must be a scalar or ({edge.n_out},) "
+                    f"per-row array; got shape {tuple(h_target.shape)}.")
+            edge._homeo_target = h_target  # one target across chunked calls
+        elif homeostasis_target is not None:
+            raise ValueError("homeostasis_target only applies with homeostasis_steps set.")
+        # the scaling schedule's global phase: chunked calls continue one
+        # long call's schedule
+        h_phase = int(getattr(edge, "_homeo_phase", 0)) if h_steps else 0
+
+        if isinstance(inputs, InputSpec):
+            if inputs.batch is not None:
+                raise ValueError("fit_stdp takes an unbatched input spec; per-trial "
+                                 "parameters have no meaning for a single scan.")
+            xs = inputs.drive(self.dt, self.dtype, self.device)
+            steps, n_chan = int(inputs.steps), int(inputs.channels)
+        else:
+            inputs = self._to_device(inputs)
+            if inputs.ndim != 2:
+                raise ValueError(
+                    f"`inputs` must be a (T, m) array; got shape {tuple(inputs.shape)}")
+            xs = inputs.unbind(0)
+            steps, n_chan = int(inputs.shape[0]), int(inputs.shape[1])
+        if self.n_in and n_chan not in (1, self.n_in):
+            raise ValueError(
+                f"`inputs` has {n_chan} channels but the network input node "
+                f"{self._in_node!r} expects {self.n_in} (or 1, broadcast).")
+        if reward_mode and reward.shape[0] != steps:
+            raise ValueError(
+                f"`reward` must hold one value per step: got {reward.shape[0]} "
+                f"rewards for {steps} steps.")
+        # the JAX package's segmented path: a call that starts on a scaling
+        # boundary and covers whole periods records the weights of a scaling
+        # step before the scaling (the dynamics are the same either way)
+        segmented = bool(h_steps) and h_phase % h_steps == 0 and steps % h_steps == 0 \
+            and steps >= h_steps
+        scale_rows = _homeo_scaler(consts, h_target, blocky) if h_steps else None
+
+        s = int(sampling_steps)
+        step = self.make_step()
+        state = self.init_state()
+        params = self._prep_params(self.parameters_pytree())
+        # the step reads the plastic weights of the loop, never a prepped copy
+        ekey = _ekey(src, tgt)
+        eparams = params["edges"][ekey] = dict(params["edges"][ekey])
+        pre_read = self.get_node(src)._make_spike_reader()
+        post_read = self.get_node(tgt)._make_spike_reader()
+        var_info = self._resolve_record_vars(obs)
+        x_pre, x_post = edge.params["x_pre"], edge.params["x_post"]
+        rec_out, rec_w, rec_spk, rec_vars, acc = [], [], [], [], None
+        with torch.no_grad():
+            for t in range(steps):
+                spk_pre = pre_read(state["nodes"][src]).to(w_dtype)
+                spk_post = post_read(state["nodes"][tgt]).to(w_dtype)
+                if spike_info:
+                    ind = [reader(state["nodes"][label]).to(torch.float32)
+                           for label, reader in spike_info]
+                    acc = ind if acc is None else [a + v for a, v in zip(acc, ind)]
+                eparams["weights"] = W
+                state, out, _ = step(state, params, xs[t])
+                if reward_mode:
+                    W, E, x_pre, x_post = update(W, E, x_pre, x_post, spk_pre, spk_post,
+                                                 reward[t])
+                else:
+                    W, x_pre, x_post = update(W, x_pre, x_post, spk_pre, spk_post)
+                scale_now = h_steps and (t + h_phase) % h_steps == h_steps - 1
+                if scale_now and not segmented:
+                    W = scale_rows(W)
+                if t % s == 0:
+                    rec_out.append(out)
+                    rec_w.append(torch.stack([W.mean(), W.min(), W.max()]).to(w_dtype))
+                    if spike_info:
+                        rec_spk.append(acc)
+                        acc = None
+                    rec_vars.append(_read_vars(var_info, state, params))
+                if scale_now and segmented:
+                    W = scale_rows(W)
+        if h_steps:
+            edge._homeo_phase = (h_phase + steps) % h_steps
+        edge.params["weights"] = W
+        edge.params["x_pre"] = x_pre
+        edge.params["x_post"] = x_post
+        if reward_mode:
+            edge.params["elig"] = E
+        self._write_back(state=state)
+
+        rec_steps = np.arange(0, steps, s)
+        var_values = {}
+        for i, (label, _) in enumerate(spike_info):
+            counts = [r[i] for r in rec_spk]
+            var_values[(label, "spikes")] = (
+                _host(torch.round(torch.stack(counts)).to(torch.int32)) if counts
+                else np.zeros((0, 0), dtype=np.int32))
+        for i, (key, _, _, _) in enumerate(var_info):
+            if rec_vars:
+                var_values[key] = _host(torch.stack([r[i] for r in rec_vars]))
+        obs.record_batch(rec_steps, outputs=_host(torch.stack(rec_out)) if rec_out else None,
+                         losses=np.zeros(len(rec_steps)) if obs.record_loss else None,
+                         var_values=var_values or None)
+        w_stats = _host(torch.stack(rec_w)) if rec_w else np.zeros((0, 3))
+        obs.save("w_steps", rec_steps)
+        obs.save("w_mean", w_stats[:, 0])
+        obs.save("w_min", w_stats[:, 1])
+        obs.save("w_max", w_stats[:, 2])
+        if verbose:
+            print(f"Finished STDP optimization after {perf_counter() - t0} s.")
+        return obs
+
+    def fit_eprop(self, inputs, targets, feedback_weights: np.ndarray = None,
+                  epsilon: float = 0.99, delta: float = 0.9, update_steps: int = 1,
+                  sampling_steps: int = 100, lr: float = 1e-2, decay: float = 0.0,
+                  normalize: bool = False, verbose: bool = True, **kwargs) -> Observer:
+        """Online three-factor (e-prop-style) learning of the readout edge
+        added with ``add_edge(..., train='eprop')`` (or an ``'rls'`` edge).
+        Per step, a running average of the residual (rate ``epsilon``) and an
+        eligibility trace of the pre-synaptic activity (rate ``delta``) make
+        a local delta-rule update:
+
+            err_bar <- epsilon * err_bar + (1 - epsilon) * (y* - y)
+            elig    <- delta * elig + (1 - delta) * r_pre
+            W       <- W * (1 - lr*decay) + lr * outer(err_bar, elig)   every update_steps
+
+        ``normalize=True`` divides the outer product by ``1e-8 + elig @
+        elig`` (NLMS: ``lr`` a relaxation factor in (0, 2)); ``decay``
+        L2-regularizes the rule.  ``feedback_weights`` ``(n_in, n_out)``
+        feeds ``err_bar`` back into the network input each step (``x_t +
+        feedback_weights @ err_bar``).  The traces and the update run in
+        ``promote_types(weights' dtype, float32)``; the hyperparameters are
+        0-dim tensors of that type.  Steps without an update skip it (the
+        JAX package computes it and gates it to zero).  Records at ``step %
+        sampling_steps == 0``: the output, the loss ``|err|^2`` and
+        ``record_vars``."""
+        if not self._train_edge:
+            raise ValueError("No online-trainable edge; add one with "
+                             "add_edge(..., train='eprop') or train='rls'.")
+        self.compile()
+        obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
+        obs = Observer(dt=self.dt, **obs_kwargs)
+        if kwargs.pop("mesh", None) is not None:
+            raise _todo("fit_eprop(mesh=)", "14")
+        src, tgt = self._train_edge
+        edge = self.get_edge(src, tgt)
+        step = self.make_step(taps=(src, tgt))
+        params = self._prep_params(self.parameters_pytree())
+        ekey = _ekey(src, tgt)
+        eparams = params["edges"][ekey] = dict(params["edges"][ekey])
+        state = self.init_state()
+        inputs, targets = self._to_device(inputs), self._to_device(targets)
+        if inputs.shape[0] != targets.shape[0]:
+            raise ValueError(
+                "Wrong dimensions of input and target output. Please make sure that "
+                "`inputs` and `targets` agree in the first dimension."
+            )
+        steps = int(inputs.shape[0])
+        W = edge.params["weights"]
+        w_dtype = W.dtype
+        fb = None
+        if feedback_weights is not None:
+            fb = self._to_device(feedback_weights)
+            if tuple(fb.shape) != (self.n_in, int(W.shape[0])):
+                raise ValueError(
+                    f"feedback_weights must have shape (n_in, n_out) = "
+                    f"({self.n_in}, {int(W.shape[0])}); got {tuple(fb.shape)}.")
+        var_info = self._resolve_record_vars(obs)
+        # the traces never drop below float32: epsilon = 0.99 loses ~17% of
+        # (1 - epsilon) in bfloat16; a float64 readout keeps float64
+        acc = torch.promote_types(w_dtype, torch.float32)
+        lr_t, eps_t, delta_t, decay_t = (torch.tensor(float(v), dtype=acc, device=self.device)
+                                         for v in (lr, epsilon, delta, decay))
+        err_bar = torch.zeros(W.shape[0], dtype=acc, device=self.device)
+        elig = torch.zeros(W.shape[1], dtype=acc, device=self.device)
+        u, s = int(update_steps), int(sampling_steps)
+        t0 = perf_counter()
+        rec_steps, rec_out, rec_loss, rec_vars = [], [], [], []
+        with torch.no_grad():
+            for t in range(steps):
+                eparams["weights"] = W
+                x_t = inputs[t]
+                if fb is not None:
+                    x_t = x_t + fb @ err_bar.to(self.dtype)
+                state, out, taps = step(state, params, x_t)
+                err = targets[t].to(acc) - taps[tgt].to(acc)
+                err_bar = eps_t * err_bar + (1.0 - eps_t) * err
+                elig = delta_t * elig + (1.0 - delta_t) * taps[src].to(acc)
+                if t % u == 0:
+                    upd = torch.outer(err_bar, elig)
+                    if normalize:  # NLMS: the step relative to the eligibility energy
+                        upd = upd / (1e-8 + elig @ elig)
+                    W = (W.to(acc) * (1.0 - lr_t * decay_t) + lr_t * upd).to(w_dtype)
+                if t % s == 0:
+                    rec_steps.append(t)
+                    rec_out.append(out.to(w_dtype))
+                    rec_loss.append(err @ err)
+                    rec_vars.append(_read_vars(var_info, state, params))
+        edge.params["weights"] = W
+        self._write_back(state=state)
+        if rec_steps:
+            var_values = {key: _host(torch.stack([r[i] for r in rec_vars]))
+                          for i, (key, _, _, _) in enumerate(var_info)}
+            obs.record_batch(np.asarray(rec_steps), outputs=_host(torch.stack(rec_out)),
+                             losses=_host(torch.stack(rec_loss)), var_values=var_values or None)
+        if verbose:
+            print(f"Finished optimization after {perf_counter() - t0} s.")
+        return obs
+
     def test(self, inputs, targets, loss: str = "mse", loss_kwargs: dict = None,
              sampling_steps: int = 100, verbose: bool = True, **kwargs) -> tuple:
         """Run with frozen parameters and return ``(Observer, loss)``, the
@@ -2696,6 +3073,25 @@ class Network:
         if output.shape[0] != targets.shape[0]:
             targets = targets[torch.as_tensor(np.asarray(obs["steps"]))]
         return obs, float(loss_fn(output, targets))
+
+
+def _homeo_scaler(c, h_target: torch.Tensor, blocky: bool) -> Callable:
+    """``fit_stdp``'s multiplicative synaptic scaling: each post-synaptic
+    row's above-floor mass rescaled to ``h_target`` (a block edge's row of
+    neuron ``r*bs + i`` is the entries ``[r, :, i, :]``), then clipped to the
+    bounds ``c`` (``ops/stdp.stdp_consts``)."""
+    eps = torch.tensor(1e-12, dtype=h_target.dtype, device=h_target.device)
+
+    def scale_rows(W):
+        above = W - c.w_min
+        if blocky:
+            mass = above.sum(dim=(1, 3))  # (n_br, bs)
+            scale = h_target.reshape(mass.shape) / (mass + eps)
+            return clip(c.w_min + above * scale[:, None, :, None], c)
+        scale = h_target / (above.sum(dim=1) + eps)
+        return clip(c.w_min + above * scale[:, None], c)
+
+    return scale_rows
 
 
 def _value_and_grad(loss_fn, train, *args, has_aux: bool = False):

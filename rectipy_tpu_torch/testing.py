@@ -23,6 +23,13 @@ The generic fused step: one node of each class and mode
 and inputs for one step of it (``generic_inputs``); ``check_generic`` holds
 the kernel's rows to the plain version's (see ``GENERIC_TOL``).
 
+The fused STDP update: ``STDP_CASES`` names every variant (hard, soft,
+reward), layout (dense, blocks) and type (float32, float64, bfloat16);
+``stdp_inputs`` makes random weights, traces, 0/1 spikes and, for blocks,
+columns that repeat within a row, at shapes that leave ragged rows and
+grids; ``check_stdp`` launches the kernel and holds it to the plain
+version bit for bit.
+
 The tensor cores' int8 product: ``mma_m16n8k32`` is a numpy model of one
 ``mma.sync`` m16n8k32 s8 on the PTX ISA's fragment layouts, with
 ``sbytes`` and ``words`` between uint32 registers and their bytes; the
@@ -37,9 +44,11 @@ import numpy as np
 import torch
 
 from .ops.fused_opt import bias_corrections
+from .ops.stdp import stdp_consts, stdp_update, stdp_update_plain
 
-__all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "adam_inputs",
-           "check_adam_requant", "check_generic", "generic_case_net", "generic_inputs",
+__all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "STDP_CASES", "adam_inputs",
+           "check_adam_requant", "check_generic", "check_stdp", "generic_case_net",
+           "generic_inputs", "stdp_inputs",
            "generic_rows_instance", "generic_rows_operands", "lost_eighth_margin",
            "mma_m16n8k32", "qif_rows_instance", "quant_scales", "reciprocal_rows", "sbytes",
            "words"]
@@ -374,3 +383,61 @@ def lost_eighth_margin(step, srcs, Ws, drive, states, vecs, ref) -> float:
     cut = generic_fused_step_plain(step, cut_srcs, Ws, drive, states, vecs)
     v = step.spike_specs[0][1]
     return float(((cut[v] - ref[v]).abs() / (atol + rtol * ref[v].abs())).min())
+
+
+STDP_CASES = [(mode, layout, dtype) for mode in ("hard", "soft", "reward")
+              for layout in ("dense", "blocks") for dtype in ("float32", "float64", "bfloat16")]
+# dense: 37 rows of 1,003 (rows longer than a thread block, not a multiple
+# of it); blocks: 5 block rows of 3 blocks of 20 x 20 (rows shorter than a
+# thread block), columns drawn with repeats
+STDP_SHAPES = {"dense": (37, 1003), "blocks": (5, 3, 20, 8)}
+
+
+def stdp_inputs(layout: str, dtype: str, seed: int, device, shape=None) -> dict:
+    """Random operands of one STDP update: ``W`` within the bounds [0, 0.5],
+    decayed traces in [0, 2), 0/1 spikes (30%), for reward mode ``E``
+    (normal, 1e-2) and ``r`` (0-dim), for blocks ``cols`` (int64, with
+    repeats); ``c`` the constants (a_plus 0.01, a_minus 0.012, d_e 0.95).
+    ``shape``: dense ``(n_out, n_in)`` or blocks ``(n_br, cb, bs, nb_in)``."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed)
+    shape = shape or STDP_SHAPES[layout]
+    if layout == "dense":
+        n_out, n_in = shape
+        w_shape, cols = (n_out, n_in), None
+    else:
+        n_br, cb, bs, nb_in = shape
+        n_out, n_in, w_shape = n_br * bs, nb_in * bs, (n_br, cb, bs, bs)
+        cols = torch.as_tensor(rng.integers(0, nb_in, size=(n_br, cb)), device=device)
+
+    def on(a):
+        return torch.as_tensor(a, device=device).to(dt)
+
+    return dict(W=on(rng.uniform(0.0, 0.5, w_shape)), x_pre=on(rng.random(n_in) * 2.0),
+                x_post=on(rng.random(n_out) * 2.0), spk_pre=on(rng.random(n_in) < 0.3),
+                spk_post=on(rng.random(n_out) < 0.3), cols=cols,
+                E=on(rng.normal(size=w_shape) * 1e-2), r=on(rng.normal()),
+                c=stdp_consts(dt, device, 0.01, 0.012, 0.0, 0.5, d_e=0.95))
+
+
+def check_stdp(mode: str, ops: dict) -> dict:
+    """Launch the kernel on ``stdp_inputs``' operands and hold ``W'`` (and
+    ``E'``) to the plain version bit for bit; returns ``{"launches",
+    "moved", "max_abs_err"}`` (``moved``: entries the update changed)."""
+    args = (ops["W"], ops["x_pre"], ops["x_post"], ops["spk_pre"], ops["spk_post"], ops["c"],
+            mode == "soft", ops["cols"])
+    E, r = (ops["E"], ops["r"]) if mode == "reward" else (None, None)
+    before = stdp_update.launches
+    got = stdp_update(*args, E, r)
+    launches = stdp_update.launches - before
+    ref = stdp_update_plain(*args, E, r)
+    err = 0.0
+    for a, b in zip(got, ref):
+        if b is None:
+            continue
+        if not torch.equal(a, b):
+            raise AssertionError(f"stdp_update ({mode}, {b.dtype}, {tuple(b.shape)}) differs "
+                                 f"from its plain version on {int((a != b).sum())} entries")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    return {"launches": launches, "moved": int((ref[0] != ops["W"]).sum()),
+            "max_abs_err": err}

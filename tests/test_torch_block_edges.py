@@ -285,7 +285,8 @@ def test_frozen_int8_master_edge_passes_ste_source_gradients():
 @pytest.mark.parametrize("case", ["stp_first", "mask", "filter", "stdp", "dispatch"])
 def test_add_edge_block_dispatch_and_errors(case):
     # rectipy_tpu/network.py:529-543: the STP combination check comes first,
-    # then a block coupling with a mask or filter; stdp stays unported
+    # then a block coupling with a mask or filter; stdp makes a
+    # BlockSparseSTDP edge and refuses per-block delays
     rng = np.random.default_rng(3)
     W = _small_block_coupling(rng, 2, 2, 4, 2)
     net = FeedbackNetwork(1e-2, dtype=torch.float64, device="cpu")
@@ -303,8 +304,10 @@ def test_add_edge_block_dispatch_and_errors(case):
         with pytest.raises(ValueError, match="per-block"):
             net.add_edge("pop", "pop", filter_weights=np.eye(8), **kw)
     elif case == "stdp":
-        with pytest.raises(NotImplementedError, match="item 12"):
-            net.add_edge("pop", "pop", train="stdp", **kw)
+        with pytest.raises(ValueError, match="not supported on a plastic"):
+            net.add_edge("pop", "pop", train="stdp", delays=np.ones((2, 2), dtype=int), **kw)
+        e = net.add_edge("pop", "pop", train="stdp", **kw)
+        assert isinstance(e, tedges.BlockSparseSTDP) and net._train_edge == ("pop", "pop")
     else:
         e = net.add_edge("pop", "pop", delays=np.ones((2, 2), dtype=int), **kw)
         assert isinstance(e, tedges.BlockSparseLinear) and e.max_delay == 1

@@ -30,8 +30,10 @@ from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_
                                          int8_mm_t_plain, int8_mm_t_route, int8_mv, int8_mv_t,
                                          pack_int4,
                                          quant_vec, quantize_rows)
-from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, adam_inputs, check_adam_requant,
-                                       check_generic, generic_case_net, generic_inputs,
+from rectipy_tpu_torch.ops.stdp import stdp_consts, stdp_update
+from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, STDP_CASES, adam_inputs,
+                                       check_adam_requant, check_generic, check_stdp,
+                                       generic_case_net, generic_inputs, stdp_inputs,
                                        generic_rows_instance, generic_rows_operands,
                                        lost_eighth_margin, qif_rows_instance, quant_scales,
                                        reciprocal_rows)
@@ -2025,3 +2027,105 @@ def test_int8_master_multistart_on_card(cuda):
     assert np.min(np.diff(final)) / final[0] > 1e-4  # 100 tolerances
     np.testing.assert_allclose(res[str(cuda)][0], res["cpu"][0], rtol=1e-6)
     assert res[str(cuda)][1] == res["cpu"][1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,layout,dtype", STDP_CASES)
+def test_stdp_update_kernel_bit_identical_to_plain(cuda, mode, layout, dtype):
+    # every variant, layout and type on ragged rows (dense 37 x 1,003;
+    # blocks of 20 x 20 with repeated columns)
+    res = check_stdp(mode, stdp_inputs(layout, dtype, 5, cuda))
+    assert res["launches"] == 1 and res["moved"] > 0
+    # and at the main paths' widths: a dense row of 10,000, blocks of 512
+    shape = (3, 10_000) if layout == "dense" else (2, 4, 512, 6)
+    assert check_stdp(mode, stdp_inputs(layout, dtype, 6, cuda, shape))["launches"] == 1
+
+
+@pytest.mark.gpu
+def test_stdp_update_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    ops = stdp_inputs("dense", "float32", 1, cuda)
+    W, xp, xq, sp, sq, c = (ops[k] for k in ("W", "x_pre", "x_post", "spk_pre", "spk_post", "c"))
+    c16 = stdp_consts(torch.float16, cuda, 0.01, 0.012, 0.0, 0.5)
+    with pytest.raises(ValueError, match="float32, float64 and bfloat16"):
+        stdp_update(W.half(), xp.half(), xq.half(), sp.half(), sq.half(), c16)
+    with pytest.raises(ValueError, match="contiguous"):
+        stdp_update(W.t(), xq, xp, sq, sp, c)
+    with pytest.raises(ValueError, match="x_pre"):
+        stdp_update(W, xp.double(), xq, sp, sq, c)
+    with pytest.raises(ValueError, match="spk_post"):
+        stdp_update(W, xp, xq, sp, sq.cpu(), c)
+    with pytest.raises(ValueError, match="shape"):
+        stdp_update(W[0].contiguous(), xp, xq[:1], sp, sq[:1], c)
+    with pytest.raises(ValueError, match="0-dim"):
+        stdp_update(W, xp, xq, sp, sq, c, E=ops["E"], r=ops["r"].cpu())
+    with pytest.raises(ValueError, match="hard bounds"):
+        stdp_update(W, xp, xq, sp, sq, c, soft=True, E=ops["E"], r=ops["r"])
+    blk = stdp_inputs("blocks", "float32", 1, cuda)
+    with pytest.raises(ValueError, match="cols"):
+        stdp_update(blk["W"], blk["x_pre"], blk["x_post"], blk["spk_pre"], blk["spk_post"],
+                    blk["c"], cols=blk["cols"].int())
+
+
+def _plastic_qif(device, n, blocks=None, **kw):
+    """A QIF population whose only coupling is a plastic feedback self-edge,
+    float64, dense or on a BlockSparseCoupling."""
+    from rectipy_tpu_torch import BlockSparseCoupling, FeedbackNetwork
+
+    rng = np.random.default_rng(80)
+    net = FeedbackNetwork(1e-3, device=device, dtype=torch.float64)
+    net.add_diffeq_node("qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif", weights=None,
+                        n=n, input_var="I_ext", output_var="s", spike_var="spike",
+                        reset_var="v", spike_threshold=1e2, spike_reset=-1e2,
+                        node_vars={"all/qif_op/eta": rng.uniform(300.0, 500.0, n)})
+    w = (BlockSparseCoupling(rng.uniform(0.0, 0.2, blocks[0]), blocks[1]) if blocks
+         else rng.uniform(0.0, 0.2, size=(n, n)))
+    net.add_edge("qif", "qif", feedback=True, train="stdp", weights=w, tau_plus=2e-2,
+                 tau_minus=2e-2, a_plus=5e-3, a_minus=4e-3, w_min=0.0, w_max=0.3, **kw)
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["dense", "blocks"])
+def test_fit_stdp_on_card_launches_the_kernel_and_matches_cpu(cuda, layout):
+    # reward and homeostasis, 200 steps: one launch a step, and the card's
+    # float64 fit held to the CPU's (the projection's sums in another order)
+    n, T = 256, 200
+    rng = np.random.default_rng(81)
+    blocks = None
+    if layout == "blocks":
+        blocks = ((4, 3, 64, 64), rng.integers(0, 4, size=(4, 3)).astype(np.int32))
+    x = (rng.random((T, n)) < 0.1) * 30.0
+    reward = rng.normal(size=T)
+    res = {}
+    for device in (cuda, "cpu"):
+        net = _plastic_qif(device, n, blocks)
+        before = stdp_update.launches
+        obs = net.fit_stdp(x, reward=reward, homeostasis_steps=64, sampling_steps=50,
+                           record_spikes=["qif"], verbose=False)
+        if device is cuda:
+            assert stdp_update.launches - before == T
+        edge = net.get_edge("qif", "qif")
+        res[str(device)] = (obs.to_numpy(("qif", "spikes")), edge.params["weights"].cpu().numpy(),
+                            edge.params["elig"].cpu().numpy())
+    card, cpu = res[str(cuda)], res["cpu"]
+    assert cpu[0].sum() > 0
+    np.testing.assert_array_equal(card[0], cpu[0])
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-10, atol=1e-15)
+    np.testing.assert_allclose(card[2], cpu[2], rtol=1e-10, atol=1e-15)
+
+
+@pytest.mark.gpu
+def test_fit_eprop_on_card_through_the_fused_step(cuda):
+    # the readout of the fused bf16 node trained by the delta rule: one
+    # qif_sfa_step launch a step, finite records, the weights moved
+    n, T = 512, 300
+    net = _spiking_qif(cuda, n)
+    net.add_func_node("readout", 1, activation_function="identity")
+    edge = net.add_edge("qif", "readout", train="eprop", weights=np.zeros((1, n)))
+    target = np.sin(np.linspace(0.0, 6.0, T))[:, None]
+    before = qif_sfa_step.launches
+    obs = net.fit_eprop(np.full((T, 1), 3.0), target, lr=1e-3, sampling_steps=10,
+                        normalize=True, verbose=False)
+    assert qif_sfa_step.launches - before == T
+    assert np.isfinite(obs.to_numpy("loss")).all() and obs.to_numpy("out").shape == (T // 10, 1)
+    assert float(edge.params["weights"].abs().max()) > 0

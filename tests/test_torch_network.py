@@ -181,10 +181,20 @@ def test_unported_network_features_raise():
         tnet.add_edge("qif", "qif", weights=blocks, mask=np.ones((8, 8)))
     assert isinstance(tnet.add_edge("inp", "qif", mask=np.ones((8, 1))), LinearMasked)
     assert isinstance(tnet.add_edge("inp", "qif", delays=np.ones(1, dtype=int)), LinearMemory)
-    # the RLS readout and run(truncate_steps=) are ported; eprop/stdp are not
-    for rule in ("eprop", "stdp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-            tnet.add_edge("inp", "qif", train=rule)
+    # the RLS readout, run(truncate_steps=) and the eprop and stdp rules are
+    # ported (tests/test_torch_eprop.py, test_torch_stdp.py,
+    # test_torch_block_stdp.py): 'stdp' builds an STDP edge (a
+    # BlockSparseSTDP one on a coupling), 'eprop' registers its train edge
+    from rectipy_tpu_torch import BlockSparseSTDP, Linear, STDP
+
+    assert isinstance(tnet.add_edge("inp", "qif", train="stdp"), STDP)
+    assert tnet._train_edge == ("inp", "qif")
+    assert isinstance(tnet.add_edge("qif", "qif", weights=blocks, train="stdp"),
+                      BlockSparseSTDP)
+    assert tnet._train_edge == ("qif", "qif")
+    tnet.pop_edge("qif", "qif")
+    assert type(tnet.add_edge("inp", "qif", train="eprop")) is Linear
+    assert tnet._train_edge == ("inp", "qif")
     # record_spikes is ported (tests/test_torch_record_spikes.py): a node
     # without a spike decision is refused, as in the JAX package
     tnet.add_func_node("rate", 8, activation_function="tanh")
