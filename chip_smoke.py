@@ -29,10 +29,11 @@
    requantize kernel (rtol 1e-6; wq equal away from rounding boundaries)
    against their plain versions at the training path's shapes.
 8. train_path: bench.py's north-star training (QIF SpikeResetNet, N =
-   10,000, T = 500, dt = 5e-3, int8_master coupling, adam lr 1e-4, 16
-   epochs) through Network.fit_bptt with RECTIPY_FUSED_ADAM=on: a 2-epoch
-   warm fit and one timed fit; the launch counts must be 16 adam_requant and
-   8,000 of each int8 matvec per fit, the losses finite.
+   10,000, T = 500, dt = 5e-3, int8_master coupling, adam lr 1e-4; 4
+   epochs where bench.py fits 16) through Network.fit_bptt with
+   RECTIPY_FUSED_ADAM=on: a 2-epoch warm fit and one timed fit; the launch
+   counts must be 4 adam_requant and 2,000 of each int8 matvec per fit, the
+   losses finite.
 9. train_split_vs_fused: 4 epochs with RECTIPY_FUSED_ADAM=off and =on on
    fresh networks: epoch 0's loss equal, later ones within rtol 1e-4.
 10. train_timing: one epoch split by CUDA events into the forward loop, the
@@ -73,8 +74,8 @@ of csrc/int4_matvec.cu, the counterpart of benchmarks/i4pack_microbench.py):
    500-byte rows, which takes the scalar instantiations.
 16. int4_path: the main path's network (phase 4) without a fused kernel,
    with coupling_dtype="int4" and, in turns, "int8" (bench.py's default),
-   5,000 steps through Network.run, int4 best of 3 and int8 of 2 in
-   turns; one int4_mv (or int8_mv) launch per step, finite records, the correlation of the int4 and int8
+   5,000 steps through Network.run, in turns (int4, int8, int8, int4),
+   best of 2 each; one int4_mv (or int8_mv) launch per step, finite records, the correlation of the int4 and int8
    records, each path's device-only step and idle share; then the same int4
    network on the CPU over 100 steps, held to the card's run under
    fused_vs_plain's rule (int4_path_vs_cpu, which also counts the records
@@ -115,17 +116,17 @@ kernels above, at N = 10,000):
    y = X X^T c) within cond x eps32 x sqrt(rows), cond from float64
    eigenvalues; then test() with the ridge readout.
 23. tbptt_path: phase 8's network (int8_master) trained by fit_bptt in step
-   mode on the bench data tiled to T = 2,000 with update_steps=100 (20
-   chunks), adam lr 1e-4: one warm and one timed fit; 2,000 launches each of
+   mode on the bench data tiled to T = 1,000 with update_steps=100 (10
+   chunks), adam lr 1e-4: one warm and one timed fit; 1,000 launches each of
    int8_mv and int8_mv_t per fit and none of adam_requant (step mode takes
-   the split optimizer); 20 finite chunk losses; ms per chunk.
+   the split optimizer); 10 finite chunk losses; ms per chunk.
 24. feedback_path: examples/feedback_populations.py as a FeedbackNetwork at
    N = 10,000 per population (two LIF populations with the generic kernel
    and a bf16 coupling, dense float32 feedforward p1 -> p2 and feedback
    p2 -> p1; the example's weights, sized for N = 100, scaled by 100/N),
    5,000 steps, best of 2; two kernel launches per step; the device-only
-   step and idle share; the first 200 steps on the CPU held to the card's
-   under fused_vs_plain's rule.
+   step and idle share; the first 160 steps on the CPU held to the card's
+   under fused_vs_plain's rule, both populations spiking in them.
 No kernel is added for phases 20-24; the kernels line lists the instances
 they ran with their launch counts (qif_sfa_step and the int8 matvecs with
 phase 6's and phase 10's timings of the same kernel, the generic kernel
@@ -170,7 +171,7 @@ csrc/generic_fused_step.cuh):
 26. run_batch_path: benchmarks/batch_throughput.py's network (N = 10,000
    qif_sfa, 10% fan-in of 1/(0.1 N) from seed 42, the tan etas, dt 1e-4)
    with a frozen int8 coupling: an eta sweep (offsets linspace(-2, 2, 32))
-   over 32 trials on a shared (5,000, 1) drive, record_vars the population
+   over 32 trials on a shared (2,500, 1) drive, record_vars the population
    mean of s every 100 steps, in turns with the single-trial run, best of
    2; one int8_mm launch per step, every one on the tensor cores
    (int8_mm.mma_launches); trials 0, 15 and 31 against
@@ -208,8 +209,8 @@ csrc/generic_fused_step.cuh):
 27. batch_train_path: bench.py's ensemble phase at full size, fit_bptt_batch
    of phase 8's network (int8_master, adam lr 1e-4) on B = 32 trials of
    normal (32, 500, 10,000) float32 arrays from default_rng(7), full batch:
-   a 2-epoch warm fit and a timed 8-epoch fit; 4,000 launches each of
-   int8_mm and int8_mm_t per fit, all 4,000 of each on the tensor cores
+   a 2-epoch warm fit and a timed 4-epoch fit; 2,000 launches each of
+   int8_mm and int8_mm_t per fit, all 2,000 of each on the tensor cores
    (int8_mm.mma_launches, int8_mm_t.mma_launches), and none of int8_mv(_t)
    or adam_requant;
    finite losses; ms/epoch and aggregate trained neuron-updates/s against
@@ -218,8 +219,8 @@ csrc/generic_fused_step.cuh):
    rtol 1e-4; at most 1% of the weights' updates differ by more than 1% of
    lr; see BATCH_LOSS_RTOL).  Then the same ensemble with an
    int4_master coupling on the same trial arrays: a 1-epoch warm fit and a
-   timed 4-epoch fit, 2,000 launches each of int4_mm and int4_mm_t (all
-   2,000 of each on the tensor cores, int4_mm.mma_launches and
+   timed 2-epoch fit, 1,000 launches each of int4_mm and int4_mm_t (all
+   1,000 of each on the tensor cores, int4_mm.mma_launches and
    int4_mm_t.mma_launches) and none of int4_mv(_t); ms/epoch and aggregate
    trained neuron-updates/s against phase 18's; and batch_train_vs_cpu for
    int4_master.
@@ -277,9 +278,9 @@ operations; no kernel of its own):
    in a 0.14 m cube from default_rng(0), W = exp(-dist/0.06) normalised by
    in-strength x 40, D = rint(dist/speed/dt), a 1,157-step span, tau_e ~
    U(8e-3, 13e-3)) as a FeedbackNetwork self-edge brain -> brain; auto must
-   pick the factored read (S = 15, Q = 78).  Network.run of 4,000 steps
-   (sampling_steps 100), best of 3, in turns with the same network with an
-   instantaneous dense f32 edge and with mode="gather", each at 2,000
+   pick the factored read (S = 15, Q = 78).  Network.run of 2,000 steps
+   (sampling_steps 100), best of 2, in turns with the same network with an
+   instantaneous dense f32 edge and with mode="gather", each at 1,000
    steps: ms per step, region-updates/s, the delay overhead factor, each
    network's device-only step and idle share, and the delay read alone
    (the edge step on CUDA events) against its byte bound (factored: the
@@ -288,7 +289,7 @@ operations; no kernel of its own):
    the buffer); one selector build per run.  The factored and gather reads give
    bit-identical records over 2,000 steps (fresh networks, no TF32); the
    card against the CPU over 100 steps under fused_vs_plain's rule;
-   run_batch of 8 trials of 2,000 steps (normal inputs x 2 from
+   run_batch of 8 trials of 1,000 steps (normal inputs x 2 from
    default_rng(2)), best of 2, each trial held to its single-trial run
    over 200 steps under the same rule; peak device memory.
 31. stp_feedback_path: phase 24's network (two LIF populations of N =
@@ -300,10 +301,10 @@ operations; no kernel of its own):
    run; both populations active (the largest window mean of s above 1e-3)
    and the STP state moved (min x of p1 -> p2 below 0.9, max u of p2 -> p1
    above 0.2 after the first run); each network's device-only step; the
-   first 200 steps on the CPU held to the card's (records and the final
-   (u, x)) under fused_vs_plain's rule; the kernels line gains the generic
+   first 160 steps on the CPU held to the card's (records and the final
+   (u, x)) under fused_vs_plain's rule, p1 spiking in them; the kernels line gains the generic
    kernel's entry for this path.
-32. edge_family_check: at n = 1,000, float32, 500 steps, an identity input
+32. edge_family_check: at n = 1,000, float32, 250 steps, an identity input
    through each edge class into a tanh population, on the card against the
    CPU under fused_vs_plain's rule: masked, per-source delay, filter, delay
    + filter, STP, and the delay matrix's onehot, factored, gather, interp
@@ -335,10 +336,10 @@ is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
 34. sparse_scale_path: benchmarks/sparse_scale.py's network at N =
    1,000,448 (qif_sfa, dt 1e-4, fan-in 1,000, 512-neuron blocks, seed 0,
    the native sampler, asserted; the tan etas, alpha 0.05, k 15), Pulse(T,
-   1, t_on=T//4, amp=3.0) as an array; Network.run of 2,000 steps with
+   1, t_on=T//4, amp=3.0) as an array; Network.run of 1,000 steps with
    sampling_steps=100 and the population mean of s, coupling_dtype="int8"
-   (block_int8_mv, 2,000 launches a run, asserted) in turns with
-   "bfloat16" (a gather and torch.bmm), best of 3: ms/step, nu/s, the
+   (block_int8_mv, 1,000 launches a run, asserted) in turns with
+   "bfloat16" (a gather and torch.bmm), best of 2: ms/step, nu/s, the
    device's idle share, the kernel's share of the step, the block stream's
    bytes/s, the sampling and build seconds, peak device memory; the host
    float32 master is dropped after the build.  Then the SCALE_BATCH branch:
@@ -356,15 +357,15 @@ is the hand-written kernel block_int8_mv of csrc/block_int8.cu):
    100,352 (196 patches, fan-in 1,000, seed 0, dt 1e-3, ring delays scaled
    to 64 steps, etas 1000 + 200 N(0, 1) from default_rng(1), all coupling
    on a FeedbackNetwork self-edge, Pulse(T, 1, t_on=T//8, amp=3.0)): four
-   variants in turns over 2,000 steps, best of 3: zero-delay, delayed f32,
+   variants in turns over 1,000 steps, best of 2: zero-delay, delayed f32,
    delayed block_dtype="bfloat16" and delayed "int8_master" (block_int8_mv
-   on the gathered stack, 2,000 launches a run on the chosen route,
+   on the gathered stack, 1,000 launches a run on the chosen route,
    asserted); ms/step, idle share, the edge's step alone against its byte
    bound, block_int8_mv alone at the edge's shape; two chunked runs of
-   1,000 steps equal to one of 2,000 bit for bit (f32 and int8); the
+   500 steps equal to one of 1,000 bit for bit (f32 and int8); the
    delayed run differs from the zero-delay one; the card against the CPU
    at N = 8,192 over 100 steps.
-36. sparse_train_check: at N = 8,192, fit_bptt (2 epochs, T = 200, sgd)
+36. sparse_train_check: at N = 8,192, fit_bptt (1 epoch, T = 200, sgd)
    through a block-coupled QIF node with float32 and int8_master weights on
    the chain trajectory (asserted), one epoch through a delayed f32
    BlockSparseLinear edge (train="gd"; plain autograd's loss and gradients,
@@ -386,7 +387,21 @@ factored network 4,000 steps where it ran 10,000; no width changed.  For
 phases 37-38 the same forward paths were halved again, to 5,000 steps, and
 the card-vs-CPU windows of phases 16, 21, 30, 34 and 35 to 100 steps (the
 LIF feedback networks of phases 24 and 31 keep 200: their first spikes come
-later); the device profiles record device activity alone.
+later); the device profiles record device activity alone.  With phases
+42-44 the script ran past its time limit on a slow host, so depth was cut
+once more, never width: the timed fits of phases 8 and 18 take 4 epochs
+(16 before), phase 23 tiles its data to 1,000 steps (2,000), phase 26's
+frozen-coupling runs take 2,500 steps (5,000), phase 27's fits 4 and 2
+epochs (8 and 4), phase 30 runs 2,000 and 1,000 steps best of 2 (4,000 and
+2,000, best of 3) with the factored-against-gather check kept at 2,000
+steps, past the longest delay, phase 32's edge cases 250 steps (500),
+phases 34 and 35 1,000 steps best of 2 (2,000, best of 3), phase 36's node fits one epoch
+(two), phase 37's timed fits 2 epochs (4) and phase 41's multistart fit
+1 epoch (2); phase 16 takes the best of 2 runs each; phases 24 and 31
+draw their weights once, and their CPU windows end at 160 steps (200),
+past the first spikes of both populations (asserted); the device
+profiles read the profiler's raw events, not key_averages() (the same
+rows, about 10 s faster for an epoch).
 
 Phases 37-38 (after phase 36; the graph trajectory of
 ops/graph_bptt.py, the chunked and Heun trajectories):
@@ -399,7 +414,7 @@ ops/graph_bptt.py, the chunked and Heun trajectories):
    from a teacher's run, the student's blocks x 1.05; block_dtype
    "int8_master" and float32, each through the graph trajectory
    (fused_bptt="auto", asserted "graph") in turns with plain autograd
-   (fused_bptt=False), one warm epoch each, then one timed fit of 4 epochs
+   (fused_bptt=False), one warm epoch each, then one timed fit of 2 epochs
    each (block_delay_scale.py runs 8): ms/epoch, trained nu/s, peak
    memory, losses (decreasing, graph and autograd within 1e-4),
    block_int8_mv launches (one a forward step, all on "mma", asserted);
@@ -461,9 +476,9 @@ rectipy_tpu_torch/inputs.py, fit_es and fit_bptt_multistart; no new kernel):
    the CPU (ES_LOSS_RTOL, ES_ETA_RTOL).
 41. multistart_path: phase 27's ensemble (int8_master, B = 32, T = 500,
    adam lr 1e-4, phase 27's trial arrays, kept on the host) trained by
-   fit_bptt_multistart with 4 starts for 2 epochs, in turns with one
+   fit_bptt_multistart with 4 starts for 1 epoch, in turns with one
    fit_bptt_batch epoch after a warm one (batch, multistart, a multistart
-   of 0 epochs that times the starts' numpy draws alone, batch): 4,000
+   of 0 epochs that times the starts' numpy draws alone, batch): 2,000
    launches each of int8_mm and int8_mm_t, all on the tensor cores;
    ms/epoch without the draws, the ratio to the batch epoch, peak memory.
    Then multistart_vs_cpu: 3 starts at N = 1,000 (etas about 500, the
@@ -485,28 +500,36 @@ port's own: the JAX package leaves the update to XLA):
    FeedbackNetwork, the tan etas, dt 1e-4, the plastic float32 self-edge of
    U(0, 15/N) weights the only coupling, soft bounds, Poisson(1 channel,
    rate 50, amp 10, seed 1) made on the device), fit_stdp over 2,000 steps:
-   a warm fit of each variant, then in turns the kernel route (best of 3),
-   the plain update (1,000 steps, best of 2), w_dtype=bfloat16, reward
-   mode with r = 1 (hard bounds) and homeostasis_steps=500 (the aligned
-   path), each best of 2; one stdp_update launch a step asserted (none for
-   the plain update); ms/step, nu/s, the weights finite and in bounds,
-   peak memory, the idle share (a 200-step fit under torch.profiler), and
-   the kernel at each variant's shape held to its plain version bit for
-   bit, then timed against its byte bound and the plain version.
+   a warm fit of each variant (500 steps), then in turns the kernel route
+   (best of 3), the kernel forced onto its route "row" (the first design;
+   1,000 steps, best of 2), the plain update (500 steps, best of 2),
+   w_dtype=bfloat16, reward mode with r = 1 (hard bounds) and
+   homeostasis_steps=500 (the aligned path), each best of 2; one
+   stdp_update launch a step asserted (none for the plain update), every
+   one on route "tile" unless "row" was forced;
+   ms/step, nu/s, the weights finite and in bounds, peak memory, the idle
+   share (a 200-step fit under torch.profiler), and the kernel at each
+   variant's shape held to its plain version bit for bit on both routes,
+   then both timed in turns against the byte bound and the plain version
+   (the route the wrapper picks must have won), with route "tile"'s SASS
+   instructions an entry (cuobjdump, where the toolkit has it).
 43. block_stdp_path: examples/stdp_100k_blocks.py's network uncut (N =
    100,352, bs 512, fan-in 1,000, the native sampler (asserted), seed 7,
    the blocks scattered to U(0, 15/1,000), hard bounds, homeostasis every
-   500 steps): a warm fit of 2,000 steps (the row masses pinned after it,
-   rtol 1e-3), then the kernel (2,000 steps), the plain update (two fits of
-   250 steps), the kernel; the same figures as phase 42 and the block
+   500 steps): a warm fit of 500 steps (the row masses pinned after it,
+   rtol 1e-3), then in turns the kernel (2,000 steps), route "row" (1,000
+   steps), the plain update (two fits of 250 steps), the plain update,
+   route "row", the kernel; the same figures as phase 42 and the block
    tensor's bytes.
 44. plasticity_check: the kernel bit for bit against its plain version in
    every variant (hard, soft, reward), layout (dense, blocks with repeated
-   columns) and type (float32, float64, bfloat16) at ragged shapes and at
-   the paths' row widths; fit_stdp with reward and homeostasis (every 32
-   steps) over 100 steps at float64, dense N = 256 and blocks N = 2,048 (bs
-   128), on the card and on the CPU: spike counts equal, weights and
-   eligibility within 1e-10; fit_eprop at full width on rls_path's network
+   columns) and type (float32, float64, bfloat16) on every route each shape
+   allows, at testing.STDP_CHECK_SHAPES (ragged rows of 1,003, 1,004 and
+   1,000, blocks of 20, 24 and 128) and at the paths' row widths;
+   fit_stdp with reward and homeostasis (every 32 steps) over 100 steps
+   at float64, dense N = 256 and blocks N = 2,048 (bs 128), on the card
+   and on the CPU: spike counts equal, weights and eligibility within
+   1e-10; fit_eprop at full width on rls_path's network
    (its readout registered as train='eprop', instantaneous NLMS, lr 0.5,
    5,000 steps, then test()): one qif_sfa_step launch a step, ms/step, the
    test loss over the target's variance; examples/rl_online_learning.py's
@@ -514,7 +537,8 @@ port's own: the JAX package leaves the update to XLA):
    weights, normalize off and on (within 1e-9 of the largest value).
 The kernels line adds stdp_update[float32,dense], [bfloat16,dense],
 [float32,reward,dense] and [float32,blocks] (the kernel route's launches of
-one fit of phases 42-43) and qif_sfa_step[bfloat16,eprop_path] (phase 6's
+one fit of phases 42-43; each with its kernel_route, the "row" route's ms
+in the same turns and the SASS count) and qif_sfa_step[bfloat16,eprop_path] (phase 6's
 timing of the same kernel).
 
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
@@ -523,9 +547,13 @@ the script exits non-zero.  Without a CUDA device it exits 2 and prints
 nothing on stdout.
 """
 
+import contextlib
 import ctypes
+import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -564,12 +592,15 @@ I4_SOURCE = "rectipy_tpu_torch/csrc/int4_matvec.cu"
 I4_TPU_KERNEL = "benchmarks/i4pack_microbench.py:54"
 N_I4PACK = 14_336  # i4pack_microbench.py's default N
 CPU_STEPS = 100  # the card-vs-CPU windows (200 before phases 37-38: the time limit)
-LIF_CPU_STEPS = 200  # the LIF feedback networks' windows: their first spikes come later
+# the LIF feedback networks' windows: p1's first spikes come at step 106
+# (v = 1,000 (1 - exp(-t/10)) reaches the threshold 100) and, through the
+# plain feedforward edge, p2's at about 131; both must spike in the window
+LIF_CPU_STEPS = 160
 # the training path: bench.py:331-370
-T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 16, 1e-4
+T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 4, 1e-4  # bench.py fits 16 (the run's time limit)
 WARM_EPOCHS = 2  # the warm fit of the int8_master and int4_master paths
 SPLIT_VS_FUSED_RTOL = 1e-4
-T_TBPTT, UPDATE_STEPS = 2_000, 100  # the step-mode path: bench data tiled, the JAX default
+T_TBPTT, UPDATE_STEPS = 1_000, 100  # the step-mode path: bench data tiled, the JAX default
 RIDGE_SAMPLING = 10
 # kernel vs plain on the card, (rtol, atol), for the two input cases of the
 # kernel check; W is the main path's in both.  Both W types take the same
@@ -724,6 +755,24 @@ def fit(net, inp_d, tgt_d, epochs: int, mode: str):
     return seconds, losses
 
 
+def device_rows(prof) -> list:
+    """(name, device us, count) of each device-side op (kernels, copies,
+    fills) of a finished torch.profiler run, summed by name from the
+    profiler's raw events: the rows of key_averages() without the event
+    tree it builds first (about 10 s for an epoch of a fit).  A CPU op that
+    launches a kernel through ctypes also reports that kernel's time as its
+    own, which would count it twice: only device events are read."""
+    cuda, rows = torch.autograd.DeviceType.CUDA, {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != cuda:
+            continue
+        us = ev.duration_ns() / 1e3
+        if us > 0:
+            total, count = rows.get(ev.name(), (0.0, 0))
+            rows[ev.name()] = (total + us, count + 1)
+    return [(k, us, c) for k, (us, c) in rows.items()]
+
+
 def profile_device_time(fn):
     """(device busy ms, top device ops) of one call of ``fn`` under
     torch.profiler; (None, reason) when the profiler sees no device time."""
@@ -731,21 +780,17 @@ def profile_device_time(fn):
 
     # device activity alone: the same kernel times at a tenth of the cost of
     # tracing the host's ops too (a fit's host trace took about 40 s)
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies, fills): a CPU op that
-        # launches a kernel through ctypes also reports that kernel's time
-        # as its own "self" device time, which would count it twice
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((ev.key, dev_us, ev.count))
+    traced_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = device_rows(prof)
+    read_s = time.perf_counter() - t0
+    # what the instrumentation costs: the traced call and reading its events
+    emit({"phase": "profiler_cost", "traced_call_s": traced_s, "read_s": read_s,
+          "device_ops": len(rows)})
     if not rows:
         return None, "torch.profiler recorded no device time"
     rows.sort(key=lambda r: -r[1])
@@ -1338,9 +1383,9 @@ def int4_phases(W_np, build_net) -> tuple:
         return seconds, rec, launches[c]
 
     runs, recs, launches = {"int4": [], "int8": []}, {}, {}
-    # in turns, int4 best of 3 and int8 of 2 (the run's time limit); the
-    # kernels were built and run in phase 15
-    for c in ("int4", "int8", "int4", "int8", "int4"):
+    # in turns, best of 2 each (the run's time limit); the kernels were
+    # built and run in phase 15
+    for c in ("int4", "int8", "int8", "int4"):
         nets[c].reset()
         seconds, recs[c], launches[c] = path_run(c)
         runs[c].append(seconds)
@@ -1499,12 +1544,15 @@ def int4_train_phases(dev, data, timing10) -> tuple:
     return entries, int4_nu
 
 
+@functools.lru_cache(maxsize=1)
 def feedback_weights(n: int) -> tuple:
     """examples/feedback_populations.py's weights at width n, drawn from seed 5
     in the example's order: the two populations' couplings (normal), the
     excitatory feedforward edge p1 -> p2 (10 x uniform) and the inhibitory
     feedback edge p2 -> p1 (-100 x uniform); every weight is scaled by 100/n,
-    so that a neuron's summed input matches the example's at its n = 100."""
+    so that a neuron's summed input matches the example's at its n = 100.
+    Drawn once for phases 24 and 31 (the arrays are read, never written);
+    stp_feedback_phase clears the cache."""
     rng = np.random.default_rng(5)
     scale, k = 100.0 / n, 10.0
 
@@ -1815,6 +1863,9 @@ def feedback_phase() -> list:
         secs[name] = time.perf_counter() - t0
         cmp[name] = np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])
     del cpu_net
+    if not (cmp["cpu"] > 0).any(axis=1).all():  # the window reaches both populations' spikes
+        raise AssertionError(f"feedback_path: a population is silent over the CPU window, "
+                             f"max mean s {cmp['cpu'].max(axis=1)}")
     emit({"phase": "feedback_path", "template": "lif", "populations": 2, "coupling": "bfloat16",
           "edges": "float32 dense feedforward p1->p2 and feedback p2->p1", "n": N,
           "steps": STEPS, "kernel_launches": launches, "w_data_s": data_s, "build_s": build_s,
@@ -1835,13 +1886,13 @@ def feedback_phase() -> list:
 
 
 # ------------------------------------------------------------ phases 25-28
-B_RUN, T_RUN = 32, 5_000  # run_batch_path: benchmarks/batch_throughput.py's network
-B_TRAIN, TRAIN_EPOCHS = 32, 8  # batch_train_path: bench.py's ensemble phase
+B_RUN, T_RUN = 32, 2_500  # run_batch_path: benchmarks/batch_throughput.py's network
+B_TRAIN, TRAIN_EPOCHS = 32, 4  # batch_train_path: bench.py's ensemble phase
 B_RAGGED = (7, 5)  # batch_kernel_check: a ragged B for int8_mm(_t) and the B-row step
 CMP_STEPS = 200  # the run_batch trials against single-trial runs
 G_B = 32  # run_batch_path's generic-kernel run: trials of PLAIN_STEPS steps
 SWEPT_B, SWEPT_STEPS = 4, 1_000  # run_batch_path: a swept int4_master coupling (spikes from ~190)
-I4_TRAIN_EPOCHS = 4  # batch_train_path's int4_master ensemble fit
+I4_TRAIN_EPOCHS = 2  # batch_train_path's int4_master ensemble fit
 CPU_N, CPU_B, CPU_T, CPU_EPOCHS = 2_000, 4, 50, 2  # batch_train_vs_cpu
 # batch_train_vs_cpu: the card's fit (int8_mm/int8_mm_t, float32 sums in
 # another order) against the CPU's (plain products).  The integer sums are
@@ -3097,9 +3148,11 @@ def batch_phases(dev, W_np, data, single_nu: float, int4_nu: float) -> tuple:
 # ------------------------------------------------------------ phases 30-32
 JR = "rectipy_tpu_torch.models.mean_field.jansen_rit.jansen_rit"
 WB_M, WB_DT, WB_SPEED = 998, 1e-4, 2.0  # benchmarks/whole_brain_scale.py's M=998 cell
-WB_T, WB_T_SHORT, WB_B = 4_000, 2_000, 8  # WB_T 10,000 until PR 18
+WB_T, WB_T_SHORT, WB_B = 2_000, 1_000, 8  # depth cut to the run's time limit
+WB_CMP_T = 2_000  # factored against gather: past the longest delay (1,156 steps)
+WB_TURNS = 2  # the timed runs in turns, best of 2
 STP_DRIVE = 100.0  # feedback_phase's drive
-FAMILY_N, FAMILY_T, FAMILY_M, FAMILY_FIT_T = 1_000, 500, 90, 1_000
+FAMILY_N, FAMILY_T, FAMILY_M, FAMILY_FIT_T = 1_000, 250, 90, 1_000
 # edge_family_check's fit: the card's loss and gradients (relative norm of
 # the difference) against the CPU's, float32 both, whose sums run in another
 # order over FAMILY_FIT_T steps.  A delay's gradient is the difference of
@@ -3176,14 +3229,14 @@ def whole_brain_phase(dev) -> None:
     if (edge.mode, S) != ("factored", S_rule) or Q != -(-d1 // S) \
             or M * M * (Q + S) > 2 ** 27:
         raise AssertionError(f"whole_brain_path: auto picked {edge.mode}, Q={Q}, S={S}")
-    # the host-bound loops are timed per step: 2,000 steps suffice for the
-    # instantaneous and gather networks beside the factored path's 10,000
+    # the host-bound loops are timed per step: WB_T_SHORT steps suffice for
+    # the instantaneous and gather networks beside the factored path's WB_T
     steps = {"factored": WB_T, "instantaneous": WB_T_SHORT, "gather": WB_T_SHORT}
     inputs = {k: torch.zeros((t, M), device=dev) for k, t in steps.items()}
     kw = dict(sampling_steps=100)
     warm = {k: timed_run(net, inputs[k][:200], **kw)[0] for k, net in nets.items()}
     times = {k: [] for k in nets}
-    for _ in range(3):  # in turns, best of 3
+    for _ in range(WB_TURNS):  # in turns, best of WB_TURNS
         for k, net in nets.items():
             sec, obs = timed_run(net, inputs[k], **kw)
             times[k].append(sec)
@@ -3191,8 +3244,9 @@ def whole_brain_phase(dev) -> None:
             if out.shape != (steps[k] // 100, M) or not np.all(np.isfinite(out)):
                 raise AssertionError(f"whole_brain_path {k}: bad records {out.shape}")
     builds = edge.selector_builds
-    if builds != 4:  # one per run: never per step
-        raise AssertionError(f"whole_brain_path: {builds} selector builds for 4 runs")
+    if builds != 1 + WB_TURNS:  # one per run: never per step
+        raise AssertionError(f"whole_brain_path: {builds} selector builds for "
+                             f"{1 + WB_TURNS} runs")
     ms = {k: min(v) / steps[k] * 1e3 for k, v in times.items()}
     x0 = torch.zeros(M, device=dev)
     dev_ms = {k: device_step_ms(net, x0, reps=8) for k, net in nets.items()}
@@ -3209,9 +3263,9 @@ def whole_brain_phase(dev) -> None:
     del nets, inputs
     torch.cuda.empty_cache()
 
-    # factored == gather bit for bit over the same 2,000 steps (fresh networks)
+    # factored == gather bit for bit over the same WB_CMP_T steps (fresh networks)
     cmp_kw = dict(sampling_steps=10, record_vars=[("brain", "psp_e", False)])
-    short = torch.zeros((WB_T_SHORT, M), device=dev)
+    short = torch.zeros((WB_CMP_T, M), device=dev)
     recs = {}
     for mode in ("auto", "gather"):
         net = wb_net(M, W, taues, dev, delays=D, mode=mode)
@@ -3273,7 +3327,7 @@ def whole_brain_phase(dev) -> None:
           "device_step_ms": dev_ms,
           "device_idle_share": {k: 1.0 - dev_ms[k] / ms[k] for k in ms},
           "delay_read": read_line, "selector_builds": builds,
-          "factored_equals_gather_bit_for_bit": {"steps": WB_T_SHORT, "identical": identical},
+          "factored_equals_gather_bit_for_bit": {"steps": WB_CMP_T, "identical": identical},
           "out_range": out_range,
           "vs_cpu": {"steps": CPU_STEPS, **vs, "card_run_s": secs["card"],
                      "cpu_run_s": secs["cpu"]},
@@ -3373,6 +3427,7 @@ def stp_feedback_phase(dev) -> list:
     cpu_net = stp_feedback_net(N, "cpu", weights)
     cpu_build_s = time.perf_counter() - t0
     del weights
+    feedback_weights.cache_clear()
     for name, n_ in (("card", fresh), ("cpu", cpu_net)):
         t0 = time.perf_counter()
         o = n_.run(np.full((LIF_CPU_STEPS, 1), STP_DRIVE, dtype=np.float32), **cmp_kw)
@@ -3381,6 +3436,9 @@ def stp_feedback_phase(dev) -> list:
         cmp[name + "_stp"] = np.concatenate([n_.get_edge("p1", "p2").x.cpu().numpy(),
                                              n_.get_edge("p2", "p1").u.cpu().numpy()])
     del cpu_net, fresh
+    # p1 spikes in the window; p2, behind the depressing edge, only later
+    if not (cmp["cpu"][0] > 0).any():
+        raise AssertionError("stp_feedback_path: p1 is silent over the CPU window")
     vs = vs_cpu("stp_feedback_path card vs cpu", cmp["card"], cmp["cpu"])
     vs_stp = vs_cpu("stp_feedback_path (u, x) card vs cpu", cmp["card_stp"], cmp["cpu_stp"])
     emit({"phase": "stp_feedback_path", "template": "lif", "populations": 2,
@@ -3502,12 +3560,12 @@ def edge_family_check(dev) -> None:
 
 # ------------------------------------------------------------- phases 33-36
 SPARSE_N, SPARSE_BS, SPARSE_FAN_IN = 1_000_448, 512, 1_000  # benchmarks/sparse_scale.py
-SPARSE_DT, SPARSE_T = 1e-4, 2_000
+SPARSE_DT, SPARSE_T = 1e-4, 1_000
 SPARSE_B, SPARSE_T_B = 16, 500  # sparse_scale.py's SCALE_BATCH=16 branch at SCALE_T=500
 SPARSE_CMP_STEPS = 100  # the B=16 trials against single-trial runs
 SMALL_N = 8_192  # the card-vs-CPU and training width: 16 block rows of 512
-BD_N, BD_DMAX, BD_DT, BD_T = 100_352, 64, 1e-3, 2_000  # benchmarks/block_delay_scale.py
-SPARSE_TRAIN_T, SPARSE_TRAIN_LR = 200, 0.1
+BD_N, BD_DMAX, BD_DT, BD_T = 100_352, 64, 1e-3, 1_000  # benchmarks/block_delay_scale.py
+SPARSE_TRAIN_T, SPARSE_TRAIN_LR, SPARSE_TRAIN_EPOCHS = 200, 0.1, 1
 BLOCK_SOURCE = "rectipy_tpu_torch/csrc/block_int8.cu"
 BLOCK_TIMING_B = (1, 2, 4, 8, SPARSE_B, 32)  # phase 33's trials at the million-neuron shape
 BLOCK_REPLACES = "port-only (the XLA einsum of rectipy_tpu/ops/quant.py:258)"
@@ -3736,7 +3794,7 @@ def sparse_scale_phase(dev, timing: dict) -> list:
         raise AssertionError(f"sparse_scale_path: block_int8_mv launches {launches}, on the "
                              f"tensor cores {mma} (route {routes[1]})")
     times, recs = {c: [] for c in nets}, {}
-    for _ in range(3):  # in turns, best of 3
+    for _ in range(2):  # in turns, best of 2
         for c, net in nets.items():
             net.reset()
             sec, obs = timed_run(net, drive, **kw)
@@ -3937,7 +3995,7 @@ def block_delay_phase(dev) -> list:
     if delay_effect == 0.0:
         raise AssertionError("block_delay_path: the delayed run equals the zero-delay run")
     times = {k: [] for k in nets}
-    for _ in range(3):  # in turns, best of 3
+    for _ in range(2):  # in turns, best of 2
         for k, net in nets.items():
             net.reset()
             sec, obs = timed_run(net, drive, **kw)
@@ -4059,8 +4117,8 @@ def sparse_train_check(dev) -> None:
             net.compile()
             w0 = net.get_node("qif")["weights"].detach().cpu().numpy()
             t0 = time.perf_counter()
-            obs = net.fit_bptt([inp] * 2, [tgt] * 2, optimizer="sgd", lr=SPARSE_TRAIN_LR,
-                               verbose=False)
+            obs = net.fit_bptt([inp] * SPARSE_TRAIN_EPOCHS, [tgt] * SPARSE_TRAIN_EPOCHS,
+                               optimizer="sgd", lr=SPARSE_TRAIN_LR, verbose=False)
             seconds = time.perf_counter() - t0
             if net.last_fit["trajectory"] != "chain":
                 raise AssertionError(f"sparse_train_check {coupling}: took {net.last_fit}")
@@ -4119,7 +4177,7 @@ def sparse_train_check(dev) -> None:
     if not (s_max > 0 and s_rel <= FIT_GRAD_RTOL):
         raise AssertionError(f"sparse_train_check: frozen int8_master source gradient max "
                              f"{s_max}, card vs cpu {s_rel}")
-    emit({"phase": "sparse_train_check", "n": N, "steps": T, "epochs": 2,
+    emit({"phase": "sparse_train_check", "n": N, "steps": T, "epochs": SPARSE_TRAIN_EPOCHS,
           "optimizer": "sgd", "node_fits": node_fits,
           "delayed_edge_epoch": {"loss": lc, "cpu_loss": lp, "fit_loss": fc,
                                  "grad_rel_norm": g_rel},
@@ -4128,7 +4186,7 @@ def sparse_train_check(dev) -> None:
           "loss_rtol": FIT_LOSS_RTOL, "grad_rtol": FIT_GRAD_RTOL})
 
 
-GT_T, GT_EPOCHS, GT_LR, GT_REMAT = 500, 4, 1e-4, 100  # block_delay_scale.py BD_TRAIN=1
+GT_T, GT_EPOCHS, GT_LR, GT_REMAT = 500, 2, 1e-4, 100  # block_delay_scale.py BD_TRAIN=1
 GT_PROFILE_T = 100  # graph_train_path's profiled window of steps
 GT_VARIANTS = {"int8_master": {"block_dtype": "int8_master"}, "float32": {}}
 GC_T, GC_B = 400, 4  # graph_train_check: examples/multi_population_training.py's T; B trials
@@ -4572,7 +4630,7 @@ ES_CPU_SHIFT, ES_CPU_SIGMA, ES_CPU_LR = 50.0, 20.0, 200.0  # es_vs_cpu's teacher
 # losses and, under z-score shaping (no ranks to reorder), the written-back
 # eta move with them continuously
 ES_LOSS_RTOL, ES_ETA_RTOL = 1e-3, 1e-2
-MS_STARTS, MS_EPOCHS = 4, 2  # multistart_path: phase 27's ensemble, 4 starts, 2 epochs
+MS_STARTS, MS_EPOCHS = 4, 1  # multistart_path: phase 27's ensemble, 4 starts, 1 epoch
 MS_CPU_N, MS_CPU_STARTS = 1_000, 3  # multistart_vs_cpu (CPU_B trials, CPU_T steps, CPU_EPOCHS)
 MS_CPU_ETA = 500.0  # multistart_vs_cpu: the etas' centre
 # multistart_vs_cpu: the coupling's gain and the starts' init_scale, so that
@@ -5023,7 +5081,9 @@ def multistart_vs_cpu() -> None:
 # the plastic networks of phases 42-43: benchmarks/stdp_scale.py's dense cell
 # and examples/stdp_100k_blocks.py's block network, both uncut in width
 STDP_N, STDP_T, STDP_HOMEO = 10_000, 2_000, 500
-STDP_PLAIN_T = 1_000  # stdp_path's plain update: half the depth (about 4x the step)
+STDP_WARM_T = 500  # the first fit of each network (one scaling period)
+STDP_ROW_T = 1_000  # the fits on route "row", timed in turns with the default route
+STDP_PLAIN_T = 500  # stdp_path's plain update: a quarter of the depth (about 7x the step)
 BSTDP_N, BSTDP_BS, BSTDP_FAN = 100_352, 512, 1_000
 BSTDP_PLAIN_T = 250  # block_stdp_path's plain update, two calls: one scaling period
 STDP_PROFILE_T = 200  # the profiled window of the idle share
@@ -5072,6 +5132,20 @@ class plain_stdp_update:
         self._mod.stdp_update = self._kernel
 
 
+class row_stdp_route:
+    """Within the block, the kernel takes route "row" (the first design) where
+    it would take "tile": the fits timed in turns with the default route."""
+
+    def __enter__(self):
+        from rectipy_tpu_torch.ops import stdp
+
+        self._mod, self._route = stdp, stdp.stdp_update_route
+        stdp.stdp_update_route = lambda *args: "row"
+
+    def __exit__(self, *exc):
+        self._mod.stdp_update_route = self._route
+
+
 def stdp_drive(steps: int, offset: int = 0):
     """stdp_scale.py's drive: Poisson(steps, 1, rate 50, amp 10, seed 1),
     made on the device, shifted by ``offset`` global steps."""
@@ -5080,23 +5154,32 @@ def stdp_drive(steps: int, offset: int = 0):
     return Poisson(steps, channels=1, rate=50.0, amp=10.0, seed=1).shifted(offset)
 
 
-def fit_turn(net, steps: int, offset: int, plain: bool = False, **kw) -> tuple:
-    """One timed fit_stdp of ``steps`` steps: (seconds, kernel launches,
-    observer); the launch count starts at 0 just before the fit."""
+def fit_turn(net, steps: int, offset: int, how: str = "kernel", **kw) -> tuple:
+    """One timed fit_stdp of ``steps`` steps, ``how`` "kernel" (the default
+    route), "row" (route "row" forced) or "plain" (the plain update):
+    (seconds, kernel launches, launches of route "tile", observer); the
+    counts start at 0 just before the fit."""
     from rectipy_tpu_torch.ops.stdp import stdp_update
 
-    stdp_update.launches = 0
+    stdp_update.launches = stdp_update.tile_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if plain:
-        with plain_stdp_update():
-            obs = net.fit_stdp(stdp_drive(steps, offset), sampling_steps=steps // 4,
-                               verbose=False, **kw)
-    else:
+    with {"kernel": contextlib.nullcontext, "row": row_stdp_route,
+          "plain": plain_stdp_update}[how]():
         obs = net.fit_stdp(stdp_drive(steps, offset), sampling_steps=steps // 4, verbose=False,
                            **kw)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, stdp_update.launches, obs
+    return time.perf_counter() - t0, stdp_update.launches, stdp_update.tile_launches, obs
+
+
+def check_fit_launches(name: str, how: str, steps: int, launches: int, tiles: int) -> None:
+    """One kernel launch a step (none for the plain update), every one on
+    the route the wrapper picks ("tile" at the paths' shapes) unless "row"
+    was forced."""
+    want = (0, 0) if how == "plain" else (steps, 0 if how == "row" else steps)
+    if (launches, tiles) != want:
+        raise AssertionError(f"{name} ({how}): {launches} kernel launches, {tiles} of route "
+                             f"'tile', for {steps} steps")
 
 
 def check_plastic_weights(name: str, edge) -> dict:
@@ -5108,14 +5191,49 @@ def check_plastic_weights(name: str, edge) -> dict:
     return {"w_min": lo, "w_max": hi, "w_mean": float(W.double().mean())}
 
 
-def stdp_kernel_timing(name: str, edge, mode: str, launches: int) -> dict:
+@functools.lru_cache(maxsize=None)
+def stdp_sass_per_entry() -> dict:
+    """SASS instructions an entry of route "tile"'s main loop, by "dtype,mode,
+    layout" (mode hard, soft or reward): the longest backward branch's body
+    in ``cuobjdump -sass`` of the built library, over the TILE_UNROLL rows
+    of 16 bytes it updates; None without cuobjdump."""
+    from rectipy_tpu_torch.ops._build import build
+    from rectipy_tpu_torch.ops.stdp import TILE_UNROLL
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", build("stdp_update").path], capture_output=True,
+                          text=True, timeout=120).stdout
+    types = {"f": ("float32", 4), "d": ("float64", 2), "13__nv_bfloat16": ("bfloat16", 8)}
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"stdp_update_tile_kernelI(\w+?)Li(\d)ELb(\d)", fn.split("\n", 1)[0])
+        if not m:
+            continue
+        ins = [(int(a, 16), t) for a, t in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        loop = max((i - at[int(b, 16)] + 1 for i, (a, t) in enumerate(ins)
+                    for b in re.findall(r"BRA (0x[0-9a-f]+)", t)
+                    if int(b, 16) <= a and int(b, 16) in at), default=0)
+        dtype, vec = types[m.group(1)]
+        mode = ("hard", "soft", "reward")[int(m.group(2))]
+        out[f"{dtype},{mode},{'blocks' if m.group(3) == '1' else 'dense'}"] = \
+            loop / (TILE_UNROLL * vec)
+    return out
+
+
+def stdp_kernel_timing(name: str, edge, mode: str, launches: int, sass) -> dict:
     """The kernel at the edge's shape and type, on the edge's weights and
-    traces with 30% spikes (reward: its eligibility and r = 1): first held
-    to the plain version bit for bit, then its ms, the plain version's ms
-    and the byte bound (W, and E, read once and written once; the four
-    vectors once).  There is no single PyTorch call for the update: the
-    library yardstick is null."""
-    from rectipy_tpu_torch.ops.stdp import stdp_update, stdp_update_plain
+    traces with 30% spikes (reward: its eligibility and r = 1): both routes
+    first held to the plain version bit for bit, then timed in turns (row,
+    tile, tile, row), against the byte bound (W, and E, read once and
+    written once; the four vectors once) and the plain version's ms.  The
+    route the wrapper picks here must be "tile" and must have won.  There
+    is no single PyTorch call for the update: the library yardstick is
+    null."""
+    from rectipy_tpu_torch.ops.stdp import stdp_update, stdp_update_plain, stdp_update_route
 
     W = edge.params["weights"]
     gen = torch.Generator(device=W.device).manual_seed(42)
@@ -5129,28 +5247,43 @@ def stdp_kernel_timing(name: str, edge, mode: str, launches: int) -> dict:
         E = edge.params.get("elig", torch.zeros_like(W))
         r = torch.ones((), dtype=W.dtype, device=W.device)
     args = (W, x_pre, x_post, spk_pre, spk_post, c, mode == "soft", edge._cols, E, r)
-    before = stdp_update.launches
-    got, ref = stdp_update(*args), stdp_update_plain(*args)
-    stdp_update.launches = before  # the check's launch is no launch of the path
-    for a, b in zip(got, ref):
-        if b is not None and not torch.equal(a, b):
-            raise AssertionError(f"{name}: the kernel differs from its plain version on "
-                                 f"{int((a != b).sum())} entries")
+    picked = stdp_update_route(W.dtype, W.shape[-1], [t.data_ptr() for t in (
+        W, x_pre, spk_pre, E) if t is not None])
+    before = stdp_update.launches, stdp_update.tile_launches
+    ref = stdp_update_plain(*args)
+    for route in ("row", "tile"):
+        got = stdp_update(*args, route=route)
+        for a, b in zip(got, ref):
+            if b is not None and not torch.equal(a, b):
+                raise AssertionError(f"{name}: route {route!r} differs from the plain version "
+                                     f"on {int((a != b).sum())} entries")
     del got, ref
-    ms = cuda_ms(lambda: stdp_update(*args), reps=50)
+    ms = {"row": [], "tile": []}
+    for route in ("row", "tile", "tile", "row"):
+        ms[route].append(cuda_ms(lambda: stdp_update(*args, route=route), reps=50))
     plain_ms = cuda_ms(lambda: stdp_update_plain(*args), reps=5)
-    stdp_update.launches = before
+    # the checks' and timings' launches are no launches of the path
+    stdp_update.launches, stdp_update.tile_launches = before
+    best = {k: min(v) for k, v in ms.items()}
+    if picked != "tile" or best["tile"] >= best["row"]:
+        raise AssertionError(f"{name}: the wrapper picks {picked!r}; in turns {ms}")
     rw = 2 if E is None else 4  # W (and E) read and written
     n_bytes = rw * W.numel() * W.element_size() + 2 * (edge.n_in + edge.n_out) * W.element_size()
     n_ops = (8 if mode != "hard" else 6) * W.numel()
     bound_ms, bound_by = block_bound(n_bytes, n_ops, F64_FLOPS if W.dtype == torch.float64
                                      else F32_FLOPS)
+    layout = "blocks" if edge._cols is not None else "dense"
+    key = f"{str(W.dtype).split('.')[1]},{mode},{layout}"
     return {"name": name, "route": "cuda", "source": STDP_SOURCE, "replaces": STDP_REPLACES,
-            "launches": launches, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches, "max_abs_err": 0.0, "ms": best["tile"], "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library": "none: no single PyTorch call computes the pair update",
-            "bytes": n_bytes, "share_of_bound": bound_ms / ms,
-            "achieved_bytes_per_s": n_bytes / (ms * 1e-3)}
+            "kernel_route": picked, "row_ms": best["row"], "ms_in_turns": ms,
+            "row_share_of_bound": bound_ms / best["row"],
+            "tile_over_row": best["row"] / best["tile"],
+            "sass_per_entry": None if sass is None else sass.get(key),
+            "bytes": n_bytes, "share_of_bound": bound_ms / best["tile"],
+            "achieved_bytes_per_s": n_bytes / (best["tile"] * 1e-3)}
 
 
 def stdp_idle_share(net, steps: int, ms_per_step: float, **kw) -> dict:
@@ -5170,13 +5303,14 @@ def stdp_phase(dev) -> list:
     """Phase 42: benchmarks/stdp_scale.py's dense cell (N = 10,000, soft
     bounds, the plastic float32 self-edge the only coupling, the Poisson
     drive) through Network.fit_stdp over STDP_T steps: one warm fit, then in
-    turns the kernel route (best of 3), the plain update (STDP_PLAIN_T steps,
-    best of 2), w_dtype=bfloat16, reward mode with r = 1 (hard bounds), and
-    homeostasis_steps=STDP_HOMEO (the aligned, segmented path), each best of
-    2; one kernel launch a step asserted for every kernel-route fit, none for
-    the plain ones; ms/step, nu/s, the weights finite and in bounds, the
-    kernel's ms against its bound, the idle share, peak memory.  Returns the
-    kernels-line entries."""
+    turns the kernel route (best of 3), the kernel on route "row" (best of
+    2), the plain update (STDP_PLAIN_T steps, best of 2), w_dtype=bfloat16,
+    reward mode with r = 1 (hard bounds), and homeostasis_steps=STDP_HOMEO
+    (the aligned, segmented path), each best of 2; one kernel launch a step
+    asserted for every kernel-route fit, each on route "tile" unless "row"
+    was forced, none for the plain ones; ms/step, nu/s, the weights finite
+    and in bounds, the kernel's ms on both routes against its bound, the
+    idle share, peak memory.  Returns the kernels-line entries."""
     t0 = time.perf_counter()
     variants = {"kernel": ({}, {}), "bfloat16": ({"w_dtype": "bfloat16"}, {}),
                 "reward": ({}, {"reward": np.ones(STDP_T)}),
@@ -5186,45 +5320,46 @@ def stdp_phase(dev) -> list:
     build_s = time.perf_counter() - t0
     offsets = dict.fromkeys(nets, 0)
 
-    def turn(k, plain=False):
-        steps = STDP_PLAIN_T if plain else STDP_T
+    def turn(k, how="kernel", steps=None):
+        steps = steps or {"plain": STDP_PLAIN_T, "row": STDP_ROW_T}.get(how, STDP_T)
         fkw = variants[k][1]
         if "reward" in fkw:
             fkw = {"reward": np.ones(steps)}
-        s, launches, obs = fit_turn(nets[k], steps, offsets[k], plain=plain, **fkw)
+        s, launches, tiles, obs = fit_turn(nets[k], steps, offsets[k], how, **fkw)
         offsets[k] += steps
-        want = 0 if plain else steps
-        if launches != want:
-            raise AssertionError(f"stdp_path ({k}{', plain' if plain else ''}): {launches} "
-                                 f"kernel launches for {steps} steps")
+        check_fit_launches(f"stdp_path ({k})", how, steps, launches, tiles)
         return s / steps * 1e3, obs
 
-    warm = {k: turn(k)[0] for k in nets}  # the first call of each network
-    ms = {k: [] for k in list(nets) + ["plain"]}
+    warm = {k: turn(k, steps=STDP_WARM_T)[0] for k in nets}  # the first call of each network
+    ms = {k: [] for k in list(nets) + ["row", "plain"]}
     torch.cuda.reset_peak_memory_stats()
-    for k in ("kernel", "plain", "bfloat16", "reward", "homeostasis", "homeostasis", "reward",
-              "bfloat16", "plain", "kernel", "kernel"):
-        ms[k].append(turn("kernel", plain=True)[0] if k == "plain" else turn(k)[0])
+    for k in ("kernel", "row", "plain", "bfloat16", "reward", "homeostasis", "homeostasis",
+              "reward", "bfloat16", "plain", "row", "kernel", "kernel"):
+        ms[k].append(turn("kernel", k)[0] if k in ("row", "plain") else turn(k)[0])
     peak = torch.cuda.max_memory_allocated()
     best = {k: min(v) for k, v in ms.items()}
     weights = {k: check_plastic_weights(f"stdp_path ({k})", net.get_edge("qif", "qif"))
                for k, net in nets.items()}
     edge = nets["kernel"].get_edge("qif", "qif")
     idle = stdp_idle_share(nets["kernel"], offsets["kernel"], best["kernel"])
-    entries = [stdp_kernel_timing("stdp_update[float32,dense]", edge, "soft", STDP_T),
+    sass = stdp_sass_per_entry()
+    entries = [stdp_kernel_timing("stdp_update[float32,dense]", edge, "soft", STDP_T, sass),
                stdp_kernel_timing("stdp_update[bfloat16,dense]",
-                                  nets["bfloat16"].get_edge("qif", "qif"), "soft", STDP_T),
+                                  nets["bfloat16"].get_edge("qif", "qif"), "soft", STDP_T, sass),
                stdp_kernel_timing("stdp_update[float32,reward,dense]",
-                                  nets["reward"].get_edge("qif", "qif"), "reward", STDP_T)]
+                                  nets["reward"].get_edge("qif", "qif"), "reward", STDP_T, sass)]
     emit({"phase": "stdp_path", "n": STDP_N, "steps": STDP_T, "plain_steps": STDP_PLAIN_T,
           "dt": DT, "drive": "Poisson(1 channel, rate 50, amp 10, seed 1)",
           "build_s": build_s, "warm_ms_per_step": warm, "ms_per_step_in_turns": ms,
           "ms_per_step": best,
           "neuron_updates_per_s": {k: STDP_N / (v * 1e-3) for k, v in best.items()},
           "plain_over_kernel": best["plain"] / best["kernel"],
-          "kernel_launches_per_fit": STDP_T, "weights": weights,
+          "row_over_kernel": best["row"] / best["kernel"],
+          "kernel_launches_per_fit": STDP_T, "tile_launches_per_fit": STDP_T, "weights": weights,
           "kernel_ms": {e["name"]: e["ms"] for e in entries},
+          "kernel_row_ms": {e["name"]: e["row_ms"] for e in entries},
           "kernel_bound_ms": {e["name"]: e["bound_ms"] for e in entries},
+          "sass_per_entry": sass,
           "kernel_share_of_step": entries[0]["ms"] / best["kernel"], **idle,
           "max_memory_allocated_bytes": peak})
     del nets, edge
@@ -5237,9 +5372,10 @@ def block_stdp_phase(dev) -> list:
     512, fan-in 1,000 from the native sampler, seed 7, the blocks scattered
     to U(0, 15/fan-in), hard bounds, homeostasis every STDP_HOMEO steps, the
     Poisson drive): a warm fit of STDP_T steps, then in turns the kernel
-    (STDP_T steps, the aligned path), the plain update (two fits of
-    BSTDP_PLAIN_T steps, together one scaling period, so the kernel's fits
-    stay aligned), the kernel; one launch a step asserted; ms/step, nu/s,
+    (STDP_T steps, the aligned path), route "row" (STDP_T steps), the plain
+    update (two fits of BSTDP_PLAIN_T steps, together one scaling period,
+    so the kernel's fits stay aligned), route "row", the kernel; one launch
+    a step asserted, each on route "tile" unless "row" was forced; ms/step, nu/s,
     the block tensor's bytes, the row masses pinned at a scaling step, the
     kernel against its bound, the idle share, peak memory."""
     from rectipy_tpu_torch.ops.sparse import block_random_connectivity
@@ -5258,25 +5394,23 @@ def block_stdp_phase(dev) -> list:
     edge = net.get_edge("qif", "qif")
     mass0 = edge.params["weights"].sum(dim=(1, 3)).reshape(-1).clone()
     kw = {"homeostasis_steps": STDP_HOMEO, "record_spikes": ["qif"]}
-    offset, ms, spikes = 0, {"kernel": [], "plain": []}, 0
+    offset, ms, spikes = 0, {"kernel": [], "row": [], "plain": []}, 0
 
-    def turn(plain=False):
+    def turn(how="kernel", steps=None):
         nonlocal offset, spikes
-        steps = BSTDP_PLAIN_T if plain else STDP_T
-        s, launches, obs = fit_turn(net, steps, offset, plain=plain, **kw)
+        steps = steps or {"plain": BSTDP_PLAIN_T, "row": STDP_ROW_T}.get(how, STDP_T)
+        s, launches, tiles, obs = fit_turn(net, steps, offset, how, **kw)
         offset += steps
-        if launches != (0 if plain else steps):
-            raise AssertionError(f"block_stdp_path: {launches} kernel launches for {steps} "
-                                 f"steps{' (plain)' if plain else ''}")
+        check_fit_launches("block_stdp_path", how, steps, launches, tiles)
         spikes += int(obs.to_numpy(("qif", "spikes")).sum())
         return s / steps * 1e3
 
-    warm = turn()
+    warm = turn(steps=STDP_WARM_T)
     mass = edge.params["weights"].sum(dim=(1, 3)).reshape(-1)
     mass_rel = float(((mass - mass0).abs() / mass0.abs().clamp_min(1e-30)).max())
     torch.cuda.reset_peak_memory_stats()
-    for k in ("kernel", "plain", "plain", "kernel"):
-        ms[k].append(turn(plain=k == "plain"))
+    for k in ("kernel", "row", "plain", "plain", "row", "kernel"):
+        ms[k].append(turn(k))
     peak = torch.cuda.max_memory_allocated()
     best = {k: min(v) for k, v in ms.items()}
     weights = check_plastic_weights("block_stdp_path", edge)
@@ -5285,7 +5419,8 @@ def block_stdp_phase(dev) -> list:
                              f"scaling step, or no spike ({spikes})")
     W = edge.params["weights"]
     idle = stdp_idle_share(net, offset, best["kernel"], **kw)
-    entry = stdp_kernel_timing("stdp_update[float32,blocks]", edge, "hard", STDP_T)
+    sass = stdp_sass_per_entry()
+    entry = stdp_kernel_timing("stdp_update[float32,blocks]", edge, "hard", STDP_T, sass)
     emit({"phase": "block_stdp_path", "n": BSTDP_N, "block_size": BSTDP_BS, "fan_in": BSTDP_FAN,
           "blocks_shape": list(W.shape), "block_tensor_bytes": W.numel() * W.element_size(),
           "steps": STDP_T, "plain_steps": [BSTDP_PLAIN_T, BSTDP_PLAIN_T],
@@ -5293,9 +5428,12 @@ def block_stdp_phase(dev) -> list:
           "build_s": build_s, "warm_ms_per_step": warm, "ms_per_step_in_turns": ms,
           "ms_per_step": best,
           "neuron_updates_per_s": {k: BSTDP_N / (v * 1e-3) for k, v in best.items()},
-          "plain_over_kernel": best["plain"] / best["kernel"], "kernel_launches_per_fit": STDP_T,
-          "spikes": spikes, "row_mass_max_rel_change_after_scaling": mass_rel,
-          "weights": weights, "kernel_ms": entry["ms"], "kernel_bound_ms": entry["bound_ms"],
+          "plain_over_kernel": best["plain"] / best["kernel"],
+          "row_over_kernel": best["row"] / best["kernel"], "kernel_launches_per_fit": STDP_T,
+          "tile_launches_per_fit": STDP_T, "spikes": spikes,
+          "row_mass_max_rel_change_after_scaling": mass_rel,
+          "weights": weights, "kernel_ms": entry["ms"], "kernel_row_ms": entry["row_ms"],
+          "kernel_bound_ms": entry["bound_ms"],
           "kernel_share_of_step": entry["ms"] / best["kernel"], **idle,
           "max_memory_allocated_bytes": peak})
     del net, edge, W
@@ -5349,9 +5487,11 @@ def rl_net(device):
 
 def plasticity_check(dev, build_net, timing: dict) -> dict:
     """Phase 44: (a) the stdp_update kernel against its plain version bit
-    for bit for every variant, layout and type (testing.STDP_CASES) at
-    ragged shapes (37 x 1,003; 5 x 3 blocks of 20 with repeated columns)
-    and at the paths' row widths (10,000; blocks of 512); (b) fit_stdp
+    for bit for every variant, layout and type (testing.STDP_CASES) on
+    every route each shape allows, at testing.STDP_CHECK_SHAPES: ragged
+    rows (37 x 1,003, 1,004 and 1,000; blocks of 20, 24 and 128 with
+    repeated columns) and the paths' row widths (10,000; blocks of 512);
+    (b) fit_stdp
     over STDP_CHECK_T steps with reward and homeostasis (every 32 steps:
     the per-step path) on the card and on the CPU at float64, dense N = 256
     and blocks N = 2,048 (bs 128, the native sampler's columns): spike
@@ -5368,20 +5508,26 @@ def plasticity_check(dev, build_net, timing: dict) -> dict:
     from rectipy_tpu_torch.ops.kernels import qif_sfa_step
     from rectipy_tpu_torch.ops.sparse import block_random_connectivity
     from rectipy_tpu_torch.ops.stdp import stdp_update
-    from rectipy_tpu_torch.testing import STDP_CASES, check_stdp, stdp_inputs
+    from rectipy_tpu_torch.testing import (STDP_CASES, STDP_CHECK_SHAPES, check_stdp,
+                                           stdp_inputs, stdp_routes)
 
-    # (a) the kernel, bit for bit
+    # (a) the kernel, bit for bit, on every route each shape allows
     t0 = time.perf_counter()
     cases = {}
     for mode, layout, dtype in STDP_CASES:
-        for shape in (None, (3, 10_000) if layout == "dense" else (2, 4, 512, 6)):
-            res = check_stdp(mode, stdp_inputs(layout, dtype, 44, dev, shape))
-            if res["launches"] != 1 or res["moved"] == 0:
-                raise AssertionError(f"plasticity_check {mode} {layout} {dtype}: {res}")
-            cases[f"{mode},{layout},{dtype},{'ragged' if shape is None else 'wide'}"] = \
-                res["moved"]
+        for shape in STDP_CHECK_SHAPES[layout]:
+            ops = stdp_inputs(layout, dtype, 44, dev, shape)
+            for route in stdp_routes(mode, ops):
+                res = check_stdp(mode, ops, route)
+                if res["launches"] != 1 or res["tile_launches"] != (route == "tile") \
+                        or res["moved"] == 0:
+                    raise AssertionError(f"plasticity_check {mode} {layout} {dtype} {shape} "
+                                         f"{route}: {res}")
+                cases[f"{mode},{layout},{dtype},{'x'.join(map(str, shape))},{route}"] = \
+                    res["moved"]
+    routes = {r: sum(k.endswith(r) for k in cases) for r in ("row", "tile")}
     emit({"phase": "plasticity_check", "part": "kernel_bit_for_bit", "cases": len(cases),
-          "entries_moved": cases, "s": time.perf_counter() - t0})
+          "cases_by_route": routes, "entries_moved": cases, "s": time.perf_counter() - t0})
 
     # (b) fit_stdp, card against CPU
     rng = np.random.default_rng(44)

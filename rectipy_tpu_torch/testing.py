@@ -27,8 +27,10 @@ The fused STDP update: ``STDP_CASES`` names every variant (hard, soft,
 reward), layout (dense, blocks) and type (float32, float64, bfloat16);
 ``stdp_inputs`` makes random weights, traces, 0/1 spikes and, for blocks,
 columns that repeat within a row, at shapes that leave ragged rows and
-grids; ``check_stdp`` launches the kernel and holds it to the plain
-version bit for bit.
+grids; ``STDP_CHECK_SHAPES`` adds shapes at the tile route's edges;
+``stdp_routes`` lists the kernel's routes that the operands allow and
+``check_stdp`` launches the kernel (on a route, when asked) and holds it
+to the plain version bit for bit.
 
 The tensor cores' int8 product: ``mma_m16n8k32`` is a numpy model of one
 ``mma.sync`` m16n8k32 s8 on the PTX ISA's fragment layouts, with
@@ -44,11 +46,11 @@ import numpy as np
 import torch
 
 from .ops.fused_opt import bias_corrections
-from .ops.stdp import stdp_consts, stdp_update, stdp_update_plain
+from .ops.stdp import stdp_consts, stdp_update, stdp_update_plain, stdp_update_routes
 
-__all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "STDP_CASES", "adam_inputs",
-           "check_adam_requant", "check_generic", "check_stdp", "generic_case_net",
-           "generic_inputs", "stdp_inputs",
+__all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "STDP_CASES",
+           "STDP_CHECK_SHAPES", "adam_inputs", "check_adam_requant", "check_generic",
+           "check_stdp", "generic_case_net", "generic_inputs", "stdp_inputs", "stdp_routes",
            "generic_rows_instance", "generic_rows_operands", "lost_eighth_margin",
            "mma_m16n8k32", "qif_rows_instance", "quant_scales", "reciprocal_rows", "sbytes",
            "words"]
@@ -391,6 +393,12 @@ STDP_CASES = [(mode, layout, dtype) for mode in ("hard", "soft", "reward")
 # of it); blocks: 5 block rows of 3 blocks of 20 x 20 (rows shorter than a
 # thread block), columns drawn with repeats
 STDP_SHAPES = {"dense": (37, 1003), "blocks": (5, 3, 20, 8)}
+# the shapes every route is held to the plain version at: dense rows of
+# 1,003 (route "tile" at no type), 1,004 (float32 and float64, not
+# bfloat16), 1,000 (every type) and the path's 10,000; blocks of 20 (not
+# bfloat16), 24, 128 and the path's 512, columns drawn with repeats
+STDP_CHECK_SHAPES = {"dense": [(37, 1003), (37, 1004), (37, 1000), (3, 10_000)],
+                     "blocks": [(5, 3, 20, 8), (5, 3, 24, 2), (3, 4, 128, 3), (2, 4, 512, 6)]}
 
 
 def stdp_inputs(layout: str, dtype: str, seed: int, device, shape=None) -> dict:
@@ -420,16 +428,25 @@ def stdp_inputs(layout: str, dtype: str, seed: int, device, shape=None) -> dict:
                 c=stdp_consts(dt, device, 0.01, 0.012, 0.0, 0.5, d_e=0.95))
 
 
-def check_stdp(mode: str, ops: dict) -> dict:
-    """Launch the kernel on ``stdp_inputs``' operands and hold ``W'`` (and
-    ``E'``) to the plain version bit for bit; returns ``{"launches",
-    "moved", "max_abs_err"}`` (``moved``: entries the update changed)."""
+def stdp_routes(mode: str, ops: dict) -> tuple:
+    """The kernel's routes that ``stdp_inputs``' operands allow in ``mode``."""
+    W = ops["W"]
+    streamed = (W, ops["x_pre"], ops["spk_pre"]) + ((ops["E"],) if mode == "reward" else ())
+    return stdp_update_routes(W.dtype, W.shape[-1], [t.data_ptr() for t in streamed])
+
+
+def check_stdp(mode: str, ops: dict, route: str = None) -> dict:
+    """Launch the kernel on ``stdp_inputs``' operands (on ``route``, default
+    the wrapper's choice) and hold ``W'`` (and ``E'``) to the plain version
+    bit for bit; returns ``{"launches", "tile_launches", "moved",
+    "max_abs_err"}`` (``moved``: entries the update changed)."""
     args = (ops["W"], ops["x_pre"], ops["x_post"], ops["spk_pre"], ops["spk_post"], ops["c"],
             mode == "soft", ops["cols"])
     E, r = (ops["E"], ops["r"]) if mode == "reward" else (None, None)
-    before = stdp_update.launches
-    got = stdp_update(*args, E, r)
-    launches = stdp_update.launches - before
+    before = stdp_update.launches, stdp_update.tile_launches
+    got = stdp_update(*args, E, r, route=route)
+    launches = stdp_update.launches - before[0]
+    tile_launches = stdp_update.tile_launches - before[1]
     ref = stdp_update_plain(*args, E, r)
     err = 0.0
     for a, b in zip(got, ref):
@@ -439,5 +456,5 @@ def check_stdp(mode: str, ops: dict) -> dict:
             raise AssertionError(f"stdp_update ({mode}, {b.dtype}, {tuple(b.shape)}) differs "
                                  f"from its plain version on {int((a != b).sum())} entries")
         err = max(err, float((a.double() - b.double()).abs().max()))
-    return {"launches": launches, "moved": int((ref[0] != ops["W"]).sum()),
-            "max_abs_err": err}
+    return {"launches": launches, "tile_launches": tile_launches,
+            "moved": int((ref[0] != ops["W"]).sum()), "max_abs_err": err}

@@ -31,10 +31,11 @@ from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_
                                          pack_int4,
                                          quant_vec, quantize_rows)
 from rectipy_tpu_torch.ops.stdp import stdp_consts, stdp_update
-from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, STDP_CASES, adam_inputs,
+from rectipy_tpu_torch.testing import (ADAM_KW, GENERIC_CASES, STDP_CASES, STDP_CHECK_SHAPES,
+                                       adam_inputs,
                                        check_adam_requant, check_generic, check_stdp,
                                        generic_case_net, generic_inputs, stdp_inputs,
-                                       generic_rows_instance, generic_rows_operands,
+                                       stdp_routes, generic_rows_instance, generic_rows_operands,
                                        lost_eighth_margin, qif_rows_instance, quant_scales,
                                        reciprocal_rows)
 
@@ -2030,15 +2031,40 @@ def test_int8_master_multistart_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["row", "tile"])
 @pytest.mark.parametrize("mode,layout,dtype", STDP_CASES)
-def test_stdp_update_kernel_bit_identical_to_plain(cuda, mode, layout, dtype):
-    # every variant, layout and type on ragged rows (dense 37 x 1,003;
-    # blocks of 20 x 20 with repeated columns)
-    res = check_stdp(mode, stdp_inputs(layout, dtype, 5, cuda))
-    assert res["launches"] == 1 and res["moved"] > 0
-    # and at the main paths' widths: a dense row of 10,000, blocks of 512
-    shape = (3, 10_000) if layout == "dense" else (2, 4, 512, 6)
-    assert check_stdp(mode, stdp_inputs(layout, dtype, 6, cuda, shape))["launches"] == 1
+def test_stdp_update_kernel_bit_identical_to_plain(cuda, mode, layout, dtype, route):
+    # every variant, layout and type on each route, at every shape of
+    # STDP_CHECK_SHAPES the route takes: ragged rows (dense 37 x 1,003,
+    # 1,004 and 1,000; blocks of 20, 24 and 128 with repeated columns) and
+    # the main paths' widths (a dense row of 10,000, blocks of 512)
+    checked = []
+    for seed, shape in enumerate(STDP_CHECK_SHAPES[layout]):
+        ops = stdp_inputs(layout, dtype, seed, cuda, shape)
+        if route in stdp_routes(mode, ops):
+            res = check_stdp(mode, ops, route)
+            assert res["launches"] == 1 and res["moved"] > 0
+            assert res["tile_launches"] == (route == "tile")
+            checked.append(shape)
+    assert checked[-1] == STDP_CHECK_SHAPES[layout][-1]  # both routes take the paths' widths
+    if route == "row":
+        assert checked == STDP_CHECK_SHAPES[layout]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["soft", "reward"])
+def test_stdp_update_unaligned_weights_take_the_row_route(cuda, mode):
+    # a W one element past a 16-byte boundary (rows of 1,000: whole pieces
+    # at every type) takes "row" by default, counted in launches only, and
+    # refuses "tile"
+    ops = stdp_inputs("dense", "float32", 3, cuda, (37, 1000))
+    store = torch.empty(ops["W"].numel() + 1, dtype=ops["W"].dtype, device=cuda)
+    ops["W"] = store[1:].view_as(ops["W"]).copy_(ops["W"])
+    assert stdp_routes(mode, ops) == ("row",)
+    res = check_stdp(mode, ops)
+    assert (res["launches"], res["tile_launches"]) == (1, 0) and res["moved"] > 0
+    with pytest.raises(ValueError, match="does not take"):
+        check_stdp(mode, ops, "tile")
 
 
 @pytest.mark.gpu
