@@ -22,6 +22,12 @@ specs (``inputs.py``) make a run's drive on the device, and
 Plastic edges (``STDP``, ``BlockSparseSTDP``) learn online in
 ``Network.fit_stdp`` through the fused ``stdp_update`` kernel, and
 ``Network.fit_eprop`` trains a readout by a local delta rule.
+
+The tooling keeps the JAX package's module paths and is not exported at
+the top level: ``rectipy_tpu_torch.serving`` (bundles through
+``torch.export``; the kernels are ``torch.library`` operators of
+``ops/library.py``), ``.checkpoint``, ``.analysis``, ``.profiler`` and
+``.debugging``.
 """
 
 __version__ = "0.1.0"

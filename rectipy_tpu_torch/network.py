@@ -53,6 +53,7 @@ import numpy as np
 import torch
 from networkx import DiGraph
 
+from . import debugging
 from .edges import (RLS, STDP, BlockSparseLinear, BlockSparseSTDP, Linear, LinearFilter,
                     LinearMasked, LinearMemory, LinearMemoryFilter, LinearMemoryMatrix, LinearSTP)
 from .inputs import InputSpec
@@ -719,8 +720,13 @@ class Network:
 
         ``step(state, params, x) -> (state', out, taps_dict)`` where ``state``
         and ``params`` are the trees produced by :meth:`init_state` /
-        :meth:`parameters_pytree`.
+        :meth:`parameters_pytree`.  Inside ``debugging.enable_nan_checks()``
+        the step returned checks each new state for NaN and infinity.
         """
+        step = self._cached_step(taps)
+        return debugging.checked_step(step) if debugging.nan_checks_enabled() else step
+
+    def _cached_step(self, taps: Tuple[str, ...]) -> Callable:
         if self._compiled is None:
             self.compile()
         order = self._compiled["order"]

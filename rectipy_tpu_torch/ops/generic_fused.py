@@ -196,6 +196,10 @@ def generic_fused_step(step: GenericStep, srcs: Sequence[torch.Tensor],
     current device; anything else raises.  The first launch of a source
     builds it.  Each launch adds one to ``generic_fused_step.launches``.
     """
+    if torch.compiler.is_exporting():
+        from .library import export_refused
+
+        raise export_refused("generic_fused_step")
     device = drive.device
     if device.type == "cpu":
         return generic_fused_step_plain(step, srcs, Ws, drive, states, vecs)
@@ -310,6 +314,10 @@ def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
     to ``generic_fused_rows.launches``, and one on the tensor cores also to
     ``generic_fused_rows.mma_launches``, one on the tiled kernel to
     ``generic_fused_rows.tiled_launches``."""
+    if torch.compiler.is_exporting():
+        from .library import export_refused
+
+        raise export_refused("generic_fused_rows")
     device = drive.device
     if device.type == "cpu":
         return generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)

@@ -41,7 +41,8 @@ from ..nodes import resolve_dtype
 from ._build import build
 from .generic_fused import refuse_autograd
 
-__all__ = ["qif_sfa_reference_step", "qif_sfa_step", "rows_route", "attach_fused_qif_step"]
+__all__ = ["qif_sfa_reference_step", "qif_sfa_step", "qif_sfa_launch", "qif_sfa_rows_step",
+           "rows_route", "attach_fused_qif_step"]
 
 # elements per 16-byte vector load of W
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
@@ -111,7 +112,17 @@ def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thres
     bfloat16, the five vectors ``(n,)`` float32, all contiguous and on the
     current device; anything else raises.  Each launch adds one to
     ``qif_sfa_step.launches``.
+
+    While ``torch.export`` traces, the call goes to the registered operator
+    ``rectipy::qif_sfa_step`` (``rectipy::qif_sfa_rows_step`` for ``B``
+    trials) instead, which an exported program can hold (``ops/library.py``).
     """
+    if torch.compiler.is_exporting():
+        from . import library
+
+        op = library.qif_sfa_rows_step if v.dim() == 2 else library.qif_sfa_step
+        return op(v, s, x, W, eta, inp, float(dt), float(tau), float(tau_s), float(tau_x),
+                  float(k), float(alpha), float(thresh), float(v_reset))
     device = W.device
     if device.type == "cpu" or v.dim() == 2:
         if device.type == "cpu":
@@ -120,6 +131,15 @@ def qif_sfa_step(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thres
                 alpha=alpha, thresh=thresh, v_reset=v_reset), dim=-2)
         return qif_sfa_rows_step(v, s, x, W, eta, inp, dt=dt, tau=tau, tau_s=tau_s,
                                  tau_x=tau_x, k=k, alpha=alpha, thresh=thresh, v_reset=v_reset)
+    return qif_sfa_launch(v, s, x, W, eta, inp, dt=dt, tau=tau, tau_s=tau_s, tau_x=tau_x, k=k,
+                          alpha=alpha, thresh=thresh, v_reset=v_reset)
+
+
+def qif_sfa_launch(v, s, x, W, eta, inp, *, dt, tau, tau_s, tau_x, k, alpha, thresh, v_reset):
+    """The single-state kernel launch of :func:`qif_sfa_step` on CUDA tensors
+    (the CUDA implementation of ``rectipy::qif_sfa_step``): its checks, the
+    launch and the launch counter."""
+    device = W.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
             f"qif_sfa_step: W must be on the current CUDA device, got {device}")

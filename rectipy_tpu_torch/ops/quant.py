@@ -94,7 +94,11 @@ def exact_div(t: torch.Tensor, value: float) -> torch.Tensor:
     of all values at ``/ 7`` and 4% at ``/ 127``; a 0-dim divisor on the
     operand's own device and dtype takes the true division.  The divisor is
     made once per value, dtype and device, so a step copies nothing to the
-    card.  Every quantization scale of the port goes through here."""
+    card.  Every quantization scale of the port goes through here.  While
+    ``torch.export`` traces, the divisor is made in the trace (a constant of
+    the program), so that no traced tensor enters the cache."""
+    if torch.compiler.is_exporting():
+        return t / torch.tensor(float(value), dtype=t.dtype, device=t.device)
     return t / _divisor(float(value), t.dtype, t.device)
 
 
@@ -206,9 +210,22 @@ def int8_mv(wq, xq, row_scale, act_scale) -> torch.Tensor:
     CPU tensors take the plain version.  CUDA tensors launch the kernel of
     ``csrc/int8_matvec.cu`` on the current stream (``act_scale`` is read on
     the device, so nothing synchronises); anything it does not take raises.
-    Each launch adds one to ``int8_mv.launches``."""
+    Each launch adds one to ``int8_mv.launches``.  While ``torch.export``
+    traces, the call goes to the registered operator ``rectipy::int8_mv``
+    instead (``ops/library.py``)."""
+    if torch.compiler.is_exporting():
+        from . import library
+
+        return library.int8_mv(wq, xq, row_scale, act_scale)
     if wq.device.type == "cpu":
         return (int8_dot_plain(wq, xq) * row_scale) * act_scale
+    return int8_mv_launch(wq, xq, row_scale, act_scale)
+
+
+def int8_mv_launch(wq, xq, row_scale, act_scale) -> torch.Tensor:
+    """The kernel launch of :func:`int8_mv` on CUDA tensors (the CUDA
+    implementation of ``rectipy::int8_mv``): its checks, the launch and the
+    launch counter."""
     n_out, n_in = wq.shape
     _check("int8_mv", wq, xq, row_scale, act_scale, n_in)
     out = torch.empty(n_out, dtype=torch.float32, device=wq.device)
@@ -282,9 +299,22 @@ def int8_mm(wq, xq, row_scale, act_scale) -> torch.Tensor:
     for up to 32 rows on the CUDA cores.  Integer sums are exact in any
     order; anything the kernels do not take raises.  Each launch adds one to
     ``int8_mm.launches``, and one on the tensor cores also to
-    ``int8_mm.mma_launches``."""
+    ``int8_mm.mma_launches``.  While ``torch.export`` traces, the call goes
+    to the registered operator ``rectipy::int8_mm`` instead
+    (``ops/library.py``)."""
+    if torch.compiler.is_exporting():
+        from . import library
+
+        return library.int8_mm(wq, xq, row_scale, act_scale)
     if wq.device.type == "cpu":
         return (int8_mm_plain(wq, xq) * row_scale) * act_scale[:, None]
+    return int8_mm_launch(wq, xq, row_scale, act_scale)
+
+
+def int8_mm_launch(wq, xq, row_scale, act_scale) -> torch.Tensor:
+    """The kernel launch of :func:`int8_mm` on CUDA tensors (the CUDA
+    implementation of ``rectipy::int8_mm``): its checks, route, launch and
+    launch counters."""
     n_out, n_in = wq.shape
     rows = xq.shape[0] if xq.dim() == 2 else -1
     _check("int8_mm", wq, xq, row_scale, act_scale, n_in, rows=rows)
@@ -612,6 +642,10 @@ def int4_mv(wp, xq, row_scale, act_scale) -> torch.Tensor:
     CPU tensors take the plain version.  CUDA tensors launch the kernel of
     ``csrc/int4_matvec.cu`` on the current stream; anything it does not take
     raises.  Each launch adds one to ``int4_mv.launches``."""
+    if torch.compiler.is_exporting():
+        from .library import export_refused
+
+        raise export_refused("int4_mv")
     if wp.device.type == "cpu":
         return (int4_dot_plain(wp, xq) * row_scale) * act_scale
     n_out, n_in = wp.shape[0], xq.shape[0]
@@ -687,6 +721,10 @@ def int4_mm(wp, xq, row_scale, act_scale) -> torch.Tensor:
     cores.  Integer sums are exact in any order; anything the kernels do not
     take raises.  Each launch adds one to ``int4_mm.launches``, and one on
     the tensor cores also to ``int4_mm.mma_launches``."""
+    if torch.compiler.is_exporting():
+        from .library import export_refused
+
+        raise export_refused("int4_mm")
     if wp.device.type == "cpu":
         return (int4_mm_plain(wp, xq) * row_scale) * act_scale[:, None]
     n_out = wp.shape[0]
@@ -1007,6 +1045,10 @@ def block_int8_mv(bq, row_scale, xq, idx, route=None) -> torch.Tensor:
     version agree bit for bit.  Each launch adds one to
     ``block_int8_mv.launches``, a launch on the tensor cores also to
     ``block_int8_mv.mma_launches``."""
+    if torch.compiler.is_exporting():
+        from .library import export_refused
+
+        raise export_refused("block_int8_mv")
     if bq.device.type == "cpu":
         return block_int8_mv_plain(bq, row_scale, xq, idx)
     _check_block(bq, row_scale, xq, idx)

@@ -2155,3 +2155,195 @@ def test_fit_eprop_on_card_through_the_fused_step(cuda):
     assert qif_sfa_step.launches - before == T
     assert np.isfinite(obs.to_numpy("loss")).all() and obs.to_numpy("out").shape == (T // 10, 1)
     assert float(edge.params["weights"].abs().max()) > 0
+
+
+# ------------------------------------------------------------------ tooling
+def _op_inputs(name, device, seed=0):
+    """Inputs of each registered operator at small shapes: the QIF step on
+    one state and on 4 trials' strided rows (bf16 W, the tensor-core
+    route), the int8 products on one source and on 4 rows."""
+    rng = np.random.default_rng(seed)
+    n = 256
+    if name.startswith("qif"):
+        W = torch.as_tensor((rng.random((n, n)) < 0.1) * 0.01, dtype=torch.float32,
+                            device=device).to(torch.bfloat16)
+        lead = (4,) if name == "qif_sfa_rows_step" else ()
+        y = torch.as_tensor(rng.normal(size=lead + (3 * n,)) * 12.0, dtype=torch.float32,
+                            device=device)
+        v, s, x = y[..., :n], y[..., n:2 * n], y[..., 2 * n:]
+        eta, inp = (torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=device)
+                    for _ in range(2))
+        return (v, s, x, W, eta, inp, *[float(PARAMS[k]) for k in (
+            "dt", "tau", "tau_s", "tau_x", "k", "alpha", "thresh", "v_reset")])
+    wq, ws = quantize_rows(torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32,
+                                           device=device))
+    src = torch.as_tensor(rng.normal(size=(4, n) if name == "int8_mm" else (n,)),
+                          dtype=torch.float32, device=device)
+    xq, xs = quant_vec(src)
+    return (wq, xq, ws, xs.reshape(-1) if name == "int8_mm" else xs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qif_sfa_step", "qif_sfa_rows_step", "int8_mv", "int8_mm"])
+def test_registered_op_cuda_against_cpu_and_fake(cuda, name):
+    """Each rectipy:: operator: its CUDA implementation (the wrapper's
+    launch, counted) against its CPU implementation (the plain version) on
+    the same inputs, and its fake implementation's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from rectipy_tpu_torch.ops import kernels, library, quant
+
+    op = getattr(torch.ops.rectipy, name)
+    args = _op_inputs(name, cuda)
+    counter = kernels.qif_sfa_step if name.startswith("qif") else getattr(quant, name)
+    before = counter.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = op(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    if name.startswith("int8"):
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-4)
+    with FakeTensorMode() as mode:
+        fake = op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args])
+    assert fake.shape == got.shape and fake.dtype == got.dtype == torch.float32
+    assert name in library.OPS
+
+
+def _served_qif(device, n=512):
+    net = Network(1e-4, device=device)
+    W = (np.random.default_rng(21).random((n, n)) < 0.1) / (0.1 * n)
+    net.add_diffeq_node("qif", "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa",
+                        weights=W, source_var="s", target_var="s_in", input_var="I_ext",
+                        output_var="s", spike_var="spike", spike_def="v", op="qif_sfa_op",
+                        spike_threshold=1e2, spike_reset=-1e2, coupling_dtype="bfloat16",
+                        node_vars={"all/qif_sfa_op/eta": 5.0 + np.arange(n) * 0.01,
+                                   "all/qif_sfa_op/k": 15.0})
+    net.add_func_node("inp", 1, activation_function="tanh")
+    net.add_edge("inp", "qif", weights=np.ones((n, 1)))
+    net.compile()
+    attach_fused_qif_step(net.get_node("qif"))
+    return net
+
+
+def _served_int8(device, n=512):
+    net = Network(1e-3, device=device)
+    W = np.random.default_rng(22).normal(size=(n, n)) / np.sqrt(n)
+    net.add_diffeq_node("p", "neuron_model_templates.rate_neurons.leaky_integrator.tanh",
+                        weights=W, source_var="tanh_op/r", target_var="li_op/r_in",
+                        input_var="li_op/I_ext", output_var="tanh_op/r",
+                        coupling_dtype="int8")
+    return net
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fused", "int8_B4"])
+def test_bundle_served_on_card_bit_for_bit(cuda, tmp_path, case):
+    """A small fused bf16 QIF bundle (rectipy::qif_sfa_step) and a B = 4
+    frozen-int8 bundle (rectipy::int8_mm) exported and served on the card:
+    their records equal run / run_batch bit for bit, and the served
+    requests launch the kernel as often as run / run_batch (the fused step
+    once a step; the tanh node's algebraic output reads its coupling too,
+    so the int8 product twice)."""
+    from rectipy_tpu_torch.ops import quant
+    from rectipy_tpu_torch.serving import export_network, load_network
+
+    T = 200
+    rng = np.random.default_rng(23)
+    if case == "fused":
+        build, counter, B = _served_qif, qif_sfa_step, None
+        ins = np.full((T, 1), 3.0, dtype=np.float32)
+        ins[:50] = 0.0
+    else:
+        build, counter, B = _served_int8, quant.int8_mm, 4
+        ins = rng.normal(size=(B, T, 1)).astype(np.float32)
+    model = load_network(export_network(build(cuda), str(tmp_path / case), T=T, n_in=1,
+                                        batch=B))
+    assert model.meta["device"] == "cuda"
+    assert model.meta["ops"] == (["rectipy::qif_sfa_step"] if B is None
+                                 else ["rectipy::int8_mm"])
+    before = counter.launches
+    got = model(ins)
+    served = counter.launches - before
+    before = counter.launches
+    ref = (build(cuda).run(ins, verbose=False).to_numpy("out") if B is None
+           else build(cuda).run_batch(ins, verbose=False)["out"])
+    assert served == counter.launches - before == (T if B is None else 2 * T)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_cpu_bundle_moved_to_the_card(cuda, tmp_path):
+    """A bundle exported on the CPU with platforms ["cpu", "cuda"] and loaded
+    with device="cuda": the programs move to the card, the operator takes
+    its CUDA implementation (one int8_mv launch a read of the coupling),
+    and the records equal the same network's run on the card."""
+    from rectipy_tpu_torch.ops import quant
+    from rectipy_tpu_torch.serving import export_network, load_network
+
+    T = 100
+    ins = np.random.default_rng(24).normal(size=(T, 1)).astype(np.float32)
+    path = export_network(_served_int8("cpu"), str(tmp_path / "moved"), T=T, n_in=1,
+                          platforms=["cpu", "cuda"])
+    model = load_network(path, device="cuda")
+    assert model.meta["device"] == "cpu" and model.device.type == "cuda"
+    before = quant.int8_mv.launches
+    got = model(ins)
+    served = quant.int8_mv.launches - before
+    before = quant.int8_mv.launches
+    ref = _served_int8(cuda).run(ins, verbose=False).to_numpy("out")
+    assert served == quant.int8_mv.launches - before > 0
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_trace_holds_the_fused_kernels_event(cuda, tmp_path):
+    """trace() on the card writes a trace whose device events include the
+    fused QIF kernel's."""
+    import glob
+    import json
+
+    from rectipy_tpu_torch.profiler import trace
+
+    net = _served_qif(cuda)
+    net.run(np.ones((5, 1)), verbose=False)
+    with trace(str(tmp_path)):
+        net.run(np.ones((20, 1)), verbose=False)
+    files = glob.glob(str(tmp_path / "*.pt.trace.json*"))
+    assert len(files) == 1
+    names = {e.get("name", "") for e in json.load(open(files[0]))["traceEvents"]}
+    assert any("qif_sfa" in name for name in names), sorted(names)[:50]
+
+
+@pytest.mark.gpu
+def test_enable_nan_checks_raises_on_card(cuda):
+    from rectipy_tpu_torch.debugging import enable_nan_checks
+
+    net = _served_int8(cuda, n=64)
+    inp = np.ones((12, 1), dtype=np.float32)
+    inp[5] = np.nan
+    with enable_nan_checks(), pytest.raises(FloatingPointError, match="at step 5"):
+        net.run(inp, verbose=False)
+
+
+@pytest.mark.gpu
+def test_bf16_checkpoint_restores_bit_for_bit_on_card(cuda, tmp_path):
+    """The fused bf16 network on the card: save, restore into a fresh
+    network; the kernel's bf16 copy of W equal bit for bit, and a run after
+    the restore equal to the saved network's."""
+    from rectipy_tpu_torch.checkpoint import restore_network, save_network
+
+    net = _served_qif(cuda)
+    net.run(np.full((100, 1), 3.0), verbose=False)
+    save_network(net, str(tmp_path / "ck"))
+    net2 = _served_qif(cuda)
+    net2.get_node("qif").set_param("weights", np.zeros((512, 512)))
+    restore_network(net2, str(tmp_path / "ck"))
+    a, b = net.get_node("qif").args, net2.get_node("qif").args
+    assert b["__w_fused__"].dtype == torch.bfloat16
+    assert torch.equal(b["__w_fused__"].view(torch.int16), a["__w_fused__"].view(torch.int16))
+    ra = net.run(np.full((100, 1), 3.0), verbose=False).to_numpy("out")
+    rb = net2.run(np.full((100, 1), 3.0), verbose=False).to_numpy("out")
+    np.testing.assert_array_equal(rb, ra)
