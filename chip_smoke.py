@@ -125,8 +125,10 @@ kernels above, at N = 10,000):
    and a bf16 coupling, dense float32 feedforward p1 -> p2 and feedback
    p2 -> p1; the example's weights, sized for N = 100, scaled by 100/N),
    5,000 steps, best of 2; two kernel launches per step; the device-only
-   step and idle share; the first 160 steps on the CPU held to the card's
-   under fused_vs_plain's rule, both populations spiking in them.
+   step and idle share; steps 100-160 on the CPU, from the card's whole
+   state after step 100, held to the card's under fused_vs_plain's rule,
+   both populations spiking in them (the CPU's window runs and is held in
+   phase 31, after its timed runs: feedback_path_vs_cpu).
 No kernel is added for phases 20-24; the kernels line lists the instances
 they ran with their launch counts (qif_sfa_step and the int8 matvecs with
 phase 6's and phase 10's timings of the same kernel, the generic kernel
@@ -301,17 +303,18 @@ operations; no kernel of its own):
    run; both populations active (the largest window mean of s above 1e-3)
    and the STP state moved (min x of p1 -> p2 below 0.9, max u of p2 -> p1
    above 0.2 after the first run); each network's device-only step; the
-   first 160 steps on the CPU held to the card's (records and the final
-   (u, x)) under fused_vs_plain's rule, p1 spiking in them; the kernels line gains the generic
+   steps 100-160 on the CPU, from the card's whole state after step 100,
+   held to the card's (records and the final (u, x)) under
+   fused_vs_plain's rule, p1 spiking in them; the kernels line gains the generic
    kernel's entry for this path.
-32. edge_family_check: at n = 1,000, float32, 250 steps, an identity input
+32. edge_family_check: at n = 1,000, float32, 120 steps, an identity input
    through each edge class into a tanh population, on the card against the
    CPU under fused_vs_plain's rule: masked, per-source delay, filter, delay
    + filter, STP, and the delay matrix's onehot, factored, gather, interp
    (hat and factored2) reads and the factored and onehot reads with
    read_dtype bfloat16; then at M = 90 regions of phase 30's network a
    trainable-delay interp edge (delays x 1.1 against a teacher's records x
-   1.05, 1,000 steps): the epoch loss and the gradients of weights and
+   1.05, 500 steps): the epoch loss and the gradients of weights and
    delays on the card against the CPU (FIT_LOSS_RTOL, FIT_GRAD_RTOL), and
    one fit_bptt epoch on the card, whose loss must be the same.
 
@@ -599,6 +602,65 @@ stdp_update[float32,checkpoint_path] and [bfloat16,checkpoint_path]
 qif_sfa_step[float32,analysis_path] (phase 6's f32 timing, the 5,000
 launches of one fused lyapunov_direct call).
 
+Phase 48 (after phase 47; the bundles of the other forward kernels, which
+ops/library.py registers as operators: the generic fused step, single and
+B-row, int4_mv/int4_mm and block_int8_mv; no new kernel):
+
+48. serving_kernels_path: exported with serving.export_network and served by
+   phase 45's process (a second round of bundles, announced by its own
+   ready file), which builds no Network and reads no template: phase 12's
+   LIF network (N = 10,000, bf16 coupling, the generic step; the bundle
+   carries its generated CUDA source, which the serving process builds) for
+   2 chained requests of 1,000 steps (sampling 10) of phase 12's zero
+   drive, the same network as a 32-trial bundle for one request of 500
+   steps of phase 26's drive (normal + linspace(0, 2); sampling 50), phase
+   16's int4 network for 500 steps of bench_inputs (sampling 10), phase
+   26's frozen int4 network (batch_run_net) as a 32-trial bundle for 500
+   steps of 3 + normal drives from default_rng(48) (sampling 50), and phase
+   34's N = 1,000,448 int8 block network (kept from phase 34: 2.0 GB of
+   int8 blocks, so the max_memory_allocated_bytes of phases 35-47 include
+   it; phase 34 prints memory_allocated_bytes_held_to_phase_48) for 200
+   steps of its Pulse (sampling 100); the served
+   records equal, bit for bit, the window means of Network.run (run_batch)
+   over the same steps from the exported state, and the served process's
+   launches are 2,000 generic_fused_step, 500 generic_fused_rows (all on
+   the tensor cores), 500 int4_mv, 500 int4_mm (all on the tensor cores)
+   and 200 block_int8_mv (all on "mma").  Then each bundle loaded here and
+   served against run (run_batch) in turns on one request (served, run,
+   run, served), with export and load seconds and bundle bytes; the generic
+   operator's host cost a call against its wrapper's direct launch, in
+   turns (generic_op_call_us, n = 1,024); and where card and CPU runs of
+   the int4 network part (ROADMAP Queue 3): a one-step bundle of phase 16's
+   int4 network in int4_path_vs_cpu's start state (spiking), served on the
+   card and on the CPU in lockstep over that window's CPU_STEPS steps of
+   bench_inputs, every state leaf compared after every step, the first
+   step that parts run under an fx interpreter on both devices from the
+   same inputs to name the first operation whose output differs; the
+   window's records formed as Network.run forms them (from the state; the
+   step's output is the s before the step) on each device and held to
+   int4_path_vs_cpu's, and formed on both devices from the card's states
+   alone.
+The kernels line adds generic_fused_step[bfloat16,serving_kernels_path]
+(phase 12's timing of the same kernel), generic_fused_rows[bfloat16,
+serving_kernels_path] (phase 26's B = 32 tensor-core timing),
+int4_mv[serving_kernels_path] (phase 17's), int4_mm[serving_kernels_path]
+(phase 28's B = 32 timing) and block_int8_mv[serving_kernels_path] (phase
+33's B = 1 timing at the million-neuron shape), each with the served
+process's launches.
+
+With phase 48 the script takes time out elsewhere, never width:
+lif_net's coupling and taus (phases 12, 26 and 48) and batch_run_net's
+coupling (the six networks of phases 26 and 48) are drawn once
+(lif_weights, batch_run_weights), and the CPU references are cut in
+depth: the LIF windows of phases 24 and 31 run steps 100-160 on the CPU
+from the card's whole state after step 100 (lif_card_window; before,
+steps 0-160 on both), phase 32's edge cases 120 steps (250; the delays
+are below 40) and its trainable-delay fit 500 steps (1,000).  Every CPU
+reference runs in this process, after the card's timed runs of its phase
+and beside none of them: no timed window of the card shares the host with
+a CPU reference of this script (phase 47's float64 reference beside phase
+46 aside).
+
 Each phase prints one JSON line; then come the ``kernels`` line, the card's
 nvidia-smi line and, last, the contract line.  Any failed check raises and
 the script exits non-zero.  Without a CUDA device it exits 2 and prints
@@ -653,8 +715,9 @@ N_I4PACK = 14_336  # i4pack_microbench.py's default N
 CPU_STEPS = 60  # the card-vs-CPU windows (200 before phases 37-38, 100 before 45-47)
 # the LIF feedback networks' windows: p1's first spikes come at step 106
 # (v = 1,000 (1 - exp(-t/10)) reaches the threshold 100) and, through the
-# plain feedforward edge, p2's at about 131; both must spike in the window
-LIF_CPU_STEPS = 160
+# plain feedforward edge, p2's at about 131; both must spike in the window,
+# which starts from the card's whole state after LIF_CPU_START steps
+LIF_CPU_START, LIF_CPU_STEPS = 100, 60
 # the training path: bench.py:331-370
 T_TRAIN, DT_TRAIN, EPOCHS, LR = 500, 5e-3, 4, 1e-4  # bench.py fits 16 (the run's time limit)
 WARM_EPOCHS = 2  # the warm fit of the int8_master and int4_master paths
@@ -1048,6 +1111,15 @@ def train_phases(dev, data) -> tuple:
     return entries, T_TRAIN * N / best
 
 
+@functools.lru_cache(maxsize=None)
+def lif_weights(n: int) -> tuple:
+    """lif_net's W = |normal| * 0.5/n and tau ~ U(10, 15) from seed 0, drawn
+    once for phases 12, 26 and 48 (read, never written)."""
+    rng = np.random.default_rng(0)
+    W = np.abs(rng.normal(size=(n, n))) * (0.5 / n)
+    return W, rng.uniform(10.0, 15.0, size=n)
+
+
 def lif_net(n: int, device, coupling_dtype: str = "bfloat16"):
     """examples/fused_kernels.py's network at width n: a LIF SpikeResetNet
     with a coupling W = |normal| * 0.5/n (bf16 unless ``coupling_dtype``
@@ -1056,9 +1128,7 @@ def lif_net(n: int, device, coupling_dtype: str = "bfloat16"):
     +-10, dt 1e-2; the generic kernel attached."""
     from rectipy_tpu_torch import Network, attach_generic_fused_step
 
-    rng = np.random.default_rng(0)
-    W = np.abs(rng.normal(size=(n, n))) * (0.5 / n)
-    tau = rng.uniform(10.0, 15.0, size=n)
+    W, tau = lif_weights(n)
     net = Network(1e-2, device=device)
     net.add_diffeq_node("lif", LIF, weights=W, source_var="s", target_var="s_in",
                         input_var="I_ext", output_var="s", op="lif_op", spike_var="spike",
@@ -1375,7 +1445,8 @@ def int4_phases(W_np, build_net) -> tuple:
     """Phases 15-17: the int4 kernels against their plain versions, the int4
     path (the main path's network with coupling_dtype="int4", in turns with
     "int8"), and their timing.  Returns (the int4_mv entry of the ``kernels``
-    line, the N=10,000 timing of int4_mv_t for the training path's entry)."""
+    line, the N=10,000 timing of int4_mv_t for the training path's entry,
+    int4_path_vs_cpu's window: its start state and both devices' records)."""
     from rectipy_tpu_torch.ops.quant import (int4_dot_plain, int4_dot_t_plain, int4_mv,
                                              int4_mv_t, int8_mv, int8_mv_t, pack_int4,
                                              quant_vec, unpack_int4)
@@ -1537,7 +1608,7 @@ def int4_phases(W_np, build_net) -> tuple:
              "replaces": I4_TPU_KERNEL, "launches": launches["int4"], "max_abs_err": 0.0,
              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": None}
-    return entry, timing[N]
+    return entry, timing[N], {"y_end": y_end, "card": got, "cpu": ref}
 
 
 def int4_train_phases(dev, data, timing10) -> tuple:
@@ -1876,9 +1947,92 @@ def tbptt_phase(dev, data, timing: dict) -> list:
             for name in ("int8_mv", "int8_mv_t")]
 
 
-def feedback_phase() -> list:
+LIF_CMP_KW = dict(record_output=False, record_vars=[("p1", "s", True), ("p2", "s", True)],
+                  sampling_steps=10, verbose=False)
+
+
+def lif_card_window(net) -> dict:
+    """The card's LIF window of phase 24's or phase 31's network (drive
+    STP_DRIVE, the example's), from its current state: LIF_CPU_START steps,
+    then the network's whole state (node and edge states and the feedback
+    outputs, copied to the CPU) and the records, seconds and final STP
+    state of LIF_CPU_STEPS more steps, which the CPU's run from that state
+    (lif_cpu_windows) is held to."""
+    from rectipy_tpu_torch.trees import rebuild
+
+    net.run(np.full((LIF_CPU_START, 1), STP_DRIVE, dtype=np.float32), **LIF_CMP_KW)
+    state = rebuild(net.init_state(), lambda path, t: t.detach().cpu().clone())
+    t0 = time.perf_counter()
+    o = net.run(np.full((LIF_CPU_STEPS, 1), STP_DRIVE, dtype=np.float32), **LIF_CMP_KW)
+    window = {"state": state, "run_s": time.perf_counter() - t0,
+              "records": np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])}
+    if hasattr(net.get_edge("p1", "p2"), "x"):
+        window["stp_state"] = np.concatenate([net.get_edge("p1", "p2").x.cpu().numpy(),
+                                              net.get_edge("p2", "p1").u.cpu().numpy()])
+    return window
+
+
+def lif_cpu_windows(weights: tuple, states: dict) -> tuple:
+    """Phase 24's and phase 31's networks (``weights``: feedback_weights) on
+    the CPU, each put in the card's state after LIF_CPU_START steps
+    (``states["feedback"]``, ``states["stp"]``: lif_card_window's) and run
+    LIF_CPU_STEPS steps of STP_DRIVE: build and run seconds; the records
+    and phase 31's final (u, x)."""
+    meta, arrays = {}, {}
+    for name, build in (("feedback", feedback_net), ("stp", stp_feedback_net)):
+        t0 = time.perf_counter()
+        net = build(N, "cpu", weights)
+        net._write_back(states[name])
+        meta[name + "_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        o = net.run(np.full((LIF_CPU_STEPS, 1), STP_DRIVE, dtype=np.float32), **LIF_CMP_KW)
+        arrays[name] = np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])
+        meta[name + "_run_s"] = time.perf_counter() - t0
+        if name == "stp":
+            arrays["stp_state"] = np.concatenate([net.get_edge("p1", "p2").x.numpy(),
+                                                  net.get_edge("p2", "p1").u.numpy()])
+        del net
+    return meta, arrays
+
+
+def edge_fit_student(device) -> tuple:
+    """Phase 32's trainable-delay fit at FAMILY_M regions on ``device``: the
+    teacher's records (delays x 1) x 1.05 and a student with the delays x
+    1.1; returns (student, inputs, targets)."""
+    M, Tf = FAMILY_M, FAMILY_FIT_T
+    Wm, _, taues, dist = wb_data(M)
+    dmax = int(np.ceil(1.1 * dist.max() / WB_SPEED / WB_DT))
+    finp = np.random.default_rng(3).normal(size=(Tf, M)).astype(np.float32) * 5.0
+    net = wb_net(M, Wm, taues, device, delays=dist / WB_SPEED / WB_DT, mode="interp",
+                 train="gd", train_delays=True, max_delay=dmax)
+    tgt = net.run(finp, verbose=False).to_numpy("out") * 1.05
+    student = wb_net(M, Wm, taues, device, delays=dist / WB_SPEED / WB_DT * 1.1,
+                     mode="interp", train="gd", train_delays=True, max_delay=dmax)
+    return student, finp, tgt
+
+
+def edge_family_cpu() -> tuple:
+    """Phase 32's CPU side: every edge case's records and the trainable-delay
+    fit's epoch loss and gradients."""
+    n, T, W_rec, W, inp, cases = edge_family_inputs()
+    meta, arrays = {}, {}
+    for name, kw in cases.items():
+        t0 = time.perf_counter()
+        arrays[name] = family_net(n, "cpu", W_rec, weights=W, **kw).run(
+            inp, sampling_steps=10, verbose=False).to_numpy("out")
+        meta[name + "_s"] = time.perf_counter() - t0
+    student, finp, tgt = edge_fit_student("cpu")
+    t0 = time.perf_counter()
+    meta["fit_loss"], grads = epoch_loss_and_grads(student, finp, tgt)
+    meta["fit_s"] = time.perf_counter() - t0
+    arrays.update({"grad:" + k: v for k, v in grads.items()})
+    return meta, arrays
+
+
+def feedback_phase() -> tuple:
     """Phase 24: examples/feedback_populations.py at N per population.
-    Returns the generic kernel's entry of the ``kernels`` line."""
+    Returns the generic kernel's entry of the ``kernels`` line and the
+    card's LIF window (lif_card_window), which phase 31 holds to the CPU's."""
     from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
 
     t0 = time.perf_counter()
@@ -1907,24 +2061,10 @@ def feedback_phase() -> list:
             raise AssertionError("feedback_path: bad records")
     best = min(runs)
     dev_ms = device_step_ms(net, torch.full((1,), 100.0, device=net.device), reps=30)
-    # the first LIF_CPU_STEPS steps on the CPU, held to the card's
-    short = inputs[:LIF_CPU_STEPS]
-    cmp_kw = dict(run_kw, sampling_steps=10)
-    t0 = time.perf_counter()
-    cpu_net = feedback_net(N, "cpu", weights)
-    cpu_build_s = time.perf_counter() - t0
+    # the window held to the CPU's in phase 31, from the initial state
+    net.reset()
+    card_window = lif_card_window(net)
     del weights
-    cmp, secs = {}, {}
-    for name, n_ in (("card", net), ("cpu", cpu_net)):
-        n_.reset()
-        t0 = time.perf_counter()
-        o = n_.run(short, **cmp_kw)
-        secs[name] = time.perf_counter() - t0
-        cmp[name] = np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])
-    del cpu_net
-    if not (cmp["cpu"] > 0).any(axis=1).all():  # the window reaches both populations' spikes
-        raise AssertionError(f"feedback_path: a population is silent over the CPU window, "
-                             f"max mean s {cmp['cpu'].max(axis=1)}")
     emit({"phase": "feedback_path", "template": "lif", "populations": 2, "coupling": "bfloat16",
           "edges": "float32 dense feedforward p1->p2 and feedback p2->p1", "n": N,
           "steps": STEPS, "kernel_launches": launches, "w_data_s": data_s, "build_s": build_s,
@@ -1933,15 +2073,12 @@ def feedback_phase() -> list:
           "neuron_updates_per_s": 2 * STEPS * N / best, "device_step_ms": dev_ms,
           "device_idle_share": 1.0 - dev_ms / (best / STEPS * 1e3),
           "mean_s_range": [float(np.min(recs)), float(np.max(recs))],
-          "vs_cpu": {"steps": LIF_CPU_STEPS, "records": int(cmp["cpu"].shape[1]),
-                     **vs_cpu("feedback_path card vs cpu", cmp["card"], cmp["cpu"]),
-                     "cpu_build_s": cpu_build_s, "card_run_s": secs["card"],
-                     "cpu_run_s": secs["cpu"]}})
+          "vs_cpu": "held in phase 31 (feedback_path_vs_cpu)"})
     entry = generic_instance("lif,bfloat16,feedback_path", net.get_node("p1"), torch.bfloat16,
                              16, launches)
     del net
     torch.cuda.empty_cache()
-    return [entry]
+    return [entry], card_window
 
 
 # ------------------------------------------------------------ phases 25-28
@@ -1964,14 +2101,21 @@ CPU_N, CPU_B, CPU_T, CPU_EPOCHS = 2_000, 4, 50, 2  # batch_train_vs_cpu
 BATCH_LOSS_RTOL, BATCH_W_SHARE = 1e-4, 1e-2
 
 
+@functools.lru_cache(maxsize=1)
+def batch_run_weights(n: int) -> np.ndarray:
+    """batch_run_net's 10% fan-in coupling of 1/(0.1 n) from seed 42, drawn
+    once for the six networks of phases 26 and 48 (read, never written)."""
+    rng = np.random.default_rng(42)
+    return (rng.random((n, n)) < 0.1) * (1.0 / (0.1 * n))
+
+
 def batch_run_net(coupling: str, fused: bool, device=None):
     """benchmarks/batch_throughput.py's network: N = 10,000 qif_sfa, a 10%
     fan-in coupling of 1/(0.1 N) from seed 42, the tan etas, dt 1e-4; the
     drive enters I_ext directly."""
     from rectipy_tpu_torch import Network, attach_fused_qif_step
 
-    rng = np.random.default_rng(42)
-    W = (rng.random((N, N)) < 0.1) * (1.0 / (0.1 * N))
+    W = batch_run_weights(N)
     etas = -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, N + 1) - N - 1) / (N + 1))
     net = Network(DT, device=device)
     net.add_diffeq_node("qif", QIF_SFA, weights=W, source_var="s", target_var="s_in",
@@ -3211,7 +3355,7 @@ WB_T, WB_T_SHORT, WB_B = 2_000, 1_000, 8  # depth cut to the run's time limit
 WB_CMP_T = 2_000  # factored against gather: past the longest delay (1,156 steps)
 WB_TURNS = 2  # the timed runs in turns, best of 2
 STP_DRIVE = 100.0  # feedback_phase's drive
-FAMILY_N, FAMILY_T, FAMILY_M, FAMILY_FIT_T = 1_000, 250, 90, 1_000
+FAMILY_N, FAMILY_T, FAMILY_M, FAMILY_FIT_T = 1_000, 120, 90, 500
 # edge_family_check's fit: the card's loss and gradients (relative norm of
 # the difference) against the CPU's, float32 both, whose sums run in another
 # order over FAMILY_FIT_T steps.  A delay's gradient is the difference of
@@ -3421,10 +3565,12 @@ def stp_feedback_net(n: int, device, weights: tuple = None):
     return net
 
 
-def stp_feedback_phase(dev) -> list:
+def stp_feedback_phase(dev, fb_window: dict) -> list:
     """Phase 31: feedback_phase's network with short-term plasticity on both
-    edges, in turns with the plain-edge network.  Returns the generic
-    kernel's entry of the ``kernels`` line."""
+    edges, in turns with the plain-edge network; the card's LIF window of
+    it and of phase 24's (``fb_window``; lif_card_window) held to the CPU's
+    (lif_cpu_windows, after the timed runs).  Returns the generic kernel's
+    entry of the ``kernels`` line."""
     from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
 
     t0 = time.perf_counter()
@@ -3478,23 +3624,29 @@ def stp_feedback_phase(dev) -> list:
     dev_ms = {"stp": device_step_ms(net, x1, reps=10), "plain": device_step_ms(plain, x1, reps=10)}
     del plain
     torch.cuda.empty_cache()
-    # the card against the CPU over LIF_CPU_STEPS steps, both from the initial state
-    cmp_kw = dict(run_kw, sampling_steps=10, verbose=False)
-    cmp, secs = {}, {}
+    # the card against the CPU over LIF_CPU_STEPS steps from the card's
+    # state after LIF_CPU_START steps of the initial state (phase 24's
+    # network too)
     fresh = stp_feedback_net(N, dev, weights)
-    t0 = time.perf_counter()
-    cpu_net = stp_feedback_net(N, "cpu", weights)
-    cpu_build_s = time.perf_counter() - t0
+    window = lif_card_window(fresh)
+    del fresh
+    meta, windows = lif_cpu_windows(weights, {"feedback": fb_window["state"],
+                                              "stp": window["state"]})
     del weights
     feedback_weights.cache_clear()
-    for name, n_ in (("card", fresh), ("cpu", cpu_net)):
-        t0 = time.perf_counter()
-        o = n_.run(np.full((LIF_CPU_STEPS, 1), STP_DRIVE, dtype=np.float32), **cmp_kw)
-        secs[name] = time.perf_counter() - t0
-        cmp[name] = np.stack([o.to_numpy((p, "s")) for p in ("p1", "p2")])
-        cmp[name + "_stp"] = np.concatenate([n_.get_edge("p1", "p2").x.cpu().numpy(),
-                                             n_.get_edge("p2", "p1").u.cpu().numpy()])
-    del cpu_net, fresh
+    secs = {"card": window["run_s"]}
+    cmp = {"card": window["records"], "card_stp": window["stp_state"]}
+    fb_cpu = windows["feedback"]
+    if not (fb_cpu > 0).any(axis=1).all():  # the window reaches both populations' spikes
+        raise AssertionError(f"feedback_path: a population is silent over the CPU window, "
+                             f"max mean s {fb_cpu.max(axis=1)}")
+    emit({"phase": "feedback_path_vs_cpu", "from_step": LIF_CPU_START, "steps": LIF_CPU_STEPS,
+          "records": int(fb_cpu.shape[1]),
+          **vs_cpu("feedback_path card vs cpu", fb_window["records"], fb_cpu),
+          "cpu_build_s": meta["feedback_build_s"], "card_run_s": fb_window["run_s"],
+          "cpu_run_s": meta["feedback_run_s"]})
+    cmp["cpu"], cmp["cpu_stp"] = windows["stp"], windows["stp_state"]
+    secs["cpu"], cpu_build_s = meta["stp_run_s"], meta["stp_build_s"]
     # p1 spikes in the window; p2, behind the depressing edge, only later
     if not (cmp["cpu"][0] > 0).any():
         raise AssertionError("stp_feedback_path: p1 is silent over the CPU window")
@@ -3511,7 +3663,8 @@ def stp_feedback_phase(dev) -> list:
           "device_step_ms": dev_ms,
           "device_idle_share": {k: 1.0 - dev_ms[k] / ms[k] for k in ms},
           "max_mean_s": active, "stp_state_after_first_run": stp_state,
-          "vs_cpu": {"steps": LIF_CPU_STEPS, "records": int(cmp["cpu"].shape[1]), **vs,
+          "vs_cpu": {"from_step": LIF_CPU_START, "steps": LIF_CPU_STEPS,
+                     "records": int(cmp["cpu"].shape[1]), **vs,
                      "stp_state": vs_stp, "cpu_build_s": cpu_build_s,
                      "card_run_s": secs["card"], "cpu_run_s": secs["cpu"]}})
     entry = generic_instance("lif,bfloat16,stp_feedback_path", net.get_node("p1"),
@@ -3535,9 +3688,9 @@ def family_net(n: int, device, W_rec, **edge_kw):
     return net
 
 
-def edge_family_check(dev) -> None:
-    """Phase 32: every edge class and delay read on the card against the same
-    network on the CPU, and a fit through trainable delays."""
+def edge_family_inputs() -> tuple:
+    """Phase 32's inputs from default_rng(31): ``(n, T, W_rec, W, inputs,
+    cases)``, each case an edge's keyword arguments."""
     rng = np.random.default_rng(31)
     n, T = FAMILY_N, FAMILY_T
     W_rec = (rng.normal(size=(n, n)) * (0.5 / np.sqrt(n))).astype(np.float32)
@@ -3560,41 +3713,39 @@ def edge_family_check(dev) -> None:
         "matrix_factored_bf16_read": dict(delays=D, mode="factored", read_dtype="bfloat16"),
         "matrix_onehot_bf16_read": dict(delays=D, mode="onehot", read_dtype="bfloat16"),
     }
+    return n, T, W_rec, W, inp, cases
+
+
+def edge_family_check(dev) -> None:
+    """Phase 32: every edge class and delay read on the card against the same
+    network on the CPU, and a fit through trainable delays (the CPU's
+    records, loss and gradients from edge_family_cpu)."""
+    n, T, W_rec, W, inp, cases = edge_family_inputs()
+    cpu_meta, cpu = edge_family_cpu()
     lines = {}
     for name, kw in cases.items():
-        recs, secs = {}, {}
-        for where, device in (("card", dev), ("cpu", "cpu")):
-            net = family_net(n, device, W_rec, weights=W, **kw)
-            t0 = time.perf_counter()
-            recs[where] = net.run(inp, sampling_steps=10, verbose=False).to_numpy("out")
-            secs[where] = time.perf_counter() - t0
-            edge = net.get_edge("inp", "pop")
-            if where == "card" and getattr(edge, "selector_builds", 1) > 1:
-                raise AssertionError(f"edge_family_check {name}: selectors built per step")
-            del net
-        lines[name] = {"class": type(edge).__name__, "mode": getattr(edge, "mode", None),
-                       **vs_cpu(f"edge_family_check {name}", recs["card"], recs["cpu"]),
-                       "card_run_s": secs["card"], "cpu_run_s": secs["cpu"]}
-    # one fit_bptt epoch through a trainable-delay interp edge at M regions
-    M, Tf = FAMILY_M, FAMILY_FIT_T
-    Wm, _, taues, dist = wb_data(M)
-    dmax = int(np.ceil(1.1 * dist.max() / WB_SPEED / WB_DT))
-    finp = np.random.default_rng(3).normal(size=(Tf, M)).astype(np.float32) * 5.0
-    # the teacher's records (delays x 1), the student's delays x 1.1; the
-    # loss and gradients of fit_bptt's epoch on both devices, then the epoch
-    # itself on the card, whose loss must be the same
-    fit, secs = {}, {}
-    for where, device in (("cpu", "cpu"), ("card", dev)):
-        net = wb_net(M, Wm, taues, device, delays=dist / WB_SPEED / WB_DT, mode="interp",
-                     train="gd", train_delays=True, max_delay=dmax)
-        tgt = net.run(finp, verbose=False).to_numpy("out") * 1.05
-        student = wb_net(M, Wm, taues, device, delays=dist / WB_SPEED / WB_DT * 1.1,
-                         mode="interp", train="gd", train_delays=True, max_delay=dmax)
+        net = family_net(n, dev, W_rec, weights=W, **kw)
         t0 = time.perf_counter()
-        fit[where] = epoch_loss_and_grads(student, finp, tgt)
-        secs[where] = time.perf_counter() - t0
+        rec = net.run(inp, sampling_steps=10, verbose=False).to_numpy("out")
+        card_s = time.perf_counter() - t0
+        edge = net.get_edge("inp", "pop")
+        if getattr(edge, "selector_builds", 1) > 1:
+            raise AssertionError(f"edge_family_check {name}: selectors built per step")
         del net
-    # the card's student and teacher records are the loop's last
+        lines[name] = {"class": type(edge).__name__, "mode": getattr(edge, "mode", None),
+                       **vs_cpu(f"edge_family_check {name}", rec, cpu[name]),
+                       "card_run_s": card_s, "cpu_run_s": cpu_meta[name + "_s"]}
+    # one fit_bptt epoch through a trainable-delay interp edge at M regions:
+    # the loss and gradients of fit_bptt's epoch on both devices, then the
+    # epoch itself on the card, whose loss must be the same
+    M, Tf = FAMILY_M, FAMILY_FIT_T
+    student, finp, tgt = edge_fit_student(dev)
+    t0 = time.perf_counter()
+    fit = {"card": epoch_loss_and_grads(student, finp, tgt)}
+    secs = {"card": time.perf_counter() - t0}
+    fit["cpu"] = (cpu_meta["fit_loss"], {k[len("grad:"):]: v for k, v in cpu.items()
+                                         if k.startswith("grad:")})
+    secs["cpu"] = cpu_meta["fit_s"]
     t0 = time.perf_counter()
     obs = student.fit_bptt([finp], [tgt], optimizer="adam", lr=1e-2, verbose=False)
     secs["card_fit_bptt"] = time.perf_counter() - t0
@@ -3804,10 +3955,11 @@ def block_step_split(net, B: int, bvars: dict = None) -> dict:
             "rest_of_field_ms": step_ms - product_ms}
 
 
-def sparse_scale_phase(dev, timing: dict) -> list:
+def sparse_scale_phase(dev, timing: dict) -> tuple:
     """Phase 34: benchmarks/sparse_scale.py's N = 1,000,448 network on the
     card, int8 (block_int8_mv) in turns with bf16 (gather + torch.bmm), the
-    B = 16 sweep, and the card against the CPU at N = 8,192."""
+    B = 16 sweep, and the card against the CPU at N = 8,192.  Returns the
+    kernels-line entries and the int8 network, which phase 48 serves."""
     from rectipy_tpu_torch import block_random_connectivity
     from rectipy_tpu_torch.ops.quant import block_int8_mv, block_int8_mv_route
 
@@ -3917,8 +4069,12 @@ def sparse_scale_phase(dev, timing: dict) -> list:
     split = {1: block_step_split(net, 1), SPARSE_B: block_step_split(net, SPARSE_B, bvars)}
     split_ratio = {k: split[SPARSE_B][k] / split[1][k] for k in split[1] if k != "B"}
     peak = torch.cuda.max_memory_allocated()
+    block_net = nets["int8"]  # phase 48 serves it (2.0 GB of int8 blocks on the card)
     del nets, net, node, drive, drive_b, res
     torch.cuda.empty_cache()
+    # what stays allocated until phase 48, chiefly block_net: the absolute
+    # max_memory_allocated_bytes of phases 35-47 include it
+    held = torch.cuda.memory_allocated()
 
     # the card against the CPU at N = 8,192 over CPU_STEPS steps
     A8 = block_random_connectivity(SMALL_N, SMALL_N, SPARSE_FAN_IN, block_size=SPARSE_BS, seed=0)
@@ -3956,7 +4112,7 @@ def sparse_scale_phase(dev, timing: dict) -> list:
                         "trials_vs_single_max_abs_diff": trial_diff,
                         "trial_steps": SPARSE_CMP_STEPS},
           "vs_cpu": {"n": SMALL_N, "steps": CPU_STEPS, **vs},
-          "max_memory_allocated_bytes": peak})
+          "max_memory_allocated_bytes": peak, "memory_allocated_bytes_held_to_phase_48": held})
     out = []
     for B, n_launch, name in ((1, launches["int8"], "block_int8_mv"),
                               (SPARSE_B, launches_b, f"block_int8_mv[B={SPARSE_B}]")):
@@ -3969,7 +4125,7 @@ def sparse_scale_phase(dev, timing: dict) -> list:
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                     "kernel_route": routes[B]})
-    return out
+    return out, block_net
 
 
 def bd_data(N: int):
@@ -4149,11 +4305,13 @@ def rel_norm(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-300))
 
 
-def sparse_train_check(dev) -> None:
-    """Phase 36: fit_bptt through a block-coupled node (float32 and
-    int8_master, the chain trajectory) and one epoch through a delayed f32
-    BlockSparseLinear edge, on the card against the CPU; a frozen
-    int8_master edge's source gradient, nonzero, against the CPU's."""
+def sparse_train_runs(device) -> tuple:
+    """Phase 36's work on ``device``: fit_bptt through a block-coupled node
+    (float32 and int8_master, the chain trajectory), one epoch's loss and
+    gradients through a delayed f32 BlockSparseLinear edge and the epoch
+    itself, and a frozen int8_master edge's source gradient.  Returns the
+    scalars (seconds, losses) and the arrays (per-epoch losses, weight
+    updates, gradients)."""
     from rectipy_tpu_torch import BlockSparseLinear, Network, block_random_connectivity
 
     N, T = SMALL_N, SPARSE_TRAIN_T
@@ -4162,29 +4320,67 @@ def sparse_train_check(dev) -> None:
     etas = 20.0 + rng.random(N)  # every neuron spikes within the window
     inp = (rng.normal(size=(T, N)) * 2.0 + 5.0).astype(np.float32)
     tgt = (rng.normal(size=(T, N)) * 0.1).astype(np.float32)
+    meta, arrays = {}, {}
+    for coupling in ("float32", "int8_master"):
+        net = Network(1e-2, device=device)
+        net.add_diffeq_node("qif", QIF, weights=A, input_var="I_ext", output_var="s",
+                            source_var="s", target_var="s_in", op="qif_op",
+                            spike_var="spike", spike_def="v", spike_threshold=100.0,
+                            spike_reset=-100.0, node_vars={"all/qif_op/eta": etas},
+                            coupling_dtype=None if coupling == "float32" else coupling,
+                            train_params=["weights"])
+        net.compile()
+        w0 = net.get_node("qif")["weights"].detach().cpu().numpy()
+        t0 = time.perf_counter()
+        obs = net.fit_bptt([inp] * SPARSE_TRAIN_EPOCHS, [tgt] * SPARSE_TRAIN_EPOCHS,
+                           optimizer="sgd", lr=SPARSE_TRAIN_LR, verbose=False)
+        meta[coupling + "_fit_s"] = time.perf_counter() - t0
+        if net.last_fit["trajectory"] != "chain":
+            raise AssertionError(f"sparse_train_check {coupling}: took {net.last_fit}")
+        arrays[coupling + "_losses"] = np.asarray(obs["epoch_loss"], dtype=np.float64)
+        arrays[coupling + "_dw"] = net.get_node("qif")["weights"].detach().cpu().numpy() - w0
+        del net
+
+    # one epoch through a delayed f32 BlockSparseLinear feedback edge
+    A8, d8, e8 = bd_data(N)
+    drive = pulse(T, T // 8)
+    net = bd_net(N, A8, d8, e8, device, train="gd")
+    teacher = bd_net(N, A8, d8, e8, device).run(drive, verbose=False).to_numpy("out")
+    edge = net.get_edge("qif", "qif")
+    edge.weights = edge.weights * 1.05
+    meta["edge_loss"], grads = epoch_loss_and_grads(net, drive, teacher)
+    obs = net.fit_bptt([drive], [teacher], optimizer="sgd", lr=1e-3, verbose=False)
+    meta["edge_fit_loss"] = float(obs["epoch_loss"][0])
+    arrays.update({"grad:" + k: v for k, v in grads.items()})
+    del net
+
+    # a frozen int8_master edge passes source gradients (the STE's)
+    g = np.random.default_rng(36)
+    xs = g.normal(size=(20, N)).astype(np.float32)
+    gs = g.normal(size=(20, N)).astype(np.float32)
+    e = BlockSparseLinear(N, N, weights=A8, delays=d8, block_dtype="int8_master", device=device)
+    params, step = e.prep_params(dict(e.params)), e.make_step()
+    x = torch.as_tensor(xs, device=device).requires_grad_(True)
+    state, total = e.init_state(), 0.0
+    for t in range(xs.shape[0]):
+        state, y = step(state, params, x[t])
+        total = total + (y * torch.as_tensor(gs[t], device=device)).sum()
+    (gx,) = torch.autograd.grad(total, x)
+    arrays["src_grad"] = gx.cpu().numpy()
+    return meta, arrays
+
+
+def sparse_train_check(dev) -> None:
+    """Phase 36: sparse_train_runs on the card against the CPU's: the node
+    fits' losses and weight updates, the delayed
+    edge's loss, gradients and fit, the frozen edge's source gradient
+    (nonzero)."""
+    card_meta, card = sparse_train_runs(dev)
+    cpu_meta, cpu = sparse_train_runs("cpu")
     node_fits = {}
     for coupling in ("float32", "int8_master"):
-        res = {}
-        for device in (dev, "cpu"):
-            net = Network(1e-2, device=device)
-            net.add_diffeq_node("qif", QIF, weights=A, input_var="I_ext", output_var="s",
-                                source_var="s", target_var="s_in", op="qif_op",
-                                spike_var="spike", spike_def="v", spike_threshold=100.0,
-                                spike_reset=-100.0, node_vars={"all/qif_op/eta": etas},
-                                coupling_dtype=None if coupling == "float32" else coupling,
-                                train_params=["weights"])
-            net.compile()
-            w0 = net.get_node("qif")["weights"].detach().cpu().numpy()
-            t0 = time.perf_counter()
-            obs = net.fit_bptt([inp] * SPARSE_TRAIN_EPOCHS, [tgt] * SPARSE_TRAIN_EPOCHS,
-                               optimizer="sgd", lr=SPARSE_TRAIN_LR, verbose=False)
-            seconds = time.perf_counter() - t0
-            if net.last_fit["trajectory"] != "chain":
-                raise AssertionError(f"sparse_train_check {coupling}: took {net.last_fit}")
-            dw = net.get_node("qif")["weights"].detach().cpu().numpy() - w0
-            res[str(device)] = (np.asarray(obs["epoch_loss"], dtype=np.float64), dw, seconds)
-            del net
-        (lc, dc, sc), (lp, dp, sp) = res[str(dev)], res["cpu"]
+        lc, lp = card[coupling + "_losses"], cpu[coupling + "_losses"]
+        dc, dp = card[coupling + "_dw"], cpu[coupling + "_dw"]
         loss_rtol = float(np.abs(lc - lp).max() / np.abs(lp).max())
         grad_rel = rel_norm(dc, dp)
         if not (np.all(np.isfinite(lc)) and loss_rtol <= FIT_LOSS_RTOL
@@ -4193,55 +4389,26 @@ def sparse_train_check(dev) -> None:
                                  f"gradient relative norm {grad_rel}")
         node_fits[coupling] = {"losses": lc.tolist(), "cpu_losses": lp.tolist(),
                                "loss_rtol": loss_rtol, "weights_grad_rel_norm": grad_rel,
-                               "card_fit_s": sc, "cpu_fit_s": sp, "trajectory": "chain"}
-
-    # one epoch through a delayed f32 BlockSparseLinear feedback edge
-    A8, d8, e8 = bd_data(N)
-    drive = pulse(T, T // 8)
-    edge_fit = {}
-    for device in (dev, "cpu"):
-        net = bd_net(N, A8, d8, e8, device, train="gd")
-        teacher = bd_net(N, A8, d8, e8, device).run(drive, verbose=False).to_numpy("out")
-        edge = net.get_edge("qif", "qif")
-        edge.weights = edge.weights * 1.05
-        loss, grads = epoch_loss_and_grads(net, drive, teacher)
-        obs = net.fit_bptt([drive], [teacher], optimizer="sgd", lr=1e-3, verbose=False)
-        edge_fit[str(device)] = (loss, grads, float(obs["epoch_loss"][0]))
-        del net
-    (lc, gc, fc), (lp, gp, fp) = edge_fit[str(dev)], edge_fit["cpu"]
-    g_rel = {k: rel_norm(gc[k], gp[k]) for k in gp}
+                               "card_fit_s": card_meta[coupling + "_fit_s"],
+                               "cpu_fit_s": cpu_meta[coupling + "_fit_s"],
+                               "trajectory": "chain"}
+    lc, lp, fc = card_meta["edge_loss"], cpu_meta["edge_loss"], card_meta["edge_fit_loss"]
+    g_rel = {k[len("grad:"):]: rel_norm(card[k], cpu[k]) for k in cpu if k.startswith("grad:")}
     if not (abs(lc - lp) <= FIT_LOSS_RTOL * abs(lp) and abs(fc - lc) <= FIT_LOSS_RTOL * abs(lc)
             and all(v <= FIT_GRAD_RTOL for v in g_rel.values())):
         raise AssertionError(f"sparse_train_check edge: loss {lc} vs {lp} (fit {fc}), "
                              f"gradients {g_rel}")
-
-    # a frozen int8_master edge passes source gradients (the STE's)
-    src_grad = {}
-    g = np.random.default_rng(36)
-    xs = g.normal(size=(20, N)).astype(np.float32)
-    gs = g.normal(size=(20, N)).astype(np.float32)
-    for device in (dev, "cpu"):
-        e = BlockSparseLinear(N, N, weights=A8, delays=d8, block_dtype="int8_master",
-                              device=device)
-        params, step = e.prep_params(dict(e.params)), e.make_step()
-        x = torch.as_tensor(xs, device=device).requires_grad_(True)
-        state, total = e.init_state(), 0.0
-        for t in range(xs.shape[0]):
-            state, y = step(state, params, x[t])
-            total = total + (y * torch.as_tensor(gs[t], device=device)).sum()
-        (gx,) = torch.autograd.grad(total, x)
-        src_grad[str(device)] = gx.cpu().numpy()
-    s_rel = rel_norm(src_grad[str(dev)], src_grad["cpu"])
-    s_max = float(np.abs(src_grad[str(dev)]).max())
+    s_rel = rel_norm(card["src_grad"], cpu["src_grad"])
+    s_max = float(np.abs(card["src_grad"]).max())
     if not (s_max > 0 and s_rel <= FIT_GRAD_RTOL):
         raise AssertionError(f"sparse_train_check: frozen int8_master source gradient max "
                              f"{s_max}, card vs cpu {s_rel}")
-    emit({"phase": "sparse_train_check", "n": N, "steps": T, "epochs": SPARSE_TRAIN_EPOCHS,
-          "optimizer": "sgd", "node_fits": node_fits,
+    emit({"phase": "sparse_train_check", "n": SMALL_N, "steps": SPARSE_TRAIN_T,
+          "epochs": SPARSE_TRAIN_EPOCHS, "optimizer": "sgd", "node_fits": node_fits,
           "delayed_edge_epoch": {"loss": lc, "cpu_loss": lp, "fit_loss": fc,
                                  "grad_rel_norm": g_rel},
           "frozen_int8_master_edge_source_grad": {"max_abs": s_max, "card_vs_cpu_rel_norm": s_rel,
-                                                  "steps": xs.shape[0]},
+                                                  "steps": card["src_grad"].shape[0]},
           "loss_rtol": FIT_LOSS_RTOL, "grad_rtol": FIT_GRAD_RTOL})
 
 
@@ -5714,51 +5881,93 @@ MPR = "rectipy_tpu_torch.models.mean_field.montbrio.mpr"
 
 # the serving process: loads the bundles with rectipy_tpu_torch.serving (the
 # op library is imported because meta.json lists operators), refuses to
-# build a Network, answers the chained requests and counts the launches
+# build a Network or read a template, answers the chained requests and
+# counts the launches; one round of bundles for phase 45, one for phase 48,
+# each announced by its ready file and answered by one JSON line
 SERVE_CHILD = r"""
 import json, os, sys, time
 import numpy as np
 import torch
 cfg = json.loads(sys.argv[1])
 sys.path.insert(0, cfg["root"])
+import rectipy_tpu_torch.dsl.parser as parser
+import rectipy_tpu_torch.dsl.yaml_lite as yaml_lite
 import rectipy_tpu_torch.network as network
 
 def refuse(*args, **kwargs):
-    raise AssertionError("the serving process built a Network")
+    raise AssertionError("the serving process built a Network or read a template")
 
 network.Network.__init__ = refuse
+parser.load_file = yaml_lite.load_file = refuse
 import torch.export.passes
-from rectipy_tpu_torch.ops import kernels, quant
+from rectipy_tpu_torch.ops import generic_fused, kernels, quant
 from rectipy_tpu_torch.serving import load_network
 
+COUNTERS = {"qif_sfa_step": kernels.qif_sfa_step, "int8_mv": quant.int8_mv,
+            "int8_mm": quant.int8_mm, "int4_mv": quant.int4_mv, "int4_mm": quant.int4_mm,
+            "block_int8_mv": quant.block_int8_mv,
+            "generic_fused_step": generic_fused.generic_fused_step,
+            "generic_fused_rows": generic_fused.generic_fused_rows}
 torch.cuda.set_device(0)
 torch.zeros(1, device="cuda")  # the context, while the bundles are written
-t0 = time.perf_counter()
-while not os.path.exists(cfg["ready"]):
-    if time.perf_counter() - t0 > 600:
-        sys.exit("the bundles never came")
-    time.sleep(0.05)
-res = {}
-for name, b in cfg["bundles"].items():
+for rnd in cfg["rounds"]:
     t0 = time.perf_counter()
-    model = load_network(b["path"])
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    ins = np.load(b["inputs"])
-    for c in (kernels.qif_sfa_step, quant.int8_mv, quant.int8_mm):
-        c.launches = 0
-    kernels.qif_sfa_step.mma_launches = 0
-    t0 = time.perf_counter()
-    outs = np.stack([model(x) for x in ins])
-    serve_s = time.perf_counter() - t0
-    np.save(b["out"], outs)
-    res[name] = {"load_s": load_s, "serve_s": serve_s, "ops": model.meta["ops"],
-                 "qif_sfa_step": kernels.qif_sfa_step.launches,
-                 "qif_sfa_step_mma": kernels.qif_sfa_step.mma_launches,
-                 "int8_mv": quant.int8_mv.launches, "int8_mm": quant.int8_mm.launches,
-                 "finite": bool(np.isfinite(outs).all())}
-print(json.dumps(res))
+    while not os.path.exists(rnd["ready"]):
+        if time.perf_counter() - t0 > 900:
+            sys.exit("the bundles never came")
+        time.sleep(0.05)
+    res = {}
+    for name, b in rnd["bundles"].items():
+        t0 = time.perf_counter()
+        model = load_network(b["path"])
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ins = np.load(b["inputs"])
+        for c in COUNTERS.values():
+            c.launches = 0
+            if hasattr(c, "mma_launches"):
+                c.mma_launches = 0
+        t0 = time.perf_counter()
+        outs = np.stack([model(x) for x in ins])
+        serve_s = time.perf_counter() - t0
+        np.save(b["out"], outs)
+        res[name] = {"load_s": load_s, "serve_s": serve_s, "ops": model.meta["ops"],
+                     "generic_keys": sorted(model.meta.get("generic", {})),
+                     **{k: c.launches for k, c in COUNTERS.items()},
+                     **{k + "_mma": c.mma_launches for k, c in COUNTERS.items()
+                        if hasattr(c, "mma_launches")},
+                     "finite": bool(np.isfinite(outs).all())}
+        del model, outs
+        torch.cuda.empty_cache()
+    print(json.dumps(res), flush=True)
 """
+
+
+def bundle_round(tmp: str, tag: str, names) -> dict:
+    """The paths of one round of the serving process: its ready file and,
+    for each bundle, the bundle, its inputs and the served outputs."""
+    return {"ready": os.path.join(tmp, f"ready_{tag}"),
+            "bundles": {name: {k: os.path.join(tmp, name + suffix) for k, suffix in
+                               (("path", ""), ("inputs", "_in.npy"), ("out", "_out.npy"))}
+                        for name in names}}
+
+
+def child_line(child, err_path: str, what: str) -> dict:
+    """A child process's next JSON line (the serving process's answer to one
+    round of bundles, a CPU reference); a process that ended raises with
+    its errors."""
+    line = child.stdout.readline()
+    if not line:
+        child.wait()
+        with open(err_path) as f:
+            raise AssertionError(f"{what}: the serving process failed:\n{f.read()}")
+    return json.loads(line)
+
+
+def bundle_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files)
+
 
 # the tangent workload on the CPU at float64 (TANGENT_CPU_* steps)
 TANGENT_CPU_CHILD = r"""
@@ -6056,31 +6265,308 @@ def analysis_phase(dev, W_np, etas, cpu_ref: dict) -> int:
     return launches
 
 
-def tooling_phases(dev, W_np, etas, build_net, by_name: dict) -> list:
-    """Phases 45-47 (the serving bundles, checkpoints, the analyses).  Phase
-    45 exports the main network's bf16 fused bundle (SERVE_T steps a
-    request, sampling SERVE_S), the SERVE_B-trial ensemble bundle of the
-    same network and the int8 network's (phase 16's, frozen int8 coupling),
-    and serves them in a fresh process that builds no Network, while this
-    process runs the references (Network.run of the same 4,000 steps and
-    run_batch) and phase 46; the served records must equal the references'
-    window means bit for bit and the served process's launches be 4,000
-    single, 1,000 B-row on the tensor cores and 500 int8_mv; then served
-    against Network.run in turns.  Returns the kernels-line entries."""
+# ------------------------------ phase 48: the bundles of the other kernels
+SK_BUNDLES = ("lif", "lif_B32", "int4", "int4_B32", "block")
+SK_LIF_T, SK_LIF_REQUESTS = 1_000, 2  # phase 12's LIF network: 2 chained requests
+SK_B, SK_B_T = 32, 500  # the B = 32 bundles: one request each
+SK_I4_T = 500  # phase 16's int4 network
+SK_BLOCK_T = 200  # phase 34's N = 1,000,448 network
+SK_S = {"lif": 10, "lif_B32": 50, "int4": 10, "int4_B32": 50, "block": 100}
+SK_ENTRIES = {  # kernels-line entry of phase 48 <- the earlier phase's timing of it
+    "generic_fused_step[bfloat16,serving_kernels_path]":
+        ("generic_fused_step[lif,bfloat16,generic_path]", "lif", "generic_fused_step"),
+    "generic_fused_rows[bfloat16,serving_kernels_path]":
+        ("generic_fused_rows[lif,bfloat16,mma]", "lif_B32", "generic_fused_rows"),
+    "int4_mv[serving_kernels_path]": ("int4_mv[int4_path]", "int4", "int4_mv"),
+    "int4_mm[serving_kernels_path]": ("int4_mm[run_batch_path]", "int4_B32", "int4_mm"),
+    "block_int8_mv[serving_kernels_path]": ("block_int8_mv", "block", "block_int8_mv"),
+}
+
+
+def generic_op_turns(dev, n: int = 1_024, calls: int = 2_000) -> dict:
+    """The host cost of one call of rectipy::generic_fused_step (its
+    Tensor-list arguments boxed by the dispatcher) against the eager
+    wrapper's direct launch of the same kernel, in turns (operator, wrapper,
+    wrapper, operator): microseconds a call over ``calls`` back-to-back
+    calls of phase 12's LIF step at n = 1,024 with a f32 W of 4 MB, best of
+    each."""
+    from rectipy_tpu_torch.ops import library
+    from rectipy_tpu_torch.ops.generic_fused import generic_fused_step
+    from rectipy_tpu_torch.testing import generic_inputs
+
+    node = lif_net(n, dev, "float32").get_node("lif")
+    step, srcs, drive, states, vecs = generic_inputs(node, 48)
+    Ws = [node.args["__w_fused_0__"]]
+    args = library.generic_args(step, srcs, Ws, drive, states, vecs)
+    calls_of = {"operator": lambda: library.generic_fused_step(*args),
+                "wrapper": lambda: generic_fused_step(step, srcs, Ws, drive, states, vecs)}
+    us = {k: [] for k in calls_of}
+    with torch.no_grad():
+        if not torch.equal(calls_of["operator"](), calls_of["wrapper"]()):
+            raise AssertionError("serving_kernels_path: the generic operator and its wrapper "
+                                 "part on the same inputs")
+        for name in ("operator", "wrapper", "wrapper", "operator"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                calls_of[name]()
+            torch.cuda.synchronize()
+            us[name].append((time.perf_counter() - t0) / calls * 1e6)
+    return {"n": n, "calls": calls, **{k: min(v) for k, v in us.items()}, "turns": us}
+
+
+class NodeOutputs(torch.fx.Interpreter):
+    """Runs an exported program's graph and keeps every node's output."""
+
+    def __init__(self, gm):
+        super().__init__(gm)
+        self.outs, self.targets = {}, {}
+
+    def run_node(self, n):
+        out = super().run_node(n)
+        self.outs[n.name], self.targets[n.name] = out, n.target
+        return out
+
+
+def program_inputs(ep, user: list) -> list:
+    """The graph's positional inputs: the user inputs, and the program's
+    lifted constants, parameters and buffers where its signature puts them
+    (serving._callable binds them the same way)."""
+    from torch.export.graph_signature import InputKind
+
+    user, full = iter(user), []
+    for spec in ep.graph_signature.input_specs:
+        if spec.kind == InputKind.USER_INPUT:
+            full.append(next(user))
+        elif spec.target in ep.constants:
+            full.append(ep.constants[spec.target])
+        else:
+            full.append(ep.state_dict[spec.target])
+    return full
+
+
+def int4_card_vs_cpu(dev, net, tmp: str, window: dict) -> dict:
+    """ROADMAP Queue 3: where card and CPU runs of one int4 network part.
+    ``net`` (phase 16's int4 network) is put in int4_path_vs_cpu's start
+    state (``window``: phase 16's state after its card runs, and both
+    devices' records of that window) and exported as a one-step bundle for
+    both devices; the card and the CPU step its program in lockstep (its
+    prep once) over the window's CPU_STEPS steps of bench_inputs, and every
+    per-neuron state leaf and output is compared after every step.  At the
+    first step where they part, the step's graph runs on both devices from
+    the same (equal) inputs under an interpreter, and the first node whose
+    output differs names the operation.  The window's records are formed as
+    Network.run forms them (the population mean of s after steps 0, 10,
+    ..., read from the state, each on its own device; sampling 10) and held
+    to phase 16's on each device; then the card's states alone are averaged
+    on both devices, to show what the mean's reduction order does."""
+    from rectipy_tpu_torch.observer import Observer
+    from rectipy_tpu_torch.serving import _load_ep, export_network, load_network
+    from rectipy_tpu_torch.trees import items
+
+    # the record's reader (s, a view of the node's state row) and the state
+    # leaf it reads: the step's output is the s before the step
+    (_, label, reader, _), = net._resolve_record_vars(Observer(
+        dt=net.dt, record_output=False, record_vars=[("qif", "s", True)]))
+    leaf = [key for key, _ in items(net.init_state())].index(("nodes", label))
+    path = os.path.join(tmp, "int4_step")
+    net.reset({"qif": window["y_end"]})
+    export_network(net, path, T=1, n_in=1, platforms=["cuda", "cpu"])
+    models = {"card": load_network(path), "cpu": load_network(path, device="cpu")}
+    n_p = models["card"].meta["n_params"]
+    prepped = {k: m._prepped() for k, m in models.items()}  # once: the packing is prep
+    state = {k: list(m._leaves[n_p:]) for k, m in models.items()}
+    x = bench_inputs(CPU_STEPS)
+    first, outs, steps_parted = None, {"card": [], "cpu": []}, 0
+    recs = {"card": [], "cpu": [], "card_on_cpu": []}  # Network.run's records, sampling 10
+    for t in range(CPU_STEPS):
+        new = {}
+        with torch.no_grad():
+            for k, m in models.items():
+                res = m._step(*prepped[k], *state[k], torch.as_tensor(x[t], device=m.device))
+                new[k], out = list(res[:-1]), res[-1]
+                outs[k].append(out.cpu())
+                if t % 10 == 0:
+                    recs[k].append(float(reader(new[k][leaf], None).mean()))
+        if t % 10 == 0:
+            recs["card_on_cpu"].append(float(reader(new["card"][leaf].cpu(), None).mean()))
+        pairs = [(a.cpu(), b) for a, b in zip(new["card"], new["cpu"])]
+        parted = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+        if parted or not torch.equal(outs["card"][-1], outs["cpu"][-1]):
+            steps_parted += 1
+            if first is None:
+                first = {"step": t, "state_leaves_parted": parted,
+                         "neurons_parted": [int((a != b).sum()) for a, b in pairs],
+                         "max_abs_diff": [float((a - b).abs().max()) for a, b in pairs],
+                         "inputs_equal": all(torch.equal(a.cpu(), b) for a, b in zip(
+                             state["card"], state["cpu"]))}
+                # the step once more on both devices from the same inputs, every
+                # node's output kept: the first that differs names the operation
+                runs = {}
+                for k, m in models.items():
+                    ep = _load_ep(os.path.join(path, "step.pt2"), m.device, k == "cpu")
+                    user = prepped[k] + state[k] + [torch.as_tensor(x[t], device=m.device)]
+                    runs[k] = NodeOutputs(ep.graph_module)
+                    with torch.no_grad():
+                        runs[k].run(*program_inputs(ep, user))
+                for name, a in runs["card"].outs.items():
+                    b = runs["cpu"].outs.get(name)
+                    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and \
+                            not torch.equal(a.cpu(), b):
+                        first["operation"] = {"node": name, "target": str(runs["card"].targets[
+                            name]), "elements_parted": int((a.cpu() != b).sum()),
+                            "max_abs_diff": float((a.cpu() - b).abs().max())}
+                        break
+        state = new
+    card, cpu = torch.stack(outs["card"]), torch.stack(outs["cpu"])
+    recs = {k: np.asarray(v, dtype=np.float32) for k, v in recs.items()}
+
+    def equal(a, b):
+        return int((a == b).sum())
+
+    return {"steps": CPU_STEPS, "steps_parted": steps_parted, "first_parting": first,
+            "outputs_max_abs_diff": float((card - cpu).abs().max()),
+            "records": int(recs["card"].shape[0]),
+            "card_records_equal_int4_path_vs_cpu_card": equal(recs["card"], window["card"]),
+            "cpu_records_equal_int4_path_vs_cpu_cpu": equal(recs["cpu"], window["cpu"]),
+            "int4_path_vs_cpu_records_equal": equal(window["card"], window["cpu"]),
+            "int4_path_vs_cpu_max_abs_diff": float(np.abs(window["card"] - window["cpu"]).max()),
+            "records_equal_card_vs_cpu": equal(recs["card"], recs["cpu"]),
+            "records_equal_when_the_card_s_states_are_averaged_on_both":
+                equal(recs["card"], recs["card_on_cpu"]),
+            "records_max_abs_diff_from_the_reduction_alone":
+                float(np.abs(recs["card"] - recs["card_on_cpu"]).max())}
+
+
+def serving_kernels_phase(dev, child, rnd: dict, err_path: str, build_net, block_net,
+                          int4_window: dict, by_name: dict) -> list:
+    """Phase 48: the networks whose step reaches the generic fused step, the
+    int4 products or the int8 block product, exported and served by phase
+    45's process: phase 12's LIF network (bf16 coupling, the generic step)
+    for SK_LIF_REQUESTS chained requests of SK_LIF_T steps and as a
+    SK_B-trial bundle (phase 26's drive, one request of SK_B_T steps), phase
+    16's int4 network (SK_I4_T steps), phase 26's frozen int4 network at SK_B
+    trials (SK_B_T steps) and phase 34's N = 1,000,448 int8 block network
+    (SK_BLOCK_T steps of its Pulse), written to ``rnd``'s temporary paths.
+    The served records must equal the window means of Network.run (run_batch)
+    over the same steps from the exported state bit for bit, with one launch
+    a step, every B-row and int4_mm launch on the tensor cores and every
+    block launch on "mma".  Then each bundle served against run (run_batch)
+    in turns here, the generic operator's host cost a call, and where card
+    and CPU runs of the int4 bundle part.  Returns the kernels-line entries."""
+    from rectipy_tpu_torch.serving import export_network, load_network
+
+    t_phase = time.perf_counter()
+    bundles = rnd["bundles"]
+    rng = np.random.default_rng(48)
+    lif = lif_net(N, dev)
+    nets = {"lif": lif, "lif_B32": lif, "int4": build_net("int4", False),
+            "int4_B32": batch_run_net("int4", False, dev)[0], "block": block_net}
+    block_net.reset()
+    inputs = {
+        "lif": np.zeros((SK_LIF_REQUESTS, SK_LIF_T, 1), dtype=np.float32),  # phase 12's drive
+        "lif_B32": (rng.normal(size=(1, SK_B, SK_B_T, 1))  # phase 26's (normal + linspace)
+                    + np.linspace(0.0, 2.0, SK_B)[None, :, None, None]).astype(np.float32),
+        "int4": bench_inputs(SK_I4_T)[None],
+        "int4_B32": (3.0 + rng.normal(size=(1, SK_B, SK_B_T, 1))).astype(np.float32),
+        "block": pulse(SK_BLOCK_T, SK_BLOCK_T // 4)[None]}
+    spec = {name: dict(T=inputs[name].shape[-2], sampling_steps=SK_S[name], n_in=1,
+                       batch=SK_B if name.endswith("B32") else None) for name in SK_BUNDLES}
+    info = {}
+    for name in SK_BUNDLES:
+        path = bundles[name]["path"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        export_network(nets[name], path, **spec[name])
+        export_s = time.perf_counter() - t0
+        np.save(bundles[name]["inputs"], inputs[name])
+        info[name] = {"export_s": export_s, "bundle_bytes": bundle_bytes(path),
+                      "files": sorted(os.listdir(path))}
+    open(rnd["ready"], "w").close()
+    # the references from the exported state, while the serving process
+    # serves: run_batch (which leaves the state alone) before run
+    refs = {}
+    for name in ("lif_B32", "lif", "int4_B32", "int4", "block"):
+        s, T = SK_S[name], spec[name]["T"]
+        if name.endswith("B32"):
+            per_step = torch.as_tensor(nets[name].run_batch(inputs[name][0], verbose=False)[
+                "out"], device=dev)
+            refs[name] = [served_windows(per_step, s)]
+        else:
+            obs = nets[name].run(np.concatenate(list(inputs[name])), verbose=False)
+            per_step = torch.as_tensor(obs.to_numpy("out"), device=dev)
+            refs[name] = [served_windows(c, s) for c in per_step.split(T)]
+        del per_step
+    seconds = {"exports_and_references": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    served = child_line(child, err_path, "serving_kernels_path")
+    seconds["waiting_for_the_serving_process"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = {"lif": {"generic_fused_step": SK_LIF_T * SK_LIF_REQUESTS},
+            "lif_B32": {"generic_fused_rows": SK_B_T, "generic_fused_rows_mma": SK_B_T,
+                        "generic_fused_step": 0},
+            "int4": {"int4_mv": SK_I4_T},
+            "int4_B32": {"int4_mm": SK_B_T, "int4_mm_mma": SK_B_T, "int4_mv": 0},
+            "block": {"block_int8_mv": SK_BLOCK_T, "block_int8_mv_mma": SK_BLOCK_T}}
+    lines = {}
+    for name in SK_BUNDLES:
+        equal = check_served(f"serving_kernels_path ({name})", bundles[name]["out"],
+                             refs[name], served[name], want[name])
+        model = load_network(bundles[name]["path"])
+        one = inputs[name][0]
+        turns = serve_turns(model, nets[name], one, name.endswith("B32"), SK_S[name])
+        lines[name] = {**info[name], **served[name], "bit_identical": equal,
+                       "records": list(np.load(bundles[name]["out"]).shape), **turns}
+        del model
+        torch.cuda.empty_cache()
+    del refs
+    seconds["checks_and_turns"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op_call_us = generic_op_turns(dev)
+    seconds["generic_op_turns"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int4_parting = int4_card_vs_cpu(dev, nets["int4"], os.path.dirname(bundles["int4"]["path"]),
+                                    int4_window)
+    seconds["int4_card_vs_cpu"] = time.perf_counter() - t0
+    emit({"phase": "serving_kernels_path", "n": {"lif": N, "int4": N, "block": SPARSE_N},
+          "bundles": lines, "seconds": seconds, "generic_op_call_us": op_call_us,
+          "int4_card_vs_cpu": int4_parting})
+    del nets, lif, block_net
+    torch.cuda.empty_cache()
+    return [{**by_name[src], "name": name, "launches": served[bundle][counter]}
+            for name, (src, bundle, counter) in SK_ENTRIES.items()]
+
+
+def tooling_phases(dev, W_np, etas, build_net, by_name: dict, block_net,
+                   int4_window: dict) -> list:
+    """Phases 45-48 (the serving bundles, checkpoints, the analyses, the
+    bundles of the generic, int4 and block kernels).  Phase 45 exports the
+    main network's bf16 fused bundle (SERVE_T steps a request, sampling
+    SERVE_S), the SERVE_B-trial ensemble bundle of the same network and the
+    int8 network's (phase 16's, frozen int8 coupling), and serves them in a
+    fresh process that builds no Network, while this process runs the
+    references (Network.run of the same 4,000 steps and run_batch) and
+    phase 46; the served records must equal the references' window means
+    bit for bit and the served process's launches be 4,000 single, 1,000
+    B-row on the tensor cores and 500 int8_mv; then served against
+    Network.run in turns.  The same process serves phase 48's bundles
+    (serving_kernels_phase; ``block_net`` is phase 34's million-neuron int8
+    network).  Returns the kernels-line entries."""
     from rectipy_tpu_torch.serving import export_network, load_network
 
     root = os.path.dirname(os.path.abspath(__file__))
     cpu_child = None
     tmp = tempfile.TemporaryDirectory()
-    ready = os.path.join(tmp.name, "ready")
-    bundles = {name: {k: os.path.join(tmp.name, name + suffix) for k, suffix in
-                      (("path", ""), ("inputs", "_in.npy"), ("out", "_out.npy"))}
-               for name in ("bf16", "bf16_B32", "int8")}
+    rounds = [bundle_round(tmp.name, "45", ("bf16", "bf16_B32", "int8")),
+              bundle_round(tmp.name, "48", SK_BUNDLES)]
+    bundles = rounds[0]["bundles"]
+    err_path = os.path.join(tmp.name, "serve_child_err.txt")
     # the serving process starts now and waits for the bundles (its imports
     # and CUDA context overlap the exports)
-    child = subprocess.Popen([sys.executable, "-c", SERVE_CHILD, json.dumps(
-        {"root": root, "bundles": bundles, "ready": ready})], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+    with open(err_path, "w") as err_file:
+        child = subprocess.Popen([sys.executable, "-c", SERVE_CHILD, json.dumps(
+            {"root": root, "rounds": rounds})], stdout=subprocess.PIPE, stderr=err_file,
+            text=True)
     try:
         t_phase = time.perf_counter()
         rng = np.random.default_rng(45)
@@ -6102,10 +6588,9 @@ def tooling_phases(dev, W_np, etas, build_net, by_name: dict) -> list:
             export_network(nets[name], path, **kw)
             export_s = time.perf_counter() - t0
             np.save(bundles[name]["inputs"], inputs[name])
-            info[name] = {"export_s": export_s, "bundle_bytes": sum(
-                os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
-                "files": sorted(os.listdir(path))}
-        open(ready, "w").close()
+            info[name] = {"export_s": export_s, "bundle_bytes": bundle_bytes(path),
+                          "files": sorted(os.listdir(path))}
+        open(rounds[0]["ready"], "w").close()
         # the references, from the exported state: run_batch first (it
         # leaves the state alone), then run
         refs = {}
@@ -6128,10 +6613,7 @@ def tooling_phases(dev, W_np, etas, build_net, by_name: dict) -> list:
                 "steps": TANGENT_CPU_STEPS, "transient": TANGENT_CPU_TRANSIENT,
                 "tanh": TANH})], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         ckpt_launches = checkpoint_phase(dev)
-        out, err = child.communicate(timeout=600)
-        if child.returncode != 0:
-            raise AssertionError(f"serving_path: the serving process failed:\n{err}")
-        served = json.loads(out.strip().splitlines()[-1])
+        served = child_line(child, err_path, "serving_path")
         out, err = cpu_child.communicate(timeout=600)
         if cpu_child.returncode != 0:
             raise AssertionError(f"analysis_path: the CPU float64 run failed:\n{err}")
@@ -6141,17 +6623,8 @@ def tooling_phases(dev, W_np, etas, build_net, by_name: dict) -> list:
                 "int8": ("int8_mv", SERVE_INT8_T)}
         lines = {}
         for name, (counter, n_launch) in want.items():
-            got = np.load(bundles[name]["out"])
-            ref = torch.stack(refs[name]).cpu().numpy()
-            if got.shape != ref.shape or not served[name]["finite"]:
-                raise AssertionError(f"serving_path ({name}): served {got.shape}, want "
-                                     f"{ref.shape}, finite {served[name]['finite']}")
-            equal = bool(np.array_equal(got, ref))
-            if not equal or served[name][counter] != n_launch:
-                raise AssertionError(
-                    f"serving_path ({name}): bit_identical {equal} (max |diff| "
-                    f"{float(np.abs(got - ref).max())}), {counter} launches "
-                    f"{served[name][counter]} (want {n_launch})")
+            equal = check_served(f"serving_path ({name})", bundles[name]["out"], refs[name],
+                                 served[name], {counter: n_launch})
             if name == "bf16_B32" and served[name]["qif_sfa_step"] != n_launch:
                 raise AssertionError(f"serving_path ({name}): not every launch took the "
                                      f"tensor cores: {served[name]}")
@@ -6160,11 +6633,17 @@ def tooling_phases(dev, W_np, etas, build_net, by_name: dict) -> list:
             turns = serve_turns(model, nets[name], one, name == "bf16_B32", spec[name][
                 "sampling_steps"])
             lines[name] = {**info[name], **served[name], "bit_identical": equal,
-                           "records": list(got.shape), **turns}
+                           "records": list(np.load(bundles[name]["out"]).shape), **turns}
             del model
         op_call_us = op_registration_turns(dev)
         emit({"phase": "serving_path", "n": N, "bundles": lines,
               "reference_and_export_s": ref_s, "op_call_us": op_call_us})
+        del nets, refs
+        torch.cuda.empty_cache()
+        lyap_launches = analysis_phase(dev, W_np, etas, cpu_ref)
+        entries = serving_kernels_phase(dev, child, rounds[1], err_path, build_net, block_net,
+                                        int4_window, by_name)
+        child.wait(timeout=60)
     except BaseException:
         for proc in (child, cpu_child):
             if proc is not None and proc.poll() is None:
@@ -6173,9 +6652,6 @@ def tooling_phases(dev, W_np, etas, build_net, by_name: dict) -> list:
         raise
     finally:
         tmp.cleanup()
-    del nets, refs
-    torch.cuda.empty_cache()
-    lyap_launches = analysis_phase(dev, W_np, etas, cpu_ref)
     return [
         {**by_name["qif_sfa_step[bfloat16]"], "name": "qif_sfa_step[bfloat16,serving_path]",
          "launches": served["bf16"]["qif_sfa_step"]},
@@ -6189,7 +6665,24 @@ def tooling_phases(dev, W_np, etas, build_net, by_name: dict) -> list:
         {**by_name["stdp_update[bfloat16,dense]"],
          "name": "stdp_update[bfloat16,checkpoint_path]", "launches": ckpt_launches["bfloat16"]},
         {**by_name["qif_sfa_step[float32]"], "name": "qif_sfa_step[float32,analysis_path]",
-         "launches": lyap_launches}]
+         "launches": lyap_launches}] + entries
+
+
+def check_served(what: str, out_path: str, ref: list, served: dict, launches: dict) -> bool:
+    """The served records (saved by the serving process) against the
+    references' window means, bit for bit, and the served launch counts."""
+    got = np.load(out_path)
+    want = torch.stack(ref).cpu().numpy()
+    if got.shape != want.shape or not served["finite"]:
+        raise AssertionError(f"{what}: served {got.shape}, want {want.shape}, finite "
+                             f"{served['finite']}")
+    equal = bool(np.array_equal(got, want))
+    counts = {k: served[k] for k in launches}
+    if not equal or counts != launches:
+        raise AssertionError(f"{what}: bit_identical {equal} (max |diff| "
+                             f"{float(np.abs(got - want).max())}), launches {counts} (want "
+                             f"{launches})")
+    return equal
 
 
 def main() -> int:
@@ -6197,9 +6690,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from rectipy_tpu_torch import Network, attach_fused_qif_step, random_connectivity
     from rectipy_tpu_torch.ops._build import build, build_generated
-    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6229,6 +6720,15 @@ def main() -> int:
 
     emit({"phase": "export_warmup", "seconds": warmed.result()})
     warm.shutdown()
+    return main_phases(dev)
+
+
+def main_phases(dev) -> int:
+    """Phases 29 and 3-48, the kernels line, the card's line and the
+    contract line."""
+    from rectipy_tpu_torch import Network, attach_fused_qif_step, random_connectivity
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
+
     quant_scales_phase(dev)
 
     # ------------------------------------------------------ 3. kernel check
@@ -6406,7 +6906,7 @@ def main() -> int:
     kernels += generic_phases(W_np, build_net, nets["bfloat16"])
     del nets, fused
     torch.cuda.empty_cache()
-    entry, timing10 = int4_phases(W_np, build_net)
+    entry, timing10, int4_window = int4_phases(W_np, build_net)
     kernels.append(entry)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6419,16 +6919,18 @@ def main() -> int:
     by_name = {e["name"]: e for e in kernels}
     kernels += readout_phases(build_net, by_name["qif_sfa_step[bfloat16]"])
     kernels += tbptt_phase(dev, data + (data_s,), by_name)
-    kernels += feedback_phase()
+    entries, fb_window = feedback_phase()
+    kernels += entries
     entries, trials = batch_phases(dev, W_np, data, train_nu, int4_nu)
     kernels += entries
     torch.cuda.empty_cache()
     whole_brain_phase(dev)
-    kernels += stp_feedback_phase(dev)
+    kernels += stp_feedback_phase(dev, fb_window)
     edge_family_check(dev)
     torch.cuda.empty_cache()
     timing = block_int8_check(dev)
-    kernels += sparse_scale_phase(dev, timing)
+    entries, block_net = sparse_scale_phase(dev, timing)
+    kernels += entries
     kernels += block_delay_phase(dev)
     sparse_train_check(dev)
     torch.cuda.empty_cache()
@@ -6444,7 +6946,8 @@ def main() -> int:
     kernels += block_stdp_phase(dev)
     kernels.append(plasticity_check(dev, build_net, by_name["qif_sfa_step[bfloat16]"]))
     torch.cuda.empty_cache()
-    kernels += tooling_phases(dev, W_np, etas, build_net, {e["name"]: e for e in kernels})
+    kernels += tooling_phases(dev, W_np, etas, build_net, {e["name"]: e for e in kernels},
+                              block_net, int4_window)
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

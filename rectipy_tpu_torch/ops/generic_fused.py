@@ -46,6 +46,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
+import re
 from dataclasses import dataclass
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -56,7 +58,7 @@ from ._build import build_generated
 
 __all__ = ["GenericStep", "attach_generic_fused_step", "generic_fused_rows",
            "generic_fused_rows_plain", "generic_fused_step", "generic_fused_step_plain",
-           "generic_rows_route", "refuse_autograd"]
+           "build_source", "generic_key", "generic_rows_route", "refuse_autograd", "source_dims"]
 
 # elements per 16-byte vector load of W
 _VEC_ELEMS = {torch.float32: 4, torch.bfloat16: 8}
@@ -159,6 +161,25 @@ def generic_fused_rows_plain(step: GenericStep, srcs: Sequence[torch.Tensor],
                                     [rows(t) for t in states], vecs)
 
 
+def generic_key(source: str) -> str:
+    """The name of a generated source in the operators' calls and in a
+    serving bundle: the first 16 hex digits of the SHA-256 of its text.
+    (The build's own tag, ``ops/_build.build_generated``, also covers the
+    ``csrc/`` headers and the flags; the key names the text alone, so a
+    bundle keeps its key across builds of the package.)"""
+    return hashlib.sha256(source.encode()).hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=None)
+def source_dims(source: str) -> Tuple[int, int, int]:
+    """``(K, V, P)`` of a generated source: its couplings, state rows and
+    per-neuron rows, as its ``Program`` declares them (``dsl/cuda.py``)."""
+    dims = dict(re.findall(r"static constexpr int ([KVP]) = (\d+);", source))
+    if sorted(dims) != ["K", "P", "V"]:
+        raise ValueError("generic_fused_step: the source declares no Program's K, V and P")
+    return int(dims["K"]), int(dims["V"]), int(dims["P"])
+
+
 @functools.lru_cache(maxsize=None)
 def _launch_fn(source: str):
     """The C entry point of a generated source, built and declared once per
@@ -169,6 +190,13 @@ def _launch_fn(source: str):
                    f, f, f, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def build_source(source: str) -> None:
+    """Build a generated source (or reuse its build) and declare both C
+    entries; a source nvcc refuses raises ``RuntimeError``."""
+    _launch_fn(source)
+    _rows_launch_fn(source)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device: torch.device,
@@ -195,25 +223,39 @@ def generic_fused_step(step: GenericStep, srcs: Sequence[torch.Tensor],
     and the P per-neuron rows ``(n,)`` float32, all contiguous and on the
     current device; anything else raises.  The first launch of a source
     builds it.  Each launch adds one to ``generic_fused_step.launches``.
+
+    While ``torch.export`` traces, the call goes to the registered operator
+    ``rectipy::generic_fused_step`` instead, which names the source by its
+    :func:`generic_key` (``ops/library.py``).
     """
     if torch.compiler.is_exporting():
-        from .library import export_refused
+        from . import library
 
-        raise export_refused("generic_fused_step")
-    device = drive.device
-    if device.type == "cpu":
+        return library.generic_fused_step(*library.generic_args(step, srcs, Ws, drive, states,
+                                                                vecs))
+    if drive.device.type == "cpu":
         return generic_fused_step_plain(step, srcs, Ws, drive, states, vecs)
+    return generic_step_launch(step.source, srcs, Ws, drive, states, vecs,
+                               step.scalars.values(), step.dt, step.thresh, step.reset_val)
+
+
+def generic_step_launch(source: str, srcs, Ws, drive, states, vecs, scalars, dt: float,
+                        thresh: float, reset_val: float) -> torch.Tensor:
+    """The kernel launch of :func:`generic_fused_step` on CUDA tensors, for
+    the generated ``source`` and its baked ``scalars`` in the source's order
+    (the CUDA implementation of ``rectipy::generic_fused_step``): its
+    checks, the launch and the launch counter."""
+    device = drive.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
             f"generic_fused_step: the drive must be on the current CUDA device, got {device}")
     refuse_autograd("generic_fused_step", list(srcs) + list(Ws) + [drive] + list(states)
                      + list(vecs))
-    K, V = len(step.targets), len(step.state_order)
-    if (len(Ws), len(srcs), len(states), len(vecs)) != (K, K, V, len(step.vec_keys)):
+    K, V, P = source_dims(source)
+    if (len(Ws), len(srcs), len(states), len(vecs)) != (K, K, V, P):
         raise ValueError(
             f"generic_fused_step: expected {K} couplings and sources, {V} state rows and "
-            f"{len(step.vec_keys)} per-neuron rows; got {len(Ws)}, {len(srcs)}, "
-            f"{len(states)} and {len(vecs)}")
+            f"{P} per-neuron rows; got {len(Ws)}, {len(srcs)}, {len(states)} and {len(vecs)}")
     n = drive.shape[0] if drive.dim() == 1 else -1
     w_dtype = Ws[0].dtype
     if w_dtype not in _VEC_ELEMS:
@@ -233,10 +275,10 @@ def generic_fused_step(step: GenericStep, srcs: Sequence[torch.Tensor],
     ptrs = ([W.data_ptr() for W in Ws] + [t.data_ptr() for t in srcs] + [drive.data_ptr()]
             + [t.data_ptr() for t in states] + [t.data_ptr() for t in vecs]
             + [base + 4 * n * v for v in range(V)])
-    scalars = list(step.scalars.values())
-    err = _launch_fn(step.source)(
+    scalars = list(scalars)
+    err = _launch_fn(source)(
         (ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_double * max(len(scalars), 1))(*scalars),
-        n, int(w_dtype == torch.bfloat16), int(vec), step.dt, step.thresh, step.reset_val,
+        n, int(w_dtype == torch.bfloat16), int(vec), dt, thresh, reset_val,
         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"generic_fused_step: kernel launch failed with CUDA error {err}")
@@ -313,25 +355,37 @@ def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
     kernel's instance is :func:`generic_rows_route`'s.  Each launch adds one
     to ``generic_fused_rows.launches``, and one on the tensor cores also to
     ``generic_fused_rows.mma_launches``, one on the tiled kernel to
-    ``generic_fused_rows.tiled_launches``."""
+    ``generic_fused_rows.tiled_launches``.  While ``torch.export`` traces,
+    the call goes to the registered operator ``rectipy::generic_fused_rows``
+    instead (``ops/library.py``)."""
     if torch.compiler.is_exporting():
-        from .library import export_refused
+        from . import library
 
-        raise export_refused("generic_fused_rows")
-    device = drive.device
-    if device.type == "cpu":
+        return library.generic_fused_rows(*library.generic_args(step, srcs, Ws, drive, states,
+                                                                vecs))
+    if drive.device.type == "cpu":
         return generic_fused_rows_plain(step, srcs, Ws, drive, states, vecs)
+    return generic_rows_launch(step.source, srcs, Ws, drive, states, vecs,
+                               step.scalars.values(), step.dt, step.thresh, step.reset_val)
+
+
+def generic_rows_launch(source: str, srcs, Ws, drive, states, vecs, scalars, dt: float,
+                        thresh: float, reset_val: float) -> torch.Tensor:
+    """The B-row kernel launch of :func:`generic_fused_rows` on CUDA tensors
+    (the CUDA implementation of ``rectipy::generic_fused_rows``), as
+    :func:`generic_step_launch` is the single-trial one: its checks, route,
+    launch and launch counters."""
+    device = drive.device
     if device.type != "cuda" or device.index != torch.cuda.current_device():
         raise ValueError(
             f"generic_fused_rows: the drive must be on the current CUDA device, got {device}")
     refuse_autograd("generic_fused_rows", list(srcs) + list(Ws) + [drive] + list(states)
                      + list(vecs))
-    K, V = len(step.targets), len(step.state_order)
-    if (len(Ws), len(srcs), len(states), len(vecs)) != (K, K, V, len(step.vec_keys)):
+    K, V, P = source_dims(source)
+    if (len(Ws), len(srcs), len(states), len(vecs)) != (K, K, V, P):
         raise ValueError(
             f"generic_fused_rows: expected {K} couplings and sources, {V} state rows and "
-            f"{len(step.vec_keys)} per-neuron rows; got {len(Ws)}, {len(srcs)}, "
-            f"{len(states)} and {len(vecs)}")
+            f"{P} per-neuron rows; got {len(Ws)}, {len(srcs)}, {len(states)} and {len(vecs)}")
     per_trial = list(srcs) + [drive] + list(states)
     two_d = [t for t in per_trial if t.dim() == 2]
     if not two_d:
@@ -358,12 +412,12 @@ def generic_fused_rows(step: GenericStep, srcs: Sequence[torch.Tensor],
             + [t.data_ptr() for t in vecs] + [out.data_ptr()])
     lds = [_ld(t) for t in per_trial] + [V * n]
     route = generic_rows_route(w_dtype, n, lds[:K], ptrs[:2 * K])
-    scalars = list(step.scalars.values())
-    err = _rows_launch_fn(step.source)(
+    scalars = list(scalars)
+    err = _rows_launch_fn(source)(
         (ctypes.c_uint64 * len(ptrs))(*ptrs), (ctypes.c_longlong * len(lds))(*lds),
         (ctypes.c_double * max(len(scalars), 1))(*scalars), n, B,
-        int(w_dtype == torch.bfloat16), _ROWS_ROUTES[route], step.dt, step.thresh,
-        step.reset_val, torch.cuda.current_stream(device).cuda_stream)
+        int(w_dtype == torch.bfloat16), _ROWS_ROUTES[route], dt, thresh, reset_val,
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"generic_fused_rows: kernel launch failed with CUDA error {err}")
     generic_fused_rows.launches += 1
@@ -500,7 +554,10 @@ def attach_generic_fused_step(node, weights_dtype=None) -> None:
                        tuple(spike_specs), float(dt), float(thresh), float(reset_val), heun,
                        source)
     if device.type == "cuda":
-        _launch_fn(source)
+        build_source(source)
+    from . import library  # library imports this module: not at module level
+
+    library.register_generic(step)
 
     # the kernel's copies: couplings in the kernel's dtype, per-neuron rows
     # as contiguous float32 rows; set_param refreshes them

@@ -641,13 +641,22 @@ def int4_mv(wp, xq, row_scale, act_scale) -> torch.Tensor:
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel of
     ``csrc/int4_matvec.cu`` on the current stream; anything it does not take
-    raises.  Each launch adds one to ``int4_mv.launches``."""
+    raises.  Each launch adds one to ``int4_mv.launches``.  While
+    ``torch.export`` traces, the call goes to the registered operator
+    ``rectipy::int4_mv`` instead (``ops/library.py``)."""
     if torch.compiler.is_exporting():
-        from .library import export_refused
+        from . import library
 
-        raise export_refused("int4_mv")
+        return library.int4_mv(wp, xq, row_scale, act_scale)
     if wp.device.type == "cpu":
         return (int4_dot_plain(wp, xq) * row_scale) * act_scale
+    return int4_mv_launch(wp, xq, row_scale, act_scale)
+
+
+def int4_mv_launch(wp, xq, row_scale, act_scale) -> torch.Tensor:
+    """The kernel launch of :func:`int4_mv` on CUDA tensors (the CUDA
+    implementation of ``rectipy::int4_mv``): its checks, the launch and the
+    launch counter."""
     n_out, n_in = wp.shape[0], xq.shape[0]
     _check("int4_mv", wp, xq, row_scale, act_scale, n_in, dtype=torch.uint8,
            max_fan_in=INT4_MV_MAX_FAN_IN, n_in=n_in)
@@ -720,13 +729,22 @@ def int4_mm(wp, xq, row_scale, act_scale) -> torch.Tensor:
     ``"scalar"`` reads the packed W once for up to 32 rows on the CUDA
     cores.  Integer sums are exact in any order; anything the kernels do not
     take raises.  Each launch adds one to ``int4_mm.launches``, and one on
-    the tensor cores also to ``int4_mm.mma_launches``."""
+    the tensor cores also to ``int4_mm.mma_launches``.  While
+    ``torch.export`` traces, the call goes to the registered operator
+    ``rectipy::int4_mm`` instead (``ops/library.py``)."""
     if torch.compiler.is_exporting():
-        from .library import export_refused
+        from . import library
 
-        raise export_refused("int4_mm")
+        return library.int4_mm(wp, xq, row_scale, act_scale)
     if wp.device.type == "cpu":
         return (int4_mm_plain(wp, xq) * row_scale) * act_scale[:, None]
+    return int4_mm_launch(wp, xq, row_scale, act_scale)
+
+
+def int4_mm_launch(wp, xq, row_scale, act_scale) -> torch.Tensor:
+    """The kernel launch of :func:`int4_mm` on CUDA tensors (the CUDA
+    implementation of ``rectipy::int4_mm``): its checks, route, launch and
+    launch counters."""
     n_out = wp.shape[0]
     rows, n_in = xq.shape if xq.dim() == 2 else (-1, -1)
     _check("int4_mm", wp, xq, row_scale, act_scale, n_in, dtype=torch.uint8,
@@ -1044,13 +1062,26 @@ def block_int8_mv(bq, row_scale, xq, idx, route=None) -> torch.Tensor:
     raises.  The integer sums are exact, so every route and the plain
     version agree bit for bit.  Each launch adds one to
     ``block_int8_mv.launches``, a launch on the tensor cores also to
-    ``block_int8_mv.mma_launches``."""
+    ``block_int8_mv.mma_launches``.  While ``torch.export`` traces, the call
+    goes to the registered operator ``rectipy::block_int8_mv`` instead
+    (``ops/library.py``), whose CUDA implementation takes the default
+    route; a forced route cannot be exported."""
     if torch.compiler.is_exporting():
-        from .library import export_refused
+        if route is not None:
+            raise ValueError("block_int8_mv: a forced route cannot be exported; the "
+                             "operator takes block_int8_mv_route's")
+        from . import library
 
-        raise export_refused("block_int8_mv")
+        return library.block_int8_mv(bq, row_scale, xq, idx)
     if bq.device.type == "cpu":
         return block_int8_mv_plain(bq, row_scale, xq, idx)
+    return block_int8_mv_launch(bq, row_scale, xq, idx, route)
+
+
+def block_int8_mv_launch(bq, row_scale, xq, idx, route=None) -> torch.Tensor:
+    """The kernel launch of :func:`block_int8_mv` on CUDA tensors (the CUDA
+    implementation of ``rectipy::block_int8_mv``, with the default route):
+    its checks, route, launch and launch counters."""
     _check_block(bq, row_scale, xq, idx)
     n_br, cb, bs, _ = bq.shape
     B, n_src = xq.shape[0], xq.shape[1]
@@ -1269,6 +1300,8 @@ _STACK_IDX: dict = {}
 def _stack_idx(n_br: int, cb: int, device) -> torch.Tensor:
     """``arange(n_br * cb)`` as the ``(n_br, cb)`` int32 index table of a
     gathered stack, made once per shape and device."""
+    if torch.compiler.is_exporting():  # a constant of the program, never cached
+        return torch.arange(n_br * cb, dtype=torch.int32, device=device).reshape(n_br, cb)
     key = (n_br, cb, str(device))
     if key not in _STACK_IDX:
         _STACK_IDX[key] = torch.arange(n_br * cb, dtype=torch.int32,

@@ -21,12 +21,13 @@ Usage::
 The bundle is a directory: ``meta.json``, the programs ``step.pt2`` and (when
 the network's parameters have a once-per-call prep, such as the
 quantization of an ``int8_master`` coupling) ``prep.pt2``, written by
-``torch.export.save`` without example inputs, and ``snapshot.npz``, the
-ordered tensor leaves of ``(params, state)``.  No pickle, no Python source,
-no YAML.  A bfloat16 leaf, which numpy lacks, is stored as its 16-bit
-pattern and ``meta.json`` records its dtype.  Python scalars among the
-parameters are baked into the programs as constants, and ``meta.json`` lists
-them under ``baked``.
+``torch.export.save`` without example inputs, ``snapshot.npz``, the
+ordered tensor leaves of ``(params, state)``, and, for a generic fused
+step, ``generic/`` (below).  No pickle, no Python source, no YAML.  A
+bfloat16 leaf, which numpy lacks, is stored as its 16-bit pattern and
+``meta.json`` records its dtype.  Python scalars among the parameters are
+baked into the programs as constants, and ``meta.json`` lists them under
+``baked``.
 
 Where the JAX package exports the whole ``T``-step ``lax.scan``, this module
 exports ONE step, ``(prepped params, state, x_t) -> (state', out_t)``, and
@@ -40,18 +41,28 @@ window dropped), ``batch=B`` exports the ensemble step of
 ``n_in=1`` exports the single-channel broadcast drive.
 
 **Kernels.**  The hand-written kernels reach an exported program as the
-registered operators of ``rectipy_tpu_torch/ops/library.py``
-(``rectipy::qif_sfa_step``, ``rectipy::qif_sfa_rows_step``,
-``rectipy::int8_mv``, ``rectipy::int8_mm``); ``meta.json`` lists those a
+registered operators of ``rectipy_tpu_torch/ops/library.py`` (every forward
+kernel of the package: the fused QIF and generic steps, single and B-row,
+and the int8, int4 and int8 block products); ``meta.json`` lists those a
 program calls under ``ops``.  A program that calls one needs that module,
 hence the package, in the serving process: StableHLO embeds a Pallas
 kernel, but ``torch.export`` cannot embed a kernel launched through
 ``ctypes``.  :func:`load_network` imports the op library only when
 ``meta.json`` lists an operator, so a bundle without one loads with torch
-and numpy alone, from this file vendored on its own.  A network whose step
-reaches a kernel that is not a registered operator yet (the generic fused
-step, ``int4_mv``/``int4_mm``, ``block_int8_mv``) cannot be exported:
-:func:`export_network` raises ``NotImplementedError``.
+and numpy alone, from this file vendored on its own.
+
+The generic fused step's CUDA source is generated from the node's
+template, and its operators name the source by a key (a hash of the text).
+A bundle whose programs call them carries, under ``generic/``, each key's
+generated text (``<key>.cu``) and, when the bundle may be served on the
+CPU, the node's plain step exported at the bundle's shapes as a program of
+its own (``<key>_<i>.pt2``, one for each operator, set of baked scalars and
+shapes the step calls); ``meta.json`` lists them under ``generic``.
+:func:`load_network` records them with the op library before it loads the
+step, and on CUDA builds the text (the same text builds once a process),
+so a process that builds no network, reads no template and lowers nothing
+serves the bundle.  A missing source, one whose hash is not its key, or
+one that fails to build raises; nothing stands in for the kernel.
 
 **Devices.**  A bundle records the device type it was exported on and the
 ``platforms`` it may be served on.  :func:`load_network` serves on the
@@ -64,6 +75,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Optional, Sequence
 
 import numpy as np
@@ -75,7 +87,11 @@ _STEP = "step.pt2"
 _PREP = "prep.pt2"
 _SNAPSHOT = "snapshot.npz"
 _META = "meta.json"
-_FORMAT_VERSION = 1
+_GENERIC = "generic"  # ops/library.py's GENERIC_DIR
+# 2 adds generic/ and meta["generic"]; a version-1 bundle (no generic
+# step) reads as one whose meta["generic"] is empty
+_FORMAT_VERSION = 2
+_READS = (1, 2)
 _PLATFORMS = ("cpu", "cuda")
 _OP_NAMESPACE = "rectipy"
 
@@ -117,20 +133,31 @@ def _unaliased(outs, inputs) -> tuple:
 
 
 def _export(fn, args):
+    # an input that views another input's storage (a fused node's row that
+    # is its parameter itself) is traced as a tensor of its own: torch.export
+    # gives such an input a symbolic size, which moving the program to
+    # another device cannot evaluate; the program is the same function
+    first, example = {}, []
+    for a in args:
+        ptr = a.untyped_storage().data_ptr()
+        if first.setdefault(ptr, a) is not a:
+            a = a.clone()
+        example.append(a)
     with torch.no_grad():
-        ep = torch.export.export(_Program(fn), tuple(args))
+        ep = torch.export.export(_Program(fn), tuple(example))
     ep.example_inputs = None  # no pickled sample inputs in the bundle
     return ep
 
 
+def _op_nodes(ep):
+    """The graph's calls of ``rectipy::`` operators."""
+    return [node for node in ep.graph.nodes if node.op == "call_function"
+            and getattr(node.target, "namespace", None) == _OP_NAMESPACE]
+
+
 def _program_ops(ep) -> list:
     """The ``rectipy::`` operators an exported program calls."""
-    ops = set()
-    for node in ep.graph.nodes:
-        target = node.target
-        if node.op == "call_function" and getattr(target, "namespace", None) == _OP_NAMESPACE:
-            ops.add(target._schema.name)
-    return sorted(ops)
+    return sorted({node.target._schema.name for node in _op_nodes(ep)})
 
 
 def export_network(net, path: str, T: int, sampling_steps: int = 1,
@@ -148,9 +175,9 @@ def export_network(net, path: str, T: int, sampling_steps: int = 1,
     ``"cuda"``) the bundle may be served on; default the network's own.
 
     The programs are traced on the network's device with ``torch.export``
-    under ``torch.no_grad()``; a step that reaches a kernel which is not a
-    registered operator raises ``NotImplementedError`` (see the module
-    docstring).
+    under ``torch.no_grad()``; the kernels they reach are the op library's
+    operators, and a generic fused step brings its generated source and,
+    for the CPU, its plain step (see the module docstring).
     """
     from .trees import fill, items
 
@@ -240,9 +267,17 @@ def export_network(net, path: str, T: int, sampling_steps: int = 1,
     for name in (_STEP, _PREP):  # a bundle written over an older one
         if os.path.exists(os.path.join(path, name)):
             os.remove(os.path.join(path, name))
+    shutil.rmtree(os.path.join(path, _GENERIC), ignore_errors=True)
     torch.export.save(step_ep, os.path.join(path, _STEP))
     if prep_ep is not None:
         torch.export.save(prep_ep, os.path.join(path, _PREP))
+    generic = {}
+    if ops:
+        from .ops import library
+
+        generic = library.export_generic(
+            [node for ep in (step_ep, prep_ep) if ep is not None for node in _op_nodes(ep)],
+            path, "cpu" in platforms, _export)
 
     leaves = p_leaves + s_leaves
     aliases, stored, dtypes = {}, {}, []
@@ -274,6 +309,7 @@ def export_network(net, path: str, T: int, sampling_steps: int = 1,
         "prep": prep_src,
         "programs": {"step": _STEP, "prep": _PREP if prep_ep is not None else None},
         "ops": ops,
+        "generic": generic,
         "baked": baked,
         "device": device.type,
         "platforms": platforms,
@@ -393,7 +429,8 @@ class ServedNetwork:
         self._leaves = list(self._leaves0)
 
 
-def _load_program(path: str, device: torch.device, moved: bool):
+def _load_ep(path: str, device: torch.device, moved: bool):
+    """The exported program at ``path``, moved to ``device`` when ``moved``."""
     ep = torch.export.load(path)
     if moved:
         from torch.export.passes import move_to_device_pass
@@ -408,7 +445,11 @@ def _load_program(path: str, device: torch.device, moved: bool):
             if isinstance(dev, torch.device) and dev != device:
                 node.kwargs = {**node.kwargs, "device": device}
         gm.recompile()
-    return _callable(ep)
+    return ep
+
+
+def _load_program(path: str, device: torch.device, moved: bool):
+    return _callable(_load_ep(path, device, moved))
 
 
 def load_network(path: str, device=None) -> ServedNetwork:
@@ -418,12 +459,15 @@ def load_network(path: str, device=None) -> ServedNetwork:
     exported on.  A device type outside the bundle's ``platforms`` raises
     ``ValueError``; CUDA without a CUDA device raises ``RuntimeError``.  The
     op library (``rectipy_tpu_torch.ops.library``) is imported only when
-    the programs call one of its operators."""
+    the programs call one of its operators; a generic fused step's sources
+    are recorded with it first (and built, on CUDA).  Bundles of formats 1
+    and 2 load."""
     with open(os.path.join(path, _META)) as f:
         meta = json.load(f)
-    if meta.get("format_version") != _FORMAT_VERSION:
+    if meta.get("format_version") not in _READS:
         raise ValueError(f"Unsupported bundle format {meta.get('format_version')} "
-                         f"at {path!r} (this build reads {_FORMAT_VERSION})")
+                         f"at {path!r} (this build reads {list(_READS)})")
+    meta.setdefault("generic", {})
     device = torch.device(meta["device"] if device is None else device)
     if device.type not in meta["platforms"]:
         raise ValueError(f"The bundle at {path!r} may be served on {meta['platforms']}, "
@@ -438,7 +482,9 @@ def load_network(path: str, device=None) -> ServedNetwork:
     if meta["ops"]:
         import importlib
 
-        importlib.import_module("rectipy_tpu_torch.ops.library")
+        library = importlib.import_module("rectipy_tpu_torch.ops.library")
+        library.load_generic(path, meta["generic"], device,
+                             lambda file: _load_program(file, device, False))
     moved = device.type != meta["device"]
     step = _load_program(os.path.join(path, meta["programs"]["step"]), device, moved)
     prep = None

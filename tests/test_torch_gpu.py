@@ -2161,7 +2161,12 @@ def test_fit_eprop_on_card_through_the_fused_step(cuda):
 def _op_inputs(name, device, seed=0):
     """Inputs of each registered operator at small shapes: the QIF step on
     one state and on 4 trials' strided rows (bf16 W, the tensor-core
-    route), the int8 products on one source and on 4 rows."""
+    route), the int8 and int4 products on one source and on 4 rows, the
+    int8 block product of 3 trials, and the generic LIF step (bf16 W) on
+    one state and on 4 trials' strided rows."""
+    from rectipy_tpu_torch.ops import library
+    from rectipy_tpu_torch.ops.quant import quantize_rows_i4
+
     rng = np.random.default_rng(seed)
     n = 256
     if name.startswith("qif"):
@@ -2175,40 +2180,114 @@ def _op_inputs(name, device, seed=0):
                     for _ in range(2))
         return (v, s, x, W, eta, inp, *[float(PARAMS[k]) for k in (
             "dt", "tau", "tau_s", "tau_x", "k", "alpha", "thresh", "v_reset")])
-    wq, ws = quantize_rows(torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32,
-                                           device=device))
-    src = torch.as_tensor(rng.normal(size=(4, n) if name == "int8_mm" else (n,)),
+    if name.startswith("generic"):
+        _, node = _generic_node("lif", n, device, coupling_dtype="bfloat16")
+        if name == "generic_fused_step":
+            step, srcs, drive, states, vecs = generic_inputs(node, seed)
+        else:
+            step, srcs, drive, states, vecs = _generic_rows_inputs(node, 4, seed)
+        Ws = [node.args[f"__w_fused_{c}__"] for c in range(len(step.targets))]
+        return library.generic_args(step, srcs, Ws, drive, states, vecs)
+    if name == "block_int8_mv":
+        bq = torch.as_tensor(rng.integers(-127, 128, size=(4, 2, 32, 32)), dtype=torch.int8,
+                             device=device)
+        xq = torch.as_tensor(rng.integers(-127, 128, size=(3, 4, 32)), dtype=torch.int8,
+                             device=device)
+        rs = torch.as_tensor(rng.random((4, 32)), dtype=torch.float32, device=device)
+        idx = torch.as_tensor(np.stack([rng.choice(4, 2, replace=False) for _ in range(4)]),
+                              dtype=torch.int32, device=device)
+        return bq, rs, xq, idx
+    w = torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32, device=device)
+    if name.startswith("int4"):
+        wq, ws = quantize_rows_i4(w)
+        wq = pack_int4(wq)
+    else:
+        wq, ws = quantize_rows(w)
+    src = torch.as_tensor(rng.normal(size=(4, n) if name.endswith("mm") else (n,)),
                           dtype=torch.float32, device=device)
     xq, xs = quant_vec(src)
-    return (wq, xq, ws, xs.reshape(-1) if name == "int8_mm" else xs)
+    return (wq, xq, ws, xs.reshape(-1) if name.endswith("mm") else xs)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["qif_sfa_step", "qif_sfa_rows_step", "int8_mv", "int8_mm"])
+@pytest.mark.parametrize("name", ["qif_sfa_step", "qif_sfa_rows_step", "int8_mv", "int8_mm",
+                                  "int4_mv", "int4_mm", "block_int8_mv", "generic_fused_step",
+                                  "generic_fused_rows"])
 def test_registered_op_cuda_against_cpu_and_fake(cuda, name):
     """Each rectipy:: operator: its CUDA implementation (the wrapper's
     launch, counted) against its CPU implementation (the plain version) on
     the same inputs, and its fake implementation's shape and dtype."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from rectipy_tpu_torch.ops import kernels, library, quant
+    from rectipy_tpu_torch.ops import generic_fused, kernels, library, quant
 
     op = getattr(torch.ops.rectipy, name)
     args = _op_inputs(name, cuda)
-    counter = kernels.qif_sfa_step if name.startswith("qif") else getattr(quant, name)
+    counter = (kernels.qif_sfa_step if name.startswith("qif") else
+               getattr(generic_fused if name.startswith("generic") else quant, name))
     before = counter.launches
     got = op(*args)
     torch.cuda.synchronize()
     assert counter.launches == before + 1
-    ref = op(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
-    if name.startswith("int8"):
+
+    def cpu(a):
+        if isinstance(a, list):
+            return [cpu(t) for t in a]
+        return a.cpu() if isinstance(a, torch.Tensor) else a
+
+    ref = op(*[cpu(a) for a in args])
+    if name.startswith(("int", "block")):
         torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=0)
+    elif name.startswith("generic"):
+        step = library._entry(args[5]).steps[library._params(*args[6:])]
+        for g, r in zip(got.cpu().reshape(-1, *got.shape[-2:]),
+                        ref.reshape(-1, *ref.shape[-2:])):
+            check_generic(g, r, step)
     else:
         torch.testing.assert_close(got.cpu(), ref, rtol=1e-5, atol=1e-4)
+
+    def fake(a, mode):
+        if isinstance(a, list):
+            return [fake(t, mode) for t in a]
+        return mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+
     with FakeTensorMode() as mode:
-        fake = op(*[mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args])
-    assert fake.shape == got.shape and fake.dtype == got.dtype == torch.float32
+        out = op(*[fake(a, mode) for a in args])
+    assert out.shape == got.shape and out.dtype == got.dtype == torch.float32
     assert name in library.OPS
+
+
+@pytest.mark.gpu
+def test_generic_operator_refuses_unknown_keys_and_broken_sources_on_card(cuda, tmp_path):
+    """On the card the generic operator with a key this process does not
+    know raises; a bundle whose generated source nvcc refuses raises at
+    load (its key re-hashed to the broken text), and nothing runs the plain
+    version in its place."""
+    import json
+    import os
+
+    from rectipy_tpu_torch.ops import generic_fused, library
+    from rectipy_tpu_torch.serving import export_network, load_network
+
+    args = list(_op_inputs("generic_fused_step", cuda))
+    args[5] = "0" * 16
+    with pytest.raises(RuntimeError, match="not known to this process"):
+        torch.ops.rectipy.generic_fused_step(*args)
+    net, _ = _generic_node("lif", 256, cuda, coupling_dtype="bfloat16")
+    path = export_network(net, str(tmp_path / "g"), T=4)
+    meta_path = os.path.join(path, "meta.json")
+    meta = json.load(open(meta_path))
+    (key, entry), = meta["generic"].items()
+    broken = library.generic_source(key).replace("GF_DEFINE_LAUNCH(Program)",
+                                                 "GF_DEFINE_LAUNCH(NoSuchProgram)")
+    bad = generic_fused.generic_key(broken)
+    entry["source"] = f"generic/{bad}.cu"
+    with open(os.path.join(path, entry["source"]), "w") as f:
+        f.write(broken)
+    meta["generic"] = {bad: entry}
+    json.dump(meta, open(meta_path, "w"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        load_network(path)
 
 
 def _served_qif(device, n=512):
@@ -2227,74 +2306,112 @@ def _served_qif(device, n=512):
     return net
 
 
-def _served_int8(device, n=512):
+def _served_int8(device, n=512, coupling="int8"):
     net = Network(1e-3, device=device)
     W = np.random.default_rng(22).normal(size=(n, n)) / np.sqrt(n)
     net.add_diffeq_node("p", "neuron_model_templates.rate_neurons.leaky_integrator.tanh",
                         weights=W, source_var="tanh_op/r", target_var="li_op/r_in",
                         input_var="li_op/I_ext", output_var="tanh_op/r",
-                        coupling_dtype="int8")
+                        coupling_dtype=coupling)
     return net
 
 
+def _served_generic(device, n=512):
+    net, _ = _generic_node("lif", n, device, coupling_dtype="bfloat16")
+    return net
+
+
+def _served_block(device):
+    return _block_qif(device, "int8")[0]
+
+
+def _served_int4(device, n=512):
+    return _served_int8(device, n, coupling="int4")
+
+
+# each served case: the network, the trials (None: one), the operator and
+# the launch counter, and the launches a step (the tanh node's algebraic
+# output reads its quantized coupling too, so its products launch twice)
+SERVED_CASES = {
+    "fused": (_served_qif, None, "qif_sfa_step", 1),
+    "int8_B4": (_served_int8, 4, "int8_mm", 2),
+    "generic": (_served_generic, None, "generic_fused_step", 1),
+    "generic_B4": (_served_generic, 4, "generic_fused_rows", 1),
+    "generic_heun": (lambda d: _generic_node("tanh_heun", 512, d, "bfloat16")[0], None,
+                     "generic_fused_step", 2),
+    "generic_two_couplings": (lambda d: _generic_node("two_couplings", 512, d, "bfloat16")[0],
+                              None, "generic_fused_step", 1),
+    "int4": (_served_int4, None, "int4_mv", 2),
+    "int4_B4": (_served_int4, 4, "int4_mm", 2),
+    "block_int8": (_served_block, None, "block_int8_mv", 1),
+    "block_edge": (lambda d: _graph_block(d, "int8_master"), None, "block_int8_mv", 1),
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["fused", "int8_B4"])
+@pytest.mark.parametrize("case", list(SERVED_CASES))
 def test_bundle_served_on_card_bit_for_bit(cuda, tmp_path, case):
-    """A small fused bf16 QIF bundle (rectipy::qif_sfa_step) and a B = 4
-    frozen-int8 bundle (rectipy::int8_mm) exported and served on the card:
+    """Small bundles of every operator exported and served on the card: the
+    fused bf16 QIF step, a B = 4 frozen-int8 network, the generic LIF step
+    (bf16) alone and at B = 4, Heun's tanh population (the kernel twice a
+    step) and the K = 2 circuit, a frozen int4 network alone and at B = 4,
+    a block-coupled int8 QIF network and a delayed int8_master block edge:
     their records equal run / run_batch bit for bit, and the served
-    requests launch the kernel as often as run / run_batch (the fused step
-    once a step; the tanh node's algebraic output reads its coupling too,
-    so the int8 product twice)."""
-    from rectipy_tpu_torch.ops import quant
+    requests launch the kernel as often as run / run_batch."""
+    from rectipy_tpu_torch.ops import generic_fused, quant
     from rectipy_tpu_torch.serving import export_network, load_network
 
+    build, B, name, per_step = SERVED_CASES[case]
+    counter = {"qif_sfa_step": qif_sfa_step}.get(name) or getattr(
+        generic_fused if name.startswith("generic") else quant, name)
     T = 200
     rng = np.random.default_rng(23)
-    if case == "fused":
-        build, counter, B = _served_qif, qif_sfa_step, None
-        ins = np.full((T, 1), 3.0, dtype=np.float32)
+    net = build(cuda)
+    if case.startswith(("fused", "generic")):
+        ins = np.full((T, 1), 3.0 if case == "fused" else 30.0, dtype=np.float32)
         ins[:50] = 0.0
+        ins = ins if B is None else np.stack([ins * (1.0 + 0.1 * b) for b in range(B)])
     else:
-        build, counter, B = _served_int8, quant.int8_mm, 4
-        ins = rng.normal(size=(B, T, 1)).astype(np.float32)
-    model = load_network(export_network(build(cuda), str(tmp_path / case), T=T, n_in=1,
-                                        batch=B))
+        ins = rng.normal(size=(T, 1) if B is None else (B, T, 1)).astype(np.float32)
+    model = load_network(export_network(net, str(tmp_path / case), T=T, n_in=1, batch=B))
     assert model.meta["device"] == "cuda"
-    assert model.meta["ops"] == (["rectipy::qif_sfa_step"] if B is None
-                                 else ["rectipy::int8_mm"])
+    assert model.meta["ops"] == [f"rectipy::{name}"]
     before = counter.launches
     got = model(ins)
     served = counter.launches - before
     before = counter.launches
     ref = (build(cuda).run(ins, verbose=False).to_numpy("out") if B is None
            else build(cuda).run_batch(ins, verbose=False)["out"])
-    assert served == counter.launches - before == (T if B is None else 2 * T)
+    assert served == counter.launches - before == per_step * T
     assert np.isfinite(got).all()
     np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.gpu
-def test_cpu_bundle_moved_to_the_card(cuda, tmp_path):
+@pytest.mark.parametrize("case", ["int8", "generic"])
+def test_cpu_bundle_moved_to_the_card(cuda, tmp_path, case):
     """A bundle exported on the CPU with platforms ["cpu", "cuda"] and loaded
     with device="cuda": the programs move to the card, the operator takes
-    its CUDA implementation (one int8_mv launch a read of the coupling),
-    and the records equal the same network's run on the card."""
-    from rectipy_tpu_torch.ops import quant
+    its CUDA implementation (one int8_mv launch a read of the coupling; the
+    generic LIF step's kernel, built from the bundle's own source), and the
+    records equal the same network's run on the card."""
+    from rectipy_tpu_torch.ops import generic_fused, quant
     from rectipy_tpu_torch.serving import export_network, load_network
 
     T = 100
+    build, counter = ((_served_int8, quant.int8_mv) if case == "int8"
+                      else (_served_generic, generic_fused.generic_fused_step))
     ins = np.random.default_rng(24).normal(size=(T, 1)).astype(np.float32)
-    path = export_network(_served_int8("cpu"), str(tmp_path / "moved"), T=T, n_in=1,
+    path = export_network(build("cpu"), str(tmp_path / "moved"), T=T, n_in=1,
                           platforms=["cpu", "cuda"])
     model = load_network(path, device="cuda")
     assert model.meta["device"] == "cpu" and model.device.type == "cuda"
-    before = quant.int8_mv.launches
+    before = counter.launches
     got = model(ins)
-    served = quant.int8_mv.launches - before
-    before = quant.int8_mv.launches
-    ref = _served_int8(cuda).run(ins, verbose=False).to_numpy("out")
-    assert served == quant.int8_mv.launches - before > 0
+    served = counter.launches - before
+    before = counter.launches
+    ref = build(cuda).run(ins, verbose=False).to_numpy("out")
+    assert served == counter.launches - before > 0
     np.testing.assert_array_equal(got, ref)
 
 

@@ -2,8 +2,9 @@
 package's (``rectipy_tpu.serving``), on the CPU: the cases of
 ``tests/test_serving.py``, each network exported by both packages and the
 served outputs compared, and the port's own rules (registered operators
-in the program, the kernels' refusal, eager runs that never enter an
-operator).
+in the program, eager runs that never enter an operator; the bundles of
+the generic, int4 and block kernels are held in
+``tests/test_torch_serving_kernels.py``).
 
 Tolerances: the reference test's (rtol 1e-6 at float32, 1e-5 over two
 chained calls); served against the port's own ``Network.run`` bit for bit
@@ -32,6 +33,7 @@ from rectipy_tpu.ops.kernels import attach_fused_qif_step as j_attach
 from rectipy_tpu.serving import export_network as j_export
 from rectipy_tpu.serving import load_network as j_load
 from rectipy_tpu_torch import FeedbackNetwork, Network, attach_fused_qif_step
+from rectipy_tpu_torch.ops import library
 from rectipy_tpu_torch.serving import export_network, load_network
 
 TANH = "neuron_model_templates.rate_neurons.leaky_integrator.tanh"
@@ -307,10 +309,11 @@ def _lif_generic():
     from rectipy_tpu_torch import attach_generic_fused_step
 
     net = Network(1e-3, device="cpu")
-    net.add_diffeq_node("lif", LIF, weights=np.zeros((8, 8)), source_var="s",
+    net.add_diffeq_node("lif", LIF, weights=np.full((8, 8), 0.5), source_var="s",
                         target_var="s_in", input_var="I_ext", output_var="s", op="lif_op",
                         spike_var="spike", reset_var="v", spike_threshold=1.0,
                         spike_reset=0.0)
+    net.compile()
     attach_generic_fused_step(net.get_node("lif"))
     return net
 
@@ -327,23 +330,6 @@ def _block_int8():
     return net
 
 
-@pytest.mark.parametrize("case, kernel", [
-    ("generic", "generic_fused_step"), ("int4", "int4_mv"), ("int4_batch", "int4_mm"),
-    ("block_int8", "block_int8_mv")])
-def test_export_refuses_kernels_that_are_not_operators(tmp_path, case, kernel):
-    """A step that reaches a kernel which is not a registered operator yet
-    raises NotImplementedError naming the kernel and ROADMAP entry K, and
-    writes no program (never a plain stand-in)."""
-    net = {"generic": _lif_generic, "block_int8": _block_int8,
-           "int4": lambda: _rate_net(False, coupling_dtype="int4"),
-           "int4_batch": lambda: _rate_net(False, coupling_dtype="int4")}[case]()
-    batch = 2 if case == "int4_batch" else None
-    with pytest.raises(NotImplementedError, match=f"{kernel}.*entry K"):
-        export_network(net, str(tmp_path / case), T=4, batch=batch)
-    assert not os.path.exists(tmp_path / case / "step.pt2")
-    net.run(np.zeros((4, 1)), verbose=False)  # the network still runs
-
-
 class _OpLog(TorchDispatchMode):
     """The operators that reach the dispatcher."""
 
@@ -356,23 +342,40 @@ class _OpLog(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("case", ["fused", "int8"])
+# each case's network, and the operators its single-trial and its batch=2
+# program call: together every operator of ops/library.py
+OP_CASES = {
+    "fused": (lambda: _qif_net(False, fused=True), "qif_sfa_step", "qif_sfa_rows_step"),
+    "int8": (lambda: _rate_net(False, coupling_dtype="int8"), "int8_mv", "int8_mm"),
+    "int4": (lambda: _rate_net(False, coupling_dtype="int4"), "int4_mv", "int4_mm"),
+    "generic": (_lif_generic, "generic_fused_step", "generic_fused_rows"),
+    "block_int8": (_block_int8, "block_int8_mv", "block_int8_mv"),
+}
+
+
+@pytest.mark.parametrize("case", list(OP_CASES))
 def test_eager_runs_never_enter_an_operator_and_the_program_does(tmp_path, case):
     """Eager run and run_batch call the wrappers (no rectipy:: operator
-    reaches the dispatcher); the exported program calls the operator, and
-    its outputs equal the run's."""
-    build = (lambda: _qif_net(False, fused=True)) if case == "fused" else \
-        (lambda: _rate_net(False, coupling_dtype="int8"))
+    reaches the dispatcher); the exported single-trial and batch=2 programs
+    call the operators, and their outputs equal run's and run_batch's."""
+    build, single_op, rows_op = OP_CASES[case]
     drive = np.random.default_rng(7).normal(size=(20, 1)).astype(np.float32) * 30.0
+    drives = np.stack([drive, drive * 0.5])
     net = build()
     with _OpLog() as log:
         net.run(drive, verbose=False)
-        net.run_batch(np.stack([drive, drive]), verbose=False)
+        net.run_batch(drives, verbose=False)
     assert not any(op.startswith("rectipy.") for op in log.ops), sorted(log.ops)
     model = load_network(export_network(build(), str(tmp_path / case), T=20, n_in=1))
-    with _OpLog() as log:
-        got = model(drive)
-    ops = {op for op in log.ops if op.startswith("rectipy.")}
-    assert ops == {"rectipy.qif_sfa_step.default" if case == "fused"
-                   else "rectipy.int8_mv.default"}
-    np.testing.assert_array_equal(got, _out(build().run(drive, verbose=False)))
+    batched = load_network(export_network(build(), str(tmp_path / f"{case}_B"), T=20, n_in=1,
+                                          batch=2))
+    for served, ins, op, want in ((model, drive, single_op,
+                                   lambda: _out(build().run(drive, verbose=False))),
+                                  (batched, drives, rows_op,
+                                   lambda: build().run_batch(drives, verbose=False)["out"])):
+        with _OpLog() as log:
+            got = served(ins)
+        assert {op for op in log.ops if op.startswith("rectipy.")} == {f"rectipy.{op}.default"}
+        np.testing.assert_array_equal(got, want())
+    assert set(library.OPS) == {op for _, single, rows in OP_CASES.values()
+                                for op in (single, rows)}
