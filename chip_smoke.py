@@ -648,6 +648,28 @@ int4_mv[serving_kernels_path] (phase 17's), int4_mm[serving_kernels_path]
 33's B = 1 timing at the million-neuron shape), each with the served
 process's launches.
 
+Phase 49 (after phase 48; multi-device runs, rectipy_tpu_torch.parallel,
+on a one-rank NCCL process group; no new kernel):
+
+49. mesh_path: torch.distributed.init_process_group("nccl", rank 0, world
+   size 1, a FileStore, device_id the card) and make_mesh(1): the only mesh
+   one card can form (model 1, data 1), on which run(mesh=) and
+   run_batch(mesh=) take the kernels as the runs without a mesh do.  The
+   main path's bf16 fused network (phase 4) over MESH_STEPS steps of
+   bench_inputs, phase 16's int8 network (frozen int8 coupling, int8_mv)
+   over MESH_B_STEPS, and run_batch of the bf16 fused network at MESH_B =
+   32 trials (phase 26's drive, normal + linspace(0, 2)) over MESH_B_STEPS
+   on the B-row tensor-core kernel; each run on the mesh and without it, in
+   turns (mesh, plain, plain, mesh), from the same reset state: the records
+   equal bit for bit, each mesh run's launch counter equals its steps (the
+   B-row run's every launch on "mma"); the ms/step of each with and without
+   the mesh and their ratio, and sharded_step_collectives a step (none on a
+   model axis of one rank).  The group is destroyed at the end of the
+   phase; a failure to form it fails the phase.
+The kernels line adds qif_sfa_step[bfloat16,mesh_path] (phase 6's timing),
+int8_mv[mesh_path] (phase 10's) and qif_sfa_step_rows[bfloat16,mesh_path]
+(phase 28's B = 32 timing), each with one mesh run's launches.
+
 With phase 48 the script takes time out elsewhere, never width:
 lif_net's coupling and taus (phases 12, 26 and 48) and batch_run_net's
 coupling (the six networks of phases 26 and 48) are drawn once
@@ -6668,6 +6690,91 @@ def tooling_phases(dev, W_np, etas, build_net, by_name: dict, block_net,
          "launches": lyap_launches}] + entries
 
 
+MESH_STEPS = 1_000  # mesh_path: the bf16 fused network's runs
+MESH_B_STEPS = 500  # the int8 network's runs and the B = 32 run_batch
+MESH_B = 32
+
+
+def mesh_phase(dev, build_net, by_name: dict) -> list:
+    """Phase 49 (see the docstring).  Returns the kernels-line entries."""
+    import torch.distributed as dist
+
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+    from rectipy_tpu_torch.ops.quant import int8_mv
+    from rectipy_tpu_torch.parallel import make_mesh, sharded_step_collectives
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_path_")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            device_id=dev)
+    try:
+        mesh = make_mesh(1)
+        ins_b = (np.random.default_rng(26).normal(size=(MESH_B, MESH_B_STEPS, 1))
+                 + np.linspace(0.0, 2.0, MESH_B)[:, None, None]).astype(np.float32)
+        fused, int8 = build_net("bfloat16", fused=True), build_net("int8", fused=False)
+        runs = (  # name, network, run, kernel, counters equal to the steps, steps, entry
+            ("bf16_run", fused, "run", qif_sfa_step, ("launches",), MESH_STEPS,
+             "qif_sfa_step[bfloat16]", "qif_sfa_step[bfloat16,mesh_path]"),
+            ("int8_run", int8, "run", int8_mv, ("launches",), MESH_B_STEPS, "int8_mv",
+             "int8_mv[mesh_path]"),
+            ("bf16_run_batch_B32", fused, "run_batch", qif_sfa_step,
+             ("launches", "mma_launches"), MESH_B_STEPS, "qif_sfa_step_rows[bfloat16]",
+             "qif_sfa_step_rows[bfloat16,mesh_path]"))
+        entries, lines = [], []
+        for name, net, how, kernel, counters, steps, timing, entry in runs:
+            first, times, launches = None, {"mesh": [], "plain": []}, None
+            for turn in ("mesh", "plain", "plain", "mesh"):
+                kw = {"mesh": mesh} if turn == "mesh" else {}
+                net.reset()
+                for c in counters:
+                    setattr(kernel, c, 0)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if how == "run":
+                    obs = net.run(bench_inputs(steps), record_vars=[("qif", "s", True)],
+                                  sampling_steps=10, verbose=False, **kw)
+                    rec = {"out": obs.to_numpy("out"), "s": obs.to_numpy(("qif", "s"))}
+                else:
+                    res = net.run_batch(ins_b, record_vars=[("qif", "s", True)],
+                                        sampling_steps=10, **kw)
+                    rec = {"out": res["out"], "s": res[("qif", "s")]}
+                torch.cuda.synchronize()
+                times[turn].append(time.perf_counter() - t0)
+                counts = [getattr(kernel, c) for c in counters]
+                if counts != [steps] * len(counters):
+                    raise AssertionError(f"mesh_path {name} ({turn}): {counters} = {counts} "
+                                         f"for {steps} steps")
+                launches = counts[0]
+                first = first or rec  # every run from the same state: the same records
+                for key, val in rec.items():
+                    if not (np.all(np.isfinite(val)) and np.array_equal(val, first[key])):
+                        raise AssertionError(f"mesh_path {name} ({turn}): the {key!r} records "
+                                             f"are not finite or part from the first run's")
+            ms = {t: min(v) / steps * 1e3 for t, v in times.items()}
+            collectives = sharded_step_collectives(net, mesh) if how == "run" else None
+            line = {"phase": "mesh_path", "run": name, "n": N, "steps": steps,
+                    "trials": MESH_B if how == "run_batch" else 1,
+                    "mesh": {"model": 1, "data": 1, "backend": "nccl"},
+                    "kernel": kernel.__name__, "mesh_launches": launches,
+                    "bit_identical_records": True, "records": int(first["s"].size),
+                    "run_s": times, "mesh_ms_per_step": ms["mesh"],
+                    "plain_ms_per_step": ms["plain"], "mesh_over_plain": ms["mesh"] / ms["plain"]}
+            if collectives is not None:
+                line["collectives_per_step"] = collectives
+            emit(line)
+            lines.append(line)
+            entries.append({**by_name[timing], "name": entry, "launches": launches})
+        emit({"phase": "mesh_path", "summary": True, "nvidia_smi": nvidia_smi(),
+              "ms_per_step": {ln["run"]: [ln["mesh_ms_per_step"], ln["plain_ms_per_step"],
+                                          ln["mesh_over_plain"]] for ln in lines},
+              "seconds": time.perf_counter() - t_phase})
+        return entries
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_served(what: str, out_path: str, ref: list, served: dict, launches: dict) -> bool:
     """The served records (saved by the serving process) against the
     references' window means, bit for bit, and the served launch counts."""
@@ -6948,6 +7055,8 @@ def main_phases(dev) -> int:
     torch.cuda.empty_cache()
     kernels += tooling_phases(dev, W_np, etas, build_net, {e["name"]: e for e in kernels},
                               block_net, int4_window)
+    torch.cuda.empty_cache()
+    kernels += mesh_phase(dev, build_net, {e["name"]: e for e in kernels})
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

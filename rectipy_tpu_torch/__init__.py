@@ -22,6 +22,9 @@ specs (``inputs.py``) make a run's drive on the device, and
 Plastic edges (``STDP``, ``BlockSparseSTDP``) learn online in
 ``Network.fit_stdp`` through the fused ``stdp_update`` kernel, and
 ``Network.fit_eprop`` trains a readout by a local delta rule.
+``rectipy_tpu_torch.parallel`` shards populations over a
+``torch.distributed`` device mesh, one process per device (``run(mesh=)``,
+``run_batch(mesh=)``).
 
 The tooling keeps the JAX package's module paths and is not exported at
 the top level: ``rectipy_tpu_torch.serving`` (bundles through
@@ -43,6 +46,7 @@ from .observer import Observer
 from .ops.generic_fused import attach_generic_fused_step
 from .ops.kernels import attach_fused_qif_step
 from .ops.sparse import BlockSparseCoupling, block_random_connectivity
+from . import parallel
 from .utility import (
     circular_connectivity,
     input_connections,
@@ -94,6 +98,7 @@ __all__ = [
     "load_jax_params",
     "lower",
     "normalize",
+    "parallel",
     "random_connectivity",
     "wta_score",
 ]

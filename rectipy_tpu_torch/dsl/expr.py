@@ -283,8 +283,10 @@ def _pow(base, exponent):
 CONSTANTS: Dict[str, float] = {"pi": float(np.pi), "PI": float(np.pi)}
 
 
-def evaluate(ast: Ast, env: Dict[str, torch.Tensor]):
-    """Evaluate an AST against ``env`` (name -> tensor/scalar)."""
+def evaluate(ast: Ast, env: Dict[str, torch.Tensor], fns: Dict[str, Callable] = None):
+    """Evaluate an AST against ``env`` (name -> tensor/scalar).  ``fns``
+    replaces ``FUNCTIONS`` (a population shard's reductions gather the
+    whole population first)."""
     tag = ast[0]
     if tag == "num":
         return ast[1]
@@ -296,14 +298,14 @@ def evaluate(ast: Ast, env: Dict[str, torch.Tensor]):
                 return CONSTANTS[ast[1]]
             raise KeyError(f"Unknown symbol {ast[1]!r}; available: {sorted(env)}")
     if tag == "neg":
-        return -evaluate(ast[1], env)
+        return -evaluate(ast[1], env, fns)
     if tag == "bin":
         op, l, r = ast[1], ast[2], ast[3]
-        lv = evaluate(l, env)
+        lv = evaluate(l, env, fns)
         if op == "^":
-            rv = r[1] if r[0] == "num" else evaluate(r, env)
+            rv = r[1] if r[0] == "num" else evaluate(r, env, fns)
             return _pow(lv, rv)
-        rv = evaluate(r, env)
+        rv = evaluate(r, env, fns)
         if op == "+":
             return lv + rv
         if op == "-":
@@ -316,10 +318,10 @@ def evaluate(ast: Ast, env: Dict[str, torch.Tensor]):
     if tag == "call":
         name, args = ast[1], ast[2]
         try:
-            fn = FUNCTIONS[name]
+            fn = (FUNCTIONS if fns is None else fns)[name]
         except KeyError:
             raise ExprError(f"Unknown function {name!r}; available: {sorted(FUNCTIONS)}")
-        return fn(*[evaluate(a, env) for a in args])
+        return fn(*[evaluate(a, env, fns) for a in args])
     raise ExprError(f"Malformed AST node {ast!r}")
 
 

@@ -51,13 +51,13 @@ coupling's key with that suffix.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .expr import CONSTANTS, evaluate, free_symbols, split_equation
+from .expr import CONSTANTS, FUNCTIONS, evaluate, free_symbols, split_equation
 from .parser import NodeTemplate, OperatorTemplate, TemplateError, _strip_node_prefix
 
 _COUPLINGS = ("None, 'float32', 'float64', 'float16', 'bfloat16', 'bfloat16_master', "
@@ -124,6 +124,9 @@ class VectorField:
     couplings: List[Tuple[str, str, str]] = field(default_factory=list)  # (src, tgt, wkey)
     coupling_cast: Optional[str] = None  # 'bf16' / 'int8' / 'int4' for the master couplings
     prep_args: Optional[Callable] = None  # once-per-run prep of the couplings
+    # localize(rows, r0, gather) -> the field of neurons [r0, r0 + rows) of
+    # each variable (``parallel/``: a population shard)
+    localize: Optional[Callable] = None
 
 
 def _qualify(name: str, ops: List[OperatorTemplate]) -> str:
@@ -583,8 +586,6 @@ def lower(
 
     # initial state, contiguous per-variable blocks
     y0_parts = []
-    var_map: Dict[str, Tuple[int, int]] = {}
-    offset = 0
     for qname in state_order:
         lv = lowered[qname]
         init = overrides.get(qname)
@@ -593,9 +594,24 @@ def lower(
         else:
             block = np.broadcast_to(np.asarray(init, dtype=np.float64), (n,))
         y0_parts.append(block)
-        var_map[qname] = (offset, offset + n)
-        offset += n
     y0 = _tensor(np.concatenate(y0_parts) if y0_parts else np.zeros((0,)))
+
+    def _layout(nn: int) -> Tuple[Dict[str, Tuple[int, int]], Dict[str, Tuple[int, int]]]:
+        """The state blocks of ``nn`` neurons a variable: ``var_map`` and
+        the same with the unambiguous bare names added."""
+        vm = {q: (i * nn, (i + 1) * nn) for i, q in enumerate(state_order)}
+        full = dict(vm)
+        counts: Dict[str, int] = {}
+        for k in vm:
+            bare = k.split("/")[-1]
+            counts[bare] = counts.get(bare, 0) + 1
+        for k in vm:
+            bare = k.split("/")[-1]
+            if counts[bare] == 1 and bare not in full:
+                full[bare] = vm[k]
+        return vm, full
+
+    var_map, vmap_full = _layout(n)
 
     # ------------------------------------------------------- evaluation schedule
     # Topologically order input + algebraic evaluations.  Dependencies:
@@ -637,7 +653,6 @@ def lower(
     for esv, etv, _, wkey in all_edges:
         edge_by_target.setdefault(etv, []).append((esv, wkey))
 
-    state_slices = [(q, var_map[q]) for q in state_order]
     ode_rhs = [(q, lowered[q].rhs_ast, lowered[q].op) for q in state_order]
     alg_items = {q: (lowered[q].rhs_ast, lowered[q].op) for q in schedule if lowered[q].kind == "algebraic"}
 
@@ -649,36 +664,60 @@ def lower(
                 scoped[bare] = v
         return scoped
 
-    def _build_env(y, a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Evaluate all state slices, inputs and algebraic vars."""
-        env: Dict[str, torch.Tensor] = {}
-        for qname, (lo, hi) in state_slices:
-            env[qname] = y[..., lo:hi]
-        for k in keys:
-            env[k] = a[k]
-        for qname in schedule:
-            lv = lowered[qname]
-            if lv.kind == "algebraic":
-                rhs_ast, opname = alg_items[qname]
-                env[qname] = evaluate(rhs_ast, _op_env(env, opname))
-            else:  # input: placeholder + wiring + coupling
-                val = env[qname]
-                if qname in wiring:
-                    val = val + env[wiring[qname]]
-                for esv, wkey in edge_by_target.get(qname, []):
-                    val = val + _coupling_matvec(a[wkey], env[esv], a, wkey)
-                env[qname] = val
-        return env
+    def _field(nn: int, gather: Callable = None, fns: dict = None):
+        """``(func, read_var)`` on states of ``nn`` neurons a variable.
+        ``gather`` (a population shard's) makes the whole population's
+        vector of a shard's rows: each coupling's source is gathered before
+        its product, whose weights hold the shard's rows; ``fns`` are the
+        equations' functions (the shard's reductions)."""
+        vm, vm_full = _layout(nn)
+        state_slices = list(vm.items())
 
-    def func(t, y, a: Dict[str, torch.Tensor]):
-        del t  # autonomous systems only (the Euler call is f(0, y, ...))
-        env = _build_env(y, a)
-        dy_parts = []
-        shape = y.shape[:-1] + (n,)
-        for qname, rhs_ast, opname in ode_rhs:
-            dv = evaluate(rhs_ast, _op_env(env, opname))
-            dy_parts.append(_broadcast(dv, shape, y.dtype, y.device))
-        return torch.cat(dy_parts, dim=-1) if dy_parts else torch.zeros_like(y)
+        def _build_env(y, a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            """Evaluate all state slices, inputs and algebraic vars."""
+            env: Dict[str, torch.Tensor] = {}
+            for qname, (lo, hi) in state_slices:
+                env[qname] = y[..., lo:hi]
+            for k in keys:
+                env[k] = a[k]
+            for qname in schedule:
+                lv = lowered[qname]
+                if lv.kind == "algebraic":
+                    rhs_ast, opname = alg_items[qname]
+                    env[qname] = evaluate(rhs_ast, _op_env(env, opname), fns)
+                else:  # input: placeholder + wiring + coupling
+                    val = env[qname]
+                    if qname in wiring:
+                        val = val + env[wiring[qname]]
+                    for esv, wkey in edge_by_target.get(qname, []):
+                        src = env[esv] if gather is None else gather(env[esv])
+                        val = val + _coupling_matvec(a[wkey], src, a, wkey)
+                    env[qname] = val
+            return env
+
+        def func(t, y, a: Dict[str, torch.Tensor]):
+            del t  # autonomous systems only (the Euler call is f(0, y, ...))
+            env = _build_env(y, a)
+            dy_parts = []
+            shape = y.shape[:-1] + (nn,)
+            for qname, rhs_ast, opname in ode_rhs:
+                dv = evaluate(rhs_ast, _op_env(env, opname), fns)
+                dy_parts.append(_broadcast(dv, shape, y.dtype, y.device))
+            return torch.cat(dy_parts, dim=-1) if dy_parts else torch.zeros_like(y)
+
+        def read_var(qname: str, y, a: Dict[str, torch.Tensor]):
+            """Read the current value of a state, algebraic, or input variable."""
+            if qname in vm_full:
+                lo, hi = vm_full[qname]
+                return y[..., lo:hi]
+            env = _build_env(y, a)
+            if qname not in env:
+                raise KeyError(f"Variable {qname!r} not found in lowered population")
+            return _broadcast(env[qname], y.shape[:-1] + (nn,), y.dtype, y.device)
+
+        return func, read_var
+
+    func, read_var = _field(n)
 
     alg_names = [q for q in schedule if lowered[q].kind == "algebraic"]
 
@@ -779,18 +818,29 @@ def lower(
 
         return reader
 
-    def read_var(qname: str, y, a: Dict[str, torch.Tensor]):
-        """Read the current value of a state, algebraic, or input variable.
+    def localize(rows: int, r0: int, gather: Callable) -> VectorField:
+        """The field of neurons ``[r0, r0 + rows)`` of each variable, whose
+        couplings hold those rows of their weights and gather the whole
+        source (``gather``); the population reductions and ``softmax`` act
+        on the gathered population.  No ``tile_func``: a fused node runs
+        whole (``parallel/``)."""
+        def whole(fn, own_rows: bool = False):
+            def apply(x):
+                if not (isinstance(x, torch.Tensor) and x.dim() and x.shape[-1] == rows):
+                    return fn(x)
+                out = fn(gather(x))
+                return out[..., r0:r0 + rows] if own_rows else out
 
-        ``vmap_full`` (below) binds late, so bare state-variable aliases work.
-        """
-        if qname in vmap_full:
-            lo, hi = vmap_full[qname]
-            return y[..., lo:hi]
-        env = _build_env(y, a)
-        if qname not in env:
-            raise KeyError(f"Variable {qname!r} not found in lowered population")
-        return _broadcast(env[qname], y.shape[:-1] + (n,), y.dtype, y.device)
+            return apply
+
+        fns = dict(FUNCTIONS)
+        for name in ("mean", "sum", "min", "max"):
+            fns[name] = whole(FUNCTIONS[name])
+        fns["softmax"] = whole(FUNCTIONS["softmax"], own_rows=True)
+        f, rv = _field(rows, gather, fns)
+        y0_rows = y0.reshape(len(state_order), n)[:, r0:r0 + rows].reshape(-1)
+        return replace(vf, n=rows, func=f, read_var=rv, var_map=_layout(rows)[1], y0=y0_rows,
+                       tile_func=None, make_tile_reader=None, localize=None)
 
     # user-facing name maps: qualified plus unambiguous bare names
     param_map: Dict[str, str] = {}
@@ -804,17 +854,8 @@ def lower(
         bare = k.split("/")[-1]
         if bare_counts[bare] == 1 and bare not in param_map:
             param_map[bare] = k
-    vmap_full = dict(var_map)
-    bare_counts = {}
-    for k in var_map:
-        bare = k.split("/")[-1]
-        bare_counts[bare] = bare_counts.get(bare, 0) + 1
-    for k in list(var_map):
-        bare = k.split("/")[-1]
-        if bare_counts[bare] == 1 and bare not in vmap_full:
-            vmap_full[bare] = var_map[k]
 
-    return VectorField(
+    vf = VectorField(
         n=n,
         dtype=dtype,
         device=device,
@@ -845,4 +886,6 @@ def lower(
         couplings=[(esv, etv, wkey) for esv, etv, _, wkey in all_edges],
         coupling_cast=cast,
         prep_args=prep_args,
+        localize=localize,
     )
+    return vf

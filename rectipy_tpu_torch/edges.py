@@ -48,6 +48,7 @@ on the card for dense and block weights.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Callable, Dict, Iterator, Optional
 
@@ -101,6 +102,10 @@ class Linear:
     """
 
     _tensors = ["weights"]
+    # the parameters that hold one row per target neuron: a population
+    # shard of the target takes its rows of them (``parallel/``); None: the
+    # edge cannot feed a shard
+    _row_params = ("weights",)
 
     def __init__(self, n_in: int, n_out: int, weights=None, dtype=None,
                  detach: bool = True, rng: Optional[np.random.Generator] = None,
@@ -180,6 +185,32 @@ class Linear:
 
         return step
 
+    def _row_keys(self) -> tuple:
+        """The parameters a shard of the target takes its rows of: none for
+        diagonal weights, whose shard slices the step's output."""
+        return () if self.params["weights"].ndim == 1 else self._row_params
+
+    def _shard(self, r0: int, r1: int) -> "Linear":
+        """The edge onto target neurons ``[r0, r1)`` (``parallel/``): it
+        takes the whole source, keeps its state (which belongs to the
+        source side) whole, and its step gives those rows; the row
+        parameters come with the run's placed tree."""
+        if self._row_params is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} cannot feed a population shard under mesh= yet "
+                f"(ROADMAP Queue 1 item 14, J2).")
+        loc = copy.copy(self)
+        loc.n_out = r1 - r0
+        if self.params["weights"].ndim == 1:
+            whole = self.make_step()
+
+            def step(state, params, x):
+                state, y = whole(state, params, x)
+                return state, y[..., r0:r1]
+
+            loc.make_step = lambda: step
+        return loc
+
     def _eager(self, state, x):
         """One eager step of ``forward``: ``(state', y)``."""
         return self.make_step()(state, self.params, _as_tensor(x, self.dtype, self.device))
@@ -209,6 +240,7 @@ class LinearMasked(Linear):
     mask, which follows the weights' transpose rule."""
 
     _tensors = ["weights", "mask"]
+    _row_params = ("weights", "mask")
 
     def __init__(self, n_in: int, n_out: int, mask, weights=None, dtype=None,
                  detach: bool = True, **kwargs):
@@ -495,6 +527,7 @@ class LinearMemoryMatrix(_Stateful):
     """
 
     _tensors = ["weights", "buffer", "delays"]
+    _row_params = ("weights", "delays")
 
     def __init__(self, n_in: int, n_out: int, delays, weights=None, dtype=None,
                  detach: bool = True, mode: str = "auto", train_delays: bool = False,
@@ -590,6 +623,14 @@ class LinearMemoryMatrix(_Stateful):
         self._D1 = D1
         self.selector_builds = 0
         self._state = torch.zeros((n_in, buf_width), dtype=self.dtype, device=self.device)
+
+    def _shard(self, r0: int, r1: int) -> "LinearMemoryMatrix":
+        """The edge onto target neurons ``[r0, r1)``: its delays' rows, so
+        that the selectors are built per shard from them."""
+        loc = super()._shard(r0, r1)
+        loc.delays = self.delays[r0:r1]
+        loc._dT = self._dT[:, r0:r1]
+        return loc
 
     @property
     def _sel_dtype(self) -> torch.dtype:
@@ -824,6 +865,17 @@ class BlockSparseLinear(Linear):
         if self.delays is not None:
             self._state = state
 
+    def _shard(self, r0: int, r1: int) -> "BlockSparseLinear":
+        """The edge onto target neurons ``[r0, r1)``: those block rows of
+        its blocks (in the placed tree), of ``cols`` and of the delays."""
+        loc = super()._shard(r0, r1)
+        b0, b1 = r0 // self.bs, r1 // self.bs
+        loc.cols = self.cols[b0:b1]
+        if self.delays is not None:
+            loc.delays = self.delays[b0:b1]
+        loc._rows = {}
+        return loc
+
     def prep_params(self, sub: Dict) -> Dict:
         """The once-per-run block-stream cast (``block_dtype``), or the
         ``int8_master`` quantization of a frozen edge; a trainable
@@ -916,6 +968,8 @@ class RLS(Linear):
     References: Principe et al. (2011), Kernel Adaptive Filtering.
     """
 
+    _row_params = None  # online readout learning under mesh= waits for J2
+
     _tensors = ["weights", "P"]
 
     def __init__(self, n_in: int, n_out: int, weights=None, dtype=torch.float64,
@@ -998,6 +1052,7 @@ class _PairRule:
     Python floats to the array's type."""
 
     _cols: Optional[torch.Tensor] = None  # the block-column table of a block edge
+    _row_params = None  # plasticity under mesh= waits for J2
 
     def _init_rule(self, tau_plus, tau_minus, a_plus, a_minus, w_min, w_max, soft_bounds):
         self.tau_plus = float(tau_plus)

@@ -38,7 +38,9 @@ On the device: the inputs move to the device once, the records and losses
 stay on the device, and nothing inside the loops synchronises with the host;
 they cross to the host once, at the end.
 
-Not ported yet (ROADMAP Queue 1 item 14): ``mesh=``.
+Multi-device runs: ``run(mesh=)`` and ``run_batch(mesh=)`` shard the
+populations over a ``torch.distributed`` device mesh (``parallel/``); the
+trainers' ``mesh=`` is not ported yet (ROADMAP Queue 1 item 14, J2).
 """
 
 from __future__ import annotations
@@ -142,6 +144,12 @@ def _read_vars(rec_info: list, state: dict, params: dict) -> list:
         val = reader(state["nodes"][label], params["nodes"][label])
         vals.append(val.mean() if reduce else val)
     return vals
+
+
+def _unreduced(rec_info: list) -> list:
+    """``rec_info`` recording every variable per neuron: a population
+    shard's ``reduce`` records are averaged after the gather."""
+    return [(key, label, reader, False) for key, label, reader, _ in rec_info]
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -734,11 +742,22 @@ class Network:
         if key in self._step_cache:
             return self._step_cache[key]
 
-        node_steps = {n: self.get_node(n).make_step() for n in order}
+        step = self._compose_step(taps, self.get_node, self.get_edge, self._fb_edge_list())
+        self._step_cache[key] = step
+        return step
+
+    def _compose_step(self, taps: Tuple[str, ...], node_of: Callable, edge_of: Callable,
+                      fb_edges: list, source: Callable = None) -> Callable:
+        """The network step composed from the steps of ``node_of(label)``,
+        ``edge_of(u, v)`` and the feedback edges ``[(u, v, edge)]``.
+        ``source(u, v, out, cache)`` (a population shard's, ``parallel/``)
+        gives what edge ``u -> v`` takes of its source's output; ``cache`` is
+        fresh each step (and separate for the carried feedback outputs)."""
+        order = self._compiled["order"]
+        node_steps = {n: node_of(n).make_step() for n in order}
         preds = {n: sorted(self.graph.predecessors(n)) for n in order}
-        edge_steps = {(u, n): self.get_edge(u, n).make_step() for n in order for u in preds[n]}
+        edge_steps = {(u, n): edge_of(u, n).make_step() for n in order for u in preds[n]}
         out_node = self._out_node
-        fb_edges = self._fb_edge_list()
         fb_steps = {(u, v): e.make_step() for u, v, e in fb_edges}
         fb_by_target: Dict[str, list] = {}
         for u, v, _ in fb_edges:
@@ -747,7 +766,7 @@ class Network:
         # a feedback edge carries its source's out-slice after the update (the
         # next step's pre-update output, RectiPy's semantics); an instant
         # source passes this step's output
-        fb_readers = {u: getattr(self.get_node(u), "_make_out_reader", lambda: None)()
+        fb_readers = {u: getattr(node_of(u), "_make_out_reader", lambda: None)()
                       for u in fb_sources}
 
         def step(state, params, x):
@@ -755,19 +774,22 @@ class Network:
             edges_st = dict(state["edges"])
             fb_prev = state.get("fb", {})
             outs = {}
+            cache, fb_cache = {}, {}
             for n in order:
                 if preds[n]:
                     inp = None
                     for u in preds[n]:
                         k = _ekey(u, n)
-                        es, val = edge_steps[(u, n)](edges_st[k], params["edges"][k], outs[u])
+                        src = outs[u] if source is None else source(u, n, outs[u], cache)
+                        es, val = edge_steps[(u, n)](edges_st[k], params["edges"][k], src)
                         edges_st[k] = es
                         inp = val if inp is None else inp + val  # fan-in sum
                 else:
                     inp = x
                 for u in fb_by_target.get(n, ()):
                     k = _ekey(u, n)
-                    es, val = fb_steps[(u, n)](edges_st[k], params["edges"][k], fb_prev[u])
+                    src = fb_prev[u] if source is None else source(u, n, fb_prev[u], fb_cache)
+                    es, val = fb_steps[(u, n)](edges_st[k], params["edges"][k], src)
                     edges_st[k] = es
                     inp = inp + val
                 ns, out = node_steps[n](nodes_st[n], params["nodes"][n], inp)
@@ -780,7 +802,6 @@ class Network:
                     else fb_readers[u](nodes_st[u], params["nodes"][u]) for u in fb_sources}
             return new_state, outs[out_node], {t: outs[t] for t in taps}
 
-        self._step_cache[key] = step
         return step
 
     def init_state(self) -> dict:
@@ -929,7 +950,7 @@ class Network:
                 params[kind].setdefault(label, {}).update(sub)
         return params
 
-    def _prep_params(self, params: dict) -> dict:
+    def _prep_params(self, params: dict, shard=None) -> dict:
         """Once-per-run parameter prep of each node (the quantization of a
         master coupling, the packing of a frozen int4 one, ``nodes.py``
         ``prep_params``) and each edge (the delay matrix's selectors,
@@ -939,26 +960,53 @@ class Network:
         the trajectories prep their nodes inside, and plain autograd needs
         the per-step STE matvec."""
         nodes, changed = {}, False
+        get_node = self.get_node if shard is None else shard.node
         for n, sub in params["nodes"].items():
-            prep = getattr(self.get_node(n), "prep_params", None)
+            prep = getattr(get_node(n), "prep_params", None)
             nodes[n] = prep(sub) if prep is not None else sub
             changed = changed or nodes[n] is not sub
-        params = self._prep_edge_params(params)
+        params = self._prep_edge_params(params, shard)
         return {**params, "nodes": nodes} if changed else params
 
-    def _prep_edge_params(self, params: dict) -> dict:
+    def _prep_edge_params(self, params: dict, shard=None) -> dict:
         """The edges' prep alone, safe inside a differentiated loss: the
         selectors of an ``interp`` delay matrix derive from its trainable
         delays, so the prep must run inside the autograd graph for the
         delays to get their gradient; once per epoch, chunk or minibatch,
         never per step.  A swept ``delays`` (``(B, n_out, n_in)``) is
-        prepped per trial."""
+        prepped per trial.  ``shard`` (``parallel/``): a population
+        shard's edges, whose selectors are built from their own rows."""
         edges, changed = {}, False
+        get_edge = self.get_edge if shard is None else shard.edge
         for k, sub in params["edges"].items():
-            prep = getattr(self.get_edge(*k.split("->")), "prep_params", None)
+            prep = getattr(get_edge(*k.split("->")), "prep_params", None)
             edges[k] = prep(sub) if prep is not None else sub
             changed = changed or edges[k] is not sub
         return {**params, "edges": edges} if changed else params
+
+    def _mesh_shard(self, mesh):
+        """The network as this rank runs it on ``mesh`` (a
+        ``torch.distributed`` ``DeviceMesh``): ``parallel.sharding.
+        NetworkShard``."""
+        from .parallel.sharding import NetworkShard
+
+        return NetworkShard(self, mesh)
+
+    def _mesh_place(self, tree: dict, mesh, model_axis: str = "model") -> dict:
+        """This rank's part of a state/params tree on ``mesh``: node leaves
+        sharded on the node's own size (each variable's rows of its flat
+        state), the row parameters of an edge by its target's rows, the
+        carried feedback outputs by their source's rows; an edge's state
+        (source side), and every leaf of a node that runs whole, whole."""
+        from .parallel.sharding import NetworkShard
+
+        return NetworkShard(self, mesh, model_axis).place(tree)
+
+    @staticmethod
+    def _mesh_replicate(x, mesh):
+        """``x`` as every rank holds it: the same tensor (SPMD)."""
+        del mesh
+        return x
 
     def _write_back(self, state: dict = None, params: dict = None):
         """Push a state after a run, or trained parameters, back into the
@@ -998,11 +1046,13 @@ class Network:
         self._write_back(state=state)
         return out
 
-    def _resolve_record_vars(self, obs: Observer) -> list:
-        """[(record key, node label, reader fn, reduce flag)] for recording."""
+    def _resolve_record_vars(self, obs: Observer, shard=None) -> list:
+        """[(record key, node label, reader fn, reduce flag)] for recording;
+        ``shard`` (``parallel/``): read from the shard's local nodes."""
         resolved = []
+        get_node = self.get_node if shard is None else shard.node
         for (node_label, var), reduce in zip(obs.recorded_state_variables, obs.reduce_flags):
-            node = self.get_node(node_label)
+            node = get_node(node_label)
             var_r = self._relabel_var(var)
             spec = node._var_map.get(var_r)
             if spec is None:
@@ -1023,13 +1073,14 @@ class Network:
             resolved.append(((node_label, var), node_label, reader, reduce))
         return resolved
 
-    def _resolve_record_spikes(self, labels) -> tuple:
+    def _resolve_record_spikes(self, labels, shard=None) -> tuple:
         """``record_spikes=[node, ...]`` as ``((label, reader), ...)``: the
         spiking nodes' spike readers (``SpikeNet``, ``SpikeResetNet``,
         ``MultiSpikeResetNet``); any other node raises ``ValueError``."""
         info = []
+        get_node = self.get_node if shard is None else shard.node
         for label in labels or ():
-            node = self.get_node(label)
+            node = get_node(label)
             if not hasattr(node, "_make_spike_reader"):
                 raise ValueError(
                     f"record_spikes: node {label!r} ({type(node).__name__}) is not "
@@ -1041,6 +1092,13 @@ class Network:
     def run(self, inputs, sampling_steps: int = 1, cutoff: int = 0, verbose: bool = True,
             enable_grad: bool = True, **kwargs) -> Observer:
         """Integrate the input-driven network equations.
+
+        ``mesh=`` (a ``torch.distributed`` ``DeviceMesh``,
+        ``parallel.make_mesh``): every rank of the mesh calls ``run`` with the
+        same inputs; the populations shard over the mesh's ``model`` axis
+        (``parallel/``: each rank steps its rows after a gather of each
+        coupling's source).  The records, identical on every rank, and the
+        state written back are those of the run without a mesh.
 
         Recording semantics are those of the JAX package's ``run``: step 0
         is a record of its own; then come full windows of ``sampling_steps``
@@ -1067,9 +1125,8 @@ class Network:
         in the JAX package.
         """
         del enable_grad
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("run(mesh=)", "14")
-        spike_info = self._resolve_record_spikes(kwargs.pop("record_spikes", None))
+        mesh = kwargs.pop("mesh", None)
+        spike_labels = kwargs.pop("record_spikes", None)
         if isinstance(inputs, InputSpec):
             if inputs.batch is not None:
                 raise ValueError(
@@ -1102,10 +1159,20 @@ class Network:
         s = int(sampling_steps)
         if s < 1:
             raise ValueError(f"sampling_steps must be >= 1; got {sampling_steps}")
-        rec_info = self._resolve_record_vars(obs)
+        shard = None if mesh is None else self._mesh_shard(mesh)
+        spike_info = self._resolve_record_spikes(spike_labels, shard)
+        rec_info = self._resolve_record_vars(obs, shard)
         with torch.no_grad():
-            state, rec0, recs = self._run_windowed(*self.step_args(), xs, s, cutoff, rec_info,
-                                                   obs.record_output, spike_info=spike_info)
+            if shard is None:
+                state, rec0, recs = self._run_windowed(
+                    *self.step_args(), xs, s, cutoff, rec_info, obs.record_output,
+                    spike_info=spike_info)
+            else:
+                state, rec0, recs = self._run_windowed(
+                    *shard.step_args(), shard.inputs(xs), s, cutoff, _unreduced(rec_info),
+                    obs.record_output, spike_info=spike_info)
+                state = shard.gather_state(state)
+                rec0, recs = shard.records(rec0, recs, rec_info, spike_info, obs.record_output)
         self._write_back(state)
 
         rec_steps_all = [t for t in range(steps) if t % s == 0]
@@ -1349,10 +1416,15 @@ class Network:
         (``int8``, ``int8_master``, ``int4``, ``int4_master``) launches its
         matvec (``int8_mv``, ``int4_mv``) once per trial per step.
 
-        Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 14).  A fused node
-        refuses a sweep of a parameter its kernel bakes in or shares (the
-        JAX package's fused QIF kernel ignores a swept eta, which the port
-        applies).
+        ``mesh=``: the trials shard over the mesh's ``data`` axis where it
+        divides ``B`` (else they run replicated, with a warning), the
+        populations over ``model`` as in :meth:`run`; swept leaves go with
+        their trials (and rows), a shared drive and the shared parameters are
+        whole on every rank, and every rank returns the whole records.
+
+        A fused node refuses a sweep of a parameter its kernel bakes in or
+        shares (the JAX package's fused QIF kernel ignores a swept eta,
+        which the port applies).
         """
         results = self._run_batch(inputs, sampling_steps, cutoff, verbose, kwargs)
         return {k: v if k == "steps" else _host(v) for k, v in results.items()}
@@ -1360,10 +1432,9 @@ class Network:
     def _run_batch(self, inputs, sampling_steps: int, cutoff: int, verbose: bool,
                    kwargs: dict) -> dict:
         """:meth:`run_batch` with its records left on the device."""
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("run_batch(mesh=)", "14")
+        mesh = kwargs.pop("mesh", None)
         batch_vars = kwargs.pop("batch_vars", None)
-        spike_info = self._resolve_record_spikes(kwargs.pop("record_spikes", None))
+        spike_labels = kwargs.pop("record_spikes", None)
         if isinstance(inputs, InputSpec):
             T, B = int(inputs.steps), inputs.batch
             if B is None:
@@ -1396,15 +1467,24 @@ class Network:
         if s < 1:
             raise ValueError(f"sampling_steps must be >= 1; got {sampling_steps}")
         obs = Observer(dt=self.dt, record_loss=kwargs.pop("record_loss", False), **kwargs)
-        rec_info = self._resolve_record_vars(obs)
+        shard = None if mesh is None else self._mesh_shard(mesh)
+        spike_info = self._resolve_record_spikes(spike_labels, shard)
+        rec_info = self._resolve_record_vars(obs, shard)
         rec_steps_all = [t for t in range(T) if t % s == 0]
         results = {"steps": np.asarray([t for t in rec_steps_all if t >= cutoff],
                                        dtype=np.int64)}
         with torch.no_grad():
-            args = self.step_args(B, batch_vars)
-            _, rec0, recs = self._run_windowed(*args, xs, s, cutoff, rec_info,
-                                               obs.record_output, batched=True,
-                                               spike_info=spike_info)
+            if shard is None:
+                _, rec0, recs = self._run_windowed(*self.step_args(B, batch_vars), xs, s,
+                                                   cutoff, rec_info, obs.record_output,
+                                                   batched=True, spike_info=spike_info)
+            else:
+                _, rec0, recs = self._run_windowed(
+                    *shard.step_args(B, batch_vars), shard.inputs(xs, B), s, cutoff,
+                    _unreduced(rec_info), obs.record_output, batched=True,
+                    spike_info=spike_info)
+                rec0, recs = shard.records(rec0, recs, rec_info, spike_info,
+                                           obs.record_output, B)
         outs, rec_vars = self._assemble_windowed_records(
             rec0, recs, rec_info, obs.record_output, rec_steps_all, cutoff, axis=1,
             spike_info=spike_info)

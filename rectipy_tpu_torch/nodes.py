@@ -33,6 +33,7 @@ raises when no CUDA device is present; the CPU must be asked for with
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
@@ -164,6 +165,16 @@ class InstantNode:
     def train_keys(self) -> list:
         return []
 
+    def _shard(self, r0: int, r1: int, gather: Callable) -> "InstantNode":
+        """The node on neurons ``[r0, r1)`` (``parallel/``); an elementwise
+        activation only: the softmax family acts on the whole vector."""
+        del gather
+        if self.func_name not in ("tanh", "sigmoid", "identity"):
+            return None
+        loc = copy.copy(self)
+        loc.n_in = loc.n_out = r1 - r0
+        return loc
+
     def make_step(self) -> Callable:
         f = self.func
         if self.func_name in ("softmax", "softmin", "log_softmax"):
@@ -189,6 +200,8 @@ class RateNet:
     """
 
     state_vars = ["y"]
+    # the state offsets a population shard maps to its own layout
+    _state_offsets = ("_start", "_stop")
 
     def __init__(
         self,
@@ -491,6 +504,35 @@ class RateNet:
 
         return reader
 
+    def _shard(self, r0: int, r1: int, gather: Callable) -> Optional["RateNet"]:
+        """The node on neurons ``[r0, r1)`` of its population
+        (``parallel/``): the lowered field's shard (``VectorField.localize``:
+        the couplings hold those rows and gather their sources), the state
+        offsets in the shard's layout (each variable's rows, a block of
+        ``r1 - r0``), ``y`` those rows.  The parameters come with the run's
+        placed tree.  ``None`` for a node that cannot be cut: a hand-written
+        field, or a fused kernel (which runs whole)."""
+        vf = self._vf
+        if vf is None or vf.localize is None or getattr(self, "_fused_attached", False):
+            return None
+        n, rows = vf.n, r1 - r0
+
+        def at(i: int) -> int:  # a block boundary of the whole layout
+            return i // n * rows
+
+        loc = copy.copy(self)
+        loc._vf = vf.localize(rows, r0, gather)
+        loc.func = loc._vf.func
+        loc._var_map = {k: (at(v[0]), at(v[1])) if isinstance(v, tuple) else v
+                        for k, v in self._var_map.items()}
+        for name in self._state_offsets:
+            setattr(loc, name, at(getattr(self, name)))
+        loc.n_out = loc._stop - loc._start
+        loc.n_in = rows if self.n_in == n else self.n_in
+        loc.y = self.y.reshape(-1, n)[:, r0:r1].reshape(-1)
+        loc._step_fn = None
+        return loc
+
     # -- object API ------------------------------------------------------------
     def init_state(self):
         return self.y
@@ -574,6 +616,8 @@ class SpikeNet(RateNet):
     ``-2*reset*v`` in ``qif_reset_op``).  The spike condition is read from
     the state variable ``spike_def`` (default ``v``)."""
 
+    _state_offsets = RateNet._state_offsets + ("_spike_lo", "_spike_hi")
+
     def __init__(self, rnn_func, rnn_args, var_map, param_map, spike_threshold: float = 1e2,
                  spike_reset: float = -1e2, **kwargs):
         spike_center = float(kwargs.pop("spike_center", 1.0))
@@ -636,6 +680,8 @@ class SpikeResetNet(RateNet):
     """Spiking node with a framework-managed hard reset of the reset-variable
     slice after each threshold crossing.  Gradients flow through the
     surrogate spike only; the reset mask is detached."""
+
+    _state_offsets = RateNet._state_offsets + ("_reset_lo", "_reset_hi")
 
     def __init__(self, rnn_func, rnn_args, var_map, param_map, spike_threshold: float = 1e2,
                  spike_reset: float = -1e2, **kwargs):
@@ -733,6 +779,13 @@ class MultiSpikeResetNet(RateNet):
                                                            train_params=train_params, **kwargs)
 
     from_template = from_pyrates
+
+    def _shard(self, r0: int, r1: int, gather: Callable) -> Optional["MultiSpikeResetNet"]:
+        loc = super()._shard(r0, r1, gather)
+        if loc is not None:
+            n, rows = self._vf.n, r1 - r0
+            loc._segments = [(lo // n * rows, hi // n * rows) for lo, hi in self._segments]
+        return loc
 
     def make_step(self) -> Callable:
         func, dt, inp_key = self.func, self.dt, self._inp_key

@@ -2464,3 +2464,41 @@ def test_bf16_checkpoint_restores_bit_for_bit_on_card(cuda, tmp_path):
     ra = net.run(np.full((100, 1), 3.0), verbose=False).to_numpy("out")
     rb = net2.run(np.full((100, 1), 3.0), verbose=False).to_numpy("out")
     np.testing.assert_array_equal(rb, ra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bf16_fused", "int8", "bf16_fused_run_batch"])
+def test_one_rank_nccl_mesh_run_equals_run(cuda, tmp_path, case):
+    # run(mesh=) / run_batch(mesh=) on a one-rank NCCL mesh (model 1, the
+    # only mesh one card forms) equal the runs without a mesh bit for bit,
+    # through the same kernels, one launch a step
+    import torch.distributed as dist
+
+    from rectipy_tpu_torch.parallel import make_mesh
+
+    net = (_spiking_qif(cuda, 512, coupling="int8", fused=False) if case == "int8"
+           else _served_qif(cuda))
+    kernel = int8_mv if case == "int8" else qif_sfa_step
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1), device_id=cuda)
+    try:
+        mesh = make_mesh(1)
+        recs = []
+        for kw in ({"mesh": mesh}, {}):
+            net.reset()
+            kernel.launches = 0
+            rv = dict(sampling_steps=10, record_vars=[("qif", "v", False)])
+            if case == "bf16_fused_run_batch":
+                ins = np.random.default_rng(3).normal(size=(8, 200, 1)) + 3.0
+                res = net.run_batch(ins, **rv, **kw)
+                recs.append((res["out"], res[("qif", "v")]))
+            else:
+                obs = net.run(np.full((200, 1), 3.0), verbose=False, **rv, **kw)
+                recs.append((obs.to_numpy("out"), obs.to_numpy(("qif", "v"))))
+            torch.cuda.synchronize()
+            assert kernel.launches == 200
+        for a, b in zip(*recs):
+            np.testing.assert_array_equal(a, b)
+        assert np.abs(recs[1][1]).max() > 0
+    finally:
+        dist.destroy_process_group()

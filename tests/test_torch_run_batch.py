@@ -351,10 +351,11 @@ def test_run_batch_validation():
 
 @pytest.mark.parametrize("case", ["record_spikes", "mesh", "input_spec"])
 def test_unported_run_batch_features_raise(case):
-    # mesh= is not ported; record_spikes and input specs are
-    # (tests/test_torch_record_spikes.py, tests/test_torch_inputs.py) and
-    # refuse what the JAX package refuses: a rate node's spikes, and an
-    # unbatched spec without batch_vars to give the trials
+    # mesh=, record_spikes and input specs are ported
+    # (tests/test_torch_parallel*.py, tests/test_torch_record_spikes.py,
+    # tests/test_torch_inputs.py) and refuse what they cannot take: a mesh
+    # that is no DeviceMesh, a rate node's spikes, and an unbatched spec
+    # without batch_vars to give the trials
     from rectipy_tpu_torch.inputs import Pulse
 
     rng = np.random.default_rng(13)
@@ -362,7 +363,7 @@ def test_unported_run_batch_features_raise(case):
     ins = rng.normal(size=(2, 5, 1))
     net = _rate(Network, rng.normal(size=(n, n)) * 0.2)
     if case == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             net.run_batch(ins, mesh=object())
         return
     jnet = _rate(JNetwork, rng.normal(size=(n, n)) * 0.2)
