@@ -670,6 +670,46 @@ The kernels line adds qif_sfa_step[bfloat16,mesh_path] (phase 6's timing),
 int8_mv[mesh_path] (phase 10's) and qif_sfa_step_rows[bfloat16,mesh_path]
 (phase 28's B = 32 timing), each with one mesh run's launches.
 
+Phase 50 (after phase 49; the seven trainers' mesh=, on the same kind of
+one-rank NCCL process group; no new kernel):
+
+50. mesh_train_path: init_process_group("nccl", rank 0, world size 1, a
+   FileStore, device_id the card) and make_mesh(1), on which each trainer
+   reduces to its fit without a mesh.  Each fit runs on the mesh and
+   without it, in turns (mesh, plain, plain, mesh), each from a freshly
+   built network (N = 10,000, cut in depth only): (a) phase 8's north-star
+   int8_master fit_bptt, T_TRAIN steps, MT_EPOCHS = 2 epochs (phase 8: 4),
+   RECTIPY_FUSED_ADAM=off in both arms, then one mesh fit under =on, which
+   must equal the off fit bit for bit with no adam_requant launch (a mesh
+   fit takes the split optimizer); (b) phase 27's ensemble fit_bptt_batch,
+   B_TRAIN = 32 trials cut to their first MT_T = 100 steps (phase 27: 500),
+   1 epoch; (c) fit_bptt_multistart on the same trials, MT_STARTS = 2
+   starts (phase 41: 4; start_inits the master and a perturbation of it
+   made once on the card, where phase 41 draws the starts with numpy),
+   1 epoch; (d) es_path's fit_es (phase 40), ES_B =
+   16 candidates, MT_ES_GENERATIONS = 2 generations of MT_ES_T = 500 steps
+   (phase 40: 8 of 2,000), the teacher's spike counts made once; (e) the
+   FORCE cell's fit_rls and fit_eprop (phases 20 and 44), MT_FORCE_T =
+   1,000 steps each (STEPS); (f) phase 42's dense float32 soft-bound
+   fit_stdp, MT_STDP_T = 1,000 steps (STDP_T).  One untimed warm fit
+   without the mesh comes before each fit's turns.  Per fit: the losses,
+   trained weights and records equal bit for bit across the four turns,
+   the launch counters equal in every turn (int8_mv and int8_mv_t for (a);
+   int8_mm and int8_mm_t for (b) and (c), every launch on "mma"; the B-row
+   qif_sfa_step of (d), every launch on "mma"; qif_sfa_step for (e);
+   stdp_update for (f), every launch on "tile"), no collective in any
+   fit, sharded_step_collectives 0 of each; the ms/epoch or ms/step of the
+   fit alone (the network's build untimed) with and without the mesh (best
+   of 2) and their ratio.  The group is
+   destroyed at the end of the phase; a failure to form it fails the phase.
+The kernels line adds int8_mv[mesh_train_path,fit_bptt] and
+int8_mv_t[...] (phase 10's timings), int8_mm and int8_mm_t
+[mesh_train_path,fit_bptt_batch] and [...,fit_bptt_multistart] (phase
+28's B = 32 timings), qif_sfa_step.mma[mesh_train_path,fit_es] (phase
+40's), qif_sfa_step[bfloat16,mesh_train_path,fit_rls] and [...,fit_eprop]
+(phase 6's) and stdp_update[float32,mesh_train_path,fit_stdp] (phase
+42's), each with one mesh fit's launches.
+
 With phase 48 the script takes time out elsewhere, never width:
 lif_net's coupling and taus (phases 12, 26 and 48) and batch_run_net's
 coupling (the six networks of phases 26 and 48) are drawn once
@@ -6775,6 +6815,269 @@ def mesh_phase(dev, build_net, by_name: dict) -> list:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+MT_EPOCHS = 2  # mesh_train_path (a): phase 8's north-star fit, T_TRAIN steps an epoch
+MT_T = 100  # (b) and (c): phase 27's B_TRAIN trials cut to their first MT_T steps
+MT_STARTS = 2  # (c)
+MT_ES_T, MT_ES_GENERATIONS = 500, 2  # (d): es_path's ES_B candidates
+MT_FORCE_T = 1_000  # (e): the FORCE cell's fit_rls and fit_eprop
+MT_STDP_T = 1_000  # (f): phase 42's dense f32 soft-bound fit
+
+
+def _mt_same(name: str, turn: str, rec: dict, first: dict) -> None:
+    """Every record of a turn equal to the first turn's, bit for bit, and
+    finite (device tensors compared on the device)."""
+    for key, val in rec.items():
+        ref = first[key]
+        if isinstance(val, torch.Tensor):
+            same, finite = torch.equal(val, ref), bool(torch.isfinite(val.float()).all())
+        else:
+            val, ref = np.asarray(val), np.asarray(ref)
+            same = val.shape == ref.shape and np.array_equal(val, ref)
+            finite = bool(np.all(np.isfinite(val.astype(np.float64))))
+        if not (same and finite):
+            raise AssertionError(f"mesh_train_path {name} ({turn}): the {key!r} records are "
+                                 f"not finite or part from the first fit's")
+
+
+def mesh_train_phase(dev, build_net, data, trials, W_np, etas, by_name: dict) -> list:
+    """Phase 50 (see the docstring).  Returns the kernels-line entries."""
+    import torch.distributed as dist
+
+    from rectipy_tpu_torch.edges import RLS
+    from rectipy_tpu_torch.ops.fused_opt import adam_requant
+    from rectipy_tpu_torch.ops.kernels import qif_sfa_step
+    from rectipy_tpu_torch.ops.quant import int8_mm, int8_mm_t, int8_mv, int8_mv_t
+    from rectipy_tpu_torch.ops.stdp import stdp_update
+    from rectipy_tpu_torch.parallel import comm, make_mesh, sharded_step_collectives
+
+    t_phase = time.perf_counter()
+    W_t, etas_t, inp_t, tgt_t = data
+    inp_d, tgt_d = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (inp_t, tgt_t))
+    ins_b, tgts_b = (torch.as_tensor(a[:, :MT_T], device=dev) for a in trials)
+    es_drive = spike_drive(MT_ES_T, ES_DRIVE)
+    force_in = bench_inputs(MT_FORCE_T)
+    force_tgt = np.sin(2 * np.pi * 2.0 * DT * np.arange(MT_FORCE_T))[:, None]
+    w_stdp = stdp_weights(STDP_N)
+
+    def es_targets():
+        net = spike_net(W_np, etas)
+        rec = net.run_batch(es_drive, sampling_steps=SPIKE_WINDOW, record_output=False,
+                            record_spikes=["qif"],
+                            batch_vars={("qif", "eta"): (etas + ES_SHIFT)[None]})
+        return rec[("qif", "spikes")][0].astype(np.float32)
+
+    es_tgt = es_targets()
+
+    # each fit: build(mesh) makes the fresh network (untimed) and returns it
+    # with the fit, which returns the records
+    def fit_bptt(mesh):
+        net = build_train_net(W_t, etas_t)
+
+        def run():
+            obs = net.fit_bptt([inp_d] * MT_EPOCHS, [tgt_d] * MT_EPOCHS, optimizer="adam",
+                               lr=LR, verbose=False, mesh=mesh)
+            return {"loss": np.asarray(obs["epoch_loss"]), "W": net.get_node("qif")["weights"],
+                    "trajectory": net.last_fit["trajectory"] == "chain"
+                    and not net.last_fit["fused_adam"]}
+        return net, run
+
+    def fit_bptt_batch(mesh):
+        net = build_train_net(W_t, etas_t)
+
+        def run():
+            obs = net.fit_bptt_batch(ins_b, tgts_b, n_epochs=1, optimizer="adam", lr=LR,
+                                     verbose=False, mesh=mesh)
+            return {"loss": np.asarray(obs["train_loss"]), "W": net.get_node("qif")["weights"]}
+        return net, run
+
+    # (c)'s starts: the master and a perturbation of it, made once on the card
+    # (the JAX package's numpy draws of 10^8 weights take seconds a start)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    w0 = torch.as_tensor(W_t, dtype=torch.float32, device=dev)
+    starts = torch.stack([w0, w0 + 1e-4 * torch.randn(w0.shape, generator=gen, device=dev)])
+    del w0
+
+    def fit_bptt_multistart(mesh):
+        net = build_train_net(W_t, etas_t)
+
+        def run():
+            obs = net.fit_bptt_multistart(ins_b, tgts_b, n_starts=MT_STARTS, n_epochs=1,
+                                          start_inits={("qif", "weights"): starts},
+                                          optimizer="adam", lr=LR, verbose=False, mesh=mesh)
+            return {"final": np.asarray(obs["start_final_loss"]),
+                    "best": np.asarray(obs["best_start"]), "W": net.get_node("qif")["weights"]}
+        return net, run
+
+    def fit_es(mesh):
+        net = spike_net(W_np, etas)
+
+        def run():
+            obs = net.fit_es(es_drive, es_tgt, fit_vars=[("qif", "eta")],
+                             n_generations=MT_ES_GENERATIONS, pop_size=ES_B, sigma=ES_SIGMA,
+                             lr=ES_LR, loss="mse", record_spikes=["qif"],
+                             objective_key=("qif", "spikes"), sampling_steps=SPIKE_WINDOW,
+                             seed=50, verbose=False, mesh=mesh)
+            return {"mean": np.asarray(obs["es_mean_loss"]), "final": obs["es_final_loss"],
+                    "eta": net.get_node("qif")["eta"]}
+        return net, run
+
+    def force_net(rule: str):
+        net = build_net("bfloat16", fused=True)
+        net.add_func_node("readout", 1, activation_function="identity")
+        if rule == "rls":
+            return net, net.add_edge("qif", "readout", train="rls", beta=0.99, alpha=1.0)
+        return net, net.add_edge("qif", "readout", train="eprop", weights=np.zeros((1, N)))
+
+    def fit_rls(mesh):
+        net, edge = force_net("rls")
+
+        def run():
+            obs = net.fit_rls(force_in, force_tgt, update_steps=10, sampling_steps=100,
+                              verbose=False, mesh=mesh)
+            return {"loss": obs.to_numpy("loss"), "out": obs.to_numpy("out"),
+                    "W": edge.weights, "P": edge.P}
+        return net, run
+
+    def fit_eprop(mesh):
+        net, edge = force_net("eprop")
+
+        def run():
+            obs = net.fit_eprop(force_in, force_tgt, lr=0.5, epsilon=0.0, delta=0.0,
+                                normalize=True, sampling_steps=100, verbose=False, mesh=mesh)
+            return {"loss": obs.to_numpy("loss"), "out": obs.to_numpy("out"),
+                    "W": edge.params["weights"]}
+        return net, run
+
+    def fit_stdp(mesh):
+        net = stdp_scale_net(STDP_N, w0=w_stdp)
+
+        def run():
+            obs = net.fit_stdp(stdp_drive(MT_STDP_T), sampling_steps=MT_STDP_T // 4,
+                               verbose=False, mesh=mesh)
+            e = net.get_edge("qif", "qif")
+            return {"w_stats": np.stack([obs["w_mean"], obs["w_min"], obs["w_max"]]),
+                    "W": e.params["weights"], "x_pre": e.params["x_pre"],
+                    "x_post": e.params["x_post"]}
+        return net, run
+
+    # name, fit, counters {kernel: attributes}, expected launches per attribute
+    # of one fit, unit and units a fit, and the kernels-line entries (kernel
+    # -> the earlier timing of the same instance, this path's entry)
+    fits = (
+        ("fit_bptt", fit_bptt, {int8_mv: ("launches",), int8_mv_t: ("launches",),
+                                adam_requant: ("launches",)},
+         {"int8_mv": MT_EPOCHS * T_TRAIN, "int8_mv_t": MT_EPOCHS * T_TRAIN, "adam_requant": 0},
+         "epoch", MT_EPOCHS, {"int8_mv": ("int8_mv", "int8_mv["),
+                              "int8_mv_t": ("int8_mv_t", "int8_mv_t[")}),
+        ("fit_bptt_batch", fit_bptt_batch, {int8_mm: ("launches", "mma_launches"),
+                                            int8_mm_t: ("launches", "mma_launches")},
+         {"int8_mm": MT_T, "int8_mm_t": MT_T}, "epoch", 1,
+         {"int8_mm": ("int8_mm", "int8_mm["), "int8_mm_t": ("int8_mm_t", "int8_mm_t[")}),
+        ("fit_bptt_multistart", fit_bptt_multistart,
+         {int8_mm: ("launches", "mma_launches"), int8_mm_t: ("launches", "mma_launches")},
+         {"int8_mm": MT_STARTS * MT_T, "int8_mm_t": MT_STARTS * MT_T}, "epoch", 1,
+         {"int8_mm": ("int8_mm", "int8_mm["), "int8_mm_t": ("int8_mm_t", "int8_mm_t[")}),
+        ("fit_es", fit_es, {qif_sfa_step: ("launches", "mma_launches")},
+         {"qif_sfa_step": (MT_ES_GENERATIONS + 1) * MT_ES_T}, "step",
+         (MT_ES_GENERATIONS + 1) * MT_ES_T,
+         {"qif_sfa_step": ("qif_sfa_step.mma[es_path]", "qif_sfa_step.mma[")}),
+        ("fit_rls", fit_rls, {qif_sfa_step: ("launches",)}, {"qif_sfa_step": MT_FORCE_T},
+         "step", MT_FORCE_T, {"qif_sfa_step": ("qif_sfa_step[bfloat16]",
+                                               "qif_sfa_step[bfloat16,")}),
+        ("fit_eprop", fit_eprop, {qif_sfa_step: ("launches",)}, {"qif_sfa_step": MT_FORCE_T},
+         "step", MT_FORCE_T, {"qif_sfa_step": ("qif_sfa_step[bfloat16]",
+                                               "qif_sfa_step[bfloat16,")}),
+        ("fit_stdp", fit_stdp, {stdp_update: ("launches", "tile_launches")},
+         {"stdp_update": MT_STDP_T}, "step", MT_STDP_T,
+         {"stdp_update": ("stdp_update[float32,dense]", "stdp_update[float32,")}),
+    )
+    tmp = tempfile.mkdtemp(prefix="mesh_train_path_")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            device_id=dev)
+    mode = os.environ.get("RECTIPY_FUSED_ADAM")
+    os.environ["RECTIPY_FUSED_ADAM"] = "off"  # both arms of (a); a mesh fit reads it not
+    try:
+        mesh = make_mesh(1)
+        entries, lines = [], []
+        for name, fn, counters, want, unit, units, names in fits:
+            first, counts0, times = None, None, {"mesh": [], "plain": []}
+            net, run = fn(None)  # one untimed warm fit: the turns all find a warm card
+            run()
+            del net, run
+            for turn in ("mesh", "plain", "plain", "mesh"):
+                for k, attrs in counters.items():
+                    for a in attrs:
+                        setattr(k, a, 0)
+                net, run = fn(mesh if turn == "mesh" else None)
+                comm.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rec = run()
+                torch.cuda.synchronize()
+                times[turn].append(time.perf_counter() - t0)
+                counts = {f"{k.__name__}.{a}": getattr(k, a)
+                          for k, attrs in counters.items() for a in attrs}
+                tally = comm.tally()
+                for k, attrs in counters.items():
+                    if any(getattr(k, a) != want[k.__name__] for a in attrs):
+                        raise AssertionError(f"mesh_train_path {name} ({turn}): launches "
+                                             f"{counts}, expected {want} of each")
+                if any(v["count"] for v in tally.values()) or rec.pop("trajectory", True) \
+                        is not True:
+                    raise AssertionError(f"mesh_train_path {name} ({turn}): collectives "
+                                         f"{tally} or not the unfused chain trajectory")
+                first, counts0 = first or rec, counts0 or counts
+                _mt_same(name, turn, rec, first)
+                if counts != counts0:
+                    raise AssertionError(f"mesh_train_path {name}: launches {counts}, the "
+                                         f"first fit's {counts0}")
+                if turn == "mesh" and len(times["mesh"]) == 2:
+                    coll = sharded_step_collectives(net, mesh)
+                    if any(v["count"] for v in coll.values()):
+                        raise AssertionError(f"mesh_train_path {name}: {coll}")
+                del net, run, rec
+            ms = {t: min(v) / units * 1e3 for t, v in times.items()}
+            line = {"phase": "mesh_train_path", "fit": name, "n": N,
+                    "mesh": {"model": 1, "data": 1, "backend": "nccl"},
+                    "launches_per_fit": counts0, "bit_identical": True,
+                    "collectives_per_fit": 0, "sharded_step_collectives": 0, "fit_s": times,
+                    f"mesh_ms_per_{unit}": ms["mesh"], f"plain_ms_per_{unit}": ms["plain"],
+                    "mesh_over_plain": ms["mesh"] / ms["plain"]}
+            if name == "fit_bptt":  # one mesh fit under RECTIPY_FUSED_ADAM=on: the off fit
+                os.environ["RECTIPY_FUSED_ADAM"] = "on"
+                adam_requant.launches = 0
+                rec = fit_bptt(mesh)[1]()
+                os.environ["RECTIPY_FUSED_ADAM"] = "off"
+                rec.pop("trajectory")
+                _mt_same(name, "mesh, RECTIPY_FUSED_ADAM=on", rec, first)
+                if adam_requant.launches:
+                    raise AssertionError(f"mesh_train_path: {adam_requant.launches} "
+                                         f"adam_requant launches under a mesh")
+                line["fused_adam_on_equals_off"] = True
+                line["fused_adam_on_adam_requant_launches"] = 0
+                del rec
+            del first
+            torch.cuda.empty_cache()
+            emit(line)
+            lines.append(line)
+            for kname, (timing, prefix) in names.items():
+                entries.append({**by_name[timing], "launches": want[kname],
+                                "name": f"{prefix}mesh_train_path,{name}]"})
+        del starts
+        emit({"phase": "mesh_train_path", "summary": True, "nvidia_smi": nvidia_smi(),
+              "mesh_over_plain": {ln["fit"]: ln["mesh_over_plain"] for ln in lines},
+              "seconds": time.perf_counter() - t_phase})
+        return entries
+    finally:
+        if mode is None:
+            os.environ.pop("RECTIPY_FUSED_ADAM", None)
+        else:
+            os.environ["RECTIPY_FUSED_ADAM"] = mode
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def check_served(what: str, out_path: str, ref: list, served: dict, launches: dict) -> bool:
     """The served records (saved by the serving process) against the
     references' window means, bit for bit, and the served launch counts."""
@@ -6831,7 +7134,7 @@ def main() -> int:
 
 
 def main_phases(dev) -> int:
-    """Phases 29 and 3-48, the kernels line, the card's line and the
+    """Phases 29 and 3-50, the kernels line, the card's line and the
     contract line."""
     from rectipy_tpu_torch import Network, attach_fused_qif_step, random_connectivity
     from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
@@ -7057,6 +7360,9 @@ def main_phases(dev) -> int:
                               block_net, int4_window)
     torch.cuda.empty_cache()
     kernels += mesh_phase(dev, build_net, {e["name"]: e for e in kernels})
+    torch.cuda.empty_cache()
+    kernels += mesh_train_phase(dev, build_net, data, trials, W_np, etas,
+                                {e["name"]: e for e in kernels})
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

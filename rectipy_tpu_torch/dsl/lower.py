@@ -741,89 +741,97 @@ def lower(
 
     tile_local = not any(lv.rhs_ast is not None and _uses_reduction(lv.rhs_ast)
                          for lv in lowered.values())
-    def tile_func(states: Dict[str, torch.Tensor], a_tile: Dict[str, torch.Tensor],
-                  ext: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        env: Dict[str, torch.Tensor] = dict(states)
-        for k in keys:
-            if k in a_tile:
-                env[k] = a_tile[k]
-        for qname in schedule:
-            lv = lowered[qname]
-            if lv.kind == "algebraic":
-                rhs_ast, opname = alg_items[qname]
-                env[qname] = evaluate(rhs_ast, _op_env(env, opname))
-            else:
-                val = env.get(qname, lv.default)
-                if qname in wiring:
-                    val = val + env[wiring[qname]]
-                if qname in ext:
-                    val = val + ext[qname]
-                env[qname] = val
-        first = next(iter(states.values()))
-        return {qname: _broadcast(evaluate(rhs_ast, _op_env(env, opname)), first.shape,
-                                  first.dtype, first.device)
-                for qname, rhs_ast, opname in ode_rhs}
-
-    def make_tile_reader(qname: str, allow_global: bool = False):
-        """Reader ``(states, args) -> value`` of a state or algebraic
-        variable that depends (transitively) only on states and parameters;
-        ``None`` when it reads a coupling-driven input.  Templates with
-        population reductions give ``None`` too, unless ``allow_global``
-        (the trajectories, which evaluate on the whole population)."""
-        if not tile_local and not allow_global:
-            return None
-        if qname in var_map:
-            return lambda states, a_tile: states[qname]
-        if qname not in lowered or lowered[qname].kind != "algebraic":
-            return None
-
-        def deps_ok(q, seen=()):
-            lv = lowered[q]
-            if lv.kind in ("state", "param"):
-                return True
-            if lv.kind == "input":
-                if q in edge_by_target:
-                    return False  # coupling-driven: needs the global matvec
-                if q in wiring:
-                    return deps_ok(wiring[q], seen + (q,))
-                return True  # pure external placeholder
-            for sym in free_symbols(lv.rhs_ast):
-                if sym in CONSTANTS and f"{lv.op}/{sym}" not in lowered:
-                    continue
-                dep = f"{lv.op}/{sym}"
-                if dep in seen:
-                    continue
-                if not deps_ok(dep, seen + (q,)):
-                    return False
-            return True
-
-        if not deps_ok(qname):
-            return None
-
-        def reader(states: Dict[str, torch.Tensor], a_tile: Dict[str, torch.Tensor]):
+    def _tile(fns: dict = None):
+        """``(tile_func, make_tile_reader)`` whose equations take the
+        functions ``fns`` (a population shard's gathered reductions)."""
+        def tile_func(states: Dict[str, torch.Tensor], a_tile: Dict[str, torch.Tensor],
+                      ext: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             env: Dict[str, torch.Tensor] = dict(states)
             for k in keys:
                 if k in a_tile:
                     env[k] = a_tile[k]
-            for q in schedule:
-                lv = lowered[q]
+            for qname in schedule:
+                lv = lowered[qname]
                 if lv.kind == "algebraic":
-                    rhs_ast, opname = alg_items[q]
-                    env[q] = evaluate(rhs_ast, _op_env(env, opname))
-                elif lv.kind == "input" and q in wiring:
-                    env[q] = env.get(q, lv.default) + env[wiring[q]]
-                if q == qname:
-                    break
-            return env[qname]
+                    rhs_ast, opname = alg_items[qname]
+                    env[qname] = evaluate(rhs_ast, _op_env(env, opname), fns)
+                else:
+                    val = env.get(qname, lv.default)
+                    if qname in wiring:
+                        val = val + env[wiring[qname]]
+                    if qname in ext:
+                        val = val + ext[qname]
+                    env[qname] = val
+            first = next(iter(states.values()))
+            return {qname: _broadcast(evaluate(rhs_ast, _op_env(env, opname), fns), first.shape,
+                                      first.dtype, first.device)
+                    for qname, rhs_ast, opname in ode_rhs}
 
-        return reader
+        def make_tile_reader(qname: str, allow_global: bool = False):
+            """Reader ``(states, args) -> value`` of a state or algebraic
+            variable that depends (transitively) only on states and parameters;
+            ``None`` when it reads a coupling-driven input.  Templates with
+            population reductions give ``None`` too, unless ``allow_global``
+            (the trajectories, which evaluate on the whole population)."""
+            if not tile_local and not allow_global:
+                return None
+            if qname in var_map:
+                return lambda states, a_tile: states[qname]
+            if qname not in lowered or lowered[qname].kind != "algebraic":
+                return None
+
+            def deps_ok(q, seen=()):
+                lv = lowered[q]
+                if lv.kind in ("state", "param"):
+                    return True
+                if lv.kind == "input":
+                    if q in edge_by_target:
+                        return False  # coupling-driven: needs the global matvec
+                    if q in wiring:
+                        return deps_ok(wiring[q], seen + (q,))
+                    return True  # pure external placeholder
+                for sym in free_symbols(lv.rhs_ast):
+                    if sym in CONSTANTS and f"{lv.op}/{sym}" not in lowered:
+                        continue
+                    dep = f"{lv.op}/{sym}"
+                    if dep in seen:
+                        continue
+                    if not deps_ok(dep, seen + (q,)):
+                        return False
+                return True
+
+            if not deps_ok(qname):
+                return None
+
+            def reader(states: Dict[str, torch.Tensor], a_tile: Dict[str, torch.Tensor]):
+                env: Dict[str, torch.Tensor] = dict(states)
+                for k in keys:
+                    if k in a_tile:
+                        env[k] = a_tile[k]
+                for q in schedule:
+                    lv = lowered[q]
+                    if lv.kind == "algebraic":
+                        rhs_ast, opname = alg_items[q]
+                        env[q] = evaluate(rhs_ast, _op_env(env, opname), fns)
+                    elif lv.kind == "input" and q in wiring:
+                        env[q] = env.get(q, lv.default) + env[wiring[q]]
+                    if q == qname:
+                        break
+                return env[qname]
+
+            return reader
+
+        return tile_func, make_tile_reader
+
+    tile_func, make_tile_reader = _tile()
 
     def localize(rows: int, r0: int, gather: Callable) -> VectorField:
         """The field of neurons ``[r0, r0 + rows)`` of each variable, whose
         couplings hold those rows of their weights and gather the whole
         source (``gather``); the population reductions and ``softmax`` act
-        on the gathered population.  No ``tile_func``: a fused node runs
-        whole (``parallel/``)."""
+        on the gathered population, in ``func`` and in the trajectories'
+        ``tile_func`` and tile readers alike (a fused node runs whole,
+        ``parallel/``)."""
         def whole(fn, own_rows: bool = False):
             def apply(x):
                 if not (isinstance(x, torch.Tensor) and x.dim() and x.shape[-1] == rows):
@@ -839,8 +847,9 @@ def lower(
         fns["softmax"] = whole(FUNCTIONS["softmax"], own_rows=True)
         f, rv = _field(rows, gather, fns)
         y0_rows = y0.reshape(len(state_order), n)[:, r0:r0 + rows].reshape(-1)
+        tf, tr = _tile(fns)
         return replace(vf, n=rows, func=f, read_var=rv, var_map=_layout(rows)[1], y0=y0_rows,
-                       tile_func=None, make_tile_reader=None, localize=None)
+                       tile_func=tf, make_tile_reader=tr, localize=None)
 
     # user-facing name maps: qualified plus unambiguous bare names
     param_map: Dict[str, str] = {}

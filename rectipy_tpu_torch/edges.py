@@ -103,8 +103,7 @@ class Linear:
 
     _tensors = ["weights"]
     # the parameters that hold one row per target neuron: a population
-    # shard of the target takes its rows of them (``parallel/``); None: the
-    # edge cannot feed a shard
+    # shard of the target takes its rows of them (``parallel/``)
     _row_params = ("weights",)
 
     def __init__(self, n_in: int, n_out: int, weights=None, dtype=None,
@@ -195,10 +194,6 @@ class Linear:
         takes the whole source, keeps its state (which belongs to the
         source side) whole, and its step gives those rows; the row
         parameters come with the run's placed tree."""
-        if self._row_params is None:
-            raise NotImplementedError(
-                f"{type(self).__name__} cannot feed a population shard under mesh= yet "
-                f"(ROADMAP Queue 1 item 14, J2).")
         loc = copy.copy(self)
         loc.n_out = r1 - r0
         if self.params["weights"].ndim == 1:
@@ -968,8 +963,8 @@ class RLS(Linear):
     References: Principe et al. (2011), Kernel Adaptive Filtering.
     """
 
-    _row_params = None  # online readout learning under mesh= waits for J2
-
+    # a population shard of the readout takes its rows of the weights; P
+    # (source side) stays whole
     _tensors = ["weights", "P"]
 
     def __init__(self, n_in: int, n_out: int, weights=None, dtype=torch.float64,
@@ -1052,7 +1047,9 @@ class _PairRule:
     Python floats to the array's type."""
 
     _cols: Optional[torch.Tensor] = None  # the block-column table of a block edge
-    _row_params = None  # plasticity under mesh= waits for J2
+    # a population shard of the target takes its (block) rows of the weights,
+    # of the post-synaptic trace and of the eligibility; x_pre stays whole
+    _row_params = ("weights", "x_post", "elig")
 
     def _init_rule(self, tau_plus, tau_minus, a_plus, a_minus, w_min, w_max, soft_bounds):
         self.tau_plus = float(tau_plus)
@@ -1242,3 +1239,10 @@ class BlockSparseSTDP(_PairRule, BlockSparseLinear):
                                    detach=True, block_dtype=block_dtype, device=device)
         self._cols = self.cols
         self._init_rule(tau_plus, tau_minus, a_plus, a_minus, w_min, w_max, soft_bounds)
+
+    def _shard(self, r0: int, r1: int) -> "BlockSparseSTDP":
+        """The edge onto target neurons ``[r0, r1)``, whose rule updates
+        those block rows (their columns)."""
+        loc = super()._shard(r0, r1)
+        loc._cols = loc.cols
+        return loc

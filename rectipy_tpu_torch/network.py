@@ -38,9 +38,11 @@ On the device: the inputs move to the device once, the records and losses
 stay on the device, and nothing inside the loops synchronises with the host;
 they cross to the host once, at the end.
 
-Multi-device runs: ``run(mesh=)`` and ``run_batch(mesh=)`` shard the
-populations over a ``torch.distributed`` device mesh (``parallel/``); the
-trainers' ``mesh=`` is not ported yet (ROADMAP Queue 1 item 14, J2).
+Multi-device: ``run``, ``run_batch`` and the seven trainers take ``mesh=``
+(a ``torch.distributed`` device mesh, ``parallel/``): the populations shard
+over its ``model`` axis, trials, starts and candidates over its ``data``
+axis; every rank calls the same function with the same arguments and ends
+with the results of the call without a mesh.
 """
 
 from __future__ import annotations
@@ -77,10 +79,6 @@ _STDP_KEYS = ("tau_plus", "tau_minus", "a_plus", "a_minus", "w_min", "w_max", "s
 
 def _ekey(u: str, v: str) -> str:
     return f"{u}->{v}"
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item}).")
 
 
 # RECTIPY_FUSED_ADAM: 'off' = the split optimizer (optax formulas), 'on' = the
@@ -160,6 +158,18 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+def _shard_fns(net, shard) -> tuple:
+    """``(cols, whole, reduce)`` of a trainer's programs: a drive cut to
+    the input node's rows, the output node's rows made whole (the loss
+    takes them), and a gradient tree reduced over the model group
+    (``parallel/sharding.NetworkShard``); identities without a shard."""
+    if shard is None:
+        def same(x):
+            return x
+        return same, same, same
+    return (shard.cols, lambda outs: shard.whole(net._out_node, outs), shard.reduce_grads)
 
 
 class Network:
@@ -747,12 +757,13 @@ class Network:
         return step
 
     def _compose_step(self, taps: Tuple[str, ...], node_of: Callable, edge_of: Callable,
-                      fb_edges: list, source: Callable = None) -> Callable:
+                      fb_edges: list, source: Callable = None, tap: Callable = None) -> Callable:
         """The network step composed from the steps of ``node_of(label)``,
         ``edge_of(u, v)`` and the feedback edges ``[(u, v, edge)]``.
         ``source(u, v, out, cache)`` (a population shard's, ``parallel/``)
         gives what edge ``u -> v`` takes of its source's output; ``cache`` is
-        fresh each step (and separate for the carried feedback outputs)."""
+        fresh each step (and separate for the carried feedback outputs);
+        ``tap(u, out, cache)`` makes a tap of the shard whole."""
         order = self._compiled["order"]
         node_steps = {n: node_of(n).make_step() for n in order}
         preds = {n: sorted(self.graph.predecessors(n)) for n in order}
@@ -800,7 +811,8 @@ class Network:
                 new_state["fb"] = {
                     u: outs[u] if fb_readers[u] is None
                     else fb_readers[u](nodes_st[u], params["nodes"][u]) for u in fb_sources}
-            return new_state, outs[out_node], {t: outs[t] for t in taps}
+            return new_state, outs[out_node], {t: outs[t] if tap is None else tap(t, outs[t], cache)
+                                               for t in taps}
 
         return step
 
@@ -991,6 +1003,16 @@ class Network:
         from .parallel.sharding import NetworkShard
 
         return NetworkShard(self, mesh)
+
+    def _fit_shard(self, mesh, data: bool = False):
+        """A trainer's shard of the network on ``mesh``, or None where the
+        mesh cuts nothing the trainer uses (no population on a model axis of
+        one rank, and no data axis, or a trainer that puts nothing on it):
+        the fit without a mesh is then the mesh fit, bit for bit."""
+        if mesh is None:
+            return None
+        shard = self._mesh_shard(mesh)
+        return shard if shard.rows or (data and shard.n_data > 1) else None
 
     def _mesh_place(self, tree: dict, mesh, model_axis: str = "model") -> dict:
         """This rank's part of a state/params tree on ``mesh``: node leaves
@@ -1569,15 +1591,24 @@ class Network:
         other value raises ``ValueError``.  Step mode always takes the split
         optimizer, as the JAX package does.
 
-        Not ported yet: ``mesh=`` (ROADMAP Queue 1 item 14).
+        ``mesh=`` (``parallel.make_mesh``; every rank calls the fit with the
+        same arguments): the populations shard over the mesh's ``model``
+        axis and train through the same trajectory (``net.last_fit``) on
+        their rows.  A trajectory step gathers each sharded source once and
+        its backward all-reduces the source's cotangent once; each ``dW``
+        contracts the shard's cotangent rows with the saved gathered
+        sources; the loss takes the gathered outputs.  A leaf that a sharded
+        node holds whole sums its gradient over ``model``.  The optimizer is
+        the split one (``RECTIPY_FUSED_ADAM`` is read and not used), as the
+        JAX package's mesh fits.  The trained leaves are gathered and written
+        back.  A ``data`` axis replicates the one trial.
         """
         self.compile()
         loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
         opt = get_optimizer(optimizer, lr, optimizer_kwargs=optimizer_kwargs)
         retrieve_from_dict(["closure", "retain_graph"], kwargs)  # torch.optim-only knobs
         obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("fit_bptt(mesh=)", "14")
+        mesh = kwargs.pop("mesh", None)
         remat_steps = int(kwargs.pop("remat_steps", 0))
         fused_bptt = kwargs.pop("fused_bptt", "auto")
         if kwargs:
@@ -1600,10 +1631,17 @@ class Network:
         if not paths:
             raise ValueError("No trainable parameters in the network; pass `train_params` "
                              "to add_diffeq_node or train='gd' to add_edge.")
+        shard = self._fit_shard(mesh)
+        if mesh is not None:
+            mode = "off"  # a mesh fit takes the split optimizer (the JAX package's rule)
         train, frozen = self._partition(self.parameters_pytree(), paths)
         train = tree_map(lambda t: t.detach(), train)
-        opt_state = opt.init(train)
         state0 = self.init_state()
+        # this rank's parts (the trees themselves without a mesh)
+        place = (lambda tree: tree) if shard is None else shard.place
+        whole = (lambda tree: tree) if shard is None else shard.gather_params
+        train, frozen_p, state0_p = place(train), place(frozen), place(state0)
+        opt_state = opt.init(train)
 
         if not epoch_mode:
             inputs, targets = self._to_device(inputs), self._to_device(targets)
@@ -1613,13 +1651,13 @@ class Network:
                     "`inputs` and `targets` agree in the first dimension."
                 )
             t0 = perf_counter()
-            train, stateT, rec = self._bptt_steps(loss_fn, opt, train, frozen, opt_state,
-                                                  state0, inputs, targets, update_steps,
-                                                  sampling_steps, obs, fused_bptt)
+            train, stateT, rec = self._bptt_steps(loss_fn, opt, train, frozen_p, opt_state,
+                                                  state0_p, inputs, targets, update_steps,
+                                                  sampling_steps, obs, fused_bptt, shard)
             self._write_back(state=stateT)
             obs.record_batch(rec["steps"], outputs=rec["out"], losses=rec["loss"],
                              var_values=rec["vars"])
-            self._write_back(params=self._combine(train, frozen))
+            self._write_back(params=self._combine(whole(train), frozen))
             if verbose:
                 print(f"Finished optimization after {perf_counter() - t0} s.")
             return obs
@@ -1636,10 +1674,10 @@ class Network:
 
         t0 = perf_counter()
         *programs, self.last_fit = self._build_epoch_programs(
-            loss_fn, opt, fused_bptt, sampling_steps, fused_cfg, paths, rk, remat_steps)
+            loss_fn, opt, fused_bptt, sampling_steps, fused_cfg, paths, rk, remat_steps, shard)
 
         def epochs(tr, os_, ins, tgts):
-            return self._bptt_epochs(programs, tr, frozen, os_, state0, ins, tgts, verbose)
+            return self._bptt_epochs(programs, tr, frozen_p, os_, state0_p, ins, tgts, verbose)
 
         # the returned Observer records the LAST epoch's run (the weights
         # after K-1 updates, from the initial state), as in the reference;
@@ -1649,9 +1687,10 @@ class Network:
             if len(inputs) > 1:
                 train, opt_state, losses = epochs(train, opt_state, list(inputs[:-1]),
                                                   list(targets[:-1]))
-            self._write_back(params=self._combine(train, frozen))
+            self._write_back(params=self._combine(whole(train), frozen))
             run_kw = {k: v for k, v in obs_kwargs.items() if k in ("record_output", "record_vars")}
-            obs = self.run(inputs[-1], sampling_steps=sampling_steps, verbose=False, **run_kw)
+            obs = self.run(inputs[-1], sampling_steps=sampling_steps, verbose=False, mesh=mesh,
+                           **run_kw)
             self._write_back(state=state0)  # the reference resets per epoch
             train, opt_state, last = epochs(train, opt_state, [inputs[-1]], [targets[-1]])
             losses = list(losses) + list(last)
@@ -1659,7 +1698,7 @@ class Network:
             train, opt_state, losses = epochs(train, opt_state, list(inputs), list(targets))
         obs.save("epoch_loss", losses)
         obs.save("epochs", np.arange(len(losses)))
-        self._write_back(params=self._combine(train, frozen))
+        self._write_back(params=self._combine(whole(train), frozen))
         if verbose:
             print(f"Finished optimization after {perf_counter() - t0} s.")
         return obs
@@ -1699,8 +1738,11 @@ class Network:
         Returns an Observer with ``train_loss`` (one per update),
         ``epoch_loss`` (the mean over an epoch's minibatches) and
         ``epochs``.  The trained parameters are written back; the network's
-        state is left unchanged.  Not ported yet: ``mesh=`` (ROADMAP Queue 1
-        item 14).  A node with the generic
+        state is left unchanged.  ``mesh=``: the population shards over the
+        mesh's ``model`` axis (as in :meth:`fit_bptt`) and each micro-batch's
+        trials over its ``data`` axis, the losses and gradients averaged over
+        the data groups; a micro-batch the axis does not divide runs
+        REPLICATED, with the JAX package's warning.  A node with the generic
         fused step raises: its kernel has no backward, as the JAX package's
         has none.  ``int4_master`` couplings take ``int4_mm``/``int4_mm_t``
         on the card.
@@ -1713,8 +1755,7 @@ class Network:
         if not paths:
             raise ValueError("No trainable parameters in the network; pass `train_params` "
                              "to add_diffeq_node or train='gd' to add_edge.")
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("fit_bptt_batch(mesh=)", "14")
+        shard = self._fit_shard(kwargs.pop("mesh", None), data=True)
         self._refuse_generic_fused()
         batch_vars = kwargs.pop("batch_vars", None)
         setup = self._batch_fit_setup("fit_bptt_batch", inputs, targets, batch_size, loss,
@@ -1723,19 +1764,33 @@ class Network:
         sweeps = self._resolve_batch_vars("fit_bptt_batch", batch_vars, setup.B, params)
         train, frozen = self._partition(params, paths)
         train = tree_map(lambda t: t.detach(), train)
+        state0, frozen_p, share, reduce = self.init_state(), frozen, None, None
+        q = setup.mb // setup.accum
+        if shard is not None:
+            train, frozen_p, state0 = shard.place(train), shard.place(frozen), shard.place(state0)
+            sweeps = shard.sweep_rows(sweeps)
+            share = shard.data_share(q, "fit_bptt_batch: the trials of a micro-batch")
+            split = share != (0, q)
+
+            def reduce(lval, grads):
+                grads = shard.reduce_grads(grads)
+                if split:  # each group's mean over its equal share of the trials
+                    lval, grads = shard.data_mean(lval), tree_map(shard.data_mean, grads)
+                return lval, grads
+            q = share[1] - share[0]
         opt_state = opt.init(train)
         batch_loss, pack, self.last_fit = self._build_batch_programs(
-            loss_fn, sampling_steps, setup.fused_bptt, setup.rk, setup.remat_steps)
-        y0 = pack(self.init_state(), setup.mb // setup.accum)
+            loss_fn, sampling_steps, setup.fused_bptt, setup.rk, setup.remat_steps, shard)
+        y0 = pack(state0, q)
 
         t0 = perf_counter()
         losses = []
         perms = torch.as_tensor(setup.perms, device=self.device)
         for epoch in range(setup.epochs):
             for u in range(setup.n_mb):
-                micro = self._micro_batches(setup, frozen, sweeps, perms[epoch], u)
+                micro = self._micro_batches(setup, frozen_p, sweeps, perms[epoch], u, share)
                 train, opt_state, lval = _minibatch_update(batch_loss, opt, train, opt_state,
-                                                           y0, micro)
+                                                           y0, micro, reduce)
                 losses.append(lval)  # stays on the device until the end
             if verbose:
                 ep = torch.stack(losses[-setup.n_mb:]).mean()
@@ -1747,6 +1802,8 @@ class Network:
         obs.save("epoch_loss", list(host.reshape(setup.epochs, setup.n_mb).mean(axis=1))
                  if setup.epochs else [])
         obs.save("epochs", np.arange(setup.epochs))
+        if shard is not None:
+            train = shard.gather_params(train)
         self._write_back(params=self._combine(train, frozen))
         if verbose:
             print(f"Finished optimization after {perf_counter() - t0} s.")
@@ -1783,16 +1840,19 @@ class Network:
         Returns an Observer with ``epoch_loss`` (the best start's),
         ``start_epoch_loss`` (``(epochs, n_starts)``), ``start_final_loss``,
         ``best_start`` and ``epochs``.  The best start with a finite final
-        loss is written back.  Not ported yet: ``mesh=`` (ROADMAP Queue 1
-        item 14).  A node with the generic fused step raises, as in
-        :meth:`fit_bptt_batch`.
+        loss is written back.  ``mesh=``: the population shards over the
+        mesh's ``model`` axis and the starts over its ``data`` axis (each
+        data group updates its share of the starts on every trial; the
+        losses are gathered once at the end, and the best start's trees
+        reach every group with one all-reduce a leaf); starts the axis does
+        not divide run REPLICATED, with the JAX package's warning.  A node
+        with the generic fused step raises, as in :meth:`fit_bptt_batch`.
         """
         self.compile()
         loss_fn = get_loss_function(loss, loss_kwargs=loss_kwargs)
         opt = get_optimizer(optimizer, lr, optimizer_kwargs=optimizer_kwargs)
         obs = Observer(dt=self.dt, **retrieve_from_dict(["record_loss"], kwargs))
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("fit_bptt_multistart(mesh=)", "14")
+        mesh = kwargs.pop("mesh", None)
         paths = self.trainable_paths()
         if not paths:
             raise ValueError("No trainable parameters in the network; pass `train_params` "
@@ -1808,29 +1868,45 @@ class Network:
         sweeps = self._resolve_batch_vars("fit_bptt_multistart", batch_vars, setup.B, params)
         train, frozen = self._partition(params, paths)
         starts = self._start_trees(train, paths, M, start_inits, init_scale, seed)
+        shard = self._fit_shard(mesh, data=True)
+        state0, frozen_p, m0, m1, reduce = self.init_state(), frozen, 0, M, None
+        if shard is not None:
+            m0, m1 = shard.data_share(M, "fit_bptt_multistart: the starts")
+            starts = [shard.place(t) for t in starts[m0:m1]]
+            frozen_p, state0 = shard.place(frozen), shard.place(state0)
+            sweeps = shard.sweep_rows(sweeps)
+
+            def reduce(lval, grads):
+                return lval, shard.reduce_grads(grads)
+        split = (m0, m1) != (0, M)
+
+        def all_starts(x):  # (local starts, ...) -> (M, ...)
+            return shard.data_gather(x) if split else x
+
         opt_states = [opt.init(t) for t in starts]
         batch_loss, pack, self.last_fit = self._build_batch_programs(
-            loss_fn, sampling_steps, setup.fused_bptt, setup.rk, setup.remat_steps)
-        y0 = pack(self.init_state(), setup.mb // setup.accum)
+            loss_fn, sampling_steps, setup.fused_bptt, setup.rk, setup.remat_steps, shard)
+        y0 = pack(state0, setup.mb // setup.accum)
 
         t0 = perf_counter()
         E, n_mb = setup.epochs, setup.n_mb
-        losses = [[] for _ in range(M)]
+        losses = [[] for _ in starts]
         perms = torch.as_tensor(setup.perms, device=self.device)
         for epoch in range(E):
             for u in range(n_mb):
-                micro = self._micro_batches(setup, frozen, sweeps, perms[epoch], u)
-                for m in range(M):  # independent starts: any order gives the same numbers
+                micro = self._micro_batches(setup, frozen_p, sweeps, perms[epoch], u)
+                for m in range(len(starts)):  # independent starts: any order is the same
                     starts[m], opt_states[m], lval = _minibatch_update(
-                        batch_loss, opt, starts[m], opt_states[m], y0, micro)
+                        batch_loss, opt, starts[m], opt_states[m], y0, micro, reduce)
                     losses[m].append(lval)  # stays on the device until the end
             if verbose:
-                ep = _host(torch.stack([torch.stack(lm[-n_mb:]).mean() for lm in losses]))
+                ep = _host(all_starts(torch.stack([torch.stack(lm[-n_mb:]).mean()
+                                                   for lm in losses])))
                 b = _best_start(ep)
                 print(f"Progress: {epoch + 1}/{E} training epochs finished.")
                 print(f"Best-start epoch loss: {float(ep[b])} (start {b}).")
                 print("")
-        host = (_host(torch.stack([torch.stack(lm) for lm in losses])) if E
+        host = (_host(all_starts(torch.stack([torch.stack(lm) for lm in losses]))) if E
                 else np.zeros((M, 0)))
         per_epoch = host.reshape(M, E, n_mb).mean(axis=2).T  # (E, M)
         final = per_epoch[-1] if E else np.zeros(M)
@@ -1840,7 +1916,12 @@ class Network:
         obs.save("start_final_loss", list(final))
         obs.save("best_start", [best])
         obs.save("epochs", np.arange(E))
-        self._write_back(params=self._combine(starts[best], frozen))
+        # the data group that holds the best start hands it to the others
+        won = (shard.data_pick(starts[best % (m1 - m0)], best // (m1 - m0)) if split
+               else starts[best])
+        if shard is not None:
+            won = shard.gather_params(won)
+        self._write_back(params=self._combine(won, frozen))
         if verbose:
             print(f"Finished optimization after {perf_counter() - t0} s (best start: {best}).")
         return obs
@@ -1932,11 +2013,16 @@ class Network:
         candidate (``es_returned``).  The write-back refreshes a fused
         kernel's copies; the network state is left unchanged.  On a fused QIF
         node a swept ``eta`` reaches the kernel (the JAX package's fused
-        kernel ignores it and scores identical candidates).  Not ported yet:
-        ``mesh=`` (ROADMAP Queue 1 item 14).
+        kernel ignores it and scores identical candidates).  ``mesh=``: each
+        generation is one ``run_batch(mesh=)`` (the candidates over the
+        mesh's ``data`` axis, the population over its ``model`` axis); every
+        rank draws the same ``eps`` and makes the same update, and the final
+        ``B=1`` run of the search point runs unsharded on every rank, as the
+        JAX package's does.
         """
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("fit_es(mesh=)", "14")
+        mesh = kwargs.pop("mesh", None)
+        if self._fit_shard(mesh, data=True) is None:  # a mesh that cuts nothing: no mesh
+            mesh = None
         if kwargs:
             raise TypeError(f"fit_es() got unexpected keyword arguments {sorted(kwargs)}")
         B = int(pop_size)
@@ -1984,10 +2070,10 @@ class Network:
                 raise ValueError(f"fit_es expects shared (T, m) inputs; got {np.shape(inputs)}")
             inputs = self._to_device(inputs)  # staged once for every generation
 
-        def run(cands: dict) -> torch.Tensor:
+        def run(cands: dict, mesh=None) -> torch.Tensor:
             results = self._run_batch(inputs, sampling_steps, cutoff, False, dict(
                 batch_vars=cands, record_spikes=record_spikes,
-                record_output=objective_key == "out"))
+                record_output=objective_key == "out", mesh=mesh))
             if objective_key not in results:
                 raise KeyError(
                     f"objective_key {objective_key!r} is not a recorded series (available: "
@@ -2011,7 +2097,7 @@ class Network:
                     e = rng.standard_normal((B,) + val.shape)
                 eps[key] = e
                 cands[key] = clip(key, val[None] + sig * e)
-            out = run(cands)  # (B, R, ...) on the device
+            out = run(cands, mesh)  # (B, R, ...) on the device
             if gen == 0 and targets.shape not in ((out.shape[1],), tuple(out.shape[1:])):
                 try:
                     np.broadcast_shapes(targets.shape, tuple(out.shape[1:]))
@@ -2123,17 +2209,20 @@ class Network:
             self.get_edge(*label.split("->")).params[key] = new
 
     def _micro_batches(self, setup: SimpleNamespace, frozen: dict, sweeps: dict, perm,
-                       u: int) -> list:
+                       u: int, share: tuple = None) -> list:
         """The ``accum`` equal micro-batches of minibatch ``u`` of the trial
         permutation ``perm``: ``[(frozen, xs, targets)]``, the frozen
         parameters with the micro-batch's swept values, its time-major
         inputs and its targets (the whole staged arrays, uncopied, when the
-        micro-batch is every trial in order)."""
+        micro-batch is every trial in order).  ``share``: this data group's
+        trials ``[q0, q1)`` of each micro-batch."""
         mb, accum = setup.mb, setup.accum
         ids = perm[u * mb:(u + 1) * mb]
         micro = []
         for a in range(accum):
             sub = ids[a * (mb // accum):(a + 1) * (mb // accum)]
+            if share is not None:
+                sub = sub[share[0]:share[1]]
             full = sub.shape[0] == setup.B and not setup.shuffled
             xs = setup.inputs if full else setup.inputs.index_select(1, sub)
             tgt = setup.targets if full else setup.targets.index_select(0, sub)
@@ -2230,17 +2319,20 @@ class Network:
             perms=np.array(perms, dtype=np.int64))
 
     def _build_batch_programs(self, loss_fn, sampling_steps: int, fused_bptt, rk: int = 0,
-                              remat_steps: int = 0) -> tuple:
+                              remat_steps: int = 0, shard=None) -> tuple:
         """``(batch_loss, pack, info)`` of the batched-trial trainers:
         ``batch_loss(train, frozen, y0, xs, tgt)``, the mean over the
         minibatch's trials of each trial's loss, for time-major inputs ``xs
         (T, mb, m)`` and targets ``(mb, R, ...)``; ``pack(state0, mb)``, the
         initial state of ``mb`` trials; and which trajectory the fit takes
         (``{"trajectory": "chain"|"graph"|"autograd", "fused_adam":
-        False}``).  ``rk``/``remat_steps`` as in :meth:`fit_bptt`."""
+        False}``).  ``rk``/``remat_steps`` as in :meth:`fit_bptt`.  ``shard``:
+        the programs of this rank's rows on placed trees (the loss of the
+        gathered outputs)."""
         combine = self._combine
-        step = self.make_step()
-        tr = self._trajectory(fused_bptt, rk)
+        step = self.make_step() if shard is None else shard.step()
+        tr = self._trajectory(fused_bptt, rk, shard)
+        cols, whole, _ = _shard_fns(self, shard)
         s = int(sampling_steps)
 
         def trial_mean(outs, tgt):
@@ -2262,11 +2354,12 @@ class Network:
                 nargs = params["nodes"][label]
                 W = {k: nargs[k] for k in tr.wkeys}
                 rest = {k: v for k, v in nargs.items() if k not in tr.wkeys}
+                xs = cols(xs)
                 xs = prefix(params, xs) if prefix is not None else xs
                 _, outs = tr.traj(W, rest, y0, xs)
                 if suffix is not None:
                     outs = suffix(params, outs)
-                return trial_mean(outs.transpose(0, 1), tgt)
+                return trial_mean(whole(outs).transpose(0, 1), tgt)
         elif tr.kind == "graph":
             from .ops.graph_bptt import graph_weights_args
 
@@ -2275,26 +2368,28 @@ class Network:
 
             def batch_loss(train, frozen, Y0, xs, tgt):
                 weights, args = graph_weights_args(tr.spec, combine(train, frozen))
-                _, outs = tr.traj(weights, args, Y0, xs)
-                return trial_mean(outs.transpose(0, 1), tgt)
+                _, outs = tr.traj(weights, args, Y0, cols(xs))
+                return trial_mean(whole(outs).transpose(0, 1), tgt)
         else:
             def pack(state0, mb):
                 return self._batch_state(state0, mb)
 
             def batch_loss(train, frozen, state0, xs, tgt):
-                params = self._prep_edge_params(combine(train, frozen))
-                _, outs = self._plain_outs(step, params, state0, xs, remat_steps)
-                return trial_mean(outs.transpose(0, 1), tgt)
+                params = self._prep_edge_params(combine(train, frozen), shard)
+                _, outs = self._plain_outs(step, params, state0, cols(xs), remat_steps)
+                return trial_mean(whole(outs).transpose(0, 1), tgt)
 
         return batch_loss, pack, {"trajectory": tr.kind, "fused_adam": False}
 
-    def _chain_decompose(self):
+    def _chain_decompose(self, shard=None):
         """Decompose a chain network ``[instants...] -> population ->
         [instants...]`` (stateless ``Linear`` edges) into ``(label,
         apply_prefix, apply_suffix)``; ``None`` when the topology does not
         qualify (feedback edges never do).  The stateless pre/post stages
         move outside the time loop: each becomes one batched product over the
-        ``(T, n)`` series."""
+        ``(T, n)`` series.  ``shard``: the stages of this rank's rows, each
+        edge taking its source as the shard's step takes it (gathered once
+        over the series)."""
         order = self._compiled["order"]
         if self._fb_edge_list():
             return None
@@ -2310,29 +2405,35 @@ class Network:
                 return None  # not a simple chain
             if nname != label and not isinstance(self.get_node(nname), InstantNode):
                 return None
+        node_of = self.get_node if shard is None else shard.node
+        edge_of = self.get_edge if shard is None else shard.edge
         pre_ops, post_ops = [], []
         side_ops = pre_ops
         for i, nname in enumerate(order):
             if nname == label:
                 side_ops = post_ops
             else:
-                side_ops.append(("node", None, self.get_node(nname).make_step()))
+                side_ops.append(("node", None, node_of(nname).make_step()))
             if i + 1 < len(order):
                 edge = self.get_edge(nname, order[i + 1])
                 if edge.init_state() is not None:
                     return None  # stateful edge: no chain trajectory
-                side_ops.append(("edge", _ekey(nname, order[i + 1]), edge.make_step()))
+                side_ops.append(("edge", (nname, order[i + 1]),
+                                 edge_of(nname, order[i + 1]).make_step()))
 
         def apply(ops, params, H):
             for kind, key, fn in ops:
-                p = params["edges"][key] if kind == "edge" else {}
+                p = {}
+                if kind == "edge":
+                    p = params["edges"][_ekey(*key)]
+                    H = H if shard is None else shard._source(*key, H, {})
                 H = torch.func.vmap(lambda h, p=p, fn=fn: fn(None, p, h)[1])(H)
             return H
 
         return (label, lambda params, xs: apply(pre_ops, params, xs),
                 lambda params, outs: apply(post_ops, params, outs))
 
-    def _trajectory(self, fused_bptt, rk: int = 0) -> SimpleNamespace:
+    def _trajectory(self, fused_bptt, rk: int = 0, shard=None) -> SimpleNamespace:
         """The trajectory a fit takes, as the JAX package's
         ``_build_epoch_loss`` picks it: a chain network's population
         trajectory (``ops/bptt.make_coupled_traj``; ``kind="chain"``, with
@@ -2342,21 +2443,25 @@ class Network:
         ``fused_bptt=True`` raises where neither trajectory applies; an
         unsupported topology (``ValueError``, ``AttributeError``,
         ``KeyError``) sends ``'auto'`` to plain autograd.  ``rk > 1``: the
-        trajectories checkpoint ``rk``-step chunks."""
+        trajectories checkpoint ``rk``-step chunks.  ``shard``: the
+        trajectories of this rank's rows (``parallel/``)."""
         if fused_bptt in ("auto", True):
-            chain = self._chain_decompose()
+            chain = self._chain_decompose(shard)
             if chain is not None:
                 from .ops.bptt import make_coupled_traj
 
+                node = self.get_node(chain[0]) if shard is None else shard.node(chain[0])
+                comm = (shard.traj_comm() if shard is not None and chain[0] in shard.rows
+                        else None)
                 try:
-                    traj, wkeys = make_coupled_traj(self.get_node(chain[0]), remat_steps=rk)
+                    traj, wkeys = make_coupled_traj(node, remat_steps=rk, comm=comm)
                     return SimpleNamespace(kind="chain", chain=chain, traj=traj, wkeys=wkeys)
                 except (ValueError, AttributeError, KeyError):
                     pass
             from .ops.graph_bptt import make_graph_traj
 
             try:
-                traj, spec = make_graph_traj(self, remat_steps=rk)
+                traj, spec = make_graph_traj(self, remat_steps=rk, shard=shard)
                 return SimpleNamespace(kind="graph", traj=traj, spec=spec)
             except (ValueError, AttributeError, KeyError):
                 if fused_bptt is True:
@@ -2400,17 +2505,21 @@ class Network:
         return state, torch.cat(parts)
 
     def _build_epoch_programs(self, loss_fn, opt, fused_bptt, sampling_steps, fused_cfg,
-                              paths, rk: int = 0, remat_steps: int = 0):
+                              paths, rk: int = 0, remat_steps: int = 0, shard=None):
         """``(update, init_opt, pack, info)``: the per-epoch update
         ``update(train, frozen, opt_state, y0, inp, tgt) -> (train',
         opt_state', loss)``, the optimizer-state initializer of the fused
         adam path (else ``None``), the initial-state packer, and which paths
         the fit takes (``{"trajectory": "chain"|"graph"|"autograd",
         "fused_adam": bool}``).  ``rk > 1`` checkpoints the trajectories;
-        plain autograd checkpoints ``remat_steps``-step segments."""
+        plain autograd checkpoints ``remat_steps``-step segments.
+        ``shard``: the programs of this rank's rows on placed trees (the
+        loss of the gathered outputs, the gradients reduced over the model
+        group)."""
         combine = self._combine
-        step = self.make_step()
-        tr = self._trajectory(fused_bptt, rk)
+        step = self.make_step() if shard is None else shard.step()
+        tr = self._trajectory(fused_bptt, rk, shard)
+        cols, whole, reduce = _shard_fns(self, shard)
 
         def downsample(outs):
             if sampling_steps > 1:
@@ -2431,17 +2540,18 @@ class Network:
                 nargs = params["nodes"][label]
                 W = {k: nargs[k] for k in traj_wkeys}
                 rest = {k: v for k, v in nargs.items() if k not in traj_wkeys}
-                xs = apply_prefix(params, inp) if apply_prefix is not None else inp
+                xs = cols(inp)
+                xs = apply_prefix(params, xs) if apply_prefix is not None else xs
                 if traj_fn is None:
                     _, outs = tr.traj(W, rest, y0, xs)
                 else:
                     _, outs = traj_fn((wp,), W, rest, y0, xs)
                 if apply_suffix is not None:
                     outs = apply_suffix(params, outs)
-                return loss_fn(downsample(outs), tgt)
+                return loss_fn(downsample(whole(outs)), tgt)
 
             fused = (self._build_fused_adam(label, traj_wkeys, epoch_loss, fused_cfg, paths)
-                     if rk == 0 else None)
+                     if rk == 0 and shard is None else None)
             if fused is not None:
                 return fused + (pack, {"trajectory": "chain", "fused_adam": True})
         elif tr.kind == "graph":
@@ -2452,20 +2562,20 @@ class Network:
 
             def epoch_loss(train, frozen, Y0, inp, tgt):
                 weights, args = graph_weights_args(tr.spec, combine(train, frozen))
-                _, outs = tr.traj(weights, args, Y0, inp)
-                return loss_fn(downsample(outs), tgt)
+                _, outs = tr.traj(weights, args, Y0, cols(inp))
+                return loss_fn(downsample(whole(outs)), tgt)
         else:
             def pack(state0):
                 return state0
 
             def epoch_loss(train, frozen, state0, inp, tgt):
-                params = self._prep_edge_params(combine(train, frozen))
-                _, outs = self._plain_outs(step, params, state0, inp, remat_steps)
-                return loss_fn(downsample(outs), tgt)
+                params = self._prep_edge_params(combine(train, frozen), shard)
+                _, outs = self._plain_outs(step, params, state0, cols(inp), remat_steps)
+                return loss_fn(downsample(whole(outs)), tgt)
 
         def update(train, frozen, opt_state, y0, inp, tgt):
             lval, grads = _value_and_grad(epoch_loss, train, frozen, y0, inp, tgt)
-            train, opt_state = opt.update(grads, opt_state, train)
+            train, opt_state = opt.update(reduce(grads), opt_state, train)
             return tree_map(lambda t: t.detach(), train), opt_state, lval
 
         return update, None, pack, {"trajectory": tr.kind, "fused_adam": False}
@@ -2571,16 +2681,20 @@ class Network:
         return stage
 
     def _bptt_steps(self, loss_fn, opt, train, frozen, opt_state, state0, inputs, targets,
-                    update_steps, sampling_steps, obs, fused_bptt):
+                    update_steps, sampling_steps, obs, fused_bptt, shard=None):
         """Step mode of ``fit_bptt`` (truncated BPTT): ``(train', state_T,
         records)``.  The chunk losses and the records stay on the device
-        until the end."""
+        until the end.  ``shard``: this rank's rows, on placed trees (the
+        state returned whole, the records gathered once, at the end)."""
         combine = self._combine
-        step = self.make_step()
+        step = self.make_step() if shard is None else shard.step()
+        cols, whole, reduce = _shard_fns(self, shard)
         T, u, s = int(inputs.shape[0]), int(update_steps), int(sampling_steps)
         n_upd = T // u
-        rec_info = self._resolve_record_vars(obs)
+        rec_whole = self._resolve_record_vars(obs, shard)
+        rec_info = rec_whole if shard is None else _unreduced(rec_whole)
         record_output = obs.record_output
+        xs_all = cols(inputs)
 
         # records on the global grid step % s == 0: per-step outputs and
         # record_vars after the step
@@ -2593,16 +2707,16 @@ class Network:
             rec_vars.append([v.detach() for v in vals])
 
         def forward(state, params, t0, t1):  # no update (T < u, and the leftover)
-            params = self._prep_edge_params(params)
+            params = self._prep_edge_params(params, shard)
             with torch.no_grad():
                 for t in range(t0, t1):
-                    state, out, _ = step(state, params, inputs[t])
+                    state, out, _ = step(state, params, xs_all[t])
                     if t % s == 0:
-                        record(t, out, _read_vars(rec_info, state, params))
+                        record(t, whole(out), _read_vars(rec_info, state, params))
             return state
 
         # the trajectories emit outputs only: record_vars take autograd
-        tr = self._trajectory(fused_bptt if not rec_info else False)
+        tr = self._trajectory(fused_bptt if not rec_info else False, shard=shard)
         if tr.kind == "chain":
             label, prefix, suffix = tr.chain
 
@@ -2611,11 +2725,12 @@ class Network:
                 nargs = params["nodes"][label]
                 W = {k: nargs[k] for k in tr.wkeys}
                 rest = {k: v for k, v in nargs.items() if k not in tr.wkeys}
-                xs = inputs[t0:t0 + u]
+                xs = xs_all[t0:t0 + u]
                 xs = prefix(params, xs) if prefix is not None else xs
                 yT, outs = tr.traj(W, rest, state["nodes"][label], xs)
                 if suffix is not None:
                     outs = suffix(params, outs)
+                outs = whole(outs)
                 new_state = {**state, "nodes": {**state["nodes"], label: yT}}
                 return loss_fn(outs, targets[t0:t0 + u]), (new_state, outs, {})
         elif tr.kind == "graph":
@@ -2628,7 +2743,8 @@ class Network:
                 # chunks (packed and unpacked at each boundary)
                 weights, args = graph_weights_args(spec, combine(train, frozen))
                 C0 = self._graph_pack(spec, state)
-                CT, outs = tr.traj(weights, args, C0, inputs[t0:t0 + u])
+                CT, outs = tr.traj(weights, args, C0, xs_all[t0:t0 + u])
+                outs = whole(outs)
                 if spec.needs_carry:
                     new_E = {ek: spec.estate_unpack[ek](CT["E"][ek], state["edges"][ek], u)
                              for ek in spec.stateful_edges}
@@ -2641,14 +2757,14 @@ class Network:
                 return loss_fn(outs, targets[t0:t0 + u]), (new_state, outs, {})
         else:
             def chunk_loss(train, frozen, state, t0):
-                params = self._prep_edge_params(combine(train, frozen))
+                params = self._prep_edge_params(combine(train, frozen), shard)
                 outs, vals = [], {}
                 for t in range(t0, t0 + u):
-                    state, out, _ = step(state, params, inputs[t])
+                    state, out, _ = step(state, params, xs_all[t])
                     outs.append(out)
                     if rec_info and t % s == 0:
                         vals[t] = _read_vars(rec_info, state, params)
-                outs = torch.stack(outs)
+                outs = whole(torch.stack(outs))
                 return loss_fn(outs, targets[t0:t0 + u]), (state, outs, vals)
 
         self.last_fit = {"trajectory": tr.kind, "fused_adam": False}
@@ -2657,7 +2773,7 @@ class Network:
             t0 = c * u
             lval, grads, (state, outs, vals) = _value_and_grad(
                 chunk_loss, train, frozen, state, t0, has_aux=True)
-            train, opt_state = opt.update(grads, opt_state, train)
+            train, opt_state = opt.update(reduce(grads), opt_state, train)
             train = tree_map(lambda t: t.detach(), train)
             state = _detach(state)  # the truncation
             losses.append(lval)
@@ -2671,9 +2787,17 @@ class Network:
         done = np.minimum((steps + 1) // u, n_upd)
         chunk_losses = _host(torch.stack(losses)) if losses else np.zeros(1)
         rec_loss = np.where(done >= 1, chunk_losses[np.maximum(done - 1, 0)], 0.0)
-        vars_ = {key: _host(torch.stack([r[i] for r in rec_vars]))
-                 for i, (key, _, _, _) in enumerate(rec_info)} if len(steps) else {}
+        vars_ = {}
+        for i, (key, label, _, reduce_) in enumerate(rec_whole):
+            if len(steps):
+                val = torch.stack([r[i] for r in rec_vars])
+                if shard is not None:
+                    val = shard.whole(label, val)
+                    val = val.mean(dim=-1) if reduce_ else val
+                vars_[key] = _host(val)
         out = _host(torch.stack(rec_out)) if rec_out else None
+        if shard is not None:
+            state = shard.gather_state(state)
         return train, state, {"steps": steps, "out": out, "loss": rec_loss, "vars": vars_}
 
     def fit_ridge(self, inputs, targets, sampling_steps: int = 100, alpha: float = 1e-4,
@@ -2729,13 +2853,19 @@ class Network:
         ``record_vars`` snapshots).  Epoch mode (lists of inputs and
         targets): the network state is reset to the pre-training state
         after each epoch; the Observer holds ``epoch_loss`` (the last
-        update's loss of each epoch) and ``epochs``."""
+        update's loss of each epoch) and ``epochs``.
+
+        ``mesh=``: each step is the population shard's (``run(mesh=)``'s),
+        the update reads the whole tap of the edge's source (the step's own
+        gather of it) and, where the readout is sharded, updates its rows of
+        the weights (``P`` stays whole: every rank downdates it alike); the
+        losses sum over the model group once, at the end.  The weights,
+        state and records are those of the fit without a mesh."""
         if not self._train_edge:
             raise ValueError("No RLS-trainable edge in the network; add one with "
                              "add_edge(..., train='rls').")
         self.compile()
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("fit_rls(mesh=)", "14")
+        shard = self._fit_shard(kwargs.pop("mesh", None))
         obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
         obs = Observer(dt=self.dt, **obs_kwargs)
         edge = self.get_edge(*self._train_edge)
@@ -2752,7 +2882,7 @@ class Network:
             losses = []
             for epoch in range(len(inputs)):
                 loss = self._rls_loop(stage(inputs[epoch]), stage(targets[epoch]), update_steps,
-                                      sampling_steps, obs, record=False)
+                                      sampling_steps, obs, record=False, shard=shard)
                 losses.append(loss)  # stays on the device until the end
                 self.reset(y0)
                 if verbose:
@@ -2772,49 +2902,95 @@ class Network:
                     "`inputs` and `targets` agree in the first dimension."
                 )
             edge.loss = float(self._rls_loop(inputs, targets, update_steps, sampling_steps, obs,
-                                             record=True))
+                                             record=True, shard=shard))
         if verbose:
             print(f"Finished optimization after {perf_counter() - t0} s.")
         return obs
 
-    def _rls_loop(self, inputs, targets, update_steps, sampling_steps, obs, record: bool):
+    def _online_setup(self, shard, obs, record: bool = True) -> SimpleNamespace:
+        """What the online trainers' host loops (``fit_rls``, ``fit_eprop``,
+        ``fit_stdp``) run: the step (the shard's, with whole taps), the start
+        state and the prepped parameters (this rank's parts), the edge's
+        params in that tree (the loop writes its weights there each step)
+        and the ``record_vars`` readers; ``finish(state, outs, vars)``
+        writes the state back and makes the recorded series whole."""
+        src, tgt = self._train_edge
+        ekey = _ekey(src, tgt)
+        rec_info = self._resolve_record_vars(obs, shard) if record else []
+        if shard is None:
+            step, state = self.make_step(taps=(src, tgt)), self.init_state()
+            params = self._prep_params(self.parameters_pytree())
+            read_info = rec_info
+        else:
+            step, state = shard.step(taps=(src, tgt)), shard.place(self.init_state())
+            params = self._prep_params(shard.place(self.parameters_pytree()), shard)
+            read_info = _unreduced(rec_info)
+        eparams = params["edges"][ekey] = dict(params["edges"][ekey])
+
+        def finish(state, outs: list, vals: list):
+            """``(outputs, {key: series})`` of the recorded steps, whole."""
+            self._write_back(state=state if shard is None else shard.gather_state(state))
+            out = torch.stack(outs) if outs else None
+            series = {}
+            for i, (key, label, _, reduce) in enumerate(rec_info):
+                if vals:
+                    val = torch.stack([r[i] for r in vals])
+                    if shard is not None:
+                        val = shard.whole(label, val)
+                        val = val.mean(dim=-1) if reduce else val
+                    series[key] = val
+            if shard is not None and out is not None:
+                out = shard.whole(self._out_node, out)
+            return out, series
+
+        return SimpleNamespace(step=step, state=state, params=params, eparams=eparams,
+                               read_info=read_info, finish=finish)
+
+    def _rls_loop(self, inputs, targets, update_steps, sampling_steps, obs, record: bool,
+                  shard=None):
         """One pass of ``fit_rls`` over ``inputs``; returns the last update's
         loss as a 0-d device tensor.  The JAX package computes the update
         every step and selects it; this loop branches on the host step
-        index, so steps without an update skip the O(N^2) work."""
+        index, so steps without an update skip the O(N^2) work.  ``shard``:
+        this rank's rows (``fit_rls(mesh=)``)."""
         src, tgt = self._train_edge
         edge = self.get_edge(src, tgt)
         update = RLS.update_fn(edge.beta)
-        step = self.make_step(taps=(src, tgt))
-        state = self.init_state()
-        params = self._prep_params(self.parameters_pytree())
-        eparams = params["edges"][_ekey(src, tgt)] = dict(params["edges"][_ekey(src, tgt)])
-        W, P = edge.params["weights"], edge.params["P"]
+        run = self._online_setup(shard, obs, record)
+        state, params, eparams = run.state, run.params, run.eparams
+        W, P = eparams["weights"], edge.params["P"]
+        xs = inputs if shard is None else shard.cols(inputs)
+        if shard is not None:
+            targets = shard.target_rows(tgt, targets)
         w_dtype = W.dtype
         loss = torch.zeros((), dtype=w_dtype, device=self.device)
-        var_info = self._resolve_record_vars(obs) if record else []
         u, s = int(update_steps), int(sampling_steps)
         rec_steps, rec_out, rec_loss, rec_vars = [], [], [], []
         with torch.no_grad():
             for t in range(int(inputs.shape[0])):
                 eparams["weights"] = W
-                state, out, taps = step(state, params, inputs[t])
+                state, out, taps = run.step(state, params, xs[t])
                 if t % u == 0:
+                    y_hat = taps[tgt] if shard is None else shard.target_rows(tgt, taps[tgt])
                     W, P, loss = update(W, P, taps[src].to(w_dtype), targets[t].to(w_dtype),
-                                        taps[tgt].to(w_dtype))
+                                        y_hat.to(w_dtype))
                 if record and t % s == 0:
                     rec_steps.append(t)
                     rec_out.append(out)
                     rec_loss.append(loss)
-                    rec_vars.append(_read_vars(var_info, state, params))
-        edge.params["weights"] = W  # P was downdated in place
-        self._write_back(state=state)
+                    rec_vars.append(_read_vars(run.read_info, state, params))
+        edge.params["weights"] = W if shard is None else shard.edge_whole(src, tgt, "weights", W)
+        out, series = run.finish(state, rec_out, rec_vars)
+        if shard is not None and tgt in shard.rows:  # each rank's rows' squared errors
+            rows_sum = shard.model_sum
+        else:
+            def rows_sum(x):
+                return x
         if record and rec_steps:
-            var_values = {key: _host(torch.stack([r[i] for r in rec_vars]))
-                          for i, (key, _, _, _) in enumerate(var_info)}
-            obs.record_batch(np.asarray(rec_steps), outputs=_host(torch.stack(rec_out)),
-                             losses=_host(torch.stack(rec_loss)), var_values=var_values or None)
-        return loss
+            obs.record_batch(np.asarray(rec_steps), outputs=_host(out),
+                             losses=_host(rows_sum(torch.stack(rec_loss))),
+                             var_values={k: _host(v) for k, v in series.items()} or None)
+        return rows_sum(loss)
 
     def fit_stdp(self, inputs, sampling_steps: int = 100, reward=None, tau_e: float = None,
                  homeostasis_steps: int = None, homeostasis_target=None, verbose: bool = True,
@@ -2861,12 +3037,23 @@ class Network:
         ``record_spikes=[node, ...]`` adds each node's spike counts over the
         window that ends at each record step, that step included, under
         ``(node, "spikes")`` (int32).
+
+        ``mesh=``: each step is the population shard's; the rule updates
+        this rank's rows of the weights and of ``x_post`` (block rows of a
+        block edge; ``stdp_update`` on the rank's rows), from the gathered
+        pre-synaptic spikes and the whole ``x_pre``; homeostasis rescales
+        the rank's rows toward their targets; the ``w_mean``/``w_min``/
+        ``w_max`` records reduce over the whole weights with one all-gather
+        at each record; a reward stays whole.  The weights, traces, state and
+        records are those of the fit without a mesh.
         """
         if not self._train_edge:
             raise ValueError("No STDP-trainable edge in the network; add one with "
                              "add_edge(..., train='stdp').")
         self.compile()
-        spike_info = self._resolve_record_spikes(kwargs.pop("record_spikes", None))
+        shard = self._fit_shard(kwargs.pop("mesh", None))
+        spike_labels = kwargs.pop("record_spikes", None)
+        spike_info = self._resolve_record_spikes(spike_labels)
         src, tgt = self._train_edge
         edge = self.get_edge(src, tgt)
         if not isinstance(edge, (STDP, BlockSparseSTDP)):
@@ -2887,11 +3074,11 @@ class Network:
                 raise ValueError(
                     f"fit_stdp: node {label!r} emits a {got}-wide spike vector but "
                     f"the STDP edge {src!r} -> {tgt!r} expects {want}.")
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("fit_stdp(mesh=)", "14")
         obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
         obs = Observer(dt=self.dt, **obs_kwargs)
         t0 = perf_counter()
+        # the rule of this rank's rows (a block edge's columns of its block rows)
+        rule = edge if shard is None else shard.edge(src, tgt)
 
         W = edge.params["weights"]
         w_dtype = W.dtype
@@ -2904,7 +3091,7 @@ class Network:
                     "sign); construct the edge with soft_bounds=False.")
             if tau_e is None:
                 tau_e = 10.0 * max(edge.tau_plus, edge.tau_minus)
-            update = edge.reward_update_fn(self.dt, float(tau_e))
+            update = rule.reward_update_fn(self.dt, float(tau_e))
             reward = (reward.detach() if isinstance(reward, torch.Tensor)
                       else torch.as_tensor(np.asarray(reward, dtype=np.float64)))
             reward = reward.to(device=self.device, dtype=w_dtype).reshape(-1)
@@ -2915,7 +3102,7 @@ class Network:
                 raise ValueError(
                     "tau_e only applies to reward-modulated STDP; pass the "
                     "per-step reward= signal as well (or drop tau_e).")
-            update = edge.update_fn(self.dt)
+            update = rule.update_fn(self.dt)
         consts = edge._consts()
         h_steps, h_target = 0, None
         if homeostasis_steps is not None:
@@ -2979,20 +3166,36 @@ class Network:
         scale_rows = _homeo_scaler(consts, h_target, blocky) if h_steps else None
 
         s = int(sampling_steps)
-        step = self.make_step()
-        state = self.init_state()
-        params = self._prep_params(self.parameters_pytree())
-        # the step reads the plastic weights of the loop, never a prepped copy
         ekey = _ekey(src, tgt)
-        eparams = params["edges"][ekey] = dict(params["edges"][ekey])
-        pre_read = self.get_node(src)._make_spike_reader()
-        post_read = self.get_node(tgt)._make_spike_reader()
-        var_info = self._resolve_record_vars(obs)
+        # the step reads the plastic weights of the loop, never a prepped copy
+        run = self._online_setup(shard, obs)
+        step, state, params, eparams = run.step, run.state, run.params, run.eparams
         x_pre, x_post = edge.params["x_pre"], edge.params["x_post"]
+        node_of, pre_whole = self.get_node, None
+        if shard is not None:
+            spike_info = self._resolve_record_spikes(spike_labels, shard)
+            node_of, pre_whole = shard.node, (lambda spk: shard.whole(src, spk))
+            xs = shard.inputs(xs)
+            W, x_post, E = (shard.edge_part(src, tgt, key, v)
+                            for key, v in (("weights", W), ("x_post", x_post), ("elig", E)))
+            if h_steps:
+                scale_rows = _homeo_scaler(consts, shard.target_rows(tgt, h_target), blocky)
+        pre_read = node_of(src)._make_spike_reader()
+        post_read = node_of(tgt)._make_spike_reader()
         rec_out, rec_w, rec_spk, rec_vars, acc = [], [], [], [], None
+
+        def w_stats(W):
+            if shard is None or tgt not in shard.rows:
+                return torch.stack([W.mean(), W.min(), W.max()])
+            part = shard.model_parts(torch.stack([W.sum(), W.min(), W.max()]))
+            return torch.stack([part[:, 0].sum() / (W.numel() * shard.n_model),
+                                part[:, 1].min(), part[:, 2].max()])
+
         with torch.no_grad():
             for t in range(steps):
                 spk_pre = pre_read(state["nodes"][src]).to(w_dtype)
+                if pre_whole is not None:
+                    spk_pre = pre_whole(spk_pre)
                 spk_post = post_read(state["nodes"][tgt]).to(w_dtype)
                 if spike_info:
                     ind = [reader(state["nodes"][label]).to(torch.float32)
@@ -3010,33 +3213,35 @@ class Network:
                     W = scale_rows(W)
                 if t % s == 0:
                     rec_out.append(out)
-                    rec_w.append(torch.stack([W.mean(), W.min(), W.max()]).to(w_dtype))
+                    rec_w.append(w_stats(W).to(w_dtype))
                     if spike_info:
                         rec_spk.append(acc)
                         acc = None
-                    rec_vars.append(_read_vars(var_info, state, params))
+                    rec_vars.append(_read_vars(run.read_info, state, params))
                 if scale_now and segmented:
                     W = scale_rows(W)
         if h_steps:
             edge._homeo_phase = (h_phase + steps) % h_steps
+        if shard is not None:
+            W, x_post, E = (shard.edge_whole(src, tgt, key, v)
+                            for key, v in (("weights", W), ("x_post", x_post), ("elig", E)))
         edge.params["weights"] = W
         edge.params["x_pre"] = x_pre
         edge.params["x_post"] = x_post
         if reward_mode:
             edge.params["elig"] = E
-        self._write_back(state=state)
+        out, var_values = run.finish(state, rec_out, rec_vars)
 
         rec_steps = np.arange(0, steps, s)
-        var_values = {}
+        var_values = {k: _host(v) for k, v in var_values.items()}
         for i, (label, _) in enumerate(spike_info):
             counts = [r[i] for r in rec_spk]
+            if counts and shard is not None:
+                counts = list(shard.whole(label, torch.stack(counts)))
             var_values[(label, "spikes")] = (
                 _host(torch.round(torch.stack(counts)).to(torch.int32)) if counts
                 else np.zeros((0, 0), dtype=np.int32))
-        for i, (key, _, _, _) in enumerate(var_info):
-            if rec_vars:
-                var_values[key] = _host(torch.stack([r[i] for r in rec_vars]))
-        obs.record_batch(rec_steps, outputs=_host(torch.stack(rec_out)) if rec_out else None,
+        obs.record_batch(rec_steps, outputs=_host(out) if rec_out else None,
                          losses=np.zeros(len(rec_steps)) if obs.record_loss else None,
                          var_values=var_values or None)
         w_stats = _host(torch.stack(rec_w)) if rec_w else np.zeros((0, 3))
@@ -3071,22 +3276,23 @@ class Network:
         0-dim tensors of that type.  Steps without an update skip it (the
         JAX package computes it and gates it to zero).  Records at ``step %
         sampling_steps == 0``: the output, the loss ``|err|^2`` and
-        ``record_vars``."""
+        ``record_vars``.
+
+        ``mesh=``: as in :meth:`fit_rls`, the shard's step, the whole
+        source tap, the readout's rows of the weights and of the residual
+        trace where the readout is sharded (the loss summed over the model
+        group at the end, the fed-back residual gathered each step)."""
         if not self._train_edge:
             raise ValueError("No online-trainable edge; add one with "
                              "add_edge(..., train='eprop') or train='rls'.")
         self.compile()
         obs_kwargs = retrieve_from_dict(["record_output", "record_loss", "record_vars"], kwargs)
         obs = Observer(dt=self.dt, **obs_kwargs)
-        if kwargs.pop("mesh", None) is not None:
-            raise _todo("fit_eprop(mesh=)", "14")
+        shard = self._fit_shard(kwargs.pop("mesh", None))
         src, tgt = self._train_edge
         edge = self.get_edge(src, tgt)
-        step = self.make_step(taps=(src, tgt))
-        params = self._prep_params(self.parameters_pytree())
-        ekey = _ekey(src, tgt)
-        eparams = params["edges"][ekey] = dict(params["edges"][ekey])
-        state = self.init_state()
+        run = self._online_setup(shard, obs)
+        state, params, eparams = run.state, run.params, run.eparams
         inputs, targets = self._to_device(inputs), self._to_device(targets)
         if inputs.shape[0] != targets.shape[0]:
             raise ValueError(
@@ -3103,7 +3309,13 @@ class Network:
                 raise ValueError(
                     f"feedback_weights must have shape (n_in, n_out) = "
                     f"({self.n_in}, {int(W.shape[0])}); got {tuple(fb.shape)}.")
-        var_info = self._resolve_record_vars(obs)
+        W = eparams["weights"]  # this rank's rows where the readout is sharded
+        rows = shard is not None and tgt in shard.rows
+
+        def whole_err(e):
+            return shard.whole(tgt, e) if rows else e
+        if shard is not None:
+            targets = shard.target_rows(tgt, targets)
         # the traces never drop below float32: epsilon = 0.99 loses ~17% of
         # (1 - epsilon) in bfloat16; a float64 readout keeps float64
         acc = torch.promote_types(w_dtype, torch.float32)
@@ -3119,9 +3331,11 @@ class Network:
                 eparams["weights"] = W
                 x_t = inputs[t]
                 if fb is not None:
-                    x_t = x_t + fb @ err_bar.to(self.dtype)
-                state, out, taps = step(state, params, x_t)
-                err = targets[t].to(acc) - taps[tgt].to(acc)
+                    x_t = x_t + fb @ whole_err(err_bar).to(self.dtype)
+                x_t = x_t if shard is None else shard.cols(x_t)
+                state, out, taps = run.step(state, params, x_t)
+                y_hat = taps[tgt] if shard is None else shard.target_rows(tgt, taps[tgt])
+                err = targets[t].to(acc) - y_hat.to(acc)
                 err_bar = eps_t * err_bar + (1.0 - eps_t) * err
                 elig = delta_t * elig + (1.0 - delta_t) * taps[src].to(acc)
                 if t % u == 0:
@@ -3133,14 +3347,14 @@ class Network:
                     rec_steps.append(t)
                     rec_out.append(out.to(w_dtype))
                     rec_loss.append(err @ err)
-                    rec_vars.append(_read_vars(var_info, state, params))
-        edge.params["weights"] = W
-        self._write_back(state=state)
+                    rec_vars.append(_read_vars(run.read_info, state, params))
+        edge.params["weights"] = W if shard is None else shard.edge_whole(src, tgt, "weights", W)
+        out, series = run.finish(state, rec_out, rec_vars)
         if rec_steps:
-            var_values = {key: _host(torch.stack([r[i] for r in rec_vars]))
-                          for i, (key, _, _, _) in enumerate(var_info)}
-            obs.record_batch(np.asarray(rec_steps), outputs=_host(torch.stack(rec_out)),
-                             losses=_host(torch.stack(rec_loss)), var_values=var_values or None)
+            losses = torch.stack(rec_loss)
+            obs.record_batch(np.asarray(rec_steps), outputs=_host(out),
+                             losses=_host(shard.model_sum(losses) if rows else losses),
+                             var_values={k: _host(v) for k, v in series.items()} or None)
         if verbose:
             print(f"Finished optimization after {perf_counter() - t0} s.")
         return obs
@@ -3196,14 +3410,18 @@ def _value_and_grad(loss_fn, train, *args, has_aux: bool = False):
     return out + (aux,) if has_aux else out
 
 
-def _minibatch_update(batch_loss, opt, train, opt_state, y0, micro: list) -> tuple:
+def _minibatch_update(batch_loss, opt, train, opt_state, y0, micro: list,
+                      reduce: Callable = None) -> tuple:
     """One optimizer update of the batched-trial trainers on one minibatch:
     the mean of the micro-batches' losses and gradients (each the mean over
     its trials), then ``opt.update``.  Returns ``(train', opt_state', loss)``
-    with the loss a 0-d device tensor."""
+    with the loss a 0-d device tensor.  ``reduce(loss, grads)``: a mesh
+    fit's reduction of each micro-batch's over the ranks."""
     lsum, gsum = None, None
     for fz, xs, tgt in micro:  # equal micro-batches: the mean of their means
         lval, grads = _value_and_grad(batch_loss, train, fz, y0, xs, tgt)
+        if reduce is not None:
+            lval, grads = reduce(lval, grads)
         lsum = lval if lsum is None else lsum + lval
         gsum = grads if gsum is None else tree_map(torch.add, gsum, grads)
     if len(micro) > 1:

@@ -130,7 +130,7 @@ def _make_matvec(cast):
     return prep, _float_matvec, mv_t, grad_w
 
 
-def _make_sparse_matvec(cast, cols):
+def _make_sparse_matvec(cast, cols, n_bc: int = None):
     """Block-sparse ``(prep, mv, mv_t, grad_w)`` of a float or
     ``bfloat16_master`` coupling (the JAX package's ``_make_sparse_matvec``);
     ``cols (n_br, cb)`` is its block structure.  The contractions round to
@@ -143,7 +143,9 @@ def _make_sparse_matvec(cast, cols):
     ``onehot`` (the same contraction, the reduction a product with the
     constant one-hot membership matrix) or ``gather`` (each column block's
     incoming tiles through the transposed structure); all give the same
-    gradient up to float32 summation order."""
+    gradient up to float32 summation order.  ``n_bc``: the source's column
+    blocks, where ``cols`` holds some of the block rows (a population
+    shard's; default: a square coupling's ``n_br``)."""
     from .quant import _np_cols, _onehot_col_matrix, _transposed_block_table, block_grad_w
     from .quant import sparse_bwd_mode
     from .sparse import block_contract, block_sparse_matvec
@@ -151,10 +153,11 @@ def _make_sparse_matvec(cast, cols):
     bf16 = cast == "bf16"
     cols_np = _np_cols(cols)
     n_br, cb = cols_np.shape
+    n_bc = n_bc or n_br
     cols_t = torch.as_tensor(cols_np)
     mode = sparse_bwd_mode()
-    table = _transposed_block_table(cols_np) if mode == "gather" else None
-    onehot = _onehot_col_matrix(cols_np) if mode == "onehot" else None
+    table = _transposed_block_table(cols_np, n_bc) if mode == "gather" else None
+    onehot = _onehot_col_matrix(cols_np, n_bc) if mode == "onehot" else None
 
     def prep(w):
         if bf16 and w.dtype not in (torch.bfloat16, torch.int8):
@@ -166,8 +169,8 @@ def _make_sparse_matvec(cast, cols):
         return block_sparse_matvec(w, cols_t.to(w.device), src, cast_dtype=cast_dtype)
 
     def mv_t(w, delta):
-        """``A^T @ delta`` for a square block-sparse ``A`` (the recurrent
-        coupling), float32-rounded, in ``delta``'s dtype."""
+        """``A^T @ delta`` for the recurrent block-sparse ``A`` (its
+        ``n_bc`` column blocks), float32-rounded, in ``delta``'s dtype."""
         bs = w.shape[-2]
         lead = delta.shape[:-1]
         d_blk = delta.reshape(-1, n_br, bs)
@@ -192,9 +195,9 @@ def _make_sparse_matvec(cast, cols):
             if mode == "onehot":
                 out = torch.einsum("lkj,kq->lqj", contrib, onehot.to(dev))
             else:
-                out = torch.zeros((L, n_br, bs), dtype=torch.float32, device=dev)
+                out = torch.zeros((L, n_bc, bs), dtype=torch.float32, device=dev)
                 out = out.index_add(1, cols_t.to(dev).reshape(-1), contrib)
-        return out.reshape(*lead, n_br * bs).to(delta.dtype)
+        return out.reshape(*lead, n_bc * bs).to(delta.dtype)
 
     def grad_w(deltas, srcs):
         """``dA[r, c] = sum_t delta_t[row block r] (x) src_t[block cols[r,
@@ -206,13 +209,33 @@ def _make_sparse_matvec(cast, cols):
 
 
 # ------------------------------------------------------------ the node pieces
-def _node_pieces(node, allow_no_coupling: bool = False):
+def _sharded_int8_mv_t(comm):
+    """``int8_master``'s transposed product on a population shard's rows:
+    the dynamic scale of ``ws * delta`` is the maximum over every rank's
+    rows (one all-reduce), each rank's integer sums over its rows are added
+    (one all-reduce) before the scale multiplies them, so the result is the
+    whole cotangent of the gathered source, as the unsharded product gives
+    it while the integer sums stay exact in float32."""
+    from .quant import int8_product_t, quant_vec
+
+    def mv_t(wp, delta):
+        wq, ws = wp
+        vq, vs = quant_vec(ws.to(delta.dtype) * delta, reduce=comm.all_reduce_max)
+        part = int8_product_t(wq, vq, torch.ones_like(vs))
+        return (comm.all_reduce(part) * vs).to(delta.dtype)
+
+    return mv_t
+
+
+def _node_pieces(node, allow_no_coupling: bool = False, comm=None):
     """Validate a node for deferred-gradient BPTT and build its per-population
     machinery: coupling source readers, the coupling-free step function and
     the per-coupling contractions.  Shared by the population trajectory and
     the graph trajectory (``ops/graph_bptt.py``), which admits populations
     without a coupling (``allow_no_coupling``: all their coupling rides on
-    edges)."""
+    edges).  ``comm`` (``parallel/comm.TrajectoryComm``): the node is a
+    population shard (``RateNet._shard``) whose couplings hold its rows;
+    ``gathered(key, i, src)`` makes coupling ``i``'s source whole."""
     vf = getattr(node, "_vf", None)
     if vf is None or vf.tile_func is None:
         raise ValueError("Deferred-gradient BPTT requires a DSL-built node (raw-constructor "
@@ -261,9 +284,22 @@ def _node_pieces(node, allow_no_coupling: bool = False):
 
                 ops4.append(make_block_int8_ops(node._args[wk + "__cols"]))
             else:
-                ops4.append(_make_sparse_matvec(vf.coupling_cast, node._args[wk + "__cols"]))
+                n_br = node._args[wk].shape[0]
+                ops4.append(_make_sparse_matvec(vf.coupling_cast, node._args[wk + "__cols"],
+                                                n_br * (comm.size if comm is not None else 1)))
         else:
             ops4.append(_make_matvec(vf.coupling_cast))
+    presummed = [False] * len(wkeys)
+    if comm is not None:
+        for i, wk in enumerate(wkeys):
+            if vf.coupling_cast == "int8" and node._args[wk].dim() == 2:
+                ops4[i] = ops4[i][:2] + (_sharded_int8_mv_t(comm),) + ops4[i][3:]
+                presummed[i] = True
+            elif vf.coupling_cast in ("int8", "int4"):
+                raise NotImplementedError(
+                    f"a {'block ' if node._args[wk].dim() == 4 else ''}{vf.coupling_cast}"
+                    f"_master coupling trains on a model axis of one rank only: its "
+                    f"transposed product quantizes the cotangent with one dynamic scale")
 
     # spiking configuration per node class (nodes.py make_step of each):
     # (surrogate keys, (lo, hi), hard reset)
@@ -328,6 +364,13 @@ def _node_pieces(node, allow_no_coupling: bool = False):
             y_new = torch.cat((y_new[..., :lo], seg, y_new[..., hi:]), dim=-1)
         return y_new, read_out(y_new if post_out else y, a2)
 
+    def gathered(key, i, src):
+        """Coupling ``i``'s source made whole (a shard's; its cotangent
+        summed over the ranks unless the transposed product gives the
+        whole one already, as ``int8_master``'s does, see
+        :func:`_sharded_int8_mv_t`)."""
+        return src if comm is None else comm.gather(key, src, not presummed[i])
+
     def out_pre(y, args):
         """The output read from a state (the pre-update output of the
         classes with ``post_out`` false; the fed-back output of all)."""
@@ -336,7 +379,8 @@ def _node_pieces(node, allow_no_coupling: bool = False):
     return SimpleNamespace(
         heun=heun, wkeys=wkeys, src_fn=src_fn, step_x=step_x, ext_of=ext_of,
         preps=[o[0] for o in ops4], mvs=[o[1] for o in ops4], mv_ts=[o[2] for o in ops4],
-        grad_ws=[o[3] for o in ops4], n=n, dt=dt, state_order=state_order,
+        grad_ws=[o[3] for o in ops4], gathered=gathered, comm=comm, n=n, dt=dt,
+        state_order=state_order,
         split_states=split_states, tile_func=tile_func, inp_key=inp_key,
         src_readers=src_readers, post_out=post_out, out_pre=out_pre, read_out=read_out)
 
@@ -430,9 +474,12 @@ def _forward_loop(prog, wp, args, C0, xs, with_residuals: bool):
     pre-step carries and each stage's sources and results, stacked over
     time (carries as a list of trees)."""
     S = len(prog.stages)
+    comm = getattr(prog, "comm", None)
     C, outs = C0, []
     Cs, srcs_t, svals_t = [], [[] for _ in range(S)], [[] for _ in range(S)]
     for x in xs.unbind(0):
+        if comm is not None:
+            comm.forward_step(with_residuals)
         srcs, svals = [], []
         for j, st in enumerate(prog.stages):
             src = st.producer(C, svals, x, args)
@@ -449,6 +496,10 @@ def _forward_loop(prog, wp, args, C0, xs, with_residuals: bool):
     res = None
     if with_residuals:
         res = (Cs, [torch.stack(s) for s in srcs_t], [torch.stack(s) for s in svals_t])
+        if comm is not None:  # the gathered sources, for the backward's replay
+            res += (comm.take_log(),)
+    elif comm is not None:
+        comm.done()
     return C, torch.stack(outs), res
 
 
@@ -471,11 +522,14 @@ def _add(acc, g):
 
 
 def _backward_loop(prog, wp, args, xs, Cs, svals_t, lam, cot_outs, need_x: bool,
-                   need_args: List[tuple], d_args: dict):
+                   need_args: List[tuple], d_args: dict, gathered: list = None):
     """The reverse sweep over the steps of ``Cs``.  ``lam`` is the
     cotangent of the carry after the last step (a dict of path -> tensor
     or None); ``d_args`` (path -> gradient) accumulates in place.  Returns
-    ``(lam0, deltas per stage (T, ...), d_xs or None)``."""
+    ``(lam0, deltas per stage (T, ...), d_xs or None)``.  ``gathered``: a
+    population shard's per-step log of gathered sources, which the
+    recomputed producers replay (``parallel/comm.TrajectoryComm``)."""
+    comm = getattr(prog, "comm", None)
     S = len(prog.stages)
     T = len(Cs)
     c_paths = _split_tree(Cs[0])[0]
@@ -487,6 +541,8 @@ def _backward_loop(prog, wp, args, xs, Cs, svals_t, lam, cot_outs, need_x: bool,
     dep = [j for j, st in enumerate(prog.stages) if st.reads_svals]
     c_other = _split_tree(Cs[0])[2]
     for t in range(T - 1, -1, -1):
+        if comm is not None:
+            comm.replay_step(gathered[t])
         c_vals = [_tree_get(Cs[t], p) for p in c_paths]
         with torch.enable_grad():
             c_leaves = [v.detach().requires_grad_(_diff(v)) for v in c_vals]
@@ -546,6 +602,8 @@ def _backward_loop(prog, wp, args, xs, Cs, svals_t, lam, cot_outs, need_x: bool,
         it = iter(dC)
         for p, v in zip(c_paths, c_leaves):
             lam[p] = next(it) if v.requires_grad else None
+    if comm is not None:
+        comm.done()
     deltas_t = [torch.stack(d[::-1]) for d in deltas_rev]
     d_xs = torch.stack(d_xs_rev[::-1]) if need_x else None
     return lam, deltas_t, d_xs
@@ -615,10 +673,11 @@ class _Traj(torch.autograd.Function):
             starts = ctx.res
             for c in range(len(starts) - 1, -1, -1):
                 xc = xs[c * R:(c + 1) * R]
-                _, _, (Cs, srcs_t, svals_t) = _forward_loop(prog, wp, args, starts[c], xc, True)
+                _, _, (Cs, srcs_t, svals_t, *log) = _forward_loop(prog, wp, args, starts[c], xc,
+                                                                  True)
                 lam, deltas_t, d_xc = _backward_loop(prog, wp, args, xc, Cs, svals_t, lam,
                                                      cot_outs[c * R:(c + 1) * R], need_x,
-                                                     need_args, d_args)
+                                                     need_args, d_args, *log)
                 for j, st in enumerate(prog.stages):
                     if want(st):
                         dE[j] = _add(dE.get(j), st.grad_w(deltas_t[j], srcs_t[j]))
@@ -627,9 +686,9 @@ class _Traj(torch.autograd.Function):
             d_xs = torch.cat(d_xs_c[::-1]) if need_x else None
             d_raw = [dE.get(j) for j in range(S)]
         else:
-            Cs, srcs_t, svals_t = ctx.res
+            Cs, srcs_t, svals_t, *log = ctx.res
             lam, deltas_t, d_xs = _backward_loop(prog, wp, args, xs, Cs, svals_t, lam,
-                                                 cot_outs, need_x, need_args, d_args)
+                                                 cot_outs, need_x, need_args, d_args, *log)
             d_raw = [st.grad_w(deltas_t[j], srcs_t[j]) if want(st) else None
                      for j, st in enumerate(prog.stages)]
         del ctx.res
@@ -670,7 +729,7 @@ def _population_program(p):
     stages = []
     for i in range(K):
         def producer(y, svals, x, args, i=i):
-            return p.src_fn(y, args)[i]
+            return p.gathered(("c", i), i, p.src_fn(y, args)[i])
 
         stages.append(SimpleNamespace(producer=producer, mv=p.mvs[i], mv_t=p.mv_ts[i],
                                       grad_w=p.grad_ws[i], widx=i, reads_svals=False))
@@ -678,7 +737,7 @@ def _population_program(p):
         src2_fn, step_x2 = heun_fns(p)
         for i in range(K):
             def producer2(y, svals, x, args, i=i):
-                return src2_fn(y, tuple(svals[:K]), x, args)[i]
+                return p.gathered(("c2", i), i, src2_fn(y, tuple(svals[:K]), x, args)[i])
 
             stages.append(SimpleNamespace(producer=producer2, mv=p.mvs[i], mv_t=p.mv_ts[i],
                                           grad_w=p.grad_ws[i], widx=i, reads_svals=True))
@@ -702,7 +761,7 @@ def _population_program(p):
                 d_w[st.widx] = d if d_w[st.widx] is None else d_w[st.widx] + d
         return d_w
 
-    return SimpleNamespace(stages=stages, final=final, prep=prep, finish=finish)
+    return SimpleNamespace(stages=stages, final=final, prep=prep, finish=finish, comm=p.comm)
 
 
 def _population_traj(p, remat_steps: int = 0, wp=None):
@@ -714,7 +773,7 @@ def _population_traj(p, remat_steps: int = 0, wp=None):
     return run
 
 
-def make_coupled_traj(node, remat_steps: int = 0) -> Tuple[Callable, List[str]]:
+def make_coupled_traj(node, remat_steps: int = 0, comm=None) -> Tuple[Callable, List[str]]:
     """Build ``traj(weights: dict, args: dict, y0, xs) -> (yT, outs)`` whose
     backward defers every coupling-weight gradient to one contraction after
     the reverse loop.  Returns ``(traj, weight_keys)``.
@@ -727,8 +786,14 @@ def make_coupled_traj(node, remat_steps: int = 0) -> Tuple[Callable, List[str]]:
     trajectory in K-step chunks: the forward keeps the chunk-entry states
     only (O(T/K) memory instead of O(T) residuals) and the backward
     recomputes each chunk's residuals before its reverse sweep, one more
-    forward pass over ``W``."""
-    p = _node_pieces(node)
+    forward pass over ``W``.
+
+    ``comm`` (``parallel/comm.TrajectoryComm``): ``node`` is a population
+    shard; each step gathers the coupling sources once (the weight rows
+    contract the whole source), the backward all-reduces their cotangents,
+    and ``dW`` contracts the shard's cotangent rows with the saved whole
+    sources."""
+    p = _node_pieces(node, comm=comm)
     if p.heun and int(remat_steps) > 1:
         raise ValueError("Deferred-gradient BPTT with remat_steps is Euler-only (Heun takes "
                          "plain autograd, or the graph trajectory, when checkpointing is "

@@ -160,7 +160,7 @@ def _block_edge_ops(e):
     return mb, mv, mv_t, grad_w
 
 
-def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespace]:
+def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, SimpleNamespace]:
     """Build ``traj(weights, args, Y0, xs) -> (YT, outs)`` for the whole
     compiled network, whose backward defers every coupling and edge weight
     gradient to one contraction after the reverse loop.
@@ -184,7 +184,18 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
 
     ``remat_steps=K`` (``T`` divisible by ``K``) checkpoints the trajectory
     in K-step chunks: the forward keeps the chunk-entry carries only and the
-    backward recomputes each chunk's stage records (``ops/bptt.py``)."""
+    backward recomputes each chunk's stage records (``ops/bptt.py``).
+
+    ``shard`` (``parallel/sharding.NetworkShard``): the trajectory of this
+    rank's rows.  Its populations are the shard's local nodes and its edges
+    the local edges (their rows of the weights); ``weights``, ``args`` and
+    the carry are the placed trees (edge states whole), ``outs`` the output
+    node's rows.  Each sharded source is gathered once a step and its
+    cotangent all-reduced once in the backward (``parallel/comm.
+    TrajectoryComm``).  A leaf that a sharded node or edge holds whole
+    gets the gradient of the shard's rows, which the caller sums over the
+    model group.  On a model axis of one the shard is the network
+    itself."""
     from ..edges import (BlockSparseLinear, Linear, LinearFilter, LinearMasked, LinearMemory,
                          LinearMemoryFilter)
     from ..network import _ekey
@@ -195,7 +206,11 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
     order = list(net._compiled["order"])
     preds = {n: sorted(net.graph.predecessors(n)) for n in order}
     out_node = net._out_node
-    fb_edges = net._fb_edge_list()
+    rows = shard.rows if shard is not None else {}
+    comm = shard.traj_comm() if rows else None
+    get_node = shard.node if rows else net.get_node
+    get_edge = shard.edge if rows else net.get_edge
+    fb_edges = shard.fb_edges if rows else net._fb_edge_list()
     fb_by_target: Dict[str, list] = {}
     for u, v, _ in fb_edges:
         fb_by_target.setdefault(v, []).append(u)
@@ -204,21 +219,49 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
     progs: Dict[str, SimpleNamespace] = {}
     inst_steps: Dict[str, Callable] = {}
     for lbl in order:
-        node = net.get_node(lbl)
+        node = get_node(lbl)
         if isinstance(node, InstantNode):
             inst_steps[lbl] = node.make_step()
         else:
-            progs[lbl] = _node_pieces(node, allow_no_coupling=True)
+            progs[lbl] = _node_pieces(node, allow_no_coupling=True,
+                                      comm=comm if lbl in rows else None)
     if not progs:
         raise ValueError("Deferred-gradient graph BPTT requires at least one DSL-built "
                          "population.")
     allowed = (Linear, LinearMasked, LinearMemory, LinearFilter, LinearMemoryFilter,
                BlockSparseLinear)
-    for u, n, e in ([(u, n, net.get_edge(u, n)) for n in order for u in preds[n]]
+    for u, n, e in ([(u, n, get_edge(u, n)) for n in order for u in preds[n]]
                     + list(fb_edges)):
         if type(e) not in allowed:
             raise ValueError(f"Deferred-gradient graph BPTT requires linear-family edges; "
                              f"edge {u}->{n} is {type(e).__name__}.")
+        if n in rows and (e.params["weights"].dim() == 1
+                          or getattr(e, "_int8_master", False)):
+            what = ("diagonal gains" if e.params["weights"].dim() == 1
+                    else "int8_master blocks")
+            raise NotImplementedError(
+                f"edge {u}->{n} ({what}) into a population shard: the graph trajectory "
+                f"trains it on a model axis of one rank only")
+
+    def source(u, v, producer, kind: str):
+        """The producer of what edge ``u -> v`` reads of its source: a
+        sharded source gathered, once a step per kind of consumer (its
+        cotangent summed over the model group where the shard's rows
+        consume it), a whole source into the shard's rows marked as such
+        (summed cotangent).  A stateful edge's buffer or filter state is
+        whole on every rank: its cotangent stays the shard's part until the
+        source read sums it."""
+        if comm is None or (u not in rows and v not in rows):
+            return producer
+        if u not in rows:
+            def partial(C, svals, x, args):
+                return comm.to_partial(producer(C, svals, x, args))
+            return partial
+        summed = v in rows
+
+        def gathered(C, svals, x, args):
+            return comm.gather((kind, u, summed), producer(C, svals, x, args), summed)
+        return gathered
 
     # stages along the topological order; a producer sees (C, svals[:j], x,
     # args).  ``reads`` marks producers that read earlier stage results (the
@@ -291,7 +334,7 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
         return [(stage(f"e:{ek}", _block_edge_ops(e), b_producer, reads),
                  ("edges", ek, "weights"))]
 
-    def edge_stages(u, nname, e, producer, reads):
+    def edge_stages(u, nname, e, producer, reads, kind="out"):
         """Stage(s) of one edge, ``[(stage, path)]``; the last stage is the
         edge's output.  Stateless ``Linear``/``LinearMasked``: one stage of
         the source output.  ``LinearMemory``: the stage projects slot 0 of
@@ -301,6 +344,7 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
         filter stage over the rolled buffer, then the weight stage of the
         written slot 0."""
         ek = _ekey(u, nname)
+        producer = source(u, nname, producer, kind)
         if type(e) is BlockSparseLinear:
             return block_edge_stage(e, producer, reads, ek)
         w = e.params["weights"]
@@ -382,12 +426,12 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
         def fb_producer(C, svals, x, args, u=u):
             return C["fb"][u]
 
-        add(edge_stages(u, v, e, fb_producer, False), ("fb", u, v))
+        add(edge_stages(u, v, e, fb_producer, False, "fb"), ("fb", u, v))
 
     for nname in order:
         # 1. the stages of this node's input edges (sources: their outputs)
         for u in preds[nname]:
-            add(edge_stages(u, nname, net.get_edge(u, nname), out_expr[u], out_reads[u]),
+            add(edge_stages(u, nname, get_edge(u, nname), out_expr[u], out_reads[u]),
                 ("e", u, nname))
 
         # 2. the node's input: regular edges (sorted), then feedback, summed
@@ -414,7 +458,8 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
             pk = progs[nname]
             for i, wk in enumerate(pk.wkeys):
                 def c_producer(C, svals, x, args, nname=nname, i=i, pk=pk):
-                    return pk.src_fn(C["Y"][nname], args["nodes"][nname])[i]
+                    src = pk.src_fn(C["Y"][nname], args["nodes"][nname])[i]
+                    return pk.gathered(("c", nname, i), i, src)
 
                 ops = (pk.preps[i], pk.mvs[i], pk.mv_ts[i], pk.grad_ws[i])
                 add([(stage(f"n:{nname}:{wk}", ops, c_producer, False),
@@ -425,10 +470,11 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
                 c1 = tuple(stage_idx[("c", nname, i)] for i in range(len(pk.wkeys)))
                 for i, wk in enumerate(pk.wkeys):
                     def c2_producer(C, svals, x, args, nname=nname, c1=c1, i=i,
-                                    src2_fn=src2_fn):
+                                    src2_fn=src2_fn, pk=pk):
                         s1 = tuple(svals[j] for j in c1)
-                        return src2_fn(C["Y"][nname], s1, inp_expr[nname](C, svals, x, args),
-                                       args["nodes"][nname])[i]
+                        src = src2_fn(C["Y"][nname], s1, inp_expr[nname](C, svals, x, args),
+                                      args["nodes"][nname])[i]
+                        return pk.gathered(("c2", nname, i), i, src)
 
                     ops = (pk.preps[i], pk.mvs[i], pk.mv_ts[i], pk.grad_ws[i])
                     add([(stage(f"n:{nname}:{wk}", ops, c2_producer, True),
@@ -518,7 +564,7 @@ def make_graph_traj(net, remat_steps: int = 0) -> Tuple[Callable, SimpleNamespac
                 d_args[st.mask_path] = _add(d_args[st.mask_path], (dE * w).to(w.dtype))
         return d_w
 
-    prog = SimpleNamespace(stages=stages, final=final, prep=prep, finish=finish)
+    prog = SimpleNamespace(stages=stages, final=final, prep=prep, finish=finish, comm=comm)
     core = staged_traj(prog, remat_steps)
 
     def traj_carry(weights, args, C0, xs):

@@ -112,13 +112,17 @@ def quantize_rows(w: torch.Tensor):
     return wq, scale
 
 
-def quant_vec(x: torch.Tensor):
+def quant_vec(x: torch.Tensor, reduce=None):
     """Dynamic symmetric quantization of an activation vector:
     ``(xq int8 (n,), scale float32 0-dim)``.  Rows ``(..., n)`` take one
     scale each, ``(..., 1)``.  The scale carries no gradient, so the
-    quantized matvec stays exactly linear in ``x`` under STE."""
+    quantized matvec stays exactly linear in ``x`` under STE.  ``reduce``
+    (a population shard's maximum over its model group) makes the scale
+    that of the whole vector of which ``x`` holds some rows."""
     x = x.detach()
     amax = x.abs().amax() if x.dim() <= 1 else x.abs().amax(dim=-1, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax)
     s = exact_div(torch.clamp_min(amax, 1e-30), 127.0).to(torch.float32)
     xq = torch.clamp(torch.round(x / s.to(x.dtype)), -127, 127).to(torch.int8)
     return xq, s
@@ -1149,29 +1153,32 @@ def _block_t_contrib(bq, vq) -> torch.Tensor:
     return c.reshape(n_br, cb, bs, L).permute(3, 0, 1, 2)
 
 
-def _onehot_col_matrix(cols_np) -> torch.Tensor:
-    """One-hot block-column membership ``M (n_br*cb, n_br)``: ``M[r*cb +
+def _onehot_col_matrix(cols_np, n_bc: int = None) -> torch.Tensor:
+    """One-hot block-column membership ``M (n_br*cb, n_bc)``: ``M[r*cb +
     slot, cols[r, slot]] = 1``; the reduction over column blocks as one
-    product."""
+    product.  ``n_bc``, the column blocks, defaults to ``n_br`` (a square
+    coupling; a population shard holds some of its block rows)."""
     n_br, cb = cols_np.shape
-    M = np.zeros((n_br * cb, n_br), dtype=np.float32)
+    M = np.zeros((n_br * cb, n_bc or n_br), dtype=np.float32)
     M[np.arange(n_br * cb), np.asarray(cols_np).ravel()] = 1.0
     return torch.as_tensor(M)
 
 
-def _transposed_block_table(cols_np):
-    """The transposed block structure of the gather backward: for each
-    column block, the (row block, slot) pairs with ``cols[r, slot] == c``,
-    padded to the largest in-degree (``rows_T``, ``slot_T``, ``mask_T``)."""
+def _transposed_block_table(cols_np, n_bc: int = None):
+    """The transposed block structure of the gather backward: for each of
+    the ``n_bc`` column blocks (default ``n_br``: a square coupling), the
+    (row block, slot) pairs with ``cols[r, slot] == c``, padded to the
+    largest in-degree (``rows_T``, ``slot_T``, ``mask_T``)."""
     n_br, cb = cols_np.shape
-    lists = [[] for _ in range(n_br)]  # a square coupling
+    n_bc = n_bc or n_br
+    lists = [[] for _ in range(n_bc)]
     for r in range(n_br):
         for j in range(cb):
             lists[int(cols_np[r, j])].append((r, j))
     cb_t = max(1, max(len(entry) for entry in lists))
-    rows_T = np.zeros((n_br, cb_t), dtype=np.int64)
-    slot_T = np.zeros((n_br, cb_t), dtype=np.int64)
-    mask_T = np.zeros((n_br, cb_t), dtype=np.float32)
+    rows_T = np.zeros((n_bc, cb_t), dtype=np.int64)
+    slot_T = np.zeros((n_bc, cb_t), dtype=np.int64)
+    mask_T = np.zeros((n_bc, cb_t), dtype=np.float32)
     for c, pairs in enumerate(lists):
         for k, (r, j) in enumerate(pairs):
             rows_T[c, k], slot_T[c, k], mask_T[c, k] = r, j, 1.0

@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COLLECTIVES", "tally", "reset", "gather_last", "gather_whole", "gather_first",
-           "all_reduce", "to_partial"]
+           "all_reduce", "all_reduce_max", "to_partial", "TrajectoryComm"]
 
 COLLECTIVES = ("all-gather", "all-reduce", "collective-permute", "all-to-all",
                "reduce-scatter")
@@ -139,3 +139,96 @@ def to_partial(x: torch.Tensor, group, size: int) -> torch.Tensor:
     if size == 1 or not _grad(x):
         return x
     return _ToPartial.apply(x, group, size)
+
+
+def all_reduce_max(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The elementwise maximum of every rank's ``x`` (a new tensor)."""
+    if size == 1:
+        return x
+    out = x.detach().clone().contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    _count("all-reduce", out)
+    return out
+
+
+class _Replay(torch.autograd.Function):
+    """A gather the forward loop already made, replayed in the backward
+    sweep: the saved whole vector, with :func:`gather_last`'s (``summed``)
+    or :func:`gather_whole`'s gradient, and no all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, box, group, size, rank, summed):
+        ctx.group, ctx.size, ctx.rank, ctx.summed = group, size, rank, summed
+        ctx.rows = x.shape[-1]
+        return box[0].detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            g = all_reduce(g, ctx.group, ctx.size)
+        r0 = ctx.rank * ctx.rows
+        return g[..., r0:r0 + ctx.rows], None, None, None, None, None
+
+
+class TrajectoryComm:
+    """The collectives of a population shard inside a deferred-gradient
+    trajectory (``ops/bptt.py``, ``ops/graph_bptt.py``).
+
+    The forward loop calls :meth:`forward_step` before each step; within a
+    step each source is gathered once (``key``: the source and the kind of
+    its consumer) and, where the loop keeps its residuals, the gathered
+    vectors are logged.  The backward sweep calls :meth:`replay_step` with
+    the step's log: the recomputed producers then take the saved vectors
+    (no all-gather), and their gradients all-reduce over the model group
+    (a source consumed by the shard's rows) or take the own rows (a source
+    consumed by a node every rank runs whole).  So a step costs one
+    all-gather per sharded source forward and one all-reduce per source
+    backward, and the weight gradients contract the saved whole sources
+    with the local cotangents, with no gather of the trajectory."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+        self._log = None
+        self._step = None
+        self._replay = False
+
+    def forward_step(self, record: bool) -> None:
+        self._replay, self._step = False, {}
+        if record:
+            if self._log is None:
+                self._log = []
+            self._log.append(self._step)
+
+    def take_log(self) -> list:
+        """The per-step gathers logged since the last call (and stop)."""
+        log, self._log, self._step = self._log or [], None, None
+        return log
+
+    def replay_step(self, saved: dict) -> None:
+        self._replay, self._step = True, saved
+
+    def done(self) -> None:
+        self._step, self._replay = None, False
+
+    def gather(self, key, x: torch.Tensor, summed: bool = True) -> torch.Tensor:
+        """The whole vector of the shard's rows ``x``."""
+        if self._step is None:
+            fn = gather_last if summed else gather_whole
+            return fn(x, self.group, self.size, self.rank)
+        if self._replay:
+            if not _grad(x):
+                return self._step[key]
+            return _Replay.apply(x, [self._step[key]], self.group, self.size, self.rank,
+                                 summed)
+        if key not in self._step:
+            self._step[key] = _gather_last(x.detach(), self.group, self.size)
+        return self._step[key]
+
+    def to_partial(self, x: torch.Tensor) -> torch.Tensor:
+        return to_partial(x, self.group, self.size)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x, self.group, self.size)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_max(x, self.group, self.size)

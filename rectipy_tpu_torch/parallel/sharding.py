@@ -14,13 +14,17 @@ on the local rows and gathered once, at the end of the run.  Trials of
 ``run_batch`` and of the train step ride the ``data`` axis.
 
 What runs whole on every rank of a model group, with no collective of its
-own: a node the axis does not divide, a node with a fused kernel attached
-(the kernel's step is the whole population's), a softmax-family function
-node, a node an edge feeds that cannot be cut by target rows (online
-plasticity, RLS), and every edge's state (the delay histories, filters and
-STP variables belong to the source side: each rank advances them from the
-gathered source).  A model axis of one rank is the unsharded run: the same
-step, bit for bit, with no collective.
+own: a node the axis does not divide (or whose block edges' block rows it
+does not divide), a node with a fused kernel attached (the kernel's step is
+the whole population's), a softmax-family function node, and every edge's
+state (the delay histories, filters and STP variables belong to the source
+side: each rank advances them from the gathered source; the traces and
+``P`` of the online rules follow their edge's row parameters).  A model
+axis of one rank is the unsharded run: the same step, bit for bit, with no
+collective.  The trainers (``Network.fit_*(mesh=)``) run on the same
+shard: the deferred-gradient trajectories of ``ops/bptt.py`` and
+``ops/graph_bptt.py`` take its local nodes and edges and
+``comm.TrajectoryComm``'s gathers.
 """
 
 from __future__ import annotations
@@ -200,8 +204,6 @@ class NetworkShard:
         if k == 1 or n % k:
             return None
         for e in edges_in:
-            if e.params["weights"].ndim != 1 and e._row_params is None:
-                return None
             if hasattr(e, "bs") and (e.n_out // e.bs) % k:
                 return None
         args = getattr(node, "_args", {})
@@ -211,6 +213,9 @@ class NetworkShard:
         local = node._shard(r0, r0 + n // k, self._gather)
         if local is not None:
             self.rows[label] = (r0, r0 + n // k)
+            if isinstance(getattr(node, "_args", None), dict):  # the trajectories read them
+                local._args = _map_tree(lambda leaf: _take_rows(leaf, n, r0, r0 + n // k, k),
+                                        node._args)
         return local
 
     def _edge(self, u: str, v: str, edge):
@@ -244,14 +249,163 @@ class NetworkShard:
             return comm.to_partial(val, self.m_group, self.n_model)
         return val
 
+    def _tap(self, u: str, val, cache: dict):
+        """A tap of the step made whole: the step's own gather of ``u``
+        where it made one, else a gather."""
+        if u not in self.rows:
+            return val
+        for part in (True, False):
+            if (u, part) in cache:
+                return cache[(u, part)]
+        return comm.gather_whole(val, self.m_group, self.n_model, self.m_rank)
+
     def step(self, taps: Tuple[str, ...] = ()) -> Callable:
         """This rank's network step, ``step(state, params, x) -> (state',
         out, taps)`` on placed trees (:meth:`place`) and local inputs; the
-        network's own step where nothing is sharded."""
+        network's own step where nothing is sharded.  The taps are whole
+        vectors (the online trainers' updates read them)."""
         if not self.rows:
             return self.net.make_step(taps)
         return self.net._compose_step(taps, self.node, self.edge, self.fb_edges,
-                                      source=self._source)
+                                      source=self._source, tap=self._tap)
+
+    # ------------------------------------------------------- the trainers
+    def traj_comm(self) -> "comm.TrajectoryComm":
+        """The collectives of a deferred-gradient trajectory on this rank's
+        rows (``ops/bptt.py``, ``ops/graph_bptt.py``)."""
+        return comm.TrajectoryComm(self.m_group, self.n_model, self.m_rank)
+
+    def whole(self, label: str, x: torch.Tensor) -> torch.Tensor:
+        """Node ``label``'s rows ``(..., rows)`` made whole on every rank (a
+        consumer every rank computes alike, as the loss: the gradient is
+        the own rows)."""
+        if label not in self.rows:
+            return x
+        return comm.gather_whole(x, self.m_group, self.n_model, self.m_rank)
+
+    def cols(self, x: torch.Tensor) -> torch.Tensor:
+        """A drive ``(..., m)`` cut to the input node's rows where the node
+        is sharded and ``m`` is its width (a one-channel drive broadcasts)."""
+        inp = self.net._in_node
+        return self.target_rows(inp, x) if x.shape[-1] == self.width[inp] else x
+
+    def target_rows(self, label: str, x: torch.Tensor) -> torch.Tensor:
+        """The rows of node ``label`` of a whole ``(..., n)`` value (a
+        readout's targets)."""
+        if label not in self.rows:
+            return x
+        r0, r1 = self.rows[label]
+        return x[..., r0:r1]
+
+    def _owner(self, kind: str, label: str) -> str:
+        return label if kind == "nodes" else label.split("->")[1]
+
+    def gather_params(self, tree: dict) -> dict:
+        """The whole params tree from this rank's placed part (the inverse
+        of :meth:`place` for the node and edge leaves): each leaf cut to a
+        sharded node's rows gathered (each variable's rows of a flat leaf,
+        the first axis of a matrix or block stack)."""
+        if not self.rows:
+            return tree
+        whole = self.net.parameters_pytree()
+        out = {}
+        for kind in ("nodes", "edges"):
+            out[kind] = {}
+            for label, sub in tree.get(kind, {}).items():
+                owner = self._owner(kind, label)
+                out[kind][label] = {
+                    key: self._unplace(leaf, whole[kind][label][key], owner)
+                    for key, leaf in sub.items()}
+        return out
+
+    def _unplace(self, leaf, full, owner: str):
+        if (owner not in self.rows or not isinstance(leaf, torch.Tensor)
+                or tuple(leaf.shape) == tuple(full.shape)):
+            return leaf
+        if leaf.dim() == 1:
+            rows = self.rows[owner][1] - self.rows[owner][0]
+            return self._gather(leaf.reshape(-1, rows)).reshape(-1)
+        return comm.gather_first(leaf, self.m_group, self.n_model)
+
+    def reduce_grads(self, grads: dict) -> dict:
+        """``sharded_train_step``'s model rule on a gradient tree: a leaf
+        that a sharded node (or an edge into one) holds whole sums its
+        ranks' gradients over the model group (one all-reduce each); the
+        rows of a sharded leaf are this rank's already."""
+        if not self.rows:
+            return grads
+        whole = self.net.parameters_pytree()
+        out = {}
+        for kind, by_label in grads.items():
+            out[kind] = {}
+            for label, sub in by_label.items():
+                owner = self._owner(kind, label)
+                out[kind][label] = {}
+                for key, g in sub.items():
+                    if owner in self.rows and tuple(g.shape) == \
+                            tuple(whole[kind][label][key].shape):
+                        g = comm.all_reduce(g, self.m_group, self.n_model)
+                    out[kind][label][key] = g
+        return out
+
+    def data_share(self, n: int, what: str) -> Tuple[int, int]:
+        """This data group's share ``[i0, i1)`` of ``n`` independent items
+        (trials of a minibatch, starts): an equal share where the ``data``
+        axis divides ``n``, else all of them, REPLICATED, with the JAX
+        package's warning."""
+        if self.n_data == 1:
+            return 0, n
+        if n % self.n_data:
+            warnings.warn(
+                f"{what}: {n} does not divide the mesh's 'data' axis ({self.n_data}); they "
+                f"run REPLICATED (no data parallelism). Pad to a multiple of {self.n_data} "
+                f"to shard them.", stacklevel=3)
+            return 0, n
+        per = n // self.n_data
+        return self.d_rank * per, (self.d_rank + 1) * per
+
+    def edge_part(self, u: str, v: str, key: str, leaf):
+        """This rank's part of parameter ``key`` of edge ``u -> v`` (its
+        target's rows of a row parameter), as :meth:`place` cuts it."""
+        if v not in self.rows or leaf is None or key not in self.net.get_edge(u, v)._row_keys():
+            return leaf
+        return _take_rows(leaf, self.width[v], *self.rows[v], self.n_model)
+
+    def edge_whole(self, u: str, v: str, key: str, leaf):
+        """The inverse of :meth:`edge_part`: the whole parameter."""
+        if v not in self.rows or leaf is None or key not in self.net.get_edge(u, v)._row_keys():
+            return leaf
+        if leaf.dim() == 1:
+            return self._gather(leaf)
+        return comm.gather_first(leaf, self.m_group, self.n_model)
+
+    def model_parts(self, x: torch.Tensor) -> torch.Tensor:
+        """``(model, *x.shape)``: every model rank's ``x``, in rank order."""
+        return comm.gather_first(x[None], self.m_group, self.n_model)
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model group of each rank's ``x`` (its rows'
+        part of a sum)."""
+        return comm.all_reduce(x, self.m_group, self.n_model)
+
+    def data_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data groups of each group's ``x``."""
+        if self.n_data == 1:
+            return x
+        return comm.all_reduce(x, self.d_group, self.n_data) / self.n_data
+
+    def data_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data group's ``x`` concatenated on the first axis."""
+        return comm.gather_first(x, self.d_group, self.n_data)
+
+    def data_pick(self, tree, owner: int):
+        """Data group ``owner``'s ``tree`` on every rank (one all-reduce a
+        leaf, the other groups adding zeros)."""
+        if self.n_data == 1:
+            return tree
+        mine = self.d_rank == owner
+        return _map_tree(lambda leaf: comm.all_reduce(leaf if mine else torch.zeros_like(leaf),
+                                                      self.d_group, self.n_data), tree)
 
     # ------------------------------------------------------- the placement
     def place(self, tree: dict) -> dict:
@@ -276,13 +430,8 @@ class NetworkShard:
             edges = {}
             for key, sub in tree["edges"].items():
                 u, v = key.split("->")
-                if v not in self.rows or not isinstance(sub, dict):
-                    edges[key] = sub
-                    continue
-                n, (r0, r1) = self.width[v], self.rows[v]
-                row_keys = self.net.get_edge(u, v)._row_keys()
-                edges[key] = {p: _take_rows(leaf, n, r0, r1, k) if p in row_keys else leaf
-                              for p, leaf in sub.items()}
+                edges[key] = ({p: self.edge_part(u, v, p, leaf) for p, leaf in sub.items()}
+                              if isinstance(sub, dict) else sub)
             out["edges"] = edges
         if "fb" in tree:
             out["fb"] = {u: (val if u not in self.rows else
@@ -326,10 +475,14 @@ class NetworkShard:
         rank's trials and, for a sharded node (or an edge's row parameter
         into one), each trial's rows."""
         t0, t1 = self.trials(B)
+        return self.sweep_rows({p: vals[t0:t1] for p, vals in sweeps.items()})
+
+    def sweep_rows(self, sweeps: dict) -> dict:
+        """Per-trial values ``{path: (B, ...)}`` with each trial's rows of a
+        sharded node (or of an edge's row parameter into one)."""
         out = {}
         k = self.n_model
         for (sec, label, key), vals in sweeps.items():
-            vals = vals[t0:t1]
             owner = label if sec == "nodes" else label.split("->")[1]
             rows = owner in self.rows and (
                 sec == "nodes" or key in self.net.get_edge(*label.split("->"))._row_keys())
@@ -447,14 +600,6 @@ def sharded_train_step(net, loss_fn: Callable, optimizer, mesh, model_axis: str 
     of the port's (``train.get_optimizer``)."""
     shard = NetworkShard(net, mesh, model_axis, data_axis)
     step = shard.step()
-    whole_params = net.parameters_pytree()
-
-    def held_whole(kind: str, label: str, key: str, leaf) -> bool:
-        """A leaf of a sharded node (or edge into one) that every model
-        rank holds whole: its gradient is a sum over the ranks' rows."""
-        owner = label if kind == "nodes" else label.split("->")[1]
-        full = whole_params[kind][label][key]
-        return owner in shard.rows and tuple(leaf.shape) == tuple(full.shape)
 
     def train_step(train, frozen, opt_state, state0, inputs, targets):
         inputs, targets = net._to_device(inputs), net._to_device(targets)
@@ -475,24 +620,17 @@ def sharded_train_step(net, loss_fn: Callable, optimizer, mesh, model_axis: str 
             for x in xs:
                 state, out, _ = step(state, params, x)
                 outs.append(out)
-            outs = torch.stack(outs, dim=1)  # (trials, T, n_out rows)
-            if net._out_node in shard.rows:
-                outs = comm.gather_whole(outs, shard.m_group, shard.n_model, shard.m_rank)
+            outs = shard.whole(net._out_node, torch.stack(outs, dim=1))  # (trials, T, n_out)
             loss = torch.stack([loss_fn(outs[b], tgts[b]) for b in range(t1 - t0)]).mean()
             grads = torch.autograd.grad(loss, [leaves[p] for p in paths], allow_unused=True)
         split = (t0, t1) != (0, B)
         gtree = {"nodes": {}, "edges": {}}
         for (kind, label, key), g in zip(paths, grads):
-            leaf = leaves[(kind, label, key)]
-            g = torch.zeros_like(leaf) if g is None else g
-            if held_whole(kind, label, key, leaf):
-                g = comm.all_reduce(g, shard.m_group, shard.n_model)
-            if split:
-                g = comm.all_reduce(g, shard.d_group, shard.n_data) / shard.n_data
-            gtree[kind].setdefault(label, {})[key] = g
-        loss = loss.detach()
-        if split:
-            loss = comm.all_reduce(loss, shard.d_group, shard.n_data) / shard.n_data
+            gtree[kind].setdefault(label, {})[key] = (
+                torch.zeros_like(leaves[(kind, label, key)]) if g is None else g)
+        gtree, loss = shard.reduce_grads(gtree), loss.detach()
+        if split:  # each data group's mean over its equal share of the trials
+            gtree, loss = _map_tree(shard.data_mean, gtree), shard.data_mean(loss)
         with torch.no_grad():
             new_train, opt_state = optimizer.update(gtree, opt_state, train)
         return new_train, opt_state, loss

@@ -11,6 +11,7 @@ on gloo ranks and returns where their records are.
 import os
 import subprocess
 import sys
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -35,8 +36,9 @@ def torch_ns():
         cls = pkg.FeedbackNetwork if feedback else pkg.Network
         return cls(dt, dtype=getattr(torch, dtype), device="cpu")
 
-    return SimpleNamespace(net=net, inputs=inputs,
+    return SimpleNamespace(net=net, inputs=inputs, torch=True,
                            block_random_connectivity=pkg.block_random_connectivity,
+                           BlockSparseCoupling=pkg.BlockSparseCoupling,
                            attach_qif=pkg.attach_fused_qif_step,
                            attach_generic=pkg.attach_generic_fused_step)
 
@@ -340,30 +342,53 @@ def spawn(group: str, world: int, tmp_path, timeout: float = 240.0) -> str:
     rendezvous through a FileStore under ``tmp_path``); returns the folder of
     their ``<case>.r<rank>.npz`` records.  A rank that fails, or a group that
     outlasts ``timeout`` seconds, fails the caller."""
+    return start(group, world, tmp_path, timeout)()
+
+
+def start(group: str, world: int, tmp_path, timeout: float = 240.0):
+    """:func:`spawn` without the wait: the ranks start, and the returned
+    ``finish()`` waits for them and returns the folder of their records (the
+    caller works meanwhile, as the JAX side of the tests does)."""
     out = os.path.join(str(tmp_path), f"records_{group}")
     os.makedirs(out, exist_ok=True)
     store = os.path.join(str(tmp_path), f"store_{group}")
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.dirname(os.path.dirname(WORKER))] + env.get("PYTHONPATH", "").split(os.pathsep))
-    procs = [subprocess.Popen([sys.executable, WORKER, group, str(r), str(world), store, out],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env) for r in range(world)]
+    # each rank's stderr goes to a file: a pipe nobody reads while the caller
+    # works could fill and stall the rank
+    logs = [os.path.join(out, f"rank{r}.err") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, WORKER, group, str(r), str(world), store, out],
+                stdout=subprocess.DEVNULL, stderr=err, env=env))
+    start_t = time.monotonic()
+    return lambda: _finish(procs, logs, out, start_t + timeout)
+
+
+def _finish(procs, logs, out: str, deadline: float) -> str:
     errors = []
     for r, p in enumerate(procs):
         try:
-            _, err = p.communicate(timeout=timeout)
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            _, err = p.communicate()
-            errors.append(f"rank {r} timed out after {timeout} s:\n{err[-3000:]}")
+            p.wait()
+            errors.append(f"rank {r} timed out:\n{_tail(logs[r])}")
             continue
         if p.returncode != 0:
-            errors.append(f"rank {r} rc={p.returncode}:\n{err[-3000:]}")
+            errors.append(f"rank {r} rc={p.returncode}:\n{_tail(logs[r])}")
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
+
+
+def _tail(path: str) -> str:
+    with open(path) as f:
+        return f.read()[-3000:]
 
 
 def load(out: str, case: str, rank: int) -> dict:

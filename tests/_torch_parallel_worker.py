@@ -3,9 +3,12 @@
     python tests/_torch_parallel_worker.py GROUP RANK WORLD STORE OUT
 
 Joins the process group through the FileStore ``STORE``, runs every case of
-``GROUP`` on the port (each the run without a mesh and the run on its mesh;
+``GROUP`` on the port (each the run or fit without a mesh and on its mesh;
 every rank builds the same networks from the same seeds) and writes the
 records as ``OUT/<case>.r<RANK>.npz``.  Imports the port only, never JAX.
+The groups: ``parallel`` and ``runs`` (``run``/``run_batch``), ``train``
+(the BPTT trainers), ``fits`` (the online rules, ``fit_es``, an STP edge's
+run) and ``two_process`` (two ranks).
 """
 
 import os
@@ -20,6 +23,7 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import _torch_parallel_cases as C  # noqa: E402
+import _torch_parallel_train_cases as TC  # noqa: E402
 
 from rectipy_tpu_torch.parallel import (make_mesh, shard_network_arrays,  # noqa: E402
                                         sharded_run, sharded_step_collectives,
@@ -191,6 +195,76 @@ def runs(c: Case):
                                             stats["all-reduce"]["count"]])
 
 
+def train(c: Case):
+    c.pair("chain_f32", TC.chain_f32, 4)
+    c.pair("graph", TC.graph_feedback, 4)
+    with TC.fused_adam_env("off"):
+        c.pair("int8_master", TC.int8_master, 4)
+    with TC.fused_adam_env("on"):  # a mesh fit takes the split optimizer all the same
+        on = TC.int8_master(P, mesh(4))
+    c.save("int8_master_on", **on)
+    c.pair("block_delay", TC.block_delay, 4)
+    c.pair("chain_readout", TC.chain_readout, 4)
+    c.pair("chain_readout_autograd", TC.chain_readout_autograd, 4)
+    c.pair("step_mode", TC.step_mode, 4, data=2)
+    c.pair("remat", TC.remat, 4)
+    c.pair("batch_d1", TC.batch, 4, data=1)
+    c.pair("batch_d2", TC.batch, 4, data=2)
+    c.pair("batch_int8_master", TC.batch_int8_master, 4, data=2)
+    c.pair("block_coupling", TC.block_coupling, 4)
+    c.pair("multistart", TC.multistart, 4, data=2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        c.pair("multistart_indivisible", TC.multistart_indivisible, 4, data=2)
+    c.save("multistart_warnings", count=sum("REPLICATED" in str(w.message) for w in caught))
+    # test_sharded_training_step_collective_budget: one value-and-gradient
+    # of the chain trajectory's loss at T and 2T steps, model 2 and 4
+    budget = {}
+    for k in (2, 4):
+        m = mesh(k)
+        for T in (8, 16):
+            if m.get_coordinate() is not None:
+                budget[f"m{k}_T{T}"] = _train_budget(m, T)
+    c.save("train_budget", **budget)
+
+
+def _train_budget(m, T, n=64):
+    from rectipy_tpu_torch.ops.bptt import make_coupled_traj
+    from rectipy_tpu_torch.parallel import comm
+    from rectipy_tpu_torch.parallel.sharding import NetworkShard
+
+    rng = np.random.default_rng(12)
+    net = C.build_rnn(P, rng.normal(size=(n, n)) * 0.2, train_params=["weights"])
+    shard = NetworkShard(net, m)
+    traj, wkeys = make_coupled_traj(shard.node("rnn"), comm=shard.traj_comm())
+    nargs = shard.place(net.parameters_pytree())["nodes"]["rnn"]
+    W = {k: nargs[k].detach().requires_grad_(True) for k in wkeys}
+    rest = {k: v for k, v in nargs.items() if k not in wkeys}
+    y0 = shard.place(net.init_state())["nodes"]["rnn"]
+    xs = shard.cols(torch.zeros((T, n), dtype=torch.float64))
+    comm.reset()
+    with torch.enable_grad():
+        _, outs = traj(W, rest, y0, xs)
+        loss = ((shard.whole("rnn", outs) - 0.0) ** 2).mean()
+        torch.autograd.grad(loss, list(W.values()))
+    t = comm.tally()
+    return [t["all-gather"]["count"], t["all-reduce"]["count"],
+            sum(t[op]["count"] for op in t if op not in ("all-gather", "all-reduce"))]
+
+
+def fits(c: Case):
+    for name in ("rls", "eprop", "rls_rows", "eprop_rows"):
+        c.pair(name, getattr(TC, name), 4)
+    for name in ("stdp_dense", "stdp_reward", "stdp_block"):
+        c.pair(name, getattr(TC, name), 4)
+    c.pair("es", TC.es, 4, data=2)
+    c.pair("stp_run", TC.stp_run, 4)
+
+
+def two_process(c: Case):
+    c.pair("two_process", TC.two_process, 2)
+
+
 def _iku(net):
     rng = np.random.default_rng(41)
     n = 16
@@ -210,7 +284,8 @@ def main():
                             store=dist.FileStore(store, world),
                             timeout=timedelta(seconds=120))
     try:
-        {"parallel": parallel, "runs": runs}[group](Case(rank, out))
+        {"parallel": parallel, "runs": runs, "train": train, "fits": fits,
+         "two_process": two_process}[group](Case(rank, out))
         dist.barrier()
     finally:
         dist.destroy_process_group()

@@ -332,7 +332,7 @@ def test_block_stdp_dispatch_and_errors():
         BlockSparseSTDP(6, 6, weights=np.ones((6, 6)), device="cpu")
     with pytest.raises(ValueError, match="no foo"):
         BlockSparseSTDP(6, 6, weights=A, device="cpu", foo=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is ported: no DeviceMesh
         net.fit_stdp(np.zeros((5, 6)), verbose=False, mesh=object())
     # bf16 carry: the blocks and both traces at bfloat16
     edge = BlockSparseSTDP(6, 6, weights=A, w_dtype="bfloat16", device="cpu")

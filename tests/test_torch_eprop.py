@@ -96,7 +96,7 @@ def test_fit_eprop_online_learning_with_and_without_feedback_matches_jax():
         _reservoir(Network, W_res, W_in).fit_eprop(inp, target)
     with pytest.raises(ValueError, match="agree in the first dimension"):
         tnet.fit_eprop(inp, target[:-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is ported: no DeviceMesh
         tnet.fit_eprop(inp, target, mesh=object())
 
 

@@ -156,7 +156,7 @@ def test_fit_es_validation_errors():
     with pytest.raises(ValueError, match="broadcast"):
         net.fit_es(inp, np.zeros((3, 7)), fit_vars=[("pop", "li_op/eta")], n_generations=1,
                    pop_size=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is ported: no DeviceMesh
         net.fit_es(inp, tgt, fit_vars=[("pop", "li_op/eta")], mesh=object())
     with pytest.raises(ValueError, match=r"\(T, m\)"):
         net.fit_es(np.zeros((2, 10, n)), tgt, fit_vars=[("pop", "li_op/eta")])

@@ -218,11 +218,13 @@ def test_unported_fit_options_raise():
     # ignores it, as the JAX package's does
     net.fit_bptt(np.ones((4, 3)), np.ones((4, 3)), remat_steps=2, verbose=False)
     net.fit_bptt(*data, remat_steps=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    # mesh= is ported (tests/test_torch_parallel_train.py): a mesh that is no
+    # DeviceMesh raises
+    with pytest.raises(TypeError, match="DeviceMesh"):
         net.fit_bptt(*data, mesh=object(), verbose=False)
-    # fit_bptt_batch is ported; its unported options raise as fit_bptt's do
+    # fit_bptt_batch is ported, and so is its mesh=
     net.fit_bptt_batch(*data, remat_steps=2, verbose=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         net.fit_bptt_batch(*data, mesh=object(), verbose=False)
     # fused_bptt=True where neither trajectory applies (an RLS edge); a
     # two-population network takes the graph trajectory

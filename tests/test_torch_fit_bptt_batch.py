@@ -344,8 +344,10 @@ def test_batch_vars_validation():
 
 
 @pytest.mark.parametrize("kw,item", [
-    # the id the case had beside the remat_steps refusal, now ported
-    pytest.param(dict(mesh=object()), "item 14", id="kw1-item 14"),
+    # the id the case had while mesh= was refused: it is ported
+    # (tests/test_torch_parallel_train.py), and a mesh that is no DeviceMesh
+    # raises TypeError
+    pytest.param(dict(mesh=object()), "DeviceMesh", id="kw1-item 14"),
     # the test id of the refusal's first form, which named a follow-on
     pytest.param("generic_fused", "has no backward", id="generic_fused-follow-on g")])
 def test_unported_fit_options_raise(kw, item):
@@ -357,5 +359,5 @@ def test_unported_fit_options_raise(kw, item):
         net.compile()
         attach_generic_fused_step(net.get_node("p"))
         kw = {}
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError if "mesh" in kw else NotImplementedError, match=item):
         net.fit_bptt_batch(ins, tgts, verbose=False, **kw)

@@ -2502,3 +2502,62 @@ def test_one_rank_nccl_mesh_run_equals_run(cuda, tmp_path, case):
         assert np.abs(recs[1][1]).max() > 0
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["fit_bptt_int8_master", "fit_stdp"])
+def test_one_rank_nccl_mesh_fit_equals_fit(cuda, tmp_path, case, monkeypatch):
+    # fit_bptt(mesh=) of an int8_master chain (int8_mv / int8_mv_t every
+    # step; RECTIPY_FUSED_ADAM=off, the mesh fit's optimizer) and
+    # fit_stdp(mesh=) of the dense plastic QIF self-edge (stdp_update a
+    # step) on a one-rank NCCL mesh: the fits without a mesh, bit for bit,
+    # with the same launches and no collective
+    import torch.distributed as dist
+
+    from rectipy_tpu_torch.parallel import comm, make_mesh
+
+    monkeypatch.setenv("RECTIPY_FUSED_ADAM", "off")
+    n, T = 256, 100
+    rng = np.random.default_rng(31)
+    W = rng.normal(size=(n, n)) / np.sqrt(n)
+    inp, tgt = rng.normal(size=(T, 1)) * 5 + 10, rng.normal(size=(T, n)) * 0.1
+    x = (rng.random((T, n)) < 0.1) * 30.0
+    kernels = (int8_mv, int8_mv_t) if case == "fit_bptt_int8_master" else (stdp_update,)
+
+    def fit(mesh):
+        if case == "fit_stdp":
+            net = _plastic_qif(cuda, n)
+            obs = net.fit_stdp(x, sampling_steps=25, verbose=False, mesh=mesh)
+            e = net.get_edge("qif", "qif")
+            return [e.params[k].cpu().numpy() for k in ("weights", "x_pre", "x_post")] + [
+                np.asarray(obs["w_mean"]), obs.to_numpy("out")]
+        net = Network(5e-3, device=cuda)
+        net.add_diffeq_node(
+            "rnn", "rectipy_tpu_torch.models.spiking_neurons.qif.qif", weights=W,
+            input_var="I_ext", output_var="s", source_var="s", target_var="s_in", op="qif_op",
+            spike_var="spike", spike_def="v", spike_threshold=100.0, spike_reset=-100.0,
+            node_vars={"all/qif_op/eta": rng.uniform(5.0, 15.0, n)},
+            coupling_dtype="int8_master", train_params=["weights"])
+        obs = net.fit_bptt([inp] * 2, [tgt] * 2, optimizer="adam", lr=1e-2, verbose=False,
+                           mesh=mesh)
+        assert net.last_fit == {"trajectory": "chain", "fused_adam": False}
+        return [np.asarray(obs["epoch_loss"]), net.get_node("rnn")["weights"].cpu().numpy()]
+
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1), device_id=cuda)
+    try:
+        mesh = make_mesh(1)
+        res = []
+        for m in (mesh, None):
+            rng = np.random.default_rng(32)  # the same etas in both fits
+            before = [k.launches for k in kernels]
+            comm.reset()
+            res.append((fit(m), [k.launches - b for k, b in zip(kernels, before)]))
+            torch.cuda.synchronize()
+            assert all(v["count"] == 0 for v in comm.tally().values())
+        (got, got_launches), (want, want_launches) = res
+        assert got_launches == want_launches and min(got_launches) >= T
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    finally:
+        dist.destroy_process_group()

@@ -12,8 +12,11 @@ PORT = os.path.join(ROOT, "rectipy_tpu_torch")
 SOURCES = sorted(
     os.path.join(d, f) for d, _, files in os.walk(PORT) for f in files if f.endswith(".py"))
 FORBIDDEN = ("jax", "jaxlib", "optax", "rectipy_tpu", "yaml")
-# the port's smoke run on the card imports nothing of JAX either
-SCANNED = SOURCES + [os.path.join(ROOT, "chip_smoke.py")]
+# the port's smoke run on the card imports nothing of JAX either, nor do the
+# gloo ranks of the mesh tests (their worker and the case modules it runs)
+RANK_SOURCES = [os.path.join(ROOT, "tests", f) for f in (
+    "_torch_parallel_worker.py", "_torch_parallel_cases.py", "_torch_parallel_train_cases.py")]
+SCANNED = SOURCES + [os.path.join(ROOT, "chip_smoke.py")] + RANK_SOURCES
 
 
 def _module(path):

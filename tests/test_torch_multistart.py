@@ -127,7 +127,7 @@ def test_multistart_validation():
     with pytest.raises(KeyError, match="not a trainable path"):
         net.fit_bptt_multistart(INS, TGTS, n_starts=2, start_inits={("p", "eta"): np.zeros(2)},
                                 verbose=False)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):  # mesh= is ported: no DeviceMesh
         net.fit_bptt_multistart(INS, TGTS, n_starts=2, mesh=object(), verbose=False)
     with pytest.raises(ValueError, match="TRAINABLE"):
         net.fit_bptt_multistart(INS, TGTS, n_starts=2, verbose=False,

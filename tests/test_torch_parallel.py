@@ -10,7 +10,8 @@ mesh (bit for bit: every comparison below with the port's own run is exact),
 and across the ranks (identical).  The JAX tests use an 8-device mesh; four
 ranks take ``make_mesh(4)`` where they take ``make_mesh(8)``.
 ``test_graft_entry_contract`` is not ported (``__graft_entry__.py`` is the
-JAX package's entry point); the trainers' ``mesh=`` cases wait for J2.
+JAX package's entry point); the trainers' ``mesh=`` cases are in
+``tests/test_torch_parallel_train.py`` and ``tests/test_torch_parallel_fits.py``.
 """
 
 import jax

@@ -655,7 +655,9 @@ def test_fit_stdp_dispatch_and_errors():
     assert isinstance(net.get_edge("pre", "post"), STDP)
     assert net._train_edge == ("pre", "post")
     x = np.zeros((10, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+    # mesh= is ported (tests/test_torch_parallel_fits.py): a mesh that is no
+    # DeviceMesh raises
+    with pytest.raises(TypeError, match="DeviceMesh"):
         net.fit_stdp(x, verbose=False, mesh=object())
     with pytest.raises(ValueError, match="positive integer"):
         net.fit_stdp(x, homeostasis_steps=0, verbose=False)
