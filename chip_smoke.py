@@ -710,6 +710,41 @@ int8_mv_t[...] (phase 10's timings), int8_mm and int8_mm_t
 (phase 6's) and stdp_update[float32,mesh_train_path,fit_stdp] (phase
 42's), each with one mesh fit's launches.
 
+Phase 51 (after phase 50; a model axis of two on the one card; no new
+kernel):
+
+51. mesh_quant_path: first the five kernels of the path at one rank's
+   shapes (int4_mv, int4_mv_t on N / 2 = 5,000 rows of the N = 10,000
+   coupling, int4_mm and int4_mm_t at B_TRAIN = 32 trials, block_int8_mv
+   on 98 of the 196 block rows of the 100k example's coupling), each held
+   bit for bit to its plain version and timed with it (mesh_quant_kernels).
+   Then two gloo ranks, two processes (rectipy_tpu_torch.testing.
+   mesh_quant_rank, a FileStore; NCCL takes one rank a device), each with
+   its tensors on the card, make_mesh(MQ_MODEL = 2, device_type="cuda"),
+   fit in turns with this process's fits of the same networks without a
+   mesh (plain, mesh, plain, mesh; testing.mesh_quant_turns): (a)
+   examples/qif_100k_sharded.py's training at its width (N = 100,352,
+   block size 512, fan-in 1,000, dt 1e-3, etas 100 +- 20, int8_master
+   blocks, delayed diagonal gains trained by gradient descent, the graph
+   trajectory), cut in depth to MQ_SIZES' qif_T = 100 steps and 2 epochs
+   (the example: 500 and 8); (b) bench.py:331-370's N = 10,000 QIF network
+   with an int4_master coupling, fit_bptt, 2 epochs of int4_T = 100 of its
+   T_TRAIN steps; (c) the same network's fit_bptt_batch, B_TRAIN = 32
+   trials (normal, seed 7) of B_T = 100 steps, one epoch, on data 1 x
+   model 2.  Per fit: each rank's launches (block_int8_mv for (a), all on
+   "mma"; int4_mv and int4_mv_t for (b); int4_mm and int4_mm_t for (c), all
+   on "mma") equal the steps, in every turn and in this process's fits; the
+   ranks' losses and trained leaves identical (bits), each turn's equal to
+   the first's; the mesh fit within MQ_TOL of the fit without a mesh (the
+   largest differences printed, and whether they are 0); comm.tally() of a
+   fit on each rank (the steps' collectives with the epochs' output gathers
+   and the trained leaves' gather at the end); the ms/epoch of each with and
+   without the mesh (best of 2) and their ratio.  gloo stages each
+   collective through the host: the mesh times are no measure of NVLink.
+The kernels line adds block_int8_mv[mesh_quant_path], int4_mv[...],
+int4_mv_t[...], int4_mm[...] and int4_mm_t[...], each with its timing at
+the rank's shapes and one rank's launches.
+
 With phase 48 the script takes time out elsewhere, never width:
 lif_net's coupling and taus (phases 12, 26 and 48) and batch_run_net's
 coupling (the six networks of phases 26 and 48) are drawn once
@@ -7078,6 +7113,135 @@ def mesh_train_phase(dev, build_net, data, trials, W_np, etas, by_name: dict) ->
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# mesh_quant_path: examples/qif_100k_sharded.py's training at its width (N =
+# 100,000 rounded up to the block grid of 512), cut to qif_T steps and 2
+# epochs; bench.py's N = 10,000 int4_master network, int4_T of its T_TRAIN
+# steps; its ensemble, B_TRAIN trials of B_T steps
+MQ_SIZES = dict(qif_n=100_352, qif_bs=512, qif_fan=1_000, qif_T=100, epochs=2, int4_n=N,
+                int4_T=100, B=B_TRAIN, B_T=100)
+MQ_MODEL = 2
+# the mesh fits against the fits without a mesh on the card, float32: the
+# losses within rtol 1e-6 (the ranks' rows of the loss's sums, a few ulps),
+# the trained leaves within 1e-7 (an ulp of a weight of 1; the dW products
+# of a rank's rows may sum in another order than the whole matrix's)
+MQ_TOL = {fit: {"loss": 1e-6, "weights": 1e-7, "gains": 1e-7}
+          for fit in ("qif_sharded", "int4_fit_bptt", "int4_fit_bptt_batch")}
+
+
+def mesh_quant_kernels(dev) -> dict:
+    """Phase 51's kernels at one rank's shapes (model MQ_MODEL): int4_mv and
+    int4_mv_t on the rank's N / 2 rows of the N = 10,000 coupling, int4_mm
+    and int4_mm_t at B_TRAIN trials, block_int8_mv on the rank's block rows
+    of the 100k example's coupling; each held bit for bit to its plain
+    version on the same inputs, timed with it, and bounded.  Returns the
+    kernels-line entries by kernel, launches 0 (the turns fill them in)."""
+    from rectipy_tpu_torch import block_random_connectivity
+    from rectipy_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=dev).manual_seed(51)
+    rows, n, B = N // MQ_MODEL, N, MQ_SIZES["B"]
+    wq = torch.randint(-7, 8, (rows, n), generator=gen, device=dev, dtype=torch.int8)
+    wp, ws = quant.pack_int4(wq), torch.rand(rows, generator=gen, device=dev) + 0.5
+
+    def q8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    xq, vq, xb, vb = q8((n,)), q8((rows,)), q8((B, n)), q8((B, rows))
+    one, ones = torch.ones((), device=dev), torch.ones(B, device=dev)
+    bs, n_br = MQ_SIZES["qif_bs"], MQ_SIZES["qif_n"] // MQ_SIZES["qif_bs"] // MQ_MODEL
+    A = block_random_connectivity(MQ_SIZES["qif_n"], MQ_SIZES["qif_n"], MQ_SIZES["qif_fan"],
+                                  block_size=bs, seed=0)
+    idx = torch.as_tensor(np.asarray(A.cols)[:n_br], dtype=torch.int32, device=dev)
+    cb = idx.shape[1]
+    bq = q8((n_br, cb, bs, bs))
+    rs = torch.rand((n_br, bs), generator=gen, device=dev) + 0.5
+    xs = q8((1, 2 * n_br, bs))
+    cases = {  # kernel: (call, plain, bytes, operations)
+        "int4_mv": (lambda: quant.int4_mv(wp, xq, ws, one),
+                    lambda: (quant.int4_dot_plain(wp, xq) * ws) * one,
+                    wp.numel() + n + 4 * rows * 2, 2 * rows * n),
+        "int4_mv_t": (lambda: quant.int4_mv_t(wp, vq, one, n),
+                      lambda: quant.int4_dot_t_plain(wp, vq, n) * one,
+                      wp.numel() + rows + 4 * n, 2 * rows * n),
+        "int4_mm": (lambda: quant.int4_mm(wp, xb, ws, ones),
+                    lambda: (quant.int4_mm_plain(wp, xb) * ws) * ones[:, None],
+                    wp.numel() + B * n + 4 * rows + 4 * B + 4 * B * rows, 2 * B * rows * n),
+        "int4_mm_t": (lambda: quant.int4_mm_t(wp, vb, ones, n),
+                      lambda: quant.int4_mm_t_plain(wp, vb, n) * ones[:, None],
+                      wp.numel() + B * rows + 4 * B + 4 * B * n, 2 * B * rows * n),
+        "block_int8_mv": (lambda: quant.block_int8_mv(bq, rs, xs, idx),
+                          lambda: quant.block_int8_mv_plain(bq, rs, xs, idx),
+                          bq.numel() + 4 * rs.numel() + xs.numel() + 4 * idx.numel()
+                          + 4 * n_br * bs, 2 * n_br * cb * bs * bs),
+    }
+    entries = {}
+    for name, (call, plain, n_bytes, n_ops) in cases.items():
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"mesh_quant_path: {name} parts from its plain version "
+                                 f"(max |diff| {float((got - want).abs().max())})")
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT8_OPS
+        source = BLOCK_SOURCE if name == "block_int8_mv" else I4_SOURCE
+        entries[name] = {
+            "name": f"{name}[mesh_quant_path]", "route": "cuda", "source": source,
+            "replaces": BLOCK_REPLACES if name == "block_int8_mv" else I4_TPU_KERNEL,
+            "launches": 0, "max_abs_err": 0.0, "ms": cuda_ms(call, reps=200),
+            "plain_ms": cuda_ms(plain, reps=10), "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+        emit({"phase": "mesh_quant_kernels", **entries[name],
+              "rows": n_br * bs if name == "block_int8_mv" else rows, "bytes": n_bytes, "ops": n_ops,
+              "library_ms_reason": "no PyTorch call computes this int4 / gathered int8 block "
+                                   "product with its scales"})
+    return entries
+
+
+def mesh_quant_phase(dev) -> list:
+    """Phase 51 (see the docstring).  Returns the kernels-line entries."""
+    from rectipy_tpu_torch.testing import mesh_quant_turns
+
+    t_phase = time.perf_counter()
+    entries = mesh_quant_kernels(dev)
+    tmp = tempfile.mkdtemp(prefix="mesh_quant_path_")
+    try:
+        reports = mesh_quant_turns(MQ_SIZES, tmp, world=MQ_MODEL, tol=MQ_TOL, timeout=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    units = {"qif_sharded": (MQ_SIZES["epochs"], MQ_SIZES["qif_T"]),
+             "int4_fit_bptt": (MQ_SIZES["epochs"], MQ_SIZES["int4_T"]),
+             "int4_fit_bptt_batch": (1, MQ_SIZES["B_T"])}
+    kernels = {"qif_sharded": ("block_int8_mv",), "int4_fit_bptt": ("int4_mv", "int4_mv_t"),
+               "int4_fit_bptt_batch": ("int4_mm", "int4_mm_t")}
+    lines = []
+    for fit, rep in reports.items():
+        epochs, T = units[fit]
+        ms = {turn: min(rep[f"{turn}_s"]) / epochs * 1e3 for turn in ("plain", "mesh")}
+        line = {"phase": "mesh_quant_path", "fit": fit,
+                "mesh": {"model": MQ_MODEL, "data": 1, "backend": "gloo",
+                         "ranks": "two processes on the one card"},
+                "sizes": {k: v for k, v in MQ_SIZES.items()
+                          if k.startswith(fit.split("_")[0]) or k in ("epochs", "B", "B_T")},
+                "launches_per_rank": rep["launches"], "losses": rep["loss"],
+                "bit_identical": rep["bit_identical"], "max_diffs": rep["diffs"],
+                "limits": rep["limits"], "ranks_identical": True, "turns_identical": True,
+                "steps_per_fit": epochs * T,
+                "collectives_per_fit_by_rank": [{op: v for op, v in tally.items() if v["count"]}
+                                                for tally in rep["tally"]],
+                "fit_s": {"plain": rep["plain_s"], "mesh": rep["mesh_s"]},
+                "plain_ms_per_epoch": ms["plain"], "mesh_ms_per_epoch": ms["mesh"],
+                "mesh_over_plain": ms["mesh"] / ms["plain"],
+                "note": "gloo stages every collective through the host: the mesh times are "
+                        "no measure of NVLink collectives"}
+        emit(line)
+        lines.append(line)
+        for k in kernels[fit]:
+            entries[k]["launches"] = rep["launches"][f"{k}.launches"]
+    emit({"phase": "mesh_quant_path", "summary": True, "nvidia_smi": nvidia_smi(),
+          "mesh_over_plain": {ln["fit"]: ln["mesh_over_plain"] for ln in lines},
+          "seconds": time.perf_counter() - t_phase})
+    return list(entries.values())
+
+
 def check_served(what: str, out_path: str, ref: list, served: dict, launches: dict) -> bool:
     """The served records (saved by the serving process) against the
     references' window means, bit for bit, and the served launch counts."""
@@ -7134,7 +7298,7 @@ def main() -> int:
 
 
 def main_phases(dev) -> int:
-    """Phases 29 and 3-50, the kernels line, the card's line and the
+    """Phases 29 and 3-51, the kernels line, the card's line and the
     contract line."""
     from rectipy_tpu_torch import Network, attach_fused_qif_step, random_connectivity
     from rectipy_tpu_torch.ops.kernels import qif_sfa_reference_step, qif_sfa_step
@@ -7363,6 +7527,8 @@ def main_phases(dev) -> int:
     torch.cuda.empty_cache()
     kernels += mesh_train_phase(dev, build_net, data, trials, W_np, etas,
                                 {e["name"]: e for e in kernels})
+    torch.cuda.empty_cache()
+    kernels += mesh_quant_phase(dev)
 
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

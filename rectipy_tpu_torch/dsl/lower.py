@@ -482,6 +482,7 @@ def lower(
                 f"this size.")
 
     block_q_mv: Dict[str, Callable] = {}  # int8_master block couplings' STE matvecs
+    block_cols: Dict[str, torch.Tensor] = {}  # and their whole structure (for shards)
     for _, _, W, wkey in all_edges:
         if hasattr(W, "blocks"):
             # a block-sparse coupling (ops/sparse.py): the blocks at the
@@ -502,6 +503,7 @@ def lower(
                 args[wkey] = blocks_to_device(W.blocks, w_dtype, device)
                 if cast == "int8":
                     block_q_mv[wkey] = quant.make_block_int8_master_matvec(cols)
+                    block_cols[wkey] = cols
             args[wkey + "__cols"] = cols
             keys.extend([wkey, wkey + "__cols"])
             continue
@@ -544,7 +546,7 @@ def lower(
                     a[wk + "__q"], a[wk + "__qs"], _ = quant._i4_prep(w)
             return a
 
-    def _block_matvec(w, src, a, wkey):
+    def _block_matvec(w, src, a, wkey, shard):
         from ..ops.sparse import block_sparse_matvec
 
         cols = a[wkey + "__cols"]
@@ -552,7 +554,7 @@ def lower(
             # prepped master (inference runs): the block_int8_mv kernel
             return quant.block_int8_matvec((a[wkey + "__q"], a[wkey + "__qs"]), cols, src)
         if cast == "int8":  # plain-autograd training: the per-step STE matvec
-            return block_q_mv[wkey](w, src).to(src.dtype)
+            return (shard or block_q_mv)[wkey](w, src).to(src.dtype)
         if w.dtype == torch.int8:
             return _frozen_block_matvec(w, a[wkey + "__scale"], cols, src)
         if cast == "bf16":  # the bfloat16 copy from prep_args, else the master cast here
@@ -560,9 +562,14 @@ def lower(
         bf16 = cast == "bf16" or w.dtype == torch.bfloat16
         return block_sparse_matvec(w, cols, src, cast_dtype=torch.bfloat16 if bf16 else None)
 
-    def _coupling_matvec(w, src, a, wkey):
+    def _coupling_matvec(w, src, a, wkey, group=None, shard_q_mv=None):
+        """``w @ src`` by the coupling's type.  ``group`` and ``shard_q_mv``
+        (a population shard's, :func:`localize`): the model group of the
+        quantized STE matvecs, whose source gradients are whole (their
+        scales the group's maxima, the ranks' integer sums added), and the
+        shard's ``int8_master`` block STE matvecs (its block rows)."""
         if wkey + "__cols" in a:
-            return _block_matvec(w, src, a, wkey)
+            return _block_matvec(w, src, a, wkey, shard_q_mv)
         if cast in ("int8", "int4") and wkey + "__q" in a:
             # prepped master (inference runs): the same numerics as the
             # per-step STE matvec's forward
@@ -571,7 +578,7 @@ def lower(
         if cast in ("int8", "int4"):
             # plain-autograd training: the per-step STE matvec
             mv = quant.int8_master_matvec if cast == "int8" else quant.int4_master_matvec
-            return mv(w, src).to(src.dtype)
+            return mv(w, src, group).to(src.dtype)
         if cast == "bf16":
             wb = a[wkey + "__bf16"] if wkey + "__bf16" in a else _bf16_values(w)
             return _bf16_matvec(wb, src)
@@ -664,12 +671,14 @@ def lower(
                 scoped[bare] = v
         return scoped
 
-    def _field(nn: int, gather: Callable = None, fns: dict = None):
+    def _field(nn: int, gather: Callable = None, fns: dict = None, group=None,
+               shard_q_mv: dict = None):
         """``(func, read_var)`` on states of ``nn`` neurons a variable.
         ``gather`` (a population shard's) makes the whole population's
         vector of a shard's rows: each coupling's source is gathered before
         its product, whose weights hold the shard's rows; ``fns`` are the
-        equations' functions (the shard's reductions)."""
+        equations' functions (the shard's reductions); ``group`` and
+        ``shard_q_mv`` as :func:`_coupling_matvec`'s."""
         vm, vm_full = _layout(nn)
         state_slices = list(vm.items())
 
@@ -690,8 +699,14 @@ def lower(
                     if qname in wiring:
                         val = val + env[wiring[qname]]
                     for esv, wkey in edge_by_target.get(qname, []):
-                        src = env[esv] if gather is None else gather(env[esv])
-                        val = val + _coupling_matvec(a[wkey], src, a, wkey)
+                        if gather is None:
+                            src = env[esv]
+                        elif group is not None and cast in ("int8", "int4"):
+                            # the STE matvec gives the whole source gradient
+                            src = group.gather_whole(env[esv])
+                        else:
+                            src = gather(env[esv])
+                        val = val + _coupling_matvec(a[wkey], src, a, wkey, group, shard_q_mv)
                     env[qname] = val
             return env
 
@@ -825,13 +840,17 @@ def lower(
 
     tile_func, make_tile_reader = _tile()
 
-    def localize(rows: int, r0: int, gather: Callable) -> VectorField:
+    def localize(rows: int, r0: int, gather: Callable, group=None) -> VectorField:
         """The field of neurons ``[r0, r0 + rows)`` of each variable, whose
         couplings hold those rows of their weights and gather the whole
         source (``gather``); the population reductions and ``softmax`` act
         on the gathered population, in ``func`` and in the trajectories'
         ``tile_func`` and tile readers alike (a fused node runs whole,
-        ``parallel/``)."""
+        ``parallel/``).  ``group`` (``parallel/comm.Group``): the model
+        group of the quantized STE matvecs (the plain-autograd path): their
+        dynamic scales are its maxima, and each gives its source's whole
+        gradient (the ranks' integer sums added), so their sources are
+        gathered without a summed gradient."""
         def whole(fn, own_rows: bool = False):
             def apply(x):
                 if not (isinstance(x, torch.Tensor) and x.dim() and x.shape[-1] == rows):
@@ -845,7 +864,10 @@ def lower(
         for name in ("mean", "sum", "min", "max"):
             fns[name] = whole(FUNCTIONS[name])
         fns["softmax"] = whole(FUNCTIONS["softmax"], own_rows=True)
-        f, rv = _field(rows, gather, fns)
+        shard_q_mv = {wk: quant.make_block_int8_master_matvec(
+            c[r0 * c.shape[0] // n:(r0 + rows) * c.shape[0] // n], c.shape[0], group)
+            for wk, c in block_cols.items()}
+        f, rv = _field(rows, gather, fns, group, shard_q_mv)
         y0_rows = y0.reshape(len(state_order), n)[:, r0:r0 + rows].reshape(-1)
         tf, tr = _tile(fns)
         return replace(vf, n=rows, func=f, read_var=rv, var_map=_layout(rows)[1], y0=y0_rows,

@@ -176,34 +176,41 @@ class Linear:
     def init_state(self):
         return None
 
+    _diag_rows = None  # a population shard's rows of diagonal gains (``_shard``)
+
     def make_step(self) -> Callable:
         diag = self.params["weights"].ndim == 1
 
         def step(state, params, x):
-            return state, _apply_w(params["weights"], x, diag)
+            return state, self._project(params["weights"], x, diag)
 
         return step
 
-    def _row_keys(self) -> tuple:
-        """The parameters a shard of the target takes its rows of: none for
-        diagonal weights, whose shard slices the step's output."""
-        return () if self.params["weights"].ndim == 1 else self._row_params
+    def _project(self, w: torch.Tensor, v: torch.Tensor, diag: bool) -> torch.Tensor:
+        """The step's projection ``_apply_w``; on a shard, diagonal gains
+        (their rows) scale the rows ``[r0, r1)`` of ``v``."""
+        if diag and self._diag_rows is not None:
+            v = v[..., self._diag_rows[0]:self._diag_rows[1]]
+        return _apply_w(w, v, diag)
 
-    def _shard(self, r0: int, r1: int) -> "Linear":
+    def _row_keys(self) -> tuple:
+        """The parameters a shard of the target takes its rows of
+        (diagonal gains: their rows, the source's as the target's)."""
+        return self._row_params
+
+    def _shard(self, r0: int, r1: int, group=None) -> "Linear":
         """The edge onto target neurons ``[r0, r1)`` (``parallel/``): it
         takes the whole source, keeps its state (which belongs to the
         source side) whole, and its step gives those rows; the row
-        parameters come with the run's placed tree."""
+        parameters come with the run's placed tree (diagonal gains project
+        the rows of the source side's vector).  ``group``: the target's
+        model group (``parallel/comm.Group``), which a quantized edge's
+        dynamic scales take their maximum over."""
+        del group
         loc = copy.copy(self)
         loc.n_out = r1 - r0
         if self.params["weights"].ndim == 1:
-            whole = self.make_step()
-
-            def step(state, params, x):
-                state, y = whole(state, params, x)
-                return state, y[..., r0:r1]
-
-            loc.make_step = lambda: step
+            loc._diag_rows = (r0, r1)
         return loc
 
     def _eager(self, state, x):
@@ -261,6 +268,24 @@ class LinearMasked(Linear):
 
         return step
 
+    def _row_keys(self) -> tuple:
+        """Diagonal gains ``w[j]`` scale the mask's column ``j``: a shard
+        takes none of their rows and slices the step's output."""
+        return () if self.params["weights"].ndim == 1 else self._row_params
+
+    def _shard(self, r0: int, r1: int, group=None) -> "LinearMasked":
+        loc = super()._shard(r0, r1, group)
+        if self.params["weights"].ndim == 1:
+            loc._diag_rows = None
+            whole = self.make_step()
+
+            def step(state, params, x):
+                state, y = whole(state, params, x)
+                return state, y[..., r0:r1]
+
+            loc.make_step = lambda: step
+        return loc
+
 
 class LinearMemory(_Stateful):
     """Delay edge: per-source integer delays with a ring buffer ``(n_in,
@@ -300,7 +325,7 @@ class LinearMemory(_Stateful):
         def step(buf, params, x):
             buf = self._shift(buf, params)
             buf = buf * (1.0 - mask) + mask * x[..., None]
-            return buf, _apply_w(params["weights"], buf[..., 0], diag)
+            return buf, self._project(params["weights"], buf[..., 0], diag)
 
         return step
 
@@ -354,7 +379,7 @@ class LinearFilter(_Stateful):
 
         def step(y, params, x):
             y = matvec(params["filter"], y) + x
-            return y, _apply_w(params["weights"], y, diag)
+            return y, self._project(params["weights"], y, diag)
 
         return step
 
@@ -424,7 +449,7 @@ class LinearSTP(_Stateful):
             x_minus = x * (1.0 - u_plus * m) if dep else x
             u_new = U + (u_plus - U) * d_f
             x_new = 1.0 + (x_minus - 1.0) * d_d
-            return (u_new, x_new), _apply_w(params["weights"], drive, diag)
+            return (u_new, x_new), self._project(params["weights"], drive, diag)
 
         return step
 
@@ -619,7 +644,7 @@ class LinearMemoryMatrix(_Stateful):
         self.selector_builds = 0
         self._state = torch.zeros((n_in, buf_width), dtype=self.dtype, device=self.device)
 
-    def _shard(self, r0: int, r1: int) -> "LinearMemoryMatrix":
+    def _shard(self, r0: int, r1: int, group=None) -> "LinearMemoryMatrix":
         """The edge onto target neurons ``[r0, r1)``: its delays' rows, so
         that the selectors are built per shard from them."""
         loc = super()._shard(r0, r1)
@@ -771,6 +796,7 @@ class BlockSparseLinear(Linear):
     """
 
     _tensors = ["weights"]
+    _group = None  # a population shard's model group (``_shard``)
 
     def __init__(self, n_in: int, n_out: int, weights, delays=None, dtype=None,
                  detach: bool = True, block_dtype=None, device=None, **kwargs):
@@ -860,10 +886,13 @@ class BlockSparseLinear(Linear):
         if self.delays is not None:
             self._state = state
 
-    def _shard(self, r0: int, r1: int) -> "BlockSparseLinear":
+    def _shard(self, r0: int, r1: int, group=None) -> "BlockSparseLinear":
         """The edge onto target neurons ``[r0, r1)``: those block rows of
-        its blocks (in the placed tree), of ``cols`` and of the delays."""
+        its blocks (in the placed tree), of ``cols`` and of the delays.  An
+        ``int8_master`` edge's activation and cotangent scales are the
+        maxima over ``group``: the whole gathered stack's, as unsharded."""
         loc = super()._shard(r0, r1)
+        loc._group = group
         b0, b1 = r0 // self.bs, r1 // self.bs
         loc.cols = self.cols[b0:b1]
         if self.delays is not None:
@@ -900,11 +929,12 @@ class BlockSparseLinear(Linear):
         n_br, cb = cols.shape
         dtype, bd, int8m = self.dtype, self.block_dtype, self._int8_master
         acc = torch.float64 if dtype == torch.float64 else torch.float32
-        ste = make_block_int8_stack_apply()
+        ste = make_block_int8_stack_apply(self._group)
 
         def contract(w, s_blk):
             if int8m:
-                y = block_int8_stack_prepped(w, s_blk) if isinstance(w, tuple) else ste(w, s_blk)
+                y = (block_int8_stack_prepped(w, s_blk, self._group) if isinstance(w, tuple)
+                     else ste(w, s_blk))
                 return y.to(acc)
             if bd is not None:  # a no-op where prep already cast the blocks
                 w, s_blk = w.to(bd), s_blk.to(bd)
@@ -1240,9 +1270,9 @@ class BlockSparseSTDP(_PairRule, BlockSparseLinear):
         self._cols = self.cols
         self._init_rule(tau_plus, tau_minus, a_plus, a_minus, w_min, w_max, soft_bounds)
 
-    def _shard(self, r0: int, r1: int) -> "BlockSparseSTDP":
+    def _shard(self, r0: int, r1: int, group=None) -> "BlockSparseSTDP":
         """The edge onto target neurons ``[r0, r1)``, whose rule updates
         those block rows (their columns)."""
-        loc = super()._shard(r0, r1)
+        loc = super()._shard(r0, r1, group)
         loc._cols = loc.cols
         return loc

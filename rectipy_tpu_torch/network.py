@@ -42,7 +42,11 @@ Multi-device: ``run``, ``run_batch`` and the seven trainers take ``mesh=``
 (a ``torch.distributed`` device mesh, ``parallel/``): the populations shard
 over its ``model`` axis, trials, starts and candidates over its ``data``
 axis; every rank calls the same function with the same arguments and ends
-with the results of the call without a mesh.
+with the results of the call without a mesh.  Every coupling and edge the
+trainers take unsharded trains on a model axis above one too: the
+quantized ones (``int8_master``, ``int4_master``, ``int8_master`` blocks
+and block edges) take each dynamic scale as a maximum over the model group
+and add the ranks' integer sums before scaling (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -1597,8 +1601,12 @@ class Network:
         their rows.  A trajectory step gathers each sharded source once and
         its backward all-reduces the source's cotangent once; each ``dW``
         contracts the shard's cotangent rows with the saved gathered
-        sources; the loss takes the gathered outputs.  A leaf that a sharded
-        node holds whole sums its gradient over ``model``.  The optimizer is
+        sources; the loss takes the gathered outputs.  A quantized coupling
+        or block edge takes each dynamic scale over the model group (an
+        all-reduce of the maximum) and its transposed product adds the
+        ranks' integer sums (one all-reduce), the unsharded product's
+        numbers; diagonal gains into a shard hold their rows.  A leaf that a
+        sharded node holds whole sums its gradient over ``model``.  The optimizer is
         the split one (``RECTIPY_FUSED_ADAM`` is read and not used), as the
         JAX package's mesh fits.  The trained leaves are gathered and written
         back.  A ``data`` axis replicates the one trial.

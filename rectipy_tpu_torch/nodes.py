@@ -165,10 +165,10 @@ class InstantNode:
     def train_keys(self) -> list:
         return []
 
-    def _shard(self, r0: int, r1: int, gather: Callable) -> "InstantNode":
+    def _shard(self, r0: int, r1: int, gather: Callable, group=None) -> "InstantNode":
         """The node on neurons ``[r0, r1)`` (``parallel/``); an elementwise
         activation only: the softmax family acts on the whole vector."""
-        del gather
+        del gather, group
         if self.func_name not in ("tanh", "sigmoid", "identity"):
             return None
         loc = copy.copy(self)
@@ -504,14 +504,16 @@ class RateNet:
 
         return reader
 
-    def _shard(self, r0: int, r1: int, gather: Callable) -> Optional["RateNet"]:
+    def _shard(self, r0: int, r1: int, gather: Callable, group=None) -> Optional["RateNet"]:
         """The node on neurons ``[r0, r1)`` of its population
         (``parallel/``): the lowered field's shard (``VectorField.localize``:
         the couplings hold those rows and gather their sources), the state
         offsets in the shard's layout (each variable's rows, a block of
         ``r1 - r0``), ``y`` those rows.  The parameters come with the run's
-        placed tree.  ``None`` for a node that cannot be cut: a hand-written
-        field, or a fused kernel (which runs whole)."""
+        placed tree.  ``group`` (``parallel/comm.Group``): the model group,
+        whose maxima are the quantized couplings' scales.  ``None`` for a
+        node that cannot be cut: a hand-written field, or a fused kernel
+        (which runs whole)."""
         vf = self._vf
         if vf is None or vf.localize is None or getattr(self, "_fused_attached", False):
             return None
@@ -521,7 +523,7 @@ class RateNet:
             return i // n * rows
 
         loc = copy.copy(self)
-        loc._vf = vf.localize(rows, r0, gather)
+        loc._vf = vf.localize(rows, r0, gather, group)
         loc.func = loc._vf.func
         loc._var_map = {k: (at(v[0]), at(v[1])) if isinstance(v, tuple) else v
                         for k, v in self._var_map.items()}
@@ -780,8 +782,9 @@ class MultiSpikeResetNet(RateNet):
 
     from_template = from_pyrates
 
-    def _shard(self, r0: int, r1: int, gather: Callable) -> Optional["MultiSpikeResetNet"]:
-        loc = super()._shard(r0, r1, gather)
+    def _shard(self, r0: int, r1: int, gather: Callable,
+               group=None) -> Optional["MultiSpikeResetNet"]:
+        loc = super()._shard(r0, r1, gather, group)
         if loc is not None:
             n, rows = self._vf.n, r1 - r0
             loc._segments = [(lo // n * rows, hi // n * rows) for lo, hi in self._segments]

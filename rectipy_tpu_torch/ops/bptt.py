@@ -56,6 +56,11 @@ contractions of ``_make_sparse_matvec`` and ``ops/quant.py``'s
 JAX package (the graph trajectory checkpoints Heun populations too).
 Anything else, frozen ``int8``/``int4`` included, raises ``ValueError`` as
 in the JAX package, and the caller then takes plain autograd.
+
+On a population shard (``comm``) every coupling above trains: a quantized
+one's transposed product takes its scale over the model group and adds the
+ranks' integer sums, so it gives the whole cotangent of the gathered source
+(``presummed``: the gather then sums nothing more), the unsharded numbers.
 """
 
 from __future__ import annotations
@@ -74,18 +79,20 @@ def _rows(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(-1, t.shape[-1])
 
 
-def _make_matvec(cast):
+def _make_matvec(cast, group=None):
     """Coupling contraction 4-tuple ``(prep, mv, mv_t, grad_w)`` matching
     ``dsl.lower``'s matvec numerics.  ``prep(w)`` runs once per trajectory;
-    ``mv``/``mv_t`` take the prepped representation."""
+    ``mv``/``mv_t`` take the prepped representation.  ``group``: a
+    population shard's quantized coupling rows, whose ``mv_t`` gives the
+    whole cotangent of the gathered source (``ops/quant.py``)."""
     if cast == "int8":  # int8_master quantized training (ops/quant.py)
         from .quant import int8_master_ops
 
-        return int8_master_ops()
+        return int8_master_ops(group)
     if cast == "int4":  # int4_master quantized training (ops/quant.py)
         from .quant import int4_master_ops
 
-        return int4_master_ops()
+        return int4_master_ops(group)
     from ..dsl.lower import _bf16_matvec, _bf16_values, _float_matvec, matvec
 
     if cast == "bf16":  # bfloat16_master: bf16 x bf16 products, float32 sums
@@ -209,24 +216,6 @@ def _make_sparse_matvec(cast, cols, n_bc: int = None):
 
 
 # ------------------------------------------------------------ the node pieces
-def _sharded_int8_mv_t(comm):
-    """``int8_master``'s transposed product on a population shard's rows:
-    the dynamic scale of ``ws * delta`` is the maximum over every rank's
-    rows (one all-reduce), each rank's integer sums over its rows are added
-    (one all-reduce) before the scale multiplies them, so the result is the
-    whole cotangent of the gathered source, as the unsharded product gives
-    it while the integer sums stay exact in float32."""
-    from .quant import int8_product_t, quant_vec
-
-    def mv_t(wp, delta):
-        wq, ws = wp
-        vq, vs = quant_vec(ws.to(delta.dtype) * delta, reduce=comm.all_reduce_max)
-        part = int8_product_t(wq, vq, torch.ones_like(vs))
-        return (comm.all_reduce(part) * vs).to(delta.dtype)
-
-    return mv_t
-
-
 def _node_pieces(node, allow_no_coupling: bool = False, comm=None):
     """Validate a node for deferred-gradient BPTT and build its per-population
     machinery: coupling source readers, the coupling-free step function and
@@ -235,7 +224,7 @@ def _node_pieces(node, allow_no_coupling: bool = False, comm=None):
     without a coupling (``allow_no_coupling``: all their coupling rides on
     edges).  ``comm`` (``parallel/comm.TrajectoryComm``): the node is a
     population shard (``RateNet._shard``) whose couplings hold its rows;
-    ``gathered(key, i, src)`` makes coupling ``i``'s source whole."""
+    ``gathered(key, src)`` makes a coupling's source whole."""
     vf = getattr(node, "_vf", None)
     if vf is None or vf.tile_func is None:
         raise ValueError("Deferred-gradient BPTT requires a DSL-built node (raw-constructor "
@@ -276,30 +265,22 @@ def _node_pieces(node, allow_no_coupling: bool = False, comm=None):
     slices = [(q,) + tuple(vf.var_map[q]) for q in state_order]
     tgt_names = [tgt for _, tgt, _ in vf.couplings]
     tile_func, inp_key = vf.tile_func, node._inp_key
+    # a shard's quantized couplings take their scales over the model group
+    # and give the whole cotangent of the gathered source (presummed)
+    presummed = comm is not None and vf.coupling_cast in ("int8", "int4")
     ops4 = []
     for wk in wkeys:
         if node._args[wk].dim() == 4:  # a block-sparse coupling (its structure in __cols)
+            n_bc = node._args[wk].shape[0] * (comm.size if comm is not None else 1)
             if vf.coupling_cast == "int8":
                 from .quant import make_block_int8_ops
 
-                ops4.append(make_block_int8_ops(node._args[wk + "__cols"]))
+                ops4.append(make_block_int8_ops(node._args[wk + "__cols"], n_bc, comm))
             else:
-                n_br = node._args[wk].shape[0]
                 ops4.append(_make_sparse_matvec(vf.coupling_cast, node._args[wk + "__cols"],
-                                                n_br * (comm.size if comm is not None else 1)))
+                                                n_bc))
         else:
-            ops4.append(_make_matvec(vf.coupling_cast))
-    presummed = [False] * len(wkeys)
-    if comm is not None:
-        for i, wk in enumerate(wkeys):
-            if vf.coupling_cast == "int8" and node._args[wk].dim() == 2:
-                ops4[i] = ops4[i][:2] + (_sharded_int8_mv_t(comm),) + ops4[i][3:]
-                presummed[i] = True
-            elif vf.coupling_cast in ("int8", "int4"):
-                raise NotImplementedError(
-                    f"a {'block ' if node._args[wk].dim() == 4 else ''}{vf.coupling_cast}"
-                    f"_master coupling trains on a model axis of one rank only: its "
-                    f"transposed product quantizes the cotangent with one dynamic scale")
+            ops4.append(_make_matvec(vf.coupling_cast, comm))
 
     # spiking configuration per node class (nodes.py make_step of each):
     # (surrogate keys, (lo, hi), hard reset)
@@ -364,12 +345,11 @@ def _node_pieces(node, allow_no_coupling: bool = False, comm=None):
             y_new = torch.cat((y_new[..., :lo], seg, y_new[..., hi:]), dim=-1)
         return y_new, read_out(y_new if post_out else y, a2)
 
-    def gathered(key, i, src):
-        """Coupling ``i``'s source made whole (a shard's; its cotangent
+    def gathered(key, src):
+        """A coupling's source made whole (a shard's; its cotangent
         summed over the ranks unless the transposed product gives the
-        whole one already, as ``int8_master``'s does, see
-        :func:`_sharded_int8_mv_t`)."""
-        return src if comm is None else comm.gather(key, src, not presummed[i])
+        whole one already, as the quantized couplings' do)."""
+        return src if comm is None else comm.gather(key, src, not presummed)
 
     def out_pre(y, args):
         """The output read from a state (the pre-update output of the
@@ -729,7 +709,7 @@ def _population_program(p):
     stages = []
     for i in range(K):
         def producer(y, svals, x, args, i=i):
-            return p.gathered(("c", i), i, p.src_fn(y, args)[i])
+            return p.gathered(("c", i), p.src_fn(y, args)[i])
 
         stages.append(SimpleNamespace(producer=producer, mv=p.mvs[i], mv_t=p.mv_ts[i],
                                       grad_w=p.grad_ws[i], widx=i, reads_svals=False))
@@ -737,7 +717,7 @@ def _population_program(p):
         src2_fn, step_x2 = heun_fns(p)
         for i in range(K):
             def producer2(y, svals, x, args, i=i):
-                return p.gathered(("c2", i), i, src2_fn(y, tuple(svals[:K]), x, args)[i])
+                return p.gathered(("c2", i), src2_fn(y, tuple(svals[:K]), x, args)[i])
 
             stages.append(SimpleNamespace(producer=producer2, mv=p.mvs[i], mv_t=p.mv_ts[i],
                                           grad_w=p.grad_ws[i], widx=i, reads_svals=True))

@@ -75,7 +75,10 @@ def _edge_ops(w):
             return w * d
 
         def grad_w(deltas, srcs):
-            return (deltas * srcs).reshape(-1, deltas.shape[-1]).sum(0)
+            # each gain's sum runs along its own row: its order does not
+            # depend on how many gains there are (a shard's rows sum as
+            # the whole vector's do)
+            return (deltas * srcs).reshape(-1, deltas.shape[-1]).T.contiguous().sum(-1)
 
         return prep, mv, mv_t, grad_w
     return _make_matvec(None)
@@ -103,7 +106,7 @@ def _filter_matrix_ops():
     return prep, mv, mv_t, grad_w
 
 
-def _block_edge_ops(e):
+def _block_edge_ops(e, group=None):
     """``(prep, mv, mv_t, grad_w)`` of a ``BlockSparseLinear`` edge on the
     delay-resolved ``(..., n_br, cb, bs)`` source stack its producer
     gathers: ``mv`` and ``grad_w`` are batched block contractions, and
@@ -113,14 +116,15 @@ def _block_edge_ops(e):
     records stay full precision; sums at float32 or wider); ``'int8_master'``
     quantizes the master once per trajectory and contracts through
     ``ops/quant.py``'s ``make_block_int8_stack_ops`` (``block_int8_mv`` on
-    the card), with float32 master gradients."""
+    the card), with float32 master gradients; ``group``: an edge into a
+    population shard, its dynamic scales the model group's maxima."""
     from .sparse import _bmm, block_contract
 
     dtype = e.dtype
     if e._int8_master:
         from .quant import make_block_int8_stack_ops
 
-        qprep, qmv, qmv_t, qgrad_w = make_block_int8_stack_ops()
+        qprep, qmv, qmv_t, qgrad_w = make_block_int8_stack_ops(group)
 
         def mv8(wp, s_blk):
             return qmv(wp, s_blk).to(dtype)
@@ -194,7 +198,13 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
     cotangent all-reduced once in the backward (``parallel/comm.
     TrajectoryComm``).  A leaf that a sharded node or edge holds whole
     gets the gradient of the shard's rows, which the caller sums over the
-    model group.  On a model axis of one the shard is the network
+    model group.  Diagonal gains into a shard hold their rows.  Unfiltered,
+    they read the rank's rows of their source with no collective (of a
+    source every rank runs whole: its rows, the cotangent summed over the
+    model group), and a delayed edge carries its buffer's rows; filtered,
+    they read their rows of the filtered gathered source.  An
+    ``int8_master`` block edge into a shard takes its stack's scales over
+    the model group.  On a model axis of one the shard is the network
     itself."""
     from ..edges import (BlockSparseLinear, Linear, LinearFilter, LinearMasked, LinearMemory,
                          LinearMemoryFilter)
@@ -235,13 +245,22 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
         if type(e) not in allowed:
             raise ValueError(f"Deferred-gradient graph BPTT requires linear-family edges; "
                              f"edge {u}->{n} is {type(e).__name__}.")
-        if n in rows and (e.params["weights"].dim() == 1
-                          or getattr(e, "_int8_master", False)):
-            what = ("diagonal gains" if e.params["weights"].dim() == 1
-                    else "int8_master blocks")
-            raise NotImplementedError(
-                f"edge {u}->{n} ({what}) into a population shard: the graph trajectory "
-                f"trains it on a model axis of one rank only")
+        if n in rows and type(e) is LinearMasked and e.params["weights"].dim() == 1:
+            raise ValueError(f"edge {u}->{n}: masked diagonal gains into a population shard "
+                             f"take plain autograd (the shard's rows of a whole mask)")
+
+    def own_rows(u, producer, r0, r1):
+        """What diagonal gains into a shard's rows ``[r0, r1)`` read of
+        their source ``u``: the rank's rows of a sharded source (the same
+        rows: its width is the target's), with no collective; those rows
+        of a source every rank runs whole, its cotangent summed over the
+        model group."""
+        if u in rows:
+            return producer
+
+        def part(C, svals, x, args):
+            return comm.to_partial(producer(C, svals, x, args))[..., r0:r1]
+        return part
 
     def source(u, v, producer, kind: str):
         """The producer of what edge ``u -> v`` reads of its source: a
@@ -286,7 +305,7 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
                                eff=eff, deff=deff, producer=producer, reads_svals=reads,
                                mask_path=mask_path)
 
-    def block_edge_stage(e, producer, reads, ek):
+    def block_edge_stage(e, producer, reads, ek, v):
         """The stage of a ``BlockSparseLinear`` edge: the producer emits the
         delay-resolved ``(..., n_br, cb, bs)`` gathered stack.  A delayed
         edge's trajectory carries a cursor-free ROLLED buffer (newest
@@ -331,8 +350,8 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
 
             estate_pack[ek] = b_pack
             estate_unpack[ek] = b_unpack
-        return [(stage(f"e:{ek}", _block_edge_ops(e), b_producer, reads),
-                 ("edges", ek, "weights"))]
+        return [(stage(f"e:{ek}", _block_edge_ops(e, comm if v in rows else None), b_producer,
+                       reads), ("edges", ek, "weights"))]
 
     def edge_stages(u, nname, e, producer, reads, kind="out"):
         """Stage(s) of one edge, ``[(stage, path)]``; the last stage is the
@@ -344,10 +363,14 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
         filter stage over the rolled buffer, then the weight stage of the
         written slot 0."""
         ek = _ekey(u, nname)
-        producer = source(u, nname, producer, kind)
         if type(e) is BlockSparseLinear:
-            return block_edge_stage(e, producer, reads, ek)
+            return block_edge_stage(e, source(u, nname, producer, kind), reads, ek, nname)
         w = e.params["weights"]
+        # diagonal gains into a shard: their rows scale the source's rows
+        diag_rows = rows.get(nname) if w.dim() == 1 and type(e) is not LinearMasked else None
+        local = diag_rows is not None and type(e) in (Linear, LinearMemory)
+        producer = (own_rows(u, producer, *diag_rows) if local
+                    else source(u, nname, producer, kind))
         # the ops follow the EFFECTIVE weight: w * mask is 2-D even for 1-D
         # gains, as the edge's (w * mask) @ x
         ops = _edge_ops(e.params["mask"] if type(e) is LinearMasked else w)
@@ -374,6 +397,11 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
             reads = True
         elif type(e) is LinearMemory:
             wm = e._write_mask
+            if local:  # the carry holds the buffer's rows (whole between chunks)
+                r0, r1 = diag_rows
+                wm = wm[r0:r1]
+                estate_pack[ek] = lambda buf, r0=r0, r1=r1: buf[..., r0:r1, :]
+                estate_unpack[ek] = lambda buf, orig, T: comm.gather_rows(buf)
 
             def buf_new(C, svals, x, args, src=producer):
                 x_u = src(C, svals, x, args)
@@ -397,6 +425,10 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
 
             estate_update[ek] = y_new
             producer, reads = y_new, True
+        if diag_rows is not None and not local:  # a filtered edge: its rows of the whole
+            def producer(C, svals, x, args, whole=producer, r0=diag_rows[0], r1=diag_rows[1]):
+                return whole(C, svals, x, args)[..., r0:r1]
+
         if type(e) is LinearMasked:
             diag = w.dim() == 1  # eff[i, j] = w[j] * m[i, j]
 
@@ -459,7 +491,7 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
             for i, wk in enumerate(pk.wkeys):
                 def c_producer(C, svals, x, args, nname=nname, i=i, pk=pk):
                     src = pk.src_fn(C["Y"][nname], args["nodes"][nname])[i]
-                    return pk.gathered(("c", nname, i), i, src)
+                    return pk.gathered(("c", nname, i), src)
 
                 ops = (pk.preps[i], pk.mvs[i], pk.mv_ts[i], pk.grad_ws[i])
                 add([(stage(f"n:{nname}:{wk}", ops, c_producer, False),
@@ -474,7 +506,7 @@ def make_graph_traj(net, remat_steps: int = 0, shard=None) -> Tuple[Callable, Si
                         s1 = tuple(svals[j] for j in c1)
                         src = src2_fn(C["Y"][nname], s1, inp_expr[nname](C, svals, x, args),
                                       args["nodes"][nname])[i]
-                        return pk.gathered(("c2", nname, i), i, src)
+                        return pk.gathered(("c2", nname, i), src)
 
                     ops = (pk.preps[i], pk.mvs[i], pk.mv_ts[i], pk.grad_ws[i])
                     add([(stage(f"n:{nname}:{wk}", ops, c2_producer, True),

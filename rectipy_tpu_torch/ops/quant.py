@@ -50,6 +50,19 @@ XLA einsum); the node couplings take it with ``idx = cols``
 (:func:`block_int8_matvec`, :func:`make_block_int8_ops`), the delayed edge
 with its gathered stack (:func:`make_block_int8_stack_ops`).  Their
 transposed contraction (training only) is a PyTorch product.
+
+On a population shard (``parallel/``) a coupling holds the rank's rows and
+contracts the gathered whole source.  The STE products then take a
+``group`` (``parallel/comm.Group``: the model group's collectives): every
+dynamic scale that the unsharded product takes over a whole vector is a
+maximum over the group (``quant_vec(..., reduce=group.all_reduce_max)``),
+so each rank quantizes with the unsharded scale.  A transposed product of
+the coupling rows gives the whole cotangent of the gathered source: the
+ranks' integer partial sums are added (:func:`_psum_exact`) before the
+scale multiplies them, so the result is the unsharded product's (and the
+source's gather sums nothing more).  The delayed block edge's stack is
+the rank's own (its rows' gathered blocks): there only the scales are the
+group's.
 """
 
 from __future__ import annotations
@@ -443,21 +456,42 @@ def _mv_prepped(wp, src):
     return int8_product(wq, xq, ws, xs).to(src.dtype)
 
 
-def _mv_t_prepped(wp, delta):
+def _amax(group):
+    """The scale reduction of a population shard's products: the maximum
+    over the model group (None: an unsharded product)."""
+    return None if group is None else group.all_reduce_max
+
+
+def _psum_exact(part: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the model group of each rank's integer partial sums
+    ``part`` (exact integers in a float type, as the kernels give them): the
+    sums travel as int32, the unsharded kernels' accumulator, so the total
+    is the unsharded product's integer sum, rounded to float32 once."""
+    return group.all_reduce(part.to(torch.int32)).to(torch.float32)
+
+
+def _mv_t_prepped(wp, delta, group=None):
     """W^T @ delta = W_q^T (scale . delta): delta is row-scaled before the
-    dynamic quantization, so one activation scale per row suffices."""
+    dynamic quantization, so one activation scale per row suffices.
+    ``group``: ``wp`` holds a population shard's rows and ``delta`` their
+    cotangent; the scale is the group's maximum, and the result the whole
+    ``W^T @ delta`` (the ranks' integer sums added before the scale)."""
     wq, ws = wp
     v = ws.to(delta.dtype) * delta
-    vq, vs = quant_vec(v)
-    return int8_product_t(wq, vq, vs).to(delta.dtype)
+    vq, vs = quant_vec(v, reduce=_amax(group))
+    if group is None:
+        return int8_product_t(wq, vq, vs).to(delta.dtype)
+    part = int8_product_t(wq, vq, torch.ones_like(vs))
+    total = _psum_exact(part, group)
+    return (total * vs).to(delta.dtype)
 
 
 def _mv(w, src):
     return _mv_prepped(quantize_rows(w.detach()), src)
 
 
-def _mv_t(w, delta):
-    return _mv_t_prepped(quantize_rows(w.detach()), delta)
+def _mv_t(w, delta, group=None):
+    return _mv_t_prepped(quantize_rows(w.detach()), delta, group)
 
 
 def _grad_w(deltas, srcs):
@@ -479,11 +513,12 @@ def _outer_sum(g, src):
     return g.reshape(-1, g.shape[-1]).T @ src.reshape(-1, src.shape[-1])
 
 
-def int8_master_ops():
+def int8_master_ops(group=None):
     """``(prep, mv, mv_t, grad_w)`` for the deferred-gradient trajectories:
     ``prep`` quantizes the master once per trajectory; ``mv``/``mv_t`` take
-    the prepped ``(wq, scale)`` pair."""
-    return quantize_rows, _mv_prepped, _mv_t_prepped, _grad_w
+    the prepped ``(wq, scale)`` pair.  ``group``: a population shard's
+    coupling rows, whose ``mv_t`` gives the whole cotangent."""
+    return quantize_rows, _mv_prepped, functools.partial(_mv_t_prepped, group=group), _grad_w
 
 
 class _Int8MasterMatvec(torch.autograd.Function):
@@ -492,21 +527,25 @@ class _Int8MasterMatvec(torch.autograd.Function):
     full-precision outer product (the deferred path's numerics)."""
 
     @staticmethod
-    def forward(ctx, w, src):
+    def forward(ctx, w, src, group):
         ctx.save_for_backward(w, src)
+        ctx.group = group
         return _mv(w, src)
 
     @staticmethod
     def backward(ctx, g):
         w, src = ctx.saved_tensors
         dw = _outer_sum(g, src).to(w.dtype) if ctx.needs_input_grad[0] else None
-        dsrc = _mv_t(w, g) if ctx.needs_input_grad[1] else None
-        return dw, dsrc
+        dsrc = _mv_t(w, g, ctx.group) if ctx.needs_input_grad[1] else None
+        return dw, dsrc, None
 
 
-def int8_master_matvec(w, src):
-    """STE int8 matvec of a float master ``w`` (quantized on every call)."""
-    return _Int8MasterMatvec.apply(w, src)
+def int8_master_matvec(w, src, group=None):
+    """STE int8 matvec of a float master ``w`` (quantized on every call).
+    ``group``: ``w`` holds a population shard's rows; the source's gradient
+    is the whole one, at the group's cotangent scale (:func:`_mv_t_prepped`),
+    so its gather must not sum it again."""
+    return _Int8MasterMatvec.apply(w, src, group)
 
 
 # -------------------------------------------------------------------- int4
@@ -866,20 +905,26 @@ def _mv4_prepped(wp, src):
     return int4_product(wp[0], xq, wp[1], xs).to(src.dtype)
 
 
-def _mv4_t_prepped(wp, delta):
+def _mv4_t_prepped(wp, delta, group=None):
     """W^T @ delta with the row scales folded into delta before the dynamic
-    quantization, as in :func:`_mv_t_prepped`."""
+    quantization, as in :func:`_mv_t_prepped` (``group`` too: a population
+    shard's rows, the products ``int4_mv_t``/``int4_mm_t`` on them at a unit
+    scale, the group's sum of their integer sums, then the scale)."""
     v = wp[1].to(delta.dtype) * delta
-    vq, vs = quant_vec(v)
-    return int4_product_t(wp[0], vq, vs, wp[2]).to(delta.dtype)
+    vq, vs = quant_vec(v, reduce=_amax(group))
+    if group is None:
+        return int4_product_t(wp[0], vq, vs, wp[2]).to(delta.dtype)
+    part = int4_product_t(wp[0], vq, torch.ones_like(vs), wp[2])
+    total = _psum_exact(part, group)
+    return (total * vs).to(delta.dtype)
 
 
-def int4_master_ops():
+def int4_master_ops(group=None):
     """``(prep, mv, mv_t, grad_w)`` of an ``int4_master`` coupling for the
     deferred-gradient trajectories: the int4 counterpart of
     :func:`int8_master_ops` (same STE, same full-precision master
-    gradient)."""
-    return _i4_prep, _mv4_prepped, _mv4_t_prepped, _grad_w
+    gradient, the same ``group``)."""
+    return _i4_prep, _mv4_prepped, functools.partial(_mv4_t_prepped, group=group), _grad_w
 
 
 class _Int4MasterMatvec(torch.autograd.Function):
@@ -887,21 +932,23 @@ class _Int4MasterMatvec(torch.autograd.Function):
     :class:`_Int8MasterMatvec`)."""
 
     @staticmethod
-    def forward(ctx, w, src):
+    def forward(ctx, w, src, group):
         ctx.save_for_backward(w, src)
+        ctx.group = group
         return _mv4_prepped(_i4_prep(w.detach()), src)
 
     @staticmethod
     def backward(ctx, g):
         w, src = ctx.saved_tensors
         dw = _outer_sum(g, src).to(w.dtype) if ctx.needs_input_grad[0] else None
-        dsrc = _mv4_t_prepped(_i4_prep(w), g) if ctx.needs_input_grad[1] else None
-        return dw, dsrc
+        dsrc = _mv4_t_prepped(_i4_prep(w), g, ctx.group) if ctx.needs_input_grad[1] else None
+        return dw, dsrc, None
 
 
-def int4_master_matvec(w, src):
-    """STE int4 matvec of a float master ``w`` (quantized on every call)."""
-    return _Int4MasterMatvec.apply(w, src)
+def int4_master_matvec(w, src, group=None):
+    """STE int4 matvec of a float master ``w`` (quantized on every call;
+    ``group`` as :func:`int8_master_matvec`'s)."""
+    return _Int4MasterMatvec.apply(w, src, group)
 
 
 # -------------------------------------------------------------- block-sparse
@@ -1219,17 +1266,24 @@ def block_grad_w(deltas, srcs, cols, cast=None) -> torch.Tensor:
     return dA.reshape(n_br, bs, cb, bs).permute(0, 2, 1, 3).contiguous().to(torch.float32)
 
 
-def make_block_int8_ops(cols):
+def make_block_int8_ops(cols, n_bc: int = None, group=None):
     """``(prep, mv, mv_t, grad_w)`` of an ``int8_master`` block-sparse
     coupling for the deferred-gradient trajectories; ``cols (n_br, cb)`` is
     its block structure (a tensor or an array).  ``RECTIPY_SPARSE_BWD`` is
-    read here, when the ops are built."""
+    read here, when the ops are built.  ``n_bc``: the source's column
+    blocks (default ``n_br``: a square coupling).  ``group``: ``cols`` are a
+    population shard's block rows (``n_bc`` the whole source's); the
+    cotangent's scale is the group's maximum, and ``mv_t`` gives the whole
+    source cotangent: the group's sum of the ranks' integer sums times the
+    scale."""
     cols_np = _np_cols(cols)
     n_br, cb = cols_np.shape
+    n_bc = n_bc or n_br
     cols_t = torch.as_tensor(cols_np.astype(np.int32))
     mode = sparse_bwd_mode()
-    table = _transposed_block_table(cols_np) if mode == "gather" else None
-    onehot = _onehot_col_matrix(cols_np) if mode == "onehot" else None
+    table = _transposed_block_table(cols_np, n_bc) if mode == "gather" else None
+    onehot = _onehot_col_matrix(cols_np, n_bc) if mode == "onehot" else None
+    amax = _amax(group)
 
     def mv(wp, src):
         return block_int8_matvec(wp, cols_t.to(wp[0].device), src)
@@ -1242,23 +1296,27 @@ def make_block_int8_ops(cols):
         bs = bq.shape[-2]
         lead = delta.shape[:-1]
         v = scale.to(delta.dtype) * delta.reshape(*lead, n_br, bs)
-        vq, vs = quant_vec(v.reshape(*lead, n_br * bs))
+        vq, vs = quant_vec(v.reshape(*lead, n_br * bs), reduce=amax)
         vq = vq.reshape(-1, n_br, bs)
         L, dev = vq.shape[0], bq.device
         if mode == "gather":
             rows_T, slot_T, mask_T = (t.to(dev) for t in table)
             G = bq[rows_T, slot_T].to(torch.float64)  # (n_bc, cb_t, bs, bs)
             D = vq[:, rows_T].to(torch.float64) * mask_T[..., None].to(torch.float64)
-            out = torch.einsum("qcij,lqci->lqj", G, D).to(torch.float32)
+            out = torch.einsum("qcij,lqci->lqj", G, D)  # exact: float64 integer sums
+            out = out if group is not None else out.to(torch.float32)
         else:
             contrib = _block_t_contrib(bq, vq).reshape(L, n_br * cb, bs)
             if mode == "onehot":
                 out = torch.einsum("lkj,kq->lqj", contrib, onehot.to(dev))
             else:
-                out = torch.zeros((L, n_br, bs), dtype=torch.float32, device=dev)
+                out = torch.zeros((L, n_bc, bs), dtype=torch.float32, device=dev)
                 out.index_add_(1, cols_t.to(dev).long().reshape(-1), contrib)
-        out = out.reshape(L, n_br * bs) * _rows_scale(vs)
-        return out.reshape(*lead, n_br * bs).to(delta.dtype)
+        out = out.reshape(L, n_bc * bs)
+        if group is not None:
+            out = _psum_exact(out, group)
+        out = out * _rows_scale(vs)
+        return out.reshape(*lead, n_bc * bs).to(delta.dtype)
 
     def grad_w(deltas, srcs):
         """The master's gradient in float32, never quantized (STE)."""
@@ -1289,11 +1347,12 @@ class _BlockInt8MasterMatvec(torch.autograd.Function):
         return db, dsrc, None
 
 
-def make_block_int8_master_matvec(cols):
+def make_block_int8_master_matvec(cols, n_bc: int = None, group=None):
     """STE quantized block-sparse matvec ``f(blocks, src)`` of an
     ``int8_master`` coupling for the plain autograd path (the deferred
-    trajectories use :func:`make_block_int8_ops` and prep once)."""
-    ops = make_block_int8_ops(cols)
+    trajectories use :func:`make_block_int8_ops` and prep once); ``n_bc``
+    and ``group`` as there."""
+    ops = make_block_int8_ops(cols, n_bc, group)
 
     def f(blocks, src):
         return _BlockInt8MasterMatvec.apply(blocks, src, ops)
@@ -1316,25 +1375,29 @@ def _stack_idx(n_br: int, cb: int, device) -> torch.Tensor:
     return _STACK_IDX[key]
 
 
-def _stack_mv(wp, s_blk):
+def _stack_mv(wp, s_blk, group=None):
+    """The forward contraction of a gathered stack, one dynamic activation
+    scale over the stack (``group``: a shard's block rows of it, the scale
+    the group's maximum, the whole stack's)."""
     bq, scale = wp
     n_br, cb, bs = bq.shape[-4], bq.shape[-3], bq.shape[-2]
     lead = s_blk.shape[:-3]
-    xq, xs = quant_vec(s_blk.reshape(*lead, n_br * cb * bs))
+    xq, xs = quant_vec(s_blk.reshape(*lead, n_br * cb * bs), reduce=_amax(group))
     acc = block_int8_product(bq, scale, xq.reshape(-1, n_br * cb, bs),
                              _stack_idx(n_br, cb, bq.device))
     return (acc * _rows_scale(xs)).reshape(*lead, n_br * bs)
 
 
-def _stack_mv_t(wp, delta):
+def _stack_mv_t(wp, delta, group=None):
     """``W^T @ delta`` in gathered form ``(..., n_br, cb, bs)``, float32:
     the row scales fold into delta (in float32) before the dynamic
-    quantization."""
+    quantization (``group``: a shard's rows, the scale the group's
+    maximum; each block's cotangent is the unsharded one)."""
     bq, scale = wp
     n_br, cb, bs = bq.shape[-4], bq.shape[-3], bq.shape[-2]
     lead = delta.shape[:-1]
     v = scale * delta.reshape(*lead, n_br, bs).to(torch.float32)
-    vq, vs = quant_vec(v.reshape(*lead, n_br * bs))
+    vq, vs = quant_vec(v.reshape(*lead, n_br * bs), reduce=_amax(group))
     contrib = _block_t_contrib(bq, vq.reshape(-1, n_br, bs))
     out = contrib * _rows_scale(vs)[:, :, None, None]
     return out.reshape(*lead, n_br, cb, bs)
@@ -1350,14 +1413,19 @@ def _stack_grad_w(deltas, srcs):
     return dW.reshape(n_br, bs, cb, bs).permute(0, 2, 1, 3).contiguous()
 
 
-def make_block_int8_stack_ops():
+def make_block_int8_stack_ops(group=None):
     """``(prep, mv, mv_t, grad_w)`` of ``int8_master`` contractions on an
     already gathered ``(..., n_br, cb, bs)`` source stack: the delayed
     ``BlockSparseLinear`` edge, whose history read resolves each block's
     delay before the contraction.  One dynamic activation scale per stack
     (per trial), taken over the gathered blocks; on the card the forward
-    launches ``block_int8_mv`` with ``idx = arange(n_br * cb)``."""
-    return quantize_blocks, _stack_mv, _stack_mv_t, _stack_grad_w
+    launches ``block_int8_mv`` with ``idx = arange(n_br * cb)``.
+    ``group``: the stack of a population shard's block rows; both scales
+    are the group's maxima (the whole stack's, the whole cotangent's)."""
+    if group is None:
+        return quantize_blocks, _stack_mv, _stack_mv_t, _stack_grad_w
+    return (quantize_blocks, functools.partial(_stack_mv, group=group),
+            functools.partial(_stack_mv_t, group=group), _stack_grad_w)
 
 
 class _BlockStackApply(torch.autograd.Function):
@@ -1366,23 +1434,25 @@ class _BlockStackApply(torch.autograd.Function):
     ``ds`` through the quantized transpose."""
 
     @staticmethod
-    def forward(ctx, blocks, s_blk):
+    def forward(ctx, blocks, s_blk, group):
         ctx.save_for_backward(blocks, s_blk)
-        return _stack_mv(quantize_blocks(blocks.detach()), s_blk)
+        ctx.group = group
+        return _stack_mv(quantize_blocks(blocks.detach()), s_blk, group)
 
     @staticmethod
     def backward(ctx, g):
         blocks, s_blk = ctx.saved_tensors
         db = _stack_grad_w(g, s_blk).to(blocks.dtype) if ctx.needs_input_grad[0] else None
-        ds = (_stack_mv_t(quantize_blocks(blocks.detach()), g).to(s_blk.dtype)
+        ds = (_stack_mv_t(quantize_blocks(blocks.detach()), g, ctx.group).to(s_blk.dtype)
               if ctx.needs_input_grad[1] else None)
-        return db, ds
+        return db, ds, None
 
 
-def make_block_int8_stack_apply():
+def make_block_int8_stack_apply(group=None):
     """The STE-wrapped single-step apply ``f(blocks, s_blk)`` of the
-    gathered-stack form (the trainable edge's in-step quantization)."""
-    return _BlockStackApply.apply
+    gathered-stack form (the trainable edge's in-step quantization;
+    ``group`` as :func:`make_block_int8_stack_ops`')."""
+    return lambda blocks, s_blk: _BlockStackApply.apply(blocks, s_blk, group)
 
 
 class _BlockStackPrepped(torch.autograd.Function):
@@ -1393,17 +1463,18 @@ class _BlockStackPrepped(torch.autograd.Function):
     gradients; the port does not copy that.)"""
 
     @staticmethod
-    def forward(ctx, s_blk, bq, scale):
+    def forward(ctx, s_blk, bq, scale, group):
         ctx.wp = (bq, scale)
         ctx.dtype = s_blk.dtype
-        return _stack_mv((bq, scale), s_blk)
+        ctx.group = group
+        return _stack_mv((bq, scale), s_blk, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _stack_mv_t(ctx.wp, g).to(ctx.dtype), None, None
+        return _stack_mv_t(ctx.wp, g, ctx.group).to(ctx.dtype), None, None, None
 
 
-def block_int8_stack_prepped(wp, s_blk) -> torch.Tensor:
+def block_int8_stack_prepped(wp, s_blk, group=None) -> torch.Tensor:
     """:func:`make_block_int8_stack_ops`' forward on prepped ``wp``, with
-    the STE source gradient."""
-    return _BlockStackPrepped.apply(s_blk, wp[0], wp[1])
+    the STE source gradient (``group`` as there)."""
+    return _BlockStackPrepped.apply(s_blk, wp[0], wp[1], group)

@@ -17,11 +17,17 @@ process per device, as the JAX package's multi-controller runtime runs it:
 So a one-population step gathers its source once a step, ``N x itemsize``
 bytes, and issues nothing else (``sharded_step_collectives``, counted by the
 port's own collectives in ``comm.py``, since PyTorch has no whole-program
-HLO to read).  A node with a fused kernel attached runs whole on every rank
-of its model group (the kernel's step is the whole population's), as does a
-node the axis does not divide; an edge's state (its source-side history)
-is whole on every rank.  The CPU runs it on gloo ranks
-(``make_mesh(..., device_type="cpu")``), the card on NCCL.
+HLO to read).  Training a quantized coupling adds, a step, the maximum of
+its cotangent's scale over the model group and the sum of the ranks'
+integer partial sums (two all-reduces, in place of the source's summed
+cotangent); a quantized block edge's stack takes its scales' maxima too.
+A node with a fused kernel attached runs whole on every rank of its model
+group (the kernel's step is the whole population's), as does a node the
+axis does not divide; an edge's state (its source-side history) is whole on
+every rank.  The CPU runs it on gloo ranks
+(``make_mesh(..., device_type="cpu")``), the card on NCCL, or two gloo
+ranks on its tensors where one card must hold a model axis of two
+(``chip_smoke.py`` phase 51; NCCL takes one rank a device).
 """
 
 from .diagnostics import collective_stats, sharded_step_collectives

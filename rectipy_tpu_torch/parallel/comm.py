@@ -15,6 +15,13 @@ that consumed the gathered vector contribute to every source neuron.
 alike (the loss of the gathered outputs): its gradient is the own rows, with
 no collective.  ``to_partial`` marks a value every rank holds whole as
 consumed by each rank's rows (identity forward, summed gradient).
+``Group`` hands the sum and the maximum to the quantized products of a
+population shard (their dynamic scales and integer partial sums).
+
+A gloo group takes these collectives on CUDA tensors as they are (PyTorch
+2.11; gloo stages them through the host itself): the two ranks that share
+one card in ``chip_smoke.py`` run them on a gloo group, NCCL refusing two
+ranks on one device.  No copy is made here.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["COLLECTIVES", "tally", "reset", "gather_last", "gather_whole", "gather_first",
-           "all_reduce", "all_reduce_max", "to_partial", "TrajectoryComm"]
+           "all_reduce", "all_reduce_max", "to_partial", "Group", "TrajectoryComm"]
 
 COLLECTIVES = ("all-gather", "all-reduce", "collective-permute", "all-to-all",
                "reduce-scatter")
@@ -170,7 +177,26 @@ class _Replay(torch.autograd.Function):
         return g[..., r0:r0 + ctx.rows], None, None, None, None, None
 
 
-class TrajectoryComm:
+class Group:
+    """A population shard's model group as the quantized products take it
+    (``ops/quant.py``): the sum and the elementwise maximum of every rank's
+    tensor, counted as above, the group's size, and the gather of a source
+    whose consumer gives the whole gradient itself."""
+
+    def __init__(self, group, size: int, rank: int):
+        self.group, self.size, self.rank = group, size, rank
+
+    def gather_whole(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_whole(x, self.group, self.size, self.rank)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x, self.group, self.size)
+
+    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_max(x, self.group, self.size)
+
+
+class TrajectoryComm(Group):
     """The collectives of a population shard inside a deferred-gradient
     trajectory (``ops/bptt.py``, ``ops/graph_bptt.py``).
 
@@ -187,7 +213,7 @@ class TrajectoryComm:
     with the local cotangents, with no gather of the trajectory."""
 
     def __init__(self, group, size: int, rank: int):
-        self.group, self.size, self.rank = group, size, rank
+        super().__init__(group, size, rank)
         self._log = None
         self._step = None
         self._replay = False
@@ -227,8 +253,8 @@ class TrajectoryComm:
     def to_partial(self, x: torch.Tensor) -> torch.Tensor:
         return to_partial(x, self.group, self.size)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return all_reduce(x, self.group, self.size)
-
-    def all_reduce_max(self, x: torch.Tensor) -> torch.Tensor:
-        return all_reduce_max(x, self.group, self.size)
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole ``(..., n, k)`` from every rank's rows ``(..., rows,
+        k)`` (a diagonal edge's delay buffer, at the end of a chunk)."""
+        return gather_first(x.detach().movedim(-2, 0).clone(), self.group,
+                            self.size).movedim(0, -2)

@@ -25,6 +25,21 @@ collective.  The trainers (``Network.fit_*(mesh=)``) run on the same
 shard: the deferred-gradient trajectories of ``ops/bptt.py`` and
 ``ops/graph_bptt.py`` take its local nodes and edges and
 ``comm.TrajectoryComm``'s gathers.
+
+Placement, by what each leaf is: a coupling's rows (dense, or the block
+rows of a block stack and of its ``cols``), a per-neuron parameter's rows,
+an edge's row parameters (its weights' rows, a block edge's block rows and
+per-block delays, diagonal gains' rows) by target rows.  An edge's
+per-source delays and its ring buffer or history (the source side) stay
+whole: the run step of diagonal gains projects the rows ``[r0, r1)`` of
+the gathered source's vector.  The graph trajectory's stage of diagonal
+gains reads the rank's own rows of the source, and carries a delayed
+edge's buffer rows (gathered whole at the end of a chunk), so it issues no
+collective a step; its gradient is the rank's rows, a sharded leaf's.
+(Masked diagonal gains scale the mask's columns: they stay whole, and a
+shard slices their step's output.)  The quantized couplings and block edges of a shard take the model
+group (``self.group``, a ``comm.Group``) for their dynamic scales and
+integer partial sums (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -176,6 +191,8 @@ class NetworkShard:
         self.net = net
         self.n_model, self.m_rank, self.m_group = _axis(mesh, model_axis)
         self.n_data, self.d_rank, self.d_group = _axis(mesh, data_axis)
+        # the quantized products' scales and partial sums (ops/quant.py)
+        self.group = comm.Group(self.m_group, self.n_model, self.m_rank)
         self._trials: Dict[int, Tuple[int, int]] = {}
         order = net._compiled["order"]
         fb = net._fb_edge_list()
@@ -210,7 +227,7 @@ class NetworkShard:
         if any(key.endswith("__cols") and args[key].shape[0] % k for key in args):
             return None
         r0 = self.m_rank * (n // k)
-        local = node._shard(r0, r0 + n // k, self._gather)
+        local = node._shard(r0, r0 + n // k, self._gather, self.group)
         if local is not None:
             self.rows[label] = (r0, r0 + n // k)
             if isinstance(getattr(node, "_args", None), dict):  # the trajectories read them
@@ -221,7 +238,7 @@ class NetworkShard:
     def _edge(self, u: str, v: str, edge):
         if v not in self.rows:
             return edge
-        return edge._shard(*self.rows[v])
+        return edge._shard(*self.rows[v], self.group)
 
     def _gather(self, x: torch.Tensor) -> torch.Tensor:
         return comm.gather_last(x, self.m_group, self.n_model, self.m_rank)

@@ -36,11 +36,24 @@ The tensor cores' int8 product: ``mma_m16n8k32`` is a numpy model of one
 ``mma.sync`` m16n8k32 s8 on the PTX ISA's fragment layouts, with
 ``sbytes`` and ``words`` between uint32 registers and their bytes; the
 CPU tests' lane-by-lane models of the ``mma`` kernels are built on it.
+
+A model axis of two on one card (``mesh_quant_turns``): NCCL takes one rank
+a device, so two gloo ranks, two processes (``mesh_quant_rank``), put their
+tensors on the one card and fit the quantized networks of
+``MESH_QUANT_FITS`` on ``make_mesh(2, device_type="cuda")``, in turns with
+the calling process's fits of the same networks without a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -53,7 +66,8 @@ __all__ = ["ADAM_KW", "ADAM_RTOL", "GENERIC_CASES", "GENERIC_TOL", "STDP_CASES",
            "check_stdp", "generic_case_net", "generic_inputs", "stdp_inputs", "stdp_routes",
            "generic_rows_instance", "generic_rows_operands", "lost_eighth_margin",
            "mma_m16n8k32", "qif_rows_instance", "quant_scales", "reciprocal_rows", "sbytes",
-           "words"]
+           "words", "MESH_QUANT_FITS", "mesh_quant_fit", "mesh_quant_rank", "mesh_quant_turns",
+           "qif_sharded_net", "qif_sharded_data"]
 
 ADAM_RTOL = 1e-6
 ADAM_KW = dict(b1=0.9, b2=0.999, eps=1e-8)
@@ -458,3 +472,347 @@ def check_stdp(mode: str, ops: dict, route: str = None) -> dict:
         err = max(err, float((a.double() - b.double()).abs().max()))
     return {"launches": launches, "tile_launches": tile_launches,
             "moved": int((ref[0] != ops["W"]).sum()), "max_abs_err": err}
+
+
+# ------------------------------------------------- two gloo ranks on one card
+QIF = "rectipy_tpu_torch.models.spiking_neurons.qif.qif"
+QIF_SFA = "rectipy_tpu_torch.models.spiking_neurons.qif.qif_sfa"
+# the fits of a model axis of two on one card: (a) examples/qif_100k_sharded.py's
+# training, (b) bench.py:331-370's N = 10,000 QIF network with an int4_master
+# coupling and (c) its fit_bptt_batch, the trials on data 1 x model 2
+MESH_QUANT_FITS = ("qif_sharded", "int4_fit_bptt", "int4_fit_bptt_batch")
+
+
+def qif_sharded_net(n: int, bs: int = 512, fan_in: int = 1000, device=None,
+                    dtype=torch.float32, ns=None):
+    """``examples/qif_100k_sharded.py``'s training network (its ``QIF_TRAIN=1``
+    part with ``QIF_COUPLING=int8_master``) at ``n`` neurons (a multiple of
+    ``bs``): the block coupling of ``block_random_connectivity(n, n, fan_in,
+    block_size=bs, seed=0)``, dt 1e-3, etas 100 + 20 N(0, 1) (seed 2), a
+    one-channel drive through an ``(n, 1)`` edge and the per-neuron delays
+    0-7 (seed 1) of its diagonal feedback gains (0.3), which train by
+    gradient descent with the coupling.  ``ns``: what builds it in another
+    package with this package's API (``net(dt)``, an empty
+    ``FeedbackNetwork``; ``block_random_connectivity``; ``template``, its
+    ``qif_sfa`` template); default: this package's, on ``device`` at
+    ``dtype``."""
+    if ns is None:
+        from . import FeedbackNetwork, block_random_connectivity
+
+        ns = SimpleNamespace(
+            net=lambda dt: FeedbackNetwork(dt, dtype=dtype, device=device),
+            block_random_connectivity=block_random_connectivity, template=QIF_SFA)
+    A = ns.block_random_connectivity(n, n, fan_in, block_size=bs, seed=0)
+    rng = np.random.default_rng(1)
+    delays = rng.integers(0, 8, size=n)
+    rng.normal(size=(n, 1))  # the input weights of the example's forward network
+    etas = 100.0 + 20.0 * np.random.default_rng(2).standard_normal(n)
+    net = ns.net(1e-3)
+    net.add_func_node("inp", 1, activation_function="identity")
+    net.add_diffeq_node("qif", ns.template, weights=A, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", spike_var="spike", spike_def="v",
+                        op="qif_sfa_op", spike_threshold=1e2, spike_reset=-1e2,
+                        node_vars={"all/qif_sfa_op/eta": etas, "all/qif_sfa_op/alpha": 0.05,
+                                   "all/qif_sfa_op/k": 15.0},
+                        coupling_dtype="int8_master", train_params=["weights"])
+    net.add_edge("inp", "qif", weights=rng.normal(size=(n, 1)).astype(np.float32))
+    net.add_edge("qif", "qif", weights=np.full(n, 0.3, dtype=np.float32), delays=delays,
+                 feedback=True, train="gd")
+    net.compile()
+    return net
+
+
+def qif_sharded_data(n: int, T: int) -> tuple:
+    """The example's training drive (3.0 from step ``T // 4``) and targets,
+    ``(T, 1)`` and ``(T, n)`` float32."""
+    inp = np.zeros((T, 1), dtype=np.float32)
+    inp[T // 4:, 0] = 3.0
+    tgt = (0.05 + 0.01 * np.sin(np.linspace(0, 8 * np.pi, T)))[:, None].astype(np.float32)
+    return inp, tgt * np.ones((1, n), dtype=np.float32)
+
+
+def _bench_qif_net(n: int, T: int, device):
+    """bench.py:331-370's network (QIF, dt 5e-3, 10% fan-in of 1 / (0.1 n),
+    tan etas; seed 2) with an ``int4_master`` coupling, and the first ``T``
+    steps of its drive and targets."""
+    from . import Network
+
+    rng = np.random.default_rng(2)
+    W = (rng.random((n, n)) < 0.1) * (1.0 / (0.1 * n))
+    etas = -5.0 + np.tan((np.pi / 2) * (2.0 * np.arange(1, n + 1) - n - 1) / (n + 1))
+    inp, tgt = rng.normal(size=(500, n))[:T], rng.normal(size=(500, n))[:T]
+    net = Network(5e-3, device=device)
+    net.add_diffeq_node("qif", QIF, weights=W, source_var="s", target_var="s_in",
+                        input_var="I_ext", output_var="s", op="qif_op", spike_var="spike",
+                        spike_def="v", spike_threshold=1e2, spike_reset=-1e2,
+                        node_vars={"all/qif_op/eta": etas}, coupling_dtype="int4_master",
+                        train_params=["weights"])
+    net.compile()
+    return net, inp, tgt
+
+
+def mesh_quant_fit(name: str, sizes: dict, device, cache: dict = None):
+    """``(net, fit, launches)`` of fit ``name`` of :data:`MESH_QUANT_FITS` at
+    ``sizes`` (``qif_n``, ``qif_bs``, ``qif_fan``, ``qif_T``, ``epochs``,
+    ``int4_n``, ``int4_T``, ``B``, ``B_T``): the network (built once; the
+    two int4 fits share bench.py's network through ``cache``),
+    ``fit(mesh)`` (the trained leaves set back to their start first; it
+    returns the losses and the trained leaves) and the launch counts a fit
+    must give, ``{"kernel.counter": count}`` (each rank's on a mesh)."""
+    from .ops import quant
+
+    epochs = sizes["epochs"]
+    if name == "qif_sharded":
+        n, T = sizes["qif_n"], sizes["qif_T"]
+        net = qif_sharded_net(n, sizes["qif_bs"], sizes["qif_fan"], device)
+        inp, tgt = (torch.as_tensor(a, device=device) for a in qif_sharded_data(n, T))
+
+        def train(mesh):
+            return net.fit_bptt([inp] * epochs, [tgt] * epochs, optimizer="adam", lr=1e-3,
+                                verbose=False, fused_bptt=True, mesh=mesh)["epoch_loss"]
+
+        leaves = {"weights": ("nodes", "qif", "weights"), "gains": ("edges", "qif->qif", "weights")}
+        launches = {"block_int8_mv.launches": epochs * T, "block_int8_mv.mma_launches": epochs * T}
+    else:
+        n, T = sizes["int4_n"], (sizes["int4_T"] if name == "int4_fit_bptt" else sizes["B_T"])
+        cache = {} if cache is None else cache
+        if "bench" not in cache:
+            cache["bench"] = _bench_qif_net(n, sizes["int4_T"], device)
+        net, inp, tgt = cache["bench"]
+        leaves = {"weights": ("nodes", "qif", "weights")}
+        if name == "int4_fit_bptt":
+            inp, tgt = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (inp, tgt))
+
+            def train(mesh):
+                return net.fit_bptt([inp] * epochs, [tgt] * epochs, optimizer="adam", lr=1e-4,
+                                    verbose=False, mesh=mesh)["epoch_loss"]
+
+            launches = {"int4_mv.launches": epochs * T, "int4_mv_t.launches": epochs * T}
+        else:
+            rng = np.random.default_rng(7)
+            ins, tgts = (torch.as_tensor(rng.normal(size=(sizes["B"], T, n)).astype(np.float32),
+                                         device=device) for _ in range(2))
+
+            def train(mesh):
+                return net.fit_bptt_batch(ins, tgts, n_epochs=1, optimizer="adam", lr=1e-4,
+                                          verbose=False, mesh=mesh)["train_loss"]
+
+            launches = {f"{k}.{c}": T for k in ("int4_mm", "int4_mm_t")
+                        for c in ("launches", "mma_launches")}
+    start = {key: net.parameters_pytree()[kind][label][k].clone()
+             for key, (kind, label, k) in leaves.items()}
+
+    def fit(mesh):
+        tree = {"nodes": {}, "edges": {}}
+        for key, (kind, label, k) in leaves.items():
+            tree[kind].setdefault(label, {})[k] = start[key].clone()
+        net._write_back(params=tree)
+        for counter in launches:
+            k, c = counter.split(".")
+            setattr(getattr(quant, k), c, 0)
+        loss = np.asarray(train(mesh), dtype=np.float64)
+        pt = net.parameters_pytree()
+        return {"loss": loss, **{key: pt[kind][label][k] for key, (kind, label, k)
+                                 in leaves.items()}}
+
+    return net, fit, launches
+
+
+def _counts(launches: dict) -> dict:
+    from .ops import quant
+
+    return {c: getattr(getattr(quant, c.split(".")[0]), c.split(".")[1]) for c in launches}
+
+
+def _fingerprint(t: torch.Tensor) -> list:
+    """Two int64 sums of ``t``'s bits (plain and position-weighted): equal
+    tensors give equal fingerprints, compared across processes."""
+    bits = t.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    weights = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 8191 + 1
+    return [int(bits.sum()), int((bits * weights).sum())]
+
+
+def _wait(path: str, deadline: float) -> None:
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"waited for {path}")
+        time.sleep(0.005)
+
+
+def mesh_quant_rank(cfg_json: str) -> None:
+    """One gloo rank of :func:`mesh_quant_turns` (a process of its own):
+    joins the group of ``cfg["world"]`` ranks through the FileStore
+    ``cfg["store"]``, makes ``make_mesh(world, device_type="cuda")`` with its
+    tensors on the card, builds each fit's network, and for each turn waits
+    for the caller's ``go_<fit>_<turn>`` file, fits on the mesh (both ranks
+    start together) and writes ``<fit>_<turn>.r<rank>.json``: the losses,
+    the fit's seconds, its launches, ``comm.tally()`` and the trained
+    leaves' fingerprints; rank 0 also saves the last turn's trained leaves
+    (``<fit>.pt``)."""
+    import torch.distributed as dist
+
+    import torch.fx.experimental.symbolic_shapes  # noqa: F401 (autograd.grad's first
+    # call with grad_outputs imports it: seconds, here before the timed turns)
+
+    from .parallel import comm, make_mesh
+
+    cfg = json.loads(cfg_json)
+    rank, d = cfg["rank"], cfg["dir"]
+    cuda = cfg["device_type"] == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", rank=rank, world_size=cfg["world"],
+                            store=dist.FileStore(cfg["store"], cfg["world"]),
+                            timeout=timedelta(seconds=cfg["timeout"]))
+    deadline = time.monotonic() + cfg["timeout"]
+    try:
+        mesh = make_mesh(cfg["world"], device_type=cfg["device_type"])
+        cache = {}
+        for name in cfg["fits"]:
+            net, fit, launches = mesh_quant_fit(name, cfg["sizes"], dev, cache)
+            launches = launches if cuda else {}  # the counters count CUDA launches
+            for turn in range(cfg["turns"]):
+                _wait(os.path.join(d, f"go_{name}_{turn}"), deadline)
+                dist.barrier()
+                comm.reset()
+                sync()
+                t0 = time.perf_counter()
+                rec = fit(mesh)
+                sync()
+                seconds = time.perf_counter() - t0
+                out = {"loss": rec["loss"].tolist(), "seconds": seconds,
+                       "launches": _counts(launches), "tally": comm.tally(),
+                       "fingerprints": {k: _fingerprint(v) for k, v in rec.items()
+                                        if k != "loss"}}
+                if rank == 0 and turn == cfg["turns"] - 1:
+                    torch.save({k: v.cpu() for k, v in rec.items() if k != "loss"},
+                               os.path.join(d, f"{name}.pt"))
+                with open(os.path.join(d, f"{name}_{turn}.r{rank}.json"), "w") as f:
+                    json.dump(out, f)
+                del rec
+            del net, fit
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_quant_turns(sizes: dict, tmp: str, fits=MESH_QUANT_FITS, turns: int = 2,
+                     world: int = 2, timeout: float = 600.0, tol: dict = None,
+                     device_type: str = "cuda") -> dict:
+    """The fits of :data:`MESH_QUANT_FITS` on a model axis of ``world``
+    gloo ranks on the one card, in turns with this process's fits of the
+    same networks without a mesh (plain, mesh, plain, mesh for two turns).
+    Each rank runs :func:`mesh_quant_rank` in a process of its own (started
+    first: its imports and CUDA context overlap this process's builds);
+    ``tmp`` holds the store and the records.  ``device_type="cpu"``
+    rehearses the same turns on CPU tensors (no card).
+
+    Checks, raising ``AssertionError``: every turn's launches equal the
+    counts a fit must give (this process's, and each rank's); the ranks'
+    losses and trained leaves identical, and each turn's equal to the first
+    turn's (as this process's); the mesh fit's losses and leaves within
+    ``tol[fit] = {"loss": rtol, "<leaf>": atol}`` of the fit without a mesh
+    (absent: bit for bit).  Returns ``{fit: report}``: the seconds of each
+    turn, launches, the ranks' ``comm.tally()`` of a fit and the largest
+    differences."""
+    tol = tol or {}
+    procs, logs = [], []
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    for r in range(world):
+        cfg = {"rank": r, "world": world, "store": os.path.join(tmp, "store"), "dir": tmp,
+               "sizes": sizes, "fits": list(fits), "turns": turns, "timeout": timeout,
+               "device_type": device_type}
+        logs.append(os.path.join(tmp, f"rank{r}.err"))
+        with open(logs[-1], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import sys; from rectipy_tpu_torch.testing import "
+                 "mesh_quant_rank; mesh_quant_rank(sys.argv[1])", json.dumps(cfg)],
+                stdout=subprocess.DEVNULL, stderr=err, env=env))
+    deadline = time.monotonic() + timeout
+    cuda = device_type == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    reports, cache = {}, {}
+    try:
+        for name in fits:
+            net, fit, launches = mesh_quant_fit(name, sizes, dev, cache)
+            launches = launches if cuda else {}  # the counters count CUDA launches
+            plain_s, mesh_s, first = [], [], None
+            for turn in range(turns):
+                sync()
+                t0 = time.perf_counter()
+                rec = fit(None)
+                sync()
+                plain_s.append(time.perf_counter() - t0)
+                got = _counts(launches)
+                if got != launches:
+                    raise AssertionError(f"{name} without a mesh: launches {got}, want "
+                                         f"{launches}")
+                if first is None:
+                    first = rec
+                elif not all(torch.equal(rec[k], first[k]) if k != "loss" else
+                             np.array_equal(rec[k], first[k]) for k in rec):
+                    raise AssertionError(f"{name} without a mesh: turn {turn} parts from turn 0")
+                del rec
+                open(os.path.join(tmp, f"go_{name}_{turn}"), "w").close()
+                recs = []
+                for r in range(world):
+                    path = os.path.join(tmp, f"{name}_{turn}.r{r}.json")
+                    while not os.path.exists(path):
+                        if any(p.poll() not in (None, 0) for p in procs) \
+                                or time.monotonic() > deadline:
+                            raise AssertionError(f"{name}: a rank failed or timed out: " + " | "
+                                                 .join(open(lg).read()[-2000:] for lg in logs))
+                        time.sleep(0.005)
+                    time.sleep(0.01)  # the json written whole
+                    with open(path) as f:
+                        recs.append(json.load(f))
+                mesh_s.append(max(r["seconds"] for r in recs))
+                for r, rec in enumerate(recs):
+                    if rec["launches"] != launches:
+                        raise AssertionError(f"{name} rank {r}: launches {rec['launches']}, "
+                                             f"want {launches}")
+                    for key in ("loss", "fingerprints"):
+                        if rec[key] != recs[0][key] or (turn and rec[key] != reports[name][key]):
+                            raise AssertionError(f"{name} rank {r} turn {turn}: {key} parts "
+                                                 f"from rank 0's or from turn 0's")
+                reports[name] = {"loss": recs[0]["loss"], "fingerprints": recs[0]["fingerprints"],
+                                 "tally": [r["tally"] for r in recs],
+                                 "launches": recs[0]["launches"]}
+            mesh_leaves = torch.load(os.path.join(tmp, f"{name}.pt"), map_location=dev)
+            diffs = {"loss": float(np.max(np.abs(np.asarray(reports[name]["loss"]) - first["loss"])
+                                          / np.abs(first["loss"])))}
+            for k, v in mesh_leaves.items():
+                diffs[k] = float((v - first[k]).abs().max())
+            limits = tol.get(name, {})
+            bad = {k: v for k, v in diffs.items() if v > limits.get(k, 0.0)}
+            if bad:
+                raise AssertionError(f"{name}: the mesh fit parts from the fit without a mesh: "
+                                     f"{bad} (limits {limits})")
+            reports[name].update(
+                plain_s=plain_s, mesh_s=mesh_s, diffs=diffs, limits=limits,
+                bit_identical=not any(diffs.values()), leaves={k: list(v.shape) for k, v in
+                                                               mesh_leaves.items()})
+            del net, fit, first, mesh_leaves
+            if cuda:
+                torch.cuda.empty_cache()
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        if any(p.returncode for p in procs):
+            raise AssertionError("a rank failed: " + " | ".join(open(lg).read()[-2000:]
+                                                              for lg in logs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return reports

@@ -10,10 +10,12 @@ mesh of that package or None.  Every input comes from a numpy seed.
 """
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 
-from _torch_parallel_cases import LIF, QIF, TANH, _rnn
+from _torch_parallel_cases import LIF, QIF, QIF_SFA, TANH, _rnn
+from rectipy_tpu_torch import testing
 
 
 def _np(x):
@@ -79,7 +81,7 @@ def int8_master(P, mesh):
                               "w": _np(net.get_node("rnn")["weights"])})
 
 
-def _block_delay_net(P, train=None):
+def _block_delay_net(P, train=None, **ekw):
     rng = np.random.default_rng(29)
     n_br = nb = 8
     cb, bs = 2, 4
@@ -92,7 +94,7 @@ def _block_delay_net(P, train=None):
     net.add_diffeq_node("rnn", TANH, weights=np.zeros((n, n)), input_var="li_op/I_ext",
                         output_var="li_op/v", source_var="tanh_op/r", target_var="li_op/r_in")
     net.add_edge("rnn", "rnn", weights=P.BlockSparseCoupling(blocks, cols), delays=d_blk,
-                 feedback=True, train=train)
+                 feedback=True, train=train, **ekw)
     net.compile()
     return net, inp
 
@@ -219,6 +221,186 @@ def block_coupling(P, mesh):
                        mesh=mesh)
     return _fit_info(P, net, {"loss": _np(obs["epoch_loss"]),
                               "w": _np(net.get_node("rnn")["weights"])})
+
+
+# ---------------------------------------- tests/test_torch_parallel_quant.py
+# The quantized couplings and the edges into a shard that a model axis above
+# one trains since the port's last mesh slice; the JAX package's fits of
+# each, without a mesh and on make_mesh(8), are the reference.
+def int4_master(P, mesh, fused_bptt="auto"):
+    """A dense ``int4_master`` chain fit (the chain trajectory, or plain
+    autograd with ``fused_bptt=False``), float64, four adam epochs."""
+    n = 16
+    rng = np.random.default_rng(31)
+    W0 = rng.normal(size=(n, n)) * 0.3
+    inp, tgt = rng.normal(size=(40, n)), rng.normal(size=(40, n)) * 0.1
+    net = _rnn(P, W0, train_params=["weights"], coupling_dtype="int4_master")
+    obs = net.fit_bptt([inp] * 4, [tgt] * 4, optimizer="adam", lr=1e-2, verbose=False,
+                       mesh=mesh, fused_bptt=fused_bptt)
+    return _fit_info(P, net, {"loss": _np(obs["epoch_loss"]),
+                              "w": _np(net.get_node("rnn")["weights"])})
+
+
+def int4_master_autograd(P, mesh):
+    return int4_master(P, mesh, fused_bptt=False)
+
+
+def int4_master_steps(P, mesh):
+    """Truncated BPTT (step mode, 10-step chunks) of the ``int4_master``
+    chain: plain autograd over the shard's step."""
+    n = 16
+    rng = np.random.default_rng(37)
+    W0 = rng.normal(size=(n, n)) * 0.3
+    inp, tgt = rng.normal(size=(40, n)), rng.normal(size=(40, n)) * 0.1
+    net = _rnn(P, W0, train_params=["weights"], coupling_dtype="int4_master")
+    obs = net.fit_bptt(inp, tgt, optimizer="adam", lr=1e-2, update_steps=10, verbose=False,
+                       mesh=mesh)
+    return _fit_info(P, net, {"loss": obs.to_numpy("loss"),
+                              "w": _np(net.get_node("rnn")["weights"])})
+
+
+def batch_int4_master(P, mesh):
+    """:func:`batch_int8_master` on an ``int4_master`` coupling: the
+    transposed products of ``(B, n)`` rows (``int4_mm_t`` on the card)."""
+    rng = np.random.default_rng(11)
+    W0 = rng.normal(scale=0.3, size=(8, 8))
+    ins, tgts = rng.normal(size=(4, 24, 1)), rng.normal(size=(4, 24, 8)) * 0.1
+    net = P.net(1e-2)
+    net.add_diffeq_node("p", TANH, weights=W0.copy(), source_var="tanh_op/r",
+                        target_var="li_op/r_in", input_var="li_op/I_ext",
+                        output_var="tanh_op/r", train_params=["weights"],
+                        coupling_dtype="int4_master")
+    obs = net.fit_bptt_batch(ins, tgts, n_epochs=3, batch_size=2, optimizer="adam", lr=1e-2,
+                             seed=5, verbose=False, mesh=mesh)
+    return _fit_info(P, net, {"w": _np(net.get_var("p", "weights")),
+                              "loss": _np(obs["train_loss"])})
+
+
+def multistart_int4_master(P, mesh):
+    """:func:`multistart`'s four starts on an ``int4_master`` coupling (the
+    starts over ``data``, each start's ``(B, n)`` rows on ``model``)."""
+    rng0 = np.random.default_rng(0)
+    W0 = rng0.normal(scale=0.3, size=(8, 8))
+    ins, tgts = rng0.normal(size=(4, 20, 1)), rng0.normal(size=(4, 20, 8)) * 0.1
+    net = P.net(1e-2)
+    net.add_diffeq_node("p", TANH, weights=W0.copy(), source_var="tanh_op/r",
+                        target_var="li_op/r_in", input_var="li_op/I_ext",
+                        output_var="tanh_op/r", train_params=["weights"],
+                        coupling_dtype="int4_master")
+    W_inits = np.random.default_rng(3).normal(scale=0.3, size=(4, 8, 8))
+    obs = net.fit_bptt_multistart(ins, tgts, n_starts=4, start_inits={("p", "weights"): W_inits},
+                                  n_epochs=2, optimizer="adam", lr=1e-2, verbose=False,
+                                  mesh=mesh)
+    return _fit_info(P, net, {"final": _np(obs["start_final_loss"]),
+                              "w": _np(net.get_var("p", "weights"))})
+
+
+def block_int8_master(P, mesh, fused_bptt="auto"):
+    """:func:`block_coupling` quantized: an ``int8_master`` block coupling
+    (a shard's block rows, the cotangent's scale over the ranks), float64,
+    three epochs; ``fused_bptt=False`` takes plain autograd."""
+    rng = np.random.default_rng(23)
+    A = P.block_random_connectivity(32, 32, 8, block_size=4, seed=3)
+    inp, tgt = rng.normal(size=(30, 32)), rng.normal(size=(30, 32)) * 0.1
+    net = _rnn(P, A, train_params=["weights"], coupling_dtype="int8_master")
+    obs = net.fit_bptt([inp] * 3, [tgt] * 3, optimizer="adam", lr=1e-2, verbose=False,
+                       mesh=mesh, fused_bptt=fused_bptt)
+    return _fit_info(P, net, {"loss": _np(obs["epoch_loss"]),
+                              "w": _np(net.get_node("rnn")["weights"])})
+
+
+def block_int8_master_autograd(P, mesh):
+    return block_int8_master(P, mesh, fused_bptt=False)
+
+
+def qif_sharded_net(P, n=64, bs=8, fan_in=16, dtype="float32"):
+    """``examples/qif_100k_sharded.py``'s training network at ``n`` neurons
+    (``rectipy_tpu_torch.testing.qif_sharded_net``, built in ``P``'s
+    package): block size ``bs``, fan-in ``fan_in``."""
+    ns = SimpleNamespace(net=lambda dt: P.net(dt, dtype, feedback=True), template=QIF_SFA,
+                         block_random_connectivity=P.block_random_connectivity)
+    return testing.qif_sharded_net(n, bs, fan_in, ns=ns)
+
+
+def qif_sharded(P, mesh):
+    """The example's fit at N=64, block size 8, T=200, two epochs: the
+    graph trajectory through the int8 blocks and the delayed gains.
+    Float64: the JAX package's float32 network fails its trajectory's
+    carry check under ``jax_enable_x64``, which the tests switch on (its
+    delay buffer's update promotes to float64)."""
+    net = qif_sharded_net(P, dtype="float64")
+    inp, tgt = testing.qif_sharded_data(64, 200)
+    obs = net.fit_bptt([inp] * 2, [tgt] * 2, optimizer="adam", lr=1e-3, verbose=False,
+                       fused_bptt=True, mesh=mesh)
+    return _fit_info(P, net, {"loss": _np(obs["epoch_loss"]),
+                              "w": _np(net.get_node("qif")["weights"]),
+                              "gains": _np(net.get_edge("qif", "qif").weights)})
+
+
+def block_edge_int8(P, mesh):
+    """:func:`block_delay`'s per-block-delayed feedback edge at
+    ``block_dtype='int8_master'`` (as ``benchmarks/block_delay_scale.py``
+    streams it): the frozen edge's run, then the edge trained through the
+    graph trajectory, float64."""
+    net, inp = _block_delay_net(P)
+    tgt = net.run(inp, sampling_steps=2, verbose=False).to_numpy("out")
+    # the frozen edge's run (its stack's activation scale over the ranks)
+    out = _block_delay_net(P, block_dtype="int8_master")[0].run(
+        inp, sampling_steps=2, verbose=False, mesh=mesh).to_numpy("out")
+    net, _ = _block_delay_net(P, "gd", block_dtype="int8_master")
+    e = net.get_edge("rnn", "rnn")
+    e.weights = _np(e.weights) * 1.3
+    obs = net.fit_bptt([inp] * 3, [tgt] * 3, optimizer="adam", lr=1e-2, sampling_steps=2,
+                       verbose=False, mesh=mesh)
+    return _fit_info(P, net, {"out": out, "loss": _np(obs["epoch_loss"]), "w": _np(e.weights)})
+
+
+def _diag_net(P):
+    n = 16
+    rng = np.random.default_rng(43)
+    W0 = rng.normal(size=(n, n)) * 0.2
+    inp, tgt = rng.normal(size=(40, n)), rng.normal(size=(40, n)) * 0.1
+    net = P.net(1e-2, feedback=True)
+    net.add_func_node("inp", n, activation_function="identity")
+    net.add_diffeq_node("rnn", TANH, weights=W0, input_var="li_op/I_ext",
+                        output_var="li_op/v", source_var="tanh_op/r",
+                        target_var="li_op/r_in", train_params=["weights"])
+    net.add_edge("inp", "rnn", weights=rng.uniform(0.5, 1.5, size=n), train="gd")
+    net.add_edge("rnn", "rnn", weights=rng.normal(size=n) * 0.3,
+                 delays=rng.integers(0, 5, size=n), feedback=True, train="gd")
+    net.compile()
+    return net, inp, tgt
+
+
+def _diag_info(P, net, loss):
+    return _fit_info(P, net, {"loss": loss, "w": _np(net.get_node("rnn")["weights"]),
+                              "g_in": _np(net.get_edge("inp", "rnn").weights),
+                              "g_fb": _np(net.get_edge("rnn", "rnn").weights)})
+
+
+def diag_gains(P, mesh):
+    """Delayed diagonal gains (a ``LinearMemory`` with 1-D weights) and
+    undelayed ones into a sharded population, both trained by gradient
+    descent with its coupling, float64, four epochs (graph trajectory)."""
+    net, inp, tgt = _diag_net(P)
+    obs = net.fit_bptt([inp] * 4, [tgt] * 4, optimizer="adam", lr=1e-2, verbose=False,
+                       mesh=mesh)
+    return _diag_info(P, net, _np(obs["epoch_loss"]))
+
+
+def diag_gains_steps(P, mesh):
+    """:func:`diag_gains` in step mode (10-step chunks): the graph
+    trajectory carries the delayed gains' buffer (a shard: its rows) from
+    chunk to chunk."""
+    net, inp, tgt = _diag_net(P)
+    obs = net.fit_bptt(inp, tgt, optimizer="adam", lr=1e-2, update_steps=10, verbose=False,
+                       mesh=mesh)
+    return _diag_info(P, net, obs.to_numpy("loss"))
+
+
+QUANT_CASES = ("int4_master", "int4_master_autograd", "int4_master_steps", "batch_int4_master",
+               "multistart_int4_master", "block_int8_master", "block_int8_master_autograd", "qif_sharded",
+               "block_edge_int8", "diag_gains", "diag_gains_steps")
 
 
 # ------------------------------------------------ tests/test_multistart.py

@@ -8,7 +8,8 @@ every rank builds the same networks from the same seeds) and writes the
 records as ``OUT/<case>.r<RANK>.npz``.  Imports the port only, never JAX.
 The groups: ``parallel`` and ``runs`` (``run``/``run_batch``), ``train``
 (the BPTT trainers), ``fits`` (the online rules, ``fit_es``, an STP edge's
-run) and ``two_process`` (two ranks).
+run), ``quant`` (the quantized couplings and the edges into a shard, at
+model 4 and at data 2 x model 2) and ``two_process`` (two ranks).
 """
 
 import os
@@ -228,13 +229,23 @@ def train(c: Case):
     c.save("train_budget", **budget)
 
 
-def _train_budget(m, T, n=64):
+def _train_budget(m, T, n=64, kind=None):
+    """``[all-gathers, all-reduces, others]`` of one value-and-gradient of
+    the chain trajectory's loss (``kind``: an ``int4_master`` coupling, or
+    a ``block_int8_master`` one of 4-blocks and fan-in 8)."""
     from rectipy_tpu_torch.ops.bptt import make_coupled_traj
     from rectipy_tpu_torch.parallel import comm
     from rectipy_tpu_torch.parallel.sharding import NetworkShard
 
     rng = np.random.default_rng(12)
-    net = C.build_rnn(P, rng.normal(size=(n, n)) * 0.2, train_params=["weights"])
+    if kind is None:
+        net = C.build_rnn(P, rng.normal(size=(n, n)) * 0.2, train_params=["weights"])
+    elif kind == "int4_master":
+        net = C.build_rnn(P, rng.normal(size=(n, n)) * 0.2, train_params=["weights"],
+                          coupling_dtype=kind)
+    else:
+        net = C.build_rnn(P, P.block_random_connectivity(n, n, 8, block_size=4, seed=3),
+                          train_params=["weights"], coupling_dtype="int8_master")
     shard = NetworkShard(net, m)
     traj, wkeys = make_coupled_traj(shard.node("rnn"), comm=shard.traj_comm())
     nargs = shard.place(net.parameters_pytree())["nodes"]["rnn"]
@@ -250,6 +261,42 @@ def _train_budget(m, T, n=64):
     t = comm.tally()
     return [t["all-gather"]["count"], t["all-reduce"]["count"],
             sum(t[op]["count"] for op in t if op not in ("all-gather", "all-reduce"))]
+
+
+def quant(c: Case):
+    for name in TC.QUANT_CASES:
+        c.pair(name, getattr(TC, name), 4)
+        c.pair(name + "_d2", getattr(TC, name), 4, data=2)
+    # one value-and-gradient of the int4_master and block int8_master
+    # chain trajectories' loss at T and 2T steps, model 2 and 4
+    budget = {}
+    for k in (2, 4):
+        m = mesh(k)
+        for kind in ("int4_master", "block_int8_master"):
+            for T in (8, 16):
+                if m.get_coordinate() is not None:
+                    budget[f"{kind}_m{k}_T{T}"] = _train_budget(m, T, 32, kind)
+            for T in (8, 16):
+                if m.get_coordinate() is not None:
+                    budget[f"qif_sharded_m{k}_T{T}"] = _graph_budget(m, T)
+    c.save("quant_budget", **budget)
+
+
+def _graph_budget(m, T, n=64):
+    """``[all-gathers, all-reduces, others, all-gather bytes, all-reduce
+    bytes]`` of a one-epoch fit of the 100k example's network (block size
+    8) through the graph trajectory."""
+    from rectipy_tpu_torch.parallel import comm
+
+    net = TC.qif_sharded_net(P, n, dtype="float64")
+    inp, tgt = TC.testing.qif_sharded_data(n, T)
+    comm.reset()
+    net.fit_bptt([inp], [tgt], optimizer="adam", lr=1e-3, verbose=False, fused_bptt=True,
+                 mesh=m)
+    t = comm.tally()
+    return [t["all-gather"]["count"], t["all-reduce"]["count"],
+            sum(t[op]["count"] for op in t if op not in ("all-gather", "all-reduce")),
+            t["all-gather"]["bytes"], t["all-reduce"]["bytes"]]
 
 
 def fits(c: Case):
@@ -284,7 +331,7 @@ def main():
                             store=dist.FileStore(store, world),
                             timeout=timedelta(seconds=120))
     try:
-        {"parallel": parallel, "runs": runs, "train": train, "fits": fits,
+        {"parallel": parallel, "runs": runs, "train": train, "fits": fits, "quant": quant,
          "two_process": two_process}[group](Case(rank, out))
         dist.barrier()
     finally:

@@ -2561,3 +2561,33 @@ def test_one_rank_nccl_mesh_fit_equals_fit(cuda, tmp_path, case, monkeypatch):
             np.testing.assert_array_equal(a, b)
     finally:
         dist.destroy_process_group()
+
+
+# a model axis of two on the one card (chip_smoke.py phase 51 at small N):
+# two gloo ranks, two processes, their tensors on the card
+_MQ_SIZES = dict(qif_n=4_096, qif_bs=512, qif_fan=1_000, qif_T=60, epochs=2, int4_n=1_024,
+                 int4_T=60, B=8, B_T=40)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fit", ["qif_sharded", "int4_fit_bptt", "int4_fit_bptt_batch"])
+def test_two_gloo_ranks_on_the_card_fit_as_without_a_mesh(cuda, tmp_path, fit):
+    # (a) the 100k example's network at N=4,096 (int8_master blocks and
+    # delayed diagonal gains, graph trajectory), (b) the int4_master chain,
+    # (c) its fit_bptt_batch on data 1 x model 2: each rank's launches of
+    # block_int8_mv, int4_mv / int4_mv_t or int4_mm / int4_mm_t (all on the
+    # tensor cores), the same losses and leaves on both ranks and in both
+    # turns, within chip_smoke.py's MQ_TOL of the fit without a mesh, and
+    # the quantized products' collectives counted on each rank
+    from rectipy_tpu_torch.testing import mesh_quant_turns
+
+    tol = {fit: {"loss": 1e-6, "weights": 1e-7, "gains": 1e-7}}
+    rep = mesh_quant_turns(_MQ_SIZES, str(tmp_path), fits=(fit,), tol=tol, timeout=300)[fit]
+    steps = (_MQ_SIZES["epochs"] * _MQ_SIZES["qif_T"] if fit == "qif_sharded" else
+             _MQ_SIZES["epochs"] * _MQ_SIZES["int4_T"] if fit == "int4_fit_bptt" else
+             _MQ_SIZES["B_T"])
+    assert set(rep["launches"].values()) == {steps}
+    for tally in rep["tally"]:
+        assert tally["all-gather"]["count"] >= steps
+        assert tally["all-reduce"]["count"] >= 2 * steps  # a scale and a sum a step
+    assert np.all(np.isfinite(rep["loss"]))
